@@ -1,0 +1,7 @@
+"""Inference runtime: sampling, prefill/decode, the bucketed
+`TutoringEngine` and the `BatchingQueue` in front of it."""
+
+from .batcher import BatchingQueue  # noqa: F401
+from .engine import EngineConfig, TutoringEngine  # noqa: F401
+from .generate import GenerateResult, decode, generate, prefill  # noqa: F401
+from .sampling import SamplingParams, sample_step  # noqa: F401

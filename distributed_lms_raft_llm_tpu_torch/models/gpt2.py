@@ -1,0 +1,236 @@
+"""GPT-2 forward on plain tensors.
+
+Port of `distributed_lms_raft_llm_tpu/models/gpt2.py`. Parameters are the
+same nested dict, with per-layer weights stacked on a leading layer axis
+(`convert.params_from_jax` carries a JAX pytree across unchanged); the
+trunk is a Python loop that indexes layer ``i``. There is no jit or scan:
+PyTorch runs eagerly.
+
+`forward` has three modes:
+
+- full sequence (``cache=None``): causal attention over the input;
+- cached with one scalar offset (``cache.length``): prefill and decode
+  write their keys/values into the cache IN PLACE at that offset;
+- cached with T == 1 and ``cfg.fused_decode_attention``: attention runs
+  through `ops.attention.decode_attention` (the CUDA kernel on the card,
+  its plain version on the CPU), reading the layer from the stacked cache.
+
+The JAX package's ragged per-row offsets (paged engine) and int8 KV cache
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..device import DeviceLike
+from ..ops import attention as attention_ops
+from .common import (
+    KVCache,
+    attend,
+    causal_window_mask,
+    dense,
+    embed_lookup,
+    layer_norm,
+    merge_heads,
+    split_heads,
+    unembed,
+)
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    max_position_embeddings: int = 1024
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    layer_norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.float32  # compute dtype; bfloat16 serving
+    param_dtype: torch.dtype = torch.float32
+    # Route the single-token decode step through ops.attention's kernel
+    # (set by the engine, EngineConfig.fused_attention).
+    fused_decode_attention: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def mlp_dim(self) -> int:
+        return 4 * self.hidden_size
+
+    @classmethod
+    def small(cls, **kw) -> "GPT2Config":
+        """GPT-2 small (124M): the published width."""
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "GPT2Config":
+        """Test-size config (the JAX package's `tiny`)."""
+        kw.setdefault("vocab_size", 384)
+        kw.setdefault("max_position_embeddings", 64)
+        return cls(hidden_size=32, num_layers=2, num_heads=4, **kw)
+
+
+def init_params(cfg: GPT2Config, seed: int = 0,
+                device: DeviceLike = "cuda") -> Params:
+    """Random init in GPT-2's scheme (normal 0.02, scaled residual
+    projections), drawn from a `torch.Generator` seeded with `seed` on
+    `device`. The draws differ from `jax.random`'s; parity tests carry JAX
+    weights across with `convert.params_from_jax` instead."""
+    d, n_layers, m = cfg.hidden_size, cfg.num_layers, cfg.mlp_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+    std = 0.02
+    proj_std = std / math.sqrt(2.0 * n_layers)
+    pd = cfg.param_dtype
+
+    def norm(shape, s):
+        x = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * s).to(pd)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=pd, device=device)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=pd, device=device)
+
+    return {
+        "wte": norm((cfg.vocab_size, d), std),
+        "wpe": norm((cfg.max_position_embeddings, d), std),
+        "blocks": {
+            "ln1": {"scale": ones((n_layers, d)), "bias": zeros((n_layers, d))},
+            "attn": {
+                "wqkv": norm((n_layers, d, 3 * d), std),
+                "bqkv": zeros((n_layers, 3 * d)),
+                "wo": norm((n_layers, d, d), proj_std),
+                "bo": zeros((n_layers, d)),
+            },
+            "ln2": {"scale": ones((n_layers, d)), "bias": zeros((n_layers, d))},
+            "mlp": {
+                "wi": norm((n_layers, d, m), std),
+                "bi": zeros((n_layers, m)),
+                "wo": norm((n_layers, m, d), proj_std),
+                "bo": zeros((n_layers, d)),
+            },
+        },
+        "lnf": {"scale": ones((d,)), "bias": zeros((d,))},
+    }
+
+
+def init_cache(cfg: GPT2Config, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = "cuda") -> KVCache:
+    return KVCache.create(cfg.num_layers, batch, cfg.num_heads, max_len,
+                          cfg.head_dim, dtype or cfg.dtype, device)
+
+
+def layer_params(params: Params, i: int) -> Params:
+    """Layer i's weights as views into the stacked block tensors."""
+    return {name: {k: v[i] for k, v in group.items()}
+            for name, group in params["blocks"].items()}
+
+
+def apply_block(x: torch.Tensor, lp: Params, attend_fn,
+                cfg: GPT2Config) -> torch.Tensor:
+    """One transformer block; `attend_fn(q, k_new, v_new) -> context` owns
+    cache handling and attention."""
+    eps = cfg.layer_norm_eps
+    h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
+    qkv = dense(h, lp["attn"]["wqkv"], lp["attn"]["bqkv"])
+    q, k, v = qkv.split(cfg.hidden_size, dim=-1)
+    a = attend_fn(
+        split_heads(q, cfg.num_heads),
+        split_heads(k, cfg.num_heads),
+        split_heads(v, cfg.num_heads),
+    )
+    x = x + dense(merge_heads(a), lp["attn"]["wo"], lp["attn"]["bo"])
+    h2 = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
+    m = dense(h2, lp["mlp"]["wi"], lp["mlp"]["bi"])
+    m = F.gelu(m, approximate="tanh")  # GPT-2 uses the tanh approximation
+    return x + dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"])
+
+
+def forward(
+    params: Params,
+    cfg: GPT2Config,
+    input_ids: torch.Tensor,
+    cache: Optional[KVCache] = None,
+    positions: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the transformer; returns (logits [B, T, V] float32, cache).
+
+    cache      — None for full-sequence mode; a KVCache for incremental
+                 prefill/decode. New keys/values are written IN PLACE into
+                 `cache.k`/`cache.v` at slot `cache.length` (one offset for
+                 the batch); the returned cache shares that storage with
+                 `length` advanced by T. `cache.length + T` must fit the
+                 cache: checked here, where JAX would clamp silently.
+    positions  — [B, T] indices into the learned position table; defaults
+                 to the slot indices. Out-of-range positions raise (PyTorch
+                 indexing is bounds-checked).
+    kv_mask    — [B, num_keys] validity of each key slot (False = padding).
+    """
+    b, t = input_ids.shape
+    device = input_ids.device
+    offset = 0 if cache is None else cache.length
+    if cache is not None and offset + t > cache.max_len:
+        raise ValueError(
+            f"cache overflow: {offset} + {t} slots > cache of {cache.max_len}"
+        )
+    q_slots = (offset + torch.arange(t, device=device))[None, :].expand(b, t)
+    if positions is None:
+        if offset + t > cfg.max_position_embeddings:
+            raise ValueError(
+                f"positions up to {offset + t} exceed the position table "
+                f"{cfg.max_position_embeddings}"
+            )
+        positions = q_slots
+
+    x = embed_lookup(params["wte"], input_ids) + params["wpe"][positions]
+    x = x.to(cfg.dtype)
+
+    num_keys = t if cache is None else cache.max_len
+    mask = causal_window_mask(q_slots, num_keys)  # [B, 1, T, num_keys]
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, None, :]
+
+    if cache is None:
+        def attend_full(q, k, v):
+            return attend(q, k, v, mask)
+
+        for i in range(cfg.num_layers):
+            x = apply_block(x, layer_params(params, i), attend_full, cfg)
+        new_cache = None
+    else:
+        fused = cfg.fused_decode_attention and t == 1
+        # The attend-mask is layer-invariant: its bias form is built once.
+        bias = attention_ops.mask_to_bias(mask) if fused else None
+        ck, cv = cache.k, cache.v
+        for i in range(cfg.num_layers):
+
+            def attend_fn(q, k_new, v_new, layer=i):
+                ck[layer, :, :, offset:offset + t] = k_new.to(ck.dtype)
+                cv[layer, :, :, offset:offset + t] = v_new.to(cv.dtype)
+                if fused:
+                    return attention_ops.decode_attention(
+                        q.contiguous(), ck, cv, layer, bias
+                    )
+                return attend(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype),
+                              mask)
+
+            x = apply_block(x, layer_params(params, i), attend_fn, cfg)
+        new_cache = KVCache(k=ck, v=cv, length=offset + t)
+
+    x = layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"],
+                   cfg.layer_norm_eps)
+    return unembed(x, params["wte"]), new_cache

@@ -1,0 +1,53 @@
+"""Serving presets the port carries: GPT-2 small (`gpt2`) and `tiny`.
+
+Port of `distributed_lms_raft_llm_tpu/models/registry.py`. The engine
+drives a family through the same surface as the JAX package's:
+
+    init_params(cfg, seed, device) -> params
+    forward(params, cfg, ids, cache=, positions=, kv_mask=) -> (logits, cache)
+    init_cache(cfg, batch, max_len, dtype=, device=) -> KVCache
+    params_from_hf(state_dict, cfg, device) -> params
+
+Other presets of the JAX package (larger GPT-2s, Llama, MoE) are refused
+until a later slice ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from . import convert, gpt2
+
+
+class ModelFamily(NamedTuple):
+    name: str
+    init_params: Callable
+    forward: Callable
+    init_cache: Callable
+    params_from_hf: Callable
+
+
+GPT2_FAMILY = ModelFamily(
+    "gpt2", gpt2.init_params, gpt2.forward, gpt2.init_cache,
+    convert.gpt2_params_from_hf,
+)
+
+PRESETS = {
+    "gpt2": (GPT2_FAMILY, gpt2.GPT2Config.small),
+    "tiny": (GPT2_FAMILY, gpt2.GPT2Config.tiny),
+}
+
+
+def resolve(preset: str, dtype: torch.dtype,
+            param_dtype: Optional[torch.dtype] = None,
+            ) -> Tuple[ModelFamily, gpt2.GPT2Config]:
+    """Return (family, config) for a preset name."""
+    if preset not in PRESETS:
+        raise ValueError(
+            f"model preset {preset!r} is not ported to PyTorch yet; the "
+            f"port serves {sorted(PRESETS)}"
+        )
+    family, factory = PRESETS[preset]
+    return family, factory(dtype=dtype, param_dtype=param_dtype or dtype)

@@ -1,0 +1,2 @@
+"""Framework-free helpers, the port's own copies: tokenizers, metrics,
+deadlines and admission errors, forwarding auth."""

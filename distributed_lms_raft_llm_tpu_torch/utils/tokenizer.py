@@ -1,0 +1,163 @@
+"""GPT-2 tokenizers for the port's serving path — pure Python.
+
+The port's own copy of the GPT-2 half of
+`distributed_lms_raft_llm_tpu/utils/tokenizer.py`:
+
+- `BPETokenizer`  — GPT-2's byte-level BPE, from `vocab.json` + `merges.txt`;
+- `ByteTokenizer` — the byte-level fallback (ids 0..255 plus one special)
+  used when no vocab files are configured, so the serving stack runs end to
+  end with seeded random weights.
+
+`regex` (GPT-2's pre-tokenization pattern needs \\p classes) is imported
+only when a BPE tokenizer is built, so the byte path runs without it.
+
+All expose: `encode(text) -> List[int]`, `decode(ids) -> str`,
+`vocab_size`, `eos_id`, `pad_id`.
+"""
+
+from __future__ import annotations
+
+import json
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+
+@lru_cache()
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's reversible byte <-> printable-unicode mapping."""
+    bs = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("\xa1"), ord("\xac") + 1))
+        + list(range(ord("\xae"), ord("\xff") + 1))
+    )
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+# GPT-2's exact pre-tokenization pattern (contractions, unicode words,
+# numbers, punctuation runs, trailing/other whitespace). \p classes matter:
+# é is a letter, not punctuation — ASCII-only approximations break parity
+# with HF on any non-English text.
+_GPT2_PATTERN = (
+    r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""
+)
+
+
+class BPETokenizer:
+    """GPT-2 byte-level BPE from vocab.json + merges.txt."""
+
+    def __init__(self, vocab: Dict[str, int], merges: Sequence[Tuple[str, str]]):
+        self.encoder = dict(vocab)
+        self.decoder = {v: k for k, v in self.encoder.items()}
+        self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
+        self.byte_encoder = _bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        self._cache: Dict[str, List[str]] = {}
+        import regex  # \p{L}/\p{N} classes: required for the exact pattern
+
+        self._pat = regex.compile(_GPT2_PATTERN)
+        self.eos_id = self.encoder.get("<|endoftext|>", len(self.encoder) - 1)
+        self.pad_id = self.eos_id
+
+    @classmethod
+    def from_files(cls, vocab_path: str, merges_path: str) -> "BPETokenizer":
+        with open(vocab_path, encoding="utf-8") as f:
+            vocab = json.load(f)
+        merges = []
+        with open(merges_path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                parts = line.split()
+                if len(parts) == 2:
+                    merges.append((parts[0], parts[1]))
+        return cls(vocab, merges)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.encoder)
+
+    def _bpe(self, token: str) -> List[str]:
+        if token in self._cache:
+            return self._cache[token]
+        word: List[str] = list(token)
+        while len(word) > 1:
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+            best = min(pairs, key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if best not in self.bpe_ranks:
+                break
+            first, second = best
+            merged: List[str] = []
+            i = 0
+            while i < len(word):
+                if i < len(word) - 1 and word[i] == first and word[i + 1] == second:
+                    merged.append(first + second)
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = merged
+        self._cache[token] = word
+        return word
+
+    def encode(self, text: str) -> List[int]:
+        ids: List[int] = []
+        for tok in self._pat.findall(text):
+            tok_bytes = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+            for piece in self._bpe(tok_bytes):
+                ids.append(self.encoder[piece])
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        text = "".join(self.decoder.get(int(i), "") for i in ids)
+        data = bytearray(self.byte_decoder.get(ch, ord("?")) for ch in text)
+        return data.decode("utf-8", errors="replace")
+
+
+class ByteTokenizer:
+    """Fallback: UTF-8 bytes as ids 0..255; specials above.
+
+    Keeps every text path (serving, gate, tests, demos) runnable without any
+    vocab files. id 256 = BOS/EOS/pad.
+    """
+
+    def __init__(self, vocab_size: int = 257):
+        assert vocab_size >= 257
+        self._vocab_size = vocab_size
+        self.eos_id = 256
+        self.pad_id = 256
+        self.cls_id = 256
+        self.sep_id = 256
+
+    @property
+    def vocab_size(self) -> int:
+        return self._vocab_size
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
+        ids = list(text.encode("utf-8"))
+        if add_special_tokens:
+            ids = [self.cls_id] + ids + [self.sep_id]
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        data = bytes(i for i in (int(x) for x in ids) if i < 256)
+        return data.decode("utf-8", errors="replace")
+
+
+def load_gpt2_tokenizer(
+    vocab_path: Optional[str] = None,
+    merges_path: Optional[str] = None,
+):
+    """Serving tokenizer resolution: GPT-2 vocab.json + merges.txt BPE when
+    both are given, else the byte fallback."""
+    if vocab_path and merges_path:
+        return BPETokenizer.from_files(vocab_path, merges_path)
+    return ByteTokenizer()
