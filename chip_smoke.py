@@ -8,8 +8,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card (`nvidia-smi` name and power limit) and the torch build;
 2. build every kernel of the port from this checkout's sources;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the tutoring path gives it, with kernel, plain-version and
-   library-call times beside the least time the card could take;
+   shapes the tutoring path gives it (batch 1-8 x windows 33, 320, 384,
+   GPT-2's full 1024, GQA, rows padded to their last slot, a window of a
+   larger cache, q strided as the model passes it), with the launch plan
+   (`n_split`), kernel, eager-call, plain-version and library-call times
+   beside the least time the card could take;
 4. the main path: `BatchingQueue` -> `TutoringEngine` (GPT-2 small at full
    width, bf16, seeded random weights unless a checkpoint is given)
    answering 8 concurrent tutoring questions, greedy twice and once with
@@ -67,68 +70,37 @@ def emit(tag: str, **fields) -> None:
     print(f"{tag} {json.dumps(fields, sort_keys=True)}", flush=True)
 
 
-# ------------------------------------------------------------ timing
-
-
-def time_graph_us(torch, fn, iters: int = 50) -> float:
-    """Device time of one call of fn(i): `iters` calls captured in a CUDA
-    graph, replayed between CUDA events (no host launch overhead)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for i in range(3):
-            fn(i)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(i)
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) * 1e3 / (3 * iters)
-
-
-def time_eager_us(torch, fn, iters: int = 50) -> float:
-    """Per-call time of eager calls, host launch overhead included."""
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) * 1e3 / iters
-
-
 # ------------------------------------------------- decode attention
 
 
 def attention_case(torch, attention, *, b, h, hkv, s, dh=64, n_layers=12,
                    layer=7, dtype="bfloat16", pad=None, s_alloc=None,
-                   seed=0):
+                   strided_q=False, seed=0):
     """Kernel vs plain version (and SDPA as a yardstick) at one shape.
 
     pad: per-row left padding (ragged mask); s_alloc: the cache holds
-    s_alloc slots and the kernel reads a window of the first s.
-    Returns the case record; raises if the kernel disagrees."""
+    s_alloc slots and the kernel reads a window of the first s; strided_q:
+    q is a view of a [B, 1, 3*H*Dh] projection split into heads, as the
+    model passes it. Returns the case record; raises if the kernel
+    disagrees."""
     import torch.nn.functional as F
+
+    from distributed_lms_raft_llm_tpu_torch.ops.timing import (
+        time_eager_us,
+        time_graph_us,
+    )
 
     dt = getattr(torch, dtype)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     s_alloc = s_alloc or s
     shape = (n_layers, b, hkv, s_alloc, dh)
-    q = torch.randn((b, h, 1, dh), generator=gen, device=dev).to(dt)
+    if strided_q:
+        qkv = torch.randn((b, 1, 3 * h * dh), generator=gen,
+                          device=dev).to(dt)
+        q = qkv[..., :h * dh].reshape(b, 1, h, dh).transpose(1, 2)
+    else:
+        q = torch.randn((b, h, 1, dh), generator=gen, device=dev).to(dt)
     k_full = torch.randn(shape, generator=gen, device=dev).to(dt)
     v_full = torch.randn(shape, generator=gen, device=dev).to(dt)
     k_cache, v_cache = k_full[:, :, :, :s], v_full[:, :, :, :s]
@@ -154,8 +126,12 @@ def attention_case(torch, attention, *, b, h, hkv, s, dh=64, n_layers=12,
     n_ops = 4 * b * h * s * dh                # q.K and p.V multiply-adds
     bound_us = max(n_bytes / H100_HBM_BYTES_PER_S,
                    n_ops / PEAK_OPS_PER_S[dtype]) * 1e6
+    plan = attention.launch_plan(b, hkv, s, dh, dt, group=h // hkv)
     rec = dict(b=b, h=h, hkv=hkv, s=s, s_alloc=s_alloc, dh=dh,
                dtype=dtype, layer=layer, ragged=pad is not None,
+               padded_rows=sum(1 for p in pad or () if p),
+               strided_q=strided_q, n_split=plan.n_split,
+               split_keys=plan.split_keys, tile_keys=plan.tile_keys,
                max_abs_err=err, bound_us=bound_us,
                bound_by="bytes" if n_bytes / H100_HBM_BYTES_PER_S
                >= n_ops / PEAK_OPS_PER_S[dtype] else "operations")
@@ -177,10 +153,10 @@ def attention_case(torch, attention, *, b, h, hkv, s, dh=64, n_layers=12,
                                        attn_mask=sdpa_mask)
 
     rec.update(
-        kernel_us=time_graph_us(torch, kernel),
-        kernel_eager_us=time_eager_us(torch, kernel),
-        plain_us=time_graph_us(torch, plain),
-        library_us=time_graph_us(torch, library) if h == hkv else None,
+        kernel_us=time_graph_us(kernel),
+        kernel_eager_us=time_eager_us(kernel),
+        plain_us=time_graph_us(plain),
+        library_us=time_graph_us(library) if h == hkv else None,
     )
     return rec
 
@@ -234,6 +210,10 @@ def profile_generate(torch, engine, prompts) -> dict:
             us, n = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in by_name.values())
+
+    def launches_of(part):
+        return sum(n for name, (_, n) in by_name.items() if part in name)
+
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "wall_us": wall_us,
@@ -242,6 +222,8 @@ def profile_generate(torch, engine, prompts) -> dict:
         "device_busy_us": busy_us,
         "device_busy_share": busy_us / wall_us if busy_us else None,
         "kernels_launched": sum(n for _, n in by_name.values()),
+        "direct_copy_launches": launches_of("direct_copy_kernel"),
+        "decode_attention_launches": launches_of("decode_attention"),
         "top": [{"name": name[:90], "us": us, "count": n}
                 for name, (us, n) in top],
     }
@@ -334,19 +316,26 @@ def main(argv=None) -> int:
     records["build_s"] = build_s
 
     # 3. Kernel vs plain at GPT-2-small shapes.
+    shapes = [dict(b=b, s=s, dtype=dtype) for dtype in ("bfloat16", "float32")
+              for b in (1, 8) for s in (64, 384)]
+    # The main path's grid: batch x (bucket 32 + 1, bucket 256 + 64, 384).
+    shapes += [dict(b=b, s=s) for b in (1, 2, 4, 8) for s in (33, 320, 384)
+               if (b, s) not in ((1, 384), (8, 384))]
+    shapes += [
+        dict(b=8, s=1024), dict(b=1, s=1024),  # GPT-2's full window
+        dict(b=8, s=384, hkv=4),               # GQA
+        # ragged: the last row pads 383 of 384, so every split of it but
+        # the last is fully masked; then every row padded that far
+        dict(b=8, s=384, pad=[0, 5, 17, 60, 100, 150, 200, 383]),
+        dict(b=8, s=384, pad=[383] * 8),
+        dict(b=8, s=300, s_alloc=384),         # a window of the cache
+        dict(b=8, s=300, s_alloc=384, strided_q=True),
+    ]
     cases = []
-    for dtype in ("bfloat16", "float32"):
-        for b in (1, 8):
-            for s in (64, 384):
-                cases.append(attention_case(torch, attention, b=b, h=12,
-                                            hkv=12, s=s, dtype=dtype))
-    cases.append(attention_case(torch, attention, b=8, h=12, hkv=4, s=384))
-    cases.append(attention_case(torch, attention, b=8, h=12, hkv=12, s=384,
-                                pad=[0, 5, 17, 60, 100, 150, 200, 383]))
-    cases.append(attention_case(torch, attention, b=8, h=12, hkv=12, s=300,
-                                s_alloc=384))
-    for rec in cases:
-        emit("attention_case", **rec)
+    for shape in shapes:
+        cases.append(attention_case(torch, attention,
+                                    **{"h": 12, "hkv": 12, **shape}))
+        emit("attention_case", **cases[-1])
     records["attention_cases"] = cases
 
     # 4. The main path.
@@ -417,9 +406,10 @@ def main(argv=None) -> int:
     records["profile"] = profile_generate(torch, greedy_eng, prompts)
     emit("profile_greedy_batch", **records["profile"])
 
-    # The kernel at the widest window this run's decode gave it.
+    # The kernel at the widest window this run's decode gave it, with q
+    # strided as the model passes it.
     main_case = attention_case(torch, attention, b=8, h=12, hkv=12,
-                               s=bucket + 64, seed=1)
+                               s=bucket + 64, strided_q=True, seed=1)
     emit("attention_main_shape", **main_case)
 
     # Kernel path vs plain path, greedy tokens in float32.
@@ -466,6 +456,8 @@ def main(argv=None) -> int:
         "bound_ms": main_case["bound_us"] / 1e3,
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_us"] / 1e3,
+        "n_split": main_case["n_split"],
+        "eager_ms": main_case["kernel_eager_us"] / 1e3,
     }]
     records["kernels"] = kernels
     if args.out:

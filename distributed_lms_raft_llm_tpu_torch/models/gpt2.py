@@ -221,9 +221,9 @@ def forward(
             def attend_fn(q, k_new, v_new, layer=i):
                 ck[layer, :, :, offset:offset + t] = k_new.to(ck.dtype)
                 cv[layer, :, :, offset:offset + t] = v_new.to(cv.dtype)
-                if fused:
+                if fused:  # q is a strided view of qkv, read in place
                     return attention_ops.decode_attention(
-                        q.contiguous(), ck, cv, layer, bias
+                        q, ck, cv, layer, bias
                     )
                 return attend(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype),
                               mask)

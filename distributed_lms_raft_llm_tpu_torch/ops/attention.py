@@ -3,7 +3,9 @@
 Port of `distributed_lms_raft_llm_tpu/ops/attention.py` (the repository's
 one Pallas kernel). The kernel, `csrc/decode_attention.cu`, is written by
 hand for Hopper (`sm_90a`) and bound through ctypes (`ops/build.py`); its
-source notes what bounds it and how it is laid out.
+source notes what bounds it and how it is laid out. It splits the keys of a
+(row, KV head) across a thread-block cluster; `launch_plan` picks the split,
+the tile and the shared memory.
 
 `decode_attention` dispatches on where its tensors live: CPU tensors take
 `decode_attention_reference` (the plain PyTorch version, which the CPU
@@ -14,9 +16,10 @@ no fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 import operator
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -24,10 +27,19 @@ from ..models.common import NEG_INF
 from . import build
 
 KERNEL = "decode_attention"
-MAX_KEYS = 1024   # f32 scores of one group live in shared memory
 MAX_GROUP = 8     # query heads per KV head (csrc kMaxGroup)
 HEAD_DIMS = (8, 16, 32, 64, 128)  # csrc instantiations
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Launch geometry. The constants marked csrc must match the kernel source.
+TARGET_BLOCKS = 96         # split a window until this many blocks run
+MAX_SPLIT = 8              # blocks per cluster, the portable maximum (csrc)
+MIN_SPLIT_KEYS = 64        # no split shorter than this
+MAX_SPLIT_KEYS = 512       # nor longer than this, up to MAX_SPLIT splits
+TILE_BYTES = 16 * 1024     # bytes of K (and of V) per tile, at most
+RING_BYTES = 48 * 1024     # K and V staged per block, at most
+WARPS = 8                  # warps per block (csrc kThreads / 32)
+SMEM_LIMIT = 227 * 1024    # dynamic shared memory a block may use
 
 # Kernel launches by wrapper, incremented only where a kernel is launched
 # (never by the plain path). A run resets it, drives the main path, and
@@ -69,6 +81,85 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v).to(q.dtype)
 
 
+# ------------------------------------------------------------ launch plan
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call is cut: `n_split` blocks of one cluster share the
+    `split_keys`-key ranges of a (row, KV head), each walking its range in
+    tiles of `tile_keys` keys through a ring of `stages` tiles;
+    `smem_bytes` of dynamic shared memory."""
+
+    n_split: int
+    split_keys: int
+    tile_keys: int
+    stages: int
+    smem_bytes: int
+    blocks: int
+
+
+def _smem_bytes(group: int, dh: int, tile: int, elem: int, stages: int,
+                n_split: int) -> int:
+    """Dynamic shared memory of one block (csrc `smem_bytes`): the K/V ring
+    (reused for the warps' o), the warps' m and l, the splits' (m, l, o)
+    slots that rank 0 combines, and the K and V mbarriers of each stage."""
+    ring = stages * 2 * tile * dh * elem
+    reduce = WARPS * group * dh * 4
+    parts = n_split * group * (dh + 2) if n_split > 1 else 0
+    return max(ring, reduce) + 4 * (2 * WARPS * MAX_GROUP + parts) \
+        + 8 * stages * 2
+
+
+def max_tile_keys(group: int, dh: int, elem: int) -> int:
+    """Keys per tile, at most: 128 with one query head a KV head, else 64
+    (csrc `max_tile`: a lane group keeps its rows' scores in registers),
+    and no more than TILE_BYTES of K."""
+    return min(128 if group == 1 else 64, TILE_BYTES // (dh * elem))
+
+
+def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
+                group: int = 1, n_split: Optional[int] = None) -> LaunchPlan:
+    """Pick the split of the keys, the tile and the shared memory.
+
+    A cluster costs latency of its own, about a microsecond on an H100
+    (PERF.md, measured with `ops/sweep_attention.py`), so keys are split
+    only as far as the card needs: a window that fits one tile is not
+    split; a longer one doubles the split count (1, 2, 4, 8: a cluster
+    stays within the portable 8 blocks) while the launch has fewer than
+    TARGET_BLOCKS blocks or a split holds more than MAX_SPLIT_KEYS keys,
+    and every split keeps MIN_SPLIT_KEYS keys. `n_split` forces the count
+    instead (the sweep that measures the trade). The tile is at most
+    `max_tile_keys`, a multiple of 8 keys and no longer than a split
+    needs; the ring holds as many tiles as the split has, up to RING_BYTES
+    of K and V (at least two, so a tile can land while another is read).
+    """
+    rows = b * hkv
+    elem = dtype.itemsize
+    cap = max_tile_keys(group, dh, elem)
+    n = 1
+    if n_split is not None:
+        if n_split not in (1, 2, 4, MAX_SPLIT):
+            raise ValueError(f"n_split must be 1, 2, 4 or 8, not {n_split}")
+        n = n_split
+    elif s > cap:
+        while (n < MAX_SPLIT and s >= MIN_SPLIT_KEYS * 2 * n
+               and (rows * n < TARGET_BLOCKS
+                    or -(-s // n) > MAX_SPLIT_KEYS)):
+            n *= 2
+    split = -(-s // n)
+    tile = min(cap, -(-split // 8) * 8)
+    n_tiles = -(-split // tile)
+    stages = min(n_tiles, max(2, RING_BYTES // (2 * tile * dh * elem)))
+    return LaunchPlan(n_split=n, split_keys=split, tile_keys=tile,
+                      stages=stages,
+                      smem_bytes=_smem_bytes(group, dh, tile, elem, stages, n),
+                      blocks=rows * n)
+
+
+# ---------------------------------------------------------------- wrapper
+
+
 def _check_args(q: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, layer: int,
                 bias: torch.Tensor) -> None:
@@ -99,7 +190,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """Decode attention against one layer of the stacked KV cache.
 
-    q        [B, H, 1, Dh] — the decode step's queries
+    q        [B, H, 1, Dh] — the decode step's queries; for the kernel any
+             batch and head strides with Dh contiguous (a view of the
+             fused qkv projection is read in place)
     k_cache  [L, B, Hkv, S, Dh] — stacked cache (a view over the first S
              slots of a larger cache is fine: it is read in place)
     v_cache  [L, B, Hkv, S, Dh]
@@ -108,56 +201,116 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     returns  [B, H, 1, Dh] in q's dtype.
     """
     layer = operator.index(layer)
-    _check_args(q, k_cache, v_cache, layer, bias)
-    devices = {t.device for t in (q, k_cache, v_cache, bias)}
-    if len(devices) != 1:
+    device = q.device
+    if (k_cache.device != device or v_cache.device != device
+            or bias.device != device):
+        devices = {str(t.device) for t in (q, k_cache, v_cache, bias)}
         raise ValueError(
-            f"decode_attention tensors on several devices: {sorted(map(str, devices))}"
+            f"decode_attention tensors on several devices: {sorted(devices)}"
         )
-    (device,) = devices
     if device.type == "cpu":
+        _check_args(q, k_cache, v_cache, layer, bias)
         return decode_attention_reference(q, k_cache, v_cache, layer, bias)
     if device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {device}")
     return _launch_kernel(q, k_cache, v_cache, layer, bias)
 
 
-def _launch_kernel(q: torch.Tensor, k_cache: torch.Tensor,
-                   v_cache: torch.Tensor, layer: int,
-                   bias: torch.Tensor) -> torch.Tensor:
-    """Validate what the CUDA kernel takes, launch it, count the launch."""
+class _Args(ctypes.Structure):
+    """The kernel's arguments for one layout (csrc DecodeAttentionArgs),
+    built once and passed by address."""
+
+    _fields_ = [("q_sb", ctypes.c_longlong), ("q_sh", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in (
+            "B", "H", "Hkv", "S", "S_alloc", "Dh", "n_split", "split_keys",
+            "tile", "stages", "smem", "dtype")
+    ] + [("scale", ctypes.c_float)]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """One validated (shape, strides, dtype): its launch plan and the
+    kernel's arguments (kept alive here; `address` is what is passed)."""
+
+    plan: LaunchPlan
+    args: _Args
+    address: int
+
+
+# Validated layouts by (shape, strides, dtype) key: a decode step calls the
+# kernel once per layer with the same layout, so it is checked once.
+_layouts: Dict[tuple, _Layout] = {}
+_MAX_LAYOUTS = 256
+
+
+def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, bias: torch.Tensor) -> _Layout:
+    """Check what the kernel takes (everything but the layer index and the
+    pointers' alignment, which change per call); raise on anything else."""
+    _check_args(q, k_cache, v_cache, 0, bias)
     b, h, _, dh = q.shape
-    n_layers, _, hkv, s, _ = k_cache.shape
+    _, _, hkv, s, _ = k_cache.shape
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"decode_attention kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError("q, k_cache and v_cache must share one dtype, got "
                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
-    if h // hkv > MAX_GROUP or dh not in HEAD_DIMS or s > MAX_KEYS:
+    if h // hkv > MAX_GROUP or dh not in HEAD_DIMS:
         raise ValueError(
-            f"kernel limits: H/Hkv <= {MAX_GROUP}, Dh in {HEAD_DIMS}, "
-            f"S <= {MAX_KEYS}; got H/Hkv={h // hkv}, Dh={dh}, S={s}"
+            f"kernel limits: H/Hkv <= {MAX_GROUP}, Dh in {HEAD_DIMS}; got "
+            f"H/Hkv={h // hkv}, Dh={dh}"
         )
-    if not q.is_contiguous() or not bias.is_contiguous():
-        raise ValueError("q and bias must be contiguous")
+    elem = q.dtype.itemsize
+    sb, sh, _, sd = q.stride()
+    sb, sh = (sb if b > 1 else 0), (sh if h > 1 else 0)  # size 1: unread
+    if sd != 1 or (sb * elem) % 16 or (sh * elem) % 16:
+        raise ValueError(
+            "q must have a contiguous head dim and 16-byte aligned rows (the "
+            f"kernel reads 16-byte vectors); got strides {q.stride()}"
+        )
+    if not bias.is_contiguous():
+        raise ValueError("bias must be contiguous")
     s_alloc = _slot_stride(k_cache)
     if s_alloc is None or _slot_stride(v_cache) != s_alloc:
         raise ValueError(
             "k_cache/v_cache must be contiguous [L, B, Hkv, S_alloc, Dh] "
             "tensors, or views of such over their first S slots"
         )
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("k_cache/v_cache must be 16-byte aligned (the "
-                         "kernel reads 16-byte vectors)")
-    out = torch.empty_like(q)
-    lib = _library()
-    err = lib.decode_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, h, hkv, s, s_alloc, dh, layer,
-        _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    plan = launch_plan(b, hkv, s, dh, q.dtype, group=h // hkv)
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"launch plan needs {plan.smem_bytes} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    args = _Args(sb, sh, b, h, hkv, s, s_alloc, dh, plan.n_split,
+                 plan.split_keys, plan.tile_keys, plan.stages,
+                 plan.smem_bytes, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh))
+    return _Layout(plan=plan, args=args, address=ctypes.addressof(args))
+
+
+def _launch_kernel(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, layer: int,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Validate what the CUDA kernel takes, launch it, count the launch."""
+    key = (q.shape, q.stride(), q.dtype, k_cache.shape, k_cache.stride(),
+           k_cache.dtype, v_cache.shape, v_cache.stride(), v_cache.dtype,
+           bias.shape, bias.stride(), bias.dtype)
+    lay = _layouts.get(key)
+    if lay is None:
+        lay = _kernel_layout(q, k_cache, v_cache, bias)
+        if len(_layouts) >= _MAX_LAYOUTS:
+            _layouts.clear()
+        _layouts[key] = lay
+    n_layers = k_cache.shape[0]
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} outside [0, {n_layers})")
+    qp, kp, vp = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("q, k_cache and v_cache must be 16-byte aligned "
+                         "(the kernel reads 16-byte vectors)")
+    out = q.new_empty(q.shape)  # contiguous, whatever q's strides
+    launch, stream = _entry_point()
+    err = launch(lay.address, qp, kp, vp, bias.data_ptr(), out.data_ptr(),
+                 layer, stream(q.get_device()))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -178,11 +331,18 @@ def _slot_stride(cache: torch.Tensor) -> int | None:
     return s_alloc
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load(KERNEL)
-    fn = lib.decode_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p]
+_bound: Optional[Tuple[Callable[..., int], Callable[[int], int]]] = None
+
+
+def _entry_point() -> Tuple[Callable[..., int], Callable[[int], int]]:
+    """The C launch function, bound once (built first if needed), and the
+    device's current raw stream handle by index."""
+    global _bound
+    if _bound is None:
+        fn = build.load(KERNEL).decode_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+        # The current stream's handle for a device index, without building
+        # a torch.cuda.Stream object per call.
+        _bound = (fn, torch._C._cuda_getCurrentRawStream)
+    return _bound

@@ -6,46 +6,103 @@
 // token per batch row, against one layer of the stacked KV cache, with
 // scores and softmax in float32 and the output in q's dtype.
 //
-// Layouts (all row-major):
-//   q, out   [B, H, 1, Dh]                  T = float or bf16
-//   k, v     [L, B, Hkv, S_alloc, Dh]       stacked cache, same T; the
-//            kernel attends over the first S slots (S <= S_alloc) of layer
-//            `layer`, read in place by pointer offset: no slice copy.
-//   bias     [B, 1, S] float32, 0 (attend) or -1e30 (masked)
+// Layouts (row-major):
+//   q        [B, H, 1, Dh]   T = float or bf16; any batch and head strides
+//            (in elements), Dh stride 1, rows 16-byte aligned: a strided
+//            view of the fused qkv projection is read in place;
+//   out      [B, H, 1, Dh]   contiguous, T;
+//   k, v     [L, B, Hkv, S_alloc, Dh]  the stacked cache, T; the kernel
+//            attends over the first S slots (S <= S_alloc) of layer `layer`,
+//            read in place: slots [S, S_alloc) are stale and never read;
+//   bias     [B, 1, S] float32, 0 (attend) or -1e30 (masked).
 //
-// Design. One block per (KV head, batch row). The block serves all
-// G = H / Hkv query heads of its KV group, so each K/V element is read
-// from device memory once per group (GQA without materialising repeat_kv).
-//   1. scores: one thread per key; the thread reads the key's row as
-//      16-byte vectors, all of them issued before the first is used, and
-//      takes G dot products against q held in shared memory. The G x S
-//      float32 scores stay in shared memory (S <= 1024, checked by the
-//      wrapper);
-//   2. softmax: block-wide max and sum reductions per query head;
-//   3. weighted sum: a row of V is read by Dh/VEC neighbouring threads, one
-//      16-byte vector each, so a warp reads whole rows (coalesced) and the
-//      block walks kThreads/(Dh/VEC) rows at a time; partial sums are
-//      reduced across rows with warp shuffles, then across warps through
-//      shared memory, and scaled by 1/sum.
-// The head dim is a template parameter (8 to 128, a power of two), so the
-// per-row vector loops unroll completely.
+// What bounds it. Nothing is reused: every K and V byte is read once, and
+// q.K^T is a matrix-vector product (G <= 8 query rows per KV head, against
+// the 64-row tile a tensor-core `wgmma` takes), so the kernel is bound by
+// bytes, not operations. The least time is
+//   (2 * B * Hkv * S * Dh * sizeof(T) + 2 * B * H * Dh * sizeof(T)
+//    + 4 * B * S) / 3.35 TB/s        (H100 SXM HBM3),
+// e.g. B=8, Hkv=12, S=320, Dh=64 in bf16: 7.9 MB, 2.36 us. Tensor cores
+// would multiply mostly padding; the design spends its effort on having
+// the bytes in flight early instead.
 //
-// What bounds it. Nothing is reused: every K and V byte is read once, so
-// the kernel is bound by memory bandwidth. The least time is
-//   2 * B * Hkv * S * Dh * sizeof(T) / 3.35 TB/s   (H100 SXM HBM3),
-// e.g. B=8, Hkv=12, S=384, Dh=64 in bf16: 9.4 MB, about 2.8 us. At GPT-2
-// serving sizes that is near the launch latency. With B * Hkv blocks the
-// card is not full below 132 blocks; splitting S across blocks
-// (flash-decoding), TMA staging and CUDA graphs are later work.
+// Design, against what held the first version (one block per (KV head,
+// row), three serial phases, scores of the whole row in shared memory):
+//  1. Too few blocks. The keys of a (row, KV head) are split across a
+//     thread-block cluster of n_split <= 8 blocks (flash-decoding inside one
+//     launch): grid (n_split, Hkv, B), cluster (n_split, 1, 1). The wrapper's
+//     `launch_plan` picks n_split (see there for the measured trade: a
+//     cluster costs latency of its own).
+//  2. Serial phases, latency paid twice. Each block walks its key range in
+//     tiles through a ring of `stages` tiles in shared memory, deep enough
+//     to hold a whole split at serving sizes, so every byte of the block is
+//     requested at its start. One thread stages a tile of K and a tile of V,
+//     each one contiguous run of bytes in the cache, with one-dimensional
+//     bulk asynchronous copies (cp.async.bulk ... mbarrier::complete_tx);
+//     no tensor map is needed. K and V have separate mbarriers: scores start
+//     as soon as K lands while V is in flight; a freed stage is refilled
+//     with the next tile before the current tile is consumed.
+//  3. Scores of the whole row in shared memory (hence S <= 1024), and a
+//     block-wide softmax between the phases. Softmax is online and local:
+//     8 lanes share a key row, and each such lane group keeps its own
+//     running max m, sum l and slice of o[G][Dh] in float32 registers over
+//     its rows of every tile (rows grp, grp + 32, ..), so the key loop has
+//     no block-wide barrier at all. Nothing in shared memory grows with S,
+//     and S has no limit. After the loop the groups of a warp merge by
+//     shuffles, the warps through shared memory, the splits as below; every
+//     merge weighs a state by exp(m - max m) (log-sum-exp).
+//  4. Host cost: the wrapper validates a (shape, strides, dtype) once and
+//     takes q strided, so the caller needs no copy; one launch per call.
+// The splits are combined through distributed shared memory in the same
+// launch. Every block arrives (relaxed) on the cluster barrier at its
+// start and waits on it before its first remote access, which proves that
+// rank 0 is running. Each block then stores its (m, l, o) into its slot of
+// rank 0's shared memory and arrives again (release); rank 0 waits
+// (acquire), weighs slot k by exp(m_k - max m) (log-sum-exp) and writes
+// `out`. Only rank 0's memory is accessed remotely and rank 0 leaves last,
+// so no block exits while a peer still uses its memory. No second kernel,
+// no global scratch, no atomic counter: the launch is capturable in a CUDA
+// graph and replays unchanged.
+//
+// Masking is exact. "No key yet" is the finite lowest float, never -inf, so
+// an empty or fully masked split cannot give -inf - -inf = NaN; a fully
+// masked split's maximum is about -1e30, so its combine weight
+// exp(-1e30 - m) is exactly 0 beside any split with a valid key. Every row
+// keeps at least one valid key (the caller's contract).
+//
+// Reading shared memory: the 8 lanes of a group read a K or V row as
+// 16-byte vectors (a warp reads 4 whole rows, 512 contiguous bytes: no bank
+// conflicts); a 3-step shuffle sums their slices of q.k. One block serves the
+// G = H / Hkv query heads of its KV head, so each K/V byte is read once per
+// group (GQA without repeating K/V). Blocks are 256 threads: an unsplit
+// window of a few hundred keys is then walked by 32 lane groups at once.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
+
+// The per-layout arguments, prepared once by the wrapper (ctypes
+// structure `_Args` in ops/attention.py): passing them by pointer keeps the
+// per-call argument list short. Outside the anonymous namespace, so the
+// C entry point that takes it keeps external linkage.
+struct DecodeAttentionArgs {
+  long long q_sb, q_sh;  // q's batch and head strides, in elements
+  int B, H, Hkv, S, S_alloc, Dh;
+  int n_split, split_keys, tile, stages, smem;  // the launch plan
+  int dtype;                                    // 0 float32, 1 bfloat16
+  float scale;
+};
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;  // query heads per KV head (H / Hkv)
+constexpr int kMaxSplit = 8;  // blocks per cluster (the portable maximum)
 constexpr float kLowest = -3.402823466e38f;
 
 // 16-byte vector loads, widened to float.
@@ -62,7 +119,6 @@ struct Vec<float> {
     out[2] = v.z;
     out[3] = v.w;
   }
-  __device__ __forceinline__ static float to_float(float x) { return x; }
   __device__ __forceinline__ static void store(float* p, float x) { *p = x; }
 };
 
@@ -80,209 +136,494 @@ struct Vec<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
-  __device__ __forceinline__ static float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
   __device__ __forceinline__ static void store(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16(x);
   }
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// ---------------------------------------------- mbarrier, bulk, cluster
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// Block-wide reduction; every thread gets the result. scratch: kWarps floats.
-template <bool kMax>
-__device__ float block_reduce(float x, float* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  x = kMax ? warp_max(x) : warp_sum(x);
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  float y = lane < kWarps ? scratch[lane] : (kMax ? kLowest : 0.f);
-  y = kMax ? warp_max(y) : warp_sum(y);
-  __syncthreads();  // scratch may be reused after this
-  return y;
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-template <typename T, int kDh>
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One contiguous global -> shared copy; completion counted on `bar`.
+// dst, src 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ the layout
+
+// Keys per tile, at most: a lane group holds its rows' scores of a tile
+// in registers, so the cap is lower where G heads need G scores a row.
+__host__ __device__ constexpr int max_tile(int G) { return G == 1 ? 128 : 64; }
+
+// Shared memory, in bytes (the wrapper's ops/attention.py::_smem_bytes
+// computes the same sum; the launch checks it was given at least this):
+//   [ring | reduce]  K/V ring [stages][2][tile][Dh] T, reused after the key
+//                    loop for the warps' o [kWarps][G][Dh] f32
+//   m, l             [kWarps][kMaxGroup] f32 each: the warps' softmax state
+//   parts            n_split > 1 only, read on rank 0: o [n_split][G][Dh],
+//                    m [n_split][G], l [n_split][G] f32
+//   barriers         [stages][2] u64 (K, V)
+__host__ __device__ inline size_t region0_bytes(int G, int Dh, int tile,
+                                                int elem, int stages) {
+  const size_t ring = (size_t)stages * 2 * tile * Dh * elem;
+  const size_t reduce = (size_t)kWarps * G * Dh * sizeof(float);
+  return ring > reduce ? ring : reduce;
+}
+
+__host__ __device__ inline size_t smem_bytes(int G, int Dh, int tile,
+                                             int elem, int stages,
+                                             int n_split) {
+  const size_t parts =
+      n_split > 1 ? (size_t)n_split * G * (Dh + 2) : (size_t)0;
+  return region0_bytes(G, Dh, tile, elem, stages) +
+         sizeof(float) * (2 * kWarps * kMaxGroup + parts) +
+         sizeof(uint64_t) * stages * 2;
+}
+
+// Merges softmax state (m, l, o) with another's: both rescaled to the
+// larger maximum. With the finite lowest float as "no key yet", two empty
+// states merge to an empty one (weights 1, sums 0), never NaN.
+__device__ __forceinline__ void merge_weights(float& m, float& l, float m2,
+                                              float l2, float& a, float& a2) {
+  const float mm = fmaxf(m, m2);
+  a = expf(m - mm);
+  a2 = expf(m2 - mm);
+  l = l * a + l2 * a2;
+  m = mm;
+}
+
+// ------------------------------------------------------------ the kernel
+
+template <typename T, int kDh, int kG>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
+decode_attention_kernel(const T* __restrict__ q, long long q_sb,
+                        long long q_sh, const T* __restrict__ k_cache,
                         const T* __restrict__ v_cache,
                         const float* __restrict__ bias, T* __restrict__ out,
                         int B, int H, int Hkv, int S, int S_alloc, int layer,
-                        float scale) {
-  constexpr int kN = Vec<T>::kN;
+                        int split_keys, int tile, int stages, float scale) {
+  constexpr int kN = Vec<T>::kN;             // elements per 16-byte vector
   constexpr int kChunks = kDh / kN;          // vectors per row
-  constexpr int kRows = kThreads / kChunks;  // V rows walked at a time
+  constexpr int kLpr = kChunks < 8 ? kChunks : 8;  // lanes per key row
+  constexpr int kVpl = kChunks / kLpr;       // vectors per lane
+  constexpr int kE = kVpl * kN;              // elements per lane
+  constexpr int kGroups = kThreads / kLpr;   // lane groups per block
+  constexpr int kRows = (max_tile(kG) + kGroups - 1) / kGroups;  // a tile
   static_assert(kDh % kN == 0 && kChunks <= 32 && 32 % kChunks == 0,
                 "head dim must be a power of two from 8 to 128");
+  static_assert(kG >= 1 && kG <= kMaxGroup, "group bound");
 
-  extern __shared__ float smem[];
-  const int g = blockIdx.x;  // KV head
-  const int b = blockIdx.y;  // batch row
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int split = blockIdx.x;  // == rank in the cluster
+  const int n_split = gridDim.x;
+  const int g = blockIdx.y;      // KV head
+  const int b = blockIdx.z;      // batch row
   const int G = H / Hkv;
-  float* s_scores = smem;                   // [G][S]
-  float* s_q = s_scores + G * S;            // [G][kDh]
-  float* s_red = s_q + G * kDh;             // [kWarps][G][kDh]
-  float* s_scratch = s_red + kWarps * G * kDh;  // [kWarps]
-  float* s_inv = s_scratch + kWarps;        // [G]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int lr = tid % kLpr;     // lane within its group
+  const int grp = tid / kLpr;    // lane group: rows grp, grp + kGroups, ..
+
+  T* ring = reinterpret_cast<T*>(smem);            // [stages][2][tile][kDh]
+  float* w_o = reinterpret_cast<float*>(smem);     // after the key loop
+  float* w_m = reinterpret_cast<float*>(
+      smem + region0_bytes(G, kDh, tile, sizeof(T), stages));
+  float* w_l = w_m + kWarps * kMaxGroup;           // [kWarps][kMaxGroup]
+  float* p_o = w_l + kWarps * kMaxGroup;           // [n_split][G][kDh]
+  float* p_m = p_o + (n_split > 1 ? n_split * G * kDh : 0);  // [n_split][G]
+  float* p_l = p_m + (n_split > 1 ? n_split * G : 0);        // [n_split][G]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      p_l + (n_split > 1 ? n_split * G : 0));
+  // bars[2 * stage] K, bars[2 * stage + 1] V
+
+  if (n_split > 1) cluster_arrive_relaxed();  // "this block is running"
 
   const long long kv_off =
       (((long long)layer * B + b) * Hkv + g) * (long long)S_alloc * kDh;
-  const T* K = k_cache + kv_off;
-  const T* V = v_cache + kv_off;
-  const float* bias_row = bias + (long long)b * S;
-  // The G query heads of this group are h = g*G .. g*G+G-1, contiguous.
-  const long long q_off = ((long long)b * H + (long long)g * G) * kDh;
-  const T* Q = q + q_off;
-  T* O = out + q_off;
+  const int start = split * split_keys;
+  const int n_keys = max(min(S, start + split_keys) - start, 0);
+  const int n_tiles = (n_keys + tile - 1) / tile;
+  const T* K = k_cache + kv_off + (long long)start * kDh;
+  const T* V = v_cache + kv_off + (long long)start * kDh;
+  const float* bias_row = bias + (long long)b * S + start;
+  const size_t tile_elems = (size_t)tile * kDh;
 
-  for (int i = threadIdx.x; i < G * kDh; i += kThreads) {
-    s_q[i] = Vec<T>::to_float(Q[i]);
+  auto stage_tile = [&](int t) {  // one thread: copy tile t's K and V
+    const int st = t % stages;
+    const int rows = min(tile, n_keys - t * tile);
+    const uint32_t bytes = (uint32_t)(rows * kDh * sizeof(T));
+    T* kd = ring + (size_t)(2 * st) * tile_elems;
+    T* vd = kd + tile_elems;
+    mbar_expect_tx(&bars[2 * st], bytes);
+    bulk_load(kd, K + (long long)t * tile * kDh, bytes, &bars[2 * st]);
+    mbar_expect_tx(&bars[2 * st + 1], bytes);
+    bulk_load(vd, V + (long long)t * tile * kDh, bytes, &bars[2 * st + 1]);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * stages; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    for (int t = 0; t < stages && t < n_tiles; ++t) stage_tile(t);
   }
-  __syncthreads();
+  // The bias of this group's rows, a tile ahead of its use, so that its
+  // latency overlaps the copies and the previous tile.
+  float bs[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = grp + kGroups * i;
+    bs[i] = row < min(tile, n_keys) ? bias_row[row] : 0.f;
+  }
 
-  // 1. Scores: one thread per key, the row read as kChunks vectors.
-#pragma unroll 2
-  for (int s = threadIdx.x; s < S; s += kThreads) {
-    float kv[kDh];
+  // This lane's slice of the G query heads (h = g*G .. g*G+G-1): vectors
+  // lr, lr + kLpr, .. of each row, the same slice it reads of K and V.
+  const T* Q = q + (long long)b * q_sb + (long long)g * G * q_sh;
+  float qr[kG][kE];
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      Vec<T>::load(K + (long long)s * kDh + c * kN, kv + c * kN);
-    }
-    const float bs = bias_row[s];
+  for (int j = 0; j < kG; ++j) {
 #pragma unroll
-    for (int j = 0; j < kMaxGroup; ++j) {
+    for (int i = 0; i < kVpl; ++i) {
       if (j < G) {
-        const float* qj = s_q + j * kDh;
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < kDh; ++d) acc += qj[d] * kv[d];
-        s_scores[j * S + s] = acc * scale + bs;
+        Vec<T>::load(Q + (long long)j * q_sh + (lr + kLpr * i) * kN,
+                     qr[j] + i * kN);
       }
     }
   }
-  __syncthreads();
+  __syncthreads();  // the barriers are initialised
 
-  // 2. Softmax numerators in place, 1/sum per query head.
-  for (int j = 0; j < G; ++j) {
-    float* row = s_scores + j * S;
-    float m = kLowest;
-    for (int s = threadIdx.x; s < S; s += kThreads) m = fmaxf(m, row[s]);
-    m = block_reduce<true>(m, s_scratch);
-    float sum = 0.f;
-    for (int s = threadIdx.x; s < S; s += kThreads) {
-      const float p = expf(row[s] - m);
-      row[s] = p;
-      sum += p;
-    }
-    sum = block_reduce<false>(sum, s_scratch);
-    if (threadIdx.x == 0) s_inv[j] = 1.f / sum;
+  // Online softmax state of this lane group, per query head; o is this
+  // lane's slice of it.
+  float m[kG], l[kG], acc[kG][kE];
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    m[j] = kLowest;
+    l[j] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[j][e] = 0.f;
   }
-  __syncthreads();
 
-  // 3. Weighted sum of V: thread (r, c) reads vector c of rows r, r+kRows..
-  const int c = threadIdx.x % kChunks;
-  const int r = threadIdx.x / kChunks;
-  float acc[kMaxGroup][kN];
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % stages;
+    const uint32_t parity = (uint32_t)((t / stages) & 1);
+    const int rows = min(tile, n_keys - t * tile);
+    const T* Ks = ring + (size_t)(2 * st) * tile_elems;
+    const T* Vs = Ks + tile_elems;
+
+    float bs_next[kRows];
+    const int rows_next = min(tile, n_keys - (t + 1) * tile);
 #pragma unroll
-  for (int j = 0; j < kMaxGroup; ++j) {
-#pragma unroll
-    for (int e = 0; e < kN; ++e) acc[j][e] = 0.f;
-  }
-#pragma unroll 4
-  for (int s = r; s < S; s += kRows) {
-    float vv[kN];
-    Vec<T>::load(V + (long long)s * kDh + c * kN, vv);
-#pragma unroll
-    for (int j = 0; j < kMaxGroup; ++j) {
-      if (j < G) {
-        const float p = s_scores[j * S + s];
-#pragma unroll
-        for (int e = 0; e < kN; ++e) acc[j][e] += p * vv[e];
-      }
+    for (int i = 0; i < kRows; ++i) {
+      const int row = grp + kGroups * i;
+      bs_next[i] = row < rows_next ? bias_row[(t + 1) * tile + row] : 0.f;
     }
-  }
-  // Rows of one warp that share vector c: lanes c, c+kChunks, ...
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+
+    // Scores of this group's rows, once K has landed: the kLpr lanes of a
+    // row sum their slices with a shuffle (every lane runs it).
+    mbar_wait(&bars[2 * st], parity);
+    float s[kRows][kG];
 #pragma unroll
-  for (int j = 0; j < kMaxGroup; ++j) {
-    if (j < G) {
+    for (int i = 0; i < kRows; ++i) {
+      const int row = grp + kGroups * i;
+      const bool valid = row < rows;
+      float kf[kE];
 #pragma unroll
-      for (int e = 0; e < kN; ++e) {
-        float x = acc[j][e];
+      for (int v = 0; v < kVpl; ++v) {
+        if (valid) {
+          Vec<T>::load(Ks + row * kDh + (lr + kLpr * v) * kN, kf + v * kN);
+        } else {
 #pragma unroll
-        for (int o = kChunks; o < 32; o <<= 1) {
-          x += __shfl_xor_sync(0xffffffffu, x, o);
+          for (int e = 0; e < kN; ++e) kf[v * kN + e] = 0.f;
         }
-        if (lane < kChunks) s_red[(warp * G + j) * kDh + c * kN + e] = x;
+      }
+#pragma unroll
+      for (int j = 0; j < kG; ++j) {
+        float dot = 0.f;
+        if (j < G) {
+#pragma unroll
+          for (int e = 0; e < kE; ++e) dot += qr[j][e] * kf[e];
+        }
+#pragma unroll
+        for (int o = 1; o < kLpr; o <<= 1) {
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        }
+        s[i][j] = valid ? dot * scale + bs[i] : kLowest;
+      }
+    }
+
+    // Fold the tile into the running state: one rescale per tile.
+#pragma unroll
+    for (int j = 0; j < kG; ++j) {
+      if (j < G) {
+        float m_new = m[j];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) m_new = fmaxf(m_new, s[i][j]);
+        const float alpha = expf(m[j] - m_new);
+        m[j] = m_new;
+        l[j] *= alpha;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[j][e] *= alpha;
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const bool valid = grp + kGroups * i < rows;
+          s[i][j] = valid ? expf(s[i][j] - m_new) : 0.f;  // now p
+          l[j] += s[i][j];
+        }
+      }
+    }
+    mbar_wait(&bars[2 * st + 1], parity);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = grp + kGroups * i;
+      if (row < rows) {
+        float vf[kE];
+#pragma unroll
+        for (int v = 0; v < kVpl; ++v) {
+          Vec<T>::load(Vs + row * kDh + (lr + kLpr * v) * kN, vf + v * kN);
+        }
+#pragma unroll
+        for (int j = 0; j < kG; ++j) {
+          if (j < G) {
+#pragma unroll
+            for (int e = 0; e < kE; ++e) acc[j][e] += s[i][j] * vf[e];
+          }
+        }
+      }
+    }
+    if (t + stages < n_tiles) {  // refill this stage once all have read it
+      __syncthreads();
+      if (tid == 0) stage_tile(t + stages);
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) bs[i] = bs_next[i];
+  }
+
+  // Merge the lane groups of each warp (lanes that share lr), then the
+  // warps through shared memory.
+#pragma unroll
+  for (int o = kLpr; o < 32; o <<= 1) {
+#pragma unroll
+    for (int j = 0; j < kG; ++j) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[j], o);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[j], o);
+      float a, a2;
+      merge_weights(m[j], l[j], m2, l2, a, a2);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        acc[j][e] = acc[j][e] * a +
+                    __shfl_xor_sync(0xffffffffu, acc[j][e], o) * a2;
+      }
+    }
+  }
+  __syncthreads();  // the ring is free: reuse it for the warps' o
+  if (lane < kLpr) {
+#pragma unroll
+    for (int j = 0; j < kG; ++j) {
+      if (j < G) {
+#pragma unroll
+        for (int v = 0; v < kVpl; ++v) {
+#pragma unroll
+          for (int e = 0; e < kN; ++e) {
+            w_o[(warp * G + j) * kDh + (lr + kLpr * v) * kN + e] =
+                acc[j][v * kN + e];
+          }
+        }
+        if (lane == 0) {
+          w_m[warp * kMaxGroup + j] = m[j];
+          w_l[warp * kMaxGroup + j] = l[j];
+        }
       }
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * kDh; i += kThreads) {
+
+  T* O = out + ((long long)b * H + (long long)g * G) * kDh;
+  float* r_o = p_o;
+  float* r_m = p_m;
+  float* r_l = p_l;
+  if (n_split > 1) {
+    // Push into this split's slot on rank 0, once rank 0 is known to run.
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_wait();
+    r_o = cluster.map_shared_rank(p_o, 0) + split * G * kDh;
+    r_m = cluster.map_shared_rank(p_m, 0) + split * G;
+    r_l = cluster.map_shared_rank(p_l, 0) + split * G;
+  }
+  // Each output element merges the warps' states at once: the common
+  // maximum first, then independent weights (no chain of rescales).
+  for (int i = tid; i < G * kDh; i += kThreads) {
     const int j = i / kDh;
-    const int d = i - j * kDh;
-    float tot = 0.f;
+    float mm = kLowest;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) tot += s_red[(w * G + j) * kDh + d];
-    Vec<T>::store(O + i, tot * s_inv[j]);
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, w_m[w * kMaxGroup + j]);
+    float ll = 0.f;
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float a = expf(w_m[w * kMaxGroup + j] - mm);
+      ll += a * w_l[w * kMaxGroup + j];
+      o += a * w_o[(w * G + j) * kDh + (i - j * kDh)];
+    }
+    if (n_split == 1) {
+      Vec<T>::store(O + i, o / ll);
+    } else {
+      r_o[i] = o;
+      if (i - j * kDh == 0) {
+        r_m[j] = mm;
+        r_l[j] = ll;
+      }
+    }
+  }
+  if (n_split == 1) return;
+  cluster_arrive_release();
+  if (split != 0) return;  // rank 0 waits for every slot; peers are done
+  cluster_wait();
+  for (int i = tid; i < G * kDh; i += kThreads) {
+    const int j = i / kDh;
+    float mm = kLowest;
+    for (int k = 0; k < n_split; ++k) mm = fmaxf(mm, p_m[k * G + j]);
+    float ll = 0.f;
+    float o = 0.f;
+    for (int k = 0; k < n_split; ++k) {
+      const float a = expf(p_m[k * G + j] - mm);
+      ll += a * p_l[k * G + j];
+      o += a * p_o[k * G * kDh + i];
+    }
+    Vec<T>::store(O + i, o / ll);
   }
 }
 
-template <typename T, int kDh>
-int launch(const void* q, const void* k_cache, const void* v_cache,
-           const void* bias, void* out, int B, int H, int Hkv, int S,
-           int S_alloc, int layer, float scale, cudaStream_t stream) {
-  const int G = H / Hkv;
-  const size_t smem = sizeof(float) * ((size_t)G * S + (size_t)G * kDh +
-                                       (size_t)kWarps * G * kDh + kWarps + G);
-  auto kernel = decode_attention_kernel<T, kDh>;
-  if (smem > 48 * 1024) {
+template <typename T, int kDh, int kG>
+int launch(const DecodeAttentionArgs& a, const void* q, const void* k_cache,
+           const void* v_cache, const void* bias, void* out, int layer,
+           cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<T, kDh, kG>;
+  // Raise the dynamic shared-memory ceiling once per instantiation and
+  // size, not on every call.
+  static int configured = 48 * 1024;
+  if (a.smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
     if (err != cudaSuccess) return (int)err;
+    configured = a.smem;
   }
-  kernel<<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),
-      static_cast<const T*>(v_cache), static_cast<const float*>(bias),
-      static_cast<T*>(out), B, H, Hkv, S, S_alloc, layer, scale);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_split, a.Hkv, a.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)a.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.n_split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), a.q_sb, a.q_sh,
+      static_cast<const T*>(k_cache), static_cast<const T*>(v_cache),
+      static_cast<const float*>(bias), static_cast<T*>(out), a.B, a.H, a.Hkv,
+      a.S, a.S_alloc, layer, a.split_keys, a.tile, a.stages, a.scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// The group size is a template bound (1, 4 or 8), so the per-head arrays
+// live in registers.
+template <typename T, int kDh>
+int launch_group(const DecodeAttentionArgs& a, const void* q,
+                 const void* k_cache, const void* v_cache, const void* bias,
+                 void* out, int layer, cudaStream_t stream) {
+  const int G = a.H / a.Hkv;
+  if (G == 1) {
+    return launch<T, kDh, 1>(a, q, k_cache, v_cache, bias, out, layer,
+                             stream);
+  }
+  if (G <= 4) {
+    return launch<T, kDh, 4>(a, q, k_cache, v_cache, bias, out, layer,
+                             stream);
+  }
+  return launch<T, kDh, kMaxGroup>(a, q, k_cache, v_cache, bias, out, layer,
+                                   stream);
+}
+
 template <typename T>
-int launch_dh(const void* q, const void* k_cache, const void* v_cache,
-              const void* bias, void* out, int B, int H, int Hkv, int S,
-              int S_alloc, int Dh, int layer, float scale,
-              cudaStream_t stream) {
-  switch (Dh) {
+int launch_dh(const DecodeAttentionArgs& a, const void* q,
+              const void* k_cache, const void* v_cache, const void* bias,
+              void* out, int layer, cudaStream_t stream) {
+  switch (a.Dh) {
     case 8:
-      return launch<T, 8>(q, k_cache, v_cache, bias, out, B, H, Hkv, S,
-                          S_alloc, layer, scale, stream);
+      return launch_group<T, 8>(a, q, k_cache, v_cache, bias, out, layer,
+                                stream);
     case 16:
-      return launch<T, 16>(q, k_cache, v_cache, bias, out, B, H, Hkv, S,
-                           S_alloc, layer, scale, stream);
+      return launch_group<T, 16>(a, q, k_cache, v_cache, bias, out, layer,
+                                 stream);
     case 32:
-      return launch<T, 32>(q, k_cache, v_cache, bias, out, B, H, Hkv, S,
-                           S_alloc, layer, scale, stream);
+      return launch_group<T, 32>(a, q, k_cache, v_cache, bias, out, layer,
+                                 stream);
     case 64:
-      return launch<T, 64>(q, k_cache, v_cache, bias, out, B, H, Hkv, S,
-                           S_alloc, layer, scale, stream);
+      return launch_group<T, 64>(a, q, k_cache, v_cache, bias, out, layer,
+                                 stream);
     case 128:
-      return launch<T, 128>(q, k_cache, v_cache, bias, out, B, H, Hkv, S,
-                            S_alloc, layer, scale, stream);
+      return launch_group<T, 128>(a, q, k_cache, v_cache, bias, out, layer,
+                                  stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -290,26 +631,40 @@ int launch_dh(const void* q, const void* k_cache, const void* v_cache,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched). The caller validates shapes, dtypes, strides,
-// 16-byte alignment and the layer index, and allocates `out`.
-extern "C" int decode_attention_launch(const void* q, const void* k_cache,
+// `args`: the layout and launch plan (ops/attention.py::launch_plan), see
+// DecodeAttentionArgs. Returns the CUDA error of the launch (0 = launched).
+// The caller validates shapes, dtypes, strides, 16-byte alignment and the
+// layer index, and allocates `out` contiguous.
+extern "C" int decode_attention_launch(const DecodeAttentionArgs* args,
+                                       const void* q, const void* k_cache,
                                        const void* v_cache, const void* bias,
-                                       void* out, int B, int H, int Hkv, int S,
-                                       int S_alloc, int Dh, int layer,
-                                       int dtype, float scale, void* stream) {
+                                       void* out, int layer, void* stream) {
+  const DecodeAttentionArgs& a = *args;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxGroup || S <= 0 ||
-      S > S_alloc) {
+  if (a.Hkv <= 0 || a.H % a.Hkv != 0 || a.H / a.Hkv > kMaxGroup ||
+      a.S <= 0 || a.S > a.S_alloc || a.n_split < 1 ||
+      a.n_split > kMaxSplit || (a.n_split & (a.n_split - 1)) != 0 ||
+      a.split_keys < 1 || (long long)a.split_keys * a.n_split < a.S ||
+      a.tile < 8 || a.tile % 8 != 0 || a.tile > max_tile(a.H / a.Hkv)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 0) {
-    return launch_dh<float>(q, k_cache, v_cache, bias, out, B, H, Hkv, S,
-                            S_alloc, Dh, layer, scale, st);
+  // A one-stage ring holds a split of one tile only: a later tile would
+  // wait on a copy that never starts.
+  const int max_tiles = (a.split_keys + a.tile - 1) / a.tile;
+  if (a.stages < 1 || (a.stages < 2 && max_tiles > 1)) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    return launch_dh<__nv_bfloat16>(q, k_cache, v_cache, bias, out, B, H,
-                                    Hkv, S, S_alloc, Dh, layer, scale, st);
+  const int elem = a.dtype == 0 ? 4 : 2;
+  if (a.smem < 0 || (size_t)a.smem < smem_bytes(a.H / a.Hkv, a.Dh, a.tile,
+                                                 elem, a.stages, a.n_split)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (a.dtype == 0) {
+    return launch_dh<float>(a, q, k_cache, v_cache, bias, out, layer, st);
+  }
+  if (a.dtype == 1) {
+    return launch_dh<__nv_bfloat16>(a, q, k_cache, v_cache, bias, out, layer,
+                                    st);
   }
   return (int)cudaErrorInvalidValue;
 }

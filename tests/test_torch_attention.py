@@ -5,10 +5,14 @@ are held against the JAX Pallas kernel, run in interpret mode on the CPU,
 and against `common.attend` on the indexed layer. The CUDA kernel itself
 runs only on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py);
 here its wrapper's dispatch is checked: CPU tensors take the plain version,
-CUDA tensors never do.
+CUDA tensors never do. The kernel's launch plan (`launch_plan`) is pinned by
+its invariants, and the maths it implements (keys split across a cluster,
+online softmax over tiles, log-sum-exp combine) by a numpy model held
+against the plain version and the Pallas kernel.
 """
 
 import ast
+import ctypes
 import functools
 import inspect
 import textwrap
@@ -21,6 +25,7 @@ import torch
 
 from distributed_lms_raft_llm_tpu.models import common as jax_common
 from distributed_lms_raft_llm_tpu.ops import attention as jax_attention
+from distributed_lms_raft_llm_tpu_torch.models import common as port_common
 from distributed_lms_raft_llm_tpu_torch.ops import attention as port_attention
 
 L, LAYER, H, S, DH = 3, 1, 4, 16, 8
@@ -119,6 +124,289 @@ def test_layer_index_is_checked_not_clamped(layer):
         )
 
 
+# ------------------------------------------------------------ launch plan
+
+MAIN_BATCHES = (1, 2, 4, 8)
+# Windows the bucketed engine gives the kernel (bucket + new tokens), the
+# smoke's shapes, and GPT-2's full window.
+MAIN_WINDOWS = (1, 17, 32, 33, 64, 65, 96, 127, 128, 192, 200, 256, 300,
+                320, 384, 512, 640, 1024)
+
+
+def _check_plan(plan, b, hkv, s, dh, dtype, group):
+    n = plan.n_split
+    assert n in (1, 2, 4, 8)
+    assert plan.blocks == b * hkv * n
+    # every split non-empty, together they cover the S keys
+    assert (n - 1) * plan.split_keys < s <= n * plan.split_keys
+    cap = port_attention.max_tile_keys(group, dh, dtype.itemsize)
+    if n > 1:  # split only what does not fit one tile, never below 64 keys
+        assert s > cap and plan.split_keys >= port_attention.MIN_SPLIT_KEYS
+    assert plan.tile_keys % 8 == 0 and 8 <= plan.tile_keys <= cap
+    assert cap <= (128 if group == 1 else 64)
+    assert cap * dh * dtype.itemsize <= port_attention.TILE_BYTES
+    assert plan.smem_bytes <= 227 * 1024
+    assert plan.smem_bytes == port_attention._smem_bytes(
+        group, dh, plan.tile_keys, dtype.itemsize, plan.stages, n)
+    n_tiles = -(-plan.split_keys // plan.tile_keys)
+    assert 1 <= plan.stages <= n_tiles and (plan.stages >= 2 or n_tiles == 1)
+    # Splits come in powers of two, so the count that first reaches the
+    # plan's target of blocks is the power of two at or above
+    # ceil(target / (B*Hkv)); wherever that count fits a cluster and leaves
+    # MIN_SPLIT_KEYS keys a split, and the window does not fit one tile,
+    # the launch has at least the target's blocks.
+    target, least = port_attention.TARGET_BLOCKS, port_attention.MIN_SPLIT_KEYS
+    need = -(-target // (b * hkv))
+    p = 1 << (need - 1).bit_length()
+    if p <= 8 and s >= least * p and s > cap:
+        assert plan.blocks >= target, (b, hkv, s, plan)
+    # and no split is longer than MAX_SPLIT_KEYS where a cluster could
+    # take more splits of MIN_SPLIT_KEYS keys
+    if plan.split_keys > port_attention.MAX_SPLIT_KEYS:
+        assert n == 8 or s < least * 2 * n
+
+
+@pytest.mark.parametrize("b", MAIN_BATCHES)
+def test_launch_plan_invariants_on_main_path_shapes(b):
+    """GPT-2 small: Hkv = H = 12, Dh = 64, bf16 serving and f32 checks."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in MAIN_WINDOWS:
+            plan = port_attention.launch_plan(b, 12, s, 64, dtype)
+            _check_plan(plan, b, 12, s, 64, dtype, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", port_attention.HEAD_DIMS)
+def test_launch_plan_invariants_over_head_dims(dh, dtype):
+    for b, hkv in ((1, 1), (1, 4), (3, 2), (8, 4), (16, 8), (64, 12)):
+        for group in (1, 3, port_attention.MAX_GROUP):
+            for s in (1, 8, 31, 64, 100, 257, 1024, 4096):
+                plan = port_attention.launch_plan(b, hkv, s, dh, dtype,
+                                                  group=group)
+                _check_plan(plan, b, hkv, s, dh, dtype, group)
+
+
+def test_launch_plan_worked_examples():
+    """The main shape's 96 (row, head) pairs are not split: each block
+    streams 320 keys in tiles of 128 through a two-stage ring. A single
+    row splits 384 keys four ways, its full window eight ways; a window
+    that fits one tile is not split; GPT-2's full window at batch 8 is
+    split in two of 512 keys."""
+    main = port_attention.launch_plan(8, 12, 320, 64, torch.bfloat16)
+    assert (main.n_split, main.split_keys, main.blocks) == (1, 320, 96)
+    assert (main.tile_keys, main.stages) == (128, 2)
+    full = port_attention.launch_plan(8, 12, 1024, 64, torch.bfloat16)
+    assert (full.n_split, full.split_keys) == (2, 512)
+    one = port_attention.launch_plan(1, 12, 384, 64, torch.bfloat16)
+    assert (one.n_split, one.split_keys, one.blocks) == (4, 96, 48)
+    one = port_attention.launch_plan(1, 12, 1024, 64, torch.bfloat16)
+    assert (one.n_split, one.split_keys, one.blocks) == (8, 128, 96)
+    for s in (33, 128):
+        short = port_attention.launch_plan(8, 12, s, 64, torch.bfloat16)
+        assert (short.n_split, short.split_keys) == (1, s)
+    wide = port_attention.launch_plan(64, 12, 4096, 64, torch.bfloat16)
+    assert (wide.n_split, wide.split_keys, wide.tile_keys) == (8, 512, 128)
+    assert wide.stages == 2  # 2 x 32 KB of K and V in flight
+    gqa = port_attention.launch_plan(8, 4, 384, 64, torch.bfloat16, group=3)
+    assert (gqa.n_split, gqa.split_keys, gqa.tile_keys) == (4, 96, 64)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_launch_plan_forced_split(n):
+    """The sweep's override: the split count as given, the rest of the
+    plan as for any split."""
+    plan = port_attention.launch_plan(8, 12, 320, 64, torch.bfloat16,
+                                      n_split=n)
+    assert plan.n_split == n and plan.split_keys == -(-320 // n)
+    assert plan.blocks == 96 * n and plan.tile_keys == min(
+        128, -(-plan.split_keys // 8) * 8)
+    assert plan.smem_bytes == port_attention._smem_bytes(
+        1, 64, plan.tile_keys, 2, plan.stages, n)
+
+
+def test_launch_plan_refuses_a_split_no_cluster_takes():
+    for n in (0, 3, 16):
+        with pytest.raises(ValueError, match="n_split"):
+            port_attention.launch_plan(8, 12, 320, 64, torch.bfloat16,
+                                       n_split=n)
+
+
+# ------------------------------------------- split-and-combine, in numpy
+
+_LOWEST = np.float32(np.finfo(np.float32).min)
+
+
+def _split_combine(q, k, v, layer, bias, n_split, split_keys, tile):
+    """The kernel's arithmetic in float32 numpy: each split walks its keys
+    in tiles with an online softmax from the finite lowest float, keeping
+    (m, l, o) per query head; the splits are then combined with weights
+    exp(m_k - max m)."""
+    b, h, _, dh = q.shape
+    hkv, s = k.shape[2], k.shape[3]
+    group = h // hkv
+    scale = np.float32(1.0 / np.sqrt(dh))
+    out = np.zeros((b, h, 1, dh), np.float32)
+    for row in range(b):
+        for head in range(h):
+            kh, vh = k[layer, row, head // group], v[layer, row, head // group]
+            qh = q[row, head, 0]
+            parts = []
+            for split in range(n_split):
+                start = split * split_keys
+                stop = min(s, start + split_keys)
+                m, l = _LOWEST, np.float32(0)
+                o = np.zeros(dh, np.float32)
+                for t0 in range(start, max(stop, start), tile):
+                    t1 = min(stop, t0 + tile)
+                    sc = (kh[t0:t1] @ qh) * scale + bias[row, 0, t0:t1]
+                    m_new = max(m, sc.max())
+                    alpha = np.exp(np.float32(m - m_new))
+                    p = np.exp(sc - m_new)
+                    l = l * alpha + p.sum(dtype=np.float32)
+                    o = o * alpha + p @ vh[t0:t1]
+                    m = m_new
+                parts.append((np.float32(m), np.float32(l), o))
+            m_all = max(m for m, _, _ in parts)
+            w = [np.exp(np.float32(m - m_all)) for m, _, _ in parts]
+            l_all = sum(wk * lk for wk, (_, lk, _) in zip(w, parts))
+            o_all = sum(wk * ok for wk, (_, _, ok) in zip(w, parts))
+            out[row, head, 0] = o_all / l_all
+    return out
+
+
+def _split_inputs(b, hkv, s, pads, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, H, 1, DH)).astype(np.float32)
+    k = rng.standard_normal((L, b, hkv, s, DH)).astype(np.float32)
+    v = rng.standard_normal((L, b, hkv, s, DH)).astype(np.float32)
+    mask = np.ones((b, 1, 1, s), bool)
+    for row, pad in enumerate(pads):
+        mask[row, ..., :pad] = False
+    return q, k, v, mask
+
+
+def _plan_args(b, hkv, s):
+    plan = port_attention.launch_plan(b, hkv, s, DH, torch.float32,
+                                      group=H // hkv)
+    return plan.n_split, plan.split_keys, plan.tile_keys
+
+
+SPLIT_CASES = {
+    # the launch plan's own cut; row 1 pads 383 of 384 slots, so every
+    # split of it but the last is fully masked
+    "plan_ragged": (2, 4, 384, [5, 383], _plan_args(2, 4, 384)),
+    # every row padded to its last slot: three of four splits fully masked
+    "all_rows_masked_leading": (2, 4, 96, [95, 95], (4, 24, 8)),
+    # 8 splits of 3 keys over 20: the last split is empty
+    "empty_split": (1, 4, 20, [2], (8, 3, 8)),
+    # several tiles a split, GQA (two query heads per KV head)
+    "tiles_gqa": (3, 2, 64, [40, 0, 63], (4, 16, 8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_combine_model_matches_reference_and_pallas(pallas_interpret,
+                                                          case):
+    b, hkv, s, pads, (n_split, split_keys, tile) = SPLIT_CASES[case]
+    q, k, v, mask = _split_inputs(b, hkv, s, pads, seed=len(case))
+    bias_t = port_attention.mask_to_bias(torch.from_numpy(mask))
+    model = _split_combine(q, k, v, LAYER, bias_t.numpy(), n_split,
+                           split_keys, tile)
+    assert np.isfinite(model).all()
+    plain = port_attention.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        LAYER, bias_t,
+    )
+    np.testing.assert_allclose(model, plain.numpy(), rtol=0, atol=1e-6)
+    pallas = jax_attention.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(LAYER, jnp.int32),
+        jax_attention.mask_to_bias(jnp.asarray(mask)),
+    )
+    np.testing.assert_allclose(model, np.asarray(pallas), rtol=0, atol=1e-6)
+
+
+def test_fully_masked_split_weighs_exactly_zero():
+    """A split whose keys are all masked combines with weight 0: the
+    output equals attention over the unmasked split alone, bit for bit
+    in the model."""
+    q, k, v, mask = _split_inputs(1, 4, 64, [32], seed=11)
+    bias = port_attention.mask_to_bias(torch.from_numpy(mask)).numpy()
+    both = _split_combine(q, k, v, LAYER, bias, 2, 32, 8)
+    tail = _split_combine(q, k[:, :, :, 32:].copy(), v[:, :, :, 32:].copy(),
+                          LAYER, bias[:, :, 32:].copy(), 1, 32, 8)
+    np.testing.assert_array_equal(both, tail)
+
+
+# ------------------------------------------------------------- strided q
+
+
+def _strided_q(b, seed):
+    """q as the model hands it over: a view of the fused [B, 1, 3*H*Dh]
+    projection, split into heads (batch stride 3*H*Dh, head stride Dh)."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(
+        rng.standard_normal((b, 1, 3 * H * DH)).astype(np.float32))
+    q, _, _ = qkv.split(H * DH, dim=-1)
+    return port_common.split_heads(q, H)
+
+
+def test_plain_path_takes_a_strided_q():
+    q = _strided_q(3, seed=21)
+    sb, sh, _, sd = q.stride()
+    assert not q.is_contiguous() and (sb, sh, sd) == (3 * H * DH, DH, 1)
+    _, k, v, mask = _inputs(3, 2, seed=22)
+    bias = port_attention.mask_to_bias(torch.from_numpy(mask))
+    got = port_attention.decode_attention(q, torch.from_numpy(k),
+                                          torch.from_numpy(v), LAYER, bias)
+    want = port_attention.decode_attention(q.contiguous(), torch.from_numpy(k),
+                                           torch.from_numpy(v), LAYER, bias)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_kernel_layout_takes_a_strided_q_and_any_window():
+    """What the kernel is told: q's strides as they are (no copy), S_alloc
+    from the cache's strides, the launch plan; S past the old 1024 limit."""
+    q = _strided_q(2, seed=23)
+    s, s_alloc = 1500, 2048
+    k = torch.zeros((L, 2, 2, s_alloc, DH))[:, :, :, :s]
+    bias = torch.zeros((2, 1, s))
+    lay = port_attention._kernel_layout(q, k, k, bias)
+    a = lay.args
+    assert (a.q_sb, a.q_sh) == (3 * H * DH, DH)
+    assert (a.B, a.H, a.Hkv, a.S, a.S_alloc, a.Dh) == (2, H, 2, s, s_alloc,
+                                                       DH)
+    plan = port_attention.launch_plan(2, 2, s, DH, torch.float32, group=2)
+    assert lay.plan == plan
+    assert (a.n_split, a.split_keys, a.tile, a.stages, a.smem, a.dtype) == (
+        plan.n_split, plan.split_keys, plan.tile_keys, plan.stages,
+        plan.smem_bytes, 0)
+    assert a.scale == pytest.approx(DH ** -0.5)
+    assert lay.address == ctypes.addressof(a)
+
+
+def test_kernel_layout_refuses_what_the_kernel_cannot_read():
+    k = torch.zeros((L, 2, 2, S, DH))
+    bias = torch.zeros((2, 1, S))
+    q = torch.zeros((2, H, 1, DH))
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        port_attention._kernel_layout(
+            torch.zeros((2, H, 1, 2 * DH))[..., ::2], k, k, bias)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        port_attention._kernel_layout(
+            torch.zeros((2, H * DH + 1))[:, :H * DH].reshape(2, H, 1, DH),
+            k, k, bias)
+    with pytest.raises(TypeError):
+        port_attention._kernel_layout(q.half(), k.half(), k.half(), bias)
+    with pytest.raises(ValueError, match="kernel limits"):
+        port_attention._kernel_layout(torch.zeros((2, 9, 1, DH)),
+                                      torch.zeros((L, 2, 1, S, DH)),
+                                      torch.zeros((L, 2, 1, S, DH)), bias)
+    with pytest.raises(ValueError, match="S_alloc"):
+        port_attention._kernel_layout(q, k.transpose(3, 4).contiguous()
+                                      .transpose(3, 4), k, bias)
+
+
 # ------------------------------------------------------------ dispatch
 
 
@@ -201,3 +489,37 @@ def test_wrapper_dispatch_is_static():
     for fn in (port_attention.decode_attention_reference,
                port_attention.mask_to_bias):
         assert "launch_counts" not in inspect.getsource(fn)
+
+
+def test_kernel_layout_is_validated_once_per_layout(monkeypatch):
+    """A decode step calls the kernel once a layer with one layout: it is
+    validated on the first call; the layer index on every call."""
+    checked, launched = [], []
+    orig = port_attention._kernel_layout
+
+    def counting_layout(*args):
+        checked.append(1)
+        return orig(*args)
+
+    def fake_launch(*args):
+        launched.append(args)
+        return 0
+
+    monkeypatch.setattr(port_attention, "_kernel_layout", counting_layout)
+    monkeypatch.setattr(port_attention, "_entry_point",
+                        lambda: (fake_launch, lambda index: 0))
+    monkeypatch.setattr(port_attention, "_layouts", {})
+    q, k, v, mask = _inputs(2, 2, seed=31)
+    bias = np.where(mask[:, 0, 0, :], 0.0, -1e30).astype(np.float32)[:, None]
+    args = [_fake_cuda(x) for x in (q, k, v)]
+    before = port_attention.launch_counts[port_attention.KERNEL]
+    for layer in range(L):
+        out = port_attention.decode_attention(*args, layer, _fake_cuda(bias))
+        assert tuple(out.shape) == q.shape
+    assert len(checked) == 1 and len(launched) == L
+    assert port_attention.launch_counts[port_attention.KERNEL] == before + L
+    assert [a[6] for a in launched] == list(range(L))  # the layer argument
+    with pytest.raises(IndexError):
+        port_attention.decode_attention(*args, L, _fake_cuda(bias))
+    assert len(checked) == 1
+
