@@ -4,14 +4,17 @@ A second package beside `distributed_lms_raft_llm_tpu` (the JAX reference).
 It imports `torch` and never `jax`, and nothing of the JAX package: it
 keeps its own copies of the framework-free pieces it needs.
 
-This slice serves `Tutoring.GetLLMAnswer` end to end on one NVIDIA H100
-through the bucketed engine:
+It serves `Tutoring.GetLLMAnswer` end to end on one NVIDIA H100 through
+the bucketed engine or the paged continuous-batching engine (int8 weights
+and an int8 KV cache, the production tutoring node's configuration):
 
 - ``proto``    — the frozen wire contract (copy of the JAX package's)
-- ``models``   — GPT-2 forward on tensors, HF / JAX weight conversion
-- ``ops``      — hand-written CUDA kernels (single-token decode attention)
-  with their plain PyTorch versions
-- ``engine``   — sampling, prefill/decode, `TutoringEngine`, `BatchingQueue`
+- ``models``   — GPT-2 forward on tensors, int8 quantization, HF / JAX
+  weight conversion
+- ``ops``      — hand-written CUDA kernels (single-token decode attention,
+  the weight-only int8 matmul) with their plain PyTorch versions
+- ``engine``   — sampling, prefill/decode, `TutoringEngine`, `BatchingQueue`,
+  `PagedEngine`, `PagedQueue`
 - ``serving``  — the tutoring gRPC server
 - ``utils``    — tokenizers, metrics, deadlines, forwarding auth
 

@@ -1,7 +1,9 @@
 """Inference runtime: sampling, prefill/decode, the bucketed
-`TutoringEngine` and the `BatchingQueue` in front of it."""
+`TutoringEngine` and the `BatchingQueue` in front of it, the continuous-
+batching `PagedEngine` and its `PagedQueue`."""
 
-from .batcher import BatchingQueue  # noqa: F401
+from .batcher import BatchingQueue, PagedQueue  # noqa: F401
 from .engine import EngineConfig, TutoringEngine  # noqa: F401
 from .generate import GenerateResult, decode, generate, prefill  # noqa: F401
+from .paged import PagedEngine  # noqa: F401
 from .sampling import SamplingParams, sample_step  # noqa: F401

@@ -9,11 +9,15 @@ engine.py`, on one CUDA device (or the CPU when the caller asks for it):
   waits for the first token to measure TTFT;
 - with `fused_attention` the decode step's attention runs through the
   hand-written CUDA kernel (`ops/attention.py`). None (the default) turns it
-  on for a CUDA device and off for the CPU.
+  on for a CUDA device and off for the CPU;
+- `quant="int8"` quantizes the weights (`models/quant.py`; the products go
+  through `ops/quant_matmul.py`) and `kv_quant` makes the KV cache int8
+  with per-slot scales. Unlike the JAX engine, `kv_quant` combines with
+  `fused_attention`: the port's kernel reads the int8 cache itself.
 
-Options of the JAX engine that this slice does not carry (tensor/expert/
-sequence parallelism, int8 weights, int8 KV cache, speculative decoding,
-the scoring tenant) raise `NotImplementedError` at construction.
+Options of the JAX engine that the port does not carry yet (tensor/expert/
+sequence parallelism, speculative decoding, the scoring tenant) raise
+`NotImplementedError` at construction.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models import convert, registry
+from ..models import convert, quant, registry
 from ..utils import tokenizer as tok_lib
 from .generate import GenerateResult, decode, pick_bucket, prefill
 from .sampling import SamplingParams
@@ -64,10 +68,11 @@ class EngineConfig:
     device: str = "cuda"
 
 
-def _refuse_unported(config: EngineConfig) -> None:
+def refuse_unported(config: EngineConfig) -> None:
+    """Raise for the EngineConfig options the port does not carry yet (both
+    engines)."""
     unported = {
         "tp": config.tp > 1, "ep": config.ep > 1, "sp": config.sp > 1,
-        "quant": config.quant is not None, "kv_quant": config.kv_quant,
         "spec_tokens": config.spec_tokens > 0, "scoring": config.scoring,
     }
     named = [k for k, on in unported.items() if on]
@@ -75,11 +80,13 @@ def _refuse_unported(config: EngineConfig) -> None:
         raise NotImplementedError(
             f"EngineConfig options not ported to PyTorch yet: {named}"
         )
+    if config.quant not in (None, "int8"):
+        raise ValueError(f"unsupported quant mode {config.quant!r}")
 
 
 class TutoringEngine:
     def __init__(self, config: EngineConfig):
-        _refuse_unported(config)
+        refuse_unported(config)
         self.config = config
         self.device = resolve_device(config.device)
         self.family, self.cfg = registry.resolve(
@@ -88,7 +95,8 @@ class TutoringEngine:
         fused = config.fused_attention
         if fused is None:
             fused = self.device.type == "cuda"
-        self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused)
+        self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
+                                       quant_kv=config.kv_quant)
         self.tokenizer = tok_lib.load_gpt2_tokenizer(
             config.vocab_path, config.merges_path
         )
@@ -115,6 +123,8 @@ class TutoringEngine:
                         config.model)
             self.params = self.family.init_params(self.cfg, config.seed,
                                                   self.device)
+        if config.quant:
+            self.params = quant.quantize_params(self.params, self.family.name)
         log.info("params ready in %.1fs on %s", time.monotonic() - t0,
                  self.device)
 

@@ -1,17 +1,20 @@
 """Shared building blocks for the port's models, on plain tensors.
 
-Counterpart of `distributed_lms_raft_llm_tpu/models/common.py` (dense
-branch) and of the dense `embed_lookup`/`unembed` of its `models/quant.py`.
+Counterpart of `distributed_lms_raft_llm_tpu/models/common.py` (the dense
+and int8 branches of `dense`, the KV cache with its int8 scale planes,
+`quantize_kv`, `attend`, `attend_quant`).
 
 Conventions kept from the JAX package, so the parity tests compare like
 with like:
 
 - parameters are nested dicts of tensors with per-layer weights stacked on
   a leading layer axis; the trunk indexes layer ``i`` (a view, no copy);
-- linear weights are stored ``[in, out]``;
+- linear weights are stored ``[in, out]``, or as the weight-only int8 pair
+  ``{"q": int8 [in, out], "s": f32 [out]}`` (`models/quant.py`);
 - layer norm, attention scores and softmax run in float32 whatever the
   compute dtype; residual adds stay in the compute dtype;
-- the KV cache is stacked ``[L, B, Hkv, S, Dh]``.
+- the KV cache is stacked ``[L, B, Hkv, S, Dh]``, int8 with per-slot
+  float32 scales ``[L, B, Hkv, S]`` when quantized.
 
 Unlike JAX's immutable carry, the KV cache here is written IN PLACE: a
 forward step assigns the new keys/values into the cache tensors it was
@@ -22,8 +25,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
+
+from ..ops import quant_matmul
 
 NEG_INF = -1e30  # large finite negative: avoids NaNs from (-inf) - (-inf)
 
@@ -42,44 +48,30 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def dense(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w (+ b) with w stored [in, out], in x's dtype.
 
-    Only the full-precision branch is ported; the JAX package's weight-only
-    int8 ``{"q", "s"}`` pair comes with the int8 slice.
+    `w` is a dense tensor or the weight-only int8 pair ``{"q", "s"}``; the
+    pair goes through `ops.quant_matmul.int8_matmul` (the hand-written
+    kernel on the card, the JAX package's expression on the CPU).
     """
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "int8 weight pairs ({'q', 's'}) are not ported yet"
-        )
+        return quant_matmul.int8_matmul(x, w["q"], w["s"], b)
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)
     return y
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Row lookup of a dense [V, D] table (indices are bounds-checked)."""
-    if isinstance(table, dict):
-        raise NotImplementedError("int8 embedding tables are not ported yet")
-    return table[ids]
-
-
-def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: x [B, T, D] @ table [V, D]^T -> float32 logits.
-
-    The product runs in float32 from the compute-dtype activations, as the
-    JAX package's `preferred_element_type=float32` einsum does, so sampling
-    sees logits that were never rounded to bf16.
-    """
-    if isinstance(table, dict):
-        raise NotImplementedError("int8 embedding tables are not ported yet")
-    return torch.matmul(x.float(), table.float().t())
-
-
 @dataclasses.dataclass
 class KVCache:
     """Stacked KV cache, written in place.
 
-    k, v:   [num_layers, batch, num_kv_heads, max_len, head_dim]
-    length: number of slots already written (one offset for the batch).
+    k, v:    [num_layers, batch, num_kv_heads, max_len, head_dim], int8
+             when quantized
+    length:  slots already written, one offset for the batch (the bucketed
+             engine)
+    ks, vs:  [num_layers, batch, num_kv_heads, max_len] float32 per-slot
+             scales of an int8 cache (`quantize_kv`), else None
+    lengths: [batch] per-row offsets (the paged engine's ragged slots), or
+             None; when set it takes the place of `length`
 
     `window(width)` gives a cache over the first `width` slots that shares
     storage with this one: attention then reads only slots that can be
@@ -89,12 +81,27 @@ class KVCache:
     k: torch.Tensor
     v: torch.Tensor
     length: int = 0
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
+    lengths: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
 
     @classmethod
     def create(cls, num_layers: int, batch: int, num_kv_heads: int,
                max_len: int, head_dim: int, dtype: torch.dtype,
-               device: torch.device | str) -> "KVCache":
+               device: torch.device | str,
+               quantized: bool = False) -> "KVCache":
         shape = (num_layers, batch, num_kv_heads, max_len, head_dim)
+        if quantized:
+            return cls(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                ks=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                vs=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            )
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -107,8 +114,44 @@ class KVCache:
     def window(self, width: int) -> "KVCache":
         if not 0 < width <= self.max_len:
             raise ValueError(f"window {width} outside cache of {self.max_len}")
-        return KVCache(k=self.k[:, :, :, :width], v=self.v[:, :, :, :width],
-                       length=self.length)
+        return dataclasses.replace(
+            self, k=self.k[:, :, :, :width], v=self.v[:, :, :, :width],
+            ks=None if self.ks is None else self.ks[:, :, :, :width],
+            vs=None if self.vs is None else self.vs[:, :, :, :width],
+        )
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(batch, head, slot) int8: [B, H, T, Dh] -> (int8 of the
+    same shape, float32 [B, H, T] scales), in the JAX package's op order
+    (so bit-equal to it: division, round half to even, clip)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1) / 127.0
+    s = torch.clamp(s, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def attend_quant(q: torch.Tensor, k_q: torch.Tensor, ks: torch.Tensor,
+                 v_q: torch.Tensor, vs: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """`attend` against an int8 cache: q [B,H,T,Dh], k_q/v_q int8
+    [B,H,S,Dh], ks/vs f32 [B,H,S], mask [B,1,T,S].
+
+    As in the JAX package: float32 scores of q against the int8 keys in
+    q's dtype, scaled by ks on the key axis, then by Dh^-1/2; the softmax
+    probabilities times vs, cast to q's dtype, against the int8 values in
+    q's dtype.
+    """
+    dtype = q.dtype
+    head_dim = q.shape[-1]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k_q.to(dtype).float())
+    scores = scores * ks[:, :, None, :]
+    scores = scores / math.sqrt(head_dim)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    probs = (probs * vs[:, :, None, :]).to(dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v_q.to(dtype))
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -7,7 +7,9 @@ Port of the GPT-2 half of `distributed_lms_raft_llm_tpu/models/convert.py`.
 - `gpt2_params_from_hf` maps HF GPT-2 names onto the `gpt2.py` tree and
   casts in torch to `cfg.param_dtype` (numpy has no bfloat16);
 - `params_from_jax` carries a JAX parameter tree, exported to numpy, across
-  unchanged in layout: the two packages then hold the same weights.
+  unchanged in layout: the two packages then hold the same weights. The
+  weight-only int8 pairs ``{"q": int8, "s": f32}`` of a quantized tree come
+  across as they are, never cast.
 """
 
 from __future__ import annotations
@@ -122,7 +124,12 @@ def params_from_jax(tree: Mapping[str, Any],
                     dtype: Optional[torch.dtype] = None,
                     device: DeviceLike = "cuda") -> Dict[str, Any]:
     """A JAX parameter tree (nested dicts of numpy arrays, e.g. from
-    `jax.device_get`) as the same tree of tensors, optionally cast."""
+    `jax.device_get`) as the same tree of tensors, the dense leaves
+    optionally cast to `dtype`; int8 ``{"q", "s"}`` pairs keep their
+    types."""
+    if set(tree) == {"q", "s"}:  # a quantized leaf (models/quant.py)
+        return {"q": to_tensor(tree["q"], None, device),
+                "s": to_tensor(tree["s"], None, device)}
     out: Dict[str, Any] = {}
     for key, value in tree.items():
         if isinstance(value, Mapping):

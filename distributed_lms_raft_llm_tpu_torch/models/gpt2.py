@@ -6,17 +6,27 @@ same nested dict, with per-layer weights stacked on a leading layer axis
 trunk is a Python loop that indexes layer ``i``. There is no jit or scan:
 PyTorch runs eagerly.
 
-`forward` has three modes:
+`forward` has four modes:
 
 - full sequence (``cache=None``): causal attention over the input;
 - cached with one scalar offset (``cache.length``): prefill and decode
   write their keys/values into the cache IN PLACE at that offset;
+- cached with per-row offsets (``cache.lengths``, the paged engine's
+  ragged slots): each row's T new keys/values are scattered at its own
+  offset;
 - cached with T == 1 and ``cfg.fused_decode_attention``: attention runs
   through `ops.attention.decode_attention` (the CUDA kernel on the card,
-  its plain version on the CPU), reading the layer from the stacked cache.
+  its plain version on the CPU), reading the layer from the stacked cache,
+  in every cache mode: scalar offset with the mask as a bias, ragged with
+  per-row lengths, float or int8 cache.
 
-The JAX package's ragged per-row offsets (paged engine) and int8 KV cache
-are not ported yet.
+With ``cfg.quant_kv`` the cache is int8 with per-slot scales
+(`common.quantize_kv` on write, `common.attend_quant` on read). The JAX
+package refuses `fused_decode_attention` together with `quant_kv`, because
+its Pallas kernel reads a full-precision cache only; the port's kernel
+computes `attend_quant` itself, so the two combine here. Prefill (T > 1)
+attends through the plain `attend`/`attend_quant`, as the JAX package's
+XLA einsums do.
 """
 
 from __future__ import annotations
@@ -33,14 +43,15 @@ from ..ops import attention as attention_ops
 from .common import (
     KVCache,
     attend,
+    attend_quant,
     causal_window_mask,
     dense,
-    embed_lookup,
     layer_norm,
     merge_heads,
+    quantize_kv,
     split_heads,
-    unembed,
 )
+from .quant import embed_lookup, unembed
 
 Params = Dict[str, Any]
 
@@ -58,6 +69,8 @@ class GPT2Config:
     # Route the single-token decode step through ops.attention's kernel
     # (set by the engine, EngineConfig.fused_attention).
     fused_decode_attention: bool = False
+    # int8 KV cache with per-slot scales (EngineConfig.kv_quant).
+    quant_kv: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -128,14 +141,25 @@ def init_params(cfg: GPT2Config, seed: int = 0,
 
 def init_cache(cfg: GPT2Config, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
-               device: DeviceLike = "cuda") -> KVCache:
+               device: DeviceLike = "cuda",
+               quantized: Optional[bool] = None) -> KVCache:
+    """A zeroed cache; int8 with scales when `quantized` (default:
+    `cfg.quant_kv`)."""
+    if quantized is None:
+        quantized = cfg.quant_kv
     return KVCache.create(cfg.num_layers, batch, cfg.num_heads, max_len,
-                          cfg.head_dim, dtype or cfg.dtype, device)
+                          cfg.head_dim, dtype or cfg.dtype, device,
+                          quantized=quantized)
 
 
 def layer_params(params: Params, i: int) -> Params:
-    """Layer i's weights as views into the stacked block tensors."""
-    return {name: {k: v[i] for k, v in group.items()}
+    """Layer i's weights as views into the stacked block tensors (an int8
+    ``{"q", "s"}`` pair is indexed leaf by leaf)."""
+
+    def take(v):
+        return {k: x[i] for k, x in v.items()} if isinstance(v, dict) else v[i]
+
+    return {name: {k: take(v) for k, v in group.items()}
             for name, group in params["blocks"].items()}
 
 
@@ -171,10 +195,15 @@ def forward(
 
     cache      — None for full-sequence mode; a KVCache for incremental
                  prefill/decode. New keys/values are written IN PLACE into
-                 `cache.k`/`cache.v` at slot `cache.length` (one offset for
-                 the batch); the returned cache shares that storage with
-                 `length` advanced by T. `cache.length + T` must fit the
-                 cache: checked here, where JAX would clamp silently.
+                 the cache's tensors: at slot `cache.length` (one offset
+                 for the batch), or, when `cache.lengths` is set, at each
+                 row's own offset (ragged slots). The returned cache shares
+                 that storage with its offsets advanced by T. A scalar
+                 `cache.length + T` must fit the cache: checked here, where
+                 JAX would clamp silently. Ragged offsets stay on the
+                 device and are not checked (that would sync the host):
+                 the caller keeps `lengths + T <= max_len` (the paged
+                 engine clamps them) and the positions inside the table.
     positions  — [B, T] indices into the learned position table; defaults
                  to the slot indices. Out-of-range positions raise (PyTorch
                  indexing is bounds-checked).
@@ -182,14 +211,19 @@ def forward(
     """
     b, t = input_ids.shape
     device = input_ids.device
-    offset = 0 if cache is None else cache.length
-    if cache is not None and offset + t > cache.max_len:
+    ragged = cache is not None and cache.lengths is not None
+    offset = 0 if cache is None or ragged else cache.length
+    if cache is not None and not ragged and offset + t > cache.max_len:
         raise ValueError(
             f"cache overflow: {offset} + {t} slots > cache of {cache.max_len}"
         )
-    q_slots = (offset + torch.arange(t, device=device))[None, :].expand(b, t)
+    steps = torch.arange(t, device=device)
+    if ragged:
+        q_slots = cache.lengths.long()[:, None] + steps[None, :]
+    else:
+        q_slots = (offset + steps)[None, :].expand(b, t)
     if positions is None:
-        if offset + t > cfg.max_position_embeddings:
+        if not ragged and offset + t > cfg.max_position_embeddings:
             raise ValueError(
                 f"positions up to {offset + t} exceed the position table "
                 f"{cfg.max_position_embeddings}"
@@ -212,24 +246,62 @@ def forward(
             x = apply_block(x, layer_params(params, i), attend_full, cfg)
         new_cache = None
     else:
+        quant_kv = cache.quantized
+        if quant_kv != cfg.quant_kv:
+            raise ValueError(
+                f"cfg.quant_kv={cfg.quant_kv} but the cache is "
+                f"{'int8' if quant_kv else 'full precision'}"
+            )
         fused = cfg.fused_decode_attention and t == 1
-        # The attend-mask is layer-invariant: its bias form is built once.
-        bias = attention_ops.mask_to_bias(mask) if fused else None
-        ck, cv = cache.k, cache.v
+        # Layer-invariant kernel inputs, built once per step: the mask as a
+        # bias (not needed where per-row lengths say it all) and each row's
+        # key count (its offset + 1).
+        bias = lengths = None
+        if fused:
+            if not ragged or kv_mask is not None:
+                bias = attention_ops.mask_to_bias(mask)
+            if ragged:
+                lengths = (cache.lengths + 1).to(torch.int32)
+        ck, cv, cks, cvs = cache.k, cache.v, cache.ks, cache.vs
+        rows = torch.arange(b, device=device)[:, None] if ragged else None
         for i in range(cfg.num_layers):
 
             def attend_fn(q, k_new, v_new, layer=i):
-                ck[layer, :, :, offset:offset + t] = k_new.to(ck.dtype)
-                cv[layer, :, :, offset:offset + t] = v_new.to(cv.dtype)
+                if quant_kv:
+                    k_w, k_s = quantize_kv(k_new)
+                    v_w, v_s = quantize_kv(v_new)
+                else:
+                    k_w, v_w = k_new.to(ck.dtype), v_new.to(cv.dtype)
+                if ragged:
+                    # Advanced indices [B, 1] rows x [B, T] slots land in
+                    # front, as in JAX: values go in as [B, T, Hkv, Dh].
+                    ck[layer, rows, :, q_slots, :] = k_w.transpose(1, 2)
+                    cv[layer, rows, :, q_slots, :] = v_w.transpose(1, 2)
+                    if quant_kv:
+                        cks[layer, rows, :, q_slots] = k_s.transpose(1, 2)
+                        cvs[layer, rows, :, q_slots] = v_s.transpose(1, 2)
+                else:
+                    ck[layer, :, :, offset:offset + t] = k_w
+                    cv[layer, :, :, offset:offset + t] = v_w
+                    if quant_kv:
+                        cks[layer, :, :, offset:offset + t] = k_s
+                        cvs[layer, :, :, offset:offset + t] = v_s
                 if fused:  # q is a strided view of qkv, read in place
                     return attention_ops.decode_attention(
-                        q, ck, cv, layer, bias
+                        q, ck, cv, layer, bias, lengths=lengths,
+                        k_scale=cks, v_scale=cvs,
                     )
+                if quant_kv:
+                    return attend_quant(q, ck[layer], cks[layer], cv[layer],
+                                        cvs[layer], mask)
                 return attend(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype),
                               mask)
 
             x = apply_block(x, layer_params(params, i), attend_fn, cfg)
-        new_cache = KVCache(k=ck, v=cv, length=offset + t)
+        if ragged:
+            new_cache = dataclasses.replace(cache, lengths=cache.lengths + t)
+        else:
+            new_cache = dataclasses.replace(cache, length=offset + t)
 
     x = layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"],
                    cfg.layer_norm_eps)

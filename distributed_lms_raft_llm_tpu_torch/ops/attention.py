@@ -5,7 +5,12 @@ one Pallas kernel). The kernel, `csrc/decode_attention.cu`, is written by
 hand for Hopper (`sm_90a`) and bound through ctypes (`ops/build.py`); its
 source notes what bounds it and how it is laid out. It splits the keys of a
 (row, KV head) across a thread-block cluster; `launch_plan` picks the split,
-the tile and the shared memory.
+the tile and the shared memory from the cache's width alone.
+
+Beyond the Pallas kernel it takes per-row `lengths` (the paged engine's
+ragged offsets: keys past a row's length are neither read nor copied) and
+an int8 cache with per-slot scales (`common.attend_quant` in one pass), so
+the paged engine decodes through it in every cache mode.
 
 `decode_attention` dispatches on where its tensors live: CPU tensors take
 `decode_attention_reference` (the plain PyTorch version, which the CPU
@@ -23,13 +28,20 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..models.common import NEG_INF
 from . import build
 
-KERNEL = "decode_attention"
+NEG_INF = -1e30  # the models' masked score (models/common.py NEG_INF)
+
+KERNEL = "decode_attention"  # the source, csrc/decode_attention.cu
+# The kernel's launches are counted by variant: a float or bf16 cache with a
+# bias (the bucketed engine), with per-row lengths (the paged engine), and
+# an int8 cache with per-slot scales (either engine, `kv_quant`).
+RAGGED = "decode_attention_ragged"
+INT8KV = "decode_attention_int8kv"
 MAX_GROUP = 8     # query heads per KV head (csrc kMaxGroup)
 HEAD_DIMS = (8, 16, 32, 64, 128)  # csrc instantiations
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT8_HEAD_DIMS = (64, 128)        # csrc instantiations for an int8 cache
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # Launch geometry. The constants marked csrc must match the kernel source.
 TARGET_BLOCKS = 96         # split a window until this many blocks run
@@ -41,10 +53,10 @@ RING_BYTES = 48 * 1024     # K and V staged per block, at most
 WARPS = 8                  # warps per block (csrc kThreads / 32)
 SMEM_LIMIT = 227 * 1024    # dynamic shared memory a block may use
 
-# Kernel launches by wrapper, incremented only where a kernel is launched
-# (never by the plain path). A run resets it, drives the main path, and
-# reads it to show the path went through the kernel.
-launch_counts: Dict[str, int] = {KERNEL: 0}
+# Kernel launches by variant, incremented only where a kernel is launched
+# (never by the plain path). A run resets them, drives the main path, and
+# reads them to show the path went through the kernel.
+launch_counts: Dict[str, int] = {KERNEL: 0, RAGGED: 0, INT8KV: 0}
 
 
 def reset_launch_counts() -> None:
@@ -62,22 +74,49 @@ def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
 
 def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
                                v_cache: torch.Tensor, layer: int,
-                               bias: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: `common.attend` on the indexed layer.
+                               bias: Optional[torch.Tensor] = None,
+                               lengths: Optional[torch.Tensor] = None,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None,
+                               ) -> torch.Tensor:
+    """Plain PyTorch version: `common.attend` (or, for an int8 cache,
+    `common.attend_quant`) on the indexed layer.
 
-    Scores and softmax in f32 with the additive bias, probabilities cast to
-    the cache dtype for the weighted sum, output in q's dtype. Query head h
-    reads KV head h // (H / Hkv).
+    Scores and softmax in f32 with the additive bias; key slots at or past
+    `lengths[b]` are masked. A float cache: probabilities cast to the
+    cache dtype for the weighted sum. An int8 cache: scores scaled by
+    `k_scale` on the key axis, probabilities times `v_scale` cast to q's
+    dtype against the int8 values in q's dtype. Output in q's dtype. Query
+    head h reads KV head h // (H / Hkv).
     """
-    h, hkv = q.shape[1], k_cache.shape[2]
+    h, hkv, s = q.shape[1], k_cache.shape[2], k_cache.shape[3]
+    quant = k_scale is not None
     k = k_cache[layer]
     v = v_cache[layer]
+    ks = k_scale[layer] if quant else None
+    vs = v_scale[layer] if quant else None
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=1)
         v = v.repeat_interleave(h // hkv, dim=1)
+        if quant:
+            ks = ks.repeat_interleave(h // hkv, dim=1)
+            vs = vs.repeat_interleave(h // hkv, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    scores = scores / math.sqrt(q.shape[-1]) + bias[:, :, None, :]
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    if quant:
+        scores = scores * ks[:, :, None, :]
+    scores = scores / math.sqrt(q.shape[-1])
+    if bias is not None:
+        scores = scores + bias[:, :, None, :]
+    if lengths is not None:
+        keys = torch.arange(s, device=q.device)
+        scores = torch.where(
+            (keys[None, :] < lengths[:, None])[:, None, None, :], scores,
+            torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    if quant:
+        probs = (probs * vs[:, :, None, :]).to(q.dtype)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(q.dtype))
+    probs = probs.to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v).to(q.dtype)
 
 
@@ -133,6 +172,8 @@ def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
     `max_tile_keys`, a multiple of 8 keys and no longer than a split
     needs; the ring holds as many tiles as the split has, up to RING_BYTES
     of K and V (at least two, so a tile can land while another is read).
+    `dtype` is the cache's (int8 for a quantized cache). Per-row lengths
+    never enter the plan: they live on the device.
     """
     rows = b * hkv
     elem = dtype.itemsize
@@ -162,7 +203,10 @@ def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
 
 def _check_args(q: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, layer: int,
-                bias: torch.Tensor) -> None:
+                bias: Optional[torch.Tensor],
+                lengths: Optional[torch.Tensor],
+                k_scale: Optional[torch.Tensor],
+                v_scale: Optional[torch.Tensor]) -> None:
     if q.dim() != 4 or q.shape[2] != 1:
         raise ValueError(f"q must be [B, H, 1, Dh], got {tuple(q.shape)}")
     if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
@@ -176,44 +220,75 @@ def _check_args(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(
             f"q {tuple(q.shape)} does not match cache {tuple(k_cache.shape)}"
         )
-    if tuple(bias.shape) != (b, 1, s) or bias.dtype != torch.float32:
+    if bias is not None and (tuple(bias.shape) != (b, 1, s)
+                             or bias.dtype != torch.float32):
         raise ValueError(
             f"bias must be float32 [{b}, 1, {s}], got {bias.dtype} "
             f"{tuple(bias.shape)}"
         )
+    if lengths is not None and (tuple(lengths.shape) != (b,)
+                                or lengths.dtype != torch.int32):
+        raise ValueError(f"lengths must be int32 [{b}], got {lengths.dtype} "
+                         f"{tuple(lengths.shape)}")
+    quant = k_cache.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None) or quant != (k_scale is not None):
+        raise ValueError("an int8 cache takes k_scale and v_scale, a float "
+                         "cache neither")
+    if quant:
+        for scale in (k_scale, v_scale):
+            if (tuple(scale.shape) != tuple(k_cache.shape[:4])
+                    or scale.dtype != torch.float32):
+                raise ValueError(
+                    f"k_scale/v_scale must be float32 "
+                    f"{list(k_cache.shape[:4])}, got {scale.dtype} "
+                    f"{tuple(scale.shape)}"
+                )
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} outside [0, {n_layers})")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, layer: int,
-                     bias: torch.Tensor) -> torch.Tensor:
+                     bias: Optional[torch.Tensor] = None, *,
+                     lengths: Optional[torch.Tensor] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention against one layer of the stacked KV cache.
 
     q        [B, H, 1, Dh] — the decode step's queries; for the kernel any
              batch and head strides with Dh contiguous (a view of the
              fused qkv projection is read in place)
-    k_cache  [L, B, Hkv, S, Dh] — stacked cache (a view over the first S
-             slots of a larger cache is fine: it is read in place)
+    k_cache  [L, B, Hkv, S, Dh] — stacked cache, float/bf16 in q's dtype
+             or int8 (a view over the first S slots of a larger cache is
+             fine: it is read in place)
     v_cache  [L, B, Hkv, S, Dh]
     layer    int — which layer's K/V to attend against
-    bias     [B, 1, S] f32 — additive mask (0 = attend, NEG_INF = not)
+    bias     [B, 1, S] f32 — additive mask (0 = attend, NEG_INF = not), or
+             None
+    lengths  [B] int32 — keys per row (slots >= lengths[b] are not read),
+             or None; every row keeps at least one key (1 <= lengths[b])
+    k_scale, v_scale  [L, B, Hkv, S] f32 — the per-slot scales of an int8
+             cache (`common.quantize_kv`), exactly when it is int8
     returns  [B, H, 1, Dh] in q's dtype.
     """
     layer = operator.index(layer)
     device = q.device
-    if (k_cache.device != device or v_cache.device != device
-            or bias.device != device):
-        devices = {str(t.device) for t in (q, k_cache, v_cache, bias)}
+    tensors = [t for t in (q, k_cache, v_cache, bias, lengths, k_scale,
+                           v_scale) if t is not None]
+    if any(t.device != device for t in tensors):
+        devices = {str(t.device) for t in tensors}
         raise ValueError(
             f"decode_attention tensors on several devices: {sorted(devices)}"
         )
     if device.type == "cpu":
-        _check_args(q, k_cache, v_cache, layer, bias)
-        return decode_attention_reference(q, k_cache, v_cache, layer, bias)
+        _check_args(q, k_cache, v_cache, layer, bias, lengths, k_scale,
+                    v_scale)
+        return decode_attention_reference(q, k_cache, v_cache, layer, bias,
+                                          lengths, k_scale, v_scale)
     if device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {device}")
-    return _launch_kernel(q, k_cache, v_cache, layer, bias)
+    return _launch_kernel(q, k_cache, v_cache, layer, bias, lengths, k_scale,
+                          v_scale)
 
 
 class _Args(ctypes.Structure):
@@ -223,18 +298,20 @@ class _Args(ctypes.Structure):
     _fields_ = [("q_sb", ctypes.c_longlong), ("q_sh", ctypes.c_longlong)] + [
         (name, ctypes.c_int) for name in (
             "B", "H", "Hkv", "S", "S_alloc", "Dh", "n_split", "split_keys",
-            "tile", "stages", "smem", "dtype")
+            "tile", "stages", "smem", "dtype", "kv_dtype")
     ] + [("scale", ctypes.c_float)]
 
 
 @dataclasses.dataclass(frozen=True)
 class _Layout:
-    """One validated (shape, strides, dtype): its launch plan and the
-    kernel's arguments (kept alive here; `address` is what is passed)."""
+    """One validated (shape, strides, dtype): its launch plan, the kernel's
+    arguments (kept alive here; `address` is what is passed) and the name
+    its launches are counted under."""
 
     plan: LaunchPlan
     args: _Args
     address: int
+    variant: str
 
 
 # Validated layouts by (shape, strides, dtype) key: a decode step calls the
@@ -244,21 +321,28 @@ _MAX_LAYOUTS = 256
 
 
 def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
-                   v_cache: torch.Tensor, bias: torch.Tensor) -> _Layout:
+                   v_cache: torch.Tensor, bias: Optional[torch.Tensor],
+                   lengths: Optional[torch.Tensor] = None,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None) -> _Layout:
     """Check what the kernel takes (everything but the layer index and the
     pointers' alignment, which change per call); raise on anything else."""
-    _check_args(q, k_cache, v_cache, 0, bias)
+    _check_args(q, k_cache, v_cache, 0, bias, lengths, k_scale, v_scale)
     b, h, _, dh = q.shape
     _, _, hkv, s, _ = k_cache.shape
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decode_attention kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError("q, k_cache and v_cache must share one dtype, got "
-                        f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
-    if h // hkv > MAX_GROUP or dh not in HEAD_DIMS:
+    quant = k_cache.dtype == torch.int8
+    if v_cache.dtype != k_cache.dtype or (not quant
+                                          and k_cache.dtype != q.dtype):
+        raise TypeError("k_cache and v_cache must share q's dtype, or both "
+                        f"be int8; got {q.dtype}, {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
+    head_dims = INT8_HEAD_DIMS if quant else HEAD_DIMS
+    if h // hkv > MAX_GROUP or dh not in head_dims:
         raise ValueError(
-            f"kernel limits: H/Hkv <= {MAX_GROUP}, Dh in {HEAD_DIMS}; got "
+            f"kernel limits: H/Hkv <= {MAX_GROUP}, Dh in {head_dims}; got "
             f"H/Hkv={h // hkv}, Dh={dh}"
         )
     elem = q.dtype.itemsize
@@ -269,34 +353,52 @@ def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
             "q must have a contiguous head dim and 16-byte aligned rows (the "
             f"kernel reads 16-byte vectors); got strides {q.stride()}"
         )
-    if not bias.is_contiguous():
+    if bias is not None and not bias.is_contiguous():
         raise ValueError("bias must be contiguous")
+    if lengths is not None and not lengths.is_contiguous():
+        raise ValueError("lengths must be contiguous")
     s_alloc = _slot_stride(k_cache)
     if s_alloc is None or _slot_stride(v_cache) != s_alloc:
         raise ValueError(
             "k_cache/v_cache must be contiguous [L, B, Hkv, S_alloc, Dh] "
             "tensors, or views of such over their first S slots"
         )
-    plan = launch_plan(b, hkv, s, dh, q.dtype, group=h // hkv)
+    if quant and any(_scale_stride(x) != s_alloc for x in (k_scale, v_scale)):
+        raise ValueError(
+            "k_scale/v_scale must be contiguous [L, B, Hkv, S_alloc] tensors "
+            "(or views of such over their first S slots) beside the cache"
+        )
+    plan = launch_plan(b, hkv, s, dh, k_cache.dtype, group=h // hkv)
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"launch plan needs {plan.smem_bytes} bytes of "
                          f"shared memory, more than {SMEM_LIMIT}")
     args = _Args(sb, sh, b, h, hkv, s, s_alloc, dh, plan.n_split,
                  plan.split_keys, plan.tile_keys, plan.stages,
-                 plan.smem_bytes, _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh))
-    return _Layout(plan=plan, args=args, address=ctypes.addressof(args))
+                 plan.smem_bytes, _DTYPE_CODES[q.dtype],
+                 _DTYPE_CODES[k_cache.dtype], 1.0 / math.sqrt(dh))
+    variant = INT8KV if quant else (RAGGED if lengths is not None else KERNEL)
+    return _Layout(plan=plan, args=args, address=ctypes.addressof(args),
+                   variant=variant)
 
 
 def _launch_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, layer: int,
-                   bias: torch.Tensor) -> torch.Tensor:
+                   bias: Optional[torch.Tensor],
+                   lengths: Optional[torch.Tensor] = None,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Validate what the CUDA kernel takes, launch it, count the launch."""
     key = (q.shape, q.stride(), q.dtype, k_cache.shape, k_cache.stride(),
            k_cache.dtype, v_cache.shape, v_cache.stride(), v_cache.dtype,
-           bias.shape, bias.stride(), bias.dtype)
+           None if bias is None else (bias.shape, bias.stride(), bias.dtype),
+           None if lengths is None else (lengths.shape, lengths.stride(),
+                                         lengths.dtype),
+           None if k_scale is None else (k_scale.shape, k_scale.stride(),
+                                         v_scale.shape, v_scale.stride()))
     lay = _layouts.get(key)
     if lay is None:
-        lay = _kernel_layout(q, k_cache, v_cache, bias)
+        lay = _kernel_layout(q, k_cache, v_cache, bias, lengths, k_scale,
+                             v_scale)
         if len(_layouts) >= _MAX_LAYOUTS:
             _layouts.clear()
         _layouts[key] = lay
@@ -309,12 +411,16 @@ def _launch_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                          "(the kernel reads 16-byte vectors)")
     out = q.new_empty(q.shape)  # contiguous, whatever q's strides
     launch, stream = _entry_point()
-    err = launch(lay.address, qp, kp, vp, bias.data_ptr(), out.data_ptr(),
-                 layer, stream(q.get_device()))
+    err = launch(lay.address, qp, kp, vp,
+                 None if k_scale is None else k_scale.data_ptr(),
+                 None if v_scale is None else v_scale.data_ptr(),
+                 None if bias is None else bias.data_ptr(),
+                 None if lengths is None else lengths.data_ptr(),
+                 out.data_ptr(), layer, stream(q.get_device()))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    launch_counts[KERNEL] += 1
+    launch_counts[lay.variant] += 1
     return out
 
 
@@ -331,6 +437,16 @@ def _slot_stride(cache: torch.Tensor) -> int | None:
     return s_alloc
 
 
+def _scale_stride(scale: torch.Tensor) -> int | None:
+    """S_alloc if `scale` is a contiguous [L, B, Hkv, S_alloc] buffer
+    (possibly sliced to its first S slots), else None."""
+    n_layers, b, hkv, s = scale.shape
+    st = scale.stride()
+    if st[3] != 1 or st[2] < s or st[1] != hkv * st[2] or st[0] != b * st[1]:
+        return None
+    return st[2]
+
+
 _bound: Optional[Tuple[Callable[..., int], Callable[[int], int]]] = None
 
 
@@ -340,7 +456,7 @@ def _entry_point() -> Tuple[Callable[..., int], Callable[[int], int]]:
     global _bound
     if _bound is None:
         fn = build.load(KERNEL).decode_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         # The current stream's handle for a device index, without building
         # a torch.cuda.Stream object per call.

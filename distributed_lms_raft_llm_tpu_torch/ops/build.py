@@ -24,6 +24,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# Every kernel source of the port (csrc/<name>.cu).
+KERNELS = ("decode_attention", "int8_matmul")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,9 +59,10 @@ def _target(name: str) -> Tuple[Path, Path]:
     return src, BUILD_DIR / f"{name}_{digest}.so"
 
 
-def build_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
-    """Compile every named kernel not yet built, one `nvcc` per source, all
-    started together; then load them. Returns name -> library."""
+def build_all(names: Sequence[str] = KERNELS) -> Dict[str, ctypes.CDLL]:
+    """Compile every named kernel (by default all of them) not yet built,
+    one `nvcc` per source, all started together; then load them. Returns
+    name -> library."""
     with _lock:
         todo: List[Tuple[str, Path, Path, subprocess.Popen, float]] = []
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -3,12 +3,19 @@
 Port of the unary path of `distributed_lms_raft_llm_tpu/serving/
 tutoring_server.py`. It speaks the frozen `lms.proto`, so the JAX
 package's LMS forwards to it unchanged. Concurrent RPCs coalesce in
-`BatchingQueue` into device batches of the bucketed `TutoringEngine`.
+`BatchingQueue` into device batches of the bucketed `TutoringEngine`, or,
+with ``--paged``, join the running batch of the continuous-batching
+`PagedEngine` through `PagedQueue`.
 
 Run (on the card; ``--device cpu`` for a CPU run):
 
     python -m distributed_lms_raft_llm_tpu_torch.serving.tutoring_server \\
         [--port 50054] [--model gpt2] [--checkpoint model.safetensors ...]
+
+The production tutoring node (configs/cluster.toml) as far as the port
+carries it: ``--paged --quant int8 --kv-quant --slots 16 --chunk 16
+--inflight 3``. ``--megastep``, ``--prefix-cache`` and
+``--prefill-chunk-tokens`` are refused until they are ported.
 
 `StreamLLMAnswer`, sessions, drain, health and telemetry come with a later
 slice; until then `StreamLLMAnswer` answers UNIMPLEMENTED.
@@ -18,13 +25,21 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import functools
 import logging
 from typing import Optional
 
 import grpc
 import torch
 
-from ..engine import BatchingQueue, EngineConfig, SamplingParams, TutoringEngine
+from ..engine import (
+    BatchingQueue,
+    EngineConfig,
+    PagedEngine,
+    PagedQueue,
+    SamplingParams,
+    TutoringEngine,
+)
 from ..proto import lms_pb2, rpc
 from ..utils import auth
 from ..utils.metrics import Metrics
@@ -43,7 +58,7 @@ __all__ = ["PROMPT_TEMPLATE", "TutoringService", "serve_async", "main"]
 
 
 class TutoringService(rpc.TutoringServicer):
-    def __init__(self, queue: BatchingQueue, metrics: Metrics,
+    def __init__(self, queue, metrics: Metrics,
                  auth_key: Optional[str] = None,
                  node_id: Optional[str] = None):
         self.queue = queue
@@ -102,7 +117,7 @@ class TutoringService(rpc.TutoringServicer):
         return lms_pb2.QueryResponse(success=True, response=answer.strip())
 
 
-async def serve_async(port: int, engine: TutoringEngine, *,
+async def serve_async(port: int, engine, *,
                       max_batch: int = 8, max_wait_ms: float = 10.0,
                       max_queue: int = 0, metrics: Optional[Metrics] = None,
                       auth_key: Optional[str] = None,
@@ -110,13 +125,19 @@ async def serve_async(port: int, engine: TutoringEngine, *,
                       host: str = "[::]") -> grpc.aio.Server:
     """Start (and return) the aio server; the caller awaits termination.
 
-    The bound port is `server._port`. Shut down with ``await
-    server.stop(grace)`` then ``await server._queue.close()``.
+    A `PagedEngine` is served through `PagedQueue` (continuous batching:
+    requests join the running batch between dispatches), a
+    `TutoringEngine` through `BatchingQueue`. The bound port is
+    `server._port`. Shut down with ``await server.stop(grace)`` then
+    ``await server._queue.close()``.
     """
     metrics = metrics or Metrics()
-    queue = BatchingQueue(engine, max_batch=max_batch,
-                          max_wait_ms=max_wait_ms, metrics=metrics,
-                          max_queue=max_queue)
+    if isinstance(engine, PagedEngine):
+        queue = PagedQueue(engine, metrics=metrics, max_queue=max_queue)
+    else:
+        queue = BatchingQueue(engine, max_batch=max_batch,
+                              max_wait_ms=max_wait_ms, metrics=metrics,
+                              max_queue=max_queue)
     await queue.start()
     server = grpc.aio.server(
         options=[
@@ -164,7 +185,32 @@ def main(argv=None) -> None:
                         "secret; when set, only queries signed by the LMS "
                         "leader are answered")
     parser.add_argument("--no-warmup", action="store_true")
+    parser.add_argument("--quant", default=None, choices=["int8"],
+                        help="weight-only int8 (per-channel scales)")
+    parser.add_argument("--kv-quant", action="store_true",
+                        help="int8 KV cache with per-slot scales")
+    parser.add_argument("--paged", action="store_true",
+                        help="continuous batching (PagedEngine + PagedQueue)")
+    parser.add_argument("--slots", type=int, default=None,
+                        help="paged engine decode slots (default: "
+                        "--max-batch)")
+    parser.add_argument("--chunk", type=int, default=16,
+                        help="paged engine tokens per dispatched step")
+    parser.add_argument("--inflight", type=int, default=2,
+                        help="paged engine dispatches in flight (2 = "
+                        "dispatch N+1 before reading N)")
+    # Options of the JAX server not ported yet: refused when set.
+    parser.add_argument("--megastep", type=int, default=1)
+    parser.add_argument("--prefix-cache", action="store_true")
+    parser.add_argument("--prefill-chunk-tokens", type=int, default=0)
     args = parser.parse_args(argv)
+    unported = [flag for flag, on in (
+        ("--megastep", args.megastep > 1),
+        ("--prefix-cache", args.prefix_cache),
+        ("--prefill-chunk-tokens", args.prefill_chunk_tokens > 0),
+    ) if on]
+    if unported:
+        parser.error(f"not ported to PyTorch yet: {', '.join(unported)}")
 
     logging.basicConfig(
         level=logging.INFO,
@@ -172,15 +218,23 @@ def main(argv=None) -> None:
     )
     # bf16 weights and activations on the card; float32 on the CPU.
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
-    engine = TutoringEngine(EngineConfig(
+    config = EngineConfig(
         model=args.model, checkpoint=args.checkpoint,
         vocab_path=args.vocab, merges_path=args.merges,
         sampling=SamplingParams.reference_defaults(
             max_new_tokens=args.max_new_tokens),
         seed=args.seed, device=args.device, dtype=dtype, param_dtype=dtype,
-    ))
+        quant=args.quant, kv_quant=args.kv_quant,
+    )
+    if args.paged:
+        engine = PagedEngine(config, slots=args.slots or args.max_batch,
+                             chunk=args.chunk, inflight=args.inflight)
+        warm = engine.warmup
+    else:
+        engine = TutoringEngine(config)
+        warm = functools.partial(engine.warmup, batch=args.max_batch)
     if not args.no_warmup:
-        log.info("warmup took %.1fs", engine.warmup(batch=args.max_batch))
+        log.info("warmup took %.1fs", warm())
     auth_key = None
     if args.auth_key_file:
         with open(args.auth_key_file) as fh:

@@ -429,7 +429,7 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     def no_plain(*args):
         raise AssertionError("plain path taken for CUDA tensors")
 
-    def fake_launch(q, k_cache, v_cache, layer, bias):
+    def fake_launch(q, k_cache, v_cache, layer, bias, *scales_and_lengths):
         calls.append(layer)
         return "launched"
 
@@ -483,7 +483,7 @@ def test_wrapper_dispatch_is_static():
     assert "decode_attention_reference" not in names
     increments = [n for n in ast.walk(launch) if isinstance(n, ast.AugAssign)]
     assert [ast.unparse(n) for n in increments] == [
-        "launch_counts[KERNEL] += 1"
+        "launch_counts[lay.variant] += 1"
     ]
     assert not any(isinstance(n, ast.Try) for n in ast.walk(launch))
     for fn in (port_attention.decode_attention_reference,
@@ -518,8 +518,175 @@ def test_kernel_layout_is_validated_once_per_layout(monkeypatch):
         assert tuple(out.shape) == q.shape
     assert len(checked) == 1 and len(launched) == L
     assert port_attention.launch_counts[port_attention.KERNEL] == before + L
-    assert [a[6] for a in launched] == list(range(L))  # the layer argument
+    assert [a[9] for a in launched] == list(range(L))  # the layer argument
     with pytest.raises(IndexError):
         port_attention.decode_attention(*args, L, _fake_cuda(bias))
     assert len(checked) == 1
 
+
+
+# ------------------------------------- per-row lengths and an int8 cache
+
+
+def _lengths_mask(lengths, s):
+    return (np.arange(s)[None, :] < np.asarray(lengths)[:, None])[:, None,
+                                                                  None, :]
+
+
+@pytest.mark.parametrize("lengths", [[1, 16, 9], [3, 3, 3], [16, 1, 2]])
+def test_lengths_reference_matches_jax_attend(lengths):
+    """Keys at or past a row's length are masked: the plain version equals
+    JAX `attend` with that mask (the paged step's causal mask)."""
+    b = len(lengths)
+    q, k, v, _ = _inputs(b, H, seed=sum(lengths))
+    mask = _lengths_mask(lengths, S)
+    want = jax_common.attend(jnp.asarray(q), jnp.asarray(k[LAYER]),
+                             jnp.asarray(v[LAYER]), jnp.asarray(mask))
+    got = port_attention.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), LAYER,
+        lengths=torch.tensor(lengths, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def _int8_inputs(b, seed):
+    q, k, v, mask = _inputs(b, H, seed)
+    k8, ks = jax_common.quantize_kv(jnp.asarray(k))
+    v8, vs = jax_common.quantize_kv(jnp.asarray(v))
+    return q, mask, [np.array(a) for a in (k8, ks, v8, vs)]
+
+
+@pytest.mark.parametrize("use_lengths", [False, True])
+def test_int8_reference_matches_jax_attend_quant(use_lengths):
+    """An int8 cache with per-slot scales: the plain version equals JAX
+    `attend_quant` on the indexed layer, with the bias mask or per-row
+    lengths."""
+    b = 3
+    q, mask, (k8, ks, v8, vs) = _int8_inputs(b, seed=50 + use_lengths)
+    lengths = [5, 16, 1]
+    if use_lengths:
+        mask = _lengths_mask(lengths, S)
+    want = jax_common.attend_quant(
+        jnp.asarray(q), jnp.asarray(k8[LAYER]), jnp.asarray(ks[LAYER]),
+        jnp.asarray(v8[LAYER]), jnp.asarray(vs[LAYER]), jnp.asarray(mask))
+    extra = (dict(lengths=torch.tensor(lengths, dtype=torch.int32))
+             if use_lengths else {})
+    bias = None if use_lengths else port_attention.mask_to_bias(
+        torch.from_numpy(mask))
+    got = port_attention.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k8), torch.from_numpy(v8),
+        LAYER, bias, k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs), **extra)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_int8_reference_repeats_scales_for_gqa():
+    """GQA over an int8 cache: query head h reads KV head h // G, scales
+    included (the plain version equals a cache repeated per query head)."""
+    q, _, (k8, ks, v8, vs) = _int8_inputs(2, seed=60)
+    k8, ks, v8, vs = (a[:, :, :2] for a in (k8, ks, v8, vs))  # Hkv = 2
+    lengths = torch.tensor([7, 12], dtype=torch.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    got = port_attention.decode_attention(
+        t(q), t(k8), t(v8), LAYER, lengths=lengths, k_scale=t(ks),
+        v_scale=t(vs))
+    rep = [np.repeat(a, 2, axis=2) for a in (k8, ks, v8, vs)]
+    want = port_attention.decode_attention(
+        t(q), t(rep[0]), t(rep[2]), LAYER, lengths=lengths,
+        k_scale=t(rep[1]), v_scale=t(rep[3]))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_extended_arguments_are_checked():
+    q, k, v, mask = _inputs(2, H, seed=70)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    with pytest.raises(ValueError, match="lengths must be int32"):
+        port_attention.decode_attention(tq, tk, tv, LAYER,
+                                        lengths=torch.tensor([1, 2]))
+    with pytest.raises(ValueError, match="neither"):
+        port_attention.decode_attention(tq, tk, tv, LAYER,
+                                        k_scale=torch.ones(L, 2, H, S),
+                                        v_scale=torch.ones(L, 2, H, S))
+    k8 = torch.zeros((L, 2, H, S, DH), dtype=torch.int8)
+    with pytest.raises(ValueError, match="takes k_scale"):
+        port_attention.decode_attention(tq, k8, k8, LAYER)
+    with pytest.raises(ValueError, match="k_scale/v_scale must be"):
+        port_attention.decode_attention(tq, k8, k8, LAYER,
+                                        k_scale=torch.ones(L, 2, H, S - 1),
+                                        v_scale=torch.ones(L, 2, H, S - 1))
+
+
+@pytest.mark.parametrize("b", MAIN_BATCHES + (16,))
+def test_launch_plan_invariants_for_an_int8_cache(b):
+    """The plan of an int8 cache: one byte a K/V element; at the paged
+    step's 16 slots x 12 heads no window is split (192 blocks)."""
+    for s in MAIN_WINDOWS + (160, 192):
+        plan = port_attention.launch_plan(b, 12, s, 64, torch.int8)
+        _check_plan(plan, b, 12, s, 64, torch.int8, 1)
+    for s in (160, 192, 256, 384):
+        assert port_attention.launch_plan(16, 12, s, 64,
+                                          torch.int8).n_split == 1
+
+
+def test_kernel_layout_of_an_int8_cache_with_lengths():
+    """What the kernel is told for the paged int8 step: the cache's type
+    code, S_alloc from the cache and its scale planes (windows of a wider
+    allocation), the plan for one-byte elements, the int8 variant."""
+    b, s, s_alloc, dh = 4, 160, 384, 64
+    q = torch.zeros((b, H, 1, dh), dtype=torch.bfloat16)
+    k = torch.zeros((L, b, H, s_alloc, dh), dtype=torch.int8)[:, :, :, :s]
+    sc = torch.zeros((L, b, H, s_alloc))[..., :s]
+    lengths = torch.ones((b,), dtype=torch.int32)
+    lay = port_attention._kernel_layout(q, k, k, None, lengths, sc, sc)
+    a = lay.args
+    assert (a.S, a.S_alloc, a.dtype, a.kv_dtype) == (s, s_alloc, 1, 2)
+    assert lay.plan == port_attention.launch_plan(b, H, s, dh, torch.int8)
+    assert lay.variant == port_attention.INT8KV
+    ragged = port_attention._kernel_layout(
+        q, k.to(torch.bfloat16), k.to(torch.bfloat16), None, lengths)
+    assert ragged.variant == port_attention.RAGGED
+    assert (ragged.args.kv_dtype, ragged.args.S_alloc) == (1, s)
+    bias = torch.zeros((b, 1, s))
+    assert port_attention._kernel_layout(
+        q, k.to(torch.bfloat16), k.to(torch.bfloat16),
+        bias).variant == port_attention.KERNEL
+    with pytest.raises(ValueError, match="kernel limits"):
+        k32 = torch.zeros((L, b, H, s, 32), dtype=torch.int8)
+        port_attention._kernel_layout(
+            torch.zeros((b, H, 1, 32), dtype=torch.bfloat16), k32, k32,
+            None, lengths, sc, sc)
+    with pytest.raises(ValueError, match="k_scale/v_scale must be contig"):
+        heads_first = torch.zeros((L, H, b, s_alloc)).transpose(1, 2)
+        port_attention._kernel_layout(q, k, k, None, lengths,
+                                      heads_first[..., :s], sc)
+
+
+def test_extended_launch_passes_scales_bias_and_lengths(monkeypatch):
+    """The C entry point's argument order: (args, q, k, v, ks, vs, bias,
+    lengths, out, layer, stream); absent tensors go as null pointers; each
+    variant counts its own launches."""
+    launched = []
+    monkeypatch.setattr(port_attention, "_entry_point",
+                        lambda: (lambda *a: launched.append(a) or 0,
+                                 lambda index: 0))
+    monkeypatch.setattr(port_attention, "_layouts", {})
+    q, _, (k8, ks, v8, vs) = _int8_inputs(2, seed=80)
+    k8, v8 = (np.ascontiguousarray(np.repeat(a, 8, axis=-1))
+              for a in (k8, v8))  # Dh 64
+    q = np.ascontiguousarray(np.repeat(q, 8, axis=-1))
+    lengths = np.array([3, 9], np.int32)
+    args = [_fake_cuda(x) for x in (q, k8, v8)]
+    counts = dict(port_attention.launch_counts)
+    port_attention.decode_attention(
+        *args, LAYER, lengths=_fake_cuda(lengths), k_scale=_fake_cuda(ks),
+        v_scale=_fake_cuda(vs))
+    (call,) = launched
+    assert call[4] is not None and call[5] is not None  # ks, vs
+    assert call[6] is None and call[7] is not None      # no bias; lengths
+    assert call[9] == LAYER
+    assert port_attention.launch_counts[port_attention.INT8KV] == \
+        counts[port_attention.INT8KV] + 1
+    assert port_attention.launch_counts[port_attention.KERNEL] == \
+        counts[port_attention.KERNEL]

@@ -121,12 +121,70 @@ def test_sampled_generation_is_seeded():
 
 
 @pytest.mark.parametrize("option", [
-    dict(tp=2), dict(ep=2), dict(sp=2), dict(quant="int8"),
-    dict(kv_quant=True), dict(spec_tokens=2), dict(scoring=True),
+    dict(tp=2), dict(ep=2), dict(sp=2), dict(spec_tokens=2),
+    dict(scoring=True),
 ])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError):
         _port_engine(**option)
+
+
+QUANT_OPTIONS = {"int8": dict(quant="int8"), "kv_quant": dict(kv_quant=True),
+                 "both": dict(quant="int8", kv_quant=True)}
+
+
+@pytest.fixture(scope="module", params=sorted(QUANT_OPTIONS))
+def quant_engines(request):
+    """(JAX TutoringEngine, port engine, options) with int8 weights and/or
+    an int8 KV cache; the port holds the JAX engine's (quantized) tree."""
+    opts = QUANT_OPTIONS[request.param]
+    jeng = JaxEngine(
+        JaxEngineConfig(
+            model="tiny", sampling=JaxSampling.greedy(max_new_tokens=8),
+            length_buckets=(16, 32), batch_buckets=(1, 2, 4),
+            dtype=jnp.float32, param_dtype=jnp.float32, **opts,
+        ),
+        devices=jax.devices()[:1],
+    )
+    peng = _port_engine(fused_attention=True, **opts)
+    peng.params = params_from_jax(jax.device_get(jeng.params), device="cpu")
+    return jeng, peng, opts
+
+
+@pytest.mark.parametrize("prompts", [PROMPTS, ["x" * 40] * 2])
+def test_quantized_greedy_byte_equal_to_jax(quant_engines, prompts):
+    """The bucketed engine with int8 weights and/or an int8 KV cache, as
+    the JAX engine serves them (tests/test_quant.py): greedy tokens in
+    float32 byte-equal. The JAX engine refuses its Pallas kernel with an
+    int8 cache; the port's decode goes through its kernel's plain version
+    in every mode."""
+    jeng, peng, opts = quant_engines
+    assert peng.cfg.quant_kv == opts.get("kv_quant", False)
+    assert peng.cfg.fused_decode_attention
+    ids, mask, _ = peng.encode_prompts(prompts)
+    want = jeng.generate_ids(ids, mask)
+    got = peng.generate_ids(ids, mask)
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths, np.asarray(want.lengths))
+
+
+def test_quantized_fused_and_plain_attention_agree(quant_engines):
+    _, peng, opts = quant_engines
+    plain = _port_engine(fused_attention=False, **opts)
+    plain.params = peng.params
+    ids, mask, _ = peng.encode_prompts(PROMPTS)
+    np.testing.assert_array_equal(peng.generate_ids(ids, mask).tokens,
+                                  plain.generate_ids(ids, mask).tokens)
+
+
+def test_quantized_engine_quantizes_its_own_weights():
+    eng = _port_engine(quant="int8", kv_quant=True)
+    wqkv = eng.params["blocks"]["attn"]["wqkv"]
+    assert wqkv["q"].dtype == torch.int8 and wqkv["s"].shape == (2, 96)
+    assert eng.params["wte"]["s"].shape == (384,)
+    assert len(eng.answer_batch(PROMPTS)) == len(PROMPTS)
+    with pytest.raises(ValueError, match="quant mode"):
+        _port_engine(quant="int4")
 
 
 def test_cuda_without_a_card_raises():
@@ -202,7 +260,10 @@ def test_port_imports_no_jax():
     code = (
         "import json, sys\n"
         "import distributed_lms_raft_llm_tpu_torch.engine\n"
+        "import distributed_lms_raft_llm_tpu_torch.engine.paged\n"
+        "import distributed_lms_raft_llm_tpu_torch.models.quant\n"
         "import distributed_lms_raft_llm_tpu_torch.ops\n"
+        "import distributed_lms_raft_llm_tpu_torch.ops.quant_matmul\n"
         "import distributed_lms_raft_llm_tpu_torch.serving.tutoring_server\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
@@ -211,7 +272,9 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "distributed_lms_raft_llm_tpu_torch.ops.attention" in mods
+    for module in ("ops.attention", "ops.quant_matmul", "models.quant",
+                   "engine.paged", "engine.batcher"):
+        assert f"distributed_lms_raft_llm_tpu_torch.{module}" in mods
     jax_mods = [m for m in mods if m == "jax" or m.startswith("jax.")]
     ref_mods = [m for m in mods if m == "distributed_lms_raft_llm_tpu"
                 or m.startswith("distributed_lms_raft_llm_tpu.")]
