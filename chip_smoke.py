@@ -16,8 +16,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3b. the paged path's kernels the same way: decode attention with per-row
    lengths over a float and an int8 cache (8 and 16 slots, widths 160 and
    384, lengths spread over [1, width], splits left empty), and the int8
-   weight-only matmul at GPT-2 small's five products for M = 1, 16, 256 in
-   bf16 and float32, plus the 49 products of one decode model call;
+   weight-only matmul (`ops/sweep_int8.py`) at GPT-2 small's five products
+   for M = 1, 16, 256 in bf16 (tensor cores) and float32 (CUDA cores),
+   timed over more than 100 MB of distinct weight copies so the L2 cannot
+   serve them, plus the 49 products of one decode model call;
 4. the bucketed path: `BatchingQueue` -> `TutoringEngine` (GPT-2 small at
    full width, bf16, seeded random weights unless a checkpoint is given)
    answering 8 concurrent tutoring questions, greedy twice and once with
@@ -31,7 +33,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (admission mid-decode, the cache widening), greedy twice (equal
    answers) and once with the reference sampling defaults; int8-KV
    attention launches = 12 x decode model calls, int8 matmul launches =
-   49 x model calls; tokens/s, mean TTFT, and a `torch.profiler` window
+   49 x model calls, all on the tensor-core route (48 dense and one
+   unembedding a model call); tokens/s, mean TTFT, and a `torch.profiler` window
    (device busy share); then the paged engine in float32 with int8 weights,
    with an int8 and with a dense cache, kernel-path greedy tokens equal to
    the plain attention path's;
@@ -274,155 +277,6 @@ def paged_attention_case(torch, attention, *, s, width, int8, s_alloc=384,
     return rec
 
 
-# GPT-2 small's int8 products: name -> (K, N, transposed).
-INT8_PRODUCTS = {
-    "attn.wqkv": (768, 2304, False),
-    "mlp.wi": (768, 3072, False),
-    "attn.wo": (768, 768, False),
-    "mlp.wo": (3072, 768, False),
-    "wte.unembed": (768, 50257, True),
-}
-# Tolerances of the int8 matmul against its plain version, relative to
-# each element (rtol) and to the output's largest magnitude (atol). float32
-# (and the float32 unembedding): the summation order over K. bf16: the
-# plain version rounds to bf16 after the product, the scale and the bias,
-# the kernel once.
-INT8_MATMUL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1.6e-2, 1e-2)}
-
-
-def int8_weights(torch, quant, name, n_layers, seed):
-    """Seeded int8 weights of one product, stacked over the layers as the
-    model holds them (the unembedding table once): (q, s, b, K, N,
-    transposed)."""
-    k, n, transposed = INT8_PRODUCTS[name]
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    if transposed:
-        w = quant.quantize_embedding(
-            torch.randn((n, k), generator=gen, device="cuda") * 0.02)
-        return w["q"][None], w["s"][None], None, k, n, True
-    w = quant.quantize_array(
-        torch.randn((n_layers, k, n), generator=gen, device="cuda") * 0.02)
-    b = torch.randn((n_layers, n), generator=gen, device="cuda") * 0.02
-    return w["q"], w["s"], b, k, n, False
-
-
-def int8_matmul_case(torch, quant, quant_matmul, *, name, m, dtype,
-                     n_layers=12, seed=0):
-    """The int8 kernel against its plain version at one product and M, its
-    layers walked by consecutive timed calls; cuBLAS against the weight
-    dequantized to x's dtype beforehand as the yardstick."""
-    from distributed_lms_raft_llm_tpu_torch.ops.timing import (
-        time_eager_us,
-        time_graph_us,
-    )
-
-    dt = getattr(torch, dtype)
-    q, s, b, k, n, transposed = int8_weights(torch, quant, name, n_layers,
-                                             seed)
-    layers = q.shape[0]
-    x = torch.randn((m, k), generator=torch.Generator(device="cuda")
-                    .manual_seed(seed + 1), device="cuda").to(dt)
-    bias = [None if b is None else b[i].to(dt) for i in range(layers)]
-    got = quant_matmul.int8_matmul(x, q[0], s[0], bias[0],
-                                   transposed=transposed)
-    want = quant_matmul.int8_matmul_reference(x, q[0], s[0], bias[0],
-                                              transposed)
-    torch.cuda.synchronize()
-    rtol, atol = INT8_MATMUL_TOL["float32" if transposed else dtype]
-    atol *= want.float().abs().max().item()
-    diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
-    check(bool((diff <= atol + rtol * want.float().abs()).all()),
-          f"int8_matmul disagrees with its plain version at {name} m={m} "
-          f"{dtype}: max abs err {err} (rtol {rtol}, atol {atol})")
-    es = torch.finfo(dt).bits // 8
-    out_es = 4 if transposed else es
-    n_bytes = (m * k * es + k * n + 4 * n + (0 if transposed else n * es)
-               + m * n * out_es)
-    n_ops = 2 * m * k * n
-    t_bytes, t_ops = (n_bytes / H100_HBM_BYTES_PER_S,
-                      n_ops / PEAK_OPS_PER_S[dtype])
-    deq = [(q[i].to(dt) * s[i].to(dt)[:, None]).t() if transposed
-           else q[i].to(dt) * s[i].to(dt)[None, :] for i in range(layers)]
-
-    def kernel(i):
-        quant_matmul.int8_matmul(x, q[i % layers], s[i % layers],
-                                 bias[i % layers], transposed=transposed)
-
-    def plain(i):
-        quant_matmul.int8_matmul_reference(x, q[i % layers], s[i % layers],
-                                           bias[i % layers], transposed)
-
-    def library(i):
-        torch.matmul(x, deq[i % layers])
-
-    return dict(name=name, m=m, k=k, n=n, transposed=transposed,
-                dtype=dtype, layers_walked=layers, max_abs_err=err,
-                rtol=rtol, atol=atol, bound_us=max(t_bytes, t_ops) * 1e6,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                kernel_us=time_graph_us(kernel),
-                kernel_eager_us=time_eager_us(kernel),
-                plain_us=time_graph_us(plain),
-                library_us=time_graph_us(library),
-                library_note="cuBLAS torch.matmul against the weight "
-                "dequantized to x's dtype beforehand (the bf16 config's "
-                "product)")
-
-
-def int8_model_call(torch, quant, quant_matmul, *, m=16, dtype="bfloat16",
-                    n_layers=12):
-    """The 49 int8 products of one decode model call (4 a layer x 12, then
-    the unembedding), in the model's order, timed as one unit: kernel,
-    plain, cuBLAS against pre-dequantized weights, and the summed bound."""
-    from distributed_lms_raft_llm_tpu_torch.ops.timing import (
-        time_eager_us,
-        time_graph_us,
-    )
-
-    dt = getattr(torch, dtype)
-    weights = {}
-    for seed, name in enumerate(INT8_PRODUCTS):
-        q, s, b, k, n, tr = int8_weights(torch, quant, name, n_layers, seed)
-        weights[name] = (q, s, None if b is None else b.to(dt), k, n, tr)
-    xs = {768: torch.randn((m, 768), device="cuda").to(dt),
-          3072: torch.randn((m, 3072), device="cuda").to(dt)}
-    order = [(name, i) for i in range(n_layers)
-             for name in ("attn.wqkv", "attn.wo", "mlp.wi", "mlp.wo")]
-    order.append(("wte.unembed", 0))
-    bound_us = 0.0
-    es = torch.finfo(dt).bits // 8
-    for name, _ in order:
-        _, _, _, k, n, tr = weights[name]
-        n_bytes = (m * k * es + k * n + 4 * n + (0 if tr else n * es)
-                   + m * n * (4 if tr else es))
-        bound_us += max(n_bytes / H100_HBM_BYTES_PER_S,
-                        2 * m * k * n / PEAK_OPS_PER_S[dtype]) * 1e6
-    deq = {}
-    for name, (q, s, b, k, n, tr) in weights.items():
-        deq[name] = [(q[i].to(dt) * s[i].to(dt)[:, None]).t() if tr
-                     else (q[i].to(dt) * s[i].to(dt)[None, :])
-                     for i in range(q.shape[0])]
-
-    def run(fn):
-        def call(_):
-            for name, i in order:
-                q, s, b, k, _, tr = weights[name]
-                fn(xs[k], q[i], s[i], None if b is None else b[i], tr,
-                   deq[name][i])
-        return call
-
-    kernel = run(lambda x, q, s, b, tr, d: quant_matmul.int8_matmul(
-        x, q, s, b, transposed=tr))
-    plain = run(lambda x, q, s, b, tr, d:
-                quant_matmul.int8_matmul_reference(x, q, s, b, tr))
-    library = run(lambda x, q, s, b, tr, d: torch.matmul(x, d))
-    return dict(m=m, dtype=dtype, products=len(order), bound_us=bound_us,
-                kernel_us=time_graph_us(kernel, iters=5),
-                kernel_eager_us=time_eager_us(kernel, iters=5),
-                plain_us=time_graph_us(plain, iters=5),
-                library_us=time_graph_us(library, iters=5))
-
-
 # ------------------------------------------------- production path
 
 # A second wave of questions beside QUESTIONS: 24 requests in all.
@@ -500,9 +354,10 @@ def profile_paged(torch, engine, prompts, steps=2) -> dict:
             by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in by_name.values())
 
-    def of(part):
-        return (sum(us for name, (us, _) in by_name.items() if part in name),
-                sum(n for name, (_, n) in by_name.items() if part in name))
+    def of(*parts):
+        hits = [v for name, v in by_name.items()
+                if any(part in name for part in parts)]
+        return sum(us for us, _ in hits), sum(n for _, n in hits)
 
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
@@ -510,7 +365,8 @@ def profile_paged(torch, engine, prompts, steps=2) -> dict:
         "wall_us": wall_us, "device_busy_us": busy_us,
         "device_busy_share": busy_us / wall_us if busy_us else None,
         "kernels_launched": sum(n for _, n in by_name.values()),
-        "int8_matmul_us_launches": of("int8_matmul"),
+        # the tensor-core kernels (int8_mma_*) and the CUDA-core ones
+        "int8_matmul_us_launches": of("int8_mma", "int8_matmul"),
         "decode_attention_us_launches": of("decode_attention"),
         "top": [{"name": name[:90], "us": us, "count": n}
                 for name, (us, n) in top],
@@ -702,11 +558,11 @@ def main(argv=None) -> int:
     records["card"] = smi
 
     # 2. Build every kernel (one nvcc per source, started together).
-    from distributed_lms_raft_llm_tpu_torch.models import quant
     from distributed_lms_raft_llm_tpu_torch.ops import (
         attention,
         build,
         quant_matmul,
+        sweep_int8,
     )
 
     t0 = time.monotonic()
@@ -760,13 +616,13 @@ def main(argv=None) -> int:
     records["paged_attention_cases"] = paged_cases
     mm_cases = []
     for dtype in ("bfloat16", "float32"):
-        for name in INT8_PRODUCTS:
+        for name in sweep_int8.INT8_PRODUCTS:
             for m in (1, 16, 256):
-                mm_cases.append(int8_matmul_case(
-                    torch, quant, quant_matmul, name=name, m=m, dtype=dtype))
+                mm_cases.append(sweep_int8.int8_matmul_case(
+                    name=name, m=m, dtype=dtype))
                 emit("int8_matmul_case", **mm_cases[-1])
     records["int8_matmul_cases"] = mm_cases
-    model_call = int8_model_call(torch, quant, quant_matmul)
+    model_call = sweep_int8.int8_model_call()
     emit("int8_matmul_model_call", **model_call)
     records["int8_matmul_model_call"] = model_call
 
@@ -928,6 +784,8 @@ def main(argv=None) -> int:
                                      for e, (_, p0) in zip(engines, calls0))
     int8kv_launches = attention.launch_counts[attention.INT8KV]
     mm_launches = quant_matmul.launch_counts[quant_matmul.KERNEL]
+    mm_routes = {name: quant_matmul.launch_counts[name] for name in (
+        quant_matmul.MMA, quant_matmul.MMA_UNEMBED, quant_matmul.FMA)}
     check(decode_calls > 0
           and int8kv_launches == pcfg.num_layers * decode_calls,
           f"decode_attention_int8kv launches {int8kv_launches} != "
@@ -935,6 +793,11 @@ def main(argv=None) -> int:
     check(mm_launches == (4 * pcfg.num_layers + 1) * model_calls,
           f"int8_matmul launches {mm_launches} != 49 x {model_calls} model "
           f"calls (prefill included)")
+    check(mm_routes == {quant_matmul.MMA: 4 * pcfg.num_layers * model_calls,
+                        quant_matmul.MMA_UNEMBED: model_calls,
+                        quant_matmul.FMA: 0},
+          f"bf16 int8 products did not all take the tensor-core kernels: "
+          f"{mm_routes} for {model_calls} model calls")
     check(attention.launch_counts[attention.KERNEL] == 0
           and attention.launch_counts[attention.RAGGED] == 0,
           "the int8-KV paged path launched a float-cache attention variant")
@@ -944,14 +807,16 @@ def main(argv=None) -> int:
         emit("production_path", run=name,
              **{k: v for k, v in run.items() if k != "answers"})
     emit("production_path_kernels", int8kv_launches=int8kv_launches,
-         int8_matmul_launches=mm_launches, decode_model_calls=decode_calls,
-         model_calls=model_calls, warmup_s=paged_warm_s)
+         int8_matmul_launches=mm_launches, int8_matmul_routes=mm_routes,
+         decode_model_calls=decode_calls, model_calls=model_calls,
+         warmup_s=paged_warm_s)
     records["production_path"] = {
         k: {kk: vv for kk, vv in v.items() if kk != "answers"}
         for k, v in paged_runs.items()}
     records["production_path_launches"] = dict(
         int8kv=int8kv_launches, int8_matmul=mm_launches,
-        decode_model_calls=decode_calls, model_calls=model_calls)
+        int8_matmul_routes=mm_routes, decode_model_calls=decode_calls,
+        model_calls=model_calls)
     records["production_profile"] = profile_paged(torch, greedy_paged,
                                                   wave1 + wave2[:4])
     emit("profile_production_step", **records["production_profile"])
@@ -985,10 +850,11 @@ def main(argv=None) -> int:
                     and c["dtype"] == "bfloat16")
 
     def entry(name, replaces, launches, case, **extra):
+        source = ("int8_matmul" if name.startswith("int8_matmul")
+                  else "decode_attention")
         return dict({
             "name": name, "route": "cuda",
-            "source": f"{PACKAGE}/ops/csrc/"
-                      f"{'int8_matmul' if name == 'int8_matmul' else 'decode_attention'}.cu",
+            "source": f"{PACKAGE}/ops/csrc/{source}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_us"] / 1e3, "plain_ms": case["plain_us"] / 1e3,
@@ -999,6 +865,8 @@ def main(argv=None) -> int:
             "eager_ms": case["kernel_eager_us"] / 1e3,
         }, **extra)
 
+    unembed_case = next(c for c in mm_cases if c["name"] == "wte.unembed"
+                        and c["m"] == 16 and c["dtype"] == "bfloat16")
     pallas = "distributed_lms_raft_llm_tpu/ops/attention.py:88"
     kernels = [
         entry("decode_attention", pallas, launches, main_case,
@@ -1020,6 +888,14 @@ def main(argv=None) -> int:
               library_note="cuBLAS torch.matmul against weights "
               "dequantized to bf16 beforehand (the bf16 config's "
               "products)"),
+        entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
+              "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
+              "XLA-fused int8 unembedding einsum)",
+              mm_routes[quant_matmul.MMA_UNEMBED], unembed_case,
+              shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
+              "float32 logits",
+              walked_bytes=unembed_case["walked_bytes"],
+              library_note=unembed_case["library_note"]),
     ]
     records["kernels"] = kernels
     if args.out:

@@ -178,25 +178,14 @@ def test_int8_kernel_with_bias_matches_plain(card, dtype, atol):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
-# The GPT-2-small products of the int8 path: (K, N, transposed).
+# The GPT-2-small products of the int8 path: (K, N, transposed), and a
+# table whose last 64-row tile holds a single row.
 INT8_PRODUCTS = [(768, 2304, False), (768, 3072, False), (768, 768, False),
-                 (3072, 768, False), (768, 50257, True)]
+                 (3072, 768, False), (768, 50257, True), (768, 129, True)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("m", [1, 16, 256])
-@pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
-def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
-    """The weight-only int8 product against its plain version (the JAX
-    expression) and against a float64 product. float32: the summation
-    order over K differs, rtol 1e-5 with atol 1e-5 of the output's scale.
-    bf16: the plain version rounds to bf16 after the product, after the
-    scale and after the bias, the kernel once at the end: up to about two
-    bf16 ulps (rtol 1.6e-2, atol 1e-2 of the output's scale)."""
-    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
-
-    rng = np.random.default_rng(m * 7 + n)
+def _int8_inputs(card, dtype, m, k, n, transposed, seed):
+    rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
     x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(card, dt)
     shape = (n, k) if transposed else (k, n)
@@ -205,12 +194,41 @@ def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
         card)
     b = None if transposed else torch.from_numpy(
         rng.standard_normal(n, np.float32)).to(card, dt)
-    before = quant_matmul.launch_counts[quant_matmul.KERNEL]
+    return x, q, s, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 100, 256])
+@pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
+def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
+    """The weight-only int8 product against its plain version (the JAX
+    expression) and against a float64 product, at decode (M = 1, 16),
+    partial row tiles (15, 17, 100) and prefill (256). float32, and the
+    float32 logits of the transposed layout: the summation order over K
+    differs (bf16 x int8 products are exact in float32 on the tensor
+    cores), rtol 1e-5 with atol 1e-5 of the output's scale. bf16 dense: the
+    plain version rounds to bf16 after the product, after the scale and
+    after the bias, the kernel once at the end: up to about two bf16 ulps
+    (rtol 1.6e-2, atol 1e-2 of the output's scale). bf16 x takes the
+    tensor-core route, float32 x the CUDA-core route."""
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+
+    x, q, s, b = _int8_inputs(card, dtype, m, k, n, transposed, m * 7 + n)
+    route = (quant_matmul.FMA if dtype == "float32" else
+             quant_matmul.MMA_UNEMBED if transposed else quant_matmul.MMA)
+    before = dict(quant_matmul.launch_counts)
     got = quant_matmul.int8_matmul(x, q, s, b, transposed=transposed)
     want = quant_matmul.int8_matmul_reference(x, q, s, b, transposed)
     torch.cuda.synchronize()
-    assert quant_matmul.launch_counts[quant_matmul.KERNEL] == before + 1
-    assert got.dtype == (torch.float32 if transposed else dt)
+    counts = quant_matmul.launch_counts
+    assert counts[quant_matmul.KERNEL] == before[quant_matmul.KERNEL] + 1
+    assert {name: counts[name] - before[name]
+            for name in (quant_matmul.MMA, quant_matmul.MMA_UNEMBED,
+                         quant_matmul.FMA)} == {
+        name: int(name == route) for name in (
+            quant_matmul.MMA, quant_matmul.MMA_UNEMBED, quant_matmul.FMA)}
+    assert got.dtype == (torch.float32 if transposed else x.dtype)
     assert got.shape == (m, n)
     w = q.double().t() if transposed else q.double()
     exact = (x.double() @ w) * s.double() + (0 if b is None else b.double())
@@ -221,3 +239,18 @@ def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
         tol = dict(rtol=1.6e-2, atol=1e-2 * scale)
     torch.testing.assert_close(got.double(), want.double(), **tol)
     torch.testing.assert_close(got.double(), exact, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 256])
+@pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
+def test_int8_matmul_is_deterministic(card, m, k, n, transposed):
+    """Two calls on the same inputs are bit-equal (the K splits are summed
+    in rank order, no atomics): greedy answers cannot drift between runs."""
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+
+    x, q, s, b = _int8_inputs(card, "bfloat16", m, k, n, transposed, n + m)
+    first = quant_matmul.int8_matmul(x, q, s, b, transposed=transposed)
+    second = quant_matmul.int8_matmul(x, q, s, b, transposed=transposed)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
