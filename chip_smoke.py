@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    lengths over a float and an int8 cache (8 and 16 slots, widths 160 and
    384, lengths spread over [1, width], splits left empty), and the int8
    weight-only matmul (`ops/sweep_int8.py`) at GPT-2 small's five products
-   for M = 1, 16, 256 in bf16 (tensor cores) and float32 (CUDA cores),
+   for M = 1, 16, 32 (the fused admission chunk), 256 in bf16 (tensor
+   cores) and float32 (CUDA cores),
    timed over more than 100 MB of distinct weight copies so the L2 cannot
    serve them, plus the 49 products of one decode model call;
 4. the bucketed path: `BatchingQueue` -> `TutoringEngine` (GPT-2 small at
@@ -38,6 +39,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (device busy share); then the paged engine in float32 with int8 weights,
    with an int8 and with a dense cache, kernel-path greedy tokens equal to
    the plain attention path's;
+4c. the deployment config (configs/cluster.toml's tutoring node less
+   speculative decoding): the production path above plus megastep 4
+   (controller ceiling 8) as CUDA-graph replays, fused staged admission at
+   32 prompt tokens an iteration and the radix prefix cache at 512 blocks,
+   answering two waves: one course prompt (a long shared course context)
+   with the 12 bare questions, then, once that prompt's blocks are in the
+   radix tree, the other 7 course prompts and 4 exact repeats of wave-1
+   questions; tokens/s, mean TTFT, graph replays and host decisions per
+   generated token, the final K and dead lanes, stalled tokens (0), prefix
+   hits (the shared context spliced into all 7 later course slots),
+   launches by route counted through the replays (int8-KV attention = 12 x
+   decode model calls, int8 matmul = 49 x model calls, admission chunks
+   included, all on the tensor cores; each graph's kernel nodes equal its
+   counted launches at capture), and a `torch.profiler` window beside
+   phase 4b's, holding no more of the port's kernels than counted; then
+   float32 (dense and int8 cache) greedy tokens of the
+   deployment config equal to the sequential config's, prefix hits
+   included (in bf16 the share that agrees and the first divergences are
+   reported, and each prompt's flip logits through the 32-token admission
+   chunks are held against the cold prefill's and a float32 reference's),
+   and bf16 graph replays at K=4 equal to the eager chunk loop, greedy and
+   seeded-sampled;
 5. when `grpc` imports: one `GetLLMAnswer` round trip through the port's
    tutoring server on 127.0.0.1.
 
@@ -52,6 +75,7 @@ import asyncio
 import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -300,19 +324,79 @@ def paged_waves():
     return questions, [PROMPT_TEMPLATE.format(query=q) for q in questions]
 
 
-def run_paged_waves(engine, paged_queue_cls, metrics_cls, wave1, wave2):
-    """Wave 1 through one PagedQueue; wave 2 submitted once the engine has
-    dispatched wave 1's first decode step. Returns (answers in submit
-    order, wall seconds, the queue's metrics snapshot)."""
+# Phase 4c's wave 2: framed questions behind one shared course context
+# (with the template's head, over 200 tokens of the byte tokenizer), all
+# inside the 256-token prompt bucket.
+COURSE_CONTEXT = ("Distributed systems, CS 451 notes, week 6: Raft keeps a "
+                  "replicated log; a leader wins a term by a majority of "
+                  "votes.\n")
+COURSE_QUESTIONS = [
+    "What is a term?", "Why a majority of votes?",
+    "What makes a log entry committed?", "How do followers reject a leader?",
+    "What is a heartbeat?", "When does an election start?",
+    "What happens on a split vote?", "Why must terms only grow?",
+]
+
+
+def deployment_waves():
+    """Phase 4c's traffic (24 requests): wave 1 is the first course
+    question framed behind COURSE_CONTEXT, then phase 4b's 12 bare
+    questions; wave 2 is the other 7 course questions, then 4 exact
+    repeats of bare wave-1 questions. Wave 2 is sent once the first course
+    prompt's blocks are in the radix tree (see `run_paged_waves`), so the
+    course context is prefilled once and spliced into 7 staged slots."""
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+
+    bare, _ = paged_waves()
+    course = [COURSE_CONTEXT + PROMPT_TEMPLATE.format(query=q)
+              for q in COURSE_QUESTIONS]
+    return course[:1] + bare, course[1:] + bare[:4]
+
+
+def engine_tokens(engine, *batches):
+    """Submit each batch of prompts at once and drain it before the next;
+    return each request's generated token ids in submit order."""
+    out = []
+    for prompts in batches:
+        reqs = []
+        for p in prompts:
+            engine.submit(p)
+            reqs.append(engine._pending[-1])
+        engine.drain()
+        out += [list(r.tokens) for r in reqs]
+    return out
+
+
+def first_divergence(a, b):
+    """Index of the first differing token of two token lists (None if
+    equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def run_paged_waves(engine, paged_queue_cls, metrics_cls, wave1, wave2,
+                    ready=None):
+    """Wave 1 through one PagedQueue; wave 2 submitted once `ready()` is
+    true (default: the engine has dispatched wave 1's first decode step).
+    Returns (answers in submit order, wall seconds, the queue's metrics
+    snapshot)."""
     metrics = metrics_cls()
+    if ready is None:
+        steps0 = engine.decode_steps
+
+        def ready():
+            return engine.decode_steps != steps0
 
     async def go():
         queue = paged_queue_cls(engine, metrics=metrics)
         await queue.start()
         try:
             first = [asyncio.ensure_future(queue.submit(p)) for p in wave1]
-            steps0 = engine.decode_steps
-            while engine.decode_steps == steps0:
+            while not ready():
                 await asyncio.sleep(0.002)
             second = [asyncio.ensure_future(queue.submit(p)) for p in wave2]
             return await asyncio.gather(*first, *second)
@@ -324,6 +408,51 @@ def run_paged_waves(engine, paged_queue_cls, metrics_cls, wave1, wave2):
     return answers, time.monotonic() - t0, metrics.snapshot()
 
 
+def device_events(torch, prof):
+    """(name, µs) of every device event of a finished `torch.profiler`
+    window, read from the raw trace: building the profiler's Python event
+    tree costs minutes at a million kernels (a drain of phase 4c)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(ev.name(), ev.duration_ns() / 1e3)
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == cuda]
+
+
+def counted_launches() -> dict:
+    """The launch counters summed per route (`engine.graphs.ROUTES`)."""
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        routes_of_counts)
+    from distributed_lms_raft_llm_tpu_torch.ops import attention, quant_matmul
+
+    return routes_of_counts({**attention.launch_counts,
+                             **quant_matmul.launch_counts})
+
+
+def check_traced_launches(events, before: dict, what: str) -> dict:
+    """The port's kernels the profiler saw on the card, counted by name,
+    against the launch counters' deltas over the same window. The trace
+    holds no more of them than were counted (a launch the counters missed
+    fails here); it may hold fewer, since the profiler on the card loses
+    kernel records (`ops/probe_trace_loss.py`), so the shortfall is
+    reported as the trace's loss. What a replay adds to the counters is
+    held exactly against the graph's kernel nodes at capture
+    (`engine/graphs.py`)."""
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        routes_of_names)
+
+    names: dict = {}
+    for name, _ in events:
+        names[name] = names.get(name, 0) + 1
+    traced = routes_of_names(names)
+    after = counted_launches()
+    counted = {route: after[route] - before[route] for route in after}
+    check(all(traced[r] <= counted[r] for r in counted),
+          f"{what}: the profiler trace holds more of the port's kernels "
+          f"{traced} than the launch counters counted {counted}")
+    return {"traced": traced,
+            "lost": {r: counted[r] - traced[r] for r in counted}}
+
+
 def profile_paged(torch, engine, prompts, steps=2) -> dict:
     """Where a steady paged step's time goes: the slots filled, the
     pipeline full, `steps` step() calls timed without the profiler, then
@@ -331,27 +460,39 @@ def profile_paged(torch, engine, prompts, steps=2) -> dict:
     time over the unprofiled wall of the same number of steps."""
     from torch.profiler import ProfilerActivity, profile
 
+    def calls():
+        return (engine.decode_steps + engine.prefill_calls
+                + engine.admission_chunks)
+
     for p in prompts:
         engine.submit(p)
     for _ in range(2):
         engine.step()
     torch.cuda.synchronize()
+    calls0 = calls()
     t0 = time.monotonic()
     for _ in range(steps):
         engine.step()
     torch.cuda.synchronize()
     wall_us = (time.monotonic() - t0) * 1e6
+    wall_calls = calls() - calls0
+    calls0, replays0 = calls(), engine.graph_replays
+    counted0 = counted_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
+        profiled_wall_us = (time.monotonic() - t0) * 1e6
+    model_calls, replays = calls() - calls0, engine.graph_replays - replays0
+    events = device_events(torch, prof)
+    traced = check_traced_launches(events, counted0, "profile window")
     engine.drain()
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    for name, us in events:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
     busy_us = sum(us for us, _ in by_name.values())
 
     def of(*parts):
@@ -362,15 +503,69 @@ def profile_paged(torch, engine, prompts, steps=2) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "steps": steps, "chunk": engine.chunk, "slots": engine.slots,
-        "wall_us": wall_us, "device_busy_us": busy_us,
+        "wall_us": wall_us, "profiled_wall_us": profiled_wall_us,
+        "device_busy_us": busy_us,
         "device_busy_share": busy_us / wall_us if busy_us else None,
         "kernels_launched": sum(n for _, n in by_name.values()),
+        "model_calls": model_calls, "model_calls_unprofiled": wall_calls,
+        "graph_replays": replays, "traced_launches": traced,
+        "launches_per_model_call": (sum(n for _, n in by_name.values())
+                                    / max(model_calls, 1)),
         # the tensor-core kernels (int8_mma_*) and the CUDA-core ones
         "int8_matmul_us_launches": of("int8_mma", "int8_matmul"),
         "decode_attention_us_launches": of("decode_attention"),
         "top": [{"name": name[:90], "us": us, "count": n}
                 for name, (us, n) in top],
     }
+
+
+def profile_drain(torch, engine, prompts) -> dict:
+    """Device busy share over a whole workload: `prompts` submitted at once
+    and drained, first without the profiler (the wall), then again under
+    `torch.profiler` (the device time). Greedy decoding and the prefix
+    tree cleared before each run make the two runs the same work; model
+    calls are counted in both to show it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        if engine.prefix_cache is not None:
+            engine.prefix_cache.clear()
+        c0 = (engine.decode_steps + engine.prefill_calls
+              + engine.admission_chunks, engine.graph_replays,
+              engine.host_decisions, engine.total_generated_tokens)
+        for p in prompts:
+            engine.submit(p)
+        engine.drain()
+        torch.cuda.synchronize()
+        return (engine.decode_steps + engine.prefill_calls
+                + engine.admission_chunks - c0[0],
+                engine.graph_replays - c0[1], engine.host_decisions - c0[2],
+                engine.total_generated_tokens - c0[3])
+
+    t0 = time.monotonic()
+    calls, replays, decisions, tokens = run()
+    wall_us = (time.monotonic() - t0) * 1e6
+    counted0 = counted_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        calls_p, _, _, _ = run()
+        profiled_wall_us = (time.monotonic() - t0) * 1e6
+    events = device_events(torch, prof)
+    traced = check_traced_launches(events, counted0, "profiled drain")
+    busy_us, launched = 0.0, 0
+    for _, us in events:
+        busy_us += us
+        launched += 1
+    return {"requests": len(prompts), "tokens": tokens,
+            "wall_us": wall_us, "profiled_wall_us": profiled_wall_us,
+            "device_busy_us": busy_us,
+            "device_busy_share": busy_us / wall_us,
+            "model_calls": calls, "model_calls_profiled": calls_p,
+            "model_calls_per_token": calls / max(tokens, 1),
+            "graph_replays": replays, "host_decisions": decisions,
+            "kernels_launched": launched, "traced_launches": traced,
+            "launches_per_model_call": launched / max(calls_p, 1)}
 
 
 def paged_f32_check(torch, attention, engine_cls, config_cls, sampling_cls,
@@ -388,7 +583,7 @@ def paged_f32_check(torch, attention, engine_cls, config_cls, sampling_cls,
             dtype=_torch.float32, param_dtype=_torch.float32, quant="int8",
             kv_quant=kv_quant, fused_attention=fused,
             sampling=sampling_cls.greedy(max_new_tokens=32), **common),
-            slots=16, chunk=16, inflight=3)
+            slots=16, chunk=16, inflight=3, cuda_graphs=False)
         finished = []
         decode = eng.tokenizer.decode
         eng.tokenizer.decode = lambda toks, _d=decode: (
@@ -459,10 +654,9 @@ def profile_generate(torch, engine, prompts) -> dict:
         torch.cuda.synchronize()
         profiled_wall_us = (time.monotonic() - t0) * 1e6
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    for name, us in device_events(torch, prof):
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
     busy_us = sum(us for us, _ in by_name.values())
 
     def launches_of(part):
@@ -517,6 +711,308 @@ def grpc_round_trip(engine, prompt_template) -> dict:
     check(trailer.get("x-served-by") == "chip-smoke",
           "x-served-by trailer missing")
     return {"success": resp.success, "chars": len(resp.response)}
+
+
+def flip_logits_witness(torch, eng, prompts, factor=2.0) -> dict:
+    """The fused admission's flip against the cold prefill, in bf16 on an
+    idle engine's weights: each prompt's last-position logits through
+    `prefill_chunk`-token admission chunks (`_admission_chunk`'s forward:
+    M=32 int8 products on the tensor cores, the cache row chosen by
+    `rows`, the pad tail masked out of the cache writes) and through one
+    cold prefill of its bucket (`_prefill_program`'s forward), each held
+    against the cold prefill in float32 on the same int8 weights (the
+    CUDA-core int8 route). Holds: the admission route's largest error is
+    at most `factor` x the cold route's (a wrong admission-chunk tile
+    would err far above the cold route's own bf16 rounding)."""
+    import dataclasses
+
+    from distributed_lms_raft_llm_tpu_torch.engine.generate import pick_bucket
+
+    def to_f32(x):
+        if isinstance(x, dict):
+            return {k: to_f32(v) for k, v in x.items()}
+        return x.float() if torch.is_floating_point(x) else x
+
+    cfg, model, c, dev = eng.cfg, eng.family, eng.prefill_chunk, eng.device
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    params32 = to_f32(eng.params)
+    per_prompt = []
+    with torch.inference_mode():
+        for p in prompts:
+            toks = eng.tokenizer.encode(p)[-eng.bucket:]  # as submit() cuts
+            tl = len(toks)
+            bucket = min(pick_bucket(tl, eng.config.length_buckets),
+                         eng.bucket)
+            width = eng._required_width(tl)
+            row = torch.full((1, width), eng.tokenizer.pad_id,
+                             dtype=torch.long, device=dev)
+            row[0, :tl] = torch.tensor(toks, device=dev)
+            steps = torch.arange(bucket, device=dev)
+
+            def cold(params, cfg_):
+                kv = model.init_cache(cfg_, 1, bucket, device=dev)
+                logits, _ = model.forward(
+                    params, cfg_, row[:, :bucket], cache=kv,
+                    positions=torch.clamp(steps, max=tl - 1)[None, :],
+                    kv_mask=(steps < tl)[None, :])
+                return logits[0, tl - 1].float()
+
+            want, got_cold = cold(params32, cfg32), cold(eng.params, cfg)
+            kv = model.init_cache(cfg, 1, width, device=dev)
+            first_row = torch.zeros((1,), dtype=torch.long, device=dev)
+            for cur in range(0, tl, c):
+                q = cur + torch.arange(c, device=dev)
+                logits, _ = model.forward(
+                    eng.params, cfg,
+                    row[:, torch.clamp(q, max=width - 1)],
+                    cache=dataclasses.replace(
+                        kv, lengths=torch.tensor([cur], dtype=torch.int32,
+                                                 device=dev),
+                        rows=first_row),
+                    positions=torch.clamp(torch.minimum(q, torch.tensor(
+                        tl - 1, device=dev)), min=0)[None, :],
+                    write_mask=((q < tl) & (q < width))[None, :])
+            got_chunk = logits[0, tl - 1 - cur].float()
+            top2 = torch.topk(want, 2).values
+            per_prompt.append(dict(
+                tokens=tl, chunks=-(-tl // c),
+                err_cold=(got_cold - want).abs().max().item(),
+                err_admission=(got_chunk - want).abs().max().item(),
+                admission_vs_cold=(got_chunk - got_cold).abs().max().item(),
+                scale=want.abs().max().item(),
+                top2_margin=(top2[0] - top2[1]).item(),
+                argmax_equal=bool(got_chunk.argmax() == got_cold.argmax())))
+    err_cold = max(r["err_cold"] for r in per_prompt)
+    err_adm = max(r["err_admission"] for r in per_prompt)
+    rec = dict(prompts=len(per_prompt), factor=factor, err_cold=err_cold,
+               err_admission=err_adm,
+               admission_vs_cold=max(r["admission_vs_cold"]
+                                     for r in per_prompt),
+               scale=max(r["scale"] for r in per_prompt),
+               argmax_equal=sum(r["argmax_equal"] for r in per_prompt),
+               per_prompt=per_prompt)
+    check(math.isfinite(err_adm) and err_adm <= factor * err_cold,
+          f"bf16 flip logits through the admission chunks err {err_adm} "
+          f"against float32, above {factor} x the cold prefill's {err_cold}")
+    return rec
+
+
+def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
+                     metrics_cls, config_cls, sampling_cls, prod,
+                     profile_4b, drain_4b) -> dict:
+    """Phase 4c: the deployment config through `PagedQueue`, its kernel
+    routes counted through the graph replays, its profile window beside
+    phase 4b's, and its exactness checks (see the module docstring)."""
+    deploy_kw = dict(slots=16, chunk=16, inflight=3, megastep=4,
+                     megastep_max=8, prefix_cache=True,
+                     prefix_cache_blocks=512, prefill_chunk_tokens=32)
+    eng = engine_cls(config_cls(
+        sampling=sampling_cls.greedy(max_new_tokens=128), **prod),
+        **deploy_kw)
+    cfg = eng.cfg
+    check(eng.cuda_graphs and eng.fused and eng.prefill_chunk == 32
+          and eng.prefix_cache is not None
+          and eng.prefix_cache.max_blocks == 512
+          and eng.prefix_cache.block_tokens == 16
+          and eng.megastep_ks == [1, 2, 4, 8] and eng.megastep_k == 4
+          and cfg.quant_kv and cfg.num_layers == 12 and cfg.hidden_size == 768
+          and cfg.dtype == torch.bfloat16
+          and eng.widths == [160, 192, 256, 384],
+          f"not the deployment configuration: {cfg}, widths {eng.widths}")
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        routes_of_counts, routes_of_names)
+
+    warm_s = eng.warmup()
+    # Each graph's counted launches beside its kernel nodes by route (the
+    # capture raises where the two differ; recorded to show them).
+    captured = {w: {kind: {"counted": routes_of_counts(
+                               g.captured_launches()),
+                           "graph_kernel_nodes": routes_of_names(g.kernels),
+                           "all_kernel_nodes": sum(g.kernels.values())}
+                    for kind, g in zip(("decode", "admission"), pair)}
+                for w, pair in eng._graphs.items()}
+    wave1, wave2 = deployment_waves()
+    course = [eng.tokenizer.encode(p)
+              for p in wave1[:1] + wave2[:len(COURSE_QUESTIONS) - 1]]
+    shared = len(os.path.commonprefix(course))
+    lens = [len(t) for t in course]
+    check(max(lens) <= eng.bucket,
+          f"a course prompt exceeds the prompt bucket: {lens}")
+    blk = eng.prefix_cache.block_tokens
+    # A staged course slot splices the context's whole blocks (the last
+    # prompt token is always prefilled): 7 slots after the first.
+    want_hits = (len(course) - 1) * (min(shared, min(lens) - 1) // blk) * blk
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
+          eng.graph_replays, eng.host_decisions, eng.total_generated_tokens)
+    blocks0 = eng.prefix_cache.blocks_used
+    # Wave 2 goes once the first course prompt (staged first, so served
+    # and flipped first) has published its blocks.
+    answers, wall, snap = run_paged_waves(
+        eng, queue_cls, metrics_cls, wave1, wave2,
+        ready=lambda: eng.prefix_cache.blocks_used - blocks0 >= lens[0] // blk)
+    decode_calls = eng.decode_steps - c0[0]
+    adm_calls = eng.admission_chunks - c0[1]
+    model_calls = decode_calls + adm_calls + eng.prefill_calls - c0[2]
+    replays = eng.graph_replays - c0[3]
+    decisions = eng.host_decisions - c0[4]
+    tokens = eng.total_generated_tokens - c0[5]
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    lat, counters, gauges = snap["latency"], snap["counters"], snap["gauges"]
+    check(len(answers) == 24 and all(isinstance(a, str) for a in answers),
+          "deployment: expected 24 string answers")
+    check(counters.get("decode_stalled_tokens", 0) == 0
+          and counters.get("prefill_stall_ms", 0) == 0,
+          f"deployment: fused admission stalled decode: {counters}")
+    check(counters.get("prefix_cache_hit_tokens", 0) >= want_hits,
+          f"deployment: prefix-cache hit tokens below the {want_hits} of "
+          f"the shared course context in 7 slots: {counters}")
+    check(eng.prefill_calls == c0[2] and adm_calls > 0,
+          "deployment: admission did not run inside the megasteps")
+    check(decode_calls > 0
+          and launches[attention.INT8KV] == cfg.num_layers * decode_calls,
+          f"deployment: decode_attention_int8kv launches "
+          f"{launches[attention.INT8KV]} != {cfg.num_layers} x "
+          f"{decode_calls} decode model calls (counted through replays)")
+    check(launches[quant_matmul.KERNEL] == 49 * model_calls
+          and launches[quant_matmul.MMA] == 48 * model_calls
+          and launches[quant_matmul.MMA_UNEMBED] == model_calls
+          and launches[quant_matmul.FMA] == 0,
+          f"deployment: int8 matmul launches {launches} != 49 x "
+          f"{model_calls} model calls on the tensor cores")
+    check(launches[attention.KERNEL] == 0 and launches[attention.RAGGED] == 0,
+          "deployment: a float-cache attention variant ran")
+    run = dict(
+        wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+        ttft_mean_s=lat["ttft"]["mean_s"], ttft_p50_s=lat["ttft"]["p50_s"],
+        ttft_max_s=lat["ttft"]["max_s"], decode_model_calls=decode_calls,
+        admission_chunks=adm_calls, model_calls=model_calls,
+        graph_replays=replays, host_decisions=decisions,
+        replays_per_token=replays / tokens,
+        host_decisions_per_token=decisions / tokens,
+        megastep_k_final=gauges.get("megastep_k"),
+        dead_lane_tokens=counters.get("megastep_dead_lane_tokens", 0),
+        decode_stalled_tokens=counters.get("decode_stalled_tokens", 0),
+        prefix_hit_tokens=counters.get("prefix_cache_hit_tokens", 0),
+        prefix_hit_rate=gauges.get("prefix_cache_hit_rate"),
+        prefix_blocks_used=gauges.get("prefix_cache_blocks_used"),
+        shared_context_tokens=shared, course_prompt_tokens=lens,
+        prefix_hit_tokens_wanted=want_hits,
+        host_dispatches_per_token=gauges.get("host_dispatches_per_token"),
+        launches=launches, warmup_s=warm_s, captured=captured)
+    emit("deployment_path", **run)
+    prof = profile_paged(torch, eng, wave1[1:] + wave2[:4])
+    emit("profile_deployment_step", **prof)
+    drain = profile_drain(torch, eng, wave1 + wave2)
+    emit("profile_deployment_drain", **drain)
+    # Two step() calls are phase 4b's steady window; a megastep of up to 8
+    # x 16 tokens can cover a whole answer, so the two windows may hold
+    # different work: the drains (the same 24 requests) compare alike.
+    emit("profile_busy_share", phase_4b=profile_4b["device_busy_share"],
+         phase_4c=prof["device_busy_share"],
+         phase_4c_same_window=prof["device_busy_us"]
+         / prof["profiled_wall_us"],
+         drain_4b=drain_4b["device_busy_share"],
+         drain_4c=drain["device_busy_share"],
+         launches_per_model_call_4b=profile_4b["launches_per_model_call"],
+         launches_per_model_call_4c=prof["launches_per_model_call"])
+    run["profile"] = prof
+    run["drain"] = drain
+    del eng
+    torch.cuda.empty_cache()
+
+    # float32: the deployment config's greedy tokens equal the sequential
+    # config's (megastep 1, no prefix cache, no fused admission),
+    # with an int8 and with a dense cache. The first course prompt is
+    # drained before the rest are sent, so the deployment config splices
+    # the course context into the other 7. In bf16 the two sum prefill
+    # products in other orders (a 32-row admission chunk against a whole
+    # prompt), so there the share that agrees and where the others
+    # diverge are reported, not held; the flip logits witness below holds
+    # the admission route to the cold prefill's accuracy instead.
+    batches = (wave1[:1], wave1[1:] + wave2)
+    f32_checks = []
+    for dtype, kv_quant in ((torch.float32, True), (torch.float32, False),
+                            (torch.bfloat16, True)):
+        toks = {}
+        for name, kw in (("deployment", deploy_kw),
+                         ("sequential", dict(slots=16, chunk=16, inflight=3,
+                                             cuda_graphs=False))):
+            e = engine_cls(config_cls(
+                sampling=sampling_cls.greedy(max_new_tokens=32),
+                **dict(prod, dtype=dtype, param_dtype=dtype,
+                       kv_quant=kv_quant)), **kw)
+            if e.cuda_graphs:
+                e.warmup()
+            toks[name] = engine_tokens(e, *batches)
+            if name == "deployment":
+                hits = e.pop_prefix_stats()
+                if dtype == torch.bfloat16:
+                    witness = flip_logits_witness(torch, e, wave1 + wave2)
+            del e
+        firsts = [first_divergence(a, b) for a, b in
+                  zip(toks["deployment"], toks["sequential"])]
+        diverged = [i for i, f in enumerate(firsts) if f is not None]
+        rec = dict(dtype=str(dtype).split(".")[-1], kv_quant=kv_quant,
+                   requests=len(firsts), equal=len(firsts) - len(diverged),
+                   tokens=sum(len(t) for t in toks["sequential"]),
+                   diverged=diverged,
+                   first_divergence=[firsts[i] for i in diverged],
+                   prefix_stats=hits)
+        check(hits is not None and hits[0] >= want_hits,
+              f"{rec['dtype']} deployment run (kv_quant={kv_quant}): prefix "
+              f"hit tokens below {want_hits}: {hits}")
+        if dtype == torch.bfloat16:
+            rec["flip_logits"] = witness
+            emit("bf16_deployment_vs_sequential", **rec)
+            run["bf16_deployment_vs_sequential"] = rec
+            continue
+        emit("f32_deployment_vs_sequential", **rec)
+        f32_checks.append(rec)
+        check(not diverged,
+              f"float32 deployment greedy tokens differ from the "
+              f"sequential config's (kv_quant={kv_quant}) at requests "
+              f"{diverged}")
+    run["f32_checks"] = f32_checks
+    torch.cuda.empty_cache()
+
+    # bf16: graph replays at K=4 equal the eager chunk loop (megastep 1,
+    # same shapes, no prefix cache, no fused admission), greedy and with
+    # the reference sampling from the same seed. 16 requests fill the 16
+    # slots at once, so both admit at the same boundary.
+    prompts16 = wave1[1:] + wave2[:4]
+    bf16_checks = []
+    for name, sampling in (
+            ("greedy", sampling_cls.greedy(max_new_tokens=128)),
+            ("sampled", sampling_cls.reference_defaults(
+                max_new_tokens=128))):
+        toks = {}
+        for mode, kw in (("graphs_k4", dict(megastep=4, megastep_max=4)),
+                         ("eager_chunk_loop", dict(cuda_graphs=False))):
+            e = engine_cls(config_cls(sampling=sampling, **prod), slots=16,
+                           chunk=16, inflight=3, **kw)
+            e.warmup()
+            toks[mode] = engine_tokens(e, prompts16)
+            if mode == "graphs_k4":
+                check(e.graph_replays > 0 and e.megastep_k == 4,
+                      "bf16 K=4 engine did not replay graphs at K=4")
+            del e
+        firsts = [first_divergence(a, b) for a, b in
+                  zip(toks["graphs_k4"], toks["eager_chunk_loop"])]
+        rec = dict(run=name, requests=len(prompts16),
+                   equal=sum(f is None for f in firsts),
+                   first_divergence=[f for f in firsts if f is not None],
+                   tokens=sum(len(t) for t in toks["graphs_k4"]))
+        emit("bf16_graphs_vs_eager_chunk_loop", **rec)
+        bf16_checks.append(rec)
+        check(rec["equal"] == len(prompts16),
+              f"bf16 K=4 graph replays differ from the eager chunk loop "
+              f"({name}): first divergences {rec['first_divergence']}")
+    run["bf16_checks"] = bf16_checks
+    torch.cuda.empty_cache()
+    return run
 
 
 def main(argv=None) -> int:
@@ -617,7 +1113,8 @@ def main(argv=None) -> int:
     mm_cases = []
     for dtype in ("bfloat16", "float32"):
         for name in sweep_int8.INT8_PRODUCTS:
-            for m in (1, 16, 256):
+            # decode, the fused admission chunk, the cold prefill
+            for m in (1, 16, 32, 256):
                 mm_cases.append(sweep_int8.int8_matmul_case(
                     name=name, m=m, dtype=dtype))
                 emit("int8_matmul_case", **mm_cases[-1])
@@ -732,7 +1229,9 @@ def main(argv=None) -> int:
     from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
 
     prod = dict(common, quant="int8", kv_quant=True)
-    paged_kw = dict(slots=16, chunk=16, inflight=3)
+    # The sequential config, run eagerly (the baseline that phase 4c's
+    # graphs are read against).
+    paged_kw = dict(slots=16, chunk=16, inflight=3, cuda_graphs=False)
     greedy_paged = PagedEngine(EngineConfig(
         sampling=SamplingParams.greedy(max_new_tokens=128), **prod),
         **paged_kw)
@@ -820,6 +1319,10 @@ def main(argv=None) -> int:
     records["production_profile"] = profile_paged(torch, greedy_paged,
                                                   wave1 + wave2[:4])
     emit("profile_production_step", **records["production_profile"])
+    deploy_wave1, deploy_wave2 = deployment_waves()
+    records["production_drain"] = profile_drain(
+        torch, greedy_paged, deploy_wave1 + deploy_wave2)
+    emit("profile_production_drain", **records["production_drain"])
     del greedy_paged, sampled_paged
 
     # The paged engine in float32, int8 weights: kernel vs plain attention
@@ -833,6 +1336,14 @@ def main(argv=None) -> int:
         emit("f32_paged_kernel_vs_plain", **rec)
     records["f32_paged_checks"] = f32_checks
     ragged_launches = f32_checks[1]["launches"]
+
+    # 4c. The deployment config: megastep as CUDA-graph replays, fused
+    # staged admission and the radix prefix cache on top of phase 4b.
+    records["deployment"] = deployment_phase(
+        torch, attention, quant_matmul, PagedEngine, PagedQueue, Metrics,
+        EngineConfig, SamplingParams, prod, records["production_profile"],
+        records["production_drain"])
+    deploy_launches = records["deployment"]["launches"]
 
     # 5. gRPC round trip, when grpc is installed.
     have_grpc = all(importlib.util.find_spec(m) is not None
@@ -877,21 +1388,28 @@ def main(argv=None) -> int:
                   "library_note"]),
         entry(attention.INT8KV, pallas + " (extended: int8 cache, the "
               "paged path's models/common.py:133 attend_quant)",
-              int8kv_launches, paged_case(True), library_note=paged_case(
-                  True)["library_note"]),
+              deploy_launches[attention.INT8KV], paged_case(True),
+              library_note=paged_case(True)["library_note"],
+              launches_by_path={"4b": int8kv_launches,
+                                "4c": deploy_launches[attention.INT8KV]}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
-              "einsums)", mm_launches,
+              "einsums)", deploy_launches[quant_matmul.KERNEL],
               dict(model_call, max_abs_err=max(c["max_abs_err"]
                                                for c in mm_cases)),
               shape="the 49 products of one decode model call, M=16, bf16",
               library_note="cuBLAS torch.matmul against weights "
               "dequantized to bf16 beforehand (the bf16 config's "
-              "products)"),
+              "products)",
+              launches_by_path={"4b": mm_launches,
+                                "4c": deploy_launches[quant_matmul.KERNEL]}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",
-              mm_routes[quant_matmul.MMA_UNEMBED], unembed_case,
+              deploy_launches[quant_matmul.MMA_UNEMBED], unembed_case,
+              launches_by_path={
+                  "4b": mm_routes[quant_matmul.MMA_UNEMBED],
+                  "4c": deploy_launches[quant_matmul.MMA_UNEMBED]},
               shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],

@@ -209,6 +209,9 @@ class PagedQueue:
         # host_dispatches_per_token gauge (a run ratio).
         self._dispatch_cum = 0
         self._token_cum = 0
+        # Cumulative prefix-cache hit and prompt tokens (the hit-rate gauge).
+        self._prefix_hit_cum = 0
+        self._prefix_prompt_cum = 0
         self._runner: Optional[asyncio.Task] = None
         self._closed = False
 
@@ -304,13 +307,18 @@ class PagedQueue:
 
     def _observe(self) -> None:
         """Between steps: TTFTs into the `ttft` histogram, dispatch times
-        into their program histograms, the queue depth, the decode train's
-        admission stall (`prefill_stall_ms`, `decode_stalled_tokens`) and
-        the run's host dispatches per emitted token."""
+        into their program histograms, the queue depth, the megastep's live
+        K (`megastep_k`) and pad lanes burnt by finishes inside megasteps
+        (`megastep_dead_lane_tokens`), the decode train's admission stall
+        (`prefill_stall_ms`, `decode_stalled_tokens`; both stay 0 under
+        fused admission), the run's host dispatches per emitted token, and
+        the prefix cache's hit tokens, evictions, blocks in use and hit
+        rate (the JAX package's metric names)."""
         ttfts = self.engine.pop_ttfts()
         times = self.engine.pop_program_times()
-        dispatches, tokens, stall_ms, stalled = \
+        dispatches, tokens, dead, stall_ms, stalled = \
             self.engine.pop_dispatch_stats()
+        prefix = getattr(self.engine, "pop_prefix_stats", lambda: None)()
         if self.metrics is None:
             return
         for ttft in ttfts.values():
@@ -318,6 +326,11 @@ class PagedQueue:
         for pname, _start, wall_s in times:
             self.metrics.hist(f"engine_prog_{pname}").observe(wall_s)
         self.metrics.set_gauge("serving_queue_depth", float(self.waiting))
+        mk = getattr(self.engine, "megastep_k", None)
+        if mk is not None:
+            self.metrics.set_gauge("megastep_k", float(mk))
+        if dead:
+            self.metrics.inc("megastep_dead_lane_tokens", dead)
         if stall_ms:
             self.metrics.inc("prefill_stall_ms", int(stall_ms))
         if stalled:
@@ -327,6 +340,20 @@ class PagedQueue:
         if self._token_cum:
             self.metrics.set_gauge("host_dispatches_per_token",
                                    self._dispatch_cum / self._token_cum)
+        if prefix is not None:
+            hit, total, evicted, blocks_used = prefix
+            if hit:
+                self.metrics.inc("prefix_cache_hit_tokens", hit)
+            if evicted:
+                self.metrics.inc("prefix_cache_evictions", evicted)
+            self.metrics.set_gauge("prefix_cache_blocks_used",
+                                   float(blocks_used))
+            self._prefix_hit_cum += hit
+            self._prefix_prompt_cum += total
+            if self._prefix_prompt_cum:
+                self.metrics.set_gauge(
+                    "prefix_cache_hit_rate",
+                    self._prefix_hit_cum / self._prefix_prompt_cum)
 
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()

@@ -1,46 +1,76 @@
 """Continuous batching: slot-based decode with per-slot KV lengths.
 
-Port of the sequential core of `distributed_lms_raft_llm_tpu/engine/
-paged.py`. The cache holds S independent slots; every decode step advances
-ALL active slots by one token, and the host admits and evicts requests
-BETWEEN dispatches, so a new request joins the running batch at the next
-dispatch instead of queueing behind it.
+Port of `distributed_lms_raft_llm_tpu/engine/paged.py`. The cache holds S
+independent slots; every decode step advances ALL active slots by one
+token, and the host admits and evicts requests BETWEEN dispatches, so a new
+request joins the running batch at the next dispatch instead of queueing
+behind it.
 
 Layout, as in the JAX package:
 
 - prompts are RIGHT-padded into their slot (slot position 0 = first prompt
   token), so a slot's raggedness is one length;
 - decode is a host-driven loop over a CHUNKED step (`_step_program`): each
-  dispatch advances `chunk` tokens for all S slots with one readback;
+  chunk advances `chunk` tokens for all S slots;
+- a megastep (`megastep > 1`) runs K chunks per host decision, and the
+  controller (`engine/megastep.py`) moves K along the ladder: wide while no
+  slot can free, down to the boundary where a waiting request can join;
 - the live cache runs at the width the widest active request needs (one
   width per prompt bucket) and widens when a longer prompt arrives; an idle
-  engine drops back to the width its queued work needs.
+  engine drops back to the width its queued work needs;
+- with `prefix_cache` a radix tree of immutable KV blocks
+  (`engine/prefix_cache.py`) holds the prompts' whole blocks: an admission
+  splices the longest cached prefix into its slot and prefills only the
+  suffix (`_partial_prefill_program`);
+- with `prefill_chunk_tokens` admission is STAGED (fused, stall-free): the
+  prompt's ids go to the slot's transcript row and a staged plane, and each
+  megastep iteration first runs one prefill chunk of that many tokens for
+  the oldest staged slot (`_admission_chunk`), which flips the slot live
+  when its prompt is done, so decode never waits for a prefill.
 
 What differs from the JAX package, by design:
 
-- state is updated IN PLACE, eagerly: there is no jit, no donation and no
-  program cache. The KV cache is allocated once at the widest width, and a
-  width is a window over it (a view), so growing costs nothing. Slots past
-  a row's length are never attended, so stale values there change nothing.
-- a prompt is prefilled straight into its slot's pages of the live cache
-  (a view of the slot), so `_install_program` only sets the slot's length,
-  token, active flag and seen row: there is no splice copy.
-- the step is a Python loop of `chunk` forwards. Nothing inside it syncs
-  the host: offsets are clamped to the width explicitly (as the JAX step
-  does), so no index can leave the cache and none is checked.
-- pipelining keeps the JAX semantics: dispatch N+1 before reading N. The
-  device-to-host copies of a dispatch's tokens and active flags start at
-  dispatch, into pinned memory, with an event recorded behind them; the
-  reap waits on that event only.
+- state is updated IN PLACE, eagerly: no jit and no donation. Every plane
+  of `SlotState` is a persistent buffer allocated once at the widest width;
+  a width is a window over it (a view), so growing costs nothing, and the
+  tensors a CUDA graph reads keep their addresses through growth, idle
+  rebuilds and `reset()` (which zero the planes in place).
+- a prompt is prefilled straight into its slot's pages of the live cache,
+  so `_install_program` only sets the slot's length, token, active flag and
+  seen row; cached prefix blocks are copied straight into the slot's pages.
+- a chunk is a Python loop of `chunk` forwards with no host sync inside:
+  offsets are clamped to the width explicitly, and the admission chunk's
+  pad tail is masked out of the cache writes (JAX drops out-of-range
+  scatter writes; the port checks indices instead of trusting them).
+- on the card (`cuda_graphs`, on by default there) `warmup()` captures, at
+  every cache width, one CUDA graph of a decode chunk and, with fused
+  admission, one of an admission chunk (`engine/graphs.py`). A megastep is
+  then a host-planned sequence of at most 2K graph replays: which
+  iterations run an admission chunk is known on the host (staging is
+  host-decided and each staged prompt needs a known number of chunks), so
+  JAX's `lax.cond` becomes the host's choice of graph, while the staged
+  slot, the flip, the first token and eos are still found on the device.
+  Nothing is captured while serving: a width without graphs raises.
+- pipelining keeps the JAX semantics: dispatch N+1 before reading N. Each
+  dispatch's device-to-host copies (tokens, active flags, flips) are
+  enqueued right behind the replay or chunk that wrote them, on the same
+  stream, into that dispatch's own pinned buffers, with an event recorded
+  behind them; the reap waits on that event only. The dead-lane account
+  is computed from those planes at the reap (the active flags at entry
+  are copied with them), with the JAX definition.
+- randomness: the engine's `torch.Generator` is registered with the graphs,
+  so a replay draws what an eager chunk in its place would. The fused flip
+  samples its first token with uniforms drawn at staging time, in the
+  order the sequential admission would have drawn them (`stage_noise`).
 - decode attention goes through the CUDA kernel by default on the card
   (`fused_attention=None`), with per-row lengths and, with `kv_quant`, an
   int8 cache. The JAX engine refuses `fused_attention` only because its
   Pallas kernel lacks ragged offsets.
 
 Options of the JAX engine not ported yet raise `NotImplementedError` at
-construction: megastep decode, the shared-prefix (radix) cache, fused
-chunked prefill, speculative decoding, tp/ep/sp and the scoring tenant;
-so do streaming and sessions (the serving queue offers neither).
+construction: speculative decoding, tp/ep/sp and the scoring tenant; the
+serving queue offers no streaming or sessions yet (the prefix cache's
+session pins are there for them).
 """
 
 from __future__ import annotations
@@ -49,7 +79,7 @@ import dataclasses
 import functools
 import logging
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,8 +90,25 @@ from ..models.common import KVCache
 from ..utils import tokenizer as tok_lib
 from .engine import EngineConfig, refuse_unported
 from .generate import pick_bucket
+from .graphs import ChunkGraph
+from .megastep import (
+    dead_lane_tokens,
+    effective_megastep_max,
+    megastep_ladder,
+    next_megastep_k,
+)
+from .prefix_cache import (
+    BLOCK_TOKENS,
+    KVBlock,
+    Match,
+    PrefixCache,
+    plan_partial,
+    plan_staged,
+)
 from .sampling import (
     SamplingParams,
+    draw_noise,
+    noise_width,
     sample_step,
     seen_mask_from_ids,
     update_seen,
@@ -72,20 +119,37 @@ log = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class SlotState:
-    """Device-side state of all S slots, updated in place.
+    """Device-side state of all S slots, windows of persistent buffers
+    updated in place.
 
-    cache:  k/v [L, S, Hkv, width, Dh] (a window of the preallocated
-            cache; int8 with ks/vs scale planes under `kv_quant`) and
-            `lengths` [S] int32, each slot's written length
-    tok:    [S] int64, the last sampled token per slot
-    active: [S] bool
-    seen:   [S, V] bool, the repetition-penalty presence mask
+    cache:        k/v [L, S, Hkv, width, Dh] (int8 with ks/vs scale planes
+                  under `kv_quant`) and `lengths` [S] int32, each slot's
+                  written length
+    tok:          [S] int64, the last sampled token per slot
+    active:       [S] bool
+    seen:         [S, V] bool, the repetition-penalty presence mask
+    transcript:   [S, width] int64: a staged slot's right-padded prompt ids,
+                  which the in-scan prefill chunks read back
+    staged:       [S] bool, slots whose prompt is prefilling in the scan
+    stage_cursor: [S] int32, the next prompt position to prefill (starts at
+                  the spliced prefix length)
+    stage_len:    [S] int32, the true prompt length
+    stage_seq:    [S] int32, the staging order (FIFO service: slot index
+                  would let churn starve an early admission)
+    stage_noise:  [S, n] float32, the uniforms the flip samples the first
+                  token with (n = 0 under greedy decoding)
     """
 
     cache: KVCache
     tok: torch.Tensor
     active: torch.Tensor
     seen: torch.Tensor
+    transcript: torch.Tensor
+    staged: torch.Tensor
+    stage_cursor: torch.Tensor
+    stage_len: torch.Tensor
+    stage_seq: torch.Tensor
+    stage_noise: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -99,6 +163,35 @@ class _Request:
     # was known still carry this request in their slot snapshot and must
     # skip it (see PagedEngine.step pipelining).
     finished: bool = False
+    # False while STAGED (fused admission: prefill advancing inside the
+    # megastep, first token not yet sampled; `tokens` still holds the
+    # prompt until the flip is reaped).
+    live: bool = True
+    # Staged only: prefill chunks not yet dispatched, and the staging order.
+    chunks_left: int = 0
+    stage_seq: int = 0
+
+
+@dataclasses.dataclass
+class _Dispatch:
+    """One dispatched step or megastep, read by a later reap: tokens [K,
+    chunk, S] int32 and active snapshots [K, S] int8 (host copies in flight
+    on the card); the active flags at entry [S] bool (the dead-lane
+    account's base); the fused flips [K, S] bool and first tokens [K, S]
+    int32; the event behind the copies (None on the CPU); and slot ->
+    request at dispatch time."""
+
+    toks: torch.Tensor
+    active: torch.Tensor
+    started: torch.Tensor
+    flipped: Optional[torch.Tensor]
+    firsts: Optional[torch.Tensor]
+    event: Optional[torch.cuda.Event]
+    slots: List[Optional[_Request]]
+
+    @property
+    def k(self) -> int:
+        return self.active.shape[0]
 
 
 def cfg_tmax(cfg, sampling: SamplingParams, bucket: int) -> int:
@@ -127,6 +220,61 @@ def _prefill_program(params, ids: torch.Tensor, true_len: int,
     return first, update_seen(seen[None, :], first[None])[0]
 
 
+def _partial_prefill_program(params, cache: KVCache, ids_full: torch.Tensor,
+                             ids_suf: torch.Tensor, prefix_len: int,
+                             true_len: int, generator: torch.Generator, *,
+                             cfg, sampling,
+                             model) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill only the uncached suffix of a shared-prefix prompt.
+
+    `cache` is the slot's prompt-bucket-wide pages, whose first
+    `prefix_len` positions hold KV spliced from the radix tree; `ids_full`
+    is the [1, t] right-padded whole prompt (the seen mask's source, as in
+    the cold prefill), `ids_suf` the [1, s] right-padded suffix. The
+    forward runs over the suffix at offset `prefix_len`, so each real
+    suffix query attends over the same keys as in the cold prefill; the
+    last real suffix position is the prompt's last, so the first token is
+    sampled as the cold path samples it. Returns (first, seen_row), the
+    contract of `_prefill_program`.
+    """
+    _, t = ids_full.shape
+    logits, _ = model.forward(params, cfg, ids_suf,
+                              cache=dataclasses.replace(cache,
+                                                        length=prefix_len))
+    last = logits[0, true_len - prefix_len - 1]
+    valid = (torch.arange(t, device=ids_full.device) < true_len)[None, :]
+    seen = seen_mask_from_ids(ids_full, valid, cfg.vocab_size)[0]
+    first = sample_step(generator, last[None, :], seen[None, :], sampling)[0]
+    return first, update_seen(seen[None, :], first[None])[0]
+
+
+def _splice_block_program(kv: KVCache, block: KVBlock, slot: int,
+                          off: int) -> None:
+    """Copy one immutable tree block into a slot's pages of the live cache
+    at token offset `off` (the JAX package's `_load_block` and
+    `_stage_block`: the port prefills in the slot's pages, so both splice
+    there). The block is read, never written."""
+    n = block.k.shape[3]
+    kv.k[:, slot:slot + 1, :, off:off + n] = block.k
+    kv.v[:, slot:slot + 1, :, off:off + n] = block.v
+    if kv.quantized:
+        kv.ks[:, slot:slot + 1, :, off:off + n] = block.ks
+        kv.vs[:, slot:slot + 1, :, off:off + n] = block.vs
+
+
+def _export_block_program(kv: KVCache, off: int, slot: int, *,
+                          block: int) -> KVBlock:
+    """A fresh copy of one block-aligned KV run of a slot's pages: the
+    block the radix tree owns. The prompt region is never rewritten by
+    decode (which writes at >= prompt_len), so the copy is the prompt's."""
+
+    def cut(x):
+        return None if x is None else x[:, slot:slot + 1, :,
+                                        off:off + block].clone()
+
+    return KVBlock(k=cut(kv.k), v=cut(kv.v), ks=cut(kv.ks), vs=cut(kv.vs))
+
+
 def _install_program(state: SlotState, slot: int, true_len: int,
                      first: torch.Tensor, seen_row: torch.Tensor, *,
                      eos_id: int) -> None:
@@ -138,13 +286,39 @@ def _install_program(state: SlotState, slot: int, true_len: int,
     state.seen[slot] = seen_row
 
 
-def _grow_state_program(state: SlotState, full: KVCache,
+def _stage_program(state: SlotState, slot: int, ids: torch.Tensor,
+                   true_len: int, cursor0: int, seq: int,
+                   noise: torch.Tensor) -> None:
+    """Arm one slot's staged admission: the right-padded prompt into its
+    transcript row and the staged plane set; the prefill then advances
+    inside the megastep (`_admission_chunk`) until the flip.
+
+    `cursor0` is the prefix already spliced into the slot's pages (0
+    cold). The slot's length is parked at width-1: decode still runs a
+    forward for every slot and an inactive row writes its KV at its
+    length, which, parked above the prompt, never touches the staged
+    pages. `noise` [1, n] is the first token's uniforms, drawn now."""
+    width = state.transcript.shape[1]
+    state.transcript[slot, :ids.shape[1]] = ids[0]
+    state.cache.lengths[slot] = width - 1
+    state.active[slot] = False
+    state.staged[slot] = True
+    state.stage_cursor[slot] = cursor0
+    state.stage_len[slot] = true_len
+    state.stage_seq[slot] = seq
+    if noise.shape[1]:
+        state.stage_noise[slot] = noise[0]
+
+
+def _grow_state_program(state: SlotState, kv: KVCache, transcript: torch.Tensor,
                         new_len: int) -> SlotState:
-    """Widen the live cache to `new_len` slots: a wider window of the
-    preallocated cache `full`, the same lengths (the JAX package pads the
-    cache instead; the new slots are unattended either way)."""
-    return dataclasses.replace(state, cache=dataclasses.replace(
-        full.window(new_len), lengths=state.cache.lengths))
+    """Widen the live state to `new_len` slots: wider windows of the
+    persistent cache and transcript, the same planes (the JAX package pads
+    instead; the new slots are unattended either way)."""
+    return dataclasses.replace(
+        state, cache=dataclasses.replace(kv.window(new_len),
+                                         lengths=state.cache.lengths),
+        transcript=transcript[:, :new_len])
 
 
 def _step_program(params, state: SlotState, generator: torch.Generator, *,
@@ -153,11 +327,10 @@ def _step_program(params, state: SlotState, generator: torch.Generator, *,
     """`chunk` decode steps for all S slots (per-row cache offsets).
 
     Updates `state` in place and returns fresh tensors (tokens [chunk, S]
-    int32, active snapshot [S] int8) that no later dispatch writes: the
-    pipelined engine dispatches step N+1 before reading N's results.
-    Inactive and full slots write into their clamped position (the slot is
-    dead or about to be evicted; the data is ignored), so every offset
-    stays inside the window and nothing syncs the host.
+    int32, active snapshot [S] int8). Inactive and full slots write into
+    their clamped position (the slot is dead, staged or about to be
+    evicted; the data is ignored), so every offset stays inside the window
+    and nothing syncs the host.
     """
     width = state.cache.max_len
     pad = torch.full((), pad_id, dtype=state.tok.dtype,
@@ -186,35 +359,147 @@ def _step_program(params, state: SlotState, generator: torch.Generator, *,
             state.active.to(torch.int8))
 
 
+def _admission_chunk(params, state: SlotState, *, cfg, sampling, model,
+                     eos_id: int, pad_id: int,
+                     prefill_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One prefill chunk of `prefill_chunk` prompt positions for the oldest
+    staged slot: the fused admission's part of a megastep iteration.
+
+    The slot is found on the device (the lowest `stage_seq` among staged
+    slots) and its next ids are read from its transcript row; the forward
+    writes their KV into the slot's pages at the cursor, with the writes
+    past the true length and past the width masked out, and positions past
+    the true length clamped to its last position (as the cold prefill's
+    are). When the cursor covers the prompt, the flip: the first token is
+    sampled from the last real position's logits with the full-prompt seen
+    mask and the slot's staged uniforms, the contract `_prefill_program`
+    feeds `_install_program`, and the slot goes live. With nothing staged
+    every write is masked and the state stays as it was.
+
+    Returns (flipped [S] bool, firsts [S] int32), one-hot at the flipped
+    slot (first tokens `pad_id` elsewhere).
+    """
+    c = prefill_chunk
+    n_slots = state.tok.shape[0]
+    width = state.cache.max_len
+    dev = state.tok.device
+    big = torch.full_like(state.stage_seq, torch.iinfo(torch.int32).max)
+    sl = torch.argmin(torch.where(state.staged, state.stage_seq, big))[None]
+    has = state.staged[sl]                        # [1]
+    cur = state.stage_cursor[sl].long()           # [1]
+    tl = state.stage_len[sl].long()               # [1]
+    q_slots = cur[:, None] + torch.arange(c, device=dev)[None, :]  # [1, c]
+    row = state.transcript.index_select(0, sl)    # [1, width]
+    ids = torch.gather(row, 1, torch.clamp(q_slots, max=width - 1))
+    positions = torch.clamp(torch.minimum(q_slots, tl[:, None] - 1), min=0)
+    keep = has[:, None] & (q_slots < tl[:, None]) & (q_slots < width)
+    logits, _ = model.forward(
+        params, cfg, ids,
+        cache=dataclasses.replace(state.cache, lengths=cur.to(torch.int32),
+                                  rows=sl),
+        positions=positions, write_mask=keep)
+    done = has & (cur + c >= tl)                  # [1]
+    last = logits[0].index_select(0, torch.clamp(tl - 1 - cur, 0, c - 1))
+    valid = torch.arange(width, device=dev)[None, :] < tl[:, None]
+    seen0 = seen_mask_from_ids(row, valid, cfg.vocab_size)   # [1, V]
+    noise = (state.stage_noise.index_select(0, sl)
+             if state.stage_noise.shape[1] else None)
+    first = sample_step(None, last, seen0, sampling, noise=noise)  # [1]
+    seen1 = update_seen(seen0, first)
+    lengths = state.cache.lengths
+    lengths.index_put_((sl,), torch.where(done, tl.to(lengths.dtype),
+                                          lengths[sl]))
+    state.tok.index_put_((sl,), torch.where(done, first, state.tok[sl]))
+    state.active.index_put_((sl,), torch.where(
+        has, done & (first != eos_id), state.active[sl]))
+    state.seen.index_put_((sl,), torch.where(done[:, None], seen1,
+                                             state.seen[sl]))
+    state.staged.index_put_((sl,), torch.where(has, ~done, state.staged[sl]))
+    state.stage_cursor.index_put_((sl,), torch.where(
+        has, (cur + c).to(torch.int32), state.stage_cursor[sl]))
+    flipped = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
+    flipped.index_put_((sl,), done)
+    firsts = torch.full((n_slots,), pad_id, dtype=torch.int32, device=dev)
+    firsts.index_put_((sl,), torch.where(
+        done, first, torch.full_like(first, pad_id)).to(torch.int32))
+    return flipped, firsts
+
+
+def _megastep_program(step, admission, active: torch.Tensor,
+                      admit: Sequence[bool], *, pad_id: int):
+    """K = len(admit) chunks back to back, eagerly (the CPU, and the card
+    without graphs): iteration j runs an admission chunk first when
+    `admit[j]`, then a decode chunk. `step()` runs one decode chunk
+    (`_step_program`), `admission()` one admission chunk
+    (`_admission_chunk`), or is None without fused admission; `active` is
+    the live state's active plane, read at entry. The generator advances
+    exactly as K chunk-loop dispatches would advance it.
+
+    Returns (toks [K, chunk, S] int32, active [K, S] int8 post-chunk
+    snapshots, started [S] bool the active flags at entry, flipped [K, S]
+    bool and firsts [K, S] int32 with fused admission, else None): the
+    planes `megastep.dead_lane_tokens` reads for the JAX package's
+    dead-lane account, which the reap computes."""
+    started = active.clone()
+    n_slots = active.shape[0]
+    toks, actives, flips, firsts = [], [], [], []
+    for on in admit:
+        if admission is not None:
+            if on:
+                f, fi = admission()
+            else:
+                f = torch.zeros((n_slots,), dtype=torch.bool,
+                                device=active.device)
+                fi = torch.full((n_slots,), pad_id, dtype=torch.int32,
+                                device=active.device)
+            flips.append(f)
+            firsts.append(fi)
+        t, a = step()
+        toks.append(t)
+        actives.append(a)
+    return (torch.stack(toks), torch.stack(actives), started,
+            torch.stack(flips) if admission is not None else None,
+            torch.stack(firsts) if admission is not None else None)
+
+
 class PagedEngine:
     """Slot-scheduled serving engine with mid-decode admission.
 
     Host API (single-threaded; wrap in an executor for async serving):
       submit(prompt) -> request id
       step() -> list[(rid, text)] — admit pending into free slots, dispatch
-                the next chunk, return requests that finished
+                the next chunk or megastep, return requests that finished
       drain() -> dict[rid, text] — run until no work remains
     """
 
     def __init__(self, config: EngineConfig, slots: Optional[int] = None,
                  chunk: int = 16, inflight: int = 2, megastep: int = 1,
-                 prefix_cache: bool = False, prefill_chunk_tokens: int = 0):
+                 megastep_max: int = 0, prefix_cache: bool = False,
+                 prefix_cache_blocks: int = 512,
+                 prefix_block_tokens: int = BLOCK_TOKENS,
+                 prefill_chunk_tokens: int = 0,
+                 cuda_graphs: Optional[bool] = None):
         refuse_unported(config)
-        unported = [name for name, on in (
-            ("megastep", megastep > 1), ("prefix_cache", prefix_cache),
-            ("prefill_chunk_tokens", prefill_chunk_tokens > 0)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"PagedEngine options not ported to PyTorch yet: {unported}"
-            )
         self.config = config
-        # Tokens per dispatched step; mid-chunk admissions wait at most
-        # `chunk` steps, host round trips shrink by the same factor.
+        # Tokens per chunk; mid-chunk admissions wait at most `chunk`
+        # steps, host round trips shrink by the same factor.
         self.chunk = max(1, chunk)
         # Dispatches kept in flight: at 2 the host dispatches step N+1
         # before reading N's tokens. 1 = dispatch, sync, reap.
         self.inflight_limit = max(1, inflight)
+        # Megastep: `megastep` is the controller's starting K, `megastep_max`
+        # its ceiling (0 = follow `megastep`); K=1 is the chunk loop.
+        self.megastep_max = effective_megastep_max(megastep, megastep_max)
+        self.megastep_ks = megastep_ladder(self.megastep_max)
+        self._megastep_initial = max(
+            k for k in self.megastep_ks if k <= max(1, megastep))
+        self.megastep_k = self._megastep_initial
         self.device = resolve_device(config.device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError("cuda_graphs needs a CUDA device")
+        self.cuda_graphs = cuda_graphs
         self.family, self.cfg = registry.resolve(
             config.model, config.dtype, config.param_dtype
         )
@@ -252,6 +537,20 @@ class PagedEngine:
         })
         self.buckets = sorted({min(b, self.bucket)
                                for b in config.length_buckets})
+        # The radix shared-prefix cache of prompt blocks.
+        self.prefix_cache: Optional[PrefixCache] = None
+        if prefix_cache:
+            self.prefix_cache = PrefixCache(
+                block_tokens=max(1, prefix_block_tokens),
+                max_blocks=max(1, prefix_cache_blocks))
+        # Fused staged admission: prompt positions prefilled per megastep
+        # iteration, clamped (as in the JAX package) so a final chunk's pad
+        # tail still ends inside the cache width.
+        self.fused = prefill_chunk_tokens > 0
+        self.prefill_chunk = 0
+        if self.fused:
+            self.prefill_chunk = max(1, min(
+                prefill_chunk_tokens, config.sampling.max_new_tokens + 1))
 
         t0 = time.monotonic()
         if config.checkpoint:
@@ -270,25 +569,52 @@ class PagedEngine:
 
         statics = dict(cfg=self.cfg, sampling=config.sampling,
                        model=self.family)
+        eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
         self._prefill = functools.partial(_prefill_program, **statics)
+        self._partial_prefill = functools.partial(_partial_prefill_program,
+                                                  **statics)
         self._step = functools.partial(
-            _step_program, eos_id=self.tokenizer.eos_id,
-            pad_id=self.tokenizer.pad_id, chunk=self.chunk, **statics)
+            _step_program, eos_id=eos, pad_id=pad, chunk=self.chunk,
+            **statics)
+        self._admission = functools.partial(
+            _admission_chunk, eos_id=eos, pad_id=pad,
+            prefill_chunk=self.prefill_chunk, **statics)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
-        # The one KV allocation, at the widest width; widths are windows.
+        # The one allocation of every state plane, at the widest width;
+        # widths are windows, and the planes are only written in place.
+        wmax, dev = self.widths[-1], self.device
         self._kv = self.family.init_cache(
-            self.cfg, self.slots, self.widths[-1], dtype=self.cfg.dtype,
-            device=self.device)
+            self.cfg, self.slots, wmax, dtype=self.cfg.dtype, device=dev)
+        self._lengths = torch.zeros((self.slots,), dtype=torch.int32,
+                                    device=dev)
+        self._transcript = torch.zeros((self.slots, wmax), dtype=torch.long,
+                                       device=dev)
+        self._planes = dict(
+            tok=torch.zeros((self.slots,), dtype=torch.long, device=dev),
+            active=torch.zeros((self.slots,), dtype=torch.bool, device=dev),
+            seen=torch.zeros((self.slots, self.cfg.vocab_size),
+                             dtype=torch.bool, device=dev),
+            staged=torch.zeros((self.slots,), dtype=torch.bool, device=dev),
+            stage_cursor=torch.zeros((self.slots,), dtype=torch.int32,
+                                     device=dev),
+            stage_len=torch.ones((self.slots,), dtype=torch.int32,
+                                 device=dev),
+            stage_seq=torch.zeros((self.slots,), dtype=torch.int32,
+                                  device=dev),
+            stage_noise=torch.zeros(
+                (self.slots, noise_width(config.sampling,
+                                         self.cfg.vocab_size)),
+                dtype=torch.float32, device=dev),
+        )
         self.state = self._init_state()
+        # Captured graphs by cache width: (decode chunk, admission chunk or
+        # None); filled by warmup() when `cuda_graphs`.
+        self._graphs: Dict[int, Tuple[ChunkGraph, Optional[ChunkGraph]]] = {}
         self._slot_req: List[Optional[_Request]] = [None] * self.slots
         self._pending: List[_Request] = []
-        # Dispatched-but-unread steps, oldest first: (tokens [chunk, S],
-        # active [S] — host copies in flight on the card — the event behind
-        # them or None on the CPU, slot -> request snapshot at dispatch).
-        self._inflight: List[Tuple[torch.Tensor, torch.Tensor,
-                                   Optional[torch.cuda.Event],
-                                   List[Optional[_Request]]]] = []
+        # Dispatched-but-unread steps and megasteps, oldest first.
+        self._inflight: List[_Dispatch] = []
         self._next_rid = 0
         self.last_ttft_s: Optional[float] = None
         # Per-request time to first token (submit() -> first token on the
@@ -296,20 +622,39 @@ class PagedEngine:
         self.ttfts: Dict[int, float] = {}
         # Tokens finished requests generated.
         self.total_generated_tokens = 0
-        # Model calls: prefill forwards (one per admission) and decode
-        # forwards (`chunk` per dispatched step).
+        # Model calls: prefill forwards (one per sequential admission, cold
+        # or partial), decode forwards (`chunk` per dispatched chunk) and
+        # fused admission chunks; graph replays and host decisions (one per
+        # step or megastep dispatch) on the card.
         self.prefill_calls = 0
         self.decode_steps = 0
+        self.admission_chunks = 0
+        self.graph_replays = 0
+        self.host_decisions = 0
         # Drained by pop_dispatch_stats(): host dispatches, tokens emitted
-        # to requests, and the admission stall (host wall the decode train
-        # spent blocked on sequential admission while live slots waited,
-        # with the proxy tokens those slots would have decoded meanwhile).
+        # to requests, pad lanes burnt inside megasteps, and the admission
+        # stall (host wall the decode train spent blocked on sequential
+        # admission while live slots waited, with the proxy tokens those
+        # slots would have decoded meanwhile; both 0 under fused admission).
         self._dispatches = 0
         self._emitted_tokens = 0
+        self._dead_lane_tokens = 0
         self._prefill_stall_s = 0.0
         self._decode_stalled_tokens = 0
         # (program, wall-clock start, dispatch seconds) per dispatch.
         self._prog_times: List[Tuple[str, float, float]] = []
+        # Shared-prefix accounting: per-rid pinned tree paths (released when
+        # the request completes), per-rid hit lengths, and the counts
+        # pop_prefix_stats() drains.
+        self._prefix_pins: Dict[int, Match] = {}
+        self._prefix_hits: Dict[int, int] = {}
+        self._prefix_hit_tokens = 0
+        self._prefix_prompt_tokens = 0
+        self._prefix_evictions = 0
+        # rid -> prompt ids of STAGED requests (their blocks are published
+        # at the flip's reap, when `tokens` already holds the answer).
+        self._staged_prompts: Dict[int, List[int]] = {}
+        self._stage_seq = 0
 
     _PROG_TIMES_MAX = 4096
 
@@ -320,16 +665,44 @@ class PagedEngine:
         if len(self._prog_times) > self._PROG_TIMES_MAX:
             del self._prog_times[: -self._PROG_TIMES_MAX]
 
-    def pop_dispatch_stats(self) -> Tuple[int, int, float, int]:
-        """Drain (host_dispatches, emitted_tokens, prefill_stall_ms,
-        decode_stalled_tokens) accumulated since the last call.
-        dispatches/tokens is the serving queue's `host_dispatches_per_token`
-        gauge."""
+    def _shed_oldest(self, d: Dict[int, object]) -> None:
+        """Bound a per-rid dict that a queue-less caller never pops."""
+        if len(d) > self._PROG_TIMES_MAX:
+            for rid in list(d)[: -self._PROG_TIMES_MAX // 2]:
+                d.pop(rid, None)
+
+    def pop_dispatch_stats(self) -> Tuple[int, int, int, float, int]:
+        """Drain (host_dispatches, emitted_tokens, dead_lane_tokens,
+        prefill_stall_ms, decode_stalled_tokens) accumulated since the last
+        call, the JAX engine's tuple. dispatches/tokens is the serving
+        queue's `host_dispatches_per_token` gauge; the rest feed the
+        `megastep_dead_lane_tokens`, `prefill_stall_ms` and
+        `decode_stalled_tokens` counters."""
         out = (self._dispatches, self._emitted_tokens,
-               self._prefill_stall_s * 1000.0, self._decode_stalled_tokens)
-        self._dispatches = self._emitted_tokens = 0
+               self._dead_lane_tokens, self._prefill_stall_s * 1000.0,
+               self._decode_stalled_tokens)
+        self._dispatches = self._emitted_tokens = self._dead_lane_tokens = 0
         self._prefill_stall_s = 0.0
         self._decode_stalled_tokens = 0
+        return out
+
+    def pop_prefix_stats(self) -> Optional[Tuple[int, int, int, int]]:
+        """Drain (hit_tokens, prompt_tokens, evicted_blocks, blocks_used)
+        since the last call; None without a prefix cache. hit_tokens counts
+        prompt tokens whose KV was spliced from the tree (the prefix USED
+        after fitting), prompt_tokens all admitted prompt tokens."""
+        if self.prefix_cache is None:
+            return None
+        out = (self._prefix_hit_tokens, self._prefix_prompt_tokens,
+               self._prefix_evictions, self.prefix_cache.blocks_used)
+        self._prefix_hit_tokens = self._prefix_prompt_tokens = 0
+        self._prefix_evictions = 0
+        return out
+
+    def pop_prefix_hits(self) -> Dict[int, int]:
+        """Drain rid -> shared-prefix tokens spliced at that request's
+        admission (0 = cold prefill)."""
+        out, self._prefix_hits = self._prefix_hits, {}
         return out
 
     def pop_program_times(self) -> List[Tuple[str, float, float]]:
@@ -347,19 +720,18 @@ class PagedEngine:
                    for x in (c.k, c.v, c.ks, c.vs) if x is not None)
 
     def _init_state(self, width: Optional[int] = None) -> SlotState:
-        cache = dataclasses.replace(
-            self._kv.window(width or self.widths[0]),
-            lengths=torch.zeros((self.slots,), dtype=torch.int32,
-                                device=self.device))
+        """A clean state at `width`: every plane zeroed IN PLACE (stage_len
+        to ones) and windowed; the KV pages keep stale values, which no
+        slot attends (a slot's keys past its length are masked)."""
+        width = width or self.widths[0]
+        self._lengths.zero_()
+        self._transcript.zero_()
+        for name, x in self._planes.items():
+            x.fill_(1 if name == "stage_len" else 0)
         return SlotState(
-            cache=cache,
-            tok=torch.zeros((self.slots,), dtype=torch.long,
-                            device=self.device),
-            active=torch.zeros((self.slots,), dtype=torch.bool,
-                               device=self.device),
-            seen=torch.zeros((self.slots, self.cfg.vocab_size),
-                             dtype=torch.bool, device=self.device),
-        )
+            cache=dataclasses.replace(self._kv.window(width),
+                                      lengths=self._lengths),
+            transcript=self._transcript[:, :width], **self._planes)
 
     # ------------------------------------------------------------ host API
 
@@ -395,11 +767,15 @@ class PagedEngine:
 
     @torch.no_grad()
     def warmup(self) -> float:
-        """Run every width once before serving (the first cuBLAS calls,
-        the kernels' build and each launch layout happen here, not on a
-        request): at each cache width, each prompt bucket that fits it is
-        prefilled and installed, then one step runs; then one ghost request
-        is drained. Returns seconds."""
+        """Run every width once before serving, so no request pays for a
+        first launch, a kernel build or a graph capture: at each cache
+        width, each prompt bucket that fits it is admitted (prefilled and
+        installed, or staged), then the chunk programs run; with
+        `cuda_graphs` they are captured there (a decode chunk, and with
+        fused admission an admission chunk: a rung-K megastep replays them
+        K times, so this covers every rung). Then one ghost request is
+        drained and the generator is seeded again, so serving draws the
+        same numbers with or without graphs. Returns seconds."""
         t0 = time.monotonic()
         for width in self.widths:
             self.state = self._init_state(width)
@@ -408,20 +784,49 @@ class PagedEngine:
                     continue  # a prompt this long can't run at this width
                 ids = torch.full((1, t), self.tokenizer.pad_id,
                                  dtype=torch.long, device=self.device)
+                if self.fused:
+                    _stage_program(self.state, 0, ids, 1, 0, 0, draw_noise(
+                        self.generator, 1, self.config.sampling,
+                        self.cfg.vocab_size, self.device))
+                    continue
                 first, seen_row = self._prefill(self.params, ids, 1,
                                                 self.generator,
                                                 self._slot_cache(0, t))
                 _install_program(self.state, 0, 1, first, seen_row,
                                  eos_id=self.tokenizer.eos_id)
-            self._step(self.params, self.state, self.generator)
+            if self.cuda_graphs:
+                self._capture(width)
+            else:
+                self._run_eager([self.fused])
         self.reset()
         rid = self.submit("warmup")
         self.drain()
         self.ttfts.pop(rid, None)
+        if self.prefix_cache is not None:
+            # The ghost prompt's blocks must not seed the live tree.
+            self.prefix_cache.clear()
+            self._prefix_hit_tokens = self._prefix_prompt_tokens = 0
+            self._prefix_evictions = 0
+            self._prefix_hits = {}
         # The warmup drain is not serving traffic.
         self.pop_dispatch_stats()
         self.pop_program_times()
+        self.megastep_k = self._megastep_initial
+        self.generator.manual_seed(self.config.seed)
         return time.monotonic() - t0
+
+    def _capture(self, width: int) -> None:
+        """Capture the chunk graphs of `width` over the state windowed to
+        it (the addresses every later window of that width shares)."""
+        state = self.state
+        decode = ChunkGraph(
+            lambda: self._step(self.params, state, self.generator),
+            self.generator)
+        admission = None
+        if self.fused:
+            admission = ChunkGraph(
+                lambda: self._admission(self.params, state))
+        self._graphs[width] = (decode, admission)
 
     @property
     def has_work(self) -> bool:
@@ -441,10 +846,13 @@ class PagedEngine:
         return self.tokenizer.decode(list(tokens))
 
     def reset(self) -> None:
-        """Discard all in-flight work and rebuild a clean slot state.
+        """Discard all in-flight work and rebuild a clean slot state (in
+        place: the graphs keep reading the same planes).
 
         Needed after a failed step: the serving queue fails the affected
-        requests and resets the engine, so later requests start clean.
+        requests and resets the engine, so later requests start clean. The
+        radix tree survives (its blocks are never written); the requests'
+        pins die with them.
         """
         self.state = self._init_state()
         self._slot_req = [None] * self.slots
@@ -452,6 +860,13 @@ class PagedEngine:
         self._inflight = []
         self.ttfts = {}
         self._prog_times = []
+        self._staged_prompts = {}
+        self.megastep_k = self._megastep_initial
+        if self.prefix_cache is not None:
+            for pin in self._prefix_pins.values():
+                self.prefix_cache.release(pin)
+        self._prefix_pins = {}
+        self._prefix_hits = {}
 
     def _maybe_rebuild_idle(self) -> None:
         # Idle rebuild: with nothing occupied or in flight, the cache can
@@ -485,7 +900,8 @@ class PagedEngine:
     def _grow_if_needed(self, w_req: int) -> None:
         if w_req > self.state.cache.max_len:
             t0, t0u = time.monotonic(), time.time()
-            self.state = _grow_state_program(self.state, self._kv, w_req)
+            self.state = _grow_state_program(self.state, self._kv,
+                                             self._transcript, w_req)
             self._time_prog("grow", t0, t0u)
 
     def _slot_cache(self, slot: int, width: int) -> KVCache:
@@ -514,13 +930,7 @@ class PagedEngine:
                 continue
             req, bucket, w_req, ids = self._pop_next()
             self._grow_if_needed(w_req)
-            t0, t0u = time.monotonic(), time.time()
-            first, seen_row = self._prefill(
-                self.params, ids, req.prompt_len, self.generator,
-                self._slot_cache(slot, bucket),
-            )
-            self.prefill_calls += 1
-            self._time_prog("prefill", t0, t0u)
+            first, seen_row = self._run_prefill(req, slot, bucket, ids)
             t0, t0u = time.monotonic(), time.time()
             _install_program(self.state, slot, req.prompt_len, first,
                              seen_row, eos_id=self.tokenizer.eos_id)
@@ -544,6 +954,132 @@ class PagedEngine:
             self.ttfts[req.rid] = ttft
             self.last_ttft_s = ttft
 
+    def _run_prefill(self, req: _Request, slot: int, bucket: int,
+                     ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One request's prompt into its slot's first `bucket` pages: a
+        cold prefill, or, on a shared-prefix hit, the cached blocks spliced
+        in and a partial prefill over the suffix. The completed prompt's
+        blocks are then published to the tree, and the matched path stays
+        pinned until the request finishes. Returns (first, seen_row)."""
+        pc = self.prefix_cache
+        prefix_used = suffix_bucket = 0
+        match: Optional[Match] = None
+        if pc is not None:
+            match = pc.lookup(req.tokens)
+            if match.tokens:
+                prefix_used, suffix_bucket = plan_partial(
+                    match.tokens, req.prompt_len, bucket, self.buckets,
+                    pc.block_tokens)
+        pages = self._slot_cache(slot, bucket)
+        if prefix_used:
+            pc.acquire(match)
+            self._prefix_pins[req.rid] = match
+            blocks = match.blocks()[: prefix_used // pc.block_tokens]
+            t0, t0u = time.monotonic(), time.time()
+            for i, blk in enumerate(blocks):
+                _splice_block_program(self._kv, blk, slot,
+                                      i * pc.block_tokens)
+            self._dispatches += max(0, len(blocks) - 1)
+            self._time_prog("load_block", t0, t0u)
+            suf = np.full((1, suffix_bucket), self.tokenizer.pad_id,
+                          np.int64)
+            suf[0, : req.prompt_len - prefix_used] = req.tokens[prefix_used:]
+            t0, t0u = time.monotonic(), time.time()
+            first, seen_row = self._partial_prefill(
+                self.params, pages, ids, torch.from_numpy(suf).to(self.device),
+                prefix_used, req.prompt_len, self.generator)
+            self._time_prog("partial_prefill", t0, t0u)
+        else:
+            t0, t0u = time.monotonic(), time.time()
+            first, seen_row = self._prefill(self.params, ids, req.prompt_len,
+                                            self.generator, pages)
+            self._time_prog("prefill", t0, t0u)
+        self.prefill_calls += 1
+        if pc is not None:
+            self._publish(req.tokens, req.prompt_len, slot)
+            self._prefix_hit_tokens += prefix_used
+            self._prefix_prompt_tokens += req.prompt_len
+            self._prefix_hits[req.rid] = prefix_used
+            self._shed_oldest(self._prefix_hits)
+        return first, seen_row
+
+    def _publish(self, prompt: List[int], prompt_len: int, slot: int) -> None:
+        """Publish a prefilled prompt's whole blocks into the radix tree,
+        copied out of the slot's pages (only blocks the tree lacks), then
+        enforce the block budget (after the insert, so a publish never
+        evicts blocks its own admission references; pinned paths never
+        go)."""
+        pc = self.prefix_cache
+        blk_t = pc.block_tokens
+        t0, t0u = time.monotonic(), time.time()
+        added = pc.insert(
+            prompt[: (prompt_len // blk_t) * blk_t],
+            lambda i: _export_block_program(self._kv, i * blk_t, slot,
+                                            block=blk_t))
+        if added:
+            self._dispatches += added - 1
+            self._time_prog("export_block", t0, t0u)
+        self._prefix_evictions += pc.evict_to_budget()
+
+    def _stage_admissions(self) -> None:
+        """Fused admission: hand every admissible pending request to the
+        device as a STAGED slot (ids into the transcript row, cached prefix
+        blocks spliced into the slot's pages, the staged plane armed) with
+        no blocking work. The prefill advances inside the megasteps, and
+        the flip's first token comes back through their flipped/firsts
+        planes at a later reap: the decode train never pauses."""
+        self._maybe_rebuild_idle()
+        pc = self.prefix_cache
+        for slot in range(self.slots):
+            if self._slot_req[slot] is not None or not self._pending:
+                continue
+            req, bucket, w_req, ids = self._pop_next()
+            # The uniforms the sequential admission's prefill would draw
+            # here: the flip samples with them.
+            noise = draw_noise(self.generator, 1, self.config.sampling,
+                               self.cfg.vocab_size, self.device)
+            cursor0 = 0
+            if pc is not None:
+                match = pc.lookup(req.tokens)
+                cursor0 = plan_staged(match.tokens, req.prompt_len,
+                                      pc.block_tokens)
+                if cursor0:
+                    pc.acquire(match)
+                    self._prefix_pins[req.rid] = match
+                self._prefix_hit_tokens += cursor0
+                self._prefix_prompt_tokens += req.prompt_len
+                self._prefix_hits[req.rid] = cursor0
+                self._shed_oldest(self._prefix_hits)
+                self._staged_prompts[req.rid] = list(req.tokens)
+            self._grow_if_needed(w_req)
+            if cursor0:
+                blocks = match.blocks()[: cursor0 // pc.block_tokens]
+                t0, t0u = time.monotonic(), time.time()
+                for i, blk in enumerate(blocks):
+                    _splice_block_program(self._kv, blk, slot,
+                                          i * pc.block_tokens)
+                self._dispatches += max(0, len(blocks) - 1)
+                self._time_prog("stage_block", t0, t0u)
+            t0, t0u = time.monotonic(), time.time()
+            _stage_program(self.state, slot, ids, req.prompt_len, cursor0,
+                           self._stage_seq, noise)
+            self._time_prog("stage", t0, t0u)
+            req.stage_seq = self._stage_seq
+            self._stage_seq += 1
+            req.live = False
+            req.chunks_left = -(-(req.prompt_len - cursor0)
+                                // self.prefill_chunk)
+            self._slot_req[slot] = req
+
+    def _publish_staged(self, req: _Request, slot: int) -> None:
+        """Fused admission's publish, at the flip's reap: the prompt's KV
+        is in the slot's pages of the live cache (decode writes only at >=
+        prompt_len, and the slot cannot be staged again before this reap
+        returns)."""
+        tokens = self._staged_prompts.pop(req.rid, None)
+        if tokens is not None:
+            self._publish(tokens, req.prompt_len, slot)
+
     def _required_width(self, prompt_len: int) -> int:
         bucket = min(
             pick_bucket(prompt_len, self.config.length_buckets), self.bucket
@@ -551,79 +1087,209 @@ class PagedEngine:
         return cfg_tmax(self.cfg, self.config.sampling, bucket)
 
     def _live(self) -> bool:
-        return any(r is not None and not r.finished for r in self._slot_req)
+        return any(r is not None and not r.finished and r.live
+                   for r in self._slot_req)
+
+    def _any_staged(self) -> bool:
+        """Any slot whose staged prefill has not flipped yet: device work
+        that keeps dispatching even while no slot is live."""
+        return any(r is not None and not r.finished and not r.live
+                   for r in self._slot_req)
+
+    def _slack_chunks(self) -> Optional[int]:
+        """Chunks until some live slot is GUARANTEED to free (the K
+        controller's admission horizon): the fewest remaining budget chunks
+        among live slots, less one chunk per dispatched-but-unreaped chunk.
+        None when no live slot bounds it."""
+        rem = None
+        for req in self._slot_req:
+            if req is None or req.finished or not req.live:
+                continue  # staged requests hold no budget yet
+            r = req.max_new - len(req.tokens)
+            rem = r if rem is None else min(rem, r)
+        if rem is None:
+            return None
+        chunks = -(-max(0, rem) // self.chunk)  # ceil
+        return max(0, chunks - sum(d.k for d in self._inflight))
+
+    def _plan_admissions(self, k: int) -> List[bool]:
+        """Which of the next `k` iterations run an admission chunk: one per
+        iteration, in staging order, while staged prompts have chunks left
+        (the device serves the lowest `stage_seq` the same way)."""
+        queue = sorted((r for r in self._slot_req
+                        if r is not None and not r.live and r.chunks_left),
+                       key=lambda r: r.stage_seq)
+        plan = []
+        for _ in range(k):
+            while queue and not queue[0].chunks_left:
+                queue.pop(0)
+            plan.append(bool(queue))
+            if queue:
+                queue[0].chunks_left -= 1
+        return plan
 
     @torch.no_grad()
     def step(self) -> List[Tuple[int, str]]:
-        """Admit pending requests, dispatch the next `chunk` tokens, and
-        reap the oldest in-flight dispatch once the pipeline is full.
+        """Admit (or stage) pending requests, dispatch the next chunk (K=1)
+        or megastep, and reap the oldest in-flight dispatch once the
+        pipeline is full.
 
         Pipelining (inflight_limit=2 default): the dispatch for step N+1
         goes out BEFORE step N's tokens are read back, so the readback
         overlaps N+1's device compute. Completions therefore surface one
         step() call after their dispatch at steady state; the tail drains
-        in the same call once no live slot remains.
+        in the same call once no live or staged slot remains.
         """
-        self._admit()
-        if self._live():
+        if self.fused:
+            self._stage_admissions()
+        else:
+            self._admit()
+        work = self._live() or self._any_staged()
+        if work:
+            self.megastep_k = next_megastep_k(
+                self.megastep_k, self.megastep_ks, len(self._pending),
+                self._slack_chunks(), fused=self.fused)
+            k = self.megastep_k
+            admit = (self._plan_admissions(k) if self.fused
+                     else [False] * k)
             t0, t0u = time.monotonic(), time.time()
-            toks, active = self._step(self.params, self.state,
-                                      self.generator)
-            self.decode_steps += self.chunk
-            self._time_prog("step", t0, t0u)
-            self._push_inflight(toks, active)
+            self._dispatch(admit)
+            self.decode_steps += k * self.chunk
+            self.admission_chunks += sum(admit)
+            self.host_decisions += 1
+            self._time_prog("megastep" if self.fused or k > 1 else "step",
+                            t0, t0u)
         done: List[Tuple[int, str]] = []
         while self._inflight and (
             len(self._inflight) >= self.inflight_limit
-            if self._live() else True
+            if self._live() or self._any_staged() else True
         ):
-            done.extend(self._reap(*self._inflight.pop(0)))
+            done.extend(self._reap(self._inflight.pop(0)))
             # _reap may finish the last live request: the loop condition
             # re-evaluates _live(), so remaining dispatches drain here.
         return done
 
-    def _push_inflight(self, toks: torch.Tensor,
-                       active: torch.Tensor) -> None:
-        """Queue one dispatched step's outputs for a later reap. No blocking
-        readback here, but on the card the device-to-host copies START now,
-        into pinned memory, so they stream back while later steps compute;
-        the event recorded behind them is all the reap waits for."""
+    def _dispatch(self, admit: List[bool]) -> None:
+        """Run K = len(admit) chunks on the device and queue their outputs
+        for a later reap: graph replays on the card with `cuda_graphs`,
+        else eager chunks. No host sync either way."""
+        if self.cuda_graphs:
+            self._inflight.append(self._replay(admit))
+            return
+        toks, active, started, flipped, firsts = self._run_eager(admit)
         event = None
         if toks.device.type == "cuda":
-            host_toks = torch.empty(toks.shape, dtype=toks.dtype,
-                                    pin_memory=True)
-            host_active = torch.empty(active.shape, dtype=active.dtype,
-                                      pin_memory=True)
-            host_toks.copy_(toks, non_blocking=True)
-            host_active.copy_(active, non_blocking=True)
+            # The copies start now, into pinned memory, and stream back
+            # while later dispatches compute.
+            toks, active, started, flipped, firsts = (
+                None if x is None else _to_pinned(x)
+                for x in (toks, active, started, flipped, firsts))
             event = torch.cuda.Event()
             event.record()
-            toks, active = host_toks, host_active
         # The slot snapshot records which request each column belonged to
         # at dispatch time (a slot reused later belongs to a later step).
-        self._inflight.append((toks, active, event, list(self._slot_req)))
+        self._inflight.append(_Dispatch(
+            toks=toks, active=active, started=started, flipped=flipped,
+            firsts=firsts, event=event, slots=list(self._slot_req)))
 
-    def _reap(self, toks_host: torch.Tensor, active_host: torch.Tensor,
-              event: Optional[torch.cuda.Event],
-              slot_snapshot: List[Optional[_Request]],
-              ) -> List[Tuple[int, str]]:
-        """Read one dispatch's results and finish the requests it
-        completed."""
-        if event is not None:
-            event.synchronize()  # THE sync point of the engine loop
-        toks = toks_host.numpy()      # [chunk, S]
-        active = active_host.numpy()  # [S] post-chunk flags
+    def _run_eager(self, admit: List[bool]):
+        """`_megastep_program` over the live state: K eager chunks."""
+        state = self.state
+        return _megastep_program(
+            lambda: self._step(self.params, state, self.generator),
+            (lambda: self._admission(self.params, state)) if self.fused
+            else None,
+            state.active, admit, pad_id=self.tokenizer.pad_id)
+
+    def _replay(self, admit: List[bool]) -> _Dispatch:
+        """One megastep as graph replays at the live width: per iteration
+        the admission graph (where planned) and the decode graph, each
+        followed on the same stream by the copies of its outputs into this
+        dispatch's own pinned buffers (the next replay rewrites them)."""
+        width = self.state.cache.max_len
+        graphs = self._graphs.get(width)
+        if graphs is None:
+            raise RuntimeError(
+                f"no CUDA graph captured for cache width {width}: call "
+                f"warmup() before serving (graphs are not captured while "
+                f"serving)")
+        decode, admission = graphs
+        k, s = len(admit), self.slots
+        toks = torch.empty((k, self.chunk, s), dtype=torch.int32,
+                           pin_memory=True)
+        active = torch.empty((k, s), dtype=torch.int8, pin_memory=True)
+        started = torch.empty((s,), dtype=torch.bool, pin_memory=True)
+        started.copy_(self.state.active, non_blocking=True)
+        flipped = firsts = None
+        if self.fused:
+            flipped = torch.zeros((k, s), dtype=torch.bool, pin_memory=True)
+            firsts = torch.full((k, s), self.tokenizer.pad_id,
+                                dtype=torch.int32, pin_memory=True)
+        for j, on in enumerate(admit):
+            if on:
+                f, fi = admission.replay()
+                flipped[j].copy_(f, non_blocking=True)
+                firsts[j].copy_(fi, non_blocking=True)
+                self.graph_replays += 1
+            t, a = decode.replay()
+            toks[j].copy_(t, non_blocking=True)
+            active[j].copy_(a, non_blocking=True)
+            self.graph_replays += 1
+        event = torch.cuda.Event()
+        event.record()
+        return _Dispatch(toks=toks, active=active, started=started,
+                         flipped=flipped, firsts=firsts, event=event,
+                         slots=list(self._slot_req))
+
+    def _reap(self, d: _Dispatch) -> List[Tuple[int, str]]:
+        """Read one dispatch's results (its whole [K, chunk, S] plane in
+        one pass) and finish the requests it completed. Under fused
+        admission the same pass learns which staged slots flipped live: the
+        flip's first token heads the request's stream (TTFT recorded here,
+        the first host moment the token exists), its prompt blocks publish
+        into the radix tree, and its decode walk starts at the flip
+        iteration's rows (earlier rows are pre-flip filler)."""
+        if d.event is not None:
+            d.event.synchronize()  # THE sync point of the engine loop
+        k_axis = d.k
+        self._dead_lane_tokens += int(dead_lane_tokens(
+            d.started, d.active, d.flipped, self.chunk))
+        toks = d.toks.numpy().reshape(k_axis * self.chunk, self.slots)
+        # Dead-slot detection keys off the FINAL snapshot: a slot that
+        # died in chunk j padded every later lane.
+        active = d.active.numpy()[-1]
+        flipped = None if d.flipped is None else d.flipped.numpy()
+        firsts = None if d.firsts is None else d.firsts.numpy()
         done: List[Tuple[int, str]] = []
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
-        for slot, req in enumerate(slot_snapshot):
+        now = time.monotonic()
+        for slot, req in enumerate(d.slots):
             if req is None or req.finished:
                 # Empty at dispatch, or finished by an earlier chunk — this
                 # chunk's column holds dead-slot filler.
                 continue
+            start_row = 0
+            if not req.live:
+                # Staged at dispatch: only a flip makes this column
+                # meaningful, and its inactive flag is not a death.
+                col = (np.zeros((k_axis,), bool) if flipped is None
+                       else flipped[:, slot])
+                if not col.any():
+                    continue
+                j = int(np.argmax(col))
+                req.tokens = [int(firsts[j, slot])]
+                req.live = True
+                self._emitted_tokens += 1
+                ttft = now - req.submit_time
+                self.ttfts[req.rid] = ttft
+                self.last_ttft_s = ttft
+                if self.prefix_cache is not None:
+                    self._publish_staged(req, slot)
+                start_row = j * self.chunk
             finished = False
             dead = not bool(active[slot])
             n_before = len(req.tokens)
-            for t in toks[:, slot]:
+            for t in toks[start_row:, slot]:
                 tok = int(t)
                 if tok == eos:
                     # eos lands in the transcript when it's a distinct
@@ -654,6 +1320,11 @@ class PagedEngine:
                 finished = True
             if finished:
                 req.finished = True
+                self._staged_prompts.pop(req.rid, None)
+                pin = self._prefix_pins.pop(req.rid, None)
+                if pin is not None and self.prefix_cache is not None:
+                    # The slot no longer reads shared blocks.
+                    self.prefix_cache.release(pin)
                 self.total_generated_tokens += len(req.tokens)
                 text = self.tokenizer.decode(
                     [t for t in req.tokens if t != eos]
@@ -673,3 +1344,10 @@ class PagedEngine:
             for rid, text in self.step():
                 out[rid] = text
         return out
+
+
+def _to_pinned(x: torch.Tensor) -> torch.Tensor:
+    """Start a device-to-host copy of `x` into fresh pinned memory."""
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    return host

@@ -1,0 +1,414 @@
+"""Radix shared-prefix KV cache: prefill each course context once.
+
+The port's own copy of `distributed_lms_raft_llm_tpu/engine/prefix_cache.py`
+(which imports JAX), with `KVBlock` over torch tensors. Students in one
+course ask against the same context; a radix tree over token-id sequences
+owns immutable, device-resident KV block runs, so a prompt whose prefix an
+earlier request prefilled splices those blocks into its slot and prefills
+only the uncached suffix (SGLang's RadixAttention over vLLM-style
+fixed-size blocks, on the paged engine's right-padded slot layout).
+
+- **Block granularity.** A cache symbol is a block of `block_tokens`
+  consecutive token ids; nodes store exact block-aligned KV runs.
+- **Immutability.** Tree-owned tensors are never written: the splice
+  copies them INTO a slot's pages, the publish copies fresh blocks OUT of
+  a completed prefill.
+- **Right-padded absolute positions.** Prompt token j sits at cache slot j
+  (position id j), so a cached block is valid for any request whose
+  prompt starts with the same tokens.
+- **Ref-count + LRU eviction.** Admission pins the matched node until the
+  request completes; eviction under the block budget removes
+  least-recently-used unpinned leaves only, so a block a live slot still
+  references is never freed (the budget may overrun instead).
+
+Host-side only and single-threaded by contract: the paged engine's host
+API is single-threaded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+# Tokens per cache block: the tree's matching granularity and the width
+# of the engine's block splice and export copies. 16 matches the default
+# device chunk; tests shrink it to exercise multi-block paths with tiny
+# prompts.
+BLOCK_TOKENS = 16
+
+
+class KVBlock(NamedTuple):
+    """One immutable device-resident KV block: `block_tokens` consecutive
+    positions of a single sequence ([L, 1, H, B, Dh] per plane; int8
+    scale planes [L, 1, H, B] ride along for a quantized cache). Shared
+    structure: copied out of a slot's pages once and never written."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: Optional[torch.Tensor] = None
+    vs: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class _Node:
+    """One radix-tree node: an edge of consecutive blocks plus the KV
+    runs that back them. `edge[i]` is the tuple of token ids block i of
+    this edge covers; `blocks[i]` its KV. Children key on their edge's
+    first block tuple."""
+
+    edge: List[Tuple[int, ...]]
+    blocks: List[KVBlock]
+    parent: Optional["_Node"]
+    children: Dict[Tuple[int, ...], "_Node"] = dataclasses.field(
+        default_factory=dict
+    )
+    refs: int = 0
+    last_used: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Match:
+    """A longest-prefix lookup result: the matched path (deepest node
+    last) with how many of each node's blocks matched, and the matched
+    token count. `nodes`/`used` are parallel; only the deepest node may
+    be partially used (matching stops at the first divergence)."""
+
+    nodes: Tuple[_Node, ...]
+    used: Tuple[int, ...]
+    tokens: int
+
+    def blocks(self) -> List[KVBlock]:
+        out: List[KVBlock] = []
+        for node, n in zip(self.nodes, self.used):
+            out.extend(node.blocks[:n])
+        return out
+
+
+def plan_partial(
+    hit_tokens: int,
+    true_len: int,
+    bucket: int,
+    buckets: Sequence[int],
+    block_tokens: int,
+) -> Tuple[int, int]:
+    """Fit a cache hit into the engine's static program domain: returns
+    (prefix_used, suffix_bucket) with prefix_used a positive multiple of
+    `block_tokens` and `prefix_used + suffix_bucket <= bucket`, or
+    (0, 0) when no suffix bucket admits a usable prefix (cold prefill).
+
+    The suffix MUST cover `true_len - prefix_used` real tokens and the
+    spliced window must stay inside the prompt-bucket-wide cache, so a
+    long hit against a small remaining window gives back blocks (they
+    are recomputed inside the suffix forward) rather than overrunning —
+    the same silent-clamp corruption `PagedEngine.__init__` guards
+    against for decode. Smallest admissible suffix bucket wins: it
+    minimizes the partial-prefill compute, which is the entire point.
+
+    At least one real suffix token is always recomputed (prefix_used is
+    capped at `true_len - 1`): the first sampled token needs the
+    prompt's last-position logits, which the cache does not store.
+    """
+    for s in sorted(b for b in buckets if b <= bucket):
+        p = min(hit_tokens, bucket - s, true_len - 1)
+        p -= p % block_tokens
+        if p > 0 and true_len - p <= s:
+            return p, s
+    return 0, 0
+
+
+def plan_staged(hit_tokens: int, true_len: int, block_tokens: int) -> int:
+    """Fit a cache hit into FUSED staged admission: returns the prefix
+    length to splice (a multiple of `block_tokens`; 0 = cold staging).
+
+    Staged admission has no suffix-bucket program to fit — the uncached
+    suffix is chunked through the megastep scan at any length — so the
+    only constraints left from `plan_partial` are block alignment and
+    the >= 1 recomputed token rule (the last prompt position's logits
+    seed the first sampled token; the cache does not store them). The
+    spliced prefix simply moves the staged cursor forward: fewer prefill
+    chunks, identical flip contract.
+    """
+    p = min(hit_tokens, true_len - 1)
+    return p - p % block_tokens
+
+
+class PrefixCache:
+    """Host-side radix tree over block-granular token prefixes.
+
+    The engine owns the device programs — and the hit/prompt-token
+    accounting (it counts the USED prefix after bucket fitting, which
+    the raw radix match overstates); this class owns structure and
+    policy: longest-prefix lookup, insert-with-split, ref-count pins,
+    and LRU leaf eviction under `max_blocks`. `blocks_used` is the live
+    level the budget is enforced on; `evicted_blocks` the cumulative
+    eviction count.
+    """
+
+    def __init__(self, block_tokens: int = BLOCK_TOKENS,
+                 max_blocks: int = 512):
+        if block_tokens < 1 or max_blocks < 1:
+            raise ValueError("prefix cache needs block_tokens/max_blocks >= 1")
+        self.block_tokens = block_tokens
+        self.max_blocks = max_blocks
+        self._root = _Node(edge=[], blocks=[], parent=None)
+        self._clock = 0
+        self.blocks_used = 0
+        self.evicted_blocks = 0   # cumulative, pop'd by the engine stats
+        # Multi-turn session pins: session_id -> (deepest pinned node,
+        # monotonic expiry). A session pin is SOFT — it protects a
+        # transcript path from LRU eviction until its TTL lapses or the
+        # session releases it, but under budget pressure with nothing
+        # unpinned left it is force-released in soonest-expiry order
+        # (the eviction-under-live-session-pin policy). Request refcount
+        # pins (`refs`, live slots) remain hard: never evicted.
+        self._session_pins: Dict[str, Tuple[_Node, float]] = {}
+
+    # ------------------------------------------------------------- lookup
+
+    def _block_keys(self, tokens: Sequence[int]) -> List[Tuple[int, ...]]:
+        b = self.block_tokens
+        return [
+            tuple(tokens[i: i + b])
+            for i in range(0, len(tokens) - b + 1, b)
+        ]
+
+    def _walk(
+        self, keys: Sequence[Tuple[int, ...]]
+    ) -> Tuple[List[_Node], List[int], int]:
+        """Longest shared prefix walk: (path nodes, blocks used per node,
+        total blocks matched)."""
+        nodes: List[_Node] = []
+        used: List[int] = []
+        cur = self._root
+        i = 0
+        while i < len(keys):
+            child = cur.children.get(keys[i])
+            if child is None:
+                break
+            j = 0
+            while (j < len(child.edge) and i + j < len(keys)
+                   and child.edge[j] == keys[i + j]):
+                j += 1
+            nodes.append(child)
+            used.append(j)
+            i += j
+            if j < len(child.edge):
+                break
+            cur = child
+        return nodes, used, i
+
+    def lookup(self, tokens: Sequence[int]) -> Match:
+        """Longest cached prefix of `tokens`, at block granularity,
+        usable-capped at `len(tokens) - 1` (the last prompt position is
+        always recomputed — its logits seed the first sampled token).
+        Touches the matched path for LRU."""
+        usable = max(0, (len(tokens) - 1) // self.block_tokens)
+        keys = self._block_keys(tokens)[:usable]
+        nodes, used, matched = self._walk(keys)
+        self._clock += 1
+        for node in nodes:
+            node.last_used = self._clock
+        return Match(nodes=tuple(nodes), used=tuple(used),
+                     tokens=matched * self.block_tokens)
+
+    # ----------------------------------------------------------- pinning
+
+    def acquire(self, match: Match) -> None:
+        """Pin the matched path for a live slot: the deepest node's
+        refcount protects it from eviction, its ancestors are protected
+        structurally (they have children). Balanced by `release` when
+        the request completes (or the engine resets)."""
+        if match.nodes:
+            match.nodes[-1].refs += 1
+
+    def release(self, match: Match) -> None:
+        if match.nodes:
+            match.nodes[-1].refs = max(0, match.nodes[-1].refs - 1)
+
+    # ----------------------------------------------------- session pins
+
+    def pin_session(self, session_id: str, tokens: Sequence[int],
+                    ttl_s: float, now: Optional[float] = None) -> int:
+        """Pin the cached path covering `tokens` for a tutoring session:
+        turn N's published transcript stays resident so turn N+1 splices
+        it as a shared prefix. Re-pinning the same session moves its pin
+        to the new (longer) transcript path and refreshes the TTL.
+        Returns the number of blocks the pinned path covers (0 = nothing
+        cached to pin)."""
+        now = time.monotonic() if now is None else now
+        keys = self._block_keys(tokens)
+        nodes, _used, matched = self._walk(keys)
+        if not nodes or matched == 0:
+            self._session_pins.pop(session_id, None)
+            return 0
+        self._session_pins[session_id] = (nodes[-1], now + ttl_s)
+        self._clock += 1
+        for node in nodes:
+            node.last_used = self._clock
+        return matched
+
+    def release_session(self, session_id: str) -> bool:
+        """Explicit release (session closed): the path becomes ordinary
+        LRU-evictable content immediately."""
+        return self._session_pins.pop(session_id, None) is not None
+
+    def expire_sessions(self, now: Optional[float] = None) -> int:
+        """Release pins whose TTL lapsed. Returns sessions released."""
+        now = time.monotonic() if now is None else now
+        dead = [sid for sid, (_, exp) in self._session_pins.items()
+                if exp <= now]
+        for sid in dead:
+            del self._session_pins[sid]
+        return len(dead)
+
+    def _session_nodes(self) -> Dict[int, float]:
+        """id(node) -> soonest expiry among the sessions pinning it."""
+        out: Dict[int, float] = {}
+        for node, exp in self._session_pins.values():
+            key = id(node)
+            out[key] = min(out.get(key, exp), exp)
+        return out
+
+    @property
+    def session_count(self) -> int:
+        return len(self._session_pins)
+
+    def session_pinned_blocks(self) -> int:
+        """Blocks held resident by session pins: the union of root->pin
+        paths (the `session_pinned_blocks` gauge)."""
+        seen: Dict[int, int] = {}
+        for node, _exp in self._session_pins.values():
+            cur: Optional[_Node] = node
+            while cur is not None and cur.parent is not None:
+                if id(cur) in seen:
+                    break
+                seen[id(cur)] = len(cur.blocks)
+                cur = cur.parent
+        return sum(seen.values())
+
+    # ------------------------------------------------------------ insert
+
+    def _split(self, node: _Node, j: int) -> _Node:
+        """Split `node` after its first `j` blocks; returns the new
+        upper node. The tail keeps the original node object so existing
+        pins (refcounts) stay attached to the blocks they protect —
+        ancestors are protected by having children."""
+        assert node.parent is not None and 0 < j < len(node.edge)
+        top = _Node(edge=node.edge[:j], blocks=node.blocks[:j],
+                    parent=node.parent, last_used=node.last_used)
+        node.parent.children[top.edge[0]] = top
+        node.edge = node.edge[j:]
+        node.blocks = node.blocks[j:]
+        top.children[node.edge[0]] = node
+        node.parent = top
+        return top
+
+    def insert(
+        self,
+        tokens: Sequence[int],
+        make_block: Callable[[int], KVBlock],
+    ) -> int:
+        """Publish `tokens`' uncached full blocks into the tree.
+        `make_block(i)` materializes block i's KV (the engine slices it
+        out of the completed prefill's cache — called only for blocks
+        the tree does not already hold). Returns blocks added. Does NOT
+        evict; the engine calls `evict_to_budget` after (so a publish
+        can never evict blocks its own admission still references)."""
+        keys = self._block_keys(tokens)
+        nodes, used, matched = self._walk(keys)
+        if matched >= len(keys):
+            return 0
+        cur = self._root if not nodes else nodes[-1]
+        if nodes and used[-1] < len(nodes[-1].edge):
+            # Divergence inside an edge: split so the shared head is a
+            # real node the new tail can branch from.
+            cur = self._split(nodes[-1], used[-1])
+        fresh = [make_block(i) for i in range(matched, len(keys))]
+        self._clock += 1
+        node = _Node(edge=list(keys[matched:]), blocks=fresh, parent=cur,
+                     last_used=self._clock)
+        cur.children[node.edge[0]] = node
+        self.blocks_used += len(fresh)
+        return len(fresh)
+
+    # ---------------------------------------------------------- eviction
+
+    def _leaves(self) -> List[_Node]:
+        out: List[_Node] = []
+        stack = list(self._root.children.values())
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            else:
+                out.append(n)
+        return out
+
+    def evict_to_budget(self, now: Optional[float] = None) -> int:
+        """Evict least-recently-used unpinned leaf nodes until
+        `blocks_used <= max_blocks` or nothing evictable remains.
+
+        Session-pin policy (ordered, each tier exhausted before the
+        next):
+
+        1. TTL-expired session pins are released first — an expired
+           session's transcript is ordinary LRU-evictable content.
+        2. Leaves with zero refs and no live session pin evict in LRU
+           order (the pre-session behavior).
+        3. Still over budget: live session pins are force-released in
+           soonest-expiry order (the session closest to lapsing loses
+           its residency guarantee), freeing their leaves for tier 2.
+        4. Leaves pinned by a live REQUEST (refs > 0) are never evicted:
+           the budget transiently overruns instead — a slot is actively
+           reading those blocks.
+
+        Returns blocks freed."""
+        now = time.monotonic() if now is None else now
+        self.expire_sessions(now)
+        freed = 0
+        while self.blocks_used > self.max_blocks:
+            protected = self._session_nodes()
+            victims = [n for n in self._leaves()
+                       if n.refs == 0 and id(n) not in protected]
+            if not victims:
+                # Everything evictable is session-pinned: force-release
+                # the pin nearest its TTL and retry; if only request
+                # pins remain, overrun.
+                if not self._session_pins:
+                    break
+                sid = min(self._session_pins,
+                          key=lambda s: self._session_pins[s][1])
+                del self._session_pins[sid]
+                continue
+            victim = min(victims, key=lambda n: n.last_used)
+            assert victim.parent is not None
+            del victim.parent.children[victim.edge[0]]
+            self.blocks_used -= len(victim.blocks)
+            freed += len(victim.blocks)
+        self.evicted_blocks += freed
+        return freed
+
+    # ------------------------------------------------------------- admin
+
+    def clear(self) -> None:
+        """Drop every cached block (warmup hygiene: ghost prompts must
+        not seed the live tree). Pins are owned by the engine, which
+        clears its own pin table alongside; session pins die with the
+        tree they pointed into."""
+        self._root = _Node(edge=[], blocks=[], parent=None)
+        self.blocks_used = 0
+        self._session_pins = {}
+
+    @property
+    def node_count(self) -> int:
+        return sum(1 for _ in self._iter_nodes()) - 1  # minus root
+
+    def _iter_nodes(self):
+        stack = [self._root]
+        while stack:
+            n = stack.pop()
+            yield n
+            stack.extend(n.children.values())

@@ -75,24 +75,49 @@ def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
     return torch.where(remove, torch.full_like(logits, NEG_INF), logits)
 
 
-def _categorical(generator: torch.Generator,
-                 logits: torch.Tensor) -> torch.Tensor:
+def noise_width(params: SamplingParams, vocab_size: int) -> int:
+    """Uniforms one sampled row draws: the top-k values when top_k bounds
+    the draw, else the whole vocabulary; 0 under greedy decoding."""
+    if params.temperature <= 0.0:
+        return 0
+    k = params.top_k
+    return k if 0 < k < vocab_size else vocab_size
+
+
+def draw_noise(generator: torch.Generator, rows: int, params: SamplingParams,
+               vocab_size: int, device: torch.device) -> torch.Tensor:
+    """The uniforms `sample_step` would draw for `rows` rows, drawn now: the
+    same call, so the generator advances exactly as that step would have
+    advanced it. [rows, noise_width] float32 (no columns when greedy)."""
+    n = noise_width(params, vocab_size)
+    if n == 0:
+        return torch.empty((rows, 0), dtype=torch.float32, device=device)
+    return torch.rand((rows, n), generator=generator, device=device,
+                      dtype=torch.float32)
+
+
+def _categorical(generator: torch.Generator, logits: torch.Tensor,
+                 noise: torch.Tensor | None = None) -> torch.Tensor:
     """One draw per row from softmax(logits), by the Gumbel-max trick (no
-    host round-trip, unlike `torch.multinomial`)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    host round-trip, unlike `torch.multinomial`). `noise`: the uniforms,
+    drawn beforehand (`draw_noise`), in place of a draw from `generator`."""
+    u = noise if noise is not None else torch.rand(
+        logits.shape, generator=generator, device=logits.device,
+        dtype=torch.float32)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
     return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
 
 
 def sample_step(generator: torch.Generator, logits: torch.Tensor,
-                seen_mask: torch.Tensor,
-                params: SamplingParams) -> torch.Tensor:
+                seen_mask: torch.Tensor, params: SamplingParams,
+                noise: torch.Tensor | None = None) -> torch.Tensor:
     """One sampling step: [B, V] float32 logits -> [B] int64 token ids.
 
     When top_k is active it bounds the nucleus set: top-p, temperature and
     the draw run on the k retained values (one top-k over the vocab instead
-    of full-vocab sorts), as in the JAX package.
+    of full-vocab sorts), as in the JAX package. `noise` ([B,
+    noise_width]): uniforms drawn earlier by `draw_noise`, used instead of
+    drawing from `generator` (the fused admission's first token).
     """
     logits = apply_repetition_penalty(logits, seen_mask,
                                       params.repetition_penalty)
@@ -110,10 +135,10 @@ def sample_step(generator: torch.Generator, logits: torch.Tensor,
             top_vals = torch.where((cum - probs) > params.top_p,
                                    torch.full_like(top_vals, NEG_INF),
                                    top_vals)
-        choice = _categorical(generator, top_vals)
+        choice = _categorical(generator, top_vals, noise)
         return torch.gather(top_idx, -1, choice[:, None])[:, 0]
     logits = apply_top_p(logits, params.top_p)
-    return _categorical(generator, logits)
+    return _categorical(generator, logits, noise)
 
 
 def update_seen(seen_mask: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -72,6 +72,10 @@ class KVCache:
              scales of an int8 cache (`quantize_kv`), else None
     lengths: [batch] per-row offsets (the paged engine's ragged slots), or
              None; when set it takes the place of `length`
+    rows:    [batch] int64 cache rows that the batch's rows read and write,
+             a device tensor (the slot a fused admission chunk prefills,
+             chosen on the device), or None for rows 0..batch-1; only
+             with `lengths`
 
     `window(width)` gives a cache over the first `width` slots that shares
     storage with this one: attention then reads only slots that can be
@@ -84,6 +88,7 @@ class KVCache:
     ks: Optional[torch.Tensor] = None
     vs: Optional[torch.Tensor] = None
     lengths: Optional[torch.Tensor] = None
+    rows: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:

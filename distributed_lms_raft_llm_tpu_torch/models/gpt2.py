@@ -13,7 +13,8 @@ PyTorch runs eagerly.
   write their keys/values into the cache IN PLACE at that offset;
 - cached with per-row offsets (``cache.lengths``, the paged engine's
   ragged slots): each row's T new keys/values are scattered at its own
-  offset;
+  offset, optionally into cache rows chosen on the device (``cache.rows``)
+  and under a write mask (the fused admission chunk's one staged slot);
 - cached with T == 1 and ``cfg.fused_decode_attention``: attention runs
   through `ops.attention.decode_attention` (the CUDA kernel on the card,
   its plain version on the CPU), reading the layer from the stacked cache,
@@ -183,6 +184,18 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn,
     return x + dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"])
 
 
+def _write_rows(buf: torch.Tensor, layer: int, rows: torch.Tensor,
+                slots: torch.Tensor, val: torch.Tensor,
+                keep: Optional[torch.Tensor]) -> None:
+    """buf[layer, rows[b], :, slots[b, t]] = val[b, t] for [B, T] entries
+    (rows [B, 1]); where `keep` is False the slot keeps its value."""
+    if keep is not None:
+        old = buf[layer, rows, :, slots]
+        val = torch.where(keep.reshape(*keep.shape, *([1] * (val.dim() - 2))),
+                          val, old)
+    buf[layer, rows, :, slots] = val
+
+
 def forward(
     params: Params,
     cfg: GPT2Config,
@@ -190,6 +203,7 @@ def forward(
     cache: Optional[KVCache] = None,
     positions: Optional[torch.Tensor] = None,
     kv_mask: Optional[torch.Tensor] = None,
+    write_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the transformer; returns (logits [B, T, V] float32, cache).
 
@@ -208,10 +222,22 @@ def forward(
                  to the slot indices. Out-of-range positions raise (PyTorch
                  indexing is bounds-checked).
     kv_mask    — [B, num_keys] validity of each key slot (False = padding).
+    write_mask — [B, T] which new keys/values are written (ragged offsets
+                 only): a False entry leaves the cache as it was, so a
+                 chunk's pad tail past a prompt's length or past the cache
+                 is dropped rather than clamped into real slots.
+
+    With `cache.rows` set (ragged offsets only), batch row i reads and
+    writes cache row `rows[i]`; attention then runs through the plain
+    `attend`/`attend_quant` over those rows, gathered.
     """
     b, t = input_ids.shape
     device = input_ids.device
     ragged = cache is not None and cache.lengths is not None
+    rows_sel = None if cache is None else cache.rows
+    if (rows_sel is not None or write_mask is not None) and not ragged:
+        raise ValueError("cache.rows and write_mask need per-row offsets "
+                         "(cache.lengths)")
     offset = 0 if cache is None or ragged else cache.length
     if cache is not None and not ragged and offset + t > cache.max_len:
         raise ValueError(
@@ -252,7 +278,7 @@ def forward(
                 f"cfg.quant_kv={cfg.quant_kv} but the cache is "
                 f"{'int8' if quant_kv else 'full precision'}"
             )
-        fused = cfg.fused_decode_attention and t == 1
+        fused = cfg.fused_decode_attention and t == 1 and rows_sel is None
         # Layer-invariant kernel inputs, built once per step: the mask as a
         # bias (not needed where per-row lengths say it all) and each row's
         # key count (its offset + 1).
@@ -263,7 +289,17 @@ def forward(
             if ragged:
                 lengths = (cache.lengths + 1).to(torch.int32)
         ck, cv, cks, cvs = cache.k, cache.v, cache.ks, cache.vs
-        rows = torch.arange(b, device=device)[:, None] if ragged else None
+        rows = slots = keep = None
+        if ragged:
+            rows = (torch.arange(b, device=device) if rows_sel is None
+                    else rows_sel)[:, None]
+            slots = q_slots
+            if write_mask is not None:
+                # Dropped entries are sent to the last slot and write back
+                # what is there, so no index leaves the cache.
+                keep = write_mask
+                slots = torch.where(keep, q_slots,
+                                    torch.full_like(q_slots, num_keys - 1))
         for i in range(cfg.num_layers):
 
             def attend_fn(q, k_new, v_new, layer=i):
@@ -275,11 +311,12 @@ def forward(
                 if ragged:
                     # Advanced indices [B, 1] rows x [B, T] slots land in
                     # front, as in JAX: values go in as [B, T, Hkv, Dh].
-                    ck[layer, rows, :, q_slots, :] = k_w.transpose(1, 2)
-                    cv[layer, rows, :, q_slots, :] = v_w.transpose(1, 2)
+                    news = [(ck, k_w), (cv, v_w)]
                     if quant_kv:
-                        cks[layer, rows, :, q_slots] = k_s.transpose(1, 2)
-                        cvs[layer, rows, :, q_slots] = v_s.transpose(1, 2)
+                        news += [(cks, k_s), (cvs, v_s)]
+                    for buf, val in news:
+                        _write_rows(buf, layer, rows, slots,
+                                    val.transpose(1, 2), keep)
                 else:
                     ck[layer, :, :, offset:offset + t] = k_w
                     cv[layer, :, :, offset:offset + t] = v_w
@@ -291,11 +328,16 @@ def forward(
                         q, ck, cv, layer, bias, lengths=lengths,
                         k_scale=cks, v_scale=cvs,
                     )
+                lk, lv = ck[layer], cv[layer]
+                lks = None if cks is None else cks[layer]
+                lvs = None if cvs is None else cvs[layer]
+                if rows_sel is not None:
+                    lk, lv = lk[rows_sel], lv[rows_sel]
+                    if quant_kv:
+                        lks, lvs = lks[rows_sel], lvs[rows_sel]
                 if quant_kv:
-                    return attend_quant(q, ck[layer], cks[layer], cv[layer],
-                                        cvs[layer], mask)
-                return attend(q, ck[layer].to(q.dtype), cv[layer].to(q.dtype),
-                              mask)
+                    return attend_quant(q, lk, lks, lv, lvs, mask)
+                return attend(q, lk.to(q.dtype), lv.to(q.dtype), mask)
 
             x = apply_block(x, layer_params(params, i), attend_fn, cfg)
         if ragged:

@@ -54,8 +54,9 @@ WARPS = 8                  # warps per block (csrc kThreads / 32)
 SMEM_LIMIT = 227 * 1024    # dynamic shared memory a block may use
 
 # Kernel launches by variant, incremented only where a kernel is launched
-# (never by the plain path). A run resets them, drives the main path, and
-# reads them to show the path went through the kernel.
+# (never by the plain path), and for each replay of a CUDA graph by the
+# launches captured into it (`engine/graphs.py`). A run resets them, drives
+# the main path, and reads them to show the path went through the kernel.
 launch_counts: Dict[str, int] = {KERNEL: 0, RAGGED: 0, INT8KV: 0}
 
 

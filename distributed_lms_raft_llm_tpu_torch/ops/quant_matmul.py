@@ -60,8 +60,9 @@ SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use
 ALIGN = 1024           # smem slack: the 128-byte swizzle repeats every 1 KB
 
 # Kernel launches, incremented only where a kernel is launched (never by the
-# plain path). A run resets them, drives the main path, and reads them to
-# show the path went through the kernels.
+# plain path), and for each replay of a CUDA graph by the launches captured
+# into it (`engine/graphs.py`). A run resets them, drives the main path, and
+# reads them to show the path went through the kernels.
 launch_counts: Dict[str, int] = {KERNEL: 0, MMA: 0, MMA_UNEMBED: 0, FMA: 0}
 
 

@@ -12,10 +12,12 @@ Run (on the card; ``--device cpu`` for a CPU run):
     python -m distributed_lms_raft_llm_tpu_torch.serving.tutoring_server \\
         [--port 50054] [--model gpt2] [--checkpoint model.safetensors ...]
 
-The production tutoring node (configs/cluster.toml) as far as the port
-carries it: ``--paged --quant int8 --kv-quant --slots 16 --chunk 16
---inflight 3``. ``--megastep``, ``--prefix-cache`` and
-``--prefill-chunk-tokens`` are refused until they are ported.
+The production tutoring node (configs/cluster.toml ``[tutoring]``, less
+speculative decoding): ``--paged --quant int8 --kv-quant --slots 16
+--chunk 16 --inflight 3 --megastep 4 --megastep-max 8 --prefix-cache
+--prefix-cache-blocks 512 --prefill-chunk-tokens 32``. On the card the
+paged engine's warmup captures its CUDA graphs before the server listens,
+so ``--no-warmup`` is refused with ``--paged`` there.
 
 `StreamLLMAnswer`, sessions, drain, health and telemetry come with a later
 slice; until then `StreamLLMAnswer` answers UNIMPLEMENTED.
@@ -54,7 +56,8 @@ from .prompts import PROMPT_TEMPLATE
 
 log = logging.getLogger("tutoring_server")
 
-__all__ = ["PROMPT_TEMPLATE", "TutoringService", "serve_async", "main"]
+__all__ = ["PROMPT_TEMPLATE", "TutoringService", "build_parser",
+           "engine_from_args", "serve_async", "main"]
 
 
 class TutoringService(rpc.TutoringServicer):
@@ -156,7 +159,7 @@ async def serve_async(port: int, engine, *,
     return server
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--port", type=int, default=50054)
     parser.add_argument("--model", default="gpt2",
@@ -184,7 +187,10 @@ def main(argv=None) -> None:
                         help="file holding the LMS<->tutoring shared "
                         "secret; when set, only queries signed by the LMS "
                         "leader are answered")
-    parser.add_argument("--no-warmup", action="store_true")
+    parser.add_argument("--no-warmup", action="store_true",
+                        help="serve without warmup (refused with --paged "
+                        "on the card: the paged engine captures its CUDA "
+                        "graphs in warmup)")
     parser.add_argument("--quant", default=None, choices=["int8"],
                         help="weight-only int8 (per-channel scales)")
     parser.add_argument("--kv-quant", action="store_true",
@@ -199,23 +205,32 @@ def main(argv=None) -> None:
     parser.add_argument("--inflight", type=int, default=2,
                         help="paged engine dispatches in flight (2 = "
                         "dispatch N+1 before reading N)")
-    # Options of the JAX server not ported yet: refused when set.
-    parser.add_argument("--megastep", type=int, default=1)
-    parser.add_argument("--prefix-cache", action="store_true")
-    parser.add_argument("--prefill-chunk-tokens", type=int, default=0)
-    args = parser.parse_args(argv)
-    unported = [flag for flag, on in (
-        ("--megastep", args.megastep > 1),
-        ("--prefix-cache", args.prefix_cache),
-        ("--prefill-chunk-tokens", args.prefill_chunk_tokens > 0),
-    ) if on]
-    if unported:
-        parser.error(f"not ported to PyTorch yet: {', '.join(unported)}")
+    parser.add_argument("--megastep", type=int, default=1,
+                        help="paged engine megastep: the controller's "
+                        "starting K, chunks run per host decision (CUDA "
+                        "graph replays on the card; 1 = the chunk loop)")
+    parser.add_argument("--megastep-max", type=int, default=0,
+                        help="megastep controller ceiling: K grows toward "
+                        "it while nothing waits, and is capped at the next "
+                        "guaranteed slot-free horizon under load (0 = "
+                        "follow --megastep)")
+    parser.add_argument("--prefix-cache", action="store_true",
+                        help="paged engine radix shared-prefix KV cache: "
+                        "prompts sharing a course context prefill it once")
+    parser.add_argument("--prefix-cache-blocks", type=int, default=512,
+                        help="shared-prefix cache block budget (16 tokens a "
+                        "block; LRU eviction, blocks live slots use are "
+                        "never freed)")
+    parser.add_argument("--prefill-chunk-tokens", type=int, default=0,
+                        help="paged engine fused stall-free admission: "
+                        "prompts are staged and prefilled this many tokens "
+                        "per megastep iteration, so admission never pauses "
+                        "decode (0 = sequential admission)")
+    return parser
 
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s",
-    )
+
+def engine_from_args(args: argparse.Namespace):
+    """The engine the parsed flags ask for, not yet warmed."""
     # bf16 weights and activations on the card; float32 on the CPU.
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     config = EngineConfig(
@@ -227,11 +242,36 @@ def main(argv=None) -> None:
         quant=args.quant, kv_quant=args.kv_quant,
     )
     if args.paged:
-        engine = PagedEngine(config, slots=args.slots or args.max_batch,
-                             chunk=args.chunk, inflight=args.inflight)
+        if args.no_warmup and torch.device(args.device).type == "cuda":
+            raise ValueError(
+                "--no-warmup with --paged on the card: the paged engine "
+                "captures its CUDA graphs in warmup, never while serving")
+        return PagedEngine(
+            config, slots=args.slots or args.max_batch, chunk=args.chunk,
+            inflight=args.inflight, megastep=args.megastep,
+            megastep_max=args.megastep_max, prefix_cache=args.prefix_cache,
+            prefix_cache_blocks=args.prefix_cache_blocks,
+            prefill_chunk_tokens=args.prefill_chunk_tokens)
+    for flag, on in (("--megastep", args.megastep > 1),
+                     ("--prefix-cache", args.prefix_cache),
+                     ("--prefill-chunk-tokens",
+                      args.prefill_chunk_tokens > 0)):
+        if on:
+            log.warning("%s applies to the paged engine only; ignored "
+                        "without --paged", flag)
+    return TutoringEngine(config)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+    )
+    engine = engine_from_args(args)
+    if isinstance(engine, PagedEngine):
         warm = engine.warmup
     else:
-        engine = TutoringEngine(config)
         warm = functools.partial(engine.warmup, batch=args.max_batch)
     if not args.no_warmup:
         log.info("warmup took %.1fs", warm())

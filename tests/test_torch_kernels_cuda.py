@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+the paged engine's CUDA graphs against its eager chunks.
 
 Marked `cuda`: each test skips where there is no NVIDIA GPU (the fixture
 decides, at run time). Imports no JAX, so it runs on a machine with only
@@ -199,12 +200,13 @@ def _int8_inputs(card, dtype, m, k, n, transposed, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("m", [1, 15, 16, 17, 100, 256])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 32, 100, 256])
 @pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
 def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
     """The weight-only int8 product against its plain version (the JAX
     expression) and against a float64 product, at decode (M = 1, 16),
-    partial row tiles (15, 17, 100) and prefill (256). float32, and the
+    partial row tiles (15, 17, 100), the fused admission chunk (32: one
+    64-row tile, half filled) and prefill (256). float32, and the
     float32 logits of the transposed layout: the summation order over K
     differs (bf16 x int8 products are exact in float32 on the tensor
     cores), rtol 1e-5 with atol 1e-5 of the output's scale. bf16 dense: the
@@ -254,3 +256,139 @@ def test_int8_matmul_is_deterministic(card, m, k, n, transposed):
     second = quant_matmul.int8_matmul(x, q, s, b, transposed=transposed)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# ------------------------------------- the paged engine's CUDA graphs
+
+GRAPH_PROMPTS = ["What is a binary search tree?", "How does Raft elect a "
+                 "leader?", "Explain recursion.", "What is a deadlock?",
+                 "Course notes: logs, terms and votes. Why a majority?",
+                 "Course notes: logs, terms and votes. What is a term?",
+                 "What is a binary search tree?", "k"]
+DEPLOYMENT = dict(megastep=4, megastep_max=8, prefix_cache=True,
+                  prefix_cache_blocks=512, prefill_chunk_tokens=32)
+
+
+def _paged(sampling, **kw):
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        PagedEngine,
+    )
+
+    cfg = EngineConfig(model="gpt2", dtype=torch.bfloat16,
+                       param_dtype=torch.bfloat16, quant="int8",
+                       kv_quant=True, sampling=sampling,
+                       length_buckets=(32, 64), device="cuda", seed=0)
+    return PagedEngine(cfg, slots=8, chunk=4, inflight=3, **kw)
+
+
+def _tokens(eng, prompts):
+    """Each request's generated token ids, in submit order."""
+    reqs = []
+    for p in prompts:
+        eng.submit(p)
+        reqs.append(eng._pending[-1])
+    eng.drain()
+    return [list(r.tokens) for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [dict(megastep=4, megastep_max=4),
+                                     DEPLOYMENT], ids=["k4", "deployment"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_megastep_replays_equal_the_eager_chunks(card, options, greedy):
+    """Graph replays of a megastep give the tokens that the same engine's
+    chunks give run eagerly, greedy and seeded-sampled (the generator is
+    registered with the graphs: each replay draws fresh numbers)."""
+    from distributed_lms_raft_llm_tpu_torch.engine import SamplingParams
+
+    sampling = (SamplingParams.greedy(max_new_tokens=16) if greedy
+                else SamplingParams.reference_defaults(max_new_tokens=16))
+    graphs = _paged(sampling, **options)
+    eager = _paged(sampling, cuda_graphs=False, **options)
+    assert graphs.cuda_graphs and not eager.cuda_graphs
+    graphs.warmup()
+    eager.warmup()
+    got = _tokens(graphs, GRAPH_PROMPTS)
+    assert graphs.graph_replays > 0
+    assert got == _tokens(eager, GRAPH_PROMPTS)
+    if not greedy:  # the replays did not repeat the captured noise
+        assert len({tuple(t) for t in got}) > 2
+
+
+@pytest.mark.cuda
+def test_replayed_launches_count_as_captured(card):
+    """The launch counters after N replays grow by N times what the graph
+    captured, and the capture itself adds nothing."""
+    from distributed_lms_raft_llm_tpu_torch.engine import SamplingParams
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+
+    eng = _paged(SamplingParams.greedy(max_new_tokens=16), **DEPLOYMENT)
+    eng.warmup()
+    decode, admission = eng._graphs[eng.widths[0]]
+    per_decode = decode.captured_launches()
+    assert per_decode[port_attention.INT8KV] == 12 * eng.chunk
+    assert per_decode[quant_matmul.MMA] == 48 * eng.chunk
+    assert per_decode[quant_matmul.MMA_UNEMBED] == eng.chunk
+    assert admission.captured_launches()[quant_matmul.KERNEL] == 49
+    before = {**port_attention.launch_counts, **quant_matmul.launch_counts}
+    for _ in range(3):
+        decode.replay()
+        admission.replay()
+    torch.cuda.synchronize()
+    after = {**port_attention.launch_counts, **quant_matmul.launch_counts}
+    want = {k: 3 * (per_decode.get(k, 0)
+                    + admission.captured_launches().get(k, 0))
+            for k in after}
+    assert {k: after[k] - before[k] for k in after} == want
+
+
+@pytest.mark.cuda
+def test_graph_kernel_nodes_equal_the_captured_counts(card):
+    """Each captured graph's kernel nodes, read back through the driver and
+    counted by function name, are the launches its counters re-add per
+    replay, route by route."""
+    from distributed_lms_raft_llm_tpu_torch.engine import SamplingParams
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        kernel_nodes, routes_of_counts, routes_of_names)
+
+    eng = _paged(SamplingParams.greedy(max_new_tokens=16), **DEPLOYMENT)
+    eng.warmup()
+    for decode, admission in eng._graphs.values():
+        for graph in (decode, admission):
+            nodes = routes_of_names(kernel_nodes(graph.graph))
+            assert nodes == routes_of_counts(graph.captured_launches())
+        assert routes_of_names(decode.kernels) == {
+            "decode_attention": 12 * eng.chunk,
+            "int8_matmul_mma": 48 * eng.chunk,
+            "int8_matmul_mma_unembed": eng.chunk, "int8_matmul_fma": 0}
+
+
+@pytest.mark.cuda
+def test_reset_keeps_the_planes_the_graphs_read(card):
+    """reset() and an idle width change zero the state planes in place: the
+    graphs keep reading them, and answers after a reset equal an eager
+    engine's."""
+    from distributed_lms_raft_llm_tpu_torch.engine import SamplingParams
+
+    sampling = SamplingParams.greedy(max_new_tokens=16)
+    eng = _paged(sampling, **DEPLOYMENT)
+    eng.warmup()
+
+    def pointers():
+        s = eng.state
+        return [x.data_ptr() for x in (
+            s.cache.k, s.cache.v, s.cache.ks, s.cache.vs, s.cache.lengths,
+            s.tok, s.active, s.seen, s.transcript, s.staged,
+            s.stage_cursor, s.stage_len, s.stage_seq, s.stage_noise)]
+
+    first = _tokens(eng, GRAPH_PROMPTS)
+    before = pointers()
+    eng.submit(GRAPH_PROMPTS[0])
+    eng.step()
+    eng.reset()
+    assert pointers() == before
+    assert _tokens(eng, GRAPH_PROMPTS[::-1]) == _tokens(
+        _paged(sampling, cuda_graphs=False, **DEPLOYMENT),
+        GRAPH_PROMPTS[::-1])
+    assert first and pointers() == before

@@ -144,7 +144,7 @@ def test_mid_decode_admission_completes_without_waiting():
     # wait for A's remaining decode.
     assert finished[b] <= MAX_NEW + 2
     stats = paged.pop_dispatch_stats()
-    assert stats[3] > 0  # B's prefill stalled A's decode train
+    assert stats[4] > 0  # B's prefill stalled A's decode train
 
 
 def test_pipelined_outputs_match_serialized():
@@ -287,7 +287,6 @@ def test_cancel_pending_and_backlog():
 
 
 @pytest.mark.parametrize("option", [
-    dict(megastep=4), dict(prefix_cache=True), dict(prefill_chunk_tokens=32),
     dict(config=dict(spec_tokens=2)), dict(config=dict(tp=2)),
     dict(config=dict(scoring=True)), dict(config=dict(ep=2)),
 ])
@@ -429,6 +428,47 @@ def test_server_serves_a_paged_engine_through_paged_queue():
 @pytest.mark.parametrize("flag", [["--megastep", "4"], ["--prefix-cache"],
                                   ["--prefill-chunk-tokens", "32"]])
 def test_server_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit) as exc:
-        tutoring_server.main(["--device", "cpu", "--paged", *flag])
-    assert exc.value.code == 2
+    """The three flags the server once refused now build a paged engine
+    with their option, served through `PagedQueue`."""
+    args = tutoring_server.build_parser().parse_args(
+        ["--device", "cpu", "--model", "tiny", "--paged", "--slots", "2",
+         "--max-new-tokens", "8", *flag])
+    engine = tutoring_server.engine_from_args(args)
+    assert isinstance(engine, PagedEngine)
+    assert (engine.megastep_max, engine.prefix_cache is not None,
+            engine.prefill_chunk) == {
+        "--megastep": (4, False, 0), "--prefix-cache": (1, True, 0),
+        "--prefill-chunk-tokens": (1, False, 9)}[flag[0]]
+
+    async def run():
+        server = await tutoring_server.serve_async(0, engine,
+                                                   host="127.0.0.1")
+        try:
+            assert isinstance(server._queue, PagedQueue)
+            return await server._service.GetLLMAnswer(
+                tutoring_server.lms_pb2.QueryRequest(query="what is raft?"),
+                None)
+        finally:
+            await server.stop(0)
+            await server._queue.close()
+
+    assert asyncio.run(run()).success
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_server_refuses_paged_without_warmup_on_the_card(device):
+    """On the card the paged engine serves through CUDA graphs captured in
+    warmup: skipping warmup there is refused before anything is built,
+    not answered with an eager engine."""
+    args = tutoring_server.build_parser().parse_args(
+        ["--device", device, "--model", "tiny", "--paged", "--no-warmup"])
+    with pytest.raises(ValueError, match="captures its CUDA graphs"):
+        tutoring_server.engine_from_args(args)
+
+
+def test_server_builds_paged_without_warmup_on_the_cpu():
+    args = tutoring_server.build_parser().parse_args(
+        ["--device", "cpu", "--model", "tiny", "--paged", "--no-warmup",
+         "--slots", "2", "--max-new-tokens", "8"])
+    engine = tutoring_server.engine_from_args(args)
+    assert isinstance(engine, PagedEngine) and not engine.cuda_graphs

@@ -376,7 +376,7 @@ GPT2_PRODUCTS = [(768, 2304, False), (768, 3072, False), (768, 768, False),
                  (3072, 768, False), (768, 50257, True)]
 
 
-@pytest.mark.parametrize("m", [1, 16, 256])
+@pytest.mark.parametrize("m", [1, 16, 32, 256])
 @pytest.mark.parametrize("k,n,transposed", GPT2_PRODUCTS)
 def test_launch_plan_invariants_at_gpt2_products(m, k, n, transposed):
     """What csrc relies on (valid_mma_plan) and what the design claims:
@@ -432,7 +432,7 @@ def test_launch_plan_worked_examples():
     assert plan(256, 768, 2304, False).grid == (18, 4, 2)
 
 
-@pytest.mark.parametrize("m", [1, 16, 256])
+@pytest.mark.parametrize("m", [1, 16, 32, 256])
 def test_launch_plan_ragged_vocab_edge_covers_every_row_once(m):
     """A table of 129 rows: tiles of 64, the last holding one row. Block
     b walks tiles b, b + grid, ..; every row is some block's exactly once."""
