@@ -61,8 +61,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    chunks are held against the cold prefill's and a float32 reference's),
    and bf16 graph replays at K=4 equal to the eager chunk loop, greedy and
    seeded-sampled;
-5. when `grpc` imports: one `GetLLMAnswer` round trip through the port's
-   tutoring server on 127.0.0.1.
+5. gRPC on 127.0.0.1 (`serve_async`), under a tokenizer that decodes each
+   of GPT-2's 50,257 ids to non-empty text (the given --vocab/--merges,
+   the trained BPE where data/gpt2-local is present, else a byte-level
+   vocabulary of that size built from the seed; the record names it), so
+   a dropped or wrong token shows in the answer: one `GetLLMAnswer` on the
+   bucketed engine equal to the engine's direct answer in text (non-empty)
+   and in generated tokens; then, on the deployment config of phase 4c,
+   8 concurrent `StreamLLMAnswer` calls and the same 8 queries over
+   `GetLLMAnswer`: each stream gap-free, equal to the unary answer and to
+   the engine's direct answer, its digest the sha256 of the stripped
+   answer, its token count the direct answer's; resumes at offset 2 and
+   at half the answer for two of them (exactly the token suffix, the same
+   digest); launches through the replays as in 4c; host dispatches per
+   token of the 8 prompts as watched streams at most 1.1x their unwatched
+   run's (both through a fresh `PagedQueue` that holds all 8 before it
+   starts, so the admissions match; the gRPC runs' ratios are reported);
+   then, on the same config at 8 new tokens, a session whose turn 2
+   (framed with FOLLOWUP_TEMPLATE over turn 1's transcript) admits with a
+   prefix hit of turn 1's whole blocks (`session_active` 1,
+   `session_pinned_blocks` > 0), and a drain (POST /admin/drain: both RPCs
+   UNAVAILABLE, /healthz draining; undrained, an answer again; /metrics
+   with stream_chunks, ttft, session_active); no CUDA graph captured
+   while serving.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -72,12 +93,13 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import importlib.util
+import hashlib
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -677,8 +699,39 @@ def profile_generate(torch, engine, prompts) -> dict:
     }
 
 
+def phase5_tokenizer(args, directory: Path) -> tuple:
+    """(vocab path, merges path, record) of phase 5's tokenizer, under
+    which a random-weight GPT-2's sampled ids show in the text: the given
+    --vocab/--merges, else the deployment's trained BPE where
+    data/gpt2-local is present, else a full byte-level vocabulary of
+    GPT-2's 50,257 ids built from the seed (the byte fallback would drop
+    every id >= 256 and leave empty answers to compare)."""
+    from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import (
+        BPETokenizer, full_byte_vocab)
+
+    local = REPO / "data" / "gpt2-local"
+    if args.vocab and args.merges:
+        vocab, merges, which = args.vocab, args.merges, "--vocab/--merges"
+    elif (local / "vocab.json").exists() and (local / "merges.txt").exists():
+        vocab, merges = str(local / "vocab.json"), str(local / "merges.txt")
+        which = "trained BPE, data/gpt2-local"
+    else:
+        vocab, merges = str(directory / "vocab.json"), str(
+            directory / "merges.txt")
+        Path(vocab).write_text(json.dumps(full_byte_vocab(50257, args.seed)))
+        Path(merges).write_text("#version: 0.2\n")
+        which = (f"full byte-level vocabulary from seed {args.seed} (no "
+                 f"merges)")
+    tok = BPETokenizer.from_files(vocab, merges)
+    nonempty = sum(1 for i in range(50257) if tok.decode([i]))
+    return vocab, merges, dict(tokenizer=which, vocab_size=tok.vocab_size,
+                               ids_decoding_nonempty=nonempty)
+
+
 def grpc_round_trip(engine, prompt_template) -> dict:
-    """One GetLLMAnswer through the port's server on 127.0.0.1."""
+    """One GetLLMAnswer through the port's server on 127.0.0.1, held to the
+    engine's direct answer: the same non-empty text and the same number of
+    generated tokens (a dropped or extra token changes either)."""
     import grpc
 
     from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2, rpc
@@ -687,6 +740,12 @@ def grpc_round_trip(engine, prompt_template) -> dict:
     )
 
     query = QUESTIONS[0]
+    tok = engine.tokenizer
+    ids, mask, _ = engine.encode_prompts([prompt_template.format(query=query)])
+    res = engine.generate_ids(ids, mask)
+    n = int(res.lengths[0])
+    toks = [t for t in res.tokens[0, :n].tolist() if t != tok.eos_id]
+    direct = tok.decode(toks).strip()
 
     async def go():
         server = await serve_async(0, engine, host="127.0.0.1",
@@ -704,13 +763,347 @@ def grpc_round_trip(engine, prompt_template) -> dict:
             await server.stop(1)
             await server._queue.close()
 
+    tok0 = engine.total_generated_tokens
     resp, trailer = asyncio.run(go())
-    direct = engine.answer_batch([prompt_template.format(query=query)])[0]
-    check(resp.success and resp.response == direct.strip(),
-          "gRPC GetLLMAnswer differs from the engine's direct answer")
+    served = engine.total_generated_tokens - tok0
+    check(resp.success and resp.response != "",
+          "gRPC GetLLMAnswer returned no answer text")
+    check(resp.response == direct and served == n,
+          f"gRPC GetLLMAnswer differs from the engine's direct answer "
+          f"({served} tokens served, {n} direct)")
+    # The comparison can fail: the direct answer less one token that
+    # decodes to text reads differently (under the byte-level vocabulary
+    # every id does; a trained vocabulary smaller than the model's leaves
+    # some ids empty, which the token count catches).
+    k = next((i for i, t in enumerate(toks) if tok.decode([t])), None)
+    check(k is not None
+          and tok.decode(toks[:k] + toks[k + 1:]) != tok.decode(toks),
+          "dropping a token leaves the answer's text unchanged")
     check(trailer.get("x-served-by") == "chip-smoke",
           "x-served-by trailer missing")
-    return {"success": resp.success, "chars": len(resp.response)}
+    return {"success": resp.success, "chars": len(resp.response),
+            "tokens": n}
+
+
+async def http_json(port: int, method: str, path: str, payload=None):
+    """(status, JSON body) of one request to a health plane."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = b"" if payload is None else json.dumps(payload).encode()
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                 f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    head, _, resp = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), json.loads(resp)
+
+
+def stream_contract(chunks, start: int = 0) -> str:
+    """Offsets monotone and gap-free from `start`, one final chunk, every
+    chunk a success; returns the assembled text."""
+    check(bool(chunks), "a stream yielded nothing")
+    delivered = start
+    for ch in chunks:
+        check(ch.success and ch.offset == delivered,
+              f"stream chunk at offset {ch.offset} after {delivered} "
+              f"delivered (success {ch.success})")
+        delivered += ch.count
+    check([c.final for c in chunks].count(True) == 1 and chunks[-1].final,
+          "a stream did not end in exactly one final chunk")
+    return "".join(c.text for c in chunks)
+
+
+def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
+                    sampling_cls, prod, vocab, merges) -> dict:
+    """Phase 5b: StreamLLMAnswer on the deployment config (phase 4c's) over
+    gRPC on 127.0.0.1, under phase 5's tokenizer (see the module
+    docstring)."""
+    import grpc
+
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedQueue, graphs
+    from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2, rpc
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        FOLLOWUP_TEMPLATE, PROMPT_TEMPLATE)
+    from distributed_lms_raft_llm_tpu_torch.serving.tutoring_server import (
+        serve_async)
+    from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+
+    deploy_kw = dict(slots=16, chunk=16, inflight=3, megastep=4,
+                     megastep_max=8, prefix_cache=True,
+                     prefix_cache_blocks=512, prefill_chunk_tokens=32)
+    conf = dict(prod, vocab_path=vocab, merges_path=merges)
+    eng = engine_cls(config_cls(
+        sampling=sampling_cls.greedy(max_new_tokens=128), **conf),
+        **deploy_kw)
+    cfg = eng.cfg
+    check(eng.cuda_graphs and eng.fused and cfg.quant_kv
+          and cfg.num_layers == 12 and cfg.hidden_size == 768
+          and cfg.vocab_size == 50257 and cfg.dtype == torch.bfloat16
+          and eng.widths == [160, 192, 256, 384],
+          f"streaming: not the deployment configuration: {cfg}")
+    warm_s = eng.warmup()
+    tok = eng.tokenizer
+    queries = list(QUESTIONS)
+    prompts = [PROMPT_TEMPLATE.format(query=q) for q in queries]
+    # The engine's direct answers (no server), token ids included.
+    rids = [eng.submit(p) for p in prompts]
+    for rid in rids:
+        eng.stream_watch(rid)
+    eng.drain()
+    finals = eng.pop_final_tokens()
+    direct = [finals[r] for r in rids]
+    check(all(direct), "streaming: an empty direct answer")
+    captures0 = graphs.captures
+
+    async def serve(body, **kw):
+        server = await serve_async(0, eng, host="127.0.0.1",
+                                   node_id="chip-smoke-stream", **kw)
+        try:
+            async with grpc.aio.insecure_channel(
+                    f"127.0.0.1:{server._port}") as channel:
+                return await body(rpc.TutoringStub(channel), server)
+        finally:
+            await server.stop(1)
+            await server._queue.close()
+
+    def gauge(server, name):
+        return server._queue.metrics.snapshot()["gauges"].get(name)
+
+    async def unary_run(stub, server):
+        t0 = time.monotonic()
+        resps = await asyncio.gather(*[stub.GetLLMAnswer(
+            lms_pb2.QueryRequest(query=q), timeout=300) for q in queries])
+        return (resps, time.monotonic() - t0,
+                gauge(server, "host_dispatches_per_token"))
+
+    async def one_stream(stub, query, **kw):
+        t0 = time.monotonic()
+        chunks, first = [], None
+        async for ch in stub.StreamLLMAnswer(
+                lms_pb2.StreamRequest(query=query, **kw), timeout=300):
+            if first is None:
+                first = time.monotonic() - t0
+            chunks.append(ch)
+        return chunks, first
+
+    async def stream_run(stub, server):
+        t0 = time.monotonic()
+        streams = await asyncio.gather(*[one_stream(stub, q)
+                                         for q in queries])
+        wall = time.monotonic() - t0
+        hdpt = gauge(server, "host_dispatches_per_token")
+        snap = server._queue.metrics.snapshot()
+        resumed = []
+        for i in (0, 3):
+            n = len(direct[i])
+            for k in (2, n // 2):
+                chunks, _ = await one_stream(stub, queries[i],
+                                             resume_offset=k)
+                resumed.append((i, k, chunks))
+        return streams, wall, hdpt, snap, resumed
+
+    async def queue_run(watched):
+        """The 8 prompts through a fresh PagedQueue, all in its inbox
+        before its runner starts (the same admissions either way), as
+        watched streams or as plain submissions: the queue's host
+        dispatches per generated token."""
+        eng.reset()  # the megastep controller's K back to its start
+        eng.pop_dispatch_stats()  # counts left by earlier work
+        metrics = Metrics()
+        queue = PagedQueue(eng, metrics=metrics)
+
+        async def consume(prompt):
+            return [d async for d in queue.submit_stream(prompt)][-1]
+
+        tasks = [asyncio.ensure_future(consume(p) if watched
+                                       else queue.submit(p))
+                 for p in prompts]
+        await asyncio.sleep(0)
+        decisions0, tokens0 = eng.host_decisions, eng.total_generated_tokens
+        await queue.start()
+        try:
+            await asyncio.gather(*tasks)
+        finally:
+            await queue.close()
+        return (metrics.snapshot()["gauges"]["host_dispatches_per_token"],
+                (eng.host_decisions - decisions0)
+                / (eng.total_generated_tokens - tokens0))
+
+    hdpt_unwatched, decisions_unwatched = asyncio.run(queue_run(False))
+    hdpt_watched, decisions_watched = asyncio.run(queue_run(True))
+    eng.reset()
+    eng.pop_dispatch_stats()
+    resps, unary_wall, hdpt_unwatched_grpc = asyncio.run(serve(unary_run))
+    eng.reset()
+    eng.pop_dispatch_stats()
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
+    streams, stream_wall, hdpt_watched_grpc, snap, resumed = asyncio.run(
+        serve(stream_run))
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    decode_calls = eng.decode_steps - c0[0]
+    model_calls = decode_calls + eng.admission_chunks - c0[1] + (
+        eng.prefill_calls - c0[2])
+    for i, ((chunks, _), resp) in enumerate(zip(streams, resps)):
+        text = tok.decode(direct[i])
+        full = stream_contract(chunks)
+        check(resp.success and resp.response and full.strip()
+              == resp.response == text.strip(),
+              f"streaming: stream {i} != unary != direct answer")
+        check(chunks[-1].offset + chunks[-1].count == len(direct[i]),
+              f"streaming: stream {i} counted "
+              f"{chunks[-1].offset + chunks[-1].count} tokens, the direct "
+              f"answer {len(direct[i])}")
+        check(chunks[-1].digest == hashlib.sha256(
+            full.strip().encode()).hexdigest(),
+            f"streaming: stream {i}'s digest is not the answer's sha256")
+    for i, k, chunks in resumed:
+        tail = stream_contract(chunks, start=k)
+        want = tok.decode(direct[i])
+        check(tail == want[len(tok.decode(direct[i][:k])):]
+              and chunks[-1].digest == streams[i][0][-1].digest,
+              f"streaming: resume of stream {i} at {k} is not the token "
+              f"suffix under the same digest")
+    check(decode_calls > 0
+          and launches[attention.INT8KV] == cfg.num_layers * decode_calls
+          and launches[quant_matmul.KERNEL] == 49 * model_calls
+          and launches[quant_matmul.MMA_UNEMBED] == model_calls,
+          f"streaming: kernel launches {launches} for {decode_calls} decode "
+          f"and {model_calls} model calls")
+    check(hdpt_watched <= 1.1 * hdpt_unwatched,
+          f"streaming: host dispatches per token {hdpt_watched} watched, "
+          f"{hdpt_unwatched} unwatched")
+    chunk_counts = [len(c) for c, _ in streams]
+    ttfts = [f for _, f in streams]
+    run = dict(
+        tokens=sum(len(d) for d in direct), warmup_s=warm_s,
+        unary_wall_s=unary_wall, stream_wall_s=stream_wall,
+        stream_ttft_s=ttfts, stream_ttft_mean_s=sum(ttfts) / len(ttfts),
+        engine_ttft_mean_s=snap["latency"]["ttft"]["mean_s"],
+        chunks_per_answer=chunk_counts,
+        chunks_per_answer_mean=sum(chunk_counts) / len(chunk_counts),
+        first_chunk_tokens=[c[0].count for c, _ in streams],
+        host_dispatches_per_token_watched=hdpt_watched,
+        host_dispatches_per_token_unwatched=hdpt_unwatched,
+        host_decisions_per_token_watched=decisions_watched,
+        host_decisions_per_token_unwatched=decisions_unwatched,
+        host_dispatches_per_token_grpc_streams=hdpt_watched_grpc,
+        host_dispatches_per_token_grpc_unary=hdpt_unwatched_grpc,
+        resumes=[(i, k, len(c)) for i, k, c in resumed],
+        decode_model_calls=decode_calls, model_calls=model_calls,
+        launches=launches)
+    del eng
+    torch.cuda.empty_cache()
+
+    # A session on the same config at 8 new tokens: turn 2's prompt holds
+    # turn 1's answer as text, which the byte-level vocabulary re-encodes
+    # into about six ids a token (random bytes, invalid UTF-8 replaced);
+    # a 128-token answer would overflow the 256-id prompt bucket, whose
+    # tail is kept, and lose turn 1's head.
+    seng = engine_cls(config_cls(
+        sampling=sampling_cls.greedy(max_new_tokens=8), **conf), **deploy_kw)
+    seng.warmup()
+    captures1 = graphs.captures
+    q1, q2 = QUESTIONS[1], "Why does that matter?"
+
+    async def session_and_drain(stub, server):
+        hport = server._health.port
+        one, _ = await one_stream(stub, q1, session_id="chip-smoke")
+        full1 = stream_contract(one)
+        hits0 = (await http_json(hport, "GET", "/metrics"))[1][
+            "counters"].get("prefix_cache_hit_tokens", 0)
+        two, _ = await one_stream(stub, q2, session_id="chip-smoke")
+        stream_contract(two)
+        metrics = (await http_json(hport, "GET", "/metrics"))[1]
+        transcript = server._service._sessions["chip-smoke"][0]
+        drained = await http_json(hport, "POST", "/admin/drain",
+                                  {"drain": True})
+        health = (await http_json(hport, "GET", "/healthz"))[1]
+        codes = []
+        for call in (lambda: stub.GetLLMAnswer(
+                         lms_pb2.QueryRequest(query=q1), timeout=60),
+                     lambda: stub.StreamLLMAnswer(
+                         lms_pb2.StreamRequest(query=q1), timeout=60).read()):
+            try:
+                await call()
+                codes.append("OK")
+            except grpc.aio.AioRpcError as e:
+                codes.append(e.code().name)
+        await http_json(hport, "POST", "/admin/drain", {"drain": False})
+        again = await stub.GetLLMAnswer(lms_pb2.QueryRequest(query=q1),
+                                        timeout=300)
+        final_metrics = (await http_json(hport, "GET", "/metrics"))[1]
+        return (full1, hits0, metrics, transcript, drained, health, codes,
+                again, final_metrics)
+
+    (full1, hits0, metrics, transcript, drained, health, codes, again,
+     final_metrics) = asyncio.run(serve_session(serve_async, seng,
+                                                session_and_drain))
+    prompt1 = PROMPT_TEMPLATE.format(query=q1)
+    prompt2 = prompt1 + full1 + FOLLOWUP_TEMPLATE.format(query=q2)
+    ids1, ids2 = tok.encode(prompt1), tok.encode(prompt2)
+    check(len(ids2) <= seng.bucket,
+          f"session: turn 2's prompt ({len(ids2)} ids) overflows the "
+          f"{seng.bucket}-id bucket")
+    blk = seng.prefix_cache.block_tokens
+    want_hits = len(os.path.commonprefix([ids1, ids2])) // blk * blk
+    hits = metrics["counters"].get("prefix_cache_hit_tokens", 0) - hits0
+    gauges = metrics["gauges"]
+    check(transcript.startswith(prompt2),
+          "session: turn 2 was not framed over turn 1's transcript")
+    check(want_hits > 0 and hits >= want_hits,
+          f"session: turn 2 admitted with {hits} prefix-hit tokens, turn "
+          f"1's whole blocks are {want_hits}")
+    check(gauges.get("session_active") == 1.0
+          and gauges.get("session_pinned_blocks", 0) > 0,
+          f"session: gauges {gauges}")
+    check(drained[0] == 200 and drained[1]["draining"] is True
+          and health["draining"] is True
+          and codes == ["UNAVAILABLE", "UNAVAILABLE"],
+          f"drain: {drained}, healthz {health}, RPC codes {codes}")
+    check(again.success and again.response != "",
+          "drain: no answer after the drain ended")
+    check(final_metrics["counters"].get("stream_chunks", 0) > 0
+          and "ttft" in final_metrics["latency"]
+          and "session_active" in final_metrics["gauges"],
+          f"/metrics lacks stream_chunks, ttft or session_active: "
+          f"{sorted(final_metrics['counters'])}")
+    check(graphs.captures == captures1 and captures1 - captures0
+          == len(seng._graphs) * 2,
+          f"streaming: CUDA graphs captured while serving "
+          f"({graphs.captures} captures)")
+    run.update(
+        session=dict(turn2_prefix_hit_tokens=hits,
+                     turn1_whole_block_tokens=want_hits,
+                     turn2_prompt_ids=len(ids2),
+                     session_active=gauges.get("session_active"),
+                     session_pinned_blocks=gauges.get(
+                         "session_pinned_blocks")),
+        drain=dict(rpc_codes=codes, healthz_draining=health["draining"],
+                   answered_after=again.success),
+        graph_captures_while_serving=graphs.captures - captures1)
+    del seng
+    torch.cuda.empty_cache()
+    return run
+
+
+async def serve_session(serve_async, engine, body):
+    """`body(stub, server)` against a server with its health plane."""
+    import grpc
+
+    from distributed_lms_raft_llm_tpu_torch.proto import rpc
+
+    server = await serve_async(0, engine, host="127.0.0.1", metrics_port=0,
+                               node_id="chip-smoke-session")
+    try:
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{server._port}") as channel:
+            return await body(rpc.TutoringStub(channel), server)
+    finally:
+        await server.stop(1)
+        await server._queue.close()
 
 
 def flip_logits_witness(torch, eng, prompts, factor=2.0) -> dict:
@@ -1345,14 +1738,26 @@ def main(argv=None) -> int:
         records["production_drain"])
     deploy_launches = records["deployment"]["launches"]
 
-    # 5. gRPC round trip, when grpc is installed.
-    have_grpc = all(importlib.util.find_spec(m) is not None
-                    for m in ("grpc", "google.protobuf"))
-    print(f"grpc_phase: {'ran' if have_grpc else 'skipped (grpc not importable)'}",
-          flush=True)
-    if have_grpc:
-        records["grpc"] = grpc_round_trip(greedy_eng, PROMPT_TEMPLATE)
+    # 5. gRPC: the repaired unary round trip, then streaming, sessions and
+    # drain on the deployment config, under a tokenizer that decodes every
+    # sampled id.
+    del greedy_eng, sampled_eng
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab, merges, tok_record = phase5_tokenizer(args, Path(tmp))
+        emit("phase5_tokenizer", **tok_record)
+        unary_eng = TutoringEngine(EngineConfig(
+            sampling=SamplingParams.greedy(max_new_tokens=32),
+            **dict(common, vocab_path=vocab, merges_path=merges)))
+        unary_eng.warmup(batch=1)
+        records["grpc"] = dict(grpc_round_trip(unary_eng, PROMPT_TEMPLATE),
+                               **tok_record)
         emit("grpc", **records["grpc"])
+        del unary_eng
+        records["streaming"] = streaming_phase(
+            torch, attention, quant_matmul, PagedEngine, EngineConfig,
+            SamplingParams, prod, vocab, merges)
+    emit("streaming", **records["streaming"])
 
     records["seconds"] = time.monotonic() - t_start
     def paged_case(int8):  # the production step's shape: 16 slots, width 384

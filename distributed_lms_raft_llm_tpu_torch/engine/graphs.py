@@ -64,6 +64,10 @@ def routes_of_names(names: Dict[str, int]) -> Dict[str, int]:
             for route, (_, fns) in ROUTES.items()}
 
 
+# Graphs captured in this process (a server captures only in warmup).
+captures = 0
+
+
 def _snapshot() -> List[Dict[str, int]]:
     return [dict(c) for c in _COUNTERS]
 
@@ -166,6 +170,8 @@ class ChunkGraph:
             {k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
             for a, b in zip(after, before)]
         self.graph.instantiate()
+        global captures
+        captures += 1
         self.kernels = kernel_nodes(self.graph)
         counted = routes_of_counts(self.captured_launches())
         on_device = routes_of_names(self.kernels)

@@ -67,10 +67,15 @@ What differs from the JAX package, by design:
   int8 cache. The JAX engine refuses `fused_attention` only because its
   Pallas kernel lacks ragged offsets.
 
+Streaming and sessions, as in the JAX package: a watched request's token
+list is read between steps from the host lists the reap already fills
+(`stream_snapshot`, no device work), its final tokens are kept at its reap
+(`pop_final_tokens`); a session turn (`mark_session`) publishes its whole
+transcript into the radix tree at its reap, while the slot's pages still
+hold its KV, and pins it with the session's TTL.
+
 Options of the JAX engine not ported yet raise `NotImplementedError` at
-construction: speculative decoding, tp/ep/sp and the scoring tenant; the
-serving queue offers no streaming or sessions yet (the prefix cache's
-session pins are there for them).
+construction: speculative decoding, tp/ep/sp and the scoring tenant.
 """
 
 from __future__ import annotations
@@ -655,6 +660,16 @@ class PagedEngine:
         # at the flip's reap, when `tokens` already holds the answer).
         self._staged_prompts: Dict[int, List[int]] = {}
         self._stage_seq = 0
+        # Streaming: watched rids keep their final (eos-filtered) token
+        # list at the reap, for pop_final_tokens().
+        self._stream_watch: set = set()
+        self._final_tokens: Dict[int, List[int]] = {}
+        # Session turns: rid -> (session id, pin TTL, prompt ids), set by
+        # mark_session() and consumed at the finish reap.
+        self._session_reqs: Dict[int, Tuple[str, float, List[int]]] = {}
+        # rid -> seconds from submit() to its admission (the queue.wait
+        # span's true length), drained by pop_queue_waits().
+        self._queue_waits: Dict[int, float] = {}
 
     _PROG_TIMES_MAX = 4096
 
@@ -711,6 +726,12 @@ class PagedEngine:
         out, self._prog_times = self._prog_times, []
         return out
 
+    def pop_queue_waits(self) -> Dict[int, float]:
+        """Drain rid -> seconds spent pending before its admission (the
+        `queue.wait` stage of a trace)."""
+        out, self._queue_waits = self._queue_waits, {}
+        return out
+
     @property
     def kv_bytes_total(self) -> int:
         """Logical bytes of the live slot KV working set (k/v plus the
@@ -749,6 +770,23 @@ class PagedEngine:
         self._pending.append(req)
         return req.rid
 
+    def mark_session(self, rid: int, session_id: str, ttl_s: float) -> bool:
+        """Tag a just-submitted request as a tutoring-session turn: at its
+        finish its whole transcript (prompt + generated tokens, eos
+        excluded) is published into the radix tree and session-pinned for
+        `ttl_s`, so the next turn, whose prompt extends this transcript,
+        admits with a shared-prefix hit. Only while the request is still
+        pending (its `tokens` still hold the prompt); no-op without a
+        prefix cache."""
+        if self.prefix_cache is None:
+            return False
+        for req in self._pending:
+            if req.rid == rid:
+                self._session_reqs[rid] = (session_id, float(ttl_s),
+                                           list(req.tokens))
+                return True
+        return False
+
     @property
     def backlog(self) -> int:
         """Requests submitted but not yet admitted to a decode slot (their
@@ -762,6 +800,8 @@ class PagedEngine:
         for i, req in enumerate(self._pending):
             if req.rid == rid:
                 del self._pending[i]
+                self._session_reqs.pop(rid, None)
+                self._stream_watch.discard(rid)
                 return True
         return False
 
@@ -811,6 +851,7 @@ class PagedEngine:
         # The warmup drain is not serving traffic.
         self.pop_dispatch_stats()
         self.pop_program_times()
+        self.pop_queue_waits()
         self.megastep_k = self._megastep_initial
         self.generator.manual_seed(self.config.seed)
         return time.monotonic() - t0
@@ -841,9 +882,49 @@ class PagedEngine:
         out, self.ttfts = self.ttfts, {}
         return out
 
+    def stream_watch(self, rid: int) -> None:
+        """Mark `rid` as streamed: its final token list is kept at the reap
+        for pop_final_tokens(). Idempotent."""
+        self._stream_watch.add(rid)
+
+    def stream_unwatch(self, rid: int) -> None:
+        self._stream_watch.discard(rid)
+        self._final_tokens.pop(rid, None)
+
+    def stream_snapshot(self, rids) -> Dict[int, List[int]]:
+        """The incremental token channel: for each requested rid live in a
+        slot (flipped, not finished), a copy of its generated-so-far token
+        list with eos filtered, the view decode() renders at the finish.
+        Reads the host lists the reap fills: no device work. Called
+        between steps, never concurrently with step()."""
+        want = set(rids)
+        out: Dict[int, List[int]] = {}
+        if not want:
+            return out
+        eos = self.tokenizer.eos_id
+        for req in self._slot_req:
+            if req is None or req.finished or not req.live:
+                continue
+            if req.rid in want:
+                out[req.rid] = [t for t in req.tokens if t != eos]
+        return out
+
     def decode_tokens(self, tokens) -> str:
-        """Decode a generated-token list (eos included or not) to text."""
+        """Decode a generated-token prefix (stream offsets count these
+        tokens; a resume at offset K skips len(decode(tokens[:K]))
+        characters)."""
         return self.tokenizer.decode(list(tokens))
+
+    def decode_complete(self, tokens) -> str:
+        """decode_tokens() less a trailing incomplete UTF-8 character: a
+        stream delivers a token prefix only when the two agree."""
+        return self.tokenizer.decode_complete(list(tokens))
+
+    def pop_final_tokens(self) -> Dict[int, List[int]]:
+        """Drain the final (eos-filtered) token lists of watched requests
+        that finished since the last call."""
+        out, self._final_tokens = self._final_tokens, {}
+        return out
 
     def reset(self) -> None:
         """Discard all in-flight work and rebuild a clean slot state (in
@@ -859,7 +940,11 @@ class PagedEngine:
         self._pending = []
         self._inflight = []
         self.ttfts = {}
+        self._stream_watch = set()
+        self._final_tokens = {}
+        self._session_reqs = {}
         self._prog_times = []
+        self._queue_waits = {}
         self._staged_prompts = {}
         self.megastep_k = self._megastep_initial
         if self.prefix_cache is not None:
@@ -888,6 +973,8 @@ class PagedEngine:
         """Take the oldest pending request: pick its prompt bucket and
         required cache width, and build its right-padded [1, bucket] ids."""
         req = self._pending.pop(0)
+        self._queue_waits[req.rid] = time.monotonic() - req.submit_time
+        self._shed_oldest(self._queue_waits)
         bucket = min(
             pick_bucket(req.prompt_len, self.config.length_buckets),
             self.bucket,
@@ -1079,6 +1166,59 @@ class PagedEngine:
         tokens = self._staged_prompts.pop(req.rid, None)
         if tokens is not None:
             self._publish(tokens, req.prompt_len, slot)
+
+    def _publish_session(self, req: _Request, slot: int) -> None:
+        """A session turn's finish-reap publish: the slot's pages hold the
+        KV of the prompt and of every generated token fed back (all but the
+        last sampled one), so the block export that publishes prompts
+        publishes the whole transcript. The path is then session-pinned
+        with the turn's TTL; the same insert-then-evict policy as prompt
+        publishes."""
+        entry = self._session_reqs.pop(req.rid, None)
+        pc = self.prefix_cache
+        if entry is None or pc is None:
+            return
+        session_id, ttl_s, prompt_toks = entry
+        eos = self.tokenizer.eos_id
+        gen: List[int] = []
+        for t in req.tokens:
+            if t == eos:
+                break
+            gen.append(t)
+        full = prompt_toks + gen
+        # KV exists only for fed positions: the last sampled token (and
+        # any eos) never went back into the model.
+        safe = min(len(full), req.prompt_len + len(req.tokens) - 1)
+        blk_t = pc.block_tokens
+        n = (safe // blk_t) * blk_t
+        if n <= 0:
+            return
+        t0, t0u = time.monotonic(), time.time()
+        added = pc.insert(
+            full[:n],
+            lambda i: _export_block_program(self._kv, i * blk_t, slot,
+                                            block=blk_t))
+        if added:
+            self._dispatches += added - 1
+            self._time_prog("export_block", t0, t0u)
+        pc.pin_session(session_id, full[:n], ttl_s)
+        self._prefix_evictions += pc.evict_to_budget()
+
+    def release_session(self, session_id: str) -> bool:
+        """Drop a session's transcript pin (the session closed)."""
+        if self.prefix_cache is None:
+            return False
+        return self.prefix_cache.release_session(session_id)
+
+    def session_pin_stats(self) -> Optional[Tuple[int, int]]:
+        """(live pinned sessions, blocks their paths hold resident) for the
+        session gauges; None without a prefix cache. Expires lapsed pins
+        first, so the gauge never counts dead sessions."""
+        pc = self.prefix_cache
+        if pc is None:
+            return None
+        pc.expire_sessions()
+        return pc.session_count, pc.session_pinned_blocks()
 
     def _required_width(self, prompt_len: int) -> int:
         bucket = min(
@@ -1325,10 +1465,18 @@ class PagedEngine:
                 if pin is not None and self.prefix_cache is not None:
                     # The slot no longer reads shared blocks.
                     self.prefix_cache.release(pin)
+                if (req.rid in self._session_reqs
+                        and self._slot_req[slot] is req):
+                    # A session turn: publish and pin the whole transcript
+                    # while the slot's pages still hold its KV.
+                    self._publish_session(req, slot)
+                self._session_reqs.pop(req.rid, None)
                 self.total_generated_tokens += len(req.tokens)
-                text = self.tokenizer.decode(
-                    [t for t in req.tokens if t != eos]
-                )
+                final = [t for t in req.tokens if t != eos]
+                text = self.tokenizer.decode(final)
+                if req.rid in self._stream_watch:
+                    self._final_tokens[req.rid] = final
+                    self._stream_watch.discard(req.rid)
                 done.append((req.rid, text))
                 if self._slot_req[slot] is req:
                     self._slot_req[slot] = None

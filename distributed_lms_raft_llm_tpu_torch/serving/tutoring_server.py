@@ -1,11 +1,20 @@
-"""Tutoring server: `Tutoring.GetLLMAnswer` on the PyTorch engine.
+"""Tutoring server: `Tutoring.GetLLMAnswer` and `StreamLLMAnswer` on the
+PyTorch engine.
 
-Port of the unary path of `distributed_lms_raft_llm_tpu/serving/
-tutoring_server.py`. It speaks the frozen `lms.proto`, so the JAX
-package's LMS forwards to it unchanged. Concurrent RPCs coalesce in
-`BatchingQueue` into device batches of the bucketed `TutoringEngine`, or,
-with ``--paged``, join the running batch of the continuous-batching
-`PagedEngine` through `PagedQueue`.
+Port of `distributed_lms_raft_llm_tpu/serving/tutoring_server.py`. It
+speaks the frozen `lms.proto`, so the JAX package's LMS and its
+`TutoringPool` forward to it unchanged, beside JAX tutoring nodes.
+Concurrent RPCs coalesce in `BatchingQueue` into device batches of the
+bucketed `TutoringEngine`, or, with ``--paged``, join the running batch of
+the continuous-batching `PagedEngine` through `PagedQueue`.
+
+`StreamLLMAnswer` keeps the resumable-stream contract (token offsets,
+`resume_offset`, the sha256 digest of the stripped answer on the final
+chunk) and tutoring sessions (`session_id`: turn N+1 extends turn N's
+transcript, whose KV the paged engine's prefix cache keeps pinned).
+With ``--metrics-port`` the node serves `/healthz`, `/metrics`,
+`/metrics.prom`, ``POST /admin/drain`` and ``GET /admin/trace[/<id>]``;
+every RPC continues the caller's `x-trace-context`.
 
 Run (on the card; ``--device cpu`` for a CPU run):
 
@@ -19,8 +28,9 @@ speculative decoding): ``--paged --quant int8 --kv-quant --slots 16
 paged engine's warmup captures its CUDA graphs before the server listens,
 so ``--no-warmup`` is refused with ``--paged`` there.
 
-`StreamLLMAnswer`, sessions, drain, health and telemetry come with a later
-slice; until then `StreamLLMAnswer` answers UNIMPLEMENTED.
+Not ported yet, and so refused as unknown flags: the scoring tenant
+(``--scoring``; ``/admin/score`` answers 404, as on a JAX node without a
+scorer), the telemetry timeline, speculative decoding, tp/ep.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ from __future__ import annotations
 import argparse
 import asyncio
 import functools
+import hashlib
 import logging
-from typing import Optional
+import time
+from typing import Dict, Optional, Tuple
 
 import grpc
 import torch
@@ -44,6 +56,7 @@ from ..engine import (
 )
 from ..proto import lms_pb2, rpc
 from ..utils import auth
+from ..utils.healthz import HealthServer
 from ..utils.metrics import Metrics
 from ..utils.resilience import (
     QUEUE_DEPTH_METADATA_KEY,
@@ -52,33 +65,100 @@ from ..utils.resilience import (
     DeadlineExpired,
     Overloaded,
 )
-from .prompts import PROMPT_TEMPLATE
+from ..utils.tracing import get_tracer, trace_admin_get, traced_grpc_handler
+from .prompts import FOLLOWUP_TEMPLATE, PROMPT_TEMPLATE
 
 log = logging.getLogger("tutoring_server")
 
-__all__ = ["PROMPT_TEMPLATE", "TutoringService", "build_parser",
-           "engine_from_args", "serve_async", "main"]
+__all__ = ["FOLLOWUP_TEMPLATE", "PROMPT_TEMPLATE", "TutoringService",
+           "build_parser", "engine_from_args", "make_tutoring_admin",
+           "make_tutoring_health", "serve_async", "main"]
+
+DRAINING = "draining: this tutoring node is not admitting new work"
 
 
 class TutoringService(rpc.TutoringServicer):
     def __init__(self, queue, metrics: Metrics,
                  auth_key: Optional[str] = None,
-                 node_id: Optional[str] = None):
+                 node_id: Optional[str] = None,
+                 session_ttl_s: float = 600.0,
+                 session_max: int = 256):
         self.queue = queue
         self.metrics = metrics
         self.auth_key = auth_key
         # Fleet identity: rides every answer's trailing metadata.
         self.node_id = node_id
+        self.draining = False
+        # Tutoring sessions: session_id -> (transcript, expiry). The
+        # transcript is the byte-exact prompt + answer of every turn served
+        # HERE, so turn N+1's prompt extends it verbatim and the prefix
+        # cache splices turn N's KV. Node-local: a session that lands on
+        # another node restarts its transcript there and loses only cache
+        # warmth, never correctness.
+        self.session_ttl_s = float(session_ttl_s)
+        self.session_max = int(session_max)
+        self._sessions: Dict[str, Tuple[str, float]] = {}  # event loop only
 
-    async def GetLLMAnswer(self, request, context):
-        self.metrics.inc("llm_requests")
-        # Trailing metadata is buffered until the RPC completes. Direct
-        # servicer-level callers pass context=None.
+    def set_draining(self, draining: bool) -> None:
+        """POST /admin/drain: stop admitting new queries while in-flight
+        work finishes. The fleet router reads `draining` on /healthz (or
+        the UNAVAILABLE refusal) and takes the node out of its ring."""
+        self.draining = bool(draining)
+        self.metrics.set_gauge("tutoring_draining",
+                               1.0 if self.draining else 0.0)
+        log.info("tutoring node %s %s", self.node_id or "(unnamed)",
+                 "draining: admission stopped" if self.draining
+                 else "drain ended: admitting again")
+
+    def _session_transcript(self, session_id: str) -> str:
+        """Live transcript of `session_id` ('' = new or expired)."""
+        entry = self._sessions.get(session_id)
+        if entry is None:
+            return ""
+        text, expiry = entry
+        if time.monotonic() >= expiry:
+            self._drop_session(session_id)
+            return ""
+        return text
+
+    def _session_update(self, session_id: str, transcript: str) -> None:
+        """Record the turn's prompt + answer, refresh the TTL, and hold the
+        cap (the soonest-expiring sessions go first, their prefix pins
+        released back to plain LRU)."""
+        self._sessions[session_id] = (transcript,
+                                      time.monotonic() + self.session_ttl_s)
+        while self.session_max and len(self._sessions) > self.session_max:
+            oldest = min(self._sessions, key=lambda s: self._sessions[s][1])
+            self._drop_session(oldest)
+        self.metrics.set_gauge("session_active", float(len(self._sessions)))
+
+    def _drop_session(self, session_id: str) -> None:
+        self._sessions.pop(session_id, None)
+        release = getattr(getattr(self.queue, "engine", None),
+                          "release_session", None)
+        if release is not None:
+            release(session_id)
+        self.metrics.set_gauge("session_active", float(len(self._sessions)))
+
+    def _trailer(self, context) -> None:
+        """Who served the answer, and the live queue depth (a passive load
+        signal for the router). Buffered until the RPC completes; direct
+        servicer-level callers pass context=None."""
         if context is not None:
             trailer = [(QUEUE_DEPTH_METADATA_KEY, str(self.queue.waiting))]
             if self.node_id:
                 trailer.append((SERVED_BY_METADATA_KEY, self.node_id))
             context.set_trailing_metadata(tuple(trailer))
+
+    @traced_grpc_handler("tutoring.GetLLMAnswer")
+    async def GetLLMAnswer(self, request, context):
+        self.metrics.inc("llm_requests")
+        self._trailer(context)
+        if self.draining:
+            self.metrics.inc("tutoring_drain_rejections")
+            if context is not None:
+                await context.abort(grpc.StatusCode.UNAVAILABLE, DRAINING)
+            return lms_pb2.QueryResponse(success=False, response=DRAINING)
         if self.auth_key and not auth.verify_query(
             self.auth_key, request.query, request.token
         ):
@@ -102,7 +182,11 @@ class TutoringService(rpc.TutoringServicer):
         prompt = PROMPT_TEMPLATE.format(query=request.query)
         try:
             with self.metrics.time("answer_latency"):
-                answer = await self.queue.submit(prompt, deadline=deadline)
+                # The handler's span rides into the queue explicitly: the
+                # queue runs on other tasks (the engine in an executor
+                # thread), where this handler's contextvars are not set.
+                answer = await self.queue.submit(
+                    prompt, deadline=deadline, span=get_tracer().current())
         except Overloaded as e:
             if context is None:
                 raise
@@ -119,20 +203,165 @@ class TutoringService(rpc.TutoringServicer):
             )
         return lms_pb2.QueryResponse(success=True, response=answer.strip())
 
+    @traced_grpc_handler("tutoring.StreamLLMAnswer")
+    async def StreamLLMAnswer(self, request, context):
+        """Server-streaming tutoring answer (the resumable-stream contract).
+
+        Chunk offsets count tokens and are monotone and gap-free;
+        `request.resume_offset = K` regenerates deterministically and
+        delivers only tokens >= K (the failover path: the pool resumes a
+        broken stream at the client's delivered offset). The final chunk
+        carries the sha256 hexdigest of the whole stripped answer, which is
+        what the unary GetLLMAnswer returns, so a resumed client checks its
+        spliced transcript against it.
+
+        `request.session_id` makes the turn conversational: the prompt
+        extends this node's transcript of the session (turn N's prompt +
+        answer), and the finished turn is published and pinned so the
+        prefix cache serves turn N+1's shared prefix from cached KV.
+        """
+        self.metrics.inc("llm_requests")
+        self._trailer(context)
+        if self.draining:
+            self.metrics.inc("tutoring_drain_rejections")
+            if context is not None:
+                await context.abort(grpc.StatusCode.UNAVAILABLE, DRAINING)
+            yield lms_pb2.StreamChunk(success=False, final=True,
+                                      text=DRAINING)
+            return
+        if self.auth_key and not auth.verify_query(
+            self.auth_key, request.query, request.token
+        ):
+            self.metrics.inc("llm_unauthorized")
+            yield lms_pb2.StreamChunk(
+                success=False, final=True,
+                text="Unauthorized: query the LMS, not the tutoring node.")
+            return
+        if not request.query.strip():
+            yield lms_pb2.StreamChunk(success=False, final=True,
+                                      text="Empty query.")
+            return
+        deadline = Deadline.from_grpc_context(context)
+        if deadline is not None and deadline.expired:
+            self.metrics.inc("shed_expired")
+            await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED,
+                                "deadline already expired on arrival")
+        # A session turn extends the running transcript verbatim (a
+        # byte-stable prefix); a fresh stream frames the query exactly as
+        # the unary path does, so the two answers are identical.
+        session_id = request.session_id
+        transcript = (self._session_transcript(session_id) if session_id
+                      else "")
+        if transcript:
+            prompt = transcript + FOLLOWUP_TEMPLATE.format(query=request.query)
+        else:
+            prompt = PROMPT_TEMPLATE.format(query=request.query)
+        session = (session_id, self.session_ttl_s) if session_id else None
+        sent_any = False
+        try:
+            with self.metrics.time("answer_latency"):
+                async for delta in self.queue.submit_stream(
+                        prompt, deadline=deadline,
+                        span=get_tracer().current(),
+                        resume_offset=request.resume_offset,
+                        session=session):
+                    self.metrics.inc("stream_chunks")
+                    if delta.final:
+                        full = delta.full_text
+                        if session_id:
+                            self._session_update(session_id, prompt + full)
+                        yield lms_pb2.StreamChunk(
+                            success=True, text=delta.text,
+                            offset=delta.offset, count=delta.count,
+                            final=True,
+                            digest=hashlib.sha256(
+                                full.strip().encode()).hexdigest())
+                    else:
+                        yield lms_pb2.StreamChunk(
+                            success=True, text=delta.text,
+                            offset=delta.offset, count=delta.count)
+                    sent_any = True
+        except Overloaded as e:
+            if context is None:
+                raise
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(e))
+        except DeadlineExpired as e:
+            if context is None:
+                raise
+            await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED, str(e))
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            log.exception("streamed generation failed")
+            self.metrics.inc("llm_failures")
+            if not sent_any:
+                # Nothing delivered yet: fail softly, like the unary path.
+                yield lms_pb2.StreamChunk(
+                    success=False, final=True,
+                    text="The tutoring model is unavailable.")
+            elif context is not None:
+                # Delivered text cannot be retracted: a hard error, so the
+                # pool resumes at the client's offset.
+                await context.abort(grpc.StatusCode.INTERNAL,
+                                    "stream broken mid-answer")
+
+
+def make_tutoring_admin(service: TutoringService):
+    """POST handler of the node's admin plane.
+
+    POST /admin/drain {"drain": true|false} stops or resumes admission;
+    in-flight work finishes, and the fleet router takes the node out of
+    its ring while it drains. Every other path answers 404, /admin/score
+    included (the scoring tenant is not ported; a JAX node without a
+    scorer answers the same)."""
+
+    async def admin(path: str, body: dict) -> dict:
+        if path == "/admin/drain":
+            service.set_draining(bool(body.get("drain", True)))
+            return {"ok": True, "draining": service.draining,
+                    "node_id": service.node_id}
+        raise KeyError(path)
+
+    return admin
+
+
+def make_tutoring_health(service: TutoringService, queue, engine_name: str,
+                         max_queue: int):
+    """/healthz provider: admission pressure and the fleet lifecycle (the
+    router's health poller reads `draining`, `queued` and `node_id`)."""
+
+    def health() -> dict:
+        return {
+            "ok": True,
+            "engine": engine_name,
+            "node_id": service.node_id,
+            "queue_depth_limit": max_queue,
+            "queued": queue.waiting,
+            "draining": service.draining,
+            "sessions": len(service._sessions),
+        }
+
+    return health
+
 
 async def serve_async(port: int, engine, *,
                       max_batch: int = 8, max_wait_ms: float = 10.0,
                       max_queue: int = 0, metrics: Optional[Metrics] = None,
                       auth_key: Optional[str] = None,
                       node_id: Optional[str] = None,
+                      metrics_port: Optional[int] = None,
+                      session_ttl_s: float = 600.0, session_max: int = 256,
                       host: str = "[::]") -> grpc.aio.Server:
     """Start (and return) the aio server; the caller awaits termination.
 
     A `PagedEngine` is served through `PagedQueue` (continuous batching:
     requests join the running batch between dispatches), a
     `TutoringEngine` through `BatchingQueue`. The bound port is
-    `server._port`. Shut down with ``await server.stop(grace)`` then
-    ``await server._queue.close()``.
+    `server._port`. With `metrics_port` (0 = any free port) the health
+    plane listens on 127.0.0.1 (`server._health.port`): /healthz,
+    /metrics, /metrics.prom, POST /admin/drain, GET /admin/trace[/<id>].
+    Shut down with ``await server.stop(grace)`` (which stops the health
+    plane too) then ``await server._queue.close()``.
     """
     metrics = metrics or Metrics()
     if isinstance(engine, PagedEngine):
@@ -149,12 +378,38 @@ async def serve_async(port: int, engine, *,
         ]
     )
     service = TutoringService(queue, metrics, auth_key=auth_key,
-                              node_id=node_id)
+                              node_id=node_id, session_ttl_s=session_ttl_s,
+                              session_max=session_max)
     rpc.add_TutoringServicer_to_server(service, server)
     server._port = server.add_insecure_port(f"{host}:{port}")
     await server.start()
     server._queue = queue
     server._service = service
+    server._health = None
+    if metrics_port is not None:
+
+        async def admin_get(path: str) -> dict:
+            # GET /admin/trace[/<id>]: this node's trace fragments (the
+            # engine spans live here; the JAX package's trace_report merges
+            # them with the LMS nodes' into one waterfall).
+            return trace_admin_get(path)
+
+        health = HealthServer(
+            metrics,
+            health=make_tutoring_health(service, queue, type(engine).__name__,
+                                        max_queue),
+            admin=make_tutoring_admin(service), admin_get=admin_get,
+            port=metrics_port)
+        log.info("health/metrics endpoint on http://127.0.0.1:%d",
+                 await health.start())
+        server._health = health
+        grpc_stop = server.stop
+
+        async def stop(grace):
+            await health.stop()
+            return await grpc_stop(grace)
+
+        server.stop = stop
     log.info("tutoring server listening on %d", server._port)
     return server
 
@@ -182,7 +437,18 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--node-id", default=None,
                         help="fleet identity in every answer's x-served-by "
-                        "trailer (default: tut-<port>)")
+                        "trailer and in /healthz (default: tut-<port>)")
+    parser.add_argument("--metrics-port", type=int, default=None,
+                        help="HTTP /healthz + /metrics endpoint (0 = "
+                        "ephemeral); omit to disable. Also serves POST "
+                        "/admin/drain (stop admission, finish in-flight "
+                        "work) and GET /admin/trace[/<id>]")
+    parser.add_argument("--session-ttl", type=float, default=600.0,
+                        help="tutoring-session transcript and prefix-pin "
+                        "lifetime in seconds")
+    parser.add_argument("--session-max", type=int, default=256,
+                        help="tutoring sessions held on this node (the "
+                        "soonest-expiring go first beyond it)")
     parser.add_argument("--auth-key-file", default=None,
                         help="file holding the LMS<->tutoring shared "
                         "secret; when set, only queries signed by the LMS "
@@ -285,6 +551,8 @@ def main(argv=None) -> None:
             args.port, engine, max_batch=args.max_batch,
             max_wait_ms=args.max_wait_ms, max_queue=args.queue_depth,
             auth_key=auth_key, node_id=args.node_id or f"tut-{args.port}",
+            metrics_port=args.metrics_port,
+            session_ttl_s=args.session_ttl, session_max=args.session_max,
         )
         try:
             await server.wait_for_termination()

@@ -15,6 +15,8 @@ from typing import Any, Callable, Optional
 
 # Remaining budget in milliseconds (relative: survives clock skew).
 DEADLINE_METADATA_KEY = "x-deadline-budget-ms"
+# The client's logical request id (names the trace of an untraced caller).
+REQUEST_ID_METADATA_KEY = "x-request-id"
 # Trailing metadata on every answer: which fleet member served it, and the
 # node's live serving-queue depth (a passive load signal for the router).
 SERVED_BY_METADATA_KEY = "x-served-by"

@@ -6,17 +6,21 @@ The port's own copy of the GPT-2 half of
 - `BPETokenizer`  — GPT-2's byte-level BPE, from `vocab.json` + `merges.txt`;
 - `ByteTokenizer` — the byte-level fallback (ids 0..255 plus one special)
   used when no vocab files are configured, so the serving stack runs end to
-  end with seeded random weights.
+  end with seeded random weights;
+- `full_byte_vocab` — a seeded byte-level vocabulary of GPT-2's size in
+  which every id decodes to non-empty text (the byte fallback drops every
+  id >= 256), for checks that must see each sampled token.
 
 `regex` (GPT-2's pre-tokenization pattern needs \\p classes) is imported
 only when a BPE tokenizer is built, so the byte path runs without it.
 
 All expose: `encode(text) -> List[int]`, `decode(ids) -> str`,
-`vocab_size`, `eos_id`, `pad_id`.
+`decode_complete(ids) -> str`, `vocab_size`, `eos_id`, `pad_id`.
 """
 
 from __future__ import annotations
 
+import codecs
 import json
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -48,6 +52,13 @@ def _bytes_to_unicode() -> Dict[int, str]:
 _GPT2_PATTERN = (
     r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""
 )
+
+
+def _complete_text(data: bytes) -> str:
+    """`data` decoded as UTF-8 (errors replaced) without a trailing
+    incomplete character: the text no later byte can rewrite."""
+    return codecs.getincrementaldecoder("utf-8")("replace").decode(
+        data, final=False)
 
 
 class BPETokenizer:
@@ -116,10 +127,17 @@ class BPETokenizer:
                 ids.append(self.encoder[piece])
         return ids
 
-    def decode(self, ids: Sequence[int]) -> str:
+    def _bytes(self, ids: Sequence[int]) -> bytes:
         text = "".join(self.decoder.get(int(i), "") for i in ids)
-        data = bytearray(self.byte_decoder.get(ch, ord("?")) for ch in text)
-        return data.decode("utf-8", errors="replace")
+        return bytes(self.byte_decoder.get(ch, ord("?")) for ch in text)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._bytes(ids).decode("utf-8", errors="replace")
+
+    def decode_complete(self, ids: Sequence[int]) -> str:
+        """decode() less a trailing incomplete UTF-8 character (an id can
+        end inside one): the part of the text later ids cannot rewrite."""
+        return _complete_text(self._bytes(ids))
 
 
 class ByteTokenizer:
@@ -150,6 +168,35 @@ class ByteTokenizer:
     def decode(self, ids: Sequence[int]) -> str:
         data = bytes(i for i in (int(x) for x in ids) if i < 256)
         return data.decode("utf-8", errors="replace")
+
+    def decode_complete(self, ids: Sequence[int]) -> str:
+        """decode() less a trailing incomplete UTF-8 character."""
+        return _complete_text(bytes(i for i in (int(x) for x in ids)
+                                    if i < 256))
+
+
+def full_byte_vocab(size: int = 50257, seed: int = 0) -> Dict[str, int]:
+    """A byte-level BPE vocabulary of `size` entries in which every id
+    decodes to non-empty text, built from `seed` (no files, no merges):
+    ids 0..255 are the 256 byte symbols (id = byte value), ids 256..size-2
+    distinct strings of 2-4 random bytes (many end inside a UTF-8
+    character, so a stream's decode is not always prefix-stable), and the
+    last id is ``<|endoftext|>`` (eos and pad), as in GPT-2. With
+    ``BPETokenizer(full_byte_vocab(), [])`` a random-weight model's every
+    sampled id shows in the decoded text."""
+    import random
+
+    if size < 258:
+        raise ValueError(f"a full byte vocabulary needs > 257 ids, not {size}")
+    enc = _bytes_to_unicode()
+    vocab = {enc[b]: b for b in range(256)}
+    rng = random.Random(seed)
+    while len(vocab) < size - 1:
+        piece = "".join(enc[rng.randrange(256)]
+                        for _ in range(rng.randint(2, 4)))
+        vocab.setdefault(piece, len(vocab))
+    vocab["<|endoftext|>"] = size - 1
+    return vocab
 
 
 def load_gpt2_tokenizer(

@@ -1,0 +1,188 @@
+"""The deployment's GPT-2 checkpoint and trained BPE in the port, on the CPU.
+
+`data/gpt2-local/{model.safetensors,vocab.json,merges.txt}` is what
+configs/cluster.toml's tutoring node serves (built offline by
+scripts/make_local_checkpoint.py; gitignored). Held against the JAX
+package on those files:
+
+- the weights through the port's `convert.load_safetensors` and
+  `gpt2_params_from_hf` equal the JAX loader's tree, and GPT-2 small's
+  float32 logits over a framed question agree with JAX's forward within
+  1e-5 of the logits' range (twelve layers of float32 sums in another
+  order: about 7e-7 of it on a CPU);
+- the port's greedy tokens (its engine, KV cache and all) are the argmax
+  of JAX's logits at every step, teacher-forced in one JAX forward;
+- the BPE encodes a mixed-script corpus to the same ids and decodes every
+  id of the vocabulary to the same text, ids whose bytes end inside a
+  UTF-8 character included (alone, and completed by the next id).
+
+Skipped only when the files are absent.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_lms_raft_llm_tpu.models import convert as jax_convert
+from distributed_lms_raft_llm_tpu.models import gpt2 as jax_gpt2
+from distributed_lms_raft_llm_tpu.utils.tokenizer import (
+    BPETokenizer as JaxBPE,
+)
+from distributed_lms_raft_llm_tpu_torch.engine import (
+    EngineConfig,
+    SamplingParams,
+    TutoringEngine,
+)
+from distributed_lms_raft_llm_tpu_torch.models import convert, gpt2
+from distributed_lms_raft_llm_tpu_torch.serving.prompts import PROMPT_TEMPLATE
+from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import BPETokenizer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LOCAL = os.path.join(REPO, "data", "gpt2-local")
+FILES = {name: os.path.join(LOCAL, name)
+         for name in ("model.safetensors", "vocab.json", "merges.txt")}
+
+pytestmark = pytest.mark.skipif(
+    not all(os.path.exists(p) for p in FILES.values()),
+    reason="data/gpt2-local is absent (built by "
+    "scripts/make_local_checkpoint.py)")
+
+CORPUS = [
+    "What is the Raft consensus algorithm?",
+    "  leading spaces, trailing spaces  \n\ttabs and\r\nnewlines\n\n",
+    "Don't we'll they're I'm you've she'd it's",
+    "numbers 3.14159 and 1,000,000 and 2026-10-17",
+    "naïve café résumé über straße",
+    "日本語のテキストと中文文本",
+    "emoji 🙂🚀 and symbols ∑∫√ and ½",
+    "mixed: αβγ δ, кириллица, עברית, العربية",
+]
+NEW_TOKENS = 8
+ATOL_OF_RANGE = 1e-5
+
+
+@pytest.fixture(scope="module")
+def tokenizers():
+    return (BPETokenizer.from_files(FILES["vocab.json"], FILES["merges.txt"]),
+            JaxBPE.from_files(FILES["vocab.json"], FILES["merges.txt"]))
+
+
+@pytest.mark.parametrize("text", CORPUS)
+def test_bpe_encodes_like_jax_and_round_trips(tokenizers, text):
+    tok, jtok = tokenizers
+    ids = tok.encode(text)
+    assert ids == jtok.encode(text)
+    assert tok.decode(ids) == jtok.decode(ids) == text
+
+
+def test_bpe_decodes_every_id_like_jax(tokenizers):
+    tok, jtok = tokenizers
+    assert tok.vocab_size == jtok.vocab_size
+    assert (tok.eos_id, tok.pad_id) == (jtok.eos_id, jtok.pad_id)
+    for i in range(tok.vocab_size):
+        assert tok.decode([i]) == jtok.decode([i]), i
+
+
+def test_bpe_ids_ending_inside_a_character(tokenizers):
+    """Ids whose bytes end inside a UTF-8 character decode alike in both
+    packages, alone and completed by an id that starts with the rest of
+    the character; `decode_complete` drops exactly the cut character."""
+    tok, jtok = tokenizers
+    cut = [i for i in range(tok.vocab_size)
+           if tok.decode_complete([i]) != tok.decode([i])]
+    assert cut, "the trained vocabulary holds no id ending mid-character"
+    for text in CORPUS:
+        ids = tok.encode(text)
+        for k in range(1, len(ids)):
+            head = tok.decode(ids[:k])
+            assert head == jtok.decode(ids[:k])
+            if tok.decode_complete(ids[:k]) != head:
+                # The id at k-1 ends inside a character the next completes.
+                assert not text.startswith(head)
+                assert text.startswith(tok.decode_complete(ids[:k]))
+    completed = 0
+    for i in cut[:200]:
+        for j in range(tok.vocab_size):
+            pair = [i, j]
+            if tok.decode_complete(pair) == tok.decode(pair) and \
+                    not tok.decode(pair).startswith(tok.decode([i])):
+                assert tok.decode(pair) == jtok.decode(pair)
+                completed += 1
+                break
+    assert completed > 0
+
+
+@pytest.fixture(scope="module")
+def models():
+    """The checkpoint in both packages at GPT-2 small's width, float32."""
+    sd = convert.load_safetensors(FILES["model.safetensors"])
+    jsd = jax_convert.load_safetensors(FILES["model.safetensors"])
+    assert sorted(sd) == sorted(jsd)
+    for name in sd:
+        np.testing.assert_array_equal(sd[name], jsd[name])
+    jcfg = jax_gpt2.GPT2Config.small(dtype=jnp.float32,
+                                     param_dtype=jnp.float32)
+    jparams = jax.tree_util.tree_map(
+        jnp.asarray, jax_convert.gpt2_params_from_hf(jsd, jcfg))
+    cfg = gpt2.GPT2Config.small(dtype=torch.float32,
+                                param_dtype=torch.float32)
+    params = convert.gpt2_params_from_hf(sd, cfg, device="cpu")
+    return cfg, params, jcfg, jparams
+
+
+def test_params_from_the_checkpoint_equal_jax(models):
+    cfg, params, _, jparams = models
+    assert (cfg.num_layers, cfg.hidden_size, cfg.vocab_size) == (12, 768,
+                                                                50257)
+    flat = dict(jax.tree_util.tree_flatten_with_path(jparams)[0])
+    port = {}
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, path + (key,))
+            else:
+                port[path + (key,)] = value
+
+    walk(params, ())
+    assert len(flat) == len(port)
+    for jpath, value in flat.items():
+        key = tuple(p.key for p in jpath)
+        np.testing.assert_array_equal(port[key].numpy(), np.asarray(value))
+
+
+def test_logits_and_greedy_tokens_equal_jax(models, tokenizers):
+    cfg, params, jcfg, jparams = models
+    tok, _ = tokenizers
+    prompt = PROMPT_TEMPLATE.format(query="How does Raft elect a leader?")
+    ids = tok.encode(prompt)
+    # The port's greedy answer through its serving engine (KV cache,
+    # eager decode on the CPU).
+    engine = TutoringEngine(EngineConfig(
+        model="gpt2", checkpoint=FILES["model.safetensors"],
+        vocab_path=FILES["vocab.json"], merges_path=FILES["merges.txt"],
+        sampling=SamplingParams.greedy(max_new_tokens=NEW_TOKENS),
+        length_buckets=(64,), batch_buckets=(1,), dtype=torch.float32,
+        param_dtype=torch.float32, device="cpu"))
+    ids_b, mask, _ = engine.encode_prompts([prompt])
+    res = engine.generate_ids(ids_b, mask)
+    greedy = res.tokens[0, :int(res.lengths[0])].tolist()
+    assert len(greedy) == NEW_TOKENS
+    # Teacher-forced: both packages' logits over prompt + answer.
+    seq = ids + greedy[:-1]
+    with torch.no_grad():
+        logits, _ = gpt2.forward(params, cfg, torch.tensor([seq]))
+    jlogits, _ = jax.jit(
+        lambda p, x: jax_gpt2.forward(p, jcfg, x))(jparams,
+                                                  jnp.asarray([seq]))
+    got = logits[0].numpy()
+    want = np.asarray(jlogits)[0]
+    span = float(want.max() - want.min())
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_OF_RANGE * span)
+    steps = want[len(ids) - 1:]
+    assert [int(np.argmax(row)) for row in steps] == greedy
+    assert [int(np.argmax(row)) for row in got[len(ids) - 1:]] == greedy

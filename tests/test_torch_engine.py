@@ -265,6 +265,8 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.ops\n"
         "import distributed_lms_raft_llm_tpu_torch.ops.quant_matmul\n"
         "import distributed_lms_raft_llm_tpu_torch.serving.tutoring_server\n"
+        "import distributed_lms_raft_llm_tpu_torch.utils.tracing\n"
+        "import distributed_lms_raft_llm_tpu_torch.utils.healthz\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -273,7 +275,9 @@ def test_port_imports_no_jax():
                          check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("ops.attention", "ops.quant_matmul", "models.quant",
-                   "engine.paged", "engine.batcher"):
+                   "engine.paged", "engine.batcher", "utils.tracing",
+                   "utils.healthz", "utils.metrics_registry",
+                   "serving.tutoring_server"):
         assert f"distributed_lms_raft_llm_tpu_torch.{module}" in mods
     jax_mods = [m for m in mods if m == "jax" or m.startswith("jax.")]
     ref_mods = [m for m in mods if m == "distributed_lms_raft_llm_tpu"
