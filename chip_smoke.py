@@ -2,6 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py [--out FILE] [--checkpoint F --vocab F --merges F]
+                          [--gate-checkpoint F --gate-vocab F]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -18,9 +19,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    384, lengths spread over [1, width], splits left empty), and the int8
    weight-only matmul (`ops/sweep_int8.py`) at GPT-2 small's five products
    for M = 1, 16, 32 (the fused admission chunk), 256 in bf16 (tensor
-   cores) and float32 (CUDA cores),
+   cores) and float32 (CUDA cores), and the four dense products at the
+   relevance gate's M = 128 and 1,024 in bf16,
    timed over more than 100 MB of distinct weight copies so the L2 cannot
-   serve them, plus the 49 products of one decode model call;
+   serve them, plus the 49 products of one decode model call and the 48 of
+   one int8 gate forward at M = 128 and 1,024;
 4. the bucketed path: `BatchingQueue` -> `TutoringEngine` (GPT-2 small at
    full width, bf16, seeded random weights unless a checkpoint is given)
    answering 8 concurrent tutoring questions, greedy twice and once with
@@ -83,7 +86,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    `session_pinned_blocks` > 0), and a drain (POST /admin/drain: both RPCs
    UNAVAILABLE, /healthz draining; undrained, an answer again; /metrics
    with stream_chunks, ttft, session_active); no CUDA graph captured
-   while serving.
+   while serving;
+6. the relevance gate (`RelevanceGate`, configs/cluster.toml [gate]) at
+   bert-base-uncased width (12 layers, 768 wide, vocabulary 30,522, 512
+   positions, buckets 64-512, threshold 0.6), from seeded random weights
+   under the byte tokenizer unless --gate-checkpoint/--gate-vocab are
+   given (the record names which), in float32, bf16 and bf16 with int8
+   weights: phase 4's 8 questions against an assignment text sized for
+   each length bucket, one past the 512 positions and an empty one, all
+   through each gate (int8 matmul launches = 48 x forwards, all on the
+   tensor cores; none for the others; no attention kernel); bf16
+   similarities within 2e-2 of float32's with equal decisions wherever
+   float32's is further than that from 0.6, int8's within 0.05; a cache
+   hit within 1e-5 of the joint miss in float32 (2e-2 in bf16); the
+   float32 gate's embeddings within 1e-4 of their scale of a float64
+   forward on the CPU (no TF32; the error under TF32 is reported beside);
+   `check` latency p50 over 20 calls per bucket, miss and hit, the first
+   check after warmup(), and a `torch.profiler` window of misses at
+   buckets 64 and 512 (kernels per forward, device busy share), beside
+   phase 5's TTFT over the stream.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -97,6 +118,7 @@ import hashlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1408,11 +1430,304 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
     return run
 
 
+# ------------------------------------------- phase 6: the relevance gate
+
+GATE_THRESHOLD = 0.6                   # configs/cluster.toml [gate]
+GATE_BF16_TOL = TOLERANCE["bfloat16"]  # bf16 similarity vs float32's
+GATE_INT8_TOL = 0.05                   # tests/test_quant.py's bound
+GATE_CACHE_TOL = 1e-5                  # a float32 hit vs the joint miss
+# float32 on the card against float64 on the CPU, of the largest
+# magnitude: summation order only. TF32 products keep ~3 decimal digits.
+GATE_F64_OF_SCALE = 1e-4
+GATE_TIMED_CALLS = 20
+GATE_NOTES = ("Distributed systems, CS 451 notes, week 6: Raft keeps a "
+              "replicated log consistent across servers. A leader is elected "
+              "for a term by a majority of votes, appends client commands to "
+              "its log and replicates them to the followers; an entry "
+              "commits once a majority stores it. ")
+
+
+def gate_contexts(tokenizer, buckets) -> dict:
+    """Assignment texts by the bucket a miss lands in: words of the course
+    notes, as many as fill 7/8 of each length bucket (with [CLS] and
+    [SEP]) under the gate's tokenizer; one of 700 tokens, cut at the 512
+    positions; and the empty text the LMS passes for an assignment with no
+    text."""
+    words = (GATE_NOTES * 40).split()
+
+    def sized(target):
+        lo, hi = 1, len(words)
+        while lo < hi:  # fewest words that reach `target` tokens
+            mid = (lo + hi) // 2
+            n = len(tokenizer.encode(" ".join(words[:mid]),
+                                     add_special_tokens=True))
+            lo, hi = (mid + 1, hi) if n < target else (lo, mid)
+        return " ".join(words[:lo])
+
+    contexts = {str(b): sized(b - b // 8) for b in buckets}
+    contexts["over_512"] = sized(700)
+    contexts["empty"] = ""
+    return contexts
+
+
+def to_cpu_f64(torch, tree):
+    """A parameter tree of dense tensors, in float64 on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu_f64(torch, v) for k, v in tree.items()}
+    return tree.detach().to("cpu", torch.float64)
+
+
+def gate_latency(torch, gate, query, contexts) -> dict:
+    """`check` latency on the host clock (a check ends in a device-to-host
+    copy), p50 and mean over GATE_TIMED_CALLS calls: a miss (the context's
+    cache entry dropped before each call, outside the timing) and a hit,
+    at each bucket."""
+    out = {}
+    for label, ctx in contexts.items():
+        times = {"miss": [], "hit": []}
+        for _ in range(GATE_TIMED_CALLS):
+            gate._ctx_cache.pop(ctx, None)
+            t0 = time.monotonic()
+            gate.check(query, ctx)
+            times["miss"].append(time.monotonic() - t0)
+        for _ in range(GATE_TIMED_CALLS):
+            t0 = time.monotonic()
+            gate.check(query, ctx)
+            times["hit"].append(time.monotonic() - t0)
+        bucket = gate._encode([query, ctx])[0].shape[1]
+        out[label] = {"bucket": bucket, **{
+            f"{kind}_{stat}_ms": fn(ts) * 1e3 for kind, ts in times.items()
+            for stat, fn in (("p50", statistics.median),
+                             ("mean", statistics.mean))}}
+    return out
+
+
+def profile_gate(torch, gate, query, ctx, calls=10) -> dict:
+    """Where a miss's time goes: `calls` misses timed without the profiler,
+    then under `torch.profiler`. Kernels per forward from the trace (a
+    lower bound: the profiler on the card loses records), the device busy
+    share = summed kernel time over the unprofiled wall, kernel time by
+    name; the trace holds no more of the port's kernels than counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def misses():
+        for _ in range(calls):
+            gate._ctx_cache.pop(ctx, None)
+            gate.check(query, ctx)
+        torch.cuda.synchronize()
+
+    misses()
+    t0 = time.monotonic()
+    misses()
+    wall_us = (time.monotonic() - t0) * 1e6
+    before = counted_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        misses()
+    events = device_events(torch, prof)
+    traced = check_traced_launches(events, before, "phase 6 profile")
+    by_name: dict = {}
+    for name, us in events:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
+    busy_us = sum(us for _, us in events)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "bucket": gate._encode([query, ctx])[0].shape[1], "calls": calls,
+        "wall_us": wall_us, "device_busy_us": busy_us,
+        "device_busy_share": busy_us / wall_us,
+        "kernels_per_forward": len(events) / calls,
+        "device_us_per_forward": busy_us / calls,
+        "traced_port_kernels": traced,
+        "top": [{"name": name[:90], "us": us, "count": n}
+                for name, (us, n) in top],
+    }
+
+
+def gate_phase(torch, attention, quant_matmul, args, streaming) -> dict:
+    """Phase 6: the relevance gate at bert-base-uncased width (see the
+    module docstring); `streaming` is phase 5's record, for the gate's
+    share of a student's wait."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        GateConfig,
+        RelevanceGate,
+    )
+    from distributed_lms_raft_llm_tpu_torch.models import bert
+
+    common = dict(model="bert-base-uncased", checkpoint=args.gate_checkpoint,
+                  vocab_path=args.gate_vocab, seed=args.seed,
+                  threshold=GATE_THRESHOLD, device="cuda")
+    run = {"weights": args.gate_checkpoint or f"seeded random (seed "
+           f"{args.seed}), no checkpoint",
+           "tokenizer": args.gate_vocab or "byte fallback (no vocab)"}
+    check(torch.backends.cuda.matmul.allow_tf32 is False
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls may run on TF32")
+    gates = {}
+    for name, dtype, quant in (("float32", torch.float32, None),
+                               ("bfloat16", torch.bfloat16, None),
+                               ("int8", torch.bfloat16, "int8")):
+        t0 = time.monotonic()
+        gate = RelevanceGate(GateConfig(dtype=dtype, quant=quant, **common))
+        cfg = gate.cfg
+        check((cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.mlp_dim,
+               cfg.vocab_size, cfg.max_position_embeddings)
+              == (12, 768, 12, 3072, 30522, 512) and cfg.dtype == dtype
+              and gate.config.length_buckets == (64, 128, 256, 512),
+              f"gate {name}: not bert-base-uncased at full width: {cfg}")
+        wi = gate.params["blocks"]["mlp"]["wi"]
+        check((isinstance(wi, dict) and wi["q"].dtype == torch.int8)
+              if quant else wi.dtype == dtype,
+              f"gate {name}: products not in {quant or dtype}")
+        load_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        gate.warmup()
+        warm_s = time.monotonic() - t0
+        gates[name] = gate
+        run[name] = {"load_s": load_s, "warmup_s": warm_s}
+    contexts = gate_contexts(gates["float32"].tokenizer, (64, 128, 256, 512))
+    query = QUESTIONS[1]
+    for name, gate in gates.items():  # the first check after warmup()
+        t0 = time.monotonic()
+        gate.check(query, contexts["64"])
+        run[name]["first_check_ms"] = (time.monotonic() - t0) * 1e3
+        gate._ctx_cache.clear()
+
+    # The pairs through each gate, launches counted from zero.
+    pairs = [(q, c) for q in QUESTIONS for c in contexts.values()]
+    buckets = sorted({gates["float32"]._encode([q, c])[0].shape[1]
+                      for q, c in pairs})
+    check(buckets == [64, 128, 256, 512],
+          f"phase 6 pairs land in buckets {buckets}")
+    results = {}
+    for name, gate in gates.items():
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        forwards0 = gate.forwards
+        results[name] = [gate.check(q, c) for q, c in pairs]
+        forwards = gate.forwards - forwards0
+        mm = {k: quant_matmul.launch_counts[k] for k in (
+            quant_matmul.KERNEL, quant_matmul.MMA, quant_matmul.MMA_UNEMBED,
+            quant_matmul.FMA)}
+        attn = sum(attention.launch_counts.values())
+        want = 48 * forwards if name == "int8" else 0
+        check(forwards == len(pairs) and mm[quant_matmul.KERNEL] == want
+              and mm[quant_matmul.MMA] == want and attn == 0
+              and mm[quant_matmul.MMA_UNEMBED] == mm[quant_matmul.FMA] == 0,
+              f"gate {name}: int8_matmul launches {mm}, attention {attn}, "
+              f"for {forwards} forwards (want {want} on the tensor cores)")
+        run[name].update(forwards=forwards, int8_matmul_launches=mm)
+    sims = {name: [s for _, s in res] for name, res in results.items()}
+    check(all(math.isfinite(s) and -1.0 - 1e-6 <= s <= 1.0 + 1e-6
+              for res in sims.values() for s in res),
+          "gate similarities are not finite cosines")
+    f32 = sims["float32"]
+    bf16_err = max(abs(a - b) for a, b in zip(sims["bfloat16"], f32))
+    int8_err = max(abs(a - b) for a, b in zip(sims["int8"], f32))
+    clear = [i for i, s in enumerate(f32)
+             if abs(s - GATE_THRESHOLD) > GATE_BF16_TOL]
+    decisions_equal = all(results["bfloat16"][i][0] == results["float32"][i][0]
+                          for i in clear)
+    check(bf16_err <= GATE_BF16_TOL,
+          f"bf16 gate similarities err {bf16_err} > {GATE_BF16_TOL} "
+          "against float32's")
+    check(decisions_equal, "bf16 gate decisions differ from float32's away "
+          "from the threshold")
+    check(int8_err < GATE_INT8_TOL,
+          f"int8 gate similarities err {int8_err} >= {GATE_INT8_TOL}")
+    run["pairs"] = dict(
+        count=len(pairs), buckets=buckets,
+        context_tokens={k: len(gates["float32"].tokenizer.encode(
+            c, add_special_tokens=True)) for k, c in contexts.items()},
+        bf16_max_abs_err=bf16_err, int8_max_abs_err=int8_err,
+        bf16_tol=GATE_BF16_TOL, int8_tol=GATE_INT8_TOL,
+        decisions_compared=len(clear), decisions_equal=decisions_equal,
+        passes={name: sum(p for p, _ in res) for name, res in results.items()},
+        sim_range_float32=[min(f32), max(f32)])
+
+    # A cache hit against the joint miss (short query, the widest context).
+    cache = {}
+    for name, gate in gates.items():
+        ctx = contexts["512"]
+        emb = gate.embed_texts([query, ctx])
+        check(emb.shape == (2, 768) and bool(np.isfinite(emb).all()),
+              f"gate {name}: embeddings {emb.shape} not finite")
+        joint = float(np.dot(emb[0], emb[1]) / max(float(
+            np.linalg.norm(emb[0]) * np.linalg.norm(emb[1])), 1e-12))
+        gate._ctx_cache.pop(ctx, None)
+        miss = gate.check(query, ctx)[1]
+        hit = gate.check(query, ctx)[1]
+        tol = GATE_CACHE_TOL if name == "float32" else GATE_BF16_TOL
+        check(abs(miss - joint) <= tol and abs(hit - joint) <= tol,
+              f"gate {name}: cache hit {hit} / miss {miss} against the "
+              f"joint {joint} (tol {tol})")
+        cache[name] = dict(joint=joint, miss_err=abs(miss - joint),
+                           hit_err=abs(hit - joint), tol=tol)
+    run["cache_hit_vs_joint"] = cache
+
+    # float32 on the card against float64 on the CPU: no TF32.
+    gate = gates["float32"]
+    texts = [query, contexts["128"]]
+    ids, mask = gate._encode(texts)
+    with torch.inference_mode():
+        ref = bert.embed(to_cpu_f64(torch, gate.params),
+                         dataclasses.replace(gate.cfg, dtype=torch.float64),
+                         torch.as_tensor(ids),
+                         attention_mask=torch.as_tensor(mask)).numpy()
+    scale = float(np.abs(ref).max())
+    f32_err = float(np.abs(gate.embed_texts(texts) - ref).max()) / scale
+    torch.backends.cuda.matmul.allow_tf32 = True  # the witness's control
+    try:
+        tf32_err = float(np.abs(gate.embed_texts(texts) - ref).max()) / scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(f32_err <= GATE_F64_OF_SCALE,
+          f"float32 gate errs {f32_err} of scale against float64 (TF32?)")
+    run["float32_vs_float64"] = dict(err_of_scale=f32_err,
+                                     tf32_err_of_scale=tf32_err,
+                                     bound=GATE_F64_OF_SCALE)
+
+    # Latency per bucket, a miss and a hit; the trace of a miss.
+    for name, gate in gates.items():
+        run[name]["latency"] = gate_latency(torch, gate, query, contexts)
+        gate._ctx_cache.clear()
+    quant_matmul.reset_launch_counts()
+    run["profile"] = {
+        f"{name}_{label}": profile_gate(torch, gates[name], query,
+                                        contexts[label])
+        for name in ("bfloat16", "int8") for label in ("64", "512")}
+
+    # What the gate adds to a student's wait (phase 5's TTFT, same run).
+    lat = run["bfloat16"]["latency"]
+    ttft = streaming["stream_ttft_mean_s"] * 1e3
+    run["beside_phase5"] = dict(
+        stream_ttft_mean_ms=ttft,
+        engine_ttft_mean_ms=streaming["engine_ttft_mean_s"] * 1e3,
+        gate_bf16_miss_p50_ms={k: v["miss_p50_ms"] for k, v in lat.items()},
+        gate_bf16_hit_p50_ms=lat["64"]["hit_p50_ms"],
+        miss_share_of_stream_ttft={k: v["miss_p50_ms"] / ttft
+                                   for k, v in lat.items()},
+        hit_share_of_stream_ttft=lat["64"]["hit_p50_ms"] / ttft)
+    del gates
+    torch.cuda.empty_cache()
+    return run
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--checkpoint", default=None)
     parser.add_argument("--vocab", default=None)
     parser.add_argument("--merges", default=None)
+    parser.add_argument("--gate-checkpoint", default=None,
+                        help="phase 6: the gate's BERT .safetensors (HF "
+                        "layout); default seeded random weights")
+    parser.add_argument("--gate-vocab", default=None,
+                        help="phase 6: the gate's WordPiece vocab.txt; "
+                        "default the byte fallback")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None,
                         help="also write every record as JSON to this file")
@@ -1511,10 +1826,22 @@ def main(argv=None) -> int:
                 mm_cases.append(sweep_int8.int8_matmul_case(
                     name=name, m=m, dtype=dtype))
                 emit("int8_matmul_case", **mm_cases[-1])
+    # The relevance gate's rows (phase 6): texts x length bucket.
+    for name in sweep_int8.GATE_PRODUCTS:
+        for m in sweep_int8.GATE_ROWS:
+            mm_cases.append(sweep_int8.int8_matmul_case(
+                name=name, m=m, dtype="bfloat16"))
+            emit("int8_matmul_case", **mm_cases[-1])
     records["int8_matmul_cases"] = mm_cases
     model_call = sweep_int8.int8_model_call()
     emit("int8_matmul_model_call", **model_call)
     records["int8_matmul_model_call"] = model_call
+    records["int8_matmul_gate_forward"] = []
+    for m in sweep_int8.GATE_ROWS:  # one int8 gate forward's 48 products
+        records["int8_matmul_gate_forward"].append(
+            sweep_int8.int8_model_call(m=m, unembed=False))
+        emit("int8_matmul_gate_forward",
+             **records["int8_matmul_gate_forward"][-1])
 
     # 4. The bucketed path.
     from distributed_lms_raft_llm_tpu_torch.engine import (
@@ -1759,6 +2086,11 @@ def main(argv=None) -> int:
             SamplingParams, prod, vocab, merges)
     emit("streaming", **records["streaming"])
 
+    # 6. The relevance gate at bert-base width, beside phase 5's TTFT.
+    records["gate"] = gate_phase(torch, attention, quant_matmul, args,
+                                 records["streaming"])
+    emit("gate", **records["gate"])
+
     records["seconds"] = time.monotonic() - t_start
     def paged_case(int8):  # the production step's shape: 16 slots, width 384
         return next(c for c in paged_cases if c["int8"] == int8
@@ -1806,8 +2138,11 @@ def main(argv=None) -> int:
               library_note="cuBLAS torch.matmul against weights "
               "dequantized to bf16 beforehand (the bf16 config's "
               "products)",
-              launches_by_path={"4b": mm_launches,
-                                "4c": deploy_launches[quant_matmul.KERNEL]}),
+              launches_by_path={
+                  "4b": mm_launches,
+                  "4c": deploy_launches[quant_matmul.KERNEL],
+                  "6": records["gate"]["int8"]["int8_matmul_launches"][
+                      quant_matmul.KERNEL]}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",

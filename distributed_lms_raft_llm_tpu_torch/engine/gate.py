@@ -1,0 +1,155 @@
+"""BERT relevance gate: is a student's query related to their assignment?
+
+Port of `distributed_lms_raft_llm_tpu/engine/gate.py`. The LMS calls
+`check(query, context)` before a question may reach the tutoring node:
+both texts are embedded by the BERT encoder (`models/bert.py`, mean-pooled
+over the mask) and the query passes when their cosine similarity reaches
+the threshold (0.6, `configs/cluster.toml [gate]`).
+
+As in the JAX package:
+
+- texts are WordPiece ids (`utils/tokenizer.py`; the byte fallback when no
+  vocabulary is given), framed by [CLS]/[SEP], cut at the 512 positions
+  (which can drop the [SEP]), right-padded to the smallest length bucket
+  that holds the longest text of the call;
+- the assignment's embedding is cached by its text (cleared wholesale at
+  256 entries): a miss embeds [query, context] in one forward, a hit the
+  query alone; mask-weighted pooling makes the two agree;
+- `quant="int8"` stores the products and the word table as int8 with
+  per-channel scales (`models/quant.py`); with bf16 activations the
+  products run on the hand-written tensor-core kernel
+  (`ops/quant_matmul.py`), 4 launches a layer.
+
+The encoder runs eagerly on `GateConfig.device` ("cuda" unless the caller
+asks for the CPU; without a card it raises). The products' weights are cast
+to the compute dtype once, at load (`bert.cast_products`). `check` runs on
+the LMS's executor threads, several at once: the cache and the forward
+count are guarded by a lock, the forward itself shares only read-only
+weights (the kernels' launch counters are plain integers, exact only
+while one thread launches). Tensor parallelism (`tp > 1`) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import bert, convert, quant
+from ..utils import tokenizer as tok_lib
+from .generate import pick_bucket
+
+log = logging.getLogger(__name__)
+
+CONTEXT_CACHE_ENTRIES = 256
+
+
+@dataclasses.dataclass
+class GateConfig:
+    model: str = "bert-base-uncased"  # or "tiny"
+    checkpoint: Optional[str] = None  # .safetensors (HF layout)
+    vocab_path: Optional[str] = None
+    threshold: float = 0.6
+    length_buckets: Tuple[int, ...] = (64, 128, 256, 512)
+    tp: int = 1
+    # Weight-only int8 (models/quant.py), the tutoring engine's recipe.
+    quant: Optional[str] = None
+    dtype: torch.dtype = torch.bfloat16
+    seed: int = 1
+    device: str = "cuda"
+
+
+class RelevanceGate:
+    def __init__(self, config: GateConfig):
+        if config.tp > 1:
+            raise NotImplementedError(
+                f"GateConfig.tp={config.tp}: tensor parallelism is not "
+                "ported to PyTorch yet")
+        if config.quant not in (None, "int8"):
+            raise ValueError(f"unsupported quant mode {config.quant!r}")
+        self.config = config
+        self.device = resolve_device(config.device)
+        factory = (bert.BertConfig.tiny if config.model == "tiny"
+                   else bert.BertConfig.base_uncased)
+        self.cfg = factory(dtype=config.dtype)
+        self.tokenizer = tok_lib.load_bert_tokenizer(config.vocab_path)
+        if self.tokenizer.vocab_size > self.cfg.vocab_size:
+            raise ValueError("tokenizer vocab exceeds model vocab")
+        if config.checkpoint:
+            sd = convert.load_safetensors(config.checkpoint)
+            params = convert.bert_params_from_hf(sd, self.cfg, self.device)
+        else:
+            log.warning("no BERT checkpoint configured — random init")
+            params = bert.init_params(self.cfg, config.seed, self.device)
+        if config.quant:
+            params = quant.quantize_params(params, "bert")
+        self.params = bert.cast_products(params, self.cfg.dtype)
+        # Context (assignment text) embeddings are static per student and
+        # re-checked on every query: caching them halves a hit's forward.
+        self._ctx_cache: dict = {}  # guarded-by: _lock
+        self._lock = threading.Lock()
+        self.forwards = 0  # encoder forwards run; guarded-by: _lock
+
+    def _encode(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        limit = self.cfg.max_position_embeddings
+        token_lists = [
+            self.tokenizer.encode(t, add_special_tokens=True)[:limit]
+            for t in texts
+        ]
+        longest = max(len(t) for t in token_lists)
+        bucket = min(pick_bucket(longest, self.config.length_buckets), limit)
+        ids = np.full((len(texts), bucket), self.tokenizer.pad_id, np.int64)
+        mask = np.zeros((len(texts), bucket), np.int64)
+        for i, toks in enumerate(token_lists):
+            toks = toks[:bucket]
+            ids[i, : len(toks)] = toks  # BERT: right-padding
+            mask[i, : len(toks)] = 1
+        return ids, mask
+
+    def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
+        """Sentence embeddings [len(texts), D], numpy float32, from one
+        forward."""
+        ids, mask = self._encode(texts)
+        with torch.inference_mode():
+            out = bert.embed(
+                self.params, self.cfg,
+                torch.as_tensor(ids, device=self.device),
+                attention_mask=torch.as_tensor(mask, device=self.device),
+            )
+            emb = out.cpu().numpy()
+        with self._lock:
+            self.forwards += 1
+        return emb
+
+    def check(self, query: str, context: str) -> Tuple[bool, float]:
+        """(passes_gate, cosine_similarity) as Python values.
+
+        A miss embeds [query, context] in ONE forward and caches the
+        context half; a hit embeds the query alone.
+        """
+        with self._lock:
+            ctx_emb = self._ctx_cache.get(context)
+        if ctx_emb is None:
+            emb = self.embed_texts([query, context])
+            q_emb, ctx_emb = emb[0], emb[1]
+            with self._lock:
+                if len(self._ctx_cache) >= CONTEXT_CACHE_ENTRIES:
+                    self._ctx_cache.clear()
+                self._ctx_cache[context] = ctx_emb
+        else:
+            q_emb = self.embed_texts([query])[0]
+        sim = float(
+            np.dot(q_emb, ctx_emb)
+            / max(float(np.linalg.norm(q_emb) * np.linalg.norm(ctx_emb)),
+                  1e-12)
+        )
+        return sim >= self.config.threshold, sim
+
+    def warmup(self) -> None:
+        self.embed_texts(["warmup"])

@@ -1,3 +1,4 @@
-"""GPT-2 on plain tensors (`gpt2`), its building blocks (`common`), weight
-conversion from HF safetensors and from the JAX package (`convert`), and
-the preset table (`registry`)."""
+"""GPT-2 on plain tensors (`gpt2`), the relevance gate's BERT encoder
+(`bert`), their building blocks (`common`), weight-only int8 (`quant`),
+weight conversion from HF safetensors and from the JAX package
+(`convert`), and the serving preset table (`registry`)."""

@@ -1,4 +1,6 @@
-"""Shared building blocks for the port's models, on plain tensors.
+"""Shared building blocks for the port's models, on plain tensors: GPT-2
+(the tutoring model) and the BERT encoder of the relevance gate (carried
+as an encoder only, not as a serving preset).
 
 Counterpart of `distributed_lms_raft_llm_tpu/models/common.py` (the dense
 and int8 branches of `dense`, the KV cache with its int8 scale planes,
@@ -43,6 +45,17 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(dtype)
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer i's weights as views into the stacked block tensors (an int8
+    ``{"q", "s"}`` pair is indexed leaf by leaf)."""
+
+    def take(v):
+        return {k: x[i] for k, x in v.items()} if isinstance(v, dict) else v[i]
+
+    return {name: {k: take(v) for k, v in group.items()}
+            for name, group in params["blocks"].items()}
 
 
 def dense(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:

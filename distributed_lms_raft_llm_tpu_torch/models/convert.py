@@ -1,11 +1,14 @@
 """Weights into the port: HF safetensors and JAX parameter trees.
 
-Port of the GPT-2 half of `distributed_lms_raft_llm_tpu/models/convert.py`.
+Port of the GPT-2 and BERT parts of
+`distributed_lms_raft_llm_tpu/models/convert.py`.
 
 - `load_safetensors` reads a `.safetensors` file with the standard library
   and numpy alone (no `safetensors` package);
 - `gpt2_params_from_hf` maps HF GPT-2 names onto the `gpt2.py` tree and
   casts in torch to `cfg.param_dtype` (numpy has no bfloat16);
+- `bert_config_from_hf` and `bert_params_from_hf` do the same for an HF
+  `BertModel` (the relevance gate's encoder; the pooler is not used);
 - `params_from_jax` carries a JAX parameter tree, exported to numpy, across
   unchanged in layout: the two packages then hold the same weights. The
   weight-only int8 pairs ``{"q": int8, "s": f32}`` of a quantized tree come
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike
+from .bert import BertConfig
 from .gpt2 import GPT2Config
 
 _DTYPES = {
@@ -117,6 +121,71 @@ def gpt2_params_from_hf(sd: Mapping[str, Any], cfg: GPT2Config,
             },
         },
         "lnf": {"scale": one("ln_f.weight"), "bias": one("ln_f.bias")},
+    }
+
+
+def bert_config_from_hf(hf_config: Mapping[str, Any], **kw) -> BertConfig:
+    """A `BertConfig` from an HF `config.json` dict (`kw`: dtypes)."""
+    return BertConfig(
+        vocab_size=hf_config["vocab_size"],
+        max_position_embeddings=hf_config["max_position_embeddings"],
+        type_vocab_size=hf_config.get("type_vocab_size", 2),
+        hidden_size=hf_config["hidden_size"],
+        num_layers=hf_config["num_hidden_layers"],
+        num_heads=hf_config["num_attention_heads"],
+        layer_norm_eps=hf_config.get("layer_norm_eps", 1e-12),
+        **kw,
+    )
+
+
+def bert_params_from_hf(sd: Mapping[str, Any], cfg: BertConfig,
+                        device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """Map HF BertModel weights onto the bert.py tree (pooler ignored)."""
+    sd = _strip_prefix(sd, "bert.")
+    n_layers = cfg.num_layers
+    pd = cfg.param_dtype
+
+    def one(name: str) -> torch.Tensor:
+        return to_tensor(sd[name], pd, device)
+
+    def lin_w(fmt: str) -> torch.Tensor:
+        # torch Linear stores [out, in]; dense takes [in, out].
+        return torch.stack([one(fmt.format(i)).t() for i in range(n_layers)])
+
+    def vec(fmt: str) -> torch.Tensor:
+        return torch.stack([one(fmt.format(i)) for i in range(n_layers)])
+
+    layer = "encoder.layer.{}."
+    p = layer + "attention.self."
+    wq, wk, wv = (lin_w(p + n + ".weight") for n in ("query", "key", "value"))
+    bq, bk, bv = (vec(p + n + ".bias") for n in ("query", "key", "value"))
+    out = layer + "attention.output."
+    return {
+        "embeddings": {
+            "word": one("embeddings.word_embeddings.weight"),
+            "position": one("embeddings.position_embeddings.weight"),
+            "token_type": one("embeddings.token_type_embeddings.weight"),
+            "ln": {"scale": one("embeddings.LayerNorm.weight"),
+                   "bias": one("embeddings.LayerNorm.bias")},
+        },
+        "blocks": {
+            "attn": {
+                "wqkv": torch.cat([wq, wk, wv], dim=-1),
+                "bqkv": torch.cat([bq, bk, bv], dim=-1),
+                "wo": lin_w(out + "dense.weight"),
+                "bo": vec(out + "dense.bias"),
+            },
+            "attn_ln": {"scale": vec(out + "LayerNorm.weight"),
+                        "bias": vec(out + "LayerNorm.bias")},
+            "mlp": {
+                "wi": lin_w(layer + "intermediate.dense.weight"),
+                "bi": vec(layer + "intermediate.dense.bias"),
+                "wo": lin_w(layer + "output.dense.weight"),
+                "bo": vec(layer + "output.dense.bias"),
+            },
+            "mlp_ln": {"scale": vec(layer + "output.LayerNorm.weight"),
+                       "bias": vec(layer + "output.LayerNorm.bias")},
+        },
     }
 
 

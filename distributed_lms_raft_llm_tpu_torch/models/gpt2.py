@@ -48,6 +48,7 @@ from .common import (
     causal_window_mask,
     dense,
     layer_norm,
+    layer_params,
     merge_heads,
     quantize_kv,
     split_heads,
@@ -151,17 +152,6 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int,
     return KVCache.create(cfg.num_layers, batch, cfg.num_heads, max_len,
                           cfg.head_dim, dtype or cfg.dtype, device,
                           quantized=quantized)
-
-
-def layer_params(params: Params, i: int) -> Params:
-    """Layer i's weights as views into the stacked block tensors (an int8
-    ``{"q", "s"}`` pair is indexed leaf by leaf)."""
-
-    def take(v):
-        return {k: x[i] for k, x in v.items()} if isinstance(v, dict) else v[i]
-
-    return {name: {k: take(v) for k, v in group.items()}
-            for name, group in params["blocks"].items()}
 
 
 def apply_block(x: torch.Tensor, lp: Params, attend_fn,

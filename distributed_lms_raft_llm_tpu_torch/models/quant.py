@@ -1,10 +1,11 @@
 """Weight-only int8 quantization, on tensors.
 
-Port of `distributed_lms_raft_llm_tpu/models/quant.py` (the GPT-2 leaves).
-A quantized linear is the dict ``{"q": int8 [..., in, out], "s": f32 [...,
-out]}`` in place of the dense tensor; an embedding table is ``{"q": int8
-[V, D], "s": f32 [V]}`` (per-row scales, so the tied unembedding scales per
-vocab row). `common.dense`, `embed_lookup` and `unembed` take either form.
+Port of `distributed_lms_raft_llm_tpu/models/quant.py` (the GPT-2 and the
+BERT leaves). A quantized linear is the dict ``{"q": int8 [..., in, out],
+"s": f32 [..., out]}`` in place of the dense tensor; an embedding table is
+``{"q": int8 [V, D], "s": f32 [V]}`` (per-row scales, so the tied
+unembedding scales per vocab row). `common.dense`, `embed_lookup` and
+`unembed` take either form.
 
 The quantizers keep the JAX package's op order (``s = max|w| / 127``,
 ``max(s, 1e-8)``, ``round(w / s)`` by division, clip to +-127), and
@@ -35,8 +36,16 @@ _QUANT_LEAVES = {
         ("blocks", "mlp", "wi"),
         ("blocks", "mlp", "wo"),
     },
+    "bert": {
+        ("embeddings", "word"),
+        ("blocks", "attn", "wqkv"),
+        ("blocks", "attn", "wo"),
+        ("blocks", "mlp", "wi"),
+        ("blocks", "mlp", "wo"),
+    },
 }
-_EMBEDDING_LEAVES = {("wte",)}
+# Tables looked up by row: per-row scales.
+_EMBEDDING_LEAVES = {("wte",), ("embeddings", "word")}
 
 
 def _quantize(w: torch.Tensor, dim: int) -> Dict[str, torch.Tensor]:

@@ -9,7 +9,9 @@ drives a family through the same surface as the JAX package's:
     params_from_hf(state_dict, cfg, device) -> params
 
 Other presets of the JAX package (larger GPT-2s, Llama, MoE) are refused
-until a later slice ports them.
+until a later slice ports them. BERT (`models/bert.py`) is carried for
+the relevance gate (`engine/gate.py`) only: an encoder, not a serving
+preset, so it has no entry here.
 """
 
 from __future__ import annotations

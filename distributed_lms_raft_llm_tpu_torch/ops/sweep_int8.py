@@ -12,9 +12,12 @@ time the card could take. Consecutive timed calls walk distinct copies of
 the weight, more than 100 MB of them, so the 50 MB L2 cannot hold what
 the next call reads; the dequantized copies are walked the same way. Then
 the 49 products of one decode model call (12 layers of distinct weights,
-124 MB). With `--splits`: the dense products at M=16 at each forced K
-split instead. One JSON line a case, then the card's `nvidia-smi` name and
-power limit.
+124 MB). The relevance gate's products too: BERT-base's four products
+have GPT-2 small's dense shapes, at the gate's rows (texts x length
+bucket, GATE_ROWS), then one int8 gate forward's 48 products at each of
+those M. With `--splits`: the dense products at M=16 at each forced K
+split instead. One JSON line a case, then the card's `nvidia-smi` name
+and power limit.
 
 Uses only `quant_matmul.int8_matmul`/`int8_matmul_reference`, the
 quantizers and `ops/timing.py`, so the file can be copied beside another
@@ -48,6 +51,13 @@ INT8_PRODUCTS = {
     "mlp.wo": (3072, 768, False),
     "wte.unembed": (768, 50257, True),
 }
+# The relevance gate's rows M = texts x length bucket: a check's forward
+# holds 1 or 2 texts in a bucket of 64 to 512 tokens, so M runs from 64 to
+# 1,024; the two ends of the product sweep beside decode's and prefill's.
+GATE_ROWS = (128, 1024)
+GATE_PRODUCTS = tuple(name for name, (_, _, transposed)
+                      in INT8_PRODUCTS.items() if not transposed)
+
 # Tolerances of the int8 matmul against its plain version, relative to
 # each element (rtol) and to the output's largest magnitude (atol). float32
 # and the float32 logits: the summation order over K (bf16 x int8 products
@@ -155,10 +165,11 @@ def int8_matmul_case(*, name, m, dtype, n_layers=12, seed=0):
     return rec
 
 
-def int8_model_call(*, m=16, dtype="bfloat16", n_layers=12):
+def int8_model_call(*, m=16, dtype="bfloat16", n_layers=12, unembed=True):
     """The 49 int8 products of one decode model call (4 a layer x 12, then
-    the unembedding), in the model's order, timed as one unit: kernel,
-    plain, cuBLAS against pre-dequantized weights, and the summed bound."""
+    the unembedding; without `unembed` the 48 of a BERT-base forward), in
+    the model's order, timed as one unit: kernel, plain, cuBLAS against
+    pre-dequantized weights, and the summed bound."""
     dt = getattr(torch, dtype)
     weights = {}
     for seed, name in enumerate(INT8_PRODUCTS):
@@ -168,7 +179,8 @@ def int8_model_call(*, m=16, dtype="bfloat16", n_layers=12):
           3072: torch.randn((m, 3072), device="cuda").to(dt)}
     order = [(name, i) for i in range(n_layers)
              for name in ("attn.wqkv", "attn.wo", "mlp.wi", "mlp.wo")]
-    order.append(("wte.unembed", 0))
+    if unembed:
+        order.append(("wte.unembed", 0))
     bound_us = 0.0
     for name, _ in order:
         _, _, _, k, n, tr = weights[name]
@@ -255,17 +267,23 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = card()
     records = []
+    cases, calls = [], []
     if args.splits:
         for rec in split_sweep(dtype=args.dtype):
             records.append(rec)
             print(json.dumps(rec), flush=True)
-    for name in ([] if args.splits else INT8_PRODUCTS):
-        for m in (int(v) for v in args.m.split(",")):
-            records.append(int8_matmul_case(name=name, m=m, dtype=args.dtype))
-            print(json.dumps(records[-1]), flush=True)
-    if not args.splits:
+    else:
+        cases = [(name, int(m)) for name in INT8_PRODUCTS
+                 for m in args.m.split(",")]
+        cases += [(name, m) for name in GATE_PRODUCTS for m in GATE_ROWS
+                  if (name, m) not in cases]
+        calls = [{}] + [dict(m=m, unembed=False) for m in GATE_ROWS]
+    for name, m in cases:
+        records.append(int8_matmul_case(name=name, m=m, dtype=args.dtype))
+        print(json.dumps(records[-1]), flush=True)
+    for kw in calls:
         records.append(dict(model_call=True,
-                            **int8_model_call(dtype=args.dtype)))
+                            **int8_model_call(dtype=args.dtype, **kw)))
         print(json.dumps(records[-1]), flush=True)
     if args.out:
         with open(args.out, "a") as f:

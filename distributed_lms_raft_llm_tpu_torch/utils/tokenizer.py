@@ -1,12 +1,15 @@
-"""GPT-2 tokenizers for the port's serving path — pure Python.
+"""Tokenizers for the port's serving path and relevance gate — pure Python.
 
-The port's own copy of the GPT-2 half of
-`distributed_lms_raft_llm_tpu/utils/tokenizer.py`:
+The port's own copy of `distributed_lms_raft_llm_tpu/utils/tokenizer.py`
+(less the `tokenizers`-backed `HFTokenizer`):
 
 - `BPETokenizer`  — GPT-2's byte-level BPE, from `vocab.json` + `merges.txt`;
+- `WordPieceTokenizer` — BERT's WordPiece, from `vocab.txt`, behind BERT's
+  basic pre-split (lowercase, accent stripping, punctuation and CJK
+  splits): the relevance gate's tokenizer;
 - `ByteTokenizer` — the byte-level fallback (ids 0..255 plus one special)
-  used when no vocab files are configured, so the serving stack runs end to
-  end with seeded random weights;
+  used when no vocab files are configured, so the serving stack and the
+  gate run end to end with seeded random weights;
 - `full_byte_vocab` — a seeded byte-level vocabulary of GPT-2's size in
   which every id decodes to non-empty text (the byte fallback drops every
   id >= 256), for checks that must see each sampled token.
@@ -15,16 +18,17 @@ The port's own copy of the GPT-2 half of
 only when a BPE tokenizer is built, so the byte path runs without it.
 
 All expose: `encode(text) -> List[int]`, `decode(ids) -> str`,
-`decode_complete(ids) -> str`, `vocab_size`, `eos_id`, `pad_id`.
+`vocab_size`, `eos_id`, `pad_id`; the GPT-2 ones also
+`decode_complete(ids) -> str`.
 """
 
 from __future__ import annotations
 
 import codecs
 import json
+import unicodedata
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
-
 
 
 @lru_cache()
@@ -140,6 +144,131 @@ class BPETokenizer:
         return _complete_text(self._bytes(ids))
 
 
+class WordPieceTokenizer:
+    """BERT WordPiece from vocab.txt, with BERT basic (lowercase) pre-split."""
+
+    def __init__(self, vocab: Dict[str, int], lowercase: bool = True):
+        self.vocab = dict(vocab)
+        self.ids_to_tokens = {v: k for k, v in self.vocab.items()}
+        self.lowercase = lowercase
+        self.unk_id = self.vocab.get("[UNK]", 0)
+        self.cls_id = self.vocab.get("[CLS]", 0)
+        self.sep_id = self.vocab.get("[SEP]", 0)
+        self.pad_id = self.vocab.get("[PAD]", 0)
+        self.eos_id = self.sep_id
+
+    @classmethod
+    def from_file(cls, vocab_path: str, lowercase: bool = True) -> "WordPieceTokenizer":
+        vocab = {}
+        with open(vocab_path, encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                vocab[line.rstrip("\n")] = i
+        return cls(vocab, lowercase)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @staticmethod
+    def _is_punct(ch: str) -> bool:
+        # BERT's definition: ASCII symbol ranges (treated as punctuation even
+        # where unicode says otherwise, e.g. $ ^ `) or any unicode P category.
+        cp = ord(ch)
+        if (33 <= cp <= 47) or (58 <= cp <= 64) or (91 <= cp <= 96) or (123 <= cp <= 126):
+            return True
+        return unicodedata.category(ch).startswith("P")
+
+    @staticmethod
+    def _is_cjk(ch: str) -> bool:
+        cp = ord(ch)
+        return (
+            0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+            or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
+            or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
+            or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F
+        )
+
+    def _split(self, text: str) -> List[str]:
+        """BERT basic tokenization: clean, CJK-space, lowercase+strip accents,
+        whitespace-split, then isolate punctuation (matches HF BertTokenizer's
+        BasicTokenizer so WordPiece sees identical words)."""
+        cleaned = []
+        for ch in text:
+            cp = ord(ch)
+            cat = unicodedata.category(ch)
+            if cp == 0 or cp == 0xFFFD or (cat.startswith("C") and ch not in "\t\n\r"):
+                continue
+            if ch in "\t\n\r" or cat == "Zs":
+                cleaned.append(" ")
+            elif self._is_cjk(ch):
+                cleaned.append(f" {ch} ")
+            else:
+                cleaned.append(ch)
+        text = "".join(cleaned)
+        if self.lowercase:
+            text = text.lower()
+            text = "".join(
+                ch for ch in unicodedata.normalize("NFD", text)
+                if unicodedata.category(ch) != "Mn"
+            )
+        out: List[str] = []
+        for chunk in text.split():
+            cur = ""
+            for ch in chunk:
+                if self._is_punct(ch):
+                    if cur:
+                        out.append(cur)
+                        cur = ""
+                    out.append(ch)
+                else:
+                    cur += ch
+            if cur:
+                out.append(cur)
+        return out
+
+    def _wordpiece(self, word: str) -> List[int]:
+        if len(word) > 100:
+            return [self.unk_id]
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            piece_id = None
+            while start < end:
+                piece = word[start:end]
+                if start > 0:
+                    piece = "##" + piece
+                if piece in self.vocab:
+                    piece_id = self.vocab[piece]
+                    break
+                end -= 1
+            if piece_id is None:
+                return [self.unk_id]
+            ids.append(piece_id)
+            start = end
+        return ids
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        ids: List[int] = []
+        for word in self._split(text):
+            ids.extend(self._wordpiece(word))
+        if add_special_tokens:
+            ids = [self.cls_id] + ids + [self.sep_id]
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        toks = [self.ids_to_tokens.get(int(i), "[UNK]") for i in ids]
+        out = []
+        for t in toks:
+            if t in ("[CLS]", "[SEP]", "[PAD]"):
+                continue
+            if t.startswith("##") and out:
+                out[-1] += t[2:]
+            else:
+                out.append(t)
+        return " ".join(out)
+
+
 class ByteTokenizer:
     """Fallback: UTF-8 bytes as ids 0..255; specials above.
 
@@ -207,4 +336,13 @@ def load_gpt2_tokenizer(
     both are given, else the byte fallback."""
     if vocab_path and merges_path:
         return BPETokenizer.from_files(vocab_path, merges_path)
+    return ByteTokenizer()
+
+
+def load_bert_tokenizer(vocab_path: Optional[str] = None):
+    """The relevance gate's tokenizer: BERT WordPiece from `vocab.txt` when
+    given, else the byte fallback (whose `cls_id`/`sep_id` frame a text as
+    WordPiece's do)."""
+    if vocab_path:
+        return WordPieceTokenizer.from_file(vocab_path)
     return ByteTokenizer()

@@ -1,9 +1,11 @@
-"""The deployment's GPT-2 checkpoint and trained BPE in the port, on the CPU.
+"""The deployment's checkpoints and trained vocabularies in the port, on
+the CPU.
 
 `data/gpt2-local/{model.safetensors,vocab.json,merges.txt}` is what
-configs/cluster.toml's tutoring node serves (built offline by
-scripts/make_local_checkpoint.py; gitignored). Held against the JAX
-package on those files:
+configs/cluster.toml's tutoring node serves, and
+`data/bert-local/{model.safetensors,vocab.txt}` what its relevance gate
+loads (both built offline by scripts/make_local_checkpoint.py;
+gitignored). Held against the JAX package on the GPT-2 files:
 
 - the weights through the port's `convert.load_safetensors` and
   `gpt2_params_from_hf` equal the JAX loader's tree, and GPT-2 small's
@@ -16,7 +18,13 @@ package on those files:
   id of the vocabulary to the same text, ids whose bytes end inside a
   UTF-8 character included (alone, and completed by the next id).
 
-Skipped only when the files are absent.
+And on the BERT files: the weights through both packages' converters are
+equal leaf for leaf, and the gate built on the checkpoint and the
+WordPiece vocabulary in float32 embeds texts within 1e-5 of the JAX gate
+(twelve layers of float32 sums in another order) and decides every pair
+alike.
+
+Each case is skipped only when its files are absent.
 """
 
 import os
@@ -27,6 +35,11 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_lms_raft_llm_tpu.engine.gate import (
+    GateConfig as JaxGateConfig,
+    RelevanceGate as JaxGate,
+)
+from distributed_lms_raft_llm_tpu.models import bert as jax_bert
 from distributed_lms_raft_llm_tpu.models import convert as jax_convert
 from distributed_lms_raft_llm_tpu.models import gpt2 as jax_gpt2
 from distributed_lms_raft_llm_tpu.utils.tokenizer import (
@@ -34,10 +47,12 @@ from distributed_lms_raft_llm_tpu.utils.tokenizer import (
 )
 from distributed_lms_raft_llm_tpu_torch.engine import (
     EngineConfig,
+    GateConfig,
+    RelevanceGate,
     SamplingParams,
     TutoringEngine,
 )
-from distributed_lms_raft_llm_tpu_torch.models import convert, gpt2
+from distributed_lms_raft_llm_tpu_torch.models import bert, convert, gpt2
 from distributed_lms_raft_llm_tpu_torch.serving.prompts import PROMPT_TEMPLATE
 from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import BPETokenizer
 
@@ -45,11 +60,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOCAL = os.path.join(REPO, "data", "gpt2-local")
 FILES = {name: os.path.join(LOCAL, name)
          for name in ("model.safetensors", "vocab.json", "merges.txt")}
+BERT_LOCAL = os.path.join(REPO, "data", "bert-local")
+BERT_FILES = {name: os.path.join(BERT_LOCAL, name)
+              for name in ("model.safetensors", "vocab.txt")}
 
-pytestmark = pytest.mark.skipif(
-    not all(os.path.exists(p) for p in FILES.values()),
-    reason="data/gpt2-local is absent (built by "
-    "scripts/make_local_checkpoint.py)")
+
+def _require(files, name):
+    if not all(os.path.exists(p) for p in files.values()):
+        pytest.skip(f"data/{name} is absent (built by "
+                    "scripts/make_local_checkpoint.py)")
+
 
 CORPUS = [
     "What is the Raft consensus algorithm?",
@@ -67,6 +87,7 @@ ATOL_OF_RANGE = 1e-5
 
 @pytest.fixture(scope="module")
 def tokenizers():
+    _require(FILES, "gpt2-local")
     return (BPETokenizer.from_files(FILES["vocab.json"], FILES["merges.txt"]),
             JaxBPE.from_files(FILES["vocab.json"], FILES["merges.txt"]))
 
@@ -119,6 +140,7 @@ def test_bpe_ids_ending_inside_a_character(tokenizers):
 @pytest.fixture(scope="module")
 def models():
     """The checkpoint in both packages at GPT-2 small's width, float32."""
+    _require(FILES, "gpt2-local")
     sd = convert.load_safetensors(FILES["model.safetensors"])
     jsd = jax_convert.load_safetensors(FILES["model.safetensors"])
     assert sorted(sd) == sorted(jsd)
@@ -186,3 +208,65 @@ def test_logits_and_greedy_tokens_equal_jax(models, tokenizers):
     steps = want[len(ids) - 1:]
     assert [int(np.argmax(row)) for row in steps] == greedy
     assert [int(np.argmax(row)) for row in got[len(ids) - 1:]] == greedy
+
+
+# ------------------------------------------- the relevance gate's BERT
+
+GATE_QUESTIONS = ["How does Raft elect a leader?",
+                  "What is a binary search tree?",
+                  "Comment préparer une crème brûlée ?"]
+GATE_CONTEXTS = [
+    "Homework 3: implement leader election and log replication in Raft.",
+    "Distributed systems, CS 451 notes, week 6: Raft keeps a replicated "
+    "log consistent across servers by electing a leader for a term; the "
+    "leader appends entries and replicates them to a majority before "
+    "they commit. " * 3,
+    "",
+]
+
+
+def test_bert_params_from_the_checkpoint_equal_jax():
+    _require(BERT_FILES, "bert-local")
+    sd = convert.load_safetensors(BERT_FILES["model.safetensors"])
+    jsd = jax_convert.load_safetensors(BERT_FILES["model.safetensors"])
+    assert sorted(sd) == sorted(jsd)
+    jcfg = jax_bert.BertConfig.base_uncased()
+    cfg = bert.BertConfig.base_uncased()
+    jflat = dict(jax.tree_util.tree_flatten_with_path(
+        jax_convert.bert_params_from_hf(jsd, jcfg))[0])
+    port = {}
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, path + (key,))
+            else:
+                port[path + (key,)] = value
+
+    walk(convert.bert_params_from_hf(sd, cfg, device="cpu"), ())
+    assert len(jflat) == len(port) == 17
+    assert tuple(port[("blocks", "attn", "wqkv")].shape) == (12, 768, 2304)
+    for jpath, value in jflat.items():
+        key = tuple(p.key for p in jpath)
+        np.testing.assert_array_equal(port[key].numpy(), np.asarray(value))
+
+
+def test_gate_on_the_checkpoint_equals_jax():
+    _require(BERT_FILES, "bert-local")
+    common = dict(model="bert-base-uncased",
+                  checkpoint=BERT_FILES["model.safetensors"],
+                  vocab_path=BERT_FILES["vocab.txt"])
+    jgate = JaxGate(JaxGateConfig(dtype=jnp.float32, **common))
+    gate = RelevanceGate(GateConfig(dtype=torch.float32, device="cpu",
+                                    **common))
+    assert gate.tokenizer.vocab_size == jgate.tokenizer.vocab_size <= 30522
+    texts = GATE_QUESTIONS + GATE_CONTEXTS
+    assert {gate._encode([t])[0].shape[1] for t in texts} == {64, 128}
+    np.testing.assert_allclose(gate.embed_texts(texts),
+                               jgate.embed_texts(texts), atol=1e-5, rtol=0)
+    for q in GATE_QUESTIONS:
+        for c in GATE_CONTEXTS:
+            passed, sim = gate.check(q, c)
+            jpassed, jsim = jgate.check(q, c)
+            assert sim == pytest.approx(jsim, abs=1e-5)
+            assert passed == jpassed

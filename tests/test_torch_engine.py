@@ -275,6 +275,7 @@ def test_port_imports_no_jax():
                          check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("ops.attention", "ops.quant_matmul", "models.quant",
+                   "models.bert", "engine.gate",
                    "engine.paged", "engine.batcher", "utils.tracing",
                    "utils.healthz", "utils.metrics_registry",
                    "serving.tutoring_server"):

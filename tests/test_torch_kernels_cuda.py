@@ -200,13 +200,14 @@ def _int8_inputs(card, dtype, m, k, n, transposed, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("m", [1, 15, 16, 17, 32, 100, 256])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 32, 100, 128, 256, 1024])
 @pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
 def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
     """The weight-only int8 product against its plain version (the JAX
     expression) and against a float64 product, at decode (M = 1, 16),
     partial row tiles (15, 17, 100), the fused admission chunk (32: one
-    64-row tile, half filled) and prefill (256). float32, and the
+    64-row tile, half filled), prefill (256) and the relevance gate's
+    rows (128 and 1,024: texts x length bucket). float32, and the
     float32 logits of the transposed layout: the summation order over K
     differs (bf16 x int8 products are exact in float32 on the tensor
     cores), rtol 1e-5 with atol 1e-5 of the output's scale. bf16 dense: the
@@ -256,6 +257,52 @@ def test_int8_matmul_is_deterministic(card, m, k, n, transposed):
     second = quant_matmul.int8_matmul(x, q, s, b, transposed=transposed)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# ------------------------------------------------ the relevance gate
+
+GATE_PAIRS = [("How does Raft elect a leader?",
+               "Raft elects a leader by majority vote for each term. " * k)
+              for k in (1, 3, 8, 12)] + [("What is a heap?", "")]
+
+
+@pytest.mark.cuda
+def test_bf16_and_int8_gates_track_the_float32_gate(card):
+    """The relevance gate at bert-base width on the card (seeded random
+    weights, byte tokenizer): bf16 similarities within 2e-2 of float32's
+    (`chip_smoke.py`'s bf16 tolerance), the int8 gate's within 0.05 (the
+    JAX package's bound), a cache hit within 1e-5 of the joint miss in
+    float32; the int8 gate runs 48 tensor-core int8 products a forward,
+    the others none."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        GateConfig,
+        RelevanceGate,
+    )
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+
+    gates = {name: RelevanceGate(GateConfig(dtype=dtype, quant=quant))
+             for name, dtype, quant in (("f32", torch.float32, None),
+                                        ("bf16", torch.bfloat16, None),
+                                        ("int8", torch.bfloat16, "int8"))}
+    sims = {}
+    for name, gate in gates.items():
+        quant_matmul.reset_launch_counts()
+        before = gate.forwards
+        sims[name] = [gate.check(q, c)[1] for q, c in GATE_PAIRS]
+        mma = quant_matmul.launch_counts[quant_matmul.MMA]
+        assert quant_matmul.launch_counts[quant_matmul.KERNEL] == mma
+        assert mma == (48 * (gate.forwards - before) if name == "int8"
+                       else 0)
+    for f32, bf16, int8 in zip(sims["f32"], sims["bf16"], sims["int8"]):
+        assert abs(bf16 - f32) <= 2e-2 and abs(int8 - f32) < 0.05
+    gate = gates["f32"]
+    query, ctx = GATE_PAIRS[2]
+    emb = gate.embed_texts([query, ctx])
+    joint = float(np.dot(emb[0], emb[1])
+                  / (np.linalg.norm(emb[0]) * np.linalg.norm(emb[1])))
+    gate._ctx_cache.clear()
+    assert gate.check(query, ctx)[1] == pytest.approx(joint, abs=1e-5)
+    assert gate.check(query, ctx)[1] == pytest.approx(joint, abs=1e-5)
 
 
 # ------------------------------------- the paged engine's CUDA graphs
