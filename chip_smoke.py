@@ -42,8 +42,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (device busy share); then the paged engine in float32 with int8 weights,
    with an int8 and with a dense cache, kernel-path greedy tokens equal to
    the plain attention path's;
-4c. the deployment config (configs/cluster.toml's tutoring node less
-   speculative decoding): the production path above plus megastep 4
+4c. the deployment config (configs/cluster.toml's tutoring node, its
+   speculative decoding left out there): the production path above plus megastep 4
    (controller ceiling 8) as CUDA-graph replays, fused staged admission at
    32 prompt tokens an iteration and the radix prefix cache at 512 blocks,
    answering two waves: one course prompt (a long shared course context)
@@ -104,7 +104,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    `check` latency p50 over 20 calls per bucket, miss and hit, the first
    check after warmup(), and a `torch.profiler` window of misses at
    buckets 64 and 512 (kernels per forward, device busy share), beside
-   phase 5's TTFT over the stream.
+   phase 5's TTFT over the stream;
+7. speculative decoding (configs/cluster.toml [tutoring] with its
+   commented-out spec_tokens = 8, prompt lookup): (a) the decode-attention
+   kernel's window variant (T = k+1 query rows a row, each with its own
+   causal frontier) against its plain version, row by row (each query
+   row's error against its own largest output) and with two planted
+   frontier faults that must fail that check, at T = 2 and 9, int8 and
+   bf16 caches, widths 384 and 640, ragged frontiers one of which reaches
+   the width, with its µs, bound and SDPA over a [B, 1, T, S] mask
+   beside; (b) the bucketed engine with spec 8 (the kernel against its
+   plain version first at this engine's rows and cache width with its
+   padding bias, bf16 and float32; window launches = 12 x verify windows;
+   float32 tokens equal the plain decoder's) and the float32 deployment
+   with spec 8 equal to phase 4c's float32 deployment on its 24 requests,
+   24 of 24; (c) the bf16 deployment with spec 8 (the kernel against its
+   plain version first at each of its cache widths, 16 slots, T = 9, int8
+   cache), through `PagedQueue` on 4c's two waves:
+   tokens/s, TTFT, spec_tokens_per_window, spec_accepted_tokens, model
+   calls per token, kernels and device ms per verify model call, the
+   drain's busy share, answers beside 4c's (first divergences with their
+   top-2 margins), window launches = 12 x verify model calls through the
+   replays, no other attention variant, no capture while serving; (d) the
+   n-gram drafter under the reference sampling (every answer non-empty,
+   acceptance); (e) the server built from --spec-tokens 8, and 4 unary
+   answers and 4 streams over gRPC equal to the engine's direct answers
+   under phase 5's tokenizer.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -1215,10 +1240,14 @@ def flip_logits_witness(torch, eng, prompts, factor=2.0) -> dict:
 
 def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
                      metrics_cls, config_cls, sampling_cls, prod,
-                     profile_4b, drain_4b) -> dict:
+                     profile_4b, drain_4b) -> tuple:
     """Phase 4c: the deployment config through `PagedQueue`, its kernel
     routes counted through the graph replays, its profile window beside
-    phase 4b's, and its exactness checks (see the module docstring)."""
+    phase 4b's, and its exactness checks (see the module docstring).
+    Returns (its record, what phase 7 holds speculation against: the
+    answers, the greedy tokens of the same 24 requests in bf16 at 128
+    tokens and in float32 at 32, the readings and a decode model call's
+    device ms)."""
     deploy_kw = dict(slots=16, chunk=16, inflight=3, megastep=4,
                      megastep_max=8, prefix_cache=True,
                      prefix_cache_blocks=512, prefill_chunk_tokens=32)
@@ -1335,6 +1364,13 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
          launches_per_model_call_4c=prof["launches_per_model_call"])
     run["profile"] = prof
     run["drain"] = drain
+    batches = (wave1[:1], wave1[1:] + wave2)
+    refs = dict(answers=answers, bf16_tokens=engine_tokens(eng, *batches),
+                decode_call_ms=graph_call_ms(torch, eng, eng.widths[-1]),
+                tokens_per_s=run["tokens_per_s"],
+                ttft_mean_s=run["ttft_mean_s"], ttft_p50_s=run["ttft_p50_s"],
+                model_calls_per_token=model_calls / tokens)
+    run["decode_call_ms_idle"] = refs["decode_call_ms"]
     del eng
     torch.cuda.empty_cache()
 
@@ -1347,7 +1383,6 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
     # prompt), so there the share that agrees and where the others
     # diverge are reported, not held; the flip logits witness below holds
     # the admission route to the cold prefill's accuracy instead.
-    batches = (wave1[:1], wave1[1:] + wave2)
     f32_checks = []
     for dtype, kv_quant in ((torch.float32, True), (torch.float32, False),
                             (torch.bfloat16, True)):
@@ -1386,6 +1421,8 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
             continue
         emit("f32_deployment_vs_sequential", **rec)
         f32_checks.append(rec)
+        if kv_quant:
+            refs["f32_tokens"] = toks["deployment"]
         check(not diverged,
               f"float32 deployment greedy tokens differ from the "
               f"sequential config's (kv_quant={kv_quant}) at requests "
@@ -1427,7 +1464,7 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
               f"({name}): first divergences {rec['first_divergence']}")
     run["bf16_checks"] = bf16_checks
     torch.cuda.empty_cache()
-    return run
+    return run, refs
 
 
 # ------------------------------------------- phase 6: the relevance gate
@@ -1714,6 +1751,392 @@ def gate_phase(torch, attention, quant_matmul, args, streaming) -> dict:
         hit_share_of_stream_ttft=lat["64"]["hit_p50_ms"] / ttft)
     del gates
     torch.cuda.empty_cache()
+    return run
+
+
+# ------------------------------------ phase 7: speculative decoding
+
+SPEC_TOKENS = 8  # configs/cluster.toml [tutoring] spec_tokens (commented out)
+
+
+def graph_call_ms(torch, eng, width, reps=4) -> float:
+    """Device ms of one model call of `eng`'s captured decode (or verify)
+    chunk at `width`, by CUDA-event timing of `reps` replays on an idle
+    state (every slot inactive at length 0: the products and the whole
+    program run, attention reads a key or a window a slot)."""
+    graph, _ = eng._graphs[width]
+    eng.state = eng._init_state(width)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    eng.reset()
+    return start.elapsed_time(end) / (reps * eng.chunk)
+
+
+def divergence_margin(torch, eng, prompt, toks, i) -> float:
+    """top-1 minus top-2 logit where a greedy answer `toks` takes token i:
+    one full-sequence forward of the prompt and toks[:i] on `eng`'s
+    weights."""
+    ids = eng.tokenizer.encode(prompt)[-eng.bucket:] + list(toks[:i])
+    with torch.inference_mode():
+        logits, _ = eng.family.forward(
+            eng.params, eng.cfg, torch.tensor([ids], device=eng.device))
+    top2 = torch.topk(logits[0, -1].float(), 2).values
+    return (top2[0] - top2[1]).item()
+
+
+def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
+               kernel_cases) -> dict:
+    """Phase 7: speculative decoding on the deployment config (see the
+    module docstring). `refs` holds phase 4c's answers, its float32 and
+    bf16 tokens and its decode call's device ms; `kernel_cases` collects
+    the window cases for the kernels line."""
+    import grpc
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        PagedEngine,
+        PagedQueue,
+        SamplingParams,
+        TutoringEngine,
+        graphs,
+    )
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        routes_of_counts,
+        routes_of_names,
+    )
+    from distributed_lms_raft_llm_tpu_torch.engine.spec import verify_width
+    from distributed_lms_raft_llm_tpu_torch.ops import sweep_attention
+    from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2, rpc
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+
+    k = SPEC_TOKENS
+    deploy_kw = dict(slots=16, chunk=16, inflight=3, megastep=4,
+                     megastep_max=8, prefix_cache=True,
+                     prefix_cache_blocks=512, prefill_chunk_tokens=32)
+    run = {}
+
+    # (a) The window kernel against its plain version, row by row, each
+    # case with its planted faults caught: T = 2 and k + 1 at widths 384
+    # and 640; the main paths' own shapes follow in (b) and (c).
+    cases = []
+
+    def window_case(**kw):
+        case = sweep_attention.window_attention_case(**kw)
+        emit("window_attention_case", **case)
+        cases.append(case)
+        return case
+
+    for int8 in (True, False):
+        for t in (2, k + 1):
+            for width in (384, 640):
+                window_case(s=16, width=width, t=t, int8=int8,
+                            seed=width + t + int8)
+    run["window_cases"] = cases
+
+    # (b) Exactness. The bucketed engine: spec 8 through the window kernel
+    # with the padding bias, bf16 (its launches) and float32 (its tokens
+    # equal the plain decoder's). The kernel first, against its plain
+    # version at this engine's own rows and cache width, with the bias.
+    prompts = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]
+    bucketed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        conf = dict(common, dtype=dtype, param_dtype=dtype,
+                    sampling=SamplingParams.greedy(max_new_tokens=32))
+        spec_eng = TutoringEngine(EngineConfig(spec_tokens=k, **conf))
+        check(spec_eng.cfg.fused_decode_attention,
+              "bucketed spec engine without the kernel")
+        ids, mask, bucket = spec_eng.encode_prompts(prompts)
+        width = verify_width(ids.shape[1], conf["sampling"].max_new_tokens,
+                             k)
+        name = str(dtype).split(".")[-1]
+        case = window_case(s=ids.shape[0], width=width, t=k + 1, int8=False,
+                           with_bias=True, dtype=name, seed=11)
+        if dtype == torch.bfloat16:
+            kernel_cases["bucketed"] = case
+        spec_eng.generate_ids(ids[:1], mask[:1])  # first calls, builds
+        attention.reset_launch_counts()
+        w0 = spec_eng.decode_steps
+        got = spec_eng.generate_ids(ids, mask)
+        windows = spec_eng.decode_steps - w0
+        launched = dict(attention.launch_counts)
+        check(windows > 0
+              and launched[attention.WINDOW] == 12 * windows
+              and launched[attention.KERNEL] == 0,
+              f"bucketed spec: window launches {launched} != 12 x "
+              f"{windows} verify windows")
+        plain = TutoringEngine(EngineConfig(**conf))
+        want = plain.generate_ids(ids, mask)
+        equal = [bool((got.tokens[i, :got.lengths[i]]
+                       == want.tokens[i, :want.lengths[i]]).all()
+                      and got.lengths[i] == want.lengths[i])
+                 for i in range(len(prompts))]
+        bucketed[name] = dict(
+            bucket=bucket, rows=ids.shape[0], cache_width=width,
+            windows=windows,
+            plain_decode_steps=plain.decode_steps,
+            window_launches=launched[attention.WINDOW], equal=sum(equal),
+            requests=len(prompts),
+            tokens_per_window=spec_eng.last_spec_tokens_per_window)
+        if dtype == torch.float32:
+            check(all(equal), f"float32 bucketed spec tokens differ from "
+                  f"the plain decoder's: {equal}")
+        del spec_eng, plain
+    emit("spec_bucketed", **bucketed)
+    run["bucketed"] = bucketed
+    main_window_launches = bucketed["bfloat16"]["window_launches"]
+
+    # The float32 deployment with spec 8 against phase 4c's float32
+    # deployment (int8 cache) on its 24 requests.
+    wave1, wave2 = deployment_waves()
+    batches = (wave1[:1], wave1[1:] + wave2)
+    e = PagedEngine(EngineConfig(
+        sampling=SamplingParams.greedy(max_new_tokens=32), spec_tokens=k,
+        **dict(prod, dtype=torch.float32, param_dtype=torch.float32)),
+        **deploy_kw)
+    e.warmup()
+    toks32 = engine_tokens(e, *batches)
+    firsts = [first_divergence(a, b)
+              for a, b in zip(toks32, refs["f32_tokens"])]
+    f32 = dict(requests=len(firsts), equal=sum(f is None for f in firsts),
+               diverged=[i for i, f in enumerate(firsts) if f is not None],
+               tokens=sum(len(t) for t in toks32), spec=e.pop_spec_stats())
+    emit("spec_f32_vs_deployment", **f32)
+    check(f32["equal"] == len(firsts) == 24,
+          f"float32 spec deployment differs from the float32 deployment "
+          f"without spec at requests {f32['diverged']}")
+    run["f32_exactness"] = f32
+    del e
+    torch.cuda.empty_cache()
+
+    # (c) The bf16 deployment with spec 8 through PagedQueue, as phase 4c.
+    eng = PagedEngine(EngineConfig(
+        sampling=SamplingParams.greedy(max_new_tokens=128), spec_tokens=k,
+        **prod), **deploy_kw)
+    cfg = eng.cfg
+    check(eng.cuda_graphs and eng.fused and eng.spec == k
+          and eng.widths == [167, 199, 263, 391] and cfg.quant_kv
+          and cfg.dtype == torch.bfloat16 and cfg.num_layers == 12,
+          f"not the deployment configuration with spec {k}: {cfg}, "
+          f"widths {eng.widths}")
+    # The window kernel against its plain version at every cache width of
+    # this engine, its slots and window (int8 cache, bf16 q); the widest
+    # is the kernels line's.
+    for width in eng.widths:
+        kernel_cases["int8"] = window_case(s=eng.slots, width=width, t=k + 1,
+                                           int8=True, seed=width)
+    warm_s = eng.warmup()
+    captured = {w: {"counted": routes_of_counts(g.captured_launches()),
+                    "graph_kernel_nodes": routes_of_names(g.kernels),
+                    "all_kernel_nodes": sum(g.kernels.values())}
+                for w, (g, _) in eng._graphs.items()}
+    kernels_per_call = {w: c["all_kernel_nodes"] / eng.chunk
+                        for w, c in captured.items()}
+    course = [eng.tokenizer.encode(p)
+              for p in wave1[:1] + wave2[:len(COURSE_QUESTIONS) - 1]]
+    lens = [len(c) for c in course]
+    blk = eng.prefix_cache.block_tokens
+    captures0 = graphs.captures
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
+          eng.graph_replays, eng.host_decisions, eng.total_generated_tokens)
+    blocks0 = eng.prefix_cache.blocks_used
+    answers, wall, snap = run_paged_waves(
+        eng, PagedQueue, Metrics, wave1, wave2,
+        ready=lambda: eng.prefix_cache.blocks_used - blocks0 >= lens[0] // blk)
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    verify_calls = eng.decode_steps - c0[0]
+    adm_calls = eng.admission_chunks - c0[1]
+    model_calls = verify_calls + adm_calls + eng.prefill_calls - c0[2]
+    tokens = eng.total_generated_tokens - c0[5]
+    lat, counters, gauges = snap["latency"], snap["counters"], snap["gauges"]
+    check(len(answers) == 24 and all(isinstance(a, str) for a in answers),
+          "spec deployment: expected 24 string answers")
+    check(verify_calls > 0
+          and launches[attention.WINDOW_INT8KV] == 12 * verify_calls,
+          f"spec deployment: decode_attention_window_int8kv launches "
+          f"{launches[attention.WINDOW_INT8KV]} != 12 x {verify_calls} "
+          f"verify model calls (counted through replays)")
+    check(all(launches[n] == 0 for n in (attention.KERNEL, attention.RAGGED,
+                                         attention.INT8KV, attention.WINDOW)),
+          f"spec deployment: another attention variant ran: {launches}")
+    check(launches[quant_matmul.KERNEL] == 49 * model_calls
+          and launches[quant_matmul.MMA] == 48 * model_calls
+          and launches[quant_matmul.FMA] == 0,
+          f"spec deployment: int8 matmul launches {launches} != 49 x "
+          f"{model_calls} model calls on the tensor cores")
+    check(graphs.captures == captures0,
+          "spec deployment: a CUDA graph was captured while serving")
+    check(counters.get("decode_stalled_tokens", 0) == 0,
+          f"spec deployment: admission stalled decode: {counters}")
+    tpw = gauges.get("spec_tokens_per_window")
+    check(tpw is not None and 1.0 <= tpw <= k + 1,
+          f"spec deployment: spec_tokens_per_window {tpw}")
+    same = sum(a == b for a, b in zip(answers, refs["answers"]))
+    spec_run = dict(
+        wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+        tokens_per_s_4c=refs["tokens_per_s"],
+        ttft_mean_s=lat["ttft"]["mean_s"], ttft_p50_s=lat["ttft"]["p50_s"],
+        ttft_mean_s_4c=refs["ttft_mean_s"], ttft_p50_s_4c=refs["ttft_p50_s"],
+        spec_tokens_per_window=tpw,
+        spec_accepted_tokens=counters.get("spec_accepted_tokens", 0),
+        verify_model_calls=verify_calls, admission_chunks=adm_calls,
+        model_calls=model_calls, model_calls_per_token=model_calls / tokens,
+        model_calls_per_token_4c=refs["model_calls_per_token"],
+        host_decisions_per_token=(eng.host_decisions - c0[4]) / tokens,
+        graph_replays=eng.graph_replays - c0[3],
+        megastep_k_final=gauges.get("megastep_k"),
+        dead_lane_tokens=counters.get("megastep_dead_lane_tokens", 0),
+        prefix_hit_tokens=counters.get("prefix_cache_hit_tokens", 0),
+        answers_equal_4c=same, launches=launches,
+        captures_while_serving=graphs.captures - captures0, warmup_s=warm_s,
+        kernels_per_verify_call=kernels_per_call)
+    emit("spec_deployment_path", **spec_run)
+    drain = profile_drain(torch, eng, wave1 + wave2)
+    spec_run["drain"] = drain
+    spec_run["device_ms_per_model_call"] = (drain["device_busy_us"] / 1e3
+                                            / drain["model_calls_profiled"])
+    emit("profile_spec_drain", **drain)
+    # Greedy tokens beside phase 4c's (the same 24 requests, 128 tokens):
+    # the first divergence of each differing answer, with the top-2 margin
+    # of the logits there (a near-tie flips between two orders of sums).
+    toks = engine_tokens(eng, *batches)
+    windows, emitted = eng.pop_spec_stats()
+    diverged = []
+    for i, (a, b) in enumerate(zip(toks, refs["bf16_tokens"])):
+        j = first_divergence(a, b)
+        if j is not None:
+            prompt = (batches[0] + batches[1])[i]
+            diverged.append(dict(
+                request=i, token=j,
+                top2_margin=divergence_margin(torch, eng, prompt, b, j)))
+    spec_run.update(
+        tokens_equal_4c=len(toks) - len(diverged), diverged=diverged,
+        verify_call_ms_idle=graph_call_ms(torch, eng, eng.widths[-1]),
+        decode_call_ms_idle_4c=refs["decode_call_ms"],
+        drain_tokens_per_window=emitted / max(windows, 1))
+    emit("spec_vs_deployment", tokens_equal=spec_run["tokens_equal_4c"],
+         diverged=diverged, answers_equal=same,
+         verify_call_ms_idle=spec_run["verify_call_ms_idle"],
+         decode_call_ms_idle_4c=refs["decode_call_ms"],
+         device_ms_per_model_call=spec_run["device_ms_per_model_call"],
+         busy_share=drain["device_busy_share"])
+    run["deployment"] = spec_run
+    del eng
+    torch.cuda.empty_cache()
+
+    # (d) The n-gram drafter under the reference sampling.
+    e = PagedEngine(EngineConfig(
+        sampling=SamplingParams.reference_defaults(max_new_tokens=128),
+        spec_tokens=k, draft_source="ngram", **prod), **deploy_kw)
+    e.warmup()
+    attention.reset_launch_counts()
+    steps0 = e.decode_steps
+    toks = engine_tokens(e, *batches)
+    windows, emitted = e.pop_spec_stats()
+    ngram = dict(requests=len(toks), nonempty=sum(bool(t) for t in toks),
+                 tokens=sum(len(t) for t in toks), windows=windows,
+                 tokens_per_window=emitted / max(windows, 1),
+                 window_launches=attention.launch_counts[
+                     attention.WINDOW_INT8KV],
+                 verify_calls=e.decode_steps - steps0)
+    emit("spec_ngram_sampled", **ngram)
+    check(ngram["nonempty"] == 24 and ngram["window_launches"]
+          == 12 * ngram["verify_calls"],
+          f"ngram drafter, reference sampling: {ngram}")
+    run["ngram_sampled"] = ngram
+    del e
+    torch.cuda.empty_cache()
+
+    # (e) gRPC: the server's flags build the spec engine; served greedy
+    # under phase 5's tokenizer, 4 unary answers and 4 streams equal the
+    # engine's direct answers.
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab, merges, _ = phase5_tokenizer(args, Path(tmp))
+        flags = tutoring_server.build_parser().parse_args([
+            "--model", "gpt2", "--paged", "--quant", "int8", "--kv-quant",
+            "--slots", "16", "--chunk", "16", "--inflight", "3",
+            "--megastep", "4", "--megastep-max", "8", "--prefix-cache",
+            "--prefix-cache-blocks", "512", "--prefill-chunk-tokens", "32",
+            "--spec-tokens", str(k), "--draft-source", "prompt_lookup",
+            "--vocab", vocab, "--merges", merges])
+        built = tutoring_server.engine_from_args(flags)
+        check(built.spec == k and built.fused and built.cuda_graphs
+              and built.config.draft_source == "prompt_lookup",
+              "--spec-tokens did not build the spec engine")
+        del built
+        eng = PagedEngine(EngineConfig(
+            sampling=SamplingParams.greedy(max_new_tokens=128),
+            spec_tokens=k, **dict(prod, vocab_path=vocab,
+                                  merges_path=merges)), **deploy_kw)
+        eng.warmup()
+        queries = QUESTIONS[:4]
+        rids = [eng.submit(PROMPT_TEMPLATE.format(query=q)) for q in queries]
+        for rid in rids:
+            eng.stream_watch(rid)
+        eng.drain()
+        finals = eng.pop_final_tokens()
+        direct = [eng.tokenizer.decode(finals[r]).strip() for r in rids]
+        check(all(direct), "spec gRPC: an empty direct answer")
+        captures0 = graphs.captures
+
+        async def go():
+            server = await tutoring_server.serve_async(
+                0, eng, host="127.0.0.1", metrics_port=0,
+                node_id="chip-smoke-spec")
+            try:
+                async with grpc.aio.insecure_channel(
+                        f"127.0.0.1:{server._port}") as channel:
+                    stub = rpc.TutoringStub(channel)
+
+                    async def stream(q):
+                        return [c async for c in stub.StreamLLMAnswer(
+                            lms_pb2.StreamRequest(query=q), timeout=300)]
+
+                    unary = await asyncio.gather(*[stub.GetLLMAnswer(
+                        lms_pb2.QueryRequest(query=q), timeout=300)
+                        for q in queries])
+                    streams = await asyncio.gather(*[stream(q)
+                                                     for q in queries])
+                _, health = await http_json(server._health.port, "GET",
+                                            "/healthz")
+                return unary, streams, health
+            finally:
+                await server.stop(1)
+                await server._queue.close()
+
+        unary, streams, health = asyncio.run(go())
+        for i, (resp, chunks) in enumerate(zip(unary, streams)):
+            full = stream_contract(chunks)
+            check(resp.success and resp.response == direct[i]
+                  and full.strip() == direct[i],
+                  f"spec gRPC: request {i}: unary, stream and direct "
+                  f"answers differ")
+        check(health.get("spec_tokens") == k
+              and health.get("draft_source") == "prompt_lookup",
+              f"spec gRPC: /healthz {health}")
+        check(graphs.captures == captures0,
+              "spec gRPC: a CUDA graph was captured while serving")
+        grpc_rec = dict(requests=len(queries), unary_equal=len(queries),
+                        streams_equal=len(queries),
+                        chunks=[len(c) for c in streams],
+                        healthz_spec_tokens=health.get("spec_tokens"))
+        emit("spec_grpc", **grpc_rec)
+        run["grpc"] = grpc_rec
+        del eng
+    torch.cuda.empty_cache()
+    run["main_window_launches"] = main_window_launches
     return run
 
 
@@ -2059,7 +2482,7 @@ def main(argv=None) -> int:
 
     # 4c. The deployment config: megastep as CUDA-graph replays, fused
     # staged admission and the radix prefix cache on top of phase 4b.
-    records["deployment"] = deployment_phase(
+    records["deployment"], deploy_refs = deployment_phase(
         torch, attention, quant_matmul, PagedEngine, PagedQueue, Metrics,
         EngineConfig, SamplingParams, prod, records["production_profile"],
         records["production_drain"])
@@ -2091,6 +2514,12 @@ def main(argv=None) -> int:
                                  records["streaming"])
     emit("gate", **records["gate"])
 
+    # 7. Speculative decoding on the deployment config, beside phase 4c.
+    window_cases = {}
+    records["spec"] = spec_phase(torch, attention, quant_matmul, prod,
+                                 common, deploy_refs, args, window_cases)
+    spec_launches = records["spec"]["deployment"]["launches"]
+
     records["seconds"] = time.monotonic() - t_start
     def paged_case(int8):  # the production step's shape: 16 slots, width 384
         return next(c for c in paged_cases if c["int8"] == int8
@@ -2113,6 +2542,9 @@ def main(argv=None) -> int:
             "eager_ms": case["kernel_eager_us"] / 1e3,
         }, **extra)
 
+    window_note = ("SDPA, [B, 1, T, S] boolean mask (the int8 cache "
+                   "dequantized beforehand)")
+    bucketed_case, int8_case = window_cases["bucketed"], window_cases["int8"]
     unembed_case = next(c for c in mm_cases if c["name"] == "wte.unembed"
                         and c["m"] == 16 and c["dtype"] == "bfloat16")
     pallas = "distributed_lms_raft_llm_tpu/ops/attention.py:88"
@@ -2154,6 +2586,25 @@ def main(argv=None) -> int:
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],
               library_note=unembed_case["library_note"]),
+        entry(attention.WINDOW, pallas + " (extended: T = k+1 query rows "
+              "a row, the speculative verify window of "
+              "distributed_lms_raft_llm_tpu/models/gpt2.py:367-400)",
+              records["spec"]["main_window_launches"], bucketed_case,
+              library_note=window_note,
+              max_row_rel_err=bucketed_case["max_row_rel_err"],
+              shape=f"{bucketed_case['slots']} rows x T="
+              f"{bucketed_case['t']}, width {bucketed_case['width']}, bf16 "
+              "cache, padding bias (the bucketed engine, spec 8)",
+              launches_path="7b, bucketed bf16 spec 8"),
+        entry(attention.WINDOW_INT8KV, pallas + " (extended: T = k+1 "
+              "query rows a row over the int8 cache, the paged verify "
+              "window of distributed_lms_raft_llm_tpu/engine/paged.py:"
+              "515-606)", spec_launches[attention.WINDOW_INT8KV],
+              int8_case, library_note=window_note,
+              max_row_rel_err=int8_case["max_row_rel_err"],
+              shape=f"{int8_case['slots']} slots x T={int8_case['t']}, "
+              f"width {int8_case['width']}, int8 cache, bf16 q",
+              launches_path="7c, the deployment with spec 8"),
     ]
     records["kernels"] = kernels
     if args.out:

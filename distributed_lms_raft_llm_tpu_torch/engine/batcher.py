@@ -317,6 +317,12 @@ class BatchingQueue:
             if self.metrics is not None:
                 for ttft in ttfts[:len(group)]:
                     self.metrics.hist("ttft").observe(ttft)
+                tpw = getattr(self.engine, "last_spec_tokens_per_window",
+                              None)
+                if tpw is not None:
+                    # Speculation's effect: mean tokens a verify window
+                    # emitted (1.0 = nothing accepted); a ratio, a gauge.
+                    self.metrics.set_gauge("spec_tokens_per_window", tpw)
             for (_, _, fut, _, _), answer in zip(group, answers):
                 if not fut.done():
                     fut.set_result(answer)
@@ -582,8 +588,11 @@ class PagedQueue:
         (`megastep_dead_lane_tokens`), the decode train's admission stall
         (`prefill_stall_ms`, `decode_stalled_tokens`; both 0 under fused
         admission), the run's host dispatches per emitted token, the prefix
-        cache's hit tokens, evictions, blocks in use and hit rate, and the
-        blocks session pins hold (`session_pinned_blocks`)."""
+        cache's hit tokens, evictions, blocks in use and hit rate, the
+        blocks session pins hold (`session_pinned_blocks`), and under
+        speculation the tokens a verify window emits
+        (`spec_tokens_per_window`) and those beyond its guaranteed one
+        (`spec_accepted_tokens`)."""
         pop_waits = getattr(self.engine, "pop_queue_waits", None)
         if pop_waits is not None:
             for rid, wait_s in pop_waits().items():
@@ -607,6 +616,7 @@ class PagedQueue:
             self.engine.pop_dispatch_stats()
         prefix = getattr(self.engine, "pop_prefix_stats", lambda: None)()
         sessions = getattr(self.engine, "session_pin_stats", lambda: None)()
+        spec = getattr(self.engine, "pop_spec_stats", lambda: None)()
         if self.metrics is None:
             return
         for ttft in ttfts.values():
@@ -647,6 +657,13 @@ class PagedQueue:
             # are expired inside the stats call).
             self.metrics.set_gauge("session_pinned_blocks",
                                    float(sessions[1]))
+        if spec is not None and spec[0]:
+            # Speculation: mean tokens a verify window emitted (1.0 =
+            # nothing accepted) and the tokens beyond each window's one.
+            windows, emitted = spec
+            self.metrics.set_gauge("spec_tokens_per_window",
+                                   emitted / windows)
+            self.metrics.inc("spec_accepted_tokens", emitted - windows)
 
     def _emit_stream_progress(self, done: List[Tuple[int, str]]) -> None:
         """Advance every registered stream after an engine step: finals

@@ -13,11 +13,19 @@ engine.py`, on one CUDA device (or the CPU when the caller asks for it):
 - `quant="int8"` quantizes the weights (`models/quant.py`; the products go
   through `ops/quant_matmul.py`) and `kv_quant` makes the KV cache int8
   with per-slot scales. Unlike the JAX engine, `kv_quant` combines with
-  `fused_attention`: the port's kernel reads the int8 cache itself.
+  `fused_attention`: the port's kernel reads the int8 cache itself;
+- `spec_tokens` k > 0 swaps `generate.decode` for `spec.decode_spec`
+  (speculative decoding with prompt-lookup drafts, exact). Unlike the JAX
+  engine it combines with `fused_attention`: the JAX package refuses the
+  pair because its Pallas kernel takes one query row, while the port's
+  kernel has a window variant for the k+1 verify rows, the prompt's left
+  padding going in as the bias the rows share. The kernel takes windows
+  of up to `ops.attention.MAX_WINDOW` rows, so with fused attention
+  `spec_tokens` above MAX_WINDOW - 1 raises at construction.
 
 Options of the JAX engine that the port does not carry yet (tensor/expert/
-sequence parallelism, speculative decoding, the scoring tenant) raise
-`NotImplementedError` at construction.
+sequence parallelism, the scoring tenant) raise `NotImplementedError` at
+construction.
 """
 
 from __future__ import annotations
@@ -32,9 +40,14 @@ import torch
 
 from ..device import resolve_device
 from ..models import convert, quant, registry
+from ..ops import attention as attention_ops
 from ..utils import tokenizer as tok_lib
 from .generate import GenerateResult, decode, pick_bucket, prefill
 from .sampling import SamplingParams
+from .spec import decode_spec
+
+# Speculative draft sources (EngineConfig.draft_source).
+DRAFT_SOURCES = ("prompt_lookup", "ngram")
 
 log = logging.getLogger(__name__)
 
@@ -60,7 +73,13 @@ class EngineConfig:
     kv_quant: bool = False
     # Decode segments (generate.decode): None = 4 small / 8 large batches.
     decode_segments: Optional[int] = None
+    # Speculative decoding: draft this many tokens a step and verify them
+    # in one forward (engine/draft.py), exactly; 0 = off. Both engines.
     spec_tokens: int = 0
+    # Where drafts come from: "prompt_lookup" (the most recent n-gram
+    # continuation) or "ngram" (the slot's modal-continuation table, the
+    # paged engine only).
+    draft_source: str = "prompt_lookup"
     scoring: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
@@ -73,7 +92,7 @@ def refuse_unported(config: EngineConfig) -> None:
     engines)."""
     unported = {
         "tp": config.tp > 1, "ep": config.ep > 1, "sp": config.sp > 1,
-        "spec_tokens": config.spec_tokens > 0, "scoring": config.scoring,
+        "scoring": config.scoring,
     }
     named = [k for k, on in unported.items() if on]
     if named:
@@ -84,9 +103,26 @@ def refuse_unported(config: EngineConfig) -> None:
         raise ValueError(f"unsupported quant mode {config.quant!r}")
 
 
+def check_spec_window(spec_tokens: int, fused: bool) -> None:
+    """Raise where a verify window (spec_tokens + 1 query rows a row) is
+    wider than the attention kernel takes: with fused attention every
+    window runs through it, and none drops to the plain version."""
+    if fused and spec_tokens + 1 > attention_ops.MAX_WINDOW:
+        raise ValueError(
+            f"spec_tokens {spec_tokens}: a verify window of "
+            f"{spec_tokens + 1} rows exceeds the attention kernel's "
+            f"{attention_ops.MAX_WINDOW}; use spec_tokens <= "
+            f"{attention_ops.MAX_WINDOW - 1} or fused_attention=False")
+
+
 class TutoringEngine:
     def __init__(self, config: EngineConfig):
         refuse_unported(config)
+        if config.spec_tokens > 0 and config.draft_source != "prompt_lookup":
+            raise ValueError(
+                f"draft_source {config.draft_source!r} is a paged-engine "
+                "feature (the n-gram table reads the slot transcripts); "
+                "TutoringEngine drafts by prompt_lookup only")
         self.config = config
         self.device = resolve_device(config.device)
         self.family, self.cfg = registry.resolve(
@@ -95,6 +131,7 @@ class TutoringEngine:
         fused = config.fused_attention
         if fused is None:
             fused = self.device.type == "cuda"
+        check_spec_window(config.spec_tokens, fused)
         self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
                                        quant_kv=config.kv_quant)
         self.tokenizer = tok_lib.load_gpt2_tokenizer(
@@ -130,8 +167,13 @@ class TutoringEngine:
 
         self.last_ttft_s: Optional[float] = None
         self.last_batch_ttfts: List[float] = []
+        # Speculation's effect on the last generate: mean tokens a verify
+        # window emitted per real row (1.0 = no draft accepted, spec_tokens
+        # + 1 = all); None until a speculative generate ran.
+        self.last_spec_tokens_per_window: Optional[float] = None
         self.total_generated_tokens = 0
-        # Decode steps (model calls after prefill) run by generate_ids.
+        # Decode steps (model calls after prefill; verify windows under
+        # speculation) run by generate_ids.
         self.decode_steps = 0
         # (program, wall-clock start, seconds) per answer_batch device batch.
         self._prog_times: List[Tuple[str, float, float]] = []
@@ -144,10 +186,13 @@ class TutoringEngine:
         return out
 
     def _max_prompt_len(self) -> int:
+        # Speculation keeps its verify windows inside the position table:
+        # the widest ends k-1 positions past the last budgeted token.
+        extra = max(0, self.config.spec_tokens - 1)
         return min(
             max(self.config.length_buckets),
             self.cfg.max_position_embeddings
-            - self.config.sampling.max_new_tokens,
+            - self.config.sampling.max_new_tokens - extra,
         )
 
     def encode_prompts(self, prompts: Sequence[str],
@@ -190,11 +235,14 @@ class TutoringEngine:
 
     @torch.inference_mode()
     def generate_ids(self, ids: np.ndarray, mask: np.ndarray,
-                     ) -> GenerateResult:
+                     real_rows: Optional[int] = None) -> GenerateResult:
         """Generate for a pre-bucketed id batch; records measured TTFT.
 
         `last_ttft_s` is wall-clock from dispatch to the first sampled
-        token being on the host. Results come back as numpy arrays.
+        token being on the host. Results come back as numpy arrays. Under
+        speculation `last_spec_tokens_per_window` is set from the first
+        `real_rows` rows (default all): batch-bucket filler rows do not
+        count.
         """
         t0 = time.monotonic()
         input_ids = torch.as_tensor(ids, dtype=torch.long).to(self.device)
@@ -206,14 +254,26 @@ class TutoringEngine:
                         self.generator, **statics)
         state.out[:, 0].cpu()  # waits until the first token exists
         self.last_ttft_s = time.monotonic() - t0
-        result, final = decode(self.params, state, self.cfg,
-                               segments=self.config.decode_segments,
-                               **statics)
-        self.decode_steps += final.step - 1
-        return GenerateResult(
+        k = self.config.spec_tokens
+        if k > 0:
+            result, final = decode_spec(self.params, state, input_ids,
+                                        self.cfg, spec_tokens=k, **statics)
+            self.decode_steps += final.windows
+        else:
+            result, final = decode(self.params, state, self.cfg,
+                                   segments=self.config.decode_segments,
+                                   **statics)
+            self.decode_steps += final.step - 1
+        out = GenerateResult(
             tokens=result.tokens.to(torch.int32).cpu().numpy(),
             lengths=result.lengths.to(torch.int32).cpu().numpy(),
         )
+        if k > 0:
+            # The prefill's token (one a row, no window) is left out.
+            n = len(ids) if real_rows is None else real_rows
+            self.last_spec_tokens_per_window = float(
+                (out.lengths[:n].sum() - n) / (max(1, final.windows) * n))
+        return out
 
     def answer_batch(self, prompts: Sequence[str]) -> List[str]:
         """The serving entry: prompts in, decoded answers out. Groups larger
@@ -229,7 +289,7 @@ class TutoringEngine:
             ids, mask, _ = self.encode_prompts(chunk)
             queued_s = time.monotonic() - t_submit
             t_gen, t_gen_unix = time.monotonic(), time.time()
-            result = self.generate_ids(ids, mask)
+            result = self.generate_ids(ids, mask, real_rows=len(chunk))
             self._prog_times.append(
                 ("generate", t_gen_unix, time.monotonic() - t_gen)
             )

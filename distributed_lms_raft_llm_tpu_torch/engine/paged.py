@@ -74,8 +74,18 @@ list is read between steps from the host lists the reap already fills
 transcript into the radix tree at its reap, while the slot's pages still
 hold its KV, and pins it with the session's TTL.
 
+Speculative decoding (`spec_tokens` k > 0), as in the JAX package: each
+chunk iteration is a verify window (`_spec_step_program`): k drafts from
+the slot's transcript (`draft_source`: prompt lookup or the n-gram table,
+`engine/draft.py`), one forward over k+1 positions whose attention runs
+through the kernel's window variant on the card, and the exact verifier;
+a slot emits 1 to k+1 tokens a window and the host walks them from the
+`counts` plane. Widths and the prompt bucket make room for the window's
+k-1 overhang. On the card the verify chunk is captured per width like
+the decode chunk.
+
 Options of the JAX engine not ported yet raise `NotImplementedError` at
-construction: speculative decoding, tp/ep/sp and the scoring tenant.
+construction: tp/ep/sp and the scoring tenant.
 """
 
 from __future__ import annotations
@@ -93,7 +103,13 @@ from ..device import resolve_device
 from ..models import convert, quant, registry
 from ..models.common import KVCache
 from ..utils import tokenizer as tok_lib
-from .engine import EngineConfig, refuse_unported
+from .draft import build_drafts, build_drafts_ngram, verify_window
+from .engine import (
+    DRAFT_SOURCES,
+    EngineConfig,
+    check_spec_window,
+    refuse_unported,
+)
 from .generate import pick_bucket
 from .graphs import ChunkGraph
 from .megastep import (
@@ -180,17 +196,19 @@ class _Request:
 @dataclasses.dataclass
 class _Dispatch:
     """One dispatched step or megastep, read by a later reap: tokens [K,
-    chunk, S] int32 and active snapshots [K, S] int8 (host copies in flight
-    on the card); the active flags at entry [S] bool (the dead-lane
-    account's base); the fused flips [K, S] bool and first tokens [K, S]
-    int32; the event behind the copies (None on the CPU); and slot ->
-    request at dispatch time."""
+    chunk, S] int32 ([K, chunk, S, k+1] under speculation) and active
+    snapshots [K, S] int8 (host copies in flight on the card); the active
+    flags at entry [S] bool (the dead-lane account's base); the fused flips
+    [K, S] bool and first tokens [K, S] int32; each verify window's
+    emission count [K, chunk, S] int32 under speculation; the event behind
+    the copies (None on the CPU); and slot -> request at dispatch time."""
 
     toks: torch.Tensor
     active: torch.Tensor
     started: torch.Tensor
     flipped: Optional[torch.Tensor]
     firsts: Optional[torch.Tensor]
+    counts: Optional[torch.Tensor]
     event: Optional[torch.cuda.Event]
     slots: List[Optional[_Request]]
 
@@ -280,11 +298,17 @@ def _export_block_program(kv: KVCache, off: int, slot: int, *,
     return KVBlock(k=cut(kv.k), v=cut(kv.v), ks=cut(kv.ks), vs=cut(kv.vs))
 
 
-def _install_program(state: SlotState, slot: int, true_len: int,
-                     first: torch.Tensor, seen_row: torch.Tensor, *,
-                     eos_id: int) -> None:
+def _install_program(state: SlotState, slot: int, ids: torch.Tensor,
+                     true_len: int, first: torch.Tensor,
+                     seen_row: torch.Tensor, *, eos_id: int) -> None:
     """Make a prefilled slot live (its pages already hold the prompt's
-    KV): length, last token, active flag and seen row, all on the device."""
+    KV): length, last token, active flag and seen row, all on the device;
+    the transcript row takes the right-padded prompt `ids` [1, t] and the
+    first token at slot `true_len` (the drafts of speculative decoding
+    read it; stale ids of an earlier occupant past them are never read:
+    the drafter reads slots up to the slot's length alone)."""
+    state.transcript[slot, :ids.shape[1]] = ids[0]
+    state.transcript[slot, true_len] = first
     state.cache.lengths[slot] = true_len
     state.tok[slot] = first
     state.active[slot] = first != eos_id
@@ -364,6 +388,88 @@ def _step_program(params, state: SlotState, generator: torch.Generator, *,
             state.active.to(torch.int8))
 
 
+def _spec_step_program(params, state: SlotState,
+                       generator: Optional[torch.Generator], *, cfg,
+                       sampling, eos_id: int, pad_id: int, model,
+                       spec_tokens: int, chunk: int = 1,
+                       draft_fn=build_drafts,
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`chunk` speculative verify windows for all S slots.
+
+    Each iteration widens the [S, 1] step to an [S, k+1] window: drafts
+    come from the slot transcripts (right-padded: transcript slot = cache
+    slot = position id), one forward over [tok, d_1..d_k] writes the
+    window's KV at each slot's offset and attends through the kernel's
+    window variant, and `draft.verify_window` walks the drafts. Slots
+    accept different counts, so their lengths advance raggedly within a
+    dispatch; the host learns each window's emission count from `counts`.
+
+    A slot's next window starts m >= 1 slots after its last and spans k+1
+    slots, so it rewrites every slot a rejected draft left behind before
+    anything attends to it. The window base is clamped to width-1-k, as in
+    the JAX package: only a slot past its budget (the host finishes it at
+    max_new; its window is garbage nothing reads), a dead or a staged slot
+    (parked at width-1, above its prompt) gets there, and every cache
+    write and position then stays inside the window. Emitted tokens past
+    the width are masked out of the transcript writes.
+
+    Updates `state` in place and returns fresh tensors: emitted [chunk, S,
+    k+1] int32, counts [chunk, S] int32 (the first counts[c, s] columns of
+    emitted[c, s] are that window's tokens in order; 0 = the slot was
+    inactive) and the active snapshot [S] int8. No host sync.
+    """
+    k = spec_tokens
+    width = state.cache.max_len
+    dev = state.tok.device
+    pos_w = torch.arange(width, device=dev)[None, :]
+    offs_k1 = torch.arange(k + 1, device=dev)[None, :]
+    emitted_all, counts_all = [], []
+    for _ in range(chunk):
+        lengths = state.cache.lengths
+        offs = torch.clamp(lengths, max=width - 1 - k).long()  # window base
+        # The pending token sits at transcript slot `offs`; an anchor must
+        # have k filled continuation slots after it (one near the frontier
+        # would propose unwritten slots).
+        prev = state.transcript.gather(
+            1, torch.clamp(offs - 1, min=0)[:, None])[:, 0]
+        match_valid = pos_w <= (offs - k)[:, None]
+        drafts = draft_fn(state.transcript, match_valid, prev, state.tok, k)
+        feed = torch.cat([state.tok[:, None], drafts], dim=1)  # [S, k+1]
+        logits, _ = model.forward(
+            params, cfg, feed,
+            cache=dataclasses.replace(state.cache,
+                                      lengths=offs.to(torch.int32)))
+        emitted, valid, seen, hit_eos = verify_window(
+            generator, logits, drafts, state.seen, state.active, sampling,
+            eos_id, pad_id)
+        # Emitted token i belongs at transcript slot offs+1+i (where its KV
+        # goes once it is fed); slots past the width are dropped. One
+        # column at a time: each write hits one slot a row, and a dropped
+        # entry writes back what is there.
+        slots = (offs + 1)[:, None] + offs_k1  # [S, k+1]
+        valid = valid & (slots < width)
+        for i in range(k + 1):
+            col = torch.clamp(slots[:, i:i + 1], max=width - 1)
+            old = state.transcript.gather(1, col)
+            state.transcript.scatter_(1, col, torch.where(
+                valid[:, i:i + 1], emitted[:, i:i + 1], old))
+        m = valid.sum(dim=1)  # [S] window emissions
+        new_tok = torch.where(
+            m > 0,
+            emitted.gather(1, torch.clamp(m - 1, min=0)[:, None])[:, 0],
+            state.tok)
+        lengths.copy_(torch.where(state.active, (offs + m).to(lengths.dtype),
+                                  lengths))
+        state.seen.copy_(seen)
+        state.tok.copy_(new_tok)
+        state.active.copy_(state.active & ~hit_eos)
+        emitted_all.append(emitted)
+        counts_all.append(m)
+    return (torch.stack(emitted_all).to(torch.int32),
+            torch.stack(counts_all).to(torch.int32),
+            state.active.to(torch.int8))
+
+
 def _admission_chunk(params, state: SlotState, *, cfg, sampling, model,
                      eos_id: int, pad_id: int,
                      prefill_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -419,6 +525,8 @@ def _admission_chunk(params, state: SlotState, *, cfg, sampling, model,
         has, done & (first != eos_id), state.active[sl]))
     state.seen.index_put_((sl,), torch.where(done[:, None], seen1,
                                              state.seen[sl]))
+    state.transcript.index_put_((sl, tl), torch.where(
+        done, first, state.transcript[sl, tl]))
     state.staged.index_put_((sl,), torch.where(has, ~done, state.staged[sl]))
     state.stage_cursor.index_put_((sl,), torch.where(
         has, (cur + c).to(torch.int32), state.stage_cursor[sl]))
@@ -435,19 +543,21 @@ def _megastep_program(step, admission, active: torch.Tensor,
     """K = len(admit) chunks back to back, eagerly (the CPU, and the card
     without graphs): iteration j runs an admission chunk first when
     `admit[j]`, then a decode chunk. `step()` runs one decode chunk
-    (`_step_program`), `admission()` one admission chunk
-    (`_admission_chunk`), or is None without fused admission; `active` is
-    the live state's active plane, read at entry. The generator advances
-    exactly as K chunk-loop dispatches would advance it.
+    (`_step_program`, or `_spec_step_program` under speculation),
+    `admission()` one admission chunk (`_admission_chunk`), or is None
+    without fused admission; `active` is the live state's active plane,
+    read at entry. The generator advances exactly as K chunk-loop
+    dispatches would advance it.
 
-    Returns (toks [K, chunk, S] int32, active [K, S] int8 post-chunk
-    snapshots, started [S] bool the active flags at entry, flipped [K, S]
-    bool and firsts [K, S] int32 with fused admission, else None): the
-    planes `megastep.dead_lane_tokens` reads for the JAX package's
-    dead-lane account, which the reap computes."""
+    Returns (toks [K, chunk, S] int32 (speculation: emitted [K, chunk, S,
+    k+1]), active [K, S] int8 post-chunk snapshots, started [S] bool the
+    active flags at entry, flipped [K, S] bool and firsts [K, S] int32 with
+    fused admission, else None, and counts [K, chunk, S] int32 under
+    speculation, else None): the planes `megastep.dead_lane_tokens` reads
+    for the JAX package's dead-lane account, which the reap computes."""
     started = active.clone()
     n_slots = active.shape[0]
-    toks, actives, flips, firsts = [], [], [], []
+    planes, actives, flips, firsts = [], [], [], []
     for on in admit:
         if admission is not None:
             if on:
@@ -459,12 +569,15 @@ def _megastep_program(step, admission, active: torch.Tensor,
                                 device=active.device)
             flips.append(f)
             firsts.append(fi)
-        t, a = step()
-        toks.append(t)
+        *outs, a = step()
+        planes.append(outs)
         actives.append(a)
-    return (torch.stack(toks), torch.stack(actives), started,
+    toks = torch.stack([p[0] for p in planes])
+    counts = (torch.stack([p[1] for p in planes]) if len(planes[0]) > 1
+              else None)
+    return (toks, torch.stack(actives), started,
             torch.stack(flips) if admission is not None else None,
-            torch.stack(firsts) if admission is not None else None)
+            torch.stack(firsts) if admission is not None else None, counts)
 
 
 class PagedEngine:
@@ -486,6 +599,10 @@ class PagedEngine:
                  cuda_graphs: Optional[bool] = None):
         refuse_unported(config)
         self.config = config
+        # Speculative decoding: draft tokens verified per window
+        # (`_spec_step_program`); 0 = the plain step. A chunk then counts
+        # verify windows, each emitting 1 to spec+1 tokens.
+        self.spec = max(0, config.spec_tokens)
         # Tokens per chunk; mid-chunk admissions wait at most `chunk`
         # steps, host round trips shrink by the same factor.
         self.chunk = max(1, chunk)
@@ -511,6 +628,7 @@ class PagedEngine:
         fused = config.fused_attention
         if fused is None:
             fused = self.device.type == "cuda"
+        check_spec_window(config.spec_tokens, fused)
         self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
                                        quant_kv=config.kv_quant)
         self.tokenizer = tok_lib.load_gpt2_tokenizer(
@@ -523,21 +641,29 @@ class PagedEngine:
             )
         self.slots = slots or max(config.batch_buckets)
         # Clamp the prompt bucket so bucket + max_new always fits the
-        # position table (long prompts keep their tail in submit()).
+        # position table (long prompts keep their tail in submit()), and
+        # under speculation the widest verify window too: it ends k-1
+        # slots past the last budgeted token.
+        self._spec_extra = max(0, self.spec - 1)
         self.bucket = min(
             max(config.length_buckets),
-            self.cfg.max_position_embeddings - config.sampling.max_new_tokens,
+            self.cfg.max_position_embeddings - config.sampling.max_new_tokens
+            - self._spec_extra,
         )
         if self.bucket < 1:
             raise ValueError(
-                f"max_new {config.sampling.max_new_tokens} leaves no room "
-                f"for any prompt token in the position table "
-                f"{self.cfg.max_position_embeddings}"
+                f"max_new {config.sampling.max_new_tokens} "
+                + (f"+ spec overhang {self._spec_extra} " if self.spec
+                   else "")
+                + f"leaves no room for any prompt token in the position "
+                f"table {self.cfg.max_position_embeddings}"
             )
         self.tmax = cfg_tmax(self.cfg, config.sampling, self.bucket)
-        # Cache-width buckets: one admissible width per prompt bucket.
+        # Cache-width buckets: one admissible width per prompt bucket
+        # (plus the verify window's overhang under speculation).
         self.widths = sorted({
             cfg_tmax(self.cfg, config.sampling, min(b, self.bucket))
+            + self._spec_extra
             for b in config.length_buckets
         })
         self.buckets = sorted({min(b, self.bucket)
@@ -555,7 +681,21 @@ class PagedEngine:
         self.prefill_chunk = 0
         if self.fused:
             self.prefill_chunk = max(1, min(
-                prefill_chunk_tokens, config.sampling.max_new_tokens + 1))
+                prefill_chunk_tokens,
+                config.sampling.max_new_tokens + self._spec_extra + 1))
+            if self.spec and config.sampling.max_new_tokens < 2:
+                # A staged slot's parked window (base width-1-k) must sit
+                # above its prompt; max_new = 1 would park it inside.
+                raise ValueError(
+                    "prefill_chunk_tokens with spec_tokens requires "
+                    "max_new_tokens >= 2 (staged-slot parking position)")
+        if config.draft_source not in DRAFT_SOURCES:
+            raise ValueError(
+                f"unknown draft_source {config.draft_source!r}; expected "
+                "'prompt_lookup' or 'ngram'")
+        self._draft_fn = (build_drafts_ngram
+                          if config.draft_source == "ngram"
+                          else build_drafts)
 
         t0 = time.monotonic()
         if config.checkpoint:
@@ -578,9 +718,14 @@ class PagedEngine:
         self._prefill = functools.partial(_prefill_program, **statics)
         self._partial_prefill = functools.partial(_partial_prefill_program,
                                                   **statics)
-        self._step = functools.partial(
-            _step_program, eos_id=eos, pad_id=pad, chunk=self.chunk,
-            **statics)
+        if self.spec:
+            self._step = functools.partial(
+                _spec_step_program, eos_id=eos, pad_id=pad, chunk=self.chunk,
+                spec_tokens=self.spec, draft_fn=self._draft_fn, **statics)
+        else:
+            self._step = functools.partial(
+                _step_program, eos_id=eos, pad_id=pad, chunk=self.chunk,
+                **statics)
         self._admission = functools.partial(
             _admission_chunk, eos_id=eos, pad_id=pad,
             prefill_chunk=self.prefill_chunk, **statics)
@@ -646,6 +791,11 @@ class PagedEngine:
         self._dead_lane_tokens = 0
         self._prefill_stall_s = 0.0
         self._decode_stalled_tokens = 0
+        # Speculation's acceptance, from the reaped counts planes and
+        # drained by pop_spec_stats(): verify windows a live request ran,
+        # and the tokens they emitted.
+        self._spec_windows = 0
+        self._spec_emitted = 0
         # (program, wall-clock start, dispatch seconds) per dispatch.
         self._prog_times: List[Tuple[str, float, float]] = []
         # Shared-prefix accounting: per-rid pinned tree paths (released when
@@ -699,6 +849,19 @@ class PagedEngine:
         self._dispatches = self._emitted_tokens = self._dead_lane_tokens = 0
         self._prefill_stall_s = 0.0
         self._decode_stalled_tokens = 0
+        return out
+
+    def pop_spec_stats(self) -> Optional[Tuple[int, int]]:
+        """Drain (verify windows, tokens they emitted) since the last call;
+        None when speculation is off. emitted / windows is the mean tokens
+        a window (1.0 = no draft accepted, spec_tokens + 1 = all);
+        emitted - windows counts the tokens beyond each window's guaranteed
+        one. The serving queue's `spec_tokens_per_window` gauge and
+        `spec_accepted_tokens` counter."""
+        if not self.spec:
+            return None
+        out = (self._spec_windows, self._spec_emitted)
+        self._spec_windows = self._spec_emitted = 0
         return out
 
     def pop_prefix_stats(self) -> Optional[Tuple[int, int, int, int]]:
@@ -820,7 +983,7 @@ class PagedEngine:
         for width in self.widths:
             self.state = self._init_state(width)
             for t in self.buckets:
-                if cfg_tmax(self.cfg, self.config.sampling, t) > width:
+                if self._required_width(t) > width:
                     continue  # a prompt this long can't run at this width
                 ids = torch.full((1, t), self.tokenizer.pad_id,
                                  dtype=torch.long, device=self.device)
@@ -832,7 +995,7 @@ class PagedEngine:
                 first, seen_row = self._prefill(self.params, ids, 1,
                                                 self.generator,
                                                 self._slot_cache(0, t))
-                _install_program(self.state, 0, 1, first, seen_row,
+                _install_program(self.state, 0, ids, 1, first, seen_row,
                                  eos_id=self.tokenizer.eos_id)
             if self.cuda_graphs:
                 self._capture(width)
@@ -1019,7 +1182,7 @@ class PagedEngine:
             self._grow_if_needed(w_req)
             first, seen_row = self._run_prefill(req, slot, bucket, ids)
             t0, t0u = time.monotonic(), time.time()
-            _install_program(self.state, slot, req.prompt_len, first,
+            _install_program(self.state, slot, ids, req.prompt_len, first,
                              seen_row, eos_id=self.tokenizer.eos_id)
             self._time_prog("install", t0, t0u)
             admitted.append((slot, req, first))
@@ -1224,7 +1387,8 @@ class PagedEngine:
         bucket = min(
             pick_bucket(prompt_len, self.config.length_buckets), self.bucket
         )
-        return cfg_tmax(self.cfg, self.config.sampling, bucket)
+        return (cfg_tmax(self.cfg, self.config.sampling, bucket)
+                + self._spec_extra)
 
     def _live(self) -> bool:
         return any(r is not None and not r.finished and r.live
@@ -1316,21 +1480,22 @@ class PagedEngine:
         if self.cuda_graphs:
             self._inflight.append(self._replay(admit))
             return
-        toks, active, started, flipped, firsts = self._run_eager(admit)
+        planes = self._run_eager(admit)
         event = None
-        if toks.device.type == "cuda":
+        if planes[0].device.type == "cuda":
             # The copies start now, into pinned memory, and stream back
             # while later dispatches compute.
-            toks, active, started, flipped, firsts = (
-                None if x is None else _to_pinned(x)
-                for x in (toks, active, started, flipped, firsts))
+            planes = tuple(None if x is None else _to_pinned(x)
+                           for x in planes)
             event = torch.cuda.Event()
             event.record()
+        toks, active, started, flipped, firsts, counts = planes
         # The slot snapshot records which request each column belonged to
         # at dispatch time (a slot reused later belongs to a later step).
         self._inflight.append(_Dispatch(
             toks=toks, active=active, started=started, flipped=flipped,
-            firsts=firsts, event=event, slots=list(self._slot_req)))
+            firsts=firsts, counts=counts, event=event,
+            slots=list(self._slot_req)))
 
     def _run_eager(self, admit: List[bool]):
         """`_megastep_program` over the live state: K eager chunks."""
@@ -1355,8 +1520,11 @@ class PagedEngine:
                 f"serving)")
         decode, admission = graphs
         k, s = len(admit), self.slots
-        toks = torch.empty((k, self.chunk, s), dtype=torch.int32,
+        window = (self.spec + 1,) if self.spec else ()
+        toks = torch.empty((k, self.chunk, s, *window), dtype=torch.int32,
                            pin_memory=True)
+        counts = (torch.empty((k, self.chunk, s), dtype=torch.int32,
+                              pin_memory=True) if self.spec else None)
         active = torch.empty((k, s), dtype=torch.int8, pin_memory=True)
         started = torch.empty((s,), dtype=torch.bool, pin_memory=True)
         started.copy_(self.state.active, non_blocking=True)
@@ -1371,15 +1539,17 @@ class PagedEngine:
                 flipped[j].copy_(f, non_blocking=True)
                 firsts[j].copy_(fi, non_blocking=True)
                 self.graph_replays += 1
-            t, a = decode.replay()
-            toks[j].copy_(t, non_blocking=True)
+            *outs, a = decode.replay()
+            toks[j].copy_(outs[0], non_blocking=True)
+            if counts is not None:
+                counts[j].copy_(outs[1], non_blocking=True)
             active[j].copy_(a, non_blocking=True)
             self.graph_replays += 1
         event = torch.cuda.Event()
         event.record()
         return _Dispatch(toks=toks, active=active, started=started,
-                         flipped=flipped, firsts=firsts, event=event,
-                         slots=list(self._slot_req))
+                         flipped=flipped, firsts=firsts, counts=counts,
+                         event=event, slots=list(self._slot_req))
 
     def _reap(self, d: _Dispatch) -> List[Tuple[int, str]]:
         """Read one dispatch's results (its whole [K, chunk, S] plane in
@@ -1392,9 +1562,14 @@ class PagedEngine:
         if d.event is not None:
             d.event.synchronize()  # THE sync point of the engine loop
         k_axis = d.k
+        # A lane under speculation is a verify window of spec+1 positions.
         self._dead_lane_tokens += int(dead_lane_tokens(
-            d.started, d.active, d.flipped, self.chunk))
-        toks = d.toks.numpy().reshape(k_axis * self.chunk, self.slots)
+            d.started, d.active, d.flipped, self.chunk * (self.spec + 1)))
+        toks = d.toks.numpy().reshape(k_axis * self.chunk, self.slots,
+                                      *d.toks.shape[3:])
+        counts = (None if d.counts is None
+                  else d.counts.numpy().reshape(k_axis * self.chunk,
+                                                self.slots))
         # Dead-slot detection keys off the FINAL snapshot: a slot that
         # died in chunk j padded every later lane.
         active = d.active.numpy()[-1]
@@ -1429,7 +1604,22 @@ class PagedEngine:
             finished = False
             dead = not bool(active[slot])
             n_before = len(req.tokens)
-            for t in toks[start_row:, slot]:
+            if counts is None:
+                # The plain step: one token an iteration; a dead slot's
+                # column holds pad filler (detected below).
+                stream, filler = toks[start_row:, slot], True
+            else:
+                # Verify windows: the first counts[c, slot] columns of
+                # window c are its tokens in order; an inactive window
+                # emits nothing, so there is no filler. Windows run while
+                # the request was live feed the acceptance stats.
+                col = counts[start_row:, slot]
+                self._spec_windows += int(np.count_nonzero(col))
+                self._spec_emitted += int(col.sum())
+                stream = [t for c in range(col.shape[0])
+                          for t in toks[start_row + c, slot, :int(col[c])]]
+                filler = False
+            for t in stream:
                 tok = int(t)
                 if tok == eos:
                     # eos lands in the transcript when it's a distinct
@@ -1439,7 +1629,7 @@ class PagedEngine:
                         req.tokens.append(tok)
                     finished = True
                     break
-                if dead and tok == pad:
+                if filler and dead and tok == pad:
                     # Inactive-slot filler (the slot died at admission or
                     # in an earlier chunk) — not content. Matters when
                     # pad != eos.

@@ -19,15 +19,23 @@ PyTorch runs eagerly.
   through `ops.attention.decode_attention` (the CUDA kernel on the card,
   its plain version on the CPU), reading the layer from the stacked cache,
   in every cache mode: scalar offset with the mask as a bias, ragged with
-  per-row lengths, float or int8 cache.
+  per-row lengths, float or int8 cache;
+- cached with per-row offsets, T > 1 and no ``cache.rows`` (the
+  speculative verify window, T = k+1) and ``cfg.fused_decode_attention``:
+  the kernel's window variant, row b's query t seeing the keys up to its
+  own slot (lengths[b] + t + 1 keys), with ``kv_mask`` (the bucketed
+  engine's left padding) as a bias the T rows share. The kernel takes
+  T <= `ops.attention.MAX_WINDOW` rows and raises beyond: a wider window
+  never drops to the plain version.
 
 With ``cfg.quant_kv`` the cache is int8 with per-slot scales
 (`common.quantize_kv` on write, `common.attend_quant` on read). The JAX
 package refuses `fused_decode_attention` together with `quant_kv`, because
 its Pallas kernel reads a full-precision cache only; the port's kernel
-computes `attend_quant` itself, so the two combine here. Prefill (T > 1)
-attends through the plain `attend`/`attend_quant`, as the JAX package's
-XLA einsums do.
+computes `attend_quant` itself, so the two combine here. Prefill and the
+fused admission chunk (T > 1 at a scalar offset, or with ``cache.rows``)
+attend through the plain `attend`/`attend_quant`, as the JAX package's XLA
+einsums do.
 """
 
 from __future__ import annotations
@@ -268,13 +276,19 @@ def forward(
                 f"cfg.quant_kv={cfg.quant_kv} but the cache is "
                 f"{'int8' if quant_kv else 'full precision'}"
             )
-        fused = cfg.fused_decode_attention and t == 1 and rows_sel is None
+        fused = cfg.fused_decode_attention and rows_sel is None and (
+            t == 1 or ragged)
         # Layer-invariant kernel inputs, built once per step: the mask as a
-        # bias (not needed where per-row lengths say it all) and each row's
-        # key count (its offset + 1).
+        # bias (not needed where per-row lengths say it all; a window's
+        # rows share the key-validity mask alone, their causal frontiers
+        # are the lengths) and each row's key count (its offset + 1).
         bias = lengths = None
         if fused:
-            if not ragged or kv_mask is not None:
+            if t > 1:
+                if kv_mask is not None:
+                    bias = attention_ops.mask_to_bias(
+                        kv_mask[:, None, None, :])
+            elif not ragged or kv_mask is not None:
                 bias = attention_ops.mask_to_bias(mask)
             if ragged:
                 lengths = (cache.lengths + 1).to(torch.int32)

@@ -1,4 +1,4 @@
-"""Fused single-token decode attention: a CUDA kernel and its plain version.
+"""Fused decode attention: a CUDA kernel and its plain version.
 
 Port of `distributed_lms_raft_llm_tpu/ops/attention.py` (the repository's
 one Pallas kernel). The kernel, `csrc/decode_attention.cu`, is written by
@@ -10,7 +10,11 @@ the tile and the shared memory from the cache's width alone.
 Beyond the Pallas kernel it takes per-row `lengths` (the paged engine's
 ragged offsets: keys past a row's length are neither read nor copied) and
 an int8 cache with per-slot scales (`common.attend_quant` in one pass), so
-the paged engine decodes through it in every cache mode.
+the paged engine decodes through it in every cache mode; and a window of
+T <= MAX_WINDOW query rows per batch row, the speculative verify window,
+where row b's query t sees the keys before `lengths[b] + t` (its own causal
+frontier; the JAX package computes this window in XLA). `window_rows`
+says how the window's rows are cut into blocks.
 
 `decode_attention` dispatches on where its tensors live: CPU tensors take
 `decode_attention_reference` (the plain PyTorch version, which the CPU
@@ -38,9 +42,15 @@ KERNEL = "decode_attention"  # the source, csrc/decode_attention.cu
 # an int8 cache with per-slot scales (either engine, `kv_quant`).
 RAGGED = "decode_attention_ragged"
 INT8KV = "decode_attention_int8kv"
-MAX_GROUP = 8     # query heads per KV head (csrc kMaxGroup)
+# A verify window (T > 1 query rows a batch row), float/bf16 or int8 cache.
+WINDOW = "decode_attention_window"
+WINDOW_INT8KV = "decode_attention_window_int8kv"
+MAX_GROUP = 8     # query rows a block holds, at most (csrc kMaxGroup)
+WINDOW_ROWS = 4   # query rows a block of a window holds (csrc kWindowRows)
+MAX_WINDOW = 16   # query rows a batch row, at most, in a window
 HEAD_DIMS = (8, 16, 32, 64, 128)  # csrc instantiations
 INT8_HEAD_DIMS = (64, 128)        # csrc instantiations for an int8 cache
+WINDOW_HEAD_DIMS = (64, 128)      # csrc instantiations of the window
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # Launch geometry. The constants marked csrc must match the kernel source.
@@ -57,7 +67,8 @@ SMEM_LIMIT = 227 * 1024    # dynamic shared memory a block may use
 # (never by the plain path), and for each replay of a CUDA graph by the
 # launches captured into it (`engine/graphs.py`). A run resets them, drives
 # the main path, and reads them to show the path went through the kernel.
-launch_counts: Dict[str, int] = {KERNEL: 0, RAGGED: 0, INT8KV: 0}
+launch_counts: Dict[str, int] = {KERNEL: 0, RAGGED: 0, INT8KV: 0,
+                                  WINDOW: 0, WINDOW_INT8KV: 0}
 
 
 def reset_launch_counts() -> None:
@@ -83,14 +94,15 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     """Plain PyTorch version: `common.attend` (or, for an int8 cache,
     `common.attend_quant`) on the indexed layer.
 
-    Scores and softmax in f32 with the additive bias; key slots at or past
-    `lengths[b]` are masked. A float cache: probabilities cast to the
+    Scores and softmax in f32 with the additive bias (shared by a window's
+    rows); key slots at or past `lengths[b] + t` are masked for query row
+    t (t = 0 outside a window). A float cache: probabilities cast to the
     cache dtype for the weighted sum. An int8 cache: scores scaled by
     `k_scale` on the key axis, probabilities times `v_scale` cast to q's
     dtype against the int8 values in q's dtype. Output in q's dtype. Query
     head h reads KV head h // (H / Hkv).
     """
-    h, hkv, s = q.shape[1], k_cache.shape[2], k_cache.shape[3]
+    h, t, hkv, s = q.shape[1], q.shape[2], k_cache.shape[2], k_cache.shape[3]
     quant = k_scale is not None
     k = k_cache[layer]
     v = v_cache[layer]
@@ -110,8 +122,9 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
         scores = scores + bias[:, :, None, :]
     if lengths is not None:
         keys = torch.arange(s, device=q.device)
+        frontier = lengths[:, None] + torch.arange(t, device=q.device)
         scores = torch.where(
-            (keys[None, :] < lengths[:, None])[:, None, None, :], scores,
+            (keys[None, None, :] < frontier[:, :, None])[:, None], scores,
             torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     if quant:
@@ -119,6 +132,22 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
         return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(q.dtype))
     probs = probs.to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v).to(q.dtype)
+
+
+def window_rows(group: int, t: int) -> Tuple[int, int]:
+    """(rows a block, blocks a (row, KV head)) of a call with `group` query
+    heads a KV head and `t` query rows a batch row. Decode (t = 1): one
+    block of the group. A window: its group * t rows, head-major, cut into
+    as few blocks of at most WINDOW_ROWS rows as hold them, of equal size
+    (GPT-2 at t = 9: three blocks of 3 rows). A block's rows live in
+    registers: blocks of 4 measured faster than blocks of 8 at every t > 2
+    on an H100 (two blocks an SM against one; PERF.md), so the kernel's
+    window is built for 4 rows a block alone."""
+    if t == 1:
+        return group, 1
+    n_rows = group * t
+    chunks = -(-n_rows // WINDOW_ROWS)
+    return -(-n_rows // chunks), chunks
 
 
 # ------------------------------------------------------------ launch plan
@@ -159,7 +188,8 @@ def max_tile_keys(group: int, dh: int, elem: int) -> int:
 
 
 def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
-                group: int = 1, n_split: Optional[int] = None) -> LaunchPlan:
+                group: int = 1, n_split: Optional[int] = None,
+                chunks: int = 1) -> LaunchPlan:
     """Pick the split of the keys, the tile and the shared memory.
 
     A cluster costs latency of its own, about a microsecond on an H100
@@ -174,9 +204,11 @@ def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
     needs; the ring holds as many tiles as the split has, up to RING_BYTES
     of K and V (at least two, so a tile can land while another is read).
     `dtype` is the cache's (int8 for a quantized cache). Per-row lengths
-    never enter the plan: they live on the device.
+    never enter the plan: they live on the device. `group` is the query
+    rows a block holds and `chunks` the blocks a (row, KV head) takes over
+    its rows (`window_rows`).
     """
-    rows = b * hkv
+    rows = b * hkv * chunks
     elem = dtype.itemsize
     cap = max_tile_keys(group, dh, elem)
     n = 1
@@ -208,8 +240,9 @@ def _check_args(q: torch.Tensor, k_cache: torch.Tensor,
                 lengths: Optional[torch.Tensor],
                 k_scale: Optional[torch.Tensor],
                 v_scale: Optional[torch.Tensor]) -> None:
-    if q.dim() != 4 or q.shape[2] != 1:
-        raise ValueError(f"q must be [B, H, 1, Dh], got {tuple(q.shape)}")
+    if q.dim() != 4 or not 1 <= q.shape[2] <= MAX_WINDOW:
+        raise ValueError(f"q must be [B, H, T, Dh] with 1 <= T <= "
+                         f"{MAX_WINDOW}, got {tuple(q.shape)}")
     if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
         raise ValueError(
             "k_cache and v_cache must both be [L, B, Hkv, S, Dh], got "
@@ -264,13 +297,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
              fine: it is read in place)
     v_cache  [L, B, Hkv, S, Dh]
     layer    int — which layer's K/V to attend against
-    bias     [B, 1, S] f32 — additive mask (0 = attend, NEG_INF = not), or
-             None
-    lengths  [B] int32 — keys per row (slots >= lengths[b] are not read),
-             or None; every row keeps at least one key (1 <= lengths[b])
+    bias     [B, 1, S] f32 — additive mask (0 = attend, NEG_INF = not),
+             shared by a window's rows, or None
+    lengths  [B] int32 — keys per row (slots >= lengths[b] are not read;
+             a window's query t reads lengths[b] + t of them), or None;
+             every row keeps at least one key (1 <= lengths[b])
     k_scale, v_scale  [L, B, Hkv, S] f32 — the per-slot scales of an int8
              cache (`common.quantize_kv`), exactly when it is int8
-    returns  [B, H, 1, Dh] in q's dtype.
+    returns  [B, H, T, Dh] in q's dtype.
     """
     layer = operator.index(layer)
     device = q.device
@@ -296,10 +330,12 @@ class _Args(ctypes.Structure):
     """The kernel's arguments for one layout (csrc DecodeAttentionArgs),
     built once and passed by address."""
 
-    _fields_ = [("q_sb", ctypes.c_longlong), ("q_sh", ctypes.c_longlong)] + [
+    _fields_ = [(name, ctypes.c_longlong) for name in ("q_sb", "q_sh",
+                                                       "q_sw")] + [
         (name, ctypes.c_int) for name in (
-            "B", "H", "Hkv", "S", "S_alloc", "Dh", "n_split", "split_keys",
-            "tile", "stages", "smem", "dtype", "kv_dtype")
+            "B", "H", "Hkv", "S", "S_alloc", "Dh", "W", "rows", "n_chunks",
+            "n_split", "split_keys", "tile", "stages", "smem", "dtype",
+            "kv_dtype")
     ] + [("scale", ctypes.c_float)]
 
 
@@ -329,7 +365,7 @@ def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
     """Check what the kernel takes (everything but the layer index and the
     pointers' alignment, which change per call); raise on anything else."""
     _check_args(q, k_cache, v_cache, 0, bias, lengths, k_scale, v_scale)
-    b, h, _, dh = q.shape
+    b, h, t, dh = q.shape
     _, _, hkv, s, _ = k_cache.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decode_attention kernel takes float32 or bfloat16, "
@@ -340,16 +376,19 @@ def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError("k_cache and v_cache must share q's dtype, or both "
                         f"be int8; got {q.dtype}, {k_cache.dtype}, "
                         f"{v_cache.dtype}")
-    head_dims = INT8_HEAD_DIMS if quant else HEAD_DIMS
+    head_dims = (WINDOW_HEAD_DIMS if t > 1
+                 else INT8_HEAD_DIMS if quant else HEAD_DIMS)
     if h // hkv > MAX_GROUP or dh not in head_dims:
         raise ValueError(
             f"kernel limits: H/Hkv <= {MAX_GROUP}, Dh in {head_dims}; got "
             f"H/Hkv={h // hkv}, Dh={dh}"
         )
     elem = q.dtype.itemsize
-    sb, sh, _, sd = q.stride()
-    sb, sh = (sb if b > 1 else 0), (sh if h > 1 else 0)  # size 1: unread
-    if sd != 1 or (sb * elem) % 16 or (sh * elem) % 16:
+    sb, sh, sw, sd = q.stride()
+    # A dimension of size 1 is never stepped over: its stride is unread.
+    sb, sh, sw = (sb if b > 1 else 0), (sh if h > 1 else 0), \
+        (sw if t > 1 else 0)
+    if sd != 1 or any((x * elem) % 16 for x in (sb, sh, sw)):
         raise ValueError(
             "q must have a contiguous head dim and 16-byte aligned rows (the "
             f"kernel reads 16-byte vectors); got strides {q.stride()}"
@@ -369,15 +408,21 @@ def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
             "k_scale/v_scale must be contiguous [L, B, Hkv, S_alloc] tensors "
             "(or views of such over their first S slots) beside the cache"
         )
-    plan = launch_plan(b, hkv, s, dh, k_cache.dtype, group=h // hkv)
+    rows, chunks = window_rows(h // hkv, t)
+    plan = launch_plan(b, hkv, s, dh, k_cache.dtype, group=rows,
+                       chunks=chunks)
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"launch plan needs {plan.smem_bytes} bytes of "
                          f"shared memory, more than {SMEM_LIMIT}")
-    args = _Args(sb, sh, b, h, hkv, s, s_alloc, dh, plan.n_split,
-                 plan.split_keys, plan.tile_keys, plan.stages,
+    args = _Args(sb, sh, sw, b, h, hkv, s, s_alloc, dh, t, rows, chunks,
+                 plan.n_split, plan.split_keys, plan.tile_keys, plan.stages,
                  plan.smem_bytes, _DTYPE_CODES[q.dtype],
                  _DTYPE_CODES[k_cache.dtype], 1.0 / math.sqrt(dh))
-    variant = INT8KV if quant else (RAGGED if lengths is not None else KERNEL)
+    if t > 1:
+        variant = WINDOW_INT8KV if quant else WINDOW
+    else:
+        variant = INT8KV if quant else (RAGGED if lengths is not None
+                                        else KERNEL)
     return _Layout(plan=plan, args=args, address=ctypes.addressof(args),
                    variant=variant)
 

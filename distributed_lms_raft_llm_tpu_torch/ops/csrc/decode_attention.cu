@@ -11,20 +11,27 @@
 //    tile wholly past a row's length is never copied; the bias may be null;
 //  - an int8 cache with per-slot scales (models/common.py::attend_quant in
 //    one pass): score = (q . k_int8[j]) * ks[j] * Dh^-1/2, and the output
-//    sums p_j * vs[j] * v_int8[j], so K and V cross device memory as int8.
+//    sums p_j * vs[j] * v_int8[j], so K and V cross device memory as int8;
+//  - a window of W query rows per batch row (the speculative verify window,
+//    W = k + 1), `decode_attention_window_kernel`: row b's query w sees the
+//    keys j < lengths[b] + w (its own causal frontier), in every cache mode.
+//    The JAX package computes this in XLA (models/gpt2.py's ragged scatter
+//    path); the Pallas kernel takes one query row.
 //
 // Layouts (row-major):
-//   q        [B, H, 1, Dh]   T = float or bf16; any batch and head strides
-//            (in elements), Dh stride 1, rows 16-byte aligned: a strided
-//            view of the fused qkv projection is read in place;
-//   out      [B, H, 1, Dh]   contiguous, T;
+//   q        [B, H, W, Dh]   T = float or bf16; any batch, head and window
+//            strides (in elements), Dh stride 1, rows 16-byte aligned: a
+//            strided view of the fused qkv projection is read in place;
+//            W = 1 but for the window kernel;
+//   out      [B, H, W, Dh]   contiguous, T;
 //   k, v     [L, B, Hkv, S_alloc, Dh]  the stacked cache, KV = T or int8;
 //            the kernel attends over the first S slots (S <= S_alloc) of
 //            layer `layer`, read in place: slots [S, S_alloc) are stale and
 //            never read;
 //   ks, vs   [L, B, Hkv, S_alloc] float32 per-slot scales (int8 KV only);
 //   bias     [B, 1, S] float32, 0 (attend) or -1e30 (masked), or null;
-//   lengths  [B] int32 valid keys per row (1 <= lengths[b]), or null (all S).
+//   lengths  [B] int32 valid keys per row (1 <= lengths[b]), or null (all S);
+//            query w of a window sees min(lengths[b] + w, S) keys.
 //
 // What bounds it. Nothing is reused: every K and V byte is read once, and
 // q.K^T is a matrix-vector product (G <= 8 query rows per KV head, against
@@ -88,6 +95,22 @@
 // key. Every row keeps at least one valid key (the caller's contract); with
 // lengths, split 0 always holds key 0.
 //
+// The window. Its W rows share the keys of their (row, KV head), so they
+// ride the group dimension: a block holds G * W query rows (head-major),
+// each with its own frontier, and streams K and V once for all of them;
+// a row's keys past its frontier weigh exactly nothing (p = 0, the max
+// untouched), and the block walks the keys of its widest row. The rows of
+// a block are held in registers (q, o, m, l per row), so a block holds at
+// most kWindowRows = 4 of them: a window with more is cut into n_chunks
+// blocks of ceil(G * W / n_chunks) rows, grid (n_split, Hkv * n_chunks, B),
+// and each chunk reads K and V again, mostly from L2, since the chunks'
+// blocks run at once (GPT-2's G = 1 at W = 9, for spec_tokens = 8, is 3
+// blocks of 3; ops/attention.py::window_rows). 16 rows would hold 16 q and
+// 16 o slices of a lane in registers (~300 at Dh 64) and spill; 8 rows
+// took 217 registers, one 256-thread block an SM, against 127 and two for
+// 4, and measured slower than 4 at every W > 2 on an H100, so a window
+// block is instantiated for 4 rows alone.
+//
 // Reading shared memory: the 8 lanes of a group read a K or V row as
 // vectors (16 bytes of a float or bf16 row, 8 bytes of an int8 row: a warp
 // reads 4 whole rows, no bank conflicts); a 3-step shuffle sums their
@@ -109,8 +132,11 @@ namespace cg = cooperative_groups;
 // per-call argument list short. Outside the anonymous namespace, so the
 // C entry point that takes it keeps external linkage.
 struct DecodeAttentionArgs {
-  long long q_sb, q_sh;  // q's batch and head strides, in elements
+  long long q_sb, q_sh, q_sw;  // q's batch, head and window strides
   int B, H, Hkv, S, S_alloc, Dh;
+  int W;         // query rows a batch row (1, or a verify window)
+  int rows;      // query rows a block: G, or ceil(G * W / n_chunks)
+  int n_chunks;  // blocks a (row, KV head) over its query rows
   int n_split, split_keys, tile, stages, smem;  // the launch plan
   int dtype;     // q and out: 0 float32, 1 bfloat16
   int kv_dtype;  // the cache: 0 float32, 1 bfloat16, 2 int8 (with scales)
@@ -121,7 +147,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;  // query heads per KV head (H / Hkv)
+constexpr int kMaxGroup = 8;  // query rows a block (H / Hkv for decode)
+constexpr int kWindowRows = 4;  // query rows a block of a window
 constexpr int kMaxSplit = 8;  // blocks per cluster (the portable maximum)
 constexpr float kLowest = -3.402823466e38f;
 
@@ -295,17 +322,31 @@ __device__ __forceinline__ void merge_weights(float& m, float& l, float m2,
 
 // ------------------------------------------------------------ the kernel
 
-template <typename T, typename KV, int kDh, int kG>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, long long q_sb,
-                        long long q_sh, const KV* __restrict__ k_cache,
-                        const KV* __restrict__ v_cache,
-                        const float* __restrict__ ks_cache,
-                        const float* __restrict__ vs_cache,
-                        const float* __restrict__ bias,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        int B, int H, int Hkv, int S, int S_alloc, int layer,
-                        int split_keys, int tile, int stages, float scale) {
+// Where a block's query rows are: row j of the block is query row
+// f = chunk * rows + j of its (batch row, KV head), f = head * W + w over
+// the G heads and the W window positions (W = 1: row j is head j).
+struct RowMap {
+  int chunk, rows, n_rows;  // n_rows: this block's rows (<= rows)
+  int G, W;
+  __device__ __forceinline__ int head(int j) const {
+    return (chunk * rows + j) / W;
+  }
+  __device__ __forceinline__ int pos(int j) const {
+    return (chunk * rows + j) % W;
+  }
+};
+
+// The body of both kernels. kWindow: the rows have their own frontiers
+// (lengths[b] + w); otherwise every row of the block sees the same keys.
+template <typename T, typename KV, int kDh, int kG, bool kWindow>
+__device__ __forceinline__ void attend_rows(
+    const T* __restrict__ q, long long q_sb, long long q_sh, long long q_sw,
+    const KV* __restrict__ k_cache, const KV* __restrict__ v_cache,
+    const float* __restrict__ ks_cache, const float* __restrict__ vs_cache,
+    const float* __restrict__ bias, const int* __restrict__ lengths,
+    T* __restrict__ out, int B, int H, int Hkv, int S, int S_alloc, int W,
+    int rows, int n_chunks, int layer, int split_keys, int tile, int stages,
+    float scale) {
   constexpr bool kQuant = sizeof(KV) == 1;   // int8 K/V with scales
   constexpr int kN = Vec<KV>::kN;            // elements per K/V vector
   constexpr int kChunks = kDh / kN;          // vectors per row
@@ -321,9 +362,13 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   extern __shared__ __align__(128) unsigned char smem[];
   const int split = blockIdx.x;  // == rank in the cluster
   const int n_split = gridDim.x;
-  const int g = blockIdx.y;      // KV head
-  const int b = blockIdx.z;      // batch row
+  const int g = blockIdx.y / n_chunks;  // KV head
+  const int b = blockIdx.z;             // batch row
   const int G = H / Hkv;
+  const RowMap map{(int)blockIdx.y % n_chunks, rows,
+                   min(rows, G * W - ((int)blockIdx.y % n_chunks) * rows),
+                   G, W};
+  const int R = rows;            // the shared-memory layout's row count
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -333,24 +378,35 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   KV* ring = reinterpret_cast<KV*>(smem);          // [stages][2][tile][kDh]
   float* w_o = reinterpret_cast<float*>(smem);     // after the key loop
   float* w_m = reinterpret_cast<float*>(
-      smem + region0_bytes(G, kDh, tile, sizeof(KV), stages));
+      smem + region0_bytes(R, kDh, tile, sizeof(KV), stages));
   float* w_l = w_m + kWarps * kMaxGroup;           // [kWarps][kMaxGroup]
-  float* p_o = w_l + kWarps * kMaxGroup;           // [n_split][G][kDh]
-  float* p_m = p_o + (n_split > 1 ? n_split * G * kDh : 0);  // [n_split][G]
-  float* p_l = p_m + (n_split > 1 ? n_split * G : 0);        // [n_split][G]
+  float* p_o = w_l + kWarps * kMaxGroup;           // [n_split][R][kDh]
+  float* p_m = p_o + (n_split > 1 ? n_split * R * kDh : 0);  // [n_split][R]
+  float* p_l = p_m + (n_split > 1 ? n_split * R : 0);        // [n_split][R]
   uint64_t* bars = reinterpret_cast<uint64_t*>(
-      p_l + (n_split > 1 ? n_split * G : 0));
+      p_l + (n_split > 1 ? n_split * R : 0));
   // bars[2 * stage] K, bars[2 * stage + 1] V
 
   if (n_split > 1) cluster_arrive_relaxed();  // "this block is running"
 
-  // This row's keys: all S, or the first lengths[b] of them. A split that
-  // starts past them walks no tile.
+  // This row's keys: all S, or the first lengths[b] of them; a window row
+  // w sees w more. A split that starts past them walks no tile.
   const int s_row = lengths != nullptr ? min(max(lengths[b], 0), S) : S;
   const long long slot0 =
       (((long long)layer * B + b) * Hkv + g) * (long long)S_alloc;
   const int start = split * split_keys;
-  const int n_keys = max(min(s_row, start + split_keys) - start, 0);
+  // Each row's keys in this split (window rows only; else n_keys for all).
+  [[maybe_unused]] int nk[kWindow ? kG : 1];
+  int s_max = s_row;
+  if constexpr (kWindow) {
+#pragma unroll
+    for (int j = 0; j < kG; ++j) {
+      const int lim = j < map.n_rows ? min(s_row + map.pos(j), S) : 0;
+      nk[j] = lim - start;
+      s_max = max(s_max, lim);
+    }
+  }
+  const int n_keys = max(min(s_max, start + split_keys) - start, 0);
   const int n_tiles = (n_keys + tile - 1) / tile;
   const KV* K = k_cache + (slot0 + start) * kDh;
   const KV* V = v_cache + (slot0 + start) * kDh;
@@ -362,8 +418,8 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
 
   auto stage_tile = [&](int t) {  // one thread: copy tile t's K and V
     const int st = t % stages;
-    const int rows = min(tile, n_keys - t * tile);
-    const uint32_t bytes = (uint32_t)(rows * kDh * sizeof(KV));
+    const int n = min(tile, n_keys - t * tile);
+    const uint32_t bytes = (uint32_t)(n * kDh * sizeof(KV));
     KV* kd = ring + (size_t)(2 * st) * tile_elems;
     KV* vd = kd + tile_elems;
     mbar_expect_tx(&bars[2 * st], bytes);
@@ -381,11 +437,11 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   // their use, so that their latency overlaps the copies and the previous
   // tile.
   auto row_params = [&](int t, float* bs, float* kss, float* vss) {
-    const int rows = min(tile, n_keys - t * tile);
+    const int n = min(tile, n_keys - t * tile);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int row = grp + kGroups * i;
-      const bool valid = row < rows;
+      const bool valid = row < n;
       const int j = t * tile + row;
       bs[i] = valid && bias_row != nullptr ? bias_row[j] : 0.f;
       if constexpr (kQuant) {
@@ -399,23 +455,25 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   float bs[kRows], kss[kRows], vss[kRows];
   row_params(0, bs, kss, vss);
 
-  // This lane's slice of the G query heads (h = g*G .. g*G+G-1): vectors
-  // lr, lr + kLpr, .. of each row, the same slice it reads of K and V.
+  // This lane's slice of the block's query rows (heads g*G .. g*G+G-1,
+  // window positions 0 .. W-1): vectors lr, lr + kLpr, .. of each row, the
+  // same slice it reads of K and V.
   const T* Q = q + (long long)b * q_sb + (long long)g * G * q_sh;
   float qr[kG][kE];
 #pragma unroll
   for (int j = 0; j < kG; ++j) {
+    const T* Qj = Q + (long long)map.head(j) * q_sh +
+                  (long long)map.pos(j) * q_sw;
 #pragma unroll
     for (int i = 0; i < kVpl; ++i) {
-      if (j < G) {
-        load_span<T, kN>(Q + (long long)j * q_sh + (lr + kLpr * i) * kN,
-                         qr[j] + i * kN);
+      if (j < map.n_rows) {
+        load_span<T, kN>(Qj + (lr + kLpr * i) * kN, qr[j] + i * kN);
       }
     }
   }
   __syncthreads();  // the barriers are initialised
 
-  // Online softmax state of this lane group, per query head; o is this
+  // Online softmax state of this lane group, per query row; o is this
   // lane's slice of it.
   float m[kG], l[kG], acc[kG][kE];
 #pragma unroll
@@ -429,12 +487,21 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % stages;
     const uint32_t parity = (uint32_t)((t / stages) & 1);
-    const int rows = min(tile, n_keys - t * tile);
+    const int n = min(tile, n_keys - t * tile);
     const KV* Ks = ring + (size_t)(2 * st) * tile_elems;
     const KV* Vs = Ks + tile_elems;
 
     float bs_next[kRows], kss_next[kRows], vss_next[kRows];
     row_params(t + 1, bs_next, kss_next, vss_next);
+
+    // Whether query row j sees key row `row` of this tile.
+    auto sees = [&](int row, int j) {
+      if constexpr (kWindow) {
+        return row < n && t * tile + row < nk[j];
+      } else {
+        return row < n;
+      }
+    };
 
     // Scores of this group's rows, once K has landed: the kLpr lanes of a
     // row sum their slices with a shuffle (every lane runs it).
@@ -443,7 +510,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int row = grp + kGroups * i;
-      const bool valid = row < rows;
+      const bool valid = row < n;
       float kf[kE];
 #pragma unroll
       for (int v = 0; v < kVpl; ++v) {
@@ -459,7 +526,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
 #pragma unroll
       for (int j = 0; j < kG; ++j) {
         float dot = 0.f;
-        if (j < G) {
+        if (j < map.n_rows) {
 #pragma unroll
           for (int e = 0; e < kE; ++e) dot += qr[j][e] * kf[e];
         }
@@ -467,14 +534,14 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
         for (int o = 1; o < kLpr; o <<= 1) {
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
         }
-        s[i][j] = valid ? dot * ksc * scale + bs[i] : kLowest;
+        s[i][j] = sees(row, j) ? dot * ksc * scale + bs[i] : kLowest;
       }
     }
 
     // Fold the tile into the running state: one rescale per tile.
 #pragma unroll
     for (int j = 0; j < kG; ++j) {
-      if (j < G) {
+      if (j < map.n_rows) {
         float m_new = m[j];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) m_new = fmaxf(m_new, s[i][j]);
@@ -485,8 +552,8 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
         for (int e = 0; e < kE; ++e) acc[j][e] *= alpha;
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
-          const bool valid = grp + kGroups * i < rows;
-          s[i][j] = valid ? expf(s[i][j] - m_new) : 0.f;  // now p
+          s[i][j] = sees(grp + kGroups * i, j) ? expf(s[i][j] - m_new)
+                                               : 0.f;  // now p
           l[j] += s[i][j];
         }
       }
@@ -495,7 +562,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int row = grp + kGroups * i;
-      if (row < rows) {
+      if (row < n) {
         float vf[kE];
 #pragma unroll
         for (int v = 0; v < kVpl; ++v) {
@@ -505,7 +572,7 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
         const float vsc = kQuant ? vss[i] : 1.f;
 #pragma unroll
         for (int j = 0; j < kG; ++j) {
-          if (j < G) {
+          if (j < map.n_rows) {
             const float pv = s[i][j] * vsc;
 #pragma unroll
             for (int e = 0; e < kE; ++e) acc[j][e] += pv * vf[e];
@@ -546,12 +613,12 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   if (lane < kLpr) {
 #pragma unroll
     for (int j = 0; j < kG; ++j) {
-      if (j < G) {
+      if (j < map.n_rows) {
 #pragma unroll
         for (int v = 0; v < kVpl; ++v) {
 #pragma unroll
           for (int e = 0; e < kN; ++e) {
-            w_o[(warp * G + j) * kDh + (lr + kLpr * v) * kN + e] =
+            w_o[(warp * R + j) * kDh + (lr + kLpr * v) * kN + e] =
                 acc[j][v * kN + e];
           }
         }
@@ -564,7 +631,11 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   }
   __syncthreads();
 
-  T* O = out + ((long long)b * H + (long long)g * G) * kDh;
+  // Row j's output: out[b, g*G + head, pos] (W = 1: out[b, g*G + j]).
+  T* O = out + (long long)b * H * W * kDh;
+  auto out_row = [&](int j) {
+    return O + ((long long)(g * G + map.head(j)) * W + map.pos(j)) * kDh;
+  };
   float* r_o = p_o;
   float* r_m = p_m;
   float* r_l = p_l;
@@ -572,13 +643,13 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
     // Push into this split's slot on rank 0, once rank 0 is known to run.
     cg::cluster_group cluster = cg::this_cluster();
     cluster_wait();
-    r_o = cluster.map_shared_rank(p_o, 0) + split * G * kDh;
-    r_m = cluster.map_shared_rank(p_m, 0) + split * G;
-    r_l = cluster.map_shared_rank(p_l, 0) + split * G;
+    r_o = cluster.map_shared_rank(p_o, 0) + split * R * kDh;
+    r_m = cluster.map_shared_rank(p_m, 0) + split * R;
+    r_l = cluster.map_shared_rank(p_l, 0) + split * R;
   }
   // Each output element merges the warps' states at once: the common
   // maximum first, then independent weights (no chain of rescales).
-  for (int i = tid; i < G * kDh; i += kThreads) {
+  for (int i = tid; i < map.n_rows * kDh; i += kThreads) {
     const int j = i / kDh;
     float mm = kLowest;
 #pragma unroll
@@ -589,10 +660,10 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
     for (int w = 0; w < kWarps; ++w) {
       const float a = expf(w_m[w * kMaxGroup + j] - mm);
       ll += a * w_l[w * kMaxGroup + j];
-      o += a * w_o[(w * G + j) * kDh + (i - j * kDh)];
+      o += a * w_o[(w * R + j) * kDh + (i - j * kDh)];
     }
     if (n_split == 1) {
-      Vec<T>::store(O + i, o / ll);
+      Vec<T>::store(out_row(j) + (i - j * kDh), o / ll);
     } else {
       r_o[i] = o;
       if (i - j * kDh == 0) {
@@ -605,18 +676,58 @@ decode_attention_kernel(const T* __restrict__ q, long long q_sb,
   cluster_arrive_release();
   if (split != 0) return;  // rank 0 waits for every slot; peers are done
   cluster_wait();
-  for (int i = tid; i < G * kDh; i += kThreads) {
+  for (int i = tid; i < map.n_rows * kDh; i += kThreads) {
     const int j = i / kDh;
     float mm = kLowest;
-    for (int k = 0; k < n_split; ++k) mm = fmaxf(mm, p_m[k * G + j]);
+    for (int k = 0; k < n_split; ++k) mm = fmaxf(mm, p_m[k * R + j]);
     float ll = 0.f;
     float o = 0.f;
     for (int k = 0; k < n_split; ++k) {
-      const float a = expf(p_m[k * G + j] - mm);
-      ll += a * p_l[k * G + j];
-      o += a * p_o[k * G * kDh + i];
+      const float a = expf(p_m[k * R + j] - mm);
+      ll += a * p_l[k * R + j];
+      o += a * p_o[k * R * kDh + i];
     }
-    Vec<T>::store(O + i, o / ll);
+    Vec<T>::store(out_row(j) + (i - j * kDh), o / ll);
+  }
+}
+
+#define DECODE_ATTENTION_PARAMS                                               \
+  const T *__restrict__ q, long long q_sb, long long q_sh, long long q_sw,    \
+      const KV *__restrict__ k_cache, const KV *__restrict__ v_cache,         \
+      const float *__restrict__ ks_cache, const float *__restrict__ vs_cache, \
+      const float *__restrict__ bias, const int *__restrict__ lengths,        \
+      T *__restrict__ out, int B, int H, int Hkv, int S, int S_alloc, int W,  \
+      int rows, int n_chunks, int layer, int split_keys, int tile,            \
+      int stages, float scale
+#define DECODE_ATTENTION_ARGS                                                 \
+  q, q_sb, q_sh, q_sw, k_cache, v_cache, ks_cache, vs_cache, bias, lengths,   \
+      out, B, H, Hkv, S, S_alloc, W, rows, n_chunks, layer, split_keys, tile, \
+      stages, scale
+
+// One query row a batch row (decode): a block holds the G query heads of
+// its KV head.
+template <typename T, typename KV, int kDh, int kG>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_kernel(DECODE_ATTENTION_PARAMS) {
+  attend_rows<T, KV, kDh, kG, false>(DECODE_ATTENTION_ARGS);
+}
+
+// A verify window of W query rows a batch row, each with its own frontier
+// (a kernel of its own name, so a captured graph's nodes tell the two
+// apart).
+template <typename T, typename KV, int kDh, int kG>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_window_kernel(DECODE_ATTENTION_PARAMS) {
+  attend_rows<T, KV, kDh, kG, true>(DECODE_ATTENTION_ARGS);
+}
+
+// One of the two kernels, instantiated alone.
+template <typename T, typename KV, int kDh, int kG, bool kWindow>
+constexpr auto kernel_of() {
+  if constexpr (kWindow) {
+    return decode_attention_window_kernel<T, KV, kDh, kG>;
+  } else {
+    return decode_attention_kernel<T, KV, kDh, kG>;
   }
 }
 
@@ -626,10 +737,10 @@ struct Ptrs {
   void* out;
 };
 
-template <typename T, typename KV, int kDh, int kG>
+template <typename T, typename KV, int kDh, int kG, bool kWindow>
 int launch(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
            cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<T, KV, kDh, kG>;
+  auto kernel = kernel_of<T, KV, kDh, kG, kWindow>();
   // Raise the dynamic shared-memory ceiling once per instantiation and
   // size, not on every call.
   static int configured = 48 * 1024;
@@ -640,7 +751,7 @@ int launch(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
     configured = a.smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.n_split, a.Hkv, a.B);
+  cfg.gridDim = dim3(a.n_split, a.Hkv * a.n_chunks, a.B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = (size_t)a.smem;
   cfg.stream = stream;
@@ -652,58 +763,70 @@ int launch(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
   cfg.attrs = attr;
   cfg.numAttrs = a.n_split > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(p.q), a.q_sb, a.q_sh,
+      &cfg, kernel, static_cast<const T*>(p.q), a.q_sb, a.q_sh, a.q_sw,
       static_cast<const KV*>(p.k), static_cast<const KV*>(p.v),
       static_cast<const float*>(p.ks), static_cast<const float*>(p.vs),
       static_cast<const float*>(p.bias), static_cast<const int*>(p.lengths),
-      static_cast<T*>(p.out), a.B, a.H, a.Hkv, a.S, a.S_alloc, layer,
-      a.split_keys, a.tile, a.stages, a.scale);
+      static_cast<T*>(p.out), a.B, a.H, a.Hkv, a.S, a.S_alloc, a.W, a.rows,
+      a.n_chunks, layer, a.split_keys, a.tile, a.stages, a.scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The group size is a template bound (1, 4 or 8), so the per-head arrays
-// live in registers.
+// The rows a block holds are a template bound (1, 4 or 8 heads for decode;
+// 4 rows for a window), so the per-row arrays live in registers.
 template <typename T, typename KV, int kDh>
-int launch_group(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
-                 cudaStream_t stream) {
-  const int G = a.H / a.Hkv;
-  if (G == 1) return launch<T, KV, kDh, 1>(a, p, layer, stream);
-  if (G <= 4) return launch<T, KV, kDh, 4>(a, p, layer, stream);
-  return launch<T, KV, kDh, kMaxGroup>(a, p, layer, stream);
+int launch_decode(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
+                  cudaStream_t stream) {
+  if (a.rows == 1) return launch<T, KV, kDh, 1, false>(a, p, layer, stream);
+  if (a.rows <= 4) return launch<T, KV, kDh, 4, false>(a, p, layer, stream);
+  return launch<T, KV, kDh, kMaxGroup, false>(a, p, layer, stream);
+}
+
+template <typename T, typename KV, int kDh>
+int launch_window(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
+                  cudaStream_t stream) {
+  return launch<T, KV, kDh, kWindowRows, true>(a, p, layer, stream);
 }
 
 // Head dims: 8-128 for a float or bf16 cache; 64 and 128 (GPT-2 small and
 // the larger models) for an int8 cache, whose 8-byte row vectors need Dh
-// >= 64 for a 16-byte multiple a row at any tile length.
+// >= 64 for a 16-byte multiple a row at any tile length. A window takes 64
+// and 128 in every cache mode.
 template <typename T, typename KV>
 int launch_dh(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
               cudaStream_t stream) {
-  if constexpr (sizeof(KV) == 1) {
+  if (a.W > 1) {
     switch (a.Dh) {
       case 64:
-        return launch_group<T, KV, 64>(a, p, layer, stream);
+        return launch_window<T, KV, 64>(a, p, layer, stream);
       case 128:
-        return launch_group<T, KV, 128>(a, p, layer, stream);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    switch (a.Dh) {
-      case 8:
-        return launch_group<T, KV, 8>(a, p, layer, stream);
-      case 16:
-        return launch_group<T, KV, 16>(a, p, layer, stream);
-      case 32:
-        return launch_group<T, KV, 32>(a, p, layer, stream);
-      case 64:
-        return launch_group<T, KV, 64>(a, p, layer, stream);
-      case 128:
-        return launch_group<T, KV, 128>(a, p, layer, stream);
+        return launch_window<T, KV, 128>(a, p, layer, stream);
       default:
         return (int)cudaErrorInvalidValue;
     }
   }
+  switch (a.Dh) {
+    case 64:
+      return launch_decode<T, KV, 64>(a, p, layer, stream);
+    case 128:
+      return launch_decode<T, KV, 128>(a, p, layer, stream);
+    default:
+      break;
+  }
+  if constexpr (sizeof(KV) != 1) {
+    switch (a.Dh) {
+      case 8:
+        return launch_decode<T, KV, 8>(a, p, layer, stream);
+      case 16:
+        return launch_decode<T, KV, 16>(a, p, layer, stream);
+      case 32:
+        return launch_decode<T, KV, 32>(a, p, layer, stream);
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -725,9 +848,18 @@ extern "C" int decode_attention_launch(const DecodeAttentionArgs* args,
       a.S <= 0 || a.S > a.S_alloc || a.n_split < 1 ||
       a.n_split > kMaxSplit || (a.n_split & (a.n_split - 1)) != 0 ||
       a.split_keys < 1 || (long long)a.split_keys * a.n_split < a.S ||
-      a.tile < 8 || a.tile % 8 != 0 || a.tile > max_tile(a.H / a.Hkv)) {
+      a.tile < 8 || a.tile % 8 != 0 || a.tile > max_tile(a.rows)) {
     return (int)cudaErrorInvalidValue;
   }
+  // Decode: a block holds its KV head's G heads. A window: n_chunks blocks
+  // of `rows` rows cover the G * W rows, none of them empty.
+  const int G = a.H / a.Hkv;
+  const bool rows_ok =
+      a.W == 1 ? (a.rows == G && a.n_chunks == 1)
+               : (a.W > 1 && a.rows >= 2 && a.rows <= kWindowRows &&
+                  a.n_chunks >= 1 && a.rows * a.n_chunks >= G * a.W &&
+                  a.rows * (a.n_chunks - 1) < G * a.W);
+  if (!rows_ok) return (int)cudaErrorInvalidValue;
   // A one-stage ring holds a split of one tile only: a later tile would
   // wait on a copy that never starts.
   const int max_tiles = (a.split_keys + a.tile - 1) / a.tile;
@@ -740,8 +872,8 @@ extern "C" int decode_attention_launch(const DecodeAttentionArgs* args,
     return (int)cudaErrorInvalidValue;
   }
   const int elem = quant ? 1 : (a.kv_dtype == 0 ? 4 : 2);
-  if (a.smem < 0 || (size_t)a.smem < smem_bytes(a.H / a.Hkv, a.Dh, a.tile,
-                                                 elem, a.stages, a.n_split)) {
+  if (a.smem < 0 || (size_t)a.smem < smem_bytes(a.rows, a.Dh, a.tile, elem,
+                                                 a.stages, a.n_split)) {
     return (int)cudaErrorInvalidValue;
   }
   const Ptrs p{q, k_cache, v_cache, ks, vs, bias, lengths, out};

@@ -21,16 +21,17 @@ Run (on the card; ``--device cpu`` for a CPU run):
     python -m distributed_lms_raft_llm_tpu_torch.serving.tutoring_server \\
         [--port 50054] [--model gpt2] [--checkpoint model.safetensors ...]
 
-The production tutoring node (configs/cluster.toml ``[tutoring]``, less
-speculative decoding): ``--paged --quant int8 --kv-quant --slots 16
---chunk 16 --inflight 3 --megastep 4 --megastep-max 8 --prefix-cache
---prefix-cache-blocks 512 --prefill-chunk-tokens 32``. On the card the
+The production tutoring node (configs/cluster.toml ``[tutoring]``):
+``--paged --quant int8 --kv-quant --slots 16 --chunk 16 --inflight 3
+--megastep 4 --megastep-max 8 --prefix-cache --prefix-cache-blocks 512
+--prefill-chunk-tokens 32``, and with speculative decoding (commented out
+there) ``--spec-tokens 8 --draft-source prompt_lookup``. On the card the
 paged engine's warmup captures its CUDA graphs before the server listens,
 so ``--no-warmup`` is refused with ``--paged`` there.
 
 Not ported yet, and so refused as unknown flags: the scoring tenant
 (``--scoring``; ``/admin/score`` answers 404, as on a JAX node without a
-scorer), the telemetry timeline, speculative decoding, tp/ep.
+scorer), the telemetry timeline, tp/ep.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from ..engine import (
     SamplingParams,
     TutoringEngine,
 )
+from ..engine.engine import DRAFT_SOURCES
 from ..proto import lms_pb2, rpc
 from ..utils import auth
 from ..utils.healthz import HealthServer
@@ -326,12 +328,16 @@ def make_tutoring_admin(service: TutoringService):
 
 
 def make_tutoring_health(service: TutoringService, queue, engine_name: str,
-                         max_queue: int):
+                         max_queue: int, spec_tokens: int = 0,
+                         draft_source: str = "prompt_lookup"):
     """/healthz provider: admission pressure and the fleet lifecycle (the
-    router's health poller reads `draining`, `queued` and `node_id`)."""
+    router's health poller reads `draining`, `queued` and `node_id`); a
+    speculating node adds its `spec_tokens` and `draft_source`, as a JAX
+    node adds its scoring block only when it scores, so a node without
+    speculation answers with the JAX node's fields alone."""
 
     def health() -> dict:
-        return {
+        doc = {
             "ok": True,
             "engine": engine_name,
             "node_id": service.node_id,
@@ -340,6 +346,9 @@ def make_tutoring_health(service: TutoringService, queue, engine_name: str,
             "draining": service.draining,
             "sessions": len(service._sessions),
         }
+        if spec_tokens > 0:
+            doc.update(spec_tokens=spec_tokens, draft_source=draft_source)
+        return doc
 
     return health
 
@@ -396,8 +405,10 @@ async def serve_async(port: int, engine, *,
 
         health = HealthServer(
             metrics,
-            health=make_tutoring_health(service, queue, type(engine).__name__,
-                                        max_queue),
+            health=make_tutoring_health(
+                service, queue, type(engine).__name__, max_queue,
+                spec_tokens=engine.config.spec_tokens,
+                draft_source=engine.config.draft_source),
             admin=make_tutoring_admin(service), admin_get=admin_get,
             port=metrics_port)
         log.info("health/metrics endpoint on http://127.0.0.1:%d",
@@ -492,6 +503,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "prompts are staged and prefilled this many tokens "
                         "per megastep iteration, so admission never pauses "
                         "decode (0 = sequential admission)")
+    parser.add_argument("--spec-tokens", type=int, default=0,
+                        help="speculative decoding: verify this many draft "
+                        "tokens a step in one forward (exact: the output "
+                        "distribution is unchanged); both engines, "
+                        "acceptance in /metrics as spec_tokens_per_window "
+                        "and spec_accepted_tokens; 0 = off")
+    parser.add_argument("--draft-source", default="prompt_lookup",
+                        choices=DRAFT_SOURCES,
+                        help="speculative draft source (with --spec-tokens):"
+                        " prompt_lookup = most recent n-gram continuation; "
+                        "ngram = per-slot modal-continuation table (paged "
+                        "only)")
     return parser
 
 
@@ -506,6 +529,7 @@ def engine_from_args(args: argparse.Namespace):
             max_new_tokens=args.max_new_tokens),
         seed=args.seed, device=args.device, dtype=dtype, param_dtype=dtype,
         quant=args.quant, kv_quant=args.kv_quant,
+        spec_tokens=args.spec_tokens, draft_source=args.draft_source,
     )
     if args.paged:
         if args.no_warmup and torch.device(args.device).type == "cuda":

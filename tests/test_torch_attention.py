@@ -690,3 +690,158 @@ def test_extended_launch_passes_scales_bias_and_lengths(monkeypatch):
         counts[port_attention.INT8KV] + 1
     assert port_attention.launch_counts[port_attention.KERNEL] == \
         counts[port_attention.KERNEL]
+
+
+# ------------------------------------------------ the verify window (T rows)
+
+
+def _window_case(b, hkv, t, seed):
+    """q [b, H, t, DH], a layer cache, per-row offsets (one window ending at
+    the last slot), and the causal window mask of JAX's ragged path."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, H, t, DH)).astype(np.float32)
+    _, k, v, _ = _inputs(b, hkv, seed)
+    offs = rng.integers(0, S - t + 1, b).astype(np.int32)
+    offs[0] = S - t
+    slots = offs[:, None] + np.arange(t)[None, :]
+    mask = (np.arange(S)[None, None, :] <= slots[:, :, None])[:, None]
+    return q, k, v, offs, mask
+
+
+@pytest.mark.parametrize("b,hkv", CASES)
+@pytest.mark.parametrize("t", [2, 5])
+def test_window_reference_matches_jax_ragged_attend(b, hkv, t):
+    """T query rows a batch row, row b's query j seeing the keys through
+    its own slot offs[b] + j (lengths = offs + 1): the plain version equals
+    JAX `attend` under the ragged path's causal window mask, with GQA."""
+    q, k, v, offs, mask = _window_case(b, hkv, t, seed=40 + 7 * b + hkv + t)
+    kl = jax_common.repeat_kv(jnp.asarray(k[LAYER]), H // hkv)
+    vl = jax_common.repeat_kv(jnp.asarray(v[LAYER]), H // hkv)
+    want = jax_common.attend(jnp.asarray(q), kl, vl, jnp.asarray(mask))
+    got = port_attention.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), LAYER,
+        lengths=torch.from_numpy(offs + 1))
+    assert got.shape == (b, H, t, DH)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("b", MAIN_BATCHES + (16,))
+@pytest.mark.parametrize("t", [2, 5, 9, 16])
+def test_launch_plan_invariants_for_a_window(b, t):
+    """The plan of a verify window: the rows a block and the blocks a (row,
+    KV head) (`window_rows`) shape the grid; the tile is that of a multi-row
+    block (<= 64 keys), in both cache types."""
+    for dtype in (torch.bfloat16, torch.int8):
+        rows, chunks = port_attention.window_rows(1, t)
+        for s in (160, 384, 1024):
+            plan = port_attention.launch_plan(b, 12, s, 64, dtype,
+                                              group=rows, chunks=chunks)
+            assert plan.blocks == b * 12 * chunks * plan.n_split
+            _check_plan(plan, b * chunks, 12, s, 64, dtype, rows)
+
+
+def test_window_launches_count_as_their_variant(monkeypatch):
+    """A window on CUDA tensors takes the kernel (never the plain version)
+    and counts under its own variant, float or int8 cache."""
+    launched = []
+    monkeypatch.setattr(port_attention, "_entry_point",
+                        lambda: (lambda *a: launched.append(a) or 0,
+                                 lambda index: 0))
+    monkeypatch.setattr(port_attention, "_layouts", {})
+
+    def no_plain(*args):
+        raise AssertionError("plain path taken for CUDA tensors")
+
+    monkeypatch.setattr(port_attention, "decode_attention_reference",
+                        no_plain)
+    b, t, dh = 2, 3, 64
+    q = np.zeros((b, H, t, dh), np.float32)
+    k = np.zeros((L, b, H, S, dh), np.float32)
+    lengths = np.array([1, S - t + 1], np.int32)
+    counts = dict(port_attention.launch_counts)
+    out = port_attention.decode_attention(
+        _fake_cuda(q), _fake_cuda(k), _fake_cuda(k), LAYER,
+        lengths=_fake_cuda(lengths))
+    assert tuple(out.shape) == (b, H, t, dh)
+    k8 = np.zeros((L, b, H, S, dh), np.int8)
+    sc = np.ones((L, b, H, S), np.float32)
+    port_attention.decode_attention(
+        _fake_cuda(q), _fake_cuda(k8), _fake_cuda(k8), LAYER,
+        lengths=_fake_cuda(lengths), k_scale=_fake_cuda(sc),
+        v_scale=_fake_cuda(sc))
+    assert len(launched) == 2
+    delta = {n: port_attention.launch_counts[n] - counts[n] for n in counts}
+    assert delta == {n: int(n in (port_attention.WINDOW,
+                                  port_attention.WINDOW_INT8KV))
+                     for n in counts}
+
+
+def test_window_rows_match_the_kernel_source():
+    """The wrapper's block cut and the kernel's instantiations agree: a
+    window block holds WINDOW_ROWS rows (csrc kWindowRows), decode up to
+    MAX_GROUP heads (csrc kMaxGroup)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(port_attention.__file__).parent / "csrc"
+           / "decode_attention.cu").read_text()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert constant("kWindowRows") == port_attention.WINDOW_ROWS
+    assert constant("kMaxGroup") == port_attention.MAX_GROUP
+    for t in range(2, port_attention.MAX_WINDOW + 1):
+        rows, _ = port_attention.window_rows(1, t)
+        assert 2 <= rows <= port_attention.WINDOW_ROWS
+
+
+def _deployment_window(dtype, seed=8):
+    """A verify window at the deployment's widest paged width: 16 slots,
+    T = 9, width 391, GPT-2's 12 heads of 64, one short row, one long row
+    inside the width and one whose last query reaches it."""
+    from distributed_lms_raft_llm_tpu_torch.ops import sweep_attention
+
+    rng = np.random.default_rng(seed)
+    s, h, t, width = 16, 12, 9, 391
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               for shape in ((s, h, t, DH), (1, s, h, width, DH),
+                             (1, s, h, width, DH)))
+    lengths = rng.integers(1, width - t + 2, s).astype(np.int32)
+    lengths[0], lengths[1], lengths[-1] = 1, width // 2 + 1, width - t + 1
+    lengths = torch.from_numpy(lengths)
+    dt = getattr(torch, dtype)
+
+    def plain(lens, cast=dt):
+        return port_attention.decode_attention_reference(
+            q.to(dt).to(cast), k.to(dt).to(cast), v.to(dt).to(cast), 0,
+            None, lens)
+
+    return sweep_attention, plain, lengths, width, t
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_window_check_passes_rounding_alone(dtype):
+    """`sweep_attention.window_error`, which holds the kernel's window to
+    its plain version row by row, passes the plain version in `dtype`
+    against the same inputs computed wider (float32 for bf16, float64 for
+    float32): rounding alone stays inside each row's limit."""
+    sweep, plain, lengths, _, _ = _deployment_window(dtype)
+    wide = torch.float32 if dtype == "bfloat16" else torch.float64
+    check = sweep.window_error(plain(lengths), plain(lengths, wide), dtype)
+    assert check["ok"], check
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("fault", ["all_rows_plus_1", "long_rows_plus_1"])
+def test_window_check_catches_a_planted_frontier_fault(dtype, fault):
+    """A frontier one key late fails the row-by-row check, also when only
+    the long rows (outputs averaged down near 0.1) carry it; rows whose
+    last query reaches the width keep their lengths."""
+    sweep, plain, lengths, width, t = _deployment_window(dtype)
+    bad = sweep.window_faults(lengths, width, t)[fault]
+    assert int((lengths + t - 1).max()) == width
+    assert int((bad + t - 1).max()) == width  # no key past the width
+    assert (bad != lengths).any()
+    check = sweep.window_error(plain(bad), plain(lengths), dtype)
+    assert not check["ok"], check

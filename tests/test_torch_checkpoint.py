@@ -24,10 +24,20 @@ WordPiece vocabulary in float32 embeds texts within 1e-5 of the JAX gate
 (twelve layers of float32 sums in another order) and decides every pair
 alike.
 
-Each case is skipped only when its files are absent.
+Where data/ is absent (a fresh checkout: it is gitignored), the module
+builds the artifacts once in a temporary directory with
+scripts/make_local_checkpoint.py's own builders, at a reduced size that
+takes seconds: the same full-size models from seeded random weights, and
+vocabularies of REDUCED_VOCAB trained on this checkout's text (its
+Markdown, the JAX package and the tests: the builder's corpus without the
+system's files). Every case then runs either way.
 """
 
+import contextlib
+import glob
+import importlib.util
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -65,10 +75,59 @@ BERT_FILES = {name: os.path.join(BERT_LOCAL, name)
               for name in ("model.safetensors", "vocab.txt")}
 
 
-def _require(files, name):
-    if not all(os.path.exists(p) for p in files.values()):
-        pytest.skip(f"data/{name} is absent (built by "
-                    "scripts/make_local_checkpoint.py)")
+REDUCED_VOCAB = 8000
+
+
+def _checkout_corpus(out_path: str, max_files: int = 400) -> str:
+    """`build_corpus` of scripts/make_local_checkpoint.py over this
+    checkout's files alone."""
+    sources = []
+    for pattern in (f"{REPO}/*.md",
+                    f"{REPO}/distributed_lms_raft_llm_tpu/**/*.py",
+                    f"{REPO}/tests/*.py"):
+        sources.extend(sorted(glob.glob(pattern, recursive=True))[:max_files])
+    with open(out_path, "w", encoding="utf-8") as out:
+        for src in sources:
+            with open(src, encoding="utf-8", errors="ignore") as f:
+                out.write(f.read())
+                out.write("\n")
+    return out_path
+
+
+@contextlib.contextmanager
+def local_artifacts(tmp_path_factory, files, builder):
+    """`files` where all exist (data/), else built by the named builder of
+    scripts/make_local_checkpoint.py into a temporary directory, removed
+    after the module."""
+    if all(os.path.exists(p) for p in files.values()):
+        yield files
+        return
+    spec = importlib.util.spec_from_file_location(
+        "make_local_checkpoint",
+        os.path.join(REPO, "scripts", "make_local_checkpoint.py"))
+    builders = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(builders)
+    out = tmp_path_factory.mktemp(builder)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(builders, "build_corpus", _checkout_corpus)
+        getattr(builders, builder)(str(out), vocab_size=REDUCED_VOCAB)
+    try:
+        yield {name: str(out / name) for name in files}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def gpt2_files(tmp_path_factory):
+    with local_artifacts(tmp_path_factory, FILES, "build_gpt2_local") as f:
+        yield f
+
+
+@pytest.fixture(scope="module")
+def bert_files(tmp_path_factory):
+    with local_artifacts(tmp_path_factory, BERT_FILES,
+                         "build_bert_local") as f:
+        yield f
 
 
 CORPUS = [
@@ -86,10 +145,10 @@ ATOL_OF_RANGE = 1e-5
 
 
 @pytest.fixture(scope="module")
-def tokenizers():
-    _require(FILES, "gpt2-local")
-    return (BPETokenizer.from_files(FILES["vocab.json"], FILES["merges.txt"]),
-            JaxBPE.from_files(FILES["vocab.json"], FILES["merges.txt"]))
+def tokenizers(gpt2_files):
+    files = gpt2_files
+    return (BPETokenizer.from_files(files["vocab.json"], files["merges.txt"]),
+            JaxBPE.from_files(files["vocab.json"], files["merges.txt"]))
 
 
 @pytest.mark.parametrize("text", CORPUS)
@@ -138,11 +197,10 @@ def test_bpe_ids_ending_inside_a_character(tokenizers):
 
 
 @pytest.fixture(scope="module")
-def models():
+def models(gpt2_files):
     """The checkpoint in both packages at GPT-2 small's width, float32."""
-    _require(FILES, "gpt2-local")
-    sd = convert.load_safetensors(FILES["model.safetensors"])
-    jsd = jax_convert.load_safetensors(FILES["model.safetensors"])
+    sd = convert.load_safetensors(gpt2_files["model.safetensors"])
+    jsd = jax_convert.load_safetensors(gpt2_files["model.safetensors"])
     assert sorted(sd) == sorted(jsd)
     for name in sd:
         np.testing.assert_array_equal(sd[name], jsd[name])
@@ -177,7 +235,7 @@ def test_params_from_the_checkpoint_equal_jax(models):
         np.testing.assert_array_equal(port[key].numpy(), np.asarray(value))
 
 
-def test_logits_and_greedy_tokens_equal_jax(models, tokenizers):
+def test_logits_and_greedy_tokens_equal_jax(models, tokenizers, gpt2_files):
     cfg, params, jcfg, jparams = models
     tok, _ = tokenizers
     prompt = PROMPT_TEMPLATE.format(query="How does Raft elect a leader?")
@@ -185,8 +243,9 @@ def test_logits_and_greedy_tokens_equal_jax(models, tokenizers):
     # The port's greedy answer through its serving engine (KV cache,
     # eager decode on the CPU).
     engine = TutoringEngine(EngineConfig(
-        model="gpt2", checkpoint=FILES["model.safetensors"],
-        vocab_path=FILES["vocab.json"], merges_path=FILES["merges.txt"],
+        model="gpt2", checkpoint=gpt2_files["model.safetensors"],
+        vocab_path=gpt2_files["vocab.json"],
+        merges_path=gpt2_files["merges.txt"],
         sampling=SamplingParams.greedy(max_new_tokens=NEW_TOKENS),
         length_buckets=(64,), batch_buckets=(1,), dtype=torch.float32,
         param_dtype=torch.float32, device="cpu"))
@@ -225,10 +284,9 @@ GATE_CONTEXTS = [
 ]
 
 
-def test_bert_params_from_the_checkpoint_equal_jax():
-    _require(BERT_FILES, "bert-local")
-    sd = convert.load_safetensors(BERT_FILES["model.safetensors"])
-    jsd = jax_convert.load_safetensors(BERT_FILES["model.safetensors"])
+def test_bert_params_from_the_checkpoint_equal_jax(bert_files):
+    sd = convert.load_safetensors(bert_files["model.safetensors"])
+    jsd = jax_convert.load_safetensors(bert_files["model.safetensors"])
     assert sorted(sd) == sorted(jsd)
     jcfg = jax_bert.BertConfig.base_uncased()
     cfg = bert.BertConfig.base_uncased()
@@ -251,11 +309,10 @@ def test_bert_params_from_the_checkpoint_equal_jax():
         np.testing.assert_array_equal(port[key].numpy(), np.asarray(value))
 
 
-def test_gate_on_the_checkpoint_equals_jax():
-    _require(BERT_FILES, "bert-local")
+def test_gate_on_the_checkpoint_equals_jax(bert_files):
     common = dict(model="bert-base-uncased",
-                  checkpoint=BERT_FILES["model.safetensors"],
-                  vocab_path=BERT_FILES["vocab.txt"])
+                  checkpoint=bert_files["model.safetensors"],
+                  vocab_path=bert_files["vocab.txt"])
     jgate = JaxGate(JaxGateConfig(dtype=jnp.float32, **common))
     gate = RelevanceGate(GateConfig(dtype=torch.float32, device="cpu",
                                     **common))

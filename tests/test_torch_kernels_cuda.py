@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from distributed_lms_raft_llm_tpu_torch.ops import attention as port_attention
+from distributed_lms_raft_llm_tpu_torch.ops import sweep_attention
 
 
 @pytest.fixture
@@ -177,6 +178,113 @@ def test_int8_kernel_with_bias_matches_plain(card, dtype, atol):
     torch.cuda.synchronize()
     atol *= max(1.0, want.float().abs().max().item())
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def _window_lengths(rng, s, width, t):
+    """Per-row offsets + 1 of a verify window of t rows: one row at 1, one
+    whose last query sees the full width, the rest between."""
+    lengths = rng.integers(1, width - t + 2, size=s)
+    lengths[0], lengths[-1] = 1, width - t + 1
+    return lengths.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("bfloat16", 2e-2), ("float32", 1e-5)])
+@pytest.mark.parametrize("int8_cache", [False, True])
+@pytest.mark.parametrize("t", [2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("s,hkv,width,dh,with_bias", [
+    (16, 12, 384, 64, False), (8, 12, 640, 64, False),
+    (8, 12, 384, 64, True), (4, 4, 384, 64, False), (4, 12, 320, 128, True),
+    # The deployment's paged widths at spec 8 (167 and 391 of 167, 199,
+    # 263, 391) and the bucketed engine's (bucket 256 + 32 + 8 - 1).
+    (16, 12, 167, 64, False), (16, 12, 391, 64, False),
+    (8, 12, 295, 64, True),
+])
+def test_window_kernel_matches_plain(card, dtype, atol, int8_cache, t, s,
+                                     hkv, width, dh, with_bias):
+    """The speculative verify window: t query rows a batch row, row b's
+    query j seeing the keys before lengths[b] + j (one row's last query
+    reaches the width), q strided as the model passes it, a window of a
+    larger cache, a float or int8 cache, GQA (12 heads on 4 KV heads: 3t
+    rows a KV head, cut into blocks of at most 4), and the bucketed path's
+    shared pad bias. Each query row is held to its own largest output
+    (`sweep_attention.window_error`): a limit scaled by the call's largest
+    output, a one-key row's raw v, would pass a long row's frontier one
+    key off. Tolerances as in the ragged test, per row."""
+    rng = np.random.default_rng(s * width + t * 7 + int8_cache)
+    h, layers, s_alloc = 12, 12, width + 64
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(
+        rng.standard_normal((s, t, 3 * h * dh), np.float32)).to(card, dt)
+    q = qkv[..., :h * dh].reshape(s, t, h, dh).transpose(1, 2)
+    shape = (layers, s, hkv, s_alloc, dh)
+    if int8_cache:
+        k, v = (torch.from_numpy(rng.integers(-127, 128, shape, np.int8))
+                .to(card) for _ in range(2))
+        ks, vs = (torch.from_numpy(
+            rng.uniform(0.001, 0.05, shape[:4]).astype(np.float32)).to(card)
+            for _ in range(2))
+        scales = dict(k_scale=ks[..., :width], v_scale=vs[..., :width])
+        variant = port_attention.WINDOW_INT8KV
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                .to(card, dt) for _ in range(2))
+        scales = {}
+        variant = port_attention.WINDOW
+    k, v = k[:, :, :, :width], v[:, :, :, :width]
+    lengths = torch.from_numpy(_window_lengths(rng, s, width, t)).to(card)
+    bias = None
+    if with_bias:  # left padding below each row's first real slot
+        mask = np.ones((s, 1, 1, width), bool)
+        for row, n in enumerate(lengths.cpu().numpy()):
+            mask[row, ..., :rng.integers(0, n)] = False
+        bias = port_attention.mask_to_bias(torch.from_numpy(mask).to(card))
+    before = dict(port_attention.launch_counts)
+    got = port_attention.decode_attention(q, k, v, 5, bias, lengths=lengths,
+                                          **scales)
+    want = port_attention.decode_attention_reference(
+        q, k, v, 5, bias, lengths, scales.get("k_scale"),
+        scales.get("v_scale"))
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in
+            port_attention.launch_counts.items()} == {
+        n: int(n == variant) for n in before}
+    assert got.shape == (s, h, t, dh) and torch.isfinite(got.float()).all()
+    check = sweep_attention.window_error(got, want, dtype)
+    assert check["max_row_rel_err"] <= atol, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_cache", [False, True])
+def test_window_rows_equal_single_row_calls(card, int8_cache):
+    """Each row of a window equals the decode kernel called on that row
+    alone with its own frontier (lengths + j), to float32 rounding: the
+    window changes which rows share a key stream, not what a row sees."""
+    rng = np.random.default_rng(11 + int8_cache)
+    s, h, dh, width, t = 8, 12, 64, 384, 9
+    shape = (12, s, h, width, dh)
+    q = torch.from_numpy(rng.standard_normal((s, h, t, dh), np.float32)).to(
+        card)
+    if int8_cache:
+        k, v = (torch.from_numpy(rng.integers(-127, 128, shape, np.int8))
+                .to(card) for _ in range(2))
+        ks, vs = (torch.from_numpy(
+            rng.uniform(0.001, 0.05, shape[:4]).astype(np.float32)).to(card)
+            for _ in range(2))
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                .to(card) for _ in range(2))
+        scales = {}
+    lengths = torch.from_numpy(_window_lengths(rng, s, width, t)).to(card)
+    got = port_attention.decode_attention(q, k, v, 3, lengths=lengths,
+                                          **scales)
+    for j in range(t):
+        one = port_attention.decode_attention(
+            q[:, :, j:j + 1].contiguous(), k, v, 3, lengths=lengths + j,
+            **scales)
+        torch.testing.assert_close(got[:, :, j:j + 1], one, rtol=0,
+                                   atol=1e-5)
 
 
 # The GPT-2-small products of the int8 path: (K, N, transposed), and a
@@ -406,7 +514,7 @@ def test_graph_kernel_nodes_equal_the_captured_counts(card):
             nodes = routes_of_names(kernel_nodes(graph.graph))
             assert nodes == routes_of_counts(graph.captured_launches())
         assert routes_of_names(decode.kernels) == {
-            "decode_attention": 12 * eng.chunk,
+            "decode_attention": 12 * eng.chunk, "decode_attention_window": 0,
             "int8_matmul_mma": 48 * eng.chunk,
             "int8_matmul_mma_unembed": eng.chunk, "int8_matmul_fma": 0}
 

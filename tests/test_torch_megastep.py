@@ -148,7 +148,7 @@ def test_dead_lane_account_equals_jax_megastep_program():
         paged_lib._step_program, params, state, None, cfg=cfg,
         sampling=SamplingParams.greedy(max_new_tokens=32), eos_id=eos,
         pad_id=0, model=family, chunk=chunk)
-    toks, active, started, flipped, _ = paged_lib._megastep_program(
+    toks, active, started, flipped, _, counts = paged_lib._megastep_program(
         step, None, state.active, [False] * k_chunks, pad_id=0)
     assert flipped is None and bool(started.all())
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))

@@ -402,7 +402,9 @@ def test_cli_takes_the_jax_names_and_defaults(argv, field, want):
 
 @pytest.mark.parametrize("flag", [
     ["--scoring"], ["--no-telemetry"], ["--telemetry-interval", "1"],
-    ["--spec-tokens", "2"], ["--strict-dispatch"], ["--config", "x.toml"],
+    # (--spec-tokens is served since speculation was ported: the
+    # approximate top-k the port does not carry takes its place.)
+    ["--approx-topk"], ["--strict-dispatch"], ["--config", "x.toml"],
 ])
 def test_cli_refuses_what_the_port_does_not_implement(flag):
     """A JAX flag the port does not carry is refused, never accepted and

@@ -3,14 +3,19 @@
 The relevance gate tokenizes both texts with BERT's WordPiece
 (`utils/tokenizer.py::WordPieceTokenizer`): ids must be equal to the JAX
 package's for the same text, so both gates embed the same tokens. Held on
-a small vocabulary this test writes itself (always runs) and on the
-deployment's trained vocabulary `data/bert-local/vocab.txt` (skipped
-where absent; built by scripts/make_local_checkpoint.py). Without a
-vocabulary both packages fall back to the byte tokenizer, framed by the
-same [CLS]/[SEP] ids.
+a small vocabulary this test writes itself and on the deployment's
+trained vocabulary `data/bert-local/vocab.txt` (built by
+scripts/make_local_checkpoint.py; where data/ is absent, that script's
+`build_bert_local` trains one on this checkout's text into a temporary
+directory, at a reduced size, as tests/test_torch_checkpoint.py does).
+Without a vocabulary both packages fall back to the byte tokenizer, framed
+by the same [CLS]/[SEP] ids.
 """
 
+import glob
+import importlib.util
 import os
+import shutil
 
 import pytest
 
@@ -100,11 +105,45 @@ def test_byte_fallback_equals_jax(text):
         jtok.cls_id, jtok.sep_id, jtok.pad_id, jtok.vocab_size)
 
 
-@pytest.mark.skipif(not os.path.exists(BERT_VOCAB),
-                    reason="data/bert-local is absent (built by "
-                    "scripts/make_local_checkpoint.py)")
-def test_ids_equal_jax_on_the_trained_vocabulary():
-    tok, jtok = _pair(BERT_VOCAB)
+def _checkout_corpus(out_path, max_files=400):
+    """The builder's corpus over this checkout's files alone."""
+    sources = []
+    for pattern in (f"{REPO}/*.md",
+                    f"{REPO}/distributed_lms_raft_llm_tpu/**/*.py",
+                    f"{REPO}/tests/*.py"):
+        sources.extend(sorted(glob.glob(pattern, recursive=True))[:max_files])
+    with open(out_path, "w", encoding="utf-8") as out:
+        for src in sources:
+            with open(src, encoding="utf-8", errors="ignore") as f:
+                out.write(f.read())
+                out.write("\n")
+    return out_path
+
+
+@pytest.fixture(scope="module")
+def trained_vocab(tmp_path_factory):
+    """data/bert-local/vocab.txt, else one trained by the builder (8,000
+    pieces) into a temporary directory removed after the module."""
+    if os.path.exists(BERT_VOCAB):
+        yield BERT_VOCAB
+        return
+    spec = importlib.util.spec_from_file_location(
+        "make_local_checkpoint",
+        os.path.join(REPO, "scripts", "make_local_checkpoint.py"))
+    builders = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(builders)
+    out = tmp_path_factory.mktemp("bert-local")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(builders, "build_corpus", _checkout_corpus)
+        builders.build_bert_local(str(out), vocab_size=8000)
+    try:
+        yield str(out / "vocab.txt")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def test_ids_equal_jax_on_the_trained_vocabulary(trained_vocab):
+    tok, jtok = _pair(trained_vocab)
     assert tok.vocab_size == jtok.vocab_size
     assert (tok.pad_id, tok.unk_id, tok.cls_id, tok.sep_id) == (
         jtok.pad_id, jtok.unk_id, jtok.cls_id, jtok.sep_id)
