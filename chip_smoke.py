@@ -1827,18 +1827,25 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
     run = {}
 
     # (a) The window kernel against its plain version, row by row, each
-    # case with its planted faults caught: T = 2 and k + 1 at widths 384
-    # and 640; the main paths' own shapes follow in (b) and (c).
+    # case with its planted faults caught: T = 2, k + 1 and 16 at widths
+    # 384 and 640; the main paths' own shapes follow in (b) and (c). A bf16
+    # window runs on the tensor cores, one block a (slot, head, split), so
+    # K and V are read once a (slot, head); a float32 one on the CUDA cores.
     cases = []
 
     def window_case(**kw):
         case = sweep_attention.window_attention_case(**kw)
         emit("window_attention_case", **case)
+        bf16 = case["dtype"] == "bfloat16"
+        check(case["route"] == ("tensor_cores" if bf16 else "cuda_cores")
+              and (not bf16 or case["blocks"]
+                   == case["slots"] * 12 * case["n_split"]),
+              f"window case on the wrong route or cut: {case}")
         cases.append(case)
         return case
 
     for int8 in (True, False):
-        for t in (2, k + 1):
+        for t in (2, k + 1, 16):
             for width in (384, 640):
                 window_case(s=16, width=width, t=t, int8=int8,
                             seed=width + t + int8)
@@ -1938,8 +1945,21 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
     warm_s = eng.warmup()
     captured = {w: {"counted": routes_of_counts(g.captured_launches()),
                     "graph_kernel_nodes": routes_of_names(g.kernels),
+                    "tensor_core_window_nodes": sum(
+                        n for name, n in g.kernels.items()
+                        if "decode_attention_window_mma_kernel" in name),
                     "all_kernel_nodes": sum(g.kernels.values())}
                 for w, (g, _) in eng._graphs.items()}
+    # Every window node of a captured graph is the tensor-core kernel (the
+    # graph's nodes equal its counted launches route by route, or the
+    # capture raised).
+    check(all(c["tensor_core_window_nodes"]
+              == c["graph_kernel_nodes"]["decode_attention_window"]
+              == c["counted"]["decode_attention_window"]
+              for c in captured.values())
+          and any(c["tensor_core_window_nodes"] for c in captured.values()),
+          f"spec deployment: window graph nodes not all on the tensor "
+          f"cores: {captured}")
     kernels_per_call = {w: c["all_kernel_nodes"] / eng.chunk
                         for w, c in captured.items()}
     course = [eng.tokenizer.encode(p)

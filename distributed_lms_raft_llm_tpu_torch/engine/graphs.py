@@ -39,13 +39,15 @@ _COUNTERS: Tuple[Dict[str, int], ...] = (attention.launch_counts,
 
 # Each route's launch counters and the kernel functions that carry it, by
 # the names in `ops/csrc` (decode attention's three one-row variants are one
-# kernel, its two window variants another; a device name may be mangled
-# around them).
+# kernel; its two window variants run the tensor-core window kernel for bf16
+# q and the CUDA-core one for float32 q; a device name may be mangled around
+# them).
 ROUTES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "decode_attention": ((attention.KERNEL, attention.RAGGED,
                           attention.INT8KV), ("decode_attention_kernel",)),
     "decode_attention_window": ((attention.WINDOW, attention.WINDOW_INT8KV),
-                                ("decode_attention_window_kernel",)),
+                                ("decode_attention_window_kernel",
+                                 "decode_attention_window_mma_kernel")),
     "int8_matmul_mma": ((quant_matmul.MMA,), ("int8_mma_dense_kernel",)),
     "int8_matmul_mma_unembed": ((quant_matmul.MMA_UNEMBED,),
                                 ("int8_mma_rows_kernel",)),

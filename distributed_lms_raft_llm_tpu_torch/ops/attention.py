@@ -13,8 +13,11 @@ an int8 cache with per-slot scales (`common.attend_quant` in one pass), so
 the paged engine decodes through it in every cache mode; and a window of
 T <= MAX_WINDOW query rows per batch row, the speculative verify window,
 where row b's query t sees the keys before `lengths[b] + t` (its own causal
-frontier; the JAX package computes this window in XLA). `window_rows`
-says how the window's rows are cut into blocks.
+frontier; the JAX package computes this window in XLA). A bf16 window
+runs on the tensor cores, all of a (row, KV head)'s query rows in one m16
+tile, so K and V are read once; a float32 window (the exactness checks'
+type) on the CUDA cores in blocks of at most four rows. `window_rows` says
+how the window's rows are cut into blocks.
 
 `decode_attention` dispatches on where its tensors live: CPU tensors take
 `decode_attention_reference` (the plain PyTorch version, which the CPU
@@ -46,7 +49,15 @@ INT8KV = "decode_attention_int8kv"
 WINDOW = "decode_attention_window"
 WINDOW_INT8KV = "decode_attention_window_int8kv"
 MAX_GROUP = 8     # query rows a block holds, at most (csrc kMaxGroup)
-WINDOW_ROWS = 4   # query rows a block of a window holds (csrc kWindowRows)
+# A bf16 window on the tensor cores: its G * T query rows in m16 tiles of
+# WINDOW_ROWS rows (csrc kWindowRows), at most MAX_WINDOW_TILES a block
+# (csrc kMaxTiles), over staged tiles of at most WINDOW_TILE_KEYS keys
+# (csrc kWindowTileKeys, 16-key blocks); a float32 window on the CUDA cores
+# in blocks of at most F32_WINDOW_ROWS rows (csrc kF32WindowRows).
+WINDOW_ROWS = 16
+MAX_WINDOW_TILES = 8
+WINDOW_TILE_KEYS = 128
+F32_WINDOW_ROWS = 4
 MAX_WINDOW = 16   # query rows a batch row, at most, in a window
 HEAD_DIMS = (8, 16, 32, 64, 128)  # csrc instantiations
 INT8_HEAD_DIMS = (64, 128)        # csrc instantiations for an int8 cache
@@ -58,8 +69,10 @@ TARGET_BLOCKS = 96         # split a window until this many blocks run
 MAX_SPLIT = 8              # blocks per cluster, the portable maximum (csrc)
 MIN_SPLIT_KEYS = 64        # no split shorter than this
 MAX_SPLIT_KEYS = 512       # nor longer than this, up to MAX_SPLIT splits
+WINDOW_MAX_SPLIT_KEYS = 1024  # the same for a tensor-core window block
 TILE_BYTES = 16 * 1024     # bytes of K (and of V) per tile, at most
 RING_BYTES = 48 * 1024     # K and V staged per block, at most
+WINDOW_RING_BYTES = 96 * 1024  # the same for a tensor-core window block
 WARPS = 8                  # warps per block (csrc kThreads / 32)
 SMEM_LIMIT = 227 * 1024    # dynamic shared memory a block may use
 
@@ -134,19 +147,34 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v).to(q.dtype)
 
 
-def window_rows(group: int, t: int) -> Tuple[int, int]:
+def tensor_core_window(t: int, dtype: torch.dtype) -> bool:
+    """Whether a call of `t` query rows a batch row with queries of
+    `dtype` runs on the tensor cores: a bf16 window (csrc
+    `tensor_core_window`; a float32 one runs on the CUDA cores, and the
+    kernel refuses a plan for the other)."""
+    return t > 1 and dtype == torch.bfloat16
+
+
+def window_rows(group: int, t: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(rows a block, blocks a (row, KV head)) of a call with `group` query
-    heads a KV head and `t` query rows a batch row. Decode (t = 1): one
-    block of the group. A window: its group * t rows, head-major, cut into
-    as few blocks of at most WINDOW_ROWS rows as hold them, of equal size
-    (GPT-2 at t = 9: three blocks of 3 rows). A block's rows live in
-    registers: blocks of 4 measured faster than blocks of 8 at every t > 2
-    on an H100 (two blocks an SM against one; PERF.md), so the kernel's
-    window is built for 4 rows a block alone."""
+    heads a KV head, `t` query rows a batch row and queries of `dtype`.
+
+    Decode (t = 1): one block of the group. A bf16 window (tensor cores):
+    one block of n m16 tiles, n the least power of two with 16 n >= group
+    * t (GPT-2, whose group is 1, takes one tile at every t <= 16), so K and
+    V are read once a (row, KV head). A float32 window (CUDA cores, rows in
+    registers): its group * t rows, head-major, cut into as few blocks of
+    at most F32_WINDOW_ROWS rows as hold them, of equal size (GPT-2 at t =
+    9: three blocks of 3)."""
     if t == 1:
         return group, 1
     n_rows = group * t
-    chunks = -(-n_rows // WINDOW_ROWS)
+    if tensor_core_window(t, dtype):
+        tiles = 1
+        while tiles * WINDOW_ROWS < n_rows:
+            tiles *= 2
+        return tiles * WINDOW_ROWS, 1
+    chunks = -(-n_rows // F32_WINDOW_ROWS)
     return -(-n_rows // chunks), chunks
 
 
@@ -166,6 +194,19 @@ class LaunchPlan:
     stages: int
     smem_bytes: int
     blocks: int
+
+
+def _window_smem_bytes(rows: int, dh: int, tile: int, elem: int,
+                       stages: int, n_split: int) -> int:
+    """Dynamic shared memory of a tensor-core window block (csrc
+    `window_smem_bytes`): the K/V ring (reused for the warps' 16-row o),
+    the warps' m and l, the splits' (m, l, o) slots, and the K and V
+    mbarriers of each stage."""
+    ring = stages * 2 * tile * dh * elem
+    reduce = WARPS * WINDOW_ROWS * dh * 4
+    parts = n_split * rows * (dh + 2) if n_split > 1 else 0
+    return max(ring, reduce) + 4 * (2 * WARPS * WINDOW_ROWS + parts) \
+        + 8 * stages * 2
 
 
 def _smem_bytes(group: int, dh: int, tile: int, elem: int, stages: int,
@@ -189,7 +230,7 @@ def max_tile_keys(group: int, dh: int, elem: int) -> int:
 
 def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
                 group: int = 1, n_split: Optional[int] = None,
-                chunks: int = 1) -> LaunchPlan:
+                chunks: int = 1, tensor_cores: bool = False) -> LaunchPlan:
     """Pick the split of the keys, the tile and the shared memory.
 
     A cluster costs latency of its own, about a microsecond on an H100
@@ -206,11 +247,23 @@ def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
     `dtype` is the cache's (int8 for a quantized cache). Per-row lengths
     never enter the plan: they live on the device. `group` is the query
     rows a block holds and `chunks` the blocks a (row, KV head) takes over
-    its rows (`window_rows`).
+    its rows (`window_rows`). `tensor_cores`: a bf16 window's block, whose
+    warps take a staged tile's 16-key blocks in turn: tiles of up to
+    WINDOW_TILE_KEYS keys (a multiple of 16; no more than TILE_BYTES of K),
+    a ring of up to WINDOW_RING_BYTES (a split of a few hundred keys is
+    staged whole), and its own shared-memory sum (`_window_smem_bytes`);
+    its split is no shorter than WINDOW_MAX_SPLIT_KEYS while the launch
+    has TARGET_BLOCKS blocks (16 slots x 12 heads at widths 384 and 640
+    measured faster unsplit than in two splits on an H100: PERF.md,
+    `ops/sweep_attention.py --window`'s forced splits).
     """
     rows = b * hkv * chunks
     elem = dtype.itemsize
-    cap = max_tile_keys(group, dh, elem)
+    cap = (min(WINDOW_TILE_KEYS, TILE_BYTES // (dh * elem)) if tensor_cores
+           else max_tile_keys(group, dh, elem))
+    step, ring_bytes, longest = (
+        (16, WINDOW_RING_BYTES, WINDOW_MAX_SPLIT_KEYS) if tensor_cores
+        else (8, RING_BYTES, MAX_SPLIT_KEYS))
     n = 1
     if n_split is not None:
         if n_split not in (1, 2, 4, MAX_SPLIT):
@@ -218,17 +271,17 @@ def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
         n = n_split
     elif s > cap:
         while (n < MAX_SPLIT and s >= MIN_SPLIT_KEYS * 2 * n
-               and (rows * n < TARGET_BLOCKS
-                    or -(-s // n) > MAX_SPLIT_KEYS)):
+               and (rows * n < TARGET_BLOCKS or -(-s // n) > longest)):
             n *= 2
     split = -(-s // n)
-    tile = min(cap, -(-split // 8) * 8)
+    tile = min(cap, -(-split // step) * step)
     n_tiles = -(-split // tile)
-    stages = min(n_tiles, max(2, RING_BYTES // (2 * tile * dh * elem)))
+    stages = min(n_tiles, max(2, ring_bytes // (2 * tile * dh * elem)))
+    smem = (_window_smem_bytes(group, dh, tile, elem, stages, n)
+            if tensor_cores else
+            _smem_bytes(group, dh, tile, elem, stages, n))
     return LaunchPlan(n_split=n, split_keys=split, tile_keys=tile,
-                      stages=stages,
-                      smem_bytes=_smem_bytes(group, dh, tile, elem, stages, n),
-                      blocks=rows * n)
+                      stages=stages, smem_bytes=smem, blocks=rows * n)
 
 
 # ---------------------------------------------------------------- wrapper
@@ -408,9 +461,10 @@ def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
             "k_scale/v_scale must be contiguous [L, B, Hkv, S_alloc] tensors "
             "(or views of such over their first S slots) beside the cache"
         )
-    rows, chunks = window_rows(h // hkv, t)
+    rows, chunks = window_rows(h // hkv, t, q.dtype)
     plan = launch_plan(b, hkv, s, dh, k_cache.dtype, group=rows,
-                       chunks=chunks)
+                       chunks=chunks,
+                       tensor_cores=tensor_core_window(t, q.dtype))
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"launch plan needs {plan.smem_bytes} bytes of "
                          f"shared memory, more than {SMEM_LIMIT}")

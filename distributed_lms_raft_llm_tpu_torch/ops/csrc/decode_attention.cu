@@ -13,10 +13,12 @@
 //    one pass): score = (q . k_int8[j]) * ks[j] * Dh^-1/2, and the output
 //    sums p_j * vs[j] * v_int8[j], so K and V cross device memory as int8;
 //  - a window of W query rows per batch row (the speculative verify window,
-//    W = k + 1), `decode_attention_window_kernel`: row b's query w sees the
-//    keys j < lengths[b] + w (its own causal frontier), in every cache mode.
-//    The JAX package computes this in XLA (models/gpt2.py's ragged scatter
-//    path); the Pallas kernel takes one query row.
+//    W = k + 1), `decode_attention_window_mma_kernel` for bf16 q (tensor
+//    cores) and `decode_attention_window_kernel` for float32 q: row b's
+//    query w sees the keys j < lengths[b] + w (its own causal frontier), in
+//    every cache mode. The JAX package computes this in XLA
+//    (models/common.py attend / attend_quant under the ragged path's mask);
+//    the Pallas kernel takes one query row.
 //
 // Layouts (row-major):
 //   q        [B, H, W, Dh]   T = float or bf16; any batch, head and window
@@ -95,21 +97,72 @@
 // key. Every row keeps at least one valid key (the caller's contract); with
 // lengths, split 0 always holds key 0.
 //
-// The window. Its W rows share the keys of their (row, KV head), so they
-// ride the group dimension: a block holds G * W query rows (head-major),
-// each with its own frontier, and streams K and V once for all of them;
-// a row's keys past its frontier weigh exactly nothing (p = 0, the max
-// untouched), and the block walks the keys of its widest row. The rows of
-// a block are held in registers (q, o, m, l per row), so a block holds at
-// most kWindowRows = 4 of them: a window with more is cut into n_chunks
-// blocks of ceil(G * W / n_chunks) rows, grid (n_split, Hkv * n_chunks, B),
-// and each chunk reads K and V again, mostly from L2, since the chunks'
-// blocks run at once (GPT-2's G = 1 at W = 9, for spec_tokens = 8, is 3
-// blocks of 3; ops/attention.py::window_rows). 16 rows would hold 16 q and
-// 16 o slices of a lane in registers (~300 at Dh 64) and spill; 8 rows
-// took 217 registers, one 256-thread block an SM, against 127 and two for
-// 4, and measured slower than 4 at every W > 2 on an H100, so a window
-// block is instantiated for 4 rows alone.
+// The window (W > 1 query rows a batch row), two kernels, chosen by q's type
+// (the wrapper plans for the one that runs, and a plan for the other is
+// refused); neither falls back to the other.
+//
+// bf16 queries over a bf16 or int8 cache: decode_attention_window_mma_kernel,
+// on the tensor cores. The first window kernel (the CUDA-core body below)
+// held at most 4 query rows a block in registers, so a T = 9 window took 3
+// blocks a (row, KV head), each streaming K and V again, and every (row, key)
+// score was a CUDA-core dot product with a 3-step shuffle. Now:
+//  - All G * W <= 16 query rows of a (row, KV head) are one m16 A tile of
+//    mma.sync.m16n8k16 (bf16 in, float32 sums; rows past G * W are zero), so
+//    K and V are read once a (row, KV head, split): one block each. A wider
+//    (GQA) window takes n_mt = 2, 4 or 8 tiles in the same block, warp w the
+//    tile w % n_mt. wgmma's 64-row minimum would waste 3/4 of each product.
+//  - K and V are staged as for decode (bulk copies into a ring, a K and a V
+//    mbarrier a stage, the cluster split for wide caches); the warps of a
+//    tile take each staged tile's 16-key blocks in turn. The first tile's
+//    copy starts before the row's length is read, and each lane reads the
+//    scales and bias of its keys a block ahead, without waiting for it.
+//  - Scores S = Q K^T on the tensor cores, keys the n dimension and Dh the k
+//    dimension. Lane (g, t) reads dims 16t .. 16t + 15 (+ 64) of its q rows
+//    and of a K row, and k16 step s takes dims 16t + 4s .. + 3 as its logical
+//    k 2t, 2t+1, 2t+8, 2t+9 (a permutation of the sum, the same for q and K,
+//    as in int8_matmul.cu's transposed route). int8 K converts to bf16
+//    exactly in registers (prmt + split-sign fma, as in int8_matmul.cu), so
+//    the products are attend_quant's q . k_int8 in float32; the columns are
+//    then scaled by ks[key] and Dh^-1/2 (its order), the bias is added, and a
+//    row's keys past its own frontier get exactly no weight (p = 0, its
+//    maximum untouched).
+//  - The online softmax lives in the accumulator layout: a row's columns of
+//    an n8 tile sit on a quad of lanes, so a 16-key block's row maximum takes
+//    2 shuffles (the first kernel: ~3 a (row, key)); m is kept per row in
+//    float32 registers, l as lane sums reduced once at the end; o is
+//    rescaled only where some row's maximum rose. It runs in base 2: scores
+//    times log2 e, exp2 on the SFU (ex2.approx), the same weights as exp up
+//    to float rounding.
+//  - P V on the tensor cores: the score accumulators, times vs[key] and
+//    rounded to bf16 (attend_quant's cast), are the A fragment where they lie
+//    (FlashAttention-2's register reuse). V's B fragment pairs two keys in a
+//    register: 4-byte (int8) or 8-byte (bf16) reads of dims 4g .. 4g + 3 of
+//    each key row, paired across keys with prmt, so column n of n8 tile J is
+//    dim 32 (J / 4) + 4 n + J % 4; O stays in float32 accumulators.
+//  - Key labels: logical key k of a 16-key block is row k ^ ((k >> 1) & 1)
+//    of it, so an int8 K read has no bank conflict and an int8 V read at most
+//    two-way (a bf16 row is 128 bytes: K reads are 2-way, V reads 4-way).
+//  - The warps' (m, l, o) merge through shared memory, each thread 4 dims
+//    of a row with all its warps' states read up front, and the splits
+//    over DSMEM, as for decode; each valid row is written in bf16.
+// What bounds it: bytes, as for decode (T * 4 * Dh operations a K/V row
+// pair, at most 64 a byte of int8 against the ~295 the card needs before
+// the tensor cores would be the limit). What holds it back, measured with
+// ops/probe_window.py (PERF.md): the latency before a block's first K tile
+// lands, then the key loop's instruction issue where an SM holds two
+// blocks (for an int8 cache the conversions to bf16 weigh in), and the
+// merge.
+//
+// float32 queries (over a float32 or int8 cache): decode_attention_window_
+// kernel, the CUDA-core body below, a test and exactness route (float32
+// speculation equals non-speculative decoding token for token), not the
+// production type; TF32 tensor cores would lose the float32 product. Its W
+// rows ride the group dimension: a block holds G * W query rows
+// (head-major), each with its own frontier, and streams K and V once for
+// all of them, at most kF32WindowRows = 4 of them (q, o, m, l per row in
+// registers): a window with more is cut into n_chunks blocks of
+// ceil(G * W / n_chunks) rows, grid (n_split, Hkv * n_chunks, B), each
+// reading K and V again (ops/attention.py::window_rows).
 //
 // Reading shared memory: the 8 lanes of a group read a K or V row as
 // vectors (16 bytes of a float or bf16 row, 8 bytes of an int8 row: a warp
@@ -135,7 +188,8 @@ struct DecodeAttentionArgs {
   long long q_sb, q_sh, q_sw;  // q's batch, head and window strides
   int B, H, Hkv, S, S_alloc, Dh;
   int W;         // query rows a batch row (1, or a verify window)
-  int rows;      // query rows a block: G, or ceil(G * W / n_chunks)
+  int rows;      // query rows a block: G; a float32 window's
+                 // ceil(G * W / n_chunks); a bf16 window's 16 * n_mt
   int n_chunks;  // blocks a (row, KV head) over its query rows
   int n_split, split_keys, tile, stages, smem;  // the launch plan
   int dtype;     // q and out: 0 float32, 1 bfloat16
@@ -148,7 +202,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;  // query rows a block (H / Hkv for decode)
-constexpr int kWindowRows = 4;  // query rows a block of a window
+constexpr int kWindowRows = 16;    // query rows of a tensor-core window tile
+constexpr int kMaxTiles = 8;       // m16 tiles a tensor-core window block
+constexpr int kWindowTileKeys = 128;  // keys a staged tile of it, at most
+constexpr int kF32WindowRows = 4;  // query rows a block of a float32 window
 constexpr int kMaxSplit = 8;  // blocks per cluster (the portable maximum)
 constexpr float kLowest = -3.402823466e38f;
 
@@ -318,6 +375,498 @@ __device__ __forceinline__ void merge_weights(float& m, float& l, float m2,
   a2 = expf(m2 - mm);
   l = l * a + l2 * a2;
   m = mm;
+}
+
+// ------------------------------------------- the tensor-core window
+
+// Two int8 -> two bf16, exactly: the bytes at positions 0 and 2 of h (1 and
+// 3 are ignored) become the low and high halves; a = 128 + (v & 127) and
+// b = -128 or -256 by the sign bit, a * 1 + b = v (int8_matmul.cu's
+// conversion).
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t h) {
+  const uint32_t a = (h & 0x007F007Fu) | 0x43004300u;
+  const uint32_t b = (h & 0x00800080u) | 0xC300C300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(a), "r"(0x3F803F80u), "r"(b));
+  return d;
+}
+
+// c += a . b, one m16n8k16 product, bf16 in, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the SFU (ex2.approx, relative error about 2^-22; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared memory of the tensor-core window, in bytes (the wrapper's
+// ops/attention.py::_window_smem_bytes computes the same sum):
+//   [ring | reduce]  K/V ring [stages][2][tile][Dh] KV, reused after the key
+//                    loop for the warps' o [kWarps][16][Dh] f32
+//   m, l             [kWarps][16] f32 each
+//   parts            n_split > 1 only, read on rank 0: o [n_split][rows][Dh],
+//                    m [n_split][rows], l [n_split][rows] f32
+//   barriers         [stages][2] u64 (K, V)
+__host__ __device__ inline size_t window_region0_bytes(int Dh, int tile,
+                                                       int elem, int stages) {
+  const size_t ring = (size_t)stages * 2 * tile * Dh * elem;
+  const size_t reduce = (size_t)kWarps * kWindowRows * Dh * sizeof(float);
+  return ring > reduce ? ring : reduce;
+}
+
+__host__ __device__ inline size_t window_smem_bytes(int rows, int Dh,
+                                                    int tile, int elem,
+                                                    int stages,
+                                                    int n_split) {
+  const size_t parts =
+      n_split > 1 ? (size_t)n_split * rows * (Dh + 2) : (size_t)0;
+  return window_region0_bytes(Dh, tile, elem, stages) +
+         sizeof(float) * (2 * kWarps * kWindowRows + parts) +
+         sizeof(uint64_t) * stages * 2;
+}
+
+// One block per (split, KV head, batch row): all G * W query rows of the
+// (row, KV head) in n_mt = rows / 16 m16 tiles (see the note at the top).
+// q and out are bf16; KV is bf16 or int8 (with ks, vs).
+template <typename KV, int kDh>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_window_mma_kernel(
+        const __nv_bfloat16* __restrict__ q, long long q_sb, long long q_sh,
+        long long q_sw, const KV* __restrict__ k_cache,
+        const KV* __restrict__ v_cache, const float* __restrict__ ks_cache,
+        const float* __restrict__ vs_cache, const float* __restrict__ bias,
+        const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+        int B, int H, int Hkv, int S, int S_alloc, int W, int rows,
+        int n_chunks, int layer, int split_keys, int tile, int stages,
+        float scale) {
+  constexpr bool kQuant = sizeof(KV) == 1;  // int8 K/V with scales
+  constexpr int kC = kDh / 64;   // 64-dim chunks of a row
+  constexpr int kNT = kDh / 8;   // n8 tiles of o
+  constexpr int kVW = kDh / 32;  // 4-dim groups of a V row a lane reads
+  static_assert(kDh == 64 || kDh == 128, "head dim 64 or 128");
+  (void)n_chunks;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int split = blockIdx.x;  // == rank in the cluster
+  const int n_split = gridDim.x;
+  const int g = blockIdx.y;  // KV head
+  const int b = blockIdx.z;  // batch row
+  const int G = H / Hkv;
+  const int n_rows = G * W;           // query rows of this (row, KV head)
+  const int n_mt = rows / kWindowRows;  // m16 tiles: 1, 2, 4 or 8
+  const int mt_bits = __ffs(n_mt) - 1;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int lg = lane >> 2;  // the mma's row / column group
+  const int lt = lane & 3;   // its thread in the group
+  const int mt = warp & (n_mt - 1);    // this warp's m16 tile
+  const int kw = warp >> mt_bits;      // its turn among the tile's warps
+  const int n_kw = kWarps >> mt_bits;
+  // The softmax runs in base 2 (scores times log2 e, exp2 on the SFU): the
+  // same weights as exp up to float rounding.
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale2 = scale * kLog2e;
+
+  KV* ring = reinterpret_cast<KV*>(smem);       // [stages][2][tile][kDh]
+  float* w_o = reinterpret_cast<float*>(smem);  // after the key loop
+  float* w_m = reinterpret_cast<float*>(
+      smem + window_region0_bytes(kDh, tile, sizeof(KV), stages));
+  float* w_l = w_m + kWarps * kWindowRows;  // [kWarps][16]
+  float* p_o = w_l + kWarps * kWindowRows;  // [n_split][rows][kDh]
+  float* p_m = p_o + (n_split > 1 ? n_split * rows * kDh : 0);
+  float* p_l = p_m + (n_split > 1 ? n_split * rows : 0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      p_l + (n_split > 1 ? n_split * rows : 0));
+
+  if (n_split > 1) cluster_arrive_relaxed();  // "this block is running"
+
+  const long long slot0 =
+      (((long long)layer * B + b) * Hkv + g) * (long long)S_alloc;
+  const int start = split * split_keys;
+  const int split_end = min(S - start, split_keys);  // keys of the split
+  const KV* K = k_cache + (slot0 + start) * kDh;
+  const KV* V = v_cache + (slot0 + start) * kDh;
+  const float* ks_row = kQuant ? ks_cache + slot0 + start : nullptr;
+  const float* vs_row = kQuant ? vs_cache + slot0 + start : nullptr;
+  const float* bias_row =
+      bias != nullptr ? bias + (long long)b * S + start : nullptr;
+  const size_t tile_elems = (size_t)tile * kDh;
+
+  // One thread: copy `n` keys of tile t's K and V.
+  auto stage_keys = [&](int t, int n) {
+    const int st = t % stages;
+    const uint32_t bytes = (uint32_t)(n * kDh * sizeof(KV));
+    KV* kd = ring + (size_t)(2 * st) * tile_elems;
+    KV* vd = kd + tile_elems;
+    mbar_expect_tx(&bars[2 * st], bytes);
+    bulk_load(kd, K + (long long)t * tile * kDh, bytes, &bars[2 * st]);
+    mbar_expect_tx(&bars[2 * st + 1], bytes);
+    bulk_load(vd, V + (long long)t * tile * kDh, bytes, &bars[2 * st + 1]);
+  };
+  // Split 0 copies its first tile before the row's length is known (split
+  // 0 always holds key 0, so the tile is always read): the copy's latency
+  // overlaps the length's. Its keys past the widest frontier are never
+  // read.
+  const int first = split == 0 ? min(tile, split_end) : 0;
+  if (tid == 0) {
+    for (int i = 0; i < 2 * stages; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    if (first > 0) stage_keys(0, first);
+  }
+
+  // Logical key k of a 16-key block is its row k ^ ((k >> 1) & 1). This
+  // lane's score columns (n8 tile nt, column 2 lt + x) are keys
+  // kk[2 nt + x]; the K rows it reads for column lg are krow[nt].
+  const int sw = lt & 1;
+  const int kk[4] = {(2 * lt) ^ sw, (2 * lt + 1) ^ sw, (8 + 2 * lt) ^ sw,
+                     (9 + 2 * lt) ^ sw};
+  const int krow0 = lg ^ ((lg >> 1) & 1);
+  const int krow[2] = {krow0, 8 + krow0};
+
+  // The key parameters of this lane's four keys of the block at split key
+  // j0: ks and vs (1 for a float cache) and the bias; 0 past the split.
+  // Loads only, issued a block ahead of their use, whatever the row's
+  // length: a key no row sees gets no weight whatever its parameters
+  // (p * vs is selected, not multiplied, to 0).
+  auto key_params = [&](int j0, float (&kp)[3][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = j0 + kk[i];
+      const bool valid = j < split_end;
+      kp[0][i] = kQuant ? (valid ? ks_row[j] : 0.f) : 1.f;
+      kp[1][i] = kQuant ? (valid ? vs_row[j] : 0.f) : 1.f;
+      kp[2][i] = valid && bias_row != nullptr ? bias_row[j] : 0.f;
+    }
+  };
+  float kp[3][4];
+  key_params(16 * kw, kp);
+
+  // This lane's two rows of its tile: r = 16 mt + lg + 8 h is query row f of
+  // the (row, KV head), head f / W, window position f % W. Its q fragments:
+  // dims 64 c + 16 lt .. + 15, as bf16 pairs (word w: dims + 2w, + 2w + 1).
+  // A row past the window's reads the last real one (no key is seen by
+  // it, and it is never written): the loads are unconditional, so nothing
+  // before the barrier waits for one.
+  uint32_t qa[kC][2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = min(kWindowRows * mt + lg + 8 * h, n_rows - 1);
+    const __nv_bfloat16* Qr = q + (long long)b * q_sb +
+                              (long long)(g * G + f / W) * q_sh +
+                              (long long)(f % W) * q_sw + 16 * lt;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const uint4 x0 = *reinterpret_cast<const uint4*>(Qr + 64 * c);
+      const uint4 x1 = *reinterpret_cast<const uint4*>(Qr + 64 * c + 8);
+      const uint32_t w[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qa[c][h][i] = w[i];
+    }
+  }
+  __syncthreads();  // the barriers are initialised
+
+  // The keys of this split that some row sees: through the widest row's
+  // frontier, min(lengths[b] + W - 1, S); the rest of the split's copies.
+  const int s_row = lengths != nullptr ? min(max(lengths[b], 0), S) : S;
+  const int s_max = min(s_row + W - 1, S);
+  const int n_keys = max(min(s_max, start + split_keys) - start, 0);
+  const int n_tiles = (n_keys + tile - 1) / tile;
+  auto stage_tile = [&](int t) {
+    stage_keys(t, min(tile, n_keys - t * tile));
+  };
+  if (tid == 0) {
+    for (int t = first > 0 ? 1 : 0; t < stages && t < n_tiles; ++t) {
+      stage_tile(t);
+    }
+  }
+  int nk[2];  // keys of this split each row sees (0 past the window's rows)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = kWindowRows * mt + lg + 8 * h;
+    nk[h] = f < n_rows ? min(min(s_row + f % W, S) - start, n_keys) : 0;
+  }
+
+  // Online softmax state of the lane's two rows (m quad-uniform, l this
+  // lane's columns), and its o accumulators: o[J][2h + x] is row
+  // lg + 8h, dim 32 (J / 4) + 4 (2 lt + x) + J % 4.
+  float m[2] = {kLowest, kLowest}, l[2] = {0.f, 0.f};
+  float o[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  }
+
+  bool fresh = true;  // no block folded yet: o is 0, nothing to rescale
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % stages;
+    const uint32_t parity = (uint32_t)((t / stages) & 1);
+    const int n = min(tile, n_keys - t * tile);
+    const KV* Ks = ring + (size_t)(2 * st) * tile_elems;
+    const KV* Vs = Ks + tile_elems;
+    const int n_kb = (n + 15) / 16;
+    if (kw < n_kb) mbar_wait(&bars[2 * st], parity);
+    for (int kb = kw; kb < n_kb; kb += n_kw) {
+      const int j0 = t * tile + kb * 16;  // the block's first key
+      // This warp's next block: the next turn in this tile, else its first
+      // in the next; its parameters load while this one is computed.
+      float kp_next[3][4];
+      key_params(kb + n_kw < n_kb ? j0 + 16 * n_kw : (t + 1) * tile + 16 * kw,
+                 kp_next);
+      // S = Q K^T for the block's 16 keys: two n8 tiles, kDh / 16 k steps.
+      float sc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[nt][c] = 0.f;
+        const KV* kr = Ks + (kb * 16 + krow[nt]) * kDh + 16 * lt;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          uint32_t kw8[8];
+          if constexpr (kQuant) {
+            const uint4 x = *reinterpret_cast<const uint4*>(kr + 64 * c);
+            const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              kw8[2 * i] = i8x2_to_bf16x2(__byte_perm(w[i], 0u, 0x0100u));
+              kw8[2 * i + 1] = i8x2_to_bf16x2(__byte_perm(w[i], 0u, 0x0302u));
+            }
+          } else {
+            const uint4 x0 = *reinterpret_cast<const uint4*>(kr + 64 * c);
+            const uint4 x1 = *reinterpret_cast<const uint4*>(kr + 64 * c + 8);
+            const uint32_t w[8] = {x0.x, x0.y, x0.z, x0.w,
+                                   x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) kw8[i] = w[i];
+          }
+#pragma unroll
+          for (int s4 = 0; s4 < 4; ++s4) {
+            const uint32_t a[4] = {qa[c][0][2 * s4], qa[c][1][2 * s4],
+                                   qa[c][0][2 * s4 + 1],
+                                   qa[c][1][2 * s4 + 1]};
+            mma_bf16(sc[nt], a, kw8[2 * s4], kw8[2 * s4 + 1]);
+          }
+        }
+      }
+      // attend_quant's order: the dot, times the key's scale, times
+      // Dh^-1/2 (one factor here, with log2 e), plus the bias; then the
+      // block's step of the online softmax.
+      uint32_t pa[4];  // P * vs as the A fragment of P V
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float sv[4];
+        float mx = kLowest;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool seen = j0 + kk[i] < nk[h];
+          const float x = sc[i >> 1][2 * h + (i & 1)] * kp[0][i] * scale2 +
+                          kp[2][i] * kLog2e;
+          sv[i] = seen ? x : kLowest;
+          mx = fmaxf(mx, sv[i]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        alpha[h] = exp2_approx(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+        float pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool seen = j0 + kk[i] < nk[h];
+          const float p = seen ? exp2_approx(sv[i] - m_new) : 0.f;
+          l[h] += p;
+          pv[i] = seen ? p * kp[1][i] : 0.f;
+        }
+        pa[h] = pack_bf16x2(pv[0], pv[1]);      // keys kk[0], kk[1]
+        pa[2 + h] = pack_bf16x2(pv[2], pv[3]);  // keys kk[2], kk[3]
+      }
+      // Rescale o where some row's maximum rose (never before the first
+      // block, whose o is 0).
+      if (!fresh && __any_sync(0xffffffffu,
+                               alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) o[j][c] *= alpha[c >> 1];
+        }
+      }
+      fresh = false;
+      // V's B fragments: dims 32 v + 4 lg .. + 3 of the lane's four key
+      // rows kk, pairs (kk[0], kk[1]) and (kk[2], kk[3]) across keys.
+      mbar_wait(&bars[2 * st + 1], parity);
+      const bool tail = j0 + 16 > n_keys;  // rows past n_keys are stale
+#pragma unroll
+      for (int v = 0; v < kVW; ++v) {
+        if constexpr (kQuant) {
+          uint32_t w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            w[i] = *reinterpret_cast<const uint32_t*>(
+                Vs + (kb * 16 + kk[i]) * kDh + 32 * v + 4 * lg);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t sel = (uint32_t)(e | ((4 + e) << 8));
+            mma_bf16(o[4 * v + e], pa,
+                     i8x2_to_bf16x2(__byte_perm(w[0], w[1], sel)),
+                     i8x2_to_bf16x2(__byte_perm(w[2], w[3], sel)));
+          }
+        } else {
+          uint2 w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            w[i] = *reinterpret_cast<const uint2*>(
+                Vs + (kb * 16 + kk[i]) * kDh + 32 * v + 4 * lg);
+            if (tail && j0 + kk[i] >= n_keys) w[i] = make_uint2(0u, 0u);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t sel = (e & 1) ? 0x7632u : 0x5410u;
+            const uint32_t b0 = __byte_perm(e < 2 ? w[0].x : w[0].y,
+                                            e < 2 ? w[1].x : w[1].y, sel);
+            const uint32_t b1 = __byte_perm(e < 2 ? w[2].x : w[2].y,
+                                            e < 2 ? w[3].x : w[3].y, sel);
+            mma_bf16(o[4 * v + e], pa, b0, b1);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) kp[a][i] = kp_next[a][i];
+      }
+    }
+    if (t + stages < n_tiles) {  // refill this stage once all have read it
+      __syncthreads();
+      if (tid == 0) stage_tile(t + stages);
+    }
+  }
+
+  // The lane sums of l over the quad; then each warp's (m, l, o) into
+  // shared memory (the ring is free once every warp is past the loop).
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = lg + 8 * h;
+    float* wo = w_o + (warp * kWindowRows + r) * kDh + 8 * lt;
+#pragma unroll
+    for (int v = 0; v < kVW; ++v) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        *reinterpret_cast<float4*>(wo + 32 * v + 4 * x) =
+            make_float4(o[4 * v][2 * h + x], o[4 * v + 1][2 * h + x],
+                        o[4 * v + 2][2 * h + x], o[4 * v + 3][2 * h + x]);
+      }
+    }
+    if (lt == 0) {
+      w_m[warp * kWindowRows + r] = m[h];
+      w_l[warp * kWindowRows + r] = l[h];
+    }
+  }
+  __syncthreads();
+
+  // Row f (head f / W, window position f % W) of the (row, KV head) is
+  // out[b, g*G + f / W, f % W], so its rows are contiguous in out.
+  __nv_bfloat16* O = out + ((long long)b * H + g * G) * W * kDh;
+  float* r_o = p_o;
+  float* r_m = p_m;
+  float* r_l = p_l;
+  if (n_split > 1) {
+    // Push into this split's slot on rank 0, once rank 0 is known to run.
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_wait();
+    r_o = cluster.map_shared_rank(p_o, 0) + split * rows * kDh;
+    r_m = cluster.map_shared_rank(p_m, 0) + split * rows;
+    r_l = cluster.map_shared_rank(p_l, 0) + split * rows;
+  }
+  // Each 4 output dims of a row merge the row's warps at once: every
+  // warp's (m, l, o) is read up front (a warp past the tile's n_kw rereads
+  // the last one and weighs 0, so every load is unconditional), then the
+  // weights exp2(m_k - max m), the sum l and o.
+  for (int i = tid; i < n_rows * (kDh / 4); i += kThreads) {
+    const int f = i / (kDh / 4);
+    const int d = 4 * (i % (kDh / 4));
+    float mk[kWarps], lk[kWarps];
+    float4 xk[kWarps];
+    float mm = kLowest;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const int w = f + n_mt * min(k, n_kw - 1) * kWindowRows;
+      mk[k] = w_m[w];
+      lk[k] = w_l[w];
+      xk[k] = *reinterpret_cast<const float4*>(w_o + w * kDh + d);
+      mm = fmaxf(mm, mk[k]);
+    }
+    float ll = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const float a = k < n_kw ? exp2_approx(mk[k] - mm) : 0.f;
+      ll += a * lk[k];
+      acc.x += a * xk[k].x;
+      acc.y += a * xk[k].y;
+      acc.z += a * xk[k].z;
+      acc.w += a * xk[k].w;
+    }
+    if (n_split == 1) {
+      const float inv = __fdividef(1.f, ll);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x * inv,
+                                                      acc.y * inv);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z * inv,
+                                                      acc.w * inv);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(O + f * kDh + d) = packed;
+    } else {
+      *reinterpret_cast<float4*>(r_o + f * kDh + d) = acc;
+      if (d == 0) {
+        r_m[f] = mm;
+        r_l[f] = ll;
+      }
+    }
+  }
+  if (n_split == 1) return;
+  cluster_arrive_release();
+  if (split != 0) return;  // rank 0 waits for every slot; peers are done
+  cluster_wait();
+  for (int i = tid; i < n_rows * kDh; i += kThreads) {
+    const int f = i / kDh;
+    float mm = kLowest;
+    for (int k = 0; k < n_split; ++k) mm = fmaxf(mm, p_m[k * rows + f]);
+    float ll = 0.f;
+    float acc = 0.f;
+    for (int k = 0; k < n_split; ++k) {
+      const float a = exp2_approx(p_m[k * rows + f] - mm);
+      ll += a * p_l[k * rows + f];
+      acc += a * p_o[k * rows * kDh + i];
+    }
+    O[i] = __float2bfloat16(acc / ll);
+  }
 }
 
 // ------------------------------------------------------------ the kernel
@@ -712,19 +1261,24 @@ __global__ void __launch_bounds__(kThreads)
   attend_rows<T, KV, kDh, kG, false>(DECODE_ATTENTION_ARGS);
 }
 
-// A verify window of W query rows a batch row, each with its own frontier
-// (a kernel of its own name, so a captured graph's nodes tell the two
-// apart).
+// A float32 verify window of W query rows a batch row, each with its own
+// frontier, on the CUDA cores (a kernel of its own name, so a captured
+// graph's nodes tell the routes apart).
 template <typename T, typename KV, int kDh, int kG>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_window_kernel(DECODE_ATTENTION_PARAMS) {
   attend_rows<T, KV, kDh, kG, true>(DECODE_ATTENTION_ARGS);
 }
 
-// One of the two kernels, instantiated alone.
-template <typename T, typename KV, int kDh, int kG, bool kWindow>
+// The three kernels: decode, the float32 window, the bf16 window on the
+// tensor cores (T = bf16, kG unused).
+enum Kind { kDecode, kWindowF32, kWindowMma };
+
+template <typename T, typename KV, int kDh, int kG, Kind kKind>
 constexpr auto kernel_of() {
-  if constexpr (kWindow) {
+  if constexpr (kKind == kWindowMma) {
+    return decode_attention_window_mma_kernel<KV, kDh>;
+  } else if constexpr (kKind == kWindowF32) {
     return decode_attention_window_kernel<T, KV, kDh, kG>;
   } else {
     return decode_attention_kernel<T, KV, kDh, kG>;
@@ -737,10 +1291,10 @@ struct Ptrs {
   void* out;
 };
 
-template <typename T, typename KV, int kDh, int kG, bool kWindow>
+template <typename T, typename KV, int kDh, int kG, Kind kKind>
 int launch(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
            cudaStream_t stream) {
-  auto kernel = kernel_of<T, KV, kDh, kG, kWindow>();
+  auto kernel = kernel_of<T, KV, kDh, kG, kKind>();
   // Raise the dynamic shared-memory ceiling once per instantiation and
   // size, not on every call.
   static int configured = 48 * 1024;
@@ -774,19 +1328,25 @@ int launch(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
 }
 
 // The rows a block holds are a template bound (1, 4 or 8 heads for decode;
-// 4 rows for a window), so the per-row arrays live in registers.
+// 4 rows for a float32 window), so the per-row arrays live in registers.
 template <typename T, typename KV, int kDh>
 int launch_decode(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
                   cudaStream_t stream) {
-  if (a.rows == 1) return launch<T, KV, kDh, 1, false>(a, p, layer, stream);
-  if (a.rows <= 4) return launch<T, KV, kDh, 4, false>(a, p, layer, stream);
-  return launch<T, KV, kDh, kMaxGroup, false>(a, p, layer, stream);
+  if (a.rows == 1) return launch<T, KV, kDh, 1, kDecode>(a, p, layer, stream);
+  if (a.rows <= 4) return launch<T, KV, kDh, 4, kDecode>(a, p, layer, stream);
+  return launch<T, KV, kDh, kMaxGroup, kDecode>(a, p, layer, stream);
 }
 
+// A window: bf16 q on the tensor cores, float32 q on the CUDA cores.
 template <typename T, typename KV, int kDh>
 int launch_window(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
                   cudaStream_t stream) {
-  return launch<T, KV, kDh, kWindowRows, true>(a, p, layer, stream);
+  if constexpr (sizeof(T) == 2) {
+    return launch<T, KV, kDh, kWindowRows, kWindowMma>(a, p, layer, stream);
+  } else {
+    return launch<T, KV, kDh, kF32WindowRows, kWindowF32>(a, p, layer,
+                                                          stream);
+  }
 }
 
 // Head dims: 8-128 for a float or bf16 cache; 64 and 128 (GPT-2 small and
@@ -829,6 +1389,35 @@ int launch_dh(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
   return (int)cudaErrorInvalidValue;
 }
 
+// Whether the plan's rows, chunks and tile fit the kernel that runs it.
+// Decode: a block holds its KV head's G heads. A float32 window: n_chunks
+// blocks of `rows` rows cover the G * W rows, none of them empty. A bf16
+// window: one block of n_mt m16 tiles, the fewest powers of two that hold
+// G * W rows, over 16-key blocks.
+bool tensor_core_window(const DecodeAttentionArgs& a) {
+  return a.W > 1 && a.dtype == 1;
+}
+
+bool valid_rows(const DecodeAttentionArgs& a) {
+  const int G = a.H / a.Hkv;
+  if (a.W == 1) {
+    return a.rows == G && a.n_chunks == 1 && a.tile >= 8 &&
+           a.tile % 8 == 0 && a.tile <= max_tile(a.rows);
+  }
+  if (a.W < 2) return false;
+  if (tensor_core_window(a)) {
+    int n_mt = 1;
+    while (n_mt * kWindowRows < G * a.W) n_mt *= 2;
+    return n_mt <= kMaxTiles && a.rows == n_mt * kWindowRows &&
+           a.n_chunks == 1 && a.tile >= 16 && a.tile % 16 == 0 &&
+           a.tile <= kWindowTileKeys;
+  }
+  return a.rows >= 2 && a.rows <= kF32WindowRows && a.n_chunks >= 1 &&
+         a.rows * a.n_chunks >= G * a.W &&
+         a.rows * (a.n_chunks - 1) < G * a.W && a.tile >= 8 &&
+         a.tile % 8 == 0 && a.tile <= max_tile(a.rows);
+}
+
 }  // namespace
 
 // `args`: the layout and launch plan (ops/attention.py::launch_plan), see
@@ -848,18 +1437,9 @@ extern "C" int decode_attention_launch(const DecodeAttentionArgs* args,
       a.S <= 0 || a.S > a.S_alloc || a.n_split < 1 ||
       a.n_split > kMaxSplit || (a.n_split & (a.n_split - 1)) != 0 ||
       a.split_keys < 1 || (long long)a.split_keys * a.n_split < a.S ||
-      a.tile < 8 || a.tile % 8 != 0 || a.tile > max_tile(a.rows)) {
+      !valid_rows(a)) {
     return (int)cudaErrorInvalidValue;
   }
-  // Decode: a block holds its KV head's G heads. A window: n_chunks blocks
-  // of `rows` rows cover the G * W rows, none of them empty.
-  const int G = a.H / a.Hkv;
-  const bool rows_ok =
-      a.W == 1 ? (a.rows == G && a.n_chunks == 1)
-               : (a.W > 1 && a.rows >= 2 && a.rows <= kWindowRows &&
-                  a.n_chunks >= 1 && a.rows * a.n_chunks >= G * a.W &&
-                  a.rows * (a.n_chunks - 1) < G * a.W);
-  if (!rows_ok) return (int)cudaErrorInvalidValue;
   // A one-stage ring holds a split of one tile only: a later tile would
   // wait on a copy that never starts.
   const int max_tiles = (a.split_keys + a.tile - 1) / a.tile;
@@ -872,10 +1452,11 @@ extern "C" int decode_attention_launch(const DecodeAttentionArgs* args,
     return (int)cudaErrorInvalidValue;
   }
   const int elem = quant ? 1 : (a.kv_dtype == 0 ? 4 : 2);
-  if (a.smem < 0 || (size_t)a.smem < smem_bytes(a.rows, a.Dh, a.tile, elem,
-                                                 a.stages, a.n_split)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  const size_t need =
+      tensor_core_window(a)
+          ? window_smem_bytes(a.rows, a.Dh, a.tile, elem, a.stages, a.n_split)
+            : smem_bytes(a.rows, a.Dh, a.tile, elem, a.stages, a.n_split);
+  if (a.smem < 0 || (size_t)a.smem < need) return (int)cudaErrorInvalidValue;
   const Ptrs p{q, k_cache, v_cache, ks, vs, bias, lengths, out};
   if (a.dtype == 0) {
     return quant ? launch_dh<float, int8_t>(a, p, layer, st)

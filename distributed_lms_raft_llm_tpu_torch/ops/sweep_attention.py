@@ -11,10 +11,12 @@ time with the keys split 1, 2, 4 and 8 ways (tile and ring as
 split is checked against the plain version first. This is the measurement
 behind `launch_plan`'s rule (PERF.md). Needs a CUDA device.
 
-With `--window`: the kernel's verify-window variant instead, at 16 slots
-(the paged engine's), widths 384 and 640, T = 2, 5, 9 and 16 query rows a
-slot, int8 and bf16 caches, two rounds, each case checked row by row
-against the plain version (`window_error`) and against two planted faults.
+With `--window`: the kernel's verify-window variant instead (bf16 q, on
+the tensor cores), at 16 slots (the paged engine's), the widths of
+WINDOW_WIDTHS, T = 2, 5, 9 and 16 query rows a slot, int8 and bf16 caches,
+two rounds, each case checked row by row against the plain version
+(`window_error`) and against two planted faults, timed beside SDPA and
+its bound.
 """
 
 from __future__ import annotations
@@ -119,7 +121,7 @@ def window_faults(lengths, width: int, t: int) -> dict:
 
 def window_attention_case(*, s, width, t, int8,
                           with_bias=False, dtype="bfloat16", h=12, dh=64,
-                          n_layers=12, seed=0):
+                          n_layers=12, seed=0, time_plain=True):
     """The verify window's attention: `s` rows of `t` queries (row b's
     query j sees the keys before lengths[b] + j; one row's last query
     reaches the width, one row starts at one key), q strided as the model
@@ -130,7 +132,8 @@ def window_attention_case(*, s, width, t, int8,
     (`caught_by_call_max_check` says whether a limit scaled by the call's
     largest output would have too); SDPA with a [B, 1, T, S] boolean mask
     over the cache (dequantized beforehand, untimed, for int8) as the
-    yardstick; the bound counts the keys this data's frontiers need."""
+    yardstick; the bound counts the keys this data's frontiers need.
+    `time_plain=False` skips timing the plain version and the eager call."""
     dt = getattr(torch, dtype)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -203,15 +206,20 @@ def window_attention_case(*, s, width, t, int8,
     n_ops = 4 * h * pair_keys * dh
     t_bytes, t_ops = (n_bytes / H100_HBM_BYTES_PER_S,
                       n_ops / PEAK_OPS_PER_S[dtype])
-    rows, chunks = attention.window_rows(1, t)
-    plan = attention.launch_plan(s, h, width, dh, k.dtype, group=rows,
-                                 chunks=chunks)
+    lay = attention._kernel_layout(q, k, v, bias, lengths,
+                                   scales.get("k_scale"),
+                                   scales.get("v_scale"))
+    plan = lay.plan
     rec = dict(slots=s, t=t, width=width, s_alloc=s_alloc, int8=int8,
                bias=with_bias, dtype=dtype,
+               route=("tensor_cores" if attention.tensor_core_window(t, dt)
+                      else "cuda_cores"),
                lengths_min=int(lengths.min().item()),
                lengths_max=int(lengths.max().item()), key_reads=key_reads,
-               rows_per_block=rows, chunks=chunks, n_split=plan.n_split,
-               tile_keys=plan.tile_keys, blocks=plan.blocks,
+               rows_per_block=lay.args.rows, chunks=lay.args.n_chunks,
+               n_split=plan.n_split, tile_keys=plan.tile_keys,
+               stages=plan.stages, smem_bytes=plan.smem_bytes,
+               blocks=plan.blocks,
                max_abs_err=check["max_abs_err"],
                max_row_rel_err=check["max_row_rel_err"],
                row_tolerance=WINDOW_ROW_TOLERANCE[dtype], faults=faults,
@@ -232,8 +240,8 @@ def window_attention_case(*, s, width, t, int8,
                                        attn_mask=mask)
 
     rec.update(kernel_us=time_graph_us(kernel),
-               kernel_eager_us=time_eager_us(kernel),
-               plain_us=time_graph_us(plain),
+               kernel_eager_us=time_eager_us(kernel) if time_plain else None,
+               plain_us=time_graph_us(plain) if time_plain else None,
                library_us=time_graph_us(library),
                library_note="SDPA, [B, 1, T, S] boolean mask" + (
                    " over the cache dequantized beforehand (untimed)"
@@ -241,23 +249,54 @@ def window_attention_case(*, s, width, t, int8,
     return rec
 
 
+# The sweep's window widths: the spec deployment's paged widths (167, 199,
+# 263, 391), the production step's 384 and a wide 640.
+WINDOW_WIDTHS = (167, 199, 263, 384, 391, 640)
+
+
+def _window_line(rec: dict) -> None:
+    print("window " + json.dumps({k: rec[k] for k in (
+        "kind", "round", "t", "int8", "width", "route", "rows_per_block",
+        "n_split", "blocks", "kernel_us", "library_us", "bound_us",
+        "max_row_rel_err")}), flush=True)
+
+
 def sweep_window(rounds: int = 2) -> list:
     """The window variant at each T, cache and width
-    (`window_attention_case`)."""
+    (`window_attention_case`, 16 slots, bf16 q), the kernel and SDPA
+    timed (the plain version is timed in phase 7 of chip_smoke.py); then,
+    at T = 9, the plan's split against forced ones at widths 384 and 640
+    (the measurement behind WINDOW_MAX_SPLIT_KEYS), and the fixed cost: a
+    32-key window, whose rows' keys fit two 16-key blocks."""
     records = []
+
+    def case(kind, rnd, **kw):
+        rec = window_attention_case(s=16, time_plain=False, **kw)
+        rec.update(kind=kind, round=rnd)
+        records.append(rec)
+        _window_line(rec)
+
     for rnd in range(rounds):
         for t in (2, 5, 9, 16):
             for int8 in (True, False):
-                for width in (384, 640):
-                    rec = window_attention_case(
-                        s=16, width=width, t=t, int8=int8,
-                        seed=width + t + int8)
-                    rec.update(round=rnd)
-                    records.append(rec)
-                    print("window " + json.dumps({k: rec[k] for k in (
-                        "round", "t", "int8", "width", "rows_per_block",
-                        "chunks", "n_split", "kernel_us", "library_us",
-                        "bound_us", "max_row_rel_err")}), flush=True)
+                for width in WINDOW_WIDTHS:
+                    case("window", rnd, width=width, t=t, int8=int8,
+                         seed=width + t + int8)
+        for int8 in (True, False):
+            case("floor", rnd, width=32, t=9, int8=int8, seed=41 + int8)
+    plan_fn = attention.launch_plan
+    try:
+        for width in (384, 640):
+            for int8 in (True, False):
+                for n in (1, 2):
+                    attention.launch_plan = functools.partial(plan_fn,
+                                                              n_split=n)
+                    attention._layouts.clear()
+                    case("forced_split", 0, width=width, t=9, int8=int8,
+                         seed=width + 9 + int8)
+    finally:
+        attention.launch_plan = plan_fn
+        attention._layouts.clear()
     return records
 
 

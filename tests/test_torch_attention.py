@@ -13,6 +13,7 @@ against the plain version and the Pallas kernel.
 
 import ast
 import ctypes
+import dataclasses
 import functools
 import inspect
 import textwrap
@@ -725,14 +726,49 @@ def test_window_reference_matches_jax_ragged_attend(b, hkv, t):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
+def _check_window_plan(plan, b, hkv, s, dh, elem, rows):
+    """The tensor-core window's plan: one block a (row, KV head, split),
+    tiles of 16-key blocks, its own shared-memory sum, inside the card's."""
+    n = plan.n_split
+    assert n in (1, 2, 4, 8) and plan.blocks == b * hkv * n
+    assert (n - 1) * plan.split_keys < s <= n * plan.split_keys
+    cap = min(port_attention.WINDOW_TILE_KEYS,
+              port_attention.TILE_BYTES // (dh * elem))
+    assert plan.tile_keys % 16 == 0 and 16 <= plan.tile_keys <= cap
+    assert plan.tile_keys <= -(-plan.split_keys // 16) * 16
+    n_tiles = -(-plan.split_keys // plan.tile_keys)
+    assert 1 <= plan.stages <= n_tiles and (plan.stages >= 2 or n_tiles == 1)
+    ring = plan.stages * 2 * plan.tile_keys * dh * elem
+    assert ring <= max(port_attention.WINDOW_RING_BYTES,
+                       2 * plan.tile_keys * dh * elem * 2)
+    assert plan.smem_bytes == port_attention._window_smem_bytes(
+        rows, dh, plan.tile_keys, elem, plan.stages, n)
+    assert plan.smem_bytes <= port_attention.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("b", MAIN_BATCHES + (16,))
 @pytest.mark.parametrize("t", [2, 5, 9, 16])
 def test_launch_plan_invariants_for_a_window(b, t):
-    """The plan of a verify window: the rows a block and the blocks a (row,
-    KV head) (`window_rows`) shape the grid; the tile is that of a multi-row
-    block (<= 64 keys), in both cache types."""
+    """The plan of a verify window. bf16 q (tensor cores): every GPT-2
+    window is one m16 tile a (row, head), so the launch has one block a
+    (row, head, split) and K and V are read once a (row, head), in both
+    cache types; the 16 slots x 12 heads of the paged step are not split
+    up to GPT-2's 1,024 keys. float32 q (CUDA cores): the window's rows in blocks of at
+    most F32_WINDOW_ROWS, the tile that of a multi-row block (<= 64 keys).
+    """
+    rows, chunks = port_attention.window_rows(1, t, torch.bfloat16)
+    assert (rows, chunks) == (port_attention.WINDOW_ROWS, 1)
     for dtype in (torch.bfloat16, torch.int8):
-        rows, chunks = port_attention.window_rows(1, t)
+        for s in (160, 167, 384, 391, 640, 1024):
+            plan = port_attention.launch_plan(b, 12, s, 64, dtype,
+                                              group=rows, chunks=chunks,
+                                              tensor_cores=True)
+            _check_window_plan(plan, b, 12, s, 64, dtype.itemsize, rows)
+            if b == 16:  # 192 blocks: no split up to 1,024 keys
+                assert plan.n_split == 1
+    rows, chunks = port_attention.window_rows(1, t, torch.float32)
+    assert rows <= port_attention.F32_WINDOW_ROWS
+    for dtype in (torch.float32, torch.int8):
         for s in (160, 384, 1024):
             plan = port_attention.launch_plan(b, 12, s, 64, dtype,
                                               group=rows, chunks=chunks)
@@ -777,9 +813,13 @@ def test_window_launches_count_as_their_variant(monkeypatch):
 
 
 def test_window_rows_match_the_kernel_source():
-    """The wrapper's block cut and the kernel's instantiations agree: a
-    window block holds WINDOW_ROWS rows (csrc kWindowRows), decode up to
-    MAX_GROUP heads (csrc kMaxGroup)."""
+    """The wrapper's block cut and the kernel's constants agree: a bf16
+    window's m16 tile of WINDOW_ROWS rows (csrc kWindowRows), at most
+    MAX_WINDOW_TILES of them a block (kMaxTiles), over tiles of at most
+    WINDOW_TILE_KEYS keys (kWindowTileKeys); a float32 window's blocks of
+    at most F32_WINDOW_ROWS rows (kF32WindowRows); decode up to MAX_GROUP
+    heads (kMaxGroup). Every GQA window up to MAX_GROUP x MAX_WINDOW rows
+    fits one block of tiles, never more blocks a (row, KV head)."""
     import re
     from pathlib import Path
 
@@ -789,11 +829,22 @@ def test_window_rows_match_the_kernel_source():
     def constant(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
-    assert constant("kWindowRows") == port_attention.WINDOW_ROWS
+    assert constant("kWindowRows") == port_attention.WINDOW_ROWS == 16
+    assert constant("kMaxTiles") == port_attention.MAX_WINDOW_TILES
+    assert constant("kWindowTileKeys") == port_attention.WINDOW_TILE_KEYS
+    assert constant("kF32WindowRows") == port_attention.F32_WINDOW_ROWS
     assert constant("kMaxGroup") == port_attention.MAX_GROUP
-    for t in range(2, port_attention.MAX_WINDOW + 1):
-        rows, _ = port_attention.window_rows(1, t)
-        assert 2 <= rows <= port_attention.WINDOW_ROWS
+    for group in range(1, port_attention.MAX_GROUP + 1):
+        for t in range(2, port_attention.MAX_WINDOW + 1):
+            rows, chunks = port_attention.window_rows(group, t,
+                                                      torch.bfloat16)
+            tiles = rows // port_attention.WINDOW_ROWS
+            assert chunks == 1 and rows % port_attention.WINDOW_ROWS == 0
+            assert tiles & (tiles - 1) == 0  # warps split evenly over tiles
+            assert tiles <= port_attention.MAX_WINDOW_TILES
+            assert rows >= group * t and (tiles == 1 or rows // 2 < group * t)
+            rows, _ = port_attention.window_rows(group, t, torch.float32)
+            assert 2 <= rows <= port_attention.F32_WINDOW_ROWS
 
 
 def _deployment_window(dtype, seed=8):
@@ -845,3 +896,339 @@ def test_window_check_catches_a_planted_frontier_fault(dtype, fault):
     assert (bad != lengths).any()
     check = sweep.window_error(plain(bad), plain(lengths), dtype)
     assert not check["ok"], check
+
+
+# ------------------------------- the tensor-core window, modelled in numpy
+
+def _bf16(x):
+    """x rounded to bf16 (round to nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _window_tile_model(q, k, v, layer, lengths, bias, ks, vs, plan, rows):
+    """The tensor-core window kernel's arithmetic in float32 numpy.
+
+    One block a (row, KV head, split) holds the G * T query rows (head-
+    major) in rows // 16 m16 tiles; warp w takes tile w % n_mt and, of each
+    staged tile of `plan.tile_keys` keys, the 16-key blocks kb = w // n_mt,
+    + 8 // n_mt, ... Per 16-key block: S = Q K^T in float32 (bf16 q, bf16
+    or int8 K: exact products), times ks[key] and Dh^-1/2, plus the bias;
+    a row's keys at or past its own frontier min(lengths + t, S) have no
+    weight (p = 0, the row's maximum untouched); the block's row maximum
+    rescales (m, l, o); P times vs[key] is rounded to bf16 before P V.
+    Then the warps of a tile merge, the splits merge (weights
+    exp(m - max m)), and o / l is rounded to bf16. (The kernel takes the
+    same softmax in base 2, scores times log2 e and exp2, which changes
+    the weights by float rounding only.)"""
+    b, h, t, dh = q.shape
+    hkv, s = k.shape[2], k.shape[3]
+    group, n_rows = h // hkv, (h // hkv) * t
+    n_mt = rows // 16
+    n_kw = 8 // n_mt
+    scale = np.float32(1.0 / np.sqrt(dh))
+    out = np.zeros((b, h, t, dh), np.float32)
+    f = np.arange(rows)
+    with np.errstate(over="ignore"):
+        for row in range(b):
+            s_max = min(int(lengths[row]) + t - 1, s)
+            frontier = np.where(f < n_rows,
+                                np.minimum(lengths[row] + f % t, s), 0)
+            for g in range(hkv):
+                Q = np.zeros((rows, dh), np.float32)
+                Q[:n_rows] = q[row, g * group:(g + 1) * group].reshape(
+                    n_rows, dh)
+                K = k[layer, row, g].astype(np.float32)
+                V = v[layer, row, g].astype(np.float32)
+                kss = ks[layer, row, g] if ks is not None else np.ones(s)
+                vss = vs[layer, row, g] if vs is not None else np.ones(s)
+                bs = bias[row, 0] if bias is not None else np.zeros(s)
+                parts = []
+                for split in range(plan.n_split):
+                    start = split * plan.split_keys
+                    n_keys = max(min(s_max, start + plan.split_keys) - start,
+                                 0)
+                    nk = np.minimum(frontier - start, n_keys)
+                    m = np.full((8, 16), _LOWEST, np.float32)
+                    l = np.zeros((8, 16), np.float32)
+                    o = np.zeros((8, 16, dh), np.float32)
+                    for t0 in range(0, n_keys, plan.tile_keys):
+                        n_kb = -(-min(plan.tile_keys, n_keys - t0) // 16)
+                        for w in range(8):
+                            rs = slice(16 * (w % n_mt), 16 * (w % n_mt) + 16)
+                            for kb in range(w // n_mt, n_kb, n_kw):
+                                j = t0 + 16 * kb + np.arange(16)
+                                real = j < n_keys
+                                jj = np.where(real, start + j, 0)
+                                sc = (Q[rs] @ K[jj].T) * kss[jj].astype(
+                                    np.float32) * scale + bs[jj]
+                                seen = j[None, :] < nk[rs, None]
+                                x = np.where(seen, sc, _LOWEST).astype(
+                                    np.float32)
+                                m_new = np.maximum(m[w], x.max(1))
+                                alpha = np.exp(m[w] - m_new)
+                                p = np.where(seen, np.exp(x - m_new[:, None]),
+                                             np.float32(0))
+                                pv = _bf16(p * np.where(real, vss[jj], 0))
+                                l[w] = l[w] * alpha + p.sum(1,
+                                                            dtype=np.float32)
+                                o[w] = o[w] * alpha[:, None] + pv @ np.where(
+                                    real[:, None], V[jj], 0)
+                                m[w] = m_new
+                    mm, ll, oo = [], [], []
+                    for mt in range(n_mt):
+                        ws = [mt + n_mt * kw for kw in range(n_kw)]
+                        top = m[ws].max(0)
+                        a = np.exp(m[ws] - top)
+                        mm.append(top)
+                        ll.append((a * l[ws]).sum(0))
+                        oo.append((a[:, :, None] * o[ws]).sum(0))
+                    parts.append((np.concatenate(mm), np.concatenate(ll),
+                                  np.concatenate(oo)))
+                top = np.max([pm for pm, _, _ in parts], axis=0)
+                wts = [np.exp(pm - top) for pm, _, _ in parts]
+                l_all = sum(wk * pl for wk, (_, pl, _) in zip(wts, parts))
+                o_all = sum(wk[:, None] * po
+                            for wk, (_, _, po) in zip(wts, parts))
+                res = _bf16(o_all[:n_rows] / l_all[:n_rows, None])
+                out[row, g * group:(g + 1) * group] = res.reshape(group, t,
+                                                                  dh)
+    return out
+
+
+def _tile_case(t, width, cache, h=2, hkv=2, b=2, seed=0):
+    """bf16 q [b, h, t, 64] and a two-layer cache of `width` slots in an
+    allocation 32 slots wider; row 0's window starts at key 1 (its first
+    query's frontier ends inside the first 16-key block), row b-1's last
+    query reaches the width. `cache`: "int8" (quantized, with scales),
+    "bf16", or "bf16_bias" (plus the bucketed engine's left padding)."""
+    rng = np.random.default_rng(seed)
+    dh, s_alloc = 64, width + 32
+    q = _bf16(rng.standard_normal((b, h, t, dh)))
+    kf = rng.standard_normal((2, b, hkv, s_alloc, dh)).astype(np.float32)
+    vf = rng.standard_normal((2, b, hkv, s_alloc, dh)).astype(np.float32)
+    lengths = rng.integers(1, width - t + 2, b).astype(np.int32)
+    lengths[0], lengths[-1] = 1, width - t + 1
+    ks = vs = bias = None
+    if cache == "int8":
+        k8, ksj = jax_common.quantize_kv(jnp.asarray(kf))
+        v8, vsj = jax_common.quantize_kv(jnp.asarray(vf))
+        k, v, ks, vs = (np.ascontiguousarray(np.asarray(a)[:, :, :, :width])
+                        for a in (k8, v8, ksj, vsj))
+    else:
+        k, v = (_bf16(a[:, :, :, :width]) for a in (kf, vf))
+    keys = np.arange(width)
+    frontier = lengths[:, None] + np.arange(t)[None, :]
+    mask = (keys[None, None, :] < frontier[:, :, None])[:, None]  # B1TS
+    if cache == "bf16_bias":
+        pad = (rng.random(b) * lengths).astype(np.int64)
+        valid = keys[None, :] >= pad[:, None]
+        mask = mask & valid[:, None, None, :]
+        bias = np.where(valid, 0.0, -1e30).astype(np.float32)[:, None, :]
+    return q, k, v, lengths, bias, ks, vs, mask
+
+
+def _torch_bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+
+def _plain_and_plan(q, k, v, lengths, bias, ks, vs):
+    """The plain version's output and the layout the wrapper would launch,
+    on the same bf16 tensors."""
+    tq = _torch_bf16(q)
+    tk, tv = ((torch.from_numpy(a) if a.dtype == np.int8 else _torch_bf16(a))
+              for a in (k, v))
+    extra = ({} if ks is None else
+             dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs)))
+    tb = None if bias is None else torch.from_numpy(bias)
+    tl = torch.from_numpy(lengths)
+    plain = port_attention.decode_attention(tq, tk, tv, LAYER, tb,
+                                            lengths=tl, **extra)
+    lay = port_attention._kernel_layout(tq, tk, tv, tb, tl,
+                                        extra.get("k_scale"),
+                                        extra.get("v_scale"))
+    return plain, lay
+
+
+TILE_CASES = [(t, width, cache) for t in (2, 9, 16) for width in (167, 640)
+              for cache in ("int8", "bf16", "bf16_bias")]
+
+
+@pytest.mark.parametrize("t,width,cache", TILE_CASES)
+def test_window_tile_model_matches_reference_and_jax(t, width, cache):
+    """The tensor-core window's arithmetic (`_window_tile_model`: 16-row
+    tiles, n8/k16 key blocks, ks on the score columns, per-row frontiers,
+    the tile-wise online softmax, P x vs rounded to bf16 before P V) on the
+    plan the wrapper launches, against the plain version and the JAX
+    package's attend_quant / attend under the ragged path's mask, on the
+    same numpy-seeded bf16 inputs. Tolerance: each query row within 2e-2
+    of its own largest output (`sweep_attention.window_error`, phase 7's
+    bf16 limit): both sides round probabilities and the output to bf16, at
+    different places."""
+    from distributed_lms_raft_llm_tpu_torch.ops import sweep_attention
+
+    q, k, v, lengths, bias, ks, vs, mask = _tile_case(t, width, cache,
+                                                      seed=t + width)
+    assert (lengths[0] + np.arange(t) < 16).any()  # inside the first block
+    plain, lay = _plain_and_plan(q, k, v, lengths, bias, ks, vs)
+    assert (lay.args.rows, lay.args.n_chunks) == (16, 1)
+    model = _window_tile_model(q, k, v, LAYER, lengths, bias, ks, vs,
+                               lay.plan, lay.args.rows)
+    assert np.isfinite(model).all()
+    jq = jnp.asarray(q, jnp.bfloat16)
+    if cache == "int8":
+        want = jax_common.attend_quant(
+            jq, jnp.asarray(k[LAYER]), jnp.asarray(ks[LAYER]),
+            jnp.asarray(v[LAYER]), jnp.asarray(vs[LAYER]), jnp.asarray(mask))
+    else:
+        want = jax_common.attend(jq, jnp.asarray(k[LAYER], jnp.bfloat16),
+                                 jnp.asarray(v[LAYER], jnp.bfloat16),
+                                 jnp.asarray(mask))
+    got = torch.from_numpy(model)
+    for ref in (plain, torch.from_numpy(np.asarray(want, np.float32))):
+        check = sweep_attention.window_error(got, ref, "bfloat16")
+        assert check["ok"], check
+
+
+def test_window_tile_model_takes_gqa_tiles():
+    """A GQA window past one m16 tile (4 query heads a KV head, T = 9: 36
+    rows in 4 tiles, two warps a tile) against the plain version, which
+    repeats K and V per query head."""
+    from distributed_lms_raft_llm_tpu_torch.ops import sweep_attention
+
+    q, k, v, lengths, bias, ks, vs, _ = _tile_case(9, 167, "int8", h=4,
+                                                   hkv=1, seed=5)
+    plain, lay = _plain_and_plan(q, k, v, lengths, bias, ks, vs)
+    assert (lay.args.rows, lay.args.n_chunks) == (64, 1)
+    model = _window_tile_model(q, k, v, LAYER, lengths, bias, ks, vs,
+                               lay.plan, lay.args.rows)
+    check = sweep_attention.window_error(torch.from_numpy(model), plain,
+                                         "bfloat16")
+    assert check["ok"], check
+
+
+def test_window_tile_model_fully_masked_tail_tile_weighs_zero():
+    """A staged tile whose every key the bias masks (scores about -1e30)
+    changes nothing: the model equals the model over the cache without that
+    tile, bit for bit. A warp whose blocks are all masked merges with
+    weight exp(-1e30 - max m) = 0; one that saw a real key keeps its
+    maximum and adds p = 0."""
+    t, width = 9, 256
+    q, k, v, lengths, _, _, _, _ = _tile_case(t, width, "bf16", seed=12)
+    lengths[:] = width  # every row sees every key
+    bias = np.zeros((len(lengths), 1, width), np.float32)
+    bias[..., 128:] = -1e30     # the second tile of 128 keys
+    plan = port_attention.LaunchPlan(n_split=1, split_keys=width,
+                                     tile_keys=128, stages=2, smem_bytes=0,
+                                     blocks=0)
+    both = _window_tile_model(q, k, v, LAYER, lengths, bias, None, None,
+                              plan, 16)
+    head = _window_tile_model(
+        q, np.ascontiguousarray(k[:, :, :, :128]),
+        np.ascontiguousarray(v[:, :, :, :128]), LAYER,
+        np.full_like(lengths, 128), bias[..., :128].copy(), None,
+        None, dataclasses.replace(plan, split_keys=128), 16)
+    np.testing.assert_array_equal(both, head)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_bf16_windows_take_the_tensor_core_kernel(monkeypatch, kv):
+    """The dispatch, pinned: a bf16 window on CUDA tensors, over a bf16 or
+    an int8 cache, launches the kernel with the tensor-core plan (one block
+    of 16-row tiles a (row, KV head, split)) and never the plain version; a
+    float32 window gets the CUDA-core plan (blocks of at most 4 rows); one
+    query row (decode) neither window plan. The kernel runs the tensor-core
+    window exactly for bf16 q and refuses a plan of the other kind (csrc
+    `tensor_core_window`, `valid_rows`)."""
+    launched = []
+    monkeypatch.setattr(port_attention, "_entry_point",
+                        lambda: (lambda *a: launched.append(a) or 0,
+                                 lambda index: 0))
+    monkeypatch.setattr(port_attention, "_layouts", {})
+
+    def no_plain(*args):
+        raise AssertionError("plain path taken for CUDA tensors")
+
+    monkeypatch.setattr(port_attention, "decode_attention_reference",
+                        no_plain)
+    b, t, dh, s = 4, 9, 64, 167
+    lengths = _fake_cuda(np.array([1, 50, 100, s - t + 1], np.int32))
+    extra, variant = {}, port_attention.WINDOW
+    if kv == "int8":
+        sc = _fake_cuda(np.ones((L, b, H, s), np.float32))
+        extra, variant = dict(k_scale=sc, v_scale=sc), \
+            port_attention.WINDOW_INT8KV
+
+    def cache(qt):  # the cache beside queries of type qt
+        zeros = _fake_cuda(np.zeros((L, b, H, s, dh), np.float32))
+        return zeros.to(torch.int8 if kv == "int8" else qt)
+
+    for qt in (torch.bfloat16, torch.float32):
+        q = _fake_cuda(np.zeros((b, H, t, dh), np.float32)).to(qt)
+        counts = dict(port_attention.launch_counts)
+        port_attention.decode_attention(q, cache(qt), cache(qt), LAYER,
+                                        lengths=lengths, **extra)
+        (lay,) = port_attention._layouts.values()
+        port_attention._layouts.clear()
+        assert lay.variant == variant
+        if qt == torch.bfloat16:
+            assert port_attention.tensor_core_window(t, qt)
+            assert (lay.args.rows, lay.args.n_chunks) == (16, 1)
+            assert lay.plan == port_attention.launch_plan(
+                b, H, s, dh, cache(qt).dtype, group=16, tensor_cores=True)
+            assert lay.plan.blocks == b * H * lay.plan.n_split
+        else:
+            assert not port_attention.tensor_core_window(t, qt)
+            assert lay.args.rows <= port_attention.F32_WINDOW_ROWS
+            assert lay.args.n_chunks > 1
+        delta = {n: port_attention.launch_counts[n] - counts[n]
+                 for n in counts}
+        assert delta == {n: int(n == variant) for n in counts}
+    decode = _fake_cuda(np.zeros((b, H, 1, dh), np.float32)).to(
+        torch.bfloat16)
+    kd = cache(torch.bfloat16)
+    port_attention.decode_attention(decode, kd, kd, LAYER, lengths=lengths,
+                                    **extra)
+    (lay,) = port_attention._layouts.values()
+    assert not port_attention.tensor_core_window(1, torch.bfloat16)
+    assert lay.args.rows == 1 and lay.variant in (port_attention.RAGGED,
+                                                  port_attention.INT8KV)
+    assert len(launched) == 3
+
+
+def test_graph_routes_count_both_window_kernels():
+    """A captured graph's window nodes, by device name, land in the window
+    route whichever window kernel they are (tensor-core for bf16 q,
+    CUDA-core for float32), and in no other route."""
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        routes_of_names,
+    )
+
+    names = {
+        "_ZN12_GLOBAL__N_134decode_attention_window_mma_kernelIaLi64EEEvPK"
+        "13__nv_bfloat16": 12,
+        "_ZN12_GLOBAL__N_130decode_attention_window_kernelIfaLi64ELi4EEEv": 3,
+        "_ZN12_GLOBAL__N_123decode_attention_kernelI13__nv_bfloat16": 5,
+    }
+    routes = routes_of_names(names)
+    assert routes["decode_attention_window"] == 15
+    assert routes["decode_attention"] == 5
+    assert sum(routes.values()) == 20
+
+
+def test_window_probe_instruments_the_kernel_source():
+    """`ops/probe_window.py` stamps each phase of the tensor-core window
+    kernel once, thread 0 only, and nothing outside that kernel; its
+    anchors are lines of the shipped source, so an edit that moves one
+    fails here rather than on the card."""
+    from distributed_lms_raft_llm_tpu_torch.ops import build, probe_window
+
+    src = (build.CSRC / "decode_attention.cu").read_text()
+    out = probe_window.instrument(src)
+    start = out.index(probe_window.KERNEL_START)
+    end = out.index(probe_window.KERNEL_END)
+    stamps = out[start:end].count("= probe_now();")
+    assert stamps == len(probe_window.PHASES)
+    assert out[start:end].count("= clock64();") == 2
+    assert "probe_now" not in out[end:]
+    assert out.replace("g_probe", "") != out and "g_probe" not in src

@@ -199,14 +199,18 @@ def _window_lengths(rng, s, width, t):
     # 263, 391) and the bucketed engine's (bucket 256 + 32 + 8 - 1).
     (16, 12, 167, 64, False), (16, 12, 391, 64, False),
     (8, 12, 295, 64, True),
+    # The sweep's widest case: 16 slots at width 640 (two splits a
+    # cluster); and a GQA window past one m16 tile (4 heads a KV head).
+    (16, 12, 640, 64, False), (2, 3, 391, 64, True),
 ])
 def test_window_kernel_matches_plain(card, dtype, atol, int8_cache, t, s,
                                      hkv, width, dh, with_bias):
     """The speculative verify window: t query rows a batch row, row b's
     query j seeing the keys before lengths[b] + j (one row's last query
     reaches the width), q strided as the model passes it, a window of a
-    larger cache, a float or int8 cache, GQA (12 heads on 4 KV heads: 3t
-    rows a KV head, cut into blocks of at most 4), and the bucketed path's
+    larger cache, a float or int8 cache, GQA (12 heads on 4 or 3 KV heads:
+    3t or 4t rows a KV head, in up to four m16 tiles of one block in bf16,
+    in blocks of at most 4 rows in float32), and the bucketed path's
     shared pad bias. Each query row is held to its own largest output
     (`sweep_attention.window_error`): a limit scaled by the call's largest
     output, a one-key row's raw v, would pass a long row's frontier one
@@ -255,16 +259,26 @@ def test_window_kernel_matches_plain(card, dtype, atol, int8_cache, t, s,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("int8_cache", [False, True])
-def test_window_rows_equal_single_row_calls(card, int8_cache):
+@pytest.mark.parametrize("width,t", [(384, 9), (640, 9), (384, 16),
+                                     (640, 16)])
+def test_window_rows_equal_single_row_calls(card, dtype, int8_cache, width,
+                                            t):
     """Each row of a window equals the decode kernel called on that row
-    alone with its own frontier (lengths + j), to float32 rounding: the
-    window changes which rows share a key stream, not what a row sees."""
-    rng = np.random.default_rng(11 + int8_cache)
-    s, h, dh, width, t = 8, 12, 64, 384, 9
+    alone with its own frontier (lengths + j): the window changes which
+    rows share a key stream, not what a row sees. float32 (the CUDA-core
+    window) to float32 rounding, 1e-5; bf16 (the tensor-core window, whose
+    probabilities times vs are rounded to bf16 before P V, while the decode
+    kernel keeps them in float32) row by row within 2e-2 of each row's
+    largest output, phase 7's limit. Width 640 takes two splits a
+    cluster."""
+    rng = np.random.default_rng(11 + int8_cache + width + t)
+    s, h, dh = 8, 12, 64
+    dt = getattr(torch, dtype)
     shape = (12, s, h, width, dh)
     q = torch.from_numpy(rng.standard_normal((s, h, t, dh), np.float32)).to(
-        card)
+        card, dt)
     if int8_cache:
         k, v = (torch.from_numpy(rng.integers(-127, 128, shape, np.int8))
                 .to(card) for _ in range(2))
@@ -274,17 +288,20 @@ def test_window_rows_equal_single_row_calls(card, int8_cache):
         scales = dict(k_scale=ks, v_scale=vs)
     else:
         k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
-                .to(card) for _ in range(2))
+                .to(card, dt) for _ in range(2))
         scales = {}
     lengths = torch.from_numpy(_window_lengths(rng, s, width, t)).to(card)
     got = port_attention.decode_attention(q, k, v, 3, lengths=lengths,
                                           **scales)
-    for j in range(t):
-        one = port_attention.decode_attention(
-            q[:, :, j:j + 1].contiguous(), k, v, 3, lengths=lengths + j,
-            **scales)
-        torch.testing.assert_close(got[:, :, j:j + 1], one, rtol=0,
-                                   atol=1e-5)
+    rows = torch.cat([port_attention.decode_attention(
+        q[:, :, j:j + 1].contiguous(), k, v, 3, lengths=lengths + j,
+        **scales) for j in range(t)], dim=2)
+    torch.cuda.synchronize()
+    if dtype == "float32":
+        torch.testing.assert_close(got, rows, rtol=0, atol=1e-5)
+    else:
+        check = sweep_attention.window_error(got, rows, dtype)
+        assert check["ok"], check
 
 
 # The GPT-2-small products of the int8 path: (K, N, transposed), and a

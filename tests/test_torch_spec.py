@@ -346,17 +346,27 @@ def test_window_bounds_are_checked():
     (1, 5, 3, 2), (1, 9, 3, 3), (1, 16, 4, 4), (3, 9, 4, 7), (8, 2, 4, 4),
 ])
 def test_window_rows_cut(group, t, rows, chunks):
-    """Decode keeps its G heads in one block; a window's G x T rows go in
-    blocks of at most 4, of equal size."""
-    assert attention.window_rows(group, t) == (rows, chunks)
+    """Decode keeps its G heads in one block; a float32 window's G x T rows
+    (the CUDA-core kernel) go in blocks of at most 4, of equal size; a bf16
+    window's (the tensor-core kernel) in one block of 16-row tiles."""
+    assert attention.window_rows(group, t, torch.float32) == (rows, chunks)
     if t > 1:
-        assert rows <= attention.WINDOW_ROWS and rows * chunks >= group * t
+        assert rows <= attention.F32_WINDOW_ROWS
+        assert rows * chunks >= group * t
         assert rows * (chunks - 1) < group * t
+        tiles = -(-group * t // attention.WINDOW_ROWS)
+        assert attention.window_rows(group, t, torch.bfloat16) == (
+            attention.WINDOW_ROWS * (1 << (tiles - 1).bit_length()), 1)
+    else:
+        assert attention.window_rows(group, t, torch.bfloat16) == (rows,
+                                                                   chunks)
 
 
 def test_window_kernel_layout():
     """What the kernel is told for a verify window: q's window stride, the
-    rows a block and the blocks a (row, KV head), the window variants."""
+    rows a block and the blocks a (row, KV head), the window variants. A
+    bf16 window takes the tensor-core kernel: one 16-row tile a (row, KV
+    head), tiles of 16-key blocks."""
     b, s, t, dh = 16, 384, 9, 64
     qkv = torch.zeros((b, t, 3 * 12 * dh), dtype=torch.bfloat16)
     q = qkv[..., :12 * dh].reshape(b, t, 12, dh).transpose(1, 2)
@@ -366,11 +376,16 @@ def test_window_kernel_layout():
     lay = attention._kernel_layout(q, k, k, None, lengths, sc, sc)
     a = lay.args
     assert (a.q_sb, a.q_sh, a.q_sw) == (t * 3 * 12 * dh, dh, 3 * 12 * dh)
-    assert (a.W, a.rows, a.n_chunks, a.S_alloc) == (t, 3, 3, 512)
+    assert (a.W, a.rows, a.n_chunks, a.S_alloc) == (t, 16, 1, 512)
     assert lay.variant == attention.WINDOW_INT8KV
     assert lay.plan == attention.launch_plan(b, 12, s, dh, torch.int8,
+                                             group=16, tensor_cores=True)
+    assert lay.plan.tile_keys % 16 == 0 and lay.plan.blocks == b * 12
+    f32 = attention._kernel_layout(q.float(), k, k, None, lengths, sc, sc)
+    assert (f32.args.rows, f32.args.n_chunks) == (3, 3)
+    assert f32.plan == attention.launch_plan(b, 12, s, dh, torch.int8,
                                              group=3, chunks=3)
-    assert lay.plan.tile_keys <= 64
+    assert f32.plan.tile_keys <= 64
     kb = k.to(torch.bfloat16)
     assert attention._kernel_layout(
         q, kb, kb, torch.zeros((b, 1, s)), lengths).variant == \

@@ -166,6 +166,34 @@ async def _http(port, method, path, payload=None):
     return int(head.split()[1]), json.loads(resp)
 
 
+def _find_span(spans, name):
+    """The first span called `name` in a fragment's span tree, or None."""
+    for sp in spans:
+        if sp["name"] == name:
+            return sp
+        hit = _find_span(sp.get("children", []), name)
+        if hit is not None:
+            return hit
+    return None
+
+
+async def _trace_with_handler(port, trace_id, timeout_s=5.0):
+    """A node's `/admin/trace/<trace_id>` fragment once it holds the
+    `tutoring.StreamLLMAnswer` handler span. The handler is a streaming
+    generator: its span closes after the last chunk has gone out, so a
+    fragment read as soon as the client holds that chunk may not have it
+    yet. Polls for at most `timeout_s`; returns the last reply either way,
+    for the caller's assertions to judge."""
+    deadline = asyncio.get_running_loop().time() + timeout_s
+    while True:
+        status, doc = await _http(port, "GET", f"/admin/trace/{trace_id}")
+        spans = doc.get("trace", {}).get("spans", []) if status == 200 else []
+        if (_find_span(spans, "tutoring.StreamLLMAnswer") is not None
+                or asyncio.get_running_loop().time() >= deadline):
+            return status, doc
+        await asyncio.sleep(0.05)
+
+
 def _with_fleet(engines, body):
     """Run `body(fleet)` with both nodes up behind a TutoringPool; `fleet`
     maps "jax"/"port" to (address, health port) and holds the pool and its
@@ -266,12 +294,10 @@ def test_port_node_health_trace_and_score_planes(engines):
                                                     session_id=session)]
         return dict(
             chunks=chunks,
-            jax_trace=await _http(jhealth, "GET",
-                                  "/admin/trace/mixed-fleet-2"),
+            jax_trace=await _trace_with_handler(jhealth, "mixed-fleet-2"),
             jax_health=await _http(jhealth, "GET", "/healthz"),
             port_health=await _http(phealth, "GET", "/healthz"),
-            port_trace=await _http(phealth, "GET",
-                                   "/admin/trace/mixed-fleet-1"),
+            port_trace=await _trace_with_handler(phealth, "mixed-fleet-1"),
             listing=await _http(phealth, "GET", "/admin/trace"),
             pool_trace=tracer.tree("mixed-fleet-1"),
             score_post=await _http(phealth, "POST", "/admin/score",
@@ -303,15 +329,6 @@ def test_port_node_health_trace_and_score_planes(engines):
 
     assert roots[0]["parent_id"] in set(span_ids(out["pool_trace"]["spans"]))
 
-    def find(spans, name):
-        for sp in spans:
-            if sp["name"] == name:
-                return sp
-            hit = find(sp.get("children", []), name)
-            if hit is not None:
-                return hit
-        return None
-
     def shape(span):
         """The handler span, its children, and their children's names:
         which programs ran depends on each node's prefix cache."""
@@ -323,11 +340,11 @@ def test_port_node_health_trace_and_score_planes(engines):
     # The same span tree as a JAX node's fragment for a streamed answer
     # (which this process's JAX tracer grafted under the pool's span):
     # queue.wait and engine.decode, with the shared engine.<program> spans.
-    jax_handler = find(out["jax_trace"][1]["trace"]["spans"],
+    jax_handler = _find_span(out["jax_trace"][1]["trace"]["spans"],
                        "tutoring.StreamLLMAnswer")
     assert shape(roots[0]) == shape(jax_handler) == (
         "tutoring.StreamLLMAnswer", ["engine.decode", "queue.wait"], True)
-    decode = find(roots, "engine.decode")
+    decode = _find_span(roots, "engine.decode")
     assert decode["children"] and all(
         c["attrs"]["shared"] for c in decode["children"])
     assert any(r["trace_id"] == "mixed-fleet-1"
