@@ -16,7 +16,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    beside the least time the card could take;
 3b. the paged path's kernels the same way: decode attention with per-row
    lengths over a float and an int8 cache (8 and 16 slots, widths 160 and
-   384, lengths spread over [1, width], splits left empty), and the int8
+   384, lengths spread over [1, width], splits left empty); the paged
+   step's append kernel (`decode_attention_append`: the new K/V row
+   quantized and written, then attention) at 8 and 16 slots, widths 160,
+   384 and 1,024 (two splits), int8 and bf16 caches, float32, GQA (G = 4)
+   and two rows split four ways, each with a dead slot at the width,
+   holding the output within tolerance and the written cache (k, v, ks,
+   vs) `torch.equal` to its plain version's, timed beside the kernel it
+   replaced alone, the torch sequence it replaced in one CUDA graph, the
+   plain version and SDPA, its bound counting the append's bytes; and the int8
    weight-only matmul (`ops/sweep_int8.py`) at GPT-2 small's five products
    for M = 1, 16, 32 (the fused admission chunk), 256 in bf16 (tensor
    cores) and float32 (CUDA cores), and the four dense products at the
@@ -35,8 +43,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    width, bf16, int8 weights, int8 KV cache, 16 slots, chunk 16, inflight
    3) answering 24 questions in two waves, the second landing mid-decode
    (admission mid-decode, the cache widening), greedy twice (equal
-   answers) and once with the reference sampling defaults; int8-KV
-   attention launches = 12 x decode model calls, int8 matmul launches =
+   answers) and once with the reference sampling defaults; append-kernel
+   (int8 KV) launches = 12 x decode model calls and no other one-row
+   attention variant, int8 matmul launches =
    49 x model calls, all on the tensor-core route (48 dense and one
    unembedding a model call); tokens/s, mean TTFT, and a `torch.profiler` window
    (device busy share); then the paged engine in float32 with int8 weights,
@@ -52,10 +61,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    questions; tokens/s, mean TTFT, graph replays and host decisions per
    generated token, the final K and dead lanes, stalled tokens (0), prefix
    hits (the shared context spliced into all 7 later course slots),
-   launches by route counted through the replays (int8-KV attention = 12 x
-   decode model calls, int8 matmul = 49 x model calls, admission chunks
-   included, all on the tensor cores; each graph's kernel nodes equal its
-   counted launches at capture), and a `torch.profiler` window beside
+   launches by route counted through the replays (append-kernel attention
+   = 12 x decode model calls, int8 matmul = 49 x model calls, admission
+   chunks included, all on the tensor cores; each graph's kernel nodes
+   equal its counted launches at capture; each decode chunk graph holds
+   one programmatic edge an append launch and no torch append kernel,
+   while the admission graphs still hold theirs), and a `torch.profiler`
+   window beside
    phase 4b's, holding no more of the port's kernels than counted; then
    float32 (dense and int8 cache) greedy tokens of the
    deployment config equal to the sequential config's, prefix hits
@@ -370,6 +382,196 @@ def paged_attention_case(torch, attention, *, s, width, int8, s_alloc=384,
     return rec
 
 
+def append_attention_case(torch, attention, *, s, width, cache,
+                          h=12, hkv=12, dh=64, n_layers=12, s_alloc=None,
+                          lengths=None, seed=0):
+    """The paged decode step's one kernel, `decode_attention_append`:
+    `s` slots, a window of `width` slots of an `s_alloc`-slot cache
+    (`cache` "int8" with bf16 q, "bfloat16" or "float32"), per-row lengths
+    spread over [1, width] with a dead slot at the width (it writes slot
+    width - 1, as the engine's clamp makes it), q, k_new and v_new strided
+    views of one qkv row as the model passes them. Against its plain
+    version on copies of the same cache: the output row by row within
+    tolerance (`sweep_attention.window_error`: a query row's error over
+    its own largest output, since a long row averages down near 0.1
+    where a one-key row is a raw v row) and all four cache tensors
+    `torch.equal` afterwards (the new rows, their scales, nothing else
+    written). The same check must fail on a planted fault, the new key
+    left out of the fold: what the kernel would give then, computed by the
+    attend-only kernel over the long rows' (over half the longest) older
+    keys; `caught_by_call_max_check` says whether a limit scaled by the
+    call's largest output would have caught it too. Timed beside the
+    kernel it replaces alone (`decode_attention` over the cache), the
+    sequence it replaces in one CUDA graph (two `quantize_kv`, four row
+    writes, that kernel), the plain version and SDPA (over the dequantized
+    cache, untimed beforehand); the kernel launched as the model launches
+    it (`dependent=True`: the launch before it writes another layer); the
+    bound counts the append's bytes."""
+    import torch.nn.functional as F
+
+    from distributed_lms_raft_llm_tpu_torch.models.common import quantize_kv
+    from distributed_lms_raft_llm_tpu_torch.models.gpt2 import _write_rows
+    from distributed_lms_raft_llm_tpu_torch.ops.sweep_attention import (
+        WINDOW_ROW_TOLERANCE,
+        window_error,
+    )
+    from distributed_lms_raft_llm_tpu_torch.ops.timing import (
+        time_eager_us,
+        time_graph_us,
+    )
+
+    int8 = cache == "int8"
+    dtype = "bfloat16" if int8 else cache
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s_alloc = s_alloc or max(width, 384)
+    qkv = torch.randn((s, 1, (h + 2 * hkv) * dh), generator=gen,
+                      device=dev).to(dt)
+    q = qkv[..., :h * dh].reshape(s, 1, h, dh).transpose(1, 2)
+    k_new = qkv[..., h * dh:(h + hkv) * dh].reshape(
+        s, 1, hkv, dh).transpose(1, 2)
+    v_new = qkv[..., (h + hkv) * dh:].reshape(s, 1, hkv, dh).transpose(1, 2)
+    shape = (n_layers, s, hkv, s_alloc, dh)
+    kf = torch.randn(shape, generator=gen, device=dev)
+    vf = torch.randn(shape, generator=gen, device=dev)
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+    else:
+        k, v, ks, vs = kf.to(dt), vf.to(dt), None, None
+    del kf, vf
+    if lengths is None:
+        lengths = torch.randint(1, width + 1, (s,), generator=gen, device=dev)
+        lengths[0], lengths[-1] = 1, width
+    lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+
+    def window(x):
+        return None if x is None else x[..., :width, :] if x.dim() == 5 \
+            else x[..., :width]
+
+    def views(full):  # (k, v, ks, vs) windows of full tensors
+        return [window(x) for x in full]
+
+    full = [k, v, ks, vs]
+    ref_full = [None if x is None else x.clone() for x in full]
+    layer = 5
+    rk, rv, rks, rvs = views(ref_full)
+    want = attention.decode_attention_append_reference(
+        q, k_new, v_new, rk, rv, layer, None, lengths=lengths, k_scale=rks,
+        v_scale=rvs)
+    kw, vw, ksw, vsw = views(full)
+    got = attention.decode_attention_append(
+        q, k_new, v_new, kw, vw, layer, None, lengths=lengths, k_scale=ksw,
+        v_scale=vsw)
+    torch.cuda.synchronize()
+    what = (f"(s={s} width={width} cache={cache} h={h} hkv={hkv})")
+    rows = window_error(got, want, dtype)
+    check(rows["ok"], f"decode_attention_append disagrees with its plain "
+          f"version: a row's error is {rows['max_row_rel_err']} of its "
+          f"largest output > {WINDOW_ROW_TOLERANCE[dtype]} {what}")
+    same = [x is None or bool(torch.equal(x, y))
+            for x, y in zip(full, ref_full)]
+    check(all(same), f"decode_attention_append's cache (k, v, ks, vs) is "
+          f"not equal to its plain version's: {same} {what}")
+    del ref_full, rk, rv, rks, rvs
+    # The planted fault: the long rows' new keys left out of the fold. The
+    # older keys are the slots below lengths - 1, which the append left as
+    # they were.
+    long = (lengths > lengths.max() // 2).to(lengths.dtype)
+    dropped = window_error(attention.decode_attention(
+        q, kw, vw, layer, None, lengths=lengths - long,
+        k_scale=ksw, v_scale=vsw), want, dtype)
+    check(not dropped["ok"], f"decode_attention_append: the planted fault "
+          f"(the long rows' new key left out of the fold) passed the "
+          f"check {what}")
+    call_max = TOLERANCE[dtype] * max(1.0, want.float().abs().max().item())
+
+    keys = int(lengths.sum().item())  # keys attended; s of them new
+    es = torch.finfo(dt).bits // 8
+    kvb = 1 if int8 else es
+    n_bytes = (2 * hkv * (keys - s) * dh * kvb         # older K/V rows
+               + (2 * 4 * hkv * (keys - s) if int8 else 0)   # their scales
+               + 2 * s * hkv * dh * es                 # k_new, v_new in
+               + 2 * s * hkv * dh * kvb                # the new rows out
+               + (2 * 4 * s * hkv if int8 else 0)      # their scales out
+               + 2 * s * h * dh * es + 4 * s)          # q in, out; lengths
+    n_ops = 4 * h * keys * dh
+    t_bytes, t_ops = (n_bytes / H100_HBM_BYTES_PER_S,
+                      n_ops / PEAK_OPS_PER_S[dtype])
+    plan = attention.launch_plan(s, hkv, width, dh, k.dtype, group=h // hkv,
+                                 append=True)
+    rec = dict(slots=s, width=width, s_alloc=s_alloc, cache=cache,
+               int8=int8, dtype=dtype, h=h, hkv=hkv,
+               lengths_min=int(lengths.min().item()),
+               lengths_max=int(lengths.max().item()), keys=keys,
+               n_split=plan.n_split, split_keys=plan.split_keys,
+               tile_keys=plan.tile_keys, blocks=plan.blocks,
+               max_abs_err=rows["max_abs_err"],
+               max_row_rel_err=rows["max_row_rel_err"],
+               row_tolerance=WINDOW_ROW_TOLERANCE[dtype], cache_equal=True,
+               fault_new_key_dropped=dict(
+                   max_row_rel_err=dropped["max_row_rel_err"],
+                   caught_by_call_max_check=dropped["max_abs_err"]
+                   > call_max),
+               bound_us=max(t_bytes, t_ops) * 1e6,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    scales = dict(k_scale=ksw, v_scale=vsw) if int8 else {}
+
+    def kernel(i):
+        attention.decode_attention_append(
+            q, k_new, v_new, kw, vw, i % n_layers, None, lengths=lengths,
+            **scales, dependent=True)
+
+    def old_kernel(i):
+        attention.decode_attention(q, kw, vw, i % n_layers, None,
+                                   lengths=lengths, **scales)
+
+    batch_rows = torch.arange(s, device=dev)[:, None]
+    slots = (lengths.long() - 1)[:, None]
+
+    def old_sequence(i):  # models/gpt2.py's route before the append kernel
+        layer = i % n_layers
+        if int8:
+            (k_w, k_s), (v_w, v_s) = quantize_kv(k_new), quantize_kv(v_new)
+            news = [(kw, k_w), (vw, v_w), (ksw, k_s), (vsw, v_s)]
+        else:
+            news = [(kw, k_new), (vw, v_new)]
+        for buf, val in news:
+            _write_rows(buf, layer, batch_rows, slots, val.transpose(1, 2),
+                        None)
+        attention.decode_attention(q, kw, vw, layer, None, lengths=lengths,
+                                   **scales)
+
+    def plain(i):
+        attention.decode_attention_append_reference(
+            q, k_new, v_new, kw, vw, i % n_layers, None, lengths=lengths,
+            **scales)
+
+    library = None
+    if h == hkv:
+        kd = ((k.float() * ks[..., None]).to(dt) if int8 else k)[
+            :, :, :, :width]
+        vd = ((v.float() * vs[..., None]).to(dt) if int8 else v)[
+            :, :, :, :width]
+        mask = (torch.arange(width, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+
+        def library(i):  # over the dequantized cache (int8): a yardstick
+            F.scaled_dot_product_attention(q, kd[i % n_layers],
+                                           vd[i % n_layers], attn_mask=mask)
+
+    rec.update(kernel_us=time_graph_us(kernel),
+               kernel_eager_us=time_eager_us(kernel),
+               old_kernel_us=time_graph_us(old_kernel),
+               old_sequence_us=time_graph_us(old_sequence),
+               plain_us=time_graph_us(plain),
+               library_us=None if library is None else time_graph_us(library),
+               library_note="SDPA, boolean mask, no append" + (
+                   " over the cache dequantized beforehand (untimed)"
+                   if int8 else ""))
+    return rec
+
+
 # ------------------------------------------------- production path
 
 # A second wave of questions beside QUESTIONS: 24 requests in all.
@@ -664,12 +866,17 @@ def paged_f32_check(torch, attention, engine_cls, config_cls, sampling_cls,
         eng.drain()
         tokens[fused] = finished
         if fused:
-            variant = attention.INT8KV if kv_quant else attention.RAGGED
+            variant = (attention.APPEND_INT8KV if kv_quant
+                       else attention.APPEND)
             launches = attention.launch_counts[variant]
             steps = eng.decode_steps - steps0
-            check(steps > 0 and launches == eng.cfg.num_layers * steps,
+            others = {n: c for n, c in attention.launch_counts.items()
+                      if c and n != variant}
+            check(steps > 0 and launches == eng.cfg.num_layers * steps
+                  and not others,
                   f"f32 paged run (kv_quant={kv_quant}): {variant} "
-                  f"launches {launches} != {eng.cfg.num_layers} x {steps}")
+                  f"launches {launches} != {eng.cfg.num_layers} x {steps}, "
+                  f"or other variants ran: {others}")
         del eng
     check(tokens[True] == tokens[False] and len(tokens[True]) == len(prompts),
           f"float32 paged greedy tokens differ between the kernel and the "
@@ -1014,7 +1221,8 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
               f"streaming: resume of stream {i} at {k} is not the token "
               f"suffix under the same digest")
     check(decode_calls > 0
-          and launches[attention.INT8KV] == cfg.num_layers * decode_calls
+          and launches[attention.APPEND_INT8KV]
+          == cfg.num_layers * decode_calls
           and launches[quant_matmul.KERNEL] == 49 * model_calls
           and launches[quant_matmul.MMA_UNEMBED] == model_calls,
           f"streaming: kernel launches {launches} for {decode_calls} decode "
@@ -1238,6 +1446,17 @@ def flip_logits_witness(torch, eng, prompts, factor=2.0) -> dict:
     return rec
 
 
+# Kernel names of the torch append that the paged decode step ran before
+# the append kernel (models/gpt2.py `_write_rows`, `quantize_kv`'s round).
+TORCH_APPEND_KERNELS = ("index_put", "round_kernel")
+
+
+def torch_append_nodes(kernels: dict) -> int:
+    """A captured graph's kernel nodes (by name) of the torch append."""
+    return sum(n for name, n in kernels.items()
+               if any(k in name for k in TORCH_APPEND_KERNELS))
+
+
 def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
                      metrics_cls, config_cls, sampling_cls, prod,
                      profile_4b, drain_4b) -> tuple:
@@ -1269,13 +1488,32 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
 
     warm_s = eng.warmup()
     # Each graph's counted launches beside its kernel nodes by route (the
-    # capture raises where the two differ; recorded to show them).
+    # capture raises where the two differ; recorded to show them), its
+    # programmatic edges (the append kernel's launch attribute, kept under
+    # capture) and its torch append kernels (row writes, quantize_kv's
+    # rounding), which the decode chunk no longer runs.
     captured = {w: {kind: {"counted": routes_of_counts(
                                g.captured_launches()),
                            "graph_kernel_nodes": routes_of_names(g.kernels),
-                           "all_kernel_nodes": sum(g.kernels.values())}
+                           "all_kernel_nodes": sum(g.kernels.values()),
+                           "programmatic_edges": g.programmatic_edges,
+                           "torch_append_nodes": torch_append_nodes(
+                               g.kernels)}
                     for kind, g in zip(("decode", "admission"), pair)}
                 for w, pair in eng._graphs.items()}
+    for w, graphs in captured.items():
+        dec, adm = graphs["decode"], graphs["admission"]
+        appends = dec["counted"]["decode_attention_append"]
+        check(appends == cfg.num_layers * eng.chunk
+              and dec["programmatic_edges"] == appends
+              and dec["torch_append_nodes"] == 0
+              and adm["torch_append_nodes"] > 0,
+              f"deployment: width {w}'s decode chunk graph holds {appends} "
+              f"append kernels ({cfg.num_layers} x {eng.chunk} wanted), "
+              f"{dec['programmatic_edges']} programmatic edges and "
+              f"{dec['torch_append_nodes']} torch append kernels (the "
+              f"admission graph, which still appends in torch: "
+              f"{adm['torch_append_nodes']})")
     wave1, wave2 = deployment_waves()
     course = [eng.tokenizer.encode(p)
               for p in wave1[:1] + wave2[:len(COURSE_QUESTIONS) - 1]]
@@ -1316,9 +1554,10 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
     check(eng.prefill_calls == c0[2] and adm_calls > 0,
           "deployment: admission did not run inside the megasteps")
     check(decode_calls > 0
-          and launches[attention.INT8KV] == cfg.num_layers * decode_calls,
-          f"deployment: decode_attention_int8kv launches "
-          f"{launches[attention.INT8KV]} != {cfg.num_layers} x "
+          and launches[attention.APPEND_INT8KV]
+          == cfg.num_layers * decode_calls,
+          f"deployment: decode_attention_append_int8kv launches "
+          f"{launches[attention.APPEND_INT8KV]} != {cfg.num_layers} x "
           f"{decode_calls} decode model calls (counted through replays)")
     check(launches[quant_matmul.KERNEL] == 49 * model_calls
           and launches[quant_matmul.MMA] == 48 * model_calls
@@ -1326,8 +1565,11 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
           and launches[quant_matmul.FMA] == 0,
           f"deployment: int8 matmul launches {launches} != 49 x "
           f"{model_calls} model calls on the tensor cores")
-    check(launches[attention.KERNEL] == 0 and launches[attention.RAGGED] == 0,
-          "deployment: a float-cache attention variant ran")
+    check(all(launches[n] == 0 for n in (
+        attention.KERNEL, attention.RAGGED, attention.INT8KV,
+        attention.APPEND)),
+          "deployment: a one-row attention variant other than the int8 "
+          "append kernel ran")
     run = dict(
         wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
         ttft_mean_s=lat["ttft"]["mean_s"], ttft_p50_s=lat["ttft"]["p50_s"],
@@ -1989,7 +2231,9 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
           f"{launches[attention.WINDOW_INT8KV]} != 12 x {verify_calls} "
           f"verify model calls (counted through replays)")
     check(all(launches[n] == 0 for n in (attention.KERNEL, attention.RAGGED,
-                                         attention.INT8KV, attention.WINDOW)),
+                                         attention.INT8KV, attention.WINDOW,
+                                         attention.APPEND,
+                                         attention.APPEND_INT8KV)),
           f"spec deployment: another attention variant ran: {launches}")
     check(launches[quant_matmul.KERNEL] == 49 * model_calls
           and launches[quant_matmul.MMA] == 48 * model_calls
@@ -2261,6 +2505,24 @@ def main(argv=None) -> int:
     for case in paged_cases:
         emit("paged_attention_case", **case)
     records["paged_attention_cases"] = paged_cases
+    # The paged decode step's one kernel since the append was fused in,
+    # against its plain version (output and cache bytes) and beside what
+    # it replaces: 8 and 16 slots, widths 160, 384 and 1,024 (two splits),
+    # each with a dead slot at the width; float32; GQA (G = 4); two rows
+    # split four ways (the new rows in splits 0 and 1, splits 2-3 empty).
+    append_cases = []
+    for cache in ("int8", "bfloat16"):
+        for slots in (8, 16):
+            for width in (160, 384, 1024):
+                append_cases.append(dict(s=slots, width=width, cache=cache,
+                                         seed=slots + width))
+    append_cases += [dict(s=16, width=384, cache="float32", seed=5),
+                     dict(s=16, width=384, cache="int8", hkv=3, seed=6),
+                     dict(s=2, width=384, cache="int8", lengths=[1, 150])]
+    for i, case in enumerate(append_cases):
+        append_cases[i] = append_attention_case(torch, attention, **case)
+        emit("append_attention_case", **append_cases[i])
+    records["append_attention_cases"] = append_cases
     mm_cases = []
     for dtype in ("bfloat16", "float32"):
         for name in sweep_int8.INT8_PRODUCTS:
@@ -2444,13 +2706,13 @@ def main(argv=None) -> int:
                        for e, (d0, _) in zip(engines, calls0))
     model_calls = decode_calls + sum(e.prefill_calls - p0
                                      for e, (_, p0) in zip(engines, calls0))
-    int8kv_launches = attention.launch_counts[attention.INT8KV]
+    int8kv_launches = attention.launch_counts[attention.APPEND_INT8KV]
     mm_launches = quant_matmul.launch_counts[quant_matmul.KERNEL]
     mm_routes = {name: quant_matmul.launch_counts[name] for name in (
         quant_matmul.MMA, quant_matmul.MMA_UNEMBED, quant_matmul.FMA)}
     check(decode_calls > 0
           and int8kv_launches == pcfg.num_layers * decode_calls,
-          f"decode_attention_int8kv launches {int8kv_launches} != "
+          f"decode_attention_append_int8kv launches {int8kv_launches} != "
           f"{pcfg.num_layers} layers x {decode_calls} decode model calls")
     check(mm_launches == (4 * pcfg.num_layers + 1) * model_calls,
           f"int8_matmul launches {mm_launches} != 49 x {model_calls} model "
@@ -2460,9 +2722,11 @@ def main(argv=None) -> int:
                         quant_matmul.FMA: 0},
           f"bf16 int8 products did not all take the tensor-core kernels: "
           f"{mm_routes} for {model_calls} model calls")
-    check(attention.launch_counts[attention.KERNEL] == 0
-          and attention.launch_counts[attention.RAGGED] == 0,
-          "the int8-KV paged path launched a float-cache attention variant")
+    check(all(attention.launch_counts[n] == 0 for n in (
+        attention.KERNEL, attention.RAGGED, attention.INT8KV,
+        attention.APPEND)),
+          "the int8-KV paged path launched a one-row attention variant "
+          "other than the int8 append kernel")
     check(paged_runs["greedy_1"]["answers"] == paged_runs["greedy_2"]["answers"],
           "paged greedy answers changed between two runs")
     for name, run in paged_runs.items():
@@ -2541,10 +2805,15 @@ def main(argv=None) -> int:
     spec_launches = records["spec"]["deployment"]["launches"]
 
     records["seconds"] = time.monotonic() - t_start
-    def paged_case(int8):  # the production step's shape: 16 slots, width 384
+    def paged_case(int8, dtype="bfloat16"):  # 16 slots, width 384
         return next(c for c in paged_cases if c["int8"] == int8
                     and c["slots"] == 16 and c["width"] == 384
-                    and c["dtype"] == "bfloat16")
+                    and c["dtype"] == dtype)
+
+    def append_case(cache):  # the same shape through the append kernel
+        return next(c for c in append_cases if c["cache"] == cache
+                    and c["slots"] == 16 and c["width"] == 384
+                    and c["hkv"] == 12)
 
     def entry(name, replaces, launches, case, **extra):
         source = ("int8_matmul" if name.startswith("int8_matmul")
@@ -2571,16 +2840,31 @@ def main(argv=None) -> int:
     kernels = [
         entry("decode_attention", pallas, launches, main_case,
               n_split=main_case["n_split"]),
-        entry(attention.RAGGED, pallas + " (extended: per-row lengths, the "
-              "paged path's models/common.py:163 attend)", ragged_launches,
-              paged_case(False), library_note=paged_case(False)[
-                  "library_note"]),
-        entry(attention.INT8KV, pallas + " (extended: int8 cache, the "
-              "paged path's models/common.py:133 attend_quant)",
-              deploy_launches[attention.INT8KV], paged_case(True),
-              library_note=paged_case(True)["library_note"],
-              launches_by_path={"4b": int8kv_launches,
-                                "4c": deploy_launches[attention.INT8KV]}),
+        entry(attention.APPEND, pallas + " (extended: the paged step's "
+              "append and attend, distributed_lms_raft_llm_tpu/models/"
+              "gpt2.py:367-394 and models/common.py:163 attend)",
+              ragged_launches,
+              append_case("float32"),
+              library_note=append_case("float32")["library_note"],
+              old_kernel_ms=append_case("float32")["old_kernel_us"] / 1e3,
+              old_sequence_ms=append_case("float32")["old_sequence_us"]
+              / 1e3, replaced_variant=attention.RAGGED,
+              replaced_variant_ms=paged_case(False, "float32")["kernel_us"]
+              / 1e3, launches_path="4b's float32 paged check, dense cache "
+              "(the times: its float32 case)"),
+        entry(attention.APPEND_INT8KV, pallas + " (extended: the paged "
+              "step's quantize_kv append and attend over the int8 cache, "
+              "distributed_lms_raft_llm_tpu/models/common.py:121-131 and "
+              ":133 attend_quant, models/gpt2.py:367-394)",
+              deploy_launches[attention.APPEND_INT8KV], append_case("int8"),
+              library_note=append_case("int8")["library_note"],
+              old_kernel_ms=append_case("int8")["old_kernel_us"] / 1e3,
+              old_sequence_ms=append_case("int8")["old_sequence_us"] / 1e3,
+              replaced_variant=attention.INT8KV,
+              replaced_variant_ms=paged_case(True)["kernel_us"] / 1e3,
+              launches_by_path={
+                  "4b": int8kv_launches,
+                  "4c": deploy_launches[attention.APPEND_INT8KV]}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],

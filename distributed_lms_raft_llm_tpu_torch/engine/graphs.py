@@ -39,12 +39,14 @@ _COUNTERS: Tuple[Dict[str, int], ...] = (attention.launch_counts,
 
 # Each route's launch counters and the kernel functions that carry it, by
 # the names in `ops/csrc` (decode attention's three one-row variants are one
-# kernel; its two window variants run the tensor-core window kernel for bf16
-# q and the CUDA-core one for float32 q; a device name may be mangled around
-# them).
+# kernel; the paged decode step's append variants another; its two window
+# variants run the tensor-core window kernel for bf16 q and the CUDA-core
+# one for float32 q; a device name may be mangled around them).
 ROUTES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "decode_attention": ((attention.KERNEL, attention.RAGGED,
                           attention.INT8KV), ("decode_attention_kernel",)),
+    "decode_attention_append": ((attention.APPEND, attention.APPEND_INT8KV),
+                                ("decode_attention_append_kernel",)),
     "decode_attention_window": ((attention.WINDOW, attention.WINDOW_INT8KV),
                                 ("decode_attention_window_kernel",
                                  "decode_attention_window_mma_kernel")),
@@ -98,6 +100,8 @@ def _cu(name: str, *args) -> None:
         for fn, argtypes in (
                 ("cuGraphGetNodes", [ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.POINTER(ctypes.c_size_t)]),
+                ("cuGraphGetEdges_v2", [ctypes.c_void_p] * 4
+                 + [ctypes.POINTER(ctypes.c_size_t)]),
                 ("cuGraphNodeGetType", [ctypes.c_void_p,
                                         ctypes.POINTER(ctypes.c_int)]),
                 ("cuGraphKernelNodeGetParams_v2",
@@ -140,6 +144,30 @@ def kernel_nodes(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
     return out
 
 
+class _EdgeData(ctypes.Structure):
+    """CUgraphEdgeData of the driver API."""
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
+_PROGRAMMATIC = 1  # CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC
+
+
+def programmatic_edges(graph: torch.cuda.CUDAGraph) -> int:
+    """Edges of a captured graph (kept with `keep_graph=True`) of the
+    programmatic type: what a launch with programmatic stream
+    serialization became under capture (0 if capture dropped it)."""
+    handle = graph.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    _cu("cuGraphGetEdges_v2", handle, None, None, None, ctypes.byref(n))
+    src = (ctypes.c_void_p * n.value)()
+    dst = (ctypes.c_void_p * n.value)()
+    data = (_EdgeData * n.value)()
+    if n.value:
+        _cu("cuGraphGetEdges_v2", handle, src, dst, data, ctypes.byref(n))
+    return sum(1 for e in data[:n.value] if e.type == _PROGRAMMATIC)
+
+
 class ChunkGraph:
     """One captured chunk program and its static outputs.
 
@@ -178,6 +206,7 @@ class ChunkGraph:
         global captures
         captures += 1
         self.kernels = kernel_nodes(self.graph)
+        self.programmatic_edges = programmatic_edges(self.graph)
         counted = routes_of_counts(self.captured_launches())
         on_device = routes_of_names(self.kernels)
         if counted != on_device:

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -139,12 +139,33 @@ class KVCache:
         )
 
 
+_divisors: Dict[Tuple[float, str], torch.Tensor] = {}
+
+
+def _divisor(value: float, device: torch.device) -> torch.Tensor:
+    """A float32 0-d tensor of `value` on `device`, made once per device,
+    outside any CUDA graph capture (a capture would record the fill
+    without running it); captured graphs then read the same tensor."""
+    key = (value, str(device))
+    found = _divisors.get(key)
+    if found is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("quantize_kv runs eagerly once on a device "
+                               "before a CUDA graph captures it")
+        found = _divisors[key] = torch.full((), value, dtype=torch.float32,
+                                            device=device)
+    return found
+
+
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-(batch, head, slot) int8: [B, H, T, Dh] -> (int8 of the
     same shape, float32 [B, H, T] scales), in the JAX package's op order
     (so bit-equal to it: division, round half to even, clip)."""
     xf = x.float()
-    s = xf.abs().amax(dim=-1) / 127.0
+    # A tensor divisor, not the number 127: PyTorch's CUDA division by a
+    # Python number multiplies by its reciprocal, which can differ from
+    # the division in the last bit (the CPU and JAX divide).
+    s = xf.abs().amax(dim=-1) / _divisor(127.0, x.device)
     s = torch.clamp(s, min=1e-8)
     q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
     return q, s

@@ -18,8 +18,10 @@ PyTorch runs eagerly.
 - cached with T == 1 and ``cfg.fused_decode_attention``: attention runs
   through `ops.attention.decode_attention` (the CUDA kernel on the card,
   its plain version on the CPU), reading the layer from the stacked cache,
-  in every cache mode: scalar offset with the mask as a bias, ragged with
-  per-row lengths, float or int8 cache;
+  with the mask as a bias (scalar offset), float or int8 cache; with
+  per-row offsets and no ``cache.rows`` or ``write_mask`` (the paged
+  decode step) through `ops.attention.decode_attention_append` instead,
+  one kernel that also quantizes and writes the step's new row;
 - cached with per-row offsets, T > 1 and no ``cache.rows`` (the
   speculative verify window, T = k+1) and ``cfg.fused_decode_attention``:
   the kernel's window variant, row b's query t seeing the keys up to its
@@ -278,6 +280,10 @@ def forward(
             )
         fused = cfg.fused_decode_attention and rows_sel is None and (
             t == 1 or ragged)
+        # The paged decode step (one row a slot at its own offset): one
+        # kernel appends the new K/V row (quantized for an int8 cache) and
+        # attends; no torch quantize or index write runs on this route.
+        append = fused and ragged and t == 1 and write_mask is None
         # Layer-invariant kernel inputs, built once per step: the mask as a
         # bias (not needed where per-row lengths say it all; a window's
         # rows share the key-validity mask alone, their causal frontiers
@@ -294,7 +300,7 @@ def forward(
                 lengths = (cache.lengths + 1).to(torch.int32)
         ck, cv, cks, cvs = cache.k, cache.v, cache.ks, cache.vs
         rows = slots = keep = None
-        if ragged:
+        if ragged and not append:
             rows = (torch.arange(b, device=device) if rows_sel is None
                     else rows_sel)[:, None]
             slots = q_slots
@@ -307,6 +313,14 @@ def forward(
         for i in range(cfg.num_layers):
 
             def attend_fn(q, k_new, v_new, layer=i):
+                if append:  # q, k_new, v_new: strided views of qkv
+                    # A programmatic dependent of the qkv product just
+                    # before it, which writes none of lengths, the bias
+                    # and the older rows.
+                    return attention_ops.decode_attention_append(
+                        q, k_new, v_new, ck, cv, layer, bias,
+                        lengths=lengths, k_scale=cks, v_scale=cvs,
+                        dependent=True)
                 if quant_kv:
                     k_w, k_s = quantize_kv(k_new)
                     v_w, v_s = quantize_kv(v_new)

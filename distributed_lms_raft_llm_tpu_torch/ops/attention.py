@@ -19,10 +19,21 @@ tile, so K and V are read once; a float32 window (the exactness checks'
 type) on the CUDA cores in blocks of at most four rows. `window_rows` says
 how the window's rows are cut into blocks.
 
-`decode_attention` dispatches on where its tensors live: CPU tensors take
-`decode_attention_reference` (the plain PyTorch version, which the CPU
-tests hold against JAX); CUDA tensors launch the kernel or raise. There is
-no fallback from the card to the plain version.
+The paged engine's one-row decode step goes through
+`decode_attention_append`: one launch of `decode_attention_append_kernel`
+quantizes the step's new K/V row (`common.quantize_kv`, byte for byte; a
+float cache takes it as it is), writes it at slot `lengths[b] - 1` and
+attends over the row's `lengths[b]` keys, the new one from the block's
+shared memory. The model launches it as a programmatic dependent of its
+qkv product (`dependent=True`): its prologue (barriers, the copies of the
+older cache rows) runs under the end of that product, and it reads q and
+the new rows only after the product has ended.
+
+`decode_attention` and `decode_attention_append` dispatch on where their
+tensors live: CPU tensors take the plain PyTorch versions
+(`decode_attention_reference`, `decode_attention_append_reference`, which
+the CPU tests hold against JAX); CUDA tensors launch the kernel or raise.
+There is no fallback from the card to the plain version.
 """
 
 from __future__ import annotations
@@ -48,6 +59,10 @@ INT8KV = "decode_attention_int8kv"
 # A verify window (T > 1 query rows a batch row), float/bf16 or int8 cache.
 WINDOW = "decode_attention_window"
 WINDOW_INT8KV = "decode_attention_window_int8kv"
+# The paged one-row decode step with its KV append fused in, over a float
+# or bf16 cache and over an int8 cache (`decode_attention_append`).
+APPEND = "decode_attention_append"
+APPEND_INT8KV = "decode_attention_append_int8kv"
 MAX_GROUP = 8     # query rows a block holds, at most (csrc kMaxGroup)
 # A bf16 window on the tensor cores: its G * T query rows in m16 tiles of
 # WINDOW_ROWS rows (csrc kWindowRows), at most MAX_WINDOW_TILES a block
@@ -81,7 +96,8 @@ SMEM_LIMIT = 227 * 1024    # dynamic shared memory a block may use
 # launches captured into it (`engine/graphs.py`). A run resets them, drives
 # the main path, and reads them to show the path went through the kernel.
 launch_counts: Dict[str, int] = {KERNEL: 0, RAGGED: 0, INT8KV: 0,
-                                  WINDOW: 0, WINDOW_INT8KV: 0}
+                                  WINDOW: 0, WINDOW_INT8KV: 0, APPEND: 0,
+                                  APPEND_INT8KV: 0}
 
 
 def reset_launch_counts() -> None:
@@ -145,6 +161,33 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
         return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(q.dtype))
     probs = probs.to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v).to(q.dtype)
+
+
+def decode_attention_append_reference(
+        q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+        k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
+        bias: Optional[torch.Tensor] = None, *, lengths: torch.Tensor,
+        k_scale: Optional[torch.Tensor] = None,
+        v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the append kernel: the new rows k_new and
+    v_new [B, Hkv, 1, Dh] quantized by `common.quantize_kv` (an int8
+    cache; a float cache takes them cast to its type), written in place at
+    slot lengths[b] - 1 of row b of the indexed layer, with their scales
+    beside them, then `decode_attention_reference` over lengths[b] keys."""
+    from ..models.common import quantize_kv  # models import ops: not above
+
+    rows = torch.arange(q.shape[0], device=q.device)
+    slots = lengths.long() - 1
+    if k_scale is not None:
+        (k_w, k_s), (v_w, v_s) = quantize_kv(k_new), quantize_kv(v_new)
+        k_scale[layer, rows, :, slots] = k_s[:, :, 0]
+        v_scale[layer, rows, :, slots] = v_s[:, :, 0]
+    else:
+        k_w, v_w = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+    k_cache[layer, rows, :, slots] = k_w[:, :, 0]
+    v_cache[layer, rows, :, slots] = v_w[:, :, 0]
+    return decode_attention_reference(q, k_cache, v_cache, layer, bias,
+                                      lengths, k_scale, v_scale)
 
 
 def tensor_core_window(t: int, dtype: torch.dtype) -> bool:
@@ -221,6 +264,15 @@ def _smem_bytes(group: int, dh: int, tile: int, elem: int, stages: int,
         + 8 * stages * 2
 
 
+def _append_smem_bytes(group: int, dh: int, tile: int, elem: int,
+                       stages: int, n_split: int) -> int:
+    """The append kernel's (csrc `append_smem_bytes`): `_smem_bytes`,
+    rounded up to 16 bytes, then its new K and V rows, their two scales
+    and an mbarrier (16 bytes)."""
+    rest = _smem_bytes(group, dh, tile, elem, stages, n_split)
+    return -(-rest // 16) * 16 + 2 * dh * elem + 16
+
+
 def max_tile_keys(group: int, dh: int, elem: int) -> int:
     """Keys per tile, at most: 128 with one query head a KV head, else 64
     (csrc `max_tile`: a lane group keeps its rows' scores in registers),
@@ -230,7 +282,8 @@ def max_tile_keys(group: int, dh: int, elem: int) -> int:
 
 def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
                 group: int = 1, n_split: Optional[int] = None,
-                chunks: int = 1, tensor_cores: bool = False) -> LaunchPlan:
+                chunks: int = 1, tensor_cores: bool = False,
+                append: bool = False) -> LaunchPlan:
     """Pick the split of the keys, the tile and the shared memory.
 
     A cluster costs latency of its own, about a microsecond on an H100
@@ -255,7 +308,9 @@ def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
     its split is no shorter than WINDOW_MAX_SPLIT_KEYS while the launch
     has TARGET_BLOCKS blocks (16 slots x 12 heads at widths 384 and 640
     measured faster unsplit than in two splits on an H100: PERF.md,
-    `ops/sweep_attention.py --window`'s forced splits).
+    `ops/sweep_attention.py --window`'s forced splits). `append`: the
+    append kernel's block (one query row a batch row), cut as decode, with
+    its own shared-memory sum (`_append_smem_bytes`).
     """
     rows = b * hkv * chunks
     elem = dtype.itemsize
@@ -279,7 +334,8 @@ def launch_plan(b: int, hkv: int, s: int, dh: int, dtype: torch.dtype,
     stages = min(n_tiles, max(2, ring_bytes // (2 * tile * dh * elem)))
     smem = (_window_smem_bytes(group, dh, tile, elem, stages, n)
             if tensor_cores else
-            _smem_bytes(group, dh, tile, elem, stages, n))
+            _append_smem_bytes(group, dh, tile, elem, stages, n) if append
+            else _smem_bytes(group, dh, tile, elem, stages, n))
     return LaunchPlan(n_split=n, split_keys=split, tile_keys=tile,
                       stages=stages, smem_bytes=smem, blocks=rows * n)
 
@@ -379,12 +435,80 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                           v_scale)
 
 
+def _check_append_args(q: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, layer: int,
+                       bias: Optional[torch.Tensor],
+                       lengths: Optional[torch.Tensor],
+                       k_scale: Optional[torch.Tensor],
+                       v_scale: Optional[torch.Tensor]) -> None:
+    _check_args(q, k_cache, v_cache, layer, bias, lengths, k_scale, v_scale)
+    b, _, t, dh = q.shape
+    if t != 1 or lengths is None:
+        raise ValueError("decode_attention_append takes one query row a "
+                         f"batch row and per-row lengths; got q "
+                         f"{tuple(q.shape)}, lengths {lengths}")
+    want = (b, k_cache.shape[2], 1, dh)
+    for name, x in (("k_new", k_new), ("v_new", v_new)):
+        if tuple(x.shape) != want or x.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} {list(want)}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+
+
+def decode_attention_append(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, layer: int,
+                            bias: Optional[torch.Tensor] = None, *,
+                            lengths: torch.Tensor,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None,
+                            dependent: bool = False) -> torch.Tensor:
+    """The paged decode step's attention with its KV append: k_new and
+    v_new [B, Hkv, 1, Dh] (q's dtype; on the card any batch and head
+    strides with Dh contiguous, as views of the fused qkv projection) are
+    written at slot lengths[b] - 1 of row b of `layer` (an int8 cache:
+    quantized by `common.quantize_kv`, scales into k_scale/v_scale), in
+    place, then q [B, H, 1, Dh] attends over the first lengths[b] keys.
+    The other arguments and the result as `decode_attention`; lengths is
+    required, 1 <= lengths[b] <= S.
+
+    `dependent=True` launches the kernel on the card as a programmatic
+    dependent of the kernel before it on the stream, which may then still
+    be running while the prologue reads lengths, the bias and the cache
+    rows below lengths[b] - 1 (with their scales): the caller vouches that
+    that kernel writes none of them (q, k_new and v_new it may write).
+    `models/gpt2.py::forward` passes it: its qkv product comes just
+    before, lengths and the bias are built before the first layer, and
+    only this kernel writes decode rows. Other callers launch it plainly.
+    """
+    layer = operator.index(layer)
+    device = q.device
+    tensors = [t for t in (q, k_new, v_new, k_cache, v_cache, bias, lengths,
+                           k_scale, v_scale) if t is not None]
+    if any(t.device != device for t in tensors):
+        devices = {str(t.device) for t in tensors}
+        raise ValueError(f"decode_attention_append tensors on several "
+                         f"devices: {sorted(devices)}")
+    if device.type == "cpu":
+        _check_append_args(q, k_new, v_new, k_cache, v_cache, layer, bias,
+                           lengths, k_scale, v_scale)
+        return decode_attention_append_reference(
+            q, k_new, v_new, k_cache, v_cache, layer, bias, lengths=lengths,
+            k_scale=k_scale, v_scale=v_scale)
+    if device.type != "cuda":
+        raise ValueError(f"decode_attention_append runs on cuda or cpu, not "
+                         f"{device}")
+    return _launch_kernel(q, k_cache, v_cache, layer, bias, lengths, k_scale,
+                          v_scale, k_new=k_new, v_new=v_new,
+                          dependent=dependent)
+
+
 class _Args(ctypes.Structure):
     """The kernel's arguments for one layout (csrc DecodeAttentionArgs),
     built once and passed by address."""
 
-    _fields_ = [(name, ctypes.c_longlong) for name in ("q_sb", "q_sh",
-                                                       "q_sw")] + [
+    _fields_ = [(name, ctypes.c_longlong) for name in (
+        "q_sb", "q_sh", "q_sw", "kn_sb", "kn_sh")] + [
         (name, ctypes.c_int) for name in (
             "B", "H", "Hkv", "S", "S_alloc", "Dh", "W", "rows", "n_chunks",
             "n_split", "split_keys", "tile", "stages", "smem", "dtype",
@@ -414,10 +538,18 @@ def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, bias: Optional[torch.Tensor],
                    lengths: Optional[torch.Tensor] = None,
                    k_scale: Optional[torch.Tensor] = None,
-                   v_scale: Optional[torch.Tensor] = None) -> _Layout:
+                   v_scale: Optional[torch.Tensor] = None,
+                   k_new: Optional[torch.Tensor] = None,
+                   v_new: Optional[torch.Tensor] = None) -> _Layout:
     """Check what the kernel takes (everything but the layer index and the
-    pointers' alignment, which change per call); raise on anything else."""
-    _check_args(q, k_cache, v_cache, 0, bias, lengths, k_scale, v_scale)
+    pointers' alignment, which change per call); raise on anything else.
+    With k_new and v_new: the append kernel's layout."""
+    append = k_new is not None
+    if append:
+        _check_append_args(q, k_new, v_new, k_cache, v_cache, 0, bias,
+                           lengths, k_scale, v_scale)
+    else:
+        _check_args(q, k_cache, v_cache, 0, bias, lengths, k_scale, v_scale)
     b, h, t, dh = q.shape
     _, _, hkv, s, _ = k_cache.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -461,18 +593,30 @@ def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
             "k_scale/v_scale must be contiguous [L, B, Hkv, S_alloc] tensors "
             "(or views of such over their first S slots) beside the cache"
         )
+    kn_sb = kn_sh = 0
+    if append:
+        if k_new.stride() != v_new.stride() or k_new.stride(3) != 1:
+            raise ValueError(
+                "k_new and v_new must share their strides, with a contiguous "
+                f"head dim; got {k_new.stride()} and {v_new.stride()}")
+        kn_sb = k_new.stride(0) if b > 1 else 0
+        kn_sh = k_new.stride(1) if hkv > 1 else 0
     rows, chunks = window_rows(h // hkv, t, q.dtype)
     plan = launch_plan(b, hkv, s, dh, k_cache.dtype, group=rows,
                        chunks=chunks,
-                       tensor_cores=tensor_core_window(t, q.dtype))
+                       tensor_cores=tensor_core_window(t, q.dtype),
+                       append=append)
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"launch plan needs {plan.smem_bytes} bytes of "
                          f"shared memory, more than {SMEM_LIMIT}")
-    args = _Args(sb, sh, sw, b, h, hkv, s, s_alloc, dh, t, rows, chunks,
+    args = _Args(sb, sh, sw, kn_sb, kn_sh, b, h, hkv, s, s_alloc, dh, t,
+                 rows, chunks,
                  plan.n_split, plan.split_keys, plan.tile_keys, plan.stages,
                  plan.smem_bytes, _DTYPE_CODES[q.dtype],
                  _DTYPE_CODES[k_cache.dtype], 1.0 / math.sqrt(dh))
-    if t > 1:
+    if append:
+        variant = APPEND_INT8KV if quant else APPEND
+    elif t > 1:
         variant = WINDOW_INT8KV if quant else WINDOW
     else:
         variant = INT8KV if quant else (RAGGED if lengths is not None
@@ -486,19 +630,27 @@ def _launch_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                    bias: Optional[torch.Tensor],
                    lengths: Optional[torch.Tensor] = None,
                    k_scale: Optional[torch.Tensor] = None,
-                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Validate what the CUDA kernel takes, launch it, count the launch."""
+                   v_scale: Optional[torch.Tensor] = None, *,
+                   k_new: Optional[torch.Tensor] = None,
+                   v_new: Optional[torch.Tensor] = None,
+                   dependent: bool = False) -> torch.Tensor:
+    """Validate what the CUDA kernel takes, launch it, count the launch
+    (with k_new and v_new: the append kernel, a programmatic dependent
+    with `dependent`)."""
     key = (q.shape, q.stride(), q.dtype, k_cache.shape, k_cache.stride(),
            k_cache.dtype, v_cache.shape, v_cache.stride(), v_cache.dtype,
            None if bias is None else (bias.shape, bias.stride(), bias.dtype),
            None if lengths is None else (lengths.shape, lengths.stride(),
                                          lengths.dtype),
            None if k_scale is None else (k_scale.shape, k_scale.stride(),
-                                         v_scale.shape, v_scale.stride()))
+                                         v_scale.shape, v_scale.stride()),
+           None if k_new is None else (k_new.shape, k_new.stride(),
+                                       k_new.dtype, v_new.shape,
+                                       v_new.stride(), v_new.dtype))
     lay = _layouts.get(key)
     if lay is None:
         lay = _kernel_layout(q, k_cache, v_cache, bias, lengths, k_scale,
-                             v_scale)
+                             v_scale, k_new, v_new)
         if len(_layouts) >= _MAX_LAYOUTS:
             _layouts.clear()
         _layouts[key] = lay
@@ -510,13 +662,19 @@ def _launch_kernel(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("q, k_cache and v_cache must be 16-byte aligned "
                          "(the kernel reads 16-byte vectors)")
     out = q.new_empty(q.shape)  # contiguous, whatever q's strides
-    launch, stream = _entry_point()
-    err = launch(lay.address, qp, kp, vp,
-                 None if k_scale is None else k_scale.data_ptr(),
-                 None if v_scale is None else v_scale.data_ptr(),
-                 None if bias is None else bias.data_ptr(),
-                 None if lengths is None else lengths.data_ptr(),
-                 out.data_ptr(), layer, stream(q.get_device()))
+    scales = (None if k_scale is None else k_scale.data_ptr(),
+              None if v_scale is None else v_scale.data_ptr(),
+              None if bias is None else bias.data_ptr(),
+              None if lengths is None else lengths.data_ptr())
+    if k_new is None:
+        launch, stream = _entry_point()
+        err = launch(lay.address, qp, kp, vp, *scales, out.data_ptr(),
+                     layer, stream(q.get_device()))
+    else:
+        launch, stream = _append_entry_point()
+        err = launch(lay.address, qp, k_new.data_ptr(), v_new.data_ptr(),
+                     kp, vp, *scales, out.data_ptr(), layer, int(dependent),
+                     stream(q.get_device()))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -548,6 +706,8 @@ def _scale_stride(scale: torch.Tensor) -> int | None:
 
 
 _bound: Optional[Tuple[Callable[..., int], Callable[[int], int]]] = None
+_append_bound: Optional[Tuple[Callable[..., int],
+                              Callable[[int], int]]] = None
 
 
 def _entry_point() -> Tuple[Callable[..., int], Callable[[int], int]]:
@@ -562,3 +722,16 @@ def _entry_point() -> Tuple[Callable[..., int], Callable[[int], int]]:
         # a torch.cuda.Stream object per call.
         _bound = (fn, torch._C._cuda_getCurrentRawStream)
     return _bound
+
+
+def _append_entry_point() -> Tuple[Callable[..., int], Callable[[int], int]]:
+    """The append kernel's C launch function, bound once (built first if
+    needed), and the current raw stream handle by device index."""
+    global _append_bound
+    if _append_bound is None:
+        fn = build.load(KERNEL).decode_attention_append_launch
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _append_bound = (fn, torch._C._cuda_getCurrentRawStream)
+    return _append_bound

@@ -164,6 +164,45 @@
 // ceil(G * W / n_chunks) rows, grid (n_split, Hkv * n_chunks, B), each
 // reading K and V again (ops/attention.py::window_rows).
 //
+// The paged engine's one-row decode step: decode_attention_append_kernel
+// (the same CUDA-core body, kAppend). Before it, a step ran ~20 launches a
+// layer in front of the attention kernel: quantize_kv on the new K and V
+// rows (about 9 elementwise kernels each) and four index writes into k, v,
+// ks and vs (models/gpt2.py), all for one 64-element row a (slot, head),
+// and the attention kernel started only when the last of them had ended.
+// One launch a layer now does all of it:
+//  - the block whose split holds slot nr = lengths[b] - 1 (one a batch row
+//    and KV head) reads k_new and v_new in place (strided views of the
+//    fused qkv projection, like q); warp 0 quantizes the K row, warp 1 the
+//    V row, exactly as quantize_kv (append_row: float32 amax, s = amax /
+//    127 by IEEE division, max(s, 1e-8), rint(x / s) clipped to +-127; a
+//    float cache takes the row as it is), writes it and its scale at slot
+//    nr of the cache, and stages the same bytes in shared memory; the
+//    block attends over the older keys (tiles stop before nr) and folds the
+//    new key in from shared memory after the key loop (an mbarrier says the
+//    rows are staged, so no other warp waits for warps 0 and 1). The cache
+//    afterwards is byte for byte what quantize_kv and the index writes made.
+//  - The model launches it as a programmatic dependent of its qkv product
+//    (whose dense int8 kernels trigger their dependents at their start;
+//    another caller launches it plainly unless it asks): before
+//    griddepcontrol.wait a block reads lengths, initialises its barriers,
+//    issues the bulk copies of the older rows and reads their scales;
+//    invariant: all of that was written by kernels that ended before the
+//    previous kernel began (lengths and the bias before the first layer,
+//    older rows by earlier steps), and no other kernel of the port is
+//    launched with the attribute. q, k_new and v_new are read after it.
+//  - Blocks take batch rows longest first (row_of_rank; the grid stays
+//    fixed, so graph replays hold), so the blocks an SM holds alone carry
+//    the long rows and those that share an SM the short ones.
+//  - An int8 byte becomes a float by a byte permute and an add (Vec<int8_t>)
+//    instead of the conversion unit, which issues a quarter as many a
+//    clock: the int8 key loop was bound by those conversions.
+// Measured with ops/probe_decode.py (PERF.md): 256 threads a block beat
+// 128 (the key loop's rows per lane group double); staging the split's
+// scales in shared memory before the wait bought nothing once the
+// conversions were cheap, and cost registers and shared memory, so the
+// tiles' scales are read a tile ahead as in decode.
+//
 // Reading shared memory: the 8 lanes of a group read a K or V row as
 // vectors (16 bytes of a float or bf16 row, 8 bytes of an int8 row: a warp
 // reads 4 whole rows, no bank conflicts); a 3-step shuffle sums their
@@ -186,6 +225,7 @@ namespace cg = cooperative_groups;
 // C entry point that takes it keeps external linkage.
 struct DecodeAttentionArgs {
   long long q_sb, q_sh, q_sw;  // q's batch, head and window strides
+  long long kn_sb, kn_sh;      // k_new's and v_new's (append kernel only)
   int B, H, Hkv, S, S_alloc, Dh;
   int W;         // query rows a batch row (1, or a verify window)
   int rows;      // query rows a block: G; a float32 window's
@@ -246,14 +286,22 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// int8 to float without the conversion unit (16 results a clock an SM on
+// Hopper, against 64 byte permutes and 128 adds): byte i, its sign bit
+// flipped (x + 128 as an unsigned byte), becomes the low byte of the float
+// 2^23 + (x + 128), exactly; subtracting 2^23 + 128 leaves x, exactly.
 template <>
 struct Vec<int8_t> {
   static constexpr int kN = 8;
   __device__ __forceinline__ static void load(const int8_t* p, float* out) {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+    const uint32_t w[2] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(b[i]);
+    for (int i = 0; i < 8; ++i) {
+      out[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u,
+                                           0x7540u + (i % 4))) -
+               8388736.f;
+    }
   }
 };
 
@@ -292,6 +340,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
           smem_addr(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// One arrival (release: this thread's earlier writes are visible to a
+// thread whose wait sees the phase complete).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // Waits until the barrier's phase of the given parity has completed.
@@ -334,6 +390,13 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// Programmatic dependent launch: waits until the grids this one depends
+// on have completed and their writes are visible (a no-op for a kernel
+// not launched as a programmatic dependent).
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------ the layout
 
 // Keys per tile, at most: a lane group holds its rows' scores of a tile
@@ -348,6 +411,8 @@ __host__ __device__ constexpr int max_tile(int G) { return G == 1 ? 128 : 64; }
 //   parts            n_split > 1 only, read on rank 0: o [n_split][G][Dh],
 //                    m [n_split][G], l [n_split][G] f32
 //   barriers         [stages][2] u64 (K, V)
+// The append kernel adds its new K and V rows at the end
+// (append_smem_bytes).
 __host__ __device__ inline size_t region0_bytes(int G, int Dh, int tile,
                                                 int elem, int stages) {
   const size_t ring = (size_t)stages * 2 * tile * Dh * elem;
@@ -363,6 +428,20 @@ __host__ __device__ inline size_t smem_bytes(int G, int Dh, int tile,
   return region0_bytes(G, Dh, tile, elem, stages) +
          sizeof(float) * (2 * kWarps * kMaxGroup + parts) +
          sizeof(uint64_t) * stages * 2;
+}
+
+// The append kernel's own, after the rest rounded up to 16 bytes: the new
+// rows K [Dh] KV and V [Dh] KV, then their scales ks, vs f32 and the
+// mbarrier that says both rows are staged (16 bytes).
+__host__ __device__ inline size_t append_offset(size_t rest) {
+  return (rest + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t append_smem_bytes(int G, int Dh, int tile,
+                                                    int elem, int stages,
+                                                    int n_split) {
+  return append_offset(smem_bytes(G, Dh, tile, elem, stages, n_split)) +
+         (size_t)2 * Dh * elem + 16;
 }
 
 // Merges softmax state (m, l, o) with another's: both rescaled to the
@@ -885,9 +964,101 @@ struct RowMap {
   }
 };
 
-// The body of both kernels. kWindow: the rows have their own frontiers
-// (lengths[b] + w); otherwise every row of the block sees the same keys.
-template <typename T, typename KV, int kDh, int kG, bool kWindow>
+// The append kernel's new rows: k_new and v_new [B, Hkv, 1, Dh] in q's
+// type (strided, Dh contiguous), and where they go: the cache and its
+// scales again, as writable pointers (only row lengths[b] - 1 of them is
+// written, and no pointer of the const cache arguments reads that row).
+template <typename T, typename KV>
+struct AppendRows {
+  const T* k_new;
+  const T* v_new;
+  long long sb, sh;  // k_new's and v_new's batch and head strides
+  KV* k;
+  KV* v;
+  float* ks;
+  float* vs;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// One new row of the append kernel, by one warp: the int8 cache takes
+// quantize_kv's row (models/common.py), the float cache a plain copy; the
+// row goes to slot `dst` of the cache (and its scale beside it) and to
+// `row_s` in shared memory, the bytes the block attends to.
+template <typename T, typename KV, int kDh>
+__device__ __forceinline__ void append_row(const T* __restrict__ src,
+                                           KV* dst, float* dst_scale,
+                                           KV* row_s, float* scale_s,
+                                           int lane) {
+  if constexpr (sizeof(KV) == 1) {
+    // quantize_kv, in its order: amax of |x| in float32, s = amax / 127 by
+    // IEEE division, s = max(s, 1e-8), q = clip(rint(x / s), -127, 127)
+    // (rint rounds half to even, as jnp.round).
+    constexpr int kPer = kDh / 32;
+    static_assert(kDh % 32 == 0, "an int8 row is 64 or 128 wide");
+    float x[kPer];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      x[i] = to_float(src[lane + 32 * i]);
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    }
+    const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const float r = fminf(fmaxf(rintf(__fdiv_rn(x[i], s)), -127.f), 127.f);
+      const KV v = static_cast<KV>(static_cast<int>(r));
+      dst[lane + 32 * i] = v;
+      row_s[lane + 32 * i] = v;
+    }
+    if (lane == 0) {
+      *dst_scale = s;
+      *scale_s = s;
+    }
+  } else {
+    static_assert(sizeof(KV) == sizeof(T), "a float cache is in q's type");
+    for (int d = lane; d < kDh; d += 32) {
+      const KV v = src[d];
+      dst[d] = v;
+      row_s[d] = v;
+    }
+  }
+}
+
+// The batch row whose length ranks `rank` in descending order (ties by
+// index). Every thread ranks rows t, t + kThreads, .. by the lengths
+// (read once each); the row that ranks `rank` publishes itself. Contains a
+// block barrier, so every thread calls it.
+__device__ __forceinline__ int row_of_rank(const int* __restrict__ lengths,
+                                           int B, int rank) {
+  __shared__ int found;
+  for (int t = threadIdx.x; t < B; t += kThreads) {
+    const int lt = lengths[t];
+    int r = 0;
+    for (int u = 0; u < B; ++u) {
+      const int lu = lengths[u];
+      r += lu > lt || (lu == lt && u < t);
+    }
+    if (r == rank) found = t;
+  }
+  __syncthreads();
+  return found;
+}
+
+// The body of the three CUDA-core kernels. kWindow: the rows have their
+// own frontiers (lengths[b] + w); otherwise every row of the block sees
+// the same keys. kAppend: the step's new K/V row is quantized, written at
+// slot lengths[b] - 1 and attended from shared memory (the note at the
+// top).
+template <typename T, typename KV, int kDh, int kG, bool kWindow,
+          bool kAppend = false>
 __device__ __forceinline__ void attend_rows(
     const T* __restrict__ q, long long q_sb, long long q_sh, long long q_sw,
     const KV* __restrict__ k_cache, const KV* __restrict__ v_cache,
@@ -895,7 +1066,7 @@ __device__ __forceinline__ void attend_rows(
     const float* __restrict__ bias, const int* __restrict__ lengths,
     T* __restrict__ out, int B, int H, int Hkv, int S, int S_alloc, int W,
     int rows, int n_chunks, int layer, int split_keys, int tile, int stages,
-    float scale) {
+    float scale, AppendRows<T, KV> app = {}) {
   constexpr bool kQuant = sizeof(KV) == 1;   // int8 K/V with scales
   constexpr int kN = Vec<KV>::kN;            // elements per K/V vector
   constexpr int kChunks = kDh / kN;          // vectors per row
@@ -907,12 +1078,23 @@ __device__ __forceinline__ void attend_rows(
   static_assert(kDh % kN == 0 && kChunks <= 32 && 32 % kChunks == 0,
                 "head dim must be a power of two from 8 to 128");
   static_assert(kG >= 1 && kG <= kMaxGroup, "group bound");
+  static_assert(!(kAppend && kWindow), "one new row a batch row");
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int split = blockIdx.x;  // == rank in the cluster
   const int n_split = gridDim.x;
   const int g = blockIdx.y / n_chunks;  // KV head
-  const int b = blockIdx.z;             // batch row
+  // The batch row: blockIdx.z, or for the append kernel the row of that
+  // rank by length, longest first (ties by index), so that the blocks the
+  // card dispatches first, one an SM, hold the longest rows and the ones
+  // that share an SM the shortest. The grid stays fixed.
+  const int b = [&] {
+    if constexpr (kAppend) {
+      return row_of_rank(lengths, B, blockIdx.z);
+    } else {
+      return (int)blockIdx.z;
+    }
+  }();
   const int G = H / Hkv;
   const RowMap map{(int)blockIdx.y % n_chunks, rows,
                    min(rows, G * W - ((int)blockIdx.y % n_chunks) * rows),
@@ -935,12 +1117,20 @@ __device__ __forceinline__ void attend_rows(
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       p_l + (n_split > 1 ? n_split * R : 0));
   // bars[2 * stage] K, bars[2 * stage + 1] V
+  // The append kernel's new K and V rows, then their scales.
+  KV* new_kv = reinterpret_cast<KV*>(
+      smem + append_offset(static_cast<size_t>(
+                 reinterpret_cast<unsigned char*>(bars + 2 * stages) - smem)));
+  float* new_sc = reinterpret_cast<float*>(new_kv + 2 * kDh);
+  uint64_t* new_bar = reinterpret_cast<uint64_t*>(new_sc + 2);
 
   if (n_split > 1) cluster_arrive_relaxed();  // "this block is running"
 
   // This row's keys: all S, or the first lengths[b] of them; a window row
-  // w sees w more. A split that starts past them walks no tile.
+  // w sees w more. A split that starts past them walks no tile. The append
+  // kernel's last key, slot nr, is the new row: its tiles stop before it.
   const int s_row = lengths != nullptr ? min(max(lengths[b], 0), S) : S;
+  [[maybe_unused]] const int nr = max(s_row, 1) - 1;
   const long long slot0 =
       (((long long)layer * B + b) * Hkv + g) * (long long)S_alloc;
   const int start = split * split_keys;
@@ -955,8 +1145,13 @@ __device__ __forceinline__ void attend_rows(
       s_max = max(s_max, lim);
     }
   }
-  const int n_keys = max(min(s_max, start + split_keys) - start, 0);
+  const int n_keys =
+      max(min(kAppend ? nr : s_max, start + split_keys) - start, 0);
   const int n_tiles = (n_keys + tile - 1) / tile;
+  // Whether this block's split holds the new row (one block a batch row
+  // and KV head does).
+  [[maybe_unused]] const bool holds_new =
+      kAppend && nr >= start && nr < start + split_keys;
   const KV* K = k_cache + (slot0 + start) * kDh;
   const KV* V = v_cache + (slot0 + start) * kDh;
   const float* bias_row =
@@ -979,6 +1174,7 @@ __device__ __forceinline__ void attend_rows(
 
   if (tid == 0) {
     for (int i = 0; i < 2 * stages; ++i) mbar_init(&bars[i], 1);
+    if (kAppend) mbar_init(new_bar, 2);  // warps 0 and 1, one row each
     mbar_init_fence();
     for (int t = 0; t < stages && t < n_tiles; ++t) stage_tile(t);
   }
@@ -1003,6 +1199,17 @@ __device__ __forceinline__ void attend_rows(
   };
   float bs[kRows], kss[kRows], vss[kRows];
   row_params(0, bs, kss, vss);
+  if constexpr (kAppend) {
+    // The barriers are published before the wait, and only the new row's
+    // fold, after the key loop, waits for the new rows (new_bar): the
+    // other warps do not wait for warps 0 and 1 to stage them.
+    __syncthreads();
+    // Programmatic dependent launch: everything above reads only what
+    // kernels that ended before the previous kernel began wrote (lengths,
+    // the bias, cache rows below the new one and their scales); q, k_new
+    // and v_new are the previous kernel's output.
+    griddep_wait();
+  }
 
   // This lane's slice of the block's query rows (heads g*G .. g*G+G-1,
   // window positions 0 .. W-1): vectors lr, lr + kLpr, .. of each row, the
@@ -1020,7 +1227,25 @@ __device__ __forceinline__ void attend_rows(
       }
     }
   }
-  __syncthreads();  // the barriers are initialised
+  if constexpr (kAppend) {  // warp 0 the new K row, warp 1 the new V row
+    if (holds_new && warp < 2) {
+      const long long src = (long long)b * app.sb + (long long)g * app.sh;
+      const long long dst = slot0 + nr;
+      if (warp == 0) {
+        append_row<T, KV, kDh>(app.k_new + src, app.k + dst * kDh,
+                               kQuant ? app.ks + dst : nullptr, new_kv,
+                               new_sc, lane);
+      } else {
+        append_row<T, KV, kDh>(app.v_new + src, app.v + dst * kDh,
+                               kQuant ? app.vs + dst : nullptr,
+                               new_kv + kDh, new_sc + 1, lane);
+      }
+      __syncwarp();  // the warp's shared-memory writes, then its arrival
+      if (lane == 0) mbar_arrive(new_bar);
+    }
+  } else {
+    __syncthreads();  // the barriers are initialised
+  }
 
   // Online softmax state of this lane group, per query row; o is this
   // lane's slice of it.
@@ -1138,6 +1363,50 @@ __device__ __forceinline__ void attend_rows(
       bs[i] = bs_next[i];
       kss[i] = kss_next[i];
       vss[i] = vss_next[i];
+    }
+  }
+
+  // The new row, from shared memory (the bytes this block wrote to the
+  // cache): every lane group scores it (the shuffle needs whole warps),
+  // one group folds it into its state.
+  if constexpr (kAppend) {
+    if (holds_new) {
+      mbar_wait(new_bar, 0);
+      float kf[kE], vf[kE];
+#pragma unroll
+      for (int v = 0; v < kVpl; ++v) {
+        Vec<KV>::load(new_kv + (lr + kLpr * v) * kN, kf + v * kN);
+        Vec<KV>::load(new_kv + kDh + (lr + kLpr * v) * kN, vf + v * kN);
+      }
+      const float ksc = kQuant ? new_sc[0] : 1.f;
+      const float vsc = kQuant ? new_sc[1] : 1.f;
+      const float bsn = bias_row != nullptr ? bias_row[nr - start] : 0.f;
+      const bool folds = grp == n_keys % kGroups;
+#pragma unroll
+      for (int j = 0; j < kG; ++j) {
+        float dot = 0.f;
+        if (j < map.n_rows) {
+#pragma unroll
+          for (int e = 0; e < kE; ++e) dot += qr[j][e] * kf[e];
+        }
+#pragma unroll
+        for (int o = 1; o < kLpr; o <<= 1) {
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        }
+        if (folds && j < map.n_rows) {
+          const float sc = dot * ksc * scale + bsn;
+          const float m_new = fmaxf(m[j], sc);
+          const float alpha = expf(m[j] - m_new);
+          const float p = expf(sc - m_new);
+          m[j] = m_new;
+          l[j] = l[j] * alpha + p;
+          const float pv = p * vsc;
+#pragma unroll
+          for (int e = 0; e < kE; ++e) {
+            acc[j][e] = acc[j][e] * alpha + pv * vf[e];
+          }
+        }
+      }
     }
   }
 
@@ -1270,9 +1539,19 @@ __global__ void __launch_bounds__(kThreads)
   attend_rows<T, KV, kDh, kG, true>(DECODE_ATTENTION_ARGS);
 }
 
-// The three kernels: decode, the float32 window, the bf16 window on the
-// tensor cores (T = bf16, kG unused).
-enum Kind { kDecode, kWindowF32, kWindowMma };
+// The paged engine's one-row decode step: append the step's K/V row and
+// attend (the note at the top), a programmatic dependent where the caller
+// asks.
+template <typename T, typename KV, int kDh, int kG>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_append_kernel(DECODE_ATTENTION_PARAMS,
+                                   AppendRows<T, KV> app) {
+  attend_rows<T, KV, kDh, kG, false, true>(DECODE_ATTENTION_ARGS, app);
+}
+
+// The four kernels: decode, the float32 window, the bf16 window on the
+// tensor cores (T = bf16, kG unused), and the append kernel.
+enum Kind { kDecode, kWindowF32, kWindowMma, kAppendDecode };
 
 template <typename T, typename KV, int kDh, int kG, Kind kKind>
 constexpr auto kernel_of() {
@@ -1280,21 +1559,28 @@ constexpr auto kernel_of() {
     return decode_attention_window_mma_kernel<KV, kDh>;
   } else if constexpr (kKind == kWindowF32) {
     return decode_attention_window_kernel<T, KV, kDh, kG>;
+  } else if constexpr (kKind == kAppendDecode) {
+    return decode_attention_append_kernel<T, KV, kDh, kG>;
   } else {
     return decode_attention_kernel<T, KV, kDh, kG>;
   }
 }
 
-// The launch's pointers, as the C entry point received them.
+// The launch's pointers, as the C entry points received them (k_new and
+// v_new for the append kernel only, which also writes k, v, ks and vs),
+// and whether the append kernel is launched as a programmatic dependent.
 struct Ptrs {
   const void *q, *k, *v, *ks, *vs, *bias, *lengths;
   void* out;
+  const void *k_new, *v_new;
+  bool dependent;
 };
 
 template <typename T, typename KV, int kDh, int kG, Kind kKind>
 int launch(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
            cudaStream_t stream) {
   auto kernel = kernel_of<T, KV, kDh, kG, kKind>();
+  constexpr bool kAppend = kKind == kAppendDecode;
   // Raise the dynamic shared-memory ceiling once per instantiation and
   // size, not on every call.
   static int configured = 48 * 1024;
@@ -1309,32 +1595,67 @@ int launch(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = (size_t)a.smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.n_split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
+  int n_attr = 0;
+  if (a.n_split > 1) {
+    attr[n_attr].id = cudaLaunchAttributeClusterDimension;
+    attr[n_attr].val.clusterDim.x = a.n_split;
+    attr[n_attr].val.clusterDim.y = 1;
+    attr[n_attr].val.clusterDim.z = 1;
+    ++n_attr;
+  }
+  if (kAppend && p.dependent) {
+    // The append kernel may start before the previous kernel on the stream
+    // has ended; it waits for it (griddepcontrol.wait) before it reads q,
+    // k_new and v_new. Invariant, which the caller that asks for this
+    // vouches for: what it reads before that wait was written by kernels
+    // that ended before the previous kernel began. No other kernel of the
+    // port is launched with this attribute.
+    attr[n_attr].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n_attr].val.programmaticStreamSerializationAllowed = 1;
+    ++n_attr;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = a.n_split > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(p.q), a.q_sb, a.q_sh, a.q_sw,
-      static_cast<const KV*>(p.k), static_cast<const KV*>(p.v),
-      static_cast<const float*>(p.ks), static_cast<const float*>(p.vs),
-      static_cast<const float*>(p.bias), static_cast<const int*>(p.lengths),
-      static_cast<T*>(p.out), a.B, a.H, a.Hkv, a.S, a.S_alloc, a.W, a.rows,
-      a.n_chunks, layer, a.split_keys, a.tile, a.stages, a.scale);
+  cfg.numAttrs = n_attr;
+  cudaError_t err;
+  if constexpr (kAppend) {
+    const AppendRows<T, KV> app{
+        static_cast<const T*>(p.k_new), static_cast<const T*>(p.v_new),
+        a.kn_sb, a.kn_sh,
+        static_cast<KV*>(const_cast<void*>(p.k)),
+        static_cast<KV*>(const_cast<void*>(p.v)),
+        static_cast<float*>(const_cast<void*>(p.ks)),
+        static_cast<float*>(const_cast<void*>(p.vs))};
+    err = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const T*>(p.q), a.q_sb, a.q_sh, a.q_sw,
+        static_cast<const KV*>(p.k), static_cast<const KV*>(p.v),
+        static_cast<const float*>(p.ks), static_cast<const float*>(p.vs),
+        static_cast<const float*>(p.bias),
+        static_cast<const int*>(p.lengths), static_cast<T*>(p.out), a.B,
+        a.H, a.Hkv, a.S, a.S_alloc, a.W, a.rows, a.n_chunks, layer,
+        a.split_keys, a.tile, a.stages, a.scale, app);
+  } else {
+    err = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const T*>(p.q), a.q_sb, a.q_sh, a.q_sw,
+        static_cast<const KV*>(p.k), static_cast<const KV*>(p.v),
+        static_cast<const float*>(p.ks), static_cast<const float*>(p.vs),
+        static_cast<const float*>(p.bias),
+        static_cast<const int*>(p.lengths), static_cast<T*>(p.out), a.B,
+        a.H, a.Hkv, a.S, a.S_alloc, a.W, a.rows, a.n_chunks, layer,
+        a.split_keys, a.tile, a.stages, a.scale);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // The rows a block holds are a template bound (1, 4 or 8 heads for decode;
 // 4 rows for a float32 window), so the per-row arrays live in registers.
-template <typename T, typename KV, int kDh>
+template <typename T, typename KV, int kDh, Kind kKind = kDecode>
 int launch_decode(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
                   cudaStream_t stream) {
-  if (a.rows == 1) return launch<T, KV, kDh, 1, kDecode>(a, p, layer, stream);
-  if (a.rows <= 4) return launch<T, KV, kDh, 4, kDecode>(a, p, layer, stream);
-  return launch<T, KV, kDh, kMaxGroup, kDecode>(a, p, layer, stream);
+  if (a.rows == 1) return launch<T, KV, kDh, 1, kKind>(a, p, layer, stream);
+  if (a.rows <= 4) return launch<T, KV, kDh, 4, kKind>(a, p, layer, stream);
+  return launch<T, KV, kDh, kMaxGroup, kKind>(a, p, layer, stream);
 }
 
 // A window: bf16 q on the tensor cores, float32 q on the CUDA cores.
@@ -1352,10 +1673,40 @@ int launch_window(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
 // Head dims: 8-128 for a float or bf16 cache; 64 and 128 (GPT-2 small and
 // the larger models) for an int8 cache, whose 8-byte row vectors need Dh
 // >= 64 for a 16-byte multiple a row at any tile length. A window takes 64
-// and 128 in every cache mode.
+// and 128 in every cache mode. The append kernel takes the head dims of
+// decode.
+template <typename T, typename KV, Kind kKind>
+int launch_one_row(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
+                   cudaStream_t stream) {
+  switch (a.Dh) {
+    case 64:
+      return launch_decode<T, KV, 64, kKind>(a, p, layer, stream);
+    case 128:
+      return launch_decode<T, KV, 128, kKind>(a, p, layer, stream);
+    default:
+      break;
+  }
+  if constexpr (sizeof(KV) != 1) {
+    switch (a.Dh) {
+      case 8:
+        return launch_decode<T, KV, 8, kKind>(a, p, layer, stream);
+      case 16:
+        return launch_decode<T, KV, 16, kKind>(a, p, layer, stream);
+      case 32:
+        return launch_decode<T, KV, 32, kKind>(a, p, layer, stream);
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, typename KV>
 int launch_dh(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
-              cudaStream_t stream) {
+              cudaStream_t stream, bool append) {
+  if (append) {
+    return launch_one_row<T, KV, kAppendDecode>(a, p, layer, stream);
+  }
   if (a.W > 1) {
     switch (a.Dh) {
       case 64:
@@ -1366,27 +1717,7 @@ int launch_dh(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
         return (int)cudaErrorInvalidValue;
     }
   }
-  switch (a.Dh) {
-    case 64:
-      return launch_decode<T, KV, 64>(a, p, layer, stream);
-    case 128:
-      return launch_decode<T, KV, 128>(a, p, layer, stream);
-    default:
-      break;
-  }
-  if constexpr (sizeof(KV) != 1) {
-    switch (a.Dh) {
-      case 8:
-        return launch_decode<T, KV, 8>(a, p, layer, stream);
-      case 16:
-        return launch_decode<T, KV, 16>(a, p, layer, stream);
-      case 32:
-        return launch_decode<T, KV, 32>(a, p, layer, stream);
-      default:
-        break;
-    }
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_one_row<T, KV, kDecode>(a, p, layer, stream);
 }
 
 // Whether the plan's rows, chunks and tile fit the kernel that runs it.
@@ -1418,6 +1749,54 @@ bool valid_rows(const DecodeAttentionArgs& a) {
          a.tile % 8 == 0 && a.tile <= max_tile(a.rows);
 }
 
+// Checks the arguments of either entry point and launches. The append
+// kernel takes one query row, per-row lengths and its own shared memory.
+int dispatch(const DecodeAttentionArgs& a, const Ptrs& p, int layer,
+             cudaStream_t st, bool append) {
+  if (a.Hkv <= 0 || a.H % a.Hkv != 0 || a.H / a.Hkv > kMaxGroup ||
+      a.S <= 0 || a.S > a.S_alloc || a.n_split < 1 ||
+      a.n_split > kMaxSplit || (a.n_split & (a.n_split - 1)) != 0 ||
+      a.split_keys < 1 || (long long)a.split_keys * a.n_split < a.S ||
+      !valid_rows(a)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (append && (a.W != 1 || p.lengths == nullptr || p.k_new == nullptr ||
+                 p.v_new == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // A one-stage ring holds a split of one tile only: a later tile would
+  // wait on a copy that never starts.
+  const int max_tiles = (a.split_keys + a.tile - 1) / a.tile;
+  if (a.stages < 1 || (a.stages < 2 && max_tiles > 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool quant = a.kv_dtype == 2;
+  if (quant != (p.ks != nullptr && p.vs != nullptr) ||
+      (!quant &&
+       (p.ks != nullptr || p.vs != nullptr || a.kv_dtype != a.dtype))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int elem = quant ? 1 : (a.kv_dtype == 0 ? 4 : 2);
+  const size_t need =
+      append ? append_smem_bytes(a.rows, a.Dh, a.tile, elem, a.stages,
+                                 a.n_split)
+      : tensor_core_window(a)
+          ? window_smem_bytes(a.rows, a.Dh, a.tile, elem, a.stages, a.n_split)
+          : smem_bytes(a.rows, a.Dh, a.tile, elem, a.stages, a.n_split);
+  if (a.smem < 0 || (size_t)a.smem < need) return (int)cudaErrorInvalidValue;
+  if (a.dtype == 0) {
+    return quant ? launch_dh<float, int8_t>(a, p, layer, st, append)
+                 : launch_dh<float, float>(a, p, layer, st, append);
+  }
+  if (a.dtype == 1) {
+    return quant
+               ? launch_dh<__nv_bfloat16, int8_t>(a, p, layer, st, append)
+               : launch_dh<__nv_bfloat16, __nv_bfloat16>(a, p, layer, st,
+                                                          append);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // `args`: the layout and launch plan (ops/attention.py::launch_plan), see
@@ -1431,40 +1810,27 @@ extern "C" int decode_attention_launch(const DecodeAttentionArgs* args,
                                        const void* vs, const void* bias,
                                        const void* lengths, void* out,
                                        int layer, void* stream) {
-  const DecodeAttentionArgs& a = *args;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.Hkv <= 0 || a.H % a.Hkv != 0 || a.H / a.Hkv > kMaxGroup ||
-      a.S <= 0 || a.S > a.S_alloc || a.n_split < 1 ||
-      a.n_split > kMaxSplit || (a.n_split & (a.n_split - 1)) != 0 ||
-      a.split_keys < 1 || (long long)a.split_keys * a.n_split < a.S ||
-      !valid_rows(a)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // A one-stage ring holds a split of one tile only: a later tile would
-  // wait on a copy that never starts.
-  const int max_tiles = (a.split_keys + a.tile - 1) / a.tile;
-  if (a.stages < 1 || (a.stages < 2 && max_tiles > 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const bool quant = a.kv_dtype == 2;
-  if (quant != (ks != nullptr && vs != nullptr) ||
-      (!quant && (ks != nullptr || vs != nullptr || a.kv_dtype != a.dtype))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int elem = quant ? 1 : (a.kv_dtype == 0 ? 4 : 2);
-  const size_t need =
-      tensor_core_window(a)
-          ? window_smem_bytes(a.rows, a.Dh, a.tile, elem, a.stages, a.n_split)
-            : smem_bytes(a.rows, a.Dh, a.tile, elem, a.stages, a.n_split);
-  if (a.smem < 0 || (size_t)a.smem < need) return (int)cudaErrorInvalidValue;
-  const Ptrs p{q, k_cache, v_cache, ks, vs, bias, lengths, out};
-  if (a.dtype == 0) {
-    return quant ? launch_dh<float, int8_t>(a, p, layer, st)
-                 : launch_dh<float, float>(a, p, layer, st);
-  }
-  if (a.dtype == 1) {
-    return quant ? launch_dh<__nv_bfloat16, int8_t>(a, p, layer, st)
-                 : launch_dh<__nv_bfloat16, __nv_bfloat16>(a, p, layer, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const Ptrs p{q, k_cache, v_cache, ks, vs, bias, lengths, out,
+               nullptr, nullptr, false};
+  return dispatch(*args, p, layer, static_cast<cudaStream_t>(stream),
+                  false);
+}
+
+// The paged one-row decode step (decode_attention_append_kernel): the new
+// rows k_new and v_new [B, Hkv, 1, Dh] (strides args->kn_sb, kn_sh) are
+// written at slot lengths[b] - 1 of layer `layer` (quantized, with their
+// scales, for an int8 cache), then every query row attends over its
+// lengths[b] keys. `lengths` is required, `bias` may be null; the rest as
+// decode_attention_launch. `dependent` != 0 launches it as a programmatic
+// dependent of the kernel before it on the stream, which must not write
+// lengths, the bias or the cache rows below lengths[b] - 1 (the note at
+// the top).
+extern "C" int decode_attention_append_launch(
+    const DecodeAttentionArgs* args, const void* q, const void* k_new,
+    const void* v_new, void* k_cache, void* v_cache, void* ks, void* vs,
+    const void* bias, const void* lengths, void* out, int layer,
+    int dependent, void* stream) {
+  const Ptrs p{q, k_cache, v_cache, ks, vs, bias, lengths, out,
+               k_new, v_new, dependent != 0};
+  return dispatch(*args, p, layer, static_cast<cudaStream_t>(stream), true);
 }

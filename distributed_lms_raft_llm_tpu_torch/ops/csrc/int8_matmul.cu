@@ -100,6 +100,13 @@
 //   groups summed by shuffles and through shared memory, K split across a
 //   cluster of up to 8 blocks with a DSMEM sum on rank 0; transposed: one
 //   table row a thread, x read as a broadcast.
+//
+// Both dense kernels let a programmatic dependent launch as soon as all
+// their blocks run (griddepcontrol.launch_dependents at the start): the
+// decode step's attention (decode_attention.cu's append kernel), launched
+// as one after the qkv product, then stages its cache tiles under the
+// product and still waits for the product's end before it reads q, k and
+// v. A kernel launched without that attribute ignores the trigger.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
@@ -129,6 +136,11 @@ struct Int8MatmulArgs {
 };
 
 namespace {
+
+// Let this grid's programmatic dependents launch (see the note above).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
 // ------------------------------------------------ float32: CUDA cores
 
@@ -219,6 +231,7 @@ int8_matmul_dense_kernel(const T* __restrict__ x,
   const int kend = min(K, kbeg + k_split);
   const int n = n0 + 4 * tc;
   const bool col_ok = n < N;
+  launch_dependents();
 
   float acc[kMT][4];
 #pragma unroll
@@ -557,6 +570,7 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
   uint8_t* smem = align_smem(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cgrp = warp & 3;  // columns 32 cgrp .. +31 of the block
+  launch_dependents();
   const int kh = warp >> 2;   // k16 steps of this parity within a stage
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;

@@ -56,15 +56,20 @@ KERNEL_START = "decode_attention_window_mma_kernel("
 KERNEL_END = "// ------------------------------------------------------------ the kernel\n"
 
 
-def instrument(src: str) -> str:
+def instrument(src: str, phases=PHASES, kernel_start: str = KERNEL_START,
+               kernel_end: str = KERNEL_END,
+               reader: str = "window_probe_read") -> str:
     """The kernel source with thread 0 of each block stamping every phase
-    of PHASES (the first K tile: its first only) into
-    `g_probe[block * SLOTS + phase]`, clock64 beside the first and last,
-    and an extern "C" reader `window_probe_read`. Raises if an anchor is
-    missing or repeated."""
-    head, rest = src.split(KERNEL_START, 1)
-    body, tail = rest.split(KERNEL_END, 1)
-    for i, (name, anchor, before) in enumerate(PHASES):
+    of `phases` (the first K tile: its first only) into
+    `g_probe[block * SLOTS + phase]`, clock64 beside the first ("start")
+    and the last ("end", after a block barrier), and an extern "C" reader
+    `reader`. The anchors are looked for between `kernel_start` and
+    `kernel_end` (by default the window kernel's). Raises if an anchor is
+    missing or repeated there."""
+    head, rest = src.split(kernel_start, 1)
+    body, tail = rest.split(kernel_end, 1)
+    clock = len(phases)
+    for i, (name, anchor, before) in enumerate(phases):
         if body.count(anchor) != 1:
             raise ValueError(f"probe anchor of {name!r} not found once")
         when = "threadIdx.x == 0" + (" && t == 0" if name == "first_k" else "")
@@ -73,18 +78,18 @@ def instrument(src: str) -> str:
             stamp = ("  const long long probe_at = (long long)SLOTS * "
                      "(blockIdx.x + gridDim.x * (blockIdx.y + "
                      "(long long)gridDim.y * blockIdx.z));\n" + stamp +
-                     f"  if ({when}) g_probe[probe_at + {CLOCK}] = "
+                     f"  if ({when}) g_probe[probe_at + {clock}] = "
                      "clock64();\n")
         if name == "end":  # every warp has written its rows
             stamp = ("  __syncthreads();\n" + stamp +
-                     f"  if ({when}) g_probe[probe_at + {CLOCK + 1}] = "
+                     f"  if ({when}) g_probe[probe_at + {clock + 1}] = "
                      "clock64();\n")
         k = body.index(anchor) + (0 if before else len(anchor))
         body = body[:k] + stamp + body[k:]
     prelude = (
         f"#define SLOTS {SLOTS}\n"
         "__device__ unsigned long long g_probe[65536 * SLOTS];\n"
-        "extern \"C\" int window_probe_read(void* host, int n) {\n"
+        f"extern \"C\" int {reader}(void* host, int n) {{\n"
         "  return (int)cudaMemcpyFromSymbol(host, g_probe, (size_t)n * 8);\n"
         "}\n"
         "__device__ __forceinline__ unsigned long long probe_now() {\n"
@@ -92,7 +97,7 @@ def instrument(src: str) -> str:
         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
         "  return t;\n"
         "}\n")
-    return prelude + head + KERNEL_START + body + KERNEL_END + tail
+    return prelude + head + kernel_start + body + kernel_end + tail
 
 
 def _bind(so: Path):

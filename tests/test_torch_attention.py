@@ -1232,3 +1232,323 @@ def test_window_probe_instruments_the_kernel_source():
     assert out[start:end].count("= clock64();") == 2
     assert "probe_now" not in out[end:]
     assert out.replace("g_probe", "") != out and "g_probe" not in src
+
+
+# ------------------------------ the paged step's append kernel (plain)
+
+
+def _append_inputs(b, hkv, case, seed):
+    """q [B, H, 1, DH], k_new/v_new [B, Hkv, 1, DH], a cache [L, B, Hkv, S,
+    DH] with per-slot scales (int8 from `quantize_kv` of random rows) and
+    per-row lengths: `case` "spread" (random lengths), "dead_slot" (a row
+    at the cache's width: the engine's clamped dead or full slot),
+    "zero_row" (an all-zero new row: scale 1e-8), "clip" (rows at plus and
+    minus their amax: codes +-127) or "ties" (x / s exactly k + 0.5: round
+    half to even)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, H, 1, DH)).astype(np.float32)
+    new = rng.standard_normal((2, b, hkv, 1, DH)).astype(np.float32)
+    cache = rng.standard_normal((2, L, b, hkv, S, DH)).astype(np.float32)
+    lengths = rng.integers(1, S + 1, b).astype(np.int32)
+    lengths[0] = 1
+    if case == "dead_slot":
+        lengths[-1] = S
+    elif case == "zero_row":
+        new[:, -1] = 0.0
+    elif case == "clip":
+        amax = np.abs(new).max(axis=-1, keepdims=True)
+        new[..., :DH // 2] = amax
+        new[..., DH // 2:] = -amax
+    elif case == "ties":  # amax 127: s = 1 exactly, x / s = x
+        halves = np.arange(DH, dtype=np.float32) - DH / 2 + 0.5
+        new[:] = halves
+        new[..., 0] = 127.0
+    return q, new[0], new[1], cache, lengths
+
+
+APPEND_CASES = ["spread", "dead_slot", "zero_row", "clip", "ties"]
+
+
+@pytest.mark.parametrize("cache", ["int8", "float32"])
+@pytest.mark.parametrize("case", APPEND_CASES)
+def test_append_reference_matches_jax_quantize_and_set(cache, case):
+    """The append kernel's plain version against the JAX paged step
+    (distributed_lms_raft_llm_tpu/models/gpt2.py: `quantize_kv`, then
+    `.at[layer, rows, :, slots].set` at slot lengths[b] - 1, then
+    attend_quant / attend over lengths[b] keys): the cache (int8 rows and
+    scales, or float rows) array-equal, the output within 1e-6 (float32,
+    the sums' order)."""
+    b, hkv = 3, 2
+    q, k_new, v_new, kv, lengths = _append_inputs(
+        b, hkv, case, seed=APPEND_CASES.index(case) + 7 * (cache == "int8"))
+    rows = jnp.arange(b)[:, None]
+    slots = jnp.asarray(lengths - 1)[:, None]
+    mask = jnp.asarray(_lengths_mask(lengths, S))
+    jq = jnp.asarray(q)
+    if cache == "int8":
+        (k8, ks), (v8, vs) = (jax_common.quantize_kv(jnp.asarray(x))
+                              for x in kv)
+        (kn, kns), (vn, vns) = (jax_common.quantize_kv(jnp.asarray(x))
+                                for x in (k_new, v_new))
+        want_cache = [
+            k8.at[LAYER, rows, :, slots].set(kn.transpose(0, 2, 1, 3)),
+            v8.at[LAYER, rows, :, slots].set(vn.transpose(0, 2, 1, 3)),
+            ks.at[LAYER, rows, :, slots].set(kns.transpose(0, 2, 1)),
+            vs.at[LAYER, rows, :, slots].set(vns.transpose(0, 2, 1))]
+        rep = [jnp.repeat(x[LAYER], H // hkv, axis=1) for x in want_cache]
+        want = jax_common.attend_quant(jq, rep[0], rep[2], rep[1], rep[3],
+                                       mask)
+        port = [torch.from_numpy(np.array(x)) for x in (k8, v8, ks, vs)]
+    else:
+        want_cache = [jnp.asarray(x).at[LAYER, rows, :, slots].set(
+            jnp.asarray(n).transpose(0, 2, 1, 3))
+            for x, n in zip(kv, (k_new, v_new))]
+        rep = [jnp.repeat(x[LAYER], H // hkv, axis=1) for x in want_cache]
+        want = jax_common.attend(jq, rep[0], rep[1], mask)
+        port = [torch.from_numpy(x.copy()) for x in kv] + [None, None]
+    got = port_attention.decode_attention_append(
+        torch.from_numpy(q), torch.from_numpy(k_new), torch.from_numpy(v_new),
+        port[0], port[1], LAYER, lengths=torch.from_numpy(lengths),
+        k_scale=port[2], v_scale=port[3])
+    for mine, theirs in zip(port, want_cache):
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(theirs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    if cache == "int8" and case in ("zero_row", "clip", "ties"):
+        codes = port[0].numpy()[LAYER, np.arange(b), :, lengths - 1]
+        scales = port[2].numpy()[LAYER, np.arange(b), :, lengths - 1]
+        if case == "zero_row":
+            assert (codes[-1] == 0).all()
+            assert (scales[-1] == np.float32(1e-8)).all()
+        elif case == "clip":
+            assert set(np.unique(np.abs(codes))) == {127}
+        else:  # ties to even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2, -0.5 -> -0
+            assert (scales == 1.0).all()
+            want_codes = np.round(k_new[:, :, 0]).astype(np.int8)
+            np.testing.assert_array_equal(codes, want_codes)
+            assert codes[0, 0, DH // 2 + 2] == 2  # 2.5
+
+
+def test_append_reference_equals_the_torch_route_it_replaces():
+    """The plain version is the model's old route, bit for bit: the port's
+    `quantize_kv` and `_write_rows` at the step's slots, then
+    `decode_attention` with lengths."""
+    from distributed_lms_raft_llm_tpu_torch.models.gpt2 import _write_rows
+
+    b, hkv = 3, 4
+    q, k_new, v_new, kv, lengths = _append_inputs(b, hkv, "dead_slot", 3)
+    k_new, v_new, q = (torch.from_numpy(x) for x in (k_new, v_new, q))
+    (k8, ks), (v8, vs) = (port_common.quantize_kv(torch.from_numpy(x))
+                          for x in kv)
+    lengths = torch.from_numpy(lengths)
+    mine = [x.clone() for x in (k8, v8, ks, vs)]
+    got = port_attention.decode_attention_append(
+        q, k_new, v_new, mine[0], mine[1], LAYER, lengths=lengths,
+        k_scale=mine[2], v_scale=mine[3])
+    rows = torch.arange(b)[:, None]
+    slots = (lengths.long() - 1)[:, None]
+    (kw, kws), (vw, vws) = (port_common.quantize_kv(x) for x in (k_new,
+                                                                 v_new))
+    for buf, val in ((k8, kw), (v8, vw), (ks, kws), (vs, vws)):
+        _write_rows(buf, LAYER, rows, slots, val.transpose(1, 2), None)
+    want = port_attention.decode_attention(q, k8, v8, LAYER, lengths=lengths,
+                                           k_scale=ks, v_scale=vs)
+    for a, b_ in zip(mine, (k8, v8, ks, vs)):
+        assert torch.equal(a, b_)
+    assert torch.equal(got, want)
+
+
+def test_append_arguments_are_checked():
+    q, k_new, v_new, kv, lengths = _append_inputs(2, 4, "spread", 5)
+    args = [torch.from_numpy(x) for x in (q, k_new, v_new, *kv)]
+    with pytest.raises(ValueError, match="per-row lengths"):
+        port_attention.decode_attention_append(*args, LAYER, lengths=None)
+    with pytest.raises(ValueError, match="k_new must be"):
+        port_attention.decode_attention_append(
+            args[0], args[1][:, :2], *args[2:], LAYER,
+            lengths=torch.from_numpy(lengths))
+
+
+def test_append_dispatch_is_static():
+    """Source-level pins: the append entry has no try, takes its plain
+    version only under `device.type == "cpu"`, and launches through the
+    one counted launch of `_launch_kernel` otherwise."""
+    tree = _function_ast(port_attention.decode_attention_append)
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    plain_calls = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.If):
+            continue
+        for inner in ast.walk(node):
+            if isinstance(inner, ast.Call) and getattr(inner.func, "id", "") \
+                    == "decode_attention_append_reference":
+                plain_calls.append(ast.unparse(node.test))
+    assert plain_calls == ["device.type == 'cpu'"]
+    calls = {n.func.id for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name)}
+    assert "_launch_kernel" in calls
+    assert "launch_counts" not in inspect.getsource(
+        port_attention.decode_attention_append_reference)
+
+
+def test_append_on_cuda_tensors_raises_without_a_build(monkeypatch,
+                                                       tmp_path):
+    """CUDA tensors given to the append entry where the kernel cannot be
+    built (no nvcc): it raises; the plain version is never taken."""
+    from distributed_lms_raft_llm_tpu_torch.ops import build
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("plain path taken for CUDA tensors")
+
+    monkeypatch.setattr(port_attention, "decode_attention_append_reference",
+                        no_plain)
+    monkeypatch.setattr(port_attention, "_append_bound", None)
+    monkeypatch.setattr(port_attention, "_layouts", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    q, k_new, v_new, kv, lengths = _append_inputs(2, 4, "spread", 5)
+    q = np.ascontiguousarray(np.repeat(q, 2, axis=-1))  # Dh 16: 16-byte rows
+    k_new, v_new = (np.repeat(x, 2, axis=-1) for x in (k_new, v_new))
+    kv = np.ascontiguousarray(np.repeat(kv, 2, axis=-1))
+    before = dict(port_attention.launch_counts)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        port_attention.decode_attention_append(
+            _fake_cuda(q), _fake_cuda(k_new), _fake_cuda(v_new),
+            _fake_cuda(kv[0]), _fake_cuda(kv[1]), LAYER,
+            lengths=_fake_cuda(lengths))
+    assert port_attention.launch_counts == before
+
+
+@pytest.mark.parametrize("cache", ["int8", "float32"])
+def test_append_launch_passes_new_rows_and_counts_its_variant(monkeypatch,
+                                                              cache):
+    """The wrapper's launch on CUDA tensors: the append entry point with q,
+    k_new, v_new, the cache, its scales and lengths in the C order; the
+    append plan (its shared memory) and the new rows' strides in the
+    arguments; a programmatic dependent only when the caller asks; one
+    count a launch on its variant, none on another."""
+    launched = []
+    monkeypatch.setattr(port_attention, "_append_entry_point",
+                        lambda: (lambda *a: launched.append(a) or 0,
+                                 lambda index: 0))
+    monkeypatch.setattr(port_attention, "_entry_point", None)
+    monkeypatch.setattr(port_attention, "_layouts", {})
+    b, hkv, dh, s = 4, 4, 64, 40
+    rng = np.random.default_rng(9)
+    qkv = rng.standard_normal((b, 1, (H + 2 * hkv) * dh)).astype(np.float32)
+    t = _fake_cuda(qkv)
+    q = t[..., :H * dh].reshape(b, 1, H, dh).transpose(1, 2)
+    k_new = t[..., H * dh:(H + hkv) * dh].reshape(b, 1, hkv, dh).transpose(
+        1, 2)
+    v_new = t[..., (H + hkv) * dh:].reshape(b, 1, hkv, dh).transpose(1, 2)
+    shape = (L, b, hkv, s, dh)
+    extra, variant = {}, port_attention.APPEND
+    k = _fake_cuda(np.zeros(shape, np.float32))
+    if cache == "int8":
+        k = k.to(torch.int8)
+        sc = _fake_cuda(np.ones(shape[:4], np.float32))
+        extra, variant = dict(k_scale=sc, v_scale=sc), \
+            port_attention.APPEND_INT8KV
+    lengths = _fake_cuda(np.array([1, 9, 40, 17], np.int32))
+    counts = dict(port_attention.launch_counts)
+    out = port_attention.decode_attention_append(q, k_new, v_new, k, k, LAYER,
+                                                 lengths=lengths, **extra)
+    port_attention.decode_attention_append(q, k_new, v_new, k, k, LAYER,
+                                           lengths=lengths, **extra,
+                                           dependent=True)
+    assert tuple(out.shape) == (b, H, 1, dh)
+    (lay,) = port_attention._layouts.values()
+    assert lay.variant == variant
+    assert lay.plan == port_attention.launch_plan(b, hkv, s, dh, k.dtype,
+                                                  group=H // hkv,
+                                                  append=True)
+    assert (lay.args.kn_sb, lay.args.kn_sh) == k_new.stride()[:2]
+    args, dependent = launched
+    assert args[0] == lay.address and args[-3] == LAYER
+    assert (args[-2], dependent[-2]) == (0, 1)
+    assert dependent[:10] + dependent[-3:-2] == args[:10] + args[-3:-2]
+    assert args[1:6] == (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                         k.data_ptr(), k.data_ptr())
+    scales = ((sc.data_ptr(), sc.data_ptr()) if cache == "int8"
+              else (None, None))
+    assert args[6:10] == (*scales, None, lengths.data_ptr())
+    delta = {n: port_attention.launch_counts[n] - counts[n] for n in counts}
+    assert delta == {n: 2 * int(n == variant) for n in counts}
+
+
+def test_append_constants_match_the_kernel_source():
+    """The kernels' block size (csrc kThreads, the append kernel's too) is
+    the one the wrapper sizes its shared memory for, and the append plan
+    adds exactly the new rows and their 16 bytes to the decode plan."""
+    import re
+    from pathlib import Path
+
+    src = (Path(port_attention.__file__).parent / "csrc"
+           / "decode_attention.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    assert threads == 32 * port_attention.WARPS
+    for dtype, dh in ((torch.int8, 64), (torch.bfloat16, 64),
+                      (torch.float32, 128)):
+        for b, s, group in ((16, 384, 1), (16, 1024, 1), (2, 384, 4)):
+            plan = port_attention.launch_plan(b, 12 // group, s, dh, dtype,
+                                              group=group, append=True)
+            base = port_attention.launch_plan(b, 12 // group, s, dh, dtype,
+                                              group=group)
+            rest = port_attention._smem_bytes(
+                group, dh, plan.tile_keys, dtype.itemsize, plan.stages,
+                plan.n_split)
+            assert (plan.n_split, plan.tile_keys, plan.stages) == (
+                base.n_split, base.tile_keys, base.stages)
+            assert plan.smem_bytes == -(-rest // 16) * 16 \
+                + 2 * dh * dtype.itemsize + 16
+
+
+def test_graph_routes_count_the_append_kernel():
+    """A captured graph's append-kernel nodes land in their own route, not
+    in the one-row kernel's."""
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        routes_of_counts,
+        routes_of_names,
+    )
+
+    names = {
+        "_ZN12_GLOBAL__N_130decode_attention_append_kernelI13__nv_bfloat16"
+        "aLi64ELi1EEEvPKT_": 12,
+        "_ZN12_GLOBAL__N_123decode_attention_kernelI13__nv_bfloat16": 5,
+    }
+    routes = routes_of_names(names)
+    assert routes["decode_attention_append"] == 12
+    assert routes["decode_attention"] == 5
+    assert sum(routes.values()) == 17
+    counts = routes_of_counts({port_attention.APPEND_INT8KV: 3,
+                               port_attention.APPEND: 2,
+                               port_attention.INT8KV: 1})
+    assert counts["decode_attention_append"] == 5
+    assert counts["decode_attention"] == 1
+
+
+def test_decode_probe_instruments_the_kernel_source():
+    """`ops/probe_decode.py` stamps each phase of the CUDA-core body once,
+    thread 0 only, and nothing outside it; its anchors and patch points
+    are lines of the shipped sources, so an edit that moves one fails here
+    rather than on the card."""
+    from distributed_lms_raft_llm_tpu_torch.ops import build, probe_decode
+
+    src = (build.CSRC / "decode_attention.cu").read_text()
+    for kw in ({}, dict(threads=128), dict(in_order=True)):
+        out = probe_decode.instrument(src, **kw)
+        start = out.index(probe_decode.KERNEL_START)
+        end = out.index(probe_decode.KERNEL_END)
+        assert out[start:end].count("= probe_now();") == len(
+            probe_decode.PHASES)
+        assert out[start:end].count("= clock64();") == 2
+        assert "probe_now" not in out[end:]
+    assert "constexpr int kThreads = 128;" in probe_decode.instrument(
+        src, threads=128)
+    assert "return (int)blockIdx.z;" in probe_decode.instrument(
+        src, in_order=True)
+    mm = (build.CSRC / "int8_matmul.cu").read_text()
+    calls = mm.count(probe_decode.TRIGGER_LINE)
+    assert calls == 2  # the two dense kernels trigger their dependents
+    assert probe_decode.no_trigger(mm).count(probe_decode.TRIGGER_LINE) == 0

@@ -151,6 +151,101 @@ def test_ragged_and_int8_kernel_matches_plain(card, dtype, atol, int8_cache,
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
+APPEND_SHAPES = [
+    (16, 12, 384, 64, None), (8, 12, 160, 64, None),
+    (16, 12, 1024, 64, None),           # two splits a row
+    (16, 3, 384, 64, None),             # GQA, G = 4
+    (2, 12, 384, 64, [1, 150]),         # four splits, two of them empty
+    (4, 2, 200, 128, None), (4, 4, 96, 16, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,cache,s,hkv,width,dh,lengths", [
+    (q_dtype, cache, *shape)
+    for q_dtype, cache in (("bfloat16", "int8"), ("bfloat16", "bfloat16"),
+                           ("float32", "int8"), ("float32", "float32"))
+    for shape in APPEND_SHAPES
+    if cache != "int8" or shape[3] in port_attention.INT8_HEAD_DIMS])
+def test_append_kernel_matches_plain(card, q_dtype, cache, s, hkv, width, dh,
+                                     lengths):
+    """The paged step's append kernel against its plain version on copies
+    of one cache: q, k_new and v_new strided views of one qkv row, lengths
+    spread over [1, width] with a dead slot at the width (it writes slot
+    width - 1). The cache afterwards (int8 rows and scales, or float rows)
+    equal byte for byte; the output row by row within the window tolerance
+    (`sweep_attention.window_error`: a long row's outputs average down
+    near 0.1, so a limit scaled by the call's largest output would pass a
+    new key dropped there). A planted fault, the long rows' (over half the
+    longest) new key left out of the fold, must fail that check: the
+    attend-only kernel over their older keys gives what such a kernel
+    would."""
+    from distributed_lms_raft_llm_tpu_torch.models.common import quantize_kv
+
+    rng = np.random.default_rng(s * width + dh + hkv)
+    h, layers = 12, 4
+    dt = getattr(torch, q_dtype)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (s, 1, (h + 2 * hkv) * dh), np.float32)).to(card, dt)
+    q = qkv[..., :h * dh].reshape(s, 1, h, dh).transpose(1, 2)
+    k_new, v_new = (qkv[..., (h + i * hkv) * dh:(h + (i + 1) * hkv) * dh]
+                    .reshape(s, 1, hkv, dh).transpose(1, 2) for i in (0, 1))
+    full = [torch.from_numpy(rng.standard_normal(
+        (layers, s, hkv, width + 8, dh), np.float32)).to(card)
+        for _ in range(2)]
+    if cache == "int8":
+        (k, ks), (v, vs) = (quantize_kv(x) for x in full)
+        mine = [k, v, ks, vs]
+        variant = port_attention.APPEND_INT8KV
+    else:
+        mine = [x.to(dt) for x in full] + [None, None]
+        variant = port_attention.APPEND
+    theirs = [None if x is None else x.clone() for x in mine]
+    lengths = torch.from_numpy(
+        np.asarray(lengths, np.int32) if lengths is not None
+        else _paged_lengths(rng, s, width)).to(card)
+
+    def window(x):
+        return None if x is None else x[..., :width, :] if x.dim() == 5 \
+            else x[..., :width]
+
+    want = port_attention.decode_attention_append_reference(
+        q, k_new, v_new, *map(window, theirs[:2]), 2, lengths=lengths,
+        k_scale=window(theirs[2]), v_scale=window(theirs[3]))
+    before = dict(port_attention.launch_counts)
+    got = port_attention.decode_attention_append(
+        q, k_new, v_new, *map(window, mine[:2]), 2, lengths=lengths,
+        k_scale=window(mine[2]), v_scale=window(mine[3]))
+    torch.cuda.synchronize()
+    delta = {n: port_attention.launch_counts[n] - before[n] for n in before}
+    assert delta == {n: int(n == variant) for n in before}
+    for a, b in zip(mine, theirs):
+        assert a is None or torch.equal(a, b)
+    assert torch.isfinite(got.float()).all()
+    check = sweep_attention.window_error(got, want, q_dtype)
+    assert check["ok"], check
+    long = (lengths > lengths.max() // 2).to(lengths.dtype)
+    dropped = port_attention.decode_attention(
+        q, *map(window, mine[:2]), 2, lengths=lengths - long,
+        k_scale=window(mine[2]), v_scale=window(mine[3]))
+    assert not sweep_attention.window_error(dropped, want, q_dtype)["ok"]
+
+
+@pytest.mark.cuda
+def test_decode_graphs_keep_the_programmatic_launch(card):
+    """Under capture the append kernel's launch attribute becomes one
+    programmatic edge a launch in each decode chunk graph (behind the qkv
+    product), and none in the admission graphs, which do not run it."""
+    from distributed_lms_raft_llm_tpu_torch.engine import SamplingParams
+
+    eng = _paged(SamplingParams.greedy(max_new_tokens=16), **DEPLOYMENT)
+    eng.warmup()
+    for decode, admission in eng._graphs.values():
+        appends = decode.captured_launches()[port_attention.APPEND_INT8KV]
+        assert appends == 12 * eng.chunk
+        assert decode.programmatic_edges == appends
+        assert admission.programmatic_edges == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [("bfloat16", 2e-2), ("float32", 1e-5)])
 def test_int8_kernel_with_bias_matches_plain(card, dtype, atol):
@@ -499,7 +594,7 @@ def test_replayed_launches_count_as_captured(card):
     eng.warmup()
     decode, admission = eng._graphs[eng.widths[0]]
     per_decode = decode.captured_launches()
-    assert per_decode[port_attention.INT8KV] == 12 * eng.chunk
+    assert per_decode[port_attention.APPEND_INT8KV] == 12 * eng.chunk
     assert per_decode[quant_matmul.MMA] == 48 * eng.chunk
     assert per_decode[quant_matmul.MMA_UNEMBED] == eng.chunk
     assert admission.captured_launches()[quant_matmul.KERNEL] == 49
@@ -531,7 +626,9 @@ def test_graph_kernel_nodes_equal_the_captured_counts(card):
             nodes = routes_of_names(kernel_nodes(graph.graph))
             assert nodes == routes_of_counts(graph.captured_launches())
         assert routes_of_names(decode.kernels) == {
-            "decode_attention": 12 * eng.chunk, "decode_attention_window": 0,
+            "decode_attention": 0,
+            "decode_attention_append": 12 * eng.chunk,
+            "decode_attention_window": 0,
             "int8_matmul_mma": 48 * eng.chunk,
             "int8_matmul_mma_unembed": eng.chunk, "int8_matmul_fma": 0}
 

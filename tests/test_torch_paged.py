@@ -103,6 +103,41 @@ def test_greedy_byte_equal_to_jax_at_other_slot_counts(jax_pair):
         assert _drain(eng, MIXED) == want
 
 
+def test_decode_steps_take_the_append_route(jax_pair, monkeypatch):
+    """Every decode model call runs each layer's attention through
+    `decode_attention_append` (the kernel's plain version on the CPU), and
+    no torch row write: the answers stay JAX's."""
+    from distributed_lms_raft_llm_tpu_torch.models import gpt2
+    from distributed_lms_raft_llm_tpu_torch.ops import attention
+
+    jeng, want, opts = jax_pair
+    calls = {"append": 0, "decode": 0, "writes": []}
+    append, decode = (attention.decode_attention_append,
+                      attention.decode_attention)
+    write_rows = gpt2._write_rows
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def writes(buf, layer, rows, slots, val, keep):
+        calls["writes"].append(slots.shape[1])
+        return write_rows(buf, layer, rows, slots, val, keep)
+
+    monkeypatch.setattr(attention, "decode_attention_append",
+                        counted("append", append))
+    monkeypatch.setattr(attention, "decode_attention",
+                        counted("decode", decode))
+    monkeypatch.setattr(gpt2, "_write_rows", writes)
+    eng = _port_like(jeng, dict(opts, fused_attention=True), slots=3)
+    assert _drain(eng, MIXED) == want
+    assert calls["append"] == eng.cfg.num_layers * eng.decode_steps > 0
+    assert calls["decode"] == 0
+    assert 1 not in calls["writes"]  # no one-slot write: the kernel's
+
+
 def test_int8_engine_holds_the_quantized_tree_and_cache(jax_pair):
     jeng, _, opts = jax_pair
     eng = _port_like(jeng, opts, slots=2)
