@@ -4,6 +4,9 @@
     python3 chip_smoke.py [--out FILE] [--checkpoint F --vocab F --merges F]
                           [--gate-checkpoint F --gate-vocab F]
 
+Needs one NVIDIA GPU and this checkout beside the script (phase 8 reads
+configs/cluster.toml).
+
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card (`nvidia-smi` name and power limit) and the torch build;
@@ -141,7 +144,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    n-gram drafter under the reference sampling (every answer non-empty,
    acceptance); (e) the server built from --spec-tokens 8, and 4 unary
    answers and 4 streams over gRPC equal to the engine's direct answers
-   under phase 5's tokenizer.
+   under phase 5's tokenizer;
+8. the bulk-scoring tenant (configs/cluster.toml [scoring]) on the node
+   started from the deployment file (`tutoring_server.resolve_args` with
+   --config, `engine_from_args`, warmup, `serve_args`; phase 4c's engine
+   plus the score shapes 1-8 texts x 32-256 tokens warmed after the graph
+   capture): the first bulk job after warmup (128 texts of 48 tokens, the
+   tenant alone) builds no kernel and grows no allocator segment; one
+   quantum (8 texts, M = 512) launches 48 dense and one unembedding int8
+   product on the tensor cores and no attention kernel, with its kernels
+   and device busy share under `torch.profiler`; the card's scoring
+   saturation at 8 x 256 alone (tokens/s); then 24 questions 0.03 s apart
+   through the node's `GetLLMAnswer`, with the tenant OFF and then ON
+   (the corpus POSTed to /admin/score first and polled to done over the
+   admin plane): total and interactive tokens/s
+   (`paged_score_tenant_total_tokens_per_sec_per_chip`), TTFT p90, quanta,
+   quantum walls, the preemption wait (the first question lands mid-
+   quantum: it must wait, and no longer than the longest quantum), no
+   quantum while a question waited, no more serving-loop stalls than OFF,
+   no kernel built or graph captured; the job's bf16 logprobs within
+   SCORE_BF16_REL_TOLERANCE of a run with the int8 matmul's plain version
+   swapped in, and in float32 (int8 weights) a text's logprob batched
+   equal to its logprob alone.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -2404,6 +2428,456 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
     return run
 
 
+# ------------------------------- phase 8: the bulk-scoring tenant
+
+SCORE_TEXTS, SCORE_TEXT_TOKENS = 128, 48      # the bulk corpus (bench.py's)
+INTERACTIVE_ARRIVAL_S = 0.03                  # 24 questions this far apart
+# bf16 logprobs through the kernels against the same run with the int8
+# matmul's plain version swapped in, per text, relative to |logprob| (tens
+# of nats a token at random weights; the two round bf16 products apart).
+SCORE_BF16_REL_TOLERANCE = 5e-3
+# float32, a text's logprob batched against the same text scored alone
+# (the JAX package's pad-invariance tolerance).
+SCORE_F32_PAD_RTOL, SCORE_F32_PAD_ATOL = 1e-4, 1e-4
+
+
+def score_corpus(tokenizer, n, tokens, seed) -> list:
+    """`n` texts of about `tokens` tokens each (exactly under the byte
+    tokenizer): random lowercase words, cut at `tokens` ids."""
+    import random
+
+    rng = random.Random(seed)
+    out = []
+    for _ in range(n):
+        words = " ".join(
+            "".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
+                    for _ in range(rng.randint(2, 9)))
+            for _ in range(tokens))
+        out.append(tokenizer.decode(tokenizer.encode(words)[:tokens]))
+    return out
+
+
+async def admin_http(port, method, path, body=None):
+    """(status, JSON) of one request to a node's admin plane, as the JAX
+    package's fleet router sends it."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = b"" if body is None else json.dumps(body).encode()
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                 f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), json.loads(payload or b"null")
+
+
+def two_tenant_run(torch, tutoring_server, lms_pb2, node_args, engine,
+                   queries, corpus, scoring) -> dict:
+    """One node on the warmed engine (`serve_args`, the flags resolved from
+    the deployment file), 24 interactive questions through its
+    `GetLLMAnswer` at INTERACTIVE_ARRIVAL_S, and with `scoring` the bulk
+    corpus POSTed to /admin/score first and polled to done (bench.py's
+    two-tenant scenario on the node). Returns the run's readings."""
+    import argparse
+
+    args = argparse.Namespace(**dict(vars(node_args), scoring=scoring))
+    # Both runs start cold: no prefix blocks of the other run's prompts,
+    # the megastep controller at its starting rung.
+    engine.prefix_cache.clear()
+    engine.megastep_k = engine._megastep_initial
+
+    async def run():
+        server = await tutoring_server.serve_args(args, engine,
+                                                  host="127.0.0.1")
+        service, port = server._service, server._health.port
+        try:
+            tok0 = engine.total_generated_tokens
+            t0 = time.monotonic()
+            job = None
+            if scoring:
+                code, job = await admin_http(
+                    port, "POST", "/admin/score",
+                    {"texts": corpus, "purpose": "grading",
+                     "job_id": "phase8"})
+                check(code == 200 and job["job_id"] == "phase8",
+                      f"phase 8: POST /admin/score answered {code} {job}")
+            tasks = []
+            for q in queries:
+                # The first question too lands 0.03 s in: with the tenant
+                # on, while a quantum runs.
+                await asyncio.sleep(INTERACTIVE_ARRIVAL_S)
+                tasks.append(asyncio.ensure_future(service.GetLLMAnswer(
+                    lms_pb2.QueryRequest(query=q), None)))
+            answers = await asyncio.gather(*tasks)
+            interactive_s = time.monotonic() - t0
+            interactive_tokens = engine.total_generated_tokens - tok0
+            if scoring:
+                while True:
+                    code, job = await admin_http(port, "GET",
+                                                 "/admin/score/phase8")
+                    if code != 200 or job["status"] in ("done", "failed"):
+                        break
+                    await asyncio.sleep(0.01)
+            elapsed = time.monotonic() - t0
+            await asyncio.sleep(0.25)  # the watchdog's last heartbeats
+            _, health = await admin_http(port, "GET", "/healthz")
+            snap = service.metrics.snapshot()
+            queue = server._queue
+            return dict(
+                answers=[a.response for a in answers],
+                ok=[a.success for a in answers], job=job, health=health,
+                interactive_s=interactive_s, elapsed_s=elapsed,
+                interactive_tokens=interactive_tokens,
+                ttft_p90_ms=1e3 * (service.metrics.hist("ttft")
+                                   .percentile(90) or 0.0),
+                ttft_mean_ms=1e3 * snap["latency"]["ttft"]["mean_s"],
+                counters=snap["counters"],
+                tick_lag=snap["latency"].get("serving_tick_lag", {}),
+                quantum_walls=snap["latency"].get("engine_prog_score", {}),
+                max_preempt_wait_ms=1e3 * queue.max_preempt_wait_s,
+                max_quantum_window_ms=1e3 * queue.max_quantum_window_s,
+                scorer=(None if server._scorer is None
+                        else server._scorer.stats()))
+        finally:
+            await server.stop(0)
+            await server._queue.close()
+
+    return asyncio.run(run())
+
+
+def profile_quantum(torch, engine, texts, calls=5) -> dict:
+    """Where a quantum's time goes: `calls` quanta (`engine.score` of one
+    batch) timed without the profiler, then under `torch.profiler`.
+    Kernels per quantum from the trace (a lower bound: the profiler on the
+    card loses records), the device busy share = summed kernel time over
+    the unprofiled wall, kernel time by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def quanta():
+        for _ in range(calls):
+            engine.score(texts)
+        torch.cuda.synchronize()
+
+    quanta()
+    t0 = time.monotonic()
+    quanta()
+    wall_us = (time.monotonic() - t0) * 1e6
+    before = counted_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        quanta()
+    events = device_events(torch, prof)
+    traced = check_traced_launches(events, before, "phase 8 profile")
+    by_name: dict = {}
+    for name, us in events:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
+    busy_us = sum(us for _, us in events)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "texts": len(texts), "calls": calls,
+        "wall_us_per_quantum": wall_us / calls,
+        "device_busy_us_per_quantum": busy_us / calls,
+        "device_busy_share": busy_us / wall_us,
+        "kernels_per_quantum": len(events) / calls,
+        "traced_port_kernels": traced,
+        "top": [{"name": name[:90], "us": us, "count": n}
+                for name, (us, n) in top],
+    }
+
+
+def scoring_phase(torch, attention, quant_matmul, args) -> dict:
+    """Phase 8: the bulk-scoring tenant on the deployment config, the node
+    started from configs/cluster.toml (see the module docstring)."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        PagedEngine,
+        SamplingParams,
+        TutoringEngine,
+    )
+    from distributed_lms_raft_llm_tpu_torch.engine.scoring import (
+        ScoringManager)
+    from distributed_lms_raft_llm_tpu_torch.ops import build
+    from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+
+    # The node's flags from the deployment file; the checkpoint and its
+    # vocabulary cannot ride to the card, so seeded random weights and the
+    # byte tokenizer unless they are given.
+    node_args = tutoring_server.resolve_args([
+        "--config", str(REPO / "configs" / "cluster.toml"),
+        "--checkpoint", args.checkpoint or "", "--vocab", args.vocab or "",
+        "--merges", args.merges or "", "--seed", str(args.seed),
+        "--port", "0", "--metrics-port", "0", "--node-id", "phase8"])
+    check(node_args.paged and node_args.quant == "int8"
+          and node_args.kv_quant and node_args.slots == 16
+          and node_args.inflight == 3 and node_args.megastep == 4
+          and node_args.megastep_max == 8 and node_args.prefix_cache
+          and node_args.prefix_cache_blocks == 512
+          and node_args.prefill_chunk_tokens == 32 and node_args.scoring
+          and node_args.scoring_max_job_texts == 4096
+          and node_args.telemetry,
+          f"phase 8: configs/cluster.toml did not resolve to the deployment "
+          f"config: {vars(node_args)}")
+    eng = tutoring_server.engine_from_args(node_args)
+    check(isinstance(eng, PagedEngine) and eng.config.scoring
+          and eng.cuda_graphs and eng.fused and eng.cfg.quant_kv
+          and eng.cfg.dtype == torch.bfloat16 and eng.cfg.num_layers == 12
+          and eng.score_shapes == [(b, t) for b in (1, 2, 4, 8)
+                                   for t in (32, 64, 128, 256)],
+          f"phase 8: not the deployment engine with the scoring tenant: "
+          f"{eng.cfg}, score shapes {eng.score_shapes}")
+    t0 = time.monotonic()
+    warm_s = eng.warmup()
+    score_warm_t0 = time.monotonic()
+    eng._warm_score()  # timed alone (warmup ran it once already)
+    score_warm_s = time.monotonic() - score_warm_t0
+    torch.cuda.synchronize()
+    builds0, reserved0 = build.builds, torch.cuda.memory_reserved()
+    captures0 = _graph_captures()
+    corpus = score_corpus(eng.tokenizer, SCORE_TEXTS, SCORE_TEXT_TOKENS,
+                          args.seed)
+    corpus_tokens = [len(eng.tokenizer.encode(t)) for t in corpus]
+
+    # (a) The first bulk job on the warmed node, the tenant alone: no
+    # kernel built, no allocator segment added.
+    scorer = ScoringManager(eng)
+    scorer.submit(corpus, job_id="alone")
+    t_alone = time.monotonic()
+    while scorer.run_quantum():
+        pass
+    torch.cuda.synchronize()
+    alone_s = time.monotonic() - t_alone
+    alone = scorer.job("alone")
+    builds1, reserved1 = build.builds, torch.cuda.memory_reserved()
+    check(alone["status"] == "done" and len(alone["results"]) == SCORE_TEXTS,
+          f"phase 8: the bulk job alone did not complete: {alone['status']}")
+    check(builds1 == builds0 and reserved1 == reserved0,
+          f"phase 8: the first bulk job after warmup built {builds1 - builds0}"
+          f" kernels and moved memory_reserved {reserved0} -> {reserved1}")
+
+    # (b) One quantum's launches by route, then its time and busy share.
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    eng.score(corpus[:eng.score_batch_cap])
+    torch.cuda.synchronize()
+    q_launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    check(q_launches[quant_matmul.MMA] == 48
+          and q_launches[quant_matmul.MMA_UNEMBED] == 1
+          and q_launches[quant_matmul.FMA] == 0
+          and q_launches[quant_matmul.KERNEL] == 49
+          and not any(attention.launch_counts.values()),
+          f"phase 8: a quantum's launches {q_launches} are not 48 dense and "
+          f"one unembedding int8 product on the tensor cores and no "
+          f"attention kernel")
+    quantum_profile = profile_quantum(torch, eng,
+                                      corpus[:eng.score_batch_cap])
+    emit("scoring_quantum", launches=q_launches, **quantum_profile)
+
+    # (c) The card's scoring saturation: the widest shape (8 x 256) alone.
+    long_texts = score_corpus(eng.tokenizer, eng.score_batch_cap, 300,
+                              args.seed + 1)
+    eng.score(long_texts)
+    torch.cuda.synchronize()
+    reps, t_sat = 10, time.monotonic()
+    scored = sum(r["tokens"] for _ in range(reps)
+                 for r in eng.score(long_texts))
+    sat_s = time.monotonic() - t_sat
+    saturation = dict(shape=[eng.score_batch_cap, 256], reps=reps,
+                      tokens=scored, wall_s=sat_s,
+                      tokens_per_s=scored / sat_s,
+                      ms_per_quantum=1e3 * sat_s / reps)
+    emit("scoring_saturation", **saturation)
+
+    # (d) Two tenants on one warmed node, in turns: OFF, ON, ON, OFF (the
+    # host's speed drifts within a call).
+    queries = QUESTIONS * 3
+    runs = {}
+    # Whether the engine's stream had finished all its work when each
+    # quantum started: the queue starts one only once `has_work` is False,
+    # which must mean no dispatch is in flight (inflight 3).
+    stream_idle = []
+    engine_score = eng.score
+
+    def witnessed_score(texts):
+        stream_idle.append(torch.cuda.current_stream().query())
+        return engine_score(texts)
+
+    eng.score = witnessed_score
+    for name, on in (("off_1", False), ("on_1", True), ("on_2", True),
+                     ("off_2", False)):
+        runs[name] = two_tenant_run(torch, tutoring_server, lms_pb2,
+                                    node_args, eng, queries, corpus, on)
+        check(all(runs[name]["ok"]) and len(runs[name]["ok"]) == 24,
+              f"phase 8 {name}: an interactive question failed")
+    del eng.score
+    check(len(stream_idle) == 2 * SCORE_TEXTS // eng.score_batch_cap
+          and all(stream_idle),
+          f"phase 8: {stream_idle.count(False)} of {len(stream_idle)} "
+          f"quanta started while the engine's stream still had work")
+    ons = [runs["on_1"], runs["on_2"]]
+    offs = [runs["off_1"], runs["off_2"]]
+    for name in ("on_1", "on_2"):
+        on = runs[name]
+        job, stats = on["job"], on["scorer"]
+        check(job["status"] == "done" and len(job["results"]) == SCORE_TEXTS
+              and stats["jobs_completed"] == 1,
+              f"phase 8 {name}: the two-tenant job did not complete: "
+              f"{job['status']} {stats}")
+        check(stats["quanta_with_pending"] == 0,
+              f"phase 8 {name}: {stats['quanta_with_pending']} quanta ran "
+              f"while interactive work waited")
+        check(0 < on["max_preempt_wait_ms"] <= on["max_quantum_window_ms"],
+              f"phase 8 {name}: the first question (0.03 s into the job) "
+              f"waited {on['max_preempt_wait_ms']:.2f} ms behind a quantum: "
+              f"none, or past the longest quantum "
+              f"{on['max_quantum_window_ms']:.2f} ms")
+        check(on["health"]["scoring"]["jobs_completed"] == 1,
+              f"phase 8 {name}: /healthz scoring block "
+              f"{on['health'].get('scoring')}")
+        check([r["tokens"] for r in job["results"]]
+              == [r["tokens"] for r in alone["results"]],
+              f"phase 8 {name}: the two-tenant job's token counts differ "
+              f"from the tenant alone's")
+    stalls = {k: r["counters"].get("serving_tick_stalls", 0)
+              for k, r in runs.items()}
+    check(max(stalls["on_1"], stalls["on_2"])
+          <= max(stalls["off_1"], stalls["off_2"]),
+          f"phase 8: the serving loop stalled more with the tenant on: "
+          f"{stalls}")
+    check(all("scoring" not in r["health"] for r in offs),
+          "phase 8: a node without the tenant reports a scoring block")
+    check(build.builds == builds0 and _graph_captures() == captures0,
+          "phase 8: a kernel was built or a graph captured while serving")
+    job = runs["on_1"]["job"]
+
+    # (e) bf16 logprobs through the kernels against the int8 matmul's plain
+    # version swapped in, on the same engine and texts.
+    kernel_fn = quant_matmul.int8_matmul
+    quant_matmul.int8_matmul = (
+        lambda x, q, s, b=None, transposed=False:
+        quant_matmul.int8_matmul_reference(x, q, s, b, transposed))
+    try:
+        plain = eng.score(corpus)
+    finally:
+        quant_matmul.int8_matmul = kernel_fn
+    rel = [abs(g["logprob"] - w["logprob"]) / max(abs(w["logprob"]), 1e-9)
+           for g, w in zip(job["results"], plain)]
+    check(all(math.isfinite(r["logprob"]) for r in job["results"])
+          and [r["tokens"] for r in plain]
+          == [r["tokens"] for r in job["results"]]
+          and max(rel) <= SCORE_BF16_REL_TOLERANCE,
+          f"phase 8: bf16 logprobs through the kernels differ from the "
+          f"plain version's by {max(rel):.3g} of |logprob| (tolerance "
+          f"{SCORE_BF16_REL_TOLERANCE})")
+    served = [r["logprob"] for r in job["results"]]
+    alone_lp = [r["logprob"] for r in alone["results"]]
+    del eng
+    torch.cuda.empty_cache()
+
+    # (f) float32 (int8 weights, the CUDA-core route): a text batched
+    # equals the text alone.
+    f32 = TutoringEngine(EngineConfig(
+        model=node_args.model, quant="int8", dtype=torch.float32,
+        param_dtype=torch.float32, seed=args.seed, device=node_args.device,
+        sampling=SamplingParams.greedy(max_new_tokens=8),
+        vocab_path=node_args.vocab or None,
+        merges_path=node_args.merges or None,
+        checkpoint=node_args.checkpoint or None))
+    mixed = [t[:n] for t, n in zip(long_texts, (12, 40, 100, 230))]
+    batched = f32.score(mixed)
+    f32_err = 0.0
+    for text, got in zip(mixed, batched):
+        [one] = f32.score([text])
+        err = abs(got["logprob"] - one["logprob"])
+        f32_err = max(f32_err, err / max(abs(one["logprob"]), 1e-9))
+        check(one["tokens"] == got["tokens"]
+              and err <= SCORE_F32_PAD_ATOL
+              + SCORE_F32_PAD_RTOL * abs(one["logprob"]),
+              f"phase 8: float32 batched logprob {got} != alone {one}")
+    del f32
+    torch.cuda.empty_cache()
+
+    def reading(r):
+        scored = r["scorer"]["scored_tokens"] if r["scorer"] else 0
+        return dict(
+            total_tokens_per_s=(r["interactive_tokens"] + scored)
+            / r["elapsed_s"],
+            interactive_tokens_per_s=r["interactive_tokens"]
+            / (r["interactive_s"] if r["scorer"] else r["elapsed_s"]),
+            ttft_p90_ms=r["ttft_p90_ms"], ttft_mean_ms=r["ttft_mean_ms"],
+            elapsed_s=r["elapsed_s"], interactive_s=r["interactive_s"],
+            interactive_tokens=r["interactive_tokens"], scored_tokens=scored,
+            quanta=r["scorer"]["quanta"] if r["scorer"] else 0,
+            max_quantum_wall_ms=(r["scorer"]["max_quantum_wall_ms"]
+                                 if r["scorer"] else None),
+            max_quantum_window_ms=r["max_quantum_window_ms"],
+            max_preempt_wait_ms=r["max_preempt_wait_ms"],
+            score_preempt_wait_ms=r["counters"].get(
+                "score_preempt_wait_ms", 0),
+            quantum_walls_ms={k: 1e3 * v for k, v in
+                              r["quantum_walls"].items() if k.endswith("_s")},
+            quanta_with_pending=(r["scorer"]["quanta_with_pending"]
+                                 if r["scorer"] else None))
+
+    readings = {k: reading(r) for k, r in runs.items()}
+
+    def median(side, key):
+        return statistics.median(readings[k][key] for k in side)
+
+    on_names, off_names = ("on_1", "on_2"), ("off_1", "off_2")
+    total_on = median(on_names, "total_tokens_per_s")
+    record = dict(
+        metric="paged_score_tenant_total_tokens_per_sec_per_chip",
+        value=total_on, unit="tokens/sec/chip",
+        total_tokens_per_s_off=median(off_names, "total_tokens_per_s"),
+        total_tokens_per_s_on=total_on,
+        interactive_tokens_per_s_off=median(off_names,
+                                            "interactive_tokens_per_s"),
+        interactive_tokens_per_s_on=median(on_names,
+                                           "interactive_tokens_per_s"),
+        ttft_p90_ms_off=median(off_names, "ttft_p90_ms"),
+        ttft_p90_ms_on=median(on_names, "ttft_p90_ms"),
+        quanta=readings["on_1"]["quanta"],
+        scored_tokens=readings["on_1"]["scored_tokens"],
+        max_quantum_wall_ms=max(readings[k]["max_quantum_wall_ms"]
+                                for k in on_names),
+        max_preempt_wait_ms=max(readings[k]["max_preempt_wait_ms"]
+                                for k in on_names),
+        quanta_with_pending=sum(readings[k]["quanta_with_pending"]
+                                for k in on_names),
+        runs=readings, serving_tick_stalls=stalls,
+        quanta_started_on_an_idle_stream=sum(stream_idle),
+        serving_tick_lag_max_ms={k: 1e3 * r["tick_lag"].get("max_s", 0.0)
+                                 for k, r in runs.items()},
+        corpus_texts=SCORE_TEXTS, corpus_tokens_mean=statistics.mean(
+            corpus_tokens),
+        tenant_alone_s=alone_s,
+        tenant_alone_tokens_per_s=alone["scored_tokens"] / alone_s,
+        quantum_launches=q_launches, quantum=quantum_profile,
+        saturation=saturation, warmup_s=warm_s, score_warm_s=score_warm_s,
+        builds_after_warmup=build.builds - builds0,
+        memory_reserved_bytes=reserved0,
+        memory_reserved_after_job_bytes=reserved1,
+        bf16_vs_plain_max_rel=max(rel),
+        bf16_vs_plain_tolerance=SCORE_BF16_REL_TOLERANCE,
+        served_vs_alone_max_abs=max(abs(a - b)
+                                    for a, b in zip(served, alone_lp)),
+        f32_batched_vs_alone_max_rel=f32_err,
+        node_config=str(REPO / "configs" / "cluster.toml"))
+    emit("scoring_tenant", **{k: v for k, v in record.items()
+                              if k not in ("quantum", "saturation", "runs")})
+    for name, r in readings.items():
+        emit("scoring_two_tenant_run", run=name, **r)
+    return record
+
+
+def _graph_captures() -> int:
+    from distributed_lms_raft_llm_tpu_torch.engine import graphs
+
+    return graphs.captures
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--checkpoint", default=None)
@@ -2531,6 +3005,13 @@ def main(argv=None) -> int:
                 mm_cases.append(sweep_int8.int8_matmul_case(
                     name=name, m=m, dtype=dtype))
                 emit("int8_matmul_case", **mm_cases[-1])
+    # The scoring tenant's rows (phase 8): a quantum of 8 texts at length
+    # buckets 64 and 256, through all five products.
+    for name in sweep_int8.INT8_PRODUCTS:
+        for m in sweep_int8.SCORE_ROWS:
+            mm_cases.append(sweep_int8.int8_matmul_case(
+                name=name, m=m, dtype="bfloat16"))
+            emit("int8_matmul_case", **mm_cases[-1])
     # The relevance gate's rows (phase 6): texts x length bucket.
     for name in sweep_int8.GATE_PRODUCTS:
         for m in sweep_int8.GATE_ROWS:
@@ -2803,6 +3284,10 @@ def main(argv=None) -> int:
     records["spec"] = spec_phase(torch, attention, quant_matmul, prod,
                                  common, deploy_refs, args, window_cases)
     spec_launches = records["spec"]["deployment"]["launches"]
+
+    # 8. The bulk-scoring tenant on the deployment config, the node started
+    # from configs/cluster.toml.
+    records["scoring"] = scoring_phase(torch, attention, quant_matmul, args)
 
     records["seconds"] = time.monotonic() - t_start
     def paged_case(int8, dtype="bfloat16"):  # 16 slots, width 384

@@ -14,9 +14,11 @@ and an int8 KV cache, the production tutoring node's configuration):
 - ``ops``      — hand-written CUDA kernels (single-token decode attention,
   the weight-only int8 matmul) with their plain PyTorch versions
 - ``engine``   — sampling, prefill/decode, `TutoringEngine`, `BatchingQueue`,
-  `PagedEngine`, `PagedQueue`
+  `PagedEngine`, `PagedQueue`, the bulk-scoring tenant (`scoring`)
 - ``serving``  — the tutoring gRPC server
-- ``utils``    — tokenizers, metrics, deadlines, forwarding auth
+- ``config``   — the deployment file (TOML) a tutoring node starts from
+- ``utils``    — tokenizers, metrics, deadlines, forwarding auth, the
+  telemetry timeline, the serving loop's watchdog
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 asks for the CPU; asking for CUDA without a card raises (`device.py`).

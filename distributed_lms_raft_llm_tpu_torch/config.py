@@ -1,0 +1,276 @@
+"""The deployment file (TOML) as a tutoring node of the port reads it.
+
+A trimmed port of `distributed_lms_raft_llm_tpu/config.py`. One TOML file
+describes the whole deployment (configs/cluster.toml, configs/dev.toml);
+the port's tutoring node starts from it:
+
+    python -m distributed_lms_raft_llm_tpu_torch.serving.tutoring_server \\
+        --config configs/cluster.toml
+
+`load_config` is as strict as the JAX package's over the WHOLE file: an
+unknown section or an unknown key in any section is refused, so the same
+files load and the same typos fail on both nodes. Only the sections a
+tutoring node reads are parsed into dataclasses (`[tutoring]`,
+`[sampling]`, `[scoring]`, `[sessions]`, `[resilience]`, `[tracing]`,
+`[telemetry]`), with the JAX package's defaults and value checks; the
+others (`[cluster]`, `[tutoring_fleet]`, `[gate]`, `[groups]`,
+`[storage]`, `[sim]`) are checked for their key names only, and their
+values are not read. `apply_file_defaults` is the JAX package's two-phase
+merge: the file fills each flag the command line left out, and a flag
+given on the command line wins.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import tomllib
+from typing import Any, Dict, List, Optional
+
+
+@dataclasses.dataclass
+class SamplingConfig:
+    """[sampling]: the reference's generation settings."""
+
+    temperature: float = 0.7
+    top_k: int = 50
+    top_p: float = 0.9
+    repetition_penalty: float = 1.2
+    max_new_tokens: int = 128
+    approx_top_k: bool = False  # not ported: a node refuses it
+
+
+@dataclasses.dataclass
+class TutoringConfig:
+    """[tutoring]: the tutoring node (the JAX package's keys)."""
+
+    address: str = "127.0.0.1:50054"
+    model: str = "gpt2"
+    checkpoint: Optional[str] = None
+    vocab: Optional[str] = None
+    merges: Optional[str] = None
+    tokenizer_json: Optional[str] = None
+    tp: int = 1
+    ep: int = 1
+    quant: Optional[str] = None
+    kv_quant: bool = False
+    spec_tokens: int = 0
+    paged: bool = False
+    max_batch: int = 8
+    max_wait_ms: float = 10.0
+    slots: Optional[int] = None
+    chunk: int = 16
+    megastep: int = 1
+    megastep_max: int = 0
+    inflight: int = 2
+    prefix_cache: bool = False
+    prefix_cache_blocks: int = 512
+    prefill_chunk_tokens: int = 0
+    draft_source: str = "prompt_lookup"
+    auth_key_file: Optional[str] = None
+
+    @property
+    def port(self) -> int:
+        return int(self.address.rsplit(":", 1)[1])
+
+
+@dataclasses.dataclass
+class SessionsConfig:
+    """[sessions]: multi-turn tutoring sessions on the streaming path."""
+
+    ttl_s: float = 600.0
+    max_sessions: int = 256
+
+    def __post_init__(self) -> None:
+        if self.ttl_s <= 0:
+            raise ValueError("[sessions] ttl_s must be > 0")
+        if self.max_sessions < 0:
+            raise ValueError("[sessions] max_sessions must be >= 0")
+
+
+@dataclasses.dataclass
+class ScoringConfig:
+    """[scoring]: the background bulk-scoring tenant (engine/scoring.py)."""
+
+    enabled: bool = False
+    max_job_texts: int = 4096   # admission cap per bulk job (texts)
+    jobs_retained: int = 32     # finished jobs kept for GET /admin/score
+
+    def __post_init__(self) -> None:
+        if self.max_job_texts < 1 or self.jobs_retained < 1:
+            raise ValueError(
+                "[scoring] needs max_job_texts >= 1 and jobs_retained >= 1")
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    """[resilience]: overload and failure behaviour. A tutoring node reads
+    `queue_depth` (its admission bound); the rest is the client's and the
+    LMS's."""
+
+    request_timeout_s: float = 60.0
+    llm_timeout_s: float = 120.0
+    backoff_base_s: float = 0.05
+    backoff_max_s: float = 2.0
+    tutoring_timeout_s: float = 120.0
+    deadline_floor_s: float = 0.25
+    breaker_failure_threshold: int = 5
+    breaker_recovery_s: float = 10.0
+    breaker_half_open_max: int = 1
+    blob_fetch_timeout_s: float = 5.0
+    replicate_timeout_s: float = 30.0
+    replicate_budget_s: float = 60.0
+    queue_depth: int = 64
+    fault_seed: int = 0
+
+
+@dataclasses.dataclass
+class TracingConfig:
+    """[tracing]: the flight-recorder request tracer (utils/tracing.py)."""
+
+    enabled: bool = True
+    ring_size: int = 256
+    exemplars_per_route: int = 4
+    flagged_max: int = 64
+    max_spans_per_trace: int = 512
+
+    def __post_init__(self) -> None:
+        if self.ring_size < 1 or self.max_spans_per_trace < 1:
+            raise ValueError(
+                "[tracing] ring_size and max_spans_per_trace must be >= 1")
+        if self.exemplars_per_route < 0 or self.flagged_max < 0:
+            raise ValueError(
+                "[tracing] exemplars_per_route and flagged_max must be >= 0")
+
+
+@dataclasses.dataclass
+class TelemetryConfig:
+    """[telemetry]: the timeline plane (utils/timeline.py). A tutoring
+    node reads the sampler's switch, interval and ring; the burn windows
+    are the JAX package's cluster tools'. `chip_ceiling_tokens_per_s` is
+    the operator's saturation figure for the card: it anchors
+    `scoring_utilization` (no default is a card's: the JAX package's is a
+    TPU figure, and the port's node sets the gauge only from a file)."""
+
+    enabled: bool = True
+    sample_interval_s: float = 1.0
+    ring_points: int = 600
+    fast_window_s: float = 60.0
+    slow_window_s: float = 600.0
+    fast_burn: float = 1.2
+    slow_burn: float = 1.0
+    chip_ceiling_tokens_per_s: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if self.sample_interval_s <= 0 or self.ring_points < 2:
+            raise ValueError(
+                "[telemetry] needs sample_interval_s > 0 and "
+                "ring_points >= 2")
+        if self.fast_window_s <= 0 or self.slow_window_s < self.fast_window_s:
+            raise ValueError(
+                "[telemetry] needs 0 < fast_window_s <= slow_window_s")
+        if self.fast_burn <= 0 or self.slow_burn <= 0:
+            raise ValueError("[telemetry] burn thresholds must be > 0")
+        if (self.chip_ceiling_tokens_per_s is not None
+                and self.chip_ceiling_tokens_per_s <= 0):
+            raise ValueError(
+                "[telemetry] chip_ceiling_tokens_per_s must be > 0")
+
+
+# The sections a tutoring node does not read, by their keys (the JAX
+# package's dataclass fields), so a typo there is refused too.
+OTHER_SECTIONS: Dict[str, frozenset] = {
+    "cluster": frozenset({
+        "nodes", "data_dir", "election_timeout", "heartbeat_interval",
+        "snapshot_every", "metrics_period", "linearizable_reads"}),
+    "tutoring_fleet": frozenset({
+        "addresses", "health_addresses", "hedge_after_s",
+        "queue_spill_depth", "warmup_s", "warmup_weight", "health_poll_s",
+        "stream_stall_s"}),
+    "gate": frozenset({"model", "checkpoint", "vocab", "threshold",
+                       "quant"}),
+    "groups": frozenset({"count", "port_stride", "secret"}),
+    "storage": frozenset({"checksums", "fsync", "recovery"}),
+    "sim": frozenset({
+        "seed", "students", "instructors", "courses", "duration_s",
+        "base_rate", "diurnal_amplitude", "days", "workers", "llm_budget_s",
+        "course_concentration", "tutoring_nodes", "tutoring_engine",
+        "events", "slo_answer_p95_s", "slo_degraded_rate_max",
+        "slo_tick_stalls_max", "continuous_slos", "bulk_scoring",
+        "telemetry_sample_s", "session_fraction", "session_turns",
+        "session_ttl_s", "slo_turn_ttft_p95_s", "lms_groups"}),
+}
+
+
+@dataclasses.dataclass
+class AppConfig:
+    tutoring: TutoringConfig = dataclasses.field(
+        default_factory=TutoringConfig)
+    sampling: SamplingConfig = dataclasses.field(
+        default_factory=SamplingConfig)
+    scoring: ScoringConfig = dataclasses.field(default_factory=ScoringConfig)
+    sessions: SessionsConfig = dataclasses.field(
+        default_factory=SessionsConfig)
+    resilience: ResilienceConfig = dataclasses.field(
+        default_factory=ResilienceConfig)
+    tracing: TracingConfig = dataclasses.field(default_factory=TracingConfig)
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
+
+
+# Section name -> its AppConfig field's dataclass.
+SECTIONS = {f.name: f.default_factory for f in dataclasses.fields(AppConfig)}
+
+
+def _check_keys(table: Dict[str, Any], known, path: str) -> None:
+    unknown = set(table) - set(known)
+    if unknown:
+        raise ValueError(f"unknown key(s) {sorted(unknown)} in [{path}] "
+                         f"(known: {sorted(known)})")
+
+
+def load_config(path: str) -> AppConfig:
+    """Parse a TOML deployment file (strict sections and keys)."""
+    with open(path, "rb") as fh:
+        raw = tomllib.load(fh)
+    unknown = set(raw) - set(SECTIONS) - set(OTHER_SECTIONS)
+    if unknown:
+        raise ValueError(f"unknown section(s) {sorted(unknown)} in {path}")
+    for name, keys in OTHER_SECTIONS.items():
+        _check_keys(raw.get(name, {}), keys, name)
+    built = {}
+    for name, cls in SECTIONS.items():
+        table = dict(raw.get(name, {}))
+        _check_keys(table, {f.name for f in dataclasses.fields(cls)}, name)
+        built[name] = cls(**table)
+    return AppConfig(**built)
+
+
+_UNSET = object()
+
+
+def apply_file_defaults(args: argparse.Namespace,
+                        parser: argparse.ArgumentParser,
+                        overrides: Dict[str, Any], *,
+                        argv: Optional[List[str]]) -> None:
+    """Two-phase CLI/TOML merge: the file fills each value the command line
+    left unset; explicitly passed flags win.
+
+    Explicitness is found by re-parsing `argv` (the list the caller parsed;
+    None = sys.argv) onto a namespace whose dests hold a sentinel: argparse
+    assigns defaults only to attributes the namespace lacks, so a dest
+    still holding the sentinel was not given on the command line (a flag
+    given with its default value still wins). Every override must name a
+    flag's dest: positionals cannot be probed this way.
+    """
+    flag_dests = {a.dest for a in parser._actions if a.option_strings}
+    bad = set(overrides) - flag_dests
+    if bad:
+        raise ValueError(
+            f"overrides name non-flag or unknown parser dest(s): "
+            f"{sorted(bad)} (positionals can't be probed for explicitness)")
+    probe = argparse.Namespace(**{a.dest: _UNSET for a in parser._actions})
+    parser.parse_known_args(argv, namespace=probe)
+    for name, value in overrides.items():
+        if getattr(probe, name, _UNSET) is _UNSET:
+            setattr(args, name, value)

@@ -16,8 +16,15 @@ raises `Overloaded` (RESOURCE_EXHAUSTED on the wire). A request whose
 
 Both queues take the request's trace span (`utils/tracing.py`) and record
 `queue.wait` and the engine's spans under it, and both stream
-(`submit_stream`, below). The JAX package's scoring tenant comes with a
-later slice.
+(`submit_stream`, below).
+
+Both co-schedule the background scoring tenant (`scorer=`, an
+`engine/scoring.ScoringManager`), as in the JAX package: the idle wait runs
+one scoring quantum (one device batch, in an executor thread) only while
+no interactive request waits, and, on the paged queue, only once the
+engine has no work (nothing in flight: its last dispatch was read); it
+re-checks arrivals at every quantum boundary, so an interactive request
+waits behind at most one quantum (`score_preempt_wait_ms`).
 """
 
 from __future__ import annotations
@@ -29,18 +36,94 @@ import re
 import time
 from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 
+from ..utils import metrics_registry as metric
 from ..utils.resilience import Deadline, DeadlineExpired, Overloaded
-from ..utils.tracing import FLAG_DEADLINE, NULL_SPAN
+from ..utils.tracing import FLAG_DEADLINE, NULL_SPAN, get_tracer
 
 log = logging.getLogger(__name__)
 
 # Queue items: (prompt, deadline-or-None, result future, request span, its
-# open queue.wait child). Spans are NULL_SPAN for an untraced request, so
-# the scheduling code never branches on tracing.
-_Item = Tuple[str, Optional[Deadline], asyncio.Future, Any, Any]
+# open queue.wait child, enqueue time on the monotonic clock). Spans are
+# NULL_SPAN for an untraced request, so the scheduling code never branches
+# on tracing.
+_Item = Tuple[str, Optional[Deadline], asyncio.Future, Any, Any, float]
 
-# Engine program name -> its dispatch-time histogram (bucketed engine).
-PROGRAM_HISTOGRAMS = {"generate": "engine_prog_generate"}
+# Engine program name -> its dispatch-time histogram (bucketed engine; the
+# score program's for both queues).
+PROGRAM_HISTOGRAMS = {"generate": "engine_prog_generate",
+                      "score": metric.ENGINE_PROG_SCORE}
+
+
+async def _run_score_quantum(owner) -> None:
+    """Run ONE background-scoring quantum off the loop and record its
+    window. Shared by both queues; called only while nothing interactive
+    waits and the engine is idle. The engine's `score` program time is
+    drained into the `engine_prog_score` histogram here (no request batch
+    carries it)."""
+    scorer = owner._scorer
+    loop = asyncio.get_running_loop()
+    t0 = time.monotonic()
+    with get_tracer().span("scoring.quantum",
+                           job=scorer.current_job_id() or "") as sp:
+        did = await loop.run_in_executor(None, scorer.run_quantum,
+                                         owner.waiting)
+        sp.set_attr("did_work", bool(did))
+    # The quantum window: interactive arrivals inside it waited for the
+    # boundary; _note_preempt charges them to score_preempt_wait_ms.
+    owner._last_quantum = (t0, time.monotonic())
+    owner.max_quantum_window_s = max(owner.max_quantum_window_s,
+                                     owner._last_quantum[1] - t0)
+    pop = getattr(owner.engine, "pop_program_times", None)
+    if pop is not None and owner.metrics is not None:
+        for pname, _start, wall_s in pop():
+            if pname in PROGRAM_HISTOGRAMS:
+                owner.metrics.hist(PROGRAM_HISTOGRAMS[pname]).observe(wall_s)
+
+
+async def _next_item(owner, incoming: asyncio.Queue) -> Optional[_Item]:
+    """The two-tenant idle wait: interactive work first, always; a scoring
+    quantum only when none waits; otherwise block on BOTH arrival sources.
+    Returns an interactive item, or None after a scoring round (the caller
+    loops: arrivals are re-checked at every quantum boundary)."""
+    if not incoming.empty():
+        return incoming.get_nowait()
+    scorer = owner._scorer
+    if scorer is None:
+        return await incoming.get()
+    if scorer.has_work:
+        await _run_score_quantum(owner)
+        return None
+    getter = asyncio.ensure_future(incoming.get())
+    waker = asyncio.ensure_future(scorer.wake_event().wait())
+    try:
+        await asyncio.wait({getter, waker},
+                           return_when=asyncio.FIRST_COMPLETED)
+    finally:
+        # An un-popped item survives the getter's cancellation (the queue
+        # wakes the next getter); the wake flag is level-triggered.
+        for t in (getter, waker):
+            if not t.done():
+                t.cancel()
+        await asyncio.gather(getter, waker, return_exceptions=True)
+    if (getter.done() and not getter.cancelled()
+            and getter.exception() is None):
+        return getter.result()  # done: immediate
+    scorer.clear_wake()
+    return None
+
+
+def _note_preempt(owner, t_enq: float) -> None:
+    """Charge an interactive arrival that landed inside the last scoring
+    quantum's window the wait it paid for the boundary."""
+    if owner._last_quantum is None:
+        return
+    q0, q1 = owner._last_quantum
+    if q0 <= t_enq < q1:
+        wait_s = q1 - t_enq
+        owner.max_preempt_wait_s = max(owner.max_preempt_wait_s, wait_s)
+        if owner.metrics is not None:
+            owner.metrics.inc(metric.SCORE_PREEMPT_WAIT_MS,
+                              max(1, int(wait_s * 1000.0)))
 
 # ---------------------------------------------------------------- streaming
 #
@@ -118,12 +201,20 @@ class BatchingQueue:
     """Coalesces submit() calls into engine.answer_batch() invocations."""
 
     def __init__(self, engine, max_batch: int = 8, max_wait_ms: float = 10.0,
-                 metrics=None, max_queue: int = 0):
+                 metrics=None, max_queue: int = 0, scorer=None):
         self.engine = engine
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1000.0
         self.metrics = metrics
         self.max_queue = max_queue  # 0 = unbounded
+        # The background scoring tenant (engine/scoring.ScoringManager or
+        # None): quanta run only while no interactive request waits.
+        self._scorer = scorer
+        # Loop-confined scoring account: the last quantum's (start, end),
+        # the longest interactive wait behind one, the longest quantum.
+        self._last_quantum: Optional[Tuple[float, float]] = None
+        self.max_preempt_wait_s = 0.0
+        self.max_quantum_window_s = 0.0
         # Loop-confined: touched only from coroutines on the serving loop;
         # the engine call alone leaves the loop, with plain prompts.
         self._queue: asyncio.Queue[_Item] = asyncio.Queue()
@@ -153,7 +244,7 @@ class BatchingQueue:
                 pass
             self._runner = None
         while not self._queue.empty():
-            _, _, fut, _, qspan = self._queue.get_nowait()
+            _, _, fut, _, qspan, _ = self._queue.get_nowait()
             qspan.end()
             if not fut.done():
                 fut.set_exception(RuntimeError("batching queue closed"))
@@ -181,7 +272,7 @@ class BatchingQueue:
         span = span if span is not None else NULL_SPAN
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         await self._queue.put((prompt, deadline, fut, span,
-                               span.child("queue.wait")))
+                               span.child("queue.wait"), time.monotonic()))
         return await fut
 
     async def submit_stream(
@@ -233,7 +324,7 @@ class BatchingQueue:
         """Shed queue-expired requests before their prefill dispatches."""
         live: List[_Item] = []
         for item in group:
-            _, dl, fut, span, qspan = item
+            _, dl, fut, span, qspan, _ = item
             if dl is not None and dl.expired:
                 self._inc("shed_expired")
                 qspan.end()
@@ -272,17 +363,21 @@ class BatchingQueue:
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()
         while True:
-            first = await self._queue.get()
+            first = await _next_item(self, self._queue)
+            if first is None:
+                continue  # a scoring quantum ran; re-check arrivals
             group = self._drop_expired(await self._collect(first))
             if not group:
                 continue  # everything expired while queued: zero prefills
+            for item in group:
+                _note_preempt(self, item[5])
             if self.metrics is not None:
                 self.metrics.set_gauge("serving_queue_depth",
                                        float(self.waiting))
-            prompts = [p for p, _, _, _, _ in group]
+            prompts = [p for p, _, _, _, _, _ in group]
             # Dispatch moment: queue.wait ends, engine.batch begins.
             espans = []
-            for _, _, _, span, qspan in group:
+            for _, _, _, span, qspan, _ in group:
                 qspan.end()
                 espans.append(span.child("engine.batch", batch=len(group)))
             t_batch_unix = time.time()
@@ -299,7 +394,7 @@ class BatchingQueue:
                     pop()
                 for espan in espans:
                     espan.end()
-                for _, _, fut, _, _ in group:
+                for _, _, fut, _, _, _ in group:
                     if not fut.done():
                         fut.set_exception(RuntimeError("batching queue closed"))
                 raise
@@ -308,7 +403,7 @@ class BatchingQueue:
                 for espan in espans:
                     espan.set_status("error")
                 self._finish_engine_spans(espans, t_batch_unix)
-                for _, _, fut, _, _ in group:
+                for _, _, fut, _, _, _ in group:
                     if not fut.done():
                         fut.set_exception(e)
                 continue
@@ -323,7 +418,7 @@ class BatchingQueue:
                     # Speculation's effect: mean tokens a verify window
                     # emitted (1.0 = nothing accepted); a ratio, a gauge.
                     self.metrics.set_gauge("spec_tokens_per_window", tpw)
-            for (_, _, fut, _, _), answer in zip(group, answers):
+            for (_, _, fut, _, _, _), answer in zip(group, answers):
                 if not fut.done():
                     fut.set_result(answer)
 
@@ -359,10 +454,19 @@ class PagedQueue:
     chunk away) rather than queueing behind the whole group.
     """
 
-    def __init__(self, engine, metrics=None, max_queue: int = 0):
+    def __init__(self, engine, metrics=None, max_queue: int = 0,
+                 scorer=None):
         self.engine = engine
         self.metrics = metrics
         self.max_queue = max_queue  # bound on not-yet-admitted requests
+        # The background scoring tenant (engine/scoring.ScoringManager or
+        # None): quanta run only while nothing interactive is pending AND
+        # the engine holds no work (the runner reaches the idle wait only
+        # once has_work is False: every dispatch reaped, its event waited).
+        self._scorer = scorer
+        self._last_quantum: Optional[Tuple[float, float]] = None
+        self.max_preempt_wait_s = 0.0
+        self.max_quantum_window_s = 0.0
         # Loop-confined: the engine's step() runs in an executor thread,
         # but it never sees these containers — admissions and reaps happen
         # on the runner coroutine between steps.
@@ -415,7 +519,7 @@ class PagedQueue:
                 pass
             self._runner = None
         while not self._incoming.empty():
-            _, _, fut, _, qspan = self._incoming.get_nowait()
+            _, _, fut, _, qspan, _ = self._incoming.get_nowait()
             qspan.end()
             if not fut.done():
                 fut.set_exception(RuntimeError("paged queue closed"))
@@ -453,7 +557,8 @@ class PagedQueue:
         span = span if span is not None else NULL_SPAN
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         await self._incoming.put((prompt, deadline, fut, span,
-                                  span.child("queue.wait")))
+                                  span.child("queue.wait"),
+                                  time.monotonic()))
         return await fut
 
     async def submit_stream(
@@ -474,7 +579,8 @@ class PagedQueue:
         if session is not None:
             self._session_reg[fut] = session
         await self._incoming.put((prompt, deadline, fut, span,
-                                  span.child("queue.wait")))
+                                  span.child("queue.wait"),
+                                  time.monotonic()))
         try:
             while True:
                 getter = asyncio.ensure_future(st.q.get())
@@ -519,7 +625,9 @@ class PagedQueue:
                 fut.exception()  # consumed above; mark retrieved
 
     def _admit(self, prompt: str, deadline: Optional[Deadline],
-               fut: asyncio.Future, span: Any, qspan: Any) -> None:
+               fut: asyncio.Future, span: Any, qspan: Any,
+               t_enq: float) -> None:
+        _note_preempt(self, t_enq)
         # Shed before prefill: a queue-expired request never enters the
         # engine.
         if deadline is not None and deadline.expired:
@@ -764,9 +872,15 @@ class PagedQueue:
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()
         while True:
-            # Idle: block until a request arrives, then admit it plus any
-            # companions that queued behind it.
-            self._admit(*await self._incoming.get())
+            # Idle: block until a request arrives (or, with the scoring
+            # tenant, run one quantum a round and re-check arrivals at its
+            # boundary), then admit it plus any companions that queued
+            # behind it. Scoring runs only HERE: the engine holds no work
+            # at the idle wait, so a quantum never meets a live decode.
+            item = await _next_item(self, self._incoming)
+            if item is None:
+                continue  # a scoring quantum ran; arrivals re-checked
+            self._admit(*item)
             while self.engine.has_work:
                 self._drain_incoming()
                 self._shed_expired_pending()

@@ -21,16 +21,20 @@ engine.py`, on one CUDA device (or the CPU when the caller asks for it):
   kernel has a window variant for the k+1 verify rows, the prompt's left
   padding going in as the bias the rows share. The kernel takes windows
   of up to `ops.attention.MAX_WINDOW` rows, so with fused attention
-  `spec_tokens` above MAX_WINDOW - 1 raises at construction.
+  `spec_tokens` above MAX_WINDOW - 1 raises at construction;
+- `score()` is the scoring tenant's log-likelihood entry
+  (`engine/scoring.py`): a full-sequence forward over right-padded
+  (batch bucket, length bucket) shapes. With `scoring` on, warmup runs
+  every such shape once (`score_shapes`).
 
 Options of the JAX engine that the port does not carry yet (tensor/expert/
-sequence parallelism, the scoring tenant) raise `NotImplementedError` at
-construction.
+sequence parallelism) raise `NotImplementedError` at construction.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -44,6 +48,12 @@ from ..ops import attention as attention_ops
 from ..utils import tokenizer as tok_lib
 from .generate import GenerateResult, decode, pick_bucket, prefill
 from .sampling import SamplingParams
+from .scoring import (
+    derive_score_shapes,
+    score_program,
+    score_texts,
+    warm_score,
+)
 from .spec import decode_spec
 
 # Speculative draft sources (EngineConfig.draft_source).
@@ -80,6 +90,7 @@ class EngineConfig:
     # continuation) or "ngram" (the slot's modal-continuation table, the
     # paged engine only).
     draft_source: str = "prompt_lookup"
+    # The scoring tenant: warmup covers the score program's shapes.
     scoring: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
@@ -89,10 +100,10 @@ class EngineConfig:
 
 def refuse_unported(config: EngineConfig) -> None:
     """Raise for the EngineConfig options the port does not carry yet (both
-    engines)."""
+    engines). Scoring with sp > 1 (ring-attention scoring) is refused with
+    sp."""
     unported = {
         "tp": config.tp > 1, "ep": config.ep > 1, "sp": config.sp > 1,
-        "scoring": config.scoring,
     }
     named = [k for k, on in unported.items() if on]
     if named:
@@ -175,8 +186,17 @@ class TutoringEngine:
         # Decode steps (model calls after prefill; verify windows under
         # speculation) run by generate_ids.
         self.decode_steps = 0
-        # (program, wall-clock start, seconds) per answer_batch device batch.
+        # (program, wall-clock start, seconds) per answer_batch device batch
+        # and per score batch.
         self._prog_times: List[Tuple[str, float, float]] = []
+        # The scoring tenant's program and the shapes warmup runs it at
+        # (none unless `config.scoring`).
+        self._score = functools.partial(score_program, cfg=self.cfg,
+                                        model=self.family)
+        self.score_shapes: List[Tuple[int, int]] = (
+            derive_score_shapes(config.length_buckets, config.batch_buckets,
+                                self.cfg.max_position_embeddings)
+            if config.scoring else [])
 
     _PROG_TIMES_MAX = 1024
 
@@ -224,14 +244,37 @@ class TutoringEngine:
 
     def warmup(self, batch: int = 8, bucket: Optional[int] = None) -> float:
         """Run one batch through both phases (first CUDA/cuBLAS calls and
-        the kernel build happen here, not on a request); returns seconds."""
+        the kernel build happen here, not on a request), then, with
+        `config.scoring`, the score program at each of `score_shapes`;
+        returns seconds."""
         bucket = min(bucket or self.config.length_buckets[0],
                      self._max_prompt_len())
         t0 = time.monotonic()
         ids = np.zeros((batch, bucket), np.int32)
         mask = np.ones((batch, bucket), bool)
         self.generate_ids(ids, mask)
+        self._warm_score()
         return time.monotonic() - t0
+
+    @property
+    def score_batch_cap(self) -> int:
+        """Texts a single-dispatch score quantum holds (the largest batch
+        bucket): the scoring tenant's preemption granularity."""
+        return max(self.config.batch_buckets)
+
+    def score(self, texts: Sequence[str]) -> List[dict]:
+        """Log-likelihood scoring: per text, the total next-token log
+        probability, the token count, the perplexity and a `truncated`
+        flag (True when the text exceeded the length limit and only its
+        prefix was scored). A full-sequence forward with no cache; groups
+        larger than the biggest batch bucket run as several device batches
+        (`engine/scoring.py`)."""
+        return score_texts(self, texts)
+
+    def _warm_score(self) -> int:
+        """Run the score program over its (batch bucket x length bucket)
+        domain; a no-op when scoring is off."""
+        return warm_score(self)
 
     @torch.inference_mode()
     def generate_ids(self, ids: np.ndarray, mask: np.ndarray,

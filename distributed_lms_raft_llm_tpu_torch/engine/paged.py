@@ -84,8 +84,14 @@ a slot emits 1 to k+1 tokens a window and the host walks them from the
 k-1 overhang. On the card the verify chunk is captured per width like
 the decode chunk.
 
+The scoring tenant (`score()`, `engine/scoring.py`), as in the JAX package:
+a full-sequence forward outside the slot state, warmed at each of
+`score_shapes` when `scoring` is on, after the graphs are captured (never
+inside a capture). The serving queue runs it only while the engine has no
+work, so no dispatch is in flight beside it.
+
 Options of the JAX engine not ported yet raise `NotImplementedError` at
-construction: tp/ep/sp and the scoring tenant.
+construction: tp/ep/sp.
 """
 
 from __future__ import annotations
@@ -133,6 +139,12 @@ from .sampling import (
     sample_step,
     seen_mask_from_ids,
     update_seen,
+)
+from .scoring import (
+    derive_score_shapes,
+    score_program,
+    score_texts,
+    warm_score,
 )
 
 log = logging.getLogger(__name__)
@@ -729,6 +741,14 @@ class PagedEngine:
         self._admission = functools.partial(
             _admission_chunk, eos_id=eos, pad_id=pad,
             prefill_chunk=self.prefill_chunk, **statics)
+        # The scoring tenant's program and the shapes warmup runs it at
+        # (none unless `config.scoring`).
+        self._score = functools.partial(score_program, cfg=self.cfg,
+                                        model=self.family)
+        self.score_shapes: List[Tuple[int, int]] = (
+            derive_score_shapes(config.length_buckets, config.batch_buckets,
+                                self.cfg.max_position_embeddings)
+            if config.scoring else [])
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         # The one allocation of every state plane, at the widest width;
@@ -978,7 +998,9 @@ class PagedEngine:
         fused admission an admission chunk: a rung-K megastep replays them
         K times, so this covers every rung). Then one ghost request is
         drained and the generator is seeded again, so serving draws the
-        same numbers with or without graphs. Returns seconds."""
+        same numbers with or without graphs. With `scoring` on, the score
+        program runs at each of `score_shapes` once the graphs are
+        captured. Returns seconds."""
         t0 = time.monotonic()
         for width in self.widths:
             self.state = self._init_state(width)
@@ -1001,6 +1023,7 @@ class PagedEngine:
                 self._capture(width)
             else:
                 self._run_eager([self.fused])
+        self._warm_score()
         self.reset()
         rid = self.submit("warmup")
         self.drain()
@@ -1031,6 +1054,24 @@ class PagedEngine:
             admission = ChunkGraph(
                 lambda: self._admission(self.params, state))
         self._graphs[width] = (decode, admission)
+
+    def _warm_score(self) -> int:
+        """Run the score program over its (batch bucket x length bucket)
+        domain; a no-op when scoring is off."""
+        return warm_score(self)
+
+    @property
+    def score_batch_cap(self) -> int:
+        """Texts a single-dispatch score quantum holds (the largest batch
+        bucket): the scoring tenant's preemption granularity."""
+        return max(self.config.batch_buckets)
+
+    def score(self, texts: Sequence[str]) -> List[dict]:
+        """Log-likelihood scoring (`engine/scoring.py`): per text the
+        logprob, tokens, perplexity and a `truncated` flag. The scoring
+        tenant's quantum calls this with at most `score_batch_cap` texts:
+        one forward and one readback."""
+        return score_texts(self, texts)
 
     @property
     def has_work(self) -> bool:

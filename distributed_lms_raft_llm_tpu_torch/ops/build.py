@@ -37,6 +37,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
 # name -> (seconds, compiler output) of the build this process ran.
 build_logs: Dict[str, Tuple[float, str]] = {}  # guarded-by: _lock
+# nvcc runs this process started: a warmed server's work must not add any.
+builds = 0  # guarded-by: _lock
 
 
 def nvcc_path() -> str:
@@ -63,6 +65,7 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, ctypes.CDLL]:
     """Compile every named kernel (by default all of them) not yet built,
     one `nvcc` per source, all started together; then load them. Returns
     name -> library."""
+    global builds
     with _lock:
         todo: List[Tuple[str, Path, Path, subprocess.Popen, float]] = []
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -78,6 +81,7 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, ctypes.CDLL]:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             todo.append((name, tmp, so, proc, time.monotonic()))
+            builds += 1
         failures = []
         for name, tmp, so, proc, t0 in todo:
             out, _ = proc.communicate()

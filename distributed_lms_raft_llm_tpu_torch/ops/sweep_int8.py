@@ -15,7 +15,7 @@ the 49 products of one decode model call (12 layers of distinct weights,
 124 MB). The relevance gate's products too: BERT-base's four products
 have GPT-2 small's dense shapes, at the gate's rows (texts x length
 bucket, GATE_ROWS), then one int8 gate forward's 48 products at each of
-those M. With `--splits`: the dense products at M=16 at each forced K
+those M. The scoring tenant's rows (SCORE_ROWS) through all five. With `--splits`: the dense products at M=16 at each forced K
 split instead. One JSON line a case, then the card's `nvidia-smi` name
 and power limit.
 
@@ -57,6 +57,10 @@ INT8_PRODUCTS = {
 GATE_ROWS = (128, 1024)
 GATE_PRODUCTS = tuple(name for name, (_, _, transposed)
                       in INT8_PRODUCTS.items() if not transposed)
+# The scoring tenant's rows: a quantum of 8 texts at length buckets 64 (the
+# bulk corpus's 48-token texts) and 256 (the widest), M = 512 and 2,048,
+# through all five products.
+SCORE_ROWS = (512, 2048)
 
 # Tolerances of the int8 matmul against its plain version, relative to
 # each element (rtol) and to the output's largest magnitude (atol). float32
@@ -276,6 +280,8 @@ def main(argv=None) -> int:
         cases = [(name, int(m)) for name in INT8_PRODUCTS
                  for m in args.m.split(",")]
         cases += [(name, m) for name in GATE_PRODUCTS for m in GATE_ROWS
+                  if (name, m) not in cases]
+        cases += [(name, m) for name in INT8_PRODUCTS for m in SCORE_ROWS
                   if (name, m) not in cases]
         calls = [{}] + [dict(m=m, unembed=False) for m in GATE_ROWS]
     for name, m in cases:

@@ -13,25 +13,39 @@ the continuous-batching `PagedEngine` through `PagedQueue`.
 chunk) and tutoring sessions (`session_id`: turn N+1 extends turn N's
 transcript, whose KV the paged engine's prefix cache keeps pinned).
 With ``--metrics-port`` the node serves `/healthz`, `/metrics`,
-`/metrics.prom`, ``POST /admin/drain`` and ``GET /admin/trace[/<id>]``;
-every RPC continues the caller's `x-trace-context`.
+`/metrics.prom`, ``POST /admin/drain``, ``GET /admin/trace[/<id>]`` and
+``GET /admin/timeline`` (the telemetry ring, `utils/timeline.py`; off with
+``--no-telemetry``); every RPC continues the caller's `x-trace-context`.
+A heartbeat watchdog on the serving loop reports `serving_tick_lag` and
+`serving_tick_stalls`.
 
-Run (on the card; ``--device cpu`` for a CPU run):
+With ``--scoring`` the node runs the background bulk-scoring tenant
+(`engine/scoring.py`): warmup covers the score program's shapes, ``POST
+/admin/score {"texts": [...], "purpose": ..., "job_id": ...}`` queues a
+job, ``GET /admin/score[/<id>]`` reads it back, and quanta run only while
+no interactive request waits. The JAX package's LMS sends its bulk-grading
+jobs here (`TutoringPool.submit_score_job`).
+
+Run (on the card; ``--device cpu`` for a CPU run), from the deployment
+file (explicit flags win over it):
 
     python -m distributed_lms_raft_llm_tpu_torch.serving.tutoring_server \\
-        [--port 50054] [--model gpt2] [--checkpoint model.safetensors ...]
+        --config configs/cluster.toml [--metrics-port 9104]
 
-The production tutoring node (configs/cluster.toml ``[tutoring]``):
-``--paged --quant int8 --kv-quant --slots 16 --chunk 16 --inflight 3
---megastep 4 --megastep-max 8 --prefix-cache --prefix-cache-blocks 512
---prefill-chunk-tokens 32``, and with speculative decoding (commented out
-there) ``--spec-tokens 8 --draft-source prompt_lookup``. On the card the
-paged engine's warmup captures its CUDA graphs before the server listens,
-so ``--no-warmup`` is refused with ``--paged`` there.
+or with flags alone: ``[--port 50054] [--model gpt2] [--checkpoint
+model.safetensors ...]``. The production tutoring node (configs/
+cluster.toml ``[tutoring]``, ``[scoring]``): ``--paged --quant int8
+--kv-quant --slots 16 --chunk 16 --inflight 3 --megastep 4 --megastep-max 8
+--prefix-cache --prefix-cache-blocks 512 --prefill-chunk-tokens 32
+--scoring``, and with speculative decoding (commented out there)
+``--spec-tokens 8 --draft-source prompt_lookup``. On the card the paged
+engine's warmup captures its CUDA graphs before the server listens, so
+``--no-warmup`` is refused with ``--paged`` there.
 
-Not ported yet, and so refused as unknown flags: the scoring tenant
-(``--scoring``; ``/admin/score`` answers 404, as on a JAX node without a
-scorer), the telemetry timeline, tp/ep.
+Not ported yet: tp and ep above 1 (the engines raise), approximate top-k
+(``--approx-topk`` and ``[sampling] approx_top_k = true`` are refused),
+and the JAX node's ``--strict-dispatch`` and ``--jax-platform`` (unknown
+flags here).
 """
 
 from __future__ import annotations
@@ -55,9 +69,12 @@ from ..engine import (
     SamplingParams,
     TutoringEngine,
 )
+from ..config import apply_file_defaults, load_config
 from ..engine.engine import DRAFT_SOURCES
+from ..engine.scoring import ScoringManager, score_admin_get
 from ..proto import lms_pb2, rpc
 from ..utils import auth
+from ..utils.guards import make_serving_watchdog
 from ..utils.healthz import HealthServer
 from ..utils.metrics import Metrics
 from ..utils.resilience import (
@@ -67,14 +84,21 @@ from ..utils.resilience import (
     DeadlineExpired,
     Overloaded,
 )
-from ..utils.tracing import get_tracer, trace_admin_get, traced_grpc_handler
+from ..utils.timeline import TimelineSampler, timeline_admin_get
+from ..utils.tracing import (
+    configure_from,
+    get_tracer,
+    trace_admin_get,
+    traced_grpc_handler,
+)
 from .prompts import FOLLOWUP_TEMPLATE, PROMPT_TEMPLATE
 
 log = logging.getLogger("tutoring_server")
 
 __all__ = ["FOLLOWUP_TEMPLATE", "PROMPT_TEMPLATE", "TutoringService",
            "build_parser", "engine_from_args", "make_tutoring_admin",
-           "make_tutoring_health", "serve_async", "main"]
+           "make_tutoring_health", "resolve_args", "serve_args",
+           "serve_async", "main"]
 
 DRAINING = "draining: this tutoring node is not admitting new work"
 
@@ -308,20 +332,34 @@ class TutoringService(rpc.TutoringServicer):
                                     "stream broken mid-answer")
 
 
-def make_tutoring_admin(service: TutoringService):
+def make_tutoring_admin(service: TutoringService, scorer=None):
     """POST handler of the node's admin plane.
 
     POST /admin/drain {"drain": true|false} stops or resumes admission;
     in-flight work finishes, and the fleet router takes the node out of
-    its ring while it drains. Every other path answers 404, /admin/score
-    included (the scoring tenant is not ported; a JAX node without a
-    scorer answers the same)."""
+    its ring while it drains.
+
+    POST /admin/score {"texts": [...], "purpose": "grading"|...,
+    "job_id"?} queues one bulk job on the scoring tenant (idempotent on
+    job_id); progress and results are read back at GET
+    /admin/score[/<job-id>]. 404 without the tenant, as on a JAX node."""
 
     async def admin(path: str, body: dict) -> dict:
         if path == "/admin/drain":
             service.set_draining(bool(body.get("drain", True)))
             return {"ok": True, "draining": service.draining,
                     "node_id": service.node_id}
+        if path == "/admin/score":
+            if scorer is None:
+                raise KeyError(path)  # scoring tenant off: 404
+            texts = body.get("texts")
+            if not isinstance(texts, list):
+                raise ValueError("score job needs 'texts': [str, ...]")
+            job = scorer.submit(
+                texts, purpose=str(body.get("purpose", "adhoc")),
+                job_id=(str(body["job_id"]) if body.get("job_id")
+                        else None))
+            return {"ok": True, "node_id": service.node_id, **job}
         raise KeyError(path)
 
     return admin
@@ -329,12 +367,13 @@ def make_tutoring_admin(service: TutoringService):
 
 def make_tutoring_health(service: TutoringService, queue, engine_name: str,
                          max_queue: int, spec_tokens: int = 0,
-                         draft_source: str = "prompt_lookup"):
+                         draft_source: str = "prompt_lookup", scorer=None):
     """/healthz provider: admission pressure and the fleet lifecycle (the
     router's health poller reads `draining`, `queued` and `node_id`); a
-    speculating node adds its `spec_tokens` and `draft_source`, as a JAX
-    node adds its scoring block only when it scores, so a node without
-    speculation answers with the JAX node's fields alone."""
+    speculating node adds its `spec_tokens` and `draft_source`, and a
+    scoring node its tenant's stats (`scoring`), as a JAX node adds its
+    scoring block only when it scores, so a node without either answers
+    with the JAX node's fields alone."""
 
     def health() -> dict:
         doc = {
@@ -348,6 +387,8 @@ def make_tutoring_health(service: TutoringService, queue, engine_name: str,
         }
         if spec_tokens > 0:
             doc.update(spec_tokens=spec_tokens, draft_source=draft_source)
+        if scorer is not None:
+            doc["scoring"] = scorer.stats()
         return doc
 
     return health
@@ -360,25 +401,46 @@ async def serve_async(port: int, engine, *,
                       node_id: Optional[str] = None,
                       metrics_port: Optional[int] = None,
                       session_ttl_s: float = 600.0, session_max: int = 256,
+                      telemetry: bool = True,
+                      telemetry_interval_s: float = 1.0,
+                      telemetry_ring: int = 600,
+                      scoring: bool = False,
+                      scoring_max_job_texts: int = 4096,
+                      scoring_jobs_retained: int = 32,
+                      scoring_chip_ceiling: Optional[float] = None,
                       host: str = "[::]") -> grpc.aio.Server:
     """Start (and return) the aio server; the caller awaits termination.
 
     A `PagedEngine` is served through `PagedQueue` (continuous batching:
     requests join the running batch between dispatches), a
-    `TutoringEngine` through `BatchingQueue`. The bound port is
-    `server._port`. With `metrics_port` (0 = any free port) the health
-    plane listens on 127.0.0.1 (`server._health.port`): /healthz,
-    /metrics, /metrics.prom, POST /admin/drain, GET /admin/trace[/<id>].
-    Shut down with ``await server.stop(grace)`` (which stops the health
-    plane too) then ``await server._queue.close()``.
+    `TutoringEngine` through `BatchingQueue`. `scoring` attaches the
+    background bulk-scoring tenant (`server._scorer`, an
+    `engine/scoring.ScoringManager`) to the queue; `scoring_chip_ceiling`
+    is the operator's saturation figure behind `scoring_utilization`
+    (None: the gauge is not set). `telemetry` starts the timeline sampler
+    (`server._telemetry_sampler`). A heartbeat watchdog runs on the loop
+    (`server._watchdog`). The bound port is `server._port`. With
+    `metrics_port` (0 = any free port) the health plane listens on
+    127.0.0.1 (`server._health.port`): /healthz, /metrics, /metrics.prom,
+    POST /admin/drain, POST /admin/score, GET /admin/trace[/<id>],
+    /admin/score[/<id>] and /admin/timeline. Shut down with ``await
+    server.stop(grace)`` (which stops the health plane, the sampler and
+    the watchdog too) then ``await server._queue.close()``.
     """
     metrics = metrics or Metrics()
+    scorer = None
+    if scoring:
+        scorer = ScoringManager(
+            engine, metrics=metrics, max_job_texts=scoring_max_job_texts,
+            jobs_retained=scoring_jobs_retained,
+            chip_ceiling_tokens_per_s=scoring_chip_ceiling)
     if isinstance(engine, PagedEngine):
-        queue = PagedQueue(engine, metrics=metrics, max_queue=max_queue)
+        queue = PagedQueue(engine, metrics=metrics, max_queue=max_queue,
+                           scorer=scorer)
     else:
         queue = BatchingQueue(engine, max_batch=max_batch,
                               max_wait_ms=max_wait_ms, metrics=metrics,
-                              max_queue=max_queue)
+                              max_queue=max_queue, scorer=scorer)
     await queue.start()
     server = grpc.aio.server(
         options=[
@@ -394,13 +456,31 @@ async def serve_async(port: int, engine, *,
     await server.start()
     server._queue = queue
     server._service = service
+    server._scorer = scorer
     server._health = None
+    # A handler or a queue step that blocks the loop shows up as
+    # serving_tick_lag / serving_tick_stalls.
+    server._watchdog = make_serving_watchdog(metrics)
+    watchdog_task = asyncio.get_running_loop().create_task(
+        server._watchdog.run())
+    # The node's telemetry ring, served at GET /admin/timeline (the JAX
+    # package's scripts/telemetry.py merges it with the other nodes').
+    sampler = None
+    if telemetry:
+        sampler = TimelineSampler(metrics, interval_s=telemetry_interval_s,
+                                  max_points=telemetry_ring).start()
+    server._telemetry_sampler = sampler
     if metrics_port is not None:
 
         async def admin_get(path: str) -> dict:
             # GET /admin/trace[/<id>]: this node's trace fragments (the
             # engine spans live here; the JAX package's trace_report merges
             # them with the LMS nodes' into one waterfall).
+            if path == "/admin/score" or path.startswith("/admin/score/"):
+                return score_admin_get(path, scorer)
+            if path == "/admin/timeline":
+                return timeline_admin_get(
+                    path, None if sampler is None else sampler.timeline)
             return trace_admin_get(path)
 
         health = HealthServer(
@@ -408,25 +488,35 @@ async def serve_async(port: int, engine, *,
             health=make_tutoring_health(
                 service, queue, type(engine).__name__, max_queue,
                 spec_tokens=engine.config.spec_tokens,
-                draft_source=engine.config.draft_source),
-            admin=make_tutoring_admin(service), admin_get=admin_get,
-            port=metrics_port)
+                draft_source=engine.config.draft_source, scorer=scorer),
+            admin=make_tutoring_admin(service, scorer=scorer),
+            admin_get=admin_get, port=metrics_port)
         log.info("health/metrics endpoint on http://127.0.0.1:%d",
                  await health.start())
         server._health = health
-        grpc_stop = server.stop
+    grpc_stop = server.stop
 
-        async def stop(grace):
-            await health.stop()
-            return await grpc_stop(grace)
+    async def stop(grace):
+        watchdog_task.cancel()
+        await asyncio.gather(watchdog_task, return_exceptions=True)
+        if sampler is not None:
+            sampler.stop()
+        if server._health is not None:
+            await server._health.stop()
+        return await grpc_stop(grace)
 
-        server.stop = stop
+    server.stop = stop
     log.info("tutoring server listening on %d", server._port)
     return server
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--config", default=None,
+                        help="TOML deployment file (config.py: [tutoring], "
+                        "[sampling], [scoring], [sessions], [resilience], "
+                        "[tracing], [telemetry]); explicit flags override "
+                        "it")
     parser.add_argument("--port", type=int, default=50054)
     parser.add_argument("--model", default="gpt2",
                         help="preset: gpt2 (GPT-2 small) or tiny")
@@ -435,6 +525,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "seeded random weights)")
     parser.add_argument("--vocab", default=None, help="GPT-2 vocab.json")
     parser.add_argument("--merges", default=None, help="GPT-2 merges.txt")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel ways (above 1 not ported: "
+                        "the engine raises)")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert-parallel ways (above 1 not ported: "
+                        "the engine raises)")
+    parser.add_argument("--approx-topk", action="store_true",
+                        help="approximate top-k sampling: not ported, "
+                        "refused (the port samples the exact top-k)")
     parser.add_argument("--max-new-tokens", type=int, default=128)
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--max-wait-ms", type=float, default=10.0)
@@ -515,21 +614,99 @@ def build_parser() -> argparse.ArgumentParser:
                         " prompt_lookup = most recent n-gram continuation; "
                         "ngram = per-slot modal-continuation table (paged "
                         "only)")
+    parser.add_argument("--scoring", action="store_true",
+                        help="background bulk-scoring tenant "
+                        "(engine/scoring.py): warmup covers the score "
+                        "program's shapes and preemptible score quanta run "
+                        "in idle lanes (POST/GET /admin/score on the "
+                        "metrics plane; quanta run only while no "
+                        "interactive request waits)")
+    parser.add_argument("--scoring-max-job-texts", type=int, default=4096,
+                        help="admission cap per bulk score job (texts)")
+    parser.add_argument("--scoring-jobs-retained", type=int, default=32,
+                        help="finished score jobs kept for GET /admin/score")
+    parser.add_argument("--no-telemetry", action="store_true",
+                        help="no telemetry timeline (sampler thread and GET "
+                        "/admin/timeline)")
+    parser.add_argument("--telemetry-interval", type=float, default=1.0,
+                        help="telemetry timeline sample interval, seconds")
+    parser.add_argument("--telemetry-ring", type=int, default=600,
+                        help="telemetry timeline ring length (samples)")
     return parser
 
 
+def resolve_args(argv=None) -> argparse.Namespace:
+    """Parse the flags and, with --config, fill every flag the command
+    line left out from the deployment file, as the JAX node does
+    (`config.apply_file_defaults`: explicit flags win). Also sets what the
+    node reads from the file beside its flags: `sampling_overrides`
+    ([sampling] beyond max_new_tokens), `scoring_chip_ceiling` ([telemetry]
+    chip_ceiling_tokens_per_s; None without a file), `telemetry` and
+    `tracing` (the [tracing] section, or None)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    args.telemetry = not args.no_telemetry
+    args.sampling_overrides = {}
+    args.scoring_chip_ceiling = None
+    args.tracing = None
+    if args.config:
+        cfg = load_config(args.config)
+        t, s = cfg.tutoring, cfg.sampling
+        apply_file_defaults(args, parser, {
+            "port": t.port, "model": t.model, "checkpoint": t.checkpoint,
+            "vocab": t.vocab, "merges": t.merges, "tp": t.tp, "ep": t.ep,
+            "quant": t.quant, "max_new_tokens": s.max_new_tokens,
+            "max_batch": t.max_batch, "max_wait_ms": t.max_wait_ms,
+            "queue_depth": cfg.resilience.queue_depth,
+            "slots": t.slots, "chunk": t.chunk,
+            "megastep": t.megastep, "megastep_max": t.megastep_max,
+            "inflight": t.inflight, "prefix_cache": t.prefix_cache,
+            "prefix_cache_blocks": t.prefix_cache_blocks,
+            "prefill_chunk_tokens": t.prefill_chunk_tokens,
+            "draft_source": t.draft_source,
+            "auth_key_file": t.auth_key_file,
+            # store_true flags merge the same way: presence in argv marks
+            # them explicit, so the file fills only absent ones.
+            "kv_quant": t.kv_quant, "paged": t.paged,
+            "approx_topk": s.approx_top_k, "spec_tokens": t.spec_tokens,
+            "scoring": cfg.scoring.enabled,
+            "scoring_max_job_texts": cfg.scoring.max_job_texts,
+            "scoring_jobs_retained": cfg.scoring.jobs_retained,
+            "telemetry_interval": cfg.telemetry.sample_interval_s,
+            "telemetry_ring": cfg.telemetry.ring_points,
+            "session_ttl": cfg.sessions.ttl_s,
+            "session_max": cfg.sessions.max_sessions,
+        }, argv=argv)
+        args.scoring_chip_ceiling = cfg.telemetry.chip_ceiling_tokens_per_s
+        if not args.no_telemetry:
+            args.telemetry = cfg.telemetry.enabled
+        args.sampling_overrides = dict(
+            temperature=s.temperature, top_k=s.top_k, top_p=s.top_p,
+            repetition_penalty=s.repetition_penalty)
+        args.tracing = cfg.tracing
+    return args
+
+
 def engine_from_args(args: argparse.Namespace):
-    """The engine the parsed flags ask for, not yet warmed."""
+    """The engine the parsed (and resolved, `resolve_args`) flags ask for,
+    not yet warmed."""
+    if args.approx_topk:
+        raise ValueError(
+            "approximate top-k (--approx-topk, [sampling] approx_top_k) is "
+            "not ported: the port samples the exact top-k; drop the flag "
+            "or set approx_top_k = false")
     # bf16 weights and activations on the card; float32 on the CPU.
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     config = EngineConfig(
         model=args.model, checkpoint=args.checkpoint,
         vocab_path=args.vocab, merges_path=args.merges,
         sampling=SamplingParams.reference_defaults(
-            max_new_tokens=args.max_new_tokens),
+            max_new_tokens=args.max_new_tokens,
+            **getattr(args, "sampling_overrides", {})),
         seed=args.seed, device=args.device, dtype=dtype, param_dtype=dtype,
-        quant=args.quant, kv_quant=args.kv_quant,
+        tp=args.tp, ep=args.ep, quant=args.quant, kv_quant=args.kv_quant,
         spec_tokens=args.spec_tokens, draft_source=args.draft_source,
+        scoring=args.scoring,
     )
     if args.paged:
         if args.no_warmup and torch.device(args.device).type == "cuda":
@@ -552,12 +729,39 @@ def engine_from_args(args: argparse.Namespace):
     return TutoringEngine(config)
 
 
+async def serve_args(args: argparse.Namespace, engine,
+                     host: str = "[::]") -> grpc.aio.Server:
+    """`serve_async` with what the resolved flags (`resolve_args`) ask for:
+    what `main` serves, for a caller that builds and warms the engine
+    itself."""
+    auth_key = None
+    if args.auth_key_file:
+        with open(args.auth_key_file) as fh:
+            auth_key = fh.read().strip()
+    return await serve_async(
+        args.port, engine, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, max_queue=args.queue_depth,
+        auth_key=auth_key, node_id=args.node_id or f"tut-{args.port}",
+        metrics_port=args.metrics_port,
+        session_ttl_s=args.session_ttl, session_max=args.session_max,
+        telemetry=args.telemetry,
+        telemetry_interval_s=args.telemetry_interval,
+        telemetry_ring=args.telemetry_ring, scoring=args.scoring,
+        scoring_max_job_texts=args.scoring_max_job_texts,
+        scoring_jobs_retained=args.scoring_jobs_retained,
+        scoring_chip_ceiling=args.scoring_chip_ceiling, host=host)
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    args = resolve_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
+    if args.tracing is not None:
+        # The process tracer from [tracing], before any request opens a
+        # span.
+        configure_from(args.tracing)
     engine = engine_from_args(args)
     if isinstance(engine, PagedEngine):
         warm = engine.warmup
@@ -565,19 +769,9 @@ def main(argv=None) -> None:
         warm = functools.partial(engine.warmup, batch=args.max_batch)
     if not args.no_warmup:
         log.info("warmup took %.1fs", warm())
-    auth_key = None
-    if args.auth_key_file:
-        with open(args.auth_key_file) as fh:
-            auth_key = fh.read().strip()
 
     async def run():
-        server = await serve_async(
-            args.port, engine, max_batch=args.max_batch,
-            max_wait_ms=args.max_wait_ms, max_queue=args.queue_depth,
-            auth_key=auth_key, node_id=args.node_id or f"tut-{args.port}",
-            metrics_port=args.metrics_port,
-            session_ttl_s=args.session_ttl, session_max=args.session_max,
-        )
+        server = await serve_args(args, engine)
         try:
             await server.wait_for_termination()
         finally:

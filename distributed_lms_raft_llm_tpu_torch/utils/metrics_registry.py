@@ -155,7 +155,78 @@ SPECS: Dict[str, Tuple[str, str]] = {
         "bucketed-engine generate dispatch wall time (one grouped "
         "device batch, prefill through last token)"
     )),
+    # The background bulk-scoring tenant (engine/scoring.py and the
+    # co-scheduler in engine/batcher.py).
+    "scoring_tokens_per_s": (GAUGE, (
+        "recent background-scoring throughput: tokens scored per second "
+        "over the last few seconds of quanta — the scoring tenant's half "
+        "of the tenant-split utilization view (serving_tokens_per_s is "
+        "the interactive half)"
+    )),
+    # The JAX help names a TPU ceiling; the port has no default ceiling
+    # and sets this gauge only where the operator gives one.
+    "scoring_utilization": (GAUGE, (
+        "scoring_tokens_per_s as a fraction of the operator's chip "
+        "saturation ceiling ([telemetry] chip_ceiling_tokens_per_s); not "
+        "set on a node started without one"
+    )),
+    "scoring_quanta": (COUNTER, (
+        "single-dispatch scoring quanta executed (one batch-bucket "
+        "forward each — the preemption granularity interactive arrivals "
+        "wait behind at most one of)"
+    )),
+    "scoring_scored_tokens": (COUNTER, (
+        "corpus tokens the background tenant has scored (bulk grading / "
+        "relevance / calibration texts; the cumulative companion of the "
+        "scoring_tokens_per_s gauge)"
+    )),
+    "scoring_jobs_completed": (COUNTER, (
+        "bulk score jobs run to completion by the background tenant"
+    )),
+    "scoring_jobs_failed": (COUNTER, (
+        "bulk score jobs that failed (the job fails; the serving loop and "
+        "other jobs keep going)"
+    )),
+    "score_truncated_texts": (COUNTER, (
+        "scored texts longer than the length-bucket limit whose PREFIX "
+        "was scored (each carries a per-item truncated flag so relevance "
+        "evals can't silently read a prefix score as a full-document "
+        "score)"
+    )),
+    "score_preempt_wait_ms": (COUNTER, (
+        "milliseconds interactive requests waited behind an in-flight "
+        "scoring quantum before admission resumed (bounded by one "
+        "quantum per arrival — the scoring tenant's preemption-latency "
+        "account)"
+    )),
+    "engine_prog_score": (HISTOGRAM, (
+        "score program dispatch wall time (one background-scoring "
+        "quantum: a full-sequence batch-bucket forward — the preemption "
+        "granularity)"
+    )),
+    # The serving loop's heartbeat (utils/guards.py).
+    "serving_tick_lag": (HISTOGRAM, (
+        "how late the serving event loop's heartbeat ran versus its "
+        "schedule (a stall here means a handler blocked the loop)"
+    )),
+    "serving_tick_stalls": (COUNTER, (
+        "serving-loop heartbeats later than the stall threshold (each "
+        "also logged)"
+    )),
 }
+
+# The names the scoring tenant and the serving watchdog emit.
+SCORING_TOKENS_PER_S = "scoring_tokens_per_s"
+SCORING_UTILIZATION = "scoring_utilization"
+SCORING_QUANTA = "scoring_quanta"
+SCORING_SCORED_TOKENS = "scoring_scored_tokens"
+SCORING_JOBS_COMPLETED = "scoring_jobs_completed"
+SCORING_JOBS_FAILED = "scoring_jobs_failed"
+SCORE_TRUNCATED_TEXTS = "score_truncated_texts"
+SCORE_PREEMPT_WAIT_MS = "score_preempt_wait_ms"
+ENGINE_PROG_SCORE = "engine_prog_score"
+SERVING_TICK_LAG = "serving_tick_lag"
+SERVING_TICK_STALLS = "serving_tick_stalls"
 
 
 def is_declared(name: str) -> bool:

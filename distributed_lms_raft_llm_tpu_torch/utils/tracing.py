@@ -528,6 +528,15 @@ def configure(*, enabled: bool = True, ring_size: int = 256,
         max_spans_per_trace=max_spans_per_trace))
 
 
+def configure_from(cfg: Any) -> Tracer:
+    """`configure()` from a `config.TracingConfig` (`[tracing]`)."""
+    return configure(
+        enabled=cfg.enabled, ring_size=cfg.ring_size,
+        exemplars_per_route=cfg.exemplars_per_route,
+        flagged_max=cfg.flagged_max,
+        max_spans_per_trace=cfg.max_spans_per_trace)
+
+
 # --------------------------------------------------------------- adapters
 
 

@@ -23,6 +23,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.models import common as jax_common
 from distributed_lms_raft_llm_tpu.ops import attention as jax_attention

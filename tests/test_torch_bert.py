@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.models import bert as jax_bert
 from distributed_lms_raft_llm_tpu.models import convert as jax_convert

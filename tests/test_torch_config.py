@@ -1,0 +1,263 @@
+"""The port's tutoring node started from the deployment file, against the
+JAX node, and its telemetry plane.
+
+- For configs/cluster.toml and configs/dev.toml, every flag the JAX
+  node's `main` fills from the file through `apply_file_defaults` (the
+  overrides it passes are captured) resolves to the same value in the
+  port's `resolve_args`, and so do what both read from the file beside
+  their flags (the [sampling] overrides, the [sessions] knobs, the
+  telemetry switch). The one recorded difference: without a
+  `chip_ceiling_tokens_per_s` in the file the port has no ceiling (the
+  JAX default is a TPU figure).
+- An explicit flag beats the file on both nodes, also one given with its
+  parser default.
+- An unknown section, or an unknown key in any section (also those the
+  port does not parse), is refused by both loaders.
+- configs/dev.toml builds the port's paged engine with the file's options
+  and the scoring tenant on.
+- The telemetry timeline and the serving watchdog: the port's `Timeline`
+  folds snapshots into the JAX `Timeline`'s document (the JAX scraper's
+  `from_dict` reads it back), the sampler samples, `GET /admin/timeline`
+  serves it, and `LoopWatchdog` records lag and stalls as the JAX one does.
+"""
+
+import asyncio
+import json
+import time
+from pathlib import Path
+
+import pytest
+import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
+
+from distributed_lms_raft_llm_tpu import config as jax_config
+from distributed_lms_raft_llm_tpu.parallel import mesh as jax_mesh
+from distributed_lms_raft_llm_tpu.serving import tutoring_server as jax_server
+from distributed_lms_raft_llm_tpu.utils import guards as jax_guards
+from distributed_lms_raft_llm_tpu.utils import timeline as jax_timeline
+from distributed_lms_raft_llm_tpu.utils import tracing as jax_tracing
+from distributed_lms_raft_llm_tpu_torch import config
+from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+from distributed_lms_raft_llm_tpu_torch.utils import guards, timeline
+from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+
+REPO = Path(__file__).resolve().parent.parent
+FILES = {name: str(REPO / "configs" / f"{name}.toml")
+         for name in ("cluster", "dev")}
+
+
+class _Stop(Exception):
+    pass
+
+
+def jax_resolve(argv, monkeypatch):
+    """The JAX node's `main(argv)` up to its engine: (its args, the
+    overrides it passed to `apply_file_defaults`)."""
+    seen = {}
+    merge = jax_config.apply_file_defaults
+
+    def capture(args, parser, overrides, *, argv):
+        merge(args, parser, overrides, argv=argv)
+        seen.update(args=args, overrides=dict(overrides))
+
+    def stop():
+        raise _Stop
+
+    monkeypatch.setattr(jax_config, "apply_file_defaults", capture)
+    monkeypatch.setattr(jax_tracing, "configure_from", lambda cfg: None)
+    monkeypatch.setattr(jax_mesh, "initialize_multihost", stop)
+    with pytest.raises(_Stop):
+        jax_server.main(argv)
+    return seen["args"], seen["overrides"]
+
+
+@pytest.mark.parametrize("name", sorted(FILES))
+def test_config_resolves_what_the_jax_node_resolves(name, monkeypatch):
+    argv = ["--config", FILES[name]]
+    want, overrides = jax_resolve(argv, monkeypatch)
+    got = tutoring_server.resolve_args(argv)
+    assert len(overrides) == 31
+    for key in overrides:
+        assert getattr(got, key) == getattr(want, key), key
+    assert got.sampling_overrides == want.sampling_overrides
+    assert (got.session_ttl, got.session_max) == (want.session_ttl_s,
+                                                  want.session_max)
+    assert got.telemetry == want.telemetry is True
+    assert got.scoring is True and got.tracing is not None
+    # The one recorded difference: the ceiling comes from the file or not
+    # at all (the JAX default is a TPU saturation figure).
+    if name == "cluster":
+        assert got.scoring_chip_ceiling == want.scoring_chip_ceiling
+    else:
+        assert got.scoring_chip_ceiling is None
+        assert want.scoring_chip_ceiling > 0
+
+
+def test_explicit_flags_beat_the_file(monkeypatch):
+    # --inflight 2 is the parser default and the file says 3: explicit
+    # still wins.
+    argv = ["--config", FILES["cluster"], "--slots", "4", "--inflight", "2",
+            "--max-new-tokens", "16", "--scoring-jobs-retained", "3",
+            "--port", "6000"]
+    want, _ = jax_resolve(argv, monkeypatch)
+    got = tutoring_server.resolve_args(argv)
+    for key, value in (("slots", 4), ("inflight", 2), ("max_new_tokens", 16),
+                       ("scoring_jobs_retained", 3), ("port", 6000),
+                       ("megastep", 4), ("quant", "int8")):
+        assert getattr(got, key) == getattr(want, key) == value, key
+    assert got.session_ttl == 600.0  # no [sessions] in the file
+
+
+def test_explicit_session_flags_beat_the_file(tmp_path):
+    path = tmp_path / "s.toml"
+    path.write_text("[sessions]\nttl_s = 30.0\nmax_sessions = 8\n")
+    got = tutoring_server.resolve_args(["--config", str(path)])
+    assert (got.session_ttl, got.session_max) == (30.0, 8)
+    got = tutoring_server.resolve_args(["--config", str(path),
+                                        "--session-max", "2"])
+    assert (got.session_ttl, got.session_max) == (30.0, 2)
+
+
+@pytest.mark.parametrize("text,match", [
+    ("[tutorin]\nmodel = 'tiny'\n", "unknown section"),
+    ("[tutoring]\nslotz = 4\n", "slotz"),
+    ("[scoring]\nenable = true\n", "enable"),
+    ("[storage]\nfsyncc = 'never'\n", "fsyncc"),       # not parsed by the port
+    ("[cluster]\ndata_dirr = 'x'\n", "data_dirr"),      # nor this one
+    ("[telemetry]\nring_points = 1\n", "ring_points"),  # a bad value
+])
+def test_unknown_sections_and_keys_are_refused_by_both(text, match,
+                                                       tmp_path):
+    path = tmp_path / "bad.toml"
+    path.write_text(text)
+    for load in (jax_config.load_config, config.load_config):
+        with pytest.raises(ValueError, match=match):
+            load(str(path))
+
+
+@pytest.mark.parametrize("name", sorted(FILES))
+def test_both_deployment_files_load(name):
+    cfg = config.load_config(FILES[name])
+    ref = jax_config.load_config(FILES[name])
+    for section in ("tutoring", "sampling", "scoring", "sessions",
+                    "resilience", "tracing"):
+        assert (vars(getattr(cfg, section))
+                == vars(getattr(ref, section))), section
+
+
+def test_dev_file_builds_the_paged_scoring_node():
+    args = tutoring_server.resolve_args(
+        ["--config", FILES["dev"], "--device", "cpu"])
+    engine = tutoring_server.engine_from_args(args)
+    assert isinstance(engine, PagedEngine)
+    assert engine.config.model == "tiny" and engine.cfg.quant_kv
+    assert engine.config.scoring and engine.score_shapes
+    assert (engine.spec, engine.megastep_max, engine.prefill_chunk) == (
+        4, 4, 16)
+    assert engine.config.sampling.max_new_tokens == 32
+    assert engine.config.sampling.temperature == 0.7
+    assert engine.cfg.dtype == torch.float32
+
+
+# ------------------------------------------------- timeline and watchdog
+
+
+def _snapshots():
+    """Cumulative snapshots of a node, one a second: counters rising (one
+    reset, as after a restart), a gauge, a histogram."""
+    counts = [0, 5, 12, 3, 10]
+    return [{"counters": {"llm_requests": c, "scoring_quanta": 2 * i},
+             "gauges": {"serving_queue_depth": float(i)},
+             "latency": {"ttft": {"count": c, "p95_s": 0.1 * i}}}
+            for i, c in enumerate(counts)]
+
+
+def test_timeline_document_is_the_jax_timelines():
+    port, ref = timeline.Timeline(max_points=4), jax_timeline.Timeline(
+        max_points=4)
+    for i, snap in enumerate(_snapshots()):
+        port.append(snap, t=1000.0 + i)
+        ref.append(snap, t=1000.0 + i)
+    doc = port.to_dict()
+    assert doc == ref.to_dict()
+    assert len(doc["points"]) == 4  # the ring keeps the newest
+    assert doc["points"][2]["rates"]["llm_requests"] == 3.0  # the reset
+    back = jax_timeline.Timeline.from_dict(json.loads(json.dumps(doc)))
+    assert back.counter_rate("llm_requests", 10.0, now=1004.0) == 5.5
+
+
+def test_sampler_samples_and_stops():
+    metrics = Metrics()
+    sampler = timeline.TimelineSampler(metrics, interval_s=0.02).start()
+    for i in range(10):
+        metrics.inc("llm_requests")
+        time.sleep(0.01)
+    sampler.stop()
+    assert sampler.samples >= 2 and sampler._thread is None
+    assert len(sampler.timeline.points()) == sampler.samples
+    with pytest.raises(ValueError):
+        timeline.TimelineSampler(metrics, interval_s=0)
+
+
+def test_watchdog_records_as_the_jax_one():
+    snaps = []
+    for make in (guards.make_serving_watchdog,
+                 jax_guards.make_serving_watchdog):
+        metrics = Metrics()
+        dog = make(metrics, warn_above_s=0.25)
+        for lag in (0.01, 0.3, -1.0, 0.5):
+            dog.observe(lag)
+        assert (dog.stalls, dog.max_lag_s) == (2, 0.5)
+        snap = metrics.snapshot()
+        snaps.append((snap["counters"], snap["latency"]))
+    assert snaps[0] == snaps[1]
+    assert snaps[0][0] == {"serving_tick_stalls": 2}
+
+
+@pytest.mark.parametrize("telemetry", [True, False])
+def test_node_serves_its_timeline(telemetry):
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        SamplingParams,
+        TutoringEngine,
+    )
+
+    engine = TutoringEngine(EngineConfig(
+        model="tiny", sampling=SamplingParams.greedy(max_new_tokens=4),
+        dtype=torch.float32, param_dtype=torch.float32, device="cpu"))
+
+    async def get(port, path):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        head, _, body = raw.partition(b"\r\n\r\n")
+        return int(head.split()[1]), json.loads(body)
+
+    async def run():
+        server = await tutoring_server.serve_async(
+            0, engine, host="127.0.0.1", metrics_port=0,
+            telemetry=telemetry, telemetry_interval_s=0.05)
+        try:
+            await asyncio.sleep(0.12)  # the first sample seeds baselines
+            await server._service.GetLLMAnswer(
+                tutoring_server.lms_pb2.QueryRequest(query="raft?"), None)
+            await asyncio.sleep(0.3)
+            return await get(server._health.port, "/admin/timeline")
+        finally:
+            await server.stop(0)
+            await server._queue.close()
+            assert server._telemetry_sampler is None or (
+                server._telemetry_sampler._thread is None)
+
+    code, doc = asyncio.run(run())
+    if not telemetry:
+        assert code == 400 and "disabled" in doc["error"]
+        return
+    assert code == 200 and doc["ok"]
+    points = doc["timeline"]["points"]
+    assert len(points) >= 3
+    assert sum(p["rates"].get("llm_requests", 0.0) for p in points) > 0
+    assert any("serving_tick_lag" in p["hists"] for p in points)

@@ -23,6 +23,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.engine import EngineConfig as JaxEngineConfig
 from distributed_lms_raft_llm_tpu.engine import SamplingParams as JaxSampling
@@ -121,10 +122,11 @@ def test_sampled_generation_is_seeded():
 
 
 @pytest.mark.parametrize("option", [
-    # Speculative decoding is ported; over tensor parallelism (which the
-    # JAX engine composes it with) it is still refused.
+    # Speculative decoding and the scoring tenant are ported; over tensor
+    # or sequence parallelism (which the JAX engine composes them with)
+    # they are still refused.
     dict(tp=2), dict(ep=2), dict(sp=2), dict(spec_tokens=2, tp=2),
-    dict(scoring=True),
+    dict(scoring=True, sp=2),
 ])
 def test_unported_engine_options_raise(option):
     with pytest.raises(NotImplementedError):
@@ -269,6 +271,10 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.serving.tutoring_server\n"
         "import distributed_lms_raft_llm_tpu_torch.utils.tracing\n"
         "import distributed_lms_raft_llm_tpu_torch.utils.healthz\n"
+        "import distributed_lms_raft_llm_tpu_torch.config\n"
+        "import distributed_lms_raft_llm_tpu_torch.engine.scoring\n"
+        "import distributed_lms_raft_llm_tpu_torch.utils.guards\n"
+        "import distributed_lms_raft_llm_tpu_torch.utils.timeline\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -280,7 +286,8 @@ def test_port_imports_no_jax():
                    "models.bert", "engine.gate",
                    "engine.paged", "engine.batcher", "utils.tracing",
                    "utils.healthz", "utils.metrics_registry",
-                   "serving.tutoring_server"):
+                   "serving.tutoring_server", "config", "engine.scoring",
+                   "utils.guards", "utils.timeline"):
         assert f"distributed_lms_raft_llm_tpu_torch.{module}" in mods
     jax_mods = [m for m in mods if m == "jax" or m.startswith("jax.")]
     ref_mods = [m for m in mods if m == "distributed_lms_raft_llm_tpu"

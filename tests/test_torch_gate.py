@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.engine.gate import (
     GateConfig as JaxGateConfig,

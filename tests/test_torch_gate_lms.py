@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.client import LMSClient
 from distributed_lms_raft_llm_tpu.engine.gate import (

@@ -11,6 +11,7 @@ PyTorch and the CUDA toolkit:
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu_torch.ops import attention as port_attention
 from distributed_lms_raft_llm_tpu_torch.ops import sweep_attention
@@ -420,17 +421,20 @@ def _int8_inputs(card, dtype, m, k, n, transposed, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("m", [1, 15, 16, 17, 32, 100, 128, 256, 1024])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 32, 100, 128, 256, 1024, 512,
+                               2048])
 @pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
 def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
     """The weight-only int8 product against its plain version (the JAX
     expression) and against a float64 product, at decode (M = 1, 16),
     partial row tiles (15, 17, 100), the fused admission chunk (32: one
-    64-row tile, half filled), prefill (256) and the relevance gate's
-    rows (128 and 1,024: texts x length bucket). float32, and the
-    float32 logits of the transposed layout: the summation order over K
-    differs (bf16 x int8 products are exact in float32 on the tensor
-    cores), rtol 1e-5 with atol 1e-5 of the output's scale. bf16 dense: the
+    64-row tile, half filled), prefill (256), the relevance gate's rows
+    (128 and 1,024: texts x length bucket) and the scoring tenant's (512
+    and 2,048: a quantum of 8 texts at length buckets 64 and 256).
+    float32, and the float32 logits of the transposed layout: the
+    summation order over K differs (bf16 x int8 products are exact in
+    float32 on the tensor cores), rtol 1e-5 with atol 1e-5 of the output's
+    scale. bf16 dense: the
     plain version rounds to bf16 after the product, after the scale and
     after the bias, the kernel once at the end: up to about two bf16 ulps
     (rtol 1.6e-2, atol 1e-2 of the output's scale). bf16 x takes the

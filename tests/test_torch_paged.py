@@ -20,6 +20,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.engine import EngineConfig as JaxConfig
 from distributed_lms_raft_llm_tpu.engine import PagedEngine as JaxPaged
@@ -322,10 +323,11 @@ def test_cancel_pending_and_backlog():
 
 
 @pytest.mark.parametrize("option", [
-    # Speculative decoding is ported; over sequence parallelism (which the
-    # JAX engine composes it with) it is still refused.
+    # Speculative decoding and the scoring tenant are ported; over sequence
+    # parallelism (which the JAX engine composes them with) they are still
+    # refused.
     dict(config=dict(spec_tokens=2, sp=2)), dict(config=dict(tp=2)),
-    dict(config=dict(scoring=True)), dict(config=dict(ep=2)),
+    dict(config=dict(scoring=True, sp=2)), dict(config=dict(ep=2)),
 ])
 def test_unported_options_raise(option):
     option = dict(option)

@@ -28,6 +28,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.engine import EngineConfig as JaxConfig
 from distributed_lms_raft_llm_tpu.engine import PagedEngine as JaxPaged

@@ -19,6 +19,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.models import common as jax_common
 from distributed_lms_raft_llm_tpu.models import gpt2 as jax_gpt2

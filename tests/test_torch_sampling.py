@@ -13,6 +13,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.engine import sampling as jax_sampling
 from distributed_lms_raft_llm_tpu_torch.engine import sampling

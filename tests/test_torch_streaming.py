@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

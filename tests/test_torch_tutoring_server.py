@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.engine import EngineConfig as JaxConfig
 from distributed_lms_raft_llm_tpu.engine import PagedEngine as JaxPaged
@@ -417,17 +418,36 @@ def test_cli_takes_the_jax_names_and_defaults(argv, field, want):
                    field) == want
 
 
+# What the port does not carry, and how it is refused: as an unknown flag
+# (argparse exits), or by `engine_from_args` with a clear error. (--scoring,
+# the telemetry flags and --config are served since the scoring tenant and
+# the file-driven start were ported; tp/ep above 1 and approximate top-k,
+# by flag or from the file, take their places.)
+_REFUSED = {
+    "--strict-dispatch": (SystemExit, None),
+    "--jax-platform": (SystemExit, None),
+    "--approx-topk": (ValueError, "approximate top-k"),
+    "--tp": (NotImplementedError, "tp"),
+    "--ep": (NotImplementedError, "ep"),
+    "--config": (ValueError, "approximate top-k"),
+}
+
+
 @pytest.mark.parametrize("flag", [
-    ["--scoring"], ["--no-telemetry"], ["--telemetry-interval", "1"],
-    # (--spec-tokens is served since speculation was ported: the
-    # approximate top-k the port does not carry takes its place.)
-    ["--approx-topk"], ["--strict-dispatch"], ["--config", "x.toml"],
+    ["--strict-dispatch"], ["--jax-platform", "cpu"], ["--approx-topk"],
+    ["--tp", "2"], ["--ep", "2"], ["--config", "approx.toml"],
 ])
-def test_cli_refuses_what_the_port_does_not_implement(flag):
-    """A JAX flag the port does not carry is refused, never accepted and
-    ignored."""
-    with pytest.raises(SystemExit):
-        tutoring_server.build_parser().parse_args(flag)
+def test_cli_refuses_what_the_port_does_not_implement(flag, tmp_path,
+                                                        monkeypatch):
+    """A JAX flag or file setting the port does not carry is refused,
+    never accepted and ignored."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "approx.toml").write_text("[sampling]\napprox_top_k = true\n")
+    error, match = _REFUSED[flag[0]]
+    with pytest.raises(error, match=match):
+        args = tutoring_server.resolve_args(
+            flag + ["--device", "cpu", "--model", "tiny"])
+        tutoring_server.engine_from_args(args)
 
 
 def _trace_workload(mod):

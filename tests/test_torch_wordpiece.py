@@ -18,6 +18,7 @@ import os
 import shutil
 
 import pytest
+import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu.utils import tokenizer as jax_tok
 from distributed_lms_raft_llm_tpu_torch.utils import tokenizer as port_tok
