@@ -167,6 +167,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    swapped in, and in float32 (int8 weights) a text's logprob batched
    equal to its logprob alone.
 
+9. Llama-3-8B (`models/llama.py`, preset llama3-8b: 32 layers, width
+   4,096, 32 query heads over 8 KV heads of 128, intermediate 14,336,
+   vocabulary 128,256, untied lm_head), seeded random weights under the
+   byte tokenizer: (a) each kernel of its path against its plain version
+   at its shapes, timed beside its bound and library call: the int8
+   matmul's seven products at M = 16, 32, 512 and 2,048 and its
+   unembedding at M = 16 and 512 (the deep ones through the x-staged
+   plans), the append kernel over int8 and bf16 caches (16 slots, G = 4,
+   Dh = 128, lengths over [1, 384]), the int8 window at T = 9 (width 391)
+   and the bucketed kernel (batch 8, width 384); (b) a float32 witness at
+   full width cut to 4 layers: the paged engine with int8 weights and KV
+   gives equal greedy tokens on 8 prompts with fused attention off, on
+   and on with spec 8 (launches: 29 int8 products a model call on the
+   CUDA cores; the append kernel 4 a decode call, or the window kernel 4
+   a verify call); (c) the deployment config from configs/cluster.toml
+   (`--config`, `--model llama3-8b`) at full depth in bf16: 16 requests
+   in two waves, 128 new tokens each, through `PagedQueue`: tokens/s,
+   TTFT p50/p90, decode model calls, device ms a decode call by idle
+   graph replay beside its weights' bytes bound, kernels a decode call,
+   launches by route through the replays (append = 32 x decode calls,
+   int8 = 224 dense and 1 unembedding x model calls), peak allocation,
+   seconds to initialise and to warm; then (d) one scoring quantum at
+   8 x 256 (M = 2,048) against the plain logprobs, and a short spec-8
+   run of 8 requests (window = 32 x verify calls).
+
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -297,13 +322,14 @@ def attention_case(torch, attention, *, b, h, hkv, s, dh=64, n_layers=12,
     def library(i):
         F.scaled_dot_product_attention(q, k_cache[i % n_layers],
                                        v_cache[i % n_layers],
-                                       attn_mask=sdpa_mask)
+                                       attn_mask=sdpa_mask,
+                                       enable_gqa=hkv != h)
 
     rec.update(
         kernel_us=time_graph_us(kernel),
         kernel_eager_us=time_eager_us(kernel),
         plain_us=time_graph_us(plain),
-        library_us=time_graph_us(library) if h == hkv else None,
+        library_us=time_graph_us(library),
     )
     return rec
 
@@ -434,7 +460,7 @@ def append_attention_case(torch, attention, *, s, width, cache,
     import torch.nn.functional as F
 
     from distributed_lms_raft_llm_tpu_torch.models.common import quantize_kv
-    from distributed_lms_raft_llm_tpu_torch.models.gpt2 import _write_rows
+    from distributed_lms_raft_llm_tpu_torch.models.common import write_rows as _write_rows
     from distributed_lms_raft_llm_tpu_torch.ops.sweep_attention import (
         WINDOW_ROW_TOLERANCE,
         window_error,
@@ -571,25 +597,24 @@ def append_attention_case(torch, attention, *, s, width, cache,
             q, k_new, v_new, kw, vw, i % n_layers, None, lengths=lengths,
             **scales)
 
-    library = None
-    if h == hkv:
-        kd = ((k.float() * ks[..., None]).to(dt) if int8 else k)[
-            :, :, :, :width]
-        vd = ((v.float() * vs[..., None]).to(dt) if int8 else v)[
-            :, :, :, :width]
-        mask = (torch.arange(width, device=dev)[None, :]
-                < lengths[:, None])[:, None, None, :]
+    kd = ((k.float() * ks[..., None]).to(dt) if int8 else k)[
+        :, :, :, :width]
+    vd = ((v.float() * vs[..., None]).to(dt) if int8 else v)[
+        :, :, :, :width]
+    mask = (torch.arange(width, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
 
-        def library(i):  # over the dequantized cache (int8): a yardstick
-            F.scaled_dot_product_attention(q, kd[i % n_layers],
-                                           vd[i % n_layers], attn_mask=mask)
+    def library(i):  # over the dequantized cache (int8): a yardstick
+        F.scaled_dot_product_attention(q, kd[i % n_layers],
+                                       vd[i % n_layers], attn_mask=mask,
+                                       enable_gqa=hkv != h)
 
     rec.update(kernel_us=time_graph_us(kernel),
                kernel_eager_us=time_eager_us(kernel),
                old_kernel_us=time_graph_us(old_kernel),
                old_sequence_us=time_graph_us(old_sequence),
                plain_us=time_graph_us(plain),
-               library_us=None if library is None else time_graph_us(library),
+               library_us=time_graph_us(library),
                library_note="SDPA, boolean mask, no append" + (
                    " over the cache dequantized beforehand (untimed)"
                    if int8 else ""))
@@ -1471,7 +1496,7 @@ def flip_logits_witness(torch, eng, prompts, factor=2.0) -> dict:
 
 
 # Kernel names of the torch append that the paged decode step ran before
-# the append kernel (models/gpt2.py `_write_rows`, `quantize_kv`'s round).
+# the append kernel (models/common.py `write_rows`, `quantize_kv`'s round).
 TORCH_APPEND_KERNELS = ("index_put", "round_kernel")
 
 
@@ -2872,6 +2897,436 @@ def scoring_phase(torch, attention, quant_matmul, args) -> dict:
     return record
 
 
+# ------------------------------------------- phase 9: Llama-3-8B
+
+LLAMA = "llama3-8b"          # models/registry.py; Meta-Llama-3-8B's shape
+LLAMA_WITNESS_LAYERS = 4     # the float32 witness's depth (of 32)
+LLAMA_WITNESS = "llama3-8b-4-layers"  # its preset, registered by phase 9
+LLAMA_DENSE = ("llama.wq", "llama.wk", "llama.wv", "llama.wo", "llama.wg",
+               "llama.wu", "llama.wd")
+LLAMA_DENSE_ROWS = (16, 32, 512, 2048)  # decode, admission, score quanta
+LLAMA_UNEMBED_ROWS = (16, 512)
+
+
+def llama_kernel_cases(torch, attention, quant_matmul) -> dict:
+    """Phase 9 (a): each kernel of the Llama path against its plain version
+    at Llama-3-8B's shapes, timed beside its bound and library call (each
+    helper raises where the kernel disagrees beyond its tolerance)."""
+    from distributed_lms_raft_llm_tpu_torch.ops import (
+        sweep_attention,
+        sweep_int8,
+    )
+
+    mm = []
+    for name in LLAMA_DENSE:
+        for m in LLAMA_DENSE_ROWS:
+            mm.append(sweep_int8.int8_matmul_case(name=name, m=m,
+                                                  dtype="bfloat16"))
+            emit("llama_int8_matmul_case", **mm[-1])
+    for m in LLAMA_UNEMBED_ROWS:
+        mm.append(sweep_int8.int8_matmul_case(name="llama.lm_head", m=m,
+                                              dtype="bfloat16"))
+        emit("llama_int8_matmul_case", **mm[-1])
+    for case in mm:
+        k, n, transposed = sweep_int8.PRODUCTS[case["name"]]
+        case["x_staged"] = quant_matmul.launch_plan(
+            case["m"], k, n, transposed).x_staged
+    check(all(c["x_staged"] == (c["name"] == "llama.lm_head"
+                                or (c["name"] == "llama.wd" and c["m"] > 16))
+              for c in mm),
+          "phase 9: the deep products did not take the x-staged plans")
+    # The paged step's append kernel at 16 slots, 32 query heads over 8 KV
+    # heads of 128, lengths over [1, 384] (the widest paged width), int8
+    # and bf16 caches; the verify window (T = 9) over the int8 cache at the
+    # spec deployment's widest width; the bucketed kernel, batch 8.
+    append = [append_attention_case(torch, attention, s=16, width=384,
+                                    cache=cache, h=32, hkv=8, dh=128,
+                                    seed=90 + i)
+              for i, cache in enumerate(("int8", "bfloat16"))]
+    for case in append:
+        emit("llama_append_attention_case", **case)
+    window = sweep_attention.window_attention_case(
+        s=16, width=391, t=9, int8=True, h=32, hkv=8, dh=128, seed=93)
+    emit("llama_window_attention_case", **window)
+    check(window["route"] == "tensor_cores"
+          and window["blocks"] == 16 * 8 * window["n_split"],
+          f"phase 9: the window ran on the wrong route or cut: {window}")
+    bucketed = attention_case(torch, attention, b=8, h=32, hkv=8, s=384,
+                              dh=128, strided_q=True, seed=94)
+    emit("llama_attention_case", **bucketed)
+    return dict(int8_matmul=mm, append=append, window=window,
+                bucketed=bucketed)
+
+
+def llama_witness(torch, attention, quant_matmul, args) -> dict:
+    """Phase 9 (b): float32 at full width, cut to LLAMA_WITNESS_LAYERS
+    layers: the paged engine with int8 weights and an int8 KV cache gives
+    the same greedy tokens on 8 prompts with fused attention off (plain
+    attention), on (the append kernel) and on with spec 8 (the window
+    kernel); every int8 product on the float32 CUDA-core route."""
+    import functools
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        PagedEngine,
+        SamplingParams,
+    )
+    from distributed_lms_raft_llm_tpu_torch.models import llama, registry
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+
+    registry.PRESETS[LLAMA_WITNESS] = (registry.LLAMA_FAMILY, functools.partial(
+        llama.LlamaConfig.llama3_8b, num_layers=LLAMA_WITNESS_LAYERS))
+    prompts = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]
+    base = dict(model=LLAMA_WITNESS, quant="int8", kv_quant=True,
+                dtype=torch.float32, param_dtype=torch.float32,
+                seed=args.seed, device="cuda",
+                sampling=SamplingParams.greedy(max_new_tokens=32))
+    toks, runs = {}, {}
+    try:
+        for name, kw in (("plain", dict(fused_attention=False)),
+                         ("fused", dict(fused_attention=True)),
+                         ("fused_spec8", dict(fused_attention=True,
+                                              spec_tokens=SPEC_TOKENS))):
+            eng = PagedEngine(EngineConfig(**base, **kw), slots=8, chunk=16,
+                              inflight=3, cuda_graphs=False)
+            cfg = eng.cfg
+            check(cfg.hidden_size == 4096 and cfg.num_heads == 32
+                  and cfg.num_kv_heads == 8 and cfg.vocab_size == 128256
+                  and cfg.intermediate_size == 14336
+                  and cfg.num_layers == LLAMA_WITNESS_LAYERS
+                  and cfg.dtype == torch.float32 and cfg.quant_kv
+                  and isinstance(eng.params["lm_head"], dict),
+                  f"phase 9 witness: not Llama-3-8B's width in float32 "
+                  f"with int8 weights and KV: {cfg}")
+            attention.reset_launch_counts()
+            quant_matmul.reset_launch_counts()
+            calls0 = (eng.decode_steps, eng.prefill_calls)
+            toks[name] = engine_tokens(eng, prompts)
+            decode = eng.decode_steps - calls0[0]
+            model = decode + eng.prefill_calls - calls0[1]
+            launches = {**attention.launch_counts,
+                        **quant_matmul.launch_counts}
+            runs[name] = dict(decode_model_calls=decode, model_calls=model,
+                              tokens=sum(len(t) for t in toks[name]),
+                              launches={k: v for k, v in launches.items()
+                                        if v})
+            products = 7 * LLAMA_WITNESS_LAYERS + 1
+            check(launches[quant_matmul.FMA] == products * model
+                  and launches[quant_matmul.KERNEL] == products * model,
+                  f"phase 9 witness {name}: int8 launches {launches} != "
+                  f"{products} x {model} model calls on the CUDA cores")
+            want = {"plain": {}, "fused": {
+                attention.APPEND_INT8KV: LLAMA_WITNESS_LAYERS * decode},
+                    "fused_spec8": {
+                attention.WINDOW_INT8KV: LLAMA_WITNESS_LAYERS * decode}}
+            got = {k: v for k, v in launches.items()
+                   if k in attention.launch_counts and v}
+            check(decode > 0 and got == want[name],
+                  f"phase 9 witness {name}: attention launches {got} != "
+                  f"{want[name]}")
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        registry.PRESETS.pop(LLAMA_WITNESS, None)
+    firsts = {name: [first_divergence(a, b)
+                     for a, b in zip(toks[name], toks["plain"])]
+              for name in ("fused", "fused_spec8")}
+    rec = dict(layers=LLAMA_WITNESS_LAYERS, requests=len(prompts),
+               equal={n: sum(f is None for f in fs)
+                      for n, fs in firsts.items()},
+               first_divergence={n: [f for f in fs if f is not None]
+                                 for n, fs in firsts.items()},
+               runs=runs)
+    emit("llama_f32_witness", **rec)
+    check(all(v == len(prompts) for v in rec["equal"].values()),
+          f"phase 9 witness: float32 greedy tokens differ between plain, "
+          f"fused and spec 8: {rec['first_divergence']}")
+    return rec
+
+
+def llama_node(tutoring_server, args, *extra):
+    """The node's flags from configs/cluster.toml with `model` set to
+    llama3-8b: seeded random weights and the byte tokenizer (the real
+    checkpoint and tokenizer.json cannot ride to the card)."""
+    node_args = tutoring_server.resolve_args([
+        "--config", str(REPO / "configs" / "cluster.toml"),
+        "--model", LLAMA, "--checkpoint", "", "--vocab", "", "--merges", "",
+        "--seed", str(args.seed), "--port", "0", *extra])
+    check(node_args.model == LLAMA and node_args.paged
+          and node_args.quant == "int8" and node_args.kv_quant
+          and node_args.slots == 16 and node_args.chunk == 16
+          and node_args.inflight == 3 and node_args.megastep == 4
+          and node_args.megastep_max == 8 and node_args.prefix_cache
+          and node_args.prefix_cache_blocks == 512
+          and node_args.prefill_chunk_tokens == 32
+          and node_args.max_new_tokens == 128,
+          f"phase 9: configs/cluster.toml did not resolve to the deployment "
+          f"config: {vars(node_args)}")
+    return node_args
+
+
+def llama_weight_bytes(params) -> int:
+    """Bytes a decode model call must read of the int8 tree: every int8
+    product weight and its scales once (the embedding: 16 rows, left
+    out), the norm scales."""
+    total = 0
+
+    def walk(tree, path=()):
+        nonlocal total
+        if isinstance(tree, dict) and set(tree) == {"q", "s"}:
+            if path != ("embed",):
+                total += tree["q"].numel() + 4 * tree["s"].numel()
+            return
+        if isinstance(tree, dict):
+            for key, value in tree.items():
+                walk(value, path + (key,))
+            return
+        total += tree.numel() * tree.element_size()
+
+    walk(params)
+    return total
+
+
+def llama_deployment(torch, attention, quant_matmul, args) -> tuple:
+    """Phase 9 (c) and (d): the deployment config at full depth (see the
+    module docstring). Returns (its record, its launches)."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        PagedEngine,
+        PagedQueue,
+    )
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        routes_of_counts,
+        routes_of_names,
+    )
+    from distributed_lms_raft_llm_tpu_torch.ops.sweep_int8 import (
+        H100_HBM_BYTES_PER_S,
+    )
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+
+    node_args = llama_node(tutoring_server, args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = tutoring_server.engine_from_args(node_args)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    cfg = eng.cfg
+    check(isinstance(eng, PagedEngine) and eng.cuda_graphs and eng.fused
+          and cfg.num_layers == 32 and cfg.hidden_size == 4096
+          and cfg.num_heads == 32 and cfg.num_kv_heads == 8
+          and cfg.head_dim == 128 and cfg.intermediate_size == 14336
+          and cfg.vocab_size == 128256 and cfg.rope_theta == 500000.0
+          and cfg.dtype == torch.bfloat16 and cfg.quant_kv
+          and isinstance(eng.params["lm_head"], dict)
+          and eng.state.cache.k.dtype == torch.int8
+          and eng.state.cache.k.shape[2] == 8
+          and eng.slots == 16 and eng.prefill_chunk == 32
+          and eng.megastep_ks == [1, 2, 4, 8]
+          and eng.prefix_cache.max_blocks == 512
+          and eng.widths == [160, 192, 256, 384] and eng.config.scoring,
+          f"phase 9: not Llama-3-8B on the deployment config: {cfg}, "
+          f"widths {eng.widths}")
+    weight_bytes = llama_weight_bytes(eng.params)
+    t0 = time.monotonic()
+    warm_s = eng.warmup()
+    captured = {}
+    for w, (dec, adm) in eng._graphs.items():
+        counted = routes_of_counts(dec.captured_launches())
+        captured[w] = dict(
+            decode_counted=counted,
+            decode_kernel_nodes=routes_of_names(dec.kernels),
+            decode_all_kernel_nodes=sum(dec.kernels.values()),
+            admission_all_kernel_nodes=sum(adm.kernels.values()),
+            programmatic_edges=dec.programmatic_edges)
+        check(counted["decode_attention_append"] == 32 * eng.chunk
+              == dec.programmatic_edges
+              and counted["int8_matmul_mma"] == 224 * eng.chunk
+              and counted["int8_matmul_mma_unembed"] == eng.chunk,
+              f"phase 9: width {w}'s decode chunk graph: {captured[w]}")
+    kernels_per_call = (captured[eng.widths[-1]]["decode_all_kernel_nodes"]
+                        / eng.chunk)
+    # Logits of a full-width forward: finite, the vocabulary's width.
+    with torch.inference_mode():
+        ids = torch.tensor([eng.tokenizer.encode(q)[:8] for q in
+                            QUESTIONS[:2]], device=eng.device)
+        logits, _ = eng.family.forward(eng.params, cfg, ids)
+    check(tuple(logits.shape) == (2, 8, 128256)
+          and bool(torch.isfinite(logits).all()),
+          "phase 9: full-width logits are not finite [2, 8, 128256]")
+    del logits
+
+    wave1 = list(QUESTIONS)
+    wave2 = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
+          eng.graph_replays, eng.total_generated_tokens)
+    answers, wall, snap = run_paged_waves(eng, PagedQueue, Metrics, wave1,
+                                          wave2)
+    decode_calls = eng.decode_steps - c0[0]
+    adm_calls = eng.admission_chunks - c0[1]
+    model_calls = decode_calls + adm_calls + eng.prefill_calls - c0[2]
+    tokens = eng.total_generated_tokens - c0[4]
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    lat, counters = snap["latency"], snap["counters"]
+    check(len(answers) == 16 and all(isinstance(a, str) for a in answers),
+          "phase 9: expected 16 string answers")
+    check(decode_calls > 0 and adm_calls > 0
+          and launches[attention.APPEND_INT8KV] == 32 * decode_calls,
+          f"phase 9: append-kernel launches "
+          f"{launches[attention.APPEND_INT8KV]} != 32 x {decode_calls} "
+          f"decode model calls")
+    check(launches[quant_matmul.MMA] == 224 * model_calls
+          and launches[quant_matmul.MMA_UNEMBED] == model_calls
+          and launches[quant_matmul.KERNEL] == 225 * model_calls
+          and launches[quant_matmul.FMA] == 0,
+          f"phase 9: int8 launches {launches} != 224 dense + 1 unembedding "
+          f"x {model_calls} model calls on the tensor cores")
+    check(all(launches[n] == 0 for n in (
+        attention.KERNEL, attention.RAGGED, attention.INT8KV,
+        attention.APPEND, attention.WINDOW, attention.WINDOW_INT8KV)),
+          "phase 9: an attention variant other than the int8 append ran")
+    width = eng.widths[-1]
+    call_ms = graph_call_ms(torch, eng, width)
+    # The KV cache a decode call reads at the widest width, every slot
+    # full: int8 K and V and their float32 scales.
+    kv_bytes = 32 * 16 * 8 * width * (2 * 128 + 2 * 4)
+    bound_ms = weight_bytes / H100_HBM_BYTES_PER_S * 1e3
+    run = dict(
+        init_s=init_s, warmup_s=warm_s, requests=16, wall_s=wall,
+        tokens=tokens, tokens_per_s=tokens / wall,
+        ttft_p50_s=lat["ttft"]["p50_s"], ttft_p90_s=lat["ttft"]["p90_s"],
+        ttft_mean_s=lat["ttft"]["mean_s"], decode_model_calls=decode_calls,
+        admission_chunks=adm_calls, model_calls=model_calls,
+        decode_call_ms_idle=call_ms, weight_bytes=weight_bytes,
+        weight_bound_ms=bound_ms, kv_bytes_full_width=kv_bytes,
+        kv_bound_ms_full_width=kv_bytes / H100_HBM_BYTES_PER_S * 1e3,
+        kernels_per_decode_call=kernels_per_call,
+        launches={k: v for k, v in launches.items() if v},
+        launches_per_decode_call={
+            "decode_attention_append_int8kv":
+                launches[attention.APPEND_INT8KV] / decode_calls,
+            "int8_matmul_mma": 224, "int8_matmul_mma_unembed": 1},
+        prefix_hit_tokens=counters.get("prefix_cache_hit_tokens", 0),
+        decode_stalled_tokens=counters.get("decode_stalled_tokens", 0),
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        captured=captured)
+    emit("llama_deployment", **{k: v for k, v in run.items()
+                                if k != "captured"})
+
+    # (d) One scoring quantum, 8 texts at the 256 bucket (M = 2,048),
+    # through the kernels and against the int8 matmul's plain version.
+    texts = score_corpus(eng.tokenizer, 8, 300, args.seed)
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = eng.score(texts)
+    quantum_s = time.monotonic() - t0
+    q_launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    check(q_launches[quant_matmul.MMA] == 224
+          and q_launches[quant_matmul.MMA_UNEMBED] == 1
+          and q_launches[quant_matmul.FMA] == 0
+          and sum(attention.launch_counts.values()) == 0,
+          f"phase 9: a quantum's launches {q_launches} are not 224 dense "
+          f"and 1 unembedding on the tensor cores, no attention kernel")
+    kernel_fn = quant_matmul.int8_matmul
+    quant_matmul.int8_matmul = (
+        lambda x, q, s, b=None, transposed=False:
+        quant_matmul.int8_matmul_reference(x, q, s, b, transposed))
+    try:
+        plain = eng.score(texts)
+    finally:
+        quant_matmul.int8_matmul = kernel_fn
+    rel = [abs(g["logprob"] - w["logprob"]) / max(abs(w["logprob"]), 1e-9)
+           for g, w in zip(got, plain)]
+    check(all(r["truncated"] and r["tokens"] == 255 for r in got)
+          and all(math.isfinite(r["logprob"]) for r in got)
+          and [r["tokens"] for r in got] == [r["tokens"] for r in plain]
+          and max(rel) <= SCORE_BF16_REL_TOLERANCE,
+          f"phase 9: the 8 x 256 quantum's bf16 logprobs differ from the "
+          f"plain version's by {max(rel):.3g} of |logprob| (tolerance "
+          f"{SCORE_BF16_REL_TOLERANCE}), or its texts were not 256 tokens")
+    run["score_quantum"] = dict(texts=8, bucket=256, rows=2048,
+                                wall_s=quantum_s, launches={
+                                    k: v for k, v in q_launches.items() if v},
+                                bf16_vs_plain_max_rel=max(rel),
+                                tolerance=SCORE_BF16_REL_TOLERANCE)
+    emit("llama_score_quantum", **run["score_quantum"])
+    del eng
+    torch.cuda.empty_cache()
+    return run, launches
+
+
+def llama_spec(torch, attention, quant_matmul, args) -> tuple:
+    """Phase 9 (c), its short spec-8 run: the deployment config at full
+    depth with spec_tokens 8 (prompt lookup), 8 requests through
+    PagedQueue. Returns (its record, its launches)."""
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedQueue
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+    from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+
+    node_args = llama_node(tutoring_server, args, "--spec-tokens",
+                           str(SPEC_TOKENS))
+    eng = tutoring_server.engine_from_args(node_args)
+    check(eng.spec == SPEC_TOKENS and eng.cfg.num_layers == 32
+          and eng.widths == [167, 199, 263, 391],
+          f"phase 9: not the spec-8 deployment: spec {eng.spec}, widths "
+          f"{eng.widths}")
+    warm_s = eng.warmup()
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
+          eng.total_generated_tokens)
+    answers, wall, snap = run_paged_waves(eng, PagedQueue, Metrics,
+                                          list(QUESTIONS), [])
+    verify_calls = eng.decode_steps - c0[0]
+    model_calls = (verify_calls + eng.admission_chunks - c0[1]
+                   + eng.prefill_calls - c0[2])
+    tokens = eng.total_generated_tokens - c0[3]
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    check(len(answers) == 8 and verify_calls > 0
+          and launches[attention.WINDOW_INT8KV] == 32 * verify_calls
+          and launches[quant_matmul.MMA] == 224 * model_calls
+          and launches[quant_matmul.MMA_UNEMBED] == model_calls
+          and launches[quant_matmul.FMA] == 0,
+          f"phase 9 spec 8: launches {launches} for {verify_calls} verify "
+          f"and {model_calls} model calls (32 windows a verify call, 225 "
+          f"int8 products a model call wanted)")
+    run = dict(warmup_s=warm_s, requests=8, wall_s=wall, tokens=tokens,
+               tokens_per_s=tokens / wall,
+               ttft_p50_s=snap["latency"]["ttft"]["p50_s"],
+               verify_model_calls=verify_calls, model_calls=model_calls,
+               spec_tokens_per_window=snap["gauges"].get(
+                   "spec_tokens_per_window"),
+               verify_call_ms_idle=graph_call_ms(torch, eng, eng.widths[-1]),
+               launches={k: v for k, v in launches.items() if v})
+    emit("llama_spec8", **run)
+    del eng
+    torch.cuda.empty_cache()
+    return run, launches
+
+
+def llama_phase(torch, attention, quant_matmul, args) -> dict:
+    """Phase 9: Llama-3-8B (see the module docstring)."""
+    t0 = time.monotonic()
+    rec = dict(kernels=llama_kernel_cases(torch, attention, quant_matmul))
+    rec["witness"] = llama_witness(torch, attention, quant_matmul, args)
+    rec["deployment"], rec["launches"] = llama_deployment(
+        torch, attention, quant_matmul, args)
+    rec["spec"], rec["spec_launches"] = llama_spec(
+        torch, attention, quant_matmul, args)
+    rec["seconds"] = time.monotonic() - t0
+    emit("llama_phase", seconds=rec["seconds"])
+    return rec
+
+
 def _graph_captures() -> int:
     from distributed_lms_raft_llm_tpu_torch.engine import graphs
 
@@ -3289,6 +3744,12 @@ def main(argv=None) -> int:
     # from configs/cluster.toml.
     records["scoring"] = scoring_phase(torch, attention, quant_matmul, args)
 
+    # 9. Llama-3-8B at full width: its kernels' shapes, a float32 witness
+    # cut to 4 layers, the deployment config at full depth, a quantum.
+    records["llama"] = llama_phase(torch, attention, quant_matmul, args)
+    llama_launches = records["llama"]["launches"]
+    llama_spec_launches = records["llama"]["spec_launches"]
+
     records["seconds"] = time.monotonic() - t_start
     def paged_case(int8, dtype="bfloat16"):  # 16 slots, width 384
         return next(c for c in paged_cases if c["int8"] == int8
@@ -3349,7 +3810,8 @@ def main(argv=None) -> int:
               replaced_variant_ms=paged_case(True)["kernel_us"] / 1e3,
               launches_by_path={
                   "4b": int8kv_launches,
-                  "4c": deploy_launches[attention.APPEND_INT8KV]}),
+                  "4c": deploy_launches[attention.APPEND_INT8KV],
+                  "9": llama_launches[attention.APPEND_INT8KV]}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],
@@ -3363,14 +3825,16 @@ def main(argv=None) -> int:
                   "4b": mm_launches,
                   "4c": deploy_launches[quant_matmul.KERNEL],
                   "6": records["gate"]["int8"]["int8_matmul_launches"][
-                      quant_matmul.KERNEL]}),
+                      quant_matmul.KERNEL],
+                  "9": llama_launches[quant_matmul.KERNEL]}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",
               deploy_launches[quant_matmul.MMA_UNEMBED], unembed_case,
               launches_by_path={
                   "4b": mm_routes[quant_matmul.MMA_UNEMBED],
-                  "4c": deploy_launches[quant_matmul.MMA_UNEMBED]},
+                  "4c": deploy_launches[quant_matmul.MMA_UNEMBED],
+                  "9": llama_launches[quant_matmul.MMA_UNEMBED]},
               shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],
@@ -3393,7 +3857,10 @@ def main(argv=None) -> int:
               max_row_rel_err=int8_case["max_row_rel_err"],
               shape=f"{int8_case['slots']} slots x T={int8_case['t']}, "
               f"width {int8_case['width']}, int8 cache, bf16 q",
-              launches_path="7c, the deployment with spec 8"),
+              launches_path="7c, the deployment with spec 8",
+              launches_by_path={
+                  "7c": spec_launches[attention.WINDOW_INT8KV],
+                  "9": llama_spec_launches[attention.WINDOW_INT8KV]}),
     ]
     records["kernels"] = kernels
     if args.out:

@@ -9,8 +9,8 @@ the bucketed engine or the paged continuous-batching engine (int8 weights
 and an int8 KV cache, the production tutoring node's configuration):
 
 - ``proto``    — the frozen wire contract (copy of the JAX package's)
-- ``models``   — GPT-2 forward on tensors, int8 quantization, HF / JAX
-  weight conversion
+- ``models``   — GPT-2 and Llama forwards on tensors, int8 quantization,
+  HF / JAX weight conversion
 - ``ops``      — hand-written CUDA kernels (single-token decode attention,
   the weight-only int8 matmul) with their plain PyTorch versions
 - ``engine``   — sampling, prefill/decode, `TutoringEngine`, `BatchingQueue`,

@@ -64,10 +64,12 @@ log = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class EngineConfig:
-    model: str = "gpt2"  # models/registry.py preset: gpt2 | tiny
+    # models/registry.py preset: gpt2 | tiny | llama3-8b | llama-tiny
+    model: str = "gpt2"
     checkpoint: Optional[str] = None   # .safetensors path (HF layout)
     vocab_path: Optional[str] = None   # GPT-2 vocab.json
     merges_path: Optional[str] = None  # GPT-2 merges.txt
+    tokenizer_json: Optional[str] = None  # HF tokenizer.json (Llama)
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams.reference_defaults
     )
@@ -114,6 +116,26 @@ def refuse_unported(config: EngineConfig) -> None:
         raise ValueError(f"unsupported quant mode {config.quant!r}")
 
 
+def load_tokenizer(config: EngineConfig, family: str, vocab_size: int):
+    """The engine's tokenizer (`tokenizer_json`, else the GPT-2 files, else
+    bytes), refusing what would feed the model wrong ids: a Llama
+    checkpoint without its own tokenizer, and a vocabulary larger than the
+    model's (both engines, as the JAX `TutoringEngine`)."""
+    tokenizer = tok_lib.load_gpt2_tokenizer(
+        config.vocab_path, config.merges_path, config.tokenizer_json)
+    if family == "llama" and config.checkpoint and not config.tokenizer_json:
+        raise ValueError(
+            "a Llama checkpoint needs its own tokenizer: pass "
+            "tokenizer_json (HF tokenizer.json); GPT-2 BPE or byte ids "
+            "would map to the wrong embedding rows")
+    if tokenizer.vocab_size > vocab_size:
+        raise ValueError(
+            f"tokenizer vocab {tokenizer.vocab_size} exceeds model "
+            f"vocab {vocab_size}"
+        )
+    return tokenizer
+
+
 def check_spec_window(spec_tokens: int, fused: bool) -> None:
     """Raise where a verify window (spec_tokens + 1 query rows a row) is
     wider than the attention kernel takes: with fused attention every
@@ -145,14 +167,8 @@ class TutoringEngine:
         check_spec_window(config.spec_tokens, fused)
         self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
                                        quant_kv=config.kv_quant)
-        self.tokenizer = tok_lib.load_gpt2_tokenizer(
-            config.vocab_path, config.merges_path
-        )
-        if self.tokenizer.vocab_size > self.cfg.vocab_size:
-            raise ValueError(
-                f"tokenizer vocab {self.tokenizer.vocab_size} exceeds model "
-                f"vocab {self.cfg.vocab_size}"
-            )
+        self.tokenizer = load_tokenizer(config, self.family.name,
+                                        self.cfg.vocab_size)
         if config.sampling.max_new_tokens >= self.cfg.max_position_embeddings:
             raise ValueError(
                 f"max_new_tokens {config.sampling.max_new_tokens} must be < "

@@ -108,12 +108,12 @@ import torch
 from ..device import resolve_device
 from ..models import convert, quant, registry
 from ..models.common import KVCache
-from ..utils import tokenizer as tok_lib
 from .draft import build_drafts, build_drafts_ngram, verify_window
 from .engine import (
     DRAFT_SOURCES,
     EngineConfig,
     check_spec_window,
+    load_tokenizer,
     refuse_unported,
 )
 from .generate import pick_bucket
@@ -643,14 +643,8 @@ class PagedEngine:
         check_spec_window(config.spec_tokens, fused)
         self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
                                        quant_kv=config.kv_quant)
-        self.tokenizer = tok_lib.load_gpt2_tokenizer(
-            config.vocab_path, config.merges_path
-        )
-        if self.tokenizer.vocab_size > self.cfg.vocab_size:
-            raise ValueError(
-                f"tokenizer vocab {self.tokenizer.vocab_size} exceeds model "
-                f"vocab {self.cfg.vocab_size}"
-            )
+        self.tokenizer = load_tokenizer(config, self.family.name,
+                                        self.cfg.vocab_size)
         self.slots = slots or max(config.batch_buckets)
         # Clamp the prompt bucket so bucket + max_new always fits the
         # position table (long prompts keep their tail in submit()), and

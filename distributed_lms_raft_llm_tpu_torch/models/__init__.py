@@ -1,4 +1,4 @@
-"""GPT-2 on plain tensors (`gpt2`), the relevance gate's BERT encoder
-(`bert`), their building blocks (`common`), weight-only int8 (`quant`),
-weight conversion from HF safetensors and from the JAX package
-(`convert`), and the serving preset table (`registry`)."""
+"""GPT-2 and Llama on plain tensors (`gpt2`, `llama`), the relevance
+gate's BERT encoder (`bert`), their building blocks (`common`),
+weight-only int8 (`quant`), weight conversion from HF safetensors and from
+the JAX package (`convert`), and the serving preset table (`registry`)."""

@@ -1,10 +1,12 @@
 """Shared building blocks for the port's models, on plain tensors: GPT-2
-(the tutoring model) and the BERT encoder of the relevance gate (carried
-as an encoder only, not as a serving preset).
+and Llama (the tutoring models) and the BERT encoder of the relevance gate
+(carried as an encoder only, not as a serving preset).
 
 Counterpart of `distributed_lms_raft_llm_tpu/models/common.py` (the dense
-and int8 branches of `dense`, the KV cache with its int8 scale planes,
-`quantize_kv`, `attend`, `attend_quant`).
+and int8 branches of `dense`, `rms_norm`, `repeat_kv`, the KV cache with
+its int8 scale planes, `quantize_kv`, `attend`, `attend_quant`), and the
+cache handling both decoders share (`cache_slots`, `CachedAttention`: in
+the JAX package each model's forward spells it out).
 
 Conventions kept from the JAX package, so the parity tests compare like
 with like:
@@ -27,10 +29,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..ops import attention as attention_ops
 from ..ops import quant_matmul
 
 NEG_INF = -1e30  # large finite negative: avoids NaNs from (-inf) - (-inf)
@@ -45,6 +48,15 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """RMSNorm in float32 regardless of input dtype; returns input dtype."""
+    dtype = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(dtype)
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -208,6 +220,17 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(dtype))
 
 
+def repeat_kv(x: torch.Tensor, repeats: int) -> torch.Tensor:
+    """Grouped KV heads [B, Hkv, ...] -> [B, Hkv * repeats, ...]: query head
+    h reads KV head h // repeats (K and V [B, Hkv, T, Dh], or an int8
+    cache's scales [B, Hkv, T])."""
+    if repeats == 1:
+        return x
+    b, h = x.shape[:2]
+    x = x[:, :, None].expand(b, h, repeats, *x.shape[2:])
+    return x.reshape(b, h * repeats, *x.shape[3:])
+
+
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """[B, T, H*Dh] -> [B, H, T, Dh]."""
     b, t, _ = x.shape
@@ -230,3 +253,196 @@ def causal_window_mask(q_positions: torch.Tensor, num_keys: int) -> torch.Tensor
                            device=q_positions.device)
     mask = key_pos[None, None, :] <= q_positions[:, :, None]
     return mask[:, None, :, :]
+
+
+def cache_slots(cache: Optional[KVCache], b: int, t: int,
+                device: torch.device,
+                write_mask: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, int]:
+    """The slots of a forward's T new positions, [B, T], and its scalar
+    offset (0 without a cache or with per-row offsets).
+
+    Without a cache: 0 .. T-1. A scalar `cache.length + T` must fit the
+    cache: checked here, where JAX would clamp silently. Per-row offsets
+    (`cache.lengths`) stay on the device and are not checked (that would
+    sync the host): the caller keeps `lengths + T <= max_len`.
+    `cache.rows` and `write_mask` need per-row offsets."""
+    ragged = cache is not None and cache.lengths is not None
+    if cache is not None and (cache.rows is not None
+                              or write_mask is not None) and not ragged:
+        raise ValueError("cache.rows and write_mask need per-row offsets "
+                         "(cache.lengths)")
+    offset = 0 if cache is None or ragged else cache.length
+    if cache is not None and not ragged and offset + t > cache.max_len:
+        raise ValueError(
+            f"cache overflow: {offset} + {t} slots > cache of {cache.max_len}"
+        )
+    steps = torch.arange(t, device=device)
+    if ragged:
+        return cache.lengths.long()[:, None] + steps[None, :], offset
+    return (offset + steps)[None, :].expand(b, t), offset
+
+
+def full_attention(mask: torch.Tensor, groups: int = 1) -> Callable:
+    """`attend_fn(q, k, v)` of a forward without a cache: causal attention
+    over the input, the `groups` query heads of a KV head reading it
+    (`repeat_kv`)."""
+
+    def attend_full(q, k, v):
+        return attend(q, repeat_kv(k, groups), repeat_kv(v, groups), mask)
+
+    return attend_full
+
+
+def write_rows(buf: torch.Tensor, layer: int, rows: torch.Tensor,
+               slots: torch.Tensor, val: torch.Tensor,
+               keep: Optional[torch.Tensor]) -> None:
+    """buf[layer, rows[b], :, slots[b, t]] = val[b, t] for [B, T] entries
+    (rows [B, 1]); where `keep` is False the slot keeps its value."""
+    if keep is not None:
+        old = buf[layer, rows, :, slots]
+        val = torch.where(keep.reshape(*keep.shape, *([1] * (val.dim() - 2))),
+                          val, old)
+    buf[layer, rows, :, slots] = val
+
+
+class CachedAttention:
+    """A decoder step's cache writes and attention, layer by layer: built
+    once a forward over a KVCache, then called as
+    ``step(layer, q, k_new, v_new) -> context`` (q [B, H, T, Dh], k_new and
+    v_new [B, Hkv, T, Dh]). `advanced()` is the cache after the step.
+
+    Routes, by the cache and the step:
+
+    - the paged decode step (per-row offsets, T = 1, no ``cache.rows`` or
+      ``write_mask``) with ``fused``: `ops.attention.
+      decode_attention_append`, one kernel that quantizes (an int8 cache)
+      and writes the new row and attends; `dependent` launches it as a
+      programmatic dependent of the kernel just before it (the model says
+      why that kernel writes nothing its prologue reads);
+    - otherwise the new keys/values are written IN PLACE first: at
+      `cache.length` (one offset), or at each row's own offset, into cache
+      rows `cache.rows` where set and under `write_mask` (a False entry
+      keeps the slot as it was, so a chunk's pad tail is dropped, never
+      clamped into real slots); int8 with `quantize_kv` for an int8 cache;
+    - then, with ``fused`` and T == 1 or per-row offsets (and no
+      ``cache.rows``): `ops.attention.decode_attention`, the kernel that
+      reads the stacked cache (GQA by head index), the mask as a bias, or a
+      verify window's rows at their own frontiers with ``kv_mask`` as the
+      bias they share; else the plain `attend` / `attend_quant` over the
+      layer (gathered at ``cache.rows``), each KV head repeated for its
+      `groups` query heads (`repeat_kv` on K, V and the int8 scales), as in
+      the JAX package's models.
+
+    `write_rows` does the per-row writes (`write_rows` of this module
+    unless the model passes its own).
+    """
+
+    def __init__(self, cache: KVCache, *, q_slots: torch.Tensor,
+                 mask: torch.Tensor, kv_mask: Optional[torch.Tensor],
+                 write_mask: Optional[torch.Tensor], fused: bool,
+                 quant_kv: bool, groups: int = 1, dependent: bool = False,
+                 write_rows: Callable = write_rows):
+        if cache.quantized != quant_kv:
+            raise ValueError(
+                f"cfg.quant_kv={quant_kv} but the cache is "
+                f"{'int8' if cache.quantized else 'full precision'}"
+            )
+        b, t = q_slots.shape
+        device = q_slots.device
+        ragged = cache.lengths is not None
+        self.cache, self.t, self.mask = cache, t, mask
+        self.groups, self.dependent = groups, dependent
+        self.write_rows = write_rows
+        self.ragged, self.rows_sel = ragged, cache.rows
+        self.offset = 0 if ragged else cache.length
+        self.fused = fused and cache.rows is None and (t == 1 or ragged)
+        # The paged decode step (one row a slot at its own offset): one
+        # kernel appends the new K/V row (quantized for an int8 cache) and
+        # attends; no torch quantize or index write runs on this route.
+        self.append = self.fused and ragged and t == 1 and write_mask is None
+        # Layer-invariant kernel inputs, built once per step: the mask as a
+        # bias (not needed where per-row lengths say it all; a window's
+        # rows share the key-validity mask alone, their causal frontiers
+        # are the lengths) and each row's key count (its offset + 1).
+        self.bias = self.lengths = None
+        if self.fused:
+            if t > 1:
+                if kv_mask is not None:
+                    self.bias = attention_ops.mask_to_bias(
+                        kv_mask[:, None, None, :])
+            elif not ragged or kv_mask is not None:
+                self.bias = attention_ops.mask_to_bias(mask)
+            if ragged:
+                self.lengths = (cache.lengths + 1).to(torch.int32)
+        self.rows = self.slots = self.keep = None
+        if ragged and not self.append:
+            self.rows = (torch.arange(b, device=device) if cache.rows is None
+                         else cache.rows)[:, None]
+            self.slots = q_slots
+            if write_mask is not None:
+                # Dropped entries are sent to the last slot and write back
+                # what is there, so no index leaves the cache.
+                self.keep = write_mask
+                self.slots = torch.where(
+                    write_mask, q_slots,
+                    torch.full_like(q_slots, cache.max_len - 1))
+
+    def __call__(self, layer: int, q: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor) -> torch.Tensor:
+        cache = self.cache
+        ck, cv, cks, cvs = cache.k, cache.v, cache.ks, cache.vs
+        if self.append:
+            return attention_ops.decode_attention_append(
+                q, k_new, v_new, ck, cv, layer, self.bias,
+                lengths=self.lengths, k_scale=cks, v_scale=cvs,
+                dependent=self.dependent)
+        quant_kv = cache.quantized
+        if quant_kv:
+            k_w, k_s = quantize_kv(k_new)
+            v_w, v_s = quantize_kv(v_new)
+        else:
+            k_w, v_w = k_new.to(ck.dtype), v_new.to(cv.dtype)
+        if self.ragged:
+            # Advanced indices [B, 1] rows x [B, T] slots land in front, as
+            # in JAX: values go in as [B, T, Hkv, Dh].
+            news = [(ck, k_w), (cv, v_w)]
+            if quant_kv:
+                news += [(cks, k_s), (cvs, v_s)]
+            for buf, val in news:
+                self.write_rows(buf, layer, self.rows, self.slots,
+                                val.transpose(1, 2), self.keep)
+        else:
+            lo, hi = self.offset, self.offset + self.t
+            ck[layer, :, :, lo:hi] = k_w
+            cv[layer, :, :, lo:hi] = v_w
+            if quant_kv:
+                cks[layer, :, :, lo:hi] = k_s
+                cvs[layer, :, :, lo:hi] = v_s
+        if self.fused:  # q may be a strided view, read in place
+            return attention_ops.decode_attention(
+                q, ck, cv, layer, self.bias, lengths=self.lengths,
+                k_scale=cks, v_scale=cvs,
+            )
+        lk, lv = ck[layer], cv[layer]
+        lks = None if cks is None else cks[layer]
+        lvs = None if cvs is None else cvs[layer]
+        if self.rows_sel is not None:
+            lk, lv = lk[self.rows_sel], lv[self.rows_sel]
+            if quant_kv:
+                lks, lvs = lks[self.rows_sel], lvs[self.rows_sel]
+        g = self.groups
+        if quant_kv:
+            return attend_quant(q, repeat_kv(lk, g), repeat_kv(lks, g),
+                                repeat_kv(lv, g), repeat_kv(lvs, g),
+                                self.mask)
+        return attend(q, repeat_kv(lk.to(q.dtype), g),
+                      repeat_kv(lv.to(q.dtype), g), self.mask)
+
+    def advanced(self) -> KVCache:
+        """The cache after the step: the same storage, its offsets moved
+        on by T."""
+        if self.ragged:
+            return dataclasses.replace(self.cache,
+                                       lengths=self.cache.lengths + self.t)
+        return dataclasses.replace(self.cache, length=self.offset + self.t)

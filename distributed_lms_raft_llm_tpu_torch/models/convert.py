@@ -1,12 +1,15 @@
 """Weights into the port: HF safetensors and JAX parameter trees.
 
-Port of the GPT-2 and BERT parts of
+Port of the GPT-2, Llama and BERT parts of
 `distributed_lms_raft_llm_tpu/models/convert.py`.
 
 - `load_safetensors` reads a `.safetensors` file with the standard library
   and numpy alone (no `safetensors` package);
 - `gpt2_params_from_hf` maps HF GPT-2 names onto the `gpt2.py` tree and
   casts in torch to `cfg.param_dtype` (numpy has no bfloat16);
+- `llama_config_from_hf` and `llama_params_from_hf` do the same for an HF
+  `LlamaForCausalLM` (linear weights transposed to [in, out]; a tied
+  checkpoint without `lm_head.weight` takes the embedding);
 - `bert_config_from_hf` and `bert_params_from_hf` do the same for an HF
   `BertModel` (the relevance gate's encoder; the pooler is not used);
 - `params_from_jax` carries a JAX parameter tree, exported to numpy, across
@@ -27,6 +30,7 @@ import torch
 from ..device import DeviceLike
 from .bert import BertConfig
 from .gpt2 import GPT2Config
+from .llama import LlamaConfig
 
 _DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -121,6 +125,67 @@ def gpt2_params_from_hf(sd: Mapping[str, Any], cfg: GPT2Config,
             },
         },
         "lnf": {"scale": one("ln_f.weight"), "bias": one("ln_f.bias")},
+    }
+
+
+def llama_config_from_hf(hf_config: Mapping[str, Any], **kw) -> LlamaConfig:
+    """A `LlamaConfig` from an HF `config.json` dict (`kw`: dtypes)."""
+    return LlamaConfig(
+        vocab_size=hf_config["vocab_size"],
+        max_position_embeddings=hf_config.get("max_position_embeddings",
+                                              8192),
+        hidden_size=hf_config["hidden_size"],
+        num_layers=hf_config["num_hidden_layers"],
+        num_heads=hf_config["num_attention_heads"],
+        num_kv_heads=hf_config.get("num_key_value_heads",
+                                   hf_config["num_attention_heads"]),
+        intermediate_size=hf_config["intermediate_size"],
+        rope_theta=hf_config.get("rope_theta", 10000.0),
+        rms_norm_eps=hf_config.get("rms_norm_eps", 1e-5),
+        **kw,
+    )
+
+
+def llama_params_from_hf(sd: Mapping[str, Any], cfg: LlamaConfig,
+                         device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """Map HF LlamaForCausalLM weights onto the llama.py tree."""
+    sd = _strip_prefix(sd, "model.")
+    n_layers = cfg.num_layers
+    pd = cfg.param_dtype
+
+    def one(name: str) -> torch.Tensor:
+        return to_tensor(sd[name], pd, device)
+
+    def lin_w(fmt: str) -> torch.Tensor:
+        # torch Linear stores [out, in]; dense takes [in, out].
+        return torch.stack([one(fmt.format(i)).t() for i in range(n_layers)])
+
+    def vec(fmt: str) -> torch.Tensor:
+        return torch.stack([one(fmt.format(i)) for i in range(n_layers)])
+
+    embed = one("embed_tokens.weight")
+    # A tie_word_embeddings checkpoint ships no lm_head tensor.
+    lm_head = one("lm_head.weight") if "lm_head.weight" in sd else embed
+    p = "layers.{}."
+    return {
+        "embed": embed,
+        "blocks": {
+            "ln1": {"scale": vec(p + "input_layernorm.weight")},
+            "attn": {
+                "wq": lin_w(p + "self_attn.q_proj.weight"),
+                "wk": lin_w(p + "self_attn.k_proj.weight"),
+                "wv": lin_w(p + "self_attn.v_proj.weight"),
+                "wo": lin_w(p + "self_attn.o_proj.weight"),
+            },
+            "ln2": {"scale": vec(p + "post_attention_layernorm.weight")},
+            "mlp": {
+                "wg": lin_w(p + "mlp.gate_proj.weight"),
+                "wu": lin_w(p + "mlp.up_proj.weight"),
+                "wd": lin_w(p + "mlp.down_proj.weight"),
+            },
+        },
+        "lnf": {"scale": one("norm.weight")},
+        "lm_head": lm_head,
     }
 
 

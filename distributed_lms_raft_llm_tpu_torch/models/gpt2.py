@@ -43,6 +43,7 @@ einsums do.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -50,19 +51,19 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike
-from ..ops import attention as attention_ops
 from .common import (
+    CachedAttention,
     KVCache,
-    attend,
-    attend_quant,
+    cache_slots,
     causal_window_mask,
     dense,
+    full_attention,
     layer_norm,
     layer_params,
     merge_heads,
-    quantize_kv,
     split_heads,
 )
+from .common import write_rows as _write_rows
 from .quant import embed_lookup, unembed
 
 Params = Dict[str, Any]
@@ -184,18 +185,6 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn,
     return x + dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"])
 
 
-def _write_rows(buf: torch.Tensor, layer: int, rows: torch.Tensor,
-                slots: torch.Tensor, val: torch.Tensor,
-                keep: Optional[torch.Tensor]) -> None:
-    """buf[layer, rows[b], :, slots[b, t]] = val[b, t] for [B, T] entries
-    (rows [B, 1]); where `keep` is False the slot keeps its value."""
-    if keep is not None:
-        old = buf[layer, rows, :, slots]
-        val = torch.where(keep.reshape(*keep.shape, *([1] * (val.dim() - 2))),
-                          val, old)
-    buf[layer, rows, :, slots] = val
-
-
 def forward(
     params: Params,
     cfg: GPT2Config,
@@ -232,22 +221,8 @@ def forward(
     `attend`/`attend_quant` over those rows, gathered.
     """
     b, t = input_ids.shape
-    device = input_ids.device
+    q_slots, offset = cache_slots(cache, b, t, input_ids.device, write_mask)
     ragged = cache is not None and cache.lengths is not None
-    rows_sel = None if cache is None else cache.rows
-    if (rows_sel is not None or write_mask is not None) and not ragged:
-        raise ValueError("cache.rows and write_mask need per-row offsets "
-                         "(cache.lengths)")
-    offset = 0 if cache is None or ragged else cache.length
-    if cache is not None and not ragged and offset + t > cache.max_len:
-        raise ValueError(
-            f"cache overflow: {offset} + {t} slots > cache of {cache.max_len}"
-        )
-    steps = torch.arange(t, device=device)
-    if ragged:
-        q_slots = cache.lengths.long()[:, None] + steps[None, :]
-    else:
-        q_slots = (offset + steps)[None, :].expand(b, t)
     if positions is None:
         if not ragged and offset + t > cfg.max_position_embeddings:
             raise ValueError(
@@ -265,103 +240,24 @@ def forward(
         mask = mask & kv_mask[:, None, None, :]
 
     if cache is None:
-        def attend_full(q, k, v):
-            return attend(q, k, v, mask)
-
+        attend_full = full_attention(mask)
         for i in range(cfg.num_layers):
             x = apply_block(x, layer_params(params, i), attend_full, cfg)
         new_cache = None
     else:
-        quant_kv = cache.quantized
-        if quant_kv != cfg.quant_kv:
-            raise ValueError(
-                f"cfg.quant_kv={cfg.quant_kv} but the cache is "
-                f"{'int8' if quant_kv else 'full precision'}"
-            )
-        fused = cfg.fused_decode_attention and rows_sel is None and (
-            t == 1 or ragged)
-        # The paged decode step (one row a slot at its own offset): one
-        # kernel appends the new K/V row (quantized for an int8 cache) and
-        # attends; no torch quantize or index write runs on this route.
-        append = fused and ragged and t == 1 and write_mask is None
-        # Layer-invariant kernel inputs, built once per step: the mask as a
-        # bias (not needed where per-row lengths say it all; a window's
-        # rows share the key-validity mask alone, their causal frontiers
-        # are the lengths) and each row's key count (its offset + 1).
-        bias = lengths = None
-        if fused:
-            if t > 1:
-                if kv_mask is not None:
-                    bias = attention_ops.mask_to_bias(
-                        kv_mask[:, None, None, :])
-            elif not ragged or kv_mask is not None:
-                bias = attention_ops.mask_to_bias(mask)
-            if ragged:
-                lengths = (cache.lengths + 1).to(torch.int32)
-        ck, cv, cks, cvs = cache.k, cache.v, cache.ks, cache.vs
-        rows = slots = keep = None
-        if ragged and not append:
-            rows = (torch.arange(b, device=device) if rows_sel is None
-                    else rows_sel)[:, None]
-            slots = q_slots
-            if write_mask is not None:
-                # Dropped entries are sent to the last slot and write back
-                # what is there, so no index leaves the cache.
-                keep = write_mask
-                slots = torch.where(keep, q_slots,
-                                    torch.full_like(q_slots, num_keys - 1))
+        # The decode step's append kernel (q, k_new, v_new strided views of
+        # qkv) is a programmatic dependent of the qkv product just before
+        # it, which writes none of lengths, the bias and the older rows.
+        step = CachedAttention(
+            cache, q_slots=q_slots, mask=mask, kv_mask=kv_mask,
+            write_mask=write_mask, fused=cfg.fused_decode_attention,
+            quant_kv=cfg.quant_kv, dependent=True,
+            # looked up at each call, so a test may replace `_write_rows`
+            write_rows=lambda *args: _write_rows(*args))
         for i in range(cfg.num_layers):
-
-            def attend_fn(q, k_new, v_new, layer=i):
-                if append:  # q, k_new, v_new: strided views of qkv
-                    # A programmatic dependent of the qkv product just
-                    # before it, which writes none of lengths, the bias
-                    # and the older rows.
-                    return attention_ops.decode_attention_append(
-                        q, k_new, v_new, ck, cv, layer, bias,
-                        lengths=lengths, k_scale=cks, v_scale=cvs,
-                        dependent=True)
-                if quant_kv:
-                    k_w, k_s = quantize_kv(k_new)
-                    v_w, v_s = quantize_kv(v_new)
-                else:
-                    k_w, v_w = k_new.to(ck.dtype), v_new.to(cv.dtype)
-                if ragged:
-                    # Advanced indices [B, 1] rows x [B, T] slots land in
-                    # front, as in JAX: values go in as [B, T, Hkv, Dh].
-                    news = [(ck, k_w), (cv, v_w)]
-                    if quant_kv:
-                        news += [(cks, k_s), (cvs, v_s)]
-                    for buf, val in news:
-                        _write_rows(buf, layer, rows, slots,
-                                    val.transpose(1, 2), keep)
-                else:
-                    ck[layer, :, :, offset:offset + t] = k_w
-                    cv[layer, :, :, offset:offset + t] = v_w
-                    if quant_kv:
-                        cks[layer, :, :, offset:offset + t] = k_s
-                        cvs[layer, :, :, offset:offset + t] = v_s
-                if fused:  # q is a strided view of qkv, read in place
-                    return attention_ops.decode_attention(
-                        q, ck, cv, layer, bias, lengths=lengths,
-                        k_scale=cks, v_scale=cvs,
-                    )
-                lk, lv = ck[layer], cv[layer]
-                lks = None if cks is None else cks[layer]
-                lvs = None if cvs is None else cvs[layer]
-                if rows_sel is not None:
-                    lk, lv = lk[rows_sel], lv[rows_sel]
-                    if quant_kv:
-                        lks, lvs = lks[rows_sel], lvs[rows_sel]
-                if quant_kv:
-                    return attend_quant(q, lk, lks, lv, lvs, mask)
-                return attend(q, lk.to(q.dtype), lv.to(q.dtype), mask)
-
-            x = apply_block(x, layer_params(params, i), attend_fn, cfg)
-        if ragged:
-            new_cache = dataclasses.replace(cache, lengths=cache.lengths + t)
-        else:
-            new_cache = dataclasses.replace(cache, length=offset + t)
+            x = apply_block(x, layer_params(params, i),
+                            functools.partial(step, i), cfg)
+        new_cache = step.advanced()
 
     x = layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"],
                    cfg.layer_norm_eps)

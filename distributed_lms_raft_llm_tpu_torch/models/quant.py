@@ -1,10 +1,10 @@
 """Weight-only int8 quantization, on tensors.
 
-Port of `distributed_lms_raft_llm_tpu/models/quant.py` (the GPT-2 and the
-BERT leaves). A quantized linear is the dict ``{"q": int8 [..., in, out],
+Port of `distributed_lms_raft_llm_tpu/models/quant.py` (the GPT-2, Llama
+and BERT leaves). A quantized linear is the dict ``{"q": int8 [..., in, out],
 "s": f32 [..., out]}`` in place of the dense tensor; an embedding table is
 ``{"q": int8 [V, D], "s": f32 [V]}`` (per-row scales, so the tied
-unembedding scales per vocab row). `common.dense`, `embed_lookup` and
+unembedding, or Llama's untied `lm_head`, scales per vocab row). `common.dense`, `embed_lookup` and
 `unembed` take either form.
 
 The quantizers keep the JAX package's op order (``s = max|w| / 127``,
@@ -36,6 +36,17 @@ _QUANT_LEAVES = {
         ("blocks", "mlp", "wi"),
         ("blocks", "mlp", "wo"),
     },
+    "llama": {
+        ("embed",),
+        ("lm_head",),
+        ("blocks", "attn", "wq"),
+        ("blocks", "attn", "wk"),
+        ("blocks", "attn", "wv"),
+        ("blocks", "attn", "wo"),
+        ("blocks", "mlp", "wg"),
+        ("blocks", "mlp", "wu"),
+        ("blocks", "mlp", "wd"),
+    },
     "bert": {
         ("embeddings", "word"),
         ("blocks", "attn", "wqkv"),
@@ -45,10 +56,19 @@ _QUANT_LEAVES = {
     },
 }
 # Tables looked up by row: per-row scales.
-_EMBEDDING_LEAVES = {("wte",), ("embeddings", "word")}
+_EMBEDDING_LEAVES = {("wte",), ("embeddings", "word"), ("embed",),
+                     ("lm_head",)}
 
 
 def _quantize(w: torch.Tensor, dim: int) -> Dict[str, torch.Tensor]:
+    """`dim` counts from the end. A stacked [L, ...] leaf is quantized
+    layer by layer (the same values: each scale spans one layer), so only
+    one layer is ever held in float32 (Llama-3-8B's [32, 4096, 14336]
+    leaves would need 7.5 GB each at once)."""
+    if w.dim() > 2:
+        parts = [_quantize(layer, dim) for layer in w]
+        return {"q": torch.stack([p["q"] for p in parts]),
+                "s": torch.stack([p["s"] for p in parts])}
     w = w.float()
     s = w.abs().amax(dim=dim, keepdim=True) / 127.0
     s = torch.clamp(s, min=1e-8)

@@ -477,9 +477,11 @@ def decode_attention_append(q: torch.Tensor, k_new: torch.Tensor,
     be running while the prologue reads lengths, the bias and the cache
     rows below lengths[b] - 1 (with their scales): the caller vouches that
     that kernel writes none of them (q, k_new and v_new it may write).
-    `models/gpt2.py::forward` passes it: its qkv product comes just
-    before, lengths and the bias are built before the first layer, and
-    only this kernel writes decode rows. Other callers launch it plainly.
+    The models' decode route passes it (`models/common.py::
+    CachedAttention`): before it comes GPT-2's qkv product or Llama's RoPE
+    of k (a fresh tensor), lengths and the bias are built before the first
+    layer, and only this kernel writes decode rows. Other callers launch
+    it plainly.
     """
     layer = operator.index(layer)
     device = q.device

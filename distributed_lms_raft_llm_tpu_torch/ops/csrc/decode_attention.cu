@@ -182,9 +182,11 @@
 //    new key in from shared memory after the key loop (an mbarrier says the
 //    rows are staged, so no other warp waits for warps 0 and 1). The cache
 //    afterwards is byte for byte what quantize_kv and the index writes made.
-//  - The model launches it as a programmatic dependent of its qkv product
-//    (whose dense int8 kernels trigger their dependents at their start;
-//    another caller launches it plainly unless it asks): before
+//  - The model launches it as a programmatic dependent of the kernel just
+//    before it: GPT-2's qkv product (whose dense int8 kernels trigger their
+//    dependents at their start) or Llama's RoPE of k (a PyTorch kernel that
+//    triggers none, so the launch waits for its end); another caller
+//    launches it plainly unless it asks. Before
 //    griddepcontrol.wait a block reads lengths, initialises its barriers,
 //    issues the bulk copies of the older rows and reads their scales;
 //    invariant: all of that was written by kernels that ended before the

@@ -75,6 +75,17 @@
 //     is staged once per block by one bulk copy (cp.async.bulk) a row,
 //     rows padded for conflict-free ldmatrix / 16-byte reads. Completion is
 //     counted on mbarriers.
+//   - Deep K (Llama-3-8B's down projection, K = 14,336, beyond M = 16, and
+//     its 128,256 x 4,096 unembedding): staging x once a block grows with
+//     K and stops fitting shared memory. There x is staged with each ring
+//     stage instead (x_staged, a template flag, so the other instantiations
+//     are the code they were): dense, the block's rows over the box's 128
+//     rows of K beside the box; transposed, a tile is walked in chunks of
+//     K (128-1024, ops/quant_matmul.py::launch_plan), each stage holding
+//     the chunk's table boxes and x's rows over the chunk, the ring's items
+//     being (tile, chunk) pairs with the accumulators carried across a
+//     tile's chunks. x is then read once a stage from L2 (the table's
+//     chunks re-read x for every tile); the weights' bytes are unchanged.
 //   - Grid and reduction. Dense: a block owns 128 columns and 16 or 64 rows
 //     (MT = 1 or 4 m16 tiles, so a staged weight tile serves every row tile
 //     of the block); 8 warps, warp w takes columns 32 (w % 4) .. and the
@@ -129,10 +140,12 @@ struct Int8MatmulArgs {
   // bf16 route only (the float32 route picks its own split):
   int mt;          // m16 row tiles a block: 1 or 4
   int splits;      // dense: K splits, the blocks of one cluster
-  int k_split;     // dense: rows of K a split, a multiple of kBK
+  int k_split;     // dense: rows of K a split, a multiple of kBK;
+                   // transposed: K, or the chunk of K a stage (x_staged)
   int stages;      // ring depth, in tiles
   int grid_x;      // dense: column tiles; transposed: blocks a row tile
   int smem;        // dynamic shared memory, bytes
+  int x_staged;    // x staged with each ring stage, not once a block
 };
 
 namespace {
@@ -436,20 +449,43 @@ __host__ __device__ constexpr int dense_x_stride(int k_split) {
 }
 __host__ __device__ constexpr int rows_x_stride(int K) { return K + 8; }
 
+__host__ __device__ constexpr int round_up(int v, int a) {
+  return (v + a - 1) / a * a;
+}
+
+// A ring stage. Dense: the weight box, and with x staged the block's rows
+// of x over the box's kBK rows of K (at dense_x_stride(kBK)). Transposed
+// with x staged: a chunk of K of the tile's table rows (K / 128 boxes),
+// and the block's rows of x over the chunk. Each padded to 1 KB, where
+// the next stage's swizzled boxes begin.
+__host__ __device__ constexpr int dense_stage_bytes(int mt, bool x_staged) {
+  return kStageDense +
+         (x_staged ? round_up(16 * mt * dense_x_stride(kBK) * 2, kAlign) : 0);
+}
+__host__ __device__ constexpr int rows_stage_bytes(int mt, int k_chunk) {
+  return (k_chunk + kBN - 1) / kBN * kTableBox +
+         round_up(16 * mt * rows_x_stride(k_chunk) * 2, kAlign);
+}
+
 // Dynamic shared memory of a launch (ops/quant_matmul.py::_smem_bytes
 // computes the same sums): alignment slack, the ring (dense: reused for the
-// epilogue's partial tile), staged x, the mbarriers (x, then one a stage).
-__host__ __device__ constexpr int dense_smem(int mt, int k_split,
-                                             int stages) {
+// epilogue's partial tile), staged x unless the stages hold it, the
+// mbarriers (x, then one a stage).
+__host__ __device__ constexpr int dense_smem(int mt, int k_split, int stages,
+                                             bool x_staged) {
   return kAlign +
-         (stages * kStageDense > 16 * mt * kPartStride * 4
-              ? stages * kStageDense
+         (stages * dense_stage_bytes(mt, x_staged) > 16 * mt * kPartStride * 4
+              ? stages * dense_stage_bytes(mt, x_staged)
               : 16 * mt * kPartStride * 4) +
-         16 * mt * dense_x_stride(k_split) * 2 + 8 * (stages + 1);
+         (x_staged ? 0 : 16 * mt * dense_x_stride(k_split) * 2) +
+         8 * (stages + 1);
 }
-__host__ __device__ constexpr int rows_smem(int mt, int K, int stages) {
-  return kAlign + stages * ((K + kBN - 1) / kBN) * kTableBox +
-         16 * mt * rows_x_stride(K) * 2 + 8 * (stages + 1);
+__host__ __device__ constexpr int rows_smem(int mt, int K, int stages,
+                                            bool x_staged, int k_chunk) {
+  return x_staged ? kAlign + stages * rows_stage_bytes(mt, k_chunk) +
+                        8 * (stages + 1)
+                  : kAlign + stages * ((K + kBN - 1) / kBN) * kTableBox +
+                        16 * mt * rows_x_stride(K) * 2 + 8 * (stages + 1);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -557,7 +593,9 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
 }
 
 // Dense layout: y[m0 .. m0 + 16 MT)[n0 .. n0 + 128) of split blockIdx.z.
-template <int kMTiles>
+// kXStaged: x comes box by box with the weights (see dense_stage_bytes),
+// so shared memory does not grow with the split.
+template <int kMTiles, bool kXStaged>
 __global__ void __launch_bounds__(kTcThreads)
 int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __nv_bfloat16* __restrict__ x,
@@ -566,6 +604,7 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
                       __nv_bfloat16* __restrict__ y, int M, int N, int K,
                       int k_split, int stages) {
   constexpr int kBM = 16 * kMTiles;
+  constexpr int kStage = dense_stage_bytes(kMTiles, kXStaged);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_smem(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -579,12 +618,34 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
   const int nk = min(K, kbeg + k_split) - kbeg;  // > 0, a multiple of 16
   const int n_tiles = (nk + kBK - 1) / kBK;
   const int rows = min(kBM, M - m0);
-  const int ring_bytes = max(stages * kStageDense, kBM * kPartStride * 4);
-  const int xs_stride = dense_x_stride(k_split);
+  const int ring_bytes = max(stages * kStage, kBM * kPartStride * 4);
+  const int xs_stride = dense_x_stride(kXStaged ? kBK : k_split);
   uint8_t* ring = smem;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + ring_bytes);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(xs + kBM * xs_stride);
-  // bars[0]: x; bars[1 + st]: ring stage st
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      kXStaged ? smem + ring_bytes
+               : reinterpret_cast<uint8_t*>(xs + kBM * xs_stride));
+  // bars[0]: x (unless staged); bars[1 + st]: ring stage st
+
+  // kXStaged: warp 0 fills stage kt % stages with tile kt, lane 0 its
+  // weight box and the lanes the rows' columns of x beside it. The byte
+  // count is expected before any copy starts (__syncwarp).
+  auto fill = [&](int kt) {
+    uint8_t* dst = ring + (kt % stages) * kStage;
+    uint64_t* bar = &bars[1 + kt % stages];
+    const int cols = min(kBK, nk - kt * kBK);  // x columns, a multiple of 16
+    if (lane == 0) {
+      mbar_expect_tx(bar, (uint32_t)(kStageDense + rows * cols * 2));
+      tma_load_2d(dst, &qmap, n0, kbeg + kt * kBK, bar);
+    }
+    __syncwarp();
+    __nv_bfloat16* xd = reinterpret_cast<__nv_bfloat16*>(dst + kStageDense);
+    for (int r = lane; r < rows; r += 32) {
+      bulk_load(xd + r * xs_stride,
+                x + (long long)(m0 + r) * K + kbeg + kt * kBK,
+                (uint32_t)(cols * 2), bar);
+    }
+  };
 
   if (tid == 0) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
@@ -592,15 +653,21 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
                  : "memory");
     for (int i = 0; i <= stages; ++i) mbar_init(&bars[i], 1);
     mbar_init_fence();
-    mbar_expect_tx(&bars[0], (uint32_t)(rows * nk * 2));
-    for (int st = 0; st < stages && st < n_tiles; ++st) {
-      mbar_expect_tx(&bars[1 + st], kStageDense);
-      tma_load_2d(ring + st * kStageDense, &qmap, n0, kbeg + st * kBK,
-                  &bars[1 + st]);
+    if constexpr (!kXStaged) {
+      mbar_expect_tx(&bars[0], (uint32_t)(rows * nk * 2));
+      for (int st = 0; st < stages && st < n_tiles; ++st) {
+        mbar_expect_tx(&bars[1 + st], kStageDense);
+        tma_load_2d(ring + st * kStageDense, &qmap, n0, kbeg + st * kBK,
+                    &bars[1 + st]);
+      }
     }
   }
   __syncthreads();  // the barriers are initialised
-  if (warp == 1) {  // this block's rows of x, one bulk copy each
+  if constexpr (kXStaged) {
+    if (warp == 0) {
+      for (int kt = 0; kt < stages && kt < n_tiles; ++kt) fill(kt);
+    }
+  } else if (warp == 1) {  // this block's rows of x, one bulk copy each
     for (int r = lane; r < rows; r += 32) {
       bulk_load(xs + r * xs_stride, x + (long long)(m0 + r) * K + kbeg,
                 (uint32_t)(nk * 2), &bars[0]);
@@ -625,11 +692,17 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
   const int colb = 32 * cgrp + 4 * g;  // this lane's 4 bytes of a row
-  mbar_wait(&bars[0], 0);
+  if constexpr (!kXStaged) mbar_wait(&bars[0], 0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int st = kt % stages;
     mbar_wait(&bars[1 + st], (uint32_t)((kt / stages) & 1));
-    const uint8_t* tile = ring + st * kStageDense;
+    const uint8_t* tile = ring + st * kStage;
+    // x over this tile's rows of K: in the stage, or at kt kBK of the
+    // split's staged rows.
+    const __nv_bfloat16* xt =
+        kXStaged
+            ? reinterpret_cast<const __nv_bfloat16*>(tile + kStageDense)
+            : xs + kt * kBK;
     const int steps = min(kBK, nk - kt * kBK) / 16;
     for (int ks = kh; ks < steps; ks += 2) {
       const int r = ks * 16 + 2 * t;
@@ -648,18 +721,20 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
         b[j][0] = i8x2_to_bf16x2(__byte_perm(w0, w1, sel));
         b[j][1] = i8x2_to_bf16x2(__byte_perm(w2, w3, sel));
       }
-      const int kx = kt * kBK + ks * 16 + (lane >> 4) * 8;
+      const int kx = ks * 16 + (lane >> 4) * 8;
 #pragma unroll
       for (int mt = 0; mt < kMTiles; ++mt) {
         uint32_t a[4];
-        ldmatrix_x4(a, xs + (16 * mt + (lane & 15)) * xs_stride + kx);
+        ldmatrix_x4(a, xt + (16 * mt + (lane & 15)) * xs_stride + kx);
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a, b[j][0], b[j][1]);
       }
     }
     if (kt + stages < n_tiles) {  // refill this stage once all have read it
       __syncthreads();
-      if (tid == 0) {
+      if constexpr (kXStaged) {
+        if (warp == 0) fill(kt + stages);
+      } else if (tid == 0) {
         mbar_expect_tx(&bars[1 + st], kStageDense);
         tma_load_2d(ring + st * kStageDense, &qmap, n0,
                     kbeg + (kt + stages) * kBK, &bars[1 + st]);
@@ -722,12 +797,16 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // Transposed layout: y[m0 .. m0 + 16 MT)[tiles of 64 rows of the table].
-template <int kMTiles>
+// The ring's items are (tile, chunk of K) pairs, tile-major. kChunked: a
+// tile is walked in chunks of k_chunk of K, x's chunk staged beside the
+// table's in each stage (rows_stage_bytes), so shared memory does not grow
+// with K; otherwise one item is a whole tile and x is staged once.
+template <int kMTiles, bool kChunked>
 __global__ void __launch_bounds__(kTcThreads)
 int8_mma_rows_kernel(const __grid_constant__ CUtensorMap tmap,
                      const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ s, float* __restrict__ y,
-                     int M, int N, int K, int stages) {
+                     int M, int N, int K, int stages, int k_chunk) {
   constexpr int kBM = 16 * kMTiles;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_smem(smem_raw);
@@ -735,26 +814,51 @@ int8_mma_rows_kernel(const __grid_constant__ CUtensorMap tmap,
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * kBM;
   const int rows = min(kBM, M - m0);
-  const int boxes = (K + kBN - 1) / kBN;  // 128-byte columns of a tile
-  const int stage_bytes = boxes * kTableBox;
-  const int xs_stride = rows_x_stride(K);
+  const int kc_len = kChunked ? k_chunk : K;  // K values an item, at most
+  const int n_chunks = kChunked ? (K + k_chunk - 1) / k_chunk : 1;
+  const int boxes = (kc_len + kBN - 1) / kBN;  // 128-byte columns of an item
+  const int xs_stride = rows_x_stride(kc_len);
+  const int stage_bytes =
+      kChunked ? rows_stage_bytes(kMTiles, k_chunk) : boxes * kTableBox;
   uint8_t* ring = smem;
   __nv_bfloat16* xs =
       reinterpret_cast<__nv_bfloat16*>(smem + stages * stage_bytes);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(xs + kBM * xs_stride);
-  // bars[0]: x; bars[1 + st]: ring stage st
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      kChunked ? smem + stages * stage_bytes
+               : reinterpret_cast<uint8_t*>(xs + kBM * xs_stride));
+  // bars[0]: x (unless chunked); bars[1 + st]: ring stage st
   const int n_vt = (N + kBV - 1) / kBV;
   // This block's tiles: blockIdx.x + i * gridDim.x (gridDim.x <= n_vt).
   const int my_tiles = (n_vt - (int)blockIdx.x + (int)gridDim.x - 1) /
                        (int)gridDim.x;
+  const int n_items = my_tiles * n_chunks;
 
-  auto stage_tile = [&](int i) {  // one thread: tile i's boxes
-    const int v0 = ((int)blockIdx.x + i * (int)gridDim.x) * kBV;
+  // Item i into stage i % stages: lane 0 its table boxes, and (chunked)
+  // after a __syncwarp that orders the expected byte count first, the
+  // lanes x's rows over the chunk. Called by warp 0, or by thread 0 alone
+  // where x is staged once.
+  auto stage_item = [&](int i) {
+    const int v0 = ((int)blockIdx.x + (i / n_chunks) * (int)gridDim.x) * kBV;
+    const int k0 = (i % n_chunks) * kc_len;
+    const int len = min(kc_len, K - k0);  // a multiple of 64
+    const int nbox = (len + kBN - 1) / kBN;
     uint8_t* dst = ring + (i % stages) * stage_bytes;
     uint64_t* bar = &bars[1 + i % stages];
-    mbar_expect_tx(bar, (uint32_t)stage_bytes);
-    for (int b = 0; b < boxes; ++b) {
-      tma_load_2d(dst + b * kTableBox, &tmap, b * kBN, v0, bar);
+    if (lane == 0) {
+      mbar_expect_tx(bar, (uint32_t)(nbox * kTableBox +
+                                     (kChunked ? rows * len * 2 : 0)));
+      for (int b = 0; b < nbox; ++b) {
+        tma_load_2d(dst + b * kTableBox, &tmap, k0 + b * kBN, v0, bar);
+      }
+    }
+    if constexpr (kChunked) {
+      __syncwarp();
+      __nv_bfloat16* xd =
+          reinterpret_cast<__nv_bfloat16*>(dst + boxes * kTableBox);
+      for (int r = lane; r < rows; r += 32) {
+        bulk_load(xd + r * xs_stride, x + (long long)(m0 + r) * K + k0,
+                  (uint32_t)(len * 2), bar);
+      }
     }
   };
 
@@ -764,19 +868,27 @@ int8_mma_rows_kernel(const __grid_constant__ CUtensorMap tmap,
                  : "memory");
     for (int i = 0; i <= stages; ++i) mbar_init(&bars[i], 1);
     mbar_init_fence();
-    mbar_expect_tx(&bars[0], (uint32_t)(rows * K * 2));
-    for (int i = 0; i < stages && i < my_tiles; ++i) stage_tile(i);
-  }
-  __syncthreads();  // the barriers are initialised
-  if (warp == 1) {
-    for (int r = lane; r < rows; r += 32) {
-      bulk_load(xs + r * xs_stride, x + (long long)(m0 + r) * K,
-                (uint32_t)(K * 2), &bars[0]);
+    if constexpr (!kChunked) {
+      mbar_expect_tx(&bars[0], (uint32_t)(rows * K * 2));
+      for (int i = 0; i < stages && i < n_items; ++i) stage_item(i);
     }
   }
-  // Rows of xs at or past `rows` are never written, and table rows past N
+  __syncthreads();  // the barriers are initialised
+  if constexpr (kChunked) {
+    if (warp == 0) {
+      for (int i = 0; i < stages && i < n_items; ++i) stage_item(i);
+    }
+  } else {
+    if (warp == 1) {
+      for (int r = lane; r < rows; r += 32) {
+        bulk_load(xs + r * xs_stride, x + (long long)(m0 + r) * K,
+                  (uint32_t)(K * 2), &bars[0]);
+      }
+    }
+    mbar_wait(&bars[0], 0);
+  }
+  // Rows of x at or past `rows` are never written, and table rows past N
   // read as zeros: both only feed outputs that are never stored.
-  mbar_wait(&bars[0], 0);
 
   // The mma's column g stands for row 8 warp + sigma(g) of the tile,
   // sigma(g) = g / 2 + 4 (g % 2): lanes g and g + 1 (one quarter warp's
@@ -786,13 +898,10 @@ int8_mma_rows_kernel(const __grid_constant__ CUtensorMap tmap,
   const int qrow = 8 * warp + ((g >> 1) | ((g & 1) << 2));
   const int sw = qrow & 7;
   for (int i = 0; i < my_tiles; ++i) {
-    const int st = i % stages;
     const int v = ((int)blockIdx.x + i * (int)gridDim.x) * kBV + 8 * warp +
                   t;
     const float s0 = v < N ? s[v] : 0.f;  // read now, used after the loop
     const float s1 = v + 4 < N ? s[v + 4] : 0.f;
-    mbar_wait(&bars[1 + st], (uint32_t)((i / stages) & 1));
-    const uint8_t* tile = ring + st * stage_bytes + qrow * kBN;
     // One accumulator for even and one for odd k16 steps: two mma chains.
     float acc[kMTiles][2][4];
 #pragma unroll
@@ -800,57 +909,73 @@ int8_mma_rows_kernel(const __grid_constant__ CUtensorMap tmap,
 #pragma unroll
       for (int c = 0; c < 8; ++c) acc[mt][c / 4][c % 4] = 0.f;
     }
-    for (int kc = 0; kc < K; kc += 64) {
-      // 16 bytes of the row: k = kc + 16 t .. +15; word j feeds step j.
-      const int chunk = ((kc & (kBN - 1)) >> 4) + t;
-      const uint4 wq = *reinterpret_cast<const uint4*>(
-          tile + (kc >> 7) * kTableBox + ((chunk ^ sw) << 4));
-      const uint32_t words[4] = {wq.x, wq.y, wq.z, wq.w};
-      uint32_t bq[4][2];
+    for (int c = 0; c < n_chunks; ++c) {
+      const int item = i * n_chunks + c;
+      const int st = item % stages;
+      mbar_wait(&bars[1 + st], (uint32_t)((item / stages) & 1));
+      const uint8_t* tile = ring + st * stage_bytes + qrow * kBN;
+      const __nv_bfloat16* xc =
+          kChunked ? reinterpret_cast<const __nv_bfloat16*>(
+                         ring + st * stage_bytes + boxes * kTableBox)
+                   : xs;
+      const int len = kChunked ? min(kc_len, K - c * kc_len) : K;
+      for (int kc = 0; kc < len; kc += 64) {
+        // 16 bytes of the row: k = kc + 16 t .. +15; word j feeds step j.
+        const int chunk = ((kc & (kBN - 1)) >> 4) + t;
+        const uint4 wq = *reinterpret_cast<const uint4*>(
+            tile + (kc >> 7) * kTableBox + ((chunk ^ sw) << 4));
+        const uint32_t words[4] = {wq.x, wq.y, wq.z, wq.w};
+        uint32_t bq[4][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bq[j][0] = i8x2_to_bf16x2(__byte_perm(words[j], 0u, 0x0100u));
-        bq[j][1] = i8x2_to_bf16x2(__byte_perm(words[j], 0u, 0x0302u));
+        for (int j = 0; j < 4; ++j) {
+          bq[j][0] = i8x2_to_bf16x2(__byte_perm(words[j], 0u, 0x0100u));
+          bq[j][1] = i8x2_to_bf16x2(__byte_perm(words[j], 0u, 0x0302u));
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          const __nv_bfloat16* xr =
+              xc + (16 * mt + g) * xs_stride + kc + 16 * t;
+          const uint4 xa0 = *reinterpret_cast<const uint4*>(xr);
+          const uint4 xa1 = *reinterpret_cast<const uint4*>(xr + 8);
+          const uint4 xb0 =
+              *reinterpret_cast<const uint4*>(xr + 8 * xs_stride);
+          const uint4 xb1 =
+              *reinterpret_cast<const uint4*>(xr + 8 * xs_stride + 8);
+          const uint32_t a0[4] = {xa0.x, xb0.x, xa0.y, xb0.y};
+          const uint32_t a1[4] = {xa0.z, xb0.z, xa0.w, xb0.w};
+          const uint32_t a2[4] = {xa1.x, xb1.x, xa1.y, xb1.y};
+          const uint32_t a3[4] = {xa1.z, xb1.z, xa1.w, xb1.w};
+          mma_bf16(acc[mt][0], a0, bq[0][0], bq[0][1]);
+          mma_bf16(acc[mt][1], a1, bq[1][0], bq[1][1]);
+          mma_bf16(acc[mt][0], a2, bq[2][0], bq[2][1]);
+          mma_bf16(acc[mt][1], a3, bq[3][0], bq[3][1]);
+        }
       }
+      if (c == n_chunks - 1) {
+        // Logits: accumulator c of row 16 mt + g + 8 (c >> 1), table row
+        // 8 warp + t + 4 (c & 1) of the tile, times the row's scale.
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt) {
-        const __nv_bfloat16* xr =
-            xs + (16 * mt + g) * xs_stride + kc + 16 * t;
-        const uint4 xa0 = *reinterpret_cast<const uint4*>(xr);
-        const uint4 xa1 = *reinterpret_cast<const uint4*>(xr + 8);
-        const uint4 xb0 =
-            *reinterpret_cast<const uint4*>(xr + 8 * xs_stride);
-        const uint4 xb1 =
-            *reinterpret_cast<const uint4*>(xr + 8 * xs_stride + 8);
-        const uint32_t a0[4] = {xa0.x, xb0.x, xa0.y, xb0.y};
-        const uint32_t a1[4] = {xa0.z, xb0.z, xa0.w, xb0.w};
-        const uint32_t a2[4] = {xa1.x, xb1.x, xa1.y, xb1.y};
-        const uint32_t a3[4] = {xa1.z, xb1.z, xa1.w, xb1.w};
-        mma_bf16(acc[mt][0], a0, bq[0][0], bq[0][1]);
-        mma_bf16(acc[mt][1], a1, bq[1][0], bq[1][1]);
-        mma_bf16(acc[mt][0], a2, bq[2][0], bq[2][1]);
-        mma_bf16(acc[mt][1], a3, bq[3][0], bq[3][1]);
-      }
-    }
-    // Logits: accumulator c of row 16 mt + g + 8 (c >> 1), table row
-    // 8 warp + t + 4 (c & 1) of the tile, times the row's scale.
+        for (int mt = 0; mt < kMTiles; ++mt) {
 #pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + 16 * mt + g + 8 * h;
-        if (m < M) {
-          float* out = y + (long long)m * N + v;
-          if (v < N) out[0] = (acc[mt][0][2 * h] + acc[mt][1][2 * h]) * s0;
-          if (v + 4 < N) {
-            out[4] = (acc[mt][0][2 * h + 1] + acc[mt][1][2 * h + 1]) * s1;
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + 16 * mt + g + 8 * h;
+            if (m < M) {
+              float* out = y + (long long)m * N + v;
+              if (v < N) {
+                out[0] = (acc[mt][0][2 * h] + acc[mt][1][2 * h]) * s0;
+              }
+              if (v + 4 < N) {
+                out[4] =
+                    (acc[mt][0][2 * h + 1] + acc[mt][1][2 * h + 1]) * s1;
+              }
+            }
           }
         }
       }
-    }
-    if (i + stages < my_tiles) {  // refill this stage once all have read it
-      __syncthreads();
-      if (tid == 0) stage_tile(i + stages);
+      if (item + stages < n_items) {  // refill once all have read it
+        __syncthreads();
+        if (kChunked ? warp == 0 : tid == 0) stage_item(item + stages);
+      }
     }
   }
 }
@@ -952,27 +1077,27 @@ cudaError_t allow_smem(F kernel, int bytes, int& configured) {
   return err;
 }
 
-template <int kMTiles>
+template <int kMTiles, bool kChunked>
 int launch_rows(const Int8MatmulArgs& a, const CUtensorMap& map,
                 const void* x, const void* s, void* y, cudaStream_t stream) {
   static int configured = 48 * 1024;
-  auto kernel = int8_mma_rows_kernel<kMTiles>;
+  auto kernel = int8_mma_rows_kernel<kMTiles, kChunked>;
   cudaError_t err = allow_smem(kernel, a.smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.grid_x, (a.M + 16 * kMTiles - 1) / (16 * kMTiles));
   kernel<<<grid, kTcThreads, a.smem, stream>>>(
       map, static_cast<const __nv_bfloat16*>(x),
       static_cast<const float*>(s), static_cast<float*>(y), a.M, a.N, a.K,
-      a.stages);
+      a.stages, a.k_split);
   return (int)cudaGetLastError();
 }
 
-template <int kMTiles>
+template <int kMTiles, bool kXStaged>
 int launch_dense(const Int8MatmulArgs& a, const CUtensorMap& map,
                  const void* x, const void* s, const void* bias, void* y,
                  cudaStream_t stream) {
   static int configured = 48 * 1024;
-  auto kernel = int8_mma_dense_kernel<kMTiles>;
+  auto kernel = int8_mma_dense_kernel<kMTiles, kXStaged>;
   cudaError_t err = allow_smem(kernel, a.smem, configured);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -999,19 +1124,22 @@ int launch_dense(const Int8MatmulArgs& a, const CUtensorMap& map,
 // The bf16 plan's invariants (the wrapper's launch_plan keeps them).
 bool valid_mma_plan(const Int8MatmulArgs& a) {
   if ((a.mt != 1 && a.mt != 4) || a.stages < 1 || a.grid_x < 1 ||
-      a.smem < 0 || a.smem > 227 * 1024) {
+      a.smem < 0 || a.smem > 227 * 1024 ||
+      (a.x_staged != 0 && a.x_staged != 1)) {
     return false;
   }
   if (a.transposed) {
     const int n_vt = (a.N + kBV - 1) / kBV;
     return a.K % 64 == 0 && a.grid_x <= n_vt &&
-           a.smem >= rows_smem(a.mt, a.K, a.stages);
+           (a.x_staged ? a.k_split > 0 && a.k_split % kBN == 0
+                       : a.k_split == a.K) &&
+           a.smem >= rows_smem(a.mt, a.K, a.stages, a.x_staged, a.k_split);
   }
   return a.splits >= 1 && a.splits <= kMaxCluster && a.k_split > 0 &&
          a.k_split % kBK == 0 && (long long)a.k_split * a.splits >= a.K &&
          (long long)a.k_split * (a.splits - 1) < a.K &&
          a.grid_x == (a.N + kBN - 1) / kBN &&
-         a.smem >= dense_smem(a.mt, a.k_split, a.stages);
+         a.smem >= dense_smem(a.mt, a.k_split, a.stages, a.x_staged);
 }
 
 }  // namespace
@@ -1038,9 +1166,17 @@ extern "C" int int8_matmul_launch(const Int8MatmulArgs* args, const void* x,
     return (int)cudaErrorInvalidValue;
   }
   if (a.transposed) {
-    return a.mt == 1 ? launch_rows<1>(a, map, x, s, y, st)
-                     : launch_rows<4>(a, map, x, s, y, st);
+    if (a.x_staged) {
+      return a.mt == 1 ? launch_rows<1, true>(a, map, x, s, y, st)
+                       : launch_rows<4, true>(a, map, x, s, y, st);
+    }
+    return a.mt == 1 ? launch_rows<1, false>(a, map, x, s, y, st)
+                     : launch_rows<4, false>(a, map, x, s, y, st);
   }
-  return a.mt == 1 ? launch_dense<1>(a, map, x, s, bias, y, st)
-                   : launch_dense<4>(a, map, x, s, bias, y, st);
+  if (a.x_staged) {
+    return a.mt == 1 ? launch_dense<1, true>(a, map, x, s, bias, y, st)
+                     : launch_dense<4, true>(a, map, x, s, bias, y, st);
+  }
+  return a.mt == 1 ? launch_dense<1, false>(a, map, x, s, bias, y, st)
+                   : launch_dense<4, false>(a, map, x, s, bias, y, st);
 }

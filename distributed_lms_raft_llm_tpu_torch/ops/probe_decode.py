@@ -204,7 +204,7 @@ class Step:
     def old(self, i: int, q, k_new, v_new):
         """models/gpt2.py's route before the append kernel."""
         from ..models.common import quantize_kv
-        from ..models.gpt2 import _write_rows
+        from ..models.common import write_rows as _write_rows
 
         layer = i % self.n_layers
         rows = torch.arange(self.s, device=q.device)[:, None]

@@ -99,7 +99,14 @@ class LaunchPlan:
     m16 row tiles a block (1 or 4), `grid` (x, y, z) blocks, `stages` ring
     tiles, `smem_bytes` of dynamic shared memory. Dense: `splits` blocks of
     one cluster share K in ranges of `k_split` rows; transposed: a block
-    walks `tiles_per_block` tiles of TABLE_ROWS table rows (at most)."""
+    walks `tiles_per_block` tiles of TABLE_ROWS table rows (at most), each
+    in chunks of `k_split` of K (all of K unless `x_staged`).
+
+    `x_staged`: x is staged with each ring stage, beside the weight box or
+    the table chunk it multiplies, instead of once a block (a dense
+    split's rows, or all of K for the table). Shared memory then no longer
+    grows with K: the deep products (Llama-3-8B's down projection at K =
+    14,336 beyond M = 16, its unembedding at K = 4,096) take this route."""
 
     mt: int
     grid: Tuple[int, int, int]
@@ -108,6 +115,7 @@ class LaunchPlan:
     stages: int
     smem_bytes: int
     tiles_per_block: int
+    x_staged: bool = False
 
 
 def dense_x_stride(k_split: int) -> int:
@@ -117,8 +125,12 @@ def dense_x_stride(k_split: int) -> int:
 
 def table_x_stride(k: int) -> int:
     """Staged x row of the transposed layout, bf16 elements (csrc
-    rows_x_stride)."""
+    rows_x_stride); `k` is K, or the chunk with `x_staged`."""
     return k + 8
+
+
+def _round_up(v: int, a: int) -> int:
+    return -(-v // a) * a
 
 
 def table_stage_bytes(k: int) -> int:
@@ -127,15 +139,48 @@ def table_stage_bytes(k: int) -> int:
     return -(-k // DENSE_COLS) * TABLE_ROWS * DENSE_COLS
 
 
-def _smem_bytes(transposed: bool, mt: int, k: int, stages: int) -> int:
+def dense_stage_bytes(mt: int, x_staged: bool) -> int:
+    """One dense ring stage (csrc dense_stage_bytes): the weight box, and
+    with `x_staged` the block's 16 mt rows of x over its 128 rows of K,
+    padded to the 1 KB the next box's swizzle needs."""
+    box = DENSE_ROWS * DENSE_COLS
+    if not x_staged:
+        return box
+    return box + _round_up(16 * mt * dense_x_stride(DENSE_ROWS) * 2, ALIGN)
+
+
+def table_chunk_stage_bytes(mt: int, k_chunk: int) -> int:
+    """One transposed ring stage with `x_staged` (csrc rows_stage_bytes):
+    a chunk of `k_chunk` of K of a tile's table rows, and the block's 16 mt
+    rows of x over the same chunk, padded to 1 KB."""
+    return table_stage_bytes(k_chunk) + _round_up(
+        16 * mt * table_x_stride(k_chunk) * 2, ALIGN)
+
+
+def _smem_bytes(transposed: bool, mt: int, k: int, stages: int,
+                x_staged: bool = False) -> int:
     """Dynamic shared memory of one block (csrc dense_smem / rows_smem);
-    `k` is the split's rows (dense) or K (transposed)."""
+    `k` is the split's rows (dense) or K, or the chunk with `x_staged`
+    (transposed)."""
     bars = 8 * (stages + 1)
     if transposed:
+        if x_staged:
+            return ALIGN + stages * table_chunk_stage_bytes(mt, k) + bars
         return (ALIGN + stages * table_stage_bytes(k)
                 + 16 * mt * table_x_stride(k) * 2 + bars)
-    ring = max(stages * DENSE_ROWS * DENSE_COLS, 16 * mt * PART_STRIDE * 4)
-    return ALIGN + ring + 16 * mt * dense_x_stride(k) * 2 + bars
+    ring = max(stages * dense_stage_bytes(mt, x_staged),
+               16 * mt * PART_STRIDE * 4)
+    xs = 0 if x_staged else 16 * mt * dense_x_stride(k) * 2
+    return ALIGN + ring + xs + bars
+
+
+def _fit_stages(most: int, smem: Callable[[int], int]) -> int:
+    """The deepest ring of at most `most` stages within SMEM_LIMIT (1 if
+    none is)."""
+    stages = most
+    while stages > 1 and smem(stages) > SMEM_LIMIT:
+        stages -= 1
+    return stages
 
 
 def launch_plan(m: int, k: int, n: int, transposed: bool,
@@ -148,58 +193,84 @@ def launch_plan(m: int, k: int, n: int, transposed: bool,
     one cluster, at least MIN_SPLIT_ROWS rows a split), and further while a
     block's staged x would pass X_BYTES; a split is a multiple of
     DENSE_ROWS rows; the ring holds every box of a split where shared
-    memory allows. Transposed: one wave of blocks (TARGET_BLOCKS over the
-    row tiles), each walking its tiles through a ring of up to
-    MAX_TABLE_STAGES tiles. `splits` forces the dense split count instead
+    memory allows. Where even 8 splits leave a split's x above X_BYTES or
+    past shared memory, x is staged box by box in the ring instead
+    (`x_staged`) and K is split for the wave alone. Transposed: one wave
+    of blocks (TARGET_BLOCKS over the row tiles), each walking its tiles
+    through a ring of up to MAX_TABLE_STAGES tiles with x staged whole;
+    where that ring would hold fewer than two tiles, each tile is walked in
+    chunks of K (1024, 512, 256 or 128, the longest with a ring of
+    MAX_TABLE_STAGES chunks), x's chunk staged beside the table's
+    (`x_staged`). `splits` forces the dense split count instead
     (`ops/sweep_int8.py --splits` measures the trade).
+
+    Raises on an empty product and where M needs more than 65,535 row
+    tiles (the grid's y limit).
     """
     if m < 1 or k < 16 or n < 1:
         raise ValueError(f"empty product: M={m}, K={k}, N={n}")
     mt = 1 if m <= 16 else 4
     gy = -(-m // (16 * mt))
+    if gy > 65535:
+        raise ValueError(f"M={m} needs {gy} row tiles, more than 65535")
     if transposed:
         n_vt = -(-n // TABLE_ROWS)
         gx = min(n_vt, max(1, -(-TARGET_BLOCKS // gy)))
         tiles = -(-n_vt // gx)
-        stages = min(tiles, MAX_TABLE_STAGES)
-        while stages > 1 and _smem_bytes(True, mt, k, stages) > SMEM_LIMIT:
-            stages -= 1
+        stages = _fit_stages(min(tiles, MAX_TABLE_STAGES),
+                             lambda st: _smem_bytes(True, mt, k, st))
         smem = _smem_bytes(True, mt, k, stages)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"K={k} is too deep for the transposed kernel's "
-                             f"shared memory ({smem} bytes)")
-        return LaunchPlan(mt=mt, grid=(gx, gy, 1), splits=1, k_split=k,
-                          stages=stages, smem_bytes=smem,
-                          tiles_per_block=tiles)
+        if smem <= SMEM_LIMIT and stages >= min(tiles, 2):
+            return LaunchPlan(mt=mt, grid=(gx, gy, 1), splits=1, k_split=k,
+                              stages=stages, smem_bytes=smem,
+                              tiles_per_block=tiles)
+        for chunk in (1024, 512, 256, 128):
+            items = tiles * -(-k // chunk)
+            stages = min(items, MAX_TABLE_STAGES)
+            smem = _smem_bytes(True, mt, chunk, stages, x_staged=True)
+            if chunk < k and smem <= SMEM_LIMIT:
+                return LaunchPlan(mt=mt, grid=(gx, gy, 1), splits=1,
+                                  k_split=chunk, stages=stages,
+                                  smem_bytes=smem, tiles_per_block=tiles,
+                                  x_staged=True)
+        raise ValueError(f"K={k} is too deep for the transposed kernel's "
+                         f"shared memory ({smem} bytes)")
     gx = -(-n // DENSE_COLS)
 
     def split_rows(splits: int) -> int:  # ceil(K / splits), in whole boxes
         return -(-k // (splits * DENSE_ROWS)) * DENSE_ROWS
 
+    def x_bytes(splits: int) -> int:  # a split's staged x, whole
+        return 16 * mt * dense_x_stride(split_rows(splits)) * 2
+
     if splits is not None:
         if splits not in (1, 2, 4, MAX_SPLIT):
             raise ValueError(f"splits must be 1, 2, 4 or 8, not {splits}")
+        wave = splits
     else:
         splits = 1
         while (splits < MAX_SPLIT and gx * gy * splits < TARGET_BLOCKS
                and k // (2 * splits) >= MIN_SPLIT_ROWS):
             splits *= 2
-        while (splits < MAX_SPLIT and 16 * mt * dense_x_stride(
-                split_rows(splits)) * 2 > X_BYTES):
+        wave = splits
+        while splits < MAX_SPLIT and x_bytes(splits) > X_BYTES:
             splits *= 2
+    x_staged = (x_bytes(splits) > X_BYTES
+                or _smem_bytes(False, mt, split_rows(splits), 1) > SMEM_LIMIT)
+    if x_staged:
+        splits = wave
     k_split = split_rows(splits)
     splits = -(-k // k_split)
     tiles = -(-k_split // DENSE_ROWS)
-    stages = tiles
-    while stages > 1 and _smem_bytes(False, mt, k_split, stages) > SMEM_LIMIT:
-        stages -= 1
-    smem = _smem_bytes(False, mt, k_split, stages)
+    stages = _fit_stages(tiles, lambda st: _smem_bytes(
+        False, mt, k_split, st, x_staged))
+    smem = _smem_bytes(False, mt, k_split, stages, x_staged)
     if smem > SMEM_LIMIT:
         raise ValueError(f"K={k} is too deep for the dense kernel's shared "
                          f"memory ({smem} bytes)")
     return LaunchPlan(mt=mt, grid=(gx, gy, splits), splits=splits,
                       k_split=k_split, stages=stages, smem_bytes=smem,
-                      tiles_per_block=tiles)
+                      tiles_per_block=tiles, x_staged=x_staged)
 
 
 # ------------------------------------------------- fragment index maps
@@ -247,6 +318,22 @@ def table_b_row(lane: int) -> int:
     column g = lane // 4 stands for: sigma(g) = g // 2 + 4 (g % 2)."""
     g = lane >> 2
     return (g >> 1) | ((g & 1) << 2)
+
+
+def dense_stage_x_offset(row: int, col: int) -> int:
+    """Dense with `x_staged`: the byte offset, within a ring stage, of x's
+    element (block row `row`, column `col` of the stage's 128 rows of K),
+    beside the weight box (csrc fill, xd + r * xs_stride)."""
+    return DENSE_ROWS * DENSE_COLS + (row * dense_x_stride(DENSE_ROWS)
+                                      + col) * 2
+
+
+def table_stage_x_offset(k_chunk: int, row: int, col: int) -> int:
+    """Transposed with `x_staged`: the byte offset, within a ring stage, of
+    x's element (block row `row`, column `col` of the chunk), after the
+    chunk's table boxes (csrc stage_item, xd + r * xs_stride)."""
+    return table_stage_bytes(k_chunk) + (row * table_x_stride(k_chunk)
+                                         + col) * 2
 
 
 def table_c_row(lane: int, c: int) -> int:
@@ -304,7 +391,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "M", "N", "K", "transposed", "dtype", "mt", "splits", "k_split",
-        "stages", "grid_x", "smem")]
+        "stages", "grid_x", "smem", "x_staged")]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,14 +445,11 @@ def _kernel_layout(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     plan = launch_plan(m, k, n, transposed) if bf16 and m else None
     if plan is None:
         args = _Args(m, n, k, int(transposed), _DTYPE_CODES[x.dtype], 0, 0,
-                     0, 0, 0, 0)
+                     0, 0, 0, 0, 0)
     else:
-        if plan.grid[1] > 65535:
-            raise ValueError(f"M={m} needs {plan.grid[1]} row tiles, more "
-                             f"than 65535")
         args = _Args(m, n, k, int(transposed), 1, plan.mt, plan.splits,
                      plan.k_split, plan.stages, plan.grid[0],
-                     plan.smem_bytes)
+                     plan.smem_bytes, int(plan.x_staged))
     route = (MMA_UNEMBED if transposed else MMA) if bf16 else FMA
     return _Layout(args=args, address=ctypes.addressof(args), route=route,
                    out_shape=(*x.shape[:-1], n),

@@ -121,7 +121,7 @@ def window_faults(lengths, width: int, t: int) -> dict:
 
 def window_attention_case(*, s, width, t, int8,
                           with_bias=False, dtype="bfloat16", h=12, dh=64,
-                          n_layers=12, seed=0, time_plain=True):
+                          n_layers=12, seed=0, time_plain=True, hkv=None):
     """The verify window's attention: `s` rows of `t` queries (row b's
     query j sees the keys before lengths[b] + j; one row's last query
     reaches the width, one row starts at one key), q strided as the model
@@ -133,14 +133,16 @@ def window_attention_case(*, s, width, t, int8,
     largest output would have too); SDPA with a [B, 1, T, S] boolean mask
     over the cache (dequantized beforehand, untimed, for int8) as the
     yardstick; the bound counts the keys this data's frontiers need.
-    `time_plain=False` skips timing the plain version and the eager call."""
+    `time_plain=False` skips timing the plain version and the eager call.
+    `hkv` KV heads (default `h`) each serve h / hkv query heads (GQA)."""
+    hkv = h if hkv is None else hkv
     dt = getattr(torch, dtype)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     s_alloc = width + 64
     qkv = torch.randn((s, t, 3 * h * dh), generator=gen, device=dev).to(dt)
     q = qkv[..., :h * dh].reshape(s, t, h, dh).transpose(1, 2)
-    shape = (n_layers, s, h, s_alloc, dh)
+    shape = (n_layers, s, hkv, s_alloc, dh)
     kf = torch.randn(shape, generator=gen, device=dev)
     vf = torch.randn(shape, generator=gen, device=dev)
     scales = {}
@@ -199,8 +201,8 @@ def window_attention_case(*, s, width, t, int8,
     key_reads = int((lengths + t - 1).sum().item())
     pair_keys = int(frontier.sum().item())  # (query, key) pairs scored
     es = torch.finfo(dt).bits // 8
-    n_bytes = (2 * h * key_reads * dh * (1 if int8 else es)
-               + (2 * 4 * h * key_reads if int8 else 0)
+    n_bytes = (2 * hkv * key_reads * dh * (1 if int8 else es)
+               + (2 * 4 * hkv * key_reads if int8 else 0)
                + 2 * s * h * t * dh * es + 4 * s
                + (4 * s * width if with_bias else 0))
     n_ops = 4 * h * pair_keys * dh
@@ -210,7 +212,8 @@ def window_attention_case(*, s, width, t, int8,
                                    scales.get("k_scale"),
                                    scales.get("v_scale"))
     plan = lay.plan
-    rec = dict(slots=s, t=t, width=width, s_alloc=s_alloc, int8=int8,
+    rec = dict(slots=s, t=t, width=width, s_alloc=s_alloc, int8=int8, h=h,
+               hkv=hkv, dh=dh,
                bias=with_bias, dtype=dtype,
                route=("tensor_cores" if attention.tensor_core_window(t, dt)
                       else "cuda_cores"),
@@ -237,7 +240,7 @@ def window_attention_case(*, s, width, t, int8,
 
     def library(i):
         F.scaled_dot_product_attention(q, kd[i % n_layers], vd[i % n_layers],
-                                       attn_mask=mask)
+                                       attn_mask=mask, enable_gqa=hkv != h)
 
     rec.update(kernel_us=time_graph_us(kernel),
                kernel_eager_us=time_eager_us(kernel) if time_plain else None,

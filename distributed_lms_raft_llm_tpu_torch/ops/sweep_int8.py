@@ -1,7 +1,8 @@
-"""Time the int8 weight-only matmul at GPT-2 small's products on the card.
+"""Time the int8 weight-only matmul at GPT-2 small's and Llama-3-8B's
+products on the card.
 
     python -m distributed_lms_raft_llm_tpu_torch.ops.sweep_int8 \\
-        [--dtype bfloat16] [--m 1,16,256] [--splits] [--out FILE]
+        [--dtype bfloat16] [--m 1,16,256] [--splits] [--llama] [--out FILE]
 
 For each product (attn.wqkv, mlp.wi, attn.wo, mlp.wo, the tied
 unembedding) and each M: the kernel against its plain version, then the
@@ -15,7 +16,10 @@ the 49 products of one decode model call (12 layers of distinct weights,
 124 MB). The relevance gate's products too: BERT-base's four products
 have GPT-2 small's dense shapes, at the gate's rows (texts x length
 bucket, GATE_ROWS), then one int8 gate forward's 48 products at each of
-those M. The scoring tenant's rows (SCORE_ROWS) through all five. With `--splits`: the dense products at M=16 at each forced K
+those M. The scoring tenant's rows (SCORE_ROWS) through all five. With `--llama`:
+Llama-3-8B's seven products and its untied 128,256 x 4,096 unembedding
+(LLAMA_PRODUCTS) at LLAMA_ROWS instead, the deep ones through the
+x-staged plans. With `--splits`: the dense products at M=16 at each forced K
 split instead. One JSON line a case, then the card's `nvidia-smi` name
 and power limit.
 
@@ -51,6 +55,23 @@ INT8_PRODUCTS = {
     "mlp.wo": (3072, 768, False),
     "wte.unembed": (768, 50257, True),
 }
+# Llama-3-8B's int8 products (meta-llama/Meta-Llama-3-8B config.json: width
+# 4,096, 8 KV heads of 128, intermediate 14,336, vocabulary 128,256, untied
+# lm_head): name -> (K, N, transposed).
+LLAMA_PRODUCTS = {
+    "llama.wq": (4096, 4096, False),
+    "llama.wk": (4096, 1024, False),
+    "llama.wv": (4096, 1024, False),
+    "llama.wo": (4096, 4096, False),
+    "llama.wg": (4096, 14336, False),
+    "llama.wu": (4096, 14336, False),
+    "llama.wd": (14336, 4096, False),
+    "llama.lm_head": (4096, 128256, True),
+}
+# Its rows: decode (16 slots), the fused admission chunk (32), the scoring
+# quanta at buckets 64 and 256 (512, 2,048).
+LLAMA_ROWS = (16, 32, 512, 2048)
+PRODUCTS = {**INT8_PRODUCTS, **LLAMA_PRODUCTS}
 # The relevance gate's rows M = texts x length bucket: a check's forward
 # holds 1 or 2 texts in a bucket of 64 to 512 tokens, so M runs from 64 to
 # 1,024; the two ends of the product sweep beside decode's and prefill's.
@@ -78,7 +99,7 @@ def int8_weights(name, n_layers, seed):
     """Seeded int8 weights of one product, stacked over the layers as the
     model holds them (the unembedding table once): (q, s, b, K, N,
     transposed)."""
-    k, n, transposed = INT8_PRODUCTS[name]
+    k, n, transposed = PRODUCTS[name]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if transposed:
         w = quant.quantize_embedding(
@@ -111,10 +132,13 @@ def int8_matmul_case(*, name, m, dtype, n_layers=12, seed=0):
     """The kernel against its plain version at one product and M, then
     timed over distinct weight copies (more than WALK_BYTES); cuBLAS
     against the weight dequantized to x's dtype beforehand as the
-    yardstick. Raises Mismatch if the kernel disagrees."""
+    yardstick. Raises Mismatch if the kernel disagrees. Draws no more
+    layers than the walk needs (Llama's products are 4-59 MB each)."""
     dt = getattr(torch, dtype)
-    q1, s1, b1, k, n, transposed = int8_weights(name, n_layers, seed)
+    k, n, _ = PRODUCTS[name]
     copies = math.floor(WALK_BYTES / (k * n)) + 1
+    q1, s1, b1, k, n, transposed = int8_weights(name, min(n_layers, copies),
+                                                seed)
     reps = -(-copies // q1.shape[0])
     q = q1.repeat(reps, 1, 1)[:copies].contiguous()  # distinct memory
     s = s1.repeat(reps, 1)[:copies].contiguous()
@@ -259,6 +283,8 @@ def main(argv=None) -> int:
                         choices=("bfloat16", "float32"))
     parser.add_argument("--m", default="1,16,256",
                         help="comma-separated row counts")
+    parser.add_argument("--llama", action="store_true",
+                        help="Llama-3-8B's products at LLAMA_ROWS instead")
     parser.add_argument("--splits", action="store_true",
                         help="time the dense products at M=16 at each "
                         "forced K split instead")
@@ -276,6 +302,8 @@ def main(argv=None) -> int:
         for rec in split_sweep(dtype=args.dtype):
             records.append(rec)
             print(json.dumps(rec), flush=True)
+    elif args.llama:
+        cases = [(name, m) for name in LLAMA_PRODUCTS for m in LLAMA_ROWS]
     else:
         cases = [(name, int(m)) for name in INT8_PRODUCTS
                  for m in args.m.split(",")]

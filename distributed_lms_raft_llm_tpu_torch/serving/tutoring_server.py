@@ -72,6 +72,7 @@ from ..engine import (
 from ..config import apply_file_defaults, load_config
 from ..engine.engine import DRAFT_SOURCES
 from ..engine.scoring import ScoringManager, score_admin_get
+from ..models import registry
 from ..proto import lms_pb2, rpc
 from ..utils import auth
 from ..utils.guards import make_serving_watchdog
@@ -519,12 +520,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "it")
     parser.add_argument("--port", type=int, default=50054)
     parser.add_argument("--model", default="gpt2",
-                        help="preset: gpt2 (GPT-2 small) or tiny")
+                        choices=sorted(registry.PRESETS),
+                        help="preset: gpt2 (GPT-2 small), tiny, llama3-8b "
+                        "(Meta-Llama-3-8B's shape) or llama-tiny")
     parser.add_argument("--checkpoint", default=None,
                         help="HF-layout .safetensors weights (default: "
                         "seeded random weights)")
     parser.add_argument("--vocab", default=None, help="GPT-2 vocab.json")
     parser.add_argument("--merges", default=None, help="GPT-2 merges.txt")
+    parser.add_argument("--tokenizer-json", default=None,
+                        help="HF tokenizer.json (a Llama checkpoint needs "
+                        "it; it wins over --vocab/--merges)")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel ways (above 1 not ported: "
                         "the engine raises)")
@@ -654,7 +660,8 @@ def resolve_args(argv=None) -> argparse.Namespace:
         t, s = cfg.tutoring, cfg.sampling
         apply_file_defaults(args, parser, {
             "port": t.port, "model": t.model, "checkpoint": t.checkpoint,
-            "vocab": t.vocab, "merges": t.merges, "tp": t.tp, "ep": t.ep,
+            "vocab": t.vocab, "merges": t.merges,
+            "tokenizer_json": t.tokenizer_json, "tp": t.tp, "ep": t.ep,
             "quant": t.quant, "max_new_tokens": s.max_new_tokens,
             "max_batch": t.max_batch, "max_wait_ms": t.max_wait_ms,
             "queue_depth": cfg.resilience.queue_depth,
@@ -700,6 +707,7 @@ def engine_from_args(args: argparse.Namespace):
     config = EngineConfig(
         model=args.model, checkpoint=args.checkpoint,
         vocab_path=args.vocab, merges_path=args.merges,
+        tokenizer_json=args.tokenizer_json,
         sampling=SamplingParams.reference_defaults(
             max_new_tokens=args.max_new_tokens,
             **getattr(args, "sampling_overrides", {})),

@@ -328,12 +328,51 @@ def full_byte_vocab(size: int = 50257, seed: int = 0) -> Dict[str, int]:
     return vocab
 
 
+class HFTokenizer:
+    """A HF `tokenizer.json` through the `tokenizers` library (the JAX
+    package's `HFTokenizer`): the format Llama-3-style checkpoints ship
+    (byte-level BPE with their own pre-tokenizer). Reads the local file
+    only. `tokenizers` is imported here, not with the module: only a node
+    serving such a checkpoint needs it."""
+
+    def __init__(self, path: str):
+        import tokenizers
+
+        self._tok = tokenizers.Tokenizer.from_file(path)
+        self._vocab = self._tok.get_vocab()
+        specials = [t for t in ("<|end_of_text|>", "<|endoftext|>", "</s>",
+                                "<|eot_id|>") if t in self._vocab]
+        self.eos_id = (self._vocab[specials[0]] if specials
+                       else self._tok.get_vocab_size() - 1)
+        self.pad_id = self.eos_id
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=False).ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode([int(i) for i in ids],
+                                skip_special_tokens=True)
+
+    def decode_complete(self, ids: Sequence[int]) -> str:
+        """decode() less a trailing incomplete UTF-8 character, which the
+        byte-level decoder shows as U+FFFD."""
+        return self.decode(ids).rstrip("\ufffd")
+
+
 def load_gpt2_tokenizer(
     vocab_path: Optional[str] = None,
     merges_path: Optional[str] = None,
+    tokenizer_json: Optional[str] = None,
 ):
-    """Serving tokenizer resolution: GPT-2 vocab.json + merges.txt BPE when
-    both are given, else the byte fallback."""
+    """Serving tokenizer resolution, as in the JAX package: an HF
+    `tokenizer.json` (Llama) when given, else GPT-2 vocab.json + merges.txt
+    BPE when both are given, else the byte fallback."""
+    if tokenizer_json:
+        return HFTokenizer(tokenizer_json)
     if vocab_path and merges_path:
         return BPETokenizer.from_files(vocab_path, merges_path)
     return ByteTokenizer()

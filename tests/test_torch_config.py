@@ -119,6 +119,45 @@ def test_explicit_session_flags_beat_the_file(tmp_path):
     assert (got.session_ttl, got.session_max) == (30.0, 2)
 
 
+def test_llama_tutoring_section_resolves_as_the_jax_node(tmp_path,
+                                                         monkeypatch):
+    """configs/cluster.toml with `[tutoring] model = "llama3-8b"` and a
+    `tokenizer_json`: the port's node resolves the model as the JAX node's
+    `main` does and the tokenizer as the JAX `config.engine_config` does,
+    and hands both to its engine (captured, not built: a full-width
+    model)."""
+    text = Path(FILES["cluster"]).read_text().replace(
+        'model = "gpt2"',
+        'model = "llama3-8b"\ntokenizer_json = "data/llama/tokenizer.json"',
+        1)
+    path = tmp_path / "llama.toml"
+    path.write_text(text)
+    argv = ["--config", str(path)]
+    want, overrides = jax_resolve(argv, monkeypatch)
+    got = tutoring_server.resolve_args(argv)
+    assert got.model == want.model == "llama3-8b"
+    ref = jax_config.engine_config(jax_config.load_config(str(path)))
+    assert got.tokenizer_json == ref.tokenizer_json == (
+        "data/llama/tokenizer.json")
+    seen = {}
+
+    def capture(config, **kw):
+        seen.update(config=config, **kw)
+        return "engine"
+
+    monkeypatch.setattr(tutoring_server, "PagedEngine", capture)
+    assert tutoring_server.engine_from_args(got) == "engine"
+    config = seen["config"]
+    assert (config.model, config.tokenizer_json) == (ref.model,
+                                                     ref.tokenizer_json)
+    assert (config.quant, config.kv_quant, seen["slots"]) == ("int8", True,
+                                                              16)
+    # an explicit flag still wins over the file
+    flagged = tutoring_server.resolve_args(argv + ["--tokenizer-json",
+                                                   "t.json"])
+    assert flagged.tokenizer_json == "t.json"
+
+
 @pytest.mark.parametrize("text,match", [
     ("[tutorin]\nmodel = 'tiny'\n", "unknown section"),
     ("[tutoring]\nslotz = 4\n", "slotz"),

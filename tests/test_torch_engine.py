@@ -266,6 +266,7 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.engine\n"
         "import distributed_lms_raft_llm_tpu_torch.engine.paged\n"
         "import distributed_lms_raft_llm_tpu_torch.models.quant\n"
+        "import distributed_lms_raft_llm_tpu_torch.models.llama\n"
         "import distributed_lms_raft_llm_tpu_torch.ops\n"
         "import distributed_lms_raft_llm_tpu_torch.ops.quant_matmul\n"
         "import distributed_lms_raft_llm_tpu_torch.serving.tutoring_server\n"
@@ -283,7 +284,7 @@ def test_port_imports_no_jax():
                          check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("ops.attention", "ops.quant_matmul", "models.quant",
-                   "models.bert", "engine.gate",
+                   "models.bert", "models.llama", "engine.gate",
                    "engine.paged", "engine.batcher", "utils.tracing",
                    "utils.healthz", "utils.metrics_registry",
                    "serving.tutoring_server", "config", "engine.scoring",

@@ -174,7 +174,7 @@ def test_hf_weights_cast_to_param_dtype(models):
     assert params["blocks"]["attn"]["wqkv"].shape == (2, 32, 96)
 
 
-@pytest.mark.parametrize("preset", ["gpt2-medium", "llama3-8b", "moe-tiny"])
+@pytest.mark.parametrize("preset", ["gpt2-medium", "gpt2-xl", "moe-tiny"])
 def test_registry_refuses_unported_presets(preset):
     with pytest.raises(ValueError, match="not ported"):
         registry.resolve(preset, torch.float32)

@@ -439,6 +439,40 @@ def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
     after the bias, the kernel once at the end: up to about two bf16 ulps
     (rtol 1.6e-2, atol 1e-2 of the output's scale). bf16 x takes the
     tensor-core route, float32 x the CUDA-core route."""
+    _check_int8_matmul(card, dtype, m, k, n, transposed)
+
+
+# Llama-3-8B's products: wq and wo, wk and wv, wg and wu, wd, and the
+# untied 128,256 x 4,096 unembedding; then deep shapes whose last ring item
+# is partial: a down projection K of 14,336 + 16 (its last split's last box
+# 16 rows) and a table of K = 4,096 + 64 (its last chunk 64 deep) whose
+# last tile holds one row.
+LLAMA_PRODUCTS = [(4096, 4096, False), (4096, 1024, False),
+                  (4096, 14336, False), (14336, 4096, False),
+                  (4096, 128256, True), (14352, 256, False),
+                  (4160, 129, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", [1, 16, 17, 32, 100, 512, 2048])
+@pytest.mark.parametrize("k,n,transposed", LLAMA_PRODUCTS)
+def test_int8_matmul_matches_plain_at_llama_shapes(card, dtype, m, k, n,
+                                                   transposed):
+    """`test_int8_matmul_matches_plain` at Llama-3-8B's products: decode
+    (M = 1, 16), the admission chunk (32), a partial row tile (17, 100) and
+    the scoring quanta (512, 2,048), through the deep-K plans (`x_staged`:
+    the down projection beyond M = 16, the unembedding at every M) and the
+    whole-split ones; the same tolerances."""
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+
+    if dtype == "bfloat16" and (k, n) in ((14336, 4096), (4096, 128256)):
+        plan = quant_matmul.launch_plan(m, k, n, transposed)
+        assert plan.x_staged == (transposed or m > 16)
+    _check_int8_matmul(card, dtype, m, k, n, transposed)
+
+
+def _check_int8_matmul(card, dtype, m, k, n, transposed):
     from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
 
     x, q, s, b = _int8_inputs(card, dtype, m, k, n, transposed, m * 7 + n)

@@ -10,6 +10,7 @@ the kernel itself on the card (tests/test_torch_kernels_cuda.py).
 """
 
 import ast
+import dataclasses
 import inspect
 import textwrap
 
@@ -203,7 +204,7 @@ def test_params_from_jax_carries_int8_pairs_and_equals_port_quantizer(
 
 def test_quantize_params_refuses_unported_families(jax_tiny):
     with pytest.raises(ValueError, match="not ported"):
-        port_quant.quantize_params({}, "llama")
+        port_quant.quantize_params({}, "gpt2_moe")
 
 
 # ----------------------------------------------------- the kernel wrapper
@@ -448,10 +449,145 @@ def test_launch_plan_ragged_vocab_edge_covers_every_row_once(m):
 
 
 def test_launch_plan_refuses_what_does_not_fit():
+    """An empty product, and M past the grid's 65,535 row tiles. Depth no
+    longer bounds a plan: an 8,192-deep table, once too deep for x staged
+    whole, is walked in chunks of K."""
     with pytest.raises(ValueError, match="empty product"):
         quant_matmul.launch_plan(0, 768, 768, False)
-    with pytest.raises(ValueError, match="too deep"):
-        quant_matmul.launch_plan(256, 8192, 50257, True)
+    with pytest.raises(ValueError, match="row tiles, more than 65535"):
+        quant_matmul.launch_plan(64 * 65535 + 1, 768, 768, False)
+    with pytest.raises(ValueError, match="row tiles, more than 65535"):
+        quant_matmul.launch_plan(64 * 65535 + 1, 768, 50257, True)
+    deep = quant_matmul.launch_plan(256, 8192, 50257, True)
+    assert deep.x_staged and deep.smem_bytes <= quant_matmul.SMEM_LIMIT
+
+
+# GPT-2 small's plans as they were before the deep-K plans existed: (M, K,
+# N, transposed, mt, grid, splits, k_split, stages, smem, tiles a block).
+GPT2_PLANS = [
+    (1, 768, 2304, False, 1, (18, 1, 6), 6, 128, 1, 21776, 1),
+    (32, 768, 2304, False, 4, (18, 1, 6), 6, 128, 1, 52240, 1),
+    (256, 768, 2304, False, 4, (18, 4, 2), 2, 384, 3, 100384, 3),
+    (2048, 768, 2304, False, 4, (18, 32, 1), 1, 768, 6, 198712, 6),
+    (1, 768, 3072, False, 1, (24, 1, 6), 6, 128, 1, 21776, 1),
+    (32, 768, 3072, False, 4, (24, 1, 6), 6, 128, 1, 52240, 1),
+    (256, 768, 3072, False, 4, (24, 4, 2), 2, 384, 3, 100384, 3),
+    (2048, 768, 3072, False, 4, (24, 32, 1), 1, 768, 6, 198712, 6),
+    (1, 768, 768, False, 1, (6, 1, 6), 6, 128, 1, 21776, 1),
+    (32, 768, 768, False, 4, (6, 1, 6), 6, 128, 1, 52240, 1),
+    (256, 768, 768, False, 4, (6, 4, 6), 6, 128, 1, 52240, 1),
+    (2048, 768, 768, False, 4, (6, 32, 1), 1, 768, 6, 198712, 6),
+    (1, 3072, 768, False, 1, (6, 1, 8), 8, 384, 3, 62752, 3),
+    (32, 3072, 768, False, 4, (6, 1, 8), 8, 384, 3, 100384, 3),
+    (256, 3072, 768, False, 4, (6, 4, 8), 8, 384, 3, 100384, 3),
+    (2048, 3072, 768, False, 4, (6, 32, 4), 4, 768, 6, 198712, 6),
+    (1, 768, 50257, True, 1, (132, 1, 1), 1, 768, 4, 222504, 6),
+    (32, 768, 50257, True, 4, (132, 1, 1), 1, 768, 2, 198680, 6),
+    (256, 768, 50257, True, 4, (33, 4, 1), 1, 768, 2, 198680, 24),
+    (2048, 768, 50257, True, 4, (5, 32, 1), 1, 768, 2, 198680, 158),
+]
+
+
+@pytest.mark.parametrize("plan", GPT2_PLANS, ids=lambda p: "-".join(
+    map(str, p[:4])))
+def test_gpt2_plans_are_unchanged(plan):
+    m, k, n, transposed, *want = plan
+    got = quant_matmul.launch_plan(m, k, n, transposed)
+    assert not got.x_staged
+    assert [got.mt, got.grid, got.splits, got.k_split, got.stages,
+            got.smem_bytes, got.tiles_per_block] == want
+
+
+# Llama-3-8B's products: (name, K, N) of x [M, K] times the weight; the
+# unembedding's table is [N, K] (transposed layout).
+LLAMA_PRODUCTS = [("wq", 4096, 4096), ("wk", 4096, 1024),
+                  ("wv", 4096, 1024), ("wo", 4096, 4096),
+                  ("wg", 4096, 14336), ("wu", 4096, 14336),
+                  ("wd", 14336, 4096), ("lm_head", 4096, 128256)]
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("m", [1, 16, 17, 32, 512, 2048])
+@pytest.mark.parametrize("name,k,n", LLAMA_PRODUCTS,
+                         ids=[p[0] for p in LLAMA_PRODUCTS])
+def test_launch_plan_invariants_at_llama_products(name, k, n, m, transposed):
+    """Every Llama-3-8B product plans at every M in both layouts, with
+    what csrc's valid_mma_plan checks: row tiles cover M; shared memory
+    within the limit and equal to csrc's sum for the plan's mode. Dense:
+    whole boxes, splits covering K with none empty, within one cluster;
+    x staged whole only where it fits X_BYTES (else box by box). The table:
+    one wave at most, tiles covering it; chunks of whole boxes below K
+    where x is staged with them, at least two stages where it is not."""
+    plan = quant_matmul.launch_plan(m, k, n, transposed)
+    assert plan.mt == (1 if m <= 16 else 4)
+    assert plan.grid[1] == -(-m // (16 * plan.mt))
+    assert plan.smem_bytes <= quant_matmul.SMEM_LIMIT
+    assert plan.smem_bytes == quant_matmul._smem_bytes(
+        transposed, plan.mt, plan.k_split, plan.stages, plan.x_staged)
+    assert 1 <= plan.stages
+    if transposed:
+        n_vt = -(-n // quant_matmul.TABLE_ROWS)
+        assert plan.grid[0] == min(n_vt, -(-quant_matmul.TARGET_BLOCKS
+                                           // plan.grid[1]))
+        assert plan.grid[0] * plan.tiles_per_block >= n_vt
+        assert plan.grid[0] <= n_vt and plan.grid[2] == 1
+        if plan.x_staged:
+            assert plan.k_split % quant_matmul.DENSE_COLS == 0
+            assert plan.k_split < k
+            items = plan.tiles_per_block * -(-k // plan.k_split)
+            assert plan.stages == min(items, quant_matmul.MAX_TABLE_STAGES)
+        else:
+            assert plan.k_split == k and plan.stages >= 2
+        return
+    rows = quant_matmul.DENSE_ROWS
+    assert plan.grid[0] == -(-n // quant_matmul.DENSE_COLS)
+    assert plan.k_split % rows == 0
+    assert plan.splits * plan.k_split >= k > (plan.splits - 1) * plan.k_split
+    assert 1 <= plan.splits <= quant_matmul.MAX_SPLIT
+    assert plan.grid[2] == plan.splits
+    assert plan.stages <= plan.tiles_per_block == -(-plan.k_split // rows)
+    mt = plan.mt
+    whole_x = 16 * mt * quant_matmul.dense_x_stride(plan.k_split) * 2
+    if plan.x_staged:  # even the finest split's x would not fit
+        finest = -(-k // (quant_matmul.MAX_SPLIT * rows)) * rows
+        assert (16 * mt * quant_matmul.dense_x_stride(finest) * 2
+                > quant_matmul.X_BYTES
+                or quant_matmul._smem_bytes(False, mt, finest, 1)
+                > quant_matmul.SMEM_LIMIT)
+    else:
+        assert whole_x <= quant_matmul.X_BYTES
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_launch_plan_plans_every_llama_product_at_every_m(transposed):
+    """M = 1 .. 2,048, every product, each layout: a plan within shared
+    memory whose row tiles cover M (the sampled M above check the rest)."""
+    for _, k, n in LLAMA_PRODUCTS:
+        for m in range(1, 2049):
+            plan = quant_matmul.launch_plan(m, k, n, transposed)
+            assert plan.smem_bytes <= quant_matmul.SMEM_LIMIT
+            assert plan.grid[1] * 16 * plan.mt >= m
+
+
+def test_llama_plans_take_the_deep_routes_where_x_does_not_fit():
+    """The down projection beyond M = 16 (its 8 splits' x would need 230
+    KB a block) and the unembedding at every M (its 4,096-deep x and
+    tiles) stage x in the ring; the rest keep x staged whole."""
+    plan = quant_matmul.launch_plan
+    for m in (1, 16):
+        assert not plan(m, 14336, 4096, False).x_staged
+    for m in (17, 32, 512, 2048):
+        p = plan(m, 14336, 4096, False)
+        assert p.x_staged and p.stages == 6
+    assert plan(32, 14336, 4096, False).grid == (32, 1, 8)
+    assert plan(512, 14336, 4096, False).grid == (32, 8, 1)
+    for m in (1, 16, 32, 512, 2048):
+        p = plan(m, 4096, 128256, True)
+        assert p.x_staged and p.stages == 4
+        assert p.k_split == (512 if m <= 16 else 256)
+    for name, k, n in LLAMA_PRODUCTS[:6]:
+        for m in (1, 16, 32, 512, 2048):
+            assert not plan(m, k, n, False).x_staged, (name, m)
 
 
 # ------------------------------- the tensor-core route's fragment maps
@@ -647,3 +783,201 @@ def test_transposed_fragments_compute_the_block_product():
                       quant_matmul.table_c_row(lane, ci)] += c[lane][ci]
     want = x @ q[8 * warp:8 * warp + 8].astype(np.float64).T
     np.testing.assert_array_equal(y, want)
+
+
+# ------------------------------- the deep-K plans, ring and all
+#
+# The kernels' whole schedule on a deep K, in numpy: the ring's stages
+# filled as csrc fills them (the TMA boxes swizzled, x at the stage
+# offsets quant_matmul spells), items consumed in order and refilled, the
+# operands read at the fragment maps' addresses, the mma's products
+# summed per fragment, the splits summed in rank order.
+
+
+def _dense_deep_model(x, q, plan):
+    """y = x @ q of one dense column tile (128 columns) under an x_staged
+    plan: split z walks tiles of 128 rows of K through `plan.stages`
+    stages; a tile's k16 steps of parity kh go to warps 4 kh .. 4 kh + 3,
+    warp w's 4 mmas j taking columns dense_b_column(w, lane, j)."""
+    m, k = x.shape
+    box = quant_matmul.DENSE_ROWS * quant_matmul.DENSE_COLS
+    stage_bytes = quant_matmul.dense_stage_bytes(plan.mt, True)
+    swz = np.array([[quant_matmul.swizzle128(r, c) for c in range(128)]
+                    for r in range(128)])
+    xoff = np.array([[quant_matmul.dense_stage_x_offset(r, c)
+                      for c in range(128)] for r in range(16 * plan.mt)])
+    assert xoff.max() + 2 <= stage_bytes  # x fits its stage
+    rows = 16 * plan.mt
+    parts = []
+    for z in range(plan.splits):
+        kbeg = z * plan.k_split
+        nk = min(k, kbeg + plan.k_split) - kbeg
+        n_tiles = -(-nk // 128)
+        ring_q = np.zeros(plan.stages * stage_bytes, np.uint8)
+        ring_x = np.full(plan.stages * stage_bytes // 2, np.nan)
+        held = {}
+
+        def fill(kt):
+            st = kt % plan.stages
+            base = st * stage_bytes
+            tile = np.zeros((128, 128), np.int8)  # TMA: zeros past K
+            lo = kbeg + kt * 128
+            hi = min(k, lo + 128)
+            tile[:hi - lo] = q[lo:hi]
+            ring_q[base + swz] = tile.view(np.uint8)
+            cols = min(128, nk - kt * 128)
+            # rows past M are never written
+            ring_x[(base + xoff[:m, :cols]) // 2] = x[:, lo:lo + cols]
+            held[st] = kt
+
+        for kt in range(min(plan.stages, n_tiles)):
+            fill(kt)
+        acc = np.zeros((rows, 128))
+        for kt in range(n_tiles):
+            st = kt % plan.stages
+            assert held[st] == kt  # the stage waited on holds this tile
+            base = st * stage_bytes
+            steps = min(128, nk - kt * 128) // 16
+            wq = ring_q[base + swz].view(np.int8).astype(np.float64)
+            xs = ring_x[(base + xoff) // 2]  # [rows, 128], NaN unwritten
+            for ks in range(steps):
+                # ldmatrix: lane L reads row L & 15 (+16 mt), k (L >> 4) 8
+                a = xs[:, 16 * ks:16 * ks + 16]
+                for warp in range(4 * (ks % 2), 4 * (ks % 2) + 4):
+                    for j in range(4):
+                        cols = [quant_matmul.dense_b_column(warp, lane, j)
+                                for lane in range(0, 32, 4)]
+                        b = wq[16 * ks:16 * ks + 16, cols]
+                        c = np.nan_to_num(a[:m]) @ b
+                        for lane in range(4):  # t = lane: columns 2t, 2t+1
+                            for ci in (0, 1):
+                                col = quant_matmul.dense_c_column(
+                                    warp, lane, j, ci)
+                                acc[:m, col] += c[:, 2 * lane + ci]
+            if kt + plan.stages < n_tiles:
+                fill(kt + plan.stages)
+        parts.append(acc[:m])
+    total = np.zeros_like(parts[0])
+    for part in parts:  # rank order
+        total = total + part
+    return total
+
+
+@pytest.mark.parametrize("m,k", [(32, 14336), (17, 14352), (50, 4224)])
+def test_dense_x_staged_ring_computes_the_product(m, k):
+    """The x-staged dense schedule at a deep K (the down projection's
+    14,336; 14,352, whose last split ends on a 16-row box; and a shorter
+    K forced onto the route, 50 rows of a 64-row tile) reproduces x @ q
+    exactly, every split and ring wrap."""
+    rng = np.random.default_rng(k)
+    plan = quant_matmul.launch_plan(m, k, 4096, False)
+    if k == 4224:  # force the staged route on a short K
+        plan = dataclasses.replace(
+            plan, splits=2, k_split=2176, stages=3, x_staged=True,
+            tiles_per_block=17)
+    assert plan.x_staged
+    x = rng.integers(-8, 9, (m, k)).astype(np.float64)
+    q = rng.integers(-128, 128, (k, 128)).astype(np.int8)
+    got = _dense_deep_model(x, q, plan)
+    np.testing.assert_array_equal(got, x @ q.astype(np.float64))
+
+
+def _table_deep_model(x, q, plan, block=0):
+    """y = x @ q^T over the tiles of one block of an x_staged table plan:
+    items (tile, chunk) through the ring; warp w's lanes read row
+    8 w + table_b_row(lane) at table_k's k of each 64-deep step, x's rows
+    through the same map; accumulators carried over a tile's chunks and
+    stored at table_c_row."""
+    m, k = x.shape
+    n = q.shape[0]
+    kc_len = plan.k_split
+    n_chunks = -(-k // kc_len)
+    stage_bytes = quant_matmul.table_chunk_stage_bytes(plan.mt, kc_len)
+    tiles = list(range(block, -(-n // 64), plan.grid[0]))
+    n_items = len(tiles) * n_chunks
+    rows = 16 * plan.mt
+    # byte offsets in a stage: the chunk's TMA box c // 128, swizzled; x
+    off_q = np.array([[(c // 128) * 64 * 128
+                       + quant_matmul.swizzle128(r, c % 128)
+                       for c in range(kc_len)] for r in range(64)])
+    off_x = np.array([[quant_matmul.table_stage_x_offset(kc_len, r, c)
+                       for c in range(kc_len)] for r in range(rows)])
+    assert off_x.max() + 2 <= stage_bytes
+    # per (warp, step): the 128 (lane, reg, half) reads' table row, k in
+    # the 64-deep step, and logical (k, n) of the mma
+    reads = {}
+    for warp in range(8):
+        for step in range(4):
+            idx = [(8 * warp + quant_matmul.table_b_row(lane),
+                    quant_matmul.table_k(lane, step, reg, h),
+                    2 * (lane & 3) + h + 8 * reg, lane >> 2)
+                   for lane in range(32) for reg in range(2)
+                   for h in range(2)]
+            reads[warp, step] = tuple(np.array(v) for v in zip(*idx))
+    ring_q = np.zeros(plan.stages * stage_bytes, np.uint8)
+    ring_x = np.full(plan.stages * stage_bytes // 2, np.nan)
+    held = {}
+
+    def fill(i):
+        tile, c = tiles[i // n_chunks], i % n_chunks
+        base = (i % plan.stages) * stage_bytes
+        k0 = c * kc_len
+        length = min(kc_len, k - k0)
+        width = -(-length // 128) * 128  # whole boxes; zeros past N and K
+        block_q = np.zeros((64, width), np.int8)
+        v0 = tile * 64
+        take = min(width, k - k0)
+        block_q[:max(0, min(64, n - v0)), :take] = q[v0:v0 + 64, k0:k0 + take]
+        ring_q[base + off_q[:, :width]] = block_q.view(np.uint8)
+        ring_x[(base + off_x[:m, :length]) // 2] = x[:, k0:k0 + length]
+        held[i % plan.stages] = i
+
+    for i in range(min(plan.stages, n_items)):
+        fill(i)
+    y = np.full((m, n), np.nan)
+    for ti, tile in enumerate(tiles):
+        acc = np.zeros((rows, 64))
+        for c in range(n_chunks):
+            item = ti * n_chunks + c
+            st = item % plan.stages
+            assert held[st] == item
+            base = st * stage_bytes
+            length = min(kc_len, k - c * kc_len)
+            for kc in range(0, length, 64):
+                for (warp, step), (r, kk, logical, g) in reads.items():
+                    b = np.zeros((16, 8))
+                    b[logical, g] = ring_q[base + off_q[r, kc + kk]].view(
+                        np.int8)
+                    a = np.zeros((rows, 16))
+                    a[:, logical] = ring_x[(base + off_x[:, kc + kk]) // 2]
+                    prod = np.nan_to_num(a) @ b  # [rows, g]
+                    for lane in range(4):
+                        for ci in (0, 1):
+                            row = 8 * warp + quant_matmul.table_c_row(lane,
+                                                                      ci)
+                            acc[:, row] += prod[:, 2 * lane + ci]
+            if item + plan.stages < n_items:
+                fill(item + plan.stages)
+        for r in range(64):
+            if tile * 64 + r < n:
+                y[:, tile * 64 + r] = acc[:m, r]
+    return y, tiles
+
+
+@pytest.mark.parametrize("m", [1, 16, 17])
+def test_table_chunks_ring_computes_the_product(m):
+    """The chunked unembedding schedule at a deep K (4,160: eight chunks
+    of 512, or sixteen of 256, and a last of 64) over a table of 129 rows
+    (its last tile one row): the block's tiles equal x @ q^T exactly."""
+    rng = np.random.default_rng(m)
+    k, n = 4160, 129
+    plan = quant_matmul.launch_plan(m, k, n, True)
+    assert plan.x_staged and plan.grid[0] == 3 and k % plan.k_split == 64
+    x = rng.integers(-8, 9, (m, k)).astype(np.float64)
+    q = rng.integers(-128, 128, (n, k)).astype(np.int8)
+    want = x @ q.astype(np.float64).T
+    for block in range(plan.grid[0]):
+        got, tiles = _table_deep_model(x, q, plan, block)
+        for tile in tiles:
+            cols = slice(tile * 64, min(n, tile * 64 + 64))
+            np.testing.assert_array_equal(got[:, cols], want[:, cols])
