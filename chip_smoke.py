@@ -34,7 +34,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    relevance gate's M = 128 and 1,024 in bf16,
    timed over more than 100 MB of distinct weight copies so the L2 cannot
    serve them, plus the 49 products of one decode model call and the 48 of
-   one int8 gate forward at M = 128 and 1,024;
+   one int8 gate forward at M = 128 and 1,024; GPT-2 medium's five
+   products at M = 16 (K = 1,024) and the append kernel at its 16 heads
+   and gpt2-xl's 25; and the expert layer's product
+   (`int8_matmul_experts`: gpt2-moe's wi 768 -> 3,072 and wo 3,072 -> 768
+   for all 8 experts in one launch) at C = 5, 10, 80 and 640 rows an
+   expert (decode at 16 slots, a 32-token admission chunk, a 256-token
+   prefill, a scoring quantum of 8 x 256), bf16 and float32, beside
+   `torch.bmm` over the dequantized experts;
 4. the bucketed path: `BatchingQueue` -> `TutoringEngine` (GPT-2 small at
    full width, bf16, seeded random weights unless a checkpoint is given)
    answering 8 concurrent tutoring questions, greedy twice and once with
@@ -190,7 +197,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    int8 = 224 dense and 1 unembedding x model calls), peak allocation,
    seconds to initialise and to warm; then (d) one scoring quantum at
    8 x 256 (M = 2,048) against the plain logprobs, and a short spec-8
-   run of 8 requests (window = 32 x verify calls).
+   run of 4 requests (window = 32 x verify calls; a verify call takes
+   ~42 ms, so 4 keep the whole script near half its time limit).
+10. gpt2-moe (`models/moe.py`, preset gpt2-moe: GPT-2 small's trunk, 8
+   experts of GPT-2 small's MLP, top-2, capacity factor 1.25), seeded
+   random weights under the byte tokenizer: (a) its expert products in
+   phase 3b; (b) a float32 witness at full
+   width cut to 4 layers, the paged engine with int8 weights and KV
+   eagerly: the kernel path's greedy tokens on 8 prompts equal to the plain
+   path's (plain attention, both int8 wrappers' plain versions; launches: 8
+   expert and 9 dense int8 products a model call on the CUDA cores, 4
+   append a decode call); (c) the deployment config from
+   configs/cluster.toml (`--config`, `--model gpt2-moe`) at full depth in
+   bf16: 16 requests in two waves, 128 new tokens, greedy twice on one
+   schedule (wave 1 drained, then wave 2, the engine reset and the prefix
+   tree emptied before each: equal tokens; at capacity 1.25 an answer
+   depends on the rows that share its forwards, so that is the schedule
+   that must repeat), then twice through PagedQueue with wave 2 landing
+   mid-decode (answers equal across the two reported): tokens/s, TTFT
+   p50/p90, device ms a decode call by idle graph replay beside its int8
+   weights' bytes bound, where that time goes under `torch.profiler`
+   (expert, dense and unembedding products, append, the eager rest),
+   kernels a decode call, launches by route through the replays (append =
+   12 x decode calls; int8 = 24 expert, 24 dense and 1 unembedding x model
+   calls, all on the tensor cores; each graph's kernel nodes equal its
+   counted launches at capture); (d) one scoring quantum at 8 x 256 (C =
+   640) against the plain logprobs; then the same 16 requests at the file's
+   sampling settings.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -200,6 +233,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import hashlib
 import json
 import math
@@ -2466,6 +2500,23 @@ SCORE_BF16_REL_TOLERANCE = 5e-3
 SCORE_F32_PAD_RTOL, SCORE_F32_PAD_ATOL = 1e-4, 1e-4
 
 
+@contextlib.contextmanager
+def plain_int8_products(quant_matmul):
+    """Both int8 wrappers (the dense and transposed products, and the
+    experts') swapped for their plain versions inside the block, for the
+    comparisons that hold a path against plain PyTorch."""
+    kernels = (quant_matmul.int8_matmul, quant_matmul.int8_matmul_experts)
+    quant_matmul.int8_matmul = (
+        lambda x, q, s, b=None, transposed=False:
+        quant_matmul.int8_matmul_reference(x, q, s, b, transposed))
+    quant_matmul.int8_matmul_experts = (
+        quant_matmul.int8_matmul_experts_reference)
+    try:
+        yield
+    finally:
+        quant_matmul.int8_matmul, quant_matmul.int8_matmul_experts = kernels
+
+
 def score_corpus(tokenizer, n, tokens, seed) -> list:
     """`n` texts of about `tokens` tokens each (exactly under the byte
     tokenizer): random lowercase words, cut at `tokens` ids."""
@@ -2778,14 +2829,8 @@ def scoring_phase(torch, attention, quant_matmul, args) -> dict:
 
     # (e) bf16 logprobs through the kernels against the int8 matmul's plain
     # version swapped in, on the same engine and texts.
-    kernel_fn = quant_matmul.int8_matmul
-    quant_matmul.int8_matmul = (
-        lambda x, q, s, b=None, transposed=False:
-        quant_matmul.int8_matmul_reference(x, q, s, b, transposed))
-    try:
+    with plain_int8_products(quant_matmul):
         plain = eng.score(corpus)
-    finally:
-        quant_matmul.int8_matmul = kernel_fn
     rel = [abs(g["logprob"] - w["logprob"]) / max(abs(w["logprob"]), 1e-9)
            for g, w in zip(job["results"], plain)]
     check(all(math.isfinite(r["logprob"]) for r in job["results"])
@@ -2906,6 +2951,9 @@ LLAMA_DENSE = ("llama.wq", "llama.wk", "llama.wv", "llama.wo", "llama.wg",
                "llama.wu", "llama.wd")
 LLAMA_DENSE_ROWS = (16, 32, 512, 2048)  # decode, admission, score quanta
 LLAMA_UNEMBED_ROWS = (16, 512)
+# The spec-8 run's requests, of QUESTIONS: a verify call takes ~42 ms, so
+# 4 keep the whole script near half its time limit.
+LLAMA_SPEC_REQUESTS = 4
 
 
 def llama_kernel_cases(torch, attention, quant_matmul) -> dict:
@@ -3067,17 +3115,19 @@ def llama_node(tutoring_server, args, *extra):
     return node_args
 
 
-def llama_weight_bytes(params) -> int:
-    """Bytes a decode model call must read of the int8 tree: every int8
-    product weight and its scales once (the embedding: 16 rows, left
-    out), the norm scales."""
+def int8_weight_bytes(params, lookup) -> int:
+    """Bytes a decode model call must read of an int8 tree: every int8
+    product weight and its scales once, every dense leaf (the norm scales,
+    biases, a router), but the table at path `lookup`, of which the call
+    looks up 16 rows (Llama's embedding; GPT-2's position table)."""
     total = 0
 
     def walk(tree, path=()):
         nonlocal total
+        if path == lookup:
+            return
         if isinstance(tree, dict) and set(tree) == {"q", "s"}:
-            if path != ("embed",):
-                total += tree["q"].numel() + 4 * tree["s"].numel()
+            total += tree["q"].numel() + 4 * tree["s"].numel()
             return
         if isinstance(tree, dict):
             for key, value in tree.items():
@@ -3132,7 +3182,7 @@ def llama_deployment(torch, attention, quant_matmul, args) -> tuple:
           and eng.widths == [160, 192, 256, 384] and eng.config.scoring,
           f"phase 9: not Llama-3-8B on the deployment config: {cfg}, "
           f"widths {eng.widths}")
-    weight_bytes = llama_weight_bytes(eng.params)
+    weight_bytes = int8_weight_bytes(eng.params, ("embed",))
     t0 = time.monotonic()
     warm_s = eng.warmup()
     captured = {}
@@ -3236,14 +3286,8 @@ def llama_deployment(torch, attention, quant_matmul, args) -> tuple:
           and sum(attention.launch_counts.values()) == 0,
           f"phase 9: a quantum's launches {q_launches} are not 224 dense "
           f"and 1 unembedding on the tensor cores, no attention kernel")
-    kernel_fn = quant_matmul.int8_matmul
-    quant_matmul.int8_matmul = (
-        lambda x, q, s, b=None, transposed=False:
-        quant_matmul.int8_matmul_reference(x, q, s, b, transposed))
-    try:
+    with plain_int8_products(quant_matmul):
         plain = eng.score(texts)
-    finally:
-        quant_matmul.int8_matmul = kernel_fn
     rel = [abs(g["logprob"] - w["logprob"]) / max(abs(w["logprob"]), 1e-9)
            for g, w in zip(got, plain)]
     check(all(r["truncated"] and r["tokens"] == 255 for r in got)
@@ -3266,7 +3310,8 @@ def llama_deployment(torch, attention, quant_matmul, args) -> tuple:
 
 def llama_spec(torch, attention, quant_matmul, args) -> tuple:
     """Phase 9 (c), its short spec-8 run: the deployment config at full
-    depth with spec_tokens 8 (prompt lookup), 8 requests through
+    depth with spec_tokens 8 (prompt lookup), LLAMA_SPEC_REQUESTS
+    requests through
     PagedQueue. Returns (its record, its launches)."""
     from distributed_lms_raft_llm_tpu_torch.engine import PagedQueue
     from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
@@ -3285,13 +3330,14 @@ def llama_spec(torch, attention, quant_matmul, args) -> tuple:
     c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
           eng.total_generated_tokens)
     answers, wall, snap = run_paged_waves(eng, PagedQueue, Metrics,
-                                          list(QUESTIONS), [])
+                                          QUESTIONS[:LLAMA_SPEC_REQUESTS],
+                                          [])
     verify_calls = eng.decode_steps - c0[0]
     model_calls = (verify_calls + eng.admission_chunks - c0[1]
                    + eng.prefill_calls - c0[2])
     tokens = eng.total_generated_tokens - c0[3]
     launches = {**attention.launch_counts, **quant_matmul.launch_counts}
-    check(len(answers) == 8 and verify_calls > 0
+    check(len(answers) == LLAMA_SPEC_REQUESTS and verify_calls > 0
           and launches[attention.WINDOW_INT8KV] == 32 * verify_calls
           and launches[quant_matmul.MMA] == 224 * model_calls
           and launches[quant_matmul.MMA_UNEMBED] == model_calls
@@ -3299,7 +3345,8 @@ def llama_spec(torch, attention, quant_matmul, args) -> tuple:
           f"phase 9 spec 8: launches {launches} for {verify_calls} verify "
           f"and {model_calls} model calls (32 windows a verify call, 225 "
           f"int8 products a model call wanted)")
-    run = dict(warmup_s=warm_s, requests=8, wall_s=wall, tokens=tokens,
+    run = dict(warmup_s=warm_s, requests=LLAMA_SPEC_REQUESTS, wall_s=wall,
+               tokens=tokens,
                tokens_per_s=tokens / wall,
                ttft_p50_s=snap["latency"]["ttft"]["p50_s"],
                verify_model_calls=verify_calls, model_calls=model_calls,
@@ -3324,6 +3371,402 @@ def llama_phase(torch, attention, quant_matmul, args) -> dict:
         torch, attention, quant_matmul, args)
     rec["seconds"] = time.monotonic() - t0
     emit("llama_phase", seconds=rec["seconds"])
+    return rec
+
+
+# ------------------------------------------------ phase 10: gpt2-moe
+
+MOE = "gpt2-moe"            # models/registry.py: GPT-2 small's trunk, E = 8
+MOE_WITNESS_LAYERS = 4      # the float32 witness's depth (of 12)
+MOE_WITNESS = "gpt2-moe-4-layers"  # its preset, registered by phase 10
+
+
+def moe_witness(torch, attention, quant_matmul, args) -> dict:
+    """Phase 10 (b): float32 at gpt2-moe's full width, cut to
+    MOE_WITNESS_LAYERS layers, int8 weights and KV, the paged engine
+    eagerly: the kernel path (the append kernel, the int8 products and the
+    expert kernel on the CUDA cores) gives the same greedy tokens on 8
+    prompts as the plain path (plain attention, both int8 wrappers' plain
+    versions swapped in)."""
+    import functools
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        PagedEngine,
+        SamplingParams,
+    )
+    from distributed_lms_raft_llm_tpu_torch.models import moe, registry
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+
+    registry.PRESETS[MOE_WITNESS] = (registry.MOE_FAMILY, functools.partial(
+        moe.GPT2MoEConfig.moe_small, num_layers=MOE_WITNESS_LAYERS))
+    prompts = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]
+    base = dict(model=MOE_WITNESS, quant="int8", kv_quant=True,
+                dtype=torch.float32, param_dtype=torch.float32,
+                seed=args.seed, device="cuda",
+                sampling=SamplingParams.greedy(max_new_tokens=32))
+    toks, runs = {}, {}
+    layers = MOE_WITNESS_LAYERS
+    try:
+        for name, fused in (("plain", False), ("kernels", True)):
+            eng = PagedEngine(EngineConfig(fused_attention=fused, **base),
+                              slots=8, chunk=16, inflight=3,
+                              cuda_graphs=False)
+            cfg = eng.cfg
+            check(cfg.hidden_size == 768 and cfg.num_experts == 8
+                  and cfg.experts_per_token == 2
+                  and cfg.capacity_factor == 1.25
+                  and cfg.num_layers == layers
+                  and cfg.dtype == torch.float32 and cfg.quant_kv
+                  and isinstance(eng.params["blocks"]["moe"]["wi"], dict),
+                  f"phase 10 witness: not gpt2-moe's width in float32 with "
+                  f"int8 weights and KV: {cfg}")
+            attention.reset_launch_counts()
+            quant_matmul.reset_launch_counts()
+            calls0 = (eng.decode_steps, eng.prefill_calls)
+            if fused:
+                toks[name] = engine_tokens(eng, prompts)
+            else:
+                with plain_int8_products(quant_matmul):
+                    toks[name] = engine_tokens(eng, prompts)
+            decode = eng.decode_steps - calls0[0]
+            model = decode + eng.prefill_calls - calls0[1]
+            launches = {**attention.launch_counts,
+                        **quant_matmul.launch_counts}
+            runs[name] = dict(decode_model_calls=decode, model_calls=model,
+                              tokens=sum(len(t) for t in toks[name]),
+                              launches={k: v for k, v in launches.items()
+                                        if v})
+            want = ({} if not fused else {
+                attention.APPEND_INT8KV: layers * decode,
+                quant_matmul.FMA: (2 * layers + 1) * model,
+                quant_matmul.FMA_EXPERTS: 2 * layers * model,
+                quant_matmul.KERNEL: (4 * layers + 1) * model})
+            check(decode > 0 and runs[name]["launches"] == want,
+                  f"phase 10 witness {name}: launches "
+                  f"{runs[name]['launches']} != {want}")
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        registry.PRESETS.pop(MOE_WITNESS, None)
+    firsts = [first_divergence(a, b)
+              for a, b in zip(toks["kernels"], toks["plain"])]
+    rec = dict(layers=layers, requests=len(prompts),
+               equal=sum(f is None for f in firsts),
+               first_divergence=[f for f in firsts if f is not None],
+               runs=runs)
+    emit("moe_f32_witness", **rec)
+    check(rec["equal"] == len(prompts),
+          f"phase 10 witness: float32 greedy tokens differ between the "
+          f"kernel and the plain path: {rec['first_divergence']}")
+    return rec
+
+
+def moe_node(tutoring_server, args, *extra):
+    """The node's flags from configs/cluster.toml with `model` set to
+    gpt2-moe: seeded random weights and the byte tokenizer (no MoE
+    checkpoint exists)."""
+    node_args = tutoring_server.resolve_args([
+        "--config", str(REPO / "configs" / "cluster.toml"),
+        "--model", MOE, "--checkpoint", "", "--vocab", "", "--merges", "",
+        "--seed", str(args.seed), "--port", "0", *extra])
+    check(node_args.model == MOE and node_args.paged
+          and node_args.quant == "int8" and node_args.kv_quant
+          and node_args.slots == 16 and node_args.chunk == 16
+          and node_args.inflight == 3 and node_args.megastep == 4
+          and node_args.megastep_max == 8 and node_args.prefix_cache
+          and node_args.prefix_cache_blocks == 512
+          and node_args.prefill_chunk_tokens == 32
+          and node_args.max_new_tokens == 128,
+          f"phase 10: configs/cluster.toml did not resolve to the "
+          f"deployment config: {vars(node_args)}")
+    return node_args
+
+
+def profile_decode_call(torch, eng, width, reps=2) -> dict:
+    """Where an idle decode call's device time goes: `reps` replays of the
+    decode chunk graph at `width` (every slot inactive, as
+    `graph_call_ms`) under `torch.profiler`, kernel time a model call by
+    kind: the expert products, the trunk's dense int8 products, the
+    unembedding, the append kernel (its record spans its wait under the
+    qkv product) and everything else (the eager torch kernels: norms,
+    casts, residual adds, the router, top-k, dispatch and combine), with
+    the largest of those by name. The profiler may lose records: a lower
+    bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph, _ = eng._graphs[width]
+    eng.state = eng._init_state(width)
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    events = device_events(torch, prof)
+    eng.reset()
+    calls = reps * eng.chunk
+    kinds = {"experts": ("int8_mma_experts",), "dense": ("int8_mma_dense",),
+             "unembed": ("int8_mma_rows",),
+             "append": ("decode_attention_append",)}
+    out = {k: [0.0, 0] for k in (*kinds, "other")}
+    others: dict = {}
+    for name, us in events:
+        kind = next((k for k, parts in kinds.items()
+                     if any(part in name for part in parts)), "other")
+        out[kind][0] += us / calls
+        out[kind][1] += 1 / calls
+        if kind == "other":
+            total, n = others.get(name, (0.0, 0))
+            others[name] = (total + us / calls, n + 1 / calls)
+    top = sorted(others.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"us_per_call": {k: v[0] for k, v in out.items()},
+            "kernels_per_call": {k: v[1] for k, v in out.items()},
+            "traced_us_per_call": sum(v[0] for v in out.values()),
+            "other_top": [{"name": name[:90], "us_per_call": us,
+                           "per_call": n} for name, (us, n) in top]}
+
+
+def moe_deployment(torch, attention, quant_matmul, args) -> tuple:
+    """Phase 10 (c) and (d): the deployment config at gpt2-moe's full width
+    and depth (see the module docstring). Returns (its record, its
+    launches)."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        PagedEngine,
+        PagedQueue,
+    )
+    from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
+        routes_of_counts,
+        routes_of_names,
+    )
+    from distributed_lms_raft_llm_tpu_torch.ops.sweep_int8 import (
+        H100_HBM_BYTES_PER_S,
+    )
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+
+    node_args = moe_node(tutoring_server, args)
+    sampled_args = moe_node(tutoring_server, args)
+    node_args.sampling_overrides = dict(temperature=0.0, top_k=0, top_p=1.0,
+                                        repetition_penalty=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng = tutoring_server.engine_from_args(node_args)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    cfg = eng.cfg
+    check(isinstance(eng, PagedEngine) and eng.cuda_graphs and eng.fused
+          and eng.family.name == "gpt2_moe"
+          and cfg.num_layers == 12 and cfg.hidden_size == 768
+          and cfg.num_heads == 12 and cfg.num_experts == 8
+          and cfg.experts_per_token == 2 and cfg.capacity_factor == 1.25
+          and cfg.mlp_dim == 3072 and cfg.vocab_size == 50257
+          and cfg.dtype == torch.bfloat16 and cfg.quant_kv
+          and isinstance(eng.params["blocks"]["moe"]["wi"], dict)
+          and not isinstance(eng.params["blocks"]["moe"]["wr"], dict)
+          and eng.state.cache.k.dtype == torch.int8
+          and eng.slots == 16 and eng.prefill_chunk == 32
+          and eng.megastep_ks == [1, 2, 4, 8]
+          and eng.prefix_cache.max_blocks == 512
+          and eng.widths == [160, 192, 256, 384] and eng.config.scoring
+          and eng.config.sampling.temperature == 0.0,
+          f"phase 10: not gpt2-moe on the deployment config: {cfg}, "
+          f"widths {eng.widths}")
+    weight_bytes = int8_weight_bytes(eng.params, ("wpe",))
+    warm_s = eng.warmup()
+    captured = {}
+    for w, (dec, adm) in eng._graphs.items():
+        counted = routes_of_counts(dec.captured_launches())
+        captured[w] = dict(
+            decode_counted=counted,
+            decode_kernel_nodes=routes_of_names(dec.kernels),
+            admission_counted=routes_of_counts(adm.captured_launches()),
+            decode_all_kernel_nodes=sum(dec.kernels.values()),
+            admission_all_kernel_nodes=sum(adm.kernels.values()),
+            programmatic_edges=dec.programmatic_edges)
+        check(counted["decode_attention_append"] == 12 * eng.chunk
+              == dec.programmatic_edges
+              and counted["int8_matmul_mma_experts"] == 24 * eng.chunk
+              and counted["int8_matmul_mma"] == 24 * eng.chunk
+              and counted["int8_matmul_mma_unembed"] == eng.chunk
+              and counted["int8_matmul_fma"] == 0
+              and counted["int8_matmul_fma_experts"] == 0
+              and captured[w]["admission_counted"][
+                  "int8_matmul_mma_experts"] == 24,
+              f"phase 10: width {w}'s graphs: {captured[w]}")
+    kernels_per_call = (captured[eng.widths[-1]]["decode_all_kernel_nodes"]
+                        / eng.chunk)
+    with torch.inference_mode():
+        ids = torch.tensor([eng.tokenizer.encode(q)[:8] for q in
+                            QUESTIONS[:2]], device=eng.device)
+        logits, _ = eng.family.forward(eng.params, cfg, ids)
+    check(tuple(logits.shape) == (2, 8, 50257)
+          and bool(torch.isfinite(logits).all()),
+          "phase 10: full-width logits are not finite [2, 8, 50257]")
+    del logits
+
+    wave1 = list(QUESTIONS)
+    wave2 = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]
+    # Greedy twice on one schedule. With capacity 1.25 < 8 experts a
+    # token's output depends on the rows that share its forward (the JAX
+    # package's capacity caveat), so two runs must give the forwards the
+    # same rows to give the same answers: wave 1 drained, then wave 2, the
+    # engine reset (its megastep K) and the prefix tree emptied before
+    # each run. The queue runs below let wave
+    # 2 land mid-decode wherever the host's timing puts it, and run 2
+    # hits the tree run 1 filled; their answers are reported, not held.
+    same_schedule = []
+    for _ in range(2):
+        eng.reset()  # the slot planes and megastep K at their start
+        eng.prefix_cache.clear()
+        same_schedule.append(engine_tokens(eng, wave1, wave2))
+    firsts = [first_divergence(a, b) for a, b in zip(*same_schedule)]
+    check(all(f is None for f in firsts)
+          and all(len(t) > 0 for t in same_schedule[0]),
+          f"phase 10: greedy tokens changed between two runs on one "
+          f"schedule (first divergences {firsts})")
+    eng.reset()
+    eng.prefix_cache.clear()
+    runs, launches = {}, None
+    for name in ("greedy_1", "greedy_2"):
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
+              eng.total_generated_tokens)
+        answers, wall, snap = run_paged_waves(eng, PagedQueue, Metrics,
+                                              wave1, wave2)
+        decode_calls = eng.decode_steps - c0[0]
+        model_calls = (decode_calls + eng.admission_chunks - c0[1]
+                       + eng.prefill_calls - c0[2])
+        tokens = eng.total_generated_tokens - c0[3]
+        launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+        check(len(answers) == 16
+              and all(isinstance(a, str) for a in answers),
+              f"phase 10 {name}: expected 16 string answers")
+        check(decode_calls > 0
+              and launches[attention.APPEND_INT8KV] == 12 * decode_calls
+              and launches[quant_matmul.MMA_EXPERTS] == 24 * model_calls
+              and launches[quant_matmul.MMA] == 24 * model_calls
+              and launches[quant_matmul.MMA_UNEMBED] == model_calls
+              and launches[quant_matmul.KERNEL] == 49 * model_calls
+              and launches[quant_matmul.FMA] == 0
+              and launches[quant_matmul.FMA_EXPERTS] == 0,
+              f"phase 10 {name}: launches {launches} for {decode_calls} "
+              f"decode and {model_calls} model calls (12 append a decode "
+              f"call; 24 expert, 24 dense and 1 unembedding int8 products "
+              f"a model call, on the tensor cores)")
+        check(all(launches[n] == 0 for n in (
+            attention.KERNEL, attention.RAGGED, attention.INT8KV,
+            attention.APPEND, attention.WINDOW, attention.WINDOW_INT8KV)),
+              f"phase 10 {name}: an attention variant other than the int8 "
+              f"append ran")
+        lat = snap["latency"]
+        runs[name] = dict(
+            answers=answers, wall_s=wall, tokens=tokens,
+            tokens_per_s=tokens / wall, ttft_p50_s=lat["ttft"]["p50_s"],
+            ttft_p90_s=lat["ttft"]["p90_s"],
+            decode_model_calls=decode_calls, model_calls=model_calls,
+            prefix_hit_tokens=snap["counters"].get(
+                "prefix_cache_hit_tokens", 0))
+    queue_equal = sum(a == b for a, b in zip(runs["greedy_1"]["answers"],
+                                             runs["greedy_2"]["answers"]))
+    width = eng.widths[-1]
+    call_ms = graph_call_ms(torch, eng, width)
+    call_profile = profile_decode_call(torch, eng, width)
+    emit("moe_decode_call_profile", width=width, **call_profile)
+
+    # (d) One scoring quantum, 8 texts at the 256 bucket (S = 2,048, C =
+    # 640), through the kernels and against both int8 wrappers' plain
+    # versions.
+    texts = score_corpus(eng.tokenizer, 8, 300, args.seed)
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = eng.score(texts)
+    quantum_s = time.monotonic() - t0
+    q_launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    check(q_launches[quant_matmul.MMA_EXPERTS] == 24
+          and q_launches[quant_matmul.MMA] == 24
+          and q_launches[quant_matmul.MMA_UNEMBED] == 1
+          and q_launches[quant_matmul.FMA] == 0
+          and sum(attention.launch_counts.values()) == 0,
+          f"phase 10: a quantum's launches {q_launches} are not 24 expert, "
+          f"24 dense and 1 unembedding on the tensor cores")
+    with plain_int8_products(quant_matmul):
+        plain = eng.score(texts)
+    rel = [abs(g["logprob"] - w["logprob"]) / max(abs(w["logprob"]), 1e-9)
+           for g, w in zip(got, plain)]
+    check(all(r["truncated"] and r["tokens"] == 255 for r in got)
+          and all(math.isfinite(r["logprob"]) for r in got)
+          and [r["tokens"] for r in got] == [r["tokens"] for r in plain]
+          and max(rel) <= SCORE_BF16_REL_TOLERANCE,
+          f"phase 10: the 8 x 256 quantum's bf16 logprobs differ from the "
+          f"plain version's by {max(rel):.3g} of |logprob| (tolerance "
+          f"{SCORE_BF16_REL_TOLERANCE}), or its texts were not 256 tokens")
+    quantum = dict(texts=8, bucket=256, rows=2048, capacity=640,
+                   wall_s=quantum_s,
+                   launches={k: v for k, v in q_launches.items() if v},
+                   bf16_vs_plain_max_rel=max(rel),
+                   tolerance=SCORE_BF16_REL_TOLERANCE)
+    emit("moe_score_quantum", **quantum)
+    run = dict(
+        init_s=init_s, warmup_s=warm_s, requests=16,
+        **{f"{k}_{name}": v for name, r in runs.items()
+           for k, v in r.items() if k != "answers"},
+        greedy_same_schedule_equal=len(same_schedule[0]),
+        greedy_queue_runs_equal_answers=queue_equal,
+        decode_call_ms_idle=call_ms, decode_call_profile=call_profile,
+        weight_bytes=weight_bytes,
+        weight_bound_ms=weight_bytes / H100_HBM_BYTES_PER_S * 1e3,
+        kernels_per_decode_call=kernels_per_call,
+        launches={k: v for k, v in launches.items() if v},
+        launches_per_decode_call={
+            "decode_attention_append_int8kv": 12,
+            "int8_matmul_mma_experts": 24, "int8_matmul_mma": 24,
+            "int8_matmul_mma_unembed": 1},
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        score_quantum=quantum, captured=captured)
+    del eng
+    torch.cuda.empty_cache()
+
+    # The file's sampling settings, once.
+    eng = tutoring_server.engine_from_args(sampled_args)
+    check(eng.config.sampling.temperature == 0.7,
+          f"phase 10: not the file's sampling: {eng.config.sampling}")
+    eng.warmup()
+    c0 = eng.total_generated_tokens
+    answers, wall, snap = run_paged_waves(eng, PagedQueue, Metrics, wave1,
+                                          wave2)
+    check(len(answers) == 16 and all(isinstance(a, str) for a in answers),
+          "phase 10 sampled: expected 16 string answers")
+    tokens = eng.total_generated_tokens - c0
+    run["sampled"] = dict(wall_s=wall, tokens=tokens,
+                          tokens_per_s=tokens / wall,
+                          ttft_p50_s=snap["latency"]["ttft"]["p50_s"],
+                          ttft_p90_s=snap["latency"]["ttft"]["p90_s"])
+    emit("moe_deployment", **{k: v for k, v in run.items()
+                              if k != "captured"})
+    del eng
+    torch.cuda.empty_cache()
+    return run, launches
+
+
+def moe_phase(torch, attention, quant_matmul, args) -> dict:
+    """Phase 10: gpt2-moe (see the module docstring)."""
+    t0 = time.monotonic()
+    rec = dict(witness=moe_witness(torch, attention, quant_matmul, args))
+    rec["deployment"], rec["launches"] = moe_deployment(
+        torch, attention, quant_matmul, args)
+    rec["seconds"] = time.monotonic() - t0
+    emit("moe_phase", seconds=rec["seconds"])
     return rec
 
 
@@ -3364,6 +3807,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
     records = {}
+    phase_s = {}  # each phase's wall seconds, in order
+
+    def lap(name):
+        phase_s[name] = time.monotonic() - t_start - sum(phase_s.values())
 
     # 1. The card.
     smi = subprocess.run(
@@ -3393,6 +3840,7 @@ def main(argv=None) -> int:
         emit("build", kernel=name, nvcc_s=secs, ptxas=ptxas)
     emit("build_total", seconds=build_s)
     records["build_s"] = build_s
+    lap("1-2_card_build")
 
     # 3. Kernel vs plain at GPT-2-small shapes.
     shapes = [dict(b=b, s=s, dtype=dtype) for dtype in ("bfloat16", "float32")
@@ -3447,7 +3895,12 @@ def main(argv=None) -> int:
                                          seed=slots + width))
     append_cases += [dict(s=16, width=384, cache="float32", seed=5),
                      dict(s=16, width=384, cache="int8", hkv=3, seed=6),
-                     dict(s=2, width=384, cache="int8", lengths=[1, 150])]
+                     dict(s=2, width=384, cache="int8", lengths=[1, 150]),
+                     # gpt2-medium's 16 heads and gpt2-xl's 25, Dh = 64
+                     dict(s=16, width=384, cache="int8", h=16, hkv=16,
+                          seed=7),
+                     dict(s=16, width=384, cache="int8", h=25, hkv=25,
+                          seed=8)]
     for i, case in enumerate(append_cases):
         append_cases[i] = append_attention_case(torch, attention, **case)
         emit("append_attention_case", **append_cases[i])
@@ -3473,7 +3926,22 @@ def main(argv=None) -> int:
             mm_cases.append(sweep_int8.int8_matmul_case(
                 name=name, m=m, dtype="bfloat16"))
             emit("int8_matmul_case", **mm_cases[-1])
+    # GPT-2 medium's five products at decode's 16 rows (K = 1,024).
+    for name in sweep_int8.MEDIUM_PRODUCTS:
+        mm_cases.append(sweep_int8.int8_matmul_case(name=name, m=16,
+                                                    dtype="bfloat16"))
+        emit("int8_matmul_case", **mm_cases[-1])
     records["int8_matmul_cases"] = mm_cases
+    # gpt2-moe's expert products (phase 10's path), one launch for all 8
+    # experts, at its four capacities, bf16 and float32.
+    expert_cases = []
+    for dtype in ("bfloat16", "float32"):
+        for name in sweep_int8.EXPERT_PRODUCTS:
+            for c in sweep_int8.MOE_CAPACITIES:
+                expert_cases.append(sweep_int8.int8_experts_case(
+                    name=name, c=c, dtype=dtype))
+                emit("int8_experts_case", **expert_cases[-1])
+    records["int8_experts_cases"] = expert_cases
     model_call = sweep_int8.int8_model_call()
     emit("int8_matmul_model_call", **model_call)
     records["int8_matmul_model_call"] = model_call
@@ -3483,6 +3951,8 @@ def main(argv=None) -> int:
             sweep_int8.int8_model_call(m=m, unembed=False))
         emit("int8_matmul_gate_forward",
              **records["int8_matmul_gate_forward"][-1])
+
+    lap("3-3b_kernels")
 
     # 4. The bucketed path.
     from distributed_lms_raft_llm_tpu_torch.engine import (
@@ -3579,6 +4049,8 @@ def main(argv=None) -> int:
     emit("f32_greedy_kernel_vs_plain", equal=same,
          tokens=int(fused_res.lengths.sum()))
     del fused_eng, plain_eng
+
+    lap("4_bucketed")
 
     # 4b. The production path: PagedQueue -> PagedEngine, int8 weights and
     # an int8 KV cache (configs/cluster.toml's tutoring node, without the
@@ -3700,6 +4172,8 @@ def main(argv=None) -> int:
     records["f32_paged_checks"] = f32_checks
     ragged_launches = f32_checks[1]["launches"]
 
+    lap("4b_production")
+
     # 4c. The deployment config: megastep as CUDA-graph replays, fused
     # staged admission and the radix prefix cache on top of phase 4b.
     records["deployment"], deploy_refs = deployment_phase(
@@ -3707,6 +4181,7 @@ def main(argv=None) -> int:
         EngineConfig, SamplingParams, prod, records["production_profile"],
         records["production_drain"])
     deploy_launches = records["deployment"]["launches"]
+    lap("4c_deployment")
 
     # 5. gRPC: the repaired unary round trip, then streaming, sessions and
     # drain on the deployment config, under a tokenizer that decodes every
@@ -3728,29 +4203,45 @@ def main(argv=None) -> int:
             torch, attention, quant_matmul, PagedEngine, EngineConfig,
             SamplingParams, prod, vocab, merges)
     emit("streaming", **records["streaming"])
+    lap("5_grpc_streaming")
 
     # 6. The relevance gate at bert-base width, beside phase 5's TTFT.
     records["gate"] = gate_phase(torch, attention, quant_matmul, args,
                                  records["streaming"])
     emit("gate", **records["gate"])
+    lap("6_gate")
 
     # 7. Speculative decoding on the deployment config, beside phase 4c.
     window_cases = {}
     records["spec"] = spec_phase(torch, attention, quant_matmul, prod,
                                  common, deploy_refs, args, window_cases)
     spec_launches = records["spec"]["deployment"]["launches"]
+    lap("7_spec")
 
     # 8. The bulk-scoring tenant on the deployment config, the node started
     # from configs/cluster.toml.
     records["scoring"] = scoring_phase(torch, attention, quant_matmul, args)
+    lap("8_scoring")
 
     # 9. Llama-3-8B at full width: its kernels' shapes, a float32 witness
     # cut to 4 layers, the deployment config at full depth, a quantum.
     records["llama"] = llama_phase(torch, attention, quant_matmul, args)
     llama_launches = records["llama"]["launches"]
     llama_spec_launches = records["llama"]["spec_launches"]
+    lap("9_llama")
+
+    # 10. gpt2-moe at full width: a float32 witness cut to 4 layers, the
+    # deployment config at full depth, a scoring quantum.
+    records["moe"] = moe_phase(torch, attention, quant_matmul, args)
+    moe_launches = records["moe"]["deployment"]["launches"]
+    moe_f32_launches = records["moe"]["witness"]["runs"]["kernels"][
+        "launches"]
+    lap("10_moe")
 
     records["seconds"] = time.monotonic() - t_start
+    phase_s["total"] = records["seconds"]
+    emit("phase_seconds", **phase_s)
+    records["phase_seconds"] = phase_s
     def paged_case(int8, dtype="bfloat16"):  # 16 slots, width 384
         return next(c for c in paged_cases if c["int8"] == int8
                     and c["slots"] == 16 and c["width"] == 384
@@ -3811,7 +4302,8 @@ def main(argv=None) -> int:
               launches_by_path={
                   "4b": int8kv_launches,
                   "4c": deploy_launches[attention.APPEND_INT8KV],
-                  "9": llama_launches[attention.APPEND_INT8KV]}),
+                  "9": llama_launches[attention.APPEND_INT8KV],
+                  "10": moe_launches[attention.APPEND_INT8KV]}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],
@@ -3826,7 +4318,8 @@ def main(argv=None) -> int:
                   "4c": deploy_launches[quant_matmul.KERNEL],
                   "6": records["gate"]["int8"]["int8_matmul_launches"][
                       quant_matmul.KERNEL],
-                  "9": llama_launches[quant_matmul.KERNEL]}),
+                  "9": llama_launches[quant_matmul.KERNEL],
+                  "10": moe_launches[quant_matmul.KERNEL]}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",
@@ -3834,7 +4327,8 @@ def main(argv=None) -> int:
               launches_by_path={
                   "4b": mm_routes[quant_matmul.MMA_UNEMBED],
                   "4c": deploy_launches[quant_matmul.MMA_UNEMBED],
-                  "9": llama_launches[quant_matmul.MMA_UNEMBED]},
+                  "9": llama_launches[quant_matmul.MMA_UNEMBED],
+                  "10": moe_launches[quant_matmul.MMA_UNEMBED]},
               shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],
@@ -3861,6 +4355,28 @@ def main(argv=None) -> int:
               launches_by_path={
                   "7c": spec_launches[attention.WINDOW_INT8KV],
                   "9": llama_spec_launches[attention.WINDOW_INT8KV]}),
+    ]
+    def expert_case(dtype, c=5):  # moe.wi, the decode capacity
+        return next(x for x in expert_cases if x["name"] == "moe.wi"
+                    and x["c"] == c and x["dtype"] == dtype)
+
+    moe_ref = ("no Pallas kernel: distributed_lms_raft_llm_tpu/models/"
+               "moe.py:164-171 (expert_dense, XLA-fused int8 einsums "
+               "ecd,edm->ecm)")
+    kernels += [
+        entry(quant_matmul.MMA_EXPERTS, moe_ref,
+              moe_launches[quant_matmul.MMA_EXPERTS], expert_case("bfloat16"),
+              shape="gpt2-moe's wi, 8 experts x C=5 rows (decode, 16 "
+              "slots), 768 x 3072, bf16",
+              library_note=expert_case("bfloat16")["library_note"],
+              launches_path="10, the deployment config (24 a model call)"),
+        entry(quant_matmul.FMA_EXPERTS, moe_ref,
+              moe_f32_launches[quant_matmul.FMA_EXPERTS],
+              expert_case("float32"),
+              shape="gpt2-moe's wi, 8 experts x C=5 rows, 768 x 3072, "
+              "float32 (CUDA cores)",
+              library_note=expert_case("float32")["library_note"],
+              launches_path="10's float32 witness (8 a model call)"),
     ]
     records["kernels"] = kernels
     if args.out:

@@ -64,7 +64,8 @@ log = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class EngineConfig:
-    # models/registry.py preset: gpt2 | tiny | llama3-8b | llama-tiny
+    # models/registry.py preset: gpt2 | gpt2-medium | gpt2-large |
+    # gpt2-xl | tiny | llama3-8b | llama-tiny | gpt2-moe | moe-tiny
     model: str = "gpt2"
     checkpoint: Optional[str] = None   # .safetensors path (HF layout)
     vocab_path: Optional[str] = None   # GPT-2 vocab.json
@@ -136,6 +137,24 @@ def load_tokenizer(config: EngineConfig, family: str, vocab_size: int):
     return tokenizer
 
 
+def check_moe_spec(spec_tokens: int, family: str, cfg) -> None:
+    """Raise for speculation on an MoE model that drops tokens (both
+    engines, as the JAX engines): with capacity_factor < num_experts a
+    token's output depends on its forward's other rows, so a verify window
+    would sample from other distributions than step decode. The port's
+    speculation with fused attention (a recorded difference) does not lift
+    this."""
+    if (spec_tokens > 0 and family == "gpt2_moe"
+            and cfg.capacity_factor < cfg.num_experts):
+        raise ValueError(
+            "spec_tokens with an MoE model requires capacity_factor >= "
+            "num_experts (no token dropping): capacity drops make a "
+            "token's output depend on its forward-pass companions, so "
+            "the speculative verify window would sample from different "
+            "distributions than step decode (models/moe.py caveat)"
+        )
+
+
 def check_spec_window(spec_tokens: int, fused: bool) -> None:
     """Raise where a verify window (spec_tokens + 1 query rows a row) is
     wider than the attention kernel takes: with fused attention every
@@ -161,6 +180,7 @@ class TutoringEngine:
         self.family, self.cfg = registry.resolve(
             config.model, config.dtype, config.param_dtype
         )
+        check_moe_spec(config.spec_tokens, self.family.name, self.cfg)
         fused = config.fused_attention
         if fused is None:
             fused = self.device.type == "cuda"

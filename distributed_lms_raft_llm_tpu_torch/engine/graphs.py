@@ -41,7 +41,8 @@ _COUNTERS: Tuple[Dict[str, int], ...] = (attention.launch_counts,
 # the names in `ops/csrc` (decode attention's three one-row variants are one
 # kernel; the paged decode step's append variants another; its two window
 # variants run the tensor-core window kernel for bf16 q and the CUDA-core
-# one for float32 q; a device name may be mangled around them).
+# one for float32 q; the MoE layer's expert products run kernels of their
+# own names; a device name may be mangled around them).
 ROUTES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "decode_attention": ((attention.KERNEL, attention.RAGGED,
                           attention.INT8KV), ("decode_attention_kernel",)),
@@ -55,6 +56,10 @@ ROUTES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
                                 ("int8_mma_rows_kernel",)),
     "int8_matmul_fma": ((quant_matmul.FMA,), ("int8_matmul_dense_kernel",
                                                "int8_matmul_rows_kernel")),
+    "int8_matmul_mma_experts": ((quant_matmul.MMA_EXPERTS,),
+                                ("int8_mma_experts_kernel",)),
+    "int8_matmul_fma_experts": ((quant_matmul.FMA_EXPERTS,),
+                                ("int8_matmul_experts_kernel",)),
 }
 
 

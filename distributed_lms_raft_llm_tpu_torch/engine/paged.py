@@ -40,8 +40,9 @@ What differs from the JAX package, by design:
   seen row; cached prefix blocks are copied straight into the slot's pages.
 - a chunk is a Python loop of `chunk` forwards with no host sync inside:
   offsets are clamped to the width explicitly, and the admission chunk's
-  pad tail is masked out of the cache writes (JAX drops out-of-range
-  scatter writes; the port checks indices instead of trusting them).
+  writes past the width are masked out (JAX drops out-of-range scatter
+  writes; the port checks indices instead of trusting them); its pad tail
+  inside the width is written, as JAX writes it.
 - on the card (`cuda_graphs`, on by default there) `warmup()` captures, at
   every cache width, one CUDA graph of a decode chunk and, with fused
   admission, one of an admission chunk (`engine/graphs.py`). A megastep is
@@ -112,6 +113,7 @@ from .draft import build_drafts, build_drafts_ngram, verify_window
 from .engine import (
     DRAFT_SOURCES,
     EngineConfig,
+    check_moe_spec,
     check_spec_window,
     load_tokenizer,
     refuse_unported,
@@ -354,8 +356,15 @@ def _stage_program(state: SlotState, slot: int, ids: torch.Tensor,
 def _grow_state_program(state: SlotState, kv: KVCache, transcript: torch.Tensor,
                         new_len: int) -> SlotState:
     """Widen the live state to `new_len` slots: wider windows of the
-    persistent cache and transcript, the same planes (the JAX package pads
-    instead; the new slots are unattended either way)."""
+    persistent cache and transcript, the same planes, the new slots zeroed
+    in place (the JAX package pads with zeros: parked staged rows attend
+    them, and under an MoE model those rows share expert capacity with the
+    live ones)."""
+    old = state.cache.max_len
+    for x in (kv.k, kv.v, kv.ks, kv.vs):
+        if x is not None:
+            x[:, :, :, old:new_len].zero_()
+    transcript[:, old:new_len].zero_()
     return dataclasses.replace(
         state, cache=dataclasses.replace(kv.window(new_len),
                                          lengths=state.cache.lengths),
@@ -490,10 +499,14 @@ def _admission_chunk(params, state: SlotState, *, cfg, sampling, model,
 
     The slot is found on the device (the lowest `stage_seq` among staged
     slots) and its next ids are read from its transcript row; the forward
-    writes their KV into the slot's pages at the cursor, with the writes
-    past the true length and past the width masked out, and positions past
-    the true length clamped to its last position (as the cold prefill's
-    are). When the cursor covers the prompt, the flip: the first token is
+    writes their KV into the slot's pages at the cursor, the pad tail past
+    the true length included, as the JAX package's ragged scatter writes
+    it (only writes past the width are masked out; the chunk is clamped to
+    end inside it), and positions past the true length clamped to its last
+    position (as the cold prefill's are). The real rows never read the pad
+    tail's KV; under an MoE model the pad rows, which attend it, share
+    expert capacity with the real ones, so they must see what JAX's see.
+    When the cursor covers the prompt, the flip: the first token is
     sampled from the last real position's logits with the full-prompt seen
     mask and the slot's staged uniforms, the contract `_prefill_program`
     feeds `_install_program`, and the slot goes live. With nothing staged
@@ -515,7 +528,7 @@ def _admission_chunk(params, state: SlotState, *, cfg, sampling, model,
     row = state.transcript.index_select(0, sl)    # [1, width]
     ids = torch.gather(row, 1, torch.clamp(q_slots, max=width - 1))
     positions = torch.clamp(torch.minimum(q_slots, tl[:, None] - 1), min=0)
-    keep = has[:, None] & (q_slots < tl[:, None]) & (q_slots < width)
+    keep = has[:, None] & (q_slots < width)
     logits, _ = model.forward(
         params, cfg, ids,
         cache=dataclasses.replace(state.cache, lengths=cur.to(torch.int32),
@@ -637,6 +650,7 @@ class PagedEngine:
         self.family, self.cfg = registry.resolve(
             config.model, config.dtype, config.param_dtype
         )
+        check_moe_spec(self.spec, self.family.name, self.cfg)
         fused = config.fused_attention
         if fused is None:
             fused = self.device.type == "cuda"
@@ -918,12 +932,18 @@ class PagedEngine:
                    for x in (c.k, c.v, c.ks, c.vs) if x is not None)
 
     def _init_state(self, width: Optional[int] = None) -> SlotState:
-        """A clean state at `width`: every plane zeroed IN PLACE (stage_len
-        to ones) and windowed; the KV pages keep stale values, which no
-        slot attends (a slot's keys past its length are masked)."""
+        """A clean state at `width`: every plane and the KV pages zeroed IN
+        PLACE (stage_len to ones) and windowed, as the JAX package builds
+        a fresh zero state. A live slot never attends past its length, but
+        dead and parked staged rows still run a forward over their pages,
+        and under an MoE model their rows compete for expert capacity with
+        the live ones: stale pages would change live answers."""
         width = width or self.widths[0]
         self._lengths.zero_()
         self._transcript.zero_()
+        for x in (self._kv.k, self._kv.v, self._kv.ks, self._kv.vs):
+            if x is not None:
+                x.zero_()
         for name, x in self._planes.items():
             x.fill_(1 if name == "stage_len" else 0)
         return SlotState(

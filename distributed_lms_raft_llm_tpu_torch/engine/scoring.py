@@ -127,6 +127,12 @@ def score_texts(engine: Any, texts: Sequence[str]) -> List[Dict[str, Any]]:
 
     Inference mode is entered here, per call: it is thread-local, and the
     queues call this from their executor threads.
+
+    MoE caveat: with capacity dropping active (capacity_factor <
+    num_experts) a token's routing, hence its logprob, depends on its
+    forward-pass companions, pads and filler rows included
+    (models/moe.py). For reproducible MoE evals raise capacity_factor to
+    >= num_experts.
     """
     if not texts:
         return []

@@ -93,10 +93,23 @@ class GPT2Config:
     def mlp_dim(self) -> int:
         return 4 * self.hidden_size
 
+    # The published GPT-2 family (124M / 355M / 774M / 1.5B).
     @classmethod
     def small(cls, **kw) -> "GPT2Config":
         """GPT-2 small (124M): the published width."""
         return cls(**kw)
+
+    @classmethod
+    def medium(cls, **kw) -> "GPT2Config":
+        return cls(hidden_size=1024, num_layers=24, num_heads=16, **kw)
+
+    @classmethod
+    def large(cls, **kw) -> "GPT2Config":
+        return cls(hidden_size=1280, num_layers=36, num_heads=20, **kw)
+
+    @classmethod
+    def xl(cls, **kw) -> "GPT2Config":
+        return cls(hidden_size=1600, num_layers=48, num_heads=25, **kw)
 
     @classmethod
     def tiny(cls, **kw) -> "GPT2Config":
@@ -168,7 +181,9 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int,
 def apply_block(x: torch.Tensor, lp: Params, attend_fn,
                 cfg: GPT2Config) -> torch.Tensor:
     """One transformer block; `attend_fn(q, k_new, v_new) -> context` owns
-    cache handling and attention."""
+    cache handling and attention. Blocks whose params carry a `moe`
+    subtree instead of `mlp` route the feed-forward through the expert
+    layer (`models/moe.py`): the same trunk, cache and decode paths."""
     eps = cfg.layer_norm_eps
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
     qkv = dense(h, lp["attn"]["wqkv"], lp["attn"]["bqkv"])
@@ -180,6 +195,10 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn,
     )
     x = x + dense(merge_heads(a), lp["attn"]["wo"], lp["attn"]["bo"])
     h2 = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
+    if "moe" in lp:
+        from . import moe as moe_lib  # moe imports this module
+
+        return x + moe_lib.moe_mlp(h2, lp["moe"], cfg)
     m = dense(h2, lp["mlp"]["wi"], lp["mlp"]["bi"])
     m = F.gelu(m, approximate="tanh")  # GPT-2 uses the tanh approximation
     return x + dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"])

@@ -1,8 +1,9 @@
 """Weight-only int8 quantization, on tensors.
 
-Port of `distributed_lms_raft_llm_tpu/models/quant.py` (the GPT-2, Llama
-and BERT leaves). A quantized linear is the dict ``{"q": int8 [..., in, out],
-"s": f32 [..., out]}`` in place of the dense tensor; an embedding table is
+Port of `distributed_lms_raft_llm_tpu/models/quant.py` (the GPT-2,
+GPT-2-MoE, Llama and BERT leaves). A quantized linear is the dict
+``{"q": int8 [..., in, out], "s": f32 [..., out]}`` in place of the dense
+tensor; an embedding table is
 ``{"q": int8 [V, D], "s": f32 [V]}`` (per-row scales, so the tied
 unembedding, or Llama's untied `lm_head`, scales per vocab row). `common.dense`, `embed_lookup` and
 `unembed` take either form.
@@ -47,6 +48,16 @@ _QUANT_LEAVES = {
         ("blocks", "mlp", "wu"),
         ("blocks", "mlp", "wd"),
     },
+    # The GPT-2 trunk's leaves and the expert stacks: wi [L, E, D, M] and
+    # wo [L, E, M, D] get scales [L, E, M] / [L, E, D], per expert and
+    # output column. The router stays dense (tiny, and softmax-sensitive).
+    "gpt2_moe": {
+        ("wte",),
+        ("blocks", "attn", "wqkv"),
+        ("blocks", "attn", "wo"),
+        ("blocks", "moe", "wi"),
+        ("blocks", "moe", "wo"),
+    },
     "bert": {
         ("embeddings", "word"),
         ("blocks", "attn", "wqkv"),
@@ -64,7 +75,8 @@ def _quantize(w: torch.Tensor, dim: int) -> Dict[str, torch.Tensor]:
     """`dim` counts from the end. A stacked [L, ...] leaf is quantized
     layer by layer (the same values: each scale spans one layer), so only
     one layer is ever held in float32 (Llama-3-8B's [32, 4096, 14336]
-    leaves would need 7.5 GB each at once)."""
+    leaves would need 7.5 GB each at once); an expert stack [L, E, ...]
+    expert by expert within each layer."""
     if w.dim() > 2:
         parts = [_quantize(layer, dim) for layer in w]
         return {"q": torch.stack([p["q"] for p in parts]),

@@ -1,5 +1,8 @@
-"""Serving presets the port carries: GPT-2 small (`gpt2`) and `tiny`, and
-Llama-3-8B (`llama3-8b`) and `llama-tiny`.
+"""Serving presets the port carries: every preset of the JAX package's
+registry. The GPT-2 family (`gpt2`, `gpt2-medium`, `gpt2-large`,
+`gpt2-xl`, `tiny`), Llama-3-8B (`llama3-8b`) and `llama-tiny`, and the
+GPT-2-MoE family (`gpt2-moe`: GPT-2 small's trunk with 8 experts top-2,
+and `moe-tiny`).
 
 Port of `distributed_lms_raft_llm_tpu/models/registry.py`. The engine
 drives a family through the same surface as the JAX package's:
@@ -9,10 +12,9 @@ drives a family through the same surface as the JAX package's:
     init_cache(cfg, batch, max_len, dtype=, device=) -> KVCache
     params_from_hf(state_dict, cfg, device) -> params
 
-Other presets of the JAX package (the larger GPT-2s and the MoE models) are
-refused until a later slice ports them. BERT (`models/bert.py`) is carried for
-the relevance gate (`engine/gate.py`) only: an encoder, not a serving
-preset, so it has no entry here.
+BERT (`models/bert.py`) is carried for the relevance gate
+(`engine/gate.py`) only: an encoder, not a serving preset, so it has no
+entry here.
 """
 
 from __future__ import annotations
@@ -21,11 +23,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import convert, gpt2, llama
+from . import convert, gpt2, llama, moe
 
 
 class ModelFamily(NamedTuple):
-    name: str  # quantization key ("gpt2" | "llama")
+    name: str  # quantization key ("gpt2" | "llama" | "gpt2_moe")
     init_params: Callable
     forward: Callable
     init_cache: Callable
@@ -42,11 +44,21 @@ LLAMA_FAMILY = ModelFamily(
     convert.llama_params_from_hf,
 )
 
+MOE_FAMILY = ModelFamily(
+    "gpt2_moe", moe.init_params, moe.forward, moe.init_cache,
+    moe.params_from_hf,
+)
+
 PRESETS = {
     "gpt2": (GPT2_FAMILY, gpt2.GPT2Config.small),
+    "gpt2-medium": (GPT2_FAMILY, gpt2.GPT2Config.medium),
+    "gpt2-large": (GPT2_FAMILY, gpt2.GPT2Config.large),
+    "gpt2-xl": (GPT2_FAMILY, gpt2.GPT2Config.xl),
     "tiny": (GPT2_FAMILY, gpt2.GPT2Config.tiny),
     "llama3-8b": (LLAMA_FAMILY, llama.LlamaConfig.llama3_8b),
     "llama-tiny": (LLAMA_FAMILY, llama.LlamaConfig.tiny),
+    "gpt2-moe": (MOE_FAMILY, moe.GPT2MoEConfig.moe_small),
+    "moe-tiny": (MOE_FAMILY, moe.GPT2MoEConfig.tiny),
 }
 
 
@@ -56,8 +68,8 @@ def resolve(preset: str, dtype: torch.dtype,
     """Return (family, config) for a preset name."""
     if preset not in PRESETS:
         raise ValueError(
-            f"model preset {preset!r} is not ported to PyTorch yet; the "
-            f"port serves {sorted(PRESETS)}"
+            f"unknown model preset {preset!r}; the port serves "
+            f"{sorted(PRESETS)}"
         )
     family, factory = PRESETS[preset]
     return family, factory(dtype=dtype, param_dtype=param_dtype or dtype)

@@ -18,6 +18,32 @@
 //   K a multiple of 16 (of 64 for a bf16 x in the transposed layout); N a
 //   multiple of 16 in the dense layout.
 //
+// Experts (the dense layout batched over E experts, one launch for all):
+//   x [E, C, K] T, q [E, K, N] int8, s [E, N] f32, b [E, N] T or null,
+//   y [E, C, N] T. Again no Pallas kernel stands behind it: the JAX
+//   package's models/moe.py:164-171 (expert_dense) runs each expert product
+//   as one XLA einsum "ecd,edm->ecm" over q.astype(x.dtype), then
+//   * s[:, None, :], the convert fused into the operand load.
+//   What bounds it: bytes, wherever the experts' rows are few. The capacity
+//   C = ceil(1.25 S k / E) is ~5 rows at 16 decode slots (top-2 of 8), so
+//   each expert's weight (gpt2-moe: 768 x 3072, 2.36 MB) is read once for
+//   5 rows: one layer's pair of products reads 37.7 MB of int8, 11.3 us at
+//   3.35 TB/s, where an einsum over a bf16 copy of the weights would read
+//   and write three times the bytes. Launching E products one by one would
+//   add 8 x 24 launches to a decode call and leave most SMs idle in each.
+//   Design: the dense kernels' body with a template flag (kExperts), under
+//   kernels of their own names (int8_mma_experts_kernel,
+//   int8_matmul_experts_kernel) so a captured graph's nodes say which ran;
+//   the instantiations without the flag are the dense kernels' code as it
+//   was. Grid y walks E x ceil(C / rows a block) row tiles: a block finds
+//   its expert e, masks rows at C as the dense kernel masks M's ragged
+//   edge, and moves x, s, b and y by e; the tensor map spans q as [E K, N]
+//   and a block's boxes start at row e K. The launch plan
+//   (ops/quant_matmul.py::launch_plan, experts=E) counts E's row tiles in
+//   the wave, so the cluster K split that fills the card at decode sees
+//   all E x N / 128 blocks. Every expert is computed, routed rows or not;
+//   skipping empty experts is later work.
+//
 // Two routes, chosen by x's dtype in the wrapper (ops/quant_matmul.py) and
 // nowhere else: there is no fallback from one to the other.
 //
@@ -146,6 +172,8 @@ struct Int8MatmulArgs {
   int grid_x;      // dense: column tiles; transposed: blocks a row tile
   int smem;        // dynamic shared memory, bytes
   int x_staged;    // x staged with each ring stage, not once a block
+  int experts;     // 0: the dense or transposed layout; E > 0: the expert
+                   // layout (dense only), M = C rows of each of E experts
 };
 
 namespace {
@@ -224,13 +252,15 @@ __device__ __forceinline__ void fma_rows(const float* xk, const float* w,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_dense_kernel(const T* __restrict__ x,
-                         const int8_t* __restrict__ q,
-                         const float* __restrict__ s,
-                         const T* __restrict__ bias, T* __restrict__ y, int M,
-                         int N, int K, int k_split) {
+// The dense layout's body. kExperts: the expert layout (see "Experts"
+// above): grid y walks E x ceil(M / 16) row tiles, M being C, the rows of
+// one expert; the block finds its expert and moves x, q, s, bias and y to
+// that expert's slices. Without it the code is the dense kernel's as it was.
+template <typename T, bool kExperts>
+__device__ __forceinline__ void fma_dense_body(
+    const T* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ s, const T* __restrict__ bias,
+    T* __restrict__ y, int M, int N, int K, int k_split) {
   __shared__ __align__(16) float xs[kKC][kMT];            // 16 KB
   __shared__ __align__(16) float red[kWarps][kMT][kBNf];  // 16 KB
   const int tid = threadIdx.x;
@@ -239,7 +269,18 @@ int8_matmul_dense_kernel(const T* __restrict__ x,
   const int tc = tid % 8;  // columns n0 + 4 tc .. +3
   const int tr = tid / 8;  // weight rows k0 + tr + 32 i
   const int n0 = blockIdx.x * kBNf;
-  const int m0 = blockIdx.y * kMT;
+  int m_tile = blockIdx.y;
+  if constexpr (kExperts) {
+    const int tiles = (M + kMT - 1) / kMT;
+    const long long e = blockIdx.y / tiles;
+    m_tile = blockIdx.y % tiles;
+    x += e * M * K;
+    q += e * K * N;
+    s += e * N;
+    if (bias != nullptr) bias += e * N;
+    y += e * M * N;
+  }
+  const int m0 = m_tile * kMT;
   const int kbeg = blockIdx.z * k_split;
   const int kend = min(K, kbeg + k_split);
   const int n = n0 + 4 * tc;
@@ -328,6 +369,28 @@ int8_matmul_dense_kernel(const T* __restrict__ x,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
+int8_matmul_dense_kernel(const T* __restrict__ x,
+                         const int8_t* __restrict__ q,
+                         const float* __restrict__ s,
+                         const T* __restrict__ bias, T* __restrict__ y, int M,
+                         int N, int K, int k_split) {
+  fma_dense_body<T, false>(x, q, s, bias, y, M, N, K, k_split);
+}
+
+// The expert layout on the CUDA cores: x [E, C, K], q [E, K, N], s [E, N],
+// bias [E, N] or null, y [E, C, N]; M = C.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_experts_kernel(const T* __restrict__ x,
+                           const int8_t* __restrict__ q,
+                           const float* __restrict__ s,
+                           const T* __restrict__ bias, T* __restrict__ y,
+                           int M, int N, int K, int k_split) {
+  fma_dense_body<T, true>(x, q, s, bias, y, M, N, K, k_split);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
 int8_matmul_rows_kernel(const T* __restrict__ x,
                         const int8_t* __restrict__ q,
                         const float* __restrict__ s, float* __restrict__ y,
@@ -388,10 +451,12 @@ int sm_count() {
   return count;
 }
 
+// experts > 0: the expert layout, M rows of each of `experts` (grid y
+// walks the experts' row tiles, which count in the wave as any rows do).
 int launch_fma(const void* x, const void* q, const void* s, const void* bias,
-               void* y, int M, int N, int K, int transposed,
+               void* y, int M, int N, int K, int transposed, int experts,
                cudaStream_t stream) {
-  const int gy = (M + kMT - 1) / kMT;
+  const int gy = (experts > 0 ? experts : 1) * ((M + kMT - 1) / kMT);
   if (transposed) {
     const dim3 grid((N + kThreads - 1) / kThreads, gy);
     int8_matmul_rows_kernel<float><<<grid, kThreads, 0, stream>>>(
@@ -421,10 +486,12 @@ int launch_fma(const void* x, const void* q, const void* s, const void* bias,
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, int8_matmul_dense_kernel<float>, static_cast<const float*>(x),
-      static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      static_cast<const float*>(bias), static_cast<float*>(y), M, N, K,
-      k_split);
+      &cfg,
+      experts > 0 ? int8_matmul_experts_kernel<float>
+                  : int8_matmul_dense_kernel<float>,
+      static_cast<const float*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(s), static_cast<const float*>(bias),
+      static_cast<float*>(y), M, N, K, k_split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -594,15 +661,17 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
 
 // Dense layout: y[m0 .. m0 + 16 MT)[n0 .. n0 + 128) of split blockIdx.z.
 // kXStaged: x comes box by box with the weights (see dense_stage_bytes),
-// so shared memory does not grow with the split.
-template <int kMTiles, bool kXStaged>
-__global__ void __launch_bounds__(kTcThreads)
-int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
-                      const __nv_bfloat16* __restrict__ x,
-                      const float* __restrict__ s,
-                      const __nv_bfloat16* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ y, int M, int N, int K,
-                      int k_split, int stages) {
+// so shared memory does not grow with the split. kExperts: the expert
+// layout (see "Experts" above): grid y walks E x ceil(M / kBM) row tiles,
+// M being C; the block moves x, s, bias and y to its expert's slices and
+// reads q's rows e K .. through the tensor map over all E K rows. Without
+// it the code is the dense kernel's as it was.
+template <int kMTiles, bool kXStaged, bool kExperts>
+__device__ __forceinline__ void mma_dense_body(
+    const CUtensorMap& qmap, const __nv_bfloat16* __restrict__ x,
+    const float* __restrict__ s, const __nv_bfloat16* __restrict__ bias,
+    __nv_bfloat16* __restrict__ y, int M, int N, int K, int k_split,
+    int stages) {
   constexpr int kBM = 16 * kMTiles;
   constexpr int kStage = dense_stage_bytes(kMTiles, kXStaged);
   extern __shared__ uint8_t smem_raw[];
@@ -612,7 +681,18 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
   launch_dependents();
   const int kh = warp >> 2;   // k16 steps of this parity within a stage
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  int m_tile = blockIdx.y, q_row0 = 0;
+  if constexpr (kExperts) {
+    const int tiles = (M + kBM - 1) / kBM;
+    const int e = blockIdx.y / tiles;
+    m_tile = blockIdx.y % tiles;
+    q_row0 = e * K;  // this expert's first row of q [E K, N]
+    x += (long long)e * M * K;
+    s += (long long)e * N;
+    if (bias != nullptr) bias += (long long)e * N;
+    y += (long long)e * M * N;
+  }
+  const int n0 = blockIdx.x * kBN, m0 = m_tile * kBM;
   const int n_split = gridDim.z;
   const int kbeg = blockIdx.z * k_split;
   const int nk = min(K, kbeg + k_split) - kbeg;  // > 0, a multiple of 16
@@ -636,7 +716,7 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
     const int cols = min(kBK, nk - kt * kBK);  // x columns, a multiple of 16
     if (lane == 0) {
       mbar_expect_tx(bar, (uint32_t)(kStageDense + rows * cols * 2));
-      tma_load_2d(dst, &qmap, n0, kbeg + kt * kBK, bar);
+      tma_load_2d(dst, &qmap, n0, q_row0 + kbeg + kt * kBK, bar);
     }
     __syncwarp();
     __nv_bfloat16* xd = reinterpret_cast<__nv_bfloat16*>(dst + kStageDense);
@@ -657,8 +737,8 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_expect_tx(&bars[0], (uint32_t)(rows * nk * 2));
       for (int st = 0; st < stages && st < n_tiles; ++st) {
         mbar_expect_tx(&bars[1 + st], kStageDense);
-        tma_load_2d(ring + st * kStageDense, &qmap, n0, kbeg + st * kBK,
-                    &bars[1 + st]);
+        tma_load_2d(ring + st * kStageDense, &qmap, n0,
+                    q_row0 + kbeg + st * kBK, &bars[1 + st]);
       }
     }
   }
@@ -737,7 +817,7 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
       } else if (tid == 0) {
         mbar_expect_tx(&bars[1 + st], kStageDense);
         tma_load_2d(ring + st * kStageDense, &qmap, n0,
-                    kbeg + (kt + stages) * kBK, &bars[1 + st]);
+                    q_row0 + kbeg + (kt + stages) * kBK, &bars[1 + st]);
       }
     }
   }
@@ -794,6 +874,33 @@ int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
     y[(long long)m * N + n_out] = __float2bfloat16(v * s_out + b_out);
   }
   if (n_split > 1) cg::this_cluster().sync();  // tiles live until read
+}
+
+template <int kMTiles, bool kXStaged>
+__global__ void __launch_bounds__(kTcThreads)
+int8_mma_dense_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __nv_bfloat16* __restrict__ x,
+                      const float* __restrict__ s,
+                      const __nv_bfloat16* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ y, int M, int N, int K,
+                      int k_split, int stages) {
+  mma_dense_body<kMTiles, kXStaged, false>(qmap, x, s, bias, y, M, N, K,
+                                           k_split, stages);
+}
+
+// The expert layout on the tensor cores: x [E, C, K], q [E, K, N] (its
+// tensor map over [E K, N]), s [E, N], bias [E, N] or null, y [E, C, N];
+// M = C.
+template <int kMTiles, bool kXStaged>
+__global__ void __launch_bounds__(kTcThreads)
+int8_mma_experts_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __nv_bfloat16* __restrict__ x,
+                        const float* __restrict__ s,
+                        const __nv_bfloat16* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ y, int M, int N, int K,
+                        int k_split, int stages) {
+  mma_dense_body<kMTiles, kXStaged, true>(qmap, x, s, bias, y, M, N, K,
+                                          k_split, stages);
 }
 
 // Transposed layout: y[m0 .. m0 + 16 MT)[tiles of 64 rows of the table].
@@ -1092,16 +1199,19 @@ int launch_rows(const Int8MatmulArgs& a, const CUtensorMap& map,
   return (int)cudaGetLastError();
 }
 
-template <int kMTiles, bool kXStaged>
+template <int kMTiles, bool kXStaged, bool kExperts>
 int launch_dense(const Int8MatmulArgs& a, const CUtensorMap& map,
                  const void* x, const void* s, const void* bias, void* y,
                  cudaStream_t stream) {
   static int configured = 48 * 1024;
-  auto kernel = int8_mma_dense_kernel<kMTiles, kXStaged>;
+  auto kernel = kExperts ? int8_mma_experts_kernel<kMTiles, kXStaged>
+                         : int8_mma_dense_kernel<kMTiles, kXStaged>;
   cudaError_t err = allow_smem(kernel, a.smem, configured);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.grid_x, (a.M + 16 * kMTiles - 1) / (16 * kMTiles),
+  cfg.gridDim = dim3(a.grid_x,
+                     (kExperts ? a.experts : 1) *
+                         ((a.M + 16 * kMTiles - 1) / (16 * kMTiles)),
                      a.splits);
   cfg.blockDim = dim3(kTcThreads);
   cfg.dynamicSmemBytes = (size_t)a.smem;
@@ -1125,7 +1235,9 @@ int launch_dense(const Int8MatmulArgs& a, const CUtensorMap& map,
 bool valid_mma_plan(const Int8MatmulArgs& a) {
   if ((a.mt != 1 && a.mt != 4) || a.stages < 1 || a.grid_x < 1 ||
       a.smem < 0 || a.smem > 227 * 1024 ||
-      (a.x_staged != 0 && a.x_staged != 1)) {
+      (a.x_staged != 0 && a.x_staged != 1) ||
+      (long long)(a.experts > 0 ? a.experts : 1) *
+              ((a.M + 16 * a.mt - 1) / (16 * a.mt)) > 65535) {
     return false;
   }
   if (a.transposed) {
@@ -1153,16 +1265,21 @@ extern "C" int int8_matmul_launch(const Int8MatmulArgs* args, const void* x,
   const Int8MatmulArgs& a = *args;
   if (a.M <= 0 || a.N <= 0 || a.K <= 0 || a.K % 16 != 0 ||
       (!a.transposed && a.N % 16 != 0) || (a.transposed && bias != nullptr) ||
-      (a.M + kMT - 1) / kMT > 65535) {
+      a.experts < 0 || (a.transposed && a.experts > 0) ||
+      (long long)(a.experts > 0 ? a.experts : 1) * ((a.M + kMT - 1) / kMT) >
+          65535) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.dtype == 0) {
-    return launch_fma(x, q, s, bias, y, a.M, a.N, a.K, a.transposed, st);
+    return launch_fma(x, q, s, bias, y, a.M, a.N, a.K, a.transposed,
+                      a.experts, st);
   }
   if (a.dtype != 1 || !valid_mma_plan(a)) return (int)cudaErrorInvalidValue;
+  // The expert layout's map spans all E K rows of q [E, K, N].
   CUtensorMap map;
-  if (!weight_map(q, a.K, a.N, a.transposed, &map)) {
+  if (!weight_map(q, (a.experts > 0 ? a.experts : 1) * a.K, a.N,
+                  a.transposed, &map)) {
     return (int)cudaErrorInvalidValue;
   }
   if (a.transposed) {
@@ -1173,10 +1290,19 @@ extern "C" int int8_matmul_launch(const Int8MatmulArgs* args, const void* x,
     return a.mt == 1 ? launch_rows<1, false>(a, map, x, s, y, st)
                      : launch_rows<4, false>(a, map, x, s, y, st);
   }
-  if (a.x_staged) {
-    return a.mt == 1 ? launch_dense<1, true>(a, map, x, s, bias, y, st)
-                     : launch_dense<4, true>(a, map, x, s, bias, y, st);
+  if (a.experts > 0) {
+    if (a.x_staged) {
+      return a.mt == 1
+                 ? launch_dense<1, true, true>(a, map, x, s, bias, y, st)
+                 : launch_dense<4, true, true>(a, map, x, s, bias, y, st);
+    }
+    return a.mt == 1 ? launch_dense<1, false, true>(a, map, x, s, bias, y, st)
+                     : launch_dense<4, false, true>(a, map, x, s, bias, y, st);
   }
-  return a.mt == 1 ? launch_dense<1, false>(a, map, x, s, bias, y, st)
-                   : launch_dense<4, false>(a, map, x, s, bias, y, st);
+  if (a.x_staged) {
+    return a.mt == 1 ? launch_dense<1, true, false>(a, map, x, s, bias, y, st)
+                     : launch_dense<4, true, false>(a, map, x, s, bias, y, st);
+  }
+  return a.mt == 1 ? launch_dense<1, false, false>(a, map, x, s, bias, y, st)
+                   : launch_dense<4, false, false>(a, map, x, s, bias, y, st);
 }

@@ -15,15 +15,22 @@ Two layouts:
 - transposed: y [M, N] = (x [M, K] @ q [N, K]^T) * s [N], float32
               (`quant.unembed`: the tied table [V, D] with per-row scales).
 
+A third, `int8_matmul_experts`, batches the dense layout over E experts in
+one launch (the MoE layer's expert products, `models/moe.py`):
+
+- experts:    y [E, C, N] = (x [E, C, K] @ q [E, K, N]) * s [E, 1, N]
+              (+ b [E, 1, N]), in x's dtype.
+
 Two routes, by x's dtype: bf16 x (the production dtype) runs the
 tensor-core kernels (`mma.sync` on bf16 converted exactly from int8,
 weights staged by TMA / bulk copies), whose launch `launch_plan` cuts;
 float32 x runs the CUDA-core kernels, whose float32 products the float32
 checks need (tensor cores would round x to TF32).
 
-`int8_matmul` dispatches on where x lives: CPU tensors take
-`int8_matmul_reference` (the plain version, the JAX expression written in
-PyTorch); CUDA tensors launch a kernel or raise. There is no fallback.
+`int8_matmul` and `int8_matmul_experts` dispatch on where x lives: CPU
+tensors take `int8_matmul_reference` / `int8_matmul_experts_reference`
+(the plain versions, the JAX expressions written in PyTorch); CUDA tensors
+launch a kernel or raise. There is no fallback.
 """
 
 from __future__ import annotations
@@ -39,10 +46,12 @@ from . import build
 KERNEL = "int8_matmul"                    # the source, csrc/int8_matmul.cu
 # Launches are counted in all (KERNEL) and by route: bf16 x on the tensor
 # cores in the dense and the transposed (unembedding) layout, float32 x on
-# the CUDA cores in either layout.
+# the CUDA cores in either layout; the expert layout on either.
 MMA = "int8_matmul_mma"
 MMA_UNEMBED = "int8_matmul_mma_unembed"
 FMA = "int8_matmul_fma"
+MMA_EXPERTS = "int8_matmul_mma_experts"
+FMA_EXPERTS = "int8_matmul_fma_experts"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launch geometry of the tensor-core route. The constants marked csrc must
@@ -63,7 +72,8 @@ ALIGN = 1024           # smem slack: the 128-byte swizzle repeats every 1 KB
 # plain path), and for each replay of a CUDA graph by the launches captured
 # into it (`engine/graphs.py`). A run resets them, drives the main path, and
 # reads them to show the path went through the kernels.
-launch_counts: Dict[str, int] = {KERNEL: 0, MMA: 0, MMA_UNEMBED: 0, FMA: 0}
+launch_counts: Dict[str, int] = {KERNEL: 0, MMA: 0, MMA_UNEMBED: 0, FMA: 0,
+                                 MMA_EXPERTS: 0, FMA_EXPERTS: 0}
 
 
 def reset_launch_counts() -> None:
@@ -87,6 +97,21 @@ def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     y = y * s.to(y.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
+    return y
+
+
+def int8_matmul_experts_reference(x: torch.Tensor, q: torch.Tensor,
+                                  s: torch.Tensor,
+                                  b: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Plain version of the expert layout: the JAX package's
+    `moe.expert_dense` then its bias add, ``bmm(x, q.to(x.dtype)) *
+    s[:, None, :] (+ b[:, None, :])``, rounded to x's dtype after the
+    product, the scale and the bias."""
+    y = torch.bmm(x, q.to(x.dtype))
+    y = y * s.to(y.dtype)[:, None, :]
+    if b is not None:
+        y = y + b.to(y.dtype)[:, None, :]
     return y
 
 
@@ -184,8 +209,14 @@ def _fit_stages(most: int, smem: Callable[[int], int]) -> int:
 
 
 def launch_plan(m: int, k: int, n: int, transposed: bool,
-                splits: Optional[int] = None) -> LaunchPlan:
+                splits: Optional[int] = None,
+                experts: int = 1) -> LaunchPlan:
     """Cut a bf16 product on the tensor cores.
+
+    `experts` > 1: the dense layout batched over that many experts of `m`
+    rows each (`int8_matmul_experts`): grid y holds every expert's row
+    tiles, and they count in the wave (TARGET_BLOCKS) as any row tiles do.
+    At `experts` = 1 the plan is the dense product's.
 
     Rows: one m16 tile a block up to M = 16 (decode), else four, so a
     staged weight tile serves 64 rows of x. Dense: 128 columns a block;
@@ -205,14 +236,18 @@ def launch_plan(m: int, k: int, n: int, transposed: bool,
     (`ops/sweep_int8.py --splits` measures the trade).
 
     Raises on an empty product and where M needs more than 65,535 row
-    tiles (the grid's y limit).
+    tiles (the grid's y limit; all experts' together).
     """
-    if m < 1 or k < 16 or n < 1:
-        raise ValueError(f"empty product: M={m}, K={k}, N={n}")
+    if m < 1 or k < 16 or n < 1 or experts < 1:
+        raise ValueError(f"empty product: M={m}, K={k}, N={n}, "
+                         f"experts={experts}")
+    if transposed and experts > 1:
+        raise ValueError("the transposed layout has no expert batch")
     mt = 1 if m <= 16 else 4
-    gy = -(-m // (16 * mt))
+    gy = experts * -(-m // (16 * mt))
     if gy > 65535:
-        raise ValueError(f"M={m} needs {gy} row tiles, more than 65535")
+        raise ValueError(f"M={m} x {experts} experts needs {gy} row tiles, "
+                         f"more than 65535")
     if transposed:
         n_vt = -(-n // TABLE_ROWS)
         gx = min(n_vt, max(1, -(-TARGET_BLOCKS // gy)))
@@ -365,18 +400,41 @@ def _check_args(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return k, n
 
 
+def _check_expert_args(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                       b: Optional[torch.Tensor]) -> Tuple[int, int]:
+    """(K, N) of the expert layout; raises on shapes it does not take."""
+    if q.dim() != 3 or q.dtype != torch.int8:
+        raise ValueError(f"q must be a 3-D int8 tensor [E, K, N], got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    e, k, n = q.shape
+    if x.dim() != 3 or x.shape[0] != e or x.shape[2] != k:
+        raise ValueError(f"x {tuple(x.shape)} does not match q "
+                         f"{tuple(q.shape)} (x must be [E, C, K])")
+    if tuple(s.shape) != (e, n):
+        raise ValueError(f"s must be [{e}, {n}], got {tuple(s.shape)}")
+    if b is not None and tuple(b.shape) != (e, n):
+        raise ValueError(f"b must be [{e}, {n}], got {tuple(b.shape)}")
+    return k, n
+
+
+def _same_device(name: str, x: torch.Tensor, q: torch.Tensor,
+                 s: torch.Tensor, b: Optional[torch.Tensor]) -> None:
+    device = x.device
+    if (q.device != device or s.device != device
+            or (b is not None and b.device != device)):
+        tensors = [x, q, s] + ([b] if b is not None else [])
+        devices = sorted({str(t.device) for t in tensors})
+        raise ValueError(f"{name} tensors on several devices: {devices}")
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                 b: Optional[torch.Tensor] = None,
                 transposed: bool = False) -> torch.Tensor:
     """x [..., K] times the int8 weight `q` dequantized by `s` (see the
     module docstring for the two layouts); returns [..., N] in x's dtype
     (dense) or float32 (transposed)."""
+    _same_device("int8_matmul", x, q, s, b)
     device = x.device
-    if (q.device != device or s.device != device
-            or (b is not None and b.device != device)):
-        tensors = [x, q, s] + ([b] if b is not None else [])
-        devices = sorted({str(t.device) for t in tensors})
-        raise ValueError(f"int8_matmul tensors on several devices: {devices}")
     if device.type == "cpu":
         _check_args(x, q, s, b, transposed)
         return int8_matmul_reference(x, q, s, b, transposed)
@@ -385,13 +443,29 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return _launch_kernel(x, q, s, b, transposed)
 
 
+def int8_matmul_experts(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                        b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The expert layout: x [E, C, K] times each expert's int8 weight
+    q [E, K, N] dequantized by s [E, N] (+ b [E, N]); returns [E, C, N] in
+    x's dtype. One kernel launch for all E experts on the card."""
+    _same_device("int8_matmul_experts", x, q, s, b)
+    device = x.device
+    if device.type == "cpu":
+        _check_expert_args(x, q, s, b)
+        return int8_matmul_experts_reference(x, q, s, b)
+    if device.type != "cuda":
+        raise ValueError(f"int8_matmul_experts runs on cuda or cpu, not "
+                         f"{device}")
+    return _launch_kernel(x, q, s, b, False, experts=True)
+
+
 class _Args(ctypes.Structure):
     """The kernel's arguments for one layout (csrc Int8MatmulArgs), built
     once and passed by address."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "M", "N", "K", "transposed", "dtype", "mt", "splits", "k_split",
-        "stages", "grid_x", "smem", "x_staged")]
+        "stages", "grid_x", "smem", "x_staged", "experts")]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,8 +473,9 @@ class _Layout:
     """One validated (shapes, strides, dtypes, bias or not): the kernel's
     arguments (kept alive here; `address` is what is passed; the bf16
     route's carry its launch plan), the route its launches are counted
-    under, the output's shape and dtype, and which inputs need a per-call
-    conversion (x copied to rows, s to float32, b to x's dtype)."""
+    under, the output's shape and dtype, its rows (all experts'), and
+    which inputs need a per-call conversion (x copied to rows, s to
+    float32, b to x's dtype)."""
 
     args: _Args
     address: int
@@ -420,10 +495,15 @@ _MAX_LAYOUTS = 256
 
 
 def _kernel_layout(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                   b: Optional[torch.Tensor], transposed: bool) -> _Layout:
+                   b: Optional[torch.Tensor], transposed: bool,
+                   experts: bool = False) -> _Layout:
     """Check what the kernels take (everything but the devices and the
-    pointers' alignment, which change per call); raise on anything else."""
-    k, n = _check_args(x, q, s, b, transposed)
+    pointers' alignment, which change per call); raise on anything else.
+    `experts`: the expert layout (M is then C, the rows of one expert)."""
+    if experts:
+        k, n = _check_expert_args(x, q, s, b)
+    else:
+        k, n = _check_args(x, q, s, b, transposed)
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"int8_matmul kernel takes float32 or bfloat16 x, "
                         f"not {x.dtype}")
@@ -438,36 +518,44 @@ def _kernel_layout(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if bf16 and transposed and k % 64:
         raise ValueError(f"the bf16 transposed kernel reads K in chunks of "
                          f"64: K ({k}) must be a multiple of 64")
-    m = x.numel() // k if k else 0
+    n_exp = q.shape[0] if experts else 0
+    m = x.shape[1] if experts else (x.numel() // k if k else 0)
+    rows = n_exp * m if experts else m
     x_copy = not x.is_contiguous()
     s_cast = s.dtype != torch.float32 or not s.is_contiguous()
     b_cast = b is not None and (b.dtype != x.dtype or not b.is_contiguous())
-    plan = launch_plan(m, k, n, transposed) if bf16 and m else None
+    plan = (launch_plan(m, k, n, transposed, experts=max(n_exp, 1))
+            if bf16 and rows else None)
     if plan is None:
         args = _Args(m, n, k, int(transposed), _DTYPE_CODES[x.dtype], 0, 0,
-                     0, 0, 0, 0, 0)
+                     0, 0, 0, 0, 0, n_exp)
     else:
         args = _Args(m, n, k, int(transposed), 1, plan.mt, plan.splits,
                      plan.k_split, plan.stages, plan.grid[0],
-                     plan.smem_bytes, int(plan.x_staged))
-    route = (MMA_UNEMBED if transposed else MMA) if bf16 else FMA
+                     plan.smem_bytes, int(plan.x_staged), n_exp)
+    if experts:
+        route = MMA_EXPERTS if bf16 else FMA_EXPERTS
+    else:
+        route = (MMA_UNEMBED if transposed else MMA) if bf16 else FMA
+    out_shape = ((n_exp, m, n) if experts else (*x.shape[:-1], n))
     return _Layout(args=args, address=ctypes.addressof(args), route=route,
-                   out_shape=(*x.shape[:-1], n),
-                   out_dtype=torch.float32 if transposed else x.dtype, m=m,
-                   x_copy=x_copy, s_cast=s_cast, b_cast=b_cast)
+                   out_shape=out_shape,
+                   out_dtype=torch.float32 if transposed else x.dtype,
+                   m=rows, x_copy=x_copy, s_cast=s_cast, b_cast=b_cast)
 
 
 def _launch_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                   b: Optional[torch.Tensor], transposed: bool
-                   ) -> torch.Tensor:
+                   b: Optional[torch.Tensor], transposed: bool,
+                   experts: bool = False) -> torch.Tensor:
     """Validate the layout (once per key), launch the route's kernel, count
     the launch."""
     key = (x.shape, x.stride(), x.dtype, q.shape, q.stride(), q.dtype,
            s.shape, s.stride(), s.dtype,
-           None if b is None else (b.shape, b.stride(), b.dtype), transposed)
+           None if b is None else (b.shape, b.stride(), b.dtype), transposed,
+           experts)
     lay = _layouts.get(key)
     if lay is None:
-        lay = _kernel_layout(x, q, s, b, transposed)
+        lay = _kernel_layout(x, q, s, b, transposed, experts)
         if len(_layouts) >= _MAX_LAYOUTS:
             _layouts.clear()
         _layouts[key] = lay
@@ -475,7 +563,7 @@ def _launch_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if lay.m == 0:
         return out
     if lay.x_copy:
-        x = x.reshape(-1, x.shape[-1]).contiguous()
+        x = (x if experts else x.reshape(-1, x.shape[-1])).contiguous()
     if lay.s_cast:
         s = s.float().contiguous()
     if lay.b_cast:

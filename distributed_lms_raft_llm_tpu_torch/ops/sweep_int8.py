@@ -1,8 +1,9 @@
-"""Time the int8 weight-only matmul at GPT-2 small's and Llama-3-8B's
-products on the card.
+"""Time the int8 weight-only matmul at GPT-2 small's, Llama-3-8B's and
+gpt2-moe's products on the card.
 
     python -m distributed_lms_raft_llm_tpu_torch.ops.sweep_int8 \\
-        [--dtype bfloat16] [--m 1,16,256] [--splits] [--llama] [--out FILE]
+        [--dtype bfloat16] [--m 1,16,256] [--splits] [--llama] [--moe]
+        [--out FILE]
 
 For each product (attn.wqkv, mlp.wi, attn.wo, mlp.wo, the tied
 unembedding) and each M: the kernel against its plain version, then the
@@ -19,12 +20,16 @@ bucket, GATE_ROWS), then one int8 gate forward's 48 products at each of
 those M. The scoring tenant's rows (SCORE_ROWS) through all five. With `--llama`:
 Llama-3-8B's seven products and its untied 128,256 x 4,096 unembedding
 (LLAMA_PRODUCTS) at LLAMA_ROWS instead, the deep ones through the
-x-staged plans. With `--splits`: the dense products at M=16 at each forced K
+x-staged plans. With `--moe`: gpt2-moe's two expert products (8 experts,
+`int8_matmul_experts`, one launch for all) at MOE_CAPACITIES rows an
+expert instead, `torch.bmm` over the dequantized experts as the
+yardstick. With `--splits`: the dense products at M=16 at each forced K
 split instead. One JSON line a case, then the card's `nvidia-smi` name
 and power limit.
 
-Uses only `quant_matmul.int8_matmul`/`int8_matmul_reference`, the
-quantizers and `ops/timing.py`, so the file can be copied beside another
+Uses only `quant_matmul.int8_matmul`/`int8_matmul_reference` (and
+`int8_matmul_experts`/`int8_matmul_experts_reference`), the quantizers and
+`ops/timing.py`, so the file can be copied beside another
 checkout's package to time that checkout's kernel in the same call.
 `chip_smoke.py` runs the same cases. Needs a CUDA device.
 """
@@ -71,7 +76,25 @@ LLAMA_PRODUCTS = {
 # Its rows: decode (16 slots), the fused admission chunk (32), the scoring
 # quanta at buckets 64 and 256 (512, 2,048).
 LLAMA_ROWS = (16, 32, 512, 2048)
-PRODUCTS = {**INT8_PRODUCTS, **LLAMA_PRODUCTS}
+# GPT-2 medium's int8 products (width 1,024, 16 heads; the published
+# GPT-2 family's config): name -> (K, N, transposed).
+MEDIUM_PRODUCTS = {
+    "medium.attn.wqkv": (1024, 3072, False),
+    "medium.mlp.wi": (1024, 4096, False),
+    "medium.attn.wo": (1024, 1024, False),
+    "medium.mlp.wo": (4096, 1024, False),
+    "medium.wte.unembed": (1024, 50257, True),
+}
+PRODUCTS = {**INT8_PRODUCTS, **LLAMA_PRODUCTS, **MEDIUM_PRODUCTS}
+# gpt2-moe's expert products (GPT-2 small's trunk, 8 experts of GPT-2
+# small's MLP, top-2, capacity factor 1.25): name -> (K, N), each of
+# MOE_EXPERTS experts, through `int8_matmul_experts`.
+EXPERT_PRODUCTS = {"moe.wi": (768, 3072), "moe.wo": (3072, 768)}
+MOE_EXPERTS = 8
+# Their rows an expert, C = ceil(1.25 x 2 S / 8): decode at 16 slots (S =
+# 16), a 32-token admission chunk, a 256-token prefill and a scoring
+# quantum of 8 x 256 (S = 2,048).
+MOE_CAPACITIES = (5, 10, 80, 640)
 # The relevance gate's rows M = texts x length bucket: a check's forward
 # holds 1 or 2 texts in a bucket of 64 to 512 tokens, so M runs from 64 to
 # 1,024; the two ends of the product sweep beside decode's and prefill's.
@@ -193,6 +216,84 @@ def int8_matmul_case(*, name, m, dtype, n_layers=12, seed=0):
     return rec
 
 
+def expert_bytes_ops(e, c, k, n, dtype):
+    """What one expert product must move and compute: x, every expert's
+    int8 weight, scales and bias read once, y written once (every expert
+    is computed, routed rows or not); 2 E C K N operations."""
+    es = torch.finfo(getattr(torch, dtype)).bits // 8
+    return (e * c * k * es + e * k * n + 4 * e * n + e * n * es
+            + e * c * n * es), 2 * e * c * k * n
+
+
+def int8_experts_case(*, name, c, dtype, experts=MOE_EXPERTS, seed=0):
+    """`int8_matmul_experts` against its plain version at one expert
+    product and C rows an expert (one launch, on the expert route of the
+    dtype), then timed over distinct copies of all E experts' weights
+    (more than WALK_BYTES); the yardstick is `torch.bmm` against the
+    experts dequantized to x's dtype beforehand. The tolerances of
+    `int8_matmul_case`. Raises Mismatch if the kernel disagrees."""
+    dt = getattr(torch, dtype)
+    k, n = EXPERT_PRODUCTS[name]
+    copies = math.floor(WALK_BYTES / (experts * k * n)) + 1
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = quant.quantize_array(torch.randn((copies, experts, k, n),
+                                         generator=gen, device="cuda") * 0.02)
+    q, s = w["q"], w["s"]
+    b = (torch.randn((copies, experts, n), generator=gen, device="cuda")
+         * 0.02).to(dt)
+    x = torch.randn((experts, c, k), generator=gen, device="cuda").to(dt)
+    route = (quant_matmul.MMA_EXPERTS if dtype == "bfloat16"
+             else quant_matmul.FMA_EXPERTS)
+    before = quant_matmul.launch_counts[route]
+    got = quant_matmul.int8_matmul_experts(x, q[0], s[0], b[0])
+    launched = quant_matmul.launch_counts[route] - before
+    want = quant_matmul.int8_matmul_experts_reference(x, q[0], s[0], b[0])
+    torch.cuda.synchronize()
+    rtol, atol = INT8_MATMUL_TOL[dtype]
+    atol *= want.float().abs().max().item()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if launched != 1 or not bool(
+            (diff <= atol + rtol * want.float().abs()).all()):
+        raise Mismatch(f"int8_matmul_experts disagrees with its plain "
+                       f"version at {name} C={c} {dtype}: max abs err {err} "
+                       f"(rtol {rtol}, atol {atol}), {launched} launches")
+    n_bytes, n_ops = expert_bytes_ops(experts, c, k, n, dtype)
+    bound_us, bound_by = bound(n_bytes, n_ops, dtype)
+    deq = [q[i].to(dt) * s[i].to(dt)[:, None, :] for i in range(copies)]
+    iters = max(50, copies)
+
+    def kernel(i):
+        quant_matmul.int8_matmul_experts(x, q[i % copies], s[i % copies],
+                                         b[i % copies])
+
+    def plain(i):
+        quant_matmul.int8_matmul_experts_reference(
+            x, q[i % copies], s[i % copies], b[i % copies])
+
+    def library(i):
+        torch.bmm(x, deq[i % copies])
+
+    plan = (quant_matmul.launch_plan(c, k, n, False, experts=experts)
+            if dtype == "bfloat16" else None)
+    rec = dict(name=name, experts=experts, c=c, m=experts * c, k=k, n=n,
+               dtype=dtype, copies_walked=copies,
+               walked_bytes=copies * experts * k * n,
+               max_abs_err=err, rtol=rtol, atol=atol, bound_us=bound_us,
+               bound_by=bound_by,
+               plan=None if plan is None else dict(
+                   mt=plan.mt, grid=list(plan.grid), splits=plan.splits,
+                   stages=plan.stages, x_staged=plan.x_staged),
+               kernel_us=time_graph_us(kernel, iters=iters),
+               kernel_eager_us=time_eager_us(kernel, iters=iters),
+               plain_us=time_graph_us(plain, iters=iters),
+               library_us=time_graph_us(library, iters=iters),
+               library_note="torch.bmm against all experts dequantized to "
+               "x's dtype beforehand")
+    rec["share_of_bound"] = rec["bound_us"] / rec["kernel_us"]
+    return rec
+
+
 def int8_model_call(*, m=16, dtype="bfloat16", n_layers=12, unembed=True):
     """The 49 int8 products of one decode model call (4 a layer x 12, then
     the unembedding; without `unembed` the 48 of a BERT-base forward), in
@@ -285,6 +386,9 @@ def main(argv=None) -> int:
                         help="comma-separated row counts")
     parser.add_argument("--llama", action="store_true",
                         help="Llama-3-8B's products at LLAMA_ROWS instead")
+    parser.add_argument("--moe", action="store_true",
+                        help="gpt2-moe's expert products at MOE_CAPACITIES "
+                        "instead")
     parser.add_argument("--splits", action="store_true",
                         help="time the dense products at M=16 at each "
                         "forced K split instead")
@@ -302,6 +406,12 @@ def main(argv=None) -> int:
         for rec in split_sweep(dtype=args.dtype):
             records.append(rec)
             print(json.dumps(rec), flush=True)
+    elif args.moe:
+        for name in EXPERT_PRODUCTS:
+            for c in MOE_CAPACITIES:
+                records.append(int8_experts_case(name=name, c=c,
+                                                 dtype=args.dtype))
+                print(json.dumps(records[-1]), flush=True)
     elif args.llama:
         cases = [(name, m) for name in LLAMA_PRODUCTS for m in LLAMA_ROWS]
     else:

@@ -267,6 +267,7 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.engine.paged\n"
         "import distributed_lms_raft_llm_tpu_torch.models.quant\n"
         "import distributed_lms_raft_llm_tpu_torch.models.llama\n"
+        "import distributed_lms_raft_llm_tpu_torch.models.moe\n"
         "import distributed_lms_raft_llm_tpu_torch.ops\n"
         "import distributed_lms_raft_llm_tpu_torch.ops.quant_matmul\n"
         "import distributed_lms_raft_llm_tpu_torch.serving.tutoring_server\n"
@@ -284,7 +285,7 @@ def test_port_imports_no_jax():
                          check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("ops.attention", "ops.quant_matmul", "models.quant",
-                   "models.bert", "models.llama", "engine.gate",
+                   "models.bert", "models.llama", "models.moe", "engine.gate",
                    "engine.paged", "engine.batcher", "utils.tracing",
                    "utils.healthz", "utils.metrics_registry",
                    "serving.tutoring_server", "config", "engine.scoring",

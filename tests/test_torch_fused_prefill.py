@@ -173,9 +173,11 @@ def test_staged_slots_are_served_in_staging_order():
 
 
 def test_admission_chunk_masks_the_pad_tail():
-    """A final chunk that runs past the prompt and past the width writes
-    nothing there (int8 K/V and scales included), and no other slot's
-    pages change."""
+    """A final chunk that runs past the prompt writes its pad tail inside
+    the width, as the JAX package's ragged scatter does (under an MoE
+    model the pad rows attend it and share expert capacity with the real
+    rows), and nothing past the chunk (int8 K/V and scales included); no
+    other slot's pages change."""
     eng = PagedEngine(port_config(max_new=8, quant="int8", kv_quant=True),
                       slots=2, chunk=2, prefill_chunk_tokens=9)
     width = eng.state.cache.max_len
@@ -194,8 +196,9 @@ def test_admission_chunk_masks_the_pad_tail():
     assert int(eng.state.cache.lengths[0]) == 12
     for old, new in zip(before, (kv.k, kv.v, kv.ks, kv.vs)):
         assert torch.equal(new[:, 1], old[:, 1])           # other slot
-        assert torch.equal(new[:, 0, :, 12:], old[:, 0, :, 12:])  # past tl
+        assert torch.equal(new[:, 0, :, 18:], old[:, 0, :, 18:])  # past it
         assert not torch.equal(new[:, 0, :, :12], old[:, 0, :, :12])
+        assert not torch.equal(new[:, 0, :, 12:18], old[:, 0, :, 12:18])
     assert eng.state.cache.max_len == width
     # Nothing staged: a spurious chunk changes nothing.
     snap = [x.clone() for x in (kv.k, eng.state.cache.lengths,

@@ -24,6 +24,7 @@ import torch_threads  # noqa: F401 (caps torch's threads)
 from distributed_lms_raft_llm_tpu.models import common as jax_common
 from distributed_lms_raft_llm_tpu.models import convert as jax_convert
 from distributed_lms_raft_llm_tpu.models import gpt2 as jax_gpt2
+from distributed_lms_raft_llm_tpu.models import registry as jax_registry
 from distributed_lms_raft_llm_tpu.ops import attention as jax_attention
 from distributed_lms_raft_llm_tpu_torch.models import common as port_common
 from distributed_lms_raft_llm_tpu_torch.models import convert, gpt2, registry
@@ -176,8 +177,17 @@ def test_hf_weights_cast_to_param_dtype(models):
 
 @pytest.mark.parametrize("preset", ["gpt2-medium", "gpt2-xl", "moe-tiny"])
 def test_registry_refuses_unported_presets(preset):
-    with pytest.raises(ValueError, match="not ported"):
-        registry.resolve(preset, torch.float32)
+    """Once refused, these presets now resolve to the JAX registry's
+    widths; a name the JAX registry does not know is still refused."""
+    family, cfg = registry.resolve(preset, torch.float32)
+    jfamily, jfactory = jax_registry.PRESETS[preset]
+    jcfg = jfactory()
+    assert family.name == jfamily.name
+    assert (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
+            cfg.vocab_size) == (jcfg.num_layers, jcfg.hidden_size,
+                                jcfg.num_heads, jcfg.vocab_size)
+    with pytest.raises(ValueError, match="unknown model preset"):
+        registry.resolve(preset + "-unported", torch.float32)
 
 
 def test_registry_gpt2_is_full_width():

@@ -517,6 +517,95 @@ def test_int8_matmul_is_deterministic(card, m, k, n, transposed):
     assert torch.equal(first, second)
 
 
+# gpt2-moe's expert products (E = 8, wi 768 -> 3,072, wo 3,072 -> 768) at
+# its capacities: C = 5 (decode, 16 slots), 10 (a 32-token admission
+# chunk), 80 (a 256-token prefill), 640 (a scoring quantum of 8 x 256);
+# then ragged shapes: C = 17 (a partial 64-row tile), 3 experts, K and N
+# not multiples of 128.
+EXPERT_PRODUCTS = [(8, 768, 3072), (8, 3072, 768), (3, 144, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c", [5, 10, 17, 80, 640])
+@pytest.mark.parametrize("e,k,n", EXPERT_PRODUCTS)
+def test_int8_matmul_experts_matches_plain(card, dtype, c, e, k, n):
+    """The expert layout against its plain version and a float64 product,
+    expert by expert, in one launch on the expert route of x's dtype;
+    the tolerances of `test_int8_matmul_matches_plain` (bf16: the plain
+    version rounds after the product, the scale and the bias, the kernel
+    once). Each expert's rows come from its own slice: a kernel that
+    mixed experts up would fail against the float64 product."""
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+
+    rng = np.random.default_rng(e * c + n)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((e, c, k), np.float32)).to(
+        card, dt)
+    q = torch.from_numpy(rng.integers(-127, 128, (e, k, n), np.int8)).to(card)
+    s = torch.from_numpy(rng.uniform(1e-4, 1e-3, (e, n)).astype(
+        np.float32)).to(card)
+    b = torch.from_numpy(rng.standard_normal((e, n), np.float32)).to(card, dt)
+    route = (quant_matmul.FMA_EXPERTS if dtype == "float32"
+             else quant_matmul.MMA_EXPERTS)
+    before = dict(quant_matmul.launch_counts)
+    got = quant_matmul.int8_matmul_experts(x, q, s, b)
+    torch.cuda.synchronize()
+    delta = {name: quant_matmul.launch_counts[name] - before[name]
+             for name in before}
+    assert delta == {name: int(name in (quant_matmul.KERNEL, route))
+                     for name in before}
+    want = quant_matmul.int8_matmul_experts_reference(x, q, s, b)
+    exact = (torch.bmm(x.double(), q.double()) * s.double()[:, None, :]
+             + b.double()[:, None, :])
+    assert got.shape == (e, c, n) and got.dtype == x.dtype
+    for i in range(e):
+        scale = exact[i].abs().max().item()
+        tol = (dict(rtol=1e-5, atol=1e-5 * scale) if dtype == "float32"
+               else dict(rtol=1.6e-2, atol=1e-2 * scale))
+        torch.testing.assert_close(got[i].double(), want[i].double(), **tol)
+        torch.testing.assert_close(got[i].double(), exact[i], **tol)
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_the_card_matches_its_plain_version(card):
+    """gpt2-moe's expert layer at full width (one layer, 16 decode rows
+    and a 32-row admission chunk), int8 experts: the kernels' layer
+    against the same layer with the plain expert product, in float32
+    (summation order only) and bf16 (the products' rounding, relative to
+    the output's scale); two expert launches a call."""
+    from distributed_lms_raft_llm_tpu_torch.models import moe, quant
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        cfg = moe.GPT2MoEConfig.moe_small(num_layers=1, vocab_size=512,
+                                          dtype=dtype, param_dtype=dtype)
+        params = quant.quantize_params(
+            moe.init_params(cfg, seed=3, device="cuda"), "gpt2_moe")
+        mp = {k: ({kk: vv[0] for kk, vv in v.items()}
+                  if isinstance(v, dict) else v[0])
+              for k, v in params["blocks"]["moe"].items()}
+        for rows in (16, 32):
+            h = torch.randn((1, rows, 768), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(
+                                rows)).to(dtype)
+            before = quant_matmul.launch_counts[quant_matmul.KERNEL]
+            got = moe.moe_mlp(h, mp, cfg)
+            assert quant_matmul.launch_counts[quant_matmul.KERNEL] == \
+                before + 2
+            kernel = quant_matmul.int8_matmul_experts
+            quant_matmul.int8_matmul_experts = (
+                quant_matmul.int8_matmul_experts_reference)
+            try:
+                want = moe.moe_mlp(h, mp, cfg)
+            finally:
+                quant_matmul.int8_matmul_experts = kernel
+            torch.cuda.synchronize()
+            scale = want.float().abs().max().item()
+            assert (got.float() - want.float()).abs().max().item() <= (
+                tol * scale)
+
+
 # ------------------------------------------------ the relevance gate
 
 GATE_PAIRS = [("How does Raft elect a leader?",
@@ -668,7 +757,8 @@ def test_graph_kernel_nodes_equal_the_captured_counts(card):
             "decode_attention_append": 12 * eng.chunk,
             "decode_attention_window": 0,
             "int8_matmul_mma": 48 * eng.chunk,
-            "int8_matmul_mma_unembed": eng.chunk, "int8_matmul_fma": 0}
+            "int8_matmul_mma_unembed": eng.chunk, "int8_matmul_fma": 0,
+            "int8_matmul_mma_experts": 0, "int8_matmul_fma_experts": 0}
 
 
 @pytest.mark.cuda

@@ -203,8 +203,11 @@ def test_params_from_jax_carries_int8_pairs_and_equals_port_quantizer(
 
 
 def test_quantize_params_refuses_unported_families(jax_tiny):
+    """Every family the JAX quantizer knows is ported (gpt2_moe since the
+    MoE family); a family it does not know is refused."""
+    assert port_quant.quantize_params({}, "gpt2_moe") == {}
     with pytest.raises(ValueError, match="not ported"):
-        port_quant.quantize_params({}, "gpt2_moe")
+        port_quant.quantize_params({}, "mixtral")
 
 
 # ----------------------------------------------------- the kernel wrapper
@@ -283,7 +286,8 @@ def test_int8_matmul_cuda_tensors_launch_the_kernel(monkeypatch):
     counts = quant_matmul.launch_counts
     assert {name: counts[name] - before[name] for name in counts} == {
         quant_matmul.KERNEL: 4, quant_matmul.FMA: 2, quant_matmul.MMA: 1,
-        quant_matmul.MMA_UNEMBED: 1}
+        quant_matmul.MMA_UNEMBED: 1, quant_matmul.MMA_EXPERTS: 0,
+        quant_matmul.FMA_EXPERTS: 0}
     # (args, x, q, s, b, y, stream)
     assert [(a.M, a.N, a.K, a.transposed, a.dtype) for a, *_ in calls] == [
         (6, 48, 32, 0, 0), (6, 16, 64, 1, 0), (6, 16, 64, 1, 1),
