@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--out FILE] [--checkpoint F --vocab F --merges F]
                           [--gate-checkpoint F --gate-vocab F]
 
-Needs one NVIDIA GPU and this checkout beside the script (phase 8 reads
-configs/cluster.toml).
+Needs one NVIDIA GPU and this checkout beside the script (phases 8 and
+11 read configs/cluster.toml).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -224,6 +224,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    counted launches at capture); (d) one scoring quantum at 8 x 256 (C =
    640) against the plain logprobs; then the same 16 requests at the file's
    sampling settings.
+11. the LMS main path (ROADMAP's north star, no JAX anywhere): a copy of
+   configs/cluster.toml in a temporary directory with free ports for the
+   five LMS nodes, the data directory there, the tutoring node's address
+   and metrics port in [tutoring] and [tutoring_fleet] (the file's fleet
+   names LMS ports 50055/50056), the gate's checkpoint and vocabulary
+   removed unless --gate-checkpoint/--gate-vocab are given, and the
+   gate's threshold set to the midpoint between the lowest similarity of
+   the 8 QUESTIONS and an off-topic query's under an in-process gate on
+   the nodes' seed and dtype (the next off-topic query of a fixed list
+   until the gap is at least 4e-2); each change printed. Five LMS
+   processes (`python -m distributed_lms_raft_llm_tpu_torch.serving.
+   lms_server --config <copy> --id N --metrics-port P`, output kept in
+   the run's output directory), each building the bert-base gate on the
+   card (bf16), and the tutoring node in this process from the same copy
+   (`resolve_args --config`, `engine_from_args`, warmup, `serve_args`):
+   GPT-2 small at full width, bf16, int8 weights and KV, 16 slots,
+   megastep, fused admission, the prefix cache, greedy, phase 5's
+   tokenizer. One leader named by all five through WhoIsLeader within
+   10 s of all five serving; one student through the port's `LMSClient`:
+   Register, Login, Post an assignment PDF, the 8 QUESTIONS concurrently
+   over GetLLMAnswer (each equal to the node's direct answer, non-empty),
+   the off-topic query refused with the reference's text at a similarity
+   within 2e-2 of the in-process gate's (plus the text's rounding), the
+   leader's gate_pass 8 and gate_reject 1, 2 questions over
+   StreamLLMAnswer equal to their unary answers (no resume, digest ok);
+   then the leader's process SIGKILLed: a new leader within 10 s, the
+   session valid and a question answered as before, the killed node
+   restarted on its data directory at the leader's applied index within
+   10 s of serving; launches over the phase through the node's counters
+   (append = 12 x decode calls, int8 = 49 x model calls on the tensor
+   cores, no other attention variant, no capture while serving);
+   GetLLMAnswer p50/p90 through the LMS beside the node's direct calls
+   (cold, before the LMS run; and again after it, as warm), the leader's
+   `gate.check` span p50/p90 over the 8 concurrent questions and alone
+   (the off-topic one), election, failover and catch-up seconds. Every
+   LMS process is stopped in a `finally`.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -238,6 +274,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3770,6 +3807,410 @@ def moe_phase(torch, attention, quant_matmul, args) -> dict:
     return rec
 
 
+# ------------------------------------------ phase 11: the LMS main path
+
+LMS_NODES = 5                # configs/cluster.toml [cluster.nodes]
+# The assignment the student posts (as a PDF): a course text that names
+# the topics of the 8 QUESTIONS.
+LMS_COURSE_TEXT = (
+    "CS 201, assignment 3. Data structures and systems: binary search "
+    "trees, how Raft elects a leader, processes and threads, why "
+    "quicksort is O(n log n) on average, hash tables and constant-time "
+    "lookup, finding a cycle in a linked list, dynamic programming, and "
+    "when to use a heap instead of a sorted array.")
+# Off-topic queries, tried in order until one sits GATE_GAP_MIN below the
+# lowest similarity of the 8 QUESTIONS under the in-process gate.
+OFF_TOPIC_QUERIES = [
+    "zzzz ???? 0000 #### qqqq",
+    "~~~~ ^^^^ |||| %%%% @@@@ ~~~~ ^^^^ |||| %%%% @@@@",
+    "0000000000 1111111111 2222222222 3333333333",
+    "QQQQQQQQ XXXXXXXX ZZZZZZZZ JJJJJJJJ KKKKKKKK",
+    "!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!!",
+    ";;;; :::: ,,,, .... '''' ;;;; :::: ,,,, ....",
+    "9 8 7 6 5 4 3 2 1 0 9 8 7 6 5 4 3 2 1 0",
+    "{{{{ }}}} [[[[ ]]]] <<<< >>>> {{{{ }}}}",
+    "zzzz",
+    "xxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxxx",
+]
+GATE_GAP_MIN = 4e-2          # twice phase 6's bf16 tolerance
+GATE_SIM_TOL = 2e-2          # the refusal's similarity vs the in-process gate
+LMS_LIMIT_S = 10.0           # election, failover and catch-up bounds
+LMS_BOOT_LIMIT_S = 180.0     # five processes importing torch, gates on the card
+LMS_STREAMED = 2             # of QUESTIONS, also over StreamLLMAnswer
+GREEDY = dict(temperature=0.0, top_k=0, top_p=1.0, repetition_penalty=1.0)
+REFUSAL = re.compile(r"^Your query does not appear related to your assignment "
+                     r"\(similarity (-?[0-9.]+)\); please ask your "
+                     r"instructor instead\.$")
+
+
+class ServingThread:
+    """The in-process tutoring node served on an event loop of its own
+    thread, so this thread can drive the LMS processes and the blocking
+    client."""
+
+    def __init__(self, serve):
+        import threading
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.server = self.run(serve(), 300)
+
+    def run(self, coro, timeout=120):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def stop(self):
+        async def down():
+            await self.server.stop(0)
+            await self.server._queue.close()
+        try:
+            self.run(down(), 60)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(30)
+
+
+def percentiles(xs) -> dict:
+    xs = sorted(xs)
+
+    def p(q):
+        return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+    return {"p50_ms": 1e3 * p(50), "p90_ms": 1e3 * p(90),
+            "n": len(xs)}
+
+
+def find_spans(spans, name):
+    out = []
+    for sp in spans:
+        if sp["name"] == name:
+            out.append(sp)
+        out += find_spans(sp.get("children", []), name)
+    return out
+
+
+def lms_threshold(torch, args, context) -> dict:
+    """The gate threshold for the run: the midpoint between the lowest
+    similarity of the 8 QUESTIONS and an off-topic query's, under an
+    in-process gate on the nodes' seed and dtype."""
+    from distributed_lms_raft_llm_tpu_torch.config import load_config
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        GateConfig,
+        RelevanceGate,
+    )
+
+    section = load_config(str(REPO / "configs" / "cluster.toml")).gate
+    gate = RelevanceGate(GateConfig(
+        model=section.model, checkpoint=args.gate_checkpoint,
+        vocab_path=args.gate_vocab, quant=section.quant, device="cuda"))
+    check(gate.cfg.dtype == torch.bfloat16 and gate.cfg.num_layers == 12
+          and gate.cfg.hidden_size == 768,
+          f"phase 11: the gate is not bert-base in bf16: {gate.cfg}")
+    gate.warmup()
+    on = {q: gate.check(q, context)[1] for q in QUESTIONS}
+    lowest = min(on.values())
+    tried = []
+    for off in OFF_TOPIC_QUERIES:
+        sim = gate.check(off, context)[1]
+        tried.append((off, sim))
+        if lowest - sim >= GATE_GAP_MIN:
+            break
+    else:
+        raise SmokeFailure(
+            f"phase 11: no off-topic query sits {GATE_GAP_MIN} below the "
+            f"lowest on-topic similarity {lowest}: {tried}")
+    del gate
+    torch.cuda.empty_cache()
+    return dict(threshold=(lowest + sim) / 2, on_topic=on, lowest=lowest,
+                off_topic=off, off_topic_sim=sim, gap=lowest - sim,
+                off_topic_tried=len(tried),
+                gate_weights=("--gate-checkpoint" if args.gate_checkpoint
+                              else "seeded random (seed 1)"),
+                gate_tokenizer=("--gate-vocab" if args.gate_vocab
+                                else "byte fallback"))
+
+
+def lms_phase(torch, attention, quant_matmul, args, card) -> dict:
+    """Phase 11: five port LMS processes started from a copy of
+    configs/cluster.toml, the port's gate on the card in each, the port's
+    tutoring node in-process on the deployment config (see the module
+    docstring)."""
+    import concurrent.futures
+    import shutil
+
+    import grpc
+
+    from distributed_lms_raft_llm_tpu_torch.client import LMSClient
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+    from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2, rpc
+    from distributed_lms_raft_llm_tpu_torch.serving import (
+        lms_cluster,
+        tutoring_server,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils import pdf
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lms_")
+    log_dir = (str(Path(args.out).parent / "phase11_logs") if args.out
+               else os.path.join(tmp, "logs"))
+    record = {}
+    procs, node, clients = [], None, []
+    ok = False
+    try:
+        context = pdf.extract_text(pdf.make_pdf(LMS_COURSE_TEXT))
+        record["gate"] = lms_threshold(torch, args, context)
+        emit("lms_gate_threshold", **record["gate"])
+
+        # (1) The deployment file, with what one machine forces changed.
+        ports = lms_cluster.free_ports(2 * LMS_NODES + 2)
+        lms_ports, metrics_ports = ports[:LMS_NODES], ports[LMS_NODES:-2]
+        tut_port, tut_metrics = ports[-2:]
+        tut_address = f"127.0.0.1:{tut_port}"
+        changes = {("cluster", "data_dir"): os.path.join(tmp, "lms_data")}
+        for i in range(1, LMS_NODES + 1):
+            changes[("cluster.nodes", str(i))] = (
+                f"127.0.0.1:{lms_ports[i - 1]}")
+        changes.update({
+            ("tutoring", "address"): tut_address,
+            ("tutoring_fleet", "addresses"): [tut_address],
+            ("tutoring_fleet", "health_addresses"): [
+                f"127.0.0.1:{tut_metrics}"],
+            ("gate", "checkpoint"): args.gate_checkpoint or lms_cluster.REMOVE,
+            ("gate", "vocab"): args.gate_vocab or lms_cluster.REMOVE,
+            ("gate", "threshold"): record["gate"]["threshold"],
+        })
+        path, applied = lms_cluster.deployment_copy(
+            str(REPO / "configs" / "cluster.toml"), tmp, changes)
+        for line in applied:
+            print(f"phase 11 config change: {line}", flush=True)
+        record.update(config_changes=applied,
+                      lms_metrics_ports=metrics_ports)
+
+        # (2) The five LMS nodes, each its own process; they build their
+        # gates on the card while this process warms the tutoring node.
+        addresses = [f"127.0.0.1:{p}" for p in lms_ports]
+        t_launch = time.monotonic()
+        procs = [lms_cluster.LMSProcess(
+            path, i, metrics_port=metrics_ports[i - 1], log_dir=log_dir,
+            device="cuda").start() for i in range(1, LMS_NODES + 1)]
+
+        # (3) The tutoring node in-process, on the copy: the deployment
+        # config, greedy, seeded random weights under phase 5's tokenizer.
+        vocab, merges, tok_record = phase5_tokenizer(args, Path(tmp))
+        node_args = tutoring_server.resolve_args([
+            "--config", path, "--checkpoint", args.checkpoint or "",
+            "--vocab", vocab, "--merges", merges, "--seed", str(args.seed),
+            "--metrics-port", str(tut_metrics), "--node-id", "phase11"])
+        node_args.sampling_overrides = dict(GREEDY)
+        node_args.scoring = False  # the tenant is phase 8's
+        check(node_args.port == tut_port and node_args.paged
+              and node_args.quant == "int8" and node_args.kv_quant
+              and node_args.slots == 16 and node_args.megastep == 4
+              and node_args.megastep_max == 8 and node_args.prefix_cache
+              and node_args.prefill_chunk_tokens == 32,
+              f"phase 11: the copy did not resolve to the deployment "
+              f"config: {vars(node_args)}")
+        eng = tutoring_server.engine_from_args(node_args)
+        check(isinstance(eng, PagedEngine) and eng.cuda_graphs and eng.fused
+              and eng.cfg.quant_kv and eng.cfg.dtype == torch.bfloat16
+              and eng.cfg.num_layers == 12 and eng.cfg.hidden_size == 768
+              and eng.config.sampling.temperature == 0.0,
+              f"phase 11: not the deployment engine: {eng.cfg}")
+        warm_s = eng.warmup()
+        node = ServingThread(lambda: tutoring_server.serve_args(
+            node_args, eng, host="127.0.0.1"))
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
+        captures0 = _graph_captures()
+
+        # (4) The node's own answers to the 8 questions (concurrent).
+        def direct(query):
+            t0 = time.monotonic()
+            with grpc.insecure_channel(tut_address) as ch:
+                resp = rpc.TutoringStub(ch).GetLLMAnswer(
+                    lms_pb2.QueryRequest(query=query), timeout=120)
+            return resp, time.monotonic() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(len(QUESTIONS)) as ex:
+            direct_runs = list(ex.map(direct, QUESTIONS))
+        for (resp, _), q in zip(direct_runs, QUESTIONS):
+            check(resp.success and resp.response.strip(),
+                  f"phase 11: the node's direct answer to {q!r} is empty")
+        answers = {q: r.response for (r, _), q in zip(direct_runs,
+                                                      QUESTIONS)}
+
+        # (5) The nodes serving, one leader named by all five.
+        lms_cluster.wait_for(
+            lambda: all(lms_cluster.health(p.metrics_port) for p in procs),
+            LMS_BOOT_LIMIT_S, alive=procs)
+        all_up = time.monotonic()
+
+        def named_leader(live):
+            named = {lms_cluster.who_is_leader(addresses[p.node_id - 1])
+                     for p in live}
+            return named.pop() if len(named) == 1 and None not in named \
+                else None
+
+        leader, election_s = lms_cluster.wait_for(
+            lambda: named_leader(procs), LMS_LIMIT_S, alive=procs)
+        record.update(boot_s=all_up - t_launch, election_s=election_s,
+                      leader=leader, warm_s=warm_s, tokenizer=tok_record)
+
+        # (6) One student: Register, Login, Post the assignment PDF.
+        client = LMSClient(addresses, discovery_backoff_s=0.2)
+        clients.append(client)
+        check(client.register("ana", "pw", "student").success
+              and client.login("ana", "pw")
+              and client.upload_assignment(
+                  "assignment3.pdf", pdf.make_pdf(LMS_COURSE_TEXT)),
+              "phase 11: Register / Login / Post failed")
+
+        def ask(query):
+            c = LMSClient(addresses, discovery_backoff_s=0.2)
+            clients.append(c)
+            c.token, c.role = client.token, client.role
+            rid = f"phase11-{QUESTIONS.index(query)}"
+            t0 = time.monotonic()
+            resp = c.ask_llm(query, request_id=rid)
+            return resp, time.monotonic() - t0, rid
+
+        with concurrent.futures.ThreadPoolExecutor(len(QUESTIONS)) as ex:
+            lms_runs = list(ex.map(ask, QUESTIONS))
+        for (resp, _, _), q in zip(lms_runs, QUESTIONS):
+            check(resp.success and resp.response == answers[q],
+                  f"phase 11: the LMS answer to {q!r} is not the node's "
+                  f"direct answer: {resp.response[:200]!r}")
+        off = record["gate"]["off_topic"]
+        refusal = client.ask_llm(off, request_id="phase11-off").response
+        m = REFUSAL.match(refusal)
+        check(m is not None, f"phase 11: the off-topic query was not "
+              f"refused with the reference's text: {refusal!r}")
+        refused_sim = float(m.group(1))
+        # The text gives 2 decimals: up to 5e-3 of the gap is rounding.
+        check(abs(refused_sim - record["gate"]["off_topic_sim"])
+              <= GATE_SIM_TOL + 5e-3,
+              f"phase 11: the leader's gate reported {refused_sim}, the "
+              f"in-process gate {record['gate']['off_topic_sim']}")
+        check(named_leader(procs) == leader,
+              "phase 11: the leader changed under the questions")
+        lead_port = metrics_ports[leader - 1]
+        _, metrics = lms_cluster.http_json(lead_port, "/metrics")
+        counters = metrics["counters"]
+        record["leader_tick_lag"] = {
+            k: metrics.get("latency", {}).get(k)
+            for k in ("raft_tick_lag", "serving_tick_lag")}
+        check(counters.get("gate_pass") == len(QUESTIONS)
+              and counters.get("gate_reject") == 1
+              and not counters.get("tutoring_degraded"),
+              f"phase 11: the leader's gate counted "
+              f"{counters.get('gate_pass')} passes, "
+              f"{counters.get('gate_reject')} rejects, "
+              f"{counters.get('tutoring_degraded')} degraded")
+        gate_spans = []
+        for rid in [r for _, _, r in lms_runs] + ["phase11-off"]:
+            code, trace = lms_cluster.http_json(lead_port,
+                                                f"/admin/trace/{rid}")
+            check(code == 200, f"phase 11: no trace of {rid} on the leader")
+            spans = find_spans(trace["trace"]["spans"], "gate.check")
+            check(len(spans) == 1, f"phase 11: {len(spans)} gate.check "
+                  f"spans in the trace of {rid}")
+            gate_spans.append(spans[0]["duration_s"])
+        # The node's direct calls again, the prefix tree now as warm as
+        # the LMS run found it: the latency beside the LMS run's.
+        with concurrent.futures.ThreadPoolExecutor(len(QUESTIONS)) as ex:
+            warm_runs = list(ex.map(direct, QUESTIONS))
+        for (resp, _), q in zip(warm_runs, QUESTIONS):
+            check(resp.success and resp.response == answers[q],
+                  f"phase 11: the node's second direct answer to {q!r} "
+                  f"differs from its first")
+
+        # Two questions also over StreamLLMAnswer.
+        streamed = []
+        for q in QUESTIONS[:LMS_STREAMED]:
+            s = client.ask_llm_stream(q)
+            check(s.success and s.response == answers[q].strip()
+                  and s.resumes == 0 and s.digest_ok,
+                  f"phase 11: the stream of {q!r} is not the unary answer "
+                  f"(resumes {s.resumes}, digest ok {s.digest_ok})")
+            streamed.append(dict(chunks=s.chunks, ttft_s=s.ttft_s))
+
+        # (7) Failover: SIGKILL the leader's process.
+        t_kill = time.monotonic()
+        procs[leader - 1].kill()
+        live = [p for p in procs if p.node_id != leader]
+        new_leader, failover_s = lms_cluster.wait_for(
+            lambda: (lambda n: n if n not in (None, leader) else None)(
+                named_leader(live)), LMS_LIMIT_S, alive=live)
+        client.discover_leader(force=True)
+        resp = client.ask_llm(QUESTIONS[0])
+        check(resp.success and resp.response == answers[QUESTIONS[0]],
+              f"phase 11: after failover the session's answer was "
+              f"{resp.response[:200]!r}")
+        after_kill_s = time.monotonic() - t_kill
+        procs[leader - 1].start()
+        _, reboot_s = lms_cluster.wait_for(
+            lambda: lms_cluster.health(procs[leader - 1].metrics_port),
+            LMS_BOOT_LIMIT_S, alive=procs)
+        new_port = metrics_ports[new_leader - 1]
+
+        def caught_up():
+            mine = lms_cluster.health(procs[leader - 1].metrics_port)
+            theirs = lms_cluster.health(new_port)
+            return (mine and theirs and mine["leader_id"] == new_leader
+                    and mine["applied_index"] >= theirs["applied_index"])
+
+        _, catchup_s = lms_cluster.wait_for(caught_up, LMS_LIMIT_S,
+                                            alive=procs)
+
+        # (8) Launches over the phase, through the node's counters.
+        launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+        decode_calls = eng.decode_steps - c0[0]
+        model_calls = decode_calls + eng.admission_chunks - c0[1] + (
+            eng.prefill_calls - c0[2])
+        others = {k: v for k, v in attention.launch_counts.items()
+                  if k != attention.APPEND_INT8KV and v}
+        check(decode_calls > 0
+              and launches[attention.APPEND_INT8KV] == 12 * decode_calls
+              and launches[quant_matmul.KERNEL] == 49 * model_calls
+              and launches[quant_matmul.MMA] == 48 * model_calls
+              and launches[quant_matmul.MMA_UNEMBED] == model_calls
+              and launches[quant_matmul.FMA] == 0 and not others,
+              f"phase 11: launches {launches} for {decode_calls} decode "
+              f"and {model_calls} model calls")
+        check(_graph_captures() == captures0,
+              "phase 11: a CUDA graph was captured while serving")
+        record.update(
+            lms_answer=percentiles([t for _, t, _ in lms_runs]),
+            direct_answer_cold=percentiles([t for _, t in direct_runs]),
+            direct_answer=percentiles([t for _, t in warm_runs]),
+            gate_check=percentiles(gate_spans[:-1]),
+            gate_check_alone_ms=1e3 * gate_spans[-1],
+            refused_similarity=refused_sim, streams=streamed,
+            failover_s=failover_s, first_answer_after_kill_s=after_kill_s,
+            new_leader=new_leader, restart_boot_s=reboot_s,
+            catchup_s=catchup_s, decode_model_calls=decode_calls,
+            model_calls=model_calls, launches=launches,
+            answer_tokens=sum(len(eng.tokenizer.encode(a))
+                              for a in answers.values()),
+            card=card, seconds=time.monotonic() - t_phase)
+        ok = True
+        return record
+    finally:
+        for c in clients:
+            c.close()
+        for p in procs:
+            p.stop()
+        if node is not None:
+            node.stop()
+        if not ok:
+            for p in procs:
+                print(f"--- LMS node {p.node_id} log ({p.log_path}):\n"
+                      f"{p.tail(40)}", file=sys.stderr, flush=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _graph_captures() -> int:
     from distributed_lms_raft_llm_tpu_torch.engine import graphs
 
@@ -4238,6 +4679,15 @@ def main(argv=None) -> int:
         "launches"]
     lap("10_moe")
 
+    # 11. The LMS main path: five port LMS processes started from a copy of
+    # configs/cluster.toml, the gate on the card in each, a student's
+    # questions answered through the tutoring node in this process.
+    torch.cuda.empty_cache()
+    records["lms"] = lms_phase(torch, attention, quant_matmul, args, smi)
+    emit("lms", **records["lms"])
+    lms_launches = records["lms"]["launches"]
+    lap("11_lms")
+
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]
     emit("phase_seconds", **phase_s)
@@ -4303,7 +4753,8 @@ def main(argv=None) -> int:
                   "4b": int8kv_launches,
                   "4c": deploy_launches[attention.APPEND_INT8KV],
                   "9": llama_launches[attention.APPEND_INT8KV],
-                  "10": moe_launches[attention.APPEND_INT8KV]}),
+                  "10": moe_launches[attention.APPEND_INT8KV],
+                  "11": lms_launches[attention.APPEND_INT8KV]}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],
@@ -4319,7 +4770,8 @@ def main(argv=None) -> int:
                   "6": records["gate"]["int8"]["int8_matmul_launches"][
                       quant_matmul.KERNEL],
                   "9": llama_launches[quant_matmul.KERNEL],
-                  "10": moe_launches[quant_matmul.KERNEL]}),
+                  "10": moe_launches[quant_matmul.KERNEL],
+                  "11": lms_launches[quant_matmul.KERNEL]}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",
@@ -4328,7 +4780,8 @@ def main(argv=None) -> int:
                   "4b": mm_routes[quant_matmul.MMA_UNEMBED],
                   "4c": deploy_launches[quant_matmul.MMA_UNEMBED],
                   "9": llama_launches[quant_matmul.MMA_UNEMBED],
-                  "10": moe_launches[quant_matmul.MMA_UNEMBED]},
+                  "10": moe_launches[quant_matmul.MMA_UNEMBED],
+                  "11": lms_launches[quant_matmul.MMA_UNEMBED]},
               shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],

@@ -1,21 +1,23 @@
-"""The deployment file (TOML) as a tutoring node of the port reads it.
+"""The deployment file (TOML) as the port's nodes read it.
 
 A trimmed port of `distributed_lms_raft_llm_tpu/config.py`. One TOML file
 describes the whole deployment (configs/cluster.toml, configs/dev.toml);
-the port's tutoring node starts from it:
+the port's LMS nodes and tutoring node start from it:
 
+    python -m distributed_lms_raft_llm_tpu_torch.serving.lms_server \\
+        --config configs/cluster.toml --id 1
     python -m distributed_lms_raft_llm_tpu_torch.serving.tutoring_server \\
         --config configs/cluster.toml
 
 `load_config` is as strict as the JAX package's over the WHOLE file: an
 unknown section or an unknown key in any section is refused, so the same
-files load and the same typos fail on both nodes. Only the sections a
-tutoring node reads are parsed into dataclasses (`[tutoring]`,
-`[sampling]`, `[scoring]`, `[sessions]`, `[resilience]`, `[tracing]`,
-`[telemetry]`), with the JAX package's defaults and value checks; the
-others (`[cluster]`, `[tutoring_fleet]`, `[gate]`, `[groups]`,
-`[storage]`, `[sim]`) are checked for their key names only, and their
-values are not read. `apply_file_defaults` is the JAX package's two-phase
+files load and the same typos fail on both packages. The sections the
+port's nodes read are parsed into dataclasses with the JAX package's
+defaults and value checks (`[cluster]` with `[cluster.nodes]`,
+`[tutoring]`, `[tutoring_fleet]`, `[sampling]`, `[scoring]`,
+`[sessions]`, `[gate]`, `[resilience]`, `[groups]`, `[storage]`,
+`[tracing]`, `[telemetry]`); `[sim]` is checked for its key names only,
+and its values are not read. `apply_file_defaults` is the JAX package's two-phase
 merge: the file fills each flag the command line left out, and a flag
 given on the command line wins.
 """
@@ -26,6 +28,24 @@ import argparse
 import dataclasses
 import tomllib
 from typing import Any, Dict, List, Optional
+
+
+@dataclasses.dataclass
+class ClusterConfig:
+    """[cluster]: the Raft topology (`[cluster.nodes]`, id -> host:port)
+    and its timing."""
+
+    nodes: Dict[int, str] = dataclasses.field(default_factory=dict)
+    data_dir: str = "lms_data"  # per-node state under <data_dir>/node<id>
+    election_timeout: float = 0.5
+    heartbeat_interval: float = 0.1
+    snapshot_every: int = 64
+    metrics_period: float = 60.0
+    linearizable_reads: bool = True
+
+    @property
+    def addresses(self) -> Dict[int, str]:
+        return dict(self.nodes)
 
 
 @dataclasses.dataclass
@@ -75,6 +95,51 @@ class TutoringConfig:
 
 
 @dataclasses.dataclass
+class TutoringFleetConfig:
+    """[tutoring_fleet]: the LMS's cache-affinity routing across N
+    tutoring nodes (`lms/tutoring_pool.py`). Empty `addresses` = a one-node
+    fleet at [tutoring].address."""
+
+    addresses: List[str] = dataclasses.field(default_factory=list)
+    # Optional per-node /healthz endpoints, same order as `addresses`.
+    health_addresses: List[str] = dataclasses.field(default_factory=list)
+    hedge_after_s: float = 0.35     # hedge to the second choice; 0 = off
+    queue_spill_depth: int = 8      # spill past this serving-queue depth
+    warmup_s: float = 5.0           # rejoin warm-up ramp length
+    warmup_weight: float = 0.25     # initial key-share weight when warming
+    health_poll_s: float = 1.0      # router health-poll cadence
+    stream_stall_s: float = 2.0     # max silence between streamed chunks;
+    #                                 0 = no stall watch
+
+    def __post_init__(self) -> None:
+        if self.health_addresses and len(self.health_addresses) != len(
+            self.addresses
+        ):
+            raise ValueError(
+                "[tutoring_fleet] health_addresses must be empty or "
+                "match addresses one-to-one"
+            )
+        if self.hedge_after_s < 0 or self.health_poll_s <= 0:
+            raise ValueError(
+                "[tutoring_fleet] needs hedge_after_s >= 0 and "
+                "health_poll_s > 0"
+            )
+        if not 0.0 < self.warmup_weight <= 1.0 or self.warmup_s < 0:
+            raise ValueError(
+                "[tutoring_fleet] needs 0 < warmup_weight <= 1 and "
+                "warmup_s >= 0"
+            )
+        if self.queue_spill_depth < 1:
+            raise ValueError(
+                "[tutoring_fleet] queue_spill_depth must be >= 1"
+            )
+        if self.stream_stall_s < 0:
+            raise ValueError(
+                "[tutoring_fleet] stream_stall_s must be >= 0"
+            )
+
+
+@dataclasses.dataclass
 class SessionsConfig:
     """[sessions]: multi-turn tutoring sessions on the streaming path."""
 
@@ -103,6 +168,18 @@ class ScoringConfig:
 
 
 @dataclasses.dataclass
+class GateConfig:
+    """[gate]: the BERT relevance gate on the LMS leader (the section; the
+    gate itself is `engine.gate.GateConfig` / `RelevanceGate`)."""
+
+    model: Optional[str] = None  # "bert-base-uncased" | "tiny"; None = off
+    checkpoint: Optional[str] = None
+    vocab: Optional[str] = None
+    threshold: float = 0.6
+    quant: Optional[str] = None  # weight-only int8 for the gate encoder
+
+
+@dataclasses.dataclass
 class ResilienceConfig:
     """[resilience]: overload and failure behaviour. A tutoring node reads
     `queue_depth` (its admission bound); the rest is the client's and the
@@ -122,6 +199,44 @@ class ResilienceConfig:
     replicate_budget_s: float = 60.0
     queue_depth: int = 64
     fault_seed: int = 0
+
+
+@dataclasses.dataclass
+class StorageConfig:
+    """[storage]: durability and recovery of the WAL, the LMS state
+    snapshot and the blob store (`raft/storage.py`, `lms/persistence.py`)."""
+
+    checksums: bool = True    # v2 CRC-framed records; False = legacy v1
+    fsync: str = "always"     # "always" | "never" (dev/bench only)
+    recovery: str = "rejoin"  # corrupt WAL/snapshot: "rejoin" | "fail"
+
+    def __post_init__(self) -> None:
+        if self.fsync not in ("always", "never"):
+            raise ValueError(
+                f"[storage] fsync must be 'always' or 'never', "
+                f"got {self.fsync!r}"
+            )
+        if self.recovery not in ("rejoin", "fail"):
+            raise ValueError(
+                f"[storage] recovery must be 'rejoin' or 'fail', "
+                f"got {self.recovery!r}"
+            )
+
+
+@dataclasses.dataclass
+class GroupsConfig:
+    """[groups]: the sharded control plane. The port serves one group: a
+    `count` above 1 loads, and the LMS server refuses it at start."""
+
+    count: int = 1
+    port_stride: int = 1000
+    secret: str = ""
+
+    def __post_init__(self) -> None:
+        if self.count < 1:
+            raise ValueError("[groups] count must be >= 1")
+        if self.port_stride < 1:
+            raise ValueError("[groups] port_stride must be >= 1")
 
 
 @dataclasses.dataclass
@@ -177,20 +292,9 @@ class TelemetryConfig:
                 "[telemetry] chip_ceiling_tokens_per_s must be > 0")
 
 
-# The sections a tutoring node does not read, by their keys (the JAX
+# The section the port's nodes do not read, by its keys (the JAX
 # package's dataclass fields), so a typo there is refused too.
 OTHER_SECTIONS: Dict[str, frozenset] = {
-    "cluster": frozenset({
-        "nodes", "data_dir", "election_timeout", "heartbeat_interval",
-        "snapshot_every", "metrics_period", "linearizable_reads"}),
-    "tutoring_fleet": frozenset({
-        "addresses", "health_addresses", "hedge_after_s",
-        "queue_spill_depth", "warmup_s", "warmup_weight", "health_poll_s",
-        "stream_stall_s"}),
-    "gate": frozenset({"model", "checkpoint", "vocab", "threshold",
-                       "quant"}),
-    "groups": frozenset({"count", "port_stride", "secret"}),
-    "storage": frozenset({"checksums", "fsync", "recovery"}),
     "sim": frozenset({
         "seed", "students", "instructors", "courses", "duration_s",
         "base_rate", "diurnal_amplitude", "days", "workers", "llm_budget_s",
@@ -204,18 +308,28 @@ OTHER_SECTIONS: Dict[str, frozenset] = {
 
 @dataclasses.dataclass
 class AppConfig:
+    cluster: ClusterConfig = dataclasses.field(default_factory=ClusterConfig)
     tutoring: TutoringConfig = dataclasses.field(
         default_factory=TutoringConfig)
+    tutoring_fleet: TutoringFleetConfig = dataclasses.field(
+        default_factory=TutoringFleetConfig)
     sampling: SamplingConfig = dataclasses.field(
         default_factory=SamplingConfig)
     scoring: ScoringConfig = dataclasses.field(default_factory=ScoringConfig)
     sessions: SessionsConfig = dataclasses.field(
         default_factory=SessionsConfig)
+    gate: GateConfig = dataclasses.field(default_factory=GateConfig)
     resilience: ResilienceConfig = dataclasses.field(
         default_factory=ResilienceConfig)
+    groups: GroupsConfig = dataclasses.field(default_factory=GroupsConfig)
+    storage: StorageConfig = dataclasses.field(default_factory=StorageConfig)
     tracing: TracingConfig = dataclasses.field(default_factory=TracingConfig)
     telemetry: TelemetryConfig = dataclasses.field(
         default_factory=TelemetryConfig)
+
+    @property
+    def client_servers(self) -> List[str]:
+        return [self.cluster.nodes[k] for k in sorted(self.cluster.nodes)]
 
 
 # Section name -> its AppConfig field's dataclass.
@@ -241,6 +355,10 @@ def load_config(path: str) -> AppConfig:
     built = {}
     for name, cls in SECTIONS.items():
         table = dict(raw.get(name, {}))
+        if name == "cluster" and "nodes" in table:
+            # TOML keys are strings; node ids are ints.
+            table["nodes"] = {int(k): str(v)
+                              for k, v in table["nodes"].items()}
         _check_keys(table, {f.name for f in dataclasses.fields(cls)}, name)
         built[name] = cls(**table)
     return AppConfig(**built)
@@ -274,3 +392,16 @@ def apply_file_defaults(args: argparse.Namespace,
     for name, value in overrides.items():
         if getattr(probe, name, _UNSET) is _UNSET:
             setattr(args, name, value)
+
+
+def raft_config(cfg: AppConfig):
+    """`raft.RaftConfig` from [cluster]: the election timeout is drawn
+    from [election_timeout / 2, election_timeout]."""
+    from .raft import RaftConfig
+
+    c = cfg.cluster
+    return RaftConfig(
+        election_timeout_min=c.election_timeout / 2,
+        election_timeout_max=c.election_timeout,
+        heartbeat_interval=c.heartbeat_interval,
+    )

@@ -1,3 +1,4 @@
 """Framework-free helpers, the port's own copies: tokenizers, metrics,
-deadlines and admission errors, forwarding auth, the telemetry timeline
-and the serving loop's watchdog."""
+deadlines, breakers and admission errors, forwarding auth, network and
+disk fault injection, PDF text, tracing, the telemetry timeline and the
+watchdogs."""

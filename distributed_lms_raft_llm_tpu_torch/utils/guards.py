@@ -1,7 +1,9 @@
-"""The serving loop's heartbeat watchdog.
+"""The serving loop's heartbeat watchdog and the Raft tick watchdog.
 
 A trimmed port of `distributed_lms_raft_llm_tpu/utils/guards.py`: its
-`LoopWatchdog` and `make_serving_watchdog`. The tutoring node runs the
+`LoopWatchdog`, `make_tick_watchdog` (the LMS node's Raft runner observes
+each tick's lag: `raft_tick_lag`, `raft_tick_stalls`) and
+`make_serving_watchdog`. The tutoring node runs the
 watchdog's heartbeat as a task on its event loop, as the JAX node does: a
 handler or a queue step that blocks the loop (sync IO, a device readback
 on the loop thread) shows up as the `serving_tick_lag` histogram and the
@@ -76,6 +78,24 @@ class LoopWatchdog:
             before = self._clock()
             await asyncio.sleep(interval_s)
             self.observe(self._clock() - before - interval_s)
+
+
+def make_tick_watchdog(
+    metrics: Optional[Any] = None, *, tick_interval: float,
+    name: str = "raft_tick", stall_factor: float = 10.0,
+) -> Optional[LoopWatchdog]:
+    """The Raft wiring: warn when a tick lands `stall_factor` intervals
+    late (late enough to matter for heartbeats, early enough to catch
+    before elections fire). None without metrics, so callers can wire
+    unconditionally."""
+    if metrics is None:
+        return None
+    default = name == "raft_tick"
+    return LoopWatchdog(
+        metrics, name=name, warn_above_s=tick_interval * stall_factor,
+        lag_metric=metrics_registry.RAFT_TICK_LAG if default else None,
+        stalls_metric=metrics_registry.RAFT_TICK_STALLS if default else None,
+    )
 
 
 def make_serving_watchdog(metrics: Any, *,

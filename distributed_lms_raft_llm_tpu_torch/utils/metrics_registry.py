@@ -1,4 +1,4 @@
-"""The metric series the port's tutoring node emits, with kind and help.
+"""The metric series the port's LMS and tutoring nodes emit, with kind and help.
 
 The port's own copy of the entries of `distributed_lms_raft_llm_tpu/utils/
 metrics_registry.py` that this node emits, under the same names, so one
@@ -213,6 +213,150 @@ SPECS: Dict[str, Tuple[str, str]] = {
         "serving-loop heartbeats later than the stall threshold (each "
         "also logged)"
     )),
+    # The LMS plane: the service, the tutoring fleet router, the
+    # storage layer, the chaos plane and the Raft runner.
+    "register": (COUNTER, (
+        'Register RPCs received'
+    )),
+    "login": (COUNTER, (
+        'Login RPCs received'
+    )),
+    "post": (COUNTER, (
+        'Post RPCs received (materials, assignments, queries)'
+    )),
+    "gate_pass": (COUNTER, (
+        'queries the BERT relevance gate accepted'
+    )),
+    "gate_reject": (COUNTER, (
+        'queries the BERT relevance gate refused'
+    )),
+    "llm_ttft": (HISTOGRAM, (
+        'LMS-side student-query latency: gate check + tutoring forward '
+        '(the BASELINE north-star is its p50)'
+    )),
+    "tutoring_degraded": (COUNTER, (
+        'queries answered by the degraded instructor-queue fallback'
+    )),
+    "tutoring_failures": (COUNTER, (
+        'tutoring forwards that failed (RPC error)'
+    )),
+    "tutoring_duplicates": (COUNTER, (
+        'tutoring forwards deliberately delivered twice by the '
+        '`duplicate` chaos fault'
+    )),
+    "tutoring_budget_exhausted": (COUNTER, (
+        "queries degraded because the client's remaining deadline budget "
+        'was under the floor'
+    )),
+    "tutoring_breaker_rejections": (COUNTER, (
+        'queries degraded because the tutoring circuit breaker was open'
+    )),
+    "tutoring_breaker_state": (GAUGE, (
+        'tutoring circuit breaker state (0 closed / 1 open / 2 half-open)'
+    )),
+    "tutoring_breaker_closed": (COUNTER, (
+        'breaker transitions into CLOSED'
+    )),
+    "tutoring_breaker_open": (COUNTER, (
+        'breaker transitions into OPEN'
+    )),
+    "tutoring_breaker_half_open": (COUNTER, (
+        'breaker transitions into HALF_OPEN'
+    )),
+    "blob_fetch_on_miss": (COUNTER, (
+        'blobs healed from a peer after committed metadata referenced a '
+        'locally missing file'
+    )),
+    "blob_fetch_budget_exhausted": (COUNTER, (
+        "blob fetch-on-miss sweeps skipped because the request's "
+        'remaining deadline budget was under the floor (metadata-only '
+        'response instead of a doomed peer sweep)'
+    )),
+    "replicate_budget_exhausted": (COUNTER, (
+        'file-replication peers skipped because the per-upload '
+        'replication budget ran out mid-sweep (anti-entropy heals them '
+        'later)'
+    )),
+    "tutoring_spills": (COUNTER, (
+        'tutoring forwards served by a non-affinity fleet node (the '
+        "router spilled past the ring's first choice: open breaker, deep "
+        'queue, insufficient budget, or the affinity node failed/was '
+        'ejected)'
+    )),
+    "tutoring_hedges": (COUNTER, (
+        'hedged duplicate sends issued after the affinity node sat on a '
+        'forward past hedge_after_s (tail-tolerance; the loser is '
+        'cancelled)'
+    )),
+    "tutoring_hedge_wins": (COUNTER, (
+        'tutoring answers won by the hedged (second-choice) send — the '
+        'tail latency the hedge actually shaved'
+    )),
+    "tutoring_node_ejections": (COUNTER, (
+        'fleet members the router ejected from the ring (drain observed '
+        'via /healthz or a draining refusal on the wire)'
+    )),
+    "tutoring_node_rejoins": (COUNTER, (
+        'ejected fleet members re-admitted to the ring (drain ended or an '
+        'operator joined them back); each rejoin starts a warm-up ramp so '
+        "the node's prefix cache refills before it takes its full key "
+        'share'
+    )),
+    "tutoring_fleet_size": (GAUGE, (
+        'routable tutoring fleet members (configured minus '
+        'ejected/draining)'
+    )),
+    "stream_resumes": (COUNTER, (
+        "streamed answers resumed at the client's delivered token offset "
+        'on another fleet node after the serving stream broke mid-answer '
+        '(node death, open breaker, drain, or a per-chunk stall) — the '
+        "resumable-stream contract's failover path; never a restart"
+    )),
+    "stream_stalls": (COUNTER, (
+        'streamed forwards declared wedged because no chunk arrived '
+        'within stream_stall_s (the stream was open but silent); each '
+        "counts against the node's breaker and triggers a resume-at-offset"
+    )),
+    "wal_torn_tail_truncations": (COUNTER, (
+        'Raft WAL replays that dropped a torn final record (crash '
+        'mid-append; the record was never acked durable)'
+    )),
+    "wal_corrupt_records": (COUNTER, (
+        'Raft WAL records that failed CRC/framing checks mid-file (bit '
+        'rot / merged short write) — the node refuses to trust the log '
+        'and recovers per [storage].recovery'
+    )),
+    "snapshot_integrity_failures": (COUNTER, (
+        'LMS state snapshots that failed their integrity header check at '
+        'load'
+    )),
+    "storage_recovering": (GAUGE, (
+        '1 while this node has discarded corrupt local storage and is '
+        'rejoining via leader replication / InstallSnapshot; 0 once '
+        'healed'
+    )),
+    "stale_tmp_files_removed": (COUNTER, (
+        'orphaned atomic-write temp files (.raftwal.* / .lmssnap.* / '
+        '.blob*) swept at boot, leaked by a crash between mkstemp and '
+        'rename'
+    )),
+    "fault_campaign_phases": (COUNTER, (
+        'fault-campaign phases the admin plane applied (each phase '
+        'installs one injector spec for its duration, then clears it)'
+    )),
+    "raft_tick_lag": (HISTOGRAM, (
+        'how late each Raft tick ran versus its schedule (stalls here are '
+        'the precursor of spurious elections)'
+    )),
+    "raft_tick_stalls": (COUNTER, (
+        'Raft ticks later than 10 heartbeat intervals (each also logged)'
+    )),
+    "raft_state_digest": (GAUGE, (
+        "low 32 bits of the replica's state-digest chain at its applied "
+        'index (LMSState.digest folded per apply; replicas of one group '
+        'at the same applied index must report the same value — '
+        'divergence here is state-machine nondeterminism)'
+    )),
 }
 
 # The names the scoring tenant and the serving watchdog emit.
@@ -227,6 +371,52 @@ SCORE_PREEMPT_WAIT_MS = "score_preempt_wait_ms"
 ENGINE_PROG_SCORE = "engine_prog_score"
 SERVING_TICK_LAG = "serving_tick_lag"
 SERVING_TICK_STALLS = "serving_tick_stalls"
+
+
+# The LMS plane's names.
+REGISTER = "register"
+LOGIN = "login"
+POST = "post"
+LLM_REQUESTS = "llm_requests"
+GATE_PASS = "gate_pass"
+GATE_REJECT = "gate_reject"
+LLM_TTFT = "llm_ttft"
+TUTORING_DEGRADED = "tutoring_degraded"
+TUTORING_FAILURES = "tutoring_failures"
+TUTORING_DUPLICATES = "tutoring_duplicates"
+TUTORING_BUDGET_EXHAUSTED = "tutoring_budget_exhausted"
+TUTORING_BREAKER_REJECTIONS = "tutoring_breaker_rejections"
+TUTORING_BREAKER_STATE = "tutoring_breaker_state"
+TUTORING_BREAKER_CLOSED = "tutoring_breaker_closed"
+TUTORING_BREAKER_OPEN = "tutoring_breaker_open"
+TUTORING_BREAKER_HALF_OPEN = "tutoring_breaker_half_open"
+BLOB_FETCH_ON_MISS = "blob_fetch_on_miss"
+BLOB_FETCH_BUDGET_EXHAUSTED = "blob_fetch_budget_exhausted"
+REPLICATE_BUDGET_EXHAUSTED = "replicate_budget_exhausted"
+TUTORING_SPILLS = "tutoring_spills"
+TUTORING_HEDGES = "tutoring_hedges"
+TUTORING_HEDGE_WINS = "tutoring_hedge_wins"
+TUTORING_NODE_EJECTIONS = "tutoring_node_ejections"
+TUTORING_NODE_REJOINS = "tutoring_node_rejoins"
+TUTORING_FLEET_SIZE = "tutoring_fleet_size"
+STREAM_RESUMES = "stream_resumes"
+STREAM_STALLS = "stream_stalls"
+WAL_TORN_TAIL_TRUNCATIONS = "wal_torn_tail_truncations"
+WAL_CORRUPT_RECORDS = "wal_corrupt_records"
+SNAPSHOT_INTEGRITY_FAILURES = "snapshot_integrity_failures"
+STORAGE_RECOVERING = "storage_recovering"
+STALE_TMP_FILES_REMOVED = "stale_tmp_files_removed"
+FAULT_CAMPAIGN_PHASES = "fault_campaign_phases"
+RAFT_TICK_LAG = "raft_tick_lag"
+RAFT_TICK_STALLS = "raft_tick_stalls"
+RAFT_STATE_DIGEST = "raft_state_digest"
+
+# Breaker state -> transition counter (the LMS breaker observer).
+BREAKER_TRANSITION_COUNTERS = {
+    "closed": TUTORING_BREAKER_CLOSED,
+    "open": TUTORING_BREAKER_OPEN,
+    "half_open": TUTORING_BREAKER_HALF_OPEN,
+}
 
 
 def is_declared(name: str) -> bool:

@@ -1,7 +1,8 @@
 """Flight-recorder request tracing for the tutoring node.
 
 The port's own trimmed copy of `distributed_lms_raft_llm_tpu/utils/
-tracing.py` (a Dapper-style tracer), with what a tutoring node needs:
+tracing.py` (a Dapper-style tracer), with what the tutoring node and the
+LMS need:
 
 - **Span trees.** `Tracer.span(name)` nests under the contextvar-tracked
   current span; `Span.child` / `child_timed` attach spans across tasks and
@@ -14,12 +15,12 @@ tracing.py` (a Dapper-style tracer), with what a tutoring node needs:
   (`continue_from_grpc_context`), else opens a trace named by the caller's
   `x-request-id`. `GET /admin/trace/<id>` serves this node's fragments,
   which the JAX package's `scripts/trace_report.py` merges with the LMS's.
-- **Flight recorder.** A bounded ring of traces; traces flagged (error,
-  deadline exhausted) are pinned, and so are the slowest few per route.
-
-Left out (no use on a tutoring node): outgoing propagation
-(`trace_metadata`), `configure_from` a TOML section, `records()`,
-`reset()`, the `degraded` flag.
+- **Outgoing propagation.** `trace_metadata()` appends the current span's
+  `x-trace-context` to a stub call's metadata (the LMS's tutoring forward,
+  the client's calls).
+- **Flight recorder.** A bounded ring of traces; traces flagged (degraded,
+  error, deadline exhausted) are pinned, and so are the slowest few per
+  route.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ TRACE_METADATA_KEY = "x-trace-context"
 
 # Flight-recorder flags: traces carrying any of these are pinned past ring
 # eviction.
+FLAG_DEGRADED = "degraded"
 FLAG_ERROR = "error"
 FLAG_DEADLINE = "deadline_exhausted"
 
@@ -329,6 +331,14 @@ class Tracer:
         rid = _metadata_value(md, REQUEST_ID_METADATA_KEY)
         return self.trace(name, trace_id=rid or None, **attrs)
 
+    # ---------------------------------------------------------- propagation
+
+    def context_header(self) -> Optional[Tuple[str, str]]:
+        span = self._current.get()
+        if span is None or not self.enabled:
+            return None
+        return (TRACE_METADATA_KEY, f"{span.trace_id}/{span.span_id}")
+
     # ---------------------------------------------------------------- store
 
     def _record_fragment(self, root: Span) -> None:
@@ -462,6 +472,7 @@ class Tracer:
         return {"exemplars": pinned, "recent": tail}
 
 
+
 def assemble_forest(fragments: Sequence[Dict[str, Any]],
                     ) -> List[Dict[str, Any]]:
     """Merge fragment dicts into a forest: a fragment whose `parent_id`
@@ -538,6 +549,18 @@ def configure_from(cfg: Any) -> Tracer:
 
 
 # --------------------------------------------------------------- adapters
+
+
+def trace_metadata(
+    metadata: Optional[List[Tuple[str, str]]] = None,
+) -> Optional[List[Tuple[str, str]]]:
+    """Outgoing gRPC metadata with the current trace context appended.
+    Returns None when there is neither base metadata nor an active span,
+    matching gRPC's 'no metadata' convention."""
+    header = get_tracer().context_header()
+    if header is None:
+        return metadata or None
+    return list(metadata or []) + [header]
 
 
 def traced_grpc_handler(name: str) -> Callable:

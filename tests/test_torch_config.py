@@ -15,6 +15,12 @@ JAX node, and its telemetry plane.
   port does not parse), is refused by both loaders.
 - configs/dev.toml builds the port's paged engine with the file's options
   and the scoring tenant on.
+- The port's LMS server (`serving/lms_server.py`) resolves the same
+  arguments from both files as the JAX LMS server's `main` (captured at
+  its `asyncio.run`), with and without overriding flags, and in the
+  positional form; its `--device` stands where the JAX server has
+  `--jax-platform`. `--groups 2` (and `[groups] count = 2`) is refused
+  with a NotImplementedError naming the sharded control plane.
 - The telemetry timeline and the serving watchdog: the port's `Timeline`
   folds snapshots into the JAX `Timeline`'s document (the JAX scraper's
   `from_dict` reads it back), the sampler samples, `GET /admin/timeline`
@@ -32,12 +38,14 @@ import torch_threads  # noqa: F401 (caps torch's threads)
 
 from distributed_lms_raft_llm_tpu import config as jax_config
 from distributed_lms_raft_llm_tpu.parallel import mesh as jax_mesh
+from distributed_lms_raft_llm_tpu.serving import lms_server as jax_lms_server
 from distributed_lms_raft_llm_tpu.serving import tutoring_server as jax_server
 from distributed_lms_raft_llm_tpu.utils import guards as jax_guards
 from distributed_lms_raft_llm_tpu.utils import timeline as jax_timeline
 from distributed_lms_raft_llm_tpu.utils import tracing as jax_tracing
 from distributed_lms_raft_llm_tpu_torch import config
 from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+from distributed_lms_raft_llm_tpu_torch.serving import lms_server
 from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
 from distributed_lms_raft_llm_tpu_torch.utils import guards, timeline
 from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
@@ -162,8 +170,12 @@ def test_llama_tutoring_section_resolves_as_the_jax_node(tmp_path,
     ("[tutorin]\nmodel = 'tiny'\n", "unknown section"),
     ("[tutoring]\nslotz = 4\n", "slotz"),
     ("[scoring]\nenable = true\n", "enable"),
-    ("[storage]\nfsyncc = 'never'\n", "fsyncc"),       # not parsed by the port
-    ("[cluster]\ndata_dirr = 'x'\n", "data_dirr"),      # nor this one
+    ("[storage]\nfsyncc = 'never'\n", "fsyncc"),
+    ("[cluster]\ndata_dirr = 'x'\n", "data_dirr"),
+    ("[storage]\nfsync = 'on'\n", "fsync"),            # a bad value
+    ("[tutoring_fleet]\nhealth_poll_s = 0\n", "health_poll_s"),
+    ("[groups]\ncount = 0\n", "count"),
+    ("[sim]\nseedz = 1\n", "seedz"),                   # not parsed by the port
     ("[telemetry]\nring_points = 1\n", "ring_points"),  # a bad value
 ])
 def test_unknown_sections_and_keys_are_refused_by_both(text, match,
@@ -180,7 +192,8 @@ def test_both_deployment_files_load(name):
     cfg = config.load_config(FILES[name])
     ref = jax_config.load_config(FILES[name])
     for section in ("tutoring", "sampling", "scoring", "sessions",
-                    "resilience", "tracing"):
+                    "resilience", "tracing", "cluster", "tutoring_fleet",
+                    "gate", "groups", "storage"):
         assert (vars(getattr(cfg, section))
                 == vars(getattr(ref, section))), section
 
@@ -300,3 +313,83 @@ def test_node_serves_its_timeline(telemetry):
     assert len(points) >= 3
     assert sum(p["rates"].get("llm_requests", 0.0) for p in points) > 0
     assert any("serving_tick_lag" in p["hists"] for p in points)
+
+
+def _lms_main_args(module, tracing, argv, monkeypatch):
+    """An LMS server's `main(argv)` stopped at its `asyncio.run`: the
+    resolved args (its tracer configuration is not applied)."""
+    seen = {}
+
+    def run(coro):
+        seen["args"] = coro.cr_frame.f_locals["args"]
+        coro.close()
+
+    monkeypatch.setattr(module, "asyncio", type("A", (), {"run": run}))
+    monkeypatch.setattr(tracing, "configure_from", lambda cfg: None)
+    module.main(argv)
+    return vars(seen["args"])
+
+
+LMS_ARGVS = {
+    "cluster": ["--config", FILES["cluster"], "--id", "3"],
+    "dev": ["--config", FILES["dev"], "--id", "1"],
+    "cluster-flags": ["--config", FILES["cluster"], "--id", "2",
+                      "--tutoring", "127.0.0.1:6000", "--gate-threshold",
+                      "0.6", "--gate-model", "tiny", "--snapshot-every", "8",
+                      "--data-dir", "elsewhere", "--no-telemetry",
+                      "--no-linearizable-reads", "--storage-fsync", "never",
+                      "--metrics-port", "0"],
+    "positional": ["1", "50051", "50051", "50052", "50053",
+                   "--tutoring", "127.0.0.1:50054", "--gate-model", "tiny"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(LMS_ARGVS))
+def test_lms_server_resolves_what_the_jax_lms_server_resolves(case,
+                                                              monkeypatch):
+    from distributed_lms_raft_llm_tpu_torch.utils import tracing
+
+    argv = LMS_ARGVS[case]
+    want = _lms_main_args(jax_lms_server, jax_tracing, argv, monkeypatch)
+    got = _lms_main_args(lms_server, tracing, argv, monkeypatch)
+    assert want.pop("jax_platform") == "cpu"
+    assert got.pop("device") == "cuda"  # the port's gate runs on the card
+    assert got == want
+    if case == "cluster-flags":
+        assert (got["tutoring"], got["data_dir"], got["snapshot_every"],
+                got["telemetry"], got["linearizable_reads"]) == (
+            "127.0.0.1:6000", "elsewhere", 8, False, False)
+    if case == "cluster":
+        assert got["tutoring"] == ",".join(
+            config.load_config(FILES["cluster"]).tutoring_fleet.addresses)
+        assert got["gate_model"] == "bert-base-uncased"
+
+
+def test_lms_server_refuses_more_than_one_group(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match="sharded control plane"):
+        lms_server.main(["--config", FILES["dev"], "--id", "1",
+                         "--groups", "2"])
+    path = tmp_path / "groups.toml"
+    path.write_text(Path(FILES["dev"]).read_text() + "\n[groups]\ncount = 2\n")
+    with pytest.raises(NotImplementedError, match="sharded control plane"):
+        lms_server.main(["--config", str(path), "--id", "1"])
+    args = type("Args", (), {"groups": 2})()
+    with pytest.raises(NotImplementedError, match="--groups > 1"):
+        asyncio.run(lms_server.serve_async(args))
+
+
+def test_raft_config_matches_jax():
+    for name in FILES:
+        got = config.raft_config(config.load_config(FILES[name]))
+        want = jax_config.raft_config(jax_config.load_config(FILES[name]))
+        assert vars(got) == vars(want)
+
+
+def test_lms_server_gate_on_cuda_without_a_card_raises(tmp_path,
+                                                       monkeypatch):
+    """The LMS server builds its gate on the card by default; without one
+    it raises instead of building the gate on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        lms_server.main(["1", "0", "0", "--gate-model", "tiny",
+                         "--data-dir", str(tmp_path / "node1")])

@@ -277,6 +277,12 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.engine.scoring\n"
         "import distributed_lms_raft_llm_tpu_torch.utils.guards\n"
         "import distributed_lms_raft_llm_tpu_torch.utils.timeline\n"
+        "import distributed_lms_raft_llm_tpu_torch.raft\n"
+        "import distributed_lms_raft_llm_tpu_torch.raft.grpc_transport\n"
+        "import distributed_lms_raft_llm_tpu_torch.lms.service\n"
+        "import distributed_lms_raft_llm_tpu_torch.lms.tutoring_pool\n"
+        "import distributed_lms_raft_llm_tpu_torch.serving.lms_server\n"
+        "import distributed_lms_raft_llm_tpu_torch.client.client\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -289,7 +295,11 @@ def test_port_imports_no_jax():
                    "engine.paged", "engine.batcher", "utils.tracing",
                    "utils.healthz", "utils.metrics_registry",
                    "serving.tutoring_server", "config", "engine.scoring",
-                   "utils.guards", "utils.timeline"):
+                   "utils.guards", "utils.timeline", "raft", "raft.core",
+                   "raft.storage", "raft.grpc_transport", "lms.node",
+                   "lms.service", "lms.tutoring_pool", "lms.persistence",
+                   "serving.lms_server", "client.client", "utils.faults",
+                   "utils.diskfaults", "utils.pdf"):
         assert f"distributed_lms_raft_llm_tpu_torch.{module}" in mods
     jax_mods = [m for m in mods if m == "jax" or m.startswith("jax.")]
     ref_mods = [m for m in mods if m == "distributed_lms_raft_llm_tpu"
