@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--out FILE] [--checkpoint F --vocab F --merges F]
                           [--gate-checkpoint F --gate-vocab F]
 
-Needs one NVIDIA GPU and this checkout beside the script (phases 8 and
-11 read configs/cluster.toml).
+Needs one NVIDIA GPU and this checkout beside the script (phases 8, 11
+and 11b read configs/cluster.toml).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -85,7 +85,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    reported, and each prompt's flip logits through the 32-token admission
    chunks are held against the cold prefill's and a float32 reference's),
    and bf16 graph replays at K=4 equal to the eager chunk loop, greedy and
-   seeded-sampled;
+   seeded-sampled; strict dispatch (`utils/guards.py`): under
+   `strict_dispatch()` the deployment engine admits 2 requests (fused
+   staging) and runs its megasteps to their answers without raising, an
+   unmarked `.item()` of a CUDA tensor in the scope raises, the same read
+   inside `intended_transfer()` and one on another thread do not, and
+   the sync debug mode is off after it; approximate top-k: two bucketed
+   nodes built from the node's flags with the reference sampling, one with
+   `--approx-topk`, sample the same tokens for the 8 questions from the
+   same seed;
 5. gRPC on 127.0.0.1 (`serve_async`), under a tokenizer that decodes each
    of GPT-2's 50,257 ids to non-empty text (the given --vocab/--merges,
    the trained BPE where data/gpt2-local is present, else a byte-level
@@ -139,19 +147,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain version first at this engine's rows and cache width with its
    padding bias, bf16 and float32; window launches = 12 x verify windows;
    float32 tokens equal the plain decoder's) and the float32 deployment
-   with spec 8 equal to phase 4c's float32 deployment on its 24 requests,
-   24 of 24; (c) the bf16 deployment with spec 8 (the kernel against its
-   plain version first at each of its cache widths, 16 slots, T = 9, int8
-   cache), through `PagedQueue` on 4c's two waves:
+   with spec 8 equal to phase 4c's float32 deployment on the first 12 of
+   its 24 requests, 12 of 12; (c) the bf16 deployment with spec 8 (the
+   kernel against its plain version first at each of its cache widths, 16
+   slots, T = 9, int8 cache), through `PagedQueue` on 4c's two waves:
    tokens/s, TTFT, spec_tokens_per_window, spec_accepted_tokens, model
    calls per token, kernels and device ms per verify model call, the
-   drain's busy share, answers beside 4c's (first divergences with their
+   drain's busy share (12 requests), answers beside 4c's and the greedy
+   tokens of 12 requests beside 4c's (first divergences with their
    top-2 margins), window launches = 12 x verify model calls through the
    replays, no other attention variant, no capture while serving; (d) the
-   n-gram drafter under the reference sampling (every answer non-empty,
-   acceptance); (e) the server built from --spec-tokens 8, and 4 unary
-   answers and 4 streams over gRPC equal to the engine's direct answers
-   under phase 5's tokenizer;
+   n-gram drafter under the reference sampling (12 requests, every answer
+   non-empty, acceptance); (e) the server built from --spec-tokens 8, and
+   4 unary answers and 4 streams over gRPC equal to the engine's direct
+   answers under phase 5's tokenizer;
 8. the bulk-scoring tenant (configs/cluster.toml [scoring]) on the node
    started from the deployment file (`tutoring_server.resolve_args` with
    --config, `engine_from_args`, warmup, `serve_args`; phase 4c's engine
@@ -259,7 +268,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (cold, before the LMS run; and again after it, as warm), the leader's
    `gate.check` span p50/p90 over the 8 concurrent questions and alone
    (the off-topic one), election, failover and catch-up seconds. Every
-   LMS process is stopped in a `finally`.
+   LMS process is stopped in a `finally`;
+11b. a two-group LMS: five more port LMS processes, started beside phase
+   11's (they boot during it), from a second copy of configs/cluster.toml
+   with the same changes on other ports plus a `[groups]` section (count
+   2, a port stride for which every node's group-1 Raft port was probed
+   free, a secret), in front of phase 11's tutoring node with its gate
+   threshold. Once phase 11's processes are stopped: every node's GET
+   /admin/raft names the same leader of each group (5 members, term and
+   applied index >= 1, group 1 on base + stride), POST /admin/reshard
+   answers 400 "resharding is not enabled on this deployment"; 8
+   students, 4 homed in each group by `RoutingMap.initial(2)`, and an
+   instructor register and log in once, each student posts the
+   assignment PDF, and the instructor's fan-out read returns all 8; the
+   8 QUESTIONS concurrently, one a student, through the routers (each
+   equal to the node's direct answer; the node's direct calls again
+   beside them), the off-topic query refused with its similarity, one
+   StreamLLMAnswer of a group-1 student equal to its unary answer; each
+   leader's `gate.check` spans; the posts read back through a node
+   leading neither group; then the process leading group 1 SIGKILLed:
+   both groups led again within 10 s and a group-1 student answered
+   through the routers (seconds from the kill); the same journey once
+   through `python -m distributed_lms_raft_llm_tpu_torch.client.cli`
+   with piped stdin (register, log in, post, ask: the direct answer);
+   launches over the phase exact as in phase 11.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -1577,6 +1609,102 @@ def torch_append_nodes(kernels: dict) -> int:
                if any(k in name for k in TORCH_APPEND_KERNELS))
 
 
+def strict_dispatch_check(torch, eng, prompts) -> dict:
+    """`utils/guards.py` on the card: under `strict_dispatch()` the
+    deployment engine admits `prompts` (fused staging) and runs its
+    megasteps to the end without raising; an unmarked `.item()` of a CUDA
+    tensor in the scope raises `HostSyncError`, the same read inside
+    `intended_transfer()` does not, nor one on a thread outside the
+    scope; the sync debug mode is off again after it."""
+    import threading
+
+    from distributed_lms_raft_llm_tpu_torch.utils import guards
+
+    c0 = (eng.admission_chunks, eng.graph_replays, eng.host_decisions,
+          eng.total_generated_tokens)
+    t0 = time.monotonic()
+    with guards.strict_dispatch():
+        rids = [eng.submit(p) for p in prompts]
+        done = eng.drain()
+    served_s = time.monotonic() - t0
+    adm, replays, decisions, tokens = (
+        eng.admission_chunks - c0[0], eng.graph_replays - c0[1],
+        eng.host_decisions - c0[2], eng.total_generated_tokens - c0[3])
+    check(set(rids) <= set(done) and tokens >= len(rids) and adm > 0
+          and replays > 0,
+          f"strict dispatch: the engine did not admit and answer under the "
+          f"scope ({len(done)} answers, {tokens} tokens, {adm} admission "
+          f"chunks, {replays} replays)")
+    x = torch.arange(4, device="cuda", dtype=torch.float32)
+    raised = False
+    with guards.strict_dispatch():
+        try:
+            x.sum().item()
+        except guards.HostSyncError:
+            raised = True
+        with guards.intended_transfer():
+            marked = x.sum().item()
+        other = {}
+
+        def elsewhere():
+            try:
+                other["value"] = x.sum().item()
+            except guards.HostSyncError as e:
+                other["error"] = str(e)
+
+        t = threading.Thread(target=elsewhere)
+        t.start()
+        t.join()
+    mode = torch.cuda.get_sync_debug_mode()
+    check(raised and marked == 6.0 and other == {"value": 6.0} and mode == 0,
+          f"strict dispatch: unmarked .item() raised {raised}, marked "
+          f"{marked}, another thread {other}, mode after {mode}")
+    return dict(requests=len(rids), tokens=tokens, admission_chunks=adm,
+                graph_replays=replays, host_decisions=decisions,
+                served_s=served_s, unmarked_item_raised=raised,
+                marked_item=marked, other_thread=other,
+                sync_debug_mode_after=mode)
+
+
+def approx_topk_check(torch) -> dict:
+    """Two nodes' engines from the node's flags (`resolve_args`,
+    `engine_from_args`: GPT-2 small, bf16, seeded random weights, the
+    reference sampling, 24 new tokens), one with `--approx-topk`: for the
+    same seed they sample the same tokens (the port's approximate top-k
+    is the exact top-k)."""
+    import numpy as np
+
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+
+    t0 = time.monotonic()
+    runs = {}
+    for name, extra in (("exact", []), ("approx", ["--approx-topk"])):
+        args = tutoring_server.resolve_args(
+            ["--max-new-tokens", "24", "--seed", "0"] + extra)
+        eng = tutoring_server.engine_from_args(args)
+        ids, mask, _ = eng.encode_prompts(
+            [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS])
+        res = eng.generate_ids(ids, mask)
+        runs[name] = (eng.config.sampling, res.tokens, res.lengths)
+        del eng
+    (s0, t_exact, l_exact), (s1, t_approx, l_approx) = (runs["exact"],
+                                                         runs["approx"])
+    distinct = len(np.unique(t_exact))
+    check(not s0.approx_top_k and s1.approx_top_k
+          and s0.temperature > 0 and s0.top_k == 50
+          and np.array_equal(t_exact, t_approx)
+          and np.array_equal(l_exact, l_approx) and distinct > 8,
+          f"approx top-k: the --approx-topk node sampled other tokens "
+          f"(flags {s0.approx_top_k}/{s1.approx_top_k}, {distinct} "
+          f"distinct ids)")
+    return dict(requests=len(QUESTIONS), tokens=int(l_exact.sum()),
+                distinct_ids=distinct, equal=True,
+                seconds=time.monotonic() - t0)
+
+
 def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
                      metrics_cls, config_cls, sampling_cls, prod,
                      profile_4b, drain_4b) -> tuple:
@@ -1733,8 +1861,12 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
                 ttft_mean_s=run["ttft_mean_s"], ttft_p50_s=run["ttft_p50_s"],
                 model_calls_per_token=model_calls / tokens)
     run["decode_call_ms_idle"] = refs["decode_call_ms"]
+    run["strict_dispatch"] = strict_dispatch_check(torch, eng, wave2[4:6])
+    emit("strict_dispatch", **run["strict_dispatch"])
     del eng
     torch.cuda.empty_cache()
+    run["approx_top_k"] = approx_topk_check(torch)
+    emit("approx_top_k", **run["approx_top_k"])
 
     # float32: the deployment config's greedy tokens equal the sequential
     # config's (megastep 1, no prefix cache, no fused admission),
@@ -2119,6 +2251,10 @@ def gate_phase(torch, attention, quant_matmul, args, streaming) -> dict:
 # ------------------------------------ phase 7: speculative decoding
 
 SPEC_TOKENS = 8  # configs/cluster.toml [tutoring] spec_tokens (commented out)
+# Of 4c's 24 requests, how many phase 7's exactness, drain, token and
+# n-gram runs take (the first course prompt, then the next 11 in order):
+# one wave of the 16 slots, not two (phase 11b pays for itself).
+SPEC_REQUESTS = 12
 
 
 def graph_call_ms(torch, eng, width, reps=4) -> float:
@@ -2266,9 +2402,11 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
     main_window_launches = bucketed["bfloat16"]["window_launches"]
 
     # The float32 deployment with spec 8 against phase 4c's float32
-    # deployment (int8 cache) on its 24 requests.
+    # deployment (int8 cache) on the first SPEC_REQUESTS of its 24
+    # requests (a request's float32 tokens do not depend on its
+    # companions).
     wave1, wave2 = deployment_waves()
-    batches = (wave1[:1], wave1[1:] + wave2)
+    batches = (wave1[:1], (wave1[1:] + wave2)[:SPEC_REQUESTS - 1])
     e = PagedEngine(EngineConfig(
         sampling=SamplingParams.greedy(max_new_tokens=32), spec_tokens=k,
         **dict(prod, dtype=torch.float32, param_dtype=torch.float32)),
@@ -2281,7 +2419,7 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
                diverged=[i for i, f in enumerate(firsts) if f is not None],
                tokens=sum(len(t) for t in toks32), spec=e.pop_spec_stats())
     emit("spec_f32_vs_deployment", **f32)
-    check(f32["equal"] == len(firsts) == 24,
+    check(f32["equal"] == len(firsts) == SPEC_REQUESTS,
           f"float32 spec deployment differs from the float32 deployment "
           f"without spec at requests {f32['diverged']}")
     run["f32_exactness"] = f32
@@ -2387,12 +2525,12 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         captures_while_serving=graphs.captures - captures0, warmup_s=warm_s,
         kernels_per_verify_call=kernels_per_call)
     emit("spec_deployment_path", **spec_run)
-    drain = profile_drain(torch, eng, wave1 + wave2)
+    drain = profile_drain(torch, eng, batches[0] + batches[1])
     spec_run["drain"] = drain
     spec_run["device_ms_per_model_call"] = (drain["device_busy_us"] / 1e3
                                             / drain["model_calls_profiled"])
     emit("profile_spec_drain", **drain)
-    # Greedy tokens beside phase 4c's (the same 24 requests, 128 tokens):
+    # Greedy tokens beside phase 4c's (its first SPEC_REQUESTS, 128 tokens):
     # the first divergence of each differing answer, with the top-2 margin
     # of the logits there (a near-tie flips between two orders of sums).
     toks = engine_tokens(eng, *batches)
@@ -2436,7 +2574,7 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
                      attention.WINDOW_INT8KV],
                  verify_calls=e.decode_steps - steps0)
     emit("spec_ngram_sampled", **ngram)
-    check(ngram["nonempty"] == 24 and ngram["window_launches"]
+    check(ngram["nonempty"] == SPEC_REQUESTS and ngram["window_launches"]
           == 12 * ngram["verify_calls"],
           f"ngram drafter, reference sampling: {ngram}")
     run["ngram_sampled"] = ngram
@@ -3955,17 +4093,22 @@ def lms_phase(torch, attention, quant_matmul, args, card) -> dict:
     log_dir = (str(Path(args.out).parent / "phase11_logs") if args.out
                else os.path.join(tmp, "logs"))
     record = {}
-    procs, node, clients = [], None, []
+    procs, group_procs, node, clients = [], [], None, []
     ok = False
     try:
         context = pdf.extract_text(pdf.make_pdf(LMS_COURSE_TEXT))
         record["gate"] = lms_threshold(torch, args, context)
         emit("lms_gate_threshold", **record["gate"])
 
-        # (1) The deployment file, with what one machine forces changed.
-        ports = lms_cluster.free_ports(2 * LMS_NODES + 2)
-        lms_ports, metrics_ports = ports[:LMS_NODES], ports[LMS_NODES:-2]
-        tut_port, tut_metrics = ports[-2:]
+        # (1) The deployment file, with what one machine forces changed;
+        # phase 11b's grouped copy beside it (its group ports probed free
+        # with the rest).
+        group_bases, stride, ports = lms_cluster.free_group_ports(
+            LMS_NODES, LMS_GROUPS, 3 * LMS_NODES + 2)
+        lms_ports = ports[:LMS_NODES]
+        metrics_ports = ports[LMS_NODES:2 * LMS_NODES]
+        tut_port, tut_metrics = ports[2 * LMS_NODES:2 * LMS_NODES + 2]
+        group_metrics = ports[2 * LMS_NODES + 2:]
         tut_address = f"127.0.0.1:{tut_port}"
         changes = {("cluster", "data_dir"): os.path.join(tmp, "lms_data")}
         for i in range(1, LMS_NODES + 1):
@@ -3986,6 +4129,22 @@ def lms_phase(torch, attention, quant_matmul, args, card) -> dict:
             print(f"phase 11 config change: {line}", flush=True)
         record.update(config_changes=applied,
                       lms_metrics_ports=metrics_ports)
+        group_changes = dict(changes)
+        group_changes[("cluster", "data_dir")] = os.path.join(
+            tmp, "lms_data_groups")
+        for i in range(1, LMS_NODES + 1):
+            group_changes[("cluster.nodes", str(i))] = (
+                f"127.0.0.1:{group_bases[i - 1]}")
+        group_changes.update({
+            ("groups", "count"): LMS_GROUPS,
+            ("groups", "port_stride"): stride,
+            ("groups", "secret"): hashlib.sha256(
+                f"chip-smoke-{args.seed}".encode()).hexdigest()[:32]})
+        group_path, group_applied = lms_cluster.deployment_copy(
+            str(REPO / "configs" / "cluster.toml"), tmp, group_changes,
+            name="cluster_groups.toml")
+        for line in group_applied:
+            print(f"phase 11b config change: {line}", flush=True)
 
         # (2) The five LMS nodes, each its own process; they build their
         # gates on the card while this process warms the tutoring node.
@@ -3994,6 +4153,12 @@ def lms_phase(torch, attention, quant_matmul, args, card) -> dict:
         procs = [lms_cluster.LMSProcess(
             path, i, metrics_port=metrics_ports[i - 1], log_dir=log_dir,
             device="cuda").start() for i in range(1, LMS_NODES + 1)]
+        # Phase 11b's five boot now too, beside these (idle until then).
+        group_procs = [lms_cluster.LMSProcess(
+            group_path, i, metrics_port=group_metrics[i - 1],
+            log_dir=os.path.join(os.path.dirname(log_dir), "phase11b_logs"),
+            device="cuda").start()
+            for i in range(1, LMS_NODES + 1)]
 
         # (3) The tutoring node in-process, on the copy: the deployment
         # config, greedy, seeded random weights under phase 5's tokenizer.
@@ -4195,20 +4360,292 @@ def lms_phase(torch, attention, quant_matmul, args, card) -> dict:
             answer_tokens=sum(len(eng.tokenizer.encode(a))
                               for a in answers.values()),
             card=card, seconds=time.monotonic() - t_phase)
+        for p in procs:
+            p.stop()
+        record["groups"] = grouped_lms_phase(
+            torch, attention, quant_matmul, argparse.Namespace(
+                procs=group_procs, addresses=[
+                    f"127.0.0.1:{b}" for b in group_bases],
+                metrics_ports=group_metrics, bases=group_bases,
+                stride=stride, applied=group_applied, eng=eng,
+                answers=answers, direct=direct, tmp=tmp, card=card,
+                off_topic=record["gate"]["off_topic"],
+                off_topic_sim=record["gate"]["off_topic_sim"]))
         ok = True
         return record
     finally:
         for c in clients:
             c.close()
-        for p in procs:
+        for p in procs + group_procs:
             p.stop()
         if node is not None:
             node.stop()
         if not ok:
-            for p in procs:
+            for p in procs + group_procs:
                 print(f"--- LMS node {p.node_id} log ({p.log_path}):\n"
                       f"{p.tail(40)}", file=sys.stderr, flush=True)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------ phase 11b: a two-group LMS
+
+LMS_GROUPS = 2               # [groups] count of phase 11b's copy
+GROUP_STUDENTS = 4           # students homed in each group (8 questions)
+RESHARD_REFUSAL = "resharding is not enabled on this deployment"
+
+
+def homed_students(n_groups, per_group):
+    """{gid: usernames} homed in each group by `RoutingMap.initial`."""
+    from distributed_lms_raft_llm_tpu_torch.lms.group_router import (
+        RoutingMap,
+    )
+
+    routing = RoutingMap.initial(n_groups)
+    out = {g: [] for g in range(n_groups)}
+    i = 0
+    while any(len(v) < per_group for v in out.values()):
+        name = f"student{i}"
+        g = routing.group_for(name)
+        if len(out[g]) < per_group:
+            out[g].append(name)
+        i += 1
+    return out
+
+
+def grouped_lms_phase(torch, attention, quant_matmul, ctx) -> dict:
+    """Phase 11b: five port LMS processes from a copy of
+    configs/cluster.toml with `[groups] count = 2`, in front of phase 11's
+    tutoring node and with its gate threshold (see the module
+    docstring). `ctx` carries phase 11's node, its direct answers and the
+    processes, started beside phase 11's."""
+    import concurrent.futures
+
+    import grpc
+
+    from distributed_lms_raft_llm_tpu_torch.client import LMSClient
+    from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2, rpc
+    from distributed_lms_raft_llm_tpu_torch.serving import lms_cluster
+    from distributed_lms_raft_llm_tpu_torch.utils import pdf
+
+    t_phase = time.monotonic()
+    procs, addresses, ports = ctx.procs, ctx.addresses, ctx.metrics_ports
+    eng, answers = ctx.eng, ctx.answers
+    clients = []
+    record = dict(config_changes=ctx.applied, port_stride=ctx.stride)
+    try:
+        # (1) Both groups lead; every node's topology agrees on them.
+        lms_cluster.wait_for(
+            lambda: all(lms_cluster.health(p.metrics_port) for p in procs),
+            LMS_BOOT_LIMIT_S, alive=procs)
+
+        def topology(live):
+            docs = []
+            for p in live:
+                code, doc = lms_cluster.http_json(p.metrics_port,
+                                                  "/admin/raft")
+                if code != 200:
+                    return None
+                docs.append(doc)
+            leads = {tuple(sorted((g, v["leader"]) for g, v in
+                                  d["groups"].items())) for d in docs}
+            if len(leads) != 1:
+                return None
+            lead = dict(leads.pop())
+            live_ids = {p.node_id for p in live}
+            if set(lead) != {str(g) for g in range(LMS_GROUPS)} or not all(
+                    v in live_ids for v in lead.values()):
+                return None
+            return docs[0], {int(g): v for g, v in lead.items()}
+
+        (doc, leaders), lead_s = lms_cluster.wait_for(
+            lambda: topology(procs), LMS_LIMIT_S, alive=procs)
+        check(doc["routing_map"]["n_groups"] == LMS_GROUPS
+              and all(len(g["members"]) == LMS_NODES and g["term"] >= 1
+                      and g["applied"] >= 1
+                      for g in doc["groups"].values()),
+              f"phase 11b: GET /admin/raft: {doc}")
+        record.update(leaders=leaders, leaders_agreed_s=lead_s,
+                      topology={g: {k: v[k] for k in ("leader", "term",
+                                                      "applied")}
+                                for g, v in doc["groups"].items()},
+                      group1_raft_ports=sorted(
+                          int(a.rsplit(":", 1)[1]) for a in
+                          doc["groups"]["1"]["members"].values()))
+        check(record["group1_raft_ports"] == sorted(
+                  b + ctx.stride for b in ctx.bases),
+              f"phase 11b: group 1's Raft ports {record['group1_raft_ports']}"
+              f" are not the bases + stride {ctx.stride}")
+        reshard = lms_cluster.http_json(
+            ports[0], "/admin/reshard", body={"course": "cs201",
+                                               "to_group": 1})
+        check(reshard == (400, {"error": RESHARD_REFUSAL}),
+              f"phase 11b: POST /admin/reshard answered {reshard}")
+
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
+        captures0 = _graph_captures()
+
+        # (2) Eight students, four homed in each group, and an instructor:
+        # each registers and logs in once (the router replicates both to
+        # every group), each student posts the assignment PDF.
+        homes = homed_students(LMS_GROUPS, GROUP_STUDENTS)
+        students = [(g, n) for g in sorted(homes) for n in homes[g]]
+        assignment = pdf.make_pdf(LMS_COURSE_TEXT)
+
+        def enroll(name, role):
+            c = LMSClient(addresses, discovery_backoff_s=0.2)
+            clients.append(c)
+            ok = (c.register(name, "pw", role).success
+                  and c.login(name, "pw")
+                  and (role != "student" or c.upload_assignment(
+                      f"{name}.pdf", assignment)))
+            check(ok, f"phase 11b: Register / Login / Post of {name} failed")
+            return c
+
+        with concurrent.futures.ThreadPoolExecutor(len(students) + 1) as ex:
+            futs = [ex.submit(enroll, n, "student") for _, n in students]
+            inst_fut = ex.submit(enroll, "prof", "instructor")
+            student_clients = [f.result() for f in futs]
+            inst = inst_fut.result()
+        # The instructor's session verifies on both groups: the fan-out
+        # read of every student's assignment spans them.
+        posted = sorted((e.id, bytes(e.file)) for e in
+                        inst.student_assignments())
+        check(posted == sorted((n, assignment) for _, n in students),
+              f"phase 11b: the instructor's fan-out read returned "
+              f"{[e for e, _ in posted]}")
+
+        # (3) 8 concurrent questions, one a student, through the routers.
+        def ask(i):
+            rid = f"phase11b-{i}"
+            t0 = time.monotonic()
+            resp = student_clients[i].ask_llm(QUESTIONS[i], request_id=rid)
+            return resp, time.monotonic() - t0, rid
+
+        with concurrent.futures.ThreadPoolExecutor(len(QUESTIONS)) as ex:
+            routed = list(ex.map(ask, range(len(QUESTIONS))))
+        for (resp, _, _), q in zip(routed, QUESTIONS):
+            check(resp.success and resp.response == answers[q],
+                  f"phase 11b: the routed answer to {q!r} is not the "
+                  f"node's direct answer: {resp.response[:200]!r}")
+        with concurrent.futures.ThreadPoolExecutor(len(QUESTIONS)) as ex:
+            direct_runs = list(ex.map(ctx.direct, QUESTIONS))
+        for (resp, _), q in zip(direct_runs, QUESTIONS):
+            check(resp.success and resp.response == answers[q],
+                  f"phase 11b: the node's direct answer to {q!r} changed")
+        refusal = student_clients[0].ask_llm(
+            ctx.off_topic, request_id="phase11b-off").response
+        m = REFUSAL.match(refusal)
+        check(m is not None, f"phase 11b: the off-topic query was not "
+              f"refused with the reference's text: {refusal!r}")
+        refused_sim = float(m.group(1))
+        check(abs(refused_sim - ctx.off_topic_sim) <= GATE_SIM_TOL + 5e-3,
+              f"phase 11b: the leader's gate reported {refused_sim}, the "
+              f"in-process gate {ctx.off_topic_sim}")
+        g1_client = student_clients[GROUP_STUDENTS]  # homed in group 1
+        q_stream = QUESTIONS[GROUP_STUDENTS]
+        st = g1_client.ask_llm_stream(q_stream)
+        check(st.success and st.response == answers[q_stream].strip()
+              and st.resumes == 0 and st.digest_ok,
+              f"phase 11b: the stream of {q_stream!r} is not its unary "
+              f"answer (resumes {st.resumes}, digest ok {st.digest_ok})")
+        # The leaders' gate.check spans, by the node that ran them.
+        gate_by_node = {}
+        for _, _, rid in routed:
+            for p in procs:
+                code, trace = lms_cluster.http_json(p.metrics_port,
+                                                    f"/admin/trace/{rid}")
+                if code != 200:
+                    continue
+                for sp in find_spans(trace["trace"]["spans"], "gate.check"):
+                    gate_by_node.setdefault(p.node_id, []).append(
+                        sp["duration_s"])
+        check(sum(len(v) for v in gate_by_node.values()) == len(QUESTIONS)
+              and set(gate_by_node) <= set(leaders.values()),
+              f"phase 11b: gate.check spans by node {gate_by_node}, "
+              f"leaders {leaders}")
+
+        # (4) A post of each group read back through a node leading
+        # neither (its router fans the read out to both leaders).
+        reader = next(p for p in procs if p.node_id not in leaders.values())
+        with grpc.insecure_channel(addresses[reader.node_id - 1]) as ch:
+            resp = rpc.LMSStub(ch).Get(lms_pb2.GetRequest(
+                token=inst.token, type="student_list"), timeout=30)
+        read_back = sorted(e.id for e in resp.entries)
+        check(read_back == sorted(n for _, n in students),
+              f"phase 11b: node {reader.node_id} read back {read_back}")
+
+        # (5) SIGKILL the process leading group 1: group 1 re-elects and
+        # a student homed in it is answered through the routers.
+        killed = leaders[1]
+        t_kill = time.monotonic()
+        procs[killed - 1].kill()
+        live = [p for p in procs if p.node_id != killed]
+        (_, new_leaders), failover_s = lms_cluster.wait_for(
+            lambda: topology(live), LMS_LIMIT_S, alive=live)
+        q_after = QUESTIONS[GROUP_STUDENTS + 1]
+        resp = student_clients[GROUP_STUDENTS + 1].ask_llm(q_after)
+        after_kill_s = time.monotonic() - t_kill
+        check(resp.success and resp.response == answers[q_after]
+              and new_leaders[1] != killed,
+              f"phase 11b: after the kill of node {killed} the group-1 "
+              f"student's answer was {resp.response[:200]!r} (leaders "
+              f"{new_leaders})")
+
+        # (6) The same journey through the terminal client, piped.
+        paper = Path(ctx.tmp) / "assignment3.pdf"
+        paper.write_bytes(assignment)
+        q_cli = QUESTIONS[1]
+        live_addrs = [addresses[p.node_id - 1] for p in live]
+        cli = subprocess.run(
+            [sys.executable, "-m", f"{PACKAGE}.client.cli", "--servers",
+             ",".join(live_addrs)],
+            input=(f"1\nclistudent\npw\nstudent\n2\nclistudent\npw\n3\n"
+                   f"{paper}\n5\n{q_cli}\nq\nq\n"),
+            capture_output=True, text=True, timeout=120, cwd=str(REPO),
+            env=dict(os.environ, PYTHONPATH=str(REPO)))
+        got = cli.stdout.split("  [ok] ", 1)[-1].split("\n\n[student]", 1)[0]
+        check(cli.returncode == 0 and "  [ok] " in cli.stdout
+              and got == answers[q_cli],
+              f"phase 11b: the CLI's answer to {q_cli!r} is not the "
+              f"direct one (rc {cli.returncode}): {cli.stdout[-600:]!r} "
+              f"{cli.stderr[-600:]!r}")
+
+        # (7) Launches through the node's counters over the phase.
+        launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+        decode_calls = eng.decode_steps - c0[0]
+        model_calls = decode_calls + eng.admission_chunks - c0[1] + (
+            eng.prefill_calls - c0[2])
+        others = {k: v for k, v in attention.launch_counts.items()
+                  if k != attention.APPEND_INT8KV and v}
+        check(decode_calls > 0
+              and launches[attention.APPEND_INT8KV] == 12 * decode_calls
+              and launches[quant_matmul.KERNEL] == 49 * model_calls
+              and launches[quant_matmul.MMA] == 48 * model_calls
+              and launches[quant_matmul.MMA_UNEMBED] == model_calls
+              and launches[quant_matmul.FMA] == 0 and not others,
+              f"phase 11b: launches {launches} for {decode_calls} decode "
+              f"and {model_calls} model calls")
+        check(_graph_captures() == captures0,
+              "phase 11b: a CUDA graph was captured while serving")
+        record.update(
+            students={str(g): v for g, v in homes.items()},
+            lms_answer=percentiles([t for _, t, _ in routed]),
+            direct_answer=percentiles([t for _, t in direct_runs]),
+            gate_check_by_leader={str(n): percentiles(v)
+                                  for n, v in gate_by_node.items()},
+            refused_similarity=refused_sim, stream_chunks=st.chunks,
+            read_back_node=reader.node_id, killed=killed,
+            new_leaders=new_leaders, failover_s=failover_s,
+            first_answer_after_kill_s=after_kill_s, cli_answer_equal=True,
+            reshard=list(reshard), decode_model_calls=decode_calls,
+            model_calls=model_calls, launches=launches,
+            card=ctx.card, seconds=time.monotonic() - t_phase)
+        return record
+    finally:
+        for c in clients:
+            c.close()
 
 
 def _graph_captures() -> int:
@@ -4683,10 +5120,17 @@ def main(argv=None) -> int:
     # configs/cluster.toml, the gate on the card in each, a student's
     # questions answered through the tutoring node in this process.
     torch.cuda.empty_cache()
+    # 11b. The same path through a two-group LMS (its processes boot
+    # during phase 11; the phase runs on phase 11's node before it stops).
     records["lms"] = lms_phase(torch, attention, quant_matmul, args, smi)
+    records["lms_groups"] = records["lms"].pop("groups")
     emit("lms", **records["lms"])
+    emit("lms_groups", **records["lms_groups"])
     lms_launches = records["lms"]["launches"]
+    group_launches = records["lms_groups"]["launches"]
     lap("11_lms")
+    phase_s["11b_groups"] = records["lms_groups"]["seconds"]
+    phase_s["11_lms"] -= phase_s["11b_groups"]
 
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]
@@ -4754,7 +5198,8 @@ def main(argv=None) -> int:
                   "4c": deploy_launches[attention.APPEND_INT8KV],
                   "9": llama_launches[attention.APPEND_INT8KV],
                   "10": moe_launches[attention.APPEND_INT8KV],
-                  "11": lms_launches[attention.APPEND_INT8KV]}),
+                  "11": lms_launches[attention.APPEND_INT8KV],
+                  "11b": group_launches[attention.APPEND_INT8KV]}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],
@@ -4771,7 +5216,8 @@ def main(argv=None) -> int:
                       quant_matmul.KERNEL],
                   "9": llama_launches[quant_matmul.KERNEL],
                   "10": moe_launches[quant_matmul.KERNEL],
-                  "11": lms_launches[quant_matmul.KERNEL]}),
+                  "11": lms_launches[quant_matmul.KERNEL],
+                  "11b": group_launches[quant_matmul.KERNEL]}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",
@@ -4781,7 +5227,8 @@ def main(argv=None) -> int:
                   "4c": deploy_launches[quant_matmul.MMA_UNEMBED],
                   "9": llama_launches[quant_matmul.MMA_UNEMBED],
                   "10": moe_launches[quant_matmul.MMA_UNEMBED],
-                  "11": lms_launches[quant_matmul.MMA_UNEMBED]},
+                  "11": lms_launches[quant_matmul.MMA_UNEMBED],
+                  "11b": group_launches[quant_matmul.MMA_UNEMBED]},
               shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],

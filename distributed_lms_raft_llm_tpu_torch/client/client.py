@@ -32,7 +32,7 @@ from typing import Callable, Dict, List, Optional, Sequence, TypeVar
 
 import grpc
 
-from ..lms.minting import USER_METADATA_KEY
+from ..lms.group_router import USER_METADATA_KEY
 from ..proto import lms_pb2, rpc
 from ..utils.resilience import (
     REQUEST_ID_METADATA_KEY,

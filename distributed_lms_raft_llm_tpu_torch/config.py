@@ -57,7 +57,8 @@ class SamplingConfig:
     top_p: float = 0.9
     repetition_penalty: float = 1.2
     max_new_tokens: int = 128
-    approx_top_k: bool = False  # not ported: a node refuses it
+    # The port computes the exact top-k for it (engine/sampling.py).
+    approx_top_k: bool = False
 
 
 @dataclasses.dataclass
@@ -225,12 +226,25 @@ class StorageConfig:
 
 @dataclasses.dataclass
 class GroupsConfig:
-    """[groups]: the sharded control plane. The port serves one group: a
-    `count` above 1 loads, and the LMS server refuses it at start."""
+    """[groups]: the sharded control plane: N independent Raft groups
+    hosting partitioned LMS state behind the course-keyed router
+    (lms/group_router.py). `count = 1` (or the section absent) keeps the
+    single-group world byte-compatible: no router, no extra Raft ports,
+    existing WAL/snapshot files load unchanged. With `count > 1` every
+    server hosts one member of EVERY group (group 0 doubles as the meta
+    group holding the replicated routing map) and each extra group's
+    Raft plane listens at the node's base port + `port_stride * gid`.
+    """
 
-    count: int = 1
-    port_stride: int = 1000
-    secret: str = ""
+    count: int = 1          # Raft groups (1 = the single-group world)
+    port_stride: int = 1000  # group gid's Raft port = base + stride * gid
+    secret: str = ""        # shared router HMAC key: signs the x-lms-*
+    #                         control metadata of forwarded legs so a
+    #                         client cannot forge group targeting or
+    #                         forced auth salts/tokens. Every node of a
+    #                         deployment must use the same value; empty
+    #                         (default) disables forgery protection but
+    #                         keeps routers interoperable.
 
     def __post_init__(self) -> None:
         if self.count < 1:
@@ -392,6 +406,17 @@ def apply_file_defaults(args: argparse.Namespace,
     for name, value in overrides.items():
         if getattr(probe, name, _UNSET) is _UNSET:
             setattr(args, name, value)
+
+
+def client_kwargs(cfg: AppConfig) -> Dict[str, Any]:
+    """LMSClient constructor kwargs from [resilience]."""
+    r = cfg.resilience
+    return dict(
+        request_timeout_s=r.request_timeout_s,
+        llm_timeout_s=r.llm_timeout_s,
+        backoff_base_s=r.backoff_base_s,
+        backoff_max_s=r.backoff_max_s,
+    )
 
 
 def raft_config(cfg: AppConfig):

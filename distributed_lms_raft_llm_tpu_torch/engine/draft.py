@@ -26,8 +26,9 @@ Random draws come from an explicit `torch.Generator`, by `torch.rand` on
 the device as `sample_step` draws them: no host round trip, so a verify
 chunk is captured in a CUDA graph (with the generator registered) and
 replays without a host sync. The draws differ from `jax.random`'s, so
-sampled tokens are compared as distributions, never one for one. The JAX
-package's `approx_top_k` is not carried over (`engine/sampling.py`).
+sampled tokens are compared as distributions, never one for one.
+`approx_top_k` samples the exact top-k here, as everywhere in the port
+(`engine/sampling.py`).
 """
 
 from __future__ import annotations

@@ -46,6 +46,7 @@ from ..device import resolve_device
 from ..models import convert, quant, registry
 from ..ops import attention as attention_ops
 from ..utils import tokenizer as tok_lib
+from ..utils.guards import intended_transfer
 from .generate import GenerateResult, decode, pick_bucket, prefill
 from .sampling import SamplingParams
 from .scoring import (
@@ -324,14 +325,17 @@ class TutoringEngine:
         count.
         """
         t0 = time.monotonic()
-        input_ids = torch.as_tensor(ids, dtype=torch.long).to(self.device)
-        prompt_mask = torch.as_tensor(mask, dtype=torch.bool).to(self.device)
+        with intended_transfer():  # the batch's upload (a copy that syncs)
+            input_ids = torch.as_tensor(ids, dtype=torch.long).to(self.device)
+            prompt_mask = torch.as_tensor(mask, dtype=torch.bool).to(
+                self.device)
         statics = dict(sampling=self.config.sampling,
                        eos_id=self.tokenizer.eos_id,
                        pad_id=self.tokenizer.pad_id, model=self.family)
         state = prefill(self.params, self.cfg, input_ids, prompt_mask,
                         self.generator, **statics)
-        state.out[:, 0].cpu()  # waits until the first token exists
+        with intended_transfer():  # blocks until the token exists
+            state.out[:, 0].cpu()
         self.last_ttft_s = time.monotonic() - t0
         k = self.config.spec_tokens
         if k > 0:
@@ -343,10 +347,11 @@ class TutoringEngine:
                                    segments=self.config.decode_segments,
                                    **statics)
             self.decode_steps += final.step - 1
-        out = GenerateResult(
-            tokens=result.tokens.to(torch.int32).cpu().numpy(),
-            lengths=result.lengths.to(torch.int32).cpu().numpy(),
-        )
+        with intended_transfer():  # the call's one sanctioned readback
+            out = GenerateResult(
+                tokens=result.tokens.to(torch.int32).cpu().numpy(),
+                lengths=result.lengths.to(torch.int32).cpu().numpy(),
+            )
         if k > 0:
             # The prefill's token (one a row, no window) is left out.
             n = len(ids) if real_rows is None else real_rows
@@ -380,7 +385,8 @@ class TutoringEngine:
             for i in range(len(chunk)):
                 n = int(result.lengths[i])
                 self.total_generated_tokens += n
-                toks = [t for t in result.tokens[i, :n].tolist()
+                # Host numpy (read back in generate_ids): no device work.
+                toks = [int(t) for t in result.tokens[i, :n]
                         if t != self.tokenizer.eos_id]
                 answers.append(self.tokenizer.decode(toks))
         self.last_batch_ttfts = ttfts

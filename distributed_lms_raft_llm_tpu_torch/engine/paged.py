@@ -109,6 +109,7 @@ import torch
 from ..device import resolve_device
 from ..models import convert, quant, registry
 from ..models.common import KVCache
+from ..utils.guards import intended_transfer
 from .draft import build_drafts, build_drafts_ngram, verify_window
 from .engine import (
     DRAFT_SOURCES,
@@ -323,7 +324,10 @@ def _install_program(state: SlotState, slot: int, ids: torch.Tensor,
     the drafter reads slots up to the slot's length alone)."""
     state.transcript[slot, :ids.shape[1]] = ids[0]
     state.transcript[slot, true_len] = first
-    state.cache.lengths[slot] = true_len
+    # Scalars are written with fill_ (a kernel argument): an item
+    # assignment of a Python number copies it from pageable host memory,
+    # which on the card waits for the stream.
+    state.cache.lengths[slot].fill_(true_len)
     state.tok[slot] = first
     state.active[slot] = first != eos_id
     state.seen[slot] = seen_row
@@ -343,12 +347,13 @@ def _stage_program(state: SlotState, slot: int, ids: torch.Tensor,
     pages. `noise` [1, n] is the first token's uniforms, drawn now."""
     width = state.transcript.shape[1]
     state.transcript[slot, :ids.shape[1]] = ids[0]
-    state.cache.lengths[slot] = width - 1
-    state.active[slot] = False
-    state.staged[slot] = True
-    state.stage_cursor[slot] = cursor0
-    state.stage_len[slot] = true_len
-    state.stage_seq[slot] = seq
+    # fill_, not item assignment: no host sync (see _install_program).
+    state.cache.lengths[slot].fill_(width - 1)
+    state.active[slot].fill_(False)
+    state.staged[slot].fill_(True)
+    state.stage_cursor[slot].fill_(cursor0)
+    state.stage_len[slot].fill_(true_len)
+    state.stage_seq[slot].fill_(seq)
     if noise.shape[1]:
         state.stage_noise[slot] = noise[0]
 
@@ -1200,7 +1205,11 @@ class PagedEngine:
         w_req = self._required_width(req.prompt_len)
         ids = np.full((1, bucket), self.tokenizer.pad_id, np.int64)
         ids[0, : req.prompt_len] = req.tokens
-        return req, bucket, w_req, torch.from_numpy(ids).to(self.device)
+        # The upload is a copy from pageable memory: on the card it waits
+        # for the stream (a sync the strict-dispatch check sees).
+        with intended_transfer():
+            ids_dev = torch.from_numpy(ids).to(self.device)
+        return req, bucket, w_req, ids_dev
 
     def _grow_if_needed(self, w_req: int) -> None:
         if w_req > self.state.cache.max_len:
@@ -1243,8 +1252,8 @@ class PagedEngine:
             admitted.append((slot, req, first))
         if not admitted:
             return
-        # ONE sync for the whole admitted group.
-        firsts = torch.stack([f for _, _, f in admitted]).tolist()
+        with intended_transfer():  # ONE sync for the whole admitted group
+            firsts = torch.stack([f for _, _, f in admitted]).tolist()
         now = time.monotonic()
         if live_train:
             self._prefill_stall_s += now - t_admit0
@@ -1289,9 +1298,11 @@ class PagedEngine:
             suf = np.full((1, suffix_bucket), self.tokenizer.pad_id,
                           np.int64)
             suf[0, : req.prompt_len - prefix_used] = req.tokens[prefix_used:]
+            with intended_transfer():  # the suffix's upload
+                suf_dev = torch.from_numpy(suf).to(self.device)
             t0, t0u = time.monotonic(), time.time()
             first, seen_row = self._partial_prefill(
-                self.params, pages, ids, torch.from_numpy(suf).to(self.device),
+                self.params, pages, ids, suf_dev,
                 prefix_used, req.prompt_len, self.generator)
             self._time_prog("partial_prefill", t0, t0u)
         else:
@@ -1615,7 +1626,8 @@ class PagedEngine:
         into the radix tree, and its decode walk starts at the flip
         iteration's rows (earlier rows are pre-flip filler)."""
         if d.event is not None:
-            d.event.synchronize()  # THE sync point of the engine loop
+            with intended_transfer():  # THE sync point of the engine loop
+                d.event.synchronize()
         k_axis = d.k
         # A lane under speculation is a verify window of spec+1 positions.
         self._dead_lane_tokens += int(dead_lane_tokens(
@@ -1728,7 +1740,7 @@ class PagedEngine:
                 # Kill the slot in the LIVE state (which may already be a
                 # chunk ahead): load-bearing for the host-side budget caps,
                 # where the device still thinks the slot is active.
-                self.state.active[slot] = False
+                self.state.active[slot].fill_(False)  # no host sync
         return done
 
     def drain(self) -> Dict[int, str]:

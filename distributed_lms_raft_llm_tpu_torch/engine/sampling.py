@@ -7,8 +7,12 @@ samples with temperature 0.7, top-k 50, top-p 0.9 and repetition penalty
 `torch.Generator`; they differ from `jax.random`'s, so sampled tokens are
 compared as distributions, never one for one.
 
-The JAX package's `approx_top_k` (a TPU-only approximate top-k) is not
-carried over.
+`approx_top_k` is accepted and computes the exact top-k: the JAX package's
+`jax.lax.approx_max_k` is an approximate algorithm for the TPU (on the CPU
+it returns the exact top-k), and the port has no approximate kernel, so a
+node with `approx_top_k = true` samples exactly as with `false` (a
+deliberate difference; the TPU's throughput figure for it is not the
+port's).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ class SamplingParams:
     top_p: float = 0.9
     repetition_penalty: float = 1.2
     max_new_tokens: int = 128
+    # Accepted for the JAX package's configs; the top-k is exact either way.
+    approx_top_k: bool = False
 
     @classmethod
     def reference_defaults(cls, **kw) -> "SamplingParams":

@@ -23,10 +23,13 @@ tutoring node:
   submit` (serving/tutoring_server.py), and the JAX package's LMS fans a
   course's submissions here through its fleet router's background route.
 
+This file is a dispatch module (`no-host-sync-in-dispatch` applies): the
+quantum loop's only device readback (a `.cpu()` of the per-row sums and
+counts, stacked into one tensor) and the batch's upload sit inside
+`intended_transfer()`, as in the reference.
+
 What differs from the JAX package:
 
-- the port has no transfer guard: a quantum's one device readback is a
-  plain `.cpu()` of the per-row sums and counts, stacked into one tensor;
 - the forward runs eagerly (about 600 kernel launches for GPT-2 small;
   no CUDA graph per score shape) and on the calling thread's current
   stream. The queues call it from their executor threads, whose current
@@ -55,6 +58,7 @@ import numpy as np
 import torch
 
 from ..utils import metrics_registry as metric
+from ..utils.guards import intended_transfer
 from .generate import pick_bucket
 
 log = logging.getLogger(__name__)
@@ -144,12 +148,14 @@ def score_texts(engine: Any, texts: Sequence[str]) -> List[Dict[str, Any]]:
         return out
     ids, mask, truncated = encode_score_batch(engine, texts)
     t0, t0_unix = time.monotonic(), time.time()
-    total, count = engine._score(
-        engine.params, torch.from_numpy(ids).to(engine.device),
-        torch.from_numpy(mask).to(engine.device))
+    with intended_transfer():  # the batch's upload (a copy that syncs)
+        ids_dev = torch.from_numpy(ids).to(engine.device)
+        mask_dev = torch.from_numpy(mask).to(engine.device)
+    total, count = engine._score(engine.params, ids_dev, mask_dev)
     # The quantum's one readback: sums and counts in one copy (counts are
     # at most a length bucket, exact in float32).
-    host = torch.stack((total, count.to(total.dtype))).cpu().numpy()
+    with intended_transfer():
+        host = torch.stack((total, count.to(total.dtype))).cpu().numpy()
     engine._prog_times.append(("score", t0_unix, time.monotonic() - t0))
     if len(engine._prog_times) > engine._PROG_TIMES_MAX:
         del engine._prog_times[: -engine._PROG_TIMES_MAX]
@@ -177,7 +183,8 @@ def warm_score(engine: Any) -> int:
             mask = torch.ones((nb, bucket), dtype=torch.bool,
                               device=engine.device)
             total, count = engine._score(engine.params, ids, mask)
-            torch.stack((total, count.to(total.dtype))).cpu()
+            with intended_transfer():
+                torch.stack((total, count.to(total.dtype))).cpu()
     return len(engine.score_shapes)
 
 

@@ -1,9 +1,9 @@
 """LMS application plane: state machine, persistence, service, node wiring.
 
-The port's own copy of `distributed_lms_raft_llm_tpu/lms/` without the
-sharded group router (`group_router.py`): a node serves one Raft group.
-The modules are framework-free; only the relevance gate the server hands
-to `LMSServicer` runs on torch.
+The port's own copy of `distributed_lms_raft_llm_tpu/lms/`, the sharded
+group router (`group_router.py`) included. The modules are
+framework-free; only the relevance gate the server hands to
+`LMSServicer` runs on torch.
 """
 
 from .node import LMSNode  # noqa: F401

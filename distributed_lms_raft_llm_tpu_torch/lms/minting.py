@@ -25,18 +25,7 @@ from __future__ import annotations
 import os
 import uuid
 
-__all__ = ["mint_request_id", "mint_session_token", "mint_salt",
-           "USER_METADATA_KEY", "AUTH_SALT_METADATA_KEY",
-           "AUTH_TOKEN_METADATA_KEY"]
-
-# Router wire metadata, the reference's names (its `lms/group_router.py`
-# defines them; the port has no group router yet, so they live here).
-# `x-lms-user` is a routing hint the client sends; the forced auth pair is
-# honoured only on a router-dispatched leg (`lms/service.py::
-# _forced_auth`), so a single-group node never reads it from a client.
-USER_METADATA_KEY = "x-lms-user"
-AUTH_SALT_METADATA_KEY = "x-lms-auth-salt"
-AUTH_TOKEN_METADATA_KEY = "x-lms-auth-token"
+__all__ = ["mint_request_id", "mint_session_token", "mint_salt"]
 
 
 def mint_request_id() -> str:

@@ -55,13 +55,8 @@ from ..utils.tracing import (
     trace_metadata,
     traced_grpc_handler,
 )
-from .minting import (
-    AUTH_SALT_METADATA_KEY,
-    AUTH_TOKEN_METADATA_KEY,
-    mint_request_id,
-    mint_salt,
-    mint_session_token,
-)
+from .group_router import AUTH_SALT_METADATA_KEY, AUTH_TOKEN_METADATA_KEY
+from .minting import mint_request_id, mint_salt, mint_session_token
 from .persistence import BlobStore
 from .state import LMSState, hash_password
 from .tutoring_pool import TutoringPool, TutoringUnavailable

@@ -3,7 +3,9 @@
 What an operator does by hand on one machine, as a library: write a copy
 of a deployment file (configs/cluster.toml) with a few values changed
 (`deployment_copy`: the data directory, free ports, the tutoring node's
-address; each change is returned so it can be printed), start each LMS
+address, a `[groups]` section the file lacks; each change is returned so
+it can be printed), pick ports for a grouped deployment (`free_group_ports`:
+every group's Raft port `base + stride * gid` probed free), start each LMS
 node as its own process through the port's entry point
 
     python -m distributed_lms_raft_llm_tpu_torch.serving.lms_server \\
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import re
 import signal
 import socket
@@ -50,6 +53,55 @@ def free_ports(n: int) -> List[int]:
             s.close()
 
 
+def free_group_ports(nodes: int, groups: int,
+                     others: int = 0) -> Tuple[List[int], int, List[int]]:
+    """Ports for a grouped deployment on 127.0.0.1: (`nodes` base ports, a
+    stride, `others` more ports), such that every node's `base + stride *
+    gid` for gid < `groups` and every other port were free when probed,
+    all bound at once (so pairwise distinct too). A fixed stride (the
+    file's 1000) can land on a port the machine holds; this one is drawn
+    until every group port binds. With one group the stride is 1000."""
+    socks: List[socket.socket] = []
+
+    def bind(port: int) -> None:
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            s.close()
+            raise
+        socks.append(s)
+
+    try:
+        for _ in range(nodes + others):
+            bind(0)
+        bases = [s.getsockname()[1] for s in socks[:nodes]]
+        extra = [s.getsockname()[1] for s in socks[nodes:]]
+        if groups <= 1:
+            return bases, 1000, extra
+        room = (65535 - max(bases)) // (groups - 1)
+        rng = random.Random()
+        tries = 200
+        for _ in range(tries):
+            stride = rng.randrange(1, room + 1)
+            held = len(socks)
+            try:
+                for gid in range(1, groups):
+                    for base in bases:
+                        bind(base + stride * gid)
+            except OSError:
+                for s in socks[held:]:
+                    s.close()
+                del socks[held:]
+                continue
+            return bases, stride, extra
+        raise RuntimeError(f"no stride with {groups} free group ports for "
+                           f"bases {bases} in {tries} tries")
+    finally:
+        for s in socks:
+            s.close()
+
+
 def _toml_value(value: Any) -> str:
     if isinstance(value, bool):
         return "true" if value else "false"
@@ -62,9 +114,12 @@ def _toml_value(value: Any) -> str:
     raise TypeError(f"no TOML form for {value!r}")
 
 
-def _set_key(lines: List[str], section: str, key: str, value: Any) -> None:
+def _set_key(lines: List[str], section: str, key: str, value: Any) -> str:
     """Set (or with REMOVE delete) `key` in `[section]` of a TOML file's
-    lines, keeping the line's trailing comment. The key must be there."""
+    lines, keeping the line's trailing comment. A key the section lacks is
+    added at the section's end, and a section the file lacks at the file's
+    end (a REMOVE of either raises KeyError). Returns what was done:
+    "set", "added" or "removed"."""
     header = re.compile(r"^\s*\[([^\[\]]+)\]\s*(#.*)?$")
     start = end = None
     for i, line in enumerate(lines):
@@ -77,7 +132,10 @@ def _set_key(lines: List[str], section: str, key: str, value: Any) -> None:
     if start is not None and end is None:
         end = len(lines)
     if start is None:
-        raise KeyError(f"no [{section}] in the file")
+        if value is REMOVE:
+            raise KeyError(f"no [{section}] in the file")
+        lines.extend(["", f"[{section}]", f"{key} = {_toml_value(value)}"])
+        return "added"
     pattern = re.compile(rf"^(\s*){re.escape(key)}\s*=\s*(.*)$")
     for i in range(start + 1, end):
         m = pattern.match(lines[i])
@@ -85,15 +143,23 @@ def _set_key(lines: List[str], section: str, key: str, value: Any) -> None:
             continue
         if value is REMOVE:
             del lines[i]
-            return
+            return "removed"
         comment = ""
         rest = m.group(2)
         cut = _comment_start(rest)
         if cut is not None:
             comment = "  " + rest[cut:].strip()
         lines[i] = f"{m.group(1)}{key} = {_toml_value(value)}{comment}"
-        return
-    raise KeyError(f"no {key} in [{section}]")
+        return "set"
+    if value is REMOVE:
+        raise KeyError(f"no {key} in [{section}]")
+    # After the section's last non-blank line (its comments stay above the
+    # next header).
+    at = end
+    while at > start + 1 and not lines[at - 1].strip():
+        at -= 1
+    lines.insert(at, f"{key} = {_toml_value(value)}")
+    return "added"
 
 
 def _comment_start(text: str) -> Optional[int]:
@@ -116,16 +182,19 @@ def deployment_copy(source: str, directory: str,
                     changes: Dict[Tuple[str, str], Any],
                     name: str = "cluster.toml") -> Tuple[str, List[str]]:
     """Write `source` to `directory/name` with `changes` ((section, key) ->
-    value, or REMOVE) applied line by line, everything else as it is.
-    Returns (the copy's path, one line per change). The copy must load
-    (`config.load_config`), or this raises."""
+    value, or REMOVE) applied line by line, everything else as it is (a
+    key or section the file lacks is added: `[groups]` for a grouped
+    copy of configs/cluster.toml). Returns (the copy's path, one line per
+    change). The copy must load (`config.load_config`, which refuses an
+    unknown section or key), or this raises."""
     lines = Path(source).read_text(encoding="utf-8").splitlines()
     applied = []
     for (section, key), value in changes.items():
-        _set_key(lines, section, key, value)
+        done = _set_key(lines, section, key, value)
         applied.append(f"[{section}] {key} "
                        + ("removed" if value is REMOVE
-                          else f"= {_toml_value(value)}"))
+                          else f"= {_toml_value(value)}")
+                       + (" (added)" if done == "added" else ""))
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, name)
     Path(path).write_text("\n".join(lines) + "\n", encoding="utf-8")
@@ -198,13 +267,16 @@ class LMSProcess:
         return "\n".join(lines[-n:])
 
 
-def http_json(port: int, path: str,
-              timeout: float = 5.0) -> Tuple[int, Any]:
-    """(status, JSON) of a GET to a node's health and admin plane on
-    127.0.0.1."""
+def http_json(port: int, path: str, timeout: float = 5.0,
+              body: Optional[dict] = None) -> Tuple[int, Any]:
+    """(status, JSON) of a GET (or, with `body`, a JSON POST) to a node's
+    health and admin plane on 127.0.0.1."""
+    request = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
     try:
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
-                                    timeout=timeout) as resp:
+        with urllib.request.urlopen(request, timeout=timeout) as resp:
             return resp.status, json.loads(resp.read() or b"null")
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read() or b"null")

@@ -19,8 +19,10 @@ Or declaratively — one TOML for the whole deployment (config.py):
         --config configs/cluster.toml --id 1
 Explicit CLI flags override file values.
 
-Not ported yet: the sharded control plane (`--groups` > 1, the group
-router and `/admin/reshard`), which is refused at start.
+`--groups N` ([groups] count) shards the LMS state over N Raft groups
+behind the group router (`lms/group_router.py`); as in the reference's
+entry point, no reshard coordinator is wired, so `POST /admin/reshard`
+answers 400.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Dict
 
 import grpc
 
+from ..lms.group_router import GroupsAdmin, RoutedLMSServicer, RoutingMap
 from ..lms.node import LMSNode
 from ..lms.service import (
     FileTransferServicer,
@@ -57,13 +60,6 @@ from ..utils.timeline import (
 from ..utils.tracing import trace_admin_get
 
 log = logging.getLogger("lms_server")
-
-# The slice that will port the sharded control plane.
-GROUPS_NOT_PORTED = (
-    "--groups > 1 (the sharded control plane: lms/group_router.py, "
-    "/admin/reshard) is not ported to the PyTorch package yet; it is the "
-    "next LMS slice (ROADMAP.md §1). Serve one group (--groups 1)."
-)
 
 
 def _read_text(path: str) -> str:
@@ -91,16 +87,14 @@ def fault_state(faults: FaultInjector, disk_faults: DiskFaultInjector,
 def make_admin(lms_node: LMSNode, faults: FaultInjector,
                disk_faults: DiskFaultInjector, campaigns: CampaignRunner,
                timeline: "Timeline | None" = None,
-               pool: "TutoringPool | None" = None):
+               pool: "TutoringPool | None" = None,
+               groups_admin: "GroupsAdmin | None" = None):
     """The node's admin plane: (POST handler, GET handler) for the local
     HTTP endpoint (utils/healthz.py). Module-level (not inlined in
     serve_async) so the in-process semester-sim cluster (sim/cluster.py)
     serves the EXACT operator surface the production entrypoint serves.
     `timeline` is the node's telemetry ring (utils/timeline.py), served
-    read-only at GET /admin/timeline. The reference's `groups_admin`
-    (/admin/reshard, and GET /admin/raft over several groups) belongs to
-    the group router, which is not ported: GET /admin/raft serves this
-    node's one group."""
+    read-only at GET /admin/timeline."""
 
     async def admin(path: str, body: Dict) -> Dict:
         """POST /admin/membership {"op": "add"|"remove", "id": N,
@@ -219,8 +213,16 @@ def make_admin(lms_node: LMSNode, faults: FaultInjector,
                 raise ValueError(f"scoring unavailable: {e}") from e
             return {"ok": True, "submitted_texts": len(texts), **doc}
         if path == "/admin/reshard":
-            # A single-group node answers 400, as the reference's does.
-            raise ValueError("resharding is not enabled on this deployment")
+            # Live resharding (lms/group_router.ReshardCoordinator):
+            # {"course": "<course>", "to_group": N} moves one course's
+            # users to another Raft group as a staged, journaled handoff
+            # (freeze → slice → install → map flip → drop) with zero
+            # acked-write loss. Requires a multi-group deployment with a
+            # coordinator wired (the sim cluster wires one; a
+            # single-group node answers 400).
+            if groups_admin is None:
+                raise ValueError("no group admin on this node")
+            return {"ok": True, **await groups_admin.reshard(body)}
         if path == "/admin/transfer":
             target = body.get("target")
             chosen = await lms_node.node.transfer_leadership(
@@ -298,36 +300,17 @@ def make_admin(lms_node: LMSNode, faults: FaultInjector,
                         **pool.route_snapshot(q, session_id=sid)}
             raise KeyError(path)
         if path == "/admin/raft":
-            # Read-only topology: this node's one group (the reference's
-            # single-group row: members, leader, term, applied index).
-            return {"ok": True, **raft_topology(lms_node)}
+            # Read-only sharded-control-plane topology: routing map
+            # version + per-group members/leader/term/applied index.
+            # Served in single-group deployments too (one row).
+            if groups_admin is None:
+                raise KeyError(path)
+            return {"ok": True, **groups_admin.topology()}
         if path != "/admin/faults":
             raise KeyError(path)
         return fault_state(faults, disk_faults, campaigns)
 
     return admin, admin_get
-
-
-def raft_topology(lms_node: LMSNode) -> Dict:
-    """The reference's `GroupsAdmin.topology()` for a single-group node
-    (no routing map: version 1, one group)."""
-    raft = lms_node.node
-    return {
-        "routing_map": {"version": 1, "n_groups": 1},
-        "groups": {
-            "0": {
-                "members": {str(nid): addr for nid, addr
-                            in sorted(lms_node.addresses.items())},
-                "leader": raft.leader_id,
-                "is_leader": raft.is_leader,
-                "term": raft.core.current_term,
-                "applied": raft.core.last_applied,
-                "commit": raft.core.commit_index,
-                "digest": lms_node.state_digest,
-                "digest_applied": lms_node._last_applied_index,
-            },
-        },
-    }
 
 
 def make_health(node_id: int, lms_node: LMSNode, pool: TutoringPool,
@@ -361,8 +344,6 @@ def make_health(node_id: int, lms_node: LMSNode, pool: TutoringPool,
 
 
 async def serve_async(args) -> None:
-    if args.groups > 1:
-        raise NotImplementedError(GROUPS_NOT_PORTED)
     addresses = parse_addresses(args.peers, args.host)
     if args.id not in addresses:
         raise SystemExit(f"node id {args.id} not in peer list")
@@ -463,9 +444,45 @@ async def serve_async(args) -> None:
         warmup_weight=fleet_cfg.warmup_weight,
         health_poll_s=fleet_cfg.health_poll_s,
     )
-    servicer = LMSServicer(
-            lms_node.node,
-            lms_node.state,
+    # Sharded control plane (lms/group_router.py): group 0 is the meta +
+    # byte-compat group living in this node's existing data dir; groups
+    # 1..N-1 each run the same Raft/WAL/snapshot stack under
+    # data_dir/group<gid> with their Raft wire on base_port +
+    # port_stride*gid. The LMS wire stays on the base port — the router
+    # forwards cross-group RPCs to the owning group's leader node. With
+    # groups = 1 (or absent) none of this runs and the boot is
+    # byte-identical to the pre-sharding server.
+    lms_nodes: Dict[int, LMSNode] = {0: lms_node}
+    for gid in range(1, args.groups):
+        group_addresses = {
+            nid: "{}:{}".format(
+                addr.rsplit(":", 1)[0],
+                int(addr.rsplit(":", 1)[1]) + args.groups_port_stride * gid,
+            )
+            for nid, addr in addresses.items()
+        }
+        lms_nodes[gid] = LMSNode(
+            args.id, group_addresses,
+            os.path.join(args.data_dir, f"group{gid}"),
+            raft_config=raft_config, snapshot_every=args.snapshot_every,
+            fault_injector=faults, disk_fault_injector=disk_faults,
+            metrics=metrics,
+            replicate_timeout_s=args.replicate_timeout,
+            replicate_budget_s=args.replicate_budget,
+            storage_checksums=args.storage_checksums,
+            storage_fsync=args.storage_fsync == "always",
+            storage_recovery=args.storage_recovery,
+            # One blob store per NODE (group 0 owns it); replication and
+            # fetch-on-miss ride the base LMS ports.
+            blobs=lms_node.blobs,
+            blob_addresses=lms_node.addresses,
+            fault_prefix=f"raft:{gid}",
+        )
+
+    def _make_servicer(group_node: LMSNode) -> LMSServicer:
+        return LMSServicer(
+            group_node.node,
+            group_node.state,
             lms_node.blobs,
             gate=gate,
             tutoring_auth_key=tutoring_auth_key,
@@ -482,13 +499,28 @@ async def serve_async(args) -> None:
             blob_fetch_timeout_s=args.blob_fetch_timeout,
             tutoring_pool=pool,
         )
+
+    servicer = _make_servicer(lms_node)
     server = grpc.aio.server(
         options=[
             ("grpc.max_send_message_length", 50 * 1024 * 1024),
             ("grpc.max_receive_message_length", 50 * 1024 * 1024),
         ]
     )
-    rpc.add_LMSServicer_to_server(servicer, server)
+    router = None
+    if args.groups > 1:
+        inner = {0: servicer}
+        for gid in range(1, args.groups):
+            inner[gid] = _make_servicer(lms_nodes[gid])
+        router = RoutedLMSServicer(
+            lms_nodes, inner, lms_node.addresses, args.id,
+            initial_map=RoutingMap.initial(args.groups),
+            metrics=metrics,
+            router_secret=args.groups_secret or "",
+        )
+        rpc.add_LMSServicer_to_server(router, server)
+    else:
+        rpc.add_LMSServicer_to_server(servicer, server)
     rpc.add_RaftServiceServicer_to_server(
         # The LIVE address map (membership changes mutate it): GetLeader
         # must report a membership-added leader's address, or clients
@@ -503,6 +535,23 @@ async def serve_async(args) -> None:
     server.add_insecure_port(f"[::]:{args.port}")
     await server.start()
     await lms_node.start()
+    # Each extra group's Raft wire gets its own port (stride off the base
+    # port); the group's LMS surface stays in-process behind the router.
+    group_servers = []
+    for gid in range(1, args.groups):
+        group_server = grpc.aio.server()
+        rpc.add_RaftServiceServicer_to_server(
+            RaftServicer(lms_nodes[gid].node, lms_nodes[gid].addresses,
+                         kv=lms_nodes[gid].state.data["kv"]),
+            group_server,
+        )
+        group_server.add_insecure_port(
+            f"[::]:{args.port + args.groups_port_stride * gid}"
+        )
+        await group_server.start()
+        await lms_nodes[gid].start()
+        group_servers.append(group_server)
+    groups_admin = GroupsAdmin(lms_nodes, router=router)
     campaigns = CampaignRunner(faults, disk_faults, metrics=metrics)
     # Node-local telemetry timeline: a sampler thread folds /metrics
     # snapshots into a bounded ring, served at GET /admin/timeline and
@@ -520,6 +569,7 @@ async def serve_async(args) -> None:
         lms_node, faults, disk_faults, campaigns,
         timeline=sampler.timeline if sampler is not None else None,
         pool=pool,
+        groups_admin=groups_admin,
     )
 
     health = None
@@ -568,6 +618,12 @@ async def serve_async(args) -> None:
                 sampler.stop()
             if health is not None:
                 await health.stop()
+            if router is not None:
+                await router.close()
+            for gid in range(1, args.groups):
+                await lms_nodes[gid].stop()
+            for group_server in group_servers:
+                await group_server.stop(0.5)
             await lms_node.stop()
 
         # One bounded await for the whole teardown sequence: if serve()
@@ -646,9 +702,10 @@ def main(argv=None) -> None:
     parser.add_argument("--groups", type=int, default=1,
                         help="number of independent LMS Raft groups "
                              "([groups] count in the TOML): 1 (default) "
-                             "is the single-group deployment; >1 (the "
-                             "sharded control plane) is not ported yet "
-                             "and is refused")
+                             "is the classic single-group deployment, "
+                             "byte-compatible with existing data dirs; "
+                             ">1 shards state by course behind the "
+                             "group router")
     parser.add_argument("--groups-port-stride", type=int, default=1000,
                         help="port offset between group Raft planes: "
                              "group g's Raft wire listens on base port "
@@ -805,8 +862,6 @@ def main(argv=None) -> None:
                      "--config <file> --id <node id>")
     if args.data_dir is None:
         args.data_dir = f"lms_node_{args.id}"
-    if args.groups > 1:
-        raise NotImplementedError(GROUPS_NOT_PORTED)
 
     logging.basicConfig(
         level=logging.INFO,

@@ -42,10 +42,15 @@ cluster.toml ``[tutoring]``, ``[scoring]``): ``--paged --quant int8
 engine's warmup captures its CUDA graphs before the server listens, so
 ``--no-warmup`` is refused with ``--paged`` there.
 
-Not ported yet: tp and ep above 1 (the engines raise), approximate top-k
-(``--approx-topk`` and ``[sampling] approx_top_k = true`` are refused),
-and the JAX node's ``--strict-dispatch`` and ``--jax-platform`` (unknown
-flags here).
+``--strict-dispatch`` makes every unmarked host sync raise once the
+engine is warm (`utils/guards.py`); ``--approx-topk`` (``[sampling]
+approx_top_k``) is accepted and samples the exact top-k
+(`engine/sampling.py`). Every ``metrics_period_s`` (60 s) the node logs one
+``metrics {json}`` line, as the JAX node does.
+
+Not ported yet: tp and ep above 1 (the engines raise), and the JAX node's
+``--jax-platform`` (an unknown flag here; ``--device`` stands in its
+place).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import argparse
 import asyncio
 import functools
 import hashlib
+import json
 import logging
 import time
 from typing import Dict, Optional, Tuple
@@ -75,7 +81,7 @@ from ..engine.scoring import ScoringManager, score_admin_get
 from ..models import registry
 from ..proto import lms_pb2, rpc
 from ..utils import auth
-from ..utils.guards import make_serving_watchdog
+from ..utils.guards import enable_strict_dispatch, make_serving_watchdog
 from ..utils.healthz import HealthServer
 from ..utils.metrics import Metrics
 from ..utils.resilience import (
@@ -98,8 +104,8 @@ log = logging.getLogger("tutoring_server")
 
 __all__ = ["FOLLOWUP_TEMPLATE", "PROMPT_TEMPLATE", "TutoringService",
            "build_parser", "engine_from_args", "make_tutoring_admin",
-           "make_tutoring_health", "resolve_args", "serve_args",
-           "serve_async", "main"]
+           "make_tutoring_health", "read_auth_key", "resolve_args",
+           "serve_args", "serve_async", "main"]
 
 DRAINING = "draining: this tutoring node is not admitting new work"
 
@@ -395,9 +401,17 @@ def make_tutoring_health(service: TutoringService, queue, engine_name: str,
     return health
 
 
+async def _report_metrics(metrics: Metrics, period_s: float) -> None:
+    """One `metrics {json}` log line a period (the JAX node's)."""
+    while True:
+        await asyncio.sleep(period_s)
+        log.info("metrics %s", json.dumps(metrics.snapshot()))
+
+
 async def serve_async(port: int, engine, *,
                       max_batch: int = 8, max_wait_ms: float = 10.0,
                       max_queue: int = 0, metrics: Optional[Metrics] = None,
+                      metrics_period_s: float = 60.0,
                       auth_key: Optional[str] = None,
                       node_id: Optional[str] = None,
                       metrics_port: Optional[int] = None,
@@ -420,7 +434,9 @@ async def serve_async(port: int, engine, *,
     is the operator's saturation figure behind `scoring_utilization`
     (None: the gauge is not set). `telemetry` starts the timeline sampler
     (`server._telemetry_sampler`). A heartbeat watchdog runs on the loop
-    (`server._watchdog`). The bound port is `server._port`. With
+    (`server._watchdog`), and a task logs the metrics snapshot every
+    `metrics_period_s` (`server._metrics_task`). The bound port is
+    `server._port`. With
     `metrics_port` (0 = any free port) the health plane listens on
     127.0.0.1 (`server._health.port`): /healthz, /metrics, /metrics.prom,
     POST /admin/drain, POST /admin/score, GET /admin/trace[/<id>],
@@ -464,6 +480,8 @@ async def serve_async(port: int, engine, *,
     server._watchdog = make_serving_watchdog(metrics)
     watchdog_task = asyncio.get_running_loop().create_task(
         server._watchdog.run())
+    server._metrics_task = asyncio.get_running_loop().create_task(
+        _report_metrics(metrics, metrics_period_s))
     # The node's telemetry ring, served at GET /admin/timeline (the JAX
     # package's scripts/telemetry.py merges it with the other nodes').
     sampler = None
@@ -499,7 +517,9 @@ async def serve_async(port: int, engine, *,
 
     async def stop(grace):
         watchdog_task.cancel()
-        await asyncio.gather(watchdog_task, return_exceptions=True)
+        server._metrics_task.cancel()
+        await asyncio.gather(watchdog_task, server._metrics_task,
+                             return_exceptions=True)
         if sampler is not None:
             sampler.stop()
         if server._health is not None:
@@ -538,8 +558,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="expert-parallel ways (above 1 not ported: "
                         "the engine raises)")
     parser.add_argument("--approx-topk", action="store_true",
-                        help="approximate top-k sampling: not ported, "
-                        "refused (the port samples the exact top-k)")
+                        help="the JAX node's approximate top-k: accepted, "
+                        "and the port samples the exact top-k")
     parser.add_argument("--max-new-tokens", type=int, default=128)
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--max-wait-ms", type=float, default=10.0)
@@ -569,6 +589,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="file holding the LMS<->tutoring shared "
                         "secret; when set, only queries signed by the LMS "
                         "leader are answered")
+    parser.add_argument(
+        "--strict-dispatch", action="store_true",
+        help="assertion mode for dispatch hygiene (utils/guards.py): once "
+        "the engine is warm, any host sync of a CUDA tensor outside a "
+        "`with intended_transfer():` block raises instead of silently "
+        "stalling the hot path (a no-op without a card)")
     parser.add_argument("--no-warmup", action="store_true",
                         help="serve without warmup (refused with --paged "
                         "on the card: the paged engine captures its CUDA "
@@ -697,11 +723,6 @@ def resolve_args(argv=None) -> argparse.Namespace:
 def engine_from_args(args: argparse.Namespace):
     """The engine the parsed (and resolved, `resolve_args`) flags ask for,
     not yet warmed."""
-    if args.approx_topk:
-        raise ValueError(
-            "approximate top-k (--approx-topk, [sampling] approx_top_k) is "
-            "not ported: the port samples the exact top-k; drop the flag "
-            "or set approx_top_k = false")
     # bf16 weights and activations on the card; float32 on the CPU.
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     config = EngineConfig(
@@ -710,6 +731,7 @@ def engine_from_args(args: argparse.Namespace):
         tokenizer_json=args.tokenizer_json,
         sampling=SamplingParams.reference_defaults(
             max_new_tokens=args.max_new_tokens,
+            approx_top_k=args.approx_topk,
             **getattr(args, "sampling_overrides", {})),
         seed=args.seed, device=args.device, dtype=dtype, param_dtype=dtype,
         tp=args.tp, ep=args.ep, quant=args.quant, kv_quant=args.kv_quant,
@@ -737,15 +759,25 @@ def engine_from_args(args: argparse.Namespace):
     return TutoringEngine(config)
 
 
+def read_auth_key(args: argparse.Namespace) -> Optional[str]:
+    """The LMS<->tutoring secret from `--auth-key-file` (None without
+    one), read before the event loop starts, as the JAX node's `main`
+    reads it."""
+    if not args.auth_key_file:
+        return None
+    with open(args.auth_key_file) as fh:
+        return fh.read().strip()
+
+
 async def serve_args(args: argparse.Namespace, engine,
-                     host: str = "[::]") -> grpc.aio.Server:
+                     host: str = "[::]",
+                     auth_key: Optional[str] = None) -> grpc.aio.Server:
     """`serve_async` with what the resolved flags (`resolve_args`) ask for:
     what `main` serves, for a caller that builds and warms the engine
-    itself."""
-    auth_key = None
-    if args.auth_key_file:
-        with open(args.auth_key_file) as fh:
-            auth_key = fh.read().strip()
+    itself. `auth_key` is `read_auth_key(args)`, read off the loop."""
+    if args.auth_key_file and auth_key is None:
+        raise ValueError("--auth-key-file is set: pass "
+                         "auth_key=read_auth_key(args) to serve_args")
     return await serve_async(
         args.port, engine, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_queue=args.queue_depth,
@@ -777,13 +809,23 @@ def main(argv=None) -> None:
         warm = functools.partial(engine.warmup, batch=args.max_batch)
     if not args.no_warmup:
         log.info("warmup took %.1fs", warm())
+    if args.strict_dispatch:
+        # After the build and warmup (the JAX node turns its guard on
+        # before them): the weights' upload and the graph captures are
+        # copies torch counts as syncs, while JAX's guard sees only
+        # device-to-host reads. Serving is what the mode holds.
+        enable_strict_dispatch()
+    auth_key = read_auth_key(args)
 
     async def run():
-        server = await serve_args(args, engine)
+        server = await serve_args(args, engine, auth_key=auth_key)
         try:
             await server.wait_for_termination()
         finally:
-            await server._queue.close()
+            # Bounded best effort, as the LMS node's teardown: close()
+            # fails the waiting requests and joins the engine loop, and a
+            # wedged engine must not hang the process's exit.
+            await asyncio.wait_for(server._queue.close(), timeout=30.0)
 
     asyncio.run(run())
 

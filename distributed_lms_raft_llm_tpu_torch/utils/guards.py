@@ -1,30 +1,209 @@
-"""The serving loop's heartbeat watchdog and the Raft tick watchdog.
+"""Runtime guards: strict dispatch, the serving loop's heartbeat watchdog
+and the Raft tick watchdog.
 
-A trimmed port of `distributed_lms_raft_llm_tpu/utils/guards.py`: its
-`LoopWatchdog`, `make_tick_watchdog` (the LMS node's Raft runner observes
-each tick's lag: `raft_tick_lag`, `raft_tick_stalls`) and
-`make_serving_watchdog`. The tutoring node runs the
-watchdog's heartbeat as a task on its event loop, as the JAX node does: a
-handler or a queue step that blocks the loop (sync IO, a device readback
-on the loop thread) shows up as the `serving_tick_lag` histogram and the
-`serving_tick_stalls` counter in /metrics. It is also the witness that a
-scoring quantum's readback, which runs in an executor thread, never
-blocks the loop.
+A trimmed port of `distributed_lms_raft_llm_tpu/utils/guards.py`:
 
-The JAX module's transfer guard and compile-count guard have no
-counterpart here: the port has no jit. Nothing runs at import.
+- `intended_transfer()` marks a sanctioned host<->device sync point. The
+  static rule `no-host-sync-in-dispatch` accepts syncs inside this block,
+  and under strict dispatch the runtime check allows them: one marker
+  serves both checkers, as in the reference.
+- `strict_dispatch()` (a scope) and `enable_strict_dispatch()` (the whole
+  process: the tutoring node's `--strict-dispatch`) make any host sync of
+  a CUDA tensor outside an `intended_transfer()` block raise
+  `HostSyncError`. The reference's guard is JAX's transfer guard; here it
+  is `torch.cuda.set_sync_debug_mode`, which sees what blocks the host on
+  the stream: `.item()`, `.tolist()`, `.cpu()` and other copies to or
+  from pageable host memory without `non_blocking`, `torch.nonzero`. It
+  does not see `torch.cuda.synchronize()`, an event's or a stream's
+  `synchronize()`, or a graph replay (which does not sync). On a machine
+  without a card the mode does nothing, and a one-time warning says so:
+  the lint rule is the enforcement there.
+- `LoopWatchdog`, `make_tick_watchdog` (the LMS node's Raft runner
+  observes each tick's lag: `raft_tick_lag`, `raft_tick_stalls`) and
+  `make_serving_watchdog`. The tutoring node runs the watchdog's heartbeat
+  as a task on its event loop, as the JAX node does: a handler or a queue
+  step that blocks the loop (sync IO, a device readback on the loop
+  thread) shows up as the `serving_tick_lag` histogram and the
+  `serving_tick_stalls` counter in /metrics. It is also the witness that
+  a scoring quantum's readback, which runs in an executor thread, never
+  blocks the loop.
+
+The scope of strict dispatch. JAX's transfer guard is a per-thread
+setting; torch's sync debug mode is one setting for the whole process, and
+the node's engine steps run on executor threads while its event loop runs
+on another. Toggling the mode around each sanctioned readback would let an
+unmarked sync on another thread slip through while a block is open, or
+raise on a thread that never asked for strict dispatch. So the process
+mode is only ever `warn` (while any thread is strict) or off, and the
+verdict is taken per thread: torch turns the sync into a Python warning on
+the thread that synced, and this module's `warnings.showwarning` hook
+raises there unless that thread is strict-free or inside
+`intended_transfer()` (thread-local depths). A sanctioned readback on the
+engine thread stays allowed while an unmarked one on any strict thread
+raises; a thread outside every strict scope (with no process-wide mode)
+is never touched. The hook is reinstalled on every strict entry if
+something (`logging.captureWarnings`, a `warnings.catch_warnings` block)
+displaced it; while it is displaced the check is off. The one cost: while
+strict is on anywhere, every sync builds a warning object (microseconds),
+and a sanctioned one is dropped.
+
+The JAX module's compile-count guard has no counterpart: the port has no
+jit. Nothing runs at import, and torch is imported only when strict
+dispatch is asked for.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
+import re
+import threading
 import time
-from typing import Any, Callable, Optional
+import warnings
+from typing import Any, Callable, Iterator, Optional
 
 from . import metrics_registry
 
 log = logging.getLogger(__name__)
+
+
+# --------------------------------------------------------- strict dispatch
+
+# The text of torch's sync debug warning (c10/cuda warn_or_error_on_sync).
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class HostSyncError(RuntimeError):
+    """A host sync of a CUDA tensor under strict dispatch, outside an
+    `intended_transfer()` block."""
+
+
+_tls = threading.local()            # .strict / .allowed: this thread's depths
+_lock = threading.Lock()
+_process_strict = False             # guarded-by: _lock
+_open_scopes = 0                    # guarded-by: _lock
+_previous_showwarning = None        # guarded-by: _lock
+# One-time flag: strict dispatch without a card warns once per process
+# (tests reset it to re-pin the warning).
+_warned_cpu_noop = False
+
+
+def _depth(name: str) -> int:
+    return getattr(_tls, name, 0)
+
+
+def _strict_here() -> bool:
+    return _process_strict or _depth("strict") > 0
+
+
+def _showwarning(message, category, filename, lineno, file=None, line=None):
+    if SYNC_WARNING in str(message):
+        if _strict_here() and _depth("allowed") == 0:
+            raise HostSyncError(
+                f"unmarked host sync under strict dispatch ({filename}:"
+                f"{lineno}): {message}; wrap a sanctioned readback in "
+                f"`with intended_transfer():` (utils/guards.py)")
+        return
+    _previous_showwarning(message, category, filename, lineno, file, line)
+
+
+def _cuda() -> bool:
+    import torch
+
+    return torch.cuda.is_available()
+
+
+def _warn_if_cpu_noop() -> bool:
+    """Without a card there is nothing to sync with: strict dispatch would
+    silently enforce nothing. Say so once, and point at the static rule
+    (`no-host-sync-in-dispatch`) that is the enforcement there. True when
+    the mode is a no-op."""
+    global _warned_cpu_noop
+    if _cuda():
+        return False
+    if not _warned_cpu_noop:
+        _warned_cpu_noop = True
+        log.warning(
+            "strict dispatch: no CUDA device, torch's sync debug mode is a "
+            "no-op here (CPU tensors never sync) — unmarked syncs will NOT "
+            "raise; the `no-host-sync-in-dispatch` lint rule is the "
+            "enforcement on the CPU")
+    return True
+
+
+def _apply_mode() -> None:  # guarded-by: _lock
+    """The process mode: `warn` while any thread is strict, else off; the
+    hook and the filter that routes every sync warning to it in place."""
+    global _previous_showwarning
+    import torch
+
+    on = _process_strict or _open_scopes > 0
+    if on:
+        if warnings.showwarning is not _showwarning:
+            _previous_showwarning = warnings.showwarning
+            warnings.showwarning = _showwarning
+        # Every sync warning reaches the hook: no once-per-line registry.
+        warnings.filterwarnings("always",
+                                message=".*" + re.escape(SYNC_WARNING))
+    torch.cuda.set_sync_debug_mode("warn" if on else "default")
+
+
+@contextlib.contextmanager
+def intended_transfer() -> Iterator[None]:
+    """Mark a sanctioned host<->device sync point.
+
+    Inside this block, host syncs on this thread are allowed even under
+    strict dispatch. The static rule `no-host-sync-in-dispatch` recognizes
+    the same block lexically, so every sync in a dispatch module is either
+    wrapped here (auditable, greppable) or a lint finding.
+    """
+    _tls.allowed = _depth("allowed") + 1
+    try:
+        yield
+    finally:
+        _tls.allowed -= 1
+
+
+@contextlib.contextmanager
+def strict_dispatch() -> Iterator[None]:
+    """Scoped strict mode, for this thread: a host sync of a CUDA tensor
+    outside `intended_transfer()` raises `HostSyncError` (on a machine
+    without a card a documented no-op with a one-time warning). Other
+    threads are not affected."""
+    global _open_scopes
+    noop = _warn_if_cpu_noop()
+    _tls.strict = _depth("strict") + 1
+    if not noop:
+        with _lock:
+            _open_scopes += 1
+            _apply_mode()
+    try:
+        yield
+    finally:
+        _tls.strict -= 1
+        if not noop:
+            with _lock:
+                _open_scopes -= 1
+                _apply_mode()
+
+
+def enable_strict_dispatch() -> None:
+    """Process-wide strict mode (the `--strict-dispatch` server flag):
+    from here on every unmarked host sync of a CUDA tensor, on any thread,
+    raises. The node enables it once its engine is built and warmed:
+    loading the weights and capturing the graphs are uploads that torch
+    counts as syncs."""
+    global _process_strict
+    if _warn_if_cpu_noop():
+        return
+    with _lock:
+        _process_strict = True
+        _apply_mode()
+    log.info("strict dispatch: unmarked host syncs will raise")
+
+
+# ------------------------------------------------------------- watchdogs
 
 
 class LoopWatchdog:

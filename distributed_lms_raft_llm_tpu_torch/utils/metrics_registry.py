@@ -357,6 +357,39 @@ SPECS: Dict[str, Tuple[str, str]] = {
         'at the same applied index must report the same value — '
         'divergence here is state-machine nondeterminism)'
     )),
+    # LMS group router (lms/group_router.py), the course-sharded control
+    # plane. Aggregate series only: per-group detail is served by GET
+    # /admin/raft instead of runtime-formatted metric names.
+    "router_group_forwards": (COUNTER, (
+        "LMS RPCs the router forwarded to another node because that node "
+        "leads the subject's Raft group"
+    )),
+    "router_fanout_reads": (COUNTER, (
+        "cross-group reads (course materials, unanswered queries) fanned "
+        "out to every group's leader and merged"
+    )),
+    "router_frozen_rejections": (COUNTER, (
+        "writes/reads refused with UNAVAILABLE because the subject was "
+        "frozen or tombstoned mid-reshard (the client retries against the "
+        "flipped routing map; never a silent drop)"
+    )),
+    "router_unsigned_metadata_rejections": (COUNTER, (
+        "RPCs whose x-lms-* control metadata (group targeting, forced auth "
+        "salt/token) carried no valid router HMAC and was ignored — a "
+        "client forgery or a router-secret mismatch across the deployment"
+    )),
+    "reshard_steps": (COUNTER, (
+        "journaled reshard handoff steps persisted to the meta group "
+        "(begin/frozen/installed/committed/done)"
+    )),
+    "reshard_completed": (COUNTER, (
+        "reshard handoffs that reached 'done': slice installed on the "
+        "target, map flipped, source copy dropped behind tombstones"
+    )),
+    "routing_map_version": (GAUGE, (
+        "version of the replicated course->group routing map this router "
+        "last parsed from the meta group"
+    )),
 }
 
 # The names the scoring tenant and the serving watchdog emit.
@@ -410,6 +443,15 @@ FAULT_CAMPAIGN_PHASES = "fault_campaign_phases"
 RAFT_TICK_LAG = "raft_tick_lag"
 RAFT_TICK_STALLS = "raft_tick_stalls"
 RAFT_STATE_DIGEST = "raft_state_digest"
+
+# The group router's names.
+ROUTER_GROUP_FORWARDS = "router_group_forwards"
+ROUTER_FANOUT_READS = "router_fanout_reads"
+ROUTER_FROZEN_REJECTIONS = "router_frozen_rejections"
+ROUTER_UNSIGNED_METADATA = "router_unsigned_metadata_rejections"
+RESHARD_STEPS = "reshard_steps"
+RESHARD_COMPLETED = "reshard_completed"
+ROUTING_MAP_VERSION = "routing_map_version"
 
 # Breaker state -> transition counter (the LMS breaker observer).
 BREAKER_TRANSITION_COUNTERS = {

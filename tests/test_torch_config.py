@@ -19,8 +19,11 @@ JAX node, and its telemetry plane.
   arguments from both files as the JAX LMS server's `main` (captured at
   its `asyncio.run`), with and without overriding flags, and in the
   positional form; its `--device` stands where the JAX server has
-  `--jax-platform`. `--groups 2` (and `[groups] count = 2`) is refused
-  with a NotImplementedError naming the sharded control plane.
+  `--jax-platform`. `--groups 2` (and `[groups] count = 2` with a stride
+  and a secret) resolves as the JAX server's: the sharded control plane
+  is served, no longer refused.
+- `--strict-dispatch` and `--approx-topk` (by flag, and `approx_top_k`
+  from the file) resolve in the port's node as in the JAX node's `main`.
 - The telemetry timeline and the serving watchdog: the port's `Timeline`
   folds snapshots into the JAX `Timeline`'s document (the JAX scraper's
   `from_dict` reads it back), the sampler samples, `GET /admin/timeline`
@@ -100,6 +103,28 @@ def test_config_resolves_what_the_jax_node_resolves(name, monkeypatch):
     else:
         assert got.scoring_chip_ceiling is None
         assert want.scoring_chip_ceiling > 0
+
+
+@pytest.mark.parametrize("flags,approx", [
+    (["--strict-dispatch"], False),
+    (["--approx-topk"], True),
+    (["--strict-dispatch", "--approx-topk"], True),
+    ([], True),  # approx_top_k = true in the file
+])
+def test_strict_dispatch_and_approx_topk_resolve_as_the_jax_node(
+        flags, approx, tmp_path, monkeypatch):
+    from distributed_lms_raft_llm_tpu_torch.serving import lms_cluster
+
+    src = FILES["dev"]
+    if not flags:
+        src, _ = lms_cluster.deployment_copy(
+            FILES["dev"], str(tmp_path), {("sampling", "approx_top_k"): True})
+    argv = ["--config", src] + flags
+    want, _ = jax_resolve(argv, monkeypatch)
+    got = tutoring_server.resolve_args(argv)
+    assert (got.strict_dispatch, got.approx_topk) == (
+        want.strict_dispatch, want.approx_topk) == (
+        "--strict-dispatch" in flags, approx)
 
 
 def test_explicit_flags_beat_the_file(monkeypatch):
@@ -366,16 +391,26 @@ def test_lms_server_resolves_what_the_jax_lms_server_resolves(case,
 
 
 def test_lms_server_refuses_more_than_one_group(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="sharded control plane"):
-        lms_server.main(["--config", FILES["dev"], "--id", "1",
-                         "--groups", "2"])
-    path = tmp_path / "groups.toml"
-    path.write_text(Path(FILES["dev"]).read_text() + "\n[groups]\ncount = 2\n")
-    with pytest.raises(NotImplementedError, match="sharded control plane"):
-        lms_server.main(["--config", str(path), "--id", "1"])
-    args = type("Args", (), {"groups": 2})()
-    with pytest.raises(NotImplementedError, match="--groups > 1"):
-        asyncio.run(lms_server.serve_async(args))
+    """Since the group router was ported, nothing refuses more than one
+    group: `--groups 2`, and `[groups]` from the file, resolve to what the
+    JAX LMS server's `main` resolves, and `serve_async` no longer raises
+    before it builds the groups."""
+    from distributed_lms_raft_llm_tpu_torch.serving import lms_cluster
+    from distributed_lms_raft_llm_tpu_torch.utils import tracing
+
+    path, _ = lms_cluster.deployment_copy(
+        FILES["dev"], str(tmp_path), {("groups", "count"): 2,
+                                      ("groups", "port_stride"): 517,
+                                      ("groups", "secret"): "k"})
+    for argv in (["--config", FILES["dev"], "--id", "1", "--groups", "2",
+                  "--groups-secret", "s"],
+                 ["--config", path, "--id", "1"]):
+        want = _lms_main_args(jax_lms_server, jax_tracing, argv, monkeypatch)
+        got = _lms_main_args(lms_server, tracing, argv, monkeypatch)
+        want.pop("jax_platform"), got.pop("device")
+        assert got == want and got["groups"] == 2
+    assert (got["groups_port_stride"], got["groups_secret"]) == (517, "k")
+    assert not hasattr(lms_server, "GROUPS_NOT_PORTED")
 
 
 def test_raft_config_matches_jax():

@@ -283,6 +283,10 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.lms.tutoring_pool\n"
         "import distributed_lms_raft_llm_tpu_torch.serving.lms_server\n"
         "import distributed_lms_raft_llm_tpu_torch.client.client\n"
+        "import distributed_lms_raft_llm_tpu_torch.lms.group_router\n"
+        "import distributed_lms_raft_llm_tpu_torch.client.cli\n"
+        "import distributed_lms_raft_llm_tpu_torch.client.gui\n"
+        "import distributed_lms_raft_llm_tpu_torch.serving.lms_cluster\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -299,7 +303,8 @@ def test_port_imports_no_jax():
                    "raft.storage", "raft.grpc_transport", "lms.node",
                    "lms.service", "lms.tutoring_pool", "lms.persistence",
                    "serving.lms_server", "client.client", "utils.faults",
-                   "utils.diskfaults", "utils.pdf"):
+                   "utils.diskfaults", "utils.pdf", "lms.group_router",
+                   "client.cli", "client.gui", "serving.lms_cluster"):
         assert f"distributed_lms_raft_llm_tpu_torch.{module}" in mods
     jax_mods = [m for m in mods if m == "jax" or m.startswith("jax.")]
     ref_mods = [m for m in mods if m == "distributed_lms_raft_llm_tpu"

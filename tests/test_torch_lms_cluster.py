@@ -10,6 +10,13 @@ its tutoring fleet router against the JAX package's.
 - Pool: `affinity_key` / `session_affinity_key` and the rendezvous
   placement (`route_snapshot`) equal the JAX `TutoringPool`'s for the
   same fleet, query by query.
+- Two groups from the deployment file: three port LMS processes
+  (`serving/lms_cluster.py`, `--device cpu`, no gate) from a copy of
+  configs/cluster.toml with `[groups] count = 2`, a probed stride and a
+  secret: both groups elect a leader, `GET /admin/raft` on every node
+  lists both with the same members, `POST /admin/reshard` answers 400
+  with the reference's words, and a student homed in each group posts
+  through the routers and reads back.
 
 All comparisons are exact.
 
@@ -20,6 +27,8 @@ node and gate in front of port LMS nodes and the port's client) and
 `test_tutoring_pool.py` (the port's pool in front of JAX tutoring nodes:
 breakers, spill, hedging, drains).
 """
+
+from pathlib import Path
 
 import pytest
 import torch_threads  # noqa: F401 (caps torch's threads)
@@ -46,6 +55,7 @@ globals().update(carried_cases(
                                          "utils.resilience")),
     "port_tutoring_pool"))
 
+REPO = Path(__file__).resolve().parent.parent
 HOMEWORK = "Homework 2: implement a B-tree with insert and split"
 
 
@@ -147,3 +157,80 @@ def test_pool_places_each_query_where_jax_does(fleet_size):
     assert port == ref
     if fleet_size > 1:
         assert len({r["order"][0]["address"] for r in port[0]}) > 1
+
+
+def test_two_group_processes_from_the_deployment_file(tmp_path):
+    from distributed_lms_raft_llm_tpu_torch.client import LMSClient
+    from distributed_lms_raft_llm_tpu_torch.lms.group_router import (
+        stable_hash,
+    )
+    from distributed_lms_raft_llm_tpu_torch.serving import lms_cluster
+
+    bases, stride, metrics_ports = lms_cluster.free_group_ports(3, 2, 3)
+    changes = {("cluster", "data_dir"): str(tmp_path / "data")}
+    for i in (1, 2, 3):
+        changes[("cluster.nodes", str(i))] = f"127.0.0.1:{bases[i - 1]}"
+    for i in (4, 5):
+        changes[("cluster.nodes", str(i))] = lms_cluster.REMOVE
+    for key in ("model", "checkpoint", "vocab"):
+        changes[("gate", key)] = lms_cluster.REMOVE
+    changes.update({("groups", "count"): 2,
+                    ("groups", "port_stride"): stride,
+                    ("groups", "secret"): "two-group-test"})
+    path, applied = lms_cluster.deployment_copy(
+        str(REPO / "configs" / "cluster.toml"), str(tmp_path), changes)
+    assert "[groups] count = 2 (added)" in applied
+    procs = [lms_cluster.LMSProcess(
+        path, i, metrics_port=metrics_ports[i - 1], device="cpu",
+        log_dir=str(tmp_path / "logs")).start() for i in (1, 2, 3)]
+    client = None
+    try:
+        def topologies():
+            docs = []
+            for p in procs:
+                if not lms_cluster.health(p.metrics_port):
+                    return None
+                docs.append(lms_cluster.http_json(p.metrics_port,
+                                                  "/admin/raft")[1])
+            leaders = [{gid: g["leader"] for gid, g in d["groups"].items()}
+                       for d in docs]
+            ok = all(set(lead) == {"0", "1"} and all(lead.values())
+                     for lead in leaders) and len(
+                {tuple(sorted(lead.items())) for lead in leaders}) == 1
+            return docs if ok else None
+
+        docs, _ = lms_cluster.wait_for(topologies, 30, alive=procs)
+        for doc in docs:
+            assert doc["routing_map"]["n_groups"] == 2
+            for gid, group in doc["groups"].items():
+                assert len(group["members"]) == 3
+                assert group["term"] >= 1
+            ports = [int(a.rsplit(":", 1)[1])
+                     for a in doc["groups"]["1"]["members"].values()]
+            assert ports == [b + stride for b in bases]
+        code, body = lms_cluster.http_json(
+            procs[0].metrics_port, "/admin/reshard",
+            body={"course": "cs451", "to_group": 1})
+        assert (code, body) == (400, {
+            "error": "resharding is not enabled on this deployment"})
+        users = {}
+        for i in range(64):
+            users.setdefault(stable_hash(f"u{i}") % 2, f"u{i}")
+        client = LMSClient([f"127.0.0.1:{b}" for b in bases],
+                           discovery_backoff_s=0.2)
+        for gid in (0, 1):
+            name = users[gid]
+            assert client.register(name, "pw", "student").success
+            assert client.login(name, "pw")
+            assert client.upload_assignment(f"{name}.pdf",
+                                            pdf.make_pdf(f"{name} hw"))
+            client.logout()
+        assert client.register("prof", "pw", "instructor").success
+        assert client.login("prof", "pw")
+        assert sorted(e.id for e in client.student_assignments()) == sorted(
+            users.values())
+    finally:
+        if client is not None:
+            client.close()
+        for p in procs:
+            p.stop()

@@ -421,33 +421,62 @@ def test_cli_takes_the_jax_names_and_defaults(argv, field, want):
 # What the port does not carry, and how it is refused: as an unknown flag
 # (argparse exits), or by `engine_from_args` with a clear error. (--scoring,
 # the telemetry flags and --config are served since the scoring tenant and
-# the file-driven start were ported; tp/ep above 1 and approximate top-k,
-# by flag or from the file, take their places.)
+# the file-driven start were ported; --strict-dispatch and approximate
+# top-k since the node's surface was finished: tp/ep above 1 from the file
+# and --jax-platform with its other value take their places.)
 _REFUSED = {
-    "--strict-dispatch": (SystemExit, None),
-    "--jax-platform": (SystemExit, None),
-    "--approx-topk": (ValueError, "approximate top-k"),
-    "--tp": (NotImplementedError, "tp"),
-    "--ep": (NotImplementedError, "ep"),
-    "--config": (ValueError, "approximate top-k"),
+    "--config tp.toml": (NotImplementedError, "tp"),
+    "--jax-platform cpu": (SystemExit, None),
+    "--config ep.toml": (NotImplementedError, "ep"),
+    "--tp 2": (NotImplementedError, "tp"),
+    "--ep 2": (NotImplementedError, "ep"),
+    "--jax-platform default": (SystemExit, None),
 }
 
 
+def _node_files(tmp_path):
+    (tmp_path / "approx.toml").write_text("[sampling]\napprox_top_k = true\n")
+    (tmp_path / "tp.toml").write_text("[tutoring]\ntp = 2\n")
+    (tmp_path / "ep.toml").write_text("[tutoring]\nep = 2\n")
+
+
 @pytest.mark.parametrize("flag", [
-    ["--strict-dispatch"], ["--jax-platform", "cpu"], ["--approx-topk"],
-    ["--tp", "2"], ["--ep", "2"], ["--config", "approx.toml"],
+    ["--config", "tp.toml"], ["--jax-platform", "cpu"],
+    ["--config", "ep.toml"], ["--tp", "2"], ["--ep", "2"],
+    ["--jax-platform", "default"],
 ])
 def test_cli_refuses_what_the_port_does_not_implement(flag, tmp_path,
                                                         monkeypatch):
     """A JAX flag or file setting the port does not carry is refused,
     never accepted and ignored."""
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "approx.toml").write_text("[sampling]\napprox_top_k = true\n")
-    error, match = _REFUSED[flag[0]]
+    _node_files(tmp_path)
+    error, match = _REFUSED[" ".join(flag)]
     with pytest.raises(error, match=match):
         args = tutoring_server.resolve_args(
             flag + ["--device", "cpu", "--model", "tiny"])
         tutoring_server.engine_from_args(args)
+
+
+@pytest.mark.parametrize("flag,strict,approx", [
+    (["--strict-dispatch"], True, False),
+    (["--approx-topk"], False, True),
+    (["--config", "approx.toml"], False, True),
+])
+def test_cli_accepts_strict_dispatch_and_approx_topk(flag, strict, approx,
+                                                     tmp_path, monkeypatch):
+    """What the port once refused builds a node now: --strict-dispatch is
+    a flag of the node (turned on after warmup, `main`), and approximate
+    top-k, by flag or from the file, reaches the engine's sampling (which
+    computes the exact top-k)."""
+    monkeypatch.chdir(tmp_path)
+    _node_files(tmp_path)
+    args = tutoring_server.resolve_args(
+        flag + ["--device", "cpu", "--model", "tiny", "--max-new-tokens",
+                "16"])
+    assert (args.strict_dispatch, args.approx_topk) == (strict, approx)
+    engine = tutoring_server.engine_from_args(args)
+    assert engine.config.sampling.approx_top_k is approx
 
 
 def _trace_workload(mod):
