@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--out FILE] [--checkpoint F --vocab F --merges F]
                           [--gate-checkpoint F --gate-vocab F]
 
-Needs one NVIDIA GPU and this checkout beside the script (phases 8, 11
-and 11b read configs/cluster.toml).
+Needs one NVIDIA GPU and this checkout beside the script (phases 8, 11,
+11b and 12 read configs/cluster.toml).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -79,7 +79,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    while the admission graphs still hold theirs), and a `torch.profiler`
    window beside
    phase 4b's, holding no more of the port's kernels than counted; then
-   float32 (dense and int8 cache) greedy tokens of the
+   float32 (int8 cache, the 24 requests; dense cache, 12 of them: the 8
+   course prompts and 4 bare questions) greedy tokens of the
    deployment config equal to the sequential config's, prefix hits
    included (in bf16 the share that agrees and the first divergences are
    reported, and each prompt's flip logits through the 32-token admission
@@ -292,6 +293,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    through `python -m distributed_lms_raft_llm_tpu_torch.client.cli`
    with piped stdin (register, log in, post, ask: the direct answer);
    launches over the phase exact as in phase 11.
+12. fine-tune and serve: a course directory written from the seed (notes
+   of phases 4c, 6 and 11's course texts and the questions, cut to 18
+   batches of 8 x 128 byte tokens; a PDF made by `utils/pdf.make_pdf`; a
+   file the loader ignores); GPT-2 small at full width (bf16 compute,
+   float32 params) trained 2 epochs (36 steps) through the trainer's
+   entry point (`train.train.main`, the `python -m
+   distributed_lms_raft_llm_tpu_torch.train.train` CLI, in process) with
+   a checkpoint and an export: every loss finite, every gradient norm
+   above 0, the last loss below 0.8x the first, the sidecar's step 36;
+   the median step ms after the first 3 steps, tokens/s and the peak
+   allocation reported; resume: the first epoch run by `fit` with the
+   CLI's schedule and checkpointed, then the CLI in a fresh process
+   resumes it to step 36, its checkpoint bit-equal to the straight run's,
+   leaf by leaf; the export read back through `convert.gpt2_params_from_hf`
+   gives float32 logits over a framed question within 1e-5 of their range
+   of the trained params'; a node from configs/cluster.toml (the
+   deployment's `[tutoring]`, greedy) with `--checkpoint` on the export
+   answers the 8 questions over `GetLLMAnswer`, each equal to its engine's
+   direct greedy answer, launches exact through the replays (append =
+   12 x decode calls, int8 = 49 x model calls on the tensor cores), no
+   capture while serving; how far greedy decoding continues the corpus
+   from a 256-byte prefix (reported); in float32 the deployment engine on
+   the export gives the kernel path's greedy tokens equal to the plain
+   path's; then gpt2-moe 4 steps on the corpus's first batches (losses,
+   `moe_balance` and gradient norms finite, norms above 0), its native
+   export read back through `moe.params_from_hf` with equal float32
+   logits.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -1878,6 +1906,9 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
     # diverge are reported, not held; the flip logits witness below holds
     # the admission route to the cold prefill's accuracy instead.
     f32_checks = []
+    # The dense-cache float32 run takes 12 of the 24 requests: the 8
+    # course prompts (its prefix hits) and 4 bare questions.
+    dense_batches = (wave1[:1], wave1[1:5] + wave2[:len(COURSE_QUESTIONS) - 1])
     for dtype, kv_quant in ((torch.float32, True), (torch.float32, False),
                             (torch.bfloat16, True)):
         toks = {}
@@ -1890,7 +1921,8 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
                        kv_quant=kv_quant)), **kw)
             if e.cuda_graphs:
                 e.warmup()
-            toks[name] = engine_tokens(e, *batches)
+            toks[name] = engine_tokens(
+                e, *(batches if kv_quant else dense_batches))
             if name == "deployment":
                 hits = e.pop_prefix_stats()
                 if dtype == torch.bfloat16:
@@ -4648,6 +4680,417 @@ def grouped_lms_phase(torch, attention, quant_matmul, ctx) -> dict:
             c.close()
 
 
+# ------------------------------- phase 12: fine-tune and serve
+
+TRAIN_MODEL = "gpt2"         # GPT-2 small at full width: bf16 compute, f32
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # params (the trainer CLI's defaults)
+TRAIN_EPOCHS = 2
+TRAIN_STEPS_PER_EPOCH = 18   # the course directory is written to this size
+TRAIN_LOSS_DROP = 0.8        # the last logged loss below 0.8x the first
+TRAIN_TIMED_AFTER = 3        # step ms: the median after the first 3 steps
+EXPORT_LOGIT_TOL = 1e-5      # of the logits' range (tests/test_train.py)
+MOE_TRAIN = "gpt2-moe"
+MOE_TRAIN_STEPS = 4
+CONTINUATION_PREFIX = 256    # corpus bytes the continuation starts from
+CONTINUATION_TOKENS = 32
+
+
+def course_directory(directory: Path, seed: int) -> str:
+    """Phase 12's course material, written from the seed: `notes.txt` (the
+    course texts of phases 4c, 6 and 11 and the 16 questions, in a seeded
+    order each round) cut so the packed corpus fills exactly
+    TRAIN_STEPS_PER_EPOCH batches of TRAIN_BATCH x TRAIN_SEQ byte tokens,
+    `slides.pdf` (`utils/pdf.make_pdf` of the gate's notes) and a file
+    the loader ignores. Returns the notes' text."""
+    import random
+
+    from distributed_lms_raft_llm_tpu_torch.utils import pdf
+
+    rng = random.Random(seed)
+    paragraphs = [COURSE_CONTEXT.strip(), LMS_COURSE_TEXT, GATE_NOTES.strip()]
+    paragraphs += [f"Q: {q}" for q in COURSE_QUESTIONS + QUESTIONS]
+    slides = pdf.make_pdf(GATE_NOTES)
+    slide_bytes = len(pdf.extract_text(slides).encode())
+    # notes + EOS + slides' text + EOS fill the epoch's batches and one
+    # block more, which no batch takes.
+    blocks = TRAIN_STEPS_PER_EPOCH * TRAIN_BATCH + 1
+    size = blocks * TRAIN_SEQ - slide_bytes - 2
+    rounds = []
+    while sum(len(r) + 1 for r in rounds) < size:
+        rng.shuffle(paragraphs)
+        rounds.append("\n".join(paragraphs))
+    notes = "\n".join(rounds)[:size]
+    directory.mkdir(parents=True)
+    (directory / "notes.txt").write_text(notes)
+    (directory / "slides.pdf").write_bytes(slides)
+    (directory / "scores.bin").write_bytes(bytes(range(256)))  # ignored
+    return notes
+
+
+def median_step_ms(history) -> float:
+    return statistics.median(h["step_ms"]
+                             for h in history[TRAIN_TIMED_AFTER:])
+
+
+def export_logits_err(torch, params, reloaded, cfg, ids) -> dict:
+    """float32 logits of the trained params and of the export read back,
+    over `ids`: their largest difference beside the logits' range."""
+    from distributed_lms_raft_llm_tpu_torch.models import gpt2
+
+    x = torch.as_tensor([ids], device="cuda")
+    with torch.no_grad():
+        want = gpt2.forward(params, cfg, x)[0]
+        got = gpt2.forward(reloaded, cfg, x)[0]
+    span = float(want.max() - want.min())
+    err = float((got - want).abs().max())
+    return {"max_abs_err": err, "logit_range": span,
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def train_phase(torch, attention, quant_matmul, args, card) -> dict:
+    """Phase 12: GPT-2 small fine-tuned at full width through the port's
+    trainer on course material written from the seed, resumed, exported,
+    and served by a tutoring node from configs/cluster.toml; then gpt2-moe
+    a few steps (see the module docstring)."""
+    import concurrent.futures
+    import shutil
+
+    import grpc
+    import numpy as np
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        PagedEngine,
+        SamplingParams,
+    )
+    from distributed_lms_raft_llm_tpu_torch.models import (
+        convert,
+        gpt2,
+        moe,
+        registry,
+    )
+    from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2, rpc
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+    from distributed_lms_raft_llm_tpu_torch.train import checkpoint as ckpt
+    from distributed_lms_raft_llm_tpu_torch.train import train as trainer
+    from distributed_lms_raft_llm_tpu_torch.train.data import (
+        DataConfig,
+        PackedDataset,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import (
+        ByteTokenizer,
+    )
+
+    t_phase = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="phase12-"))
+    node = None
+    record = {"card": card}
+    try:
+        course = tmp / "course"
+        notes = course_directory(course, args.seed)
+        ck_a = str(tmp / "straight.safetensors")
+        ck_b = str(tmp / "resumed.safetensors")
+        export = str(tmp / "model.safetensors")
+        argv = ["--data", str(course), "--model", TRAIN_MODEL,
+                "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+                "--epochs", str(TRAIN_EPOCHS), "--log-every", "1",
+                "--device", "cuda"]
+
+        # (a) Train straight through the CLI's entry point, in process
+        # (the step times and the peak allocation are this process's).
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        straight = trainer.main(argv + ["--checkpoint", ck_a,
+                                        "--export", export])
+        train_s = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        hist, steps = straight["history"], straight["step"]
+        losses = [h["loss"] for h in hist]
+        gnorms = [h["grad_norm"] for h in hist]
+        check(steps == TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+              and [h["step"] for h in hist] == list(range(1, steps + 1)),
+              f"phase 12: trained {steps} steps, logged "
+              f"{[h['step'] for h in hist]}")
+        check(all(math.isfinite(x) for x in losses + gnorms)
+              and all(g > 0 for g in gnorms),
+              f"phase 12: losses {losses}, gradient norms {gnorms}")
+        check(losses[-1] < TRAIN_LOSS_DROP * losses[0],
+              f"phase 12: the loss went from {losses[0]} to {losses[-1]}")
+        check(ckpt.latest_step(ck_a) == steps,
+              f"phase 12: the sidecar says step {ckpt.latest_step(ck_a)}")
+        step_ms = median_step_ms(hist)
+        record["train"] = dict(
+            steps=steps, seconds=train_s, step_ms_median=step_ms,
+            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+            step_ms_first=[h["step_ms"] for h in hist[:TRAIN_TIMED_AFTER]],
+            max_memory_allocated=peak, loss_first=losses[0],
+            loss_last=losses[-1], grad_norm_first=gnorms[0],
+            grad_norm_last=gnorms[-1], batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            corpus_bytes=len(notes.encode()))
+        emit("train_straight", card=card, **record["train"])
+
+        # (b) Resume: the first epoch in process with the same schedule
+        # (main's), then the CLI in a fresh process resumes it to the end;
+        # the two states must be bit-equal.
+        _, model_cfg = registry.resolve(TRAIN_MODEL, torch.bfloat16,
+                                        torch.float32)
+        dataset = PackedDataset.from_paths(
+            [str(course)], ByteTokenizer(),
+            DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+        check(dataset.steps_per_epoch() == TRAIN_STEPS_PER_EPOCH,
+              f"phase 12: {dataset.steps_per_epoch()} steps an epoch")
+        train_cfg = trainer.TrainConfig(warmup_steps=max(1, steps // 20),
+                                        decay_steps=max(2, steps))
+        half = trainer.fit("cuda", model_cfg, train_cfg, dataset, epochs=1,
+                           checkpoint_path=ck_b)
+        check(half["step"] == TRAIN_STEPS_PER_EPOCH
+              == ckpt.latest_step(ck_b), "phase 12: the half run")
+        del half
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PACKAGE}.train.train", *argv,
+             "--checkpoint", ck_b], cwd=str(REPO), capture_output=True,
+            text=True, timeout=600, env=dict(
+                os.environ, PYTHONPATH=os.pathsep.join(
+                    [str(REPO)] + [p for p in [os.environ.get(
+                        "PYTHONPATH")] if p])))
+        resume_s = time.monotonic() - t0
+        check(proc.returncode == 0 and f"resumed from {ck_b} at step "
+              f"{TRAIN_STEPS_PER_EPOCH}" in proc.stderr,
+              f"phase 12: the resumed CLI run failed ({proc.returncode}):\n"
+              f"{proc.stderr[-3000:]}")
+        check(ckpt.latest_step(ck_b) == steps,
+              f"phase 12: the resumed run ended at "
+              f"{ckpt.latest_step(ck_b)}, the straight run at {steps}")
+        a, b = convert.load_safetensors(ck_a), convert.load_safetensors(ck_b)
+        check(list(a) == list(b), "phase 12: the two checkpoints' leaves")
+        differ = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                  for k in a if not np.array_equal(a[k], b[k])}
+        check(not differ, f"phase 12: the resumed state differs from the "
+              f"straight run's: {differ}")
+        record["resume"] = dict(bit_equal=True, leaves=len(a),
+                                subprocess_s=resume_s)
+        del a, b
+        os.remove(ck_b)
+        emit("train_resume", **record["resume"])
+
+        # (c) The export read back through the serving converter: float32
+        # logits over one framed question equal the trained params'.
+        tok = ByteTokenizer()
+        ids = tok.encode(PROMPT_TEMPLATE.format(query=QUESTIONS[0]))
+        cfg32 = gpt2.GPT2Config.small(dtype=torch.float32,
+                                      param_dtype=torch.float32)
+        reloaded = convert.gpt2_params_from_hf(
+            convert.load_safetensors(export), cfg32, device="cuda")
+        record["export"] = export_logits_err(
+            torch, straight["state"]["params"], reloaded, cfg32, ids)
+        check(record["export"]["finite"] and record["export"]["max_abs_err"]
+              <= EXPORT_LOGIT_TOL * record["export"]["logit_range"],
+              f"phase 12: export logits {record['export']}")
+        emit("train_export", **record["export"])
+        del straight, reloaded
+        torch.cuda.empty_cache()
+
+        # (d) Serve the export: a node from configs/cluster.toml with
+        # --checkpoint, greedy; 8 GetLLMAnswer calls equal its engine's
+        # direct answers; launches exact through the replays.
+        node_args = tutoring_server.resolve_args([
+            "--config", str(REPO / "configs" / "cluster.toml"),
+            "--checkpoint", export, "--vocab", "", "--merges", "",
+            "--seed", str(args.seed), "--port", "0"])
+        node_args.sampling_overrides = dict(GREEDY)
+        node_args.scoring = False
+        check(node_args.model == TRAIN_MODEL and node_args.paged
+              and node_args.quant == "int8" and node_args.kv_quant
+              and node_args.slots == 16 and node_args.megastep == 4
+              and node_args.megastep_max == 8 and node_args.prefix_cache
+              and node_args.prefill_chunk_tokens == 32,
+              f"phase 12: configs/cluster.toml did not resolve to the "
+              f"deployment config: {vars(node_args)}")
+        eng = tutoring_server.engine_from_args(node_args)
+        cfg = eng.cfg
+        trained_wpe = convert.load_safetensors(export)["wpe.weight"]
+        check(isinstance(eng, PagedEngine) and eng.cuda_graphs and eng.fused
+              and cfg.quant_kv and cfg.dtype == torch.bfloat16
+              and cfg.num_layers == 12 and cfg.hidden_size == 768
+              and torch.equal(eng.params["wpe"].cpu(), torch.from_numpy(
+                  trained_wpe.copy()).to(torch.bfloat16)),
+              f"phase 12: not the deployment engine on the export: {cfg}")
+        warm_s = eng.warmup()
+        prompts = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]
+        rids = [eng.submit(p) for p in prompts]
+        for rid in rids:
+            eng.stream_watch(rid)
+        eng.drain()
+        finals = eng.pop_final_tokens()
+        direct = [eng.tokenizer.decode(finals[r]).strip() for r in rids]
+        # How far greedy decoding continues the corpus from a prefix
+        # (reported, not held).
+        prefix = notes[:CONTINUATION_PREFIX]
+        cont = engine_tokens(eng, [prefix])[0][:CONTINUATION_TOKENS]
+        truth = list(notes[CONTINUATION_PREFIX:].encode()[
+            :CONTINUATION_TOKENS])
+        agree = first_divergence(cont, truth)
+        record["continuation"] = dict(
+            tokens=len(cont), equal=sum(x == y for x, y in zip(cont, truth)),
+            prefix_equal=len(cont) if agree is None else agree,
+            text=tok.decode(cont), truth=tok.decode(truth))
+        emit("train_continuation", **record["continuation"])
+
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
+        captures0 = _graph_captures()
+        node = ServingThread(lambda: tutoring_server.serve_args(
+            node_args, eng, host="127.0.0.1"))
+        address = f"127.0.0.1:{node.server._port}"
+
+        def ask(query):
+            t0 = time.monotonic()
+            with grpc.insecure_channel(address) as ch:
+                resp = rpc.TutoringStub(ch).GetLLMAnswer(
+                    lms_pb2.QueryRequest(query=query), timeout=120)
+            return resp, time.monotonic() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(len(QUESTIONS)) as ex:
+            served = list(ex.map(ask, QUESTIONS))
+        node.stop()
+        node = None
+        for (resp, _), want, q in zip(served, direct, QUESTIONS):
+            check(resp.success and resp.response == want,
+                  f"phase 12: the node's answer to {q!r} is not its "
+                  f"engine's direct answer: {resp.response[:200]!r} vs "
+                  f"{want[:200]!r}")
+        launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+        decode_calls = eng.decode_steps - c0[0]
+        model_calls = decode_calls + eng.admission_chunks - c0[1] + (
+            eng.prefill_calls - c0[2])
+        others = {k: v for k, v in attention.launch_counts.items()
+                  if k != attention.APPEND_INT8KV and v}
+        check(decode_calls > 0
+              and launches[attention.APPEND_INT8KV] == 12 * decode_calls
+              and launches[quant_matmul.KERNEL] == 49 * model_calls
+              and launches[quant_matmul.MMA] == 48 * model_calls
+              and launches[quant_matmul.MMA_UNEMBED] == model_calls
+              and launches[quant_matmul.FMA] == 0 and not others,
+              f"phase 12: launches {launches} for {decode_calls} decode "
+              f"and {model_calls} model calls")
+        check(_graph_captures() == captures0,
+              "phase 12: a CUDA graph was captured while serving")
+        record["serve"] = dict(
+            answers_equal=len(served), warm_s=warm_s,
+            answer_chars=[len(a) for a in direct],
+            answer=percentiles([t for _, t in served]),
+            decode_model_calls=decode_calls, model_calls=model_calls,
+            launches=launches)
+        emit("train_serve", **record["serve"])
+        del eng
+        torch.cuda.empty_cache()
+
+        # (e) float32 witness: the deployment engine on the export, kernel
+        # path (graphs, the append kernel, the int8 products on the CUDA
+        # cores) against the plain path (eager, plain attention, both
+        # int8 wrappers' plain versions): equal greedy tokens.
+        f32 = dict(model=TRAIN_MODEL, checkpoint=export, quant="int8",
+                   kv_quant=True, dtype=torch.float32,
+                   param_dtype=torch.float32, seed=args.seed, device="cuda",
+                   sampling=SamplingParams.greedy(max_new_tokens=32))
+        keng = PagedEngine(EngineConfig(fused_attention=True, **f32),
+                           slots=16, chunk=16, inflight=3, megastep=4,
+                           megastep_max=8, prefix_cache=True,
+                           prefix_cache_blocks=512, prefill_chunk_tokens=32)
+        keng.warmup()
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        c0 = (keng.decode_steps, keng.admission_chunks, keng.prefill_calls)
+        kernel_toks = engine_tokens(keng, prompts)
+        launches = {k: v for k, v in {**attention.launch_counts,
+                                      **quant_matmul.launch_counts}.items()
+                    if v}
+        decode_calls = keng.decode_steps - c0[0]
+        model_calls = decode_calls + keng.admission_chunks - c0[1] + (
+            keng.prefill_calls - c0[2])
+        want = {attention.APPEND_INT8KV: 12 * decode_calls,
+                quant_matmul.KERNEL: 49 * model_calls,
+                quant_matmul.FMA: 49 * model_calls}
+        check(decode_calls > 0 and launches == want,
+              f"phase 12 float32 witness: launches {launches} != {want}")
+        del keng
+        torch.cuda.empty_cache()
+        peng = PagedEngine(EngineConfig(fused_attention=False, **f32),
+                           slots=16, chunk=16, inflight=3, cuda_graphs=False)
+        with plain_int8_products(quant_matmul):
+            plain_toks = engine_tokens(peng, prompts)
+        del peng
+        firsts = [first_divergence(x, y)
+                  for x, y in zip(kernel_toks, plain_toks)]
+        record["f32_witness"] = dict(
+            requests=len(prompts), equal=sum(f is None for f in firsts),
+            first_divergence=[f for f in firsts if f is not None],
+            tokens=sum(len(t) for t in kernel_toks),
+            decode_model_calls=decode_calls, model_calls=model_calls,
+            launches=launches)
+        emit("train_f32_witness", **record["f32_witness"])
+        check(record["f32_witness"]["equal"] == len(prompts),
+              f"phase 12 float32 witness: greedy tokens differ between the "
+              f"kernel and the plain path: {firsts}")
+        os.remove(export)
+        torch.cuda.empty_cache()
+
+        # (f) gpt2-moe a few steps on the corpus's first batches, its
+        # native export read back through moe.params_from_hf.
+        _, moe_cfg = registry.resolve(MOE_TRAIN, torch.bfloat16,
+                                      torch.float32)
+        moe_ds = PackedDataset(dataset.blocks[:TRAIN_BATCH * MOE_TRAIN_STEPS],
+                               DataConfig(batch_size=TRAIN_BATCH,
+                                          seq_len=TRAIN_SEQ))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res = trainer.fit("cuda", moe_cfg, trainer.TrainConfig(
+            warmup_steps=1, decay_steps=MOE_TRAIN_STEPS), moe_ds, epochs=1,
+            log_every=1)
+        moe_s = time.monotonic() - t0
+        mhist = res["history"]
+        check(res["step"] == MOE_TRAIN_STEPS and len(mhist) == MOE_TRAIN_STEPS
+              and all(math.isfinite(h["loss"])
+                      and math.isfinite(h["moe_balance"])
+                      and math.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
+                      for h in mhist),
+              f"phase 12 gpt2-moe: {mhist}")
+        moe_path = str(tmp / "moe.safetensors")
+        ckpt.export_model(moe_path, res["state"])
+        moe32 = moe.GPT2MoEConfig.moe_small(dtype=torch.float32,
+                                            param_dtype=torch.float32)
+        back = moe.params_from_hf(convert.load_safetensors(moe_path), moe32,
+                                  device="cuda")
+        moe_export = export_logits_err(torch, res["state"]["params"], back,
+                                       moe32, ids)
+        check(moe_export["finite"] and moe_export["max_abs_err"]
+              <= EXPORT_LOGIT_TOL * moe_export["logit_range"],
+              f"phase 12 gpt2-moe export logits {moe_export}")
+        record["moe"] = dict(
+            steps=res["step"], seconds=moe_s,
+            step_ms=[h["step_ms"] for h in mhist],
+            losses=[h["loss"] for h in mhist],
+            moe_balance=[h["moe_balance"] for h in mhist],
+            grad_norms=[h["grad_norm"] for h in mhist],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            export=moe_export)
+        emit("train_moe", card=card, **record["moe"])
+        del res, back
+        torch.cuda.empty_cache()
+        record["seconds"] = time.monotonic() - t_phase
+        return record
+    finally:
+        if node is not None:
+            node.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _graph_captures() -> int:
     from distributed_lms_raft_llm_tpu_torch.engine import graphs
 
@@ -5132,6 +5575,16 @@ def main(argv=None) -> int:
     phase_s["11b_groups"] = records["lms_groups"]["seconds"]
     phase_s["11_lms"] -= phase_s["11b_groups"]
 
+    # 12. Fine-tune GPT-2 small on course material through the port's
+    # trainer, resume, export, and serve the export through a tutoring
+    # node from configs/cluster.toml; then gpt2-moe a few steps.
+    torch.cuda.empty_cache()
+    records["train"] = train_phase(torch, attention, quant_matmul, args, smi)
+    emit("train", **{k: v for k, v in records["train"].items()
+                     if k in ("card", "seconds", "train", "resume")})
+    train_launches = records["train"]["serve"]["launches"]
+    lap("12_train")
+
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]
     emit("phase_seconds", **phase_s)
@@ -5199,7 +5652,8 @@ def main(argv=None) -> int:
                   "9": llama_launches[attention.APPEND_INT8KV],
                   "10": moe_launches[attention.APPEND_INT8KV],
                   "11": lms_launches[attention.APPEND_INT8KV],
-                  "11b": group_launches[attention.APPEND_INT8KV]}),
+                  "11b": group_launches[attention.APPEND_INT8KV],
+                  "12": train_launches[attention.APPEND_INT8KV]}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],
@@ -5217,7 +5671,8 @@ def main(argv=None) -> int:
                   "9": llama_launches[quant_matmul.KERNEL],
                   "10": moe_launches[quant_matmul.KERNEL],
                   "11": lms_launches[quant_matmul.KERNEL],
-                  "11b": group_launches[quant_matmul.KERNEL]}),
+                  "11b": group_launches[quant_matmul.KERNEL],
+                  "12": train_launches[quant_matmul.KERNEL]}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",
@@ -5228,7 +5683,8 @@ def main(argv=None) -> int:
                   "9": llama_launches[quant_matmul.MMA_UNEMBED],
                   "10": moe_launches[quant_matmul.MMA_UNEMBED],
                   "11": lms_launches[quant_matmul.MMA_UNEMBED],
-                  "11b": group_launches[quant_matmul.MMA_UNEMBED]},
+                  "11b": group_launches[quant_matmul.MMA_UNEMBED],
+                  "12": train_launches[quant_matmul.MMA_UNEMBED]},
               shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],

@@ -70,6 +70,25 @@ def layer_params(params: dict, i: int) -> dict:
             for name, group in params["blocks"].items()}
 
 
+def unbind_layers(params: dict) -> list:
+    """Every layer's weights, as `layer_params` gives them, with each
+    stacked leaf split once (`torch.unbind`): the same views, but a
+    backward pass stacks a leaf's layer gradients in one copy, where
+    indexing layer by layer adds a full-size zero tensor a layer."""
+
+    def split(v):
+        if isinstance(v, dict):
+            parts = {k: torch.unbind(x) for k, x in v.items()}
+            return [dict(zip(parts, layer)) for layer in zip(*parts.values())]
+        return torch.unbind(v)
+
+    groups = {name: {k: split(v) for k, v in group.items()}
+              for name, group in params["blocks"].items()}
+    n = len(next(iter(next(iter(groups.values())).values())))
+    return [{name: {k: v[i] for k, v in group.items()}
+             for name, group in groups.items()} for i in range(n)]
+
+
 def dense(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w (+ b) with w stored [in, out], in x's dtype.
 

@@ -4,9 +4,12 @@ Port of the GPT-2, Llama and BERT parts of
 `distributed_lms_raft_llm_tpu/models/convert.py`.
 
 - `load_safetensors` reads a `.safetensors` file with the standard library
-  and numpy alone (no `safetensors` package);
+  and numpy alone (no `safetensors` package); `save_safetensors` writes
+  one (the same bytes as the JAX package's writer for the same arrays in
+  the same order), atomically;
 - `gpt2_params_from_hf` maps HF GPT-2 names onto the `gpt2.py` tree and
   casts in torch to `cfg.param_dtype` (numpy has no bfloat16);
+  `gpt2_params_to_hf` is its inverse (the trainer's export);
 - `llama_config_from_hf` and `llama_params_from_hf` do the same for an HF
   `LlamaForCausalLM` (linear weights transposed to [in, out]; a tied
   checkpoint without `lm_head.weight` takes the embedding);
@@ -21,6 +24,7 @@ Port of the GPT-2, Llama and BERT parts of
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Any, Dict, Mapping, Optional
 
@@ -66,6 +70,65 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
                              f"{spec['dtype']!r}")
         out[name] = arr.reshape(spec["shape"])
     return out
+
+
+def to_host(x: Any) -> Any:
+    """A tensor or array on the host: numpy, or a CPU torch tensor for
+    bfloat16 (which numpy lacks)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+    return np.asarray(x)
+
+
+def save_safetensors(path: str, tensors: Mapping[str, Any]) -> None:
+    """Write a .safetensors file (the inverse of `load_safetensors`), the
+    tensors in the mapping's order: numpy arrays or torch tensors, bfloat16
+    (torch, or ml_dtypes from JAX) stored as BF16.
+
+    Atomic: the bytes go to `<path>.tmp`, are fsynced, then renamed over
+    `path`, so a crash mid-write leaves the previous file whole (the
+    trainer overwrites one checkpoint path every cadence, and a resume
+    depends on it loading).
+    """
+    name_for = {
+        np.dtype(np.float64): "F64", np.dtype(np.float32): "F32",
+        np.dtype(np.float16): "F16", np.dtype(np.int64): "I64",
+        np.dtype(np.int32): "I32", np.dtype(np.int16): "I16",
+        np.dtype(np.int8): "I8", np.dtype(np.uint8): "U8",
+        np.dtype(np.bool_): "BOOL",
+    }
+    header: Dict[str, Any] = {}
+    blobs = []
+    offset = 0
+    for name, arr in tensors.items():
+        arr = to_host(arr)
+        if isinstance(arr, torch.Tensor):  # torch bfloat16
+            raw = arr.contiguous().view(torch.int16).numpy().tobytes()
+            dtype_name = "BF16"
+        elif arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from JAX
+            raw = arr.view(np.uint16).tobytes()
+            dtype_name = "BF16"
+        else:
+            raw = np.ascontiguousarray(arr).tobytes()
+            dtype_name = name_for[arr.dtype]
+        header[name] = {
+            "dtype": dtype_name,
+            "shape": list(arr.shape),
+            "data_offsets": [offset, offset + len(raw)],
+        }
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+        f.flush()
+        os.fsync(f.fileno())  # durable before the rename, not just ordered
+    os.replace(tmp, path)
 
 
 def to_tensor(x: Any, dtype: Optional[torch.dtype] = None,
@@ -126,6 +189,41 @@ def gpt2_params_from_hf(sd: Mapping[str, Any], cfg: GPT2Config,
         },
         "lnf": {"scale": one("ln_f.weight"), "bias": one("ln_f.bias")},
     }
+
+
+def gpt2_params_to_hf(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of `gpt2_params_from_hf`: the layer axis unstacked back into
+    HF GPT2Model names (no `transformer.` prefix, which both loaders
+    accept), in the JAX package's order, so a fine-tuned model serves
+    through the standard checkpoint path. Takes torch tensors or numpy
+    arrays; returns numpy arrays (CPU torch tensors for bfloat16)."""
+    blocks = params["blocks"]
+    n_layers = blocks["ln1"]["scale"].shape[0]
+    out: Dict[str, Any] = {
+        "wte.weight": to_host(params["wte"]),
+        "wpe.weight": to_host(params["wpe"]),
+        "ln_f.weight": to_host(params["lnf"]["scale"]),
+        "ln_f.bias": to_host(params["lnf"]["bias"]),
+    }
+    per_layer = {
+        "h.{}.ln_1.weight": blocks["ln1"]["scale"],
+        "h.{}.ln_1.bias": blocks["ln1"]["bias"],
+        "h.{}.attn.c_attn.weight": blocks["attn"]["wqkv"],
+        "h.{}.attn.c_attn.bias": blocks["attn"]["bqkv"],
+        "h.{}.attn.c_proj.weight": blocks["attn"]["wo"],
+        "h.{}.attn.c_proj.bias": blocks["attn"]["bo"],
+        "h.{}.ln_2.weight": blocks["ln2"]["scale"],
+        "h.{}.ln_2.bias": blocks["ln2"]["bias"],
+        "h.{}.mlp.c_fc.weight": blocks["mlp"]["wi"],
+        "h.{}.mlp.c_fc.bias": blocks["mlp"]["bi"],
+        "h.{}.mlp.c_proj.weight": blocks["mlp"]["wo"],
+        "h.{}.mlp.c_proj.bias": blocks["mlp"]["bo"],
+    }
+    for fmt, stacked in per_layer.items():
+        arr = to_host(stacked)
+        for i in range(n_layers):
+            out[fmt.format(i)] = arr[i]
+    return out
 
 
 def llama_config_from_hf(hf_config: Mapping[str, Any], **kw) -> LlamaConfig:

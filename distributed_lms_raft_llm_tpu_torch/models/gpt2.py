@@ -8,7 +8,9 @@ PyTorch runs eagerly.
 
 `forward` has four modes:
 
-- full sequence (``cache=None``): causal attention over the input;
+- full sequence (``cache=None``): causal attention over the input; the
+  training path's mode, with the MoE aux channel (``collect_moe_aux``)
+  and per-block rematerialization (``remat``);
 - cached with one scalar offset (``cache.length``): prefill and decode
   write their keys/values into the cache IN PLACE at that offset;
 - cached with per-row offsets (``cache.lengths``, the paged engine's
@@ -49,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike
 from .common import (
@@ -62,6 +65,7 @@ from .common import (
     layer_params,
     merge_heads,
     split_heads,
+    unbind_layers,
 )
 from .common import write_rows as _write_rows
 from .quant import embed_lookup, unembed
@@ -178,12 +182,16 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int,
                           quantized=quantized)
 
 
-def apply_block(x: torch.Tensor, lp: Params, attend_fn,
-                cfg: GPT2Config) -> torch.Tensor:
+def apply_block(x: torch.Tensor, lp: Params, attend_fn, cfg: GPT2Config,
+                collect_aux: bool = False):
     """One transformer block; `attend_fn(q, k_new, v_new) -> context` owns
     cache handling and attention. Blocks whose params carry a `moe`
     subtree instead of `mlp` route the feed-forward through the expert
-    layer (`models/moe.py`): the same trunk, cache and decode paths."""
+    layer (`models/moe.py`): the same trunk, cache and decode paths.
+
+    collect_aux=True returns (x, aux), aux the block's MoE load-balance
+    scalar (a float32 zero for a dense block): the training objective's
+    side channel."""
     eps = cfg.layer_norm_eps
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
     qkv = dense(h, lp["attn"]["wqkv"], lp["attn"]["bqkv"])
@@ -198,10 +206,16 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn,
     if "moe" in lp:
         from . import moe as moe_lib  # moe imports this module
 
+        if collect_aux:
+            y, aux = moe_lib.moe_mlp(h2, lp["moe"], cfg, return_aux=True)
+            return x + y, aux
         return x + moe_lib.moe_mlp(h2, lp["moe"], cfg)
     m = dense(h2, lp["mlp"]["wi"], lp["mlp"]["bi"])
     m = F.gelu(m, approximate="tanh")  # GPT-2 uses the tanh approximation
-    return x + dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"])
+    x = x + dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"])
+    if collect_aux:
+        return x, x.new_zeros((), dtype=torch.float32)
+    return x
 
 
 def forward(
@@ -212,6 +226,8 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     kv_mask: Optional[torch.Tensor] = None,
     write_mask: Optional[torch.Tensor] = None,
+    collect_moe_aux: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the transformer; returns (logits [B, T, V] float32, cache).
 
@@ -258,12 +274,30 @@ def forward(
     if kv_mask is not None:
         mask = mask & kv_mask[:, None, None, :]
 
+    moe_aux = None
     if cache is None:
         attend_full = full_attention(mask)
-        for i in range(cfg.num_layers):
-            x = apply_block(x, layer_params(params, i), attend_full, cfg)
+        if collect_moe_aux:
+            moe_aux = x.new_zeros((), dtype=torch.float32)
+        for lp in unbind_layers(params):
+            args = (x, lp, attend_full, cfg, collect_moe_aux)
+            out = (checkpoint(apply_block, *args, use_reentrant=False)
+                   if remat else apply_block(*args))
+            if collect_moe_aux:
+                x, aux = out
+                moe_aux = moe_aux + aux
+            else:
+                x = out
         new_cache = None
     else:
+        if collect_moe_aux:
+            raise ValueError(
+                "collect_moe_aux is a full-sequence (training) channel; "
+                "the cached decode path does not accumulate it"
+            )
+        if remat:
+            raise ValueError("remat is a full-sequence (training) option; "
+                             "the cached path keeps no activations")
         # The decode step's append kernel (q, k_new, v_new strided views of
         # qkv) is a programmatic dependent of the qkv product just before
         # it, which writes none of lengths, the bias and the older rows.
@@ -280,4 +314,7 @@ def forward(
 
     x = layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"],
                    cfg.layer_norm_eps)
-    return unembed(x, params["wte"]), new_cache
+    logits = unembed(x, params["wte"])
+    if collect_moe_aux:
+        return logits, new_cache, moe_aux / cfg.num_layers
+    return logits, new_cache

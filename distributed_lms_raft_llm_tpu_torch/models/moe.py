@@ -42,8 +42,9 @@ shares its forward (whether it wins a buffer slot), pad and filler rows
 included, so speculative decoding is exact for MoE only at cf >= E; both
 engines refuse spec_tokens below it (`engine/engine.py::check_moe_spec`).
 
-Not ported yet: expert parallelism (`ep`, refused by the engines) and the
-training channel (`forward_with_aux`, `gpt2.forward(collect_moe_aux=)`).
+The training channel is `forward_with_aux` (`gpt2.forward` with
+``collect_moe_aux``: the mean of the layers' load-balance scalars).
+Not ported yet: expert parallelism (`ep`, refused by the engines).
 """
 
 from __future__ import annotations
@@ -227,6 +228,16 @@ def load_balance_loss(params: Params, cfg: GPT2MoEConfig,
 # through moe_mlp when the block params carry a `moe` subtree).
 forward = gpt2.forward
 init_cache = gpt2.init_cache
+
+
+def forward_with_aux(params: Params, cfg: GPT2MoEConfig,
+                     input_ids: torch.Tensor):
+    """Full-sequence forward returning (logits, mean load-balance aux):
+    the training path. One trunk, `gpt2.forward` with its aux side channel
+    on, so the training and serving forwards cannot drift."""
+    logits, _, aux = gpt2.forward(params, cfg, input_ids,
+                                  collect_moe_aux=True)
+    return logits, aux
 
 
 def params_from_hf(sd: Mapping[str, Any], cfg: GPT2MoEConfig,

@@ -287,6 +287,10 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.client.cli\n"
         "import distributed_lms_raft_llm_tpu_torch.client.gui\n"
         "import distributed_lms_raft_llm_tpu_torch.serving.lms_cluster\n"
+        "import distributed_lms_raft_llm_tpu_torch.train\n"
+        "import distributed_lms_raft_llm_tpu_torch.train.train\n"
+        "import distributed_lms_raft_llm_tpu_torch.train.data\n"
+        "import distributed_lms_raft_llm_tpu_torch.train.checkpoint\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -304,7 +308,8 @@ def test_port_imports_no_jax():
                    "lms.service", "lms.tutoring_pool", "lms.persistence",
                    "serving.lms_server", "client.client", "utils.faults",
                    "utils.diskfaults", "utils.pdf", "lms.group_router",
-                   "client.cli", "client.gui", "serving.lms_cluster"):
+                   "client.cli", "client.gui", "serving.lms_cluster",
+                   "train", "train.train", "train.data", "train.checkpoint"):
         assert f"distributed_lms_raft_llm_tpu_torch.{module}" in mods
     jax_mods = [m for m in mods if m == "jax" or m.startswith("jax.")]
     ref_mods = [m for m in mods if m == "distributed_lms_raft_llm_tpu"
