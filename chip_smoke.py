@@ -33,8 +33,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    cores) and float32 (CUDA cores), and the four dense products at the
    relevance gate's M = 128 and 1,024 in bf16,
    timed over more than 100 MB of distinct weight copies so the L2 cannot
-   serve them, plus the 49 products of one decode model call and the 48 of
-   one int8 gate forward at M = 128 and 1,024; GPT-2 medium's five
+   serve them, plus the 49 products of one decode model call, the 48 dense
+   products of one admission chunk (M = 32) and the 48 of one int8 gate
+   forward at M = 128 and 1,024 (bf16 x from 17 rows runs the wgmma route,
+   `ops/csrc/int8_matmul_wgmma.cu`, each such case also held against the
+   plain version and timed on the mma.sync route it replaced there,
+   `int8_matmul_replaced`, and the wgmma route called twice bit-equal);
+   GPT-2 medium's five
    products at M = 16 (K = 1,024) and the append kernel at its 16 heads
    and gpt2-xl's 25; and the expert layer's product
    (`int8_matmul_experts`: gpt2-moe's wi 768 -> 3,072 and wo 3,072 -> 768
@@ -55,9 +60,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (admission mid-decode, the cache widening), greedy twice (equal
    answers) and once with the reference sampling defaults; append-kernel
    (int8 KV) launches = 12 x decode model calls and no other one-row
-   attention variant, int8 matmul launches =
-   49 x model calls, all on the tensor-core route (48 dense and one
-   unembedding a model call); tokens/s, mean TTFT, and a `torch.profiler` window
+   attention variant, int8 matmul launches = 49 x model calls (48 dense
+   and one unembedding), exact by route: decode calls (16 rows) on the
+   mma.sync tiles, prefills (a prompt bucket of rows) on the wgmma ones;
+   tokens/s, mean TTFT, and a `torch.profiler` window
    (device busy share); then the paged engine in float32 with int8 weights,
    with an int8 and with a dense cache, kernel-path greedy tokens equal to
    the plain attention path's;
@@ -72,8 +78,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    generated token, the final K and dead lanes, stalled tokens (0), prefix
    hits (the shared context spliced into all 7 later course slots),
    launches by route counted through the replays (append-kernel attention
-   = 12 x decode model calls, int8 matmul = 49 x model calls, admission
-   chunks included, all on the tensor cores; each graph's kernel nodes
+   = 12 x decode model calls, int8 matmul = 49 x model calls: a decode
+   call's on the mma.sync tiles, an admission chunk's on the wgmma ones;
+   each graph's kernel nodes
    equal its counted launches at capture; each decode chunk graph holds
    one programmatic edge an append launch and no torch append kernel,
    while the admission graphs still hold theirs), and a `torch.profiler`
@@ -126,7 +133,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    weights: phase 4's 8 questions against an assignment text sized for
    each length bucket, one past the 512 positions and an empty one, all
    through each gate (int8 matmul launches = 48 x forwards, all on the
-   tensor cores; none for the others; no attention kernel); bf16
+   wgmma route; none for the others; no attention kernel); bf16
    similarities within 2e-2 of float32's with equal decisions wherever
    float32's is further than that from 0.6, int8's within 0.05; a cache
    hit within 1e-5 of the joint miss in float32 (2e-2 in bf16); the
@@ -169,7 +176,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    capture): the first bulk job after warmup (128 texts of 48 tokens, the
    tenant alone) builds no kernel and grows no allocator segment; one
    quantum (8 texts, M = 512) launches 48 dense and one unembedding int8
-   product on the tensor cores and no attention kernel, with its kernels
+   product on the wgmma route and no attention kernel, with its kernels
    and device busy share under `torch.profiler`; the card's scoring
    saturation at 8 x 256 alone (tokens/s); then 24 questions 0.03 s apart
    through the node's `GetLLMAnswer`, with the tenant OFF and then ON
@@ -204,7 +211,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    TTFT p50/p90, decode model calls, device ms a decode call by idle
    graph replay beside its weights' bytes bound, kernels a decode call,
    launches by route through the replays (append = 32 x decode calls,
-   int8 = 224 dense and 1 unembedding x model calls), peak allocation,
+   int8 = 224 dense and 1 unembedding x model calls, decode calls' on the
+   mma.sync tiles, admission chunks' on the wgmma ones), peak allocation,
    seconds to initialise and to warm; then (d) one scoring quantum at
    8 x 256 (M = 2,048) against the plain logprobs, and a short spec-8
    run of 4 requests (window = 32 x verify calls; a verify call takes
@@ -230,9 +238,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (expert, dense and unembedding products, append, the eager rest),
    kernels a decode call, launches by route through the replays (append =
    12 x decode calls; int8 = 24 expert, 24 dense and 1 unembedding x model
-   calls, all on the tensor cores; each graph's kernel nodes equal its
-   counted launches at capture); (d) one scoring quantum at 8 x 256 (C =
-   640) against the plain logprobs; then the same 16 requests at the file's
+   calls on the mma.sync tiles but an admission chunk's dense products and
+   unembedding (32 rows) on the wgmma ones; each graph's kernel nodes
+   equal its counted launches at capture); (d) one scoring quantum at 8 x
+   256 (C = 640, all 49 products on the wgmma route) against the plain
+   logprobs; then the same 16 requests at the file's
    sampling settings.
 11. the LMS main path (ROADMAP's north star, no JAX anywhere): a copy of
    configs/cluster.toml in a temporary directory with free ports for the
@@ -879,6 +889,53 @@ def counted_launches() -> dict:
                              **quant_matmul.launch_counts})
 
 
+def int8_want(quant_matmul, calls, dense, experts=0, moe_cfg=None) -> dict:
+    """The int8 matmul launches, in all and by route, that bf16 model calls
+    make: `calls` pairs (count, rows), each model call running `dense`
+    dense products and one unembedding over `rows` token rows and, with
+    `experts`, that many expert products at `moe.capacity(moe_cfg, rows)`
+    rows an expert. A product takes the wgmma route from WGMMA_MIN_ROWS
+    rows (of each expert), the mma.sync one below it; none runs on the
+    CUDA cores."""
+    qm = quant_matmul
+    want = {k: 0 for k in (qm.KERNEL, qm.MMA, qm.MMA_UNEMBED,
+                           qm.MMA_EXPERTS, qm.WGMMA, qm.WGMMA_UNEMBED,
+                           qm.WGMMA_EXPERTS, qm.FMA, qm.FMA_EXPERTS)}
+    for count, rows in calls:
+        wide = qm.uses_wgmma(rows)
+        want[qm.WGMMA if wide else qm.MMA] += dense * count
+        want[qm.WGMMA_UNEMBED if wide else qm.MMA_UNEMBED] += count
+        if experts:
+            from distributed_lms_raft_llm_tpu_torch.models import moe
+
+            c = moe.capacity(moe_cfg, rows)
+            want[qm.WGMMA_EXPERTS if qm.uses_wgmma(c)
+                 else qm.MMA_EXPERTS] += experts * count
+        want[qm.KERNEL] += (dense + 1 + experts) * count
+    return want
+
+
+def paged_calls(quant_matmul, eng, decode, admission, prefill,
+                verify=False) -> list:
+    """(count, rows) of a paged engine's model calls: decode calls over its
+    slots (verify calls: slots x (spec + 1) rows), admission chunks of
+    `prefill_chunk` prompt tokens, prefills over a prompt bucket (every
+    bucket on one side of the wgmma crossover, checked, so the prefills'
+    routes are exact without their buckets)."""
+    sides = {quant_matmul.uses_wgmma(b) for b in eng.buckets}
+    check(prefill == 0 or len(sides) == 1,
+          f"prompt buckets {eng.buckets} straddle the wgmma crossover")
+    rows = eng.slots * (eng.spec + 1 if verify else 1)
+    return [(decode, rows), (admission, eng.prefill_chunk),
+            (prefill, min(eng.buckets))]
+
+
+def check_int8_routes(launches, want, what) -> None:
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"{what}: int8 matmul launches by route {got}, want "
+          f"{want}")
+
+
 def check_traced_launches(events, before: dict, what: str) -> dict:
     """The port's kernels the profiler saw on the card, counted by name,
     against the launch counters' deltas over the same window. The trace
@@ -1402,11 +1459,12 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
               f"suffix under the same digest")
     check(decode_calls > 0
           and launches[attention.APPEND_INT8KV]
-          == cfg.num_layers * decode_calls
-          and launches[quant_matmul.KERNEL] == 49 * model_calls
-          and launches[quant_matmul.MMA_UNEMBED] == model_calls,
+          == cfg.num_layers * decode_calls,
           f"streaming: kernel launches {launches} for {decode_calls} decode "
           f"and {model_calls} model calls")
+    check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+        quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
+        eng.prefill_calls - c0[2]), 48), "streaming")
     check(hdpt_watched <= 1.1 * hdpt_unwatched,
           f"streaming: host dispatches per token {hdpt_watched} watched, "
           f"{hdpt_unwatched} unwatched")
@@ -1835,12 +1893,12 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
           f"deployment: decode_attention_append_int8kv launches "
           f"{launches[attention.APPEND_INT8KV]} != {cfg.num_layers} x "
           f"{decode_calls} decode model calls (counted through replays)")
-    check(launches[quant_matmul.KERNEL] == 49 * model_calls
-          and launches[quant_matmul.MMA] == 48 * model_calls
-          and launches[quant_matmul.MMA_UNEMBED] == model_calls
-          and launches[quant_matmul.FMA] == 0,
-          f"deployment: int8 matmul launches {launches} != 49 x "
-          f"{model_calls} model calls on the tensor cores")
+    # by route: a decode call's 49 products on the mma.sync tiles (16
+    # slots), an admission chunk's 49 (32 prompt tokens) on the wgmma ones
+    int8_routes = int8_want(quant_matmul, paged_calls(
+        quant_matmul, eng, decode_calls, adm_calls,
+        eng.prefill_calls - c0[2]), 48)
+    check_int8_routes(launches, int8_routes, "deployment")
     check(all(launches[n] == 0 for n in (
         attention.KERNEL, attention.RAGGED, attention.INT8KV,
         attention.APPEND)),
@@ -2173,16 +2231,17 @@ def gate_phase(torch, attention, quant_matmul, args, streaming) -> dict:
         forwards0 = gate.forwards
         results[name] = [gate.check(q, c) for q, c in pairs]
         forwards = gate.forwards - forwards0
-        mm = {k: quant_matmul.launch_counts[k] for k in (
-            quant_matmul.KERNEL, quant_matmul.MMA, quant_matmul.MMA_UNEMBED,
-            quant_matmul.FMA)}
+        mm = dict(quant_matmul.launch_counts)
         attn = sum(attention.launch_counts.values())
-        want = 48 * forwards if name == "int8" else 0
-        check(forwards == len(pairs) and mm[quant_matmul.KERNEL] == want
-              and mm[quant_matmul.MMA] == want and attn == 0
-              and mm[quant_matmul.MMA_UNEMBED] == mm[quant_matmul.FMA] == 0,
+        # a forward's rows, texts x length bucket (64 or more), take the
+        # wgmma route
+        want = {k: 0 for k in mm}
+        if name == "int8":
+            want[quant_matmul.KERNEL] = want[quant_matmul.WGMMA] = (
+                48 * forwards)
+        check(forwards == len(pairs) and mm == want and attn == 0,
               f"gate {name}: int8_matmul launches {mm}, attention {attn}, "
-              f"for {forwards} forwards (want {want} on the tensor cores)")
+              f"for {forwards} forwards (want {want})")
         run[name].update(forwards=forwards, int8_matmul_launches=mm)
     sims = {name: [s for _, s in res] for name, res in results.items()}
     check(all(math.isfinite(s) and -1.0 - 1e-6 <= s <= 1.0 + 1e-6
@@ -2525,11 +2584,11 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
                                          attention.APPEND,
                                          attention.APPEND_INT8KV)),
           f"spec deployment: another attention variant ran: {launches}")
-    check(launches[quant_matmul.KERNEL] == 49 * model_calls
-          and launches[quant_matmul.MMA] == 48 * model_calls
-          and launches[quant_matmul.FMA] == 0,
-          f"spec deployment: int8 matmul launches {launches} != 49 x "
-          f"{model_calls} model calls on the tensor cores")
+    # by route: a verify call's 16 x 9 rows and an admission chunk's 32 on
+    # the wgmma tiles
+    check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+        quant_matmul, eng, verify_calls, adm_calls,
+        eng.prefill_calls - c0[2], verify=True), 48), "spec deployment")
     check(graphs.captures == captures0,
           "spec deployment: a CUDA graph was captured while serving")
     check(counters.get("decode_stalled_tokens", 0) == 0,
@@ -2945,14 +3004,11 @@ def scoring_phase(torch, attention, quant_matmul, args) -> dict:
     eng.score(corpus[:eng.score_batch_cap])
     torch.cuda.synchronize()
     q_launches = {**attention.launch_counts, **quant_matmul.launch_counts}
-    check(q_launches[quant_matmul.MMA] == 48
-          and q_launches[quant_matmul.MMA_UNEMBED] == 1
-          and q_launches[quant_matmul.FMA] == 0
-          and q_launches[quant_matmul.KERNEL] == 49
-          and not any(attention.launch_counts.values()),
-          f"phase 8: a quantum's launches {q_launches} are not 48 dense and "
-          f"one unembedding int8 product on the tensor cores and no "
-          f"attention kernel")
+    # 8 texts x a length bucket of 32 or more: the wgmma route
+    check_int8_routes(q_launches, int8_want(quant_matmul, [(1, 8 * 32)], 48),
+                      "phase 8 quantum")
+    check(not any(attention.launch_counts.values()),
+          f"phase 8: a quantum launched attention kernels: {q_launches}")
     quantum_profile = profile_quantum(torch, eng,
                                       corpus[:eng.score_batch_cap])
     emit("scoring_quantum", launches=q_launches, **quantum_profile)
@@ -3439,12 +3495,11 @@ def llama_deployment(torch, attention, quant_matmul, args) -> tuple:
           f"phase 9: append-kernel launches "
           f"{launches[attention.APPEND_INT8KV]} != 32 x {decode_calls} "
           f"decode model calls")
-    check(launches[quant_matmul.MMA] == 224 * model_calls
-          and launches[quant_matmul.MMA_UNEMBED] == model_calls
-          and launches[quant_matmul.KERNEL] == 225 * model_calls
-          and launches[quant_matmul.FMA] == 0,
-          f"phase 9: int8 launches {launches} != 224 dense + 1 unembedding "
-          f"x {model_calls} model calls on the tensor cores")
+    # by route: decode calls (16 slots) on the mma.sync tiles, admission
+    # chunks (32 tokens) on the wgmma ones
+    check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+        quant_matmul, eng, decode_calls, adm_calls,
+        eng.prefill_calls - c0[2]), 224), "phase 9")
     check(all(launches[n] == 0 for n in (
         attention.KERNEL, attention.RAGGED, attention.INT8KV,
         attention.APPEND, attention.WINDOW, attention.WINDOW_INT8KV)),
@@ -3487,12 +3542,10 @@ def llama_deployment(torch, attention, quant_matmul, args) -> tuple:
     got = eng.score(texts)
     quantum_s = time.monotonic() - t0
     q_launches = {**attention.launch_counts, **quant_matmul.launch_counts}
-    check(q_launches[quant_matmul.MMA] == 224
-          and q_launches[quant_matmul.MMA_UNEMBED] == 1
-          and q_launches[quant_matmul.FMA] == 0
-          and sum(attention.launch_counts.values()) == 0,
-          f"phase 9: a quantum's launches {q_launches} are not 224 dense "
-          f"and 1 unembedding on the tensor cores, no attention kernel")
+    check_int8_routes(q_launches, int8_want(quant_matmul, [(1, 8 * 256)],
+                                            224), "phase 9 quantum")
+    check(sum(attention.launch_counts.values()) == 0,
+          f"phase 9: a quantum launched attention kernels: {q_launches}")
     with plain_int8_products(quant_matmul):
         plain = eng.score(texts)
     rel = [abs(g["logprob"] - w["logprob"]) / max(abs(w["logprob"]), 1e-9)
@@ -3545,13 +3598,12 @@ def llama_spec(torch, attention, quant_matmul, args) -> tuple:
     tokens = eng.total_generated_tokens - c0[3]
     launches = {**attention.launch_counts, **quant_matmul.launch_counts}
     check(len(answers) == LLAMA_SPEC_REQUESTS and verify_calls > 0
-          and launches[attention.WINDOW_INT8KV] == 32 * verify_calls
-          and launches[quant_matmul.MMA] == 224 * model_calls
-          and launches[quant_matmul.MMA_UNEMBED] == model_calls
-          and launches[quant_matmul.FMA] == 0,
+          and launches[attention.WINDOW_INT8KV] == 32 * verify_calls,
           f"phase 9 spec 8: launches {launches} for {verify_calls} verify "
-          f"and {model_calls} model calls (32 windows a verify call, 225 "
-          f"int8 products a model call wanted)")
+          f"and {model_calls} model calls (32 windows a verify call)")
+    check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+        quant_matmul, eng, verify_calls, eng.admission_chunks - c0[1],
+        eng.prefill_calls - c0[2], verify=True), 224), "phase 9 spec 8")
     run = dict(warmup_s=warm_s, requests=LLAMA_SPEC_REQUESTS, wall_s=wall,
                tokens=tokens,
                tokens_per_s=tokens / wall,
@@ -3858,17 +3910,19 @@ def moe_deployment(torch, attention, quant_matmul, args) -> tuple:
               and all(isinstance(a, str) for a in answers),
               f"phase 10 {name}: expected 16 string answers")
         check(decode_calls > 0
-              and launches[attention.APPEND_INT8KV] == 12 * decode_calls
-              and launches[quant_matmul.MMA_EXPERTS] == 24 * model_calls
-              and launches[quant_matmul.MMA] == 24 * model_calls
-              and launches[quant_matmul.MMA_UNEMBED] == model_calls
-              and launches[quant_matmul.KERNEL] == 49 * model_calls
-              and launches[quant_matmul.FMA] == 0
-              and launches[quant_matmul.FMA_EXPERTS] == 0,
+              and launches[attention.APPEND_INT8KV] == 12 * decode_calls,
               f"phase 10 {name}: launches {launches} for {decode_calls} "
               f"decode and {model_calls} model calls (12 append a decode "
-              f"call; 24 expert, 24 dense and 1 unembedding int8 products "
-              f"a model call, on the tensor cores)")
+              f"call)")
+        # 24 expert, 24 dense and 1 unembedding int8 products a model
+        # call: a decode call's (16 rows, 5 an expert) and an admission
+        # chunk's experts (10 an expert) on the mma.sync tiles, the
+        # chunk's dense products and unembedding (32 rows) on the wgmma
+        # ones
+        check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+            quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
+            eng.prefill_calls - c0[2]), 24, experts=24, moe_cfg=eng.cfg),
+            f"phase 10 {name}")
         check(all(launches[n] == 0 for n in (
             attention.KERNEL, attention.RAGGED, attention.INT8KV,
             attention.APPEND, attention.WINDOW, attention.WINDOW_INT8KV)),
@@ -3900,13 +3954,11 @@ def moe_deployment(torch, attention, quant_matmul, args) -> tuple:
     got = eng.score(texts)
     quantum_s = time.monotonic() - t0
     q_launches = {**attention.launch_counts, **quant_matmul.launch_counts}
-    check(q_launches[quant_matmul.MMA_EXPERTS] == 24
-          and q_launches[quant_matmul.MMA] == 24
-          and q_launches[quant_matmul.MMA_UNEMBED] == 1
-          and q_launches[quant_matmul.FMA] == 0
-          and sum(attention.launch_counts.values()) == 0,
-          f"phase 10: a quantum's launches {q_launches} are not 24 expert, "
-          f"24 dense and 1 unembedding on the tensor cores")
+    check_int8_routes(q_launches, int8_want(
+        quant_matmul, [(1, 8 * 256)], 24, experts=24, moe_cfg=eng.cfg),
+        "phase 10 quantum")
+    check(sum(attention.launch_counts.values()) == 0,
+          f"phase 10: a quantum launched attention kernels: {q_launches}")
     with plain_int8_products(quant_matmul):
         plain = eng.score(texts)
     rel = [abs(g["logprob"] - w["logprob"]) / max(abs(w["logprob"]), 1e-9)
@@ -4370,12 +4422,12 @@ def lms_phase(torch, attention, quant_matmul, args, card) -> dict:
                   if k != attention.APPEND_INT8KV and v}
         check(decode_calls > 0
               and launches[attention.APPEND_INT8KV] == 12 * decode_calls
-              and launches[quant_matmul.KERNEL] == 49 * model_calls
-              and launches[quant_matmul.MMA] == 48 * model_calls
-              and launches[quant_matmul.MMA_UNEMBED] == model_calls
-              and launches[quant_matmul.FMA] == 0 and not others,
+              and not others,
               f"phase 11: launches {launches} for {decode_calls} decode "
               f"and {model_calls} model calls")
+        check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+            quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
+            eng.prefill_calls - c0[2]), 48), "phase 11")
         check(_graph_captures() == captures0,
               "phase 11: a CUDA graph was captured while serving")
         record.update(
@@ -4653,12 +4705,12 @@ def grouped_lms_phase(torch, attention, quant_matmul, ctx) -> dict:
                   if k != attention.APPEND_INT8KV and v}
         check(decode_calls > 0
               and launches[attention.APPEND_INT8KV] == 12 * decode_calls
-              and launches[quant_matmul.KERNEL] == 49 * model_calls
-              and launches[quant_matmul.MMA] == 48 * model_calls
-              and launches[quant_matmul.MMA_UNEMBED] == model_calls
-              and launches[quant_matmul.FMA] == 0 and not others,
+              and not others,
               f"phase 11b: launches {launches} for {decode_calls} decode "
               f"and {model_calls} model calls")
+        check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+            quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
+            eng.prefill_calls - c0[2]), 48), "phase 11b")
         check(_graph_captures() == captures0,
               "phase 11b: a CUDA graph was captured while serving")
         record.update(
@@ -4973,12 +5025,12 @@ def train_phase(torch, attention, quant_matmul, args, card) -> dict:
                   if k != attention.APPEND_INT8KV and v}
         check(decode_calls > 0
               and launches[attention.APPEND_INT8KV] == 12 * decode_calls
-              and launches[quant_matmul.KERNEL] == 49 * model_calls
-              and launches[quant_matmul.MMA] == 48 * model_calls
-              and launches[quant_matmul.MMA_UNEMBED] == model_calls
-              and launches[quant_matmul.FMA] == 0 and not others,
+              and not others,
               f"phase 12: launches {launches} for {decode_calls} decode "
               f"and {model_calls} model calls")
+        check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+            quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
+            eng.prefill_calls - c0[2]), 48), "phase 12")
         check(_graph_captures() == captures0,
               "phase 12: a CUDA graph was captured while serving")
         record["serve"] = dict(
@@ -5266,6 +5318,11 @@ def main(argv=None) -> int:
     model_call = sweep_int8.int8_model_call()
     emit("int8_matmul_model_call", **model_call)
     records["int8_matmul_model_call"] = model_call
+    # The 48 dense products of one admission chunk (32 prompt tokens, the
+    # wgmma route), beside the route they replaced there.
+    chunk_call = sweep_int8.int8_model_call(m=32, unembed=False)
+    emit("int8_matmul_admission_chunk", **chunk_call)
+    records["int8_matmul_admission_chunk"] = chunk_call
     records["int8_matmul_gate_forward"] = []
     for m in sweep_int8.GATE_ROWS:  # one int8 gate forward's 48 products
         records["int8_matmul_gate_forward"].append(
@@ -5437,20 +5494,20 @@ def main(argv=None) -> int:
                                      for e, (_, p0) in zip(engines, calls0))
     int8kv_launches = attention.launch_counts[attention.APPEND_INT8KV]
     mm_launches = quant_matmul.launch_counts[quant_matmul.KERNEL]
+    quant_matmul_routes_4b = dict(quant_matmul.launch_counts)
     mm_routes = {name: quant_matmul.launch_counts[name] for name in (
-        quant_matmul.MMA, quant_matmul.MMA_UNEMBED, quant_matmul.FMA)}
+        quant_matmul.MMA, quant_matmul.MMA_UNEMBED, quant_matmul.WGMMA,
+        quant_matmul.WGMMA_UNEMBED, quant_matmul.FMA)}
     check(decode_calls > 0
           and int8kv_launches == pcfg.num_layers * decode_calls,
           f"decode_attention_append_int8kv launches {int8kv_launches} != "
           f"{pcfg.num_layers} layers x {decode_calls} decode model calls")
-    check(mm_launches == (4 * pcfg.num_layers + 1) * model_calls,
-          f"int8_matmul launches {mm_launches} != 49 x {model_calls} model "
-          f"calls (prefill included)")
-    check(mm_routes == {quant_matmul.MMA: 4 * pcfg.num_layers * model_calls,
-                        quant_matmul.MMA_UNEMBED: model_calls,
-                        quant_matmul.FMA: 0},
-          f"bf16 int8 products did not all take the tensor-core kernels: "
-          f"{mm_routes} for {model_calls} model calls")
+    # by route: decode calls (16 slots) on the mma.sync tiles, prefills
+    # (a prompt bucket of rows) on the wgmma ones
+    check_int8_routes(quant_matmul.launch_counts, int8_want(
+        quant_matmul, paged_calls(quant_matmul, greedy_paged, decode_calls,
+                                  0, model_calls - decode_calls), 48),
+        "phase 4b")
     check(all(attention.launch_counts[n] == 0 for n in (
         attention.KERNEL, attention.RAGGED, attention.INT8KV,
         attention.APPEND)),
@@ -5604,7 +5661,8 @@ def main(argv=None) -> int:
                   else "decode_attention")
         return dict({
             "name": name, "route": "cuda",
-            "source": f"{PACKAGE}/ops/csrc/{source}.cu",
+            "source": extra.pop("source",
+                                f"{PACKAGE}/ops/csrc/{source}.cu"),
             "replaces": replaces, "launches": launches,
             "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_us"] / 1e3, "plain_ms": case["plain_us"] / 1e3,
@@ -5716,6 +5774,23 @@ def main(argv=None) -> int:
         return next(x for x in expert_cases if x["name"] == "moe.wi"
                     and x["c"] == c and x["dtype"] == dtype)
 
+    def by_path(route):
+        """A route's launches on each path that ran it."""
+        paths = {
+            "4b": quant_matmul_routes_4b, "4c": deploy_launches,
+            "5": records["streaming"]["launches"],
+            "6": records["gate"]["int8"]["int8_matmul_launches"],
+            "7c": spec_launches, "8": records["scoring"]["quantum_launches"],
+            "9": llama_launches,
+            "9_quantum": records["llama"]["deployment"]["score_quantum"][
+                "launches"],
+            "9_spec": llama_spec_launches, "10": moe_launches,
+            "10_quantum": records["moe"]["deployment"]["score_quantum"][
+                "launches"],
+            "11": lms_launches, "11b": group_launches, "12": train_launches}
+        return {k: v.get(route, 0) for k, v in paths.items()
+                if v.get(route, 0)}
+
     moe_ref = ("no Pallas kernel: distributed_lms_raft_llm_tpu/models/"
                "moe.py:164-171 (expert_dense, XLA-fused int8 einsums "
                "ecd,edm->ecm)")
@@ -5733,6 +5808,57 @@ def main(argv=None) -> int:
               "float32 (CUDA cores)",
               library_note=expert_case("float32")["library_note"],
               launches_path="10's float32 witness (8 a model call)"),
+    ]
+    # The wgmma route (csrc/int8_matmul_wgmma.cu), bf16 x from
+    # WGMMA_MIN_ROWS rows: its times beside the mma.sync route it replaced
+    # there (old_kernel_ms) at the main path's shapes.
+    chunk_err = max(c["max_abs_err"] for c in mm_cases
+                    if c["m"] == 32 and c["dtype"] == "bfloat16"
+                    and not c["transposed"])
+    wide_unembed = next(c for c in mm_cases if c["name"] == "wte.unembed"
+                        and c["m"] == 32 and c["dtype"] == "bfloat16")
+    wide_experts = expert_case("bfloat16", c=640)
+    wgmma_src = f"{PACKAGE}/ops/csrc/int8_matmul_wgmma.cu"
+    kernels += [
+        entry(quant_matmul.WGMMA, "no Pallas kernel: "
+              "distributed_lms_raft_llm_tpu/models/common.py:58-60 (dense, "
+              "an XLA-fused int8 einsum)",
+              deploy_launches[quant_matmul.WGMMA],
+              dict(chunk_call, max_abs_err=chunk_err,
+                   bound_by="bytes"),
+              source=wgmma_src,
+              shape="the 48 dense products of one admission chunk, M=32, "
+              "bf16", old_kernel_ms=chunk_call["replaced_us"] / 1e3,
+              replaced_variant=quant_matmul.MMA,
+              library_note="cuBLAS torch.matmul against weights "
+              "dequantized to bf16 beforehand",
+              launches_path="4c, the deployment (48 an admission chunk)",
+              launches_by_path=by_path(quant_matmul.WGMMA)),
+        entry(quant_matmul.WGMMA_UNEMBED, "no Pallas kernel: "
+              "distributed_lms_raft_llm_tpu/models/quant.py:139-146 (the "
+              "XLA-fused int8 unembedding einsum)",
+              deploy_launches[quant_matmul.WGMMA_UNEMBED], wide_unembed,
+              source=wgmma_src,
+              shape="the tied unembedding 50257 x 768, M=32 (an admission "
+              "chunk), bf16 x, float32 logits",
+              old_kernel_ms=wide_unembed["replaced_us"] / 1e3,
+              replaced_variant=quant_matmul.MMA_UNEMBED,
+              library_note=wide_unembed["library_note"],
+              launches_path="4c, the deployment (1 an admission chunk)",
+              launches_by_path=by_path(quant_matmul.WGMMA_UNEMBED)),
+        entry(quant_matmul.WGMMA_EXPERTS, "no Pallas kernel: "
+              "distributed_lms_raft_llm_tpu/models/moe.py:168-170 "
+              "(expert_dense, XLA-fused int8 einsums ecd,edm->ecm)",
+              records["moe"]["deployment"]["score_quantum"]["launches"].get(
+                  quant_matmul.WGMMA_EXPERTS, 0), wide_experts,
+              source=wgmma_src,
+              shape="gpt2-moe's wi, 8 experts x C=640 rows (a scoring "
+              "quantum of 8 x 256), 768 x 3072, bf16",
+              old_kernel_ms=wide_experts["replaced_us"] / 1e3,
+              replaced_variant=quant_matmul.MMA_EXPERTS,
+              library_note=wide_experts["library_note"],
+              launches_path="10's scoring quantum (24 a quantum)",
+              launches_by_path=by_path(quant_matmul.WGMMA_EXPERTS)),
     ]
     records["kernels"] = kernels
     if args.out:

@@ -42,7 +42,8 @@ _COUNTERS: Tuple[Dict[str, int], ...] = (attention.launch_counts,
 # kernel; the paged decode step's append variants another; its two window
 # variants run the tensor-core window kernel for bf16 q and the CUDA-core
 # one for float32 q; the MoE layer's expert products run kernels of their
-# own names; a device name may be mangled around them).
+# own names; bf16 int8 products from WGMMA_MIN_ROWS rows run the wgmma
+# source's kernels; a device name may be mangled around them).
 ROUTES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "decode_attention": ((attention.KERNEL, attention.RAGGED,
                           attention.INT8KV), ("decode_attention_kernel",)),
@@ -60,6 +61,11 @@ ROUTES: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
                                 ("int8_mma_experts_kernel",)),
     "int8_matmul_fma_experts": ((quant_matmul.FMA_EXPERTS,),
                                 ("int8_matmul_experts_kernel",)),
+    "int8_matmul_wgmma": ((quant_matmul.WGMMA,), ("int8_wgmma_dense_kernel",)),
+    "int8_matmul_wgmma_unembed": ((quant_matmul.WGMMA_UNEMBED,),
+                                  ("int8_wgmma_rows_kernel",)),
+    "int8_matmul_wgmma_experts": ((quant_matmul.WGMMA_EXPERTS,),
+                                  ("int8_wgmma_experts_kernel",)),
 }
 
 

@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # Every kernel source of the port (csrc/<name>.cu).
-KERNELS = ("decode_attention", "int8_matmul")
+KERNELS = ("decode_attention", "int8_matmul", "int8_matmul_wgmma")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

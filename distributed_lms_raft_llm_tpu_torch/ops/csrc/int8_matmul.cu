@@ -45,7 +45,11 @@
 //   skipping empty experts is later work.
 //
 // Two routes, chosen by x's dtype in the wrapper (ops/quant_matmul.py) and
-// nowhere else: there is no fallback from one to the other.
+// nowhere else: there is no fallback from one to the other. bf16 x with
+// quant_matmul.WGMMA_MIN_ROWS rows (of each expert) or more, everything
+// beyond decode's 16 slots, runs csrc/int8_matmul_wgmma.cu instead (a
+// warp-specialised TMA + wgmma kernel); the M > 16 instances here stay
+// built as the variant it replaced (quant_matmul.int8_matmul_replaced).
 //
 // bf16 x: tensor cores (int8_mma_dense_kernel, int8_mma_rows_kernel).
 //   What bounds it. At decode (M = 16 slots) every weight byte is read once

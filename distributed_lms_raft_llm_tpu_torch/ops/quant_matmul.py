@@ -21,11 +21,17 @@ one launch (the MoE layer's expert products, `models/moe.py`):
 - experts:    y [E, C, N] = (x [E, C, K] @ q [E, K, N]) * s [E, 1, N]
               (+ b [E, 1, N]), in x's dtype.
 
-Two routes, by x's dtype: bf16 x (the production dtype) runs the
-tensor-core kernels (`mma.sync` on bf16 converted exactly from int8,
-weights staged by TMA / bulk copies), whose launch `launch_plan` cuts;
-float32 x runs the CUDA-core kernels, whose float32 products the float32
-checks need (tensor cores would round x to TF32).
+Three routes, by x's dtype and rows: bf16 x (the production dtype) runs
+the tensor cores on bf16 converted exactly from int8 (weights staged by
+TMA): up to 16 rows (of each expert; decode) `mma.sync` tiles in
+`csrc/int8_matmul.cu`, whose launch `launch_plan` cuts; from
+WGMMA_MIN_ROWS rows (admission chunks, prefill, verify windows, the gate,
+scoring) the warp-specialised TMA + `wgmma` kernels of
+`csrc/int8_matmul_wgmma.cu`, whose launch `wgmma_plan` cuts. float32 x runs
+the CUDA-core kernels, whose float32 products the float32 checks need
+(tensor cores would round x to TF32). `int8_matmul_replaced` launches the
+`mma.sync` route at any M: the variant the `wgmma` route replaced above 16
+rows, kept to be timed and checked beside it; no main path calls it.
 
 `int8_matmul` and `int8_matmul_experts` dispatch on where x lives: CPU
 tensors take `int8_matmul_reference` / `int8_matmul_experts_reference`
@@ -44,14 +50,19 @@ import torch
 from . import build
 
 KERNEL = "int8_matmul"                    # the source, csrc/int8_matmul.cu
-# Launches are counted in all (KERNEL) and by route: bf16 x on the tensor
-# cores in the dense and the transposed (unembedding) layout, float32 x on
-# the CUDA cores in either layout; the expert layout on either.
+WGMMA_SOURCE = "int8_matmul_wgmma"        # csrc/int8_matmul_wgmma.cu
+# Launches are counted in all (KERNEL, both sources) and by route: bf16 x
+# on the tensor cores (mma.sync up to 16 rows, wgmma from WGMMA_MIN_ROWS)
+# in the dense and the transposed (unembedding) layout, float32 x on the
+# CUDA cores in either layout; the expert layout on each.
 MMA = "int8_matmul_mma"
 MMA_UNEMBED = "int8_matmul_mma_unembed"
 FMA = "int8_matmul_fma"
 MMA_EXPERTS = "int8_matmul_mma_experts"
 FMA_EXPERTS = "int8_matmul_fma_experts"
+WGMMA = "int8_matmul_wgmma"
+WGMMA_UNEMBED = "int8_matmul_wgmma_unembed"
+WGMMA_EXPERTS = "int8_matmul_wgmma_experts"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launch geometry of the tensor-core route. The constants marked csrc must
@@ -73,7 +84,8 @@ ALIGN = 1024           # smem slack: the 128-byte swizzle repeats every 1 KB
 # into it (`engine/graphs.py`). A run resets them, drives the main path, and
 # reads them to show the path went through the kernels.
 launch_counts: Dict[str, int] = {KERNEL: 0, MMA: 0, MMA_UNEMBED: 0, FMA: 0,
-                                 MMA_EXPERTS: 0, FMA_EXPERTS: 0}
+                                 MMA_EXPERTS: 0, FMA_EXPERTS: 0, WGMMA: 0,
+                                 WGMMA_UNEMBED: 0, WGMMA_EXPERTS: 0}
 
 
 def reset_launch_counts() -> None:
@@ -308,6 +320,147 @@ def launch_plan(m: int, k: int, n: int, transposed: bool,
                       tiles_per_block=tiles, x_staged=x_staged)
 
 
+# ---------------------------------------------- the wgmma route's plan
+
+# bf16 x with at least this many rows (of each expert) takes the wgmma
+# route; fewer (decode's 16 slots) keep the mma.sync tile built for them.
+# From 17 rows the wgmma route is the faster at every GPT-2 product (an
+# H100, PERF.md runs FA and FD: at M = 32, 6.6-7.9 us against the mma.sync
+# route's 7.7-10.3, the unembedding 19.2 against 37.9); at 16 the mma.sync
+# tile is as fast or faster but for the unembedding.
+WGMMA_MIN_ROWS = 17
+# Launch geometry of the wgmma route. The constants marked csrc must match
+# csrc/int8_matmul_wgmma.cu.
+WGMMA_COLS = 128        # weight columns (table rows) a tile (csrc kCols)
+WGMMA_BK = 64           # K a ring stage (csrc kBK)
+WGMMA_TILE_ROWS = (32, 64, 128, 256)  # x rows a tile: the compiled instances
+WGMMA_PART_STRIDE = 132  # floats a row of a split's partial tile (csrc)
+WGMMA_MAX_STAGES = 8    # ring depth, at most
+# The plan's cost model, in units of 128 bytes staged by one SM: the
+# kernel is bound by how fast an SM's ring fills (~45 GB/s an SM, about
+# the L2's rate over an H100's 132 SMs; `ops/sweep_int8.py --plans`,
+# PERF.md runs FB-FD), not by its tensor cores. A ring stage moves the
+# weight box (64 units) and bn rows of x (one unit each); a tile adds its
+# epilogue and the ring's fill; a K split adds the cluster's two barriers
+# and, a
+# tile row, the partial tile's 512 bytes that the ranks read through
+# distributed shared memory (slower than the ring fills: 6 units a row).
+# Persistent blocks share the tiles: the busiest block's share sets the
+# time.
+WGMMA_STAGE_COST = 64
+WGMMA_TILE_COST = 300
+WGMMA_SPLIT_COST = 150
+WGMMA_REDUCE_COST = 6
+# Clusters of `splits` blocks (one a SM) an H100 holds at once (csrc
+# int8_matmul_wgmma_cluster_slots, cudaOccupancyMaxActiveClusters, run FC):
+# a cluster must fit one GPC, so wider clusters strand SMs. A K split is
+# planned only where every tile's cluster runs in the first wave.
+WGMMA_CLUSTER_SLOTS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                       8: 15}
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """How one call on the wgmma route is cut (csrc Int8WgmmaArgs): `bn` x
+    rows a tile (wgmma's N), `splits` blocks of one cluster sharing K in
+    `k_stages` stages of WGMMA_BK each (one tile a cluster when splits >
+    1), `stages` ring depth, `grid` blocks (persistent: a block walks tiles
+    b, b + grid, ..), `smem_bytes` of dynamic shared memory, `tiles` output
+    tiles (experts x column tiles x row tiles)."""
+
+    bn: int
+    splits: int
+    k_stages: int
+    stages: int
+    grid: int
+    smem_bytes: int
+    tiles: int
+
+
+def wgmma_stage_bytes(bn: int) -> int:
+    """One ring stage (csrc stage_bytes): the weight box (WGMMA_BK x
+    WGMMA_COLS bytes), then x's box of `bn` rows x WGMMA_BK bf16."""
+    return WGMMA_BK * WGMMA_COLS + bn * WGMMA_BK * 2
+
+
+def wgmma_smem_bytes(bn: int, stages: int, splits: int) -> int:
+    """Dynamic shared memory of one block (csrc smem_bytes): alignment
+    slack, the ring (where K is split, at least the split's partial tile,
+    which reuses it after the K loop), two mbarriers a stage."""
+    ring = stages * wgmma_stage_bytes(bn)
+    if splits > 1:
+        ring = max(ring, bn * WGMMA_PART_STRIDE * 4)
+    return ALIGN + ring + 16 * stages
+
+
+def uses_wgmma(rows: int) -> bool:
+    """Whether bf16 x with `rows` rows (of each expert) takes the wgmma
+    route (the static dispatch; float32 x never does)."""
+    return rows >= WGMMA_MIN_ROWS
+
+
+def wgmma_plans(m: int, k: int, n: int, transposed: bool,
+                experts: int = 1) -> Dict[WgmmaPlan, int]:
+    """Every cut of a bf16 product on the wgmma route that csrc takes, with
+    its cost under the plan's model: `m` rows of x (of each of `experts`),
+    x [m, k] times q [k, n] (dense) or [n, k] (transposed).
+
+    Tile heights from WGMMA_TILE_ROWS up to the first that holds every row;
+    K splits of 1-8 in whole stages, none empty (one cluster, one tile a
+    cluster, only in the dense layouts, only while every cluster fits the
+    first wave, WGMMA_CLUSTER_SLOTS); the ring as deep as shared memory
+    allows, up to WGMMA_MAX_STAGES and to the stages a block walks. The
+    cost: tiles a block x (stages a split x (bn + WGMMA_STAGE_COST) +
+    WGMMA_TILE_COST), plus a split's WGMMA_SPLIT_COST and WGMMA_REDUCE_COST
+    a tile row.
+    """
+    if m < 1 or k < 16 or n < 1 or experts < 1:
+        raise ValueError(f"empty product: M={m}, K={k}, N={n}, "
+                         f"experts={experts}")
+    if transposed and experts > 1:
+        raise ValueError("the transposed layout has no expert batch")
+    kst = -(-k // WGMMA_BK)
+    col_tiles = -(-n // WGMMA_COLS)
+    plans: Dict[WgmmaPlan, int] = {}
+    for bn in WGMMA_TILE_ROWS:
+        if bn > WGMMA_TILE_ROWS[0] and bn // 2 >= m:
+            break  # a lower tile holds every row
+        tiles = experts * col_tiles * -(-m // bn)
+        for splits in sorted({-(-kst // -(-kst // want))
+                              for want in range(1, MAX_SPLIT + 1)}):
+            if splits > 1 and (transposed
+                               or tiles > WGMMA_CLUSTER_SLOTS[splits]):
+                continue
+            per = -(-kst // splits)
+            grid = min(tiles, TARGET_BLOCKS) if splits == 1 else (
+                tiles * splits)
+            # no deeper than the stages a block walks
+            stages = _fit_stages(min(WGMMA_MAX_STAGES,
+                                     per * -(-tiles // grid)),
+                                 lambda st: wgmma_smem_bytes(bn, st, splits))
+            smem = wgmma_smem_bytes(bn, stages, splits)
+            if smem > SMEM_LIMIT:
+                continue
+            plan = WgmmaPlan(bn=bn, splits=splits, k_stages=per,
+                             stages=stages, grid=grid, smem_bytes=smem,
+                             tiles=tiles)
+            cost = -(-tiles // grid) * (per * (bn + WGMMA_STAGE_COST)
+                                        + WGMMA_TILE_COST)
+            if splits > 1:
+                cost += WGMMA_SPLIT_COST + WGMMA_REDUCE_COST * bn
+            plans[plan] = cost
+    return plans
+
+
+def wgmma_plan(m: int, k: int, n: int, transposed: bool,
+               experts: int = 1) -> WgmmaPlan:
+    """Cut a bf16 product on the wgmma route: the cheapest of
+    `wgmma_plans`, the fewer splits and then the taller tile on a tie.
+    Raises on an empty product."""
+    plans = wgmma_plans(m, k, n, transposed, experts)
+    return min(plans, key=lambda p: (plans[p], p.splits, -p.bn))
+
+
 # ------------------------------------------------- fragment index maps
 #
 # The tensor-core kernels permute the mma's n index (dense) or k index
@@ -375,6 +528,44 @@ def table_c_row(lane: int, c: int) -> int:
     """Transposed: the row of accumulator c, whose mma column is
     2t + (c & 1): sigma(2t + (c & 1)) = t + 4 (c & 1)."""
     return (lane & 3) + 4 * (c & 1)
+
+
+# The wgmma route's weight fragments (csrc int8_matmul_wgmma.cu, "The
+# weight as wgmma's A operand"): lane l of warp w (0..3) of consumer
+# warpgroup wg, g = l // 4, t = l % 4, holds A rows 16 w + g and
+# 16 w + g + 8 of its warpgroup's 64, k 2t + h + 8 i of each 16-deep step.
+
+
+def swizzle64(row: int, col: int) -> int:
+    """Byte offset of (row, byte col) of a 64-byte-wide TMA box written
+    with the 64-byte swizzle (csrc swz64): the 16-byte chunk index XOR
+    (row // 2) mod 4."""
+    return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15)
+
+
+def wgmma_dense_column(wg: int, warp: int, lane: int, hi: int) -> int:
+    """Dense and experts: the tile column (weight column) that A row
+    16 warp + g + 8 hi of warpgroup `wg` stands for: the lane reads the
+    16-bit pair of columns c, c + 1, c = 64 wg + 16 warp + 2 g; A row g is
+    column c, A row g + 8 column c + 1."""
+    return 64 * wg + 16 * warp + 2 * (lane >> 2) + hi
+
+
+def wgmma_table_row(wg: int, warp: int, lane: int, hi: int) -> int:
+    """Transposed: the tile's table row of A row 16 warp + g + 8 hi (the
+    identity on the warpgroup's 64 rows)."""
+    return 64 * wg + 16 * warp + (lane >> 2) + 8 * hi
+
+
+def wgmma_x_row(lane: int, reg: int) -> int:
+    """The tile's x row of accumulator `reg` (wgmma's D layout: n8 block
+    reg // 4, column 2t + (reg & 1))."""
+    return 8 * (reg >> 2) + 2 * (lane & 3) + (reg & 1)
+
+
+def wgmma_acc_hi(reg: int) -> int:
+    """Whether accumulator `reg` holds A row g + 8 (1) or g (0)."""
+    return (reg >> 1) & 1
 
 
 # ---------------------------------------------------------------- wrapper
@@ -459,6 +650,23 @@ def int8_matmul_experts(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return _launch_kernel(x, q, s, b, False, experts=True)
 
 
+def int8_matmul_replaced(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                         b: Optional[torch.Tensor] = None,
+                         transposed: bool = False,
+                         experts: bool = False) -> torch.Tensor:
+    """The `mma.sync` tensor-core route at any M, bf16 CUDA tensors only:
+    what bf16 x above 16 rows ran before the wgmma route replaced it there
+    (`experts`: `int8_matmul_experts`'s layout). Kept to be timed and
+    checked beside the new route (chip_smoke.py, ops/sweep_int8.py, the card
+    tests); no main path calls it. Counted under MMA / MMA_UNEMBED /
+    MMA_EXPERTS."""
+    _same_device("int8_matmul_replaced", x, q, s, b)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError(f"int8_matmul_replaced takes bf16 CUDA tensors, not "
+                         f"{x.dtype} on {x.device}")
+    return _launch_kernel(x, q, s, b, transposed, experts, replaced=True)
+
+
 class _Args(ctypes.Structure):
     """The kernel's arguments for one layout (csrc Int8MatmulArgs), built
     once and passed by address."""
@@ -468,17 +676,27 @@ class _Args(ctypes.Structure):
         "stages", "grid_x", "smem", "x_staged", "experts")]
 
 
+class _WgmmaArgs(ctypes.Structure):
+    """The wgmma route's arguments for one layout (csrc Int8WgmmaArgs)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "M", "N", "K", "layout", "experts", "bn", "splits", "k_stages",
+        "stages", "grid", "smem")]
+
+
 @dataclasses.dataclass(frozen=True)
 class _Layout:
     """One validated (shapes, strides, dtypes, bias or not): the kernel's
     arguments (kept alive here; `address` is what is passed; the bf16
-    route's carry its launch plan), the route its launches are counted
-    under, the output's shape and dtype, its rows (all experts'), and
-    which inputs need a per-call conversion (x copied to rows, s to
-    float32, b to x's dtype)."""
+    routes' carry their launch plan), which source's entry point takes
+    them (`wgmma`), the route its launches are counted under, the output's
+    shape and dtype, its rows (all experts'), and which inputs need a
+    per-call conversion (x copied to rows, s to float32, b to x's
+    dtype)."""
 
-    args: _Args
+    args: ctypes.Structure
     address: int
+    wgmma: bool
     route: str
     out_shape: Tuple[int, ...]
     out_dtype: torch.dtype
@@ -496,10 +714,12 @@ _MAX_LAYOUTS = 256
 
 def _kernel_layout(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                    b: Optional[torch.Tensor], transposed: bool,
-                   experts: bool = False) -> _Layout:
+                   experts: bool = False, replaced: bool = False) -> _Layout:
     """Check what the kernels take (everything but the devices and the
     pointers' alignment, which change per call); raise on anything else.
-    `experts`: the expert layout (M is then C, the rows of one expert)."""
+    `experts`: the expert layout (M is then C, the rows of one expert).
+    The route is static: bf16 x from WGMMA_MIN_ROWS rows (of each expert)
+    takes the wgmma route unless `replaced` asks for the mma.sync one."""
     if experts:
         k, n = _check_expert_args(x, q, s, b)
     else:
@@ -515,30 +735,42 @@ def _kernel_layout(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and transposed and k % 64:
-        raise ValueError(f"the bf16 transposed kernel reads K in chunks of "
-                         f"64: K ({k}) must be a multiple of 64")
     n_exp = q.shape[0] if experts else 0
     m = x.shape[1] if experts else (x.numel() // k if k else 0)
     rows = n_exp * m if experts else m
+    wgmma = bf16 and not replaced and uses_wgmma(m)
+    if bf16 and transposed and k % 64 and not wgmma:
+        raise ValueError(f"the bf16 transposed kernel reads K in chunks of "
+                         f"64: K ({k}) must be a multiple of 64")
     x_copy = not x.is_contiguous()
     s_cast = s.dtype != torch.float32 or not s.is_contiguous()
     b_cast = b is not None and (b.dtype != x.dtype or not b.is_contiguous())
-    plan = (launch_plan(m, k, n, transposed, experts=max(n_exp, 1))
-            if bf16 and rows else None)
-    if plan is None:
-        args = _Args(m, n, k, int(transposed), _DTYPE_CODES[x.dtype], 0, 0,
-                     0, 0, 0, 0, 0, n_exp)
+    args: ctypes.Structure
+    if wgmma:
+        wp = wgmma_plan(m, k, n, transposed, experts=max(n_exp, 1))
+        args = _WgmmaArgs(m, n, k, 2 if experts else int(transposed),
+                          max(n_exp, 1), wp.bn, wp.splits, wp.k_stages,
+                          wp.stages, wp.grid, wp.smem_bytes)
     else:
-        args = _Args(m, n, k, int(transposed), 1, plan.mt, plan.splits,
-                     plan.k_split, plan.stages, plan.grid[0],
-                     plan.smem_bytes, int(plan.x_staged), n_exp)
-    if experts:
+        plan = (launch_plan(m, k, n, transposed, experts=max(n_exp, 1))
+                if bf16 and rows else None)
+        if plan is None:
+            args = _Args(m, n, k, int(transposed), _DTYPE_CODES[x.dtype], 0,
+                         0, 0, 0, 0, 0, 0, n_exp)
+        else:
+            args = _Args(m, n, k, int(transposed), 1, plan.mt, plan.splits,
+                         plan.k_split, plan.stages, plan.grid[0],
+                         plan.smem_bytes, int(plan.x_staged), n_exp)
+    if wgmma:
+        route = (WGMMA_EXPERTS if experts else
+                 WGMMA_UNEMBED if transposed else WGMMA)
+    elif experts:
         route = MMA_EXPERTS if bf16 else FMA_EXPERTS
     else:
         route = (MMA_UNEMBED if transposed else MMA) if bf16 else FMA
     out_shape = ((n_exp, m, n) if experts else (*x.shape[:-1], n))
-    return _Layout(args=args, address=ctypes.addressof(args), route=route,
+    return _Layout(args=args, address=ctypes.addressof(args), wgmma=wgmma,
+                   route=route,
                    out_shape=out_shape,
                    out_dtype=torch.float32 if transposed else x.dtype,
                    m=rows, x_copy=x_copy, s_cast=s_cast, b_cast=b_cast)
@@ -546,16 +778,17 @@ def _kernel_layout(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 def _launch_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                    b: Optional[torch.Tensor], transposed: bool,
-                   experts: bool = False) -> torch.Tensor:
+                   experts: bool = False,
+                   replaced: bool = False) -> torch.Tensor:
     """Validate the layout (once per key), launch the route's kernel, count
     the launch."""
     key = (x.shape, x.stride(), x.dtype, q.shape, q.stride(), q.dtype,
            s.shape, s.stride(), s.dtype,
            None if b is None else (b.shape, b.stride(), b.dtype), transposed,
-           experts)
+           experts, replaced)
     lay = _layouts.get(key)
     if lay is None:
-        lay = _kernel_layout(x, q, s, b, transposed, experts)
+        lay = _kernel_layout(x, q, s, b, transposed, experts, replaced)
         if len(_layouts) >= _MAX_LAYOUTS:
             _layouts.clear()
         _layouts[key] = lay
@@ -572,7 +805,7 @@ def _launch_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if (xp | qp) % 16:
         raise ValueError("x and q must be 16-byte aligned (the kernel reads "
                          "16-byte vectors)")
-    launch, stream = _entry_point()
+    launch, stream = _wgmma_entry_point() if lay.wgmma else _entry_point()
     err = launch(lay.address, xp, qp, s.data_ptr(),
                  None if b is None else b.data_ptr(), out.data_ptr(),
                  stream(x.get_device()))
@@ -585,6 +818,7 @@ def _launch_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 
 _bound: Optional[Tuple[Callable[..., int], Callable[[int], int]]] = None
+_wgmma_bound: Optional[Tuple[Callable[..., int], Callable[[int], int]]] = None
 
 
 def _entry_point() -> Tuple[Callable[..., int], Callable[[int], int]]:
@@ -597,3 +831,29 @@ def _entry_point() -> Tuple[Callable[..., int], Callable[[int], int]]:
         fn.restype = ctypes.c_int
         _bound = (fn, torch._C._cuda_getCurrentRawStream)
     return _bound
+
+
+def wgmma_cluster_slots(splits: int, smem: int) -> int:
+    """How many clusters of `splits` blocks of `smem` bytes the card holds
+    at once (cudaOccupancyMaxActiveClusters through csrc); needs the card.
+    What WGMMA_CLUSTER_SLOTS records for the H100."""
+    fn = build.load(WGMMA_SOURCE).int8_matmul_wgmma_cluster_slots
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    got = fn(splits, smem)
+    if got < 0:
+        raise RuntimeError(f"cluster occupancy query failed: CUDA error "
+                           f"{-got}")
+    return got
+
+
+def _wgmma_entry_point() -> Tuple[Callable[..., int], Callable[[int], int]]:
+    """The wgmma route's C launch function (csrc/int8_matmul_wgmma.cu),
+    bound once (built first if needed), and the current-stream getter."""
+    global _wgmma_bound
+    if _wgmma_bound is None:
+        fn = build.load(WGMMA_SOURCE).int8_matmul_wgmma_launch
+        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.restype = ctypes.c_int
+        _wgmma_bound = (fn, torch._C._cuda_getCurrentRawStream)
+    return _wgmma_bound

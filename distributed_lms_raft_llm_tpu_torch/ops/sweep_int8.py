@@ -2,35 +2,39 @@
 gpt2-moe's products on the card.
 
     python -m distributed_lms_raft_llm_tpu_torch.ops.sweep_int8 \\
-        [--dtype bfloat16] [--m 1,16,256] [--splits] [--llama] [--moe]
-        [--out FILE]
+        [--dtype bfloat16] [--m 1,16,256] [--splits] [--plans] [--llama]
+        [--moe] [--out FILE]
 
 For each product (attn.wqkv, mlp.wi, attn.wo, mlp.wo, the tied
 unembedding) and each M: the kernel against its plain version, then the
 kernel's device time (CUDA-graph replay), its eager time (the Python
 wrapper included), the plain version's, and cuBLAS (`torch.matmul`)
 against the weight dequantized to x's dtype beforehand, beside the least
-time the card could take. Consecutive timed calls walk distinct copies of
-the weight, more than 100 MB of them, so the 50 MB L2 cannot hold what
-the next call reads; the dequantized copies are walked the same way. Then
-the 49 products of one decode model call (12 layers of distinct weights,
-124 MB). The relevance gate's products too: BERT-base's four products
-have GPT-2 small's dense shapes, at the gate's rows (texts x length
-bucket, GATE_ROWS), then one int8 gate forward's 48 products at each of
-those M. The scoring tenant's rows (SCORE_ROWS) through all five. With `--llama`:
-Llama-3-8B's seven products and its untied 128,256 x 4,096 unembedding
-(LLAMA_PRODUCTS) at LLAMA_ROWS instead, the deep ones through the
-x-staged plans. With `--moe`: gpt2-moe's two expert products (8 experts,
+time the card could take. Where bf16 x takes the wgmma route (from
+`quant_matmul.WGMMA_MIN_ROWS` rows), the route it replaced there
+(`int8_matmul_replaced`, the mma.sync tiles) is checked against the
+plain version too and timed beside it (`replaced_us`). Consecutive timed
+calls walk distinct copies of the weight, more than 100 MB of them, so
+the 50 MB L2 cannot hold what the next call reads; the dequantized copies
+are walked the same way. Then the 49 products of one decode model call
+(12 layers of distinct weights, 124 MB). The relevance gate's products
+too: BERT-base's four products have GPT-2 small's dense shapes, at the
+gate's rows (texts x length bucket, GATE_ROWS), then one int8 gate
+forward's 48 products at each of those M. The scoring tenant's rows
+(SCORE_ROWS) through all five. With `--llama`: Llama-3-8B's seven
+products and its untied 128,256 x 4,096 unembedding (LLAMA_PRODUCTS) at
+LLAMA_ROWS instead, the deep ones through the x-staged plans. With
+`--moe`: gpt2-moe's two expert products (8 experts,
 `int8_matmul_experts`, one launch for all) at MOE_CAPACITIES rows an
 expert instead, `torch.bmm` over the dequantized experts as the
 yardstick. With `--splits`: the dense products at M=16 at each forced K
-split instead. One JSON line a case, then the card's `nvidia-smi` name
-and power limit.
+split instead. With `--plans`: the wgmma route at PLAN_CASES under each
+plan `quant_matmul.wgmma_plans` offers instead. One JSON line a case,
+then the card's `nvidia-smi` name and power limit.
 
-Uses only `quant_matmul.int8_matmul`/`int8_matmul_reference` (and
-`int8_matmul_experts`/`int8_matmul_experts_reference`), the quantizers and
-`ops/timing.py`, so the file can be copied beside another
-checkout's package to time that checkout's kernel in the same call.
+Uses only `quant_matmul`'s wrappers, routes and plans, the quantizers and
+`ops/timing.py`, so the file can be copied beside another checkout's
+package that has them to time that checkout's kernels in the same call.
 `chip_smoke.py` runs the same cases. Needs a CUDA device.
 """
 
@@ -170,8 +174,11 @@ def int8_matmul_case(*, name, m, dtype, n_layers=12, seed=0):
                     .manual_seed(seed + 1), device="cuda").to(dt)
     bias = [None if b1 is None else b1[i % b1.shape[0]].to(dt)
             for i in range(copies)]
+    route = _route(m, dtype, transposed)
+    before = quant_matmul.launch_counts[route]
     got = quant_matmul.int8_matmul(x, q[0], s[0], bias[0],
                                    transposed=transposed)
+    launched = quant_matmul.launch_counts[route] - before
     want = quant_matmul.int8_matmul_reference(x, q[0], s[0], bias[0],
                                               transposed)
     torch.cuda.synchronize()
@@ -179,10 +186,27 @@ def int8_matmul_case(*, name, m, dtype, n_layers=12, seed=0):
     atol *= want.float().abs().max().item()
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
-    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+    if launched != 1 or not bool(
+            (diff <= atol + rtol * want.float().abs()).all()):
         raise Mismatch(f"int8_matmul disagrees with its plain version at "
                        f"{name} m={m} {dtype}: max abs err {err} (rtol "
-                       f"{rtol}, atol {atol})")
+                       f"{rtol}, atol {atol}), {launched} launches on "
+                       f"{route}")
+    replaced = route in (quant_matmul.WGMMA, quant_matmul.WGMMA_UNEMBED)
+    old_err = None
+    if replaced:
+        old = quant_matmul.int8_matmul_replaced(x, q[0], s[0], bias[0],
+                                                transposed=transposed)
+        again = quant_matmul.int8_matmul(x, q[0], s[0], bias[0],
+                                         transposed=transposed)
+        torch.cuda.synchronize()
+        old_diff = (old.float() - want.float()).abs()
+        old_err = old_diff.max().item()
+        if not bool((old_diff <= atol + rtol * want.float().abs()).all()):
+            raise Mismatch(f"the replaced route disagrees with the plain "
+                           f"version at {name} m={m}: max abs err {old_err}")
+        if not torch.equal(got, again):
+            raise Mismatch(f"two wgmma calls differ at {name} m={m}")
     n_bytes, n_ops = product_bytes_ops(m, k, n, transposed, dtype)
     bound_us, bound_by = bound(n_bytes, n_ops, dtype)
     deq = [(q[i].to(dt) * s[i].to(dt)[:, None]).t() if transposed
@@ -200,7 +224,13 @@ def int8_matmul_case(*, name, m, dtype, n_layers=12, seed=0):
     def library(i):
         torch.matmul(x, deq[i % copies])
 
+    def old_route(i):
+        quant_matmul.int8_matmul_replaced(x, q[i % copies], s[i % copies],
+                                          bias[i % copies],
+                                          transposed=transposed)
+
     rec = dict(name=name, m=m, k=k, n=n, transposed=transposed, dtype=dtype,
+               route=route, plan=_plan(m, k, n, transposed, dtype),
                copies_walked=copies, walked_bytes=copies * k * n,
                library_walked_bytes=copies * k * n * deq[0].element_size(),
                max_abs_err=err, rtol=rtol, atol=atol, bound_us=bound_us,
@@ -212,8 +242,36 @@ def int8_matmul_case(*, name, m, dtype, n_layers=12, seed=0):
                library_note="cuBLAS torch.matmul against the weight "
                "dequantized to x's dtype beforehand (the bf16 config's "
                "product)")
+    rec["replaced_us"] = (time_graph_us(old_route, iters=iters) if replaced
+                          else None)
+    rec["replaced_max_abs_err"] = old_err
     rec["share_of_bound"] = rec["bound_us"] / rec["kernel_us"]
     return rec
+
+
+def _route(rows, dtype, transposed, experts=False):
+    """The launch counter a call of `rows` rows (of each expert) moves."""
+    if dtype != "bfloat16":
+        return (quant_matmul.FMA_EXPERTS if experts else quant_matmul.FMA)
+    if quant_matmul.uses_wgmma(rows):
+        return (quant_matmul.WGMMA_EXPERTS if experts else
+                quant_matmul.WGMMA_UNEMBED if transposed else
+                quant_matmul.WGMMA)
+    return (quant_matmul.MMA_EXPERTS if experts else
+            quant_matmul.MMA_UNEMBED if transposed else quant_matmul.MMA)
+
+
+def _plan(rows, k, n, transposed, dtype, experts=1):
+    """The bf16 route's launch plan, as a record (None for float32)."""
+    if dtype != "bfloat16":
+        return None
+    if quant_matmul.uses_wgmma(rows):
+        p = quant_matmul.wgmma_plan(rows, k, n, transposed, experts=experts)
+        return dict(route="wgmma", bn=p.bn, splits=p.splits, grid=p.grid,
+                    stages=p.stages, k_stages=p.k_stages, tiles=p.tiles)
+    p = quant_matmul.launch_plan(rows, k, n, transposed, experts=experts)
+    return dict(route="mma", mt=p.mt, grid=list(p.grid), splits=p.splits,
+                stages=p.stages, x_staged=p.x_staged)
 
 
 def expert_bytes_ops(e, c, k, n, dtype):
@@ -242,8 +300,7 @@ def int8_experts_case(*, name, c, dtype, experts=MOE_EXPERTS, seed=0):
     b = (torch.randn((copies, experts, n), generator=gen, device="cuda")
          * 0.02).to(dt)
     x = torch.randn((experts, c, k), generator=gen, device="cuda").to(dt)
-    route = (quant_matmul.MMA_EXPERTS if dtype == "bfloat16"
-             else quant_matmul.FMA_EXPERTS)
+    route = _route(c, dtype, False, experts=True)
     before = quant_matmul.launch_counts[route]
     got = quant_matmul.int8_matmul_experts(x, q[0], s[0], b[0])
     launched = quant_matmul.launch_counts[route] - before
@@ -258,6 +315,21 @@ def int8_experts_case(*, name, c, dtype, experts=MOE_EXPERTS, seed=0):
         raise Mismatch(f"int8_matmul_experts disagrees with its plain "
                        f"version at {name} C={c} {dtype}: max abs err {err} "
                        f"(rtol {rtol}, atol {atol}), {launched} launches")
+    replaced = route == quant_matmul.WGMMA_EXPERTS
+    old_err = None
+    if replaced:
+        old = quant_matmul.int8_matmul_replaced(x, q[0], s[0], b[0],
+                                                experts=True)
+        again = quant_matmul.int8_matmul_experts(x, q[0], s[0], b[0])
+        torch.cuda.synchronize()
+        old_diff = (old.float() - want.float()).abs()
+        old_err = old_diff.max().item()
+        if not bool((old_diff <= atol + rtol * want.float().abs()).all()):
+            raise Mismatch(f"the replaced expert route disagrees with the "
+                           f"plain version at {name} C={c}: max abs err "
+                           f"{old_err}")
+        if not torch.equal(got, again):
+            raise Mismatch(f"two wgmma expert calls differ at {name} C={c}")
     n_bytes, n_ops = expert_bytes_ops(experts, c, k, n, dtype)
     bound_us, bound_by = bound(n_bytes, n_ops, dtype)
     deq = [q[i].to(dt) * s[i].to(dt)[:, None, :] for i in range(copies)]
@@ -274,22 +346,25 @@ def int8_experts_case(*, name, c, dtype, experts=MOE_EXPERTS, seed=0):
     def library(i):
         torch.bmm(x, deq[i % copies])
 
-    plan = (quant_matmul.launch_plan(c, k, n, False, experts=experts)
-            if dtype == "bfloat16" else None)
+    def old_route(i):
+        quant_matmul.int8_matmul_replaced(x, q[i % copies], s[i % copies],
+                                          b[i % copies], experts=True)
+
     rec = dict(name=name, experts=experts, c=c, m=experts * c, k=k, n=n,
-               dtype=dtype, copies_walked=copies,
+               dtype=dtype, route=route, copies_walked=copies,
                walked_bytes=copies * experts * k * n,
                max_abs_err=err, rtol=rtol, atol=atol, bound_us=bound_us,
                bound_by=bound_by,
-               plan=None if plan is None else dict(
-                   mt=plan.mt, grid=list(plan.grid), splits=plan.splits,
-                   stages=plan.stages, x_staged=plan.x_staged),
+               plan=_plan(c, k, n, False, dtype, experts=experts),
                kernel_us=time_graph_us(kernel, iters=iters),
                kernel_eager_us=time_eager_us(kernel, iters=iters),
                plain_us=time_graph_us(plain, iters=iters),
                library_us=time_graph_us(library, iters=iters),
                library_note="torch.bmm against all experts dequantized to "
                "x's dtype beforehand")
+    rec["replaced_us"] = (time_graph_us(old_route, iters=iters) if replaced
+                          else None)
+    rec["replaced_max_abs_err"] = old_err
     rec["share_of_bound"] = rec["bound_us"] / rec["kernel_us"]
     return rec
 
@@ -298,7 +373,8 @@ def int8_model_call(*, m=16, dtype="bfloat16", n_layers=12, unembed=True):
     """The 49 int8 products of one decode model call (4 a layer x 12, then
     the unembedding; without `unembed` the 48 of a BERT-base forward), in
     the model's order, timed as one unit: kernel, plain, cuBLAS against
-    pre-dequantized weights, and the summed bound."""
+    pre-dequantized weights, the replaced route where the wgmma one runs,
+    and the summed bound."""
     dt = getattr(torch, dtype)
     weights = {}
     for seed, name in enumerate(INT8_PRODUCTS):
@@ -333,11 +409,17 @@ def int8_model_call(*, m=16, dtype="bfloat16", n_layers=12, unembed=True):
     plain = run(lambda x, q, s, b, tr, d:
                 quant_matmul.int8_matmul_reference(x, q, s, b, tr))
     library = run(lambda x, q, s, b, tr, d: torch.matmul(x, d))
+    old_route = run(lambda x, q, s, b, tr, d:
+                    quant_matmul.int8_matmul_replaced(x, q, s, b,
+                                                      transposed=tr))
+    replaced = dtype == "bfloat16" and quant_matmul.uses_wgmma(m)
     rec = dict(m=m, dtype=dtype, products=len(order), bound_us=bound_us,
                kernel_us=time_graph_us(kernel, iters=5),
                kernel_eager_us=time_eager_us(kernel, iters=5),
                plain_us=time_graph_us(plain, iters=5),
-               library_us=time_graph_us(library, iters=5))
+               library_us=time_graph_us(library, iters=5),
+               replaced_us=(time_graph_us(old_route, iters=5) if replaced
+                            else None))
     rec["share_of_bound"] = rec["bound_us"] / rec["kernel_us"]
     return rec
 
@@ -371,6 +453,69 @@ def split_sweep(*, m=16, dtype="bfloat16"):
     return records
 
 
+# The wgmma route's plan sweep: products and rows where the plan's choice
+# between tile heights and K splits is closest.
+PLAN_CASES = [(name, m) for name in INT8_PRODUCTS for m in (32, 128, 512,
+                                                            2048)]
+PLAN_CASES += [("llama.wq", 32), ("llama.wd", 512), ("llama.wg", 2048)]
+
+
+def plan_sweep(cases=PLAN_CASES, dtype="bfloat16"):
+    """The wgmma route's kernel time under each plan `wgmma_plans` offers
+    (the plan swapped in for the sweep; each checked against the plain
+    version first, at the tolerances of `int8_matmul_case`), beside the
+    plan's model cost and its pick: the trade behind
+    `quant_matmul.wgmma_plan`. One record a product, M and plan."""
+    orig = quant_matmul.wgmma_plan
+    dt = getattr(torch, dtype)
+    records = [dict(cluster_slots={
+        splits: quant_matmul.wgmma_cluster_slots(
+            splits, quant_matmul.wgmma_smem_bytes(32, 8, splits))
+        for splits in range(1, quant_matmul.MAX_SPLIT + 1)})]
+    print(json.dumps(records[0]), flush=True)
+    try:
+        for name, m in cases:
+            k, n, transposed = PRODUCTS[name]
+            copies = math.floor(WALK_BYTES / (k * n)) + 1
+            q1, s1, b1, k, n, transposed = int8_weights(name, 1, m)
+            q = q1.repeat(copies, 1, 1).contiguous()
+            s = s1.repeat(copies, 1).contiguous()
+            b = None if b1 is None else b1[0].to(dt)
+            x = torch.randn((m, k), device="cuda").to(dt)
+            want = quant_matmul.int8_matmul_reference(x, q[0], s[0], b,
+                                                      transposed)
+            rtol, atol = INT8_MATMUL_TOL["float32" if transposed else dtype]
+            atol *= want.float().abs().max().item()
+            plans = quant_matmul.wgmma_plans(m, k, n, transposed)
+            pick = orig(m, k, n, transposed)
+            for plan, cost in plans.items():
+                quant_matmul.wgmma_plan = (
+                    lambda *a, _p=plan, **kw: _p)
+                quant_matmul._layouts.clear()
+                got = quant_matmul.int8_matmul(x, q[0], s[0], b,
+                                               transposed=transposed)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                if not bool((diff <= atol + rtol * want.float().abs()).all()):
+                    raise Mismatch(f"plan {plan} disagrees at {name} m={m}")
+
+                def kernel(i):
+                    quant_matmul.int8_matmul(x, q[i % copies], s[i % copies],
+                                             b, transposed=transposed)
+
+                records.append(dict(
+                    name=name, m=m, bn=plan.bn, splits=plan.splits,
+                    stages=plan.stages, grid=plan.grid, cost=cost,
+                    picked=plan == pick, max_abs_err=diff.max().item(),
+                    kernel_us=time_graph_us(kernel,
+                                            iters=max(50, copies))))
+                print(json.dumps(records[-1]), flush=True)
+    finally:
+        quant_matmul.wgmma_plan = orig
+        quant_matmul._layouts.clear()
+    return records
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -392,6 +537,9 @@ def main(argv=None) -> int:
     parser.add_argument("--splits", action="store_true",
                         help="time the dense products at M=16 at each "
                         "forced K split instead")
+    parser.add_argument("--plans", action="store_true",
+                        help="time the wgmma route under each plan it "
+                        "offers at PLAN_CASES instead")
     parser.add_argument("--out", default=None,
                         help="also append every record to this JSONL file")
     args = parser.parse_args(argv)
@@ -406,6 +554,8 @@ def main(argv=None) -> int:
         for rec in split_sweep(dtype=args.dtype):
             records.append(rec)
             print(json.dumps(rec), flush=True)
+    elif args.plans:
+        records = plan_sweep(dtype=args.dtype)
     elif args.moe:
         for name in EXPERT_PRODUCTS:
             for c in MOE_CAPACITIES:

@@ -419,18 +419,20 @@ def _int8_inputs(card, dtype, m, k, n, transposed, seed):
     return x, q, s, b
 
 
+INT8_ROWS = [1, 15, 16, 17, 32, 100, 128, 256, 1024, 512, 2048]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("m", [1, 15, 16, 17, 32, 100, 128, 256, 1024, 512,
-                               2048])
+@pytest.mark.parametrize("m", INT8_ROWS)
 @pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
 def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
     """The weight-only int8 product against its plain version (the JAX
     expression) and against a float64 product, at decode (M = 1, 16),
-    partial row tiles (15, 17, 100), the fused admission chunk (32: one
-    64-row tile, half filled), prefill (256), the relevance gate's rows
-    (128 and 1,024: texts x length bucket) and the scoring tenant's (512
-    and 2,048: a quantum of 8 texts at length buckets 64 and 256).
+    partial row tiles (15, 17, 100), the fused admission chunk (32),
+    prefill (256), the relevance gate's rows (128 and 1,024: texts x
+    length bucket) and the scoring tenant's (512 and 2,048: a quantum of 8
+    texts at length buckets 64 and 256).
     float32, and the float32 logits of the transposed layout: the
     summation order over K differs (bf16 x int8 products are exact in
     float32 on the tensor cores), rtol 1e-5 with atol 1e-5 of the output's
@@ -438,8 +440,20 @@ def test_int8_matmul_matches_plain(card, dtype, m, k, n, transposed):
     plain version rounds to bf16 after the product, after the scale and
     after the bias, the kernel once at the end: up to about two bf16 ulps
     (rtol 1.6e-2, atol 1e-2 of the output's scale). bf16 x takes the
-    tensor-core route, float32 x the CUDA-core route."""
+    tensor-core routes (mma.sync up to 16 rows, wgmma from
+    WGMMA_MIN_ROWS), float32 x the CUDA-core route."""
     _check_int8_matmul(card, dtype, m, k, n, transposed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [17, 32, 100, 256, 2048])
+@pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
+def test_replaced_int8_route_matches_plain(card, m, k, n, transposed):
+    """The mma.sync route that bf16 x above 16 rows took before the wgmma
+    route (`int8_matmul_replaced`, kept to be timed beside it) still
+    matches its plain version with `test_int8_matmul_matches_plain`'s
+    tolerances, and counts on the mma.sync routes."""
+    _check_int8_matmul(card, "bfloat16", m, k, n, transposed, replaced=True)
 
 
 # Llama-3-8B's products: wq and wo, wk and wv, wg and wu, wd, and the
@@ -472,23 +486,22 @@ def test_int8_matmul_matches_plain_at_llama_shapes(card, dtype, m, k, n,
     _check_int8_matmul(card, dtype, m, k, n, transposed)
 
 
-def _check_int8_matmul(card, dtype, m, k, n, transposed):
-    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+def _check_int8_matmul(card, dtype, m, k, n, transposed, replaced=False):
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul as qm
 
     x, q, s, b = _int8_inputs(card, dtype, m, k, n, transposed, m * 7 + n)
-    route = (quant_matmul.FMA if dtype == "float32" else
-             quant_matmul.MMA_UNEMBED if transposed else quant_matmul.MMA)
-    before = dict(quant_matmul.launch_counts)
-    got = quant_matmul.int8_matmul(x, q, s, b, transposed=transposed)
-    want = quant_matmul.int8_matmul_reference(x, q, s, b, transposed)
+    wgmma = dtype == "bfloat16" and qm.uses_wgmma(m) and not replaced
+    route = (qm.FMA if dtype == "float32" else
+             (qm.WGMMA_UNEMBED if transposed else qm.WGMMA) if wgmma else
+             qm.MMA_UNEMBED if transposed else qm.MMA)
+    before = dict(qm.launch_counts)
+    call = qm.int8_matmul_replaced if replaced else qm.int8_matmul
+    got = call(x, q, s, b, transposed=transposed)
+    want = qm.int8_matmul_reference(x, q, s, b, transposed)
     torch.cuda.synchronize()
-    counts = quant_matmul.launch_counts
-    assert counts[quant_matmul.KERNEL] == before[quant_matmul.KERNEL] + 1
-    assert {name: counts[name] - before[name]
-            for name in (quant_matmul.MMA, quant_matmul.MMA_UNEMBED,
-                         quant_matmul.FMA)} == {
-        name: int(name == route) for name in (
-            quant_matmul.MMA, quant_matmul.MMA_UNEMBED, quant_matmul.FMA)}
+    counts = qm.launch_counts
+    assert {name: counts[name] - before[name] for name in counts} == {
+        name: int(name in (qm.KERNEL, route)) for name in counts}
     assert got.dtype == (torch.float32 if transposed else x.dtype)
     assert got.shape == (m, n)
     w = q.double().t() if transposed else q.double()
@@ -503,11 +516,12 @@ def _check_int8_matmul(card, dtype, m, k, n, transposed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [16, 256])
+@pytest.mark.parametrize("m", [16] + [m for m in INT8_ROWS if m > 16])
 @pytest.mark.parametrize("k,n,transposed", INT8_PRODUCTS)
 def test_int8_matmul_is_deterministic(card, m, k, n, transposed):
     """Two calls on the same inputs are bit-equal (the K splits are summed
-    in rank order, no atomics): greedy answers cannot drift between runs."""
+    in rank order, no atomics): greedy answers cannot drift between runs.
+    Decode's mma.sync tile and the wgmma route at every M it takes."""
     from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
 
     x, q, s, b = _int8_inputs(card, "bfloat16", m, k, n, transposed, n + m)
@@ -534,8 +548,10 @@ def test_int8_matmul_experts_matches_plain(card, dtype, c, e, k, n):
     expert by expert, in one launch on the expert route of x's dtype;
     the tolerances of `test_int8_matmul_matches_plain` (bf16: the plain
     version rounds after the product, the scale and the bias, the kernel
-    once). Each expert's rows come from its own slice: a kernel that
-    mixed experts up would fail against the float64 product."""
+    once), bit-equal run to run. Each expert's rows come from its own
+    slice: a kernel that mixed experts up would fail against the float64
+    product. bf16 C = 5 and 10 (decode, an admission chunk) take the
+    mma.sync expert route, C = 17, 80 and 640 the wgmma one."""
     from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
 
     rng = np.random.default_rng(e * c + n)
@@ -547,13 +563,16 @@ def test_int8_matmul_experts_matches_plain(card, dtype, c, e, k, n):
         np.float32)).to(card)
     b = torch.from_numpy(rng.standard_normal((e, n), np.float32)).to(card, dt)
     route = (quant_matmul.FMA_EXPERTS if dtype == "float32"
+             else quant_matmul.WGMMA_EXPERTS if quant_matmul.uses_wgmma(c)
              else quant_matmul.MMA_EXPERTS)
     before = dict(quant_matmul.launch_counts)
     got = quant_matmul.int8_matmul_experts(x, q, s, b)
+    again = quant_matmul.int8_matmul_experts(x, q, s, b)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     delta = {name: quant_matmul.launch_counts[name] - before[name]
              for name in before}
-    assert delta == {name: int(name in (quant_matmul.KERNEL, route))
+    assert delta == {name: 2 * int(name in (quant_matmul.KERNEL, route))
                      for name in before}
     want = quant_matmul.int8_matmul_experts_reference(x, q, s, b)
     exact = (torch.bmm(x.double(), q.double()) * s.double()[:, None, :]
@@ -565,6 +584,34 @@ def test_int8_matmul_experts_matches_plain(card, dtype, c, e, k, n):
                else dict(rtol=1.6e-2, atol=1e-2 * scale))
         torch.testing.assert_close(got[i].double(), want[i].double(), **tol)
         torch.testing.assert_close(got[i].double(), exact[i], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [17, 80, 640])
+@pytest.mark.parametrize("e,k,n", EXPERT_PRODUCTS)
+def test_replaced_expert_route_matches_plain(card, c, e, k, n):
+    """The mma.sync expert route the wgmma one replaced above 16 rows an
+    expert (`int8_matmul_replaced(..., experts=True)`) still matches the
+    plain version, bf16, with the tolerances above."""
+    from distributed_lms_raft_llm_tpu_torch.ops import quant_matmul
+
+    rng = np.random.default_rng(e * c + n + 1)
+    x = torch.from_numpy(rng.standard_normal((e, c, k), np.float32)).to(
+        card, torch.bfloat16)
+    q = torch.from_numpy(rng.integers(-127, 128, (e, k, n), np.int8)).to(card)
+    s = torch.from_numpy(rng.uniform(1e-4, 1e-3, (e, n)).astype(
+        np.float32)).to(card)
+    b = torch.from_numpy(rng.standard_normal((e, n), np.float32)).to(
+        card, torch.bfloat16)
+    before = quant_matmul.launch_counts[quant_matmul.MMA_EXPERTS]
+    got = quant_matmul.int8_matmul_replaced(x, q, s, b, experts=True)
+    torch.cuda.synchronize()
+    assert quant_matmul.launch_counts[quant_matmul.MMA_EXPERTS] == before + 1
+    want = quant_matmul.int8_matmul_experts_reference(x, q, s, b)
+    for i in range(e):
+        scale = want[i].float().abs().max().item()
+        torch.testing.assert_close(got[i].double(), want[i].double(),
+                                   rtol=1.6e-2, atol=1e-2 * scale)
 
 
 @pytest.mark.cuda
@@ -619,8 +666,8 @@ def test_bf16_and_int8_gates_track_the_float32_gate(card):
     weights, byte tokenizer): bf16 similarities within 2e-2 of float32's
     (`chip_smoke.py`'s bf16 tolerance), the int8 gate's within 0.05 (the
     JAX package's bound), a cache hit within 1e-5 of the joint miss in
-    float32; the int8 gate runs 48 tensor-core int8 products a forward,
-    the others none."""
+    float32; the int8 gate runs 48 int8 products a forward on the wgmma
+    route, the others none."""
     from distributed_lms_raft_llm_tpu_torch.engine import (
         GateConfig,
         RelevanceGate,
@@ -636,7 +683,9 @@ def test_bf16_and_int8_gates_track_the_float32_gate(card):
         quant_matmul.reset_launch_counts()
         before = gate.forwards
         sims[name] = [gate.check(q, c)[1] for q, c in GATE_PAIRS]
-        mma = quant_matmul.launch_counts[quant_matmul.MMA]
+        # a forward's rows (texts x length bucket) are 64 or more: the
+        # wgmma route
+        mma = quant_matmul.launch_counts[quant_matmul.WGMMA]
         assert quant_matmul.launch_counts[quant_matmul.KERNEL] == mma
         assert mma == (48 * (gate.forwards - before) if name == "int8"
                        else 0)
@@ -758,7 +807,9 @@ def test_graph_kernel_nodes_equal_the_captured_counts(card):
             "decode_attention_window": 0,
             "int8_matmul_mma": 48 * eng.chunk,
             "int8_matmul_mma_unembed": eng.chunk, "int8_matmul_fma": 0,
-            "int8_matmul_mma_experts": 0, "int8_matmul_fma_experts": 0}
+            "int8_matmul_mma_experts": 0, "int8_matmul_fma_experts": 0,
+            "int8_matmul_wgmma": 0, "int8_matmul_wgmma_unembed": 0,
+            "int8_matmul_wgmma_experts": 0}
 
 
 @pytest.mark.cuda

@@ -878,7 +878,8 @@ def test_experts_cuda_tensors_launch_one_kernel(monkeypatch):
     assert {name: counts[name] - before[name] for name in counts} == {
         quant_matmul.KERNEL: 3, quant_matmul.FMA: 0, quant_matmul.MMA: 0,
         quant_matmul.MMA_UNEMBED: 0, quant_matmul.FMA_EXPERTS: 1,
-        quant_matmul.MMA_EXPERTS: 2}
+        quant_matmul.MMA_EXPERTS: 2, quant_matmul.WGMMA: 0,
+        quant_matmul.WGMMA_UNEMBED: 0, quant_matmul.WGMMA_EXPERTS: 0}
     assert [(a.M, a.N, a.K, a.transposed, a.dtype, a.experts)
             for a, *_ in calls] == [(5, 48, 32, 0, 0, 3), (5, 48, 32, 0, 1, 3),
                                     (5, 48, 32, 0, 1, 3)]

@@ -287,7 +287,8 @@ def test_int8_matmul_cuda_tensors_launch_the_kernel(monkeypatch):
     assert {name: counts[name] - before[name] for name in counts} == {
         quant_matmul.KERNEL: 4, quant_matmul.FMA: 2, quant_matmul.MMA: 1,
         quant_matmul.MMA_UNEMBED: 1, quant_matmul.MMA_EXPERTS: 0,
-        quant_matmul.FMA_EXPERTS: 0}
+        quant_matmul.FMA_EXPERTS: 0, quant_matmul.WGMMA: 0,
+        quant_matmul.WGMMA_UNEMBED: 0, quant_matmul.WGMMA_EXPERTS: 0}
     # (args, x, q, s, b, y, stream)
     assert [(a.M, a.N, a.K, a.transposed, a.dtype) for a, *_ in calls] == [
         (6, 48, 32, 0, 0), (6, 16, 64, 1, 0), (6, 16, 64, 1, 1),
