@@ -5,7 +5,7 @@
                           [--gate-checkpoint F --gate-vocab F]
 
 Needs one NVIDIA GPU and this checkout beside the script (phases 8, 11,
-11b and 12 read configs/cluster.toml).
+11b, 12 and 13 read configs/cluster.toml).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -215,8 +215,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    mma.sync tiles, admission chunks' on the wgmma ones), peak allocation,
    seconds to initialise and to warm; then (d) one scoring quantum at
    8 x 256 (M = 2,048) against the plain logprobs, and a short spec-8
-   run of 4 requests (window = 32 x verify calls; a verify call takes
-   ~42 ms, so 4 keep the whole script near half its time limit).
+   run of 4 requests at full width cut to 8 layers (window = 8 x verify
+   calls, int8 = 56 dense and 1 unembedding x model calls), so that the
+   whole script keeps room for phase 13.
 10. gpt2-moe (`models/moe.py`, preset gpt2-moe: GPT-2 small's trunk, 8
    experts of GPT-2 small's MLP, top-2, capacity factor 1.25), seeded
    random weights under the byte tokenizer: (a) its expert products in
@@ -330,6 +331,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    `moe_balance` and gradient norms finite, norms above 0), its native
    export read back through `moe.params_from_hf` with equal float32
    logits.
+13. one seeded semester: `sim.SemesterSim` (the port's `sim/`) with
+   configs/cluster.toml's `[sim]` as it stands (24 students, 30 s, base
+   rate 8, 3 tutoring nodes, course concentration 0.6, bulk scoring, the
+   continuous SLOs; read from a `deployment_copy` with no change, since
+   the sim binds ephemeral ports and keeps its data in a temporary
+   directory) on the port's in-process LMS (3 Raft nodes, group router
+   off, `KeywordGate`) and tutoring fleet, tutoring node 0 on the
+   deployment engine of phases 4c and 11 (GPT-2 small at full width,
+   seeded random weights, phase 5's tokenizer, greedy as there, since a
+   stream resumed mid-answer regenerates it; the file's `[tutoring]` and
+   `[scoring]`: paged, int8 weights and KV, megastep graphs, fused
+   admission, the prefix cache, a `ScoringManager`), built
+   and warmed through `SemesterSim(..., tutoring_engine_factory=)` on the
+   sim's loop before any Raft node boots; nodes 1-2 and the autoscaled
+   node are the echo stand-in, as in the JAX package's sim. The record's
+   verdict must hold: every event executed ok, every end-of-run SLO, no
+   lost acked write or read-your-writes violation, no false burn alarm,
+   an acyclic lock graph without violations. Node 0: /healthz names the
+   `PagedEngine`; its engine answered at least one course's question and
+   every course's question it received (prompts attributed by their
+   course context); its /metrics' `ttft` count equals the answers its
+   engine finished, `llm_requests` at least the engine's submissions, its
+   `scoring_quanta` the engine's score calls. Launches over the semester
+   through the replays: append = 12 x decode calls and no other
+   attention variant, int8 = 49 x model calls exact by route (decode on
+   the mma.sync tiles; admission chunks, prefills and score quanta on the
+   wgmma ones); no graph captured and no kernel built while serving.
+   Printed: ask p50/p95, turn TTFT p95, degraded answers and rate, ledger
+   counts, events, alerts, tick stalls, node 0's tokens/s, answers by
+   course and routes, the launches and the phase's seconds.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -3217,6 +3248,11 @@ LLAMA_UNEMBED_ROWS = (16, 512)
 # The spec-8 run's requests, of QUESTIONS: a verify call takes ~42 ms, so
 # 4 keep the whole script near half its time limit.
 LLAMA_SPEC_REQUESTS = 4
+# Phase 9's spec-8 run is cut to this depth (of 32; full width), its
+# preset registered for the run: the whole script has to leave room for
+# phase 13's semester.
+LLAMA_SPEC_LAYERS = 8
+LLAMA_SPEC = "llama3-8b-8-layers"
 
 
 def llama_kernel_cases(torch, attention, quant_matmul) -> dict:
@@ -3357,15 +3393,16 @@ def llama_witness(torch, attention, quant_matmul, args) -> dict:
     return rec
 
 
-def llama_node(tutoring_server, args, *extra):
+def llama_node(tutoring_server, args, *extra, model=LLAMA):
     """The node's flags from configs/cluster.toml with `model` set to
-    llama3-8b: seeded random weights and the byte tokenizer (the real
-    checkpoint and tokenizer.json cannot ride to the card)."""
+    llama3-8b (or a registered cut of it): seeded random weights and the
+    byte tokenizer (the real checkpoint and tokenizer.json cannot ride to
+    the card)."""
     node_args = tutoring_server.resolve_args([
         "--config", str(REPO / "configs" / "cluster.toml"),
-        "--model", LLAMA, "--checkpoint", "", "--vocab", "", "--merges", "",
+        "--model", model, "--checkpoint", "", "--vocab", "", "--merges", "",
         "--seed", str(args.seed), "--port", "0", *extra])
-    check(node_args.model == LLAMA and node_args.paged
+    check(node_args.model == model and node_args.paged
           and node_args.quant == "int8" and node_args.kv_quant
           and node_args.slots == 16 and node_args.chunk == 16
           and node_args.inflight == 3 and node_args.megastep == 4
@@ -3570,20 +3607,36 @@ def llama_deployment(torch, attention, quant_matmul, args) -> tuple:
 
 def llama_spec(torch, attention, quant_matmul, args) -> tuple:
     """Phase 9 (c), its short spec-8 run: the deployment config at full
-    depth with spec_tokens 8 (prompt lookup), LLAMA_SPEC_REQUESTS
-    requests through
-    PagedQueue. Returns (its record, its launches)."""
+    width cut to LLAMA_SPEC_LAYERS layers with spec_tokens 8 (prompt
+    lookup), LLAMA_SPEC_REQUESTS requests through PagedQueue. Returns
+    (its record, its launches)."""
+    import functools
+
     from distributed_lms_raft_llm_tpu_torch.engine import PagedQueue
+    from distributed_lms_raft_llm_tpu_torch.models import llama, registry
     from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
     from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
 
+    registry.PRESETS[LLAMA_SPEC] = (registry.LLAMA_FAMILY, functools.partial(
+        llama.LlamaConfig.llama3_8b, num_layers=LLAMA_SPEC_LAYERS))
+    try:
+        return _llama_spec_run(torch, attention, quant_matmul, args,
+                               tutoring_server, PagedQueue, Metrics)
+    finally:
+        registry.PRESETS.pop(LLAMA_SPEC, None)
+
+
+def _llama_spec_run(torch, attention, quant_matmul, args, tutoring_server,
+                    PagedQueue, Metrics) -> tuple:
+    layers = LLAMA_SPEC_LAYERS
     node_args = llama_node(tutoring_server, args, "--spec-tokens",
-                           str(SPEC_TOKENS))
+                           str(SPEC_TOKENS), model=LLAMA_SPEC)
     eng = tutoring_server.engine_from_args(node_args)
-    check(eng.spec == SPEC_TOKENS and eng.cfg.num_layers == 32
+    check(eng.spec == SPEC_TOKENS and eng.cfg.num_layers == layers
+          and eng.cfg.hidden_size == 4096 and eng.cfg.vocab_size == 128256
           and eng.widths == [167, 199, 263, 391],
-          f"phase 9: not the spec-8 deployment: spec {eng.spec}, widths "
-          f"{eng.widths}")
+          f"phase 9: not the spec-8 deployment cut to {layers} layers: "
+          f"spec {eng.spec}, widths {eng.widths}, {eng.cfg}")
     warm_s = eng.warmup()
     attention.reset_launch_counts()
     quant_matmul.reset_launch_counts()
@@ -3598,13 +3651,15 @@ def llama_spec(torch, attention, quant_matmul, args) -> tuple:
     tokens = eng.total_generated_tokens - c0[3]
     launches = {**attention.launch_counts, **quant_matmul.launch_counts}
     check(len(answers) == LLAMA_SPEC_REQUESTS and verify_calls > 0
-          and launches[attention.WINDOW_INT8KV] == 32 * verify_calls,
+          and launches[attention.WINDOW_INT8KV] == layers * verify_calls,
           f"phase 9 spec 8: launches {launches} for {verify_calls} verify "
-          f"and {model_calls} model calls (32 windows a verify call)")
+          f"and {model_calls} model calls ({layers} windows a verify call)")
     check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
         quant_matmul, eng, verify_calls, eng.admission_chunks - c0[1],
-        eng.prefill_calls - c0[2], verify=True), 224), "phase 9 spec 8")
+        eng.prefill_calls - c0[2], verify=True), 7 * layers),
+        "phase 9 spec 8")
     run = dict(warmup_s=warm_s, requests=LLAMA_SPEC_REQUESTS, wall_s=wall,
+               layers=layers,
                tokens=tokens,
                tokens_per_s=tokens / wall,
                ttft_p50_s=snap["latency"]["ttft"]["p50_s"],
@@ -5143,6 +5198,351 @@ def train_phase(torch, attention, quant_matmul, args, card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------ phase 13: a seeded semester
+
+# configs/cluster.toml [sim], held as the run's shape (the file is not
+# edited; a change there must be read before this phase is trusted).
+SIM_SHAPE = dict(students=24, duration_s=30.0, base_rate=8.0,
+                 tutoring_nodes=3, course_concentration=0.6,
+                 bulk_scoring=True, continuous_slos=True, events=True,
+                 lms_groups=1, tutoring_engine="echo")
+SIM_NODE = 0  # the tutoring node the deployment engine serves on
+SIM_ATTEMPTS = 2  # semesters run at most (see sim_phase, step 3)
+
+
+def course_of_prompt(gen, prompt: str):
+    """The course whose deterministic context a node-0 prompt carries
+    (`sim/workload.course_context`: on-topic asks and session chains
+    under course_concentration > 0), else None (the ops bot's probes)."""
+    for course in gen.courses:
+        if gen.course_context(course) in prompt:
+            return course
+    return None
+
+
+def sim_phase(torch, attention, quant_matmul, args, card) -> dict:
+    """Phase 13: one seeded semester (see the module docstring)."""
+    import dataclasses
+    import shutil
+
+    from distributed_lms_raft_llm_tpu_torch.config import load_config
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine, graphs
+    from distributed_lms_raft_llm_tpu_torch.engine.scoring import (
+        encode_score_batch)
+    from distributed_lms_raft_llm_tpu_torch.ops import build
+    from distributed_lms_raft_llm_tpu_torch.serving import (
+        lms_cluster,
+        tutoring_server,
+    )
+    from distributed_lms_raft_llm_tpu_torch.sim import SemesterSim
+    from distributed_lms_raft_llm_tpu_torch.sim import workload
+    from distributed_lms_raft_llm_tpu_torch.utils import locks
+    from distributed_lms_raft_llm_tpu_torch.utils import metrics_registry as mr
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sim_")
+    record = {"card": card}
+    try:
+        # (1) The deployment file: [sim] as it stands. The sim binds
+        # ephemeral ports and keeps its data under its own directory, so
+        # one machine forces no change; the copy is what the run reads.
+        path, applied = lms_cluster.deployment_copy(
+            str(REPO / "configs" / "cluster.toml"), tmp, {})
+        for line in applied:
+            print(f"phase 13 config change: {line}", flush=True)
+        if not applied:
+            print("phase 13 config change: none ([sim] of configs/"
+                  "cluster.toml as it stands; ephemeral ports, a "
+                  "temporary data directory)", flush=True)
+        cfg = load_config(path).sim
+        shape = {k: getattr(cfg, k) for k in SIM_SHAPE}
+        check(shape == SIM_SHAPE,
+              f"phase 13: configs/cluster.toml [sim] is {shape}, not "
+              f"{SIM_SHAPE}")
+        record.update(config_changes=applied,
+                      sim=dataclasses.asdict(cfg))
+        gen = workload.WorkloadGenerator(cfg)
+
+        # (2) Node 0's engine: the deployment engine of phases 4c and 11
+        # from the copy's [tutoring] and [scoring] (bulk_scoring is on),
+        # greedy as there, under phase 5's tokenizer. Greedy because a
+        # stream broken mid-answer (a leader failover, a stall) resumes by
+        # regenerating the answer and skipping the delivered tokens, which
+        # reproduces the answer only without sampling.
+        vocab, merges, tok_record = phase5_tokenizer(args, Path(tmp))
+        node_args = tutoring_server.resolve_args([
+            "--config", path, "--checkpoint", args.checkpoint or "",
+            "--vocab", vocab, "--merges", merges, "--seed", str(args.seed),
+            "--port", "0"])
+        node_args.sampling_overrides = dict(GREEDY)
+        check(node_args.model == "gpt2" and node_args.paged
+              and node_args.quant == "int8" and node_args.kv_quant
+              and node_args.slots == 16 and node_args.megastep == 4
+              and node_args.megastep_max == 8 and node_args.prefix_cache
+              and node_args.prefill_chunk_tokens == 32
+              and node_args.scoring and node_args.device == "cuda",
+              f"phase 13: the copy did not resolve to the deployment "
+              f"config: {vars(node_args)}")
+        node = {}
+
+        def node0_engine():
+            """Built, checked and warmed on the sim cluster's loop before
+            any Raft node boots; the launch counters start at 0 here,
+            after the warmup, just before the semester's traffic."""
+            t0 = time.monotonic()
+            builds0 = build.builds
+            eng = tutoring_server.engine_from_args(node_args)
+            cfg_m = eng.cfg
+            check(isinstance(eng, PagedEngine) and eng.cuda_graphs
+                  and eng.fused and cfg_m.quant_kv
+                  and cfg_m.dtype == torch.bfloat16
+                  and cfg_m.num_layers == 12 and cfg_m.hidden_size == 768
+                  and cfg_m.num_heads == 12 and cfg_m.vocab_size == 50257
+                  and eng.config.scoring and eng.score_shapes
+                  and eng.slots == 16,
+                  f"phase 13: node 0 is not the deployment engine at GPT-2 "
+                  f"small's full width: {cfg_m}")
+            init_s = time.monotonic() - t0
+            warm_s = eng.warmup()
+            rows = min(nb * bucket for nb, bucket in eng.score_shapes)
+            check(quant_matmul.uses_wgmma(rows),
+                  f"phase 13: a score shape of {rows} rows would leave "
+                  f"the wgmma route")
+            submit, step, score = eng.submit, eng.step, eng.score
+
+            def counted_submit(prompt):
+                rid = submit(prompt)
+                node["prompts"][rid] = prompt
+                return rid
+
+            def counted_step():
+                out = step()
+                for rid, text in out:
+                    node["finished"][rid] = text
+                return out
+
+            def counted_score(texts):
+                ids, _, _ = encode_score_batch(eng, texts)
+                node["score_rows"].append(int(ids.shape[0] * ids.shape[1]))
+                return score(texts)
+
+            eng.submit, eng.step, eng.score = (counted_submit, counted_step,
+                                               counted_score)
+            attention.reset_launch_counts()
+            quant_matmul.reset_launch_counts()
+            node.update(
+                engine=eng, init_s=init_s, warm_s=warm_s,
+                builds_in_boot=build.builds - builds0,
+                captures0=graphs.captures, builds0=build.builds,
+                t_ready=time.monotonic(),
+                c0=(eng.decode_steps, eng.admission_chunks,
+                    eng.prefill_calls, eng.total_generated_tokens))
+            return eng
+
+        # (3) The semester. Node 0's /metrics and /healthz and every LMS
+        # node's /healthz are read just before the cluster is torn down.
+        # The fleet router places course keys by hashing the nodes'
+        # ephemeral addresses, so a run may give node 0 no course's
+        # question; the verdict holds for every run, and the same seeded
+        # semester runs once more (a new ring) when node 0 got none.
+        for attempt in range(1, SIM_ATTEMPTS + 1):
+            node = {"prompts": {}, "finished": {}, "score_rows": []}
+            semester = SemesterSim(
+                cfg, os.path.join(tmp, f"semester{attempt}"),
+                tutoring_engine_factory=node0_engine)
+            cluster = semester.cluster
+
+            def read_then_stop(cluster=cluster, stop=cluster.stop,
+                               node=node):
+                node["t_stop"] = time.monotonic()
+                try:
+                    node["metrics"] = cluster.tutoring_node_metrics(
+                        SIM_NODE)
+                    node["health"] = cluster.tutoring_healthz(SIM_NODE)
+                    node["lms_health"] = {nid: cluster.healthz(nid)
+                                          for nid in cluster.node_ids()}
+                finally:
+                    stop()
+
+            cluster.stop = read_then_stop
+            t_run = time.monotonic()
+            sim_record = semester.run()
+            run_s = time.monotonic() - t_run
+            eng = node.pop("engine")
+            launches = {**attention.launch_counts,
+                        **quant_matmul.launch_counts}
+
+            # (4) The record's own verdict.
+            ledger = semester.ledger.report()
+            failed_events = [e for e in sim_record["events"]
+                             if not e["ok"]]
+            slos = sim_record["slos"]
+            failed_slos = {k: v for k, v in slos["checks"].items()
+                           if not v["ok"]}
+            violations = locks.violations()
+            try:
+                locks.assert_acyclic()
+                acyclic = True
+            except AssertionError:
+                acyclic = False
+            snap = semester.metrics.snapshot()
+            ask = snap["latency"].get(mr.SIM_ASK_LATENCY, {})
+            turn = snap["latency"].get(mr.SIM_TURN_TTFT, {})
+            alerts = (sim_record["telemetry"] or {}).get("alerts", [])
+            headline = dict(
+                ask_p50_s=ask.get("p50_s"), ask_p95_s=ask.get("p95_s"),
+                asks=ask.get("count", 0), turn_ttft_p95_s=turn.get("p95_s"),
+                turns=turn.get("count", 0),
+                degraded_answers=sim_record["degraded_answers"],
+                degraded_rate=slos["checks"]["degraded_rate"]["observed"],
+                acked_writes=ledger["acked_writes"],
+                lost_acked_writes=len(ledger["losses"]),
+                ryw_violations=len(ledger["ryw_violations"]),
+                ops_planned=sim_record["ops_planned"],
+                ops_ok=sim_record["ops_ok"],
+                ops_failed=sim_record["ops_failed"],
+                ops_dropped=sim_record["ops_dropped"],
+                events=dict(sim_record["events_executed"]),
+                events_failed=len(failed_events), alerts=len(alerts),
+                alerts_during_fault=sum(1 for a in alerts
+                                        if a.get("during_fault")),
+                tick_stalls=slos["checks"]["tick_stalls"]["observed"],
+                answer_p95_nodes=slos["checks"]["answer_p95_nodes"][
+                    "observed"],
+                lock_edges=len(locks.acquisition_edges()),
+                lock_violations=len(violations), wall_s=run_s,
+                trace_digest=sim_record["trace_digest"],
+                event_digest=sim_record["event_digest"])
+            emit("sim_record", **headline)
+            record.update(headline=headline, slos=slos["checks"],
+                          events=sim_record["events"], alerts=alerts,
+                          fleet=sim_record["tutoring_fleet"],
+                          scoring=sim_record["scoring"],
+                          sessions=sim_record["sessions"],
+                          stage_p95s=slos.get("stage_p95s"))
+            check(sim_record["events"] and not failed_events,
+                  f"phase 13: events failed: {failed_events}")
+            check(slos["ok"], f"phase 13: SLOs missed: {failed_slos}")
+            check(not ledger["losses"] and not ledger["ryw_violations"],
+                  f"phase 13: ledger: {len(ledger['losses'])} lost acked "
+                  f"writes {ledger['losses'][:3]}, read-your-writes "
+                  f"{ledger['ryw_violations'][:3]}")
+            check(slos["checks"]["no_false_alarms"]["ok"],
+                  f"phase 13: false burn alarms: "
+                  f"{slos['checks']['no_false_alarms']}")
+            check(acyclic and not violations,
+                  f"phase 13: lock graph: acyclic {acyclic}, violations "
+                  f"{violations[:3]}")
+
+            served = node["finished"]
+            by_course = {}
+            for rid, prompt in node["prompts"].items():
+                course = course_of_prompt(gen, prompt) or "no course"
+                row = by_course.setdefault(course, {"submitted": 0,
+                                                    "answered": 0})
+                row["submitted"] += 1
+                row["answered"] += int(rid in served)
+            courses_hit = [c for c in gen.courses
+                           if by_course.get(c, {}).get("answered", 0) >= 1]
+            record["attempts"] = attempt
+            if courses_hit or attempt == SIM_ATTEMPTS:
+                break
+            print(f"phase 13: attempt {attempt}: node 0's ring share got "
+                  f"no course's question ({by_course}); the same seeded "
+                  f"semester again", flush=True)
+            del eng
+            torch.cuda.empty_cache()
+
+        # (5) Node 0 really served on the deployment engine: its own
+        # /metrics and /healthz, the engine's counters, by course.
+        metrics = node["metrics"]
+        counters = metrics.get("counters", {})
+        ttft = metrics.get("latency", {}).get("ttft", {})
+        decode = eng.decode_steps - node["c0"][0]
+        admission = eng.admission_chunks - node["c0"][1]
+        prefill = eng.prefill_calls - node["c0"][2]
+        tokens = eng.total_generated_tokens - node["c0"][3]
+        serve_s = node["t_stop"] - node["t_ready"]
+        fleet_nodes = {}
+        for health in node["lms_health"].values():
+            for row in (health.get("tutoring_fleet") or {}).get("nodes", []):
+                key = row.get("node_id") or row.get("address")
+                fleet_nodes.setdefault(key, {"routes": 0, "served": 0})
+                fleet_nodes[key]["routes"] += int(row.get("routes", 0))
+                fleet_nodes[key]["served"] += int(row.get("served", 0))
+        node_record = dict(
+            engine=node["health"].get("engine"),
+            node_id=node["health"].get("node_id"),
+            llm_requests=counters.get("llm_requests", 0),
+            llm_failures=counters.get("llm_failures", 0),
+            shed=counters.get("shed_expired", 0)
+            + counters.get("shed_overload", 0),
+            ttft_count=ttft.get("count", 0), ttft_p50_s=ttft.get("p50_s"),
+            ttft_p95_s=ttft.get("p95_s"),
+            engine_submitted=len(node["prompts"]),
+            engine_answered=len(served),
+            by_course=by_course, tokens=tokens, serve_s=serve_s,
+            tokens_per_s=tokens / serve_s,
+            prefix_cache_hit_tokens=counters.get("prefix_cache_hit_tokens",
+                                                 0),
+            scoring_quanta=counters.get(mr.SCORING_QUANTA, 0),
+            score_calls=len(node["score_rows"]),
+            decode_model_calls=decode, admission_chunks=admission,
+            prefills=prefill, init_s=node["init_s"],
+            warmup_s=node["warm_s"], fleet_routes=fleet_nodes)
+        emit("sim_node0", **node_record)
+        record["node0"] = node_record
+        check(node_record["engine"] == "PagedEngine"
+              and node_record["node_id"] == f"tut{SIM_NODE}",
+              f"phase 13: node 0's /healthz names {node['health']}")
+        check(courses_hit and all(
+            row["answered"] >= 1 for c, row in by_course.items()
+            if c != "no course"),
+              f"phase 13: node 0 answered no course's question, or left a "
+              f"course it received unanswered: {by_course}")
+        check(node_record["llm_requests"] >= node_record["engine_submitted"]
+              >= node_record["engine_answered"] >= 1
+              and node_record["ttft_count"] == node_record["engine_answered"]
+              and tokens > 0,
+              f"phase 13: node 0's /metrics and its engine disagree: "
+              f"{node_record}")
+        check(node_record["scoring_quanta"] == node_record["score_calls"],
+              f"phase 13: scoring_quanta {node_record['scoring_quanta']} != "
+              f"the engine's score calls {node_record['score_calls']}")
+
+        # (6) Launches over the semester, through the graph replays, exact
+        # by route; no kernel built and no graph captured while serving.
+        others = {k: v for k, v in attention.launch_counts.items()
+                  if k != attention.APPEND_INT8KV and v}
+        check(decode > 0 and launches[attention.APPEND_INT8KV] == 12 * decode
+              and not others,
+              f"phase 13: attention launches {attention.launch_counts} for "
+              f"{decode} decode model calls")
+        calls = paged_calls(quant_matmul, eng, decode, admission, prefill)
+        calls += [(1, rows) for rows in node["score_rows"]]
+        check_int8_routes(launches, int8_want(quant_matmul, calls, 48),
+                          "phase 13")
+        check(graphs.captures == node["captures0"]
+              and build.builds == node["builds0"]
+              and node["builds_in_boot"] == 0,
+              f"phase 13: {graphs.captures - node['captures0']} graph "
+              f"captures and {build.builds - node['builds0']} kernel builds "
+              f"while serving ({node['builds_in_boot']} in node 0's boot)")
+        record["launches"] = {k: v for k, v in launches.items() if v}
+        emit("sim_launches", decode_model_calls=decode,
+             admission_chunks=admission, prefills=prefill,
+             score_quanta=len(node["score_rows"]),
+             score_rows=sorted(set(node["score_rows"])),
+             launches=record["launches"])
+        del eng
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    record["seconds"] = time.monotonic() - t_phase
+    emit("sim_phase", seconds=record["seconds"], card=card)
+    return record
+
+
 def _graph_captures() -> int:
     from distributed_lms_raft_llm_tpu_torch.engine import graphs
 
@@ -5642,6 +6042,15 @@ def main(argv=None) -> int:
     train_launches = records["train"]["serve"]["launches"]
     lap("12_train")
 
+    # 13. One seeded semester (configs/cluster.toml [sim]) on the port's
+    # LMS, tutoring node 0 on the deployment engine.
+    torch.cuda.empty_cache()
+    records["sim"] = sim_phase(torch, attention, quant_matmul, args, smi)
+    emit("sim", **{k: records["sim"][k] for k in (
+        "card", "seconds", "headline", "node0", "launches")})
+    sim_launches = records["sim"]["launches"]
+    lap("13_sim")
+
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]
     emit("phase_seconds", **phase_s)
@@ -5711,7 +6120,8 @@ def main(argv=None) -> int:
                   "10": moe_launches[attention.APPEND_INT8KV],
                   "11": lms_launches[attention.APPEND_INT8KV],
                   "11b": group_launches[attention.APPEND_INT8KV],
-                  "12": train_launches[attention.APPEND_INT8KV]}),
+                  "12": train_launches[attention.APPEND_INT8KV],
+                  "13": sim_launches.get(attention.APPEND_INT8KV, 0)}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],
@@ -5730,7 +6140,8 @@ def main(argv=None) -> int:
                   "10": moe_launches[quant_matmul.KERNEL],
                   "11": lms_launches[quant_matmul.KERNEL],
                   "11b": group_launches[quant_matmul.KERNEL],
-                  "12": train_launches[quant_matmul.KERNEL]}),
+                  "12": train_launches[quant_matmul.KERNEL],
+                  "13": sim_launches.get(quant_matmul.KERNEL, 0)}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",
@@ -5742,7 +6153,8 @@ def main(argv=None) -> int:
                   "10": moe_launches[quant_matmul.MMA_UNEMBED],
                   "11": lms_launches[quant_matmul.MMA_UNEMBED],
                   "11b": group_launches[quant_matmul.MMA_UNEMBED],
-                  "12": train_launches[quant_matmul.MMA_UNEMBED]},
+                  "12": train_launches[quant_matmul.MMA_UNEMBED],
+                  "13": sim_launches.get(quant_matmul.MMA_UNEMBED, 0)},
               shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],
@@ -5787,7 +6199,8 @@ def main(argv=None) -> int:
             "9_spec": llama_spec_launches, "10": moe_launches,
             "10_quantum": records["moe"]["deployment"]["score_quantum"][
                 "launches"],
-            "11": lms_launches, "11b": group_launches, "12": train_launches}
+            "11": lms_launches, "11b": group_launches, "12": train_launches,
+            "13": sim_launches}
         return {k: v.get(route, 0) for k, v in paths.items()
                 if v.get(route, 0)}
 

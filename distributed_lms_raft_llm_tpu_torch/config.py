@@ -11,13 +11,12 @@ the port's LMS nodes and tutoring node start from it:
 
 `load_config` is as strict as the JAX package's over the WHOLE file: an
 unknown section or an unknown key in any section is refused, so the same
-files load and the same typos fail on both packages. The sections the
-port's nodes read are parsed into dataclasses with the JAX package's
-defaults and value checks (`[cluster]` with `[cluster.nodes]`,
-`[tutoring]`, `[tutoring_fleet]`, `[sampling]`, `[scoring]`,
-`[sessions]`, `[gate]`, `[resilience]`, `[groups]`, `[storage]`,
-`[tracing]`, `[telemetry]`); `[sim]` is checked for its key names only,
-and its values are not read. `apply_file_defaults` is the JAX package's two-phase
+files load and the same typos fail on both packages. Every section is
+parsed into a dataclass with the JAX package's defaults and value checks
+(`[cluster]` with `[cluster.nodes]`, `[tutoring]`, `[tutoring_fleet]`,
+`[sampling]`, `[scoring]`, `[sessions]`, `[gate]`, `[resilience]`,
+`[groups]`, `[storage]`, `[sim]`, `[tracing]`, `[telemetry]`).
+`apply_file_defaults` is the JAX package's two-phase
 merge: the file fills each flag the command line left out, and a flag
 given on the command line wins.
 """
@@ -306,18 +305,113 @@ class TelemetryConfig:
                 "[telemetry] chip_ceiling_tokens_per_s must be > 0")
 
 
-# The section the port's nodes do not read, by its keys (the JAX
-# package's dataclass fields), so a typo there is refused too.
-OTHER_SECTIONS: Dict[str, frozenset] = {
-    "sim": frozenset({
-        "seed", "students", "instructors", "courses", "duration_s",
-        "base_rate", "diurnal_amplitude", "days", "workers", "llm_budget_s",
-        "course_concentration", "tutoring_nodes", "tutoring_engine",
-        "events", "slo_answer_p95_s", "slo_degraded_rate_max",
-        "slo_tick_stalls_max", "continuous_slos", "bulk_scoring",
-        "telemetry_sample_s", "session_fraction", "session_turns",
-        "session_ttl_s", "slo_turn_ttft_p95_s", "lms_groups"}),
-}
+@dataclasses.dataclass
+class SimConfig:
+    """[sim]: the semester simulator (sim/): one continuously-verified
+    production scenario composing the whole fault arsenal under SLOs.
+    Workload shape (students, diurnal curve), operations schedule, and the
+    SLO bounds the end-of-run checker asserts from `/metrics`/`/healthz`
+    all live here so a failed run replays from one seed + one section.
+    """
+
+    seed: int = 0                 # workload trace + event schedule RNG
+    students: int = 24
+    instructors: int = 2
+    courses: int = 3
+    duration_s: float = 30.0      # wall-clock length of the workload phase
+    base_rate: float = 8.0        # mean op arrival rate (ops/s)
+    diurnal_amplitude: float = 0.6  # 0 = flat load, 1 = full day/night swing
+    days: float = 1.0             # diurnal cycles compressed into the run
+    workers: int = 8              # client worker threads driving the trace
+    llm_budget_s: float = 10.0    # per-ask_llm overall client budget
+    course_concentration: float = 0.0  # 0 = actors hash uniformly onto
+    #                                courses and ask_llm prompts stay bare;
+    #                                > 0 skews actors toward the first
+    #                                courses AND prefixes on-topic asks
+    #                                with their course's deterministic
+    #                                assignment context (the shared-prefix
+    #                                cache's target workload); 1 = all
+    #                                traffic on course0
+    tutoring_nodes: int = 1       # tutoring fleet size: N in-process
+    #                               tutoring nodes behind the LMS
+    #                               routing tier (cache-affinity ring,
+    #                               spill, hedging); > 1 adds the fleet
+    #                               drills to the operations schedule
+    #                               (kill-one-of-N blackout,
+    #                               drain-and-rejoin, autoscale)
+    tutoring_engine: str = "echo"  # "echo" (wire-complete stand-in),
+    #                                "tiny" (the real bucketed engine,
+    #                                tier-2 soak), or "tiny-paged" (the
+    #                                real paged engine + shared-prefix
+    #                                radix cache)
+    events: bool = True           # run the operations schedule (transfer,
+    #                               quarantine, membership, chaos campaign)
+    slo_answer_p95_s: float = 6.0    # ask_llm p95 bound (client + /metrics)
+    slo_degraded_rate_max: float = 0.5  # degraded answers / llm requests
+    slo_tick_stalls_max: int = 50    # bound on summed raft_tick_stalls
+    continuous_slos: bool = True  # evaluate the SLOs in fast/slow burn-rate
+    #                               windows DURING the run (sim/slo.py
+    #                               ContinuousSloEngine over a live cluster
+    #                               scrape), not only at run end; alerts
+    #                               land in the verdict and the BENCH record
+    bulk_scoring: bool = True     # run the "bulk grading night" event: an
+    #                               instructor-scale score job fanned to the
+    #                               tutoring fleet mid-run via the LMS
+    #                               admin plane; the background tenant must
+    #                               complete it WITHOUT moving interactive
+    #                               p95 (a scoring-induced burn alert is a
+    #                               false alarm — it fails the verdict)
+    telemetry_sample_s: float = 0.25  # scrape/evaluate cadence of the
+    #                               in-run telemetry loop (cluster /metrics
+    #                               poll + burn-rate evaluation)
+    session_fraction: float = 0.25  # fraction of students that run a
+    #                               follow-up-question CHAIN (streamed,
+    #                               session-sticky, prefix-spliced turns)
+    #                               instead of independent one-shot asks;
+    #                               0 disables the conversational workload
+    session_turns: int = 3        # turns per follow-up chain (turn 1 cold,
+    #                               turns 2..N splice the session prefix)
+    session_ttl_s: float = 30.0   # sim-scale session pin TTL handed to the
+    #                               tutoring nodes' session stores
+    slo_turn_ttft_p95_s: float = 4.0  # per-turn time-to-first-token p95
+    #                               bound over streamed session turns —
+    #                               the latency SLO conversational turns
+    #                               are judged by (TTFT, not full-answer)
+    lms_groups: int = 1           # Raft groups hosting the sharded LMS
+    #                               state (lms/group_router.py); > 1 boots
+    #                               the router + per-group Raft planes and
+    #                               adds the group drills (per-group
+    #                               leader loss, live split mid-peak) to
+    #                               the operations schedule
+
+    def __post_init__(self) -> None:
+        if self.telemetry_sample_s <= 0:
+            raise ValueError("[sim] telemetry_sample_s must be > 0")
+        if self.lms_groups < 1:
+            raise ValueError("[sim] lms_groups must be >= 1")
+        if self.tutoring_engine not in ("echo", "tiny", "tiny-paged"):
+            raise ValueError(
+                f"[sim] tutoring_engine must be 'echo', 'tiny', or "
+                f"'tiny-paged', got {self.tutoring_engine!r}"
+            )
+        if self.students < 1 or self.workers < 1 or self.duration_s <= 0:
+            raise ValueError("[sim] needs students/workers >= 1 and "
+                             "duration_s > 0")
+        if self.courses < 1 or self.instructors < 1:
+            raise ValueError("[sim] needs courses/instructors >= 1")
+        if self.base_rate <= 0:
+            raise ValueError("[sim] base_rate must be > 0")
+        if self.tutoring_nodes < 1:
+            raise ValueError("[sim] tutoring_nodes must be >= 1")
+        if not 0.0 <= self.course_concentration <= 1.0:
+            raise ValueError("[sim] course_concentration must be in [0, 1]")
+        if not 0.0 <= self.session_fraction <= 1.0:
+            raise ValueError("[sim] session_fraction must be in [0, 1]")
+        if self.session_turns < 1:
+            raise ValueError("[sim] session_turns must be >= 1")
+        if self.session_ttl_s <= 0 or self.slo_turn_ttft_p95_s <= 0:
+            raise ValueError("[sim] session_ttl_s and slo_turn_ttft_p95_s "
+                             "must be > 0")
 
 
 @dataclasses.dataclass
@@ -337,6 +431,7 @@ class AppConfig:
         default_factory=ResilienceConfig)
     groups: GroupsConfig = dataclasses.field(default_factory=GroupsConfig)
     storage: StorageConfig = dataclasses.field(default_factory=StorageConfig)
+    sim: SimConfig = dataclasses.field(default_factory=SimConfig)
     tracing: TracingConfig = dataclasses.field(default_factory=TracingConfig)
     telemetry: TelemetryConfig = dataclasses.field(
         default_factory=TelemetryConfig)
@@ -361,11 +456,9 @@ def load_config(path: str) -> AppConfig:
     """Parse a TOML deployment file (strict sections and keys)."""
     with open(path, "rb") as fh:
         raw = tomllib.load(fh)
-    unknown = set(raw) - set(SECTIONS) - set(OTHER_SECTIONS)
+    unknown = set(raw) - set(SECTIONS)
     if unknown:
         raise ValueError(f"unknown section(s) {sorted(unknown)} in {path}")
-    for name, keys in OTHER_SECTIONS.items():
-        _check_keys(raw.get(name, {}), keys, name)
     built = {}
     for name, cls in SECTIONS.items():
         table = dict(raw.get(name, {}))

@@ -48,6 +48,7 @@ from ..lms.tutoring_pool import TutoringPool, TutoringUnavailable
 from ..proto import rpc
 from ..raft import RaftConfig
 from ..raft.grpc_transport import RaftServicer
+from ..utils import locks
 from ..utils.diskfaults import DiskFaultInjector
 from ..utils.faults import CampaignRunner, FaultInjector
 from ..utils.guards import make_serving_watchdog
@@ -360,6 +361,9 @@ async def serve_async(args) -> None:
     faults = FaultInjector(seed=args.fault_seed)
     disk_faults = DiskFaultInjector(seed=args.fault_seed)
     metrics = Metrics()
+    # Lock-order violations detected by OrderedLock (when debug
+    # recording is on — the sim enables it) surface as a counter here.
+    locks.set_metrics_sink(metrics)
     lms_node = LMSNode(
         args.id, addresses, args.data_dir, raft_config=raft_config,
         snapshot_every=args.snapshot_every, fault_injector=faults,

@@ -1,15 +1,15 @@
 """HTTP health, metrics and admin endpoint (stdlib asyncio, no deps).
 
-The port's own copy of `distributed_lms_raft_llm_tpu/utils/healthz.py`
-(with `render_prometheus` from the JAX package's `utils/timeline.py`), so a
-port tutoring node exposes the same operator surface as a JAX one:
+The port's own copy of `distributed_lms_raft_llm_tpu/utils/healthz.py`, so
+a port tutoring node exposes the same operator surface as a JAX one:
 
     GET /healthz      -> the node's health document (`draining`, `queued`,
                          `node_id`, `sessions`: what the fleet router's
                          health poller reads)
     GET /metrics      -> the `Metrics.snapshot()` JSON
     GET /metrics.prom -> the same snapshot in Prometheus text exposition
-                         (HELP/TYPE from `utils/metrics_registry.py`)
+                         (`utils/timeline.render_prometheus`: HELP/TYPE
+                         from `utils/metrics_registry.py`)
     POST /admin/*     -> the admin hook (JSON body in, JSON out), e.g.
                          POST /admin/drain
     GET /admin/*      -> the read-only admin hook, e.g. GET /admin/trace
@@ -23,68 +23,14 @@ from __future__ import annotations
 
 import asyncio
 import json
-from typing import Any, Awaitable, Callable, Dict, List, Optional
+from typing import Awaitable, Callable, Dict, Optional
 
-from . import metrics_registry
 from .metrics import Metrics
+from .timeline import render_prometheus
 
 Provider = Callable[[], Dict]
 AdminHandler = Callable[[str, Dict], Awaitable[Dict]]
 AdminGetHandler = Callable[[str], Awaitable[Dict]]
-
-
-def _prom_escape(text: str) -> str:
-    return text.replace("\\", "\\\\").replace("\n", "\\n")
-
-
-def _prom_value(value: float) -> str:
-    if value == int(value) and abs(value) < 1e15:
-        return str(int(value))
-    return format(value, ".9g")
-
-
-def _prom_header(lines: List[str], name: str, kind: str) -> None:
-    if metrics_registry.is_declared(name):
-        spec_kind, help_text = metrics_registry.SPECS[name]
-        lines.append(f"# HELP {name} {_prom_escape(help_text)}")
-        # A registry "histogram" is a percentile reservoir; its exposition
-        # (quantile-labelled samples + _count/_sum) is a Prometheus summary.
-        lines.append(f"# TYPE {name} "
-                     + ("summary" if spec_kind == metrics_registry.HISTOGRAM
-                        else spec_kind))
-    else:
-        lines.append(f"# TYPE {name} {kind}")
-
-
-def render_prometheus(snapshot: Dict[str, Any]) -> str:
-    """Prometheus text exposition (0.0.4) of one Metrics snapshot: counters
-    and gauges verbatim, histograms as summaries (the reservoir's
-    percentiles plus `_count` and `_sum`)."""
-    lines: List[str] = []
-    counters = snapshot.get("counters", {})
-    for name in sorted(counters):
-        _prom_header(lines, name, metrics_registry.COUNTER)
-        lines.append(f"{name} {_prom_value(float(counters[name]))}")
-    gauges = snapshot.get("gauges", {})
-    for name in sorted(gauges):
-        _prom_header(lines, name, metrics_registry.GAUGE)
-        lines.append(f"{name} {_prom_value(float(gauges[name]))}")
-    hists = snapshot.get("latency", {})
-    for name in sorted(hists):
-        block = hists[name]
-        if not isinstance(block, dict):
-            continue
-        _prom_header(lines, name, "summary")
-        for q, key in (("0.5", "p50_s"), ("0.9", "p90_s"),
-                       ("0.95", "p95_s"), ("0.99", "p99_s")):
-            if key in block:
-                lines.append(f'{name}{{quantile="{q}"}} '
-                             f"{_prom_value(float(block[key]))}")
-        count = float(block.get("count", 0))
-        mean = float(block.get("mean_s", 0.0))
-        lines.append(f"{name}_count {_prom_value(count)}")
-        lines.append(f"{name}_sum {_prom_value(mean * count)}")
-    return "\n".join(lines) + "\n"
 
 
 class HealthServer:

@@ -1,8 +1,8 @@
 """Serving metrics: counters, gauges and latency histograms.
 
 The port's own copy of `distributed_lms_raft_llm_tpu/utils/metrics.py`
-(`Metrics`, `LatencyHistogram`), with a plain `threading.Lock` in place of
-the JAX package's lock-order-recording lock. Thread-safe; snapshots are
+(`Metrics`, `LatencyHistogram`), with the JAX package's named
+lock-order-recording locks (`utils/locks.py`). Thread-safe; snapshots are
 plain floats, ready for JSON.
 """
 
@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import bisect
 import math
-import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+from .locks import make_lock
 
 
 def percentile_of_sorted(samples: Sequence[float], p: float) -> float:
@@ -25,19 +27,28 @@ def percentile_of_sorted(samples: Sequence[float], p: float) -> float:
 
 
 class LatencyHistogram:
-    """Reservoir of recent latencies with percentile queries."""
+    """Reservoir of recent latencies with percentile queries.
 
-    def __init__(self, max_samples: int = 4096):
+    Beside the centered reservoir (all-time percentiles), a small
+    time-stamped ring of the newest observations backs
+    `window_percentile`, the sliding-window quantile the continuous SLO
+    engine (`sim/slo.py`) evaluates burn rates against."""
+
+    def __init__(self, max_samples: int = 4096, recent: int = 1024):
         self._samples: List[float] = []  # guarded-by: _lock
         self._max = max_samples
         self._count = 0                  # guarded-by: _lock
         self._total = 0.0                # guarded-by: _lock
-        self._lock = threading.Lock()
+        # (monotonic time, value) of the newest observations.
+        self._recent: Deque[Tuple[float, float]] = deque(  # guarded-by: _lock
+            maxlen=recent)
+        self._lock = make_lock("LatencyHistogram._lock")
 
     def observe(self, seconds: float) -> None:
         with self._lock:
             self._count += 1
             self._total += seconds
+            self._recent.append((time.monotonic(), seconds))
             bisect.insort(self._samples, seconds)
             if len(self._samples) > self._max:
                 # Drop alternating extremes to keep the reservoir centered.
@@ -48,6 +59,17 @@ class LatencyHistogram:
             if not self._samples:
                 return None
             return percentile_of_sorted(self._samples, p)
+
+    def window_percentile(self, window_s: float, p: float,
+                          now: Optional[float] = None) -> Optional[float]:
+        """Percentile of the observations of the last `window_s` seconds
+        (None when the window is empty, distinct from 0.0)."""
+        cutoff = (now if now is not None else time.monotonic()) - window_s
+        with self._lock:
+            vals = sorted(v for t, v in self._recent if t >= cutoff)
+        if not vals:
+            return None
+        return percentile_of_sorted(vals, p)
 
     def snapshot(self) -> Dict[str, float]:
         with self._lock:
@@ -73,7 +95,7 @@ class Metrics:
         self._counters: Dict[str, int] = {}            # guarded-by: _lock
         self._hists: Dict[str, LatencyHistogram] = {}  # guarded-by: _lock
         self._gauges: Dict[str, float] = {}            # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = make_lock("Metrics._lock")
 
     def set_gauge(self, name: str, value: float) -> None:
         """Last-value gauge for dimensionless readings (not latencies)."""

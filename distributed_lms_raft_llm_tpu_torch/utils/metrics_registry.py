@@ -390,6 +390,79 @@ SPECS: Dict[str, Tuple[str, str]] = {
         "version of the replicated course->group routing map this router "
         "last parsed from the meta group"
     )),
+    # The semester simulator's client-side series (sim/), and the
+    # lock-order auditor's counter (utils/locks.py).
+    "sim_ops_ok": (COUNTER, (
+        "simulated student/instructor ops that succeeded"
+    )),
+    "sim_ops_failed": (COUNTER, (
+        "simulated ops that failed terminally (retries and budget "
+        "exhausted)"
+    )),
+    "sim_ops_dropped": (COUNTER, (
+        "simulated ops shed unexecuted because their worker fell further "
+        "behind the trace than the lag bound (closed-loop overload, not a "
+        "cluster failure)"
+    )),
+    "sim_op_latency": (HISTOGRAM, (
+        "client-observed latency of every simulated op"
+    )),
+    "sim_ask_latency": (HISTOGRAM, (
+        "client-observed ask_llm latency (its p95 is the semester-sim "
+        "answer SLO)"
+    )),
+    "sim_degraded_answers": (COUNTER, (
+        "ask_llm calls answered by the degraded instructor-queue fallback, "
+        "as seen by the simulated clients"
+    )),
+    "sim_events_injected": (COUNTER, (
+        "operations-schedule events the semester sim executed (transfers, "
+        "quarantines, membership changes, chaos campaigns)"
+    )),
+    "sim_ryw_violations": (COUNTER, (
+        "read-your-writes violations the in-run ledger auditor observed (a "
+        "write acked before the read started was not visible)"
+    )),
+    "sim_acked_write_losses": (COUNTER, (
+        "acked writes the end-of-run ledger audit could not find in the "
+        "cluster (the zero-acked-write-loss SLO; must stay 0)"
+    )),
+    "sim_slo_violations": (COUNTER, (
+        "semester-sim SLO checks that failed"
+    )),
+    "sim_burn_alerts": (COUNTER, (
+        "burn-rate alerts the continuous SLO engine raised during the run "
+        "(fast- and slow-window; each is also recorded as a timeline event "
+        "and classified against the injected-fault phases in the verdict)"
+    )),
+    "sim_session_turns": (COUNTER, (
+        "streamed follow-up-chain turns the simulated students completed "
+        "(each is one StreamLLMAnswer call carrying a session id)"
+    )),
+    "sim_session_turns_failed": (COUNTER, (
+        "streamed session turns that failed terminally; the rest of that "
+        "chain is abandoned (later turns need the transcript)"
+    )),
+    "sim_stream_resumes": (COUNTER, (
+        "client-observed resume-at-offset failovers: streamed asks that "
+        "lost their stream after the first delivered byte and continued "
+        "from the delivered token offset on a retry"
+    )),
+    "sim_stream_digest_mismatch": (COUNTER, (
+        "streamed answers whose assembled text failed the final chunk's "
+        "digest check — a duplicated or dropped token somewhere in the "
+        "stream; the verdict requires 0"
+    )),
+    "sim_turn_ttft": (HISTOGRAM, (
+        "client-observed time to first streamed token per session turn (its "
+        "p95 is the per-turn conversational SLO)"
+    )),
+    "lock_order_violations": (COUNTER, (
+        "lock acquisitions that re-entered a held non-reentrant lock or "
+        "closed a cycle in the live acquisition-order graph (recorded by "
+        "utils/locks.py OrderedLock when debug recording is on; each also "
+        "lands in locks.violations() with the offending edge)"
+    )),
 }
 
 # The names the scoring tenant and the serving watchdog emit.
@@ -452,6 +525,27 @@ ROUTER_UNSIGNED_METADATA = "router_unsigned_metadata_rejections"
 RESHARD_STEPS = "reshard_steps"
 RESHARD_COMPLETED = "reshard_completed"
 ROUTING_MAP_VERSION = "routing_map_version"
+
+# The semester simulator's names (sim/) and the lock-order auditor's.
+SIM_OPS_OK = "sim_ops_ok"
+SIM_OPS_FAILED = "sim_ops_failed"
+SIM_OPS_DROPPED = "sim_ops_dropped"
+SIM_OP_LATENCY = "sim_op_latency"
+SIM_ASK_LATENCY = "sim_ask_latency"
+SIM_DEGRADED_ANSWERS = "sim_degraded_answers"
+SIM_EVENTS_INJECTED = "sim_events_injected"
+SIM_RYW_VIOLATIONS = "sim_ryw_violations"
+SIM_ACKED_WRITE_LOSSES = "sim_acked_write_losses"
+SIM_SLO_VIOLATIONS = "sim_slo_violations"
+SIM_BURN_ALERTS = "sim_burn_alerts"
+SIM_SESSION_TURNS = "sim_session_turns"
+SIM_SESSION_TURNS_FAILED = "sim_session_turns_failed"
+SIM_STREAM_RESUMES = "sim_stream_resumes"
+SIM_STREAM_DIGEST_MISMATCH = "sim_stream_digest_mismatch"
+SIM_TURN_TTFT = "sim_turn_ttft"
+LOCK_ORDER_VIOLATIONS = "lock_order_violations"
+PREFIX_CACHE_HIT_TOKENS = "prefix_cache_hit_tokens"
+PREFIX_CACHE_HIT_RATE = "prefix_cache_hit_rate"
 
 # Breaker state -> transition counter (the LMS breaker observer).
 BREAKER_TRANSITION_COUNTERS = {

@@ -19,9 +19,10 @@ each other. Everything takes an injectable `clock`.
 from __future__ import annotations
 
 import random
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from .locks import make_lock
 
 # Remaining budget in milliseconds (relative: survives clock skew).
 DEADLINE_METADATA_KEY = "x-deadline-budget-ms"
@@ -189,7 +190,7 @@ class CircuitBreaker:
         self.half_open_max = max(1, half_open_max)
         self._clock = clock
         self._on_state_change = on_state_change
-        self._lock = threading.Lock()
+        self._lock = make_lock("CircuitBreaker._lock")
         self._state = self.CLOSED        # guarded-by: _lock
         self._consecutive_failures = 0   # guarded-by: _lock
         self._opened_at = 0.0            # guarded-by: _lock

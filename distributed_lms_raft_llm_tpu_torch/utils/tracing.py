@@ -20,7 +20,8 @@ LMS need:
   the client's calls).
 - **Flight recorder.** A bounded ring of traces; traces flagged (degraded,
   error, deadline exhausted) are pinned, and so are the slowest few per
-  route.
+  route. `records()` / `reset()` read and empty it (the semester sim's
+  per-stage breakdowns).
 """
 
 from __future__ import annotations
@@ -470,6 +471,27 @@ class Tracer:
                     if tid in self._records]
         tail.reverse()
         return {"exemplars": pinned, "recent": tail}
+
+    def records(self) -> List[Dict[str, Any]]:
+        """Every retained trace's assembled tree (the semester sim's
+        per-stage breakdowns read this)."""
+        with self._lock:
+            ids = list(self._records)
+        out = []
+        for tid in ids:
+            tree = self.tree(tid)
+            if tree is not None:
+                out.append(tree)
+        return out
+
+    def reset(self) -> None:
+        """Drop every retained trace (a fresh flight recorder per sim
+        run)."""
+        with self._lock:
+            self._records.clear()
+            self._ring.clear()
+            self._flagged.clear()
+            self._slowest.clear()
 
 
 

@@ -200,7 +200,8 @@ def test_llama_tutoring_section_resolves_as_the_jax_node(tmp_path,
     ("[storage]\nfsync = 'on'\n", "fsync"),            # a bad value
     ("[tutoring_fleet]\nhealth_poll_s = 0\n", "health_poll_s"),
     ("[groups]\ncount = 0\n", "count"),
-    ("[sim]\nseedz = 1\n", "seedz"),                   # not parsed by the port
+    ("[sim]\nseedz = 1\n", "seedz"),
+    ("[sim]\ntutoring_engine = 'gpt2'\n", "tutoring_engine"),  # a bad value
     ("[telemetry]\nring_points = 1\n", "ring_points"),  # a bad value
 ])
 def test_unknown_sections_and_keys_are_refused_by_both(text, match,
@@ -218,7 +219,7 @@ def test_both_deployment_files_load(name):
     ref = jax_config.load_config(FILES[name])
     for section in ("tutoring", "sampling", "scoring", "sessions",
                     "resilience", "tracing", "cluster", "tutoring_fleet",
-                    "gate", "groups", "storage"):
+                    "gate", "groups", "storage", "sim"):
         assert (vars(getattr(cfg, section))
                 == vars(getattr(ref, section))), section
 

@@ -291,6 +291,10 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.train.train\n"
         "import distributed_lms_raft_llm_tpu_torch.train.data\n"
         "import distributed_lms_raft_llm_tpu_torch.train.checkpoint\n"
+        "import distributed_lms_raft_llm_tpu_torch.sim\n"
+        "import distributed_lms_raft_llm_tpu_torch.sim.__main__\n"
+        "import distributed_lms_raft_llm_tpu_torch.utils.scrape\n"
+        "import distributed_lms_raft_llm_tpu_torch.utils.locks\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
