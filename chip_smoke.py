@@ -5,7 +5,8 @@
                           [--gate-checkpoint F --gate-vocab F]
 
 Needs one NVIDIA GPU and this checkout beside the script (phases 8, 11,
-11b, 12 and 13 read configs/cluster.toml).
+11b, 12 and 13 read configs/cluster.toml; phase 14 starts this script
+again as its two tp ranks).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -168,7 +169,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    n-gram drafter under the reference sampling (12 requests, every answer
    non-empty, acceptance); (e) the server built from --spec-tokens 8, and
    4 unary answers and 4 streams over gRPC equal to the engine's direct
-   answers under phase 5's tokenizer;
+   answers under phase 5's tokenizer. (d) and (e) run GPT-2 small's width
+   cut to 4 of its 12 layers (window launches = 4 x verify calls), and
+   (c)'s profiled drain its first 4 requests, so the script keeps room for
+   phase 14;
 8. the bulk-scoring tenant (configs/cluster.toml [scoring]) on the node
    started from the deployment file (`tutoring_server.resolve_args` with
    --config, `engine_from_args`, warmup, `serve_args`; phase 4c's engine
@@ -361,6 +365,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Printed: ask p50/p95, turn TTFT p95, degraded answers and rate, ledger
    counts, events, alerts, tick stalls, node 0's tokens/s, answers by
    course and routes, the launches and the phase's seconds.
+14. tensor parallelism (`parallel/`): Llama-3-8B's widths (width 4,096,
+   32 query heads over 8 KV heads of 128, intermediate 14,336, vocabulary
+   128,256) cut to 4 layers, seeded random weights, the byte tokenizer.
+   (c) first, alone on the card: each kernel a tp rank runs at its shard's
+   shapes against its plain version, timed beside its bound and library
+   call: the int8 append kernel at 16 slots, 16 of 32 query heads over 4
+   of 8 KV heads (width 384), and the int8 products' halves (wq, wk, wv,
+   wg, wu and lm_head's 64,128 vocabulary rows column-parallel, wo and wd
+   row-parallel) at M = 16 and 512. Then this script starts itself twice
+   as two tp ranks (`--tp-rank`), which join one gloo process group on
+   the card (NCCL refuses two ranks on one device) and build every engine
+   alike, rank 0 driving and rank 1 following it; meanwhile this process
+   runs the tp 1 references. (a) A float32 witness (int8 weights and KV,
+   eager): greedy tokens of 4 requests x 16 new tokens byte-equal at tp 1
+   and tp 2, both ranks the same tokens and host decisions. (b) The
+   deployment config (configs/cluster.toml [tutoring]: int8 weights and
+   KV, megastep 4/8, fused admission, the prefix cache; `cuda_graphs=False`
+   since gloo's collectives cannot be captured) at tp 2 in bf16, 8
+   requests x 32 new tokens through `PagedQueue` on rank 0: both ranks the
+   same tokens and decisions, tokens beside tp 1's (each first divergence
+   where tp 1's top-2 margin is below 0.1), one forward's logits no
+   further from tp 1's bf16 ones and the float32 model's than twice tp
+   1's bf16 logits sit from the float32 ones, each rank's KV bytes half
+   of tp 1's, `serving_tp` 2; launches by route exact on each rank (append = 4 x
+   decode calls; int8 = 28 dense and 1 unembedding x model calls, decode
+   calls on the mma.sync tiles, admission chunks on the wgmma ones). A
+   refusal: `cuda_graphs=True` over gloo raises on each rank. These times
+   are not tp's speed: every collective crosses host memory.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -2377,6 +2409,13 @@ SPEC_TOKENS = 8  # configs/cluster.toml [tutoring] spec_tokens (commented out)
 # n-gram runs take (the first course prompt, then the next 11 in order):
 # one wave of the 16 slots, not two (phase 11b pays for itself).
 SPEC_REQUESTS = 12
+# Phase 7 (c)'s profiled drain takes the first of those; (d) and (e) run
+# GPT-2 small's width cut to SPEC_CUT_LAYERS layers (their preset
+# registered for the phase): the whole script has to leave room for
+# phase 14.
+SPEC_DRAIN_REQUESTS = 4
+SPEC_CUT_LAYERS = 4
+SPEC_CUT = "gpt2-4-layers"
 
 
 def graph_call_ms(torch, eng, width, reps=4) -> float:
@@ -2397,6 +2436,16 @@ def graph_call_ms(torch, eng, width, reps=4) -> float:
     end.synchronize()
     eng.reset()
     return start.elapsed_time(end) / (reps * eng.chunk)
+
+
+def prompt_logits(torch, eng, prompt):
+    """One full-sequence forward of `prompt` on `eng`'s weights: its
+    logits, [T, V] float32 on the host (under tp every rank runs it)."""
+    ids = eng.tokenizer.encode(prompt)[-eng.bucket:]
+    with torch.inference_mode():
+        logits, _ = eng.family.forward(
+            eng.params, eng.cfg, torch.tensor([ids], device=eng.device))
+    return logits[0].float().cpu()
 
 
 def divergence_margin(torch, eng, prompt, toks, i) -> float:
@@ -2647,7 +2696,8 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         captures_while_serving=graphs.captures - captures0, warmup_s=warm_s,
         kernels_per_verify_call=kernels_per_call)
     emit("spec_deployment_path", **spec_run)
-    drain = profile_drain(torch, eng, batches[0] + batches[1])
+    drain = profile_drain(torch, eng, (batches[0] + batches[1])[
+        :SPEC_DRAIN_REQUESTS])
     spec_run["drain"] = drain
     spec_run["device_ms_per_model_call"] = (drain["device_busy_us"] / 1e3
                                             / drain["model_calls_profiled"])
@@ -2680,10 +2730,21 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
     del eng
     torch.cuda.empty_cache()
 
-    # (d) The n-gram drafter under the reference sampling.
+    # (d) The n-gram drafter under the reference sampling, at GPT-2
+    # small's width cut to SPEC_CUT_LAYERS layers; (e) serves the same cut.
+    import functools
+
+    from distributed_lms_raft_llm_tpu_torch.models import gpt2, registry
+
+    registry.PRESETS[SPEC_CUT] = (registry.GPT2_FAMILY, functools.partial(
+        gpt2.GPT2Config.small, num_layers=SPEC_CUT_LAYERS))
+    cut = dict(prod, model=SPEC_CUT, checkpoint=None)  # seeded weights
     e = PagedEngine(EngineConfig(
         sampling=SamplingParams.reference_defaults(max_new_tokens=128),
-        spec_tokens=k, draft_source="ngram", **prod), **deploy_kw)
+        spec_tokens=k, draft_source="ngram", **cut), **deploy_kw)
+    check(e.cfg.num_layers == SPEC_CUT_LAYERS and e.cfg.hidden_size == 768,
+          f"phase 7 (d): not GPT-2 small's width at {SPEC_CUT_LAYERS} "
+          f"layers: {e.cfg}")
     e.warmup()
     attention.reset_launch_counts()
     steps0 = e.decode_steps
@@ -2694,10 +2755,11 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
                  tokens_per_window=emitted / max(windows, 1),
                  window_launches=attention.launch_counts[
                      attention.WINDOW_INT8KV],
-                 verify_calls=e.decode_steps - steps0)
+                 verify_calls=e.decode_steps - steps0,
+                 layers=SPEC_CUT_LAYERS)
     emit("spec_ngram_sampled", **ngram)
     check(ngram["nonempty"] == SPEC_REQUESTS and ngram["window_launches"]
-          == 12 * ngram["verify_calls"],
+          == SPEC_CUT_LAYERS * ngram["verify_calls"],
           f"ngram drafter, reference sampling: {ngram}")
     run["ngram_sampled"] = ngram
     del e
@@ -2722,7 +2784,7 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         del built
         eng = PagedEngine(EngineConfig(
             sampling=SamplingParams.greedy(max_new_tokens=128),
-            spec_tokens=k, **dict(prod, vocab_path=vocab,
+            spec_tokens=k, **dict(cut, vocab_path=vocab,
                                   merges_path=merges)), **deploy_kw)
         eng.warmup()
         queries = QUESTIONS[:4]
@@ -2775,10 +2837,12 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         grpc_rec = dict(requests=len(queries), unary_equal=len(queries),
                         streams_equal=len(queries),
                         chunks=[len(c) for c in streams],
-                        healthz_spec_tokens=health.get("spec_tokens"))
+                        healthz_spec_tokens=health.get("spec_tokens"),
+                        layers=SPEC_CUT_LAYERS)
         emit("spec_grpc", **grpc_rec)
         run["grpc"] = grpc_rec
         del eng
+    registry.PRESETS.pop(SPEC_CUT, None)
     torch.cuda.empty_cache()
     run["main_window_launches"] = main_window_launches
     return run
@@ -5543,6 +5607,481 @@ def sim_phase(torch, attention, quant_matmul, args, card) -> dict:
     return record
 
 
+# ------------------------------- phase 14: tensor parallelism
+
+TP = 2                       # tp ranks, two processes on the one card
+TP_BACKEND = "gloo"          # two ranks share the card: NCCL refuses that
+TP_LAYERS = 4                # Llama-3-8B's widths, depth cut to 4 (of 32)
+TP_MODEL = "llama3-8b-4-layers-tp"  # its preset, registered by phase 14
+TP_WITNESS_REQUESTS, TP_WITNESS_TOKENS = 4, 16
+TP_DEPLOY_REQUESTS, TP_DEPLOY_TOKENS = 8, 32
+TP_ROWS = (16, 512)          # the int8 products at decode's and a quantum's
+TP_RANK_TIMEOUT_S = 420.0
+# bf16 at tp 2 beside tp 1: a greedy answer may part from tp 1's only
+# where tp 1's top-2 logit margin is below TP_BF16_MARGIN_MAX (the
+# partial products round to bf16 before the all-reduce sums them; the
+# divergences read before this check sat at margins up to 0.047); and one
+# forward's bf16 logits at tp 2 may sit no further from the float32
+# model's (tp 1), nor from tp 1's bf16 ones, than TP_BF16_ERR_RATIO times
+# tp 1's bf16 logits sit from the float32 ones: bf16's own error at tp 1
+# is the floor (relative norms; a row-parallel sum dropped, doubled or
+# mis-scaled moves them by the order of 1).
+TP_BF16_MARGIN_MAX = 0.1
+TP_BF16_ERR_RATIO = 2.0
+# The deployment config's engine options (configs/cluster.toml
+# [tutoring]), eager: gloo's collectives cannot be captured.
+TP_DEPLOY_KW = dict(slots=16, chunk=16, inflight=3, megastep=4,
+                    megastep_max=8, prefix_cache=True,
+                    prefix_cache_blocks=512, prefill_chunk_tokens=32,
+                    cuda_graphs=False)
+
+
+def tp_register_preset():
+    """Register TP_MODEL (Llama-3-8B at TP_LAYERS layers) in this
+    process."""
+    import functools
+
+    from distributed_lms_raft_llm_tpu_torch.models import llama, registry
+
+    registry.PRESETS[TP_MODEL] = (registry.LLAMA_FAMILY, functools.partial(
+        llama.LlamaConfig.llama3_8b, num_layers=TP_LAYERS))
+
+
+def tp_configs(torch, seed, tp):
+    """(float32 witness config, bf16 deployment config) at `tp`."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        SamplingParams,
+    )
+
+    base = dict(model=TP_MODEL, quant="int8", kv_quant=True, seed=seed,
+                device="cuda", tp=tp)
+    witness = EngineConfig(
+        dtype=torch.float32, param_dtype=torch.float32,
+        sampling=SamplingParams.greedy(max_new_tokens=TP_WITNESS_TOKENS),
+        **base)
+    deploy = EngineConfig(
+        dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+        sampling=SamplingParams.greedy(max_new_tokens=TP_DEPLOY_TOKENS),
+        **base)
+    return witness, deploy
+
+
+def tp_prompts():
+    """The witness's prompts (framed QUESTIONS, a 256-token bucket) and the
+    deployment's (the bare QUESTIONS: one or two 32-token admission chunks
+    each, so the fused admission's decode chunks stay few, each forward
+    paying ten collectives through host memory)."""
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+
+    framed = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]
+    return framed[:TP_WITNESS_REQUESTS], list(QUESTIONS[:TP_DEPLOY_REQUESTS])
+
+
+def watched_tokens(eng, prompts):
+    """Submit `prompts` at once (each watched), drain, and return each
+    one's final tokens in submit order."""
+    rids = [eng.submit(p) for p in prompts]
+    for rid in rids:
+        eng.stream_watch(rid)
+    eng.drain()
+    finals = eng.pop_final_tokens()
+    return [finals[r] for r in rids]
+
+
+def queue_tokens(torch, eng, prompts):
+    """`prompts` through one PagedQueue, all submitted before it starts,
+    each watched: (answers, tokens, wall seconds, metrics snapshot)."""
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedQueue
+    from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+
+    submit, rids = eng.submit, []
+
+    def watched(prompt):
+        rid = submit(prompt)
+        eng.stream_watch(rid)
+        rids.append(rid)
+        return rid
+
+    eng.submit = watched
+    try:
+        answers, wall, snap = run_paged_waves(
+            eng, PagedQueue, Metrics, prompts, [], ready=lambda: True)
+    finally:
+        del eng.submit
+    finals = eng.pop_final_tokens()
+    return answers, [finals[r] for r in rids], wall, snap
+
+
+def tp_launches(attention, quant_matmul, eng, c0) -> dict:
+    """Calls since `c0` (decode, admission chunks, prefills) and the
+    launches, with the exact counts a Llama model call of TP_LAYERS layers
+    must make: the append kernel a layer a decode call, and 7 products a
+    layer and the unembedding a model call on each route."""
+    decode = eng.decode_steps - c0[0]
+    adm = eng.admission_chunks - c0[1]
+    prefill = eng.prefill_calls - c0[2]
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    if str(eng.cfg.dtype) == "torch.float32":
+        model = decode + adm + prefill
+        int8 = {quant_matmul.FMA: (7 * TP_LAYERS + 1) * model,
+                quant_matmul.KERNEL: (7 * TP_LAYERS + 1) * model}
+    else:
+        int8 = int8_want(quant_matmul, paged_calls(
+            quant_matmul, eng, decode, adm, prefill), 7 * TP_LAYERS)
+    attn = {name: launches.get(name, 0) for name in attention.launch_counts}
+    want_attn = {name: 0 for name in attention.launch_counts}
+    want_attn[attention.APPEND_INT8KV] = TP_LAYERS * decode
+    return dict(decode_calls=decode, admission_chunks=adm, prefills=prefill,
+                launches={k: v for k, v in launches.items() if v},
+                exact=(decode > 0 and attn == want_attn and all(
+                    launches.get(k, 0) == v for k, v in int8.items())),
+                want_int8={k: v for k, v in int8.items() if v})
+
+
+def tp_rank_main(args) -> int:
+    """One tp rank of phase 14 (a process this script starts): join the
+    gloo group on the card, then run the float32 witness, the deployment
+    config through PagedQueue (rank 0; rank 1 follows) and the refusal
+    check, and write this rank's record to `args.tp_out`."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+    from distributed_lms_raft_llm_tpu_torch.ops import attention, quant_matmul
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+
+    rank = args.tp_rank
+    mesh.init_process_group(TP_BACKEND, args.tp_init, TP, rank)
+    tp_register_preset()
+    witness_cfg, deploy_cfg = tp_configs(torch, args.seed, TP)
+    w_prompts, d_prompts = tp_prompts()
+    rec = dict(rank=rank)
+    t0 = time.monotonic()
+
+    def run(eng, drive):
+        """Rank 0 drives `eng` and returns what `drive` does; a follower
+        returns the final tokens of the rids rank 0 watched, by rid."""
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
+        if eng.tensor_parallel.leader:
+            out = drive()
+            eng.stop_followers()
+        else:
+            out = {}
+            eng.follow(lambda name, result: out.update(
+                eng.pop_final_tokens()))
+        torch.cuda.synchronize()
+        return out, tp_launches(attention, quant_matmul, eng, c0)
+
+    def in_order(finals):
+        return [finals[r] for r in sorted(finals)]
+
+    # (a) The float32 witness, eager.
+    eng = PagedEngine(witness_cfg, slots=TP_WITNESS_REQUESTS, chunk=4,
+                      cuda_graphs=False)
+    toks, counts = run(eng, lambda: watched_tokens(eng, w_prompts))
+    rec["witness"] = dict(
+        tokens=toks if rank == 0 else in_order(toks),
+        kv_bytes_per_chip=eng.kv_bytes_per_chip, tp=eng.tp,
+        cache_heads=eng.state.cache.k.shape[2], decisions=list(
+            eng.decisions), **counts)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) The deployment config at tp 2, eager, through PagedQueue.
+    eng = PagedEngine(deploy_cfg, **TP_DEPLOY_KW)
+    rec["deploy_config"] = dict(
+        tp=eng.tp, fused=eng.fused, megastep_ks=eng.megastep_ks,
+        prefix_cache=eng.prefix_cache is not None, cuda_graphs=eng.cuda_graphs,
+        quant_kv=eng.cfg.quant_kv, dtype=str(eng.cfg.dtype),
+        hidden=eng.cfg.hidden_size, layers=eng.cfg.num_layers,
+        heads=eng.cfg.local_heads, kv_heads=eng.cfg.local_kv_heads,
+        vocab=eng.cfg.vocab_size, lm_head_rows=eng.params["lm_head"][
+            "q"].shape[0], kv_bytes_per_chip=eng.kv_bytes_per_chip,
+        kv_planes_bytes=sum(x.numel() * x.element_size() for x in (
+            eng._kv.k, eng._kv.v, eng._kv.ks, eng._kv.vs)))
+    out, counts = run(eng, lambda: queue_tokens(torch, eng, d_prompts))
+    if rank == 0:
+        answers, toks, wall, snap = out
+        rec["deploy"] = dict(
+            answers=answers, tokens=toks, wall_s=wall,
+            serving_tp=snap["gauges"].get("serving_tp"),
+            serving_kv_bytes_per_chip=snap["gauges"].get(
+                "serving_kv_bytes_per_chip"),
+            prefix_hit_tokens=snap["counters"].get(
+                "prefix_cache_hit_tokens", 0), **counts)
+    else:
+        rec["deploy"] = dict(tokens=in_order(out), **counts)
+    rec["deploy"]["decisions"] = list(eng.decisions)
+    # The bf16 logits of the first prompt (every rank runs the forward:
+    # its collectives pair up), for the parent to hold against tp 1's.
+    torch.save(prompt_logits(torch, eng, d_prompts[0]),
+               f"{args.tp_out}.logits.pt")
+    del eng
+    torch.cuda.empty_cache()
+
+    # What one collective of the decode call costs here: the row-parallel
+    # all-reduce of [16, 4,096] bf16 and the logits' all-gather of
+    # [16, 64,128] float32, through host memory and the loopback.
+    tp = mesh.make_mesh({"tp": TP}).tensor_parallel()
+    x = torch.zeros((16, 4096), dtype=torch.bfloat16,
+                    device=deploy_cfg.device)
+    y = torch.zeros((16, 128256 // TP), dtype=torch.float32,
+                    device=deploy_cfg.device)
+
+    def per_call_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    rec["collective_ms"] = dict(
+        all_reduce_bf16_16x4096=per_call_ms(lambda: tp.all_reduce(x)),
+        all_gather_f32_16x64128=per_call_ms(lambda: tp.all_gather(y)))
+
+    # A refusal: CUDA graphs over gloo.
+    try:
+        PagedEngine(deploy_cfg, **dict(TP_DEPLOY_KW, cuda_graphs=True))
+        rec["graphs_refusal"] = None
+    except ValueError as e:
+        rec["graphs_refusal"] = str(e)
+    rec["seconds"] = time.monotonic() - t0
+    Path(args.tp_out).write_text(json.dumps(rec))
+    from torch import distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_kernel_cases(torch, attention, quant_matmul) -> dict:
+    """Phase 14 (c): every kernel a tp rank runs, at its shard's shapes,
+    against its plain version (each helper raises where they disagree):
+    the int8 append kernel at 16 of 32 query heads over 4 of 8 KV heads,
+    and Llama-3-8B's products' halves (LLAMA_TP2_PRODUCTS) at M = 16 and
+    512, each beside cuBLAS and its bound."""
+    from distributed_lms_raft_llm_tpu_torch.ops import sweep_int8
+
+    append = append_attention_case(torch, attention, s=16, width=384,
+                                   cache="int8", h=32 // TP, hkv=8 // TP,
+                                   dh=128, seed=140)
+    emit("tp_append_attention_case", **append)
+    mm = []
+    for name in sweep_int8.LLAMA_TP2_PRODUCTS:
+        for m in TP_ROWS:
+            mm.append(sweep_int8.int8_matmul_case(name=name, m=m,
+                                                  dtype="bfloat16"))
+            emit("tp_int8_matmul_case", **mm[-1])
+    return dict(append=append, int8_matmul=mm)
+
+
+def tp_phase(torch, attention, quant_matmul, args, card) -> dict:
+    """Phase 14 (see the module docstring). Returns its record."""
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+    from distributed_lms_raft_llm_tpu_torch.models import registry
+
+    t_phase = time.monotonic()
+    rec = dict(card=card, tp=TP, backend=TP_BACKEND, layers=TP_LAYERS)
+    # (c) first, alone on the card, so its times see no other process.
+    rec["kernels"] = tp_kernel_cases(torch, attention, quant_matmul)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    init = f"file://{tmp}/rendezvous"
+    outs = [Path(tmp) / f"rank{r}.json" for r in range(TP)]
+    logs = [open(Path(tmp) / f"rank{r}.log", "wb") for r in range(TP)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--tp-rank", str(r),
+         "--tp-init", init, "--tp-out", str(outs[r]), "--seed",
+         str(args.seed)], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=str(REPO)) for r in range(TP)]
+    tp_register_preset()
+    try:
+        # The tp 1 references, in this process while the ranks run.
+        w_prompts, d_prompts = tp_prompts()
+        witness_cfg, deploy_cfg = tp_configs(torch, args.seed, 1)
+        eng = PagedEngine(witness_cfg, slots=TP_WITNESS_REQUESTS, chunk=4,
+                          cuda_graphs=False)
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
+        ref_w = watched_tokens(eng, w_prompts)
+        ref_w_counts = tp_launches(attention, quant_matmul, eng, c0)
+        f32_logits = prompt_logits(torch, eng, d_prompts[0])
+        ref_w_kv = eng.kv_bytes_per_chip
+        del eng
+        torch.cuda.empty_cache()
+        ref = PagedEngine(deploy_cfg, **TP_DEPLOY_KW)
+        ref_kv = ref.kv_bytes_per_chip
+        ref_planes = sum(x.numel() * x.element_size() for x in (
+            ref._kv.k, ref._kv.v, ref._kv.ks, ref._kv.vs))
+        ref_answers, ref_d, ref_wall, _ = queue_tokens(torch, ref, d_prompts)
+        ref_calls = ref.decode_steps + ref.admission_chunks + ref.prefill_calls
+        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+        raise
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+        registry.PRESETS.pop(TP_MODEL, None)
+    tails = [(Path(tmp) / f"rank{r}.log").read_text(errors="replace")[-3000:]
+             for r in range(TP)]
+    check(all(p.returncode == 0 for p in procs) and all(
+        o.exists() for o in outs),
+          f"phase 14: a tp rank failed: exit codes "
+          f"{[p.returncode for p in procs]}\n" + "\n".join(tails))
+    ranks = [json.loads(o.read_text()) for o in outs]
+    lead, follow = ranks
+
+    # (a) float32: tp 1 and tp 2 byte-equal, both ranks the same tokens.
+    firsts = [first_divergence(a, b) for a, b in zip(lead["witness"][
+        "tokens"], ref_w)]
+    rec["witness"] = dict(
+        requests=len(ref_w), new_tokens=TP_WITNESS_TOKENS,
+        equal_tp1=sum(f is None for f in firsts), first_divergence=firsts,
+        ranks_equal=follow["witness"]["tokens"] == lead["witness"]["tokens"],
+        decisions_equal=(follow["witness"]["decisions"]
+                         == lead["witness"]["decisions"]),
+        tp1=dict(ref_w_counts, kv_bytes_per_chip=ref_w_kv),
+        ranks=[{k: r["witness"][k] for k in (
+            "decode_calls", "admission_chunks", "prefills", "launches",
+            "exact", "kv_bytes_per_chip", "cache_heads")} for r in ranks])
+    emit("tp_f32_witness", **rec["witness"])
+    check(rec["witness"]["equal_tp1"] == len(ref_w)
+          and rec["witness"]["ranks_equal"]
+          and rec["witness"]["decisions_equal"],
+          f"phase 14: float32 greedy tokens at tp 2 differ from tp 1 or "
+          f"between the ranks: {rec['witness']}")
+    check(ref_w_counts["exact"] and all(r["witness"]["exact"] for r in ranks)
+          and all(r["witness"]["launches"] == lead["witness"]["launches"]
+                  for r in ranks),
+          f"phase 14 witness: launches not exact on every rank: "
+          f"{rec['witness']}")
+
+    # (b) The deployment config at tp 2.
+    dcfg = lead["deploy_config"]
+    check(all(r["deploy_config"] == dcfg for r in ranks)
+          and dcfg["tp"] == TP and dcfg["fused"] and dcfg["prefix_cache"]
+          and dcfg["megastep_ks"] == [1, 2, 4, 8]
+          and not dcfg["cuda_graphs"] and dcfg["quant_kv"]
+          and dcfg["hidden"] == 4096 and dcfg["layers"] == TP_LAYERS
+          and dcfg["heads"] == 32 // TP and dcfg["kv_heads"] == 8 // TP
+          and dcfg["vocab"] == 128256 and dcfg["lm_head_rows"] == 128256 // TP,
+          f"phase 14: not Llama-3-8B's widths on the deployment config at "
+          f"tp {TP}: {dcfg}")
+    check(dcfg["kv_bytes_per_chip"] * TP == ref_kv
+          and dcfg["kv_planes_bytes"] * TP == ref_planes,
+          f"phase 14: a rank's KV bytes {dcfg['kv_bytes_per_chip']} "
+          f"(planes {dcfg['kv_planes_bytes']}) are not 1/{TP} of tp 1's "
+          f"{ref_kv} ({ref_planes})")
+    deploy = lead["deploy"]
+    check(deploy["serving_tp"] == float(TP)
+          and deploy["serving_kv_bytes_per_chip"] is not None,
+          f"phase 14: serving_tp {deploy['serving_tp']}")
+    check(len(deploy["answers"]) == TP_DEPLOY_REQUESTS
+          and all(isinstance(a, str) for a in deploy["answers"])
+          and follow["deploy"]["tokens"] == deploy["tokens"]
+          and follow["deploy"]["decisions"] == deploy["decisions"],
+          "phase 14: the deployment's ranks disagree (tokens or host "
+          "decisions) or an answer is missing")
+    check(all(r["deploy"]["exact"] for r in ranks)
+          and all(r["deploy"]["launches"] == deploy["launches"]
+                  for r in ranks) and deploy["admission_chunks"] > 0,
+          f"phase 14 deployment: launches by route not exact on every rank: "
+          f"{[(r['deploy']['launches'], r['deploy']['want_int8']) for r in ranks]}")
+    # bf16 tokens beside tp 1's: the first divergence of each differing
+    # answer, with the top-2 margin of tp 1's logits there (where tp 1's
+    # answer ends first, at its end of sequence).
+    diverged = []
+    for i, (a, b) in enumerate(zip(deploy["tokens"], ref_d)):
+        j = first_divergence(a, b)
+        if j is not None:
+            diverged.append(dict(request=i, token=j, top2_margin=(
+                divergence_margin(torch, ref, d_prompts[i], b, j))))
+    # The first prompt's logits: each rank's gathered bf16 ones against
+    # tp 1's bf16 ones and the float32 model's, beside bf16's own error at
+    # tp 1 (relative norms).
+    ref_logits = prompt_logits(torch, ref, d_prompts[0])
+    tp_logits = [torch.load(f"{o}.logits.pt") for o in outs]
+
+    def rel(x, y):
+        return ((x - y).norm() / y.norm()).item()
+
+    logits_floor = rel(ref_logits, f32_logits)
+    logits_rel = [rel(x, ref_logits) for x in tp_logits]
+    logits_rel_f32 = [rel(x, f32_logits) for x in tp_logits]
+    logits_max_abs = [(x - ref_logits).abs().max().item() for x in tp_logits]
+    del ref
+    torch.cuda.empty_cache()
+    rec["deploy"] = dict(
+        requests=TP_DEPLOY_REQUESTS, new_tokens=TP_DEPLOY_TOKENS,
+        tokens_equal_tp1=TP_DEPLOY_REQUESTS - len(diverged),
+        diverged=diverged, margin_max=TP_BF16_MARGIN_MAX,
+        answers_equal_tp1=sum(
+            a == b for a, b in zip(deploy["answers"], ref_answers)),
+        logits_rel_err_tp1=logits_rel, logits_rel_err_f32=logits_rel_f32,
+        logits_rel_err_tp1_f32=logits_floor,
+        logits_max_abs_err_tp1=logits_max_abs,
+        logits_ref_max_abs=ref_logits.abs().max().item(),
+        logits_err_ratio_max=TP_BF16_ERR_RATIO,
+        logits_ranks_equal=bool(torch.equal(*tp_logits)),
+        wall_s=deploy["wall_s"], wall_s_tp1=ref_wall,
+        ms_per_model_call=deploy["wall_s"] * 1e3 / (
+            deploy["decode_calls"] + deploy["admission_chunks"]
+            + deploy["prefills"]),
+        ms_per_model_call_tp1=ref_wall * 1e3 / ref_calls,
+        serving_tp=deploy["serving_tp"],
+        serving_kv_bytes_per_chip=deploy["serving_kv_bytes_per_chip"],
+        kv_bytes_per_chip=dcfg["kv_bytes_per_chip"], kv_bytes_tp1=ref_kv,
+        prefix_hit_tokens=deploy["prefix_hit_tokens"],
+        ranks=[{k: r["deploy"][k] for k in (
+            "decode_calls", "admission_chunks", "prefills", "launches",
+            "exact")} for r in ranks])
+    emit("tp_deployment", **rec["deploy"])
+    check(all(d["top2_margin"] < TP_BF16_MARGIN_MAX for d in diverged),
+          f"phase 14: a bf16 answer at tp {TP} parts from tp 1's where tp "
+          f"1's top-2 margin is not below {TP_BF16_MARGIN_MAX}: {diverged}")
+    # The floor is bf16's rounding of one set of weights (each drawn in
+    # float32, then cast): near 1 it would say the two models differ.
+    check(logits_floor < 0.1, f"phase 14: tp 1's bf16 logits are "
+          f"{logits_floor} (relative) from the float32 model's: not the "
+          f"same weights")
+    check(rec["deploy"]["logits_ranks_equal"]
+          and max(logits_rel + logits_rel_f32)
+          <= TP_BF16_ERR_RATIO * logits_floor,
+          f"phase 14: bf16 logits at tp {TP}: relative error {logits_rel} "
+          f"against tp 1's, {logits_rel_f32} against float32's, beyond "
+          f"{TP_BF16_ERR_RATIO} x tp 1's own {logits_floor}; ranks equal "
+          f"{rec['deploy']['logits_ranks_equal']}")
+    rec["graphs_refusal"] = [r["graphs_refusal"] for r in ranks]
+    check(all(m and "cuda_graphs over the gloo backend" in m
+              for m in rec["graphs_refusal"]),
+          f"phase 14: cuda_graphs=True over gloo did not raise: "
+          f"{rec['graphs_refusal']}")
+    rec["collective_ms"] = lead["collective_ms"]
+    rec["rank_seconds"] = [r["seconds"] for r in ranks]
+    rec["seconds"] = time.monotonic() - t_phase
+    rec["launches"] = lead["deploy"]["launches"]
+    emit("tp", **{k: rec[k] for k in ("card", "tp", "backend", "layers",
+                                      "graphs_refusal", "collective_ms",
+                                      "rank_seconds", "seconds")})
+    return rec
+
+
 def _graph_captures() -> int:
     from distributed_lms_raft_llm_tpu_torch.engine import graphs
 
@@ -5563,7 +6102,14 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None,
                         help="also write every record as JSON to this file")
+    # Phase 14 starts this script once a tp rank with these.
+    parser.add_argument("--tp-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.tp_rank is not None:
+        return tp_rank_main(args)
 
     import torch
 
@@ -6051,6 +6597,14 @@ def main(argv=None) -> int:
     sim_launches = records["sim"]["launches"]
     lap("13_sim")
 
+    # 14. Tensor parallelism: two gloo ranks on the card serve Llama-3-8B's
+    # widths (4 layers), held against tp 1; every kernel at its shard's
+    # shapes.
+    torch.cuda.empty_cache()
+    records["tp"] = tp_phase(torch, attention, quant_matmul, args, smi)
+    tp_launches_ = records["tp"]["launches"]
+    lap("14_tp")
+
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]
     emit("phase_seconds", **phase_s)
@@ -6273,6 +6827,34 @@ def main(argv=None) -> int:
               launches_path="10's scoring quantum (24 a quantum)",
               launches_by_path=by_path(quant_matmul.WGMMA_EXPERTS)),
     ]
+    # Phase 14: each kernel at a tp rank's shard shapes (Llama-3-8B's
+    # widths over two ranks), its launches those of rank 0 over the
+    # deployment run (rank 1's are equal, checked).
+    tp_append = records["tp"]["kernels"]["append"]
+    kernels.append(entry(
+        f"{attention.APPEND_INT8KV}[tp2 shard: 16 of 32 query heads over 4 "
+        f"of 8 KV heads, Dh 128]", pallas + " (extended: the paged step's "
+        "append and attend over the int8 cache)",
+        tp_launches_.get(attention.APPEND_INT8KV, 0), tp_append,
+        library_note=tp_append["library_note"],
+        shape="16 slots, width 384, int8 cache, bf16 q, H 16 / Hkv 4",
+        launches_path="14b, rank 0 of 2 (gloo, one card)"))
+    for case in records["tp"]["kernels"]["int8_matmul"]:
+        kernels.append(entry(
+            f"{case['route']}[tp2 shard: {case['name']}, M={case['m']}]",
+            "no Pallas kernel: distributed_lms_raft_llm_tpu/models/"
+            "common.py:58-60 and models/quant.py:139-146 (XLA-fused int8 "
+            "einsums, sharded by parallel/partition.py LLAMA_RULES)",
+            tp_launches_.get(case["route"], 0), case,
+            source=(wgmma_src if case["route"].startswith(
+                "int8_matmul_wgmma") else f"{PACKAGE}/ops/csrc/"
+                "int8_matmul.cu"),
+            shape=f"K {case['k']} x N {case['n']}"
+            f"{' (transposed)' if case['transposed'] else ''}, M "
+            f"{case['m']}, bf16",
+            library_note=case["library_note"],
+            launches_path="14b, rank 0 of 2: the route's launches over "
+            "the deployment run"))
     records["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

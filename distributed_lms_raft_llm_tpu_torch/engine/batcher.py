@@ -739,6 +739,13 @@ class PagedQueue:
         mk = getattr(self.engine, "megastep_k", None)
         if mk is not None:
             self.metrics.set_gauge("megastep_k", float(mk))
+        # Sharded serving: the tp ways and the KV residency on each
+        # rank's device (it tracks cache growth and the idle shrink).
+        kvb = getattr(self.engine, "kv_bytes_per_chip", None)
+        if kvb is not None:
+            self.metrics.set_gauge("serving_tp",
+                                   float(getattr(self.engine, "tp", 1)))
+            self.metrics.set_gauge("serving_kv_bytes_per_chip", float(kvb))
         if dead:
             self.metrics.inc("megastep_dead_lane_tokens", dead)
         if stall_ms:

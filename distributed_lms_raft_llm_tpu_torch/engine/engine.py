@@ -27,7 +27,17 @@ engine.py`, on one CUDA device (or the CPU when the caller asks for it):
   (batch bucket, length bucket) shapes. With `scoring` on, warmup runs
   every such shape once (`score_shapes`).
 
-Options of the JAX engine that the port does not carry yet (tensor/expert/
+- `tp` > 1 shards the model over a tp axis of ranks (`parallel/`): the
+  caller starts tp processes that join one process group (gloo or nccl,
+  `parallel.mesh.init_process_group` or torchrun's environment) and builds
+  the same engine in each; rank 0 takes the calls and the other ranks
+  follow it (`follow()`, `parallel/spmd.py`). Every rank holds its slice of
+  the parameters and its heads of the cache, and its kernels run at the
+  shard's shapes. Unlike the JAX engine, fused attention runs under tp: the
+  JAX package's Pallas kernel is not partition-aware, while each rank here
+  hands its own local tensors to the kernel.
+
+Options of the JAX engine that the port does not carry yet (expert and
 sequence parallelism) raise `NotImplementedError` at construction.
 """
 
@@ -45,6 +55,9 @@ import torch
 from ..device import resolve_device
 from ..models import convert, quant, registry
 from ..ops import attention as attention_ops
+from ..parallel import mesh as mesh_lib
+from ..parallel import partition
+from ..parallel.spmd import Replica
 from ..utils import tokenizer as tok_lib
 from ..utils.guards import intended_transfer
 from .generate import GenerateResult, decode, pick_bucket, prefill
@@ -104,11 +117,9 @@ class EngineConfig:
 
 def refuse_unported(config: EngineConfig) -> None:
     """Raise for the EngineConfig options the port does not carry yet (both
-    engines). Scoring with sp > 1 (ring-attention scoring) is refused with
-    sp."""
-    unported = {
-        "tp": config.tp > 1, "ep": config.ep > 1, "sp": config.sp > 1,
-    }
+    engines): ep and sp above 1. Scoring with sp > 1 (ring-attention
+    scoring) is refused with sp."""
+    unported = {"ep": config.ep > 1, "sp": config.sp > 1}
     named = [k for k, on in unported.items() if on]
     if named:
         raise NotImplementedError(
@@ -116,6 +127,39 @@ def refuse_unported(config: EngineConfig) -> None:
         )
     if config.quant not in (None, "int8"):
         raise ValueError(f"unsupported quant mode {config.quant!r}")
+
+
+def kv_heads(cfg) -> int:
+    """The model's KV head count (all heads for GPT-2 and its MoE)."""
+    return getattr(cfg, "num_kv_heads", cfg.num_heads)
+
+
+def engine_tensor_parallel(config: EngineConfig, cfg
+                           ) -> mesh_lib.TensorParallel:
+    """The tp axis an engine runs over: SINGLE at tp = 1; else the process
+    group's, which must hold exactly `config.tp` ranks. The head count is
+    checked first (`partition.validate_tp_heads`, the JAX paged engine's
+    check), so an uneven split raises before any group is needed."""
+    partition.validate_tp_heads(kv_heads(cfg), config.tp, config.model)
+    if config.tp == 1:
+        return mesh_lib.SINGLE
+    from torch import distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"tp={config.tp} runs one process a rank: join a process group "
+            f"of {config.tp} ranks first (parallel.mesh.init_process_group, "
+            f"or initialize_multihost under torchrun)")
+    return mesh_lib.make_mesh({"tp": config.tp, "ep": config.ep,
+                               "sp": config.sp, "dp": -1}).tensor_parallel()
+
+
+def shard_for(params, family: str, tp: mesh_lib.TensorParallel):
+    """This rank's slice of a (quantized) parameter tree: the family's
+    rules (`partition.RULES_FOR`), cut after quantization so a
+    row-parallel leaf keeps the scale of its whole column."""
+    return partition.shard_params(params, partition.RULES_FOR[family],
+                                  tp.rank, tp.size)
 
 
 def load_tokenizer(config: EngineConfig, family: str, vocab_size: int):
@@ -186,8 +230,14 @@ class TutoringEngine:
         if fused is None:
             fused = self.device.type == "cuda"
         check_spec_window(config.spec_tokens, fused)
+        # The tp axis (the head split checked first); `tp` is its size.
+        self.tensor_parallel = engine_tensor_parallel(config, self.cfg)
+        self.tp = self.tensor_parallel.size
         self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
-                                       quant_kv=config.kv_quant)
+                                       quant_kv=config.kv_quant,
+                                       tensor_parallel=self.tensor_parallel)
+        # Under tp: rank 0's calls, replayed on the other ranks.
+        self._spmd = Replica(self, self.tensor_parallel)
         self.tokenizer = load_tokenizer(config, self.family.name,
                                         self.cfg.vocab_size)
         if config.sampling.max_new_tokens >= self.cfg.max_position_embeddings:
@@ -210,8 +260,11 @@ class TutoringEngine:
                                                   self.device)
         if config.quant:
             self.params = quant.quantize_params(self.params, self.family.name)
-        log.info("params ready in %.1fs on %s", time.monotonic() - t0,
-                 self.device)
+        self.params = shard_for(self.params, self.family.name,
+                                self.tensor_parallel)
+        log.info("params ready in %.1fs on %s (tp rank %d of %d)",
+                 time.monotonic() - t0, self.device,
+                 self.tensor_parallel.rank, self.tp)
 
         self.last_ttft_s: Optional[float] = None
         self.last_batch_ttfts: List[float] = []
@@ -236,6 +289,16 @@ class TutoringEngine:
             if config.scoring else [])
 
     _PROG_TIMES_MAX = 1024
+
+    def follow(self, on_result=None) -> None:
+        """A tp rank other than 0: replay rank 0's calls until it stops
+        (`stop_followers`); `on_result(name, result)` sees each replayed
+        call's result (`Replica.follow`)."""
+        self._spmd.follow(on_result)
+
+    def stop_followers(self) -> None:
+        """Rank 0: release the other ranks from `follow`."""
+        self._spmd.stop()
 
     def pop_program_times(self) -> List[Tuple[str, float, float]]:
         """Drain (program, start_unix, wall_s) recorded since last call."""
@@ -284,14 +347,15 @@ class TutoringEngine:
         the kernel build happen here, not on a request), then, with
         `config.scoring`, the score program at each of `score_shapes`;
         returns seconds."""
-        bucket = min(bucket or self.config.length_buckets[0],
-                     self._max_prompt_len())
-        t0 = time.monotonic()
-        ids = np.zeros((batch, bucket), np.int32)
-        mask = np.ones((batch, bucket), bool)
-        self.generate_ids(ids, mask)
-        self._warm_score()
-        return time.monotonic() - t0
+        with self._spmd.call("warmup", batch, bucket, collective=True):
+            bucket = min(bucket or self.config.length_buckets[0],
+                         self._max_prompt_len())
+            t0 = time.monotonic()
+            ids = np.zeros((batch, bucket), np.int32)
+            mask = np.ones((batch, bucket), bool)
+            self.generate_ids(ids, mask)
+            self._warm_score()
+            return time.monotonic() - t0
 
     @property
     def score_batch_cap(self) -> int:
@@ -306,7 +370,8 @@ class TutoringEngine:
         prefix was scored). A full-sequence forward with no cache; groups
         larger than the biggest batch bucket run as several device batches
         (`engine/scoring.py`)."""
-        return score_texts(self, texts)
+        with self._spmd.call("score", list(texts), collective=True):
+            return score_texts(self, texts)
 
     def _warm_score(self) -> int:
         """Run the score program over its (batch bucket x length bucket)
@@ -364,6 +429,10 @@ class TutoringEngine:
         than the biggest batch bucket run as several device batches."""
         if not prompts:
             return []
+        with self._spmd.call("answer_batch", list(prompts), collective=True):
+            return self._answer_batch(prompts)
+
+    def _answer_batch(self, prompts: Sequence[str]) -> List[str]:
         cap = max(self.config.batch_buckets)
         answers: List[str] = []
         ttfts: List[float] = []

@@ -26,8 +26,9 @@ to the compute dtype once, at load (`bert.cast_products`). `check` runs on
 the LMS's executor threads, several at once: the cache and the forward
 count are guarded by a lock, the forward itself shares only read-only
 weights (the kernels' launch counters are plain integers, exact only
-while one thread launches). Tensor parallelism (`tp > 1`) is not ported
-yet.
+while one thread launches). The gate's tensor parallelism (`tp > 1`) is
+not ported yet: the tutoring engines' is (`parallel/`); the gate's comes
+with the expert-parallel slice.
 """
 
 from __future__ import annotations

@@ -91,12 +91,27 @@ a full-sequence forward outside the slot state, warmed at each of
 inside a capture). The serving queue runs it only while the engine has no
 work, so no dispatch is in flight beside it.
 
+Tensor parallelism (`tp` > 1, as in the JAX package's
+tests/test_paged_sharded.py): one process a rank, each holding its slice of
+the parameters and KV planes of Hkv / tp heads (`partition.
+PAGED_PLANE_SPECS`'s heads axis); `tp` must divide the KV heads
+(`partition.validate_tp_heads`, at construction). Rank 0 takes the calls;
+each step broadcasts what came in since the last one (submissions, session
+marks, cancellations, resets, session releases) with rank 0's clock, and
+the other ranks replay them and the step (`follow()`, `parallel/spmd.py`),
+so admission, megastep K, prefix hits and reaps follow identically; the
+radix tree's session expiry reads rank 0's clock. Under tp `decisions`
+records the host's choices on every rank. CUDA graphs need a backend whose collectives
+a capture can hold (nccl): `cuda_graphs=True` over gloo raises, and None
+turns them on only where the device and the backend allow.
+
 Options of the JAX engine not ported yet raise `NotImplementedError` at
-construction: tp/ep/sp.
+construction: ep and sp.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import logging
@@ -109,6 +124,8 @@ import torch
 from ..device import resolve_device
 from ..models import convert, quant, registry
 from ..models.common import KVCache
+from ..parallel.mesh import backend_can_capture
+from ..parallel.spmd import Replica
 from ..utils.guards import intended_transfer
 from .draft import build_drafts, build_drafts_ngram, verify_window
 from .engine import (
@@ -116,8 +133,10 @@ from .engine import (
     EngineConfig,
     check_moe_spec,
     check_spec_window,
+    engine_tensor_parallel,
     load_tokenizer,
     refuse_unported,
+    shard_for,
 )
 from .generate import pick_bucket
 from .graphs import ChunkGraph
@@ -646,22 +665,35 @@ class PagedEngine:
         self._megastep_initial = max(
             k for k in self.megastep_ks if k <= max(1, megastep))
         self.megastep_k = self._megastep_initial
-        self.device = resolve_device(config.device)
-        if cuda_graphs is None:
-            cuda_graphs = self.device.type == "cuda"
-        if cuda_graphs and self.device.type != "cuda":
-            raise ValueError("cuda_graphs needs a CUDA device")
-        self.cuda_graphs = cuda_graphs
         self.family, self.cfg = registry.resolve(
             config.model, config.dtype, config.param_dtype
         )
+        # The tp axis (the head split checked first); `tp` is its size.
+        self.tensor_parallel = engine_tensor_parallel(config, self.cfg)
+        self.tp = self.tensor_parallel.size
+        capturable = backend_can_capture(self.tensor_parallel.backend)
+        if cuda_graphs and not capturable:
+            raise ValueError(
+                f"cuda_graphs over the {self.tensor_parallel.backend} "
+                f"backend: a CUDA graph cannot capture its collectives "
+                f"(tp={self.tp}); use nccl with one GPU a rank, or "
+                f"cuda_graphs=False")
+        self.device = resolve_device(config.device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda" and capturable
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError("cuda_graphs needs a CUDA device")
+        self.cuda_graphs = cuda_graphs
         check_moe_spec(self.spec, self.family.name, self.cfg)
         fused = config.fused_attention
         if fused is None:
             fused = self.device.type == "cuda"
         check_spec_window(config.spec_tokens, fused)
         self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
-                                       quant_kv=config.kv_quant)
+                                       quant_kv=config.kv_quant,
+                                       tensor_parallel=self.tensor_parallel)
+        # Under tp: rank 0's calls, replayed on the other ranks.
+        self._spmd = Replica(self, self.tensor_parallel)
         self.tokenizer = load_tokenizer(config, self.family.name,
                                         self.cfg.vocab_size)
         self.slots = slots or max(config.batch_buckets)
@@ -699,6 +731,9 @@ class PagedEngine:
             self.prefix_cache = PrefixCache(
                 block_tokens=max(1, prefix_block_tokens),
                 max_blocks=max(1, prefix_cache_blocks))
+            if self.tp > 1:
+                # Session expiry on every rank at rank 0's clock.
+                self.prefix_cache.clock = self._spmd.clock
         # Fused staged admission: prompt positions prefilled per megastep
         # iteration, clamped (as in the JAX package) so a final chunk's pad
         # tail still ends inside the cache width.
@@ -733,9 +768,11 @@ class PagedEngine:
                                              self.device)
         if config.quant:
             params = quant.quantize_params(params, self.family.name)
-        self.params = params
-        log.info("params ready in %.1fs on %s", time.monotonic() - t0,
-                 self.device)
+        self.params = shard_for(params, self.family.name,
+                                self.tensor_parallel)
+        log.info("params ready in %.1fs on %s (tp rank %d of %d)",
+                 time.monotonic() - t0, self.device,
+                 self.tensor_parallel.rank, self.tp)
 
         statics = dict(cfg=self.cfg, sampling=config.sampling,
                        model=self.family)
@@ -853,8 +890,39 @@ class PagedEngine:
         # rid -> seconds from submit() to its admission (the queue.wait
         # span's true length), drained by pop_queue_waits().
         self._queue_waits: Dict[int, float] = {}
+        # Under tp, the host's choices, newest last, on every rank:
+        # ("admit", rid, slot) and ("stage", rid, slot) per admission,
+        # ("dispatch", K, admission plan) per step; the ranks' logs are
+        # equal. Empty at tp 1.
+        self.decisions: collections.deque = collections.deque(
+            maxlen=self._PROG_TIMES_MAX)
 
     _PROG_TIMES_MAX = 4096
+
+    def follow(self, on_result=None) -> None:
+        """A tp rank other than 0: replay rank 0's calls until it stops
+        (`stop_followers`); `on_result(name, result)` sees each replayed
+        call's result before this rank drains its stats (`Replica.follow`).
+        """
+        self._spmd.follow(on_result)
+
+    def stop_followers(self) -> None:
+        """Rank 0: release the other ranks from `follow`."""
+        self._spmd.stop()
+
+    def _decide(self, *decision) -> None:
+        """Log a host decision under tp (`decisions`)."""
+        if self.tp > 1:
+            self.decisions.append(decision)
+
+    def _followed(self, name: str, result) -> None:
+        """On a follower after each replayed call: drain what rank 0's
+        queue would drain, so nothing piles up."""
+        for pop in (self.pop_final_tokens, self.pop_ttfts,
+                    self.pop_dispatch_stats, self.pop_program_times,
+                    self.pop_queue_waits, self.pop_prefix_hits,
+                    self.pop_spec_stats, self.pop_prefix_stats):
+            pop()
 
     def _time_prog(self, name: str, t0: float, t0_unix: float) -> None:
         """Record one dispatch's host wall time."""
@@ -929,12 +997,19 @@ class PagedEngine:
         return out
 
     @property
-    def kv_bytes_total(self) -> int:
-        """Logical bytes of the live slot KV working set (k/v plus the
-        int8 scale planes) at the cache's current width."""
+    def kv_bytes_per_chip(self) -> int:
+        """Bytes of the live slot KV working set (k/v plus the int8 scale
+        planes) at the cache's current width on this rank's device: its
+        Hkv / tp heads. The `serving_kv_bytes_per_chip` gauge."""
         c = self.state.cache
         return sum(x.numel() * x.element_size()
                    for x in (c.k, c.v, c.ks, c.vs) if x is not None)
+
+    @property
+    def kv_bytes_total(self) -> int:
+        """Logical bytes of the whole model's slot KV working set: every
+        rank's heads (tp x this rank's)."""
+        return self.kv_bytes_per_chip * self.tp
 
     def _init_state(self, width: Optional[int] = None) -> SlotState:
         """A clean state at `width`: every plane and the KV pages zeroed IN
@@ -959,6 +1034,10 @@ class PagedEngine:
     # ------------------------------------------------------------ host API
 
     def submit(self, prompt: str) -> int:
+        with self._spmd.call("submit", prompt):
+            return self._submit(prompt)
+
+    def _submit(self, prompt: str) -> int:
         limit = self.bucket
         toks = self.tokenizer.encode(prompt)[-limit:] or [self.tokenizer.pad_id]
         req = _Request(
@@ -982,12 +1061,13 @@ class PagedEngine:
         prefix cache."""
         if self.prefix_cache is None:
             return False
-        for req in self._pending:
-            if req.rid == rid:
-                self._session_reqs[rid] = (session_id, float(ttl_s),
-                                           list(req.tokens))
-                return True
-        return False
+        with self._spmd.call("mark_session", rid, session_id, ttl_s):
+            for req in self._pending:
+                if req.rid == rid:
+                    self._session_reqs[rid] = (session_id, float(ttl_s),
+                                               list(req.tokens))
+                    return True
+            return False
 
     @property
     def backlog(self) -> int:
@@ -999,13 +1079,14 @@ class PagedEngine:
     def cancel_pending(self, rid: int) -> bool:
         """Remove a not-yet-admitted request; True if it was still pending.
         A request already in a slot is not cancellable."""
-        for i, req in enumerate(self._pending):
-            if req.rid == rid:
-                del self._pending[i]
-                self._session_reqs.pop(rid, None)
-                self._stream_watch.discard(rid)
-                return True
-        return False
+        with self._spmd.call("cancel_pending", rid):
+            for i, req in enumerate(self._pending):
+                if req.rid == rid:
+                    del self._pending[i]
+                    self._session_reqs.pop(rid, None)
+                    self._stream_watch.discard(rid)
+                    return True
+            return False
 
     @torch.no_grad()
     def warmup(self) -> float:
@@ -1020,6 +1101,10 @@ class PagedEngine:
         same numbers with or without graphs. With `scoring` on, the score
         program runs at each of `score_shapes` once the graphs are
         captured. Returns seconds."""
+        with self._spmd.call("warmup", collective=True):
+            return self._warmup()
+
+    def _warmup(self) -> float:
         t0 = time.monotonic()
         for width in self.widths:
             self.state = self._init_state(width)
@@ -1090,7 +1175,8 @@ class PagedEngine:
         logprob, tokens, perplexity and a `truncated` flag. The scoring
         tenant's quantum calls this with at most `score_batch_cap` texts:
         one forward and one readback."""
-        return score_texts(self, texts)
+        with self._spmd.call("score", list(texts), collective=True):
+            return score_texts(self, texts)
 
     @property
     def has_work(self) -> bool:
@@ -1108,9 +1194,15 @@ class PagedEngine:
     def stream_watch(self, rid: int) -> None:
         """Mark `rid` as streamed: its final token list is kept at the reap
         for pop_final_tokens(). Idempotent."""
-        self._stream_watch.add(rid)
+        with self._spmd.call("stream_watch", rid):
+            self._stream_watch.add(rid)
 
     def stream_unwatch(self, rid: int) -> None:
+        """Stop watching `rid`. Under tp deferred to the next step on every
+        rank, like `release_session` (a stream's consumer calls it from
+        the event loop while a step may run)."""
+        if self._spmd.defer("stream_unwatch", rid):
+            return
         self._stream_watch.discard(rid)
         self._final_tokens.pop(rid, None)
 
@@ -1158,6 +1250,10 @@ class PagedEngine:
         radix tree survives (its blocks are never written); the requests'
         pins die with them.
         """
+        with self._spmd.call("reset"):
+            self._reset()
+
+    def _reset(self) -> None:
         self.state = self._init_state()
         self._slot_req = [None] * self.slots
         self._pending = []
@@ -1249,6 +1345,7 @@ class PagedEngine:
             _install_program(self.state, slot, ids, req.prompt_len, first,
                              seen_row, eos_id=self.tokenizer.eos_id)
             self._time_prog("install", t0, t0u)
+            self._decide("admit", req.rid, slot)
             admitted.append((slot, req, first))
         if not admitted:
             return
@@ -1381,6 +1478,7 @@ class PagedEngine:
                            self._stage_seq, noise)
             self._time_prog("stage", t0, t0u)
             req.stage_seq = self._stage_seq
+            self._decide("stage", req.rid, slot)
             self._stage_seq += 1
             req.live = False
             req.chunks_left = -(-(req.prompt_len - cursor0)
@@ -1434,9 +1532,14 @@ class PagedEngine:
         self._prefix_evictions += pc.evict_to_budget()
 
     def release_session(self, session_id: str) -> bool:
-        """Drop a session's transcript pin (the session closed)."""
+        """Drop a session's transcript pin (the session closed). Under tp,
+        rank 0 defers it to the next step on every rank (the server calls
+        it from the event loop while a step may run) and returns whether
+        the session was pinned."""
         if self.prefix_cache is None:
             return False
+        if self._spmd.defer("release_session", session_id):
+            return session_id in self.prefix_cache._session_pins
         return self.prefix_cache.release_session(session_id)
 
     def session_pin_stats(self) -> Optional[Tuple[int, int]]:
@@ -1446,8 +1549,15 @@ class PagedEngine:
         pc = self.prefix_cache
         if pc is None:
             return None
-        pc.expire_sessions()
+        self.expire_sessions(self._spmd.clock())
         return pc.session_count, pc.session_pinned_blocks()
+
+    def expire_sessions(self, now: float) -> int:
+        """Release the session pins lapsed at `now`. Under tp recorded
+        with `now`, so every rank releases the same pins before the next
+        step (the eviction's pin order breaks its ties)."""
+        with self._spmd.call("expire_sessions", now):
+            return self.prefix_cache.expire_sessions(now)
 
     def _required_width(self, prompt_len: int) -> int:
         bucket = min(
@@ -1510,6 +1620,10 @@ class PagedEngine:
         step() call after their dispatch at steady state; the tail drains
         in the same call once no live or staged slot remains.
         """
+        with self._spmd.call("step", collective=True):
+            return self._step_once()
+
+    def _step_once(self) -> List[Tuple[int, str]]:
         if self.fused:
             self._stage_admissions()
         else:
@@ -1522,6 +1636,7 @@ class PagedEngine:
             k = self.megastep_k
             admit = (self._plan_admissions(k) if self.fused
                      else [False] * k)
+            self._decide("dispatch", k, tuple(admit))
             t0, t0u = time.monotonic(), time.time()
             self._dispatch(admit)
             self.decode_steps += k * self.chunk

@@ -165,6 +165,10 @@ class PrefixCache:
         # (the eviction-under-live-session-pin policy). Request refcount
         # pins (`refs`, live slots) remain hard: never evicted.
         self._session_pins: Dict[str, Tuple[_Node, float]] = {}
+        # The clock session pins expire by when no `now` is given (a
+        # tensor-parallel engine sets rank 0's, so every rank's tree
+        # expires at the same point of the loop).
+        self.clock: Callable[[], float] = time.monotonic
 
     # ------------------------------------------------------------- lookup
 
@@ -238,7 +242,7 @@ class PrefixCache:
         to the new (longer) transcript path and refreshes the TTL.
         Returns the number of blocks the pinned path covers (0 = nothing
         cached to pin)."""
-        now = time.monotonic() if now is None else now
+        now = self.clock() if now is None else now
         keys = self._block_keys(tokens)
         nodes, _used, matched = self._walk(keys)
         if not nodes or matched == 0:
@@ -257,7 +261,7 @@ class PrefixCache:
 
     def expire_sessions(self, now: Optional[float] = None) -> int:
         """Release pins whose TTL lapsed. Returns sessions released."""
-        now = time.monotonic() if now is None else now
+        now = self.clock() if now is None else now
         dead = [sid for sid, (_, exp) in self._session_pins.items()
                 if exp <= now]
         for sid in dead:
@@ -366,7 +370,7 @@ class PrefixCache:
            reading those blocks.
 
         Returns blocks freed."""
-        now = time.monotonic() if now is None else now
+        now = self.clock() if now is None else now
         self.expire_sessions(now)
         freed = 0
         while self.blocks_used > self.max_blocks:

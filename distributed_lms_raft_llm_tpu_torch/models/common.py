@@ -35,6 +35,7 @@ import torch
 
 from ..ops import attention as attention_ops
 from ..ops import quant_matmul
+from ..parallel.mesh import TensorParallel
 
 NEG_INF = -1e30  # large finite negative: avoids NaNs from (-inf) - (-inf)
 
@@ -102,6 +103,19 @@ def dense(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def row_dense(x: torch.Tensor, w, b: torch.Tensor | None,
+              tp: TensorParallel) -> torch.Tensor:
+    """A row-parallel product (attention-out, MLP-out): x [..., in / tp]
+    against this rank's rows w [in / tp, out], summed over the tp ranks,
+    then the bias, added once after the sum (so never in the int8
+    kernel's epilogue, which would add it on every rank). At tp = 1 it is
+    `dense`, the bias in the epilogue."""
+    if tp.size == 1:
+        return dense(x, w, b)
+    y = tp.all_reduce(dense(x, w))
+    return y if b is None else y + b.to(y.dtype)
 
 
 @dataclasses.dataclass

@@ -32,6 +32,16 @@ PyTorch runs eagerly.
   T <= `ops.attention.MAX_WINDOW` rows and raises beyond: a wider window
   never drops to the plain version.
 
+Under tensor parallelism (``cfg.tensor_parallel``, a
+`parallel.mesh.TensorParallel` of tp > 1) the parameters are this rank's
+slice (`parallel.partition.shard_params`, GPT2_RULES) and the forward runs
+Megatron's split: the fused qkv product gives this rank's heads
+(H / tp, the cache holds them), the attention-out and MLP-out products are
+row-parallel (`common.row_dense`: summed over the ranks, the bias added
+after the sum), the embedding is vocab-parallel and the tied unembedding
+gathers the vocabulary blocks (`quant.embed_lookup` / `unembed`), so every
+rank returns the whole [B, T, V] logits.
+
 With ``cfg.quant_kv`` the cache is int8 with per-slot scales
 (`common.quantize_kv` on write, `common.attend_quant` on read). The JAX
 package refuses `fused_decode_attention` together with `quant_kv`, because
@@ -54,6 +64,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike
+from ..parallel.mesh import TensorParallel, tensor_parallel_of
 from .common import (
     CachedAttention,
     KVCache,
@@ -64,6 +75,7 @@ from .common import (
     layer_norm,
     layer_params,
     merge_heads,
+    row_dense,
     split_heads,
     unbind_layers,
 )
@@ -88,10 +100,19 @@ class GPT2Config:
     fused_decode_attention: bool = False
     # int8 KV cache with per-slot scales (EngineConfig.kv_quant).
     quant_kv: bool = False
+    # The tp axis the parameters are sharded over (set by the engine);
+    # None = one rank.
+    tensor_parallel: Optional[TensorParallel] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def local_heads(self) -> int:
+        """Attention heads on this tp rank."""
+        return self.num_heads // tensor_parallel_of(self).size
 
     @property
     def mlp_dim(self) -> int:
@@ -173,11 +194,11 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = "cuda",
                quantized: Optional[bool] = None) -> KVCache:
-    """A zeroed cache; int8 with scales when `quantized` (default:
-    `cfg.quant_kv`)."""
+    """A zeroed cache over this rank's heads; int8 with scales when
+    `quantized` (default: `cfg.quant_kv`)."""
     if quantized is None:
         quantized = cfg.quant_kv
-    return KVCache.create(cfg.num_layers, batch, cfg.num_heads, max_len,
+    return KVCache.create(cfg.num_layers, batch, cfg.local_heads, max_len,
                           cfg.head_dim, dtype or cfg.dtype, device,
                           quantized=quantized)
 
@@ -193,15 +214,17 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn, cfg: GPT2Config,
     scalar (a float32 zero for a dense block): the training objective's
     side channel."""
     eps = cfg.layer_norm_eps
+    tp = tensor_parallel_of(cfg)
+    heads = cfg.local_heads
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
     qkv = dense(h, lp["attn"]["wqkv"], lp["attn"]["bqkv"])
-    q, k, v = qkv.split(cfg.hidden_size, dim=-1)
+    q, k, v = qkv.split(heads * cfg.head_dim, dim=-1)
     a = attend_fn(
-        split_heads(q, cfg.num_heads),
-        split_heads(k, cfg.num_heads),
-        split_heads(v, cfg.num_heads),
+        split_heads(q, heads),
+        split_heads(k, heads),
+        split_heads(v, heads),
     )
-    x = x + dense(merge_heads(a), lp["attn"]["wo"], lp["attn"]["bo"])
+    x = x + row_dense(merge_heads(a), lp["attn"]["wo"], lp["attn"]["bo"], tp)
     h2 = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
     if "moe" in lp:
         from . import moe as moe_lib  # moe imports this module
@@ -212,7 +235,7 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn, cfg: GPT2Config,
         return x + moe_lib.moe_mlp(h2, lp["moe"], cfg)
     m = dense(h2, lp["mlp"]["wi"], lp["mlp"]["bi"])
     m = F.gelu(m, approximate="tanh")  # GPT-2 uses the tanh approximation
-    x = x + dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"])
+    x = x + row_dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"], tp)
     if collect_aux:
         return x, x.new_zeros((), dtype=torch.float32)
     return x
@@ -266,7 +289,8 @@ def forward(
             )
         positions = q_slots
 
-    x = embed_lookup(params["wte"], input_ids) + params["wpe"][positions]
+    tp = tensor_parallel_of(cfg)
+    x = embed_lookup(params["wte"], input_ids, tp) + params["wpe"][positions]
     x = x.to(cfg.dtype)
 
     num_keys = t if cache is None else cache.max_len
@@ -314,7 +338,7 @@ def forward(
 
     x = layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"],
                    cfg.layer_norm_eps)
-    logits = unembed(x, params["wte"])
+    logits = unembed(x, params["wte"], tp)
     if collect_moe_aux:
         return logits, new_cache, moe_aux / cfg.num_layers
     return logits, new_cache

@@ -24,6 +24,13 @@ sequence; a scalar cache offset; per-row offsets with ``cache.rows`` and
 `common.CachedAttention`. Positions drive RoPE alone: there is no position
 table.
 
+Under tensor parallelism (``cfg.tensor_parallel``, tp > 1) the parameters
+are this rank's slice (LLAMA_RULES): q, k and v give H / tp query and
+Hkv / tp KV heads (whole GQA groups; the cache holds the KV heads), o and
+down are row-parallel (`common.row_dense`), the embedding is vocab-parallel
+and `lm_head` gathers its vocabulary blocks, so every rank returns the
+whole logits. RoPE is per head and needs nothing.
+
 RoPE is applied in the [B, T, H, Dh] layout of the products, before the
 heads are moved forward, so k and v reach the attention as views with the
 same strides (`ops.attention.decode_attention_append` requires it).
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike
+from ..parallel.mesh import TensorParallel, tensor_parallel_of
 from .common import (
     CachedAttention,
     KVCache,
@@ -48,6 +56,7 @@ from .common import (
     layer_params,
     merge_heads,
     rms_norm,
+    row_dense,
 )
 from .quant import embed_lookup, unembed
 
@@ -72,10 +81,24 @@ class LlamaConfig:
     # cache with per-slot scales (EngineConfig.kv_quant).
     fused_decode_attention: bool = False
     quant_kv: bool = False
+    # The tp axis the parameters are sharded over (set by the engine);
+    # None = one rank.
+    tensor_parallel: Optional[TensorParallel] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def local_heads(self) -> int:
+        """Query heads on this tp rank."""
+        return self.num_heads // tensor_parallel_of(self).size
+
+    @property
+    def local_kv_heads(self) -> int:
+        """KV heads on this tp rank."""
+        return self.num_kv_heads // tensor_parallel_of(self).size
 
     @classmethod
     def llama3_8b(cls, **kw) -> "LlamaConfig":
@@ -145,11 +168,11 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = "cuda",
                quantized: Optional[bool] = None) -> KVCache:
-    """A zeroed cache over the KV heads; int8 with scales when `quantized`
-    (default: `cfg.quant_kv`)."""
+    """A zeroed cache over this rank's KV heads; int8 with scales when
+    `quantized` (default: `cfg.quant_kv`)."""
     if quantized is None:
         quantized = cfg.quant_kv
-    return KVCache.create(cfg.num_layers, batch, cfg.num_kv_heads, max_len,
+    return KVCache.create(cfg.num_layers, batch, cfg.local_kv_heads, max_len,
                           cfg.head_dim, dtype or cfg.dtype, device,
                           quantized=quantized)
 
@@ -191,7 +214,8 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn, cfg: LlamaConfig,
     cos and sin [B, T, 1, Dh]."""
     eps = cfg.rms_norm_eps
     b, t, _ = x.shape
-    nh, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nh, nkv, dh = cfg.local_heads, cfg.local_kv_heads, cfg.head_dim
+    tp = tensor_parallel_of(cfg)
     h = rms_norm(x, lp["ln1"]["scale"], eps)
     q = dense(h, lp["attn"]["wq"]).view(b, t, nh, dh)
     k = dense(h, lp["attn"]["wk"]).view(b, t, nkv, dh)
@@ -199,11 +223,11 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn, cfg: LlamaConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)  # the last kernel before the attention
     a = attend_fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    x = x + dense(merge_heads(a), lp["attn"]["wo"])
+    x = x + row_dense(merge_heads(a), lp["attn"]["wo"], None, tp)
     h2 = rms_norm(x, lp["ln2"]["scale"], eps)
     g = dense(h2, lp["mlp"]["wg"])
     u = dense(h2, lp["mlp"]["wu"])
-    return x + dense(F.silu(g) * u, lp["mlp"]["wd"])
+    return x + row_dense(F.silu(g) * u, lp["mlp"]["wd"], None, tp)
 
 
 def forward(
@@ -226,7 +250,8 @@ def forward(
     q_slots, _ = cache_slots(cache, b, t, input_ids.device, write_mask)
     if positions is None:
         positions = q_slots
-    x = embed_lookup(params["embed"], input_ids).to(cfg.dtype)
+    tp = tensor_parallel_of(cfg)
+    x = embed_lookup(params["embed"], input_ids, tp).to(cfg.dtype)
     # Layer-invariant: RoPE's tables once a forward.
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
@@ -261,4 +286,4 @@ def forward(
         new_cache = step.advanced()
 
     x = rms_norm(x, params["lnf"]["scale"], cfg.rms_norm_eps)
-    return unembed(x, params["lm_head"]), new_cache
+    return unembed(x, params["lm_head"], tp), new_cache

@@ -15,6 +15,12 @@ bit-equal to the JAX package's for the same input.
 
 On the card the int8 products run through the hand-written kernel of
 `ops/quant_matmul.py`, which reads the int8 weights directly.
+
+Under tensor parallelism (`tp`, a `parallel.mesh.TensorParallel`) a table
+holds this rank's contiguous block of vocabulary rows (and their per-row
+scales): `embed_lookup` looks up the ids inside the block, zeroes the
+others and sums over the ranks; `unembed` computes this block's logits and
+gathers the blocks to the whole vocabulary, in rank order.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Dict
 import torch
 
 from ..ops import quant_matmul
+from ..parallel.mesh import SINGLE, TensorParallel
 
 Params = Dict[str, Any]
 
@@ -129,23 +136,42 @@ def quantize_params(params: Params, family: str) -> Params:
     return walk(params)
 
 
-def embed_lookup(table: Any, ids: torch.Tensor) -> torch.Tensor:
-    """Row lookup of a dense [V, D] table (in its dtype) or of a quantized
-    one (dequantized to float32, as in the JAX package)."""
+def _lookup(table: Any, ids: torch.Tensor) -> torch.Tensor:
     if is_quantized(table):
         return table["q"][ids].float() * table["s"][ids][..., None]
     return table[ids]
 
 
-def unembed(x: torch.Tensor, table: Any) -> torch.Tensor:
+def embed_lookup(table: Any, ids: torch.Tensor,
+                 tp: TensorParallel = SINGLE) -> torch.Tensor:
+    """Row lookup of a dense [V, D] table (in its dtype) or of a quantized
+    one (dequantized to float32, as in the JAX package). Vocab-parallel
+    under tp: the rows of this rank's block, zeros for the other ids,
+    summed over the ranks (each id's row comes from one rank, so the sum
+    is exact)."""
+    if tp.size == 1:
+        return _lookup(table, ids)
+    rows = (table["q"] if is_quantized(table) else table).shape[0]
+    local = ids - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    out = _lookup(table, torch.where(inside, local, torch.zeros_like(local)))
+    out = torch.where(inside[..., None], out, torch.zeros_like(out))
+    return tp.all_reduce(out)
+
+
+def unembed(x: torch.Tensor, table: Any,
+            tp: TensorParallel = SINGLE) -> torch.Tensor:
     """Tied unembedding: x [B, T, D] @ table [V, D]^T -> float32 logits.
 
     Dense: the product in float32 from the compute-dtype activations (the
     JAX package's `preferred_element_type=float32` einsum). Quantized:
     `quant_matmul.int8_matmul` with the table as transposed weight, the
-    per-row scale applied to the float32 sums.
+    per-row scale applied to the float32 sums. Under tp: this rank's
+    vocabulary block, then every rank's blocks gathered to [B, T, V].
     """
     if is_quantized(table):
-        return quant_matmul.int8_matmul(x, table["q"], table["s"],
-                                        transposed=True)
-    return torch.matmul(x.float(), table.float().t())
+        logits = quant_matmul.int8_matmul(x, table["q"], table["s"],
+                                          transposed=True)
+    else:
+        logits = torch.matmul(x.float(), table.float().t())
+    return tp.all_gather(logits, dim=-1)

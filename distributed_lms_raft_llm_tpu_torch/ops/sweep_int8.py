@@ -80,6 +80,21 @@ LLAMA_PRODUCTS = {
 # Its rows: decode (16 slots), the fused admission chunk (32), the scoring
 # quanta at buckets 64 and 256 (512, 2,048).
 LLAMA_ROWS = (16, 32, 512, 2048)
+# The same products on one of two tensor-parallel ranks
+# (parallel/partition.py LLAMA_RULES): column-parallel halves of N (wq, wk,
+# wv, wg, wu, and lm_head's vocabulary rows) and row-parallel halves of K
+# (wo, wd), which chip_smoke.py's phase 14 times: name -> (K, N,
+# transposed).
+LLAMA_TP2_PRODUCTS = {
+    "llama.tp2.wq": (4096, 2048, False),
+    "llama.tp2.wk": (4096, 512, False),
+    "llama.tp2.wv": (4096, 512, False),
+    "llama.tp2.wo": (2048, 4096, False),
+    "llama.tp2.wg": (4096, 7168, False),
+    "llama.tp2.wu": (4096, 7168, False),
+    "llama.tp2.wd": (7168, 4096, False),
+    "llama.tp2.lm_head": (4096, 64128, True),
+}
 # GPT-2 medium's int8 products (width 1,024, 16 heads; the published
 # GPT-2 family's config): name -> (K, N, transposed).
 MEDIUM_PRODUCTS = {
@@ -89,7 +104,8 @@ MEDIUM_PRODUCTS = {
     "medium.mlp.wo": (4096, 1024, False),
     "medium.wte.unembed": (1024, 50257, True),
 }
-PRODUCTS = {**INT8_PRODUCTS, **LLAMA_PRODUCTS, **MEDIUM_PRODUCTS}
+PRODUCTS = {**INT8_PRODUCTS, **LLAMA_PRODUCTS, **LLAMA_TP2_PRODUCTS,
+            **MEDIUM_PRODUCTS}
 # gpt2-moe's expert products (GPT-2 small's trunk, 8 experts of GPT-2
 # small's MLP, top-2, capacity factor 1.25): name -> (K, N), each of
 # MOE_EXPERTS experts, through `int8_matmul_experts`.

@@ -1,0 +1,281 @@
+"""The device mesh over a `torch.distributed` process group, and the tensor
+axis' collectives.
+
+Port of `distributed_lms_raft_llm_tpu/parallel/mesh.py`. JAX runs one
+controller over a `Mesh` of local chips and lets XLA insert the collectives
+its partition specs imply. PyTorch's idiom is one process a rank with
+explicit collectives, so here:
+
+- `make_mesh` keeps the JAX package's axis order ("dp", "pp", "ep", "sp",
+  "tp"), its `-1` inference, its dp remainder and its error messages, over
+  the ranks of the process group (one rank a device) instead of a device
+  list;
+- `initialize_multihost` joins the process group from torchrun's
+  environment (`MASTER_ADDR`, `MASTER_PORT`, `RANK`, `WORLD_SIZE`) and is a
+  no-op for one process, as the JAX one is; `init_process_group` joins
+  one explicitly (the tests' `file://` rendezvous, the tutoring node's
+  loopback);
+- the backend is an argument and never chosen here: `nccl` where each rank
+  has its own GPU, `gloo` where the caller asks for it (several ranks on
+  one card, or the CPU);
+- `TensorParallel` holds the tp axis' collectives the models call: the
+  all-reduce behind a row-parallel product, the all-gather of vocabulary
+  shards and the broadcast of a step's host inputs. Each is the identity
+  at tp = 1.
+
+A mesh whose ranks spread over any other axis than tp (JAX's dp inside one
+engine, ep, sp, pp) is refused by `Mesh.tensor_parallel`: those axes are
+not ported to the engines yet.
+
+The mesh is this module's own small class, not `torch.distributed.
+device_mesh`: a `DeviceMesh` pins each rank to the device of its index,
+and the card phase runs two tp ranks on one GPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import logging
+import math
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+log = logging.getLogger(__name__)
+
+AXIS_ORDER: Tuple[str, ...] = ("dp", "pp", "ep", "sp", "tp")
+# Backends whose collectives a CUDA graph can capture.
+CAPTURABLE_BACKENDS = ("nccl",)
+# How long a collective may wait for its peers. A follower rank waits in a
+# broadcast for the leader's next step for as long as the node is idle, so
+# the default is long (torch's own is 10-30 minutes). A rank that fails
+# does not leave its peers to wait this out: it aborts the group
+# (`TensorParallel.abort`, from `spmd.Replica`).
+DEFAULT_TIMEOUT = datetime.timedelta(days=7)
+
+
+def mesh_sizes(axis_sizes: Optional[dict], n: int,
+               axis_order: Tuple[str, ...] = AXIS_ORDER) -> Dict[str, int]:
+    """Every axis' size over `n` ranks, by the JAX package's rules: at
+    most one axis may be -1 (inferred), axes not mentioned get 1, and a
+    remainder goes to dp when dp is unset."""
+    sizes = dict(axis_sizes or {})
+    unknown = [a for a in sizes if a not in axis_order]
+    if unknown:
+        raise ValueError(f"unknown mesh axes {unknown}; expected {axis_order}")
+    infer = [a for a, s in sizes.items() if s == -1]
+    if len(infer) > 1:
+        raise ValueError("at most one axis size may be -1")
+    known = math.prod(s for s in sizes.values() if s != -1)
+    if infer:
+        if n % known:
+            raise ValueError(f"{n} devices not divisible by {known}")
+        sizes[infer[0]] = n // known
+    elif known != n:
+        if "dp" not in sizes and n % known == 0:
+            sizes["dp"] = n // known
+        else:
+            raise ValueError(f"axis sizes {sizes} do not multiply to {n} devices")
+    return {a: sizes.get(a, 1) for a in axis_order}
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Ranks laid out over named axes, tp innermost (fastest-varying), as
+    the JAX mesh lays out devices. `group` is the process group the ranks
+    belong to (None for one rank)."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    rank: int = 0
+    group: Any = None
+    backend: Optional[str] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along each axis."""
+        out, rest = {}, self.rank
+        for name, n in reversed(list(zip(self.axis_names, self.sizes))):
+            out[name] = rest % n
+            rest //= n
+        return {a: out[a] for a in self.axis_names}
+
+    def tensor_parallel(self) -> "TensorParallel":
+        """The tp axis' collectives. Raises where the ranks spread over
+        another axis: dp, pp, ep and sp inside one engine are not ported."""
+        spread = {a: n for a, n in self.shape.items() if a != "tp" and n > 1}
+        if spread:
+            raise NotImplementedError(
+                f"mesh axes {spread} are not ported to PyTorch yet: the "
+                f"engines shard over tp alone, so the process group must "
+                f"hold exactly tp = {self.shape.get('tp', 1)} ranks")
+        tp = self.shape.get("tp", 1)
+        if tp == 1:
+            return SINGLE
+        return TensorParallel(size=tp, rank=self.coords()["tp"],
+                              group=self.group, backend=self.backend)
+
+
+def make_mesh(axis_sizes: Optional[dict] = None, *,
+              axis_order: Tuple[str, ...] = AXIS_ORDER,
+              world_size: Optional[int] = None,
+              rank: Optional[int] = None) -> Mesh:
+    """A mesh over the ranks of the default process group (one rank
+    without one). `world_size` and `rank` stand in for the group's (a
+    caller laying out ranks it has not started).
+
+    >>> make_mesh({"tp": 2})  # 2 ranks: 2-way tensor parallel
+    """
+    from torch import distributed as dist
+
+    joined = dist.is_available() and dist.is_initialized()
+    n = world_size if world_size is not None else (
+        dist.get_world_size() if joined else 1)
+    sizes = mesh_sizes(axis_sizes, n, axis_order)
+    r = rank if rank is not None else (dist.get_rank() if joined else 0)
+    group = backend = None
+    if joined and world_size is None and n > 1:
+        group = dist.group.WORLD
+        backend = dist.get_backend()
+    return Mesh(tuple(axis_order), tuple(sizes[a] for a in axis_order),
+                rank=r, group=group, backend=backend)
+
+
+def init_process_group(backend: str, init_method: str, world_size: int,
+                       rank: int,
+                       timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> None:
+    """Join the default process group explicitly: `backend` "nccl" (one GPU
+    a rank) or "gloo" (named by the caller, never substituted here),
+    `init_method` a `tcp://host:port` or `file://path` rendezvous."""
+    from torch import distributed as dist
+
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"unknown backend {backend!r}: nccl or gloo")
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank,
+                            timeout=timeout)
+
+
+def initialize_multihost(backend: Optional[str] = None,
+                         timeout: datetime.timedelta = DEFAULT_TIMEOUT
+                         ) -> bool:
+    """Join the process group torchrun describes (`MASTER_ADDR`,
+    `MASTER_PORT`, `RANK`, `WORLD_SIZE` in the environment); a no-op for a
+    single process. `backend` must be given where the group is joined.
+    Returns True if a group of more than one rank was joined."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return False
+    from torch import distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+    if backend is None:
+        raise ValueError(
+            f"WORLD_SIZE={world}: pass the collective backend (nccl with "
+            f"one GPU a rank, gloo otherwise)")
+    init_process_group(backend, "env://", world, int(os.environ["RANK"]),
+                       timeout)
+    return True
+
+
+def backend_can_capture(backend: Optional[str]) -> bool:
+    """Whether a CUDA graph can capture this backend's collectives (no
+    backend: one rank, nothing to capture)."""
+    return backend is None or backend in CAPTURABLE_BACKENDS
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The tp axis of a mesh: its size, this rank's index along it and the
+    collectives over it. At size 1 (`SINGLE`) every collective returns its
+    input."""
+
+    size: int = 1
+    rank: int = 0
+    group: Any = None
+    backend: Optional[str] = None
+
+    @property
+    def leader(self) -> bool:
+        """Rank 0 of the axis: the rank that takes requests."""
+        return self.rank == 0
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks (the row-parallel product's reduce), in place
+        on `x`, which is returned."""
+        if self.size == 1:
+            return x
+        from torch import distributed as dist
+
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Concatenate every rank's `x` along `dim`, in rank order (the
+        vocabulary shards of the logits)."""
+        if self.size == 1:
+            return x
+        from torch import distributed as dist
+
+        x = x.contiguous()
+        parts: List[torch.Tensor] = [torch.empty_like(x)
+                                     for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def broadcast_object(self, obj: Any = None) -> Any:
+        """Rank 0's `obj` on every rank (a step's host inputs; picklable
+        Python objects)."""
+        if self.size == 1:
+            return obj
+        from torch import distributed as dist
+
+        box = [obj if self.leader else None]
+        # The tp axis is the whole group in this slice: its index 0 is
+        # global rank 0.
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def abort(self) -> None:
+        """Abort the process group after this rank failed mid-call: its
+        peers' pending and later collectives raise instead of waiting for
+        it. `_abort_process_group` where this torch has it (NCCL needs it:
+        its destroy may wait on a collective that never completes), else
+        `destroy_process_group` (gloo's closes the peers' connections).
+        A failure to abort is logged: the rank's own error is the one
+        raised."""
+        if self.size == 1:
+            return
+        from torch import distributed as dist
+        from torch.distributed import distributed_c10d as c10d
+
+        if not dist.is_initialized():
+            return
+        abort = getattr(c10d, "_abort_process_group",
+                        dist.destroy_process_group)
+        try:
+            abort(self.group)
+        except Exception:
+            log.exception("aborting the tp process group failed")
+
+
+SINGLE = TensorParallel()
+
+
+def tensor_parallel_of(cfg: Any) -> TensorParallel:
+    """The tp axis a model config carries (`tensor_parallel`), SINGLE when
+    it carries none."""
+    return getattr(cfg, "tensor_parallel", None) or SINGLE
+
+
+def divisors(n: int) -> List[int]:
+    """The ascending divisors of `n`: the tp ways that split an axis of n
+    evenly."""
+    small = [d for d in range(1, math.isqrt(n) + 1) if n % d == 0]
+    return sorted(set(small + [n // d for d in small]))

@@ -48,7 +48,21 @@ approx_top_k``) is accepted and samples the exact top-k
 (`engine/sampling.py`). Every ``metrics_period_s`` (60 s) the node logs one
 ``metrics {json}`` line, as the JAX node does.
 
-Not ported yet: tp and ep above 1 (the engines raise), and the JAX node's
+``--tp N`` (``[tutoring] tp``) shards the model over N ranks, one process
+each (`parallel/`): started alone, the node is rank 0 and spawns N - 1
+follower processes of itself, which rendezvous with it on the loopback
+(``--tp-backend``: nccl, one GPU a rank, the default; gloo where the ranks
+share a card or run on the CPU). Under torchrun each process takes its rank
+from the environment. Every rank builds the same engine; rank 0 alone
+serves gRPC and the health plane, and the other ranks replay its engine
+calls (`PagedEngine.follow`). ``/healthz`` adds ``tp`` when N > 1, and
+``/metrics`` the ``serving_tp`` and ``serving_kv_bytes_per_chip`` gauges.
+A call that fails on any rank fails them all (`parallel/spmd.py`): a
+follower exits non-zero, and rank 0 ends (exit code 1) once a follower it
+started has exited (`watch_followers`); under torchrun the launcher ends
+the other ranks.
+
+Not ported yet: ep above 1 (the engines raise), and the JAX node's
 ``--jax-platform`` (an unknown flag here; ``--device`` stands in its
 place).
 """
@@ -61,8 +75,13 @@ import functools
 import hashlib
 import json
 import logging
+import os
+import socket
+import subprocess
+import sys
+import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import grpc
 import torch
@@ -79,6 +98,7 @@ from ..config import apply_file_defaults, load_config
 from ..engine.engine import DRAFT_SOURCES
 from ..engine.scoring import ScoringManager, score_admin_get
 from ..models import registry
+from ..parallel import mesh as mesh_lib
 from ..proto import lms_pb2, rpc
 from ..utils import auth
 from ..utils.guards import enable_strict_dispatch, make_serving_watchdog
@@ -374,13 +394,15 @@ def make_tutoring_admin(service: TutoringService, scorer=None):
 
 def make_tutoring_health(service: TutoringService, queue, engine_name: str,
                          max_queue: int, spec_tokens: int = 0,
-                         draft_source: str = "prompt_lookup", scorer=None):
+                         draft_source: str = "prompt_lookup", scorer=None,
+                         tp: int = 1):
     """/healthz provider: admission pressure and the fleet lifecycle (the
     router's health poller reads `draining`, `queued` and `node_id`); a
-    speculating node adds its `spec_tokens` and `draft_source`, and a
-    scoring node its tenant's stats (`scoring`), as a JAX node adds its
-    scoring block only when it scores, so a node without either answers
-    with the JAX node's fields alone."""
+    speculating node adds its `spec_tokens` and `draft_source`, a scoring
+    node its tenant's stats (`scoring`), as a JAX node adds its scoring
+    block only when it scores, and a sharded node its `tp` ways (the JAX
+    node reports them as the `serving_tp` gauge alone), so a node without
+    any of them answers with the JAX node's fields alone."""
 
     def health() -> dict:
         doc = {
@@ -396,6 +418,8 @@ def make_tutoring_health(service: TutoringService, queue, engine_name: str,
             doc.update(spec_tokens=spec_tokens, draft_source=draft_source)
         if scorer is not None:
             doc["scoring"] = scorer.stats()
+        if tp > 1:
+            doc["tp"] = tp
         return doc
 
     return health
@@ -507,7 +531,8 @@ async def serve_async(port: int, engine, *,
             health=make_tutoring_health(
                 service, queue, type(engine).__name__, max_queue,
                 spec_tokens=engine.config.spec_tokens,
-                draft_source=engine.config.draft_source, scorer=scorer),
+                draft_source=engine.config.draft_source, scorer=scorer,
+                tp=engine.config.tp),
             admin=make_tutoring_admin(service, scorer=scorer),
             admin_get=admin_get, port=metrics_port)
         log.info("health/metrics endpoint on http://127.0.0.1:%d",
@@ -552,8 +577,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="HF tokenizer.json (a Llama checkpoint needs "
                         "it; it wins over --vocab/--merges)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel ways (above 1 not ported: "
-                        "the engine raises)")
+                        help="tensor-parallel ways: one process a rank; "
+                        "started alone the node spawns the other ranks")
+    parser.add_argument("--tp-backend", default="nccl",
+                        choices=["nccl", "gloo"],
+                        help="collective backend of the tp ranks: nccl "
+                        "(one GPU a rank) or gloo (ranks sharing a card, "
+                        "or the CPU); CUDA graphs need nccl")
+    parser.add_argument("--tp-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--ep", type=int, default=1,
                         help="expert-parallel ways (above 1 not ported: "
                         "the engine raises)")
@@ -792,7 +825,78 @@ async def serve_args(args: argparse.Namespace, engine,
         scoring_chip_ceiling=args.scoring_chip_ceiling, host=host)
 
 
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def join_tp_group(args: argparse.Namespace,
+                  argv: List[str]) -> Tuple[int, List[subprocess.Popen]]:
+    """Join the tp ranks' process group `args.tp` > 1 asks for; returns
+    (this process' rank, the follower processes it started). Under
+    torchrun (WORLD_SIZE set) the rank comes from the environment; a
+    follower this node started gets `--tp-rank` and the rendezvous; a node
+    started alone is rank 0 and starts ranks 1..tp-1 as copies of itself
+    (`argv` plus those two flags), rendezvousing on the loopback. With
+    nccl each rank takes the GPU of its (local) rank."""
+    if args.tp <= 1:
+        return 0, []
+    followers: List[subprocess.Popen] = []
+    if "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != args.tp:
+            raise ValueError(f"--tp {args.tp} under torchrun with "
+                             f"WORLD_SIZE={os.environ['WORLD_SIZE']}")
+        rank = int(os.environ["RANK"])
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        if args.tp_backend == "nccl":
+            torch.cuda.set_device(local)
+        mesh_lib.initialize_multihost(args.tp_backend)
+        return rank, followers
+    if args.tp_rank is None:
+        init = f"tcp://127.0.0.1:{_free_port()}"
+        rank = 0
+        for r in range(1, args.tp):
+            followers.append(subprocess.Popen(
+                [sys.executable, "-m", __spec__.name, *argv,
+                 "--tp-rank", str(r), "--tp-init", init]))
+    else:
+        rank, init = args.tp_rank, args.tp_init
+    if args.tp_backend == "nccl":
+        torch.cuda.set_device(rank)
+    mesh_lib.init_process_group(args.tp_backend, init, args.tp, rank)
+    return rank, followers
+
+
+def watch_followers(followers: List[subprocess.Popen],
+                    period_s: float = 1.0) -> threading.Event:
+    """Rank 0: end this process (exit code 1) once a follower process it
+    started exits while the node runs. The ranks cannot be brought back
+    into step, and rank 0 would wait for the lost rank in its next
+    collective; a follower that fails exits non-zero (its `follow`
+    raises). The returned event ends the watch: a clean shutdown sets it
+    before it releases the followers."""
+    done = threading.Event()
+    if not followers:
+        return done
+
+    def watch() -> None:
+        while not done.wait(period_s):
+            gone = [p for p in followers if p.poll() is not None]
+            if gone and not done.is_set():
+                log.critical("tp follower (pid %d) exited with code %s; "
+                             "ending rank 0", gone[0].pid, gone[0].returncode)
+                for p in followers:
+                    if p.poll() is None:
+                        p.kill()
+                os._exit(1)
+
+    threading.Thread(target=watch, name="tp-followers", daemon=True).start()
+    return done
+
+
 def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = resolve_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -802,7 +906,34 @@ def main(argv=None) -> None:
         # The process tracer from [tracing], before any request opens a
         # span.
         configure_from(args.tracing)
-    engine = engine_from_args(args)
+    rank, followers = join_tp_group(args, argv)
+    watch = watch_followers(followers)
+    engine = None
+    try:
+        engine = engine_from_args(args)
+        if rank > 0:
+            # A follower: the same engine, driven by rank 0's calls
+            # (warmup included) until rank 0 stops.
+            log.info("tp rank %d of %d following rank 0", rank, args.tp)
+            engine.follow()
+            return
+        _serve_main(args, engine)
+    finally:
+        watch.set()
+        if engine is not None and rank == 0:
+            engine.stop_followers()
+        for proc in followers:
+            try:
+                # Released followers exit at once; without an engine here
+                # they wait for a rank 0 that is gone.
+                proc.wait(timeout=30 if engine is not None else 0.1)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def _serve_main(args: argparse.Namespace, engine) -> None:
+    """Warm `engine` and serve it until the server terminates (rank 0)."""
     if isinstance(engine, PagedEngine):
         warm = engine.warmup
     else:

@@ -340,8 +340,9 @@ def fit(
 
 
 PARALLEL_NOT_PORTED = (
-    "parallel/ (tensor, sequence, pipeline and expert parallelism) is not "
-    "ported to PyTorch yet; the port trains on one device")
+    "parallel/ carries serving's tensor parallelism only; the sharded "
+    "train step (tensor, sequence, pipeline and expert parallelism) is not "
+    "ported to PyTorch yet, and the port trains on one device")
 
 
 def main(argv=None) -> Dict[str, Any]:

@@ -457,6 +457,18 @@ SPECS: Dict[str, Tuple[str, str]] = {
         "client-observed time to first streamed token per session turn (its "
         "p95 is the per-turn conversational SLO)"
     )),
+    "serving_tp": (GAUGE, (
+        "tensor-parallel ways of the serving engine's mesh — the factor the "
+        "paged KV planes shard their heads axis by (partition."
+        "PAGED_PLANE_SPECS), joining per-chip gauges back to the mesh they "
+        "were measured on"
+    )),
+    "serving_kv_bytes_per_chip": (GAUGE, (
+        "HBM the paged slot KV working set occupies on EACH chip at the "
+        "current cache width (total KV bytes / tp — the heads-axis sharding "
+        "splits the planes evenly) — the per-node residency ceiling "
+        "multi-chip paged serving raises to chip-count x HBM"
+    )),
     "lock_order_violations": (COUNTER, (
         "lock acquisitions that re-entered a held non-reentrant lock or "
         "closed a cycle in the live acquisition-order graph (recorded by "

@@ -122,10 +122,11 @@ def test_sampled_generation_is_seeded():
 
 
 @pytest.mark.parametrize("option", [
-    # Speculative decoding and the scoring tenant are ported; over tensor
-    # or sequence parallelism (which the JAX engine composes them with)
-    # they are still refused.
-    dict(tp=2), dict(ep=2), dict(sp=2), dict(spec_tokens=2, tp=2),
+    # Speculative decoding, the scoring tenant and tp are ported; expert
+    # and sequence parallelism are still refused, beside tp too (tp alone
+    # is tests/test_torch_tp.py's).
+    dict(tp=2, ep=2), dict(ep=2), dict(sp=2), dict(spec_tokens=2, tp=2,
+                                                   sp=2),
     dict(scoring=True, sp=2),
 ])
 def test_unported_engine_options_raise(option):
@@ -295,6 +296,7 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.sim.__main__\n"
         "import distributed_lms_raft_llm_tpu_torch.utils.scrape\n"
         "import distributed_lms_raft_llm_tpu_torch.utils.locks\n"
+        "import distributed_lms_raft_llm_tpu_torch.parallel\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -313,7 +315,9 @@ def test_port_imports_no_jax():
                    "serving.lms_server", "client.client", "utils.faults",
                    "utils.diskfaults", "utils.pdf", "lms.group_router",
                    "client.cli", "client.gui", "serving.lms_cluster",
-                   "train", "train.train", "train.data", "train.checkpoint"):
+                   "train", "train.train", "train.data", "train.checkpoint",
+                   "parallel", "parallel.mesh", "parallel.partition",
+                   "parallel.spmd"):
         assert f"distributed_lms_raft_llm_tpu_torch.{module}" in mods
     jax_mods = [m for m in mods if m == "jax" or m.startswith("jax.")]
     ref_mods = [m for m in mods if m == "distributed_lms_raft_llm_tpu"

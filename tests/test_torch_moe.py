@@ -75,7 +75,7 @@ def _port_cfg(jcfg, **kw):
     fields = {f.name for f in dataclasses.fields(moe.GPT2MoEConfig)}
     same = {k: getattr(jcfg, k) for k in fields
             if k not in ("dtype", "param_dtype", "fused_decode_attention",
-                         "quant_kv")}
+                         "quant_kv", "tensor_parallel")}
     return moe.GPT2MoEConfig(dtype=torch.float32, param_dtype=torch.float32,
                              **same, **kw)
 

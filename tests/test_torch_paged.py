@@ -323,10 +323,11 @@ def test_cancel_pending_and_backlog():
 
 
 @pytest.mark.parametrize("option", [
-    # Speculative decoding and the scoring tenant are ported; over sequence
-    # parallelism (which the JAX engine composes them with) they are still
-    # refused.
-    dict(config=dict(spec_tokens=2, sp=2)), dict(config=dict(tp=2)),
+    # Speculative decoding, the scoring tenant and tp are ported; over
+    # sequence parallelism (which the JAX engine composes them with) they
+    # are still refused, and ep beside tp (tp alone is
+    # tests/test_torch_tp.py's).
+    dict(config=dict(spec_tokens=2, sp=2)), dict(config=dict(tp=2, ep=2)),
     dict(config=dict(scoring=True, sp=2)), dict(config=dict(ep=2)),
 ])
 def test_unported_options_raise(option):

@@ -423,12 +423,15 @@ def test_cli_takes_the_jax_names_and_defaults(argv, field, want):
 # the telemetry flags and --config are served since the scoring tenant and
 # the file-driven start were ported; --strict-dispatch and approximate
 # top-k since the node's surface was finished: tp/ep above 1 from the file
-# and --jax-platform with its other value take their places.)
+# and --jax-platform with its other value take their places.) tp above 1
+# is served since parallel/ was ported, by `main`, which joins the ranks'
+# process group first (tests/test_torch_tp.py starts a node at --tp 2):
+# `engine_from_args` alone refuses it without that group.
 _REFUSED = {
-    "--config tp.toml": (NotImplementedError, "tp"),
+    "--config tp.toml": (RuntimeError, "process group of 2 ranks"),
     "--jax-platform cpu": (SystemExit, None),
     "--config ep.toml": (NotImplementedError, "ep"),
-    "--tp 2": (NotImplementedError, "tp"),
+    "--tp 2": (RuntimeError, "process group of 2 ranks"),
     "--ep 2": (NotImplementedError, "ep"),
     "--jax-platform default": (SystemExit, None),
 }

@@ -1,0 +1,395 @@
+"""Tensor-parallel ranks for the port's tp tests: `Ranks` starts `world`
+processes that join one gloo process group through a `file://` rendezvous
+(no fixed port: several pytest-xdist workers run at once) and then run
+named cases on command, all ranks the same case at once, each returning its
+own result. The processes live for a test module (spawning is the cost);
+the parent holds the JAX references and compares.
+
+The rank side (`CASES`) imports the port alone: no JAX in these processes.
+Run directly (`python torch_tp_ranks.py RANK WORLD INIT`) it serves one
+rank: pickled (case, kwargs) frames on stdin, pickled (ok, result) frames
+on the original stdout (the process' own prints go to stderr).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import select
+import struct
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parent
+# Seconds a case may take on every rank before the parent gives up.
+CASE_TIMEOUT = 120.0
+
+
+def _write(fh, obj) -> None:
+    data = pickle.dumps(obj)
+    fh.write(struct.pack("<Q", len(data)) + data)
+    fh.flush()
+
+
+def _read_exact(fd: int, n: int, deadline: float) -> bytes:
+    out = b""
+    while len(out) < n:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise TimeoutError("rank did not answer in time")
+        ready, _, _ = select.select([fd], [], [], left)
+        if not ready:
+            continue
+        chunk = os.read(fd, n - len(out))
+        if not chunk:
+            raise EOFError("rank process exited")
+        out += chunk
+    return out
+
+
+def _read(fd: int, deadline: float):
+    (n,) = struct.unpack("<Q", _read_exact(fd, 8, deadline))
+    return pickle.loads(_read_exact(fd, n, deadline))
+
+
+class Ranks:
+    """`world` rank processes joined over gloo; `run(case, **kw)` runs a
+    case on all of them and returns their results in rank order (raising
+    with the rank's traceback if one failed)."""
+
+    def __init__(self, world: int, rendezvous_dir: Path):
+        init = f"file://{rendezvous_dir / 'rendezvous'}"
+        env = dict(os.environ,
+                   PYTHONPATH=os.pathsep.join([str(REPO), str(HERE)]))
+        self.procs = [
+            subprocess.Popen(
+                [sys.executable, str(HERE / "torch_tp_ranks.py"), str(r),
+                 str(world), init],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env,
+                cwd=str(REPO))
+            for r in range(world)]
+
+    def run(self, case: str, timeout: float = CASE_TIMEOUT, **kwargs):
+        for p in self.procs:
+            _write(p.stdin, (case, kwargs))
+        deadline = time.monotonic() + timeout
+        results = [_read(p.stdout.fileno(), deadline) for p in self.procs]
+        for rank, (ok, value) in enumerate(results):
+            if not ok:
+                raise AssertionError(f"rank {rank} failed in {case}:\n{value}")
+        return [value for _, value in results]
+
+    def close(self) -> None:
+        for p in self.procs:
+            try:
+                _write(p.stdin, None)
+            except (BrokenPipeError, OSError):
+                pass
+        for p in self.procs:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+# ------------------------------------------------------------ rank side
+
+
+def _tp():
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+
+    return mesh.make_mesh({"tp": -1}).tensor_parallel()
+
+
+def case_forward(model: str, tree, ids):
+    """The port's forward at tp = world on this rank's slice of `tree`
+    (the whole parameter tree, dense or int8): full-sequence logits, and a
+    cached prefill of all but the last id followed by a one-token decode
+    step."""
+    import dataclasses
+
+    import torch
+
+    from distributed_lms_raft_llm_tpu_torch.engine.engine import shard_for
+    from distributed_lms_raft_llm_tpu_torch.models import registry
+
+    tp = _tp()
+    family, cfg = registry.resolve(model, torch.float32)
+    cfg = dataclasses.replace(cfg, tensor_parallel=tp)
+    params = shard_for(tree, family.name, tp)
+    ids = torch.as_tensor(ids)
+    with torch.no_grad():
+        full, _ = family.forward(params, cfg, ids)
+        b, t = ids.shape
+        cache = family.init_cache(cfg, b, t, dtype=torch.float32,
+                                  device="cpu")
+        pre, cache = family.forward(params, cfg, ids[:, :-1], cache=cache)
+        step, _ = family.forward(params, cfg, ids[:, -1:], cache=cache)
+    return {"full": full.numpy(), "prefill": pre.numpy(),
+            "step": step.numpy(), "cache_heads": cache.k.shape[2]}
+
+
+def _engine_config(model, tp, config_kw):
+    import torch
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        SamplingParams,
+    )
+
+    kw = dict(config_kw)
+    max_new = kw.pop("max_new", 8)
+    kw.setdefault("batch_buckets", (1, 2))
+    kw.setdefault("length_buckets", (4, 16))
+    return EngineConfig(model=model, dtype=torch.float32,
+                        param_dtype=torch.float32, device="cpu", tp=tp,
+                        sampling=SamplingParams.greedy(max_new_tokens=max_new),
+                        **kw)
+
+
+def _carry(eng, tree):
+    from distributed_lms_raft_llm_tpu_torch.engine.engine import shard_for
+
+    eng.params = shard_for(tree, eng.family.name, eng.cfg.tensor_parallel)
+
+
+def _follow_answers(eng, finals=None) -> dict:
+    """A follower's loop over `eng`: the answers (rid -> text) its
+    replayed steps returned; the final tokens of watched rids go into
+    `finals` where given."""
+    answers = {}
+
+    def keep(name, result):
+        if name == "step":
+            answers.update(result)
+        if finals is not None:
+            finals.update(eng.pop_final_tokens())
+
+    eng.follow(keep)
+    return answers
+
+
+def case_paged(model: str, tree, prompts, config_kw=None, engine_kw=None,
+               warmup: bool = False):
+    """Rank 0 submits `prompts` to a PagedEngine at tp = world and drains
+    it; the other ranks follow. Every rank returns its answers by rid, its
+    decision log and its KV bytes."""
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+
+    tp = _tp()
+    eng = PagedEngine(_engine_config(model, tp.size, config_kw or {}),
+                      **(engine_kw or {}))
+    _carry(eng, tree)
+    if tp.leader:
+        if warmup:
+            eng.warmup()
+        rids = [eng.submit(p) for p in prompts]
+        out = eng.drain()
+        answers = {r: out[r] for r in rids}
+        kv = eng.kv_bytes_per_chip
+        eng.stop_followers()
+    else:
+        answers = _follow_answers(eng)
+        kv = eng.kv_bytes_per_chip
+    return {"answers": answers, "decisions": list(eng.decisions),
+            "kv_bytes_per_chip": kv, "kv_bytes_total": eng.kv_bytes_total,
+            "tp": eng.tp, "cache_heads": eng.state.cache.k.shape[2]}
+
+
+def case_bucketed(model: str, tree, prompts, config_kw=None):
+    """Rank 0 answers `prompts` with a TutoringEngine at tp = world; the
+    other ranks follow. Every rank returns the answers it computed."""
+    from distributed_lms_raft_llm_tpu_torch.engine import TutoringEngine
+
+    tp = _tp()
+    eng = TutoringEngine(_engine_config(model, tp.size, config_kw or {}))
+    _carry(eng, tree)
+    if tp.leader:
+        answers = eng.answer_batch(prompts)
+        eng.stop_followers()
+        return answers
+    results = []
+    eng.follow(lambda name, result: results.append(result))
+    return results[-1]
+
+
+def case_queue(model: str, tree, prompts, config_kw=None, engine_kw=None):
+    """A PagedQueue on rank 0 over a PagedEngine at tp = world (the other
+    ranks follow): the answers and the tp gauges it sets."""
+    import asyncio
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        PagedEngine,
+        PagedQueue,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+
+    tp = _tp()
+    eng = PagedEngine(_engine_config(model, tp.size, config_kw or {}),
+                      **(engine_kw or {}))
+    _carry(eng, tree)
+    if not tp.leader:
+        return sorted(_follow_answers(eng).values())
+    metrics = Metrics()
+
+    async def serve():
+        queue = PagedQueue(eng, metrics=metrics)
+        await queue.start()
+        try:
+            return await asyncio.gather(*(queue.submit(p) for p in prompts))
+        finally:
+            await queue.close()
+
+    answers = asyncio.run(serve())
+    eng.stop_followers()
+    gauges = metrics.snapshot()["gauges"]
+    return {"answers": answers, "serving_tp": gauges.get("serving_tp"),
+            "serving_kv_bytes_per_chip":
+                gauges.get("serving_kv_bytes_per_chip")}
+
+
+def case_release_during_step(model: str, tree, prompts, config_kw=None,
+                             engine_kw=None):
+    """Rank 0 serves `prompts[:2]` as the turns of sessions s1 and s2 (each
+    pinned in the radix tree at its finish), then streams the rest; while
+    the first of those steps runs, another thread closes s1 and unwatches
+    the first stream, as the node's event loop does while the queue's step
+    runs in an executor thread. The other ranks follow. Every rank returns
+    its answers by rid, decisions, pinned sessions in the tree's order, pin
+    stats, watched rids and the rids whose final tokens it kept."""
+    import threading
+
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+
+    tp = _tp()
+    eng = PagedEngine(_engine_config(model, tp.size, config_kw or {}),
+                      **(engine_kw or {}))
+    _carry(eng, tree)
+    finals = {}
+    fired = []
+    if tp.leader:
+        for session, prompt in zip(("s1", "s2"), prompts[:2]):
+            eng.mark_session(eng.submit(prompt), session, 600.0)
+        answers = eng.drain()
+        eng.session_pin_stats()  # as the queue does between steps
+        streamed = [eng.submit(p) for p in prompts[2:]]
+        for rid in streamed:
+            eng.stream_watch(rid)
+        step = eng._step_once
+
+        def close_session_and_stream():
+            fired.append((eng.release_session("s1"),
+                          eng.stream_unwatch(streamed[0])))
+
+        def step_once():
+            if not fired:
+                other = threading.Thread(target=close_session_and_stream)
+                other.start()
+                other.join()
+            return step()
+
+        eng._step_once = step_once
+        answers.update(eng.drain())
+        finals.update(eng.pop_final_tokens())
+        eng.stop_followers()
+    else:
+        answers = _follow_answers(eng, finals)
+    return {"answers": answers, "decisions": list(eng.decisions),
+            "pins": list(eng.prefix_cache._session_pins),
+            "pin_stats": (eng.prefix_cache.session_count,
+                          eng.prefix_cache.session_pinned_blocks()),
+            "watched": sorted(eng._stream_watch), "finals": sorted(finals),
+            "fired": fired}
+
+
+def case_follower_fails(model: str, tree, prompts):
+    """The follower's replayed step raises (a fault on that rank alone):
+    each rank returns the TensorParallelFailure it raised and how long it
+    took, and rank 0 what a later call raised."""
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+    from distributed_lms_raft_llm_tpu_torch.parallel import (
+        TensorParallelFailure,
+    )
+
+    tp = _tp()
+    eng = PagedEngine(_engine_config(model, tp.size, {}), slots=2, chunk=2)
+    _carry(eng, tree)
+    t0 = time.monotonic()
+    out = {}
+    try:
+        if tp.leader:
+            for prompt in prompts:
+                eng.submit(prompt)
+            eng.drain()
+        else:
+            def broken():
+                raise RuntimeError("a fault on this rank alone")
+
+            eng._step_once = broken
+            eng.follow()
+    except TensorParallelFailure as e:
+        out = {"error": str(e), "seconds": time.monotonic() - t0}
+    if tp.leader:
+        try:
+            eng.submit(prompts[0])
+        except TensorParallelFailure as e:
+            out["later"] = str(e)
+    return out
+
+
+def case_refusals():
+    """What a tp engine refuses at construction over gloo: CUDA graphs."""
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
+
+    tp = _tp()
+    try:
+        PagedEngine(_engine_config("tiny", tp.size, {}), cuda_graphs=True)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+CASES = {
+    "forward": case_forward,
+    "paged": case_paged,
+    "bucketed": case_bucketed,
+    "queue": case_queue,
+    "refusals": case_refusals,
+    "release_during_step": case_release_during_step,
+    "follower_fails": case_follower_fails,
+}
+
+
+def serve_rank(rank: int, world: int, init: str) -> None:
+    """One rank: join the group, then run cases until a None frame."""
+    out = os.fdopen(os.dup(sys.stdout.fileno()), "wb")
+    os.dup2(sys.stderr.fileno(), sys.stdout.fileno())
+    import torch
+
+    torch.set_num_threads(1)
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+
+    mesh.init_process_group("gloo", init, world, rank)
+    stdin = sys.stdin.buffer
+    while True:
+        head = stdin.read(8)
+        if len(head) < 8:
+            return
+        (n,) = struct.unpack("<Q", head)
+        msg = pickle.loads(stdin.read(n))
+        if msg is None:
+            return
+        case, kwargs = msg
+        try:
+            _write(out, (True, CASES[case](**kwargs)))
+        except BaseException:  # reported to the parent, which fails the test
+            _write(out, (False, traceback.format_exc()))
+
+
+if __name__ == "__main__":
+    serve_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
