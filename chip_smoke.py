@@ -94,7 +94,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    reported, and each prompt's flip logits through the 32-token admission
    chunks are held against the cold prefill's and a float32 reference's),
    and bf16 graph replays at K=4 equal to the eager chunk loop, greedy and
-   seeded-sampled; strict dispatch (`utils/guards.py`): under
+   seeded-sampled (16 requests x 64 new tokens); strict dispatch (`utils/guards.py`): under
    `strict_dispatch()` the deployment engine admits 2 requests (fused
    staging) and runs its megasteps to their answers without raising, an
    unmarked `.item()` of a CUDA tensor in the scope raises, the same read
@@ -393,6 +393,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    calls on the mma.sync tiles, admission chunks on the wgmma ones). A
    refusal: `cuda_graphs=True` over gloo raises on each rank. These times
    are not tp's speed: every collective crosses host memory.
+15. the rest of serving's parallel axes, in phase 14's two rank processes
+   (after its work there), this process running the one-rank references
+   meanwhile. (a) gpt2-moe at full width and depth (8 experts, top-2),
+   int8 weights and KV, over two ep ranks (each holding 4 of the 8
+   experts, half of ep 1's expert bytes): a float32 witness (4 requests x
+   16 tokens, eager) byte-equal to ep 1's, the ranks equal in tokens and
+   decisions; the deployment config eagerly (8 bare questions x 32, bf16,
+   all submitted then drained: capacity drops make a token depend on its
+   batch, so ep 1 and ep 2 run one schedule): both ranks the same tokens
+   and decisions, tokens reported beside ep 1's with the router's
+   near-ties, one forward's logits (bit-equal to ep 1's or not, said) no
+   further from ep 1's and the float32 model's than twice ep 1's own bf16
+   error; a scoring quantum of 8 x 256 (C = 640, the wgmma expert route);
+   launches by route exact on each rank; whether a 4-expert launch of the
+   expert kernel gives each expert an 8-expert launch's bits. (b) GPT-2 small's scoring (int8)
+   over two sp ranks, 2 texts in the 1,024-token bucket: the ring forward
+   (`parallel/ring.py`, the K/V blocks rotated through host buffers over
+   gloo), its steps and rotations timed; each text's log probability
+   within 1e-5 (relative) of sp 1's in float32, and in bf16 within twice
+   bf16's own error at sp 1; ranks equal; launches exact. (c) The
+   deployment's gate (bert-base, int8, bf16) over two tp ranks: 8 pairs'
+   similarity within 2e-2 of tp 1's, equal verdicts away from the 0.6
+   threshold, each rank half the word table, launches exact. Then alone
+   on the card: the expert kernel at 4 experts (C 5 / 10 / 80 / 640 bf16,
+   C 5 float32) and BERT-base's products' tp-2 halves at M = 128 and
+   1,024, each against its plain version beside its bound and library
+   call. (d) A graphed GPT-2 small engine served once through a node
+   (`serve_args`, the scoring tenant on), then dropped with the garbage
+   collector off: freed by reference counting alone, its memory returned.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -403,6 +432,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import functools
 import hashlib
 import json
 import math
@@ -2080,13 +2110,15 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
     # bf16: graph replays at K=4 equal the eager chunk loop (megastep 1,
     # same shapes, no prefix cache, no fused admission), greedy and with
     # the reference sampling from the same seed. 16 requests fill the 16
-    # slots at once, so both admit at the same boundary.
+    # slots at once, so both admit at the same boundary. 64 new tokens
+    # (four chunks of 16: one K=4 megastep a request) keep every width's
+    # graphs and the comparison at half the decode of 128.
     prompts16 = wave1[1:] + wave2[:4]
     bf16_checks = []
     for name, sampling in (
-            ("greedy", sampling_cls.greedy(max_new_tokens=128)),
+            ("greedy", sampling_cls.greedy(max_new_tokens=BF16_CHECK_TOKENS)),
             ("sampled", sampling_cls.reference_defaults(
-                max_new_tokens=128))):
+                max_new_tokens=BF16_CHECK_TOKENS))):
         toks = {}
         for mode, kw in (("graphs_k4", dict(megastep=4, megastep_max=4)),
                          ("eager_chunk_loop", dict(cuda_graphs=False))):
@@ -2112,6 +2144,10 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
     run["bf16_checks"] = bf16_checks
     torch.cuda.empty_cache()
     return run, refs
+
+
+# Phase 4c's bf16 graphs-against-eager comparison's new tokens a request.
+BF16_CHECK_TOKENS = 64
 
 
 # ------------------------------------------- phase 6: the relevance gate
@@ -5616,7 +5652,7 @@ TP_MODEL = "llama3-8b-4-layers-tp"  # its preset, registered by phase 14
 TP_WITNESS_REQUESTS, TP_WITNESS_TOKENS = 4, 16
 TP_DEPLOY_REQUESTS, TP_DEPLOY_TOKENS = 8, 32
 TP_ROWS = (16, 512)          # the int8 products at decode's and a quantum's
-TP_RANK_TIMEOUT_S = 420.0
+TP_RANK_TIMEOUT_S = 720.0    # phases 14 and 15 on the ranks
 # bf16 at tp 2 beside tp 1: a greedy answer may part from tp 1's only
 # where tp 1's top-2 logit margin is below TP_BF16_MARGIN_MAX (the
 # partial products round to bf16 before the all-reduce sums them; the
@@ -5762,21 +5798,31 @@ def tp_rank_main(args) -> int:
     rec = dict(rank=rank)
     t0 = time.monotonic()
 
-    def run(eng, drive):
+    def run(eng, drive, count=tp_launches):
         """Rank 0 drives `eng` and returns what `drive` does; a follower
-        returns the final tokens of the rids rank 0 watched, by rid."""
+        returns the final tokens of the rids rank 0 watched, by rid (the
+        results of its replayed calls by name where `eng` watches none).
+        With the launches `count` reads since the run began."""
         attention.reset_launch_counts()
         quant_matmul.reset_launch_counts()
-        c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
-        if eng.tensor_parallel.leader:
+        c0 = (getattr(eng, "decode_steps", 0),
+              getattr(eng, "admission_chunks", 0),
+              getattr(eng, "prefill_calls", 0))
+        if rank == 0:
             out = drive()
             eng.stop_followers()
         else:
             out = {}
-            eng.follow(lambda name, result: out.update(
-                eng.pop_final_tokens()))
+
+            def keep(name, result):
+                if hasattr(eng, "pop_final_tokens"):
+                    out.update(eng.pop_final_tokens())
+                else:
+                    out[name] = result
+
+            eng.follow(keep)
         torch.cuda.synchronize()
-        return out, tp_launches(attention, quant_matmul, eng, c0)
+        return out, count(attention, quant_matmul, eng, c0)
 
     def in_order(finals):
         return [finals[r] for r in sorted(finals)]
@@ -5854,6 +5900,11 @@ def tp_rank_main(args) -> int:
     except ValueError as e:
         rec["graphs_refusal"] = str(e)
     rec["seconds"] = time.monotonic() - t0
+
+    # Phase 15 in the same two processes: expert parallelism, sequence
+    # parallel scoring and the gate's tp.
+    rec["ep_sp_gate"] = ep_rank_phase(torch, attention, quant_matmul, args,
+                                      rank, run)
     Path(args.tp_out).write_text(json.dumps(rec))
     from torch import distributed as dist
 
@@ -5923,6 +5974,8 @@ def tp_phase(torch, attention, quant_matmul, args, card) -> dict:
             ref._kv.k, ref._kv.v, ref._kv.ks, ref._kv.vs))
         ref_answers, ref_d, ref_wall, _ = queue_tokens(torch, ref, d_prompts)
         ref_calls = ref.decode_steps + ref.admission_chunks + ref.prefill_calls
+        # Phase 15's one-rank references, while the ranks run on.
+        refs15 = ep_references(torch, attention, quant_matmul, args)
         deadline = time.monotonic() + TP_RANK_TIMEOUT_S
         for proc in procs:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -6079,6 +6132,693 @@ def tp_phase(torch, attention, quant_matmul, args, card) -> dict:
     emit("tp", **{k: rec[k] for k in ("card", "tp", "backend", "layers",
                                       "graphs_refusal", "collective_ms",
                                       "rank_seconds", "seconds")})
+    # Phase 15's checks on the same ranks' records.
+    rec["ep_sp_gate"] = ep_phase_checks(torch, attention, quant_matmul,
+                                        args, ranks, refs15, outs, card)
+    return rec
+
+
+# ---------------------------- phase 15: expert, sequence and the gate's tp
+
+EP = 2                        # ep ranks: phase 14's two processes
+EP_MODEL = "gpt2-moe"         # GPT-2 small's trunk, 8 experts, top-2
+EP_LAYER_PRODUCTS = 2         # dense int8 products a layer (qkv, attn out)
+EP_QUANTUM = (8, 256)         # a scoring quantum: texts x tokens, C = 640
+# ep 1's bf16 logits against its float32 model's, at most: the same
+# weights (two unrelated models' logits sit ~1.4 apart, relative).
+EP_SAME_WEIGHTS = 0.5
+SP = 2                        # sp ranks: the same two processes
+SP_MODEL = "gpt2"             # GPT-2 small
+SP_BUCKETS = (256, 1024)      # the texts fill the 1,024-token bucket
+SP_TEXTS, SP_TOKENS = 2, 1000
+SP_F32_RTOL = 1e-5            # float32 sp 2 against sp 1, each text
+SP_BF16_ERR_RATIO = 2.0       # bf16 sp 2 against bf16's own error at sp 1
+GATE_TP = 2                   # the gate's tp ranks: the same two
+GATE_TP_TOL = TOLERANCE["bfloat16"]  # tp 2's similarity against tp 1's
+GATE_TP_PAIRS = 8
+# Phase 15 (d): a graphed engine on GPT-2 small's deployment options,
+# small enough to capture quickly (one prompt bucket, so one width).
+FREE_KW = dict(slots=4, chunk=4, inflight=2, megastep=2, megastep_max=2,
+               prefix_cache=True, prefix_cache_blocks=64,
+               prefill_chunk_tokens=32)
+
+
+def ep_configs(torch, seed, ep):
+    """(float32 witness config, bf16 deployment config) of gpt2-moe at
+    `ep`, int8 weights and KV (configs/cluster.toml [tutoring])."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        SamplingParams,
+    )
+
+    base = dict(model=EP_MODEL, quant="int8", kv_quant=True, seed=seed,
+                device="cuda", ep=ep, scoring=True)
+    witness = EngineConfig(
+        dtype=torch.float32, param_dtype=torch.float32,
+        sampling=SamplingParams.greedy(max_new_tokens=TP_WITNESS_TOKENS),
+        **base)
+    deploy = EngineConfig(
+        dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+        sampling=SamplingParams.greedy(max_new_tokens=TP_DEPLOY_TOKENS),
+        **base)
+    return witness, deploy
+
+
+def sp_config(torch, seed, sp, dtype):
+    """GPT-2 small's scoring engine at `sp`: int8 weights, the 1,024-token
+    bucket."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        SamplingParams,
+    )
+
+    return EngineConfig(
+        model=SP_MODEL, quant="int8", dtype=dtype, param_dtype=dtype,
+        seed=seed, device="cuda", sp=sp, length_buckets=SP_BUCKETS,
+        batch_buckets=(1, 2), sampling=SamplingParams.greedy(
+            max_new_tokens=16))
+
+
+def gate_tp_config(torch, tp):
+    """The deployment's gate ([gate]: bert-base, int8, bf16) at `tp`."""
+    from distributed_lms_raft_llm_tpu_torch.engine import GateConfig
+
+    return GateConfig(quant="int8", dtype=torch.bfloat16, device="cuda",
+                      tp=tp, threshold=GATE_THRESHOLD)
+
+
+def gate_tp_pairs():
+    """Phase 15 (c)'s 8 pairs: a course question each against the course
+    notes, half of them cut short."""
+    return [(q, GATE_NOTES[:120 + 40 * i])
+            for i, q in enumerate(QUESTIONS[:GATE_TP_PAIRS])]
+
+
+def expert_bytes(params) -> int:
+    """Bytes of the expert stacks a rank holds (int8 q, scales, biases)."""
+    total = 0
+    for name in ("wi", "wo", "bi", "bo"):
+        leaf = params["blocks"]["moe"][name]
+        for x in (leaf.values() if isinstance(leaf, dict) else (leaf,)):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def moe_launches(attention, quant_matmul, eng, c0, quanta=0) -> dict:
+    """Phase 14's `tp_launches` for gpt2-moe's paged engine: per model call
+    24 dense products (qkv and the attention out a layer), the
+    unembedding and 24 expert launches (wi and wo a layer, E / ep experts
+    each), the append kernel a layer a decode call; and `quanta` scoring
+    quanta of EP_QUANTUM (bf16) besides."""
+    decode = eng.decode_steps - c0[0]
+    adm = eng.admission_chunks - c0[1]
+    prefill = eng.prefill_calls - c0[2]
+    layers = eng.cfg.num_layers
+    dense = EP_LAYER_PRODUCTS * layers
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    if str(eng.cfg.dtype) == "torch.float32":
+        model = decode + adm + prefill
+        int8 = {quant_matmul.FMA: (dense + 1) * model,
+                quant_matmul.FMA_EXPERTS: 2 * layers * model,
+                quant_matmul.KERNEL: (dense + 1 + 2 * layers) * model}
+    else:
+        int8 = int8_want(quant_matmul, paged_calls(
+            quant_matmul, eng, decode, adm, prefill) + [
+                (quanta, EP_QUANTUM[0] * EP_QUANTUM[1])], dense,
+            experts=2 * layers, moe_cfg=eng.cfg)
+    attn = {name: launches.get(name, 0) for name in attention.launch_counts}
+    want_attn = {name: 0 for name in attention.launch_counts}
+    want_attn[attention.APPEND_INT8KV] = layers * decode
+    return dict(decode_calls=decode, admission_chunks=adm, prefills=prefill,
+                launches={k: v for k, v in launches.items() if v},
+                exact=(decode > 0 and attn == want_attn and all(
+                    launches.get(k, 0) == v for k, v in int8.items())),
+                want_int8={k: v for k, v in int8.items() if v})
+
+
+def forward_launches(rows, dense, unembed=True, experts=0,
+                     calls_of=lambda eng: 1):
+    """A launch count for runs of whole forwards (a scoring quantum, the
+    gate's checks): `calls_of(eng)` forwards since the run began, each
+    `dense` int8 products, the unembedding where `unembed`, and `experts`
+    expert launches over `rows` token rows (a product's route follows its
+    rows: the wgmma route from WGMMA_MIN_ROWS), and no attention kernel."""
+
+    def count(attention, quant_matmul, eng, c0) -> dict:
+        launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+        calls = calls_of(eng)
+        if str(eng.cfg.dtype) == "torch.float32":
+            int8 = {quant_matmul.FMA: (dense + unembed) * calls,
+                    quant_matmul.FMA_EXPERTS: experts * calls,
+                    quant_matmul.KERNEL: (dense + unembed + experts) * calls}
+        else:
+            int8 = int8_want(quant_matmul, [(calls, rows)], dense,
+                             experts=experts,
+                             moe_cfg=eng.cfg if experts else None)
+            if not unembed:
+                int8[quant_matmul.KERNEL] -= calls
+                int8[quant_matmul.MMA_UNEMBED] = 0
+                int8[quant_matmul.WGMMA_UNEMBED] = 0
+        attn = sum(launches.get(name, 0) for name in attention.launch_counts)
+        return dict(forwards=calls,
+                    launches={k: v for k, v in launches.items() if v},
+                    exact=(calls > 0 and attn == 0 and all(
+                        launches.get(k, 0) == v for k, v in int8.items())),
+                    want_int8={k: v for k, v in int8.items() if v})
+
+    return count
+
+
+def ep_rank_phase(torch, attention, quant_matmul, args, rank, run) -> dict:
+    """Phase 15 on one of phase 14's two rank processes (see the module
+    docstring): (a) gpt2-moe over two ep ranks, (b) GPT-2 small's scoring
+    over two sp ranks, (c) the gate over two tp ranks; rank 0 drives,
+    rank 1 follows (`run`). Returns this rank's record."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        PagedEngine,
+        RelevanceGate,
+        TutoringEngine,
+    )
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh, ring
+
+    t0 = time.monotonic()
+    rec = dict(rank=rank)
+
+    def in_order(finals):
+        return [finals[r] for r in sorted(finals)]
+
+    # (a) gpt2-moe at ep 2: the float32 witness, then the deployment
+    # config and a scoring quantum.
+    witness_cfg, deploy_cfg = ep_configs(torch, args.seed, EP)
+    w_prompts, d_prompts = tp_prompts()
+    eng = PagedEngine(witness_cfg, slots=TP_WITNESS_REQUESTS, chunk=4,
+                      cuda_graphs=False)
+    toks, counts = run(eng, lambda: watched_tokens(eng, w_prompts),
+                       moe_launches)
+    rec["witness"] = dict(
+        tokens=toks if rank == 0 else in_order(toks), ep=eng.ep,
+        experts=eng.cfg.local_experts, expert_bytes=expert_bytes(
+            eng.params), decisions=list(eng.decisions), **counts)
+    del eng
+    torch.cuda.empty_cache()
+    eng = PagedEngine(deploy_cfg, **TP_DEPLOY_KW)
+    rec["deploy_config"] = dict(
+        ep=eng.ep, tp=eng.tp, fused=eng.fused, megastep_ks=eng.megastep_ks,
+        prefix_cache=eng.prefix_cache is not None,
+        cuda_graphs=eng.cuda_graphs, quant_kv=eng.cfg.quant_kv,
+        dtype=str(eng.cfg.dtype), hidden=eng.cfg.hidden_size,
+        layers=eng.cfg.num_layers, experts=eng.cfg.local_experts,
+        num_experts=eng.cfg.num_experts, vocab=eng.cfg.vocab_size,
+        expert_bytes=expert_bytes(eng.params))
+    texts = score_corpus(eng.tokenizer, *EP_QUANTUM, args.seed)
+
+    def drive():
+        # The deployment's questions on one schedule (all submitted, then
+        # drained: with capacity drops a token depends on its companions,
+        # so ep 1 and ep 2 must batch alike), then a scoring quantum
+        # (C = 640); the followers are released after both.
+        t_drive = time.monotonic()
+        toks = watched_tokens(eng, d_prompts)
+        return toks, time.monotonic() - t_drive, eng.score(texts)
+
+    out, counts = run(eng, drive, functools.partial(moe_launches, quanta=1))
+    if rank == 0:
+        toks, wall, scores = out
+        rec["deploy"] = dict(tokens=toks, wall_s=wall, quantum=scores,
+                             **counts)
+    else:
+        rec["deploy"] = dict(tokens=in_order(out), **counts)
+    rec["deploy"]["decisions"] = list(eng.decisions)
+    torch.save(prompt_logits(torch, eng, d_prompts[0]),
+               f"{args.tp_out}.ep_logits.pt")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) GPT-2 small's scoring at sp 2, the 1,024-token bucket, float32
+    # and bf16, the ring's block steps and rotations timed (each wrapped
+    # here between two device syncs).
+    rec["scoring"] = {}
+    block, rotate = ring.ring_block, mesh.ParallelAxis.rotate
+
+    def timed(fn, seconds):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t_call = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t_call)
+            return out
+        return wrapped
+
+    for dtype in (torch.float32, torch.bfloat16):
+        eng = TutoringEngine(sp_config(torch, args.seed, SP, dtype))
+        texts = score_corpus(eng.tokenizer, SP_TEXTS, SP_TOKENS, args.seed)
+        steps, rotations = [], []
+        ring.ring_block = timed(block, steps)
+        mesh.ParallelAxis.rotate = timed(rotate, rotations)
+        try:
+            scores, counts = run(eng, lambda: eng.score(texts),
+                                 forward_launches(
+                                     SP_TEXTS * SP_BUCKETS[-1] // SP,
+                                     4 * eng.cfg.num_layers))
+        finally:
+            ring.ring_block, mesh.ParallelAxis.rotate = block, rotate
+        rec["scoring"][str(dtype).split(".")[-1]] = dict(
+            scores=scores if rank == 0 else scores["score"], sp=eng.sp,
+            ring_step_ms=[1e3 * x for x in steps],
+            ring_rotation_ms=[1e3 * x for x in rotations], **counts)
+        del eng
+        torch.cuda.empty_cache()
+
+    # (c) The gate at tp 2 over the default group (both ranks).
+    gate = RelevanceGate(gate_tp_config(torch, GATE_TP))
+    pairs = gate_tp_pairs()
+    f0 = gate.forwards
+    checks, counts = run(gate, lambda: [gate.check(q, c) for q, c in pairs],
+                         forward_launches(
+                             min(gate.config.length_buckets),
+                             4 * gate.cfg.num_layers, unembed=False,
+                             calls_of=lambda g: g.forwards - f0))
+    word = gate.params["embeddings"]["word"]
+    rec["gate"] = dict(checks=checks if rank == 0 else None, tp=gate.cfg
+                       .tensor_parallel.size, word_rows=(
+                           word["q"] if isinstance(word, dict) else word)
+                       .shape[0], **counts)
+    del gate
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.monotonic() - t0
+    return rec
+
+
+def ep_references(torch, attention, quant_matmul, args) -> dict:
+    """Phase 15's one-rank references, in this process while the ranks
+    run: gpt2-moe at ep 1 (the witness's tokens and the float32 logits,
+    the deployment's tokens, answers and bf16 logits, the expert bytes;
+    its bf16 engine kept for the divergence margins), GPT-2 small's
+    scores at sp 1 (float32 and bf16) and the gate's checks at tp 1."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        PagedEngine,
+        RelevanceGate,
+        TutoringEngine,
+    )
+
+    t0 = time.monotonic()
+    refs = {}
+    witness_cfg, deploy_cfg = ep_configs(torch, args.seed, 1)
+    w_prompts, d_prompts = tp_prompts()
+    eng = PagedEngine(witness_cfg, slots=TP_WITNESS_REQUESTS, chunk=4,
+                      cuda_graphs=False)
+    refs["witness"] = watched_tokens(eng, w_prompts)
+    refs["f32_logits"] = prompt_logits(torch, eng, d_prompts[0])
+    refs["expert_bytes"] = expert_bytes(eng.params)
+    del eng
+    torch.cuda.empty_cache()
+    ref = PagedEngine(deploy_cfg, **TP_DEPLOY_KW)
+    refs["deploy_expert_bytes"] = expert_bytes(ref.params)
+    t_drive = time.monotonic()
+    refs["deploy"] = watched_tokens(ref, d_prompts)
+    refs["wall_s"] = time.monotonic() - t_drive
+    refs["calls"] = ref.decode_steps + ref.admission_chunks \
+        + ref.prefill_calls
+    # The router's gap between each token's 2nd and 3rd expert
+    # probability, every layer, over that forward: how near its top-2
+    # choices sit to a tie.
+    from distributed_lms_raft_llm_tpu_torch.models import moe as moe_lib
+
+    gaps, top_k = [], moe_lib.top_k
+
+    def spy(probs, k):
+        ranked = torch.sort(probs, dim=-1, descending=True).values
+        gaps.append((ranked[:, k - 1] - ranked[:, k]).float().cpu())
+        return top_k(probs, k)
+
+    moe_lib.top_k = spy
+    try:
+        refs["bf16_logits"] = prompt_logits(torch, ref, d_prompts[0])
+    finally:
+        moe_lib.top_k = top_k
+    gap = torch.cat(gaps)
+    refs["router_gap"] = dict(
+        tokens_x_layers=gap.numel(), median=gap.median().item(),
+        min=gap.min().item(),
+        share_below_1e3=(gap < 1e-3).float().mean().item())
+    texts = score_corpus(ref.tokenizer, *EP_QUANTUM, args.seed)
+    refs["quantum"] = ref.score(texts)
+    refs["engine"] = ref
+    refs["scoring"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        eng = TutoringEngine(sp_config(torch, args.seed, 1, dtype))
+        texts = score_corpus(eng.tokenizer, SP_TEXTS, SP_TOKENS, args.seed)
+        refs["scoring"][str(dtype).split(".")[-1]] = eng.score(texts)
+        del eng
+        torch.cuda.empty_cache()
+    gate = RelevanceGate(gate_tp_config(torch, 1))
+    refs["gate"] = [gate.check(q, c) for q, c in gate_tp_pairs()]
+    refs["gate_word_rows"] = gate.params["embeddings"]["word"]["q"].shape[0]
+    del gate
+    torch.cuda.empty_cache()
+    refs["seconds"] = time.monotonic() - t0
+    return refs
+
+
+def ep_kernel_cases(torch, attention, quant_matmul) -> dict:
+    """Phase 15's kernels at their new shapes, each against its plain
+    version, timed beside its bound and library call: the expert kernel
+    at an ep-2 rank's 4 experts (C 5 / 10 / 80 / 640 in bf16, and C 5 in
+    float32: the witness's route) and BERT-base's four products' tp-2
+    halves at the gate's rows."""
+    from distributed_lms_raft_llm_tpu_torch.ops import sweep_int8
+
+    experts = []
+    for dtype, caps in (("bfloat16", sweep_int8.MOE_CAPACITIES),
+                        ("float32", (5,))):
+        for name in sweep_int8.EXPERT_PRODUCTS:
+            for c in caps:
+                experts.append(sweep_int8.int8_experts_case(
+                    name=name, c=c, dtype=dtype,
+                    experts=sweep_int8.MOE_EP2_EXPERTS, seed=150))
+                emit("ep_int8_experts_case", **experts[-1])
+    # Does a 4-expert launch give each expert the bits of an 8-expert one
+    # (ep 2's layer equal to ep 1's bit for bit rests on it)?
+    split_bits = []
+    for dtype, c in (("bfloat16", 5), ("bfloat16", 640), ("float32", 5)):
+        for name, (k, n) in sweep_int8.EXPERT_PRODUCTS.items():
+            gen = torch.Generator(device="cuda").manual_seed(151)
+            w = quant_matmul_weights(torch, gen, 8, k, n)
+            x = torch.randn((8, c, k), generator=gen, device="cuda").to(
+                getattr(torch, dtype))
+            b = (torch.randn((8, n), generator=gen, device="cuda")
+                 * 0.02).to(x.dtype)
+            whole = quant_matmul.int8_matmul_experts(x, w["q"], w["s"], b)
+            half = quant_matmul.int8_matmul_experts(
+                x[:4].contiguous(), w["q"][:4].contiguous(),
+                w["s"][:4].contiguous(), b[:4].contiguous())
+            torch.cuda.synchronize()
+            split_bits.append(dict(
+                name=name, dtype=dtype, c=c,
+                bit_equal=bool(torch.equal(whole[:4], half)),
+                max_abs_diff=(whole[:4].float() - half.float()).abs()
+                .max().item(),
+                plan_8=sweep_int8._plan(c, k, n, False, dtype, experts=8),
+                plan_4=sweep_int8._plan(c, k, n, False, dtype, experts=4)))
+            emit("ep_expert_launch_bits", **split_bits[-1])
+    products = []
+    for name in sweep_int8.BERT_TP2_PRODUCTS:
+        for m in sweep_int8.GATE_ROWS:
+            products.append(sweep_int8.int8_matmul_case(
+                name=name, m=m, dtype="bfloat16"))
+            emit("gate_tp_int8_matmul_case", **products[-1])
+    return dict(experts=experts, gate_products=products,
+                launch_bits=split_bits)
+
+
+def quant_matmul_weights(torch, gen, experts, k, n):
+    """Seeded int8 expert weights [experts, K, N] with their scales."""
+    from distributed_lms_raft_llm_tpu_torch.models import quant
+
+    return quant.quantize_array(torch.randn(
+        (experts, k, n), generator=gen, device="cuda") * 0.02)
+
+
+def free_check(torch, args) -> dict:
+    """Phase 15 (d): a graphed engine, served once through a node
+    (`serve_args`, the scoring tenant on), is freed by reference counting
+    alone once it is dropped: the garbage collector off, a weak reference
+    dead, its device memory returned."""
+    import gc
+    import weakref
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        PagedEngine,
+        SamplingParams,
+    )
+    from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+
+    t0 = time.monotonic()
+    eng = PagedEngine(EngineConfig(
+        model="gpt2", quant="int8", kv_quant=True, seed=args.seed,
+        device="cuda", length_buckets=(32,), scoring=True,
+        sampling=SamplingParams.greedy(max_new_tokens=16)), **FREE_KW)
+    eng.warmup()
+    check(eng.cuda_graphs and len(eng._graphs) > 0,
+          "phase 15 (d): the engine captured no graph")
+    node_args = tutoring_server.resolve_args([
+        "--device", "cuda", "--model", "gpt2", "--port", "0",
+        "--metrics-port", "0", "--scoring", "--max-new-tokens", "16"])
+
+    async def serve():
+        server = await tutoring_server.serve_args(node_args, eng,
+                                                  host="127.0.0.1")
+        try:
+            reply = await server._service.GetLLMAnswer(
+                lms_pb2.QueryRequest(query=QUESTIONS[0]), None)
+            return reply.success
+        finally:
+            await server.stop(0)
+            await server._queue.close()
+
+    answered = asyncio.run(serve())
+    graphs = len(eng._graphs)
+    torch.cuda.synchronize()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        ref = weakref.ref(eng)
+        del eng
+        alive = ref()
+        holders = ([type(r).__name__ for r in gc.get_referrers(alive)]
+                   if alive is not None else [])
+        del alive
+        freed = ref() is None
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    rec = dict(answered=answered, graph_widths=graphs, freed=freed,
+               holders=holders, allocated_before=before,
+               allocated_after=after, freed_bytes=before - after,
+               seconds=time.monotonic() - t0)
+    check(answered and freed and after < before,
+          f"phase 15 (d): a dropped graphed engine was not freed without "
+          f"a collection: {rec}")
+    return rec
+
+
+def ep_phase_checks(torch, attention, quant_matmul, args, ranks, refs,
+                    outs, card) -> dict:
+    """Phase 15's checks on the ranks' records against the one-rank
+    references, then its kernels at their new shapes (alone on the card)
+    and the graph-engine free check. Returns its record."""
+    t_phase = time.monotonic()
+    lead, follow = [r["ep_sp_gate"] for r in ranks]
+    rec = dict(card=card, ep=EP, sp=SP, gate_tp=GATE_TP,
+               backend=TP_BACKEND, references_s=refs["seconds"])
+    both = (lead, follow)
+
+    # (a) gpt2-moe at ep 2, float32: tokens byte-equal to ep 1.
+    firsts = [first_divergence(a, b) for a, b in
+              zip(lead["witness"]["tokens"], refs["witness"])]
+    rec["witness"] = dict(
+        requests=len(refs["witness"]), new_tokens=TP_WITNESS_TOKENS,
+        equal_ep1=sum(f is None for f in firsts), first_divergence=firsts,
+        ranks_equal=follow["witness"]["tokens"] == lead["witness"]["tokens"],
+        decisions_equal=(follow["witness"]["decisions"]
+                         == lead["witness"]["decisions"]),
+        expert_bytes=[r["witness"]["expert_bytes"] for r in both],
+        expert_bytes_ep1=refs["expert_bytes"],
+        ranks=[{k: r["witness"][k] for k in (
+            "decode_calls", "admission_chunks", "prefills", "launches",
+            "exact", "experts")} for r in both])
+    emit("ep_f32_witness", **rec["witness"])
+    check(rec["witness"]["equal_ep1"] == len(refs["witness"])
+          and rec["witness"]["ranks_equal"]
+          and rec["witness"]["decisions_equal"],
+          f"phase 15 (a): float32 greedy tokens at ep {EP} differ from ep "
+          f"1 or between the ranks: {rec['witness']}")
+    check(all(r["witness"]["exact"] and r["witness"]["experts"] == 4
+              and 2 * r["witness"]["expert_bytes"] == refs["expert_bytes"]
+              for r in both),
+          f"phase 15 (a) witness: launches not exact, or a rank's experts "
+          f"not half of ep 1's: {rec['witness']}")
+
+    # The deployment config at ep 2, bf16.
+    dcfg = lead["deploy_config"]
+    check(follow["deploy_config"] == dcfg and dcfg["ep"] == EP
+          and dcfg["tp"] == 1 and dcfg["fused"] and dcfg["prefix_cache"]
+          and dcfg["megastep_ks"] == [1, 2, 4, 8]
+          and not dcfg["cuda_graphs"] and dcfg["quant_kv"]
+          and dcfg["hidden"] == 768 and dcfg["layers"] == 12
+          and dcfg["num_experts"] == 8 and dcfg["experts"] == 8 // EP
+          and dcfg["vocab"] == 50257
+          and 2 * dcfg["expert_bytes"] == refs["deploy_expert_bytes"],
+          f"phase 15 (a): not gpt2-moe's deployment config at ep {EP} with "
+          f"half the expert bytes a rank: {dcfg}, ep 1 "
+          f"{refs['deploy_expert_bytes']}")
+    deploy = lead["deploy"]
+    check(len(deploy["tokens"]) == TP_DEPLOY_REQUESTS
+          and all(len(t) > 0 for t in deploy["tokens"])
+          and follow["deploy"]["tokens"] == deploy["tokens"]
+          and follow["deploy"]["decisions"] == deploy["decisions"],
+          "phase 15 (a): the ep ranks disagree (tokens or host decisions) "
+          "or an answer is missing")
+    check(all(r["deploy"]["exact"] for r in both)
+          and follow["deploy"]["launches"] == deploy["launches"]
+          and deploy["admission_chunks"] > 0,
+          f"phase 15 (a) deployment: launches by route not exact on every "
+          f"rank: {[(r['deploy']['launches'], r['deploy']['want_int8']) for r in both]}")
+    ref = refs["engine"]
+    _, d_prompts = tp_prompts()
+    diverged = []
+    for i, (a, b) in enumerate(zip(deploy["tokens"], refs["deploy"])):
+        j = first_divergence(a, b)
+        if j is not None:
+            diverged.append(dict(request=i, token=j, top2_margin=(
+                divergence_margin(torch, ref, d_prompts[i], b, j))))
+    ep_logits = [torch.load(f"{o}.ep_logits.pt") for o in outs]
+
+    def rel(x, y):
+        return ((x - y).norm() / y.norm()).item()
+
+    floor = rel(refs["bf16_logits"], refs["f32_logits"])
+    logits_rel = [rel(x, refs["bf16_logits"]) for x in ep_logits]
+    logits_rel_f32 = [rel(x, refs["f32_logits"]) for x in ep_logits]
+    rec["deploy"] = dict(
+        requests=TP_DEPLOY_REQUESTS, new_tokens=TP_DEPLOY_TOKENS,
+        tokens_equal_ep1=TP_DEPLOY_REQUESTS - len(diverged),
+        diverged=diverged, router_gap=refs["router_gap"],
+        logits_bit_equal_ep1=[bool(torch.equal(x, refs["bf16_logits"]))
+                              for x in ep_logits],
+        logits_max_abs_err_ep1=[(x - refs["bf16_logits"]).abs().max().item()
+                                for x in ep_logits],
+        logits_rel_err_ep1=logits_rel, logits_rel_err_f32=logits_rel_f32,
+        logits_rel_err_ep1_f32=floor,
+        logits_ranks_equal=bool(torch.equal(*ep_logits)),
+        wall_s=deploy["wall_s"], wall_s_ep1=refs["wall_s"],
+        ms_per_model_call=deploy["wall_s"] * 1e3 / (
+            deploy["decode_calls"] + deploy["admission_chunks"]
+            + deploy["prefills"]),
+        ms_per_model_call_ep1=refs["wall_s"] * 1e3 / refs["calls"],
+        ranks=[{k: r["deploy"][k] for k in (
+            "decode_calls", "admission_chunks", "prefills", "launches",
+            "exact")} for r in both])
+    emit("ep_deployment", **rec["deploy"])
+    # bf16 tokens at ep 2 are reported beside ep 1's, not held: random
+    # routers give near-equal expert probabilities (router_gap), so a
+    # rounding change anywhere (the expert kernel's K split follows the
+    # experts a launch holds: launch_bits) moves a token to another
+    # expert or past capacity, and that token's logits move by far more
+    # than rounding. The logits are held as phase 14 holds tp's: within
+    # twice ep 1's own bf16 error against the float32 model. That floor
+    # is large here for the same reason (0.179 on an H100; unrelated
+    # weights would sit ~1.4 apart).
+    check(floor < EP_SAME_WEIGHTS and rec["deploy"]["logits_ranks_equal"]
+          and max(logits_rel + logits_rel_f32) <= TP_BF16_ERR_RATIO * floor,
+          f"phase 15 (a): bf16 logits at ep {EP}: relative error "
+          f"{logits_rel} against ep 1's, {logits_rel_f32} against "
+          f"float32's, beyond {TP_BF16_ERR_RATIO} x ep 1's own {floor}")
+    # The scoring quantum at ep 2 (C = 640: the wgmma expert route; its
+    # launches are in the deployment run's, held exact above).
+    quantum = deploy["quantum"]
+    q_err = max(abs(a["logprob"] - b["logprob"]) / abs(b["logprob"])
+                for a, b in zip(quantum, refs["quantum"]))
+    rec["quantum"] = dict(texts=len(quantum), rel_err_ep1=q_err,
+                          wgmma_expert_launches=deploy["launches"].get(
+                              quant_matmul.WGMMA_EXPERTS, 0))
+    emit("ep_quantum", **rec["quantum"])
+    check(rec["quantum"]["wgmma_expert_launches"] == 24
+          and [s["tokens"] for s in quantum]
+          == [s["tokens"] for s in refs["quantum"]]
+          and q_err <= TP_BF16_ERR_RATIO * TOLERANCE["bfloat16"],
+          f"phase 15 (a): the scoring quantum at ep {EP}: {rec['quantum']}")
+
+    # (b) GPT-2 small's scoring at sp 2 against sp 1.
+    sp_rec = {}
+    ref_f32 = refs["scoring"]["float32"]
+    for dtype in ("float32", "bfloat16"):
+        got = [r["scoring"][dtype] for r in both]
+        want = refs["scoring"][dtype]
+        errs = [abs(a["logprob"] - b["logprob"]) / abs(b["logprob"])
+                for a, b in zip(got[0]["scores"], want)]
+        own = [abs(a["logprob"] - b["logprob"]) / abs(b["logprob"])
+               for a, b in zip(want, ref_f32)]
+        sp_rec[dtype] = dict(
+            texts=len(want), tokens=[s["tokens"] for s in want],
+            truncated=[s["truncated"] for s in want],
+            rel_err_sp1=errs, rel_err_sp1_f32=own,
+            ranks_equal=got[1]["scores"] == got[0]["scores"],
+            ring_step_ms_mean=statistics.mean(got[0]["ring_step_ms"]),
+            ring_rotation_ms_mean=statistics.mean(
+                got[0]["ring_rotation_ms"]),
+            ring_steps=len(got[0]["ring_step_ms"]),
+            ring_rotations=len(got[0]["ring_rotation_ms"]),
+            ranks=[{k: g[k] for k in ("launches", "exact", "sp")}
+                   for g in got])
+        emit("sp_scoring", dtype=dtype, **sp_rec[dtype])
+        check(all(g["exact"] and g["sp"] == SP for g in got)
+              and sp_rec[dtype]["ranks_equal"]
+              and [s["tokens"] for s in got[0]["scores"]]
+              == sp_rec[dtype]["tokens"]
+              and sp_rec[dtype]["ring_rotations"]
+              == 12 * (SP - 1) and sp_rec[dtype]["ring_steps"] == 12 * SP,
+              f"phase 15 (b): {dtype} scoring at sp {SP}: {sp_rec[dtype]}")
+        bound = (SP_F32_RTOL if dtype == "float32"
+                 else SP_BF16_ERR_RATIO * max(own))
+        check(max(errs) <= bound,
+              f"phase 15 (b): {dtype} log probabilities at sp {SP} are "
+              f"{errs} (relative) from sp 1's, beyond {bound}")
+    rec["scoring"] = sp_rec
+
+    # (c) The gate at tp 2 against tp 1.
+    sims = [s for _, s in lead["gate"]["checks"]]
+    want = [s for _, s in refs["gate"]]
+    verdicts = [ok for ok, _ in lead["gate"]["checks"]]
+    away = [abs(s - GATE_THRESHOLD) > GATE_TP_TOL for s in want]
+    rec["gate"] = dict(
+        pairs=len(want), sims=sims, sims_tp1=want,
+        max_abs_err_tp1=max(abs(a - b) for a, b in zip(sims, want)),
+        verdicts_equal_away=all(v == w for v, (w, _), far in zip(
+            verdicts, refs["gate"], away) if far),
+        pairs_away=sum(away), word_rows=[r["gate"]["word_rows"]
+                                         for r in both],
+        word_rows_tp1=refs["gate_word_rows"],
+        ranks=[{k: r["gate"][k] for k in ("forwards", "launches", "exact",
+                                          "tp")} for r in both])
+    emit("gate_tp", **rec["gate"])
+    check(rec["gate"]["max_abs_err_tp1"] <= GATE_TP_TOL
+          and rec["gate"]["verdicts_equal_away"]
+          and all(r["gate"]["exact"] and r["gate"]["tp"] == GATE_TP
+                  and 2 * r["gate"]["word_rows"] == refs["gate_word_rows"]
+                  for r in both)
+          and follow["gate"]["forwards"] == lead["gate"]["forwards"],
+          f"phase 15 (c): the gate at tp {GATE_TP}: {rec['gate']}")
+    del ref, refs["engine"]
+    torch.cuda.empty_cache()
+
+    # The kernels at their new shapes, alone on the card now.
+    rec["kernels"] = ep_kernel_cases(torch, attention, quant_matmul)
+    # (d) A dropped graphed engine is freed without a collection.
+    rec["free"] = free_check(torch, args)
+    emit("graph_engine_free", **rec["free"])
+    rec["rank_seconds"] = [r["seconds"] for r in both]
+
+    def ep_total(r):
+        """A rank's launches over the ep runs, by route."""
+        runs = [r[k]["launches"] for k in ("witness", "deploy")]
+        return {k: sum(run.get(k, 0) for run in runs)
+                for k in set().union(*runs)}
+
+    rec["launches"] = {"ep": ep_total(lead), "ep_rank1": ep_total(follow),
+                       "sp": lead["scoring"]["bfloat16"]["launches"],
+                       "gate": lead["gate"]["launches"]}
+    # Phase 15's own wall: its part of the ranks' run (the references ran
+    # beside it), then these checks, kernel cases and the free check.
+    rec["seconds"] = time.monotonic() - t_phase + max(rec["rank_seconds"])
+    emit("ep_sp_gate", **{k: rec[k] for k in (
+        "card", "ep", "sp", "gate_tp", "backend", "rank_seconds",
+        "references_s", "seconds")})
     return rec
 
 
@@ -6601,9 +7341,16 @@ def main(argv=None) -> int:
     # widths (4 layers), held against tp 1; every kernel at its shard's
     # shapes.
     torch.cuda.empty_cache()
+    # 15. The rest of serving's parallel axes in the same two ranks:
+    # gpt2-moe over two ep ranks, GPT-2 small's scoring over two sp ranks,
+    # the gate over two tp ranks; a dropped graphed engine freed.
     records["tp"] = tp_phase(torch, attention, quant_matmul, args, smi)
+    records["ep_sp_gate"] = records["tp"].pop("ep_sp_gate")
     tp_launches_ = records["tp"]["launches"]
+    ep_launches_ = records["ep_sp_gate"]["launches"]
     lap("14_tp")
+    phase_s["15_ep_sp_gate"] = records["ep_sp_gate"]["seconds"]
+    phase_s["14_tp"] -= phase_s["15_ep_sp_gate"]
 
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]
@@ -6675,7 +7422,11 @@ def main(argv=None) -> int:
                   "11": lms_launches[attention.APPEND_INT8KV],
                   "11b": group_launches[attention.APPEND_INT8KV],
                   "12": train_launches[attention.APPEND_INT8KV],
-                  "13": sim_launches.get(attention.APPEND_INT8KV, 0)}),
+                  "13": sim_launches.get(attention.APPEND_INT8KV, 0),
+                  "15_ep_rank0": ep_launches_["ep"].get(
+                      attention.APPEND_INT8KV, 0),
+                  "15_ep_rank1": ep_launches_["ep_rank1"].get(
+                      attention.APPEND_INT8KV, 0)}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],
@@ -6855,6 +7606,39 @@ def main(argv=None) -> int:
             library_note=case["library_note"],
             launches_path="14b, rank 0 of 2: the route's launches over "
             "the deployment run"))
+    # Phase 15: the expert kernel at an ep-2 rank's 4 experts, its
+    # launches rank 0's over the ep runs (witness, deployment, quantum);
+    # BERT-base's products' tp-2 halves, their launches rank 0's over the
+    # gate's checks.
+    ep_rec = records["ep_sp_gate"]
+    for case in ep_rec["kernels"]["experts"]:
+        kernels.append(entry(
+            f"{case['route']}[ep2 rank: {case['experts']} of 8 experts, "
+            f"{case['name']}, C={case['c']}]", moe_ref,
+            ep_launches_["ep"].get(case["route"], 0), case,
+            source=(wgmma_src if case["route"].startswith(
+                "int8_matmul_wgmma") else f"{PACKAGE}/ops/csrc/"
+                "int8_matmul.cu"),
+            shape=f"{case['experts']} experts x C={case['c']} rows, K "
+            f"{case['k']} x N {case['n']}, {case['dtype']}",
+            library_note=case["library_note"],
+            launches_path="15a, rank 0 of 2 ep ranks: the route's launches "
+            "over the float32 witness, the deployment run and a scoring "
+            "quantum"))
+    for case in ep_rec["kernels"]["gate_products"]:
+        kernels.append(entry(
+            f"{case['route']}[gate tp2 shard: {case['name']}, M={case['m']}]",
+            "no Pallas kernel: distributed_lms_raft_llm_tpu/models/"
+            "common.py:58-60 (XLA-fused int8 einsums of models/bert.py, "
+            "sharded by parallel/partition.py BERT_RULES)",
+            ep_launches_["gate"].get(case["route"], 0), case,
+            source=(wgmma_src if case["route"].startswith(
+                "int8_matmul_wgmma") else f"{PACKAGE}/ops/csrc/"
+                "int8_matmul.cu"),
+            shape=f"K {case['k']} x N {case['n']}, M {case['m']}, bf16",
+            library_note=case["library_note"],
+            launches_path="15c, rank 0 of 2 gate tp ranks: the route's "
+            "launches over the 8 checks"))
     records["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -27,18 +27,22 @@ engine.py`, on one CUDA device (or the CPU when the caller asks for it):
   (batch bucket, length bucket) shapes. With `scoring` on, warmup runs
   every such shape once (`score_shapes`).
 
-- `tp` > 1 shards the model over a tp axis of ranks (`parallel/`): the
-  caller starts tp processes that join one process group (gloo or nccl,
+- `tp` > 1 shards the model over a tp axis of ranks, `ep` > 1 an MoE
+  model's experts over an ep axis, and `sp` > 1 the scoring forward's
+  sequence over an sp axis (`parallel/`): the caller starts tp x ep x sp
+  processes that join one process group (gloo or nccl,
   `parallel.mesh.init_process_group` or torchrun's environment) and builds
   the same engine in each; rank 0 takes the calls and the other ranks
   follow it (`follow()`, `parallel/spmd.py`). Every rank holds its slice of
-  the parameters and its heads of the cache, and its kernels run at the
-  shard's shapes. Unlike the JAX engine, fused attention runs under tp: the
-  JAX package's Pallas kernel is not partition-aware, while each rank here
-  hands its own local tensors to the kernel.
-
-Options of the JAX engine that the port does not carry yet (expert and
-sequence parallelism) raise `NotImplementedError` at construction.
+  the parameters (its heads, its experts) and its heads of the cache, and
+  its kernels run at the shard's shapes. Unlike the JAX engine, fused
+  attention runs under tp: the JAX package's Pallas kernel is not
+  partition-aware, while each rank here hands its own local tensors to the
+  kernel. Generation replicates over sp (the cached decode shards no
+  sequence); scoring at sp > 1 runs the ring forward
+  (`parallel/ring.py`), each rank summing its own positions' log
+  probabilities, and buckets texts as the JAX engine does
+  (`engine/scoring.py`).
 """
 
 from __future__ import annotations
@@ -115,16 +119,8 @@ class EngineConfig:
     device: str = "cuda"
 
 
-def refuse_unported(config: EngineConfig) -> None:
-    """Raise for the EngineConfig options the port does not carry yet (both
-    engines): ep and sp above 1. Scoring with sp > 1 (ring-attention
-    scoring) is refused with sp."""
-    unported = {"ep": config.ep > 1, "sp": config.sp > 1}
-    named = [k for k, on in unported.items() if on]
-    if named:
-        raise NotImplementedError(
-            f"EngineConfig options not ported to PyTorch yet: {named}"
-        )
+def check_quant(config: EngineConfig) -> None:
+    """Raise for a quant mode neither package has (both engines)."""
     if config.quant not in (None, "int8"):
         raise ValueError(f"unsupported quant mode {config.quant!r}")
 
@@ -134,32 +130,95 @@ def kv_heads(cfg) -> int:
     return getattr(cfg, "num_kv_heads", cfg.num_heads)
 
 
-def engine_tensor_parallel(config: EngineConfig, cfg
-                           ) -> mesh_lib.TensorParallel:
-    """The tp axis an engine runs over: SINGLE at tp = 1; else the process
-    group's, which must hold exactly `config.tp` ranks. The head count is
-    checked first (`partition.validate_tp_heads`, the JAX paged engine's
-    check), so an uneven split raises before any group is needed."""
+@dataclasses.dataclass(frozen=True)
+class EngineAxes:
+    """An engine's mesh axes (`parallel.mesh.ParallelAxis` each): tp
+    shards the heads, ep the experts, sp the scoring forward's sequence;
+    `ranks` is what the replicated host loop broadcasts over (the tp axis
+    where the engine's ranks are its tp ranks, else all of them)."""
+
+    tp: mesh_lib.ParallelAxis = mesh_lib.SINGLE
+    ep: mesh_lib.ParallelAxis = mesh_lib.ParallelAxis(name="ep")
+    sp: mesh_lib.ParallelAxis = mesh_lib.ParallelAxis(name="sp")
+    ranks: mesh_lib.ParallelAxis = mesh_lib.SINGLE
+
+    @property
+    def world(self) -> int:
+        return self.tp.size * self.ep.size * self.sp.size
+
+
+def check_expert_parallel(ep: int, family: str, cfg, model: str,
+                          paged: bool = False) -> None:
+    """Refuse ep > 1 on a family without experts, with the JAX engines'
+    messages, and an ep that does not divide the experts (where the JAX
+    package's `device_put` of the expert stacks refuses it)."""
+    if ep <= 1:
+        return
+    if family != "gpt2_moe":
+        tail = ("" if paged else " — the ep devices would silently "
+                "replicate (shrinking dp) instead of helping")
+        raise ValueError(f"ep={ep} requires an MoE family; {model!r} has "
+                         f"no expert axis to shard{tail}")
+    if cfg.num_experts % ep:
+        raise ValueError(
+            f"ep={ep} does not divide the {cfg.num_experts} experts of "
+            f"{model!r}: each ep rank holds num_experts / ep of them; ep "
+            f"ways that divide them: {mesh_lib.divisors(cfg.num_experts)}")
+
+
+def engine_axes(config: EngineConfig, family: str, cfg,
+                paged: bool = False) -> EngineAxes:
+    """The axes an engine runs over: every axis of size 1 at tp = ep =
+    sp = 1; else the process group's, which must hold exactly tp x ep x sp
+    ranks. The head split and ep are checked first
+    (`partition.validate_tp_heads`, the JAX paged engine's check;
+    `check_expert_parallel`), so a bad split raises before any group is
+    needed."""
     partition.validate_tp_heads(kv_heads(cfg), config.tp, config.model)
-    if config.tp == 1:
-        return mesh_lib.SINGLE
+    check_expert_parallel(config.ep, family, cfg, config.model, paged)
+    if config.tp == config.ep == config.sp == 1:
+        return EngineAxes()
     from torch import distributed as dist
 
+    world = config.tp * config.ep * config.sp
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
-            f"tp={config.tp} runs one process a rank: join a process group "
-            f"of {config.tp} ranks first (parallel.mesh.init_process_group, "
-            f"or initialize_multihost under torchrun)")
-    return mesh_lib.make_mesh({"tp": config.tp, "ep": config.ep,
-                               "sp": config.sp, "dp": -1}).tensor_parallel()
+            f"tp={config.tp} x ep={config.ep} x sp={config.sp} runs one "
+            f"process a rank: join a process group of {world} ranks first "
+            f"(parallel.mesh.init_process_group, or initialize_multihost "
+            f"under torchrun)")
+    mesh = mesh_lib.make_mesh({"tp": config.tp, "ep": config.ep,
+                               "sp": config.sp, "dp": -1})
+    tp = mesh.tensor_parallel()
+    return EngineAxes(tp=tp, ep=mesh.axis("ep"), sp=mesh.axis("sp"),
+                      ranks=tp if tp.size == world else mesh.world())
 
 
-def shard_for(params, family: str, tp: mesh_lib.TensorParallel):
+def shard_for(params, family: str, axes: EngineAxes):
     """This rank's slice of a (quantized) parameter tree: the family's
-    rules (`partition.RULES_FOR`), cut after quantization so a
-    row-parallel leaf keeps the scale of its whole column."""
-    return partition.shard_params(params, partition.RULES_FOR[family],
-                                  tp.rank, tp.size)
+    rules (`partition.slicing_rules`) over the tp axis and, for experts,
+    the ep axis, cut after quantization so a row-parallel leaf keeps the
+    scale of its whole column."""
+    return partition.shard_params(params, partition.slicing_rules(family),
+                                  axes.tp.rank, axes.tp.size,
+                                  axes.ep.rank, axes.ep.size)
+
+
+def shard_cfg(cfg, axes: EngineAxes, **changes):
+    """The model config carrying `axes` (tp; ep where the config has
+    experts; sp not: only the scoring forward's config carries it,
+    `score_cfg`) and `changes`."""
+    if hasattr(cfg, "expert_parallel"):
+        changes["expert_parallel"] = axes.ep
+    return dataclasses.replace(cfg, tensor_parallel=axes.tp, **changes)
+
+
+def score_cfg(cfg, axes: EngineAxes):
+    """The scoring forward's config: the serving config with the sp axis,
+    which routes it through the ring forward at sp > 1."""
+    if axes.sp.size == 1:
+        return cfg
+    return dataclasses.replace(cfg, sequence_parallel=axes.sp)
 
 
 def load_tokenizer(config: EngineConfig, family: str, vocab_size: int):
@@ -214,7 +273,7 @@ def check_spec_window(spec_tokens: int, fused: bool) -> None:
 
 class TutoringEngine:
     def __init__(self, config: EngineConfig):
-        refuse_unported(config)
+        check_quant(config)
         if config.spec_tokens > 0 and config.draft_source != "prompt_lookup":
             raise ValueError(
                 f"draft_source {config.draft_source!r} is a paged-engine "
@@ -230,14 +289,17 @@ class TutoringEngine:
         if fused is None:
             fused = self.device.type == "cuda"
         check_spec_window(config.spec_tokens, fused)
-        # The tp axis (the head split checked first); `tp` is its size.
-        self.tensor_parallel = engine_tensor_parallel(config, self.cfg)
-        self.tp = self.tensor_parallel.size
-        self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
-                                       quant_kv=config.kv_quant,
-                                       tensor_parallel=self.tensor_parallel)
-        # Under tp: rank 0's calls, replayed on the other ranks.
-        self._spmd = Replica(self, self.tensor_parallel)
+        # The mesh axes (the head split and ep checked first); `tp`, `ep`
+        # and `sp` are their sizes.
+        self.axes = engine_axes(config, self.family.name, self.cfg)
+        self.tensor_parallel = self.axes.tp
+        self.tp, self.ep, self.sp = (self.axes.tp.size, self.axes.ep.size,
+                                     self.axes.sp.size)
+        self.cfg = shard_cfg(self.cfg, self.axes,
+                             fused_decode_attention=fused,
+                             quant_kv=config.kv_quant)
+        # Over several ranks: rank 0's calls, replayed on the others.
+        self._spmd = Replica(self, self.axes.ranks)
         self.tokenizer = load_tokenizer(config, self.family.name,
                                         self.cfg.vocab_size)
         if config.sampling.max_new_tokens >= self.cfg.max_position_embeddings:
@@ -260,11 +322,11 @@ class TutoringEngine:
                                                   self.device)
         if config.quant:
             self.params = quant.quantize_params(self.params, self.family.name)
-        self.params = shard_for(self.params, self.family.name,
-                                self.tensor_parallel)
-        log.info("params ready in %.1fs on %s (tp rank %d of %d)",
-                 time.monotonic() - t0, self.device,
-                 self.tensor_parallel.rank, self.tp)
+        self.params = shard_for(self.params, self.family.name, self.axes)
+        log.info("params ready in %.1fs on %s (rank %d of %d: tp %d, ep "
+                 "%d, sp %d)", time.monotonic() - t0, self.device,
+                 self.axes.ranks.rank, self.axes.world, self.tp, self.ep,
+                 self.sp)
 
         self.last_ttft_s: Optional[float] = None
         self.last_batch_ttfts: List[float] = []
@@ -281,11 +343,14 @@ class TutoringEngine:
         self._prog_times: List[Tuple[str, float, float]] = []
         # The scoring tenant's program and the shapes warmup runs it at
         # (none unless `config.scoring`).
-        self._score = functools.partial(score_program, cfg=self.cfg,
-                                        model=self.family)
+        # At sp > 1 its forward runs round the ring (`score_cfg`).
+        self._score = functools.partial(
+            score_program, cfg=score_cfg(self.cfg, self.axes),
+            model=self.family)
         self.score_shapes: List[Tuple[int, int]] = (
             derive_score_shapes(config.length_buckets, config.batch_buckets,
-                                self.cfg.max_position_embeddings)
+                                self.cfg.max_position_embeddings,
+                                sp=self.sp)
             if config.scoring else [])
 
     _PROG_TIMES_MAX = 1024

@@ -26,9 +26,19 @@ to the compute dtype once, at load (`bert.cast_products`). `check` runs on
 the LMS's executor threads, several at once: the cache and the forward
 count are guarded by a lock, the forward itself shares only read-only
 weights (the kernels' launch counters are plain integers, exact only
-while one thread launches). The gate's tensor parallelism (`tp > 1`) is
-not ported yet: the tutoring engines' is (`parallel/`); the gate's comes
-with the expert-parallel slice.
+while one thread launches).
+
+Tensor parallelism (`tp > 1`, the JAX gate's ``{"tp": tp, "dp": -1}``
+mesh under BERT_RULES): the gate runs over the caller's process group
+(`group`, the default group when None), which must hold exactly tp ranks,
+one process each; every rank builds the same gate and holds its slice of
+the encoder (`models/bert.py`). Rank 0 takes the calls; each forward
+(`embed_texts`) is broadcast to the other ranks, which replay it
+(`follow()`, `parallel/spmd.py`), so the cache and the check stay on rank
+0. A tp that does not divide the word table's rows (bert-base's 30,522 at
+tp 4) or the heads is refused before any group is needed, as the JAX
+package refuses it. There is no CLI flag for it, as the JAX package has
+none.
 """
 
 from __future__ import annotations
@@ -43,6 +53,9 @@ import torch
 
 from ..device import resolve_device
 from ..models import bert, convert, quant
+from ..parallel import mesh as mesh_lib
+from ..parallel import partition
+from ..parallel.spmd import Replica
 from ..utils import tokenizer as tok_lib
 from .generate import pick_bucket
 
@@ -66,12 +79,27 @@ class GateConfig:
     device: str = "cuda"
 
 
+def gate_tensor_parallel(config: GateConfig, cfg: bert.BertConfig,
+                         group=None) -> mesh_lib.ParallelAxis:
+    """The gate's tp axis: SINGLE at tp 1; else `group` (the default
+    group when None), which must hold exactly tp ranks. The word table's
+    rows and the heads are checked first, so a bad split raises before
+    any group is needed."""
+    if config.tp == 1:
+        return mesh_lib.SINGLE
+    partition.check_split("embeddings/word", 0, cfg.vocab_size, config.tp)
+    partition.validate_tp_heads(cfg.num_heads, config.tp, config.model)
+    tp = mesh_lib.axis_over(group)
+    if tp.size != config.tp:
+        raise RuntimeError(
+            f"GateConfig.tp={config.tp} runs one process a rank: join a "
+            f"process group of {config.tp} ranks first and pass it (or "
+            f"the default group) as `group`; this one holds {tp.size}")
+    return tp
+
+
 class RelevanceGate:
-    def __init__(self, config: GateConfig):
-        if config.tp > 1:
-            raise NotImplementedError(
-                f"GateConfig.tp={config.tp}: tensor parallelism is not "
-                "ported to PyTorch yet")
+    def __init__(self, config: GateConfig, group=None):
         if config.quant not in (None, "int8"):
             raise ValueError(f"unsupported quant mode {config.quant!r}")
         self.config = config
@@ -79,6 +107,11 @@ class RelevanceGate:
         factory = (bert.BertConfig.tiny if config.model == "tiny"
                    else bert.BertConfig.base_uncased)
         self.cfg = factory(dtype=config.dtype)
+        self.tensor_parallel = gate_tensor_parallel(config, self.cfg, group)
+        self.cfg = dataclasses.replace(self.cfg,
+                                       tensor_parallel=self.tensor_parallel)
+        # Over several ranks: rank 0's forwards, replayed on the others.
+        self._spmd = Replica(self, self.tensor_parallel)
         self.tokenizer = tok_lib.load_bert_tokenizer(config.vocab_path)
         if self.tokenizer.vocab_size > self.cfg.vocab_size:
             raise ValueError("tokenizer vocab exceeds model vocab")
@@ -90,7 +123,10 @@ class RelevanceGate:
             params = bert.init_params(self.cfg, config.seed, self.device)
         if config.quant:
             params = quant.quantize_params(params, "bert")
-        self.params = bert.cast_products(params, self.cfg.dtype)
+        params = bert.cast_products(params, self.cfg.dtype)
+        tp = self.tensor_parallel
+        self.params = partition.shard_params(
+            params, partition.slicing_rules("bert"), tp.rank, tp.size)
         # Context (assignment text) embeddings are static per student and
         # re-checked on every query: caching them halves a hit's forward.
         self._ctx_cache: dict = {}  # guarded-by: _lock
@@ -113,9 +149,22 @@ class RelevanceGate:
             mask[i, : len(toks)] = 1
         return ids, mask
 
+    def follow(self, on_result=None) -> None:
+        """A tp rank other than 0: replay rank 0's forwards until it stops
+        (`stop_followers`; `Replica.follow`)."""
+        self._spmd.follow(on_result)
+
+    def stop_followers(self) -> None:
+        """Rank 0: release the other ranks from `follow`."""
+        self._spmd.stop()
+
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         """Sentence embeddings [len(texts), D], numpy float32, from one
-        forward."""
+        forward (on every tp rank)."""
+        with self._spmd.call("embed_texts", list(texts), collective=True):
+            return self._embed_texts(texts)
+
+    def _embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         ids, mask = self._encode(texts)
         with torch.inference_mode():
             out = bert.embed(

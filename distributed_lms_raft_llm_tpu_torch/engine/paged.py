@@ -100,13 +100,16 @@ each step broadcasts what came in since the last one (submissions, session
 marks, cancellations, resets, session releases) with rank 0's clock, and
 the other ranks replay them and the step (`follow()`, `parallel/spmd.py`),
 so admission, megastep K, prefix hits and reaps follow identically; the
-radix tree's session expiry reads rank 0's clock. Under tp `decisions`
-records the host's choices on every rank. CUDA graphs need a backend whose collectives
-a capture can hold (nccl): `cuda_graphs=True` over gloo raises, and None
-turns them on only where the device and the backend allow.
+radix tree's session expiry reads rank 0's clock. Over several ranks
+`decisions` records the host's choices on every rank. CUDA graphs need a
+backend whose collectives a capture can hold (nccl): `cuda_graphs=True`
+over gloo raises, and None turns them on only where the device and the
+backend allow.
 
-Options of the JAX engine not ported yet raise `NotImplementedError` at
-construction: ep and sp.
+Expert parallelism (`ep` > 1, an MoE model; alone or beside tp): the ranks
+are tp x ep, each ep rank holding E / ep experts (`models/moe.py`), the
+same replicated loop over all of them. `sp` > 1 is refused with the JAX
+engine's message: the paged engine has no full-sequence forward to shard.
 """
 
 from __future__ import annotations
@@ -132,10 +135,11 @@ from .engine import (
     DRAFT_SOURCES,
     EngineConfig,
     check_moe_spec,
+    check_quant,
     check_spec_window,
-    engine_tensor_parallel,
+    engine_axes,
     load_tokenizer,
-    refuse_unported,
+    shard_cfg,
     shard_for,
 )
 from .generate import pick_bucket
@@ -646,7 +650,7 @@ class PagedEngine:
                  prefix_block_tokens: int = BLOCK_TOKENS,
                  prefill_chunk_tokens: int = 0,
                  cuda_graphs: Optional[bool] = None):
-        refuse_unported(config)
+        check_quant(config)
         self.config = config
         # Speculative decoding: draft tokens verified per window
         # (`_spec_step_program`); 0 = the plain step. A chunk then counts
@@ -668,16 +672,24 @@ class PagedEngine:
         self.family, self.cfg = registry.resolve(
             config.model, config.dtype, config.param_dtype
         )
-        # The tp axis (the head split checked first); `tp` is its size.
-        self.tensor_parallel = engine_tensor_parallel(config, self.cfg)
-        self.tp = self.tensor_parallel.size
-        capturable = backend_can_capture(self.tensor_parallel.backend)
+        if config.sp > 1:
+            raise ValueError(
+                "sp applies to TutoringEngine.score's ring-attention path; "
+                "the paged engine has no full-sequence forward to shard"
+            )
+        # The mesh axes (the head split and ep checked first); `tp` and
+        # `ep` are their sizes.
+        self.axes = engine_axes(config, self.family.name, self.cfg,
+                                paged=True)
+        self.tensor_parallel = self.axes.tp
+        self.tp, self.ep = self.axes.tp.size, self.axes.ep.size
+        capturable = backend_can_capture(self.axes.ranks.backend)
         if cuda_graphs and not capturable:
             raise ValueError(
-                f"cuda_graphs over the {self.tensor_parallel.backend} "
+                f"cuda_graphs over the {self.axes.ranks.backend} "
                 f"backend: a CUDA graph cannot capture its collectives "
-                f"(tp={self.tp}); use nccl with one GPU a rank, or "
-                f"cuda_graphs=False")
+                f"(tp={self.tp}, ep={self.ep}); use nccl with one GPU a "
+                f"rank, or cuda_graphs=False")
         self.device = resolve_device(config.device)
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda" and capturable
@@ -689,11 +701,11 @@ class PagedEngine:
         if fused is None:
             fused = self.device.type == "cuda"
         check_spec_window(config.spec_tokens, fused)
-        self.cfg = dataclasses.replace(self.cfg, fused_decode_attention=fused,
-                                       quant_kv=config.kv_quant,
-                                       tensor_parallel=self.tensor_parallel)
-        # Under tp: rank 0's calls, replayed on the other ranks.
-        self._spmd = Replica(self, self.tensor_parallel)
+        self.cfg = shard_cfg(self.cfg, self.axes,
+                             fused_decode_attention=fused,
+                             quant_kv=config.kv_quant)
+        # Over several ranks: rank 0's calls, replayed on the others.
+        self._spmd = Replica(self, self.axes.ranks)
         self.tokenizer = load_tokenizer(config, self.family.name,
                                         self.cfg.vocab_size)
         self.slots = slots or max(config.batch_buckets)
@@ -731,7 +743,7 @@ class PagedEngine:
             self.prefix_cache = PrefixCache(
                 block_tokens=max(1, prefix_block_tokens),
                 max_blocks=max(1, prefix_cache_blocks))
-            if self.tp > 1:
+            if self._spmd.active:
                 # Session expiry on every rank at rank 0's clock.
                 self.prefix_cache.clock = self._spmd.clock
         # Fused staged admission: prompt positions prefilled per megastep
@@ -768,11 +780,10 @@ class PagedEngine:
                                              self.device)
         if config.quant:
             params = quant.quantize_params(params, self.family.name)
-        self.params = shard_for(params, self.family.name,
-                                self.tensor_parallel)
-        log.info("params ready in %.1fs on %s (tp rank %d of %d)",
-                 time.monotonic() - t0, self.device,
-                 self.tensor_parallel.rank, self.tp)
+        self.params = shard_for(params, self.family.name, self.axes)
+        log.info("params ready in %.1fs on %s (rank %d of %d: tp %d, ep "
+                 "%d)", time.monotonic() - t0, self.device,
+                 self.axes.ranks.rank, self.axes.world, self.tp, self.ep)
 
         statics = dict(cfg=self.cfg, sampling=config.sampling,
                        model=self.family)
@@ -890,7 +901,7 @@ class PagedEngine:
         # rid -> seconds from submit() to its admission (the queue.wait
         # span's true length), drained by pop_queue_waits().
         self._queue_waits: Dict[int, float] = {}
-        # Under tp, the host's choices, newest last, on every rank:
+        # Over several ranks, the host's choices, newest last, on each:
         # ("admit", rid, slot) and ("stage", rid, slot) per admission,
         # ("dispatch", K, admission plan) per step; the ranks' logs are
         # equal. Empty at tp 1.
@@ -911,8 +922,8 @@ class PagedEngine:
         self._spmd.stop()
 
     def _decide(self, *decision) -> None:
-        """Log a host decision under tp (`decisions`)."""
-        if self.tp > 1:
+        """Log a host decision over several ranks (`decisions`)."""
+        if self._spmd.active:
             self.decisions.append(decision)
 
     def _followed(self, name: str, result) -> None:

@@ -39,8 +39,17 @@ What differs from the JAX package:
 - `ScoringManager` has no default chip ceiling: `scoring_utilization` is
   set only where the operator gives one (`[telemetry]
   chip_ceiling_tokens_per_s`), since the JAX default is a TPU figure;
-- no sequence parallelism (`EngineConfig.sp > 1` is refused by the
-  engines), so no ring-attention scoring and no sp rounding of shapes.
+- at sequence parallelism (`EngineConfig.sp > 1`, the bucketed engine;
+  the paged engine refuses it, as the JAX one does) the forward runs
+  round the ring (`parallel/ring.py`) and each rank holds the logits of
+  its own T/sp positions: it sums the log probabilities and counts of the
+  pairs those positions start (every rank holds the whole ids, so a
+  shard's last position reads its target from the next shard's first
+  id), and the sums are added over sp before the perplexity is formed.
+  The shapes follow the JAX package's sp rules (the limit floored to a
+  multiple of sp, the bucket rounded up to one); its rounding of the
+  batch to dp has nothing to round here (an engine's ranks are tp x ep x
+  sp, dp is 1).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import axis_of
 from ..utils import metrics_registry as metric
 from ..utils.guards import intended_transfer
 from .generate import pick_bucket
@@ -73,25 +83,58 @@ def score_program(params: Any, ids: torch.Tensor, mask: torch.Tensor, *,
     probability of each next token, and the valid-pair mask
     `mask[:, 1:] & mask[:, :-1]`. Right-padded rows: pads sit after the
     causal horizon of every real token and are masked out of the sum.
+
+    With ``cfg.sequence_parallel`` (sp > 1) the forward is the ring one:
+    this rank's positions [r T/sp, (r+1) T/sp), each paired with the next
+    id (the last position of the sequence with none), summed here and
+    then over the sp ranks.
     """
     logits, _ = model.forward(params, cfg, ids)
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    picked = torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
-    valid = mask[:, 1:] & mask[:, :-1]
-    total = torch.where(valid, picked, torch.zeros_like(picked)).sum(dim=1)
-    return total, valid.sum(dim=1)
+    sp = axis_of(cfg, "sequence_parallel", "sp")
+    if sp.size == 1:
+        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        picked = torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
+        valid = mask[:, 1:] & mask[:, :-1]
+        total = torch.where(valid, picked, torch.zeros_like(picked)).sum(1)
+        return total, valid.sum(dim=1)
+    t, t_local = ids.shape[1], logits.shape[1]
+    pos = sp.rank * t_local + torch.arange(t_local, device=ids.device)
+    nxt = torch.clamp(pos + 1, max=t - 1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = torch.gather(logp, -1, ids[:, nxt, None])[..., 0]
+    valid = mask[:, nxt] & mask[:, pos] & (pos + 1 < t)
+    total = torch.where(valid, picked, torch.zeros_like(picked)).sum(1)
+    # Counts are at most a length bucket: exact in float32.
+    both = sp.all_reduce(torch.stack((total, valid.sum(dim=1).float())))
+    return both[0], both[1].long()
 
 
 def derive_score_shapes(length_buckets: Sequence[int],
                         batch_buckets: Sequence[int],
-                        max_position_embeddings: int
+                        max_position_embeddings: int, sp: int = 1
                         ) -> List[Tuple[int, int]]:
     """Every (batch, length) shape `score_texts` can run, derived the way
     `encode_score_batch` buckets live texts: the domain warmup covers when
-    scoring is on."""
-    limit = min(max(length_buckets), max_position_embeddings)
-    buckets = {min(b, limit) for b in length_buckets}
+    scoring is on. At sp > 1 the JAX package's rules: the limit floored to
+    a multiple of sp, each bucket rounded up to one within it."""
+    limit = _score_limit(length_buckets, max_position_embeddings, sp)
+    buckets = {_sp_bucket(min(b, limit), limit, sp) for b in length_buckets}
     return sorted((nb, t) for nb in set(batch_buckets) for t in buckets)
+
+
+def _score_limit(length_buckets: Sequence[int], max_position_embeddings: int,
+                 sp: int) -> int:
+    """The most tokens a text is scored over: the largest length bucket
+    capped at the position table and, at sp > 1, floored to a multiple of
+    sp, so a bucket rounded up to one (`_sp_bucket`) stays in the table."""
+    limit = min(max(length_buckets), max_position_embeddings)
+    return (limit // sp) * sp
+
+
+def _sp_bucket(bucket: int, limit: int, sp: int) -> int:
+    """`bucket` rounded up to a multiple of sp, within `limit` (itself a
+    multiple of sp): the ring takes sp equal shards."""
+    return min(-(-bucket // sp) * sp, limit)
 
 
 def encode_score_batch(engine: Any, texts: Sequence[str]
@@ -100,9 +143,12 @@ def encode_score_batch(engine: Any, texts: Sequence[str]
     bucket) into a warmed (batch, length) shape; returns (ids, mask,
     truncated), where `truncated[i]` says text i exceeded the length
     limit and only its PREFIX is scored. The limit is the largest length
-    bucket capped at the position table, so no position leaves it."""
+    bucket capped at the position table, so no position leaves it; at
+    sp > 1 floored to a multiple of sp, the bucket rounded up to one."""
     cfg = engine.config
-    limit = min(max(cfg.length_buckets), engine.cfg.max_position_embeddings)
+    sp = cfg.sp
+    limit = _score_limit(cfg.length_buckets,
+                         engine.cfg.max_position_embeddings, sp)
     token_lists: List[List[int]] = []
     truncated: List[bool] = []
     for text in texts:
@@ -111,7 +157,14 @@ def encode_score_batch(engine: Any, texts: Sequence[str]
         toks = toks[:limit]
         token_lists.append(toks if toks else [engine.tokenizer.pad_id])
     longest = max(len(t) for t in token_lists)
-    bucket = min(pick_bucket(longest, cfg.length_buckets), limit)
+    bucket = _sp_bucket(min(pick_bucket(longest, cfg.length_buckets),
+                            limit), limit, sp)
+    if bucket % sp or bucket > engine.cfg.max_position_embeddings:
+        # Held by _score_limit and _sp_bucket; checked rather than left to
+        # a clamp (JAX clamps the position gather silently).
+        raise ValueError(
+            f"score bucket {bucket} is not {sp} equal shards inside the "
+            f"position table {engine.cfg.max_position_embeddings}")
     nbatch = pick_bucket(len(texts), cfg.batch_buckets)
     ids = np.full((nbatch, bucket), engine.tokenizer.pad_id, np.int64)
     mask = np.zeros((nbatch, bucket), bool)

@@ -19,6 +19,16 @@ to the compute dtype inside the product, where XLA fuses the cast. Eager
 PyTorch would copy every weight on every forward for that, so
 `cast_products` casts the four products' weights and biases once, at load
 (`engine/gate.py` does); the numbers are the same.
+
+Under tensor parallelism (``cfg.tensor_parallel``, tp > 1) the parameters
+are this rank's slice (`parallel.partition.BERT_RULES`) and the encoder
+runs Megatron's split, as GPT-2's does: the fused qkv and the MLP's first
+product are column-parallel (this rank's H / tp heads, its M / tp
+columns), the attention-out and MLP-out products row-parallel
+(`common.row_dense`: summed over the ranks, the bias after the sum), and
+the word table is split by vocabulary rows (`quant.embed_lookup`: the
+local rows, summed over the ranks), so every rank holds the whole hidden
+state between the products.
 """
 
 from __future__ import annotations
@@ -29,12 +39,14 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..device import DeviceLike
+from ..parallel.mesh import TensorParallel, tensor_parallel_of
 from .common import (
     attend,
     dense,
     layer_norm,
     layer_params,
     merge_heads,
+    row_dense,
     split_heads,
 )
 from .quant import embed_lookup, is_quantized
@@ -57,10 +69,19 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.float32  # compute dtype; bfloat16 serving
     param_dtype: torch.dtype = torch.float32
+    # The tp axis the parameters are sharded over (set by the gate); None
+    # = one rank.
+    tensor_parallel: Optional[TensorParallel] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def local_heads(self) -> int:
+        """Attention heads on this tp rank."""
+        return self.num_heads // tensor_parallel_of(self).size
 
     @property
     def mlp_dim(self) -> int:
@@ -161,8 +182,9 @@ def forward(
     if attention_mask is None:
         attention_mask = torch.ones((b, t), dtype=torch.bool, device=device)
     attention_mask = attention_mask.bool()
+    tp = tensor_parallel_of(cfg)
     emb = params["embeddings"]
-    x = embed_lookup(emb["word"], input_ids) + emb["position"][:t][None]
+    x = embed_lookup(emb["word"], input_ids, tp) + emb["position"][:t][None]
     if token_type_ids is None:
         x = x + emb["token_type"][0]
     else:
@@ -171,19 +193,19 @@ def forward(
                    cfg.layer_norm_eps).to(cfg.dtype)
 
     mask = attention_mask[:, None, None, :]  # bidirectional, pads hidden
-    eps, heads = cfg.layer_norm_eps, cfg.num_heads
+    eps, heads = cfg.layer_norm_eps, cfg.local_heads
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         qkv = dense(x, lp["attn"]["wqkv"], lp["attn"]["bqkv"])
-        q, k, v = qkv.split(cfg.hidden_size, dim=-1)
+        q, k, v = qkv.split(heads * cfg.head_dim, dim=-1)
         a = attend(split_heads(q, heads), split_heads(k, heads),
                    split_heads(v, heads), mask)
-        a = dense(merge_heads(a), lp["attn"]["wo"], lp["attn"]["bo"])
+        a = row_dense(merge_heads(a), lp["attn"]["wo"], lp["attn"]["bo"], tp)
         x = layer_norm(x + a, lp["attn_ln"]["scale"], lp["attn_ln"]["bias"],
                        eps)
         h = dense(x, lp["mlp"]["wi"], lp["mlp"]["bi"])
         h = torch.nn.functional.gelu(h)  # BERT: the exact erf GELU
-        h = dense(h, lp["mlp"]["wo"], lp["mlp"]["bo"])
+        h = row_dense(h, lp["mlp"]["wo"], lp["mlp"]["bo"], tp)
         x = layer_norm(x + h, lp["mlp_ln"]["scale"], lp["mlp_ln"]["bias"],
                        eps)
     return x

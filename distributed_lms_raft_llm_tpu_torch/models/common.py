@@ -35,7 +35,7 @@ import torch
 
 from ..ops import attention as attention_ops
 from ..ops import quant_matmul
-from ..parallel.mesh import TensorParallel
+from ..parallel.mesh import ParallelAxis, TensorParallel
 
 NEG_INF = -1e30  # large finite negative: avoids NaNs from (-inf) - (-inf)
 
@@ -315,6 +315,22 @@ def cache_slots(cache: Optional[KVCache], b: int, t: int,
         return cache.lengths.long()[:, None] + steps[None, :], offset
     return (offset + steps)[None, :].expand(b, t), offset
 
+
+def check_ring(sp: ParallelAxis, t: int, kv_mask: Optional[torch.Tensor],
+               positions: Optional[torch.Tensor]) -> None:
+    """Refuse what the ring forward cannot run (both families): a padding
+    mask or explicit positions (the JAX package's refusal: ring attention
+    computes exact causal attention from the blocks' absolute offsets),
+    and a sequence that does not split into sp equal shards."""
+    if kv_mask is not None or positions is not None:
+        raise ValueError(
+            "ring attention (cfg.sequence_parallel, the JAX package's "
+            "cfg.ring_mesh) supports full causal sequences only: no "
+            "kv_mask, default positions")
+    if t % sp.size:
+        raise ValueError(f"ring attention over sp={sp.size} takes a "
+                         f"sequence of a multiple of {sp.size} tokens, "
+                         f"not {t}")
 
 def full_attention(mask: torch.Tensor, groups: int = 1) -> Callable:
     """`attend_fn(q, k, v)` of a forward without a cache: causal attention

@@ -42,6 +42,17 @@ after the sum), the embedding is vocab-parallel and the tied unembedding
 gathers the vocabulary blocks (`quant.embed_lookup` / `unembed`), so every
 rank returns the whole [B, T, V] logits.
 
+Under sequence parallelism (``cfg.sequence_parallel``, a
+`parallel.mesh.ParallelAxis` of sp > 1, the JAX package's
+``cfg.ring_mesh``) the full-sequence mode runs the whole trunk
+sequence-sharded: every rank takes the same [B, T] ids (T a multiple of
+sp), embeds its T/sp of them at positions [r T/sp, (r+1) T/sp), runs the
+per-token parts on them and attention round the ring
+(`parallel.ring.ring_attention`), and returns the logits of its own
+positions, [B, T/sp, V]. A `kv_mask` or explicit `positions` are refused
+there, as the JAX package refuses them. It composes with tp: heads over
+tp, the sequence over sp.
+
 With ``cfg.quant_kv`` the cache is int8 with per-slot scales
 (`common.quantize_kv` on write, `common.attend_quant` on read). The JAX
 package refuses `fused_decode_attention` together with `quant_kv`, because
@@ -64,12 +75,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike
-from ..parallel.mesh import TensorParallel, tensor_parallel_of
+from ..parallel.mesh import ParallelAxis, TensorParallel, axis_of
+from ..parallel.mesh import tensor_parallel_of
 from .common import (
     CachedAttention,
     KVCache,
     cache_slots,
     causal_window_mask,
+    check_ring,
     dense,
     full_attention,
     layer_norm,
@@ -79,10 +92,12 @@ from .common import (
     split_heads,
     unbind_layers,
 )
+from ..parallel.ring import ring_attention
 from .common import write_rows as _write_rows
 from .quant import embed_lookup, unembed
 
 Params = Dict[str, Any]
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +118,10 @@ class GPT2Config:
     # The tp axis the parameters are sharded over (set by the engine);
     # None = one rank.
     tensor_parallel: Optional[TensorParallel] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    # The sp axis the full-sequence forward shards its sequence over (the
+    # scoring tenant's, set by the engine); None = the whole sequence here.
+    sequence_parallel: Optional[ParallelAxis] = dataclasses.field(
         default=None, compare=False, repr=False)
 
     @property
@@ -252,7 +271,8 @@ def forward(
     collect_moe_aux: bool = False,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Run the transformer; returns (logits [B, T, V] float32, cache).
+    """Run the transformer; returns (logits [B, T, V] float32, cache): in
+    the ring forward (``cfg.sequence_parallel``) this rank's [B, T/sp, V].
 
     cache      — None for full-sequence mode; a KVCache for incremental
                  prefill/decode. New keys/values are written IN PLACE into
@@ -279,6 +299,10 @@ def forward(
     `attend`/`attend_quant` over those rows, gathered.
     """
     b, t = input_ids.shape
+    sp = axis_of(cfg, "sequence_parallel", "sp")
+    ring = cache is None and sp.size > 1
+    if ring:
+        check_ring(sp, t, kv_mask, positions)
     q_slots, offset = cache_slots(cache, b, t, input_ids.device, write_mask)
     ragged = cache is not None and cache.lengths is not None
     if positions is None:
@@ -288,19 +312,28 @@ def forward(
                 f"{cfg.max_position_embeddings}"
             )
         positions = q_slots
+    if ring:
+        # This rank's shard of the sequence, at its absolute positions.
+        lo, t = sp.rank * (t // sp.size), t // sp.size
+        input_ids = input_ids[:, lo:lo + t]
+        positions = positions[:, lo:lo + t]
 
     tp = tensor_parallel_of(cfg)
     x = embed_lookup(params["wte"], input_ids, tp) + params["wpe"][positions]
     x = x.to(cfg.dtype)
 
-    num_keys = t if cache is None else cache.max_len
-    mask = causal_window_mask(q_slots, num_keys)  # [B, 1, T, num_keys]
-    if kv_mask is not None:
-        mask = mask & kv_mask[:, None, None, :]
+    if ring:
+        mask = None
+    else:
+        num_keys = t if cache is None else cache.max_len
+        mask = causal_window_mask(q_slots, num_keys)  # [B, 1, T, num_keys]
+        if kv_mask is not None:
+            mask = mask & kv_mask[:, None, None, :]
 
     moe_aux = None
     if cache is None:
-        attend_full = full_attention(mask)
+        attend_full = (functools.partial(ring_attention, sp=sp) if ring
+                       else full_attention(mask))
         if collect_moe_aux:
             moe_aux = x.new_zeros((), dtype=torch.float32)
         for lp in unbind_layers(params):

@@ -31,6 +31,12 @@ down are row-parallel (`common.row_dense`), the embedding is vocab-parallel
 and `lm_head` gathers its vocabulary blocks, so every rank returns the
 whole logits. RoPE is per head and needs nothing.
 
+Under sequence parallelism (``cfg.sequence_parallel``) the full-sequence
+mode is `gpt2.forward`'s ring forward: this rank's T/sp tokens at their
+absolute positions (RoPE's), the shared KV heads repeated to the query
+heads before the ring (as the JAX package does, so every rotation carries
+[B, H, T/sp, Dh]), this rank's logits back.
+
 RoPE is applied in the [B, T, H, Dh] layout of the products, before the
 heads are moved forward, so k and v reach the attention as views with the
 same strides (`ops.attention.decode_attention_append` requires it).
@@ -45,16 +51,20 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike
-from ..parallel.mesh import TensorParallel, tensor_parallel_of
+from ..parallel.mesh import ParallelAxis, TensorParallel, axis_of
+from ..parallel.mesh import tensor_parallel_of
+from ..parallel.ring import ring_attention
 from .common import (
     CachedAttention,
     KVCache,
     cache_slots,
     causal_window_mask,
+    check_ring,
     dense,
     full_attention,
     layer_params,
     merge_heads,
+    repeat_kv,
     rms_norm,
     row_dense,
 )
@@ -84,6 +94,10 @@ class LlamaConfig:
     # The tp axis the parameters are sharded over (set by the engine);
     # None = one rank.
     tensor_parallel: Optional[TensorParallel] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    # The sp axis of the ring forward (GPT2Config.sequence_parallel's
+    # contract); None = the whole sequence here.
+    sequence_parallel: Optional[ParallelAxis] = dataclasses.field(
         default=None, compare=False, repr=False)
 
     @property
@@ -239,7 +253,8 @@ def forward(
     kv_mask: Optional[torch.Tensor] = None,
     write_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Run the decoder; returns (logits [B, T, V] float32, cache).
+    """Run the decoder; returns (logits [B, T, V] float32, cache), in the
+    ring forward (``cfg.sequence_parallel``) this rank's [B, T/sp, V].
 
     The contract of `gpt2.forward` (cache modes, in-place writes, the
     scalar overflow check, `kv_mask`, `write_mask`, `cache.rows`), except
@@ -247,9 +262,19 @@ def forward(
     nothing else, so no position table bounds them.
     """
     b, t = input_ids.shape
+    sp = axis_of(cfg, "sequence_parallel", "sp")
+    ring = cache is None and sp.size > 1
+    if ring:
+        check_ring(sp, t, kv_mask, positions)
     q_slots, _ = cache_slots(cache, b, t, input_ids.device, write_mask)
     if positions is None:
         positions = q_slots
+    if ring:
+        # This rank's shard of the sequence, at its absolute positions.
+        lo, t = sp.rank * (t // sp.size), t // sp.size
+        input_ids = input_ids[:, lo:lo + t]
+        positions = positions[:, lo:lo + t]
+        q_slots = q_slots[:, lo:lo + t]
     tp = tensor_parallel_of(cfg)
     x = embed_lookup(params["embed"], input_ids, tp).to(cfg.dtype)
     # Layer-invariant: RoPE's tables once a forward.
@@ -262,8 +287,13 @@ def forward(
         mask = mask & kv_mask[:, None, None, :]
     groups = cfg.num_heads // cfg.num_kv_heads
 
-    if cache is None:
+    if ring:
+        def attend_fn(q, k, v):
+            return ring_attention(q, repeat_kv(k, groups),
+                                  repeat_kv(v, groups), sp)
+    elif cache is None:
         attend_fn = full_attention(mask, groups)
+    if cache is None:
         for i in range(cfg.num_layers):
             x = apply_block(x, layer_params(params, i), attend_fn, cfg, cos,
                             sin)

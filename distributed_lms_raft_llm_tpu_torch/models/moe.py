@@ -44,20 +44,38 @@ engines refuse spec_tokens below it (`engine/engine.py::check_moe_spec`).
 
 The training channel is `forward_with_aux` (`gpt2.forward` with
 ``collect_moe_aux``: the mean of the layers' load-balance scalars).
-Not ported yet: expert parallelism (`ep`, refused by the engines).
+
+Expert parallelism (``cfg.expert_parallel``, a `parallel.mesh.ParallelAxis`
+of ep > 1; `parallel.partition.MOE_RULES` slice the stacks): rank r holds
+experts [r E/ep, (r+1) E/ep). The router, top-k, C and each pick's slot
+stay global and replicated (every rank holds every row: the engines' host
+loop is replicated), so no all-to-all is needed. A rank stages only its
+experts' buffer rows, runs the expert kernel on its E/ep experts, and
+combines the picks whose expert is its own (zero elsewhere) into the
+float32 weighted sum, which is summed over the ep ranks before the one
+rounding to the working dtype. With k = 2 a token's sum has at most two
+non-zero terms, and adding zeros is exact, so the layer gives ep 1's
+numbers wherever each expert's product does (on the CPU; on the card the
+expert kernel's split of K follows the experts a launch holds).
+
+Under sequence parallelism (``cfg.sequence_parallel``, the ring forward
+of `gpt2.forward`) a rank holds T/sp of the tokens; routing and capacity
+belong to the whole forward, so the layer gathers the sequence over sp,
+runs on all of it and keeps its own tokens' rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike
 from ..ops import quant_matmul
+from ..parallel.mesh import ParallelAxis, axis_of
 from . import convert, gpt2
 
 Params = Dict[str, Any]
@@ -68,6 +86,16 @@ class GPT2MoEConfig(gpt2.GPT2Config):
     num_experts: int = 8
     experts_per_token: int = 2
     capacity_factor: float = 1.25
+    # The ep axis the expert stacks are sharded over (set by the engine);
+    # None = every expert on this rank.
+    expert_parallel: Optional[ParallelAxis] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+    @property
+    def local_experts(self) -> int:
+        """Experts on this ep rank."""
+        return self.num_experts // axis_of(self, "expert_parallel",
+                                           "ep").size
 
     @classmethod
     def moe_small(cls, **kw) -> "GPT2MoEConfig":
@@ -156,15 +184,29 @@ def moe_mlp(h: torch.Tensor, mp: Mapping[str, Any], cfg: GPT2MoEConfig,
 
     `mp` holds one layer's slice of the stacked moe params (wr [D, E], wi
     [E, D, M], bi [E, M], wo [E, M, D], bo [E, D]; wi and wo dense or int8
-    pairs with scales [E, M] / [E, D]).
+    pairs with scales [E, M] / [E, D]); under ep, this rank's E/ep experts
+    of wi, bi, wo and bo.
 
     return_aux=True also returns the layer's Switch load-balance scalar
     (E sum_e frac_top1_e mean_prob_e; 1.0 when perfectly balanced).
     """
+    sp = axis_of(cfg, "sequence_parallel", "sp")
+    if sp.size > 1:
+        t_local = h.shape[1]
+        out = moe_mlp(sp.all_gather(h, dim=1), mp,
+                      dataclasses.replace(cfg, sequence_parallel=None),
+                      return_aux)
+        lo = sp.rank * t_local
+        if return_aux:
+            return out[0][:, lo:lo + t_local], out[1]
+        return out[:, lo:lo + t_local]
     b, t, d = h.shape
     s = b * t
     e, k = cfg.num_experts, cfg.experts_per_token
     c = capacity(cfg, s)
+    ep = axis_of(cfg, "expert_parallel", "ep")
+    e_local = e // ep.size
+    lo = ep.rank * e_local * c      # this rank's first buffer slot
     dev = h.device
     x = h.reshape(s, d)
 
@@ -188,22 +230,29 @@ def moe_mlp(h: torch.Tensor, mp: Mapping[str, Any], cfg: GPT2MoEConfig,
 
     # Dispatch: each capacity slot's token (S: the zero row after x).
     # Kept picks' slots are distinct; only the dropped ones meet, at E C,
-    # which nothing reads.
+    # which nothing reads. A rank stages its own experts' slots.
     src = torch.full((e * c + 1,), s, dtype=torch.long, device=dev)
     src.scatter_(0, dest, torch.arange(k * s, device=dev) % s)
     x0 = torch.cat([x, x.new_zeros((1, d))])
-    expert_in = x0.index_select(0, src[:e * c]).view(e, c, d)
+    expert_in = x0.index_select(0, src[lo:lo + e_local * c]).view(
+        e_local, c, d)
 
     mid = _expert_dense(expert_in, mp["wi"], mp["bi"])
     mid = F.gelu(mid, approximate="tanh")
-    out = _expert_dense(mid, mp["wo"], mp["bo"])             # [E, C, D]
+    out = _expert_dense(mid, mp["wo"], mp["bo"])             # [E/ep, C, D]
 
-    # Combine: each token's k outputs, weighted (the weights rounded to
-    # the working dtype first), summed in float32, rounded once.
-    out0 = torch.cat([out.reshape(e * c, d), out.new_zeros((1, d))])
+    # Combine: each token's k outputs (a zero row for a pick dropped or
+    # held by another ep rank), weighted (the weights rounded to the
+    # working dtype first), summed in float32, summed over the ep ranks,
+    # rounded once.
+    if ep.size > 1:
+        mine = (dest >= lo) & (dest < lo + e_local * c)
+        dest = torch.where(mine, dest - lo, e_local * c)
+    out0 = torch.cat([out.reshape(e_local * c, d), out.new_zeros((1, d))])
     picked = out0.index_select(0, dest).view(k, s, d).float()
     w = top_w.t().to(h.dtype).float()                        # [k, S]
-    y = (picked * w[:, :, None]).sum(0).to(h.dtype).view(b, t, d)
+    y = ep.all_reduce((picked * w[:, :, None]).sum(0))
+    y = y.to(h.dtype).view(b, t, d)
     if not return_aux:
         return y
     frac = (top_i[:, :1] == experts).float().mean(0)         # top-1 share

@@ -104,8 +104,19 @@ MEDIUM_PRODUCTS = {
     "medium.mlp.wo": (4096, 1024, False),
     "medium.wte.unembed": (1024, 50257, True),
 }
+# BERT-base's four products on one of two tensor-parallel ranks of the
+# relevance gate (parallel/partition.py BERT_RULES): the column-parallel
+# halves of N (wqkv, mlp.wi) and the row-parallel halves of K (attn.wo,
+# mlp.wo), which chip_smoke.py's phase 15 times at GATE_ROWS: name ->
+# (K, N, transposed).
+BERT_TP2_PRODUCTS = {
+    "bert.tp2.attn.wqkv": (768, 1152, False),
+    "bert.tp2.mlp.wi": (768, 1536, False),
+    "bert.tp2.attn.wo": (384, 768, False),
+    "bert.tp2.mlp.wo": (1536, 768, False),
+}
 PRODUCTS = {**INT8_PRODUCTS, **LLAMA_PRODUCTS, **LLAMA_TP2_PRODUCTS,
-            **MEDIUM_PRODUCTS}
+            **MEDIUM_PRODUCTS, **BERT_TP2_PRODUCTS}
 # gpt2-moe's expert products (GPT-2 small's trunk, 8 experts of GPT-2
 # small's MLP, top-2, capacity factor 1.25): name -> (K, N), each of
 # MOE_EXPERTS experts, through `int8_matmul_experts`.
@@ -115,6 +126,8 @@ MOE_EXPERTS = 8
 # 16), a 32-token admission chunk, a 256-token prefill and a scoring
 # quantum of 8 x 256 (S = 2,048).
 MOE_CAPACITIES = (5, 10, 80, 640)
+# The experts one of two expert-parallel ranks holds (E / ep, phase 15).
+MOE_EP2_EXPERTS = MOE_EXPERTS // 2
 # The relevance gate's rows M = texts x length bucket: a check's forward
 # holds 1 or 2 texts in a bucket of 64 to 512 tokens, so M runs from 64 to
 # 1,024; the two ends of the product sweep beside decode's and prefill's.

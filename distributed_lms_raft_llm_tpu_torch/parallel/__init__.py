@@ -1,16 +1,19 @@
-"""Tensor parallelism over `torch.distributed`: the mesh and the tp axis'
+"""Parallelism over `torch.distributed`: the mesh and each axis'
 collectives (`mesh`), partition rules and each rank's parameter slice
-(`partition`), and the replicated host loop of a sharded engine (`spmd`).
+(`partition`), ring attention over the sp axis (`ring`), and the replicated
+host loop of a sharded engine (`spmd`).
 
-Port of the tp half of `distributed_lms_raft_llm_tpu/parallel/`. Not ported
-yet: ring attention (`ring.py`, sp), the pipeline (`pipeline.py`, pp), the
-expert-parallel all-to-all (ep) and dp inside one engine.
+Port of the serving half of `distributed_lms_raft_llm_tpu/parallel/`: tp,
+ep and sp. Not ported yet: the pipeline (`pipeline.py`, pp) and dp inside
+one engine.
 """
 
 from .mesh import (  # noqa: F401
     SINGLE,
     Mesh,
+    ParallelAxis,
     TensorParallel,
+    axis_over,
     init_process_group,
     initialize_multihost,
     make_mesh,
@@ -27,4 +30,5 @@ from .partition import (  # noqa: F401
     supported_tp,
     validate_tp_heads,
 )
+from .ring import ring_attention  # noqa: F401
 from .spmd import Replica, TensorParallelFailure  # noqa: F401

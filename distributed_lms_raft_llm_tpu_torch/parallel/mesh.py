@@ -1,4 +1,4 @@
-"""The device mesh over a `torch.distributed` process group, and the tensor
+"""The device mesh over a `torch.distributed` process group, and each
 axis' collectives.
 
 Port of `distributed_lms_raft_llm_tpu/parallel/mesh.py`. JAX runs one
@@ -7,9 +7,9 @@ its partition specs imply. PyTorch's idiom is one process a rank with
 explicit collectives, so here:
 
 - `make_mesh` keeps the JAX package's axis order ("dp", "pp", "ep", "sp",
-  "tp"), its `-1` inference, its dp remainder and its error messages, over
-  the ranks of the process group (one rank a device) instead of a device
-  list;
+  "tp", tp the fastest-varying), its `-1` inference, its dp remainder and
+  its error messages, over the ranks of the process group (one rank a
+  device) instead of a device list;
 - `initialize_multihost` joins the process group from torchrun's
   environment (`MASTER_ADDR`, `MASTER_PORT`, `RANK`, `WORLD_SIZE`) and is a
   no-op for one process, as the JAX one is; `init_process_group` joins
@@ -18,18 +18,22 @@ explicit collectives, so here:
 - the backend is an argument and never chosen here: `nccl` where each rank
   has its own GPU, `gloo` where the caller asks for it (several ranks on
   one card, or the CPU);
-- `TensorParallel` holds the tp axis' collectives the models call: the
-  all-reduce behind a row-parallel product, the all-gather of vocabulary
-  shards and the broadcast of a step's host inputs. Each is the identity
-  at tp = 1.
+- `ParallelAxis` holds one axis' collectives the models call: the
+  all-reduce behind a row-parallel product or an expert layer's combine,
+  the all-gather of vocabulary shards, the ring's point-to-point rotation
+  and the broadcast of a step's host inputs. Each is the identity at size
+  1. `Mesh.axis(name)` gives a rank its tp, ep or sp axis: a
+  `torch.distributed` subgroup over the ranks that share every other
+  coordinate (the whole group where the axis spans it). `TensorParallel`
+  is the class under its tp name.
 
-A mesh whose ranks spread over any other axis than tp (JAX's dp inside one
-engine, ep, sp, pp) is refused by `Mesh.tensor_parallel`: those axes are
-not ported to the engines yet.
+A mesh whose ranks spread over dp or pp is refused by
+`Mesh.tensor_parallel`: dp inside one engine and the pipeline are not
+ported yet, so an engine's world is tp x ep x sp ranks.
 
 The mesh is this module's own small class, not `torch.distributed.
 device_mesh`: a `DeviceMesh` pins each rank to the device of its index,
-and the card phase runs two tp ranks on one GPU.
+and the card phases run two ranks on one GPU.
 """
 
 from __future__ import annotations
@@ -105,20 +109,85 @@ class Mesh:
             rest //= n
         return {a: out[a] for a in self.axis_names}
 
-    def tensor_parallel(self) -> "TensorParallel":
-        """The tp axis' collectives. Raises where the ranks spread over
-        another axis: dp, pp, ep and sp inside one engine are not ported."""
-        spread = {a: n for a, n in self.shape.items() if a != "tp" and n > 1}
+    @property
+    def world_size(self) -> int:
+        return math.prod(self.sizes)
+
+    def axis_ranks(self, name: str) -> Tuple[int, ...]:
+        """The ranks of this rank's `name` axis, in index order: those
+        that share every other coordinate with it."""
+        shape = self.shape
+        stride = math.prod(shape[a] for a in self.axis_names[
+            self.axis_names.index(name) + 1:])
+        base = self.rank - self.coords()[name] * stride
+        return tuple(base + i * stride for i in range(shape[name]))
+
+    def axis(self, name: str) -> "ParallelAxis":
+        """This rank's `name` axis and its collectives: over a subgroup of
+        the ranks that share every other coordinate (`axis_ranks`), the
+        whole group where the axis spans it; a size-1 axis (SINGLE for
+        tp) where the mesh does not split `name`."""
+        n = self.shape[name]
+        if n == 1:
+            return SINGLE if name == "tp" else ParallelAxis(name=name)
+        group = self.group
+        if group is not None and n != self.world_size:
+            group = _axis_groups(self)[self.axis_ranks(name)]
+        return ParallelAxis(size=n, rank=self.coords()[name], group=group,
+                            backend=self.backend, name=name,
+                            ranks=self.axis_ranks(name))
+
+    def world(self) -> "ParallelAxis":
+        """Every rank of the mesh as one axis: the engines' replicated host
+        loop broadcasts rank 0's calls over it."""
+        n = self.world_size
+        if n == 1:
+            return ParallelAxis(name="world")
+        return ParallelAxis(size=n, rank=self.rank, group=self.group,
+                            backend=self.backend, name="world",
+                            ranks=tuple(range(n)))
+
+    def tensor_parallel(self) -> "ParallelAxis":
+        """The tp axis' collectives. Raises where the ranks spread over dp
+        or pp: dp inside one engine and the pipeline are not ported, so an
+        engine's ranks are its tp x ep x sp."""
+        spread = {a: n for a, n in self.shape.items()
+                  if a in ("dp", "pp") and n > 1}
         if spread:
             raise NotImplementedError(
                 f"mesh axes {spread} are not ported to PyTorch yet: the "
-                f"engines shard over tp alone, so the process group must "
-                f"hold exactly tp = {self.shape.get('tp', 1)} ranks")
-        tp = self.shape.get("tp", 1)
-        if tp == 1:
-            return SINGLE
-        return TensorParallel(size=tp, rank=self.coords()["tp"],
-                              group=self.group, backend=self.backend)
+                f"engines shard over tp, ep and sp alone, so the process "
+                f"group must hold exactly tp x ep x sp = "
+                f"{self.world_size // math.prod(spread.values())} ranks")
+        return self.axis("tp")
+
+
+# Subgroups made so far, by (default group, axis sizes): every rank must
+# create every subgroup of a mesh in the same order (`dist.new_group` is a
+# collective over the default group), and engines built again over the
+# same mesh reuse them.
+_GROUPS: Dict[Tuple[Any, Tuple[int, ...]], Dict[Tuple[int, ...], Any]] = {}
+
+
+def _axis_groups(mesh: Mesh) -> Dict[Tuple[int, ...], Any]:
+    """A subgroup for each line of ranks of each axis that splits the mesh
+    but does not span it, made on every rank in one order (axes in
+    AXIS_ORDER, lines by their first rank): ranks -> group."""
+    key = (mesh.group, mesh.sizes)
+    if key in _GROUPS:
+        return _GROUPS[key]
+    from torch import distributed as dist
+
+    groups: Dict[Tuple[int, ...], Any] = {}
+    for name, n in zip(mesh.axis_names, mesh.sizes):
+        if n == 1 or n == mesh.world_size:
+            continue
+        lines = sorted({dataclasses.replace(mesh, rank=r).axis_ranks(name)
+                        for r in range(mesh.world_size)})
+        for line in lines:
+            groups[line] = dist.new_group(list(line))
+    _GROUPS[key] = groups
+    return groups
 
 
 def make_mesh(axis_sizes: Optional[dict] = None, *,
@@ -191,15 +260,22 @@ def backend_can_capture(backend: Optional[str]) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
-class TensorParallel:
-    """The tp axis of a mesh: its size, this rank's index along it and the
-    collectives over it. At size 1 (`SINGLE`) every collective returns its
-    input."""
+class ParallelAxis:
+    """One axis of a mesh (`name`: tp, ep, sp, or the whole "world"): its
+    size, this rank's index along it and the collectives over it. `ranks`
+    are the axis' ranks in the process group (None: 0..size-1). At size 1
+    (`SINGLE` for tp) every collective returns its input."""
 
     size: int = 1
     rank: int = 0
     group: Any = None
     backend: Optional[str] = None
+    name: str = "tp"
+    ranks: Optional[Tuple[int, ...]] = None
+
+    def _global(self, index: int) -> int:
+        """The process-group rank of the axis' `index`-th rank."""
+        return index if self.ranks is None else self.ranks[index]
 
     @property
     def leader(self) -> bool:
@@ -237,10 +313,30 @@ class TensorParallel:
         from torch import distributed as dist
 
         box = [obj if self.leader else None]
-        # The tp axis is the whole group in this slice: its index 0 is
-        # global rank 0.
-        dist.broadcast_object_list(box, src=0, group=self.group)
+        dist.broadcast_object_list(box, src=self._global(0),
+                                   group=self.group)
         return box[0]
+
+    def rotate(self, x: torch.Tensor) -> torch.Tensor:
+        """One ring step: send `x` to the next rank along the axis and
+        return what the previous one sent (the ring attention's K/V
+        rotation). Over gloo a CUDA tensor travels through host buffers,
+        staged here explicitly: gloo's point-to-point ops move host
+        memory. nccl sends the device tensor itself."""
+        if self.size == 1:
+            return x
+        from torch import distributed as dist
+
+        staged = self.backend == "gloo" and x.device.type == "cuda"
+        send = x.detach().to("cpu") if staged else x.detach().contiguous()
+        recv = torch.empty_like(send)
+        nxt = self._global((self.rank + 1) % self.size)
+        prv = self._global((self.rank - 1) % self.size)
+        ops = [dist.P2POp(dist.isend, send, nxt, self.group),
+               dist.P2POp(dist.irecv, recv, prv, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv.to(x.device, non_blocking=False) if staged else recv
 
     def abort(self) -> None:
         """Abort the process group after this rank failed mid-call: its
@@ -262,16 +358,42 @@ class TensorParallel:
         try:
             abort(self.group)
         except Exception:
-            log.exception("aborting the tp process group failed")
+            log.exception("aborting the %s process group failed", self.name)
 
 
-SINGLE = TensorParallel()
+# The tp axis keeps its name: the models' and engines' callers.
+TensorParallel = ParallelAxis
 
 
-def tensor_parallel_of(cfg: Any) -> TensorParallel:
+def axis_over(group: Any = None, name: str = "tp") -> ParallelAxis:
+    """An axis over every rank of `group` (the default group when None),
+    in its rank order: a caller's own process group as one axis (the
+    relevance gate's tp). SINGLE-sized without a group of several."""
+    from torch import distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return ParallelAxis(name=name)
+    group = group or dist.group.WORLD
+    n = dist.get_world_size(group)
+    if n == 1:
+        return ParallelAxis(name=name)
+    return ParallelAxis(size=n, rank=dist.get_rank(group), group=group,
+                        backend=dist.get_backend(group), name=name,
+                        ranks=tuple(dist.get_process_group_ranks(group)))
+
+SINGLE = ParallelAxis()
+
+
+def tensor_parallel_of(cfg: Any) -> ParallelAxis:
     """The tp axis a model config carries (`tensor_parallel`), SINGLE when
     it carries none."""
     return getattr(cfg, "tensor_parallel", None) or SINGLE
+
+
+def axis_of(cfg: Any, field: str, name: str) -> ParallelAxis:
+    """The axis a model config carries in `field` (`expert_parallel`,
+    `sequence_parallel`), a size-1 axis `name` when it carries none."""
+    return getattr(cfg, field, None) or ParallelAxis(name=name)
 
 
 def divisors(n: int) -> List[int]:

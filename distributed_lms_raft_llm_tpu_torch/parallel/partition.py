@@ -21,10 +21,11 @@ What the slice adds to the JAX spec:
   contiguous blocks and XLA repairs the q/k/v split. A rank here must hold
   the q, k and v of its own heads, so each third is sliced by heads and the
   three slices concatenated;
-- a dimension that tp does not divide is refused, naming the leaf, its
-  size, tp and the tp ways that would divide it, exactly where the JAX
-  `shard_tree`'s `device_put` raises (GPT-2's 50,257-row `wte` at any tp
-  above 1, BERT's 30,522-row word table at tp 4).
+- a dimension that tp (or ep) does not divide is refused, naming the
+  leaf, its size, the axis and the ways that would divide it, exactly
+  where the JAX `shard_tree`'s `device_put` raises (GPT-2's 50,257-row
+  `wte` at any tp above 1, BERT's 30,522-row word table at tp 4, an
+  expert stack at an ep that does not divide its experts).
 
 Weight-only int8 pairs (`models/quant.py`) shard as the rules say: `q` like
 the dense leaf; the per-column `s` of a column-parallel leaf like its
@@ -101,8 +102,8 @@ BERT_RULES: List[Tuple[str, Spec]] = [
 ]
 
 # GPT-2-MoE: the dense trunk shards like GPT-2; the expert stacks shard
-# their expert axis over `ep` (not ported: at ep = 1 they stay whole on
-# every rank); the router is replicated.
+# their expert axis over `ep` (whole on every tp rank of an ep index); the
+# router is replicated.
 MOE_RULES: List[Tuple[str, Spec]] = [
     (r"blocks/moe/wr$", ()),
     (r"blocks/moe/w[io](/q)?$", (None, "ep")),
@@ -117,6 +118,20 @@ RULES_FOR = {
     "bert": BERT_RULES,
     "gpt2_moe": MOE_RULES,
 }
+
+# Leaves a rank slices beyond the JAX tables: the bias of a column-parallel
+# product that the JAX table leaves whole (XLA slices it to the product's
+# columns); a rank here adds only its own columns'.
+EXTRA_RULES: Dict[str, List[Tuple[str, Spec]]] = {
+    "bert": [(r"blocks/mlp/bi$", (None, "tp"))],
+}
+
+
+def slicing_rules(family: str) -> List[Tuple[str, Spec]]:
+    """The rules `shard_params` cuts a family's tree by: the JAX table
+    (`RULES_FOR`), after the port's EXTRA_RULES."""
+    return EXTRA_RULES.get(family, []) + RULES_FOR[family]
+
 
 # The paged engine's per-plane sharding policy, keyed by plane name (the
 # JAX package's table). KV planes shard their heads axis (axis 2 of
@@ -192,41 +207,57 @@ def match_partition_rules(rules: Rules, tree: Any) -> Any:
     return _map(tree, lambda path, leaf: _spec_for(rules, path, leaf))
 
 
-def _slice(path: str, x: torch.Tensor, axis: int, rank: int,
-           tp: int) -> torch.Tensor:
-    """Rank `rank`'s contiguous copy of `x` cut along `axis`; the fused
-    qkv leaves per head within each third."""
-    n = x.shape[axis]
-    if n % tp:
+def check_split(path: str, axis: int, n: int, n_ways: int,
+                name: str = "tp") -> None:
+    """Refuse an axis of size `n` that `n_ways` does not divide, naming the
+    leaf, the axis and the ways that would (where the JAX `shard_tree`'s
+    `device_put` raises)."""
+    if n % n_ways:
         raise ValueError(
-            f"{path}: axis {axis} of size {n} does not split over tp={tp}; "
-            f"tp ways that divide it: {divisors(n)}")
-    if _FUSED_QKV.search(path):
-        if n % (3 * tp):
+            f"{path}: axis {axis} of size {n} does not split over "
+            f"{name}={n_ways}; {name} ways that divide it: {divisors(n)}")
+
+
+def _slice(path: str, x: torch.Tensor, axis: int, rank: int,
+           n_ways: int, name: str = "tp") -> torch.Tensor:
+    """Rank `rank`'s contiguous copy of `x` cut `n_ways` along `axis` (the
+    mesh axis `name`); the fused qkv leaves per head within each third."""
+    n = x.shape[axis]
+    check_split(path, axis, n, n_ways, name)
+    if name == "tp" and _FUSED_QKV.search(path):
+        if n % (3 * n_ways):
             raise ValueError(
                 f"{path}: each q/k/v third of {n // 3} does not split "
-                f"over tp={tp}; tp ways that divide it: {divisors(n // 3)}")
-        third, per = n // 3, n // (3 * tp)
+                f"over tp={n_ways}; tp ways that divide it: "
+                f"{divisors(n // 3)}")
+        third, per = n // 3, n // (3 * n_ways)
         parts = [x.narrow(axis, j * third + rank * per, per)
                  for j in range(3)]
         return torch.cat(parts, dim=axis).contiguous()
-    per = n // tp
+    per = n // n_ways
     return x.narrow(axis, rank * per, per).contiguous()
 
 
-def shard_params(params: Any, rules: Rules, rank: int, tp: int) -> Any:
+def shard_params(params: Any, rules: Rules, rank: int, tp: int,
+                 ep_rank: int = 0, ep: int = 1) -> Any:
     """This rank's slice of a parameter tree: each leaf cut along the axis
-    its spec names "tp" (leaves without one are kept as they are, shared,
-    not copied). tp = 1 returns the tree itself."""
-    if tp == 1:
+    its spec names "tp" (this rank's `rank`-th of `tp` slices) and the one
+    it names "ep" (its `ep_rank`-th of `ep`: MOE_RULES' expert stacks, so
+    the rank holds experts [ep_rank E/ep, (ep_rank+1) E/ep)). Leaves
+    without either are kept as they are, shared, not copied; tp = ep = 1
+    returns the tree itself."""
+    ways = {"tp": (rank, tp), "ep": (ep_rank, ep)}
+    if tp == 1 and ep == 1:
         return params
-    if not 0 <= rank < tp:
-        raise ValueError(f"rank {rank} outside tp={tp}")
+    for name, (r, n) in ways.items():
+        if not 0 <= r < n:
+            raise ValueError(f"rank {r} outside {name}={n}")
 
     def cut(path: str, leaf: Any) -> Any:
         spec = _spec_for(rules, path, leaf)
-        if "tp" not in spec:
-            return leaf
-        return _slice(path, leaf, spec.index("tp"), rank, tp)
+        for name, (r, n) in ways.items():
+            if n > 1 and name in spec:
+                leaf = _slice(path, leaf, spec.index(name), r, n, name)
+        return leaf
 
     return _map(params, cut)

@@ -1,8 +1,9 @@
-"""The replicated host loop of an engine under tensor parallelism.
+"""The replicated host loop of a sharded engine.
 
 JAX drives a sharded engine from one controller. The port runs one process
-a tp rank (multi-controller SPMD): every rank builds the same engine (its
-parameters and KV planes hold only its shard) and runs the same host loop,
+a rank (multi-controller SPMD) over the engine's tp x ep x sp ranks: every
+rank builds the same engine (its parameters and KV planes hold only its
+shard: its heads, its experts) and runs the same host loop,
 so every rank launches the same kernels and meets its peers in the same
 collectives. Rank 0 alone takes requests; the other ranks follow it:
 
@@ -65,7 +66,9 @@ class TensorParallelFailure(RuntimeError):
 
 
 class Replica:
-    """One engine's side of the replicated loop over the tp axis `tp`.
+    """One engine's side of the replicated loop over `tp`: the engine's
+    tp axis where its ranks are its tp ranks, else every rank of its mesh
+    (`Mesh.world`); its name heads the errors.
     `owner` is the engine whose methods the followers replay (by name),
     held weakly (an engine keeps its Replica; a strong reference back
     would keep every engine, its cache and its graphs, alive until a full
@@ -115,18 +118,19 @@ class Replica:
     def _check_caller(self, name: str) -> None:
         if not self.tp.leader:
             raise RuntimeError(
-                f"{name}() on tp rank {self.tp.rank}: a follower takes its "
+                f"{name}() on {self.tp.name} rank {self.tp.rank}: a follower takes its "
                 f"calls from rank 0 (Replica.follow), never from a caller")
         if self.failed is not None:
             raise TensorParallelFailure(
-                f"{name}() after the tp group failed: {self.failed}")
+                f"{name}() after the {self.tp.name} group failed: "
+                f"{self.failed}")
         if self._stopped:
             raise RuntimeError(f"{name}() after the followers were stopped")
 
     def _fail(self, name: str, exc: BaseException) -> TensorParallelFailure:
         """`name()` raised `exc` on this rank: mark the group failed, abort
         the process group (once) and return the error to raise."""
-        msg = (f"tp rank {self.tp.rank}: {name}() raised "
+        msg = (f"{self.tp.name} rank {self.tp.rank}: {name}() raised "
                f"{type(exc).__name__}: {exc}; the ranks may be out of step, "
                f"so the process group is aborted")
         if self.failed is None:
@@ -198,7 +202,7 @@ class Replica:
         raises here, or a broadcast that fails, fails the group and raises
         `TensorParallelFailure`."""
         if not self.active or self.tp.leader:
-            raise RuntimeError("follow() runs on a tp rank other than 0")
+            raise RuntimeError("follow() runs on a rank other than 0")
         owner = self._owner()
         followed = getattr(owner, "_followed", None)
         while True:

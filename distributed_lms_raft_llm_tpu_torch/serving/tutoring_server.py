@@ -55,16 +55,18 @@ follower processes of itself, which rendezvous with it on the loopback
 share a card or run on the CPU). Under torchrun each process takes its rank
 from the environment. Every rank builds the same engine; rank 0 alone
 serves gRPC and the health plane, and the other ranks replay its engine
-calls (`PagedEngine.follow`). ``/healthz`` adds ``tp`` when N > 1, and
-``/metrics`` the ``serving_tp`` and ``serving_kv_bytes_per_chip`` gauges.
+calls (`PagedEngine.follow`). ``--ep M`` (``[tutoring] ep``, an MoE
+model) shards its experts over M ranks the same way: the node runs
+N x M ranks, spawned and joined as above. ``/healthz`` adds ``tp`` and
+``ep`` when above 1, and ``/metrics`` the ``serving_tp`` and
+``serving_kv_bytes_per_chip`` gauges.
 A call that fails on any rank fails them all (`parallel/spmd.py`): a
 follower exits non-zero, and rank 0 ends (exit code 1) once a follower it
 started has exited (`watch_followers`); under torchrun the launcher ends
 the other ranks.
 
-Not ported yet: ep above 1 (the engines raise), and the JAX node's
-``--jax-platform`` (an unknown flag here; ``--device`` stands in its
-place).
+Not ported: the JAX node's ``--jax-platform`` (an unknown flag here;
+``--device`` stands in its place).
 """
 
 from __future__ import annotations
@@ -81,6 +83,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import grpc
@@ -395,14 +398,14 @@ def make_tutoring_admin(service: TutoringService, scorer=None):
 def make_tutoring_health(service: TutoringService, queue, engine_name: str,
                          max_queue: int, spec_tokens: int = 0,
                          draft_source: str = "prompt_lookup", scorer=None,
-                         tp: int = 1):
+                         tp: int = 1, ep: int = 1):
     """/healthz provider: admission pressure and the fleet lifecycle (the
     router's health poller reads `draining`, `queued` and `node_id`); a
     speculating node adds its `spec_tokens` and `draft_source`, a scoring
     node its tenant's stats (`scoring`), as a JAX node adds its scoring
-    block only when it scores, and a sharded node its `tp` ways (the JAX
-    node reports them as the `serving_tp` gauge alone), so a node without
-    any of them answers with the JAX node's fields alone."""
+    block only when it scores, and a sharded node its `tp` and `ep` ways
+    (the JAX node reports tp as the `serving_tp` gauge alone), so a node
+    without any of them answers with the JAX node's fields alone."""
 
     def health() -> dict:
         doc = {
@@ -420,6 +423,8 @@ def make_tutoring_health(service: TutoringService, queue, engine_name: str,
             doc["scoring"] = scorer.stats()
         if tp > 1:
             doc["tp"] = tp
+        if ep > 1:
+            doc["ep"] = ep
         return doc
 
     return health
@@ -532,24 +537,30 @@ async def serve_async(port: int, engine, *,
                 service, queue, type(engine).__name__, max_queue,
                 spec_tokens=engine.config.spec_tokens,
                 draft_source=engine.config.draft_source, scorer=scorer,
-                tp=engine.config.tp),
+                tp=engine.config.tp, ep=engine.config.ep),
             admin=make_tutoring_admin(service, scorer=scorer),
             admin_get=admin_get, port=metrics_port)
         log.info("health/metrics endpoint on http://127.0.0.1:%d",
                  await health.start())
         server._health = health
-    grpc_stop = server.stop
+    # `stop` is an attribute of the server, so it must not hold the server
+    # (nor its bound `stop`): that cycle would keep the server, its queue
+    # and the engine alive after the caller drops them, until a full
+    # garbage collection frees every such engine at once.
+    grpc_stop = type(server).stop
+    server_ref = weakref.ref(server)
 
     async def stop(grace):
+        srv = server_ref()
         watchdog_task.cancel()
-        server._metrics_task.cancel()
-        await asyncio.gather(watchdog_task, server._metrics_task,
+        srv._metrics_task.cancel()
+        await asyncio.gather(watchdog_task, srv._metrics_task,
                              return_exceptions=True)
         if sampler is not None:
             sampler.stop()
-        if server._health is not None:
-            await server._health.stop()
-        return await grpc_stop(grace)
+        if srv._health is not None:
+            await srv._health.stop()
+        return await grpc_stop(srv, grace)
 
     server.stop = stop
     log.info("tutoring server listening on %d", server._port)
@@ -588,8 +599,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help=argparse.SUPPRESS)
     parser.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--ep", type=int, default=1,
-                        help="expert-parallel ways (above 1 not ported: "
-                        "the engine raises)")
+                        help="expert-parallel ways (an MoE model): one "
+                        "process a rank, tp x ep ranks in all, started as "
+                        "--tp's")
     parser.add_argument("--approx-topk", action="store_true",
                         help="the JAX node's approximate top-k: accepted, "
                         "and the port samples the exact top-k")
@@ -833,19 +845,22 @@ def _free_port() -> int:
 
 def join_tp_group(args: argparse.Namespace,
                   argv: List[str]) -> Tuple[int, List[subprocess.Popen]]:
-    """Join the tp ranks' process group `args.tp` > 1 asks for; returns
-    (this process' rank, the follower processes it started). Under
-    torchrun (WORLD_SIZE set) the rank comes from the environment; a
-    follower this node started gets `--tp-rank` and the rendezvous; a node
-    started alone is rank 0 and starts ranks 1..tp-1 as copies of itself
-    (`argv` plus those two flags), rendezvousing on the loopback. With
-    nccl each rank takes the GPU of its (local) rank."""
-    if args.tp <= 1:
+    """Join the process group of the tp x ep ranks `args.tp` and
+    `args.ep` ask for (more than one); returns (this process' rank, the
+    follower processes it started). Under torchrun (WORLD_SIZE set) the
+    rank comes from the environment; a follower this node started gets
+    `--tp-rank` and the rendezvous; a node started alone is rank 0 and
+    starts ranks 1..tp x ep - 1 as copies of itself (`argv` plus those two
+    flags), rendezvousing on the loopback. With nccl each rank takes the
+    GPU of its (local) rank."""
+    world = node_world(args)
+    if world <= 1:
         return 0, []
     followers: List[subprocess.Popen] = []
     if "WORLD_SIZE" in os.environ:
-        if int(os.environ["WORLD_SIZE"]) != args.tp:
-            raise ValueError(f"--tp {args.tp} under torchrun with "
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise ValueError(f"--tp {args.tp} x --ep {args.ep} under "
+                             f"torchrun with "
                              f"WORLD_SIZE={os.environ['WORLD_SIZE']}")
         rank = int(os.environ["RANK"])
         local = int(os.environ.get("LOCAL_RANK", rank))
@@ -856,7 +871,7 @@ def join_tp_group(args: argparse.Namespace,
     if args.tp_rank is None:
         init = f"tcp://127.0.0.1:{_free_port()}"
         rank = 0
-        for r in range(1, args.tp):
+        for r in range(1, world):
             followers.append(subprocess.Popen(
                 [sys.executable, "-m", __spec__.name, *argv,
                  "--tp-rank", str(r), "--tp-init", init]))
@@ -864,8 +879,13 @@ def join_tp_group(args: argparse.Namespace,
         rank, init = args.tp_rank, args.tp_init
     if args.tp_backend == "nccl":
         torch.cuda.set_device(rank)
-    mesh_lib.init_process_group(args.tp_backend, init, args.tp, rank)
+    mesh_lib.init_process_group(args.tp_backend, init, world, rank)
     return rank, followers
+
+
+def node_world(args: argparse.Namespace) -> int:
+    """The ranks a node's engine runs over: tp x ep."""
+    return args.tp * args.ep
 
 
 def watch_followers(followers: List[subprocess.Popen],
@@ -914,7 +934,8 @@ def main(argv=None) -> None:
         if rank > 0:
             # A follower: the same engine, driven by rank 0's calls
             # (warmup included) until rank 0 stops.
-            log.info("tp rank %d of %d following rank 0", rank, args.tp)
+            log.info("tp rank %d of %d following rank 0", rank,
+                     node_world(args))
             engine.follow()
             return
         _serve_main(args, engine)

@@ -340,7 +340,8 @@ def fit(
 
 
 PARALLEL_NOT_PORTED = (
-    "parallel/ carries serving's tensor parallelism only; the sharded "
+    "parallel/ carries serving's tensor, expert and sequence parallelism "
+    "only; the sharded "
     "train step (tensor, sequence, pipeline and expert parallelism) is not "
     "ported to PyTorch yet, and the port trains on one device")
 

@@ -121,16 +121,23 @@ def test_sampled_generation_is_seeded():
     assert a.answer_batch(PROMPTS) == b.answer_batch(PROMPTS)
 
 
-@pytest.mark.parametrize("option", [
-    # Speculative decoding, the scoring tenant and tp are ported; expert
-    # and sequence parallelism are still refused, beside tp too (tp alone
-    # is tests/test_torch_tp.py's).
-    dict(tp=2, ep=2), dict(ep=2), dict(sp=2), dict(spec_tokens=2, tp=2,
-                                                   sp=2),
-    dict(scoring=True, sp=2),
+@pytest.mark.parametrize("option,error,match", [
+    # Speculative decoding, the scoring tenant, tp, ep and sp are ported
+    # (tests/test_torch_tp.py, test_torch_ep.py, test_torch_ring.py run
+    # them over ranks): ep on this dense model is refused with the JAX
+    # engine's message, even beside tp; the other axes need a process
+    # group of their ranks, which this process has not joined; and a
+    # quant mode the JAX engine lacks is refused.
+    (dict(tp=2, ep=2), ValueError, "requires an MoE family"),
+    (dict(ep=2), ValueError, "requires an MoE family"),
+    (dict(sp=2), RuntimeError, "process group of 2 ranks"),
+    (dict(spec_tokens=2, tp=2, sp=2), RuntimeError,
+     "process group of 4 ranks"),
+    (dict(scoring=True, sp=2), RuntimeError, "process group of 2 ranks"),
+    (dict(quant="int4"), ValueError, "unsupported quant mode"),
 ])
-def test_unported_engine_options_raise(option):
-    with pytest.raises(NotImplementedError):
+def test_unported_engine_options_raise(option, error, match):
+    with pytest.raises(error, match=match):
         _port_engine(**option)
 
 

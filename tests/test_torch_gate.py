@@ -220,7 +220,10 @@ def test_warmup_runs_one_forward(f32_gates):
 
 
 def test_tensor_parallel_is_refused():
-    with pytest.raises(NotImplementedError, match="tp=2"):
+    """tp is ported and runs one process a rank (tests/
+    test_torch_gate_tp.py): without a process group of its ranks it is
+    refused."""
+    with pytest.raises(RuntimeError, match="tp=2"):
         RelevanceGate(GateConfig(model="tiny", tp=2, device="cpu"))
 
 

@@ -81,7 +81,7 @@ def _port_cfg(jcfg, **kw):
     fields = {f.name for f in dataclasses.fields(llama.LlamaConfig)}
     same = {k: getattr(jcfg, k) for k in fields
             if k not in ("dtype", "param_dtype", "fused_decode_attention",
-                         "quant_kv", "tensor_parallel")}
+                         "quant_kv", "tensor_parallel", "sequence_parallel")}
     return llama.LlamaConfig(dtype=torch.float32, param_dtype=torch.float32,
                              **same, **kw)
 

@@ -75,7 +75,8 @@ def _port_cfg(jcfg, **kw):
     fields = {f.name for f in dataclasses.fields(moe.GPT2MoEConfig)}
     same = {k: getattr(jcfg, k) for k in fields
             if k not in ("dtype", "param_dtype", "fused_decode_attention",
-                         "quant_kv", "tensor_parallel")}
+                         "quant_kv", "tensor_parallel", "expert_parallel",
+                         "sequence_parallel")}
     return moe.GPT2MoEConfig(dtype=torch.float32, param_dtype=torch.float32,
                              **same, **kw)
 
@@ -726,12 +727,14 @@ def test_spec_without_drops_is_token_equal_to_plain_decode():
 def test_engines_refuse_spec_with_drops_and_ep(cls):
     """Spec at cf < E raises the JAX engines' ValueError in both port
     engines (fused attention, the port's recorded difference, does not
-    lift it); `ep` stays unported."""
+    lift it); `ep` is ported and runs one process a rank, so without a
+    process group of its ranks it is refused (tests/test_torch_ep.py runs
+    it)."""
     with pytest.raises(ValueError, match="capacity_factor >= num_experts"):
         cls(_port_config(spec_tokens=4, fused_attention=True))
     with pytest.raises(ValueError, match="capacity_factor"):
         JaxEngine(_jax_config(spec_tokens=4))
-    with pytest.raises(NotImplementedError, match="ep"):
+    with pytest.raises(RuntimeError, match="ep=2"):
         cls(_port_config(ep=2))
 
 

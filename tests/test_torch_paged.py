@@ -322,18 +322,20 @@ def test_cancel_pending_and_backlog():
     assert set(eng.drain()) == {a}
 
 
-@pytest.mark.parametrize("option", [
-    # Speculative decoding, the scoring tenant and tp are ported; over
-    # sequence parallelism (which the JAX engine composes them with) they
-    # are still refused, and ep beside tp (tp alone is
-    # tests/test_torch_tp.py's).
-    dict(config=dict(spec_tokens=2, sp=2)), dict(config=dict(tp=2, ep=2)),
-    dict(config=dict(scoring=True, sp=2)), dict(config=dict(ep=2)),
+@pytest.mark.parametrize("option,match", [
+    # Speculative decoding, the scoring tenant, tp and ep are ported
+    # (tests/test_torch_tp.py, tests/test_torch_ep.py): sp is refused with
+    # the JAX paged engine's message (it has no full-sequence forward to
+    # shard), and ep on this dense model with its message, beside tp too.
+    (dict(config=dict(spec_tokens=2, sp=2)), "sp applies to"),
+    (dict(config=dict(tp=2, ep=2)), "requires an MoE family"),
+    (dict(config=dict(scoring=True, sp=2)), "sp applies to"),
+    (dict(config=dict(ep=2)), "requires an MoE family"),
 ])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, match):
     option = dict(option)
     cfg = make_config(**option.pop("config", {}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=match):
         PagedEngine(cfg, **option)
 
 

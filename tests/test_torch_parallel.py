@@ -83,13 +83,23 @@ def test_mesh_coordinates_put_tp_innermost():
 
 
 def test_only_tp_may_spread_the_ranks():
-    """dp (or ep, sp) above 1 inside one engine is refused loudly."""
+    """dp (or pp) above 1 inside one engine is refused loudly; ep and sp
+    may spread the ranks beside tp (an engine's world is tp x ep x sp),
+    each axis' ranks those that share every other coordinate."""
     with pytest.raises(NotImplementedError, match="dp"):
         mesh.make_mesh({"tp": 2, "dp": -1}, world_size=8,
+                       rank=0).tensor_parallel()
+    with pytest.raises(NotImplementedError, match="pp"):
+        mesh.make_mesh({"tp": 2, "pp": 2}, world_size=4,
                        rank=0).tensor_parallel()
     tp = mesh.make_mesh({"tp": 2}, world_size=2, rank=1).tensor_parallel()
     assert (tp.size, tp.rank, tp.leader) == (2, 1, False)
     assert mesh.make_mesh({}, world_size=1).tensor_parallel() is mesh.SINGLE
+    m = mesh.make_mesh({"tp": 2, "ep": 2, "sp": 2}, world_size=8, rank=5)
+    assert m.tensor_parallel().rank == 1
+    assert (m.axis_ranks("tp"), m.axis_ranks("sp"), m.axis_ranks("ep")) \
+        == ((4, 5), (5, 7), (1, 5))
+    assert m.world().size == 8
 
 
 def test_collectives_are_the_identity_at_tp_1():

@@ -426,13 +426,15 @@ def test_cli_takes_the_jax_names_and_defaults(argv, field, want):
 # and --jax-platform with its other value take their places.) tp above 1
 # is served since parallel/ was ported, by `main`, which joins the ranks'
 # process group first (tests/test_torch_tp.py starts a node at --tp 2):
-# `engine_from_args` alone refuses it without that group.
+# `engine_from_args` alone refuses it without that group. ep above 1 is
+# served the same way on an MoE model (tests/test_torch_ep.py); on this
+# dense one it is refused with the JAX engine's message.
 _REFUSED = {
     "--config tp.toml": (RuntimeError, "process group of 2 ranks"),
     "--jax-platform cpu": (SystemExit, None),
-    "--config ep.toml": (NotImplementedError, "ep"),
+    "--config ep.toml": (ValueError, "requires an MoE family"),
     "--tp 2": (RuntimeError, "process group of 2 ranks"),
-    "--ep 2": (NotImplementedError, "ep"),
+    "--ep 2": (ValueError, "requires an MoE family"),
     "--jax-platform default": (SystemExit, None),
 }
 

@@ -106,6 +106,20 @@ def _tp():
     return mesh.make_mesh({"tp": -1}).tensor_parallel()
 
 
+def _leader() -> bool:
+    """Rank 0 of the group: the rank that takes an engine's calls."""
+    from torch import distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _mesh(**sizes):
+    """The mesh over every rank, tp taking what the other axes leave."""
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+
+    return mesh.make_mesh(dict(sizes, tp=-1))
+
+
 def case_forward(model: str, tree, ids):
     """The port's forward at tp = world on this rank's slice of `tree`
     (the whole parameter tree, dense or int8): full-sequence logits, and a
@@ -115,13 +129,16 @@ def case_forward(model: str, tree, ids):
 
     import torch
 
-    from distributed_lms_raft_llm_tpu_torch.engine.engine import shard_for
+    from distributed_lms_raft_llm_tpu_torch.engine.engine import (
+        EngineAxes,
+        shard_for,
+    )
     from distributed_lms_raft_llm_tpu_torch.models import registry
 
     tp = _tp()
     family, cfg = registry.resolve(model, torch.float32)
     cfg = dataclasses.replace(cfg, tensor_parallel=tp)
-    params = shard_for(tree, family.name, tp)
+    params = shard_for(tree, family.name, EngineAxes(tp=tp))
     ids = torch.as_tensor(ids)
     with torch.no_grad():
         full, _ = family.forward(params, cfg, ids)
@@ -135,7 +152,10 @@ def case_forward(model: str, tree, ids):
 
 
 def _engine_config(model, tp, config_kw):
+    """The case's EngineConfig: float32 on the CPU, greedy; tp is what the
+    group's ranks leave after `config_kw`'s ep and sp (`tp` = None)."""
     import torch
+    from torch import distributed as dist
 
     from distributed_lms_raft_llm_tpu_torch.engine import (
         EngineConfig,
@@ -146,6 +166,8 @@ def _engine_config(model, tp, config_kw):
     max_new = kw.pop("max_new", 8)
     kw.setdefault("batch_buckets", (1, 2))
     kw.setdefault("length_buckets", (4, 16))
+    if tp is None:
+        tp = dist.get_world_size() // (kw.get("ep", 1) * kw.get("sp", 1))
     return EngineConfig(model=model, dtype=torch.float32,
                         param_dtype=torch.float32, device="cpu", tp=tp,
                         sampling=SamplingParams.greedy(max_new_tokens=max_new),
@@ -155,7 +177,7 @@ def _engine_config(model, tp, config_kw):
 def _carry(eng, tree):
     from distributed_lms_raft_llm_tpu_torch.engine.engine import shard_for
 
-    eng.params = shard_for(tree, eng.family.name, eng.cfg.tensor_parallel)
+    eng.params = shard_for(tree, eng.family.name, eng.axes)
 
 
 def _follow_answers(eng, finals=None) -> dict:
@@ -176,16 +198,16 @@ def _follow_answers(eng, finals=None) -> dict:
 
 def case_paged(model: str, tree, prompts, config_kw=None, engine_kw=None,
                warmup: bool = False):
-    """Rank 0 submits `prompts` to a PagedEngine at tp = world and drains
-    it; the other ranks follow. Every rank returns its answers by rid, its
-    decision log and its KV bytes."""
+    """Rank 0 submits `prompts` to a PagedEngine over every rank (tp x
+    `config_kw`'s ep) and drains it; the other ranks follow. Every rank
+    returns its answers by rid, its decision log, its KV bytes and its
+    expert rows."""
     from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
 
-    tp = _tp()
-    eng = PagedEngine(_engine_config(model, tp.size, config_kw or {}),
+    eng = PagedEngine(_engine_config(model, None, config_kw or {}),
                       **(engine_kw or {}))
     _carry(eng, tree)
-    if tp.leader:
+    if _leader():
         if warmup:
             eng.warmup()
         rids = [eng.submit(p) for p in prompts]
@@ -198,18 +220,29 @@ def case_paged(model: str, tree, prompts, config_kw=None, engine_kw=None,
         kv = eng.kv_bytes_per_chip
     return {"answers": answers, "decisions": list(eng.decisions),
             "kv_bytes_per_chip": kv, "kv_bytes_total": eng.kv_bytes_total,
-            "tp": eng.tp, "cache_heads": eng.state.cache.k.shape[2]}
+            "tp": eng.tp, "ep": eng.ep,
+            "cache_heads": eng.state.cache.k.shape[2],
+            "experts": _expert_rows(eng.params)}
+
+
+def _expert_rows(params):
+    """The expert stacks' expert count on this rank (None: no experts)."""
+    moe = params["blocks"].get("moe")
+    if moe is None:
+        return None
+    wi = moe["wi"]
+    return (wi["q"] if isinstance(wi, dict) else wi).shape[1]
 
 
 def case_bucketed(model: str, tree, prompts, config_kw=None):
-    """Rank 0 answers `prompts` with a TutoringEngine at tp = world; the
-    other ranks follow. Every rank returns the answers it computed."""
+    """Rank 0 answers `prompts` with a TutoringEngine over every rank (tp x
+    `config_kw`'s ep and sp); the other ranks follow. Every rank returns
+    the answers it computed."""
     from distributed_lms_raft_llm_tpu_torch.engine import TutoringEngine
 
-    tp = _tp()
-    eng = TutoringEngine(_engine_config(model, tp.size, config_kw or {}))
+    eng = TutoringEngine(_engine_config(model, None, config_kw or {}))
     _carry(eng, tree)
-    if tp.leader:
+    if _leader():
         answers = eng.answer_batch(prompts)
         eng.stop_followers()
         return answers
@@ -354,6 +387,149 @@ def case_refusals():
     return None
 
 
+def case_moe_forward(tree, ids, ep, dtype="float32"):
+    """The MoE forward over every rank at `ep` (tp the rest) on this rank's
+    slice of `tree`: full-sequence logits, a cached prefill of all but the
+    last id and a one-token decode step, and this rank's expert count."""
+    import dataclasses
+
+    import torch
+
+    from distributed_lms_raft_llm_tpu_torch.engine.engine import (
+        EngineAxes,
+        shard_cfg,
+        shard_for,
+    )
+    from distributed_lms_raft_llm_tpu_torch.models import registry
+
+    m = _mesh(ep=ep)
+    axes = EngineAxes(tp=m.tensor_parallel(), ep=m.axis("ep"))
+    family, cfg = registry.resolve("moe-tiny", getattr(torch, dtype))
+    cfg = shard_cfg(dataclasses.replace(cfg, param_dtype=getattr(
+        torch, dtype)), axes)
+    params = shard_for(tree, family.name, axes)
+    ids = torch.as_tensor(ids)
+    with torch.no_grad():
+        full, _ = family.forward(params, cfg, ids)
+        b, t = ids.shape
+        cache = family.init_cache(cfg, b, t, dtype=cfg.dtype, device="cpu")
+        pre, cache = family.forward(params, cfg, ids[:, :-1], cache=cache)
+        step, _ = family.forward(params, cfg, ids[:, -1:], cache=cache)
+    return {"full": full.float().numpy(), "prefill": pre.float().numpy(),
+            "step": step.float().numpy(), "experts": _expert_rows(params),
+            "coords": m.coords()}
+
+
+def case_ring(q, k, v, sp):
+    """`ring_attention` over every rank at `sp` (tp the rest): this rank
+    takes its heads (tp) and its sequence shard (sp) of the whole q, k, v
+    and returns its output block with its coordinates."""
+    import torch
+
+    from distributed_lms_raft_llm_tpu_torch.parallel.ring import (
+        ring_attention,
+    )
+
+    m = _mesh(sp=sp)
+    tp, spa = m.tensor_parallel(), m.axis("sp")
+    h, t = q.shape[1] // tp.size, q.shape[2] // spa.size
+
+    def mine(x):
+        x = torch.as_tensor(x)
+        return x[:, tp.rank * h:(tp.rank + 1) * h,
+                 spa.rank * t:(spa.rank + 1) * t]
+
+    out = ring_attention(mine(q), mine(k), mine(v), spa)
+    return {"out": out.numpy(), "tp": tp.rank, "sp": spa.rank}
+
+
+def case_ring_forward(model, tree, ids, cfg_kw, sp):
+    """The ring forward over every rank at `sp` (tp the rest): each rank's
+    logits block gathered over sp to the whole [B, T, V], and the messages
+    a padding mask and explicit positions raise."""
+    import dataclasses
+
+    import torch
+
+    from distributed_lms_raft_llm_tpu_torch.engine.engine import (
+        EngineAxes,
+        shard_for,
+    )
+    from distributed_lms_raft_llm_tpu_torch.models import registry
+
+    m = _mesh(sp=sp)
+    tp, spa = m.tensor_parallel(), m.axis("sp")
+    family, cfg = registry.resolve(model, torch.float32)
+    cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              tensor_parallel=tp, sequence_parallel=spa,
+                              **cfg_kw)
+    params = shard_for(tree, family.name, EngineAxes(tp=tp))
+    ids = torch.as_tensor(ids)
+    with torch.no_grad():
+        local, _ = family.forward(params, cfg, ids)
+        errors = []
+        for kw in (dict(kv_mask=torch.ones(ids.shape, dtype=torch.bool)),
+                   dict(positions=torch.zeros_like(ids))):
+            try:
+                family.forward(params, cfg, ids, **kw)
+            except ValueError as e:
+                errors.append(str(e))
+    return {"logits": spa.all_gather(local, dim=1).numpy(),
+            "local_t": local.shape[1], "errors": errors}
+
+
+def case_score(model, tree, texts, config_kw):
+    """Rank 0 scores `texts` with a TutoringEngine over every rank at
+    `config_kw`'s sp (tp the rest); the other ranks follow. Every rank
+    returns the results it computed."""
+    from distributed_lms_raft_llm_tpu_torch.engine import TutoringEngine
+
+    eng = TutoringEngine(_engine_config(model, None, config_kw))
+    _carry(eng, tree)
+    if _leader():
+        out = eng.score(texts)
+        eng.stop_followers()
+        return {"scores": out, "shapes": eng.score_shapes}
+    results = []
+    eng.follow(lambda name, result: results.append(result))
+    return {"scores": results[-1], "shapes": eng.score_shapes}
+
+
+def case_gate(tree, pairs, gate_kw):
+    """Rank 0 checks `pairs` with a RelevanceGate at tp = every rank (the
+    default group), holding this rank's slice of the JAX gate's `tree`;
+    the other ranks follow. Each returns its forwards count, rank 0 the
+    (verdict, similarity) pairs too."""
+    import torch
+    from torch import distributed as dist
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        GateConfig,
+        RelevanceGate,
+    )
+    from distributed_lms_raft_llm_tpu_torch.models import bert
+    from distributed_lms_raft_llm_tpu_torch.parallel import partition
+
+    kw = dict(gate_kw)
+    kw["dtype"] = getattr(torch, kw.get("dtype", "float32"))
+    gate = RelevanceGate(GateConfig(model="tiny", device="cpu",
+                                    tp=dist.get_world_size(), **kw))
+    tp = gate.tensor_parallel
+    gate.params = partition.shard_params(
+        bert.cast_products(tree, gate.cfg.dtype),
+        partition.slicing_rules("bert"), tp.rank, tp.size)
+    out = {"word_rows": gate.params["embeddings"]["word"].shape[0]
+           if not isinstance(gate.params["embeddings"]["word"], dict)
+           else gate.params["embeddings"]["word"]["q"].shape[0]}
+    if tp.leader:
+        out["checks"] = [gate.check(q, c) for q, c in pairs]
+        gate.stop_followers()
+    else:
+        gate.follow()
+    out["forwards"] = gate.forwards
+    return out
+
+
 CASES = {
     "forward": case_forward,
     "paged": case_paged,
@@ -362,6 +538,11 @@ CASES = {
     "refusals": case_refusals,
     "release_during_step": case_release_during_step,
     "follower_fails": case_follower_fails,
+    "moe_forward": case_moe_forward,
+    "ring": case_ring,
+    "ring_forward": case_ring_forward,
+    "score": case_score,
+    "gate": case_gate,
 }
 
 
