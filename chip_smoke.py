@@ -6,7 +6,7 @@
 
 Needs one NVIDIA GPU and this checkout beside the script (phases 8, 11,
 11b, 12 and 13 read configs/cluster.toml; phase 14 starts this script
-again as its two tp ranks).
+again as its two tp ranks, which run phases 15 and 16 too).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -219,8 +219,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    mma.sync tiles, admission chunks' on the wgmma ones), peak allocation,
    seconds to initialise and to warm; then (d) one scoring quantum at
    8 x 256 (M = 2,048) against the plain logprobs, and a short spec-8
-   run of 4 requests at full width cut to 8 layers (window = 8 x verify
-   calls, int8 = 56 dense and 1 unembedding x model calls), so that the
+   run of 4 requests at full width cut to 4 layers (window = 4 x verify
+   calls, int8 = 28 dense and 1 unembedding x model calls; 8 layers
+   before phase 16 took the time), so that the
    whole script keeps room for phase 13.
 10. gpt2-moe (`models/moe.py`, preset gpt2-moe: GPT-2 small's trunk, 8
    experts of GPT-2 small's MLP, top-2, capacity factor 1.25), seeded
@@ -309,18 +310,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with piped stdin (register, log in, post, ask: the direct answer);
    launches over the phase exact as in phase 11.
 12. fine-tune and serve: a course directory written from the seed (notes
-   of phases 4c, 6 and 11's course texts and the questions, cut to 18
+   of phases 4c, 6 and 11's course texts and the questions, cut to 9
    batches of 8 x 128 byte tokens; a PDF made by `utils/pdf.make_pdf`; a
    file the loader ignores); GPT-2 small at full width (bf16 compute,
-   float32 params) trained 2 epochs (36 steps) through the trainer's
+   float32 params) trained 2 epochs (18 steps; 36 before phase 16 took
+   the time) through the trainer's
    entry point (`train.train.main`, the `python -m
    distributed_lms_raft_llm_tpu_torch.train.train` CLI, in process) with
    a checkpoint and an export: every loss finite, every gradient norm
-   above 0, the last loss below 0.8x the first, the sidecar's step 36;
+   above 0, the last loss below 0.8x the first, the sidecar's step 18;
    the median step ms after the first 3 steps, tokens/s and the peak
    allocation reported; resume: the first epoch run by `fit` with the
    CLI's schedule and checkpointed, then the CLI in a fresh process
-   resumes it to step 36, its checkpoint bit-equal to the straight run's,
+   resumes it to step 18, its checkpoint bit-equal to the straight run's,
    leaf by leaf; the export read back through `convert.gpt2_params_from_hf`
    gives float32 logits over a framed question within 1e-5 of their range
    of the trained params'; a node from configs/cluster.toml (the
@@ -422,6 +424,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    call. (d) A graphed GPT-2 small engine served once through a node
    (`serve_args`, the scoring tenant on), then dropped with the garbage
    collector off: freed by reference counting alone, its memory returned.
+16. the sharded trainer (`train.make_sharded_train_step`, `parallel/
+   pipeline.py`), in phase 14's two rank processes after phase 15 (its
+   engines dropped), this process running the one-rank references
+   meanwhile (`make_sharded_train_step` on a one-rank mesh). GPT-2 small
+   at full width and depth (12 layers, vocabulary 50,257) in float32
+   (TF32 off), seeded weights, 3 steps of seeded 8 x 128 batches under a
+   ragged loss mask (~70% of the targets), lr 1e-4 (warmup 1), remat on:
+   (a) over two dp ranks: each step's loss within 1e-5 and grad norm
+   within 1e-4 (relative) of one rank's, the ranks' metrics equal, every
+   leaf of the state after step 3, gathered and written by rank 0
+   (`save_train_state` over the mesh), within the CPU tests' tolerances
+   of one rank's (Adam's moments, the params, the key bias within lr x
+   the steps that move it, counts and step equal), both ranks' params
+   bit-equal (sha256); the gradient bytes all-reduced a step and the ms;
+   (b) over two pp stages at pp_micro 2 and 4: the same checks, each
+   rank's blocks and their moments half of one rank's bytes, the ticks
+   (n_micro + 1 a step), the hops (n_micro sends and receives a step on
+   each rank) with ms per tick and per hop; (c) over two sp ranks at
+   2 x 1,024 tokens (the ring forward and backward): the same checks on
+   its own one-rank reference, the rotations 12 a step forward and 12
+   in remat's recompute, 12 backward; (d) gpt2-moe at full width and
+   depth (8 experts, top-2) over two ep ranks: loss with aux,
+   `moe_balance` and grad norm against ep 1 as in (a), each rank's
+   expert params and moments half of ep 1's bytes; (e) the trainer's CLI
+   on both ranks (`train.train.main --pp 2 --backend gloo`, bf16 compute,
+   phase 12's course directory at 4 x 512 byte tokens: 4 steps) with a
+   checkpoint and an export: finite losses, the checkpoint holding the
+   one-device file's keys and shapes, restored here at pp 1 for the next
+   step (epoch 2's first batch) within 2e-2 (relative) of the ranks'
+   next step at pp 2, the export read back through the serving
+   converter giving the checkpoint params' float32 logits; (f) on each
+   rank, the refusals: tp 2 at GPT-2 small's vocabulary, pp with MoE,
+   with sp and with tp (the JAX package's messages word for word), an
+   engine over a dp-2 mesh. The training path launches none of the
+   port's kernels (checked: no launch over the phase). These times are
+   not parallelism's speed: every collective crosses host memory.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -439,6 +477,7 @@ import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3350,9 +3389,9 @@ LLAMA_UNEMBED_ROWS = (16, 512)
 LLAMA_SPEC_REQUESTS = 4
 # Phase 9's spec-8 run is cut to this depth (of 32; full width), its
 # preset registered for the run: the whole script has to leave room for
-# phase 13's semester.
-LLAMA_SPEC_LAYERS = 8
-LLAMA_SPEC = "llama3-8b-8-layers"
+# phase 13's semester and phase 16's trainer.
+LLAMA_SPEC_LAYERS = 4
+LLAMA_SPEC = "llama3-8b-4-layers-spec"
 
 
 def llama_kernel_cases(torch, attention, quant_matmul) -> dict:
@@ -4892,7 +4931,7 @@ def grouped_lms_phase(torch, attention, quant_matmul, ctx) -> dict:
 TRAIN_MODEL = "gpt2"         # GPT-2 small at full width: bf16 compute, f32
 TRAIN_BATCH, TRAIN_SEQ = 8, 128  # params (the trainer CLI's defaults)
 TRAIN_EPOCHS = 2
-TRAIN_STEPS_PER_EPOCH = 18   # the course directory is written to this size
+TRAIN_STEPS_PER_EPOCH = 9    # the course directory is written to this size
 TRAIN_LOSS_DROP = 0.8        # the last logged loss below 0.8x the first
 TRAIN_TIMED_AFTER = 3        # step ms: the median after the first 3 steps
 EXPORT_LOGIT_TOL = 1e-5      # of the logits' range (tests/test_train.py)
@@ -5905,6 +5944,8 @@ def tp_rank_main(args) -> int:
     # parallel scoring and the gate's tp.
     rec["ep_sp_gate"] = ep_rank_phase(torch, attention, quant_matmul, args,
                                       rank, run)
+    # Phase 16 in the same two processes: the sharded trainer.
+    rec["train_sharded"] = train_rank_phase(torch, args, rank)
     Path(args.tp_out).write_text(json.dumps(rec))
     from torch import distributed as dist
 
@@ -5976,6 +6017,8 @@ def tp_phase(torch, attention, quant_matmul, args, card) -> dict:
         ref_calls = ref.decode_steps + ref.admission_chunks + ref.prefill_calls
         # Phase 15's one-rank references, while the ranks run on.
         refs15 = ep_references(torch, attention, quant_matmul, args)
+        # Phase 16's one-rank references.
+        refs16 = train_references(torch, args, Path(tmp))
         deadline = time.monotonic() + TP_RANK_TIMEOUT_S
         for proc in procs:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -6135,6 +6178,11 @@ def tp_phase(torch, attention, quant_matmul, args, card) -> dict:
     # Phase 15's checks on the same ranks' records.
     rec["ep_sp_gate"] = ep_phase_checks(torch, attention, quant_matmul,
                                         args, ranks, refs15, outs, card)
+    del refs15
+    torch.cuda.empty_cache()
+    # Phase 16's checks on the same ranks' records.
+    rec["train_sharded"] = train_phase_checks(torch, args, ranks, refs16,
+                                              tmp, card)
     return rec
 
 
@@ -6822,6 +6870,555 @@ def ep_phase_checks(torch, attention, quant_matmul, args, ranks, refs,
     return rec
 
 
+# ------------------------------ phase 16: the sharded trainer
+
+TS_MODEL, TS_MOE_MODEL = "gpt2", "gpt2-moe"   # full width and depth
+TS_VOCAB = 50257             # GPT-2's vocabulary: the batches' ids
+TS_STEPS = 3                 # float32 steps a run (the first moves nothing)
+TS_BATCH, TS_SEQ = 8, 128    # (a), (b), (d): a seeded 8 x 128 batch a step
+TS_SP_BATCH, TS_SP_SEQ = 2, 1024  # (c): 2 x 1,024 tokens over two sp ranks
+TS_PP_MICROS = (2, 4)        # (b): GPipe microbatches
+TS_MASK_SHARE = 0.7          # a ragged loss mask: ~70% of the targets count
+# Float32, TF32 off. lr 1e-4 keeps Adam's sign flips on float-noise
+# gradients (|g| near its rounding) inside the leaves' tolerance.
+TS_TRAIN_KW = dict(learning_rate=1e-4, warmup_steps=1, decay_steps=8,
+                   remat=True)
+# The CPU tolerances against one rank (tests/test_torch_train_sharded.py,
+# tests/test_torch_train.py's `_assert_states`).
+TS_LOSS_RTOL, TS_NORM_RTOL = 1e-5, 1e-4
+TS_LEAF_TOL = {"mu": (1e-6, 1e-4), "nu": (1e-10, 1e-4),
+               "params": (2e-5, 1e-5)}
+TS_LOOSE = "params/blocks/attn/bqkv"  # the key bias: a float-noise gradient
+# The one-rank reference states, written by this process beside the ranks'
+# records for their leaves' checks.
+TS_REF_DENSE, TS_REF_SP = "ts_ref_dense.safetensors", "ts_ref_sp.safetensors"
+# (e): the CLI at pp 2 in bf16 on phase 12's course directory, 4 x 512
+# byte tokens a batch: 4 steps an epoch.
+TS_CLI_BATCH, TS_CLI_SEQ, TS_CLI_STEPS = 4, 512, 4
+TS_BF16_RTOL = TOLERANCE["bfloat16"]
+# JAX's refusals (distributed_lms_raft_llm_tpu/train/train.py:162-186).
+TS_REFUSALS = {
+    "pp_moe": "pp and MoE cannot combine yet: the pipeline stage body has "
+              "no aux-loss channel; use ep x tp x dp",
+    "pp_sp": "pp and sp cannot combine: the pipeline stage body uses "
+             "dense attention (ring attention unreachable under pp)",
+    "pp_tp": "pp and tp cannot combine: the pipeline stage body has no "
+             "tensor-parallel collectives; use pp x dp",
+}
+
+
+def ts_batches(rows, seq, vocab, seed):
+    """TS_STEPS seeded batches of `rows` x `seq` ids with a ragged mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(TS_STEPS):
+        ids = rng.integers(0, vocab, (rows, seq)).astype(np.int32)
+        mask = (rng.random((rows, seq)) < TS_MASK_SHARE).astype(np.float32)
+        out.append({"input_ids": ids, "loss_mask": mask})
+    return out
+
+
+def ts_state_bytes(state) -> dict:
+    """Bytes of a (rank's) train state: every param, the blocks' params
+    and Adam moments, the experts' params and moments."""
+    from distributed_lms_raft_llm_tpu_torch.train.checkpoint import (
+        flatten_with_paths,
+    )
+
+    out = dict(params=0, blocks=0, blocks_moments=0, experts=0,
+               experts_moments=0)
+    for key, leaf in flatten_with_paths(state):
+        n = leaf.numel() * leaf.element_size()
+        moment = key.startswith(("opt_state/1/0/mu/", "opt_state/1/0/nu/"))
+        path = key.split("/", 4)[-1] if moment else key[len("params/"):]
+        if not (moment or key.startswith("params/")):
+            continue
+        out["params"] += 0 if moment else n
+        if path.startswith("blocks/"):
+            out["blocks_moments" if moment else "blocks"] += n
+        if re.match(r"blocks/moe/[wb][io]$", path):
+            out["experts_moments" if moment else "experts"] += n
+    return out
+
+
+def ts_run(torch, mesh_, model, batches, kw, seed) -> dict:
+    """`make_sharded_train_step` on `mesh_`: TS_STEPS steps of `batches`
+    (each rank keeps its block), each step's metrics, wall ms and gradient
+    all-reduce, the ring's and the pipeline's counters over the run, the
+    state's bytes. Returns (record, state)."""
+    from distributed_lms_raft_llm_tpu_torch.models import registry
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh, pipeline
+    from distributed_lms_raft_llm_tpu_torch.train import train
+
+    _, cfg = registry.resolve(model, torch.float32, torch.float32)
+    step, state, slicer = train.make_sharded_train_step(
+        mesh_, cfg, train.TrainConfig(**kw), seed)
+    mesh.STATS.clear()
+    pipeline.STATS.clear()
+    rec = dict(metrics=[], step_ms=[], allreduce=[], coords=mesh_.coords())
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, slicer(batch))
+        rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["allreduce"].append(dict(step.last))
+    rec.update(ring=dict(mesh.STATS), pipeline=dict(pipeline.STATS),
+               bytes=ts_state_bytes(state))
+    return rec, state
+
+
+def ts_params_digest(state) -> str:
+    """sha256 of every param's bytes, in the tree's order."""
+    from distributed_lms_raft_llm_tpu_torch.train.checkpoint import (
+        flatten_with_paths,
+    )
+
+    h = hashlib.sha256()
+    for _, leaf in flatten_with_paths(state["params"]):
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ts_refusal(fn):
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def train_rank_phase(torch, args, rank) -> dict:
+    """Phase 16 on one of phase 14's two rank processes (see the module
+    docstring): the sharded trainer over (a) dp 2, (b) pp 2 at
+    TS_PP_MICROS, (c) sp 2, (d) gpt2-moe at ep 2, (e) the CLI at pp 2 in
+    bf16, (f) the refusals. Both ranks run every part alike. Returns this
+    rank's record; rank 0 writes the gathered states beside `tp_out`."""
+    import gc
+
+    from distributed_lms_raft_llm_tpu_torch.models import registry
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+    from distributed_lms_raft_llm_tpu_torch.train import train
+    from distributed_lms_raft_llm_tpu_torch.train.data import (
+        DataConfig,
+        PackedDataset,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import (
+        ByteTokenizer,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.monotonic()
+    before = counted_launches()
+    out = Path(args.tp_out).parent
+    rec = dict(rank=rank, seconds={})
+    batches = ts_batches(TS_BATCH, TS_SEQ, TS_VOCAB, args.seed)
+
+    refs = {}
+
+    def part(name, sizes, model=TS_MODEL, data=batches, ref=None, **kw):
+        t0 = time.monotonic()
+        m = mesh.make_mesh(sizes, device="cuda")
+        r, state = ts_run(torch, m, model, data, dict(TS_TRAIN_KW, **kw),
+                          args.seed)
+        if ref:
+            r["leaves"] = ts_leaves_check(torch, state, m, out / ref, refs)
+        if sizes.get("dp", 1) > 1:
+            r["digest"] = ts_params_digest(state)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec[name] = r
+        rec["seconds"][name] = time.monotonic() - t0
+
+    part("dp", {"dp": 2}, ref=TS_REF_DENSE)                   # (a)
+    for micro in TS_PP_MICROS:                                # (b)
+        part(f"pp_micro{micro}", {"pp": 2}, ref=TS_REF_DENSE,
+             pp_micro=micro)
+    refs.clear()
+    part("sp", {"sp": 2}, data=ts_batches(                    # (c)
+        TS_SP_BATCH, TS_SP_SEQ, TS_VOCAB, args.seed + 1), ref=TS_REF_SP)
+    refs.clear()
+    part("ep", {"ep": 2}, model=TS_MOE_MODEL)                 # (d)
+
+    # (e) The trainer's CLI on both ranks, in these processes (the group
+    # they hold is torchrun's stand-in), then one more step at pp 2.
+    t0 = time.monotonic()
+    course = out / f"ts_course{rank}"
+    course_directory(course, args.seed)
+    ck, ex = out / "ts_cli.safetensors", out / "ts_cli_export.safetensors"
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank))
+    cli = train.main(["--data", str(course), "--model", TS_MODEL,
+                      "--batch-size", str(TS_CLI_BATCH), "--seq-len",
+                      str(TS_CLI_SEQ), "--epochs", "1", "--log-every", "1",
+                      "--pp", "2", "--backend", "gloo", "--checkpoint",
+                      str(ck), "--export", str(ex)])
+    dataset = PackedDataset.from_paths(
+        [str(course)], ByteTokenizer(),
+        DataConfig(batch_size=TS_CLI_BATCH, seq_len=TS_CLI_SEQ))
+    _, bf16 = registry.resolve(TS_MODEL, torch.bfloat16, torch.float32)
+    steps = dataset.steps_per_epoch()
+    tc = train.TrainConfig(warmup_steps=max(1, steps // 20),
+                           decay_steps=max(2, steps), pp_micro=2)
+    nxt = train.make_train_step(bf16, train.make_optimizer(tc),
+                                remat=tc.remat, mesh=cli["mesh"],
+                                pp_micro=tc.pp_micro)
+    _, metrics = nxt(cli["state"], next(iter(dataset.batches(1))))
+    rec["cli"] = dict(step=cli["step"], steps_per_epoch=steps,
+                      history=cli["history"],
+                      next_step={k: float(v) for k, v in metrics.items()},
+                      bytes=ts_state_bytes(cli["state"]))
+    del cli, nxt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"]["cli"] = time.monotonic() - t0
+
+    # (f) The refusals, on each rank.
+    _, small = registry.resolve(TS_MODEL, torch.float32, torch.float32)
+    _, moe_cfg = registry.resolve(TS_MOE_MODEL, torch.float32, torch.float32)
+    layout = functools.partial(mesh.make_mesh, world_size=4, rank=rank,
+                               device="cuda")
+    tc = train.TrainConfig(warmup_steps=1)
+    rec["refusals"] = dict(
+        tp2_vocab=ts_refusal(lambda: train.make_sharded_train_step(
+            mesh.make_mesh({"tp": 2}, device="cuda"), small, tc, 0)),
+        pp_moe=ts_refusal(lambda: train.make_sharded_train_step(
+            layout({"pp": 2, "ep": 2}), moe_cfg, tc, 0)),
+        pp_sp=ts_refusal(lambda: train.make_sharded_train_step(
+            layout({"pp": 2, "sp": 2}), small, tc, 0)),
+        pp_tp=ts_refusal(lambda: train.make_sharded_train_step(
+            layout({"pp": 2, "tp": 2}), small, tc, 0)),
+        engine_dp2=ts_refusal(lambda: mesh.make_mesh(
+            {"dp": -1}).tensor_parallel()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = counted_launches()
+    rec["launches"] = {k: after.get(k, 0) - before.get(k, 0)
+                       for k in set(before) | set(after)}
+    rec["seconds"]["total"] = time.monotonic() - t_start
+    return rec
+
+
+def train_references(torch, args, out: Path) -> dict:
+    """Phase 16's one-rank references, in this process while the ranks
+    run: GPT-2 small on (a)'s and (b)'s batches and on (c)'s, gpt2-moe on
+    (d)'s, each `make_sharded_train_step` on a one-rank mesh; the GPT-2
+    states written to `out` (TS_REF_DENSE, TS_REF_SP: `save_train_state`,
+    its sidecar last) for the ranks' leaves' checks."""
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+    from distributed_lms_raft_llm_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.monotonic()
+    one = mesh.single_mesh("cuda")
+    refs = {}
+    for name, path, data in (
+            ("dense", TS_REF_DENSE, ts_batches(TS_BATCH, TS_SEQ, TS_VOCAB,
+                                               args.seed)),
+            ("sp", TS_REF_SP, ts_batches(TS_SP_BATCH, TS_SP_SEQ, TS_VOCAB,
+                                         args.seed + 1))):
+        refs[name], state = ts_run(torch, one, TS_MODEL, data, TS_TRAIN_KW,
+                                   args.seed)
+        ckpt.save_train_state(str(out / path), state)
+        del state
+    refs["moe"], state = ts_run(
+        torch, one, TS_MOE_MODEL, ts_batches(TS_BATCH, TS_SEQ, TS_VOCAB,
+                                             args.seed), TS_TRAIN_KW,
+        args.seed)
+    del state
+    torch.cuda.empty_cache()
+    refs["seconds"] = time.monotonic() - t0
+    return refs
+
+
+def ts_leaves_check(torch, state, mesh_, ref_path: Path, cache: dict):
+    """This run's state, each leaf gathered whole on rank 0
+    (`partition.gather_leaf`: every rank calls), against the one-rank
+    reference state the parent writes at `ref_path` (waited for: its
+    sidecar comes last; read once into `cache`), with the CPU tests'
+    tolerances (`_assert_states`): counts and step equal, Adam's moments
+    and the params within TS_LEAF_TOL, the key bias within lr x the steps
+    that move it. Rank 0 returns the leaves that fail and each kind's
+    largest |got - want| / (atol + rtol |want|); the others None."""
+    from distributed_lms_raft_llm_tpu_torch.models import convert
+    from distributed_lms_raft_llm_tpu_torch.parallel import partition
+    from distributed_lms_raft_llm_tpu_torch.train import train
+    from distributed_lms_raft_llm_tpu_torch.train.checkpoint import (
+        flatten_with_paths,
+    )
+
+    lead = mesh_.rank == 0
+    if lead and ref_path not in cache:
+        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+        while not Path(f"{ref_path}.json").exists():
+            check(time.monotonic() < deadline,
+                  f"phase 16: no reference state at {ref_path}")
+            time.sleep(0.5)
+        cache[ref_path] = convert.load_safetensors(str(ref_path))
+    want = cache.get(ref_path)
+    spec = train.state_spec(mesh_, is_moe=False)
+    axes = train.model_axes(mesh_)
+    lr = TS_TRAIN_KW["learning_rate"]
+    bad, worst = [], {}
+    with torch.no_grad():
+        leaves = flatten_with_paths(state)
+        if lead and [k for k, _ in leaves] != list(want):
+            bad.append("leaf names differ")
+        for key, leaf in leaves:
+            got = partition.gather_leaf(key, leaf, spec(key, leaf), axes)
+            if not lead or key not in want:
+                continue
+            ref = torch.from_numpy(want[key].copy()).to(got.device)
+            if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
+                bad.append(key)
+                continue
+            if ref.ndim == 0:
+                if not torch.equal(got, ref):
+                    bad.append(key)
+                continue
+            diff = (got.double() - ref.double()).abs()
+            if key == TS_LOOSE:
+                ratio = float(diff.max()) / (lr * (TS_STEPS - 1) + 1e-6)
+                kind = "loose"
+            else:
+                kind = ("mu" if "/mu/" in key else "nu" if "/nu/" in key
+                        else "params")
+                atol, rtol = TS_LEAF_TOL[kind]
+                ratio = float((diff / (atol + rtol * ref.double().abs()))
+                              .max())
+            worst[kind] = max(worst.get(kind, 0.0), ratio)
+            if ratio > 1:
+                bad.append(key)
+    return dict(bad=bad, worst=worst) if lead else None
+
+
+def ts_metrics_close(got, want, moe=False) -> bool:
+    """Each step's loss within TS_LOSS_RTOL and grad norm within
+    TS_NORM_RTOL of one rank's (MoE: moe_balance within TS_LOSS_RTOL)."""
+    def close(a, b, rtol):
+        return abs(a - b) <= rtol * abs(b)
+
+    return len(got) == len(want) and all(
+        close(g["loss"], w["loss"], TS_LOSS_RTOL)
+        and close(g["grad_norm"], w["grad_norm"], TS_NORM_RTOL)
+        and (not moe or close(g["moe_balance"], w["moe_balance"],
+                              TS_LOSS_RTOL))
+        for g, w in zip(got, want))
+
+
+def train_phase_checks(torch, args, ranks, refs, tmp, card) -> dict:
+    """Phase 16's checks on both ranks' records (see the module
+    docstring). Returns its record."""
+    from distributed_lms_raft_llm_tpu_torch.models import convert, registry
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+    from distributed_lms_raft_llm_tpu_torch.train import checkpoint as ckpt
+    from distributed_lms_raft_llm_tpu_torch.train import train
+    from distributed_lms_raft_llm_tpu_torch.train.data import (
+        DataConfig,
+        PackedDataset,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import (
+        ByteTokenizer,
+    )
+
+    t_phase = time.monotonic()
+    lead, follow = [r["train_sharded"] for r in ranks]
+    rec = dict(card=card, backend=TP_BACKEND, steps=TS_STEPS,
+               rank_seconds=[r["seconds"] for r in (lead, follow)],
+               references_s=refs["seconds"])
+    tmp = Path(tmp)
+
+    def same_metrics(name):
+        return lead[name]["metrics"] == follow[name]["metrics"]
+
+    # (a) dp 2.
+    dp = lead["dp"]
+    leaves = dp["leaves"]
+    rec["dp"] = dict(
+        metrics=dp["metrics"], one_rank=refs["dense"]["metrics"],
+        ranks_equal=same_metrics("dp"),
+        params_bit_equal=dp["digest"] == follow["dp"]["digest"],
+        leaves=leaves, step_ms=dp["step_ms"],
+        one_rank_step_ms=refs["dense"]["step_ms"],
+        grad_allreduce_bytes=dp["allreduce"][-1]["bytes"],
+        grad_allreduce_ms=[a["ms"] for a in dp["allreduce"]])
+    emit("train_sharded_dp", card=card, **rec["dp"])
+    check(rec["dp"]["ranks_equal"] and rec["dp"]["params_bit_equal"]
+          and ts_metrics_close(dp["metrics"], refs["dense"]["metrics"])
+          and not leaves["bad"],
+          f"phase 16 (a): dp 2 against one rank: {rec['dp']}")
+
+    # (b) pp 2 at each microbatch count.
+    ref_bytes = refs["dense"]["bytes"]
+    rec["pp"] = {}
+    for micro in TS_PP_MICROS:
+        r = lead[f"pp_micro{micro}"]
+        leaves = r["leaves"]
+        pipe, hops = r["pipeline"], r["ring"]
+        ticks = pipe.get("ticks", 0)
+        pr = rec["pp"][micro] = dict(
+            metrics=r["metrics"], ranks_equal=same_metrics(
+                f"pp_micro{micro}"), leaves=leaves, step_ms=r["step_ms"],
+            blocks_bytes=[x[f"pp_micro{micro}"]["bytes"]["blocks"]
+                          for x in (lead, follow)],
+            blocks_moments_bytes=[x[f"pp_micro{micro}"]["bytes"][
+                "blocks_moments"] for x in (lead, follow)],
+            one_rank_blocks_bytes=ref_bytes["blocks"],
+            one_rank_blocks_moments_bytes=ref_bytes["blocks_moments"],
+            ticks=ticks, ticks_want=TS_STEPS * (micro + 2 - 1),
+            ms_per_tick=1e3 * (pipe.get("forward_s", 0)
+                               + pipe.get("backward_s", 0))
+            / max(1, 2 * ticks),
+            hops=dict(send=hops.get("send", 0), recv=hops.get("recv", 0)),
+            ms_per_hop=dict(
+                send=1e3 * hops.get("send_s", 0) / max(1, hops.get("send",
+                                                                   0)),
+                recv=1e3 * hops.get("recv_s", 0) / max(1, hops.get("recv",
+                                                                   0))),
+            # rank 0 sends each microbatch forward and receives its
+            # gradient back, every step
+            hops_want=TS_STEPS * micro)
+        emit("train_sharded_pp", card=card, pp_micro=micro, **pr)
+        check(pr["ranks_equal"]
+              and ts_metrics_close(r["metrics"], refs["dense"]["metrics"])
+              and not leaves["bad"] and ticks == pr["ticks_want"]
+              and pr["hops"] == dict(send=pr["hops_want"],
+                                     recv=pr["hops_want"])
+              and all(2 * b == ref_bytes["blocks"]
+                      for b in pr["blocks_bytes"])
+              and all(2 * b == ref_bytes["blocks_moments"]
+                      for b in pr["blocks_moments_bytes"]),
+              f"phase 16 (b): pp 2 at pp_micro {micro}: {pr}")
+
+    # (c) sp 2 over 2 x 1,024 tokens: the ring forward and backward.
+    sp = lead["sp"]
+    leaves = sp["leaves"]
+    _, f32 = registry.resolve(TS_MODEL, torch.float32, torch.float32)
+    layers = f32.num_layers
+    remat = 2 if TS_TRAIN_KW["remat"] else 1
+    rec["sp"] = dict(
+        metrics=sp["metrics"], one_rank=refs["sp"]["metrics"],
+        ranks_equal=same_metrics("sp"), leaves=leaves,
+        step_ms=sp["step_ms"], one_rank_step_ms=refs["sp"]["step_ms"],
+        rotations=sp["ring"].get("rotate", 0),
+        rotations_backward=sp["ring"].get("rotate_backward", 0),
+        # sp - 1 = 1 rotation a layer forward (twice with remat's
+        # recompute) and 1 backward
+        rotations_want=TS_STEPS * layers * remat,
+        rotations_backward_want=TS_STEPS * layers,
+        grad_allreduce_bytes=sp["allreduce"][-1]["bytes"],
+        grad_allreduce_ms=[a["ms"] for a in sp["allreduce"]])
+    emit("train_sharded_sp", card=card, **rec["sp"])
+    check(rec["sp"]["ranks_equal"]
+          and ts_metrics_close(sp["metrics"], refs["sp"]["metrics"])
+          and not leaves["bad"]
+          and rec["sp"]["rotations"] == rec["sp"]["rotations_want"]
+          and rec["sp"]["rotations_backward"]
+          == rec["sp"]["rotations_backward_want"],
+          f"phase 16 (c): sp 2 against one rank: {rec['sp']}")
+
+    # (d) gpt2-moe at ep 2.
+    ep = lead["ep"]
+    moe_ref = refs["moe"]
+    rec["ep"] = dict(
+        metrics=ep["metrics"], one_rank=moe_ref["metrics"],
+        ranks_equal=same_metrics("ep"), step_ms=ep["step_ms"],
+        one_rank_step_ms=moe_ref["step_ms"],
+        experts_bytes=[x["ep"]["bytes"]["experts"] for x in (lead, follow)],
+        experts_moments_bytes=[x["ep"]["bytes"]["experts_moments"]
+                               for x in (lead, follow)],
+        one_rank_experts_bytes=moe_ref["bytes"]["experts"],
+        one_rank_experts_moments_bytes=moe_ref["bytes"]["experts_moments"])
+    emit("train_sharded_ep", card=card, **rec["ep"])
+    check(rec["ep"]["ranks_equal"]
+          and ts_metrics_close(ep["metrics"], moe_ref["metrics"], moe=True)
+          and all(2 * b == moe_ref["bytes"]["experts"]
+                  for b in rec["ep"]["experts_bytes"])
+          and all(2 * b == moe_ref["bytes"]["experts_moments"]
+                  for b in rec["ep"]["experts_moments_bytes"]),
+          f"phase 16 (d): gpt2-moe at ep 2 against ep 1: {rec['ep']}")
+
+    # (e) The CLI's bf16 run at pp 2: its checkpoint holds the one-device
+    # file's keys and shapes, resumes here at pp 1 for the next step, and
+    # its export serves.
+    cli = lead["cli"]
+    losses = [h["loss"] for h in cli["history"]]
+    ck = tmp / "ts_cli.safetensors"
+    _, bf16 = registry.resolve(TS_MODEL, torch.bfloat16, torch.float32)
+    tc = train.TrainConfig(warmup_steps=max(1, TS_CLI_STEPS // 20),
+                           decay_steps=max(2, TS_CLI_STEPS), pp_micro=2)
+    opt = train.make_optimizer(tc)
+    template = train.init_train_state(args.seed, bf16, opt, "cuda")
+    with open(ck, "rb") as fh:  # the file's header: names, dtypes, shapes
+        (n,) = struct.unpack("<Q", fh.read(8))
+        header = json.loads(fh.read(n))
+    names = {torch.float32: "F32", torch.int32: "I32"}
+    layout_ok = {k: (v["dtype"], tuple(v["shape"]))
+                 for k, v in header.items() if k != "__metadata__"} == {
+        k: (names.get(v.dtype), tuple(v.shape))
+        for k, v in ckpt.flatten_with_paths(template)}
+    resumed = ckpt.restore_train_state(str(ck), template,
+                                       mesh.single_mesh("cuda"))
+    reloaded = convert.gpt2_params_from_hf(
+        convert.load_safetensors(str(tmp / "ts_cli_export.safetensors")),
+        f32, device="cuda")
+    export = export_logits_err(torch, resumed["params"], reloaded, f32,
+                               list(QUESTIONS[0].encode()))
+    del reloaded
+    dataset = PackedDataset.from_paths(
+        [str(tmp / "ts_course0")], ByteTokenizer(),
+        DataConfig(batch_size=TS_CLI_BATCH, seq_len=TS_CLI_SEQ))
+    step = train.make_train_step(bf16, opt, remat=tc.remat)
+    _, metrics = step(resumed, next(iter(dataset.batches(1))))
+    here = {k: float(v) for k, v in metrics.items()}
+    rec["cli"] = dict(
+        steps=cli["step"], steps_per_epoch=cli["steps_per_epoch"],
+        losses=losses, grad_norms=[h["grad_norm"] for h in cli["history"]],
+        layout_equal=layout_ok, sidecar_step=ckpt.latest_step(str(ck)),
+        next_step_pp2=cli["next_step"], next_step_pp1=here,
+        blocks_bytes=[x["cli"]["bytes"]["blocks"] for x in (lead, follow)],
+        export=export)
+    del resumed, template
+    emit("train_sharded_cli", card=card, **rec["cli"])
+    check(cli["step"] == TS_CLI_STEPS == cli["steps_per_epoch"]
+          and rec["cli"]["sidecar_step"] == TS_CLI_STEPS
+          and all(math.isfinite(x) for x in losses) and layout_ok
+          and abs(here["loss"] - cli["next_step"]["loss"])
+          <= TS_BF16_RTOL * abs(cli["next_step"]["loss"])
+          and abs(here["grad_norm"] - cli["next_step"]["grad_norm"])
+          <= TS_BF16_RTOL * abs(cli["next_step"]["grad_norm"])
+          and export["finite"]
+          and export["max_abs_err"] <= 1e-5 * export["logit_range"],
+          f"phase 16 (e): the CLI at pp 2: {rec['cli']}")
+
+    # (f) The refusals, with the JAX package's messages.
+    rec["refusals"] = [r["refusals"] for r in (lead, follow)]
+    emit("train_sharded_refusals", card=card, refusals=rec["refusals"])
+    for got in rec["refusals"]:
+        check(all(got[k] == f"ValueError: {msg}"
+                  for k, msg in TS_REFUSALS.items())
+              and got["tp2_vocab"] is not None
+              and f"wte: axis 0 of size {TS_VOCAB} does not split over "
+              f"tp=2" in got["tp2_vocab"]
+              and got["engine_dp2"] is not None
+              and got["engine_dp2"].startswith("NotImplementedError")
+              and "'dp': 2" in got["engine_dp2"],
+              f"phase 16 (f): the refusals: {got}")
+    rec["launches"] = [r["launches"] for r in (lead, follow)]
+    check(not any(v for r in rec["launches"] for v in r.values()),
+          f"phase 16: the training path launched a kernel: "
+          f"{rec['launches']}")
+    for f in tmp.glob("ts_*.safetensors*"):  # the references, the CLI's
+        f.unlink()
+    rec["seconds"] = (time.monotonic() - t_phase
+                      + max(r["total"] for r in rec["rank_seconds"]))
+    emit("train_sharded", **{k: rec[k] for k in (
+        "card", "backend", "rank_seconds", "references_s", "seconds")})
+    return rec
+
+
 def _graph_captures() -> int:
     from distributed_lms_raft_llm_tpu_torch.engine import graphs
 
@@ -7346,11 +7943,14 @@ def main(argv=None) -> int:
     # the gate over two tp ranks; a dropped graphed engine freed.
     records["tp"] = tp_phase(torch, attention, quant_matmul, args, smi)
     records["ep_sp_gate"] = records["tp"].pop("ep_sp_gate")
+    records["train_sharded"] = records["tp"].pop("train_sharded")
     tp_launches_ = records["tp"]["launches"]
     ep_launches_ = records["ep_sp_gate"]["launches"]
     lap("14_tp")
     phase_s["15_ep_sp_gate"] = records["ep_sp_gate"]["seconds"]
-    phase_s["14_tp"] -= phase_s["15_ep_sp_gate"]
+    phase_s["16_train_sharded"] = records["train_sharded"]["seconds"]
+    phase_s["14_tp"] -= (phase_s["15_ep_sp_gate"]
+                         + phase_s["16_train_sharded"])
 
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]

@@ -110,8 +110,10 @@ def row_dense(x: torch.Tensor, w, b: torch.Tensor | None,
     """A row-parallel product (attention-out, MLP-out): x [..., in / tp]
     against this rank's rows w [in / tp, out], summed over the tp ranks,
     then the bias, added once after the sum (so never in the int8
-    kernel's epilogue, which would add it on every rank). At tp = 1 it is
-    `dense`, the bias in the epilogue."""
+    kernel's epilogue, which would add it on every rank). The sum is the
+    "reduce" pair (`ParallelAxis.all_reduce`): its backward hands every
+    rank the whole gradient. At tp = 1 it is `dense`, the bias in the
+    epilogue."""
     if tp.size == 1:
         return dense(x, w, b)
     y = tp.all_reduce(dense(x, w))

@@ -53,6 +53,13 @@ positions, [B, T/sp, V]. A `kv_mask` or explicit `positions` are refused
 there, as the JAX package refuses them. It composes with tp: heads over
 tp, the sequence over sp.
 
+Training runs the same forward with gradients: the collectives above are
+the conjugate pairs of `parallel/mesh.py` (the column-parallel products'
+inputs through `ParallelAxis.copy`), so each rank's backward gives the
+gradient of the one global loss. `forward_pipelined` runs the trunk as a
+GPipe pipeline over a mesh's pp axis (`trunk_layer` a stage's layer), the
+JAX package's, for the trainer at pp > 1.
+
 With ``cfg.quant_kv`` the cache is int8 with per-slot scales
 (`common.quantize_kv` on write, `common.attend_quant` on read). The JAX
 package refuses `fused_decode_attention` together with `quant_kv`, because
@@ -235,7 +242,10 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn, cfg: GPT2Config,
     eps = cfg.layer_norm_eps
     tp = tensor_parallel_of(cfg)
     heads = cfg.local_heads
-    h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
+    # Under tp the column-parallel products take the replicated norms
+    # through the "copy" pair (each rank's product gives only its share of
+    # their gradient); the row-parallel ones sum through `row_dense`.
+    h = tp.copy(layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps))
     qkv = dense(h, lp["attn"]["wqkv"], lp["attn"]["bqkv"])
     q, k, v = qkv.split(heads * cfg.head_dim, dim=-1)
     a = attend_fn(
@@ -252,12 +262,73 @@ def apply_block(x: torch.Tensor, lp: Params, attend_fn, cfg: GPT2Config,
             y, aux = moe_lib.moe_mlp(h2, lp["moe"], cfg, return_aux=True)
             return x + y, aux
         return x + moe_lib.moe_mlp(h2, lp["moe"], cfg)
-    m = dense(h2, lp["mlp"]["wi"], lp["mlp"]["bi"])
+    m = dense(tp.copy(h2), lp["mlp"]["wi"], lp["mlp"]["bi"])
     m = F.gelu(m, approximate="tanh")  # GPT-2 uses the tanh approximation
     x = x + row_dense(m, lp["mlp"]["wo"], lp["mlp"]["bo"], tp)
     if collect_aux:
         return x, x.new_zeros((), dtype=torch.float32)
     return x
+
+
+def trunk_layer(lp: Params, h: torch.Tensor, *, cfg: GPT2Config
+                ) -> torch.Tensor:
+    """One block in full-sequence causal mode: the `layer_fn(lp, h) -> h`
+    shape `parallel.pipeline.pipeline_trunk` consumes, the causal mask
+    rebuilt from h's shape."""
+    t = h.shape[1]
+    pos = torch.arange(t, device=h.device)
+    mask = (pos[None, :] <= pos[:, None])[None, None]
+    return apply_block(h, lp, full_attention(mask), cfg)
+
+
+def forward_pipelined(
+    params: Params,
+    cfg: GPT2Config,
+    input_ids: torch.Tensor,
+    mesh,
+    *,
+    n_micro: int,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Full-sequence forward with the stacked trunk split over the mesh's
+    `pp` axis (`parallel.pipeline.pipeline_trunk`, GPipe microbatching);
+    returns the logits [B, T, V] float32 on every stage.
+
+    The embedding, the final layer norm and the tied unembedding run
+    replicated on every stage; the L blocks run as pp stages, each rank
+    holding L/pp of them: `params["blocks"]` holds either all L layers
+    (each stage runs its own, views) or, in the sharded train state, this
+    stage's L/pp (told apart by `cfg.num_layers`). `remat` recomputes each
+    layer inside its stage in the backward pass, where the pipeline
+    otherwise keeps every microbatch's activations. Under dp each rank
+    pipelines its own rows. Equal to `forward(params, cfg, input_ids)[0]`
+    up to float rounding (held in the tests).
+    """
+    from ..parallel.pipeline import pipeline_trunk
+
+    if mesh.shape.get("tp", 1) > 1:
+        raise ValueError(
+            "forward_pipelined does not compose with tp (the pipeline "
+            "stage body has no tensor-parallel collectives); use pp x dp"
+        )
+    _, t = input_ids.shape
+    positions = torch.arange(t, device=input_ids.device)[None, :]
+    x = embed_lookup(params["wte"], input_ids) + params["wpe"][positions]
+    x = x.to(cfg.dtype)
+    layer_fn = functools.partial(trunk_layer, cfg=cfg)
+    if remat:
+        plain_fn = layer_fn
+
+        def layer_fn(lp, h):
+            return checkpoint(plain_fn, lp, h, use_reentrant=False)
+    blocks = params["blocks"]
+    leading = next(iter(next(iter(blocks.values())).values()))
+    leading = (leading["q"] if isinstance(leading, dict) else leading)
+    x = pipeline_trunk(layer_fn, blocks, x, mesh, n_micro=n_micro,
+                       stage_sliced=leading.shape[0] != cfg.num_layers)
+    x = layer_norm(x, params["lnf"]["scale"], params["lnf"]["bias"],
+                   cfg.layer_norm_eps)
+    return unembed(x, params["wte"])
 
 
 def forward(

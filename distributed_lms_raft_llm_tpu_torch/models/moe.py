@@ -61,7 +61,19 @@ expert kernel's split of K follows the experts a launch holds).
 Under sequence parallelism (``cfg.sequence_parallel``, the ring forward
 of `gpt2.forward`) a rank holds T/sp of the tokens; routing and capacity
 belong to the whole forward, so the layer gathers the sequence over sp,
-runs on all of it and keeps its own tokens' rows.
+runs on all of it and keeps its own tokens' rows. The trainer's data
+parallelism (``cfg.data_parallel``, a `DataParallelMoEConfig`) is met
+the same way: JAX's jitted
+step routes the global batch, so the layer gathers the rows over dp too.
+Both gathers are `ParallelAxis.all_gather_rs`: a rank goes on with its
+own slice only, so each rank's gradient of the whole is summed over the
+axis before it takes its slice's.
+
+Training at ep (the conjugate pairs of `parallel/mesh.py`): the tokens a
+rank's experts take, and the routing weights its combine reads, enter
+through the "copy" pair, since each rank's experts give only their share
+of those gradients; the combine's sum is the "reduce" pair. The router
+and the load-balance scalar are replicated on every ep rank.
 """
 
 from __future__ import annotations
@@ -111,6 +123,24 @@ class GPT2MoEConfig(gpt2.GPT2Config):
         kw.setdefault("num_experts", 4)
         kw.setdefault("experts_per_token", 2)
         return cls(hidden_size=32, num_layers=2, num_heads=4, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallelMoEConfig(GPT2MoEConfig):
+    """A GPT2MoEConfig whose batch rows are split over the trainer's dp
+    axis (`data_parallel`, set by `train.make_train_step`): the expert
+    layer gathers the rows over it, so routing sees the global batch."""
+
+    data_parallel: Optional[ParallelAxis] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+
+def with_data_parallel(cfg: GPT2MoEConfig,
+                       dp: ParallelAxis) -> DataParallelMoEConfig:
+    """`cfg` with its rows split over `dp`."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(GPT2MoEConfig)}
+    return DataParallelMoEConfig(**fields, data_parallel=dp)
 
 
 def init_params(cfg: GPT2MoEConfig, seed: int = 0,
@@ -191,15 +221,17 @@ def moe_mlp(h: torch.Tensor, mp: Mapping[str, Any], cfg: GPT2MoEConfig,
     (E sum_e frac_top1_e mean_prob_e; 1.0 when perfectly balanced).
     """
     sp = axis_of(cfg, "sequence_parallel", "sp")
-    if sp.size > 1:
-        t_local = h.shape[1]
-        out = moe_mlp(sp.all_gather(h, dim=1), mp,
-                      dataclasses.replace(cfg, sequence_parallel=None),
-                      return_aux)
-        lo = sp.rank * t_local
-        if return_aux:
-            return out[0][:, lo:lo + t_local], out[1]
-        return out[:, lo:lo + t_local]
+    dp = axis_of(cfg, "data_parallel", "dp")
+    for axis, dim, field in ((sp, 1, "sequence_parallel"),
+                             (dp, 0, "data_parallel")):
+        if axis.size == 1:
+            continue
+        n_local = h.shape[dim]
+        inner = dataclasses.replace(cfg, **{field: None})
+        out = moe_mlp(axis.all_gather_rs(h, dim=dim), mp, inner, return_aux)
+        lo = axis.rank * n_local
+        y = (out[0] if return_aux else out).narrow(dim, lo, n_local)
+        return (y, out[1]) if return_aux else y
     b, t, d = h.shape
     s = b * t
     e, k = cfg.num_experts, cfg.experts_per_token
@@ -233,7 +265,7 @@ def moe_mlp(h: torch.Tensor, mp: Mapping[str, Any], cfg: GPT2MoEConfig,
     # which nothing reads. A rank stages its own experts' slots.
     src = torch.full((e * c + 1,), s, dtype=torch.long, device=dev)
     src.scatter_(0, dest, torch.arange(k * s, device=dev) % s)
-    x0 = torch.cat([x, x.new_zeros((1, d))])
+    x0 = torch.cat([ep.copy(x), x.new_zeros((1, d))])
     expert_in = x0.index_select(0, src[lo:lo + e_local * c]).view(
         e_local, c, d)
 
@@ -250,7 +282,7 @@ def moe_mlp(h: torch.Tensor, mp: Mapping[str, Any], cfg: GPT2MoEConfig,
         dest = torch.where(mine, dest - lo, e_local * c)
     out0 = torch.cat([out.reshape(e_local * c, d), out.new_zeros((1, d))])
     picked = out0.index_select(0, dest).view(k, s, d).float()
-    w = top_w.t().to(h.dtype).float()                        # [k, S]
+    w = ep.copy(top_w).t().to(h.dtype).float()               # [k, S]
     y = ep.all_reduce((picked * w[:, :, None]).sum(0))
     y = y.to(h.dtype).view(b, t, d)
     if not return_aux:

@@ -167,8 +167,11 @@ def unembed(x: torch.Tensor, table: Any,
     JAX package's `preferred_element_type=float32` einsum). Quantized:
     `quant_matmul.int8_matmul` with the table as transposed weight, the
     per-row scale applied to the float32 sums. Under tp: this rank's
-    vocabulary block, then every rank's blocks gathered to [B, T, V].
+    vocabulary block, then every rank's blocks gathered to [B, T, V]
+    (`x` through the "copy" pair, the blocks through the "gather": the
+    loss downstream is replicated on every rank).
     """
+    x = tp.copy(x)
     if is_quantized(table):
         logits = quant_matmul.int8_matmul(x, table["q"], table["s"],
                                           transposed=True)

@@ -1,11 +1,12 @@
 """Parallelism over `torch.distributed`: the mesh and each axis'
-collectives (`mesh`), partition rules and each rank's parameter slice
-(`partition`), ring attention over the sp axis (`ring`), and the replicated
-host loop of a sharded engine (`spmd`).
+collectives, in conjugate pairs that carry the trainer's gradients
+(`mesh`), partition rules and each rank's slice (`partition`), ring
+attention over the sp axis (`ring`), the GPipe pipeline over pp
+(`pipeline`), and the replicated host loop of a sharded engine (`spmd`).
 
-Port of the serving half of `distributed_lms_raft_llm_tpu/parallel/`: tp,
-ep and sp. Not ported yet: the pipeline (`pipeline.py`, pp) and dp inside
-one engine.
+Port of `distributed_lms_raft_llm_tpu/parallel/`: serving's tp, ep and sp,
+and the trainer's dp, tp, sp, ep and pp. Not ported yet: dp inside one
+engine.
 """
 
 from .mesh import (  # noqa: F401
@@ -17,6 +18,7 @@ from .mesh import (  # noqa: F401
     init_process_group,
     initialize_multihost,
     make_mesh,
+    single_mesh,
 )
 from .partition import (  # noqa: F401
     BERT_RULES,
@@ -30,5 +32,6 @@ from .partition import (  # noqa: F401
     supported_tp,
     validate_tp_heads,
 )
+from .pipeline import pipeline_trunk  # noqa: F401
 from .ring import ring_attention  # noqa: F401
 from .spmd import Replica, TensorParallelFailure  # noqa: F401

@@ -3,13 +3,14 @@ axis' collectives.
 
 Port of `distributed_lms_raft_llm_tpu/parallel/mesh.py`. JAX runs one
 controller over a `Mesh` of local chips and lets XLA insert the collectives
-its partition specs imply. PyTorch's idiom is one process a rank with
-explicit collectives, so here:
+its partition specs imply, forward and backward. PyTorch's idiom is one
+process a rank with explicit collectives, so here:
 
 - `make_mesh` keeps the JAX package's axis order ("dp", "pp", "ep", "sp",
   "tp", tp the fastest-varying), its `-1` inference, its dp remainder and
   its error messages, over the ranks of the process group (one rank a
-  device) instead of a device list;
+  device) instead of a device list; the mesh also names the device the
+  rank computes on (the card unless the caller asks for the CPU);
 - `initialize_multihost` joins the process group from torchrun's
   environment (`MASTER_ADDR`, `MASTER_PORT`, `RANK`, `WORLD_SIZE`) and is a
   no-op for one process, as the JAX one is; `init_process_group` joins
@@ -18,18 +19,48 @@ explicit collectives, so here:
 - the backend is an argument and never chosen here: `nccl` where each rank
   has its own GPU, `gloo` where the caller asks for it (several ranks on
   one card, or the CPU);
-- `ParallelAxis` holds one axis' collectives the models call: the
-  all-reduce behind a row-parallel product or an expert layer's combine,
-  the all-gather of vocabulary shards, the ring's point-to-point rotation
-  and the broadcast of a step's host inputs. Each is the identity at size
-  1. `Mesh.axis(name)` gives a rank its tp, ep or sp axis: a
+- `ParallelAxis` holds one axis' collectives the models call. `Mesh.axis
+  (name)` gives a rank any of its axes (dp, pp, ep, sp, tp): a
   `torch.distributed` subgroup over the ranks that share every other
   coordinate (the whole group where the axis spans it). `TensorParallel`
-  is the class under its tp name.
+  is the class under its tp name. Each is the identity at size 1.
 
-A mesh whose ranks spread over dp or pp is refused by
-`Mesh.tensor_parallel`: dp inside one engine and the pipeline are not
-ported yet, so an engine's world is tp x ep x sp ranks.
+The collectives come in conjugate pairs, so that the trainer's backward is
+the one XLA derives. The convention: *the gradient a rank holds for a leaf
+is the gradient of JAX's one global loss with respect to that rank's copy
+or shard of it*, where every rank of a model axis (tp, ep, pp) computes
+the same replicated activations and counts them as one copy, and each rank
+of a data axis (dp, sp) holds a copy of its own, whose gradients the
+trainer sums. The pairs:
+
+- "reduce" (`all_reduce`): all-reduce forward, identity backward; after a
+  row-parallel product, the vocabulary-parallel embedding's sum, the ep
+  combine, the loss' sum over the data axes;
+- "copy" (`copy`): identity forward, all-reduce backward; on a replicated
+  activation that enters a column-parallel product or this rank's
+  experts;
+- "gather" (`all_gather`): all-gather forward, this rank's slice backward,
+  where the computation downstream is replicated (the logits' vocabulary
+  blocks); `all_gather_rs` is the gather whose backward is a
+  reduce-scatter, where each rank goes on with its own slice only (the
+  expert layer's gather of the tokens over sp and dp);
+- "rotate" (`rotate`): forward sends to the next rank and receives from
+  the previous one, backward sends the gradient to the previous rank and
+  receives from the next (the ring's K/V blocks);
+- pp's point-to-point `send` / `recv`, which the pipeline's own backward
+  (`parallel/pipeline.py`) pairs: the activation goes forward, its
+  gradient comes back.
+
+Under `torch.no_grad()` / `inference_mode`, or for a tensor that requires
+no gradient, each pair runs exactly the collective serving runs, in place
+where it ran in place. `torch.distributed.nn.functional.all_reduce` is not
+used: its backward all-reduces the gradient, which multiplies the gradient
+of a replicated loss by the axis size.
+
+`Mesh.tensor_parallel` refuses a mesh whose ranks spread over dp or pp:
+dp inside one engine is not ported and the pipeline is the trainer's, so
+an engine's world is tp x ep x sp ranks. The trainer takes its axes with
+`Mesh.axis`.
 
 The mesh is this module's own small class, not `torch.distributed.
 device_mesh`: a `DeviceMesh` pins each rank to the device of its index,
@@ -38,11 +69,13 @@ and the card phases run two ranks on one GPU.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import logging
 import math
 import os
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -58,6 +91,12 @@ CAPTURABLE_BACKENDS = ("nccl",)
 # does not leave its peers to wait this out: it aborts the group
 # (`TensorParallel.abort`, from `spmd.Replica`).
 DEFAULT_TIMEOUT = datetime.timedelta(days=7)
+# What the point-to-point collectives did, since the caller last cleared
+# it: "rotate" / "rotate_backward" count ring rotations forward (a remat
+# recompute included) and backward; "send" / "recv" count pp hops and
+# "send_s" / "recv_s" their wall seconds (staging through host memory
+# included). Read by the card check's sp and pp phases.
+STATS: collections.Counter = collections.Counter()
 
 
 def mesh_sizes(axis_sizes: Optional[dict], n: int,
@@ -96,6 +135,9 @@ class Mesh:
     rank: int = 0
     group: Any = None
     backend: Optional[str] = None
+    # Where this rank computes (the trainer's parameters and batches);
+    # None is the card.
+    device: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -148,18 +190,27 @@ class Mesh:
                             ranks=tuple(range(n)))
 
     def tensor_parallel(self) -> "ParallelAxis":
-        """The tp axis' collectives. Raises where the ranks spread over dp
-        or pp: dp inside one engine and the pipeline are not ported, so an
+        """The tp axis' collectives, for an engine. Raises where the ranks
+        spread over dp or pp: dp inside one engine is not ported and pp is
+        the trainer's (`train.train.make_sharded_train_step`), so an
         engine's ranks are its tp x ep x sp."""
         spread = {a: n for a, n in self.shape.items()
                   if a in ("dp", "pp") and n > 1}
         if spread:
             raise NotImplementedError(
-                f"mesh axes {spread} are not ported to PyTorch yet: the "
-                f"engines shard over tp, ep and sp alone, so the process "
-                f"group must hold exactly tp x ep x sp = "
+                f"mesh axes {spread} do not shard an engine in the PyTorch "
+                f"port (dp inside one engine is not ported; pp is the "
+                f"trainer's): the engines shard over tp, ep and sp alone, "
+                f"so the process group must hold exactly tp x ep x sp = "
                 f"{self.world_size // math.prod(spread.values())} ranks")
         return self.axis("tp")
+
+    def torch_device(self) -> torch.device:
+        """The device this rank computes on (`resolve_device`: the card
+        unless the mesh names the CPU)."""
+        from ..device import resolve_device
+
+        return resolve_device("cuda" if self.device is None else self.device)
 
 
 # Subgroups made so far, by (default group, axis sizes): every rank must
@@ -193,10 +244,11 @@ def _axis_groups(mesh: Mesh) -> Dict[Tuple[int, ...], Any]:
 def make_mesh(axis_sizes: Optional[dict] = None, *,
               axis_order: Tuple[str, ...] = AXIS_ORDER,
               world_size: Optional[int] = None,
-              rank: Optional[int] = None) -> Mesh:
+              rank: Optional[int] = None, device: Any = None) -> Mesh:
     """A mesh over the ranks of the default process group (one rank
     without one). `world_size` and `rank` stand in for the group's (a
-    caller laying out ranks it has not started).
+    caller laying out ranks it has not started); `device` is where this
+    rank computes (None: the card).
 
     >>> make_mesh({"tp": 2})  # 2 ranks: 2-way tensor parallel
     """
@@ -212,7 +264,13 @@ def make_mesh(axis_sizes: Optional[dict] = None, *,
         group = dist.group.WORLD
         backend = dist.get_backend()
     return Mesh(tuple(axis_order), tuple(sizes[a] for a in axis_order),
-                rank=r, group=group, backend=backend)
+                rank=r, group=group, backend=backend, device=device)
+
+
+def single_mesh(device: Any = None) -> Mesh:
+    """The mesh of one rank, whatever group the process has joined: the
+    trainer's one-device path."""
+    return Mesh(AXIS_ORDER, (1,) * len(AXIS_ORDER), device=device)
 
 
 def init_process_group(backend: str, init_method: str, world_size: int,
@@ -283,20 +341,57 @@ class ParallelAxis:
         return self.rank == 0
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the ranks (the row-parallel product's reduce), in place
-        on `x`, which is returned."""
+        """The "reduce" pair: the sum over the ranks forward (the
+        row-parallel product's reduce, the vocabulary-parallel embedding,
+        the ep combine), the identity backward. Without a gradient to
+        carry it sums in place on `x`, which is returned; with one, into a
+        new tensor."""
         if self.size == 1:
             return x
+        if _carries_grad(x):
+            return _Reduce.apply(x, self)
+        return self._all_reduce_(x)
+
+    def _all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
         from torch import distributed as dist
 
         dist.all_reduce(x, group=self.group)
         return x
 
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """The "copy" pair: the identity forward, the sum of the ranks'
+        gradients backward; on a replicated activation entering a
+        column-parallel product or this rank's experts, each rank's
+        product giving only its share of the activation's gradient. `x`
+        itself without a gradient to carry."""
+        if self.size == 1 or not _carries_grad(x):
+            return x
+        return _Copy.apply(x, self)
+
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """Concatenate every rank's `x` along `dim`, in rank order (the
-        vocabulary shards of the logits)."""
+        """The "gather" pair: every rank's `x` concatenated along `dim` in
+        rank order forward (the vocabulary shards of the logits); this
+        rank's slice of the gradient backward, for a replicated
+        computation downstream, whose gradient every rank holds whole."""
         if self.size == 1:
             return x
+        if _carries_grad(x):
+            return _Gather.apply(x, self, dim, False)
+        return self._all_gather(x, dim)
+
+    def all_gather_rs(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The gather whose backward is a reduce-scatter: for a caller
+        that gathers, computes on the whole and goes on with its own slice
+        only (the expert layer's tokens over sp and dp), so each rank's
+        gradient of the whole is a share, summed over the ranks before
+        this rank takes its slice. Forward exactly `all_gather`."""
+        if self.size == 1:
+            return x
+        if _carries_grad(x):
+            return _Gather.apply(x, self, dim, True)
+        return self._all_gather(x, dim)
+
+    def _all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         from torch import distributed as dist
 
         x = x.contiguous()
@@ -318,25 +413,66 @@ class ParallelAxis:
         return box[0]
 
     def rotate(self, x: torch.Tensor) -> torch.Tensor:
-        """One ring step: send `x` to the next rank along the axis and
-        return what the previous one sent (the ring attention's K/V
-        rotation). Over gloo a CUDA tensor travels through host buffers,
+        """The "rotate" pair: one ring step forward, sending `x` to the
+        next rank along the axis and returning what the previous one sent
+        (the ring attention's K/V rotation); backward the gradient goes
+        the other way, to the previous rank, and the next one's comes
+        back. Over gloo a CUDA tensor travels through host buffers,
         staged here explicitly: gloo's point-to-point ops move host
         memory. nccl sends the device tensor itself."""
         if self.size == 1:
             return x
+        STATS["rotate"] += 1
+        if _carries_grad(x):
+            return _Rotate.apply(x, self)
+        return self._shift(x, 1)
+
+    def _staged(self, x: torch.Tensor) -> bool:
+        return self.backend == "gloo" and x.device.type == "cuda"
+
+    def _shift(self, x: torch.Tensor, step: int) -> torch.Tensor:
+        """Send `x` to the rank `step` along the ring and receive from the
+        rank `step` before it, as one paired batch of point-to-point
+        ops."""
         from torch import distributed as dist
 
-        staged = self.backend == "gloo" and x.device.type == "cuda"
+        staged = self._staged(x)
         send = x.detach().to("cpu") if staged else x.detach().contiguous()
         recv = torch.empty_like(send)
-        nxt = self._global((self.rank + 1) % self.size)
-        prv = self._global((self.rank - 1) % self.size)
+        nxt = self._global((self.rank + step) % self.size)
+        prv = self._global((self.rank - step) % self.size)
         ops = [dist.P2POp(dist.isend, send, nxt, self.group),
                dist.P2POp(dist.irecv, recv, prv, self.group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return recv.to(x.device, non_blocking=False) if staged else recv
+
+    def send(self, x: torch.Tensor, dst: int) -> None:
+        """Send `x` to the axis' `dst`-th rank (a pp hop: the activation
+        forward, its gradient back), through host memory over gloo."""
+        from torch import distributed as dist
+
+        t0 = time.perf_counter()
+        buf = x.detach().to("cpu") if self._staged(x) else \
+            x.detach().contiguous()
+        dist.send(buf, self._global(dst), group=self.group)
+        STATS["send"] += 1
+        STATS["send_s"] += time.perf_counter() - t0
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        """A tensor shaped and typed as `like`, on its device, received
+        from the axis' `src`-th rank (the other end of `send`)."""
+        from torch import distributed as dist
+
+        t0 = time.perf_counter()
+        staged = self._staged(like)
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if staged else like.device)
+        dist.recv(buf, self._global(src), group=self.group)
+        out = buf.to(like.device) if staged else buf
+        STATS["recv"] += 1
+        STATS["recv_s"] += time.perf_counter() - t0
+        return out
 
     def abort(self) -> None:
         """Abort the process group after this rank failed mid-call: its
@@ -359,6 +495,70 @@ class ParallelAxis:
             abort(self.group)
         except Exception:
             log.exception("aborting the %s process group failed", self.name)
+
+
+def _carries_grad(x: torch.Tensor) -> bool:
+    """Whether a collective on `x` must carry a gradient: grad mode on and
+    `x` part of the graph. Otherwise the pairs run serving's collective."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis._all_reduce_(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._all_reduce_(
+            g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward; backward this rank's slice of the gradient,
+    summed over the ranks first where `scatter` (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, scatter):
+        ctx.axis, ctx.dim, ctx.scatter = axis, dim, scatter
+        ctx.n = x.shape[dim]
+        return axis._all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        if ctx.scatter:
+            g = axis._all_reduce_(g.clone(memory_format=torch.contiguous_format))
+        return g.narrow(ctx.dim, axis.rank * ctx.n, ctx.n), None, None, None
+
+
+class _Rotate(torch.autograd.Function):
+    """One ring step forward; the gradient one step back."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis._shift(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        STATS["rotate_backward"] += 1
+        return ctx.axis._shift(g, -1), None
 
 
 # The tp axis keeps its name: the models' and engines' callers.

@@ -27,6 +27,12 @@ What the slice adds to the JAX spec:
   `wte` at any tp above 1, BERT's 30,522-row word table at tp 4, an
   expert stack at an ep that does not divide its experts).
 
+The trainer's state (`train.train.train_state_shardings`) takes the
+same specs, with the pipeline's "pp" on a block leaf's layer axis under
+pp > 1; `slice_leaf` cuts a rank's slice of any leaf by its spec and
+`gather_leaf` puts the whole leaf back together from the ranks' slices
+(a checkpoint's unsharded layout).
+
 Weight-only int8 pairs (`models/quant.py`) shard as the rules say: `q` like
 the dense leaf; the per-column `s` of a column-parallel leaf like its
 columns; the `s` of a row-parallel leaf whole (a per-column scale commutes
@@ -261,3 +267,36 @@ def shard_params(params: Any, rules: Rules, rank: int, tp: int,
         return leaf
 
     return _map(params, cut)
+
+
+def slice_leaf(path: str, x: torch.Tensor, spec: Spec,
+               coords: Dict[str, int], sizes: Dict[str, int]) -> torch.Tensor:
+    """This rank's slice of a whole leaf: cut along each axis its spec
+    names (tp, ep, or the trainer's pp on a block's layer axis) that splits
+    the mesh, by this rank's coordinate on it; the fused qkv leaves per
+    head within each third (`_slice`). A leaf the mesh does not split is
+    returned as it is."""
+    for axis, name in enumerate(spec):
+        if name is not None and sizes.get(name, 1) > 1:
+            x = _slice(path, x, axis, coords[name], sizes[name], name)
+    return x
+
+
+def gather_leaf(path: str, x: torch.Tensor, spec: Spec, axes: Dict) -> Any:
+    """The whole leaf from every rank's slice (the inverse of
+    `slice_leaf`): gathered over each axis its spec names, `axes` the
+    rank's `parallel.mesh.ParallelAxis` by name; the fused qkv leaves'
+    thirds put back together. A collective over those axes: every rank
+    of them calls it."""
+    for axis, name in enumerate(spec):
+        if name is None or axes[name].size == 1:
+            continue
+        ax = axes[name]
+        parts = torch.chunk(ax.all_gather(x.contiguous(), dim=axis),
+                            ax.size, dim=axis)
+        if name == "tp" and _FUSED_QKV.search(path):
+            thirds = [torch.chunk(p, 3, dim=axis) for p in parts]
+            x = torch.cat([t[j] for j in range(3) for t in thirds], dim=axis)
+        else:
+            x = torch.cat(parts, dim=axis)
+    return x

@@ -20,8 +20,15 @@ that is the gloo route, and there is no other; nccl sends the device
 tensors.
 
 Scope, as in the JAX package: the full-sequence direction (the scoring
-tenant's forward at `EngineConfig.sp > 1`). Decode reads a KV cache a
-token at a time and never shards the sequence.
+tenant's forward at `EngineConfig.sp > 1`, and the trainer's at sp > 1).
+Decode reads a KV cache a token at a time and never shards the sequence.
+
+The backward is autograd's through the online-softmax loop: `rotate` is
+the "rotate" pair of `parallel/mesh.py`, so each block's gradient travels
+back round the ring to the rank that sent the block, one rotation a step
+(sp - 1 a call), and the ranks' K/V gradients sum to the dense attention's.
+The block's scores are kept for the backward (sp blocks of [T/sp, T/sp]
+a layer); the trainer's remat recomputes them, rotations included.
 """
 
 from __future__ import annotations

@@ -11,6 +11,15 @@ JAX package's, so a checkpoint of either package resumes in the other.
 `export_model()` writes the params alone in HF layout, so a fine-tuned
 model serves through the standard checkpoint path
 (`TutoringEngine(checkpoint=...)`, the node's `--checkpoint`).
+
+A sharded train state (`train.train.train_state_shardings`) is saved and
+exported whole: every rank's slice of each leaf is gathered
+(`parallel.partition.gather_leaf`; every rank of the mesh calls), rank 0
+writes one file with the unsharded layout, JAX's keys, shapes and dtypes,
+and every rank waits for it. `restore_train_state` reads the whole file on
+every rank and keeps the rank's slice, so a run saved at one layout
+resumes at another (the JAX package's `restore_train_state(...,
+shardings=)`).
 """
 
 from __future__ import annotations
@@ -65,14 +74,52 @@ def map_with_paths(fn: Callable[[str, Any], Any], tree: Any,
     return fn(prefix, tree)
 
 
-def _flatten(state: Any) -> Dict[str, Any]:
+def _gathered(tree: Any, mesh: Any, prefix: str = "") -> Any:
+    """`tree` (a rank's slice of the train state, or of its params under
+    `prefix` "params/") with each leaf gathered whole over the mesh
+    (`parallel.partition.gather_leaf`, by the leaf's partition spec): a
+    collective, every rank calls and gets the whole tree."""
+    from ..parallel import partition
+    from .train import model_axes, state_spec
+
+    params = tree if prefix else tree["params"]
+    spec = state_spec(mesh, "moe" in params.get("blocks", {}))
+    axes = model_axes(mesh)
+    with torch.no_grad():
+        return map_with_paths(
+            lambda key, leaf: partition.gather_leaf(
+                key, leaf, spec(prefix + key, leaf), axes), tree)
+
+
+def _flatten(state: Any, mesh: Any = None) -> Dict[str, Any]:
+    """Every leaf on the host by its path; over a mesh of several ranks
+    gathered whole first (every rank calls), an empty dict on every rank
+    but 0."""
+    if mesh is not None and mesh.world_size > 1:
+        state = _gathered(state, mesh)
+        if mesh.rank != 0:
+            return {}
     return {key: convert.to_host(leaf)
             for key, leaf in flatten_with_paths(state)}
 
 
-def save_train_state(path: str, state: Any) -> None:
-    """Write the whole train state to `path` (.safetensors) + `path`.json."""
-    flat = _flatten(state)
+def _written(mesh: Any) -> None:
+    """Every rank of a mesh of several waits here until rank 0 has
+    written."""
+    if mesh is not None and mesh.world_size > 1:
+        from torch import distributed as dist
+
+        dist.barrier(group=mesh.group)
+
+
+def save_train_state(path: str, state: Any, mesh: Any = None) -> None:
+    """Write the whole train state to `path` (.safetensors) + `path`.json.
+    Over a `mesh` of several ranks: every rank calls, rank 0 writes the
+    gathered state."""
+    flat = _flatten(state, mesh)
+    if mesh is not None and mesh.rank != 0:
+        _written(mesh)
+        return
     convert.save_safetensors(path, flat)
     meta = {
         "step": int(state["step"]),
@@ -84,22 +131,39 @@ def save_train_state(path: str, state: Any) -> None:
         fh.flush()
         os.fsync(fh.fileno())
     os.replace(tmp, path + ".json")
+    _written(mesh)
 
 
-def restore_train_state(path: str, template: Any) -> Any:
+def restore_train_state(path: str, template: Any, mesh: Any = None) -> Any:
     """Load a checkpoint back into `template`'s structure.
 
     `template` is a freshly built train state (`init_train_state`): it
     gives the tree, each leaf's expected shape, dtype and device, and
-    whether it requires grad (the params do). A missing leaf or a shape
-    that differs raises.
+    whether it requires grad (the params do). Over a `mesh` of several
+    ranks the template is this rank's slice, and each whole leaf of the
+    file is cut to it (`parallel.partition.slice_leaf`). A missing leaf or
+    a shape that differs raises.
     """
     tensors = convert.load_safetensors(path)
+    cut = None
+    if mesh is not None and mesh.world_size > 1:
+        from ..parallel import partition
+        from .train import state_spec
+
+        spec = state_spec(mesh, "moe" in template["params"].get("blocks", {}))
+        coords, sizes = mesh.coords(), mesh.shape
+
+        def cut(key, value):
+            value = torch.as_tensor(value)
+            return partition.slice_leaf(key, value, spec(key, value), coords,
+                                        sizes)
 
     def restore(key: str, leaf: torch.Tensor) -> torch.Tensor:
         if key not in tensors:
             raise ValueError(f"checkpoint {path} missing leaf {key!r}")
         value = tensors[key]
+        if cut is not None:
+            value = cut(key, value)
         if tuple(value.shape) != tuple(leaf.shape):
             raise ValueError(
                 f"checkpoint leaf {key!r} has shape {value.shape}, "
@@ -111,13 +175,25 @@ def restore_train_state(path: str, template: Any) -> Any:
     return map_with_paths(restore, template)
 
 
-def export_model(path: str, state: Any) -> None:
+def export_model(path: str, state: Any, mesh: Any = None) -> None:
     """Write just the fine-tuned parameters in HF GPT-2 layout (the inverse
     of the import mapping), so `TutoringEngine(checkpoint=path)` serves the
     fine-tuned model through the standard checkpoint path. MoE params have
     no HF counterpart layout; they export in the native tree layout
-    (slash-joined paths), which `models.moe.params_from_hf` reads back."""
+    (slash-joined paths), which `models.moe.params_from_hf` reads back.
+    Over a `mesh` of several ranks: every rank calls, rank 0 writes the
+    gathered params."""
     params = state["params"]
+    if mesh is None or mesh.world_size == 1:
+        _export(path, params)
+        return
+    params = _gathered(params, mesh, prefix="params/")
+    if mesh.rank == 0:
+        _export(path, params)
+    _written(mesh)
+
+
+def _export(path: str, params: Any) -> None:
     if "moe" in params.get("blocks", {}):
         convert.save_safetensors(path, _flatten(params))
         return

@@ -1,19 +1,33 @@
 """The training step, the driver and the CLI: fine-tune the tutoring model
-on course material, on one device.
+on course material, on one device or sharded over dp, tp, sp, ep and pp.
 
 Port of `distributed_lms_raft_llm_tpu/train/train.py`. The reference has
 no training (SURVEY.md §2.2); the JAX package added the path, and the port
 carries it: the LM loss, AdamW with a warmup-cosine schedule and global-norm
 clipping, rematerialized blocks, the MoE load-balance aux loss, periodic
-checkpoints that resume, and the export the tutoring node serves.
+checkpoints that resume, the export the tutoring node serves, and the
+sharded step (`make_sharded_train_step`, `train_state_shardings`).
 
 What differs from the JAX package:
 
-- One device. `fit` takes `device` where the reference takes a mesh, and
-  the CLI refuses `--tp/--sp/--pp/--ep` above 1: those axes are
-  `parallel/`'s, which is not ported yet (nor are
-  `make_sharded_train_step` and `train_state_shardings`, the identity on
-  one device).
+- One process a rank over `torch.distributed` (`parallel.mesh`), where
+  JAX jits one global step and lets XLA derive the collectives. Each rank
+  holds its slice of the train state (`train_state_shardings`: the params
+  by GPT2_RULES / MOE_RULES, a block leaf's layer axis over pp, Adam's
+  moments as their parameter, counts and step whole) and its block of the
+  batch (its dp rows; under sp the forward embeds its T/sp of each row,
+  as `gpt2.forward`'s ring mode does). The forward's collectives are the
+  conjugate pairs of `parallel.mesh`, so each rank's gradient of a leaf is
+  that of the one global loss with respect to its copy or shard; the step
+  then sums the gradients over the data axes (dp, sp), takes the global
+  norm over distinct shards (a leaf replicated over tp, ep or pp counted
+  once) and applies the same clip on every rank. The token mean divides
+  the ranks' summed masked log likelihood by the all-reduced mask count;
+  a shard's last position predicts the next shard's first token. MoE
+  routes the global batch (the expert layer gathers the rows over dp as
+  it gathers the sequence over sp), and its aux term, whole on every
+  rank, enters each data rank's backward divided by the data ranks, so
+  the summed gradient counts it once.
 - The optimizer is written out to optax's formulas (`AdamW`), its state
   named as optax's (`EmptyState`, `ScaleByAdamState`,
   `ScaleByScheduleState`), so the checkpoint's leaf names are the
@@ -24,8 +38,13 @@ What differs from the JAX package:
 - The step updates the state's tensors in place and returns the same
   state (the reference's jitted step donates its state).
 - `remat` recomputes each block in the backward pass
-  (`gpt2.forward(remat=True)`), where the reference wraps the whole
-  forward in `jax.checkpoint`: the same loss, less memory held.
+  (`gpt2.forward(remat=True)`; under pp each layer inside its stage),
+  where the reference wraps the whole forward in `jax.checkpoint`: the
+  same loss, less memory held.
+- `fit` takes a mesh, or a device for one rank (`parallel.mesh.
+  single_mesh`); the CLI joins torchrun's group with the `--backend` the
+  caller names and lays ranks out as JAX's CLI does; rank 0 logs and
+  writes the checkpoint and the export, which hold the unsharded layout.
 - Llama presets raise: the reference's step runs `gpt2.forward` too.
 """
 
@@ -34,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
@@ -41,7 +61,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import gpt2, moe
-from .checkpoint import flatten_with_paths
+from ..parallel import mesh as mesh_lib
+from ..parallel import partition
+from .checkpoint import flatten_with_paths, map_with_paths
 
 Params = Dict[str, Any]
 
@@ -54,8 +76,9 @@ class TrainConfig:
     decay_steps: int = 10_000  # cosine horizon; set to the planned run length
     max_grad_norm: float = 1.0
     remat: bool = True  # rematerialize block activations (memory for ops)
-    # GPipe microbatches per step when pp > 1 (the reference's pipeline;
-    # pp is refused here until parallel/ is ported).
+    # GPipe microbatches per step when the mesh has a pp axis > 1 (the
+    # stacked trunk pipelines via parallel.pipeline.pipeline_trunk; bubble
+    # fraction (pp-1)/(pp_micro+pp-1)).
     pp_micro: int = 2
     # MoE: weight of the Switch load-balance aux loss (models/moe.py,
     # applies only to GPT2MoEConfig models — keeps the router from
@@ -159,14 +182,18 @@ class AdamW:
                                EmptyState(), ScaleByScheduleState(count())))
 
     def apply(self, params: Sequence[torch.Tensor],
-              grads: Sequence[torch.Tensor], opt_state) -> torch.Tensor:
+              grads: Sequence[torch.Tensor], opt_state,
+              norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update, in place: `params` (the tree's leaves in order), the
-        moments and both counts. Returns the gradients' global norm before
-        clipping. Call under `torch.no_grad()`."""
+        moments and both counts. `norm` is the gradients' global norm
+        where the caller took it over shards (the sharded step: the same
+        number on every rank), else taken here. Returns it (before
+        clipping). Call under `torch.no_grad()`."""
         adam, _, sched = opt_state[1]
         mus = [v for _, v in flatten_with_paths(adam.mu)]
         nus = [v for _, v in flatten_with_paths(adam.nu)]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        if norm is None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         below = norm < self.max_grad_norm
         n = adam.count + 1
         bc1 = 1 - self.b1 ** n
@@ -195,24 +222,42 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 # ------------------------------------------------------------------ step
 
 
-def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
-    """Token-mean cross entropy; logits [B,T,V] f32, targets/mask [B,T]."""
+def masked_nll(logits: torch.Tensor, targets: torch.Tensor,
+               mask: torch.Tensor):
+    """`lm_loss`'s numerator and denominator: the masked sum of -log p of
+    each target, and the mask's sum (the sharded step sums both over the
+    data ranks before it divides)."""
     logp = torch.log_softmax(logits, dim=-1)
     picked = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     mask = mask.float()
-    return -torch.sum(picked * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return -torch.sum(picked * mask), torch.sum(mask)
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy; logits [B,T,V] f32, targets/mask [B,T]."""
+    total, count = masked_nll(logits, targets, mask)
+    return total / torch.clamp(count, min=1.0)
 
 
 def init_train_state(seed: int, model_cfg: gpt2.GPT2Config,
-                     optimizer: AdamW,
-                     device: DeviceLike = "cuda") -> Dict[str, Any]:
+                     optimizer: AdamW, device: DeviceLike = "cuda",
+                     mesh: Optional[mesh_lib.Mesh] = None) -> Dict[str, Any]:
     """Params from the family's seeded init (requiring grad), the
-    optimizer's zero state and step 0 (int32), on `device`."""
+    optimizer's zero state and step 0 (int32), on `device`. With a `mesh`
+    the params are this rank's slice (`train_state_shardings`) of the same
+    init on every rank, and the moments the slice's zeros."""
     check_trainable(model_cfg)
     dev = resolve_device(device)
     init = moe.init_params if _is_moe(model_cfg) else gpt2.init_params
     params = init(model_cfg, seed, dev)
+    if mesh is not None and mesh.world_size > 1:
+        spec = state_spec(mesh, _is_moe(model_cfg))
+        coords, sizes = mesh.coords(), mesh.shape
+        params = map_with_paths(
+            lambda path, leaf: partition.slice_leaf(
+                path, leaf, spec(f"params/{path}", leaf), coords, sizes),
+            params)
     for _, leaf in flatten_with_paths(params):
         leaf.requires_grad_(True)
     return {
@@ -222,55 +267,255 @@ def init_train_state(seed: int, model_cfg: gpt2.GPT2Config,
     }
 
 
+def train_state_shardings(state: Dict[str, Any],
+                          mesh: mesh_lib.Mesh) -> Dict[str, Any]:
+    """What each leaf's slice is on this rank, the JAX package's
+    `train_state_shardings` as spec tuples (`parallel.partition.Spec`):
+    params and Adam's moments follow the model's partition rules (MoE
+    states, recognised by their blocks, take MOE_RULES: experts over ep);
+    a pp axis > 1 also splits every block leaf's layer axis over pp, each
+    stage holding its L/pp layers and their moments; counts and step are
+    whole. A tree matching `state`."""
+    is_moe = "moe" in state["params"].get("blocks", {})
+    return map_with_paths(state_spec(mesh, is_moe), state)
+
+
+def state_spec(mesh: mesh_lib.Mesh, is_moe: bool
+               ) -> Callable[[str, Any], partition.Spec]:
+    """`spec(path, leaf)`: the partition spec of the train state's leaf at
+    `path` (`params/...`, `opt_state/...`, `step`), as
+    `train_state_shardings` gives it."""
+    rules = partition.RULES_FOR["gpt2_moe" if is_moe else "gpt2"]
+    pipelined = mesh.shape.get("pp", 1) > 1
+
+    def param_spec(path: str, leaf: Any) -> partition.Spec:
+        spec = partition._spec_for(rules, path, leaf)
+        if pipelined and path.startswith("blocks/"):
+            spec = ("pp",) + tuple(spec[1:])
+        return spec
+
+    def spec(path: str, leaf: Any) -> partition.Spec:
+        if getattr(leaf, "ndim", 0) == 0:
+            return ()
+        for prefix in ("params/", "opt_state/1/0/mu/", "opt_state/1/0/nu/"):
+            if path.startswith(prefix):
+                return param_spec(path[len(prefix):], leaf)
+        return ()
+
+    return spec
+
+
+def model_axes(mesh: mesh_lib.Mesh) -> Dict[str, Any]:
+    """The rank's `ParallelAxis` by name (size 1 where the mesh does not
+    split an axis)."""
+    return {a: mesh.axis(a) for a in mesh.axis_names}
+
+
+def _sharded_cfg(model_cfg, axes: Dict[str, Any], pipelined: bool):
+    """The model config carrying the axes its forward's collectives run
+    over (none under pp: the pipeline's stage body has none)."""
+    if pipelined:
+        return model_cfg
+    kw = dict(tensor_parallel=axes["tp"] if axes["tp"].size > 1 else None,
+              sequence_parallel=axes["sp"] if axes["sp"].size > 1 else None)
+    if _is_moe(model_cfg):
+        kw.update(expert_parallel=axes["ep"] if axes["ep"].size > 1
+                  else None)
+    cfg = dataclasses.replace(model_cfg, **kw)
+    if _is_moe(model_cfg) and axes["dp"].size > 1:
+        cfg = moe.with_data_parallel(cfg, axes["dp"])
+    return cfg
+
+
 def make_train_step(
     model_cfg: gpt2.GPT2Config,
     optimizer: AdamW,
     remat: bool = True,
+    mesh: Optional[mesh_lib.Mesh] = None,
+    pp_micro: int = 2,
     moe_aux_weight: float = 0.01,
 ) -> Callable:
-    """Returns train_step(state, batch) -> (state, metrics): batch holds
-    `input_ids` and `loss_mask` [B, T] (numpy or tensors); metrics are
-    0-d tensors on the device: `loss`, `grad_norm` (before clipping) and,
-    for MoE, `moe_balance` (the layers' mean aux). The state's tensors are
-    updated in place."""
+    """Returns train_step(state, batch) -> (state, metrics): `state` this
+    rank's slice of the train state (`train_state_shardings`; the whole
+    state without a mesh), `batch` holds `input_ids` and `loss_mask`
+    [B, T] (numpy or tensors; under a mesh this rank's dp rows, as
+    `make_sharded_train_step`'s slicer gives them); metrics are 0-d
+    tensors on the device, the same on every rank: `loss`, `grad_norm`
+    (before clipping) and, for MoE, `moe_balance` (the layers' mean aux).
+    The state's tensors are updated in place. `train_step.last` holds the
+    last step's gradient all-reduce over the data axes: `bytes` and `ms`.
+
+    Parallel axes activate from the mesh's shape, as in the JAX package:
+    tp, ep and sp shard the forward (`gpt2.forward` with the axes in its
+    config: ring attention at sp > 1); pp > 1 runs the trunk as a GPipe
+    pipeline (`gpt2.forward_pipelined`) with `pp_micro` microbatches.
+    """
     check_trainable(model_cfg)
     is_moe = _is_moe(model_cfg)
+    mesh = mesh or mesh_lib.single_mesh()
+    shape = mesh.shape
+    pipelined = shape.get("pp", 1) > 1
+    if pipelined and is_moe:
+        raise ValueError(
+            "pp and MoE cannot combine yet: the pipeline stage body has "
+            "no aux-loss channel; use ep x tp x dp"
+        )
+    if pipelined:
+        # Combinations the pipeline schedule does not implement yet (the
+        # JAX package's refusals): ring attention would be dropped under
+        # sp, and the stage body has no tp collectives.
+        if shape.get("sp", 1) > 1:
+            raise ValueError(
+                "pp and sp cannot combine: the pipeline stage body uses "
+                "dense attention (ring attention unreachable under pp)"
+            )
+        if shape.get("tp", 1) > 1:
+            raise ValueError(
+                "pp and tp cannot combine: the pipeline stage body has no "
+                "tensor-parallel collectives; use pp x dp"
+            )
+    axes = model_axes(mesh)
+    cfg = _sharded_cfg(model_cfg, axes, pipelined)
+    sp = axes["sp"]
+    data_axes = [axes[a] for a in ("sp", "dp") if axes[a].size > 1]
+    data_ways = math.prod(a.size for a in data_axes)
+    world = mesh.world()
+    spec = state_spec(mesh, is_moe)
 
-    def loss_fn(params, input_ids, loss_mask):
-        out = gpt2.forward(params, model_cfg, input_ids,
-                           collect_moe_aux=is_moe, remat=remat)
-        # next-token prediction: shift by one
-        loss = lm_loss(out[0][:, :-1], input_ids[:, 1:], loss_mask[:, 1:])
-        if not is_moe:
-            return loss, None
-        return loss + moe_aux_weight * out[2], out[2]
+    def local_loss(params, ids, mask):
+        """This rank's masked sum of the next-token log likelihood (the
+        positions it computes), its mask count and the MoE aux."""
+        if pipelined:
+            logits = gpt2.forward_pipelined(params, cfg, ids, mesh,
+                                            n_micro=pp_micro, remat=remat)
+            aux = None
+        else:
+            out = gpt2.forward(params, cfg, ids, collect_moe_aux=is_moe,
+                               remat=remat)
+            logits, aux = out[0], (out[2] if is_moe else None)
+        # Next-token prediction: position p predicts ids[p + 1]; a shard's
+        # last position the next shard's first token, the last position
+        # of the sequence nothing.
+        t, t_loc = ids.shape[1], logits.shape[1]
+        lo = sp.rank * t_loc
+        n = min(t_loc, t - 1 - lo)
+        return (*masked_nll(logits[:, :n], ids[:, lo + 1:lo + 1 + n],
+                            mask[:, lo + 1:lo + 1 + n]), aux)
 
     def train_step(state, batch):
-        leaves = [v for _, v in flatten_with_paths(state["params"])]
+        names, leaves = zip(*flatten_with_paths(state["params"]))
         device = leaves[0].device
         ids = torch.as_tensor(batch["input_ids"], device=device).long()
         mask = torch.as_tensor(batch["loss_mask"], device=device)
         with torch.enable_grad():
-            loss, aux = loss_fn(state["params"], ids, mask)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            total, count, aux = local_loss(state["params"], ids, mask)
+            count = count.detach()
+            for ax in data_axes:
+                # "reduce": each data rank's backward takes its own sum's
+                # share of the global mean.
+                total = ax.all_reduce(total)
+                count = ax.all_reduce(count)
+            loss = total / torch.clamp(count, min=1.0)
+            target = loss
+            if is_moe:
+                # The aux is whole on every rank; the data ranks' summed
+                # gradients count it once.
+                target = loss + (moe_aux_weight / data_ways) * aux
+                loss = loss + moe_aux_weight * aux.detach()
+            grads = torch.autograd.grad(target, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
         with torch.no_grad():
-            gnorm = optimizer.apply(leaves, grads, state["opt_state"])
+            train_step.last = _sum_over_data(grads, data_axes)
+            norm = None
+            if world.size > 1:
+                specs = [spec(f"params/{k}", g) for k, g in zip(names, grads)]
+                norm = _global_norm(grads, specs, mesh, world)
+            gnorm = optimizer.apply(leaves, grads, state["opt_state"], norm)
             state["step"].add_(1)
         metrics = {"loss": loss.detach(), "grad_norm": gnorm}
         if is_moe:
             metrics["moe_balance"] = aux.detach()
         return state, metrics
 
+    train_step.last = {"bytes": 0, "ms": 0.0}
     return train_step
+
+
+def _sum_over_data(grads, data_axes) -> Dict[str, Any]:
+    """Sum the gradients over the data axes (sp, then dp) in one flat
+    buffer each; returns the bytes a rank all-reduced and the wall ms
+    (0 without data axes). Over gloo a CUDA buffer crosses host memory, so
+    the ms are gloo's, not the data axis' speed."""
+    if not data_axes:
+        return {"bytes": 0, "ms": 0.0}
+    t0 = time.perf_counter()
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    for ax in data_axes:
+        ax.all_reduce(flat)
+    offset = 0
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[offset:offset + n].view_as(g))
+        offset += n
+    if flat.is_cuda:
+        torch.cuda.synchronize(flat.device)
+    return {"bytes": flat.numel() * flat.element_size() * len(data_axes),
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def _global_norm(grads, specs, mesh, world) -> torch.Tensor:
+    """optax.global_norm of the logical gradient, the same number on every
+    rank: each leaf's squares divided by the ranks that hold the same
+    slice of it (its replicas over the axes its spec does not name: the
+    data axes, whose gradients are already summed, and tp, ep or pp where
+    the leaf is whole), then summed over every rank."""
+    shape = mesh.shape
+    sq = []
+    for g, spec in zip(grads, specs):
+        split = math.prod(shape[a] for a in spec if a is not None)
+        sq.append(torch.sum(g * g) / (world.size // split))
+    total = sum(sq).reshape(1)
+    world.all_reduce(total)
+    return torch.sqrt(total[0])
+
+
+def make_sharded_train_step(mesh: mesh_lib.Mesh, model_cfg: gpt2.GPT2Config,
+                            train_cfg: TrainConfig, seed: int = 0):
+    """Everything wired: returns (step, state, batch_slicer). `state` is
+    this rank's slice of the seeded init on `mesh`'s device;
+    `batch_slicer(batch)` keeps this rank's block of a global batch (every
+    rank is handed the whole): its dp rows, as tensors on the device, the
+    sequence whole (under sp the forward embeds this rank's T/sp of it);
+    together they stand for JAX's batch sharding `P("dp", "sp")`. Call
+    `step(state, batch_slicer(batch))`."""
+    optimizer = make_optimizer(train_cfg)
+    device = mesh.torch_device()
+    step = make_train_step(model_cfg, optimizer, remat=train_cfg.remat,
+                           mesh=mesh, pp_micro=train_cfg.pp_micro,
+                           moe_aux_weight=train_cfg.moe_aux_weight)
+    state = init_train_state(seed, model_cfg, optimizer, device, mesh)
+    dp, dp_rank = mesh.shape["dp"], mesh.coords()["dp"]
+
+    def batch_slicer(batch) -> Dict[str, torch.Tensor]:
+        out = {}
+        for key in ("input_ids", "loss_mask"):
+            v = torch.as_tensor(batch[key])
+            if v.shape[0] % dp:
+                raise ValueError(f"batch of {v.shape[0]} rows does not "
+                                 f"split over dp={dp}")
+            per = v.shape[0] // dp
+            out[key] = v[dp_rank * per:(dp_rank + 1) * per].to(device)
+        return out
+
+    return step, state, batch_slicer
 
 
 # ------------------------------------------------------------------ driver
 
 
 def fit(
-    device: DeviceLike,
+    mesh,
     model_cfg: gpt2.GPT2Config,
     train_cfg: TrainConfig,
     dataset,                      # train.data.PackedDataset
@@ -283,26 +528,32 @@ def fit(
 ) -> Dict[str, Any]:
     """Fine-tune on course data with periodic checkpointing and resume.
 
-    If `checkpoint_path` exists, training RESUMES from it: the full state
-    (params, optimizer moments, counts, step) restores onto `device` and
-    the data order continues from the recorded step, so an interrupted run
-    and an uninterrupted one walk the same step sequence. Returns the
-    metrics of the last logged step (host floats), the state, the step,
-    and `history`: each logged step's metrics with `step_ms`, the wall per
+    `mesh` is a `parallel.mesh.Mesh` (its device, this rank's slice), or
+    a device for one rank. Every rank walks the same batches and keeps its
+    block. If `checkpoint_path` exists, training RESUMES from it: the full
+    state (params, optimizer moments, counts, step) restores as this
+    rank's slice, whatever layout saved it, and the data order continues
+    from the recorded step, so an interrupted run and an uninterrupted one
+    walk the same step sequence. Rank 0 logs and writes the checkpoints
+    (gathered from every rank). Returns the metrics of the last logged
+    step (host floats), the state (this rank's slice), the step, and
+    `history`: each logged step's metrics with `step_ms`, the wall per
     step since the previous log (the log reads the loss, which waits for
     the device).
     """
     from . import checkpoint as ckpt_lib
 
+    if not isinstance(mesh, mesh_lib.Mesh):
+        mesh = mesh_lib.single_mesh(mesh)
     log = logging.getLogger("train")
-    optimizer = make_optimizer(train_cfg)
-    state = init_train_state(seed, model_cfg, optimizer, device)
+    lead = mesh.rank == 0
+    step_fn, state, batch_slicer = make_sharded_train_step(
+        mesh, model_cfg, train_cfg, seed)
     if checkpoint_path and ckpt_lib.latest_step(checkpoint_path) is not None:
-        state = ckpt_lib.restore_train_state(checkpoint_path, state)
-        log.info("resumed from %s at step %d", checkpoint_path,
-                 int(state["step"]))
-    step_fn = make_train_step(model_cfg, optimizer, remat=train_cfg.remat,
-                              moe_aux_weight=train_cfg.moe_aux_weight)
+        state = ckpt_lib.restore_train_state(checkpoint_path, state, mesh)
+        if lead:
+            log.info("resumed from %s at step %d", checkpoint_path,
+                     int(state["step"]))
 
     start_step = int(state["step"])
     steps_per_epoch = dataset.steps_per_epoch()
@@ -315,7 +566,7 @@ def fit(
             # Resume: skip batches the restored run already consumed.
             if epoch * steps_per_epoch + i < start_step:
                 continue
-            state, metrics = step_fn(state, batch)
+            state, metrics = step_fn(state, batch_slicer(batch))
             step_no += 1
             if step_no % log_every == 0 or step_no == start_step + 1:
                 metrics_host = {k: float(v) for k, v in metrics.items()}
@@ -324,26 +575,21 @@ def fit(
                 t_log, step_log = now, step_no
                 history.append(dict(step=step_no, step_ms=step_ms,
                                     **metrics_host))
-                log.info("step %d loss %.4f gnorm %.3f%s ms/step %.2f",
-                         step_no, metrics_host["loss"],
-                         metrics_host["grad_norm"],
-                         f" moe_balance {metrics_host['moe_balance']:.4f}"
-                         if "moe_balance" in metrics_host else "", step_ms)
+                if lead:
+                    log.info(
+                        "step %d loss %.4f gnorm %.3f%s ms/step %.2f",
+                        step_no, metrics_host["loss"],
+                        metrics_host["grad_norm"],
+                        f" moe_balance {metrics_host['moe_balance']:.4f}"
+                        if "moe_balance" in metrics_host else "", step_ms)
             if checkpoint_path and step_no % checkpoint_every == 0:
-                ckpt_lib.save_train_state(checkpoint_path, state)
+                ckpt_lib.save_train_state(checkpoint_path, state, mesh)
     if checkpoint_path:
-        ckpt_lib.save_train_state(checkpoint_path, state)
+        ckpt_lib.save_train_state(checkpoint_path, state, mesh)
     if not metrics_host:
         metrics_host = {"loss": float("nan"), "grad_norm": float("nan")}
     return {"state": state, "metrics": metrics_host, "step": step_no,
-            "history": history}
-
-
-PARALLEL_NOT_PORTED = (
-    "parallel/ carries serving's tensor, expert and sequence parallelism "
-    "only; the sharded "
-    "train step (tensor, sequence, pipeline and expert parallelism) is not "
-    "ported to PyTorch yet, and the port trains on one device")
+            "history": history, "mesh": mesh}
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -354,8 +600,16 @@ def main(argv=None) -> Dict[str, Any]:
         --merges data/gpt2-local/merges.txt --model tiny \
         --checkpoint ckpt/train_state.safetensors --epochs 2
 
+    Sharded, one process a rank under torchrun (dp takes the ranks the
+    other axes leave):
+
+    torchrun --nproc-per-node 2 -m distributed_lms_raft_llm_tpu_torch.train.train \
+        --data ... --pp 2 --backend gloo
+
     The JAX package's flags, plus `--device` (default cuda; cpu on
-    request) and `--log-every`; returns `fit`'s result.
+    request), `--backend` (nccl or gloo, never chosen for the caller: with
+    nccl each rank takes the card of its LOCAL_RANK) and `--log-every`;
+    returns `fit`'s result.
     """
     import argparse
 
@@ -380,21 +634,26 @@ def main(argv=None) -> Dict[str, Any]:
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--tp", type=int, default=1)
     parser.add_argument("--sp", type=int, default=1,
-                        help="sequence-parallel ways (refused above 1: "
-                        "parallel/ is not ported)")
+                        help="sequence-parallel ways: full-sequence "
+                        "attention runs as ring attention over sp shards "
+                        "(long-context training)")
     parser.add_argument("--pp", type=int, default=1,
-                        help="pipeline stages (refused above 1: parallel/ "
-                        "is not ported)")
+                        help="pipeline stages: the stacked trunk shards "
+                        "L/pp layers per rank (GPipe microbatching)")
     parser.add_argument("--pp-micro", type=int, default=2,
                         help="microbatches per step when --pp > 1")
     parser.add_argument("--ep", type=int, default=1,
-                        help="expert-parallel ways (MoE presets; refused "
-                        "above 1: parallel/ is not ported)")
+                        help="expert-parallel ways (MoE presets: expert "
+                        "stacks shard over ep; aux load-balance loss is "
+                        "applied automatically)")
     parser.add_argument("--checkpoint-every", type=int, default=50)
     parser.add_argument("--log-every", type=int, default=10,
                         help="log (and time) every N steps")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where to train (default the card)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="the collective backend when torchrun starts "
+                        "several ranks (WORLD_SIZE > 1); required there")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
@@ -406,13 +665,22 @@ def main(argv=None) -> Dict[str, Any]:
             f"--ep {args.ep} requires an MoE model preset; {args.model!r} "
             f"has no expert axis — the ep chips would silently replicate"
         )
-    wide = [f"--{axis} {n}" for axis, n in (
-        ("tp", args.tp), ("sp", args.sp), ("pp", args.pp), ("ep", args.ep))
-        if n > 1]
-    if wide:
-        raise NotImplementedError(f"{', '.join(wide)}: {PARALLEL_NOT_PORTED}")
     check_trainable(model_cfg)
     device = resolve_device(args.device)
+    from torch import distributed as dist
+
+    had_group = dist.is_available() and dist.is_initialized()
+    joined = mesh_lib.initialize_multihost(args.backend)
+    if joined and device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = mesh_lib.make_mesh(
+        {"pp": args.pp, "ep": args.ep, "sp": args.sp, "tp": args.tp,
+         "dp": -1}, device=device)
+    lead = mesh.rank == 0
+    if not lead:
+        logging.getLogger().setLevel(logging.WARNING)
     tokenizer = tok_lib.load_gpt2_tokenizer(args.vocab, args.merges, None)
     dataset = PackedDataset.from_paths(
         args.data, tokenizer,
@@ -426,13 +694,16 @@ def main(argv=None) -> Dict[str, Any]:
         pp_micro=args.pp_micro,
     )
     result = fit(
-        device, model_cfg, train_cfg, dataset, epochs=args.epochs,
+        mesh, model_cfg, train_cfg, dataset, epochs=args.epochs,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every, log_every=args.log_every,
     )
     if args.export:
-        ckpt_lib.export_model(args.export, result["state"])
-    print(f"trained to step {result['step']}: {result['metrics']}")
+        ckpt_lib.export_model(args.export, result["state"], mesh)
+    if lead:
+        print(f"trained to step {result['step']}: {result['metrics']}")
+    if joined and not had_group:
+        dist.destroy_process_group()
     return result
 
 

@@ -673,10 +673,11 @@ class _ByteTokLike:
 
 
 @pytest.mark.parametrize("flag,model,error,match", [
-    ("--tp", "tiny", NotImplementedError, r"--tp 2: parallel/"),
-    ("--sp", "tiny", NotImplementedError, r"--sp 2: parallel/"),
-    ("--pp", "tiny", NotImplementedError, r"--pp 2: parallel/"),
-    ("--ep", "moe-tiny", NotImplementedError, r"--ep 2: parallel/"),
+    # One process: the JAX CLI's make_mesh refusal of the layout.
+    ("--tp", "tiny", ValueError, r"^1 devices not divisible by 2$"),
+    ("--sp", "tiny", ValueError, r"^1 devices not divisible by 2$"),
+    ("--pp", "tiny", ValueError, r"^1 devices not divisible by 2$"),
+    ("--ep", "moe-tiny", ValueError, r"^1 devices not divisible by 2$"),
     ("--ep", "tiny", SystemExit, None),
 ])
 def test_cli_refuses_parallel_axes(tmp_path, capsys, flag, model, error,

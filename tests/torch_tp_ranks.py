@@ -530,6 +530,179 @@ def case_gate(tree, pairs, gate_kw):
     return out
 
 
+def _train_mesh(sizes):
+    """The mesh of `sizes` (every axis given) over every rank, on the
+    CPU."""
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+
+    return mesh.make_mesh(sizes, device="cpu")
+
+
+def _block(lp, h):
+    """tests/test_pipeline.py's layer: RMS norm, dense, gelu, dense,
+    residual."""
+    import torch
+
+    hn = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + 1e-6)
+    return h + torch.nn.functional.gelu(hn @ lp["w"]) @ lp["w2"]
+
+
+def case_pipeline(params, x, cot, sizes, n_micro, stage_sliced):
+    """`pipeline_trunk` over `sizes` (pp and dp) on `_block`: this rank's
+    output, and the gradients of sum(out * cot) with respect to x and to
+    the params (whole, or this stage's slice with `stage_sliced`; under dp
+    the rank pipelines its own rows of x)."""
+    import torch
+
+    from distributed_lms_raft_llm_tpu_torch.parallel import pipeline
+
+    m = _train_mesh(sizes)
+    pp, dp = m.axis("pp"), m.axis("dp")
+    x, cot = torch.as_tensor(x), torch.as_tensor(cot)
+    rows = x.shape[0] // dp.size
+    x = x[dp.rank * rows:(dp.rank + 1) * rows].clone().requires_grad_(True)
+    cot = cot[dp.rank * rows:(dp.rank + 1) * rows]
+    tree = {}
+    for k, v in params.items():
+        v = torch.as_tensor(v)
+        if stage_sliced:
+            per = v.shape[0] // pp.size
+            v = v[pp.rank * per:(pp.rank + 1) * per]
+        tree[k] = v.clone().requires_grad_(True)
+    pipeline.STATS.clear()
+    out = pipeline.pipeline_trunk(_block, tree, x, m, n_micro=n_micro,
+                                  stage_sliced=stage_sliced)
+    grads = torch.autograd.grad((out * cot).sum(), [x] + list(tree.values()))
+    return {"out": out.detach().numpy(), "gx": grads[0].numpy(),
+            "gp": {k: g.numpy() for k, g in zip(tree, grads[1:])},
+            "pp": pp.rank, "dp": dp.rank, "stats": dict(pipeline.STATS)}
+
+
+def case_forward_pipelined(tree, ids, sizes, n_micro, remat=False):
+    """`gpt2.forward_pipelined` of the tiny GPT-2 (float32, as many layers
+    as `tree` stacks) over `sizes` on the whole `tree`: the logits of this
+    rank's dp rows, and the gradient of their sum of squares with respect
+    to wte."""
+    import dataclasses
+
+    import torch
+
+    from distributed_lms_raft_llm_tpu_torch.models import gpt2
+
+    m = _train_mesh(sizes)
+    dp = m.axis("dp")
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32,
+                               param_dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, num_layers=len(tree["blocks/ln1/scale"]))
+    params = _tree_of(tree, requires_grad=True)
+    ids = torch.as_tensor(ids).long()
+    rows = ids.shape[0] // dp.size
+    ids = ids[dp.rank * rows:(dp.rank + 1) * rows]
+    logits = gpt2.forward_pipelined(params, cfg, ids, m, n_micro=n_micro,
+                                    remat=remat)
+    (g,) = torch.autograd.grad((logits * logits).sum(), [params["wte"]])
+    return {"logits": logits.detach().numpy(), "g_wte": g.numpy(),
+            "dp": dp.rank}
+
+
+def _tree_of(flat, requires_grad=False):
+    import torch
+
+    tree = {}
+    for key, value in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = torch.as_tensor(value).clone().requires_grad_(
+            requires_grad)
+    return tree
+
+
+def _model_cfg(model):
+    import torch
+
+    from distributed_lms_raft_llm_tpu_torch.models import gpt2, moe
+
+    if model == "moe-tiny":
+        return moe.GPT2MoEConfig.tiny(dtype=torch.float32,
+                                      param_dtype=torch.float32)
+    return gpt2.GPT2Config(vocab_size=256, max_position_embeddings=32,
+                           hidden_size=64, num_layers=2, num_heads=4,
+                           dtype=torch.float32, param_dtype=torch.float32)
+
+
+def case_train(model, state_path, batches, sizes, train_kw, save=None):
+    """The port's sharded train step over `sizes`, from the train state
+    saved at `state_path` (the JAX package's file: every rank keeps its
+    slice; None: the port's seeded init), through `batches` (global; each rank keeps its block): each
+    step's loss, grad_norm and moe_balance (every rank's), the last step's
+    gradient all-reduce, the ring's rotations forward and backward over
+    the steps, the leaves a rank holds with their shapes, and on
+    rank 0 the whole state after the steps, gathered. `save` writes the
+    state there (every rank calls, rank 0 writes)."""
+    from distributed_lms_raft_llm_tpu_torch.models import convert
+    from distributed_lms_raft_llm_tpu_torch.train import checkpoint as ckpt
+    from distributed_lms_raft_llm_tpu_torch.train import train
+
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+
+    m = _train_mesh(sizes)
+    cfg = train.TrainConfig(**train_kw)
+    step, state, slicer = train.make_sharded_train_step(
+        m, _model_cfg(model), cfg, 0)
+    mesh.STATS.clear()
+    if state_path:
+        state = ckpt.restore_train_state(state_path, state, m)
+    metrics = []
+    for batch in batches:
+        state, mt = step(state, slicer(batch))
+        metrics.append({k: float(v) for k, v in mt.items()})
+    ring = {k: mesh.STATS[k] for k in ("rotate", "rotate_backward")}
+    local = {k: tuple(v.shape) for k, v in ckpt.flatten_with_paths(state)}
+    flat = ckpt._flatten(state, m)
+    if save:
+        ckpt.save_train_state(save, state, m)
+    return {"metrics": metrics, "local": local, "last": dict(step.last),
+            "coords": m.coords(), "ring": ring,
+            "state": {k: convert.to_host(v) for k, v in flat.items()}
+            if m.rank == 0 else None}
+
+
+def case_train_refusals(model, sizes):
+    """make_sharded_train_step's refusal over `sizes`, its message (None
+    where it trains)."""
+    from distributed_lms_raft_llm_tpu_torch.train import train
+
+    try:
+        train.make_sharded_train_step(
+            _train_mesh(sizes), _model_cfg(model),
+            train.TrainConfig(warmup_steps=1), 0)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def case_fit(data_blocks, sizes, train_kw, epochs, ck=None, seed=5):
+    """`fit` over `sizes` on a PackedDataset of `data_blocks`: the step
+    reached and, on rank 0, the whole state gathered."""
+    import numpy as np
+
+    from distributed_lms_raft_llm_tpu_torch.models import convert
+    from distributed_lms_raft_llm_tpu_torch.train import checkpoint as ckpt
+    from distributed_lms_raft_llm_tpu_torch.train import data, train
+
+    m = _train_mesh(sizes)
+    ds = data.PackedDataset(np.asarray(data_blocks), data.DataConfig(
+        batch_size=8, seq_len=16, seed=1))
+    out = train.fit(m, _model_cfg("tiny"), train.TrainConfig(**train_kw),
+                    ds, epochs=epochs, seed=seed, checkpoint_path=ck)
+    flat = ckpt._flatten(out["state"], m)
+    return {"step": out["step"],
+            "state": {k: convert.to_host(v) for k, v in flat.items()}
+            if m.rank == 0 else None}
+
+
 CASES = {
     "forward": case_forward,
     "paged": case_paged,
@@ -543,6 +716,11 @@ CASES = {
     "ring_forward": case_ring_forward,
     "score": case_score,
     "gate": case_gate,
+    "pipeline": case_pipeline,
+    "forward_pipelined": case_forward_pipelined,
+    "train": case_train,
+    "train_refusals": case_train_refusals,
+    "fit": case_fit,
 }
 
 
