@@ -75,7 +75,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    answering two waves: one course prompt (a long shared course context)
    with the 12 bare questions, then, once that prompt's blocks are in the
    radix tree, the other 7 course prompts and 4 exact repeats of wave-1
-   questions; tokens/s, mean TTFT, graph replays and host decisions per
+   questions, the waves under the compile guard
+   (`compile_count_guard(expected_from_inventory(eng))`, `utils/guards.py`:
+   no new program key, graph capture, kernel build or layout validation,
+   and each program's keys equal to `engine/program_inventory.py`'s; the
+   `inventory` line prints them with the counters before and after, and a
+   negative witness, a guarded region that captures one more graph pair
+   and one that runs an int8 product at a new layout, must each raise
+   naming its counter); tokens/s, mean TTFT, graph replays and host decisions per
    generated token, the final K and dead lanes, stalled tokens (0), prefix
    hits (the shared context spliced into all 7 later course slots),
    launches by route counted through the replays (append-kernel attention
@@ -87,8 +94,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    while the admission graphs still hold theirs), and a `torch.profiler`
    window beside
    phase 4b's, holding no more of the port's kernels than counted; then
-   float32 (int8 cache, the 24 requests; dense cache, 12 of them: the 8
-   course prompts and 4 bare questions) greedy tokens of the
+   float32 (int8 and dense cache, 12 of the 24 requests: the 8 course
+   prompts and 4 bare questions) greedy tokens of the
    deployment config equal to the sequential config's, prefix hits
    included (in bf16 the share that agrees and the first divergences are
    reported, and each prompt's flip logits through the 32-token admission
@@ -124,8 +131,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    prefix hit of turn 1's whole blocks (`session_active` 1,
    `session_pinned_blocks` > 0), and a drain (POST /admin/drain: both RPCs
    UNAVAILABLE, /healthz draining; undrained, an answer again; /metrics
-   with stream_chunks, ttft, session_active); no CUDA graph captured
-   while serving;
+   with stream_chunks, ttft, session_active); every served run under the
+   compile guard (phase 4c's), the session engine's warmup capturing two
+   graphs a width;
 6. the relevance gate (`RelevanceGate`, configs/cluster.toml [gate]) at
    bert-base-uncased width (12 layers, 768 wide, vocabulary 30,522, 512
    positions, buckets 64-512, threshold 0.6), from seeded random weights
@@ -156,8 +164,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain version first at this engine's rows and cache width with its
    padding bias, bf16 and float32; window launches = 12 x verify windows;
    float32 tokens equal the plain decoder's) and the float32 deployment
-   with spec 8 equal to phase 4c's float32 deployment on the first 12 of
-   its 24 requests, 12 of 12; (c) the bf16 deployment with spec 8 (the
+   with spec 8 equal to phase 4c's float32 deployment on its 12
+   requests, 12 of 12; (c) the bf16 deployment with spec 8 (the
    kernel against its plain version first at each of its cache widths, 16
    slots, T = 9, int8 cache), through `PagedQueue` on 4c's two waves:
    tokens/s, TTFT, spec_tokens_per_window, spec_accepted_tokens, model
@@ -165,7 +173,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    drain's busy share (12 requests), answers beside 4c's and the greedy
    tokens of 12 requests beside 4c's (first divergences with their
    top-2 margins), window launches = 12 x verify model calls through the
-   replays, no other attention variant, no capture while serving; (d) the
+   replays, no other attention variant, served under the compile guard;
+   (d) the
    n-gram drafter under the reference sampling (12 requests, every answer
    non-empty, acceptance); (e) the server built from --spec-tokens 8, and
    4 unary answers and 4 streams over gRPC equal to the engine's direct
@@ -190,7 +199,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    quantum walls, the preemption wait (the first question lands mid-
    quantum: it must wait, and no longer than the longest quantum), no
    quantum while a question waited, no more serving-loop stalls than OFF,
-   no kernel built or graph captured; the job's bf16 logprobs within
+   all of it under the compile guard (the score program's keys its 16
+   score pairs); the job's bf16 logprobs within
    SCORE_BF16_REL_TOLERANCE of a run with the int8 matmul's plain version
    swapped in, and in float32 (int8 weights) a text's logprob batched
    equal to its logprob alone.
@@ -280,7 +290,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    restarted on its data directory at the leader's applied index within
    10 s of serving; launches over the phase through the node's counters
    (append = 12 x decode calls, int8 = 49 x model calls on the tensor
-   cores, no other attention variant, no capture while serving);
+   cores, no other attention variant; the node under the compile guard);
    GetLLMAnswer p50/p90 through the LMS beside the node's direct calls
    (cold, before the LMS run; and again after it, as warm), the leader's
    `gate.check` span p50/p90 over the 8 concurrent questions and alone
@@ -363,7 +373,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    through the replays: append = 12 x decode calls and no other
    attention variant, int8 = 49 x model calls exact by route (decode on
    the mma.sync tiles; admission chunks, prefills and score quanta on the
-   wgmma ones); no graph captured and no kernel built while serving.
+   wgmma ones); node 0 under the compile guard from its warmup to the
+   semester's end, and no kernel built in its boot.
    Printed: ask p50/p95, turn TTFT p95, degraded answers and rate, ledger
    counts, events, alerts, tick stalls, node 0's tokens/s, answers by
    course and routes, the launches and the phase's seconds.
@@ -513,6 +524,32 @@ def check(cond: bool, what: str) -> None:
 
 def emit(tag: str, **fields) -> None:
     print(f"{tag} {json.dumps(fields, sort_keys=True)}", flush=True)
+
+
+@contextlib.contextmanager
+def inventory_guard(eng, what: str):
+    """Serve inside `compile_count_guard(expected_from_inventory(eng))`
+    (`utils/guards.py`): no new program key, no graph capture, kernel build
+    or layout validation, and every warmup-covered program's key count
+    equal to the manifest's at the end. Yields a record that is filled, at
+    the end, with {program: [keys, inventoried]} and the three counters
+    before and after; a violation fails the phase."""
+    from distributed_lms_raft_llm_tpu_torch.utils.guards import (
+        RecompileError, card_counters, compile_count_guard,
+        expected_from_inventory)
+
+    expectation = expected_from_inventory(eng)
+    record = dict(counters_before=card_counters())
+    try:
+        with compile_count_guard(expectation, what=what) as guard:
+            yield record
+    except RecompileError as exc:
+        raise SmokeFailure(str(exc)) from exc
+    finally:
+        record.update(
+            programs={k: list(v) for k, v in expectation.report().items()},
+            counters_after=card_counters())
+    record["new_program_keys"] = guard.new_compiles()
 
 
 # ------------------------------------------------- decode attention
@@ -946,6 +983,13 @@ def deployment_waves():
     course = [COURSE_CONTEXT + PROMPT_TEMPLATE.format(query=q)
               for q in COURSE_QUESTIONS]
     return course[:1] + bare, course[1:] + bare[:4]
+
+
+def f32_batches(wave1, wave2):
+    """Phase 4c's float32 requests, which phase 7b's float32 spec run
+    repeats: 12 of its 24, the 8 course prompts (the first drained alone,
+    so the other 7 splice its context) and 4 bare questions."""
+    return (wave1[:1], wave1[1:5] + wave2[:len(COURSE_QUESTIONS) - 1])
 
 
 def engine_tokens(engine, *batches):
@@ -1477,7 +1521,10 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
     finals = eng.pop_final_tokens()
     direct = [finals[r] for r in rids]
     check(all(direct), "streaming: an empty direct answer")
-    captures0 = graphs.captures
+    # Every served run below is under the compile guard (`inventory_guard`).
+    serving_guard = contextlib.ExitStack()
+    stream_inventory = serving_guard.enter_context(
+        inventory_guard(eng, "phase 5b streams"))
 
     async def serve(body, **kw):
         server = await serve_async(0, eng, host="127.0.0.1",
@@ -1565,6 +1612,8 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
     c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
     streams, stream_wall, hdpt_watched_grpc, snap, resumed = asyncio.run(
         serve(stream_run))
+    serving_guard.close()
+    emit("inventory_5b_streams", **stream_inventory)
     launches = {**attention.launch_counts, **quant_matmul.launch_counts}
     decode_calls = eng.decode_steps - c0[0]
     model_calls = decode_calls + eng.admission_chunks - c0[1] + (
@@ -1618,7 +1667,7 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
         host_dispatches_per_token_grpc_unary=hdpt_unwatched_grpc,
         resumes=[(i, k, len(c)) for i, k, c in resumed],
         decode_model_calls=decode_calls, model_calls=model_calls,
-        launches=launches)
+        launches=launches, inventory=stream_inventory)
     del eng
     torch.cuda.empty_cache()
 
@@ -1629,6 +1678,7 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
     # tail is kept, and lose turn 1's head.
     seng = engine_cls(config_cls(
         sampling=sampling_cls.greedy(max_new_tokens=8), **conf), **deploy_kw)
+    captures0 = graphs.captures
     seng.warmup()
     captures1 = graphs.captures
     q1, q2 = QUESTIONS[1], "Why does that matter?"
@@ -1663,9 +1713,11 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
         return (full1, hits0, metrics, transcript, drained, health, codes,
                 again, final_metrics)
 
-    (full1, hits0, metrics, transcript, drained, health, codes, again,
-     final_metrics) = asyncio.run(serve_session(serve_async, seng,
-                                                session_and_drain))
+    with inventory_guard(seng, "phase 5b session and drain") as inventory:
+        (full1, hits0, metrics, transcript, drained, health, codes, again,
+         final_metrics) = asyncio.run(serve_session(serve_async, seng,
+                                                    session_and_drain))
+    emit("inventory_5b_session", **inventory)
     prompt1 = PROMPT_TEMPLATE.format(query=q1)
     prompt2 = prompt1 + full1 + FOLLOWUP_TEMPLATE.format(query=q2)
     ids1, ids2 = tok.encode(prompt1), tok.encode(prompt2)
@@ -1695,10 +1747,9 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
           and "session_active" in final_metrics["gauges"],
           f"/metrics lacks stream_chunks, ttft or session_active: "
           f"{sorted(final_metrics['counters'])}")
-    check(graphs.captures == captures1 and captures1 - captures0
-          == len(seng._graphs) * 2,
-          f"streaming: CUDA graphs captured while serving "
-          f"({graphs.captures} captures)")
+    check(captures1 - captures0 == len(seng._graphs) * 2,
+          f"session: warmup captured {captures1 - captures0} graphs for "
+          f"{len(seng._graphs)} widths")
     run.update(
         session=dict(turn2_prefix_hit_tokens=hits,
                      turn1_whole_block_tokens=want_hits,
@@ -1708,7 +1759,8 @@ def streaming_phase(torch, attention, quant_matmul, engine_cls, config_cls,
                          "session_pinned_blocks")),
         drain=dict(rpc_codes=codes, healthz_draining=health["draining"],
                    answered_after=again.success),
-        graph_captures_while_serving=graphs.captures - captures1)
+        graph_captures_while_serving=graphs.captures - captures1,
+        session_inventory=inventory)
     del seng
     torch.cuda.empty_cache()
     return run
@@ -1825,6 +1877,42 @@ def torch_append_nodes(kernels: dict) -> int:
     """A captured graph's kernel nodes (by name) of the torch append."""
     return sum(n for name, n in kernels.items()
                if any(k in name for k in TORCH_APPEND_KERNELS))
+
+
+def guard_witness(torch, quant_matmul, eng) -> dict:
+    """The compile guard's negative witness on the card: a guarded region
+    that captures one more pair of chunk graphs (at the live width, over
+    the same planes), and one that runs an int8 product at a layout no
+    path ran, must each raise `RecompileError` naming its counter."""
+    from distributed_lms_raft_llm_tpu_torch.models import quant
+    from distributed_lms_raft_llm_tpu_torch.utils.guards import (
+        RecompileError, compile_count_guard, expected_from_inventory)
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    w = quant.quantize_array(torch.randn((768, 256), generator=gen,
+                                         device="cuda") * 0.02)
+    x = torch.randn((3, 768), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    regions = (
+        ("captures", lambda: eng._capture(eng.state.cache.max_len)),
+        ("layouts", lambda: quant_matmul.int8_matmul(x, w["q"], w["s"])),
+    )
+    out = {}
+    for counter, body in regions:
+        t0 = time.monotonic()
+        raised = None
+        try:
+            with compile_count_guard(expected_from_inventory(eng),
+                                     what=f"witness ({counter})"):
+                body()
+                torch.cuda.synchronize()
+        except RecompileError as exc:
+            raised = str(exc)
+        out[counter] = dict(raised=raised, ms=1e3 * (time.monotonic() - t0))
+        check(raised is not None and f"{counter} +" in raised,
+              f"guard witness: a region that moves {counter} did not raise "
+              f"RecompileError naming it: {raised}")
+    return out
 
 
 def strict_dispatch_check(torch, eng, prompts) -> dict:
@@ -1997,10 +2085,15 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
           eng.graph_replays, eng.host_decisions, eng.total_generated_tokens)
     blocks0 = eng.prefix_cache.blocks_used
     # Wave 2 goes once the first course prompt (staged first, so served
-    # and flipped first) has published its blocks.
-    answers, wall, snap = run_paged_waves(
-        eng, queue_cls, metrics_cls, wave1, wave2,
-        ready=lambda: eng.prefix_cache.blocks_used - blocks0 >= lens[0] // blk)
+    # and flipped first) has published its blocks. The served waves run
+    # under the compile guard: no program key, capture, build or layout
+    # that warmup did not pay for, and the manifest's key counts exactly.
+    with inventory_guard(eng, "phase 4c served waves") as inventory:
+        answers, wall, snap = run_paged_waves(
+            eng, queue_cls, metrics_cls, wave1, wave2,
+            ready=lambda: (eng.prefix_cache.blocks_used - blocks0
+                           >= lens[0] // blk))
+    emit("inventory", **inventory)
     decode_calls = eng.decode_steps - c0[0]
     adm_calls = eng.admission_chunks - c0[1]
     model_calls = decode_calls + adm_calls + eng.prefill_calls - c0[2]
@@ -2053,7 +2146,8 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
         shared_context_tokens=shared, course_prompt_tokens=lens,
         prefix_hit_tokens_wanted=want_hits,
         host_dispatches_per_token=gauges.get("host_dispatches_per_token"),
-        launches=launches, warmup_s=warm_s, captured=captured)
+        launches=launches, warmup_s=warm_s, captured=captured,
+        inventory=inventory)
     emit("deployment_path", **run)
     prof = profile_paged(torch, eng, wave1[1:] + wave2[:4])
     emit("profile_deployment_step", **prof)
@@ -2081,6 +2175,8 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
     run["decode_call_ms_idle"] = refs["decode_call_ms"]
     run["strict_dispatch"] = strict_dispatch_check(torch, eng, wave2[4:6])
     emit("strict_dispatch", **run["strict_dispatch"])
+    run["guard_witness"] = guard_witness(torch, quant_matmul, eng)
+    emit("guard_witness", **run["guard_witness"])
     del eng
     torch.cuda.empty_cache()
     run["approx_top_k"] = approx_topk_check(torch)
@@ -2096,9 +2192,9 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
     # diverge are reported, not held; the flip logits witness below holds
     # the admission route to the cold prefill's accuracy instead.
     f32_checks = []
-    # The dense-cache float32 run takes 12 of the 24 requests: the 8
-    # course prompts (its prefix hits) and 4 bare questions.
-    dense_batches = (wave1[:1], wave1[1:5] + wave2[:len(COURSE_QUESTIONS) - 1])
+    # The float32 runs take 12 of the 24 requests: the 8 course prompts
+    # (their prefix hits) and 4 bare questions.
+    batches32 = f32_batches(wave1, wave2)
     for dtype, kv_quant in ((torch.float32, True), (torch.float32, False),
                             (torch.bfloat16, True)):
         toks = {}
@@ -2112,7 +2208,7 @@ def deployment_phase(torch, attention, quant_matmul, engine_cls, queue_cls,
             if e.cuda_graphs:
                 e.warmup()
             toks[name] = engine_tokens(
-                e, *(batches if kv_quant else dense_batches))
+                e, *(batches32 if dtype == torch.float32 else batches))
             if name == "deployment":
                 hits = e.pop_prefix_stats()
                 if dtype == torch.bfloat16:
@@ -2549,7 +2645,6 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         PagedQueue,
         SamplingParams,
         TutoringEngine,
-        graphs,
     )
     from distributed_lms_raft_llm_tpu_torch.engine.graphs import (
         routes_of_counts,
@@ -2648,9 +2743,8 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
     main_window_launches = bucketed["bfloat16"]["window_launches"]
 
     # The float32 deployment with spec 8 against phase 4c's float32
-    # deployment (int8 cache) on the first SPEC_REQUESTS of its 24
-    # requests (a request's float32 tokens do not depend on its
-    # companions).
+    # deployment (int8 cache) on the same SPEC_REQUESTS requests (a
+    # request's float32 tokens do not depend on its companions).
     wave1, wave2 = deployment_waves()
     batches = (wave1[:1], (wave1[1:] + wave2)[:SPEC_REQUESTS - 1])
     e = PagedEngine(EngineConfig(
@@ -2658,7 +2752,7 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         **dict(prod, dtype=torch.float32, param_dtype=torch.float32)),
         **deploy_kw)
     e.warmup()
-    toks32 = engine_tokens(e, *batches)
+    toks32 = engine_tokens(e, *f32_batches(wave1, wave2))
     firsts = [first_divergence(a, b)
               for a, b in zip(toks32, refs["f32_tokens"])]
     f32 = dict(requests=len(firsts), equal=sum(f is None for f in firsts),
@@ -2712,15 +2806,17 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
               for p in wave1[:1] + wave2[:len(COURSE_QUESTIONS) - 1]]
     lens = [len(c) for c in course]
     blk = eng.prefix_cache.block_tokens
-    captures0 = graphs.captures
     attention.reset_launch_counts()
     quant_matmul.reset_launch_counts()
     c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
           eng.graph_replays, eng.host_decisions, eng.total_generated_tokens)
     blocks0 = eng.prefix_cache.blocks_used
-    answers, wall, snap = run_paged_waves(
-        eng, PagedQueue, Metrics, wave1, wave2,
-        ready=lambda: eng.prefix_cache.blocks_used - blocks0 >= lens[0] // blk)
+    with inventory_guard(eng, "phase 7c served waves") as inventory:
+        answers, wall, snap = run_paged_waves(
+            eng, PagedQueue, Metrics, wave1, wave2,
+            ready=lambda: (eng.prefix_cache.blocks_used - blocks0
+                           >= lens[0] // blk))
+    emit("inventory_7c", **inventory)
     launches = {**attention.launch_counts, **quant_matmul.launch_counts}
     verify_calls = eng.decode_steps - c0[0]
     adm_calls = eng.admission_chunks - c0[1]
@@ -2744,8 +2840,6 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
     check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
         quant_matmul, eng, verify_calls, adm_calls,
         eng.prefill_calls - c0[2], verify=True), 48), "spec deployment")
-    check(graphs.captures == captures0,
-          "spec deployment: a CUDA graph was captured while serving")
     check(counters.get("decode_stalled_tokens", 0) == 0,
           f"spec deployment: admission stalled decode: {counters}")
     tpw = gauges.get("spec_tokens_per_window")
@@ -2768,7 +2862,7 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         dead_lane_tokens=counters.get("megastep_dead_lane_tokens", 0),
         prefix_hit_tokens=counters.get("prefix_cache_hit_tokens", 0),
         answers_equal_4c=same, launches=launches,
-        captures_while_serving=graphs.captures - captures0, warmup_s=warm_s,
+        inventory=inventory, warmup_s=warm_s,
         kernels_per_verify_call=kernels_per_call)
     emit("spec_deployment_path", **spec_run)
     drain = profile_drain(torch, eng, (batches[0] + batches[1])[
@@ -2870,7 +2964,6 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         finals = eng.pop_final_tokens()
         direct = [eng.tokenizer.decode(finals[r]).strip() for r in rids]
         check(all(direct), "spec gRPC: an empty direct answer")
-        captures0 = graphs.captures
 
         async def go():
             server = await tutoring_server.serve_async(
@@ -2897,7 +2990,8 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
                 await server.stop(1)
                 await server._queue.close()
 
-        unary, streams, health = asyncio.run(go())
+        with inventory_guard(eng, "phase 7e gRPC") as grpc_inventory:
+            unary, streams, health = asyncio.run(go())
         for i, (resp, chunks) in enumerate(zip(unary, streams)):
             full = stream_contract(chunks)
             check(resp.success and resp.response == direct[i]
@@ -2907,13 +3001,11 @@ def spec_phase(torch, attention, quant_matmul, prod, common, refs, args,
         check(health.get("spec_tokens") == k
               and health.get("draft_source") == "prompt_lookup",
               f"spec gRPC: /healthz {health}")
-        check(graphs.captures == captures0,
-              "spec gRPC: a CUDA graph was captured while serving")
         grpc_rec = dict(requests=len(queries), unary_equal=len(queries),
                         streams_equal=len(queries),
                         chunks=[len(c) for c in streams],
                         healthz_spec_tokens=health.get("spec_tokens"),
-                        layers=SPEC_CUT_LAYERS)
+                        layers=SPEC_CUT_LAYERS, inventory=grpc_inventory)
         emit("spec_grpc", **grpc_rec)
         run["grpc"] = grpc_rec
         del eng
@@ -3146,7 +3238,11 @@ def scoring_phase(torch, attention, quant_matmul, args) -> dict:
     score_warm_s = time.monotonic() - score_warm_t0
     torch.cuda.synchronize()
     builds0, reserved0 = build.builds, torch.cuda.memory_reserved()
-    captures0 = _graph_captures()
+    # From here to (d)'s end the node serves under the compile guard, its
+    # score-pairs domain included (`inventory_guard`).
+    serving_guard = contextlib.ExitStack()
+    inventory = serving_guard.enter_context(
+        inventory_guard(eng, "phase 8 tenant and node"))
     corpus = score_corpus(eng.tokenizer, SCORE_TEXTS, SCORE_TEXT_TOKENS,
                           args.seed)
     corpus_tokens = [len(eng.tokenizer.encode(t)) for t in corpus]
@@ -3256,8 +3352,11 @@ def scoring_phase(torch, attention, quant_matmul, args) -> dict:
           f"{stalls}")
     check(all("scoring" not in r["health"] for r in offs),
           "phase 8: a node without the tenant reports a scoring block")
-    check(build.builds == builds0 and _graph_captures() == captures0,
-          "phase 8: a kernel was built or a graph captured while serving")
+    serving_guard.close()
+    emit("inventory_8", **inventory)
+    check(inventory["programs"]["_score"] == [len(eng.score_shapes)] * 2,
+          f"phase 8: the score program's keys {inventory['programs']} are "
+          f"not its {len(eng.score_shapes)} score pairs")
     job = runs["on_1"]["job"]
 
     # (e) bf16 logprobs through the kernels against the int8 matmul's plain
@@ -3359,7 +3458,7 @@ def scoring_phase(torch, attention, quant_matmul, args) -> dict:
         tenant_alone_tokens_per_s=alone["scored_tokens"] / alone_s,
         quantum_launches=q_launches, quantum=quantum_profile,
         saturation=saturation, warmup_s=warm_s, score_warm_s=score_warm_s,
-        builds_after_warmup=build.builds - builds0,
+        builds_after_warmup=build.builds - builds0, inventory=inventory,
         memory_reserved_bytes=reserved0,
         memory_reserved_after_job_bytes=reserved1,
         bf16_vs_plain_max_rel=max(rel),
@@ -4466,7 +4565,9 @@ def lms_phase(torch, attention, quant_matmul, args, card) -> dict:
         attention.reset_launch_counts()
         quant_matmul.reset_launch_counts()
         c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
-        captures0 = _graph_captures()
+        serving_guard = contextlib.ExitStack()
+        inventory = serving_guard.enter_context(
+            inventory_guard(eng, "phase 11 node"))
 
         # (4) The node's own answers to the 8 questions (concurrent).
         def direct(query):
@@ -4622,9 +4723,9 @@ def lms_phase(torch, attention, quant_matmul, args, card) -> dict:
         check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
             quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
             eng.prefill_calls - c0[2]), 48), "phase 11")
-        check(_graph_captures() == captures0,
-              "phase 11: a CUDA graph was captured while serving")
-        record.update(
+        serving_guard.close()
+        emit("inventory_11", **inventory)
+        record.update(inventory=inventory,
             lms_answer=percentiles([t for _, t, _ in lms_runs]),
             direct_answer_cold=percentiles([t for _, t in direct_runs]),
             direct_answer=percentiles([t for _, t in warm_runs]),
@@ -4762,7 +4863,9 @@ def grouped_lms_phase(torch, attention, quant_matmul, ctx) -> dict:
         attention.reset_launch_counts()
         quant_matmul.reset_launch_counts()
         c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
-        captures0 = _graph_captures()
+        serving_guard = contextlib.ExitStack()
+        inventory = serving_guard.enter_context(
+            inventory_guard(eng, "phase 11b node"))
 
         # (2) Eight students, four homed in each group, and an instructor:
         # each registers and logs in once (the router replicates both to
@@ -4905,9 +5008,9 @@ def grouped_lms_phase(torch, attention, quant_matmul, ctx) -> dict:
         check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
             quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
             eng.prefill_calls - c0[2]), 48), "phase 11b")
-        check(_graph_captures() == captures0,
-              "phase 11b: a CUDA graph was captured while serving")
-        record.update(
+        serving_guard.close()
+        emit("inventory_11b", **inventory)
+        record.update(inventory=inventory,
             students={str(g): v for g, v in homes.items()},
             lms_answer=percentiles([t for _, t, _ in routed]),
             direct_answer=percentiles([t for _, t in direct_runs]),
@@ -5190,7 +5293,9 @@ def train_phase(torch, attention, quant_matmul, args, card) -> dict:
         attention.reset_launch_counts()
         quant_matmul.reset_launch_counts()
         c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls)
-        captures0 = _graph_captures()
+        serving_guard = contextlib.ExitStack()
+        inventory = serving_guard.enter_context(
+            inventory_guard(eng, "phase 12 node"))
         node = ServingThread(lambda: tutoring_server.serve_args(
             node_args, eng, host="127.0.0.1"))
         address = f"127.0.0.1:{node.server._port}"
@@ -5225,9 +5330,9 @@ def train_phase(torch, attention, quant_matmul, args, card) -> dict:
         check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
             quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
             eng.prefill_calls - c0[2]), 48), "phase 12")
-        check(_graph_captures() == captures0,
-              "phase 12: a CUDA graph was captured while serving")
-        record["serve"] = dict(
+        serving_guard.close()
+        emit("inventory_12", **inventory)
+        record["serve"] = dict(inventory=inventory,
             answers_equal=len(served), warm_s=warm_s,
             answer_chars=[len(a) for a in direct],
             answer=percentiles([t for _, t in served]),
@@ -5365,7 +5470,7 @@ def sim_phase(torch, attention, quant_matmul, args, card) -> dict:
     import shutil
 
     from distributed_lms_raft_llm_tpu_torch.config import load_config
-    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine, graphs
+    from distributed_lms_raft_llm_tpu_torch.engine import PagedEngine
     from distributed_lms_raft_llm_tpu_torch.engine.scoring import (
         encode_score_batch)
     from distributed_lms_raft_llm_tpu_torch.ops import build
@@ -5469,10 +5574,12 @@ def sim_phase(torch, attention, quant_matmul, args, card) -> dict:
                                                counted_score)
             attention.reset_launch_counts()
             quant_matmul.reset_launch_counts()
+            serving_guard = contextlib.ExitStack()
             node.update(
                 engine=eng, init_s=init_s, warm_s=warm_s,
                 builds_in_boot=build.builds - builds0,
-                captures0=graphs.captures, builds0=build.builds,
+                guard=serving_guard, inventory=serving_guard.enter_context(
+                    inventory_guard(eng, "phase 13 node 0")),
                 t_ready=time.monotonic(),
                 c0=(eng.decode_steps, eng.admission_chunks,
                     eng.prefill_calls, eng.total_generated_tokens))
@@ -5650,7 +5757,7 @@ def sim_phase(torch, attention, quant_matmul, args, card) -> dict:
               f"the engine's score calls {node_record['score_calls']}")
 
         # (6) Launches over the semester, through the graph replays, exact
-        # by route; no kernel built and no graph captured while serving.
+        # by route; node 0's compile guard closes here.
         others = {k: v for k, v in attention.launch_counts.items()
                   if k != attention.APPEND_INT8KV and v}
         check(decode > 0 and launches[attention.APPEND_INT8KV] == 12 * decode
@@ -5661,12 +5768,12 @@ def sim_phase(torch, attention, quant_matmul, args, card) -> dict:
         calls += [(1, rows) for rows in node["score_rows"]]
         check_int8_routes(launches, int8_want(quant_matmul, calls, 48),
                           "phase 13")
-        check(graphs.captures == node["captures0"]
-              and build.builds == node["builds0"]
-              and node["builds_in_boot"] == 0,
-              f"phase 13: {graphs.captures - node['captures0']} graph "
-              f"captures and {build.builds - node['builds0']} kernel builds "
-              f"while serving ({node['builds_in_boot']} in node 0's boot)")
+        node["guard"].close()
+        emit("inventory_13", **node["inventory"])
+        record["inventory"] = node["inventory"]
+        check(node["builds_in_boot"] == 0,
+              f"phase 13: {node['builds_in_boot']} kernel builds in node 0's "
+              f"boot")
         record["launches"] = {k: v for k, v in launches.items() if v}
         emit("sim_launches", decode_model_calls=decode,
              admission_chunks=admission, prefills=prefill,
@@ -7417,12 +7524,6 @@ def train_phase_checks(torch, args, ranks, refs, tmp, card) -> dict:
     emit("train_sharded", **{k: rec[k] for k in (
         "card", "backend", "rank_seconds", "references_s", "seconds")})
     return rec
-
-
-def _graph_captures() -> int:
-    from distributed_lms_raft_llm_tpu_torch.engine import graphs
-
-    return graphs.captures
 
 
 def main(argv=None) -> int:

@@ -18,7 +18,10 @@ parsed into a dataclass with the JAX package's defaults and value checks
 `[groups]`, `[storage]`, `[sim]`, `[tracing]`, `[telemetry]`).
 `apply_file_defaults` is the JAX package's two-phase
 merge: the file fills each flag the command line left out, and a flag
-given on the command line wins.
+given on the command line wins. `sampling_params` and `engine_config` build
+the tutoring node's engine settings from [sampling] and [tutoring] (plus
+[scoring]'s switch), returning the port's types; the engine modules are
+imported only when they are called.
 """
 
 from __future__ import annotations
@@ -509,6 +512,35 @@ def client_kwargs(cfg: AppConfig) -> Dict[str, Any]:
         llm_timeout_s=r.llm_timeout_s,
         backoff_base_s=r.backoff_base_s,
         backoff_max_s=r.backoff_max_s,
+    )
+
+
+def sampling_params(cfg: AppConfig):
+    """The engines' `SamplingParams` from [sampling]."""
+    from .engine.sampling import SamplingParams
+
+    s = cfg.sampling
+    return SamplingParams(
+        temperature=s.temperature, top_k=s.top_k, top_p=s.top_p,
+        repetition_penalty=s.repetition_penalty,
+        max_new_tokens=s.max_new_tokens,
+        approx_top_k=s.approx_top_k,
+    )
+
+
+def engine_config(cfg: AppConfig):
+    """`EngineConfig` for the tutoring node described by [tutoring] and
+    [sampling] (the engine's device and dtypes keep their defaults)."""
+    from .engine.engine import EngineConfig
+
+    t = cfg.tutoring
+    return EngineConfig(
+        model=t.model, checkpoint=t.checkpoint, vocab_path=t.vocab,
+        merges_path=t.merges, tokenizer_json=t.tokenizer_json,
+        sampling=sampling_params(cfg), tp=t.tp, ep=t.ep, quant=t.quant,
+        kv_quant=t.kv_quant, spec_tokens=t.spec_tokens,
+        draft_source=t.draft_source,
+        scoring=cfg.scoring.enabled,
     )
 
 

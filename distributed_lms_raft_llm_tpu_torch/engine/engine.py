@@ -65,6 +65,7 @@ from ..parallel.spmd import Replica
 from ..utils import tokenizer as tok_lib
 from ..utils.guards import intended_transfer
 from .generate import GenerateResult, decode, pick_bucket, prefill
+from .program_inventory import program_table
 from .sampling import SamplingParams
 from .scoring import (
     derive_score_shapes,
@@ -352,6 +353,8 @@ class TutoringEngine:
                                 self.cfg.max_position_embeddings,
                                 sp=self.sp)
             if config.scoring else [])
+        # The distinct static keys each program has run at (host only).
+        self.programs = program_table("TutoringEngine")
 
     _PROG_TIMES_MAX = 1024
 
@@ -462,12 +465,14 @@ class TutoringEngine:
         statics = dict(sampling=self.config.sampling,
                        eos_id=self.tokenizer.eos_id,
                        pad_id=self.tokenizer.pad_id, model=self.family)
+        self.programs["_prefill"].record(ids.shape)
         state = prefill(self.params, self.cfg, input_ids, prompt_mask,
                         self.generator, **statics)
         with intended_transfer():  # blocks until the token exists
             state.out[:, 0].cpu()
         self.last_ttft_s = time.monotonic() - t0
         k = self.config.spec_tokens
+        self.programs["_decode"].record(ids.shape)
         if k > 0:
             result, final = decode_spec(self.params, state, input_ids,
                                         self.cfg, spec_tokens=k, **statics)

@@ -58,6 +58,7 @@ from ..parallel import partition
 from ..parallel.spmd import Replica
 from ..utils import tokenizer as tok_lib
 from .generate import pick_bucket
+from .program_inventory import program_table
 
 log = logging.getLogger(__name__)
 
@@ -132,6 +133,8 @@ class RelevanceGate:
         self._ctx_cache: dict = {}  # guarded-by: _lock
         self._lock = threading.Lock()
         self.forwards = 0  # encoder forwards run; guarded-by: _lock
+        # The (batch, length) shapes the encoder ran at (host only).
+        self.programs = program_table("RelevanceGate")
 
     def _encode(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         limit = self.cfg.max_position_embeddings
@@ -166,6 +169,7 @@ class RelevanceGate:
 
     def _embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         ids, mask = self._encode(texts)
+        self.programs["_embed"].record(ids.shape)
         with torch.inference_mode():
             out = bert.embed(
                 self.params, self.cfg,

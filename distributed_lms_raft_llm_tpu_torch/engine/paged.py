@@ -150,6 +150,7 @@ from .megastep import (
     megastep_ladder,
     next_megastep_k,
 )
+from .program_inventory import program_table
 from .prefix_cache import (
     BLOCK_TOKENS,
     KVBlock,
@@ -839,6 +840,9 @@ class PagedEngine:
                 dtype=torch.float32, device=dev),
         )
         self.state = self._init_state()
+        # The distinct static keys each program has run at (host only):
+        # what `utils/guards.compile_count_guard` counts.
+        self.programs = program_table("PagedEngine")
         # Captured graphs by cache width: (decode chunk, admission chunk or
         # None); filled by warmup() when `cuda_graphs`.
         self._graphs: Dict[int, Tuple[ChunkGraph, Optional[ChunkGraph]]] = {}
@@ -1101,17 +1105,22 @@ class PagedEngine:
 
     @torch.no_grad()
     def warmup(self) -> float:
-        """Run every width once before serving, so no request pays for a
-        first launch, a kernel build or a graph capture: at each cache
-        width, each prompt bucket that fits it is admitted (prefilled and
-        installed, or staged), then the chunk programs run; with
-        `cuda_graphs` they are captured there (a decode chunk, and with
-        fused admission an admission chunk: a rung-K megastep replays them
-        K times, so this covers every rung). Then one ghost request is
-        drained and the generator is seeded again, so serving draws the
-        same numbers with or without graphs. With `scoring` on, the score
-        program runs at each of `score_shapes` once the graphs are
-        captured. Returns seconds."""
+        """Run every program over its whole domain before serving, so no
+        request pays for a first launch, a kernel build or a graph
+        capture (`programs` then holds exactly the keys
+        `engine/program_inventory.py` inventories): at each cache width,
+        each prompt bucket that fits it is admitted (prefilled and
+        installed, or staged), then each dispatch serving can choose runs
+        there; with `cuda_graphs` the chunk programs are captured first (a
+        decode chunk, and with fused admission an admission chunk: a
+        rung-K megastep replays them K times, so this covers every rung).
+        Then every width growth runs, and with the prefix cache its block
+        export and splice (per width when fused; per bucket, with every
+        partial prefill, when sequential), as the JAX package warms them.
+        Then one ghost request is drained and the generator is seeded
+        again, so serving draws the same numbers with or without graphs.
+        With `scoring` on, the score program runs at each of
+        `score_shapes` once the graphs are captured. Returns seconds."""
         with self._spmd.call("warmup", collective=True):
             return self._warmup()
 
@@ -1125,20 +1134,38 @@ class PagedEngine:
                 ids = torch.full((1, t), self.tokenizer.pad_id,
                                  dtype=torch.long, device=self.device)
                 if self.fused:
+                    self._record("_stage", (t, width))
                     _stage_program(self.state, 0, ids, 1, 0, 0, draw_noise(
                         self.generator, 1, self.config.sampling,
                         self.cfg.vocab_size, self.device))
                     continue
+                self._record("_prefill", t)
                 first, seen_row = self._prefill(self.params, ids, 1,
                                                 self.generator,
                                                 self._slot_cache(0, t))
+                self._record("_install", (t, width))
                 _install_program(self.state, 0, ids, 1, first, seen_row,
                                  eos_id=self.tokenizer.eos_id)
             if self.cuda_graphs:
                 self._capture(width)
-            else:
-                self._run_eager([self.fused])
+            # Each dispatch serving can choose at this width, through the
+            # serving path (graph replays on the card): the chunk loop and,
+            # where the ladder climbs, a megastep.
+            self._dispatch([self.fused])
+            if not self.fused and len(self.megastep_ks) > 1:
+                self._dispatch([False, False])
+            if self.fused and self._block_buckets():
+                # Fused shared-prefix programs at this width: a block
+                # published out of the live state and spliced back.
+                blk = self._export_block(0, 0, width)
+                self._splice_blocks([blk], 0, "_stage_block", width)
+        for i, wa in enumerate(self.widths):
+            for wb in self.widths[i + 1:]:
+                self.state = self._init_state(wa)
+                self._grow_if_needed(wb)
         self._warm_score()
+        if self.prefix_cache is not None and not self.fused:
+            self._warm_partial_prefill()
         self.reset()
         rid = self.submit("warmup")
         self.drain()
@@ -1156,6 +1183,61 @@ class PagedEngine:
         self.megastep_k = self._megastep_initial
         self.generator.manual_seed(self.config.seed)
         return time.monotonic() - t0
+
+    def _block_buckets(self) -> List[int]:
+        """Prompt buckets that hold a whole prefix-cache block (none
+        without the cache)."""
+        pc = self.prefix_cache
+        if pc is None:
+            return []
+        return [t for t in self.buckets if t >= pc.block_tokens]
+
+    def _warm_partial_prefill(self) -> None:
+        """Sequential admission's shared-prefix programs over their whole
+        domain, as the JAX package warms them: per bucket that holds a
+        block, a cold prefill and the block's export; per suffix bucket
+        that leaves a whole block of prefix, the splice and the partial
+        prefill. Offsets and lengths are not keys, so pad prompts cover
+        the live domain."""
+        blk_t = self.prefix_cache.block_tokens
+        for t in self._block_buckets():
+            ids = torch.full((1, t), self.tokenizer.pad_id, dtype=torch.long,
+                             device=self.device)
+            pages = self._slot_cache(0, t)
+            self._record("_prefill", t)
+            self._prefill(self.params, ids, 1, self.generator, pages)
+            blk = self._export_block(0, 0, t)
+            for s in self.buckets:
+                if s > t - blk_t:
+                    continue
+                self._splice_blocks([blk], 0, "_load_block", t)
+                suf = torch.full((1, s), self.tokenizer.pad_id,
+                                 dtype=torch.long, device=self.device)
+                self._record("_partial_prefill", (t, s))
+                self._partial_prefill(self.params, pages, ids, suf, blk_t,
+                                      blk_t + 1, self.generator)
+
+    def _record(self, program: str, key) -> None:
+        """Note a static key `program` ran at (host work only)."""
+        self.programs[program].record(key)
+
+    def _export_block(self, off: int, slot: int, key) -> KVBlock:
+        """A fresh copy of one block of a slot's pages (`key`: the
+        export's static key, the prompt bucket in sequential admission,
+        the live width in fused admission and for session turns)."""
+        self._record("_export_block", key)
+        return _export_block_program(self._kv, off, slot,
+                                     block=self.prefix_cache.block_tokens)
+
+    def _splice_blocks(self, blocks: Sequence[KVBlock], slot: int,
+                       program: str, key) -> None:
+        """Copy tree blocks into a slot's pages from offset 0, as
+        `program` ("_load_block": sequential, keyed by the prompt bucket;
+        "_stage_block": fused, keyed by the live width)."""
+        self._record(program, key)
+        for i, blk in enumerate(blocks):
+            _splice_block_program(self._kv, blk, slot,
+                                  i * self.prefix_cache.block_tokens)
 
     def _capture(self, width: int) -> None:
         """Capture the chunk graphs of `width` over the state windowed to
@@ -1320,6 +1402,7 @@ class PagedEngine:
 
     def _grow_if_needed(self, w_req: int) -> None:
         if w_req > self.state.cache.max_len:
+            self._record("_grow", (self.state.cache.max_len, w_req))
             t0, t0u = time.monotonic(), time.time()
             self.state = _grow_state_program(self.state, self._kv,
                                              self._transcript, w_req)
@@ -1352,6 +1435,7 @@ class PagedEngine:
             req, bucket, w_req, ids = self._pop_next()
             self._grow_if_needed(w_req)
             first, seen_row = self._run_prefill(req, slot, bucket, ids)
+            self._record("_install", (bucket, self.state.cache.max_len))
             t0, t0u = time.monotonic(), time.time()
             _install_program(self.state, slot, ids, req.prompt_len, first,
                              seen_row, eos_id=self.tokenizer.eos_id)
@@ -1398,9 +1482,7 @@ class PagedEngine:
             self._prefix_pins[req.rid] = match
             blocks = match.blocks()[: prefix_used // pc.block_tokens]
             t0, t0u = time.monotonic(), time.time()
-            for i, blk in enumerate(blocks):
-                _splice_block_program(self._kv, blk, slot,
-                                      i * pc.block_tokens)
+            self._splice_blocks(blocks, slot, "_load_block", bucket)
             self._dispatches += max(0, len(blocks) - 1)
             self._time_prog("load_block", t0, t0u)
             suf = np.full((1, suffix_bucket), self.tokenizer.pad_id,
@@ -1408,38 +1490,40 @@ class PagedEngine:
             suf[0, : req.prompt_len - prefix_used] = req.tokens[prefix_used:]
             with intended_transfer():  # the suffix's upload
                 suf_dev = torch.from_numpy(suf).to(self.device)
+            self._record("_partial_prefill", (bucket, suffix_bucket))
             t0, t0u = time.monotonic(), time.time()
             first, seen_row = self._partial_prefill(
                 self.params, pages, ids, suf_dev,
                 prefix_used, req.prompt_len, self.generator)
             self._time_prog("partial_prefill", t0, t0u)
         else:
+            self._record("_prefill", bucket)
             t0, t0u = time.monotonic(), time.time()
             first, seen_row = self._prefill(self.params, ids, req.prompt_len,
                                             self.generator, pages)
             self._time_prog("prefill", t0, t0u)
         self.prefill_calls += 1
         if pc is not None:
-            self._publish(req.tokens, req.prompt_len, slot)
+            self._publish(req.tokens, req.prompt_len, slot, bucket)
             self._prefix_hit_tokens += prefix_used
             self._prefix_prompt_tokens += req.prompt_len
             self._prefix_hits[req.rid] = prefix_used
             self._shed_oldest(self._prefix_hits)
         return first, seen_row
 
-    def _publish(self, prompt: List[int], prompt_len: int, slot: int) -> None:
+    def _publish(self, prompt: List[int], prompt_len: int, slot: int,
+                 key) -> None:
         """Publish a prefilled prompt's whole blocks into the radix tree,
-        copied out of the slot's pages (only blocks the tree lacks), then
-        enforce the block budget (after the insert, so a publish never
-        evicts blocks its own admission references; pinned paths never
-        go)."""
+        copied out of the slot's pages (only blocks the tree lacks; `key`
+        is the export's static key), then enforce the block budget (after
+        the insert, so a publish never evicts blocks its own admission
+        references; pinned paths never go)."""
         pc = self.prefix_cache
         blk_t = pc.block_tokens
         t0, t0u = time.monotonic(), time.time()
         added = pc.insert(
             prompt[: (prompt_len // blk_t) * blk_t],
-            lambda i: _export_block_program(self._kv, i * blk_t, slot,
-                                            block=blk_t))
+            lambda i: self._export_block(i * blk_t, slot, key))
         if added:
             self._dispatches += added - 1
             self._time_prog("export_block", t0, t0u)
@@ -1479,11 +1563,11 @@ class PagedEngine:
             if cursor0:
                 blocks = match.blocks()[: cursor0 // pc.block_tokens]
                 t0, t0u = time.monotonic(), time.time()
-                for i, blk in enumerate(blocks):
-                    _splice_block_program(self._kv, blk, slot,
-                                          i * pc.block_tokens)
+                self._splice_blocks(blocks, slot, "_stage_block",
+                                    self.state.cache.max_len)
                 self._dispatches += max(0, len(blocks) - 1)
                 self._time_prog("stage_block", t0, t0u)
+            self._record("_stage", (bucket, self.state.cache.max_len))
             t0, t0u = time.monotonic(), time.time()
             _stage_program(self.state, slot, ids, req.prompt_len, cursor0,
                            self._stage_seq, noise)
@@ -1503,7 +1587,8 @@ class PagedEngine:
         returns)."""
         tokens = self._staged_prompts.pop(req.rid, None)
         if tokens is not None:
-            self._publish(tokens, req.prompt_len, slot)
+            self._publish(tokens, req.prompt_len, slot,
+                          self.state.cache.max_len)
 
     def _publish_session(self, req: _Request, slot: int) -> None:
         """A session turn's finish-reap publish: the slot's pages hold the
@@ -1532,10 +1617,9 @@ class PagedEngine:
         if n <= 0:
             return
         t0, t0u = time.monotonic(), time.time()
+        width = self.state.cache.max_len
         added = pc.insert(
-            full[:n],
-            lambda i: _export_block_program(self._kv, i * blk_t, slot,
-                                            block=blk_t))
+            full[:n], lambda i: self._export_block(i * blk_t, slot, width))
         if added:
             self._dispatches += added - 1
             self._time_prog("export_block", t0, t0u)
@@ -1668,7 +1752,17 @@ class PagedEngine:
     def _dispatch(self, admit: List[bool]) -> None:
         """Run K = len(admit) chunks on the device and queue their outputs
         for a later reap: graph replays on the card with `cuda_graphs`,
-        else eager chunks. No host sync either way."""
+        else eager chunks. No host sync either way. Records the program
+        the JAX package would dispatch: `_step` for a lone chunk of
+        sequential admission, else `_megastep`, keyed by the width and the
+        chunk graphs it runs."""
+        width = self.state.cache.max_len
+        if self.fused or len(admit) > 1:
+            self._record("_megastep", (width, "decode"))
+            if any(admit):
+                self._record("_megastep", (width, "admission"))
+        else:
+            self._record("_step", width)
         if self.cuda_graphs:
             self._inflight.append(self._replay(admit))
             return

@@ -204,6 +204,7 @@ def score_texts(engine: Any, texts: Sequence[str]) -> List[Dict[str, Any]]:
     with intended_transfer():  # the batch's upload (a copy that syncs)
         ids_dev = torch.from_numpy(ids).to(engine.device)
         mask_dev = torch.from_numpy(mask).to(engine.device)
+    engine.programs["_score"].record(ids.shape)
     total, count = engine._score(engine.params, ids_dev, mask_dev)
     # The quantum's one readback: sums and counts in one copy (counts are
     # at most a length bucket, exact in float32).
@@ -235,6 +236,7 @@ def warm_score(engine: Any) -> int:
                              dtype=torch.long, device=engine.device)
             mask = torch.ones((nb, bucket), dtype=torch.bool,
                               device=engine.device)
+            engine.programs["_score"].record((nb, bucket))
             total, count = engine._score(engine.params, ids, mask)
             with intended_transfer():
                 torch.stack((total, count.to(total.dtype))).cpu()

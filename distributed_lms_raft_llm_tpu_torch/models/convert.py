@@ -152,6 +152,19 @@ def _strip_prefix(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
             for k, v in sd.items()}
 
 
+def gpt2_config_from_hf(hf_config: Mapping[str, Any], **kw) -> GPT2Config:
+    """A `GPT2Config` from an HF `config.json` dict (`kw`: dtypes)."""
+    return GPT2Config(
+        vocab_size=hf_config["vocab_size"],
+        max_position_embeddings=hf_config.get("n_positions", 1024),
+        hidden_size=hf_config["n_embd"],
+        num_layers=hf_config["n_layer"],
+        num_heads=hf_config["n_head"],
+        layer_norm_eps=hf_config.get("layer_norm_epsilon", 1e-5),
+        **kw,
+    )
+
+
 def gpt2_params_from_hf(sd: Mapping[str, Any], cfg: GPT2Config,
                         device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Map HF GPT2LMHeadModel / GPT2Model weights onto the gpt2.py tree."""

@@ -534,6 +534,10 @@ class _Layout:
 # kernel once per layer with the same layout, so it is checked once.
 _layouts: Dict[tuple, _Layout] = {}
 _MAX_LAYOUTS = 256
+# Layouts validated in this process, never lowered (the cache above clears
+# itself at _MAX_LAYOUTS, and a layout validated again then counts again):
+# a warmed server's traffic must add none (`utils/guards.py`).
+layouts_validated = 0
 
 
 def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
@@ -627,6 +631,15 @@ def _kernel_layout(q: torch.Tensor, k_cache: torch.Tensor,
                    variant=variant)
 
 
+def _remember_layout(key: tuple, lay: _Layout) -> None:
+    """Cache a layout just validated and count it."""
+    global layouts_validated
+    layouts_validated += 1
+    if len(_layouts) >= _MAX_LAYOUTS:
+        _layouts.clear()
+    _layouts[key] = lay
+
+
 def _launch_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, layer: int,
                    bias: Optional[torch.Tensor],
@@ -653,9 +666,7 @@ def _launch_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     if lay is None:
         lay = _kernel_layout(q, k_cache, v_cache, bias, lengths, k_scale,
                              v_scale, k_new, v_new)
-        if len(_layouts) >= _MAX_LAYOUTS:
-            _layouts.clear()
-        _layouts[key] = lay
+        _remember_layout(key, lay)
     n_layers = k_cache.shape[0]
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} outside [0, {n_layers})")

@@ -710,6 +710,10 @@ class _Layout:
 # layouts, so each is checked once.
 _layouts: Dict[tuple, _Layout] = {}
 _MAX_LAYOUTS = 256
+# Layouts validated in this process, never lowered (the cache above clears
+# itself at _MAX_LAYOUTS, and a layout validated again then counts again):
+# a warmed server's traffic must add none (`utils/guards.py`).
+layouts_validated = 0
 
 
 def _kernel_layout(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -776,6 +780,15 @@ def _kernel_layout(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                    m=rows, x_copy=x_copy, s_cast=s_cast, b_cast=b_cast)
 
 
+def _remember_layout(key: tuple, lay: _Layout) -> None:
+    """Cache a layout just validated and count it."""
+    global layouts_validated
+    layouts_validated += 1
+    if len(_layouts) >= _MAX_LAYOUTS:
+        _layouts.clear()
+    _layouts[key] = lay
+
+
 def _launch_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                    b: Optional[torch.Tensor], transposed: bool,
                    experts: bool = False,
@@ -789,9 +802,7 @@ def _launch_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     lay = _layouts.get(key)
     if lay is None:
         lay = _kernel_layout(x, q, s, b, transposed, experts, replaced)
-        if len(_layouts) >= _MAX_LAYOUTS:
-            _layouts.clear()
-        _layouts[key] = lay
+        _remember_layout(key, lay)
     out = x.new_empty(lay.out_shape, dtype=lay.out_dtype)
     if lay.m == 0:
         return out

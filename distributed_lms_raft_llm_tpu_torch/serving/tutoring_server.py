@@ -73,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import functools
 import hashlib
 import json
@@ -94,10 +95,9 @@ from ..engine import (
     EngineConfig,
     PagedEngine,
     PagedQueue,
-    SamplingParams,
     TutoringEngine,
 )
-from ..config import apply_file_defaults, load_config
+from ..config import apply_file_defaults, engine_config, load_config
 from ..engine.engine import DRAFT_SOURCES
 from ..engine.scoring import ScoringManager, score_admin_get
 from ..models import registry
@@ -716,18 +716,22 @@ def resolve_args(argv=None) -> argparse.Namespace:
     """Parse the flags and, with --config, fill every flag the command
     line left out from the deployment file, as the JAX node does
     (`config.apply_file_defaults`: explicit flags win). Also sets what the
-    node reads from the file beside its flags: `sampling_overrides`
+    node reads from the file beside its flags: `app_config` (the loaded
+    file, or None: `engine_from_args` builds from `config.engine_config`),
+    `sampling_overrides`
     ([sampling] beyond max_new_tokens), `scoring_chip_ceiling` ([telemetry]
     chip_ceiling_tokens_per_s; None without a file), `telemetry` and
     `tracing` (the [tracing] section, or None)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     args.telemetry = not args.no_telemetry
+    args.app_config = None
     args.sampling_overrides = {}
     args.scoring_chip_ceiling = None
     args.tracing = None
     if args.config:
         cfg = load_config(args.config)
+        args.app_config = cfg
         t, s = cfg.tutoring, cfg.sampling
         apply_file_defaults(args, parser, {
             "port": t.port, "model": t.model, "checkpoint": t.checkpoint,
@@ -770,12 +774,17 @@ def engine_from_args(args: argparse.Namespace):
     not yet warmed."""
     # bf16 weights and activations on the card; float32 on the CPU.
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
-    config = EngineConfig(
+    # From the deployment file through `config.engine_config` (flags win:
+    # `resolve_args` already merged them), else the defaults.
+    app = getattr(args, "app_config", None)
+    base = engine_config(app) if app is not None else EngineConfig()
+    config = dataclasses.replace(
+        base,
         model=args.model, checkpoint=args.checkpoint,
         vocab_path=args.vocab, merges_path=args.merges,
         tokenizer_json=args.tokenizer_json,
-        sampling=SamplingParams.reference_defaults(
-            max_new_tokens=args.max_new_tokens,
+        sampling=dataclasses.replace(
+            base.sampling, max_new_tokens=args.max_new_tokens,
             approx_top_k=args.approx_topk,
             **getattr(args, "sampling_overrides", {})),
         seed=args.seed, device=args.device, dtype=dtype, param_dtype=dtype,

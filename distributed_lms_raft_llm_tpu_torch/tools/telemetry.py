@@ -1,0 +1,480 @@
+"""Cluster telemetry: live dashboard, timeline export, capacity model.
+
+The JAX package's `scripts/telemetry.py` over the port's scraper
+(`utils/scrape.py`) and timeline (`utils/timeline.py`), with the same
+flags and output. Polls every node's `/metrics` into one merged cluster
+timeline and renders a terminal dashboard of rates, gauges and latency
+percentiles:
+
+    # Live dashboard over a running cluster (Ctrl-C to stop):
+    python -m distributed_lms_raft_llm_tpu_torch.tools.telemetry \
+        --endpoint http://127.0.0.1:9100 --endpoint http://127.0.0.1:9101
+
+    # Bounded run + JSON export of the full scraped timeline:
+    python -m distributed_lms_raft_llm_tpu_torch.tools.telemetry \
+        --endpoint ... --duration 60 --json run_timeline.json
+
+    # Fit the capacity model over an exported timeline (or a semester-sim
+    # BENCH record, which embeds one under "timeline"):
+    python -m distributed_lms_raft_llm_tpu_torch.tools.telemetry \
+        --capacity run_timeline.json --slo-p95 6.0 --ceiling <tokens/s>
+
+`--capacity` emits ONE JSON line: req/s per node at the SLO (the
+demonstrated load under which the p95 bound still held), the flight-
+recorder stage p95s when available and, given a chip ceiling, the
+utilization extrapolation (serving tok/s against it). The ceiling comes
+from `--ceiling` or the file's `[telemetry] chip_ceiling_tokens_per_s`,
+and the line says which (`ceiling_source`); there is no built-in one.
+configs/cluster.toml's 61,500 tokens/s was read on a TPU v5e, not on the
+card: pass a ceiling measured on the device the timeline came from.
+
+With `--config`, `[telemetry]` supplies the poll interval, burn-rate
+windows/thresholds and the ceiling; `[sim]` supplies the SLO bounds.
+Flags override the file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from ..utils.metrics import percentile_of_sorted
+from ..utils.scrape import ClusterScraper, endpoints_sources
+from ..utils.timeline import degraded_rate_burn
+
+# Dashboard rows: (label, kind, series). Kinds: rate (counter /s over the
+# window), gauge (last value), p95 (histogram p95_s).
+_DASH_ROWS: Tuple[Tuple[str, str, str], ...] = (
+    ("requests/s", "rate", "llm_requests"),
+    ("degraded/s", "rate", "tutoring_degraded"),
+    ("shed overload/s", "rate", "shed_overload"),
+    ("shed expired/s", "rate", "shed_expired"),
+    ("tick stalls/s", "rate", "raft_tick_stalls"),
+    ("serving tok/s", "gauge", "serving_tokens_per_s"),
+    # The tenant split: background bulk scoring's share of the chip next
+    # to interactive serving (utilization against the node's ceiling).
+    ("scoring tok/s", "gauge", "scoring_tokens_per_s"),
+    ("scoring util", "gauge", "scoring_utilization"),
+    ("score quanta/s", "rate", "scoring_quanta"),
+    ("queue depth", "gauge", "serving_queue_depth"),
+    ("prefix hit rate", "gauge", "prefix_cache_hit_rate"),
+    ("megastep K", "gauge", "megastep_k"),
+    ("router spills/s", "rate", "tutoring_spills"),
+    ("hedge wins/s", "rate", "tutoring_hedge_wins"),
+    ("fleet size", "gauge", "tutoring_fleet_size"),
+    # Streaming/session plane: chunk throughput, resume-at-offset
+    # failovers and stall trips (both should be ~0 outside faults), and
+    # the live conversational state pinned on the fleet.
+    ("stream chunks/s", "rate", "stream_chunks"),
+    ("stream resumes/s", "rate", "stream_resumes"),
+    ("stream stalls/s", "rate", "stream_stalls"),
+    ("sessions live", "gauge", "session_active"),
+    ("session pins", "gauge", "session_pinned_blocks"),
+    ("answer p95 (s)", "p95", "answer_latency"),
+    ("llm_ttft p95 (s)", "p95", "llm_ttft"),
+    ("ttft p95 (s)", "p95", "ttft"),
+)
+
+
+def _fmt(value: Optional[float]) -> str:
+    if value is None:
+        return "      -"
+    if abs(value) >= 1000:
+        return f"{value:7.0f}"
+    return f"{value:7.2f}"
+
+
+def fetch_groups(endpoints: List[str],
+                 timeout_s: float = 2.0) -> Optional[Dict[str, Any]]:
+    """GET /admin/raft from the first endpoint that answers: the sharded
+    control plane's routing-map version and per-group rows. None when no
+    node serves the endpoint (pre-shard deployments keep the old frame)."""
+    import urllib.error
+    import urllib.request
+
+    for base in endpoints:
+        try:
+            req = urllib.request.Request(f"{base}/admin/raft",
+                                         method="GET")
+            with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+                return json.loads(resp.read().decode())
+        except (urllib.error.URLError, OSError, ValueError):
+            continue
+    return None
+
+
+def render_groups(groups: Dict[str, Any], out: Any) -> None:
+    """Per-Raft-group dashboard rows from one node's GET /admin/raft."""
+    rmap = groups.get("routing_map", {})
+    out.write(
+        f"  routing map v{rmap.get('version', '?')}  "
+        f"groups={rmap.get('n_groups', '?')}  "
+        f"courses={len(rmap.get('courses', {}))}\n"
+    )
+    rows = groups.get("groups", {})
+    if not rows:
+        return
+    out.write(f"  {'group':<7} {'leader':>7} {'term':>7} "
+              f"{'applied':>8} {'commit':>8} {'members':>8}\n")
+    for gid in sorted(rows, key=lambda g: int(g)):
+        row = rows[gid]
+        leader = row.get("leader")
+        out.write(
+            f"  {gid:<7} {('-' if leader is None else leader):>7} "
+            f"{row.get('term', 0):>7} {row.get('applied', 0):>8} "
+            f"{row.get('commit', 0):>8} {len(row.get('members', {})):>8}\n"
+        )
+
+
+def render_dashboard(scraper: ClusterScraper, window_s: float,
+                     burn: Optional[Dict[str, float]] = None,
+                     out: Any = None) -> None:
+    """One dashboard frame from the scraper's merged cluster timeline."""
+    out = out if out is not None else sys.stdout
+    tl = scraper.cluster
+    out.write(
+        f"== cluster telemetry  nodes={scraper.node_count}  "
+        f"window={window_s:.0f}s  "
+        f"unreachable={sum(scraper.unreachable.values())}\n"
+    )
+    for label, kind, series in _DASH_ROWS:
+        if kind == "rate":
+            value = tl.counter_rate(series, window_s)
+        elif kind == "gauge":
+            value = tl.gauge_last(series)
+        else:
+            value = tl.hist_p95(series, window_s)
+        out.write(f"  {label:<18} {_fmt(value)}\n")
+    if burn:
+        pairs = "  ".join(f"{k}={v:.2f}" for k, v in sorted(burn.items()))
+        out.write(f"  degraded-rate burn: {pairs}\n")
+    # Per-node rows: the scraper already keeps one timeline per source —
+    # with a tutoring fleet behind the router, per-member req/s, queue
+    # depth, and prefix hit rate are what drain/warm-up decisions (and
+    # post-mortems of a drill) read; the merged row above can't show a
+    # cold rejoined node refilling its cache.
+    if len(scraper.nodes) > 1:
+        out.write(f"  {'node':<14} {'req/s':>7} {'queue':>7} "
+                  f"{'tok/s':>7} {'hit':>7} {'strm/s':>7} "
+                  f"{'sess':>7} {'pins':>7} {'p95 s':>7}\n")
+        for name in sorted(scraper.nodes):
+            ntl = scraper.nodes[name]
+            out.write(
+                f"  {name:<14}"
+                f" {_fmt(ntl.counter_rate('llm_requests', window_s))}"
+                f" {_fmt(ntl.gauge_last('serving_queue_depth'))}"
+                f" {_fmt(ntl.gauge_last('serving_tokens_per_s'))}"
+                f" {_fmt(ntl.gauge_last('prefix_cache_hit_rate'))}"
+                f" {_fmt(ntl.counter_rate('stream_chunks', window_s))}"
+                f" {_fmt(ntl.gauge_last('session_active'))}"
+                f" {_fmt(ntl.gauge_last('session_pinned_blocks'))}"
+                f" {_fmt(ntl.hist_p95('answer_latency', window_s))}\n"
+            )
+    events = tl.events()
+    for event in events[-3:]:
+        out.write(f"  event: {event.get('kind')}: {event.get('detail')}\n")
+
+
+def _degraded_burn(scraper: ClusterScraper, windows: Dict[str, float],
+                   bound: float) -> Dict[str, float]:
+    # THE alerting formula (utils/timeline.degraded_rate_burn, also what
+    # the sim's ContinuousSloEngine pages on), not a local variant: the
+    # dashboard's burn figure must match what pages.
+    out: Dict[str, float] = {}
+    for name, window_s in windows.items():
+        burn = degraded_rate_burn(scraper.cluster, window_s, bound)
+        if burn is not None:
+            out[name] = burn
+    return out
+
+
+# ------------------------------------------------------- capacity model
+
+
+def _point_sample(point: Dict[str, Any]) -> Optional[Dict[str, float]]:
+    rates = point.get("rates", {})
+    hists = point.get("hists", {})
+    gauges = point.get("gauges", {})
+    req_s = rates.get("llm_requests")
+    p95 = None
+    for series in ("answer_latency", "llm_ttft", "sim_ask_latency"):
+        block = hists.get(series)
+        if block and "p95_s" in block:
+            p95 = float(block["p95_s"])
+            break
+    if not req_s or req_s <= 0 or p95 is None:
+        return None
+    return {
+        "req_s": float(req_s),
+        "p95_s": p95,
+        "tokens_s": float(gauges.get("serving_tokens_per_s", 0.0)),
+        "queue_depth": float(gauges.get("serving_queue_depth", 0.0)),
+    }
+
+
+def fit_capacity(
+    doc: Dict[str, Any],
+    *,
+    slo_p95_s: float,
+    ceiling_tokens_per_s: Optional[float],
+    node: Optional[str] = None,
+    stage_p95s: Optional[Dict[str, Dict[str, float]]] = None,
+    bins: int = 8,
+) -> Dict[str, Any]:
+    """Fit req/s-per-node-at-SLO from an exported timeline.
+
+    `doc` is a scraper export ({"cluster": ..., "nodes": {...}}), a bare
+    timeline ({"points": ...}), or a semester-sim BENCH record (its
+    "timeline"/"slos" fields are used). The model is deliberately
+    empirical — Borg/Autopilot-style utilization accounting, not
+    queueing theory: bin the run's samples by offered load, find the
+    highest load bin whose p95 held the SLO. When the run never pushed
+    past the SLO the result is a demonstrated LOWER bound
+    (`slo_saturated: false`) and the utilization extrapolation (tokens/s
+    against the chip ceiling, none without one) says how much headroom
+    the fit left."""
+    if "timeline" in doc and isinstance(doc["timeline"], dict):
+        if stage_p95s is None:
+            stage_p95s = (doc.get("slos") or {}).get("stage_p95s")
+        doc = doc["timeline"]
+    nodes = doc.get("nodes", {})
+    source = "cluster"
+    node_count = max(1, int(doc.get("node_count", 1) or 1))
+    per_node_scale = 1.0
+    if node is not None and node in nodes:
+        timeline, source = nodes[node], node
+    elif node is not None:
+        raise SystemExit(f"node {node!r} not in export "
+                         f"(have: {sorted(nodes)})")
+    elif "tutoring" in nodes:
+        # The serving node IS the capacity question; prefer it when the
+        # export names one.
+        timeline, source = nodes["tutoring"], "tutoring"
+    elif "cluster" in doc:
+        timeline = doc["cluster"]
+        per_node_scale = 1.0 / node_count
+    else:
+        timeline = doc  # bare {"points": [...]}
+    samples = [s for s in (_point_sample(p)
+                           for p in timeline.get("points", []))
+               if s is not None]
+    if not samples:
+        raise SystemExit(
+            "no usable samples (need points with llm_requests rate and a "
+            "latency p95) — was the timeline exported from a loaded run?"
+        )
+    for s in samples:
+        s["req_s"] *= per_node_scale
+    max_req = max(s["req_s"] for s in samples)
+    width = max_req / bins if max_req > 0 else 1.0
+    bin_rows: List[Dict[str, Any]] = []
+    demonstrated = 0.0
+    p95_at_demonstrated = 0.0
+    saturated = False
+    for i in range(bins):
+        lo, hi = i * width, (i + 1) * width
+        members = [s for s in samples
+                   if lo < s["req_s"] <= hi or (i == 0 and s["req_s"] == 0)]
+        if not members:
+            continue
+        p95s = sorted(m["p95_s"] for m in members)
+        bin_p95 = percentile_of_sorted(p95s, 95)
+        ok = bin_p95 <= slo_p95_s
+        bin_rows.append({
+            "req_s_lo": round(lo, 3), "req_s_hi": round(hi, 3),
+            "n": len(members), "p95_s": round(bin_p95, 4),
+            "slo_ok": ok,
+        })
+        if ok:
+            best = max(m["req_s"] for m in members)
+            if best > demonstrated:
+                demonstrated, p95_at_demonstrated = best, bin_p95
+        else:
+            saturated = True
+    utilization: Optional[Dict[str, float]] = None
+    tokens = sorted(s["tokens_s"] for s in samples if s["tokens_s"] > 0)
+    if source == "cluster":
+        # Cluster gauges are worst-of merges (one node's tokens/s) while
+        # the req/s above was divided across node_count — a tokens/req
+        # ratio from the two would be off by the fleet size. Utilization
+        # extrapolation needs a per-node fit (--node, or an export whose
+        # serving node is named).
+        tokens = []
+    if tokens and ceiling_tokens_per_s:
+        peak_tokens = tokens[-1]
+        loaded = [s for s in samples if s["tokens_s"] > 0]
+        tokens_per_req = percentile_of_sorted(
+            sorted(s["tokens_s"] / s["req_s"] for s in loaded), 50
+        )
+        utilization = {
+            "peak_tokens_per_s": round(peak_tokens, 1),
+            "chip_ceiling_tokens_per_s": ceiling_tokens_per_s,
+            "peak_fraction": round(peak_tokens / ceiling_tokens_per_s, 4),
+            "tokens_per_req": round(tokens_per_req, 1),
+            # Where the chip itself would cap req/s if the SLO never
+            # binds first — the extrapolated ceiling, NOT a demonstrated
+            # number.
+            "token_limited_req_s": round(
+                ceiling_tokens_per_s / tokens_per_req, 2
+            ) if tokens_per_req > 0 else None,
+        }
+    qdepths = sorted(s["queue_depth"] for s in samples)
+    service_p95 = None
+    if stage_p95s:
+        for span in ("engine.decode", "engine.batch", "engine.generate"):
+            if span in stage_p95s and "p95_s" in stage_p95s[span]:
+                service_p95 = stage_p95s[span]["p95_s"]
+                break
+    return {
+        "metric": "capacity_req_s_per_node_at_slo",
+        "value": round(demonstrated, 3),
+        "unit": "req/s/node",
+        "slo_p95_s": slo_p95_s,
+        "source": source,
+        "node_count": node_count,
+        "samples": len(samples),
+        "p95_at_capacity_s": round(p95_at_demonstrated, 4),
+        # False = the run never drove p95 past the SLO, so `value` is a
+        # demonstrated lower bound, not the knee of the curve.
+        "slo_saturated": saturated,
+        "bins": bin_rows,
+        "utilization": utilization,
+        "queue_depth_p95": round(percentile_of_sorted(qdepths, 95), 2)
+        if qdepths else 0.0,
+        # Where the latency budget goes at this load (flight-recorder
+        # per-stage p95s), so a capacity number arrives self-explaining.
+        "service_time_p95_s": service_p95,
+        "stage_p95s": stage_p95s,
+    }
+
+
+# ---------------------------------------------------------------- main
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    ap.add_argument("--endpoint", action="append", default=[],
+                    help="node admin-plane base URL (http://host:port); "
+                         "repeatable")
+    ap.add_argument("--interval", type=float, default=None,
+                    help="poll interval seconds (default: [telemetry] "
+                         "sample_interval_s, else 1.0)")
+    ap.add_argument("--duration", type=float, default=0.0,
+                    help="stop after this many seconds (0 = until Ctrl-C)")
+    ap.add_argument("--once", action="store_true",
+                    help="one poll + one frame, then exit")
+    ap.add_argument("--no-clear", action="store_true",
+                    help="append frames instead of clearing the screen")
+    ap.add_argument("--json", dest="json_out", default=None,
+                    help="write the full scraped timeline export here on "
+                         "exit")
+    ap.add_argument("--config", default=None,
+                    help="TOML deployment file; [telemetry] fills "
+                         "interval/windows/ceiling, [sim] the SLO bounds")
+    ap.add_argument("--capacity", default=None, metavar="TIMELINE.json",
+                    help="fit the capacity model over an exported "
+                         "timeline (or a semester-sim BENCH record) "
+                         "instead of polling")
+    ap.add_argument("--node", default=None,
+                    help="capacity: fit over this exported node timeline "
+                         "(default: 'tutoring' when present, else the "
+                         "merged cluster divided by node count)")
+    ap.add_argument("--slo-p95", type=float, default=None,
+                    help="answer p95 bound (default: [sim] "
+                         "slo_answer_p95_s, else 6.0)")
+    ap.add_argument("--ceiling", type=float, default=None,
+                    help="chip saturation tok/s on the timeline's device "
+                         "(default: [telemetry] chip_ceiling_tokens_per_s; "
+                         "none: no utilization extrapolation)")
+    ap.add_argument("--stage-p95s", default=None,
+                    help="capacity: JSON file of flight-recorder stage "
+                         "p95s to fold into the model")
+    args = ap.parse_args(argv)
+
+    interval = 1.0
+    slo_p95 = 6.0
+    ceiling: Optional[float] = None
+    ceiling_source: Optional[str] = None
+    degraded_bound = 0.5
+    windows = {"fast": 60.0, "slow": 600.0}
+    if args.config:
+        from ..config import load_config
+
+        cfg = load_config(args.config)
+        interval = cfg.telemetry.sample_interval_s
+        ceiling = cfg.telemetry.chip_ceiling_tokens_per_s
+        ceiling_source = (f"{args.config} [telemetry] "
+                          "chip_ceiling_tokens_per_s")
+        windows = {"fast": cfg.telemetry.fast_window_s,
+                   "slow": cfg.telemetry.slow_window_s}
+        # The thresholds contextualize the dashboard's burn figures.
+        windows_note = (f"burn thresholds fast={cfg.telemetry.fast_burn} "
+                        f"slow={cfg.telemetry.slow_burn}")
+        slo_p95 = cfg.sim.slo_answer_p95_s
+        degraded_bound = cfg.sim.slo_degraded_rate_max
+    else:
+        windows_note = ""
+    if args.interval is not None:
+        interval = args.interval
+    if args.slo_p95 is not None:
+        slo_p95 = args.slo_p95
+    if args.ceiling is not None:
+        ceiling, ceiling_source = args.ceiling, "--ceiling"
+
+    if args.capacity:
+        with open(args.capacity, encoding="utf-8") as fh:
+            doc = json.load(fh)
+        stage = None
+        if args.stage_p95s:
+            with open(args.stage_p95s, encoding="utf-8") as fh:
+                stage = json.load(fh)
+        model = fit_capacity(doc, slo_p95_s=slo_p95,
+                             ceiling_tokens_per_s=ceiling,
+                             node=args.node, stage_p95s=stage)
+        model["ceiling_source"] = ceiling_source
+        print(json.dumps(model))
+        return 0
+
+    if not args.endpoint:
+        ap.error("need --endpoint (live mode) or --capacity (offline fit)")
+    scraper = ClusterScraper(
+        sources=endpoints_sources(args.endpoint)
+    )
+    t_end = time.monotonic() + args.duration if args.duration else None
+    try:
+        while True:
+            scraper.poll()
+            if not args.no_clear and not args.once:
+                sys.stdout.write("\x1b[2J\x1b[H")
+            render_dashboard(
+                scraper, window_s=max(10.0, 2 * interval),
+                burn=_degraded_burn(scraper, windows, degraded_bound),
+            )
+            groups = fetch_groups(args.endpoint)
+            if groups is not None:
+                render_groups(groups, sys.stdout)
+            if windows_note:
+                sys.stdout.write(f"  {windows_note}\n")
+            sys.stdout.flush()
+            if args.once or (t_end and time.monotonic() >= t_end):
+                break
+            time.sleep(interval)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if args.json_out:
+            with open(args.json_out, "w", encoding="utf-8") as fh:
+                json.dump(scraper.export(), fh)
+            sys.stderr.write(f"timeline export written to "
+                             f"{args.json_out}\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

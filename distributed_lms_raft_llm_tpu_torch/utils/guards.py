@@ -47,9 +47,25 @@ displaced it; while it is displaced the check is off. The one cost: while
 strict is on anywhere, every sync builds a warning object (microseconds),
 and a sanctioned one is dropped.
 
-The JAX module's compile-count guard has no counterpart: the port has no
-jit. Nothing runs at import, and torch is imported only when strict
-dispatch is asked for.
+- `compile_count_guard(...)`, `RecompileError`, `InventoryMismatchError`
+  and `expected_from_inventory(engine)`: the reference's promise that no
+  live request pays for a compile. The port has no jit, so a program's
+  "cache" is the set of distinct static keys it has run at (a bucket, a
+  width, a pair; `ProgramKeys`, one per program in each engine's
+  `programs` table, filled by host code only: no device sync, no tensor
+  read). What a compile cost on the TPU costs on the card is one of three
+  things, each a process counter the guard reads: a CUDA graph capture
+  (`engine/graphs.py::captures`), an nvcc build (`ops/build.py::builds`)
+  and a kernel wrapper validating a layout it has not seen
+  (`ops/attention.py::layouts_validated`,
+  `ops/quant_matmul.py::layouts_validated`). A guarded region may add at
+  most `allow` program keys and must not move any of the three counters;
+  with `expected_from_inventory(engine)` every warmup-covered program's
+  key count must also EQUAL the manifest's (`engine/program_inventory.py`)
+  at exit, in both directions. A counter the guard cannot read raises.
+
+Nothing runs at import, and torch is imported only when strict dispatch
+or the card's counters are asked for.
 """
 
 from __future__ import annotations
@@ -61,7 +77,7 @@ import re
 import threading
 import time
 import warnings
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Dict, Hashable, Iterator, Optional, Tuple
 
 from . import metrics_registry
 
@@ -201,6 +217,216 @@ def enable_strict_dispatch() -> None:
         _process_strict = True
         _apply_mode()
     log.info("strict dispatch: unmarked host syncs will raise")
+
+
+# ---------------------------------------------------- compile-count guard
+
+
+class RecompileError(AssertionError):
+    """A guarded region paid for what warmup promised to have paid for: a
+    program key warmup did not cover, a graph capture, a kernel build or
+    a layout's first launch."""
+
+
+class InventoryMismatchError(RecompileError):
+    """The engine's program tables and the static manifest
+    (engine/program_inventory.py) disagree: an uncovered program, a stale
+    inventory entry, or drifted domain math. Regenerate with
+    `python -m distributed_lms_raft_llm_tpu_torch.tools.gen_program_inventory
+    --write` if the change was intentional."""
+
+
+class ProgramKeys:
+    """The distinct static keys one engine program has run at: the port's
+    counterpart of a jitted callable's program cache. `record` is host
+    work only (a set insert); a graph replay records nothing (it runs no
+    Python), so a replayed program's keys are those of its capture and of
+    the dispatches that chose it."""
+
+    def __init__(self, owner: str, name: str):
+        self.owner = owner
+        self.name = name
+        self.keys: set = set()
+
+    def record(self, key: Hashable) -> None:
+        self.keys.add(key)
+
+    def cache_size(self) -> int:
+        return len(self.keys)
+
+
+# The card's three costs of a first use, by counter name: (module, the
+# module's attributes summed).
+CARD_COUNTERS: Dict[str, Tuple[Tuple[str, str], ...]] = {
+    "captures": (("distributed_lms_raft_llm_tpu_torch.engine.graphs",
+                  "captures"),),
+    "builds": (("distributed_lms_raft_llm_tpu_torch.ops.build", "builds"),),
+    "layouts": (("distributed_lms_raft_llm_tpu_torch.ops.attention",
+                 "layouts_validated"),
+                ("distributed_lms_raft_llm_tpu_torch.ops.quant_matmul",
+                 "layouts_validated")),
+}
+
+
+def card_counters() -> Dict[str, int]:
+    """Read the three process counters (on every device; on the CPU they
+    stay 0). Raises `RecompileError` for a counter it cannot read: a guard
+    never passes on a counter it did not see."""
+    import importlib
+
+    out: Dict[str, int] = {}
+    for name, sources in CARD_COUNTERS.items():
+        total = 0
+        for module, attr in sources:
+            try:
+                value = getattr(importlib.import_module(module), attr)
+            except (ImportError, AttributeError) as exc:
+                raise RecompileError(
+                    f"cannot read the {name} counter ({module}.{attr}): "
+                    f"{exc}") from exc
+            if isinstance(value, bool) or not isinstance(value, int):
+                raise RecompileError(
+                    f"the {name} counter {module}.{attr} is {value!r}, not "
+                    f"a count")
+            total += value
+        out[name] = total
+    return out
+
+
+class _CompileCounts:
+    """Snapshot of per-program key counts and of the card's counters."""
+
+    def __init__(self, programs):
+        self.programs = list(programs)
+        self.baseline = [self._size(p) for p in self.programs]
+        self.counters0 = card_counters()
+
+    @staticmethod
+    def _size(program: object) -> int:
+        if not isinstance(program, ProgramKeys):
+            raise TypeError(
+                f"{program!r} is not an engine program (no recorded keys); "
+                "pass an engine's `programs[name]`")
+        return program.cache_size()
+
+    def new_compiles(self) -> int:
+        """Program keys added since the snapshot, over every program."""
+        return sum(self._size(p) - b
+                   for p, b in zip(self.programs, self.baseline))
+
+    def grown(self) -> Dict[str, int]:
+        """{owner.program: keys added} for the programs that grew."""
+        return {f"{p.owner}.{p.name}": self._size(p) - b
+                for p, b in zip(self.programs, self.baseline)
+                if self._size(p) != b}
+
+    def counter_deltas(self) -> Dict[str, int]:
+        """{counter: rise} for the card counters that moved."""
+        now = card_counters()
+        return {k: now[k] - self.counters0[k] for k in now
+                if now[k] != self.counters0[k]}
+
+
+class InventoryExpectation:
+    """Absolute expected key counts for an engine's warmup-covered
+    programs, from the static manifest. Built by
+    `expected_from_inventory(engine)`; consumed by `compile_count_guard`."""
+
+    def __init__(self, engine: object):
+        from ..engine import program_inventory as _inv
+
+        self.engine = engine
+        self.expected = _inv.expected_counts(engine)  # program -> keys
+        self.programs = {
+            name: engine.programs[name] for name in sorted(self.expected)
+        }
+
+    def report(self) -> Dict[str, Tuple[int, int]]:
+        """{program: (actual, expected)} for every warmup-covered program."""
+        return {name: (_CompileCounts._size(p), self.expected[name])
+                for name, p in self.programs.items()}
+
+    def mismatches(self) -> Dict[str, Tuple[int, int]]:
+        """The programs of `report()` whose key count differs from the
+        manifest's expectation, in either direction."""
+        return {name: (actual, exp)
+                for name, (actual, exp) in self.report().items()
+                if actual != exp}
+
+
+def expected_from_inventory(engine: object) -> InventoryExpectation:
+    """The static<->runtime cross-validation mode of `compile_count_guard`:
+
+        eng.warmup()
+        with compile_count_guard(expected_from_inventory(eng)):
+            ... live serving ...
+
+    The region must add no program key and move none of the card's
+    counters, AND at exit every program engine/program_inventory.py names
+    for the engine must hold EXACTLY the manifest's key count: more means
+    warmup missed a program, fewer means the manifest overstates the
+    domain (stale). Either direction raises InventoryMismatchError.
+    """
+    return InventoryExpectation(engine)
+
+
+@contextlib.contextmanager
+def compile_count_guard(
+    *programs: object, allow: int = 0, what: str = "guarded region"
+) -> Iterator[_CompileCounts]:
+    """Assert the region adds at most `allow` new keys across the given
+    engine programs and moves none of the card's counters (graph
+    captures, kernel builds, layout validations).
+
+        with compile_count_guard(eng.programs["_step"]) as guard:
+            eng.drain()
+        # guard.new_compiles(), guard.counter_deltas() for reporting
+
+    Passing `expected_from_inventory(engine)` as the sole argument guards
+    the engine's whole warmup-covered program set and also asserts the
+    key counts at exit EQUAL the static manifest's. No program at all
+    guards the card's counters alone.
+    """
+    expectation: Optional[InventoryExpectation] = None
+    if len(programs) == 1 and isinstance(programs[0], InventoryExpectation):
+        expectation = programs[0]
+        programs = tuple(expectation.programs.values())
+        what = (
+            f"{type(expectation.engine).__name__} inventoried program set"
+            if what == "guarded region" else what
+        )
+    counts = _CompileCounts(programs)
+    yield counts
+    new = counts.new_compiles()
+    if new > allow:
+        detail = ", ".join(f"{name} +{n}"
+                           for name, n in sorted(counts.grown().items()))
+        raise RecompileError(
+            f"{what} ran {new} new program key(s) (allowed {allow}): "
+            f"{detail} — warmup does not cover a live code path")
+    risen = counts.counter_deltas()
+    if risen:
+        detail = ", ".join(f"{name} +{n}" for name, n in sorted(
+            risen.items()))
+        raise RecompileError(
+            f"{what} moved the card's first-use counters: {detail} "
+            "(captures: a CUDA graph captured; builds: a kernel built; "
+            "layouts: a kernel wrapper validated a layout warmup did not "
+            "run)")
+    if expectation is not None:
+        bad = expectation.mismatches()
+        if bad:
+            detail = ", ".join(
+                f"{name}: {actual} keys vs {exp} inventoried"
+                for name, (actual, exp) in sorted(bad.items())
+            )
+            raise InventoryMismatchError(
+                f"{what} disagrees with engine/program_inventory.py "
+                f"({detail}) — more than inventoried means warmup missed a "
+                "program; fewer means the manifest is stale (python -m "
+                "distributed_lms_raft_llm_tpu_torch.tools."
+                "gen_program_inventory --write)"
+            )
 
 
 # ------------------------------------------------------------- watchdogs

@@ -5,11 +5,20 @@ metrics_registry.py` that this node emits, under the same names, so one
 dashboard (and `/metrics.prom` scraper) reads a JAX node and a port node
 alike. `/metrics.prom` (`utils/healthz.py`) takes HELP and TYPE from here;
 a name not declared here still exports, typed by its snapshot section.
+
+The rendering half of the JAX registry, over `SPECS`: `MetricSpec`,
+`counter`/`gauge`/`histogram` (declare a series, with the reference's
+name and help checks), `all_metrics`, `is_declared`, `spec` and
+`render_markdown_table`, which the README's port metrics table is
+generated from (`python -m
+distributed_lms_raft_llm_tpu_torch.tools.gen_metrics_table --write`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+import re
+from typing import Dict, List, Tuple
 
 COUNTER = "counter"
 GAUGE = "gauge"
@@ -567,5 +576,62 @@ BREAKER_TRANSITION_COUNTERS = {
 }
 
 
+_NAME_RE = re.compile(r"^[a-z][a-z0-9_]*$")
+
+
+@dataclasses.dataclass(frozen=True)
+class MetricSpec:
+    name: str
+    kind: str
+    help: str
+
+
+def _declare(kind: str, name: str, help: str) -> str:
+    if not _NAME_RE.match(name):
+        raise ValueError(f"metric name {name!r} must match {_NAME_RE.pattern}")
+    if not help.strip():
+        raise ValueError(f"metric {name!r} needs a help string")
+    if name in SPECS:
+        raise ValueError(f"metric {name!r} declared twice")
+    SPECS[name] = (kind, help)
+    return name
+
+
+def counter(name: str, help: str) -> str:
+    """Declare a monotonically increasing count; returns the name."""
+    return _declare(COUNTER, name, help)
+
+
+def gauge(name: str, help: str) -> str:
+    """Declare a last-value reading (a ratio or size, never a latency)."""
+    return _declare(GAUGE, name, help)
+
+
+def histogram(name: str, help: str) -> str:
+    """Declare a latency histogram (seconds; /metrics renders percentiles)."""
+    return _declare(HISTOGRAM, name, help)
+
+
 def is_declared(name: str) -> bool:
     return name in SPECS
+
+
+def spec(name: str) -> MetricSpec:
+    kind, help_text = SPECS[name]
+    return MetricSpec(name=name, kind=kind, help=help_text)
+
+
+def all_metrics() -> List[MetricSpec]:
+    """Every declared series, name-sorted (the docs/table order)."""
+    return [spec(k) for k in sorted(SPECS)]
+
+
+def render_markdown_table() -> str:
+    """The README metrics catalog of the port, one row per series."""
+    lines = [
+        "| name | kind | meaning |",
+        "|---|---|---|",
+    ]
+    for m in all_metrics():
+        lines.append(f"| `{m.name}` | {m.kind} | {m.help} |")
+    return "\n".join(lines)

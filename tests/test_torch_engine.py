@@ -304,6 +304,14 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.utils.scrape\n"
         "import distributed_lms_raft_llm_tpu_torch.utils.locks\n"
         "import distributed_lms_raft_llm_tpu_torch.parallel\n"
+        "import distributed_lms_raft_llm_tpu_torch.engine.program_inventory\n"
+        "import distributed_lms_raft_llm_tpu_torch.tools.gen_program_inventory\n"
+        "import distributed_lms_raft_llm_tpu_torch.tools.gen_metrics_table\n"
+        "import distributed_lms_raft_llm_tpu_torch.tools.trace_report\n"
+        "import distributed_lms_raft_llm_tpu_torch.tools.telemetry\n"
+        "from distributed_lms_raft_llm_tpu_torch.tools import "
+        "gen_program_inventory as g\n"
+        "g.shipped_domains()\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
