@@ -6,7 +6,7 @@
 
 Needs one NVIDIA GPU and this checkout beside the script (phases 8, 11,
 11b, 12 and 13 read configs/cluster.toml; phase 14 starts this script
-again as its two tp ranks, which run phases 15 and 16 too).
+again as its two tp ranks, which run phases 15, 16 and 17 too).
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -331,9 +331,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    above 0, the last loss below 0.8x the first, the sidecar's step 18;
    the median step ms after the first 3 steps, tokens/s and the peak
    allocation reported; resume: the first epoch run by `fit` with the
-   CLI's schedule and checkpointed, then the CLI in a fresh process
-   resumes it to step 18, its checkpoint bit-equal to the straight run's,
-   leaf by leaf; the export read back through `convert.gpt2_params_from_hf`
+   CLI's schedule and checkpointed, then the CLI's entry point (in this
+   process; a fresh one before phase 17 took the time) resumes it from
+   the checkpoint file to step 18, its checkpoint bit-equal to the
+   straight run's, leaf by leaf; the export read back through `convert.gpt2_params_from_hf`
    gives float32 logits over a framed question within 1e-5 of their range
    of the trained params'; a node from configs/cluster.toml (the
    deployment's `[tutoring]`, greedy) with `--checkpoint` on the export
@@ -468,9 +469,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    converter giving the checkpoint params' float32 logits; (f) on each
    rank, the refusals: tp 2 at GPT-2 small's vocabulary, pp with MoE,
    with sp and with tp (the JAX package's messages word for word), an
-   engine over a dp-2 mesh. The training path launches none of the
+   engine over a pp-2 mesh. The training path launches none of the
    port's kernels (checked: no launch over the phase). These times are
    not parallelism's speed: every collective crosses host memory.
+17. dp inside one engine, in phase 14's two rank processes after phase
+   16, this process running the dp-1 references meanwhile: the ranks laid
+   out by `make_hybrid_mesh({}, {"dp": 2})`, each process a host of its
+   own (`local_world_size=1`), on gloo; every engine over both ranks,
+   rank 0 driving and rank 1 replaying the whole batch. (a) GPT-2 small's
+   deployment (configs/cluster.toml [tutoring]: paged, int8 weights and
+   KV, megastep 4/8 on CUDA graphs, which a dp-only engine captures over
+   gloo since its model calls hold no collective, fused admission, the
+   prefix cache) at full width and depth in float32: phase 4c's 4 bare
+   questions x 32 greedy tokens, served under the compile guard on each
+   rank (warmup first), each rank's tokens byte-equal to a dp-1 engine's,
+   both ranks the same decisions, each rank's KV bytes dp 1's, and each
+   rank's launches by route (append = 12 x decode calls, int8 = 49 x
+   model calls on the CUDA cores, through the replays) equal to dp 1's;
+   (b) the bucketed engine on the same config: one generate of the 4
+   questions (answers equal to dp 1's) and one scoring quantum of the 8
+   QUESTIONS (log probabilities within 1e-5 of dp 1's), launches equal to
+   dp 1's; (c) the deployment's gate (bert-base, int8, bf16): one check,
+   its verdict dp 1's and its similarity within 2e-2, launches equal.
+   dp adds no throughput here, as in the JAX package: each rank computes
+   what one rank computes.
 
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -484,6 +506,7 @@ import contextlib
 import functools
 import hashlib
 import json
+import logging
 import math
 import os
 import re
@@ -5183,8 +5206,9 @@ def train_phase(torch, attention, quant_matmul, args, card) -> dict:
         emit("train_straight", card=card, **record["train"])
 
         # (b) Resume: the first epoch in process with the same schedule
-        # (main's), then the CLI in a fresh process resumes it to the end;
-        # the two states must be bit-equal.
+        # (main's), then the CLI's entry point resumes it to the end from
+        # the checkpoint file (in this process: a fresh one spent 25 s
+        # importing); the two states must be bit-equal.
         _, model_cfg = registry.resolve(TRAIN_MODEL, torch.bfloat16,
                                         torch.float32)
         dataset = PackedDataset.from_paths(
@@ -5200,18 +5224,24 @@ def train_phase(torch, attention, quant_matmul, args, card) -> dict:
               == ckpt.latest_step(ck_b), "phase 12: the half run")
         del half
         t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", f"{PACKAGE}.train.train", *argv,
-             "--checkpoint", ck_b], cwd=str(REPO), capture_output=True,
-            text=True, timeout=600, env=dict(
-                os.environ, PYTHONPATH=os.pathsep.join(
-                    [str(REPO)] + [p for p in [os.environ.get(
-                        "PYTHONPATH")] if p])))
+        said = []
+        heard = logging.Handler()
+        heard.emit = lambda r: said.append(r.getMessage())
+        fit_log = logging.getLogger("train")  # `fit`'s logger
+        level = fit_log.level
+        fit_log.setLevel(logging.INFO)
+        fit_log.addHandler(heard)
+        try:
+            resumed = trainer.main(argv + ["--checkpoint", ck_b])
+        finally:
+            fit_log.removeHandler(heard)
+            fit_log.setLevel(level)
         resume_s = time.monotonic() - t0
-        check(proc.returncode == 0 and f"resumed from {ck_b} at step "
-              f"{TRAIN_STEPS_PER_EPOCH}" in proc.stderr,
-              f"phase 12: the resumed CLI run failed ({proc.returncode}):\n"
-              f"{proc.stderr[-3000:]}")
+        check(resumed["step"] == steps and f"resumed from {ck_b} at step "
+              f"{TRAIN_STEPS_PER_EPOCH}" in said,
+              f"phase 12: the resumed CLI run ended at {resumed['step']}, "
+              f"logging {said[:4]}")
+        del resumed
         check(ckpt.latest_step(ck_b) == steps,
               f"phase 12: the resumed run ended at "
               f"{ckpt.latest_step(ck_b)}, the straight run at {steps}")
@@ -5222,7 +5252,7 @@ def train_phase(torch, attention, quant_matmul, args, card) -> dict:
         check(not differ, f"phase 12: the resumed state differs from the "
               f"straight run's: {differ}")
         record["resume"] = dict(bit_equal=True, leaves=len(a),
-                                subprocess_s=resume_s)
+                                resume_s=resume_s)
         del a, b
         os.remove(ck_b)
         emit("train_resume", **record["resume"])
@@ -6053,6 +6083,9 @@ def tp_rank_main(args) -> int:
                                       rank, run)
     # Phase 16 in the same two processes: the sharded trainer.
     rec["train_sharded"] = train_rank_phase(torch, args, rank)
+    # Phase 17 in the same two processes: dp inside one engine.
+    rec["dp"] = dp_rank_phase(torch, attention, quant_matmul, args, rank,
+                              run)
     Path(args.tp_out).write_text(json.dumps(rec))
     from torch import distributed as dist
 
@@ -6126,6 +6159,8 @@ def tp_phase(torch, attention, quant_matmul, args, card) -> dict:
         refs15 = ep_references(torch, attention, quant_matmul, args)
         # Phase 16's one-rank references.
         refs16 = train_references(torch, args, Path(tmp))
+        # Phase 17's dp-1 references.
+        refs17 = dp_references(torch, attention, quant_matmul, args)
         deadline = time.monotonic() + TP_RANK_TIMEOUT_S
         for proc in procs:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -6290,6 +6325,8 @@ def tp_phase(torch, attention, quant_matmul, args, card) -> dict:
     # Phase 16's checks on the same ranks' records.
     rec["train_sharded"] = train_phase_checks(torch, args, ranks, refs16,
                                               tmp, card)
+    # Phase 17's checks on the same ranks' records.
+    rec["dp"] = dp_phase_checks(attention, ranks, refs17, card)
     return rec
 
 
@@ -7198,8 +7235,8 @@ def train_rank_phase(torch, args, rank) -> dict:
             layout({"pp": 2, "sp": 2}), small, tc, 0)),
         pp_tp=ts_refusal(lambda: train.make_sharded_train_step(
             layout({"pp": 2, "tp": 2}), small, tc, 0)),
-        engine_dp2=ts_refusal(lambda: mesh.make_mesh(
-            {"dp": -1}).tensor_parallel()))
+        engine_pp2=ts_refusal(lambda: mesh.make_mesh(
+            {"pp": -1}).tensor_parallel()))
     gc.collect()
     torch.cuda.empty_cache()
     after = counted_launches()
@@ -7509,9 +7546,9 @@ def train_phase_checks(torch, args, ranks, refs, tmp, card) -> dict:
               and got["tp2_vocab"] is not None
               and f"wte: axis 0 of size {TS_VOCAB} does not split over "
               f"tp=2" in got["tp2_vocab"]
-              and got["engine_dp2"] is not None
-              and got["engine_dp2"].startswith("NotImplementedError")
-              and "'dp': 2" in got["engine_dp2"],
+              and got["engine_pp2"] is not None
+              and got["engine_pp2"].startswith("NotImplementedError")
+              and "pp=2" in got["engine_pp2"],
               f"phase 16 (f): the refusals: {got}")
     rec["launches"] = [r["launches"] for r in (lead, follow)]
     check(not any(v for r in rec["launches"] for v in r.values()),
@@ -7523,6 +7560,314 @@ def train_phase_checks(torch, args, ranks, refs, tmp, card) -> dict:
                       + max(r["total"] for r in rec["rank_seconds"]))
     emit("train_sharded", **{k: rec[k] for k in (
         "card", "backend", "rank_seconds", "references_s", "seconds")})
+    return rec
+
+
+# ------------------------------------ phase 17: dp inside one engine
+
+DP = 2                        # dp ranks: phase 14's two processes
+DP_REQUESTS, DP_TOKENS = 4, 32  # phase 4c's 4 bare questions x 32 tokens
+DP_LAYERS = 12                # GPT-2 small: the append kernel a layer
+DP_PRODUCTS = 4 * DP_LAYERS + 1  # int8 products a model call
+# The deployment config's engine options (configs/cluster.toml
+# [tutoring]) with its CUDA graphs: a dp-only engine's model calls hold
+# no collective, so gloo does not keep it from capturing.
+DP_DEPLOY_KW = dict(TP_DEPLOY_KW, cuda_graphs=True)
+
+
+def dp_config(torch, seed):
+    """GPT-2 small at full width and depth with the deployment's int8
+    weights and KV cache, in float32 (the witness: dp 1 and dp 2 must
+    give the same tokens), greedy; dp is what the ranks' group leaves."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig,
+        SamplingParams,
+    )
+
+    return EngineConfig(
+        model="gpt2", quant="int8", kv_quant=True, seed=seed, device="cuda",
+        dtype=torch.float32, param_dtype=torch.float32,
+        sampling=SamplingParams.greedy(max_new_tokens=DP_TOKENS))
+
+
+def dp_launches(attention, quant_matmul, eng, c0) -> dict:
+    """Calls since `c0` (decode, admission chunks, prefills) and the
+    launches; for a paged engine also whether they are exact: the append
+    kernel DP_LAYERS a decode call and no other attention variant,
+    DP_PRODUCTS int8 products a model call, all on the CUDA cores
+    (float32)."""
+    decode = getattr(eng, "decode_steps", 0) - c0[0]
+    adm = getattr(eng, "admission_chunks", 0) - c0[1]
+    prefill = getattr(eng, "prefill_calls", 0) - c0[2]
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    rec = dict(decode_calls=decode, admission_chunks=adm, prefills=prefill,
+               launches={k: v for k, v in launches.items() if v})
+    if hasattr(eng, "admission_chunks"):
+        model = decode + adm + prefill
+        want = {name: 0 for name in attention.launch_counts}
+        want[attention.APPEND_INT8KV] = DP_LAYERS * decode
+        want[quant_matmul.FMA] = want[quant_matmul.KERNEL] = \
+            DP_PRODUCTS * model
+        rec["exact"] = decode > 0 and all(launches.get(k, 0) == v
+                                          for k, v in want.items())
+    return rec
+
+
+def dp_witness_run(torch, attention, quant_matmul, eng, leader, what):
+    """Phase 17 (a) on one engine (a dp rank's, or dp 1's): warm it (the
+    graphs captured, every program over its domain), then serve the
+    4 bare questions under the compile guard; a follower enters the guard
+    once it has replayed rank 0's warmup. Returns (tokens in submit
+    order, launch record, inventory record)."""
+    prompts = list(QUESTIONS[:DP_REQUESTS])
+    box = {}
+
+    def begin():
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        box["c0"] = (eng.decode_steps, eng.admission_chunks,
+                     eng.prefill_calls)
+        return inventory_guard(eng, what)
+
+    with contextlib.ExitStack() as stack:
+        if leader:
+            eng.warmup()
+            box["inventory"] = stack.enter_context(begin())
+            toks = watched_tokens(eng, prompts)
+            eng.stop_followers()
+        else:
+            finals = {}
+
+            def keep(name, result):
+                if name == "warmup":
+                    box["inventory"] = stack.enter_context(begin())
+                finals.update(eng.pop_final_tokens())
+
+            eng.follow(keep)
+            toks = [finals[r] for r in sorted(finals)]
+        torch.cuda.synchronize()
+    counts = dp_launches(attention, quant_matmul, eng, box["c0"])
+    return toks, counts, box["inventory"]
+
+
+def dp_rank_phase(torch, attention, quant_matmul, args, rank, run) -> dict:
+    """Phase 17 on one of phase 14's two rank processes (see the module
+    docstring): the ranks laid out by `make_hybrid_mesh({}, {"dp": DP})`,
+    each process a host of its own; (a) GPT-2 small's deployment, (b) one
+    bucketed generate and one scoring quantum, (c) one gate check, each
+    at dp 2, rank 0 driving and rank 1 following. Returns this rank's
+    record."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        PagedEngine,
+        RelevanceGate,
+        TutoringEngine,
+    )
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+
+    t0 = time.monotonic()
+    layout = mesh.make_hybrid_mesh({}, {"dp": DP}, local_world_size=1)
+    rec = dict(rank=rank, layout=layout.layout, coords=layout.coords())
+    cfg = dp_config(torch, args.seed)
+
+    # (a) The deployment config at dp 2, on CUDA graphs.
+    eng = PagedEngine(cfg, mesh=layout, **DP_DEPLOY_KW)
+    rec["config"] = dict(
+        dp=eng.dp, tp=eng.tp, ep=eng.ep, cuda_graphs=eng.cuda_graphs,
+        fused=eng.fused, megastep_ks=eng.megastep_ks,
+        prefix_cache=eng.prefix_cache is not None, quant_kv=eng.cfg.quant_kv,
+        dtype=str(eng.cfg.dtype), hidden=eng.cfg.hidden_size,
+        layers=eng.cfg.num_layers, vocab=eng.cfg.vocab_size,
+        kv_bytes_per_chip=eng.kv_bytes_per_chip)
+    toks, counts, inventory = dp_witness_run(
+        torch, attention, quant_matmul, eng, rank == 0,
+        f"phase 17 (a) dp rank {rank}")
+    rec["witness"] = dict(tokens=toks, decisions=list(eng.decisions),
+                          inventory=inventory, **counts)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) The bucketed engine: one generate, then one scoring quantum.
+    eng = TutoringEngine(cfg, mesh=layout)
+    prompts, texts = list(QUESTIONS[:DP_REQUESTS]), list(QUESTIONS)
+    out, counts = run(eng, lambda: (eng.answer_batch(prompts),
+                                    eng.score(texts)), dp_launches)
+    answers, scores = (out if rank == 0
+                       else (out["answer_batch"], out["score"]))
+    rec["bucketed"] = dict(dp=eng.dp, answers=answers, quantum=scores,
+                           **counts)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) The deployment's gate (bert-base, int8, bf16): one check.
+    gate = RelevanceGate(gate_tp_config(torch, 1), mesh=layout)
+    f0 = gate.forwards
+    check_out, counts = run(gate, lambda: gate.check(*gate_tp_pairs()[0]),
+                            dp_launches)
+    rec["gate"] = dict(dp=gate.dp, forwards=gate.forwards - f0,
+                       check=check_out if rank == 0 else None, **counts)
+    del gate
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.monotonic() - t0
+    return rec
+
+
+def dp_references(torch, attention, quant_matmul, args) -> dict:
+    """Phase 17's dp-1 references, in this process while the ranks run:
+    the same three runs on engines of one rank."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        PagedEngine,
+        RelevanceGate,
+        TutoringEngine,
+    )
+
+    t0 = time.monotonic()
+    refs = {}
+    cfg = dp_config(torch, args.seed)
+    eng = PagedEngine(cfg, **DP_DEPLOY_KW)
+    refs["kv_bytes_per_chip"] = eng.kv_bytes_per_chip
+    toks, counts, inventory = dp_witness_run(
+        torch, attention, quant_matmul, eng, True,
+        "phase 17 (a) dp 1 reference")
+    refs["witness"] = dict(tokens=toks, inventory=inventory, **counts)
+    del eng
+    torch.cuda.empty_cache()
+
+    def counted(obj, fn):
+        attention.reset_launch_counts()
+        quant_matmul.reset_launch_counts()
+        c0 = tuple(getattr(obj, k, 0) for k in (
+            "decode_steps", "admission_chunks", "prefill_calls"))
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dp_launches(attention, quant_matmul, obj, c0)
+
+    eng = TutoringEngine(cfg)
+    (answers, scores), counts = counted(eng, lambda: (
+        eng.answer_batch(list(QUESTIONS[:DP_REQUESTS])),
+        eng.score(list(QUESTIONS))))
+    refs["bucketed"] = dict(answers=answers, quantum=scores, **counts)
+    del eng
+    torch.cuda.empty_cache()
+    gate = RelevanceGate(gate_tp_config(torch, 1))
+    check_out, counts = counted(gate, lambda: gate.check(
+        *gate_tp_pairs()[0]))
+    refs["gate"] = dict(check=check_out, **counts)
+    del gate
+    torch.cuda.empty_cache()
+    refs["seconds"] = time.monotonic() - t0
+    return refs
+
+
+def dp_phase_checks(attention, ranks, refs, card) -> dict:
+    """Phase 17's checks on both ranks' records against the dp-1
+    references (see the module docstring). Returns its record."""
+    t_phase = time.monotonic()
+    lead, follow = [r["dp"] for r in ranks]
+    rec = dict(card=card, dp=DP, backend=TP_BACKEND,
+               rank_seconds=[r["seconds"] for r in (lead, follow)],
+               references_s=refs["seconds"],
+               layout=lead["layout"], coords=[lead["coords"],
+                                              follow["coords"]])
+    check(lead["layout"] == follow["layout"] == [0, 1]
+          and [lead["coords"]["dp"], follow["coords"]["dp"]] == [0, 1],
+          f"phase 17: make_hybrid_mesh's layout {rec['layout']}, "
+          f"coordinates {rec['coords']}")
+    config = lead["config"]
+    check(follow["config"] == config and config["dp"] == DP
+          and config["tp"] == config["ep"] == 1 and config["cuda_graphs"]
+          and config["fused"] and config["prefix_cache"]
+          and config["megastep_ks"] == [1, 2, 4, 8] and config["quant_kv"]
+          and config["dtype"] == "torch.float32" and config["hidden"] == 768
+          and config["layers"] == DP_LAYERS and config["vocab"] == 50257
+          and config["kv_bytes_per_chip"] == refs["kv_bytes_per_chip"],
+          f"phase 17: not GPT-2 small's deployment at dp {DP} on graphs, "
+          f"each rank holding dp 1's KV: {config}")
+
+    # (a) The float32 witness: each rank's tokens dp 1's, launches by
+    # route dp 1's and exact, nothing new under the compile guard.
+    want = refs["witness"]
+    w = dict(requests=DP_REQUESTS, new_tokens=DP_TOKENS,
+             equal_dp1=[sum(a == b for a, b in zip(r["witness"]["tokens"],
+                                                   want["tokens"]))
+                        for r in (lead, follow)],
+             decisions_equal=(follow["witness"]["decisions"]
+                              == lead["witness"]["decisions"]),
+             dp1={k: want[k] for k in ("decode_calls", "admission_chunks",
+                                       "prefills", "launches", "exact")},
+             ranks=[{k: r["witness"][k] for k in (
+                 "decode_calls", "admission_chunks", "prefills", "launches",
+                 "exact")} for r in (lead, follow)],
+             new_program_keys=[r["witness"]["inventory"]["new_program_keys"]
+                               for r in (lead, follow)])
+    rec["witness"] = w
+    emit("dp_f32_witness", **w)
+    for r in (lead, follow):
+        emit("inventory", what=f"phase 17 (a) dp rank {r['rank']}",
+             **r["witness"]["inventory"])
+    check(w["equal_dp1"] == [DP_REQUESTS] * DP and w["decisions_equal"],
+          f"phase 17 (a): float32 greedy tokens at dp {DP} differ from dp "
+          f"1's or between the ranks: {w}")
+    check(want["exact"] and all(r["exact"] for r in w["ranks"])
+          and all(r["launches"] == want["launches"] for r in w["ranks"])
+          and all(r[k] == want[k] for r in w["ranks"] for k in (
+              "decode_calls", "admission_chunks", "prefills")),
+          f"phase 17 (a): launches by route not dp 1's on every rank, or "
+          f"not exact: {w}")
+
+    # (b) The bucketed generate and the scoring quantum.
+    want = refs["bucketed"]
+    b = dict(dp=[r["bucketed"]["dp"] for r in (lead, follow)],
+             answers_equal_dp1=[r["bucketed"]["answers"] == want["answers"]
+                                for r in (lead, follow)],
+             quantum_max_rel_err=max(
+                 abs(s["logprob"] - t["logprob"]) / max(1.0, abs(t["logprob"]))
+                 for r in (lead, follow)
+                 for s, t in zip(r["bucketed"]["quantum"], want["quantum"])),
+             quantum_tokens_equal=all(
+                 [s["tokens"] for s in r["bucketed"]["quantum"]]
+                 == [t["tokens"] for t in want["quantum"]]
+                 for r in (lead, follow)),
+             launches=[r["bucketed"]["launches"] for r in (lead, follow)],
+             launches_dp1=want["launches"],
+             decode_calls=[r["bucketed"]["decode_calls"]
+                           for r in (lead, follow)])
+    rec["bucketed"] = b
+    emit("dp_bucketed", **b)
+    check(b["dp"] == [DP] * DP and all(b["answers_equal_dp1"])
+          and b["quantum_tokens_equal"]
+          and len(want["quantum"]) == len(QUESTIONS)
+          and b["quantum_max_rel_err"] <= TOLERANCE["float32"]
+          and all(x == want["launches"] for x in b["launches"])
+          and want["launches"].get(attention.INT8KV, 0) > 0,
+          f"phase 17 (b): the bucketed engine at dp {DP} against dp 1: {b}")
+
+    # (c) The gate's check.
+    want = refs["gate"]
+    got = lead["gate"]["check"]
+    g = dict(dp=[r["gate"]["dp"] for r in (lead, follow)],
+             verdict_equal=got[0] == want["check"][0],
+             similarity=got[1], similarity_dp1=want["check"][1],
+             abs_err=abs(got[1] - want["check"][1]),
+             forwards=[r["gate"]["forwards"] for r in (lead, follow)],
+             launches=[r["gate"]["launches"] for r in (lead, follow)],
+             launches_dp1=want["launches"])
+    rec["gate"] = g
+    emit("dp_gate", **g)
+    check(g["dp"] == [DP] * DP and g["verdict_equal"]
+          and g["abs_err"] <= TOLERANCE["bfloat16"]
+          and g["forwards"][0] == g["forwards"][1] > 0
+          and all(x == want["launches"] for x in g["launches"]),
+          f"phase 17 (c): the gate at dp {DP} against dp 1: {g}")
+    rec["launches"] = {k: lead[k]["launches"]
+                       for k in ("witness", "bucketed", "gate")}
+    rec["launches_rank1"] = {k: follow[k]["launches"]
+                             for k in ("witness", "bucketed", "gate")}
+    # Phase 17's own wall: its part of the ranks' run (the references ran
+    # beside it), then these checks.
+    rec["seconds"] = time.monotonic() - t_phase + max(rec["rank_seconds"])
+    emit("dp", **{k: rec[k] for k in (
+        "card", "dp", "backend", "layout", "rank_seconds", "references_s",
+        "seconds")})
     return rec
 
 
@@ -8045,13 +8390,15 @@ def main(argv=None) -> int:
     records["tp"] = tp_phase(torch, attention, quant_matmul, args, smi)
     records["ep_sp_gate"] = records["tp"].pop("ep_sp_gate")
     records["train_sharded"] = records["tp"].pop("train_sharded")
+    records["dp"] = records["tp"].pop("dp")
     tp_launches_ = records["tp"]["launches"]
     ep_launches_ = records["ep_sp_gate"]["launches"]
     lap("14_tp")
     phase_s["15_ep_sp_gate"] = records["ep_sp_gate"]["seconds"]
     phase_s["16_train_sharded"] = records["train_sharded"]["seconds"]
+    phase_s["17_dp"] = records["dp"]["seconds"]
     phase_s["14_tp"] -= (phase_s["15_ep_sp_gate"]
-                         + phase_s["16_train_sharded"])
+                         + phase_s["16_train_sharded"] + phase_s["17_dp"])
 
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]
@@ -8340,6 +8687,51 @@ def main(argv=None) -> int:
             library_note=case["library_note"],
             launches_path="15c, rank 0 of 2 gate tp ranks: the route's "
             "launches over the 8 checks"))
+    # Phase 17: the kernels a dp-2 rank of GPT-2 small's deployment runs,
+    # their launches rank 0's (rank 1's and dp 1's are equal, checked), at
+    # the shapes phase 3b timed them.
+    dp_runs = records["dp"]["launches"]
+    f32_wi = next(c for c in mm_cases if c["name"] == "mlp.wi"
+                  and c["m"] == 16 and c["dtype"] == "float32")
+    gate_wi = next(c for c in mm_cases if c["name"] == "mlp.wi"
+                   and c["m"] == 256 and c["dtype"] == "bfloat16")
+    kernels += [
+        entry(f"{attention.APPEND_INT8KV}[dp2 rank: GPT-2 small's "
+              f"deployment, float32]", pallas + " (extended: the paged "
+              "step's append and attend over the int8 cache)",
+              dp_runs["witness"].get(attention.APPEND_INT8KV, 0),
+              append_case("int8"),
+              library_note=append_case("int8")["library_note"],
+              shape="16 slots, width 384, int8 cache, bf16 q (the dp run's "
+              "q is float32)",
+              launches_path="17a, rank 0 of 2 dp ranks, through the graph "
+              "replays"),
+        entry(f"{attention.INT8KV}[dp2 rank: the bucketed engine, float32]",
+              pallas + " (extended: per-row lengths over the int8 cache)",
+              dp_runs["bucketed"].get(attention.INT8KV, 0),
+              paged_case(True, "float32"),
+              library_note=paged_case(True, "float32")["library_note"],
+              shape="16 rows, width 384, int8 cache, float32",
+              launches_path="17b, rank 0 of 2 dp ranks: one generate of 4 "
+              "questions"),
+        entry(f"{quant_matmul.FMA}[dp2 rank: float32, M=16]",
+              "no Pallas kernel: distributed_lms_raft_llm_tpu/models/"
+              "common.py:58-60 and models/quant.py:139-146 (XLA-fused int8 "
+              "einsums)", dp_runs["witness"].get(quant_matmul.FMA, 0)
+              + dp_runs["bucketed"].get(quant_matmul.FMA, 0), f32_wi,
+              source=f"{PACKAGE}/ops/csrc/int8_matmul.cu",
+              shape="mlp.wi 768 x 3072, M 16, float32 (CUDA cores)",
+              library_note=f32_wi["library_note"],
+              launches_path="17a and 17b, rank 0 of 2 dp ranks"),
+        entry(f"{quant_matmul.WGMMA}[dp2 rank: the gate's check]",
+              "no Pallas kernel: distributed_lms_raft_llm_tpu/models/"
+              "common.py:58-60 (XLA-fused int8 einsums of models/bert.py)",
+              dp_runs["gate"].get(quant_matmul.WGMMA, 0), gate_wi,
+              source=wgmma_src,
+              shape="mlp.wi 768 x 3072, M 256, bf16 (GPT-2's product at "
+              "the gate's rows)", library_note=gate_wi["library_note"],
+              launches_path="17c, rank 0 of 2 dp ranks: one check"),
+    ]
     records["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -29,20 +29,24 @@ engine.py`, on one CUDA device (or the CPU when the caller asks for it):
 
 - `tp` > 1 shards the model over a tp axis of ranks, `ep` > 1 an MoE
   model's experts over an ep axis, and `sp` > 1 the scoring forward's
-  sequence over an sp axis (`parallel/`): the caller starts tp x ep x sp
-  processes that join one process group (gloo or nccl,
-  `parallel.mesh.init_process_group` or torchrun's environment) and builds
-  the same engine in each; rank 0 takes the calls and the other ranks
-  follow it (`follow()`, `parallel/spmd.py`). Every rank holds its slice of
-  the parameters (its heads, its experts) and its heads of the cache, and
-  its kernels run at the shard's shapes. Unlike the JAX engine, fused
-  attention runs under tp: the JAX package's Pallas kernel is not
+  sequence over an sp axis (`parallel/`); dp takes the ranks those leave
+  over, as the JAX engine's ``"dp": -1`` takes the spare devices. The
+  caller starts the processes, which join one process group (gloo or
+  nccl, `parallel.mesh.init_process_group` or torchrun's environment),
+  and builds the same engine in each: its world is the whole group, dp x
+  tp x ep x sp ranks (or the `mesh` it is given, such as
+  `parallel.make_hybrid_mesh`'s); rank 0 takes the calls and the other
+  ranks follow it (`follow()`, `parallel/spmd.py`). Every rank holds its
+  slice of the parameters (its heads, its experts) and its heads of the
+  cache, and its kernels run at the shard's shapes. Unlike the JAX engine,
+  fused attention runs under tp: the JAX package's Pallas kernel is not
   partition-aware, while each rank here hands its own local tensors to the
-  kernel. Generation replicates over sp (the cached decode shards no
-  sequence); scoring at sp > 1 runs the ring forward
-  (`parallel/ring.py`), each rank summing its own positions' log
-  probabilities, and buckets texts as the JAX engine does
-  (`engine/scoring.py`).
+  kernel. Generation replicates over dp (each dp line of tp x ep x sp
+  ranks computes the whole batch, as JAX's jit does with uncommitted host
+  inputs) and over sp (the cached decode shards no sequence); scoring at
+  sp > 1 runs the ring forward (`parallel/ring.py`), each rank summing its
+  own positions' log probabilities, each dp line its own rows of the
+  batch, and buckets texts as the JAX engine does (`engine/scoring.py`).
 """
 
 from __future__ import annotations
@@ -134,18 +138,21 @@ def kv_heads(cfg) -> int:
 @dataclasses.dataclass(frozen=True)
 class EngineAxes:
     """An engine's mesh axes (`parallel.mesh.ParallelAxis` each): tp
-    shards the heads, ep the experts, sp the scoring forward's sequence;
-    `ranks` is what the replicated host loop broadcasts over (the tp axis
-    where the engine's ranks are its tp ranks, else all of them)."""
+    shards the heads, ep the experts, sp the scoring forward's sequence,
+    and dp replicates them all (only the scoring forward at sp > 1 splits
+    its batch over dp); `ranks` is what the replicated host loop
+    broadcasts over (the tp axis where the engine's ranks are its tp
+    ranks, else all of them)."""
 
     tp: mesh_lib.ParallelAxis = mesh_lib.SINGLE
     ep: mesh_lib.ParallelAxis = mesh_lib.ParallelAxis(name="ep")
     sp: mesh_lib.ParallelAxis = mesh_lib.ParallelAxis(name="sp")
     ranks: mesh_lib.ParallelAxis = mesh_lib.SINGLE
+    dp: mesh_lib.ParallelAxis = mesh_lib.ParallelAxis(name="dp")
 
     @property
     def world(self) -> int:
-        return self.tp.size * self.ep.size * self.sp.size
+        return self.dp.size * self.tp.size * self.ep.size * self.sp.size
 
 
 def check_expert_parallel(ep: int, family: str, cfg, model: str,
@@ -168,31 +175,45 @@ def check_expert_parallel(ep: int, family: str, cfg, model: str,
 
 
 def engine_axes(config: EngineConfig, family: str, cfg,
-                paged: bool = False) -> EngineAxes:
-    """The axes an engine runs over: every axis of size 1 at tp = ep =
-    sp = 1; else the process group's, which must hold exactly tp x ep x sp
-    ranks. The head split and ep are checked first
-    (`partition.validate_tp_heads`, the JAX paged engine's check;
+                paged: bool = False,
+                mesh: Optional[mesh_lib.Mesh] = None) -> EngineAxes:
+    """The axes an engine runs over: `mesh`'s where given (its tp, ep and
+    sp must be the config's); else every axis of size 1 outside a process
+    group of several ranks, and inside one the group's, laid out by
+    `make_mesh` with dp taking what tp x ep x sp leave (a group that is
+    not a multiple of them is refused). The head split and ep are checked
+    first (`partition.validate_tp_heads`, the JAX paged engine's check;
     `check_expert_parallel`), so a bad split raises before any group is
     needed."""
     partition.validate_tp_heads(kv_heads(cfg), config.tp, config.model)
     check_expert_parallel(config.ep, family, cfg, config.model, paged)
-    if config.tp == config.ep == config.sp == 1:
-        return EngineAxes()
-    from torch import distributed as dist
-
-    world = config.tp * config.ep * config.sp
-    if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError(
-            f"tp={config.tp} x ep={config.ep} x sp={config.sp} runs one "
-            f"process a rank: join a process group of {world} ranks first "
-            f"(parallel.mesh.init_process_group, or initialize_multihost "
-            f"under torchrun)")
-    mesh = mesh_lib.make_mesh({"tp": config.tp, "ep": config.ep,
-                               "sp": config.sp, "dp": -1})
+    model = config.tp * config.ep * config.sp
+    if mesh is None:
+        world = mesh_lib.make_mesh().world_size
+        if world == 1 and model == 1:
+            return EngineAxes()
+        if world == 1:
+            raise RuntimeError(
+                f"tp={config.tp} x ep={config.ep} x sp={config.sp} runs one "
+                f"process a rank: join a process group of {model} ranks "
+                f"first (parallel.mesh.init_process_group, or "
+                f"initialize_multihost under torchrun)")
+        if world % model:
+            raise ValueError(
+                f"a process group of {world} ranks is not a multiple of "
+                f"tp={config.tp} x ep={config.ep} x sp={config.sp} = "
+                f"{model}: an engine's world is dp x tp x ep x sp ranks")
+        mesh = mesh_lib.make_mesh({"tp": config.tp, "ep": config.ep,
+                                   "sp": config.sp, "dp": -1})
+    want = {"tp": config.tp, "ep": config.ep, "sp": config.sp}
+    got = {a: mesh.shape[a] for a in want}
+    if got != want:
+        raise ValueError(f"the mesh's axes {got} are not the config's "
+                         f"{want}")
     tp = mesh.tensor_parallel()
     return EngineAxes(tp=tp, ep=mesh.axis("ep"), sp=mesh.axis("sp"),
-                      ranks=tp if tp.size == world else mesh.world())
+                      ranks=tp if tp.size == mesh.world_size
+                      else mesh.world(), dp=mesh.axis("dp"))
 
 
 def shard_for(params, family: str, axes: EngineAxes):
@@ -273,7 +294,8 @@ def check_spec_window(spec_tokens: int, fused: bool) -> None:
 
 
 class TutoringEngine:
-    def __init__(self, config: EngineConfig):
+    def __init__(self, config: EngineConfig,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         check_quant(config)
         if config.spec_tokens > 0 and config.draft_source != "prompt_lookup":
             raise ValueError(
@@ -290,12 +312,14 @@ class TutoringEngine:
         if fused is None:
             fused = self.device.type == "cuda"
         check_spec_window(config.spec_tokens, fused)
-        # The mesh axes (the head split and ep checked first); `tp`, `ep`
-        # and `sp` are their sizes.
-        self.axes = engine_axes(config, self.family.name, self.cfg)
+        # The mesh axes (the head split and ep checked first); `tp`, `ep`,
+        # `sp` and `dp` are their sizes.
+        self.axes = engine_axes(config, self.family.name, self.cfg,
+                                mesh=mesh)
         self.tensor_parallel = self.axes.tp
-        self.tp, self.ep, self.sp = (self.axes.tp.size, self.axes.ep.size,
-                                     self.axes.sp.size)
+        self.tp, self.ep, self.sp, self.dp = (
+            self.axes.tp.size, self.axes.ep.size, self.axes.sp.size,
+            self.axes.dp.size)
         self.cfg = shard_cfg(self.cfg, self.axes,
                              fused_decode_attention=fused,
                              quant_kv=config.kv_quant)
@@ -324,10 +348,10 @@ class TutoringEngine:
         if config.quant:
             self.params = quant.quantize_params(self.params, self.family.name)
         self.params = shard_for(self.params, self.family.name, self.axes)
-        log.info("params ready in %.1fs on %s (rank %d of %d: tp %d, ep "
-                 "%d, sp %d)", time.monotonic() - t0, self.device,
-                 self.axes.ranks.rank, self.axes.world, self.tp, self.ep,
-                 self.sp)
+        log.info("params ready in %.1fs on %s (rank %d of %d: dp %d, tp "
+                 "%d, ep %d, sp %d)", time.monotonic() - t0, self.device,
+                 self.axes.ranks.rank, self.axes.world, self.dp, self.tp,
+                 self.ep, self.sp)
 
         self.last_ttft_s: Optional[float] = None
         self.last_batch_ttfts: List[float] = []
@@ -344,14 +368,15 @@ class TutoringEngine:
         self._prog_times: List[Tuple[str, float, float]] = []
         # The scoring tenant's program and the shapes warmup runs it at
         # (none unless `config.scoring`).
-        # At sp > 1 its forward runs round the ring (`score_cfg`).
+        # At sp > 1 its forward runs round the ring (`score_cfg`), each dp
+        # line over its own rows of the batch.
         self._score = functools.partial(
             score_program, cfg=score_cfg(self.cfg, self.axes),
-            model=self.family)
+            model=self.family, dp=self.axes.dp if self.sp > 1 else None)
         self.score_shapes: List[Tuple[int, int]] = (
             derive_score_shapes(config.length_buckets, config.batch_buckets,
                                 self.cfg.max_position_embeddings,
-                                sp=self.sp)
+                                sp=self.sp, dp=self.dp)
             if config.scoring else [])
         # The distinct static keys each program has run at (host only).
         self.programs = program_table("TutoringEngine")
@@ -359,7 +384,7 @@ class TutoringEngine:
     _PROG_TIMES_MAX = 1024
 
     def follow(self, on_result=None) -> None:
-        """A tp rank other than 0: replay rank 0's calls until it stops
+        """A rank other than 0: replay rank 0's calls until it stops
         (`stop_followers`); `on_result(name, result)` sees each replayed
         call's result (`Replica.follow`)."""
         self._spmd.follow(on_result)

@@ -28,17 +28,18 @@ count are guarded by a lock, the forward itself shares only read-only
 weights (the kernels' launch counters are plain integers, exact only
 while one thread launches).
 
-Tensor parallelism (`tp > 1`, the JAX gate's ``{"tp": tp, "dp": -1}``
-mesh under BERT_RULES): the gate runs over the caller's process group
-(`group`, the default group when None), which must hold exactly tp ranks,
-one process each; every rank builds the same gate and holds its slice of
-the encoder (`models/bert.py`). Rank 0 takes the calls; each forward
-(`embed_texts`) is broadcast to the other ranks, which replay it
-(`follow()`, `parallel/spmd.py`), so the cache and the check stay on rank
-0. A tp that does not divide the word table's rows (bert-base's 30,522 at
-tp 4) or the heads is refused before any group is needed, as the JAX
-package refuses it. There is no CLI flag for it, as the JAX package has
-none.
+Tensor parallelism (`tp > 1`) and dp, the JAX gate's ``{"tp": tp, "dp":
+-1}`` mesh under BERT_RULES: inside a process group of several ranks
+(one process each) the gate runs over all of them, laid out by
+`make_mesh` with dp taking what tp leaves (or over the `mesh` it is
+given); every rank builds the same gate and holds its tp slice of the
+encoder (`models/bert.py`), replicated over dp. Rank 0 takes the calls;
+each forward (`embed_texts`) is broadcast to the other ranks, which
+replay it (`follow()`, `parallel/spmd.py`), so the cache and the check
+stay on rank 0. A tp that does not divide the word table's rows
+(bert-base's 30,522 at tp 4) or the heads is refused before any group is
+needed, as the JAX package refuses it, and so is a group that is not a
+multiple of tp. There is no CLI flag for it, as the JAX package has none.
 """
 
 from __future__ import annotations
@@ -80,27 +81,39 @@ class GateConfig:
     device: str = "cuda"
 
 
-def gate_tensor_parallel(config: GateConfig, cfg: bert.BertConfig,
-                         group=None) -> mesh_lib.ParallelAxis:
-    """The gate's tp axis: SINGLE at tp 1; else `group` (the default
-    group when None), which must hold exactly tp ranks. The word table's
-    rows and the heads are checked first, so a bad split raises before
-    any group is needed."""
-    if config.tp == 1:
-        return mesh_lib.SINGLE
-    partition.check_split("embeddings/word", 0, cfg.vocab_size, config.tp)
-    partition.validate_tp_heads(cfg.num_heads, config.tp, config.model)
-    tp = mesh_lib.axis_over(group)
-    if tp.size != config.tp:
-        raise RuntimeError(
-            f"GateConfig.tp={config.tp} runs one process a rank: join a "
-            f"process group of {config.tp} ranks first and pass it (or "
-            f"the default group) as `group`; this one holds {tp.size}")
-    return tp
+def gate_axes(config: GateConfig, cfg: bert.BertConfig,
+              mesh: Optional[mesh_lib.Mesh] = None
+              ) -> Tuple[mesh_lib.ParallelAxis, mesh_lib.ParallelAxis]:
+    """The gate's (tp axis, the ranks its host loop spans): `mesh`'s tp
+    where given; else SINGLE for both outside a process group of several
+    ranks, and inside one `make_mesh({"tp": tp, "dp": -1})` over the
+    group, which must be a multiple of tp. The word table's rows and the
+    heads are checked first, so a bad split raises before any group is
+    needed."""
+    if config.tp > 1:
+        partition.check_split("embeddings/word", 0, cfg.vocab_size,
+                              config.tp)
+        partition.validate_tp_heads(cfg.num_heads, config.tp, config.model)
+    if mesh is None:
+        world = mesh_lib.make_mesh().world_size
+        if world == 1 and config.tp == 1:
+            return mesh_lib.SINGLE, mesh_lib.SINGLE
+        if world % config.tp:
+            raise RuntimeError(
+                f"GateConfig.tp={config.tp} runs one process a rank: join a "
+                f"process group of {config.tp} ranks (or a multiple of "
+                f"them, dp taking the rest) first; this one holds {world}")
+        mesh = mesh_lib.make_mesh({"tp": config.tp, "dp": -1})
+    if mesh.shape["tp"] != config.tp:
+        raise ValueError(f"the mesh's tp={mesh.shape['tp']} is not "
+                         f"GateConfig.tp={config.tp}")
+    tp = mesh.tensor_parallel()
+    return tp, tp if tp.size == mesh.world_size else mesh.world()
 
 
 class RelevanceGate:
-    def __init__(self, config: GateConfig, group=None):
+    def __init__(self, config: GateConfig,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         if config.quant not in (None, "int8"):
             raise ValueError(f"unsupported quant mode {config.quant!r}")
         self.config = config
@@ -108,11 +121,12 @@ class RelevanceGate:
         factory = (bert.BertConfig.tiny if config.model == "tiny"
                    else bert.BertConfig.base_uncased)
         self.cfg = factory(dtype=config.dtype)
-        self.tensor_parallel = gate_tensor_parallel(config, self.cfg, group)
+        self.tensor_parallel, ranks = gate_axes(config, self.cfg, mesh)
+        self.dp = ranks.size // self.tensor_parallel.size
         self.cfg = dataclasses.replace(self.cfg,
                                        tensor_parallel=self.tensor_parallel)
         # Over several ranks: rank 0's forwards, replayed on the others.
-        self._spmd = Replica(self, self.tensor_parallel)
+        self._spmd = Replica(self, ranks)
         self.tokenizer = tok_lib.load_bert_tokenizer(config.vocab_path)
         if self.tokenizer.vocab_size > self.cfg.vocab_size:
             raise ValueError("tokenizer vocab exceeds model vocab")

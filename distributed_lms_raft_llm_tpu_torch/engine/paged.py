@@ -102,14 +102,22 @@ the other ranks replay them and the step (`follow()`, `parallel/spmd.py`),
 so admission, megastep K, prefix hits and reaps follow identically; the
 radix tree's session expiry reads rank 0's clock. Over several ranks
 `decisions` records the host's choices on every rank. CUDA graphs need a
-backend whose collectives a capture can hold (nccl): `cuda_graphs=True`
-over gloo raises, and None turns them on only where the device and the
-backend allow.
+backend whose collectives a capture can hold (nccl) where a model call
+holds a collective (tp or ep above 1): `cuda_graphs=True` there over gloo
+raises, and None turns them on only where the device and the backend
+allow.
 
 Expert parallelism (`ep` > 1, an MoE model; alone or beside tp): the ranks
 are tp x ep, each ep rank holding E / ep experts (`models/moe.py`), the
 same replicated loop over all of them. `sp` > 1 is refused with the JAX
 engine's message: the paged engine has no full-sequence forward to shard.
+
+dp takes the ranks tp x ep leave in the process group (or the `mesh` the
+engine is given), as the JAX engine's ``"dp": -1`` does: the state is
+replicated over dp, as `PAGED_PLANE_SPECS` names no dp axis, so every dp
+rank holds every slot and follows rank 0's steps on the whole batch. A
+dp-only engine's model calls hold no collective (its one is the host
+loop's broadcast, between calls), so it captures graphs over gloo too.
 """
 
 from __future__ import annotations
@@ -127,7 +135,7 @@ import torch
 from ..device import resolve_device
 from ..models import convert, quant, registry
 from ..models.common import KVCache
-from ..parallel.mesh import backend_can_capture
+from ..parallel.mesh import Mesh, backend_can_capture
 from ..parallel.spmd import Replica
 from ..utils.guards import intended_transfer
 from .draft import build_drafts, build_drafts_ngram, verify_window
@@ -650,7 +658,8 @@ class PagedEngine:
                  prefix_cache_blocks: int = 512,
                  prefix_block_tokens: int = BLOCK_TOKENS,
                  prefill_chunk_tokens: int = 0,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None,
+                 mesh: Optional[Mesh] = None):
         check_quant(config)
         self.config = config
         # Speculative decoding: draft tokens verified per window
@@ -678,13 +687,16 @@ class PagedEngine:
                 "sp applies to TutoringEngine.score's ring-attention path; "
                 "the paged engine has no full-sequence forward to shard"
             )
-        # The mesh axes (the head split and ep checked first); `tp` and
-        # `ep` are their sizes.
+        # The mesh axes (the head split and ep checked first); `tp`, `ep`
+        # and `dp` are their sizes.
         self.axes = engine_axes(config, self.family.name, self.cfg,
-                                paged=True)
+                                paged=True, mesh=mesh)
         self.tensor_parallel = self.axes.tp
-        self.tp, self.ep = self.axes.tp.size, self.axes.ep.size
-        capturable = backend_can_capture(self.axes.ranks.backend)
+        self.tp, self.ep, self.dp = (self.axes.tp.size, self.axes.ep.size,
+                                     self.axes.dp.size)
+        # A model call holds a collective only at tp or ep above 1.
+        capturable = self.tp == self.ep == 1 or backend_can_capture(
+            self.axes.ranks.backend)
         if cuda_graphs and not capturable:
             raise ValueError(
                 f"cuda_graphs over the {self.axes.ranks.backend} "
@@ -782,9 +794,10 @@ class PagedEngine:
         if config.quant:
             params = quant.quantize_params(params, self.family.name)
         self.params = shard_for(params, self.family.name, self.axes)
-        log.info("params ready in %.1fs on %s (rank %d of %d: tp %d, ep "
-                 "%d)", time.monotonic() - t0, self.device,
-                 self.axes.ranks.rank, self.axes.world, self.tp, self.ep)
+        log.info("params ready in %.1fs on %s (rank %d of %d: dp %d, tp "
+                 "%d, ep %d)", time.monotonic() - t0, self.device,
+                 self.axes.ranks.rank, self.axes.world, self.dp, self.tp,
+                 self.ep)
 
         statics = dict(cfg=self.cfg, sampling=config.sampling,
                        model=self.family)
@@ -915,7 +928,7 @@ class PagedEngine:
     _PROG_TIMES_MAX = 4096
 
     def follow(self, on_result=None) -> None:
-        """A tp rank other than 0: replay rank 0's calls until it stops
+        """A rank other than 0: replay rank 0's calls until it stops
         (`stop_followers`); `on_result(name, result)` sees each replayed
         call's result before this rank drains its stats (`Replica.follow`).
         """

@@ -271,7 +271,7 @@ def static_score_domain(
     package's math, which `engine/scoring.derive_score_shapes` mirrors
     (cross-checked in `expected_counts`). With sp > 1 the length buckets
     round up to sp multiples under an sp-floored limit and the batches to
-    dp multiples (the port's engines run at dp 1)."""
+    dp multiples (the engine's dp, `expected_counts`)."""
     if not enabled:
         return {"pairs": [], "score_pairs": 0}
     limit = min(max(length_buckets), max_position_embeddings)
@@ -387,6 +387,7 @@ def expected_counts(engine) -> Dict[str, int]:
             tuple(engine.config.batch_buckets),
             engine.cfg.max_position_embeddings,
             sp=engine.config.sp,
+            dp=engine.dp,
             enabled=engine.config.scoring,
         )
         if list(engine.score_shapes) != sdom["pairs"]:

@@ -47,9 +47,12 @@ What differs from the JAX package:
   shard's last position reads its target from the next shard's first
   id), and the sums are added over sp before the perplexity is formed.
   The shapes follow the JAX package's sp rules (the limit floored to a
-  multiple of sp, the bucket rounded up to one); its rounding of the
-  batch to dp has nothing to round here (an engine's ranks are tp x ep x
-  sp, dp is 1).
+  multiple of sp, the bucket rounded up to one). At dp > 1 the batch is
+  split over dp, as the JAX ring's `shard_map` splits it: it is rounded
+  up to a multiple of dp with all-pad filler rows (scored, then dropped),
+  each dp line of sp ranks scores its own rows, and the rows' sums are
+  gathered over dp. At sp = 1 every dp line scores the whole batch, as
+  JAX's jit replicates it.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..parallel.mesh import axis_of
+from ..parallel.mesh import ParallelAxis, axis_of
 from ..utils import metrics_registry as metric
 from ..utils.guards import intended_transfer
 from .generate import pick_bucket
@@ -75,7 +78,8 @@ log = logging.getLogger(__name__)
 
 
 def score_program(params: Any, ids: torch.Tensor, mask: torch.Tensor, *,
-                  cfg: Any, model: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+                  cfg: Any, model: Any, dp: Optional[ParallelAxis] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row total next-token log probability and valid-pair count.
 
     The full-sequence forward (no KV cache, causal attention through the
@@ -88,7 +92,19 @@ def score_program(params: Any, ids: torch.Tensor, mask: torch.Tensor, *,
     this rank's positions [r T/sp, (r+1) T/sp), each paired with the next
     id (the last position of the sequence with none), summed here and
     then over the sp ranks.
+
+    With `dp` above size 1 (sp > 1 at dp > 1) this rank's dp line scores
+    its `1/dp` of the rows (the batch a multiple of dp) and the rows'
+    sums and counts are gathered over dp, in row order.
     """
+    if dp is not None and dp.size > 1:
+        rows = ids.shape[0] // dp.size
+        mine = slice(dp.rank * rows, (dp.rank + 1) * rows)
+        total, count = score_program(params, ids[mine], mask[mine],
+                                     cfg=cfg, model=model)
+        both = dp.all_gather(torch.stack((total, count.to(total.dtype))),
+                             dim=1)
+        return both[0], both[1].long()
     logits, _ = model.forward(params, cfg, ids)
     sp = axis_of(cfg, "sequence_parallel", "sp")
     if sp.size == 1:
@@ -111,15 +127,17 @@ def score_program(params: Any, ids: torch.Tensor, mask: torch.Tensor, *,
 
 def derive_score_shapes(length_buckets: Sequence[int],
                         batch_buckets: Sequence[int],
-                        max_position_embeddings: int, sp: int = 1
-                        ) -> List[Tuple[int, int]]:
+                        max_position_embeddings: int, sp: int = 1,
+                        dp: int = 1) -> List[Tuple[int, int]]:
     """Every (batch, length) shape `score_texts` can run, derived the way
     `encode_score_batch` buckets live texts: the domain warmup covers when
     scoring is on. At sp > 1 the JAX package's rules: the limit floored to
-    a multiple of sp, each bucket rounded up to one within it."""
+    a multiple of sp, each bucket rounded up to one within it, each batch
+    bucket rounded up to a multiple of dp."""
     limit = _score_limit(length_buckets, max_position_embeddings, sp)
     buckets = {_sp_bucket(min(b, limit), limit, sp) for b in length_buckets}
-    return sorted((nb, t) for nb in set(batch_buckets) for t in buckets)
+    batches = {_dp_batch(nb, sp, dp) for nb in batch_buckets}
+    return sorted((nb, t) for nb in batches for t in buckets)
 
 
 def _score_limit(length_buckets: Sequence[int], max_position_embeddings: int,
@@ -137,6 +155,12 @@ def _sp_bucket(bucket: int, limit: int, sp: int) -> int:
     return min(-(-bucket // sp) * sp, limit)
 
 
+def _dp_batch(nbatch: int, sp: int, dp: int) -> int:
+    """The batch bucket rounded up to a multiple of dp where sp > 1 (the
+    ring splits the rows over dp); as it is at sp = 1."""
+    return -(-nbatch // dp) * dp if sp > 1 else nbatch
+
+
 def encode_score_batch(engine: Any, texts: Sequence[str]
                        ) -> Tuple[np.ndarray, np.ndarray, List[bool]]:
     """Tokenize and right-pad one score group (at most the largest batch
@@ -144,7 +168,8 @@ def encode_score_batch(engine: Any, texts: Sequence[str]
     truncated), where `truncated[i]` says text i exceeded the length
     limit and only its PREFIX is scored. The limit is the largest length
     bucket capped at the position table, so no position leaves it; at
-    sp > 1 floored to a multiple of sp, the bucket rounded up to one."""
+    sp > 1 floored to a multiple of sp, the bucket rounded up to one, and
+    the batch rounded up to a multiple of dp with all-pad rows."""
     cfg = engine.config
     sp = cfg.sp
     limit = _score_limit(cfg.length_buckets,
@@ -165,7 +190,8 @@ def encode_score_batch(engine: Any, texts: Sequence[str]
         raise ValueError(
             f"score bucket {bucket} is not {sp} equal shards inside the "
             f"position table {engine.cfg.max_position_embeddings}")
-    nbatch = pick_bucket(len(texts), cfg.batch_buckets)
+    nbatch = _dp_batch(pick_bucket(len(texts), cfg.batch_buckets), sp,
+                       engine.dp)
     ids = np.full((nbatch, bucket), engine.tokenizer.pad_id, np.int64)
     mask = np.zeros((nbatch, bucket), bool)
     for i, toks in enumerate(token_lists):

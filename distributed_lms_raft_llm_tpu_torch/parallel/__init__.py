@@ -4,9 +4,11 @@ collectives, in conjugate pairs that carry the trainer's gradients
 attention over the sp axis (`ring`), the GPipe pipeline over pp
 (`pipeline`), and the replicated host loop of a sharded engine (`spmd`).
 
-Port of `distributed_lms_raft_llm_tpu/parallel/`: serving's tp, ep and sp,
-and the trainer's dp, tp, sp, ep and pp. Not ported yet: dp inside one
-engine.
+Port of `distributed_lms_raft_llm_tpu/parallel/`: serving's dp, tp, ep and
+sp, the trainer's dp, tp, sp, ep and pp, and the multi-host layout
+(`make_hybrid_mesh`). JAX's sharding helpers (`single_device_mesh`,
+`named_sharding`, `shard_tree`, `shardings_for`) have no counterpart:
+`single_mesh` and `partition.shard_params` take their place.
 """
 
 from .mesh import (  # noqa: F401
@@ -14,9 +16,9 @@ from .mesh import (  # noqa: F401
     Mesh,
     ParallelAxis,
     TensorParallel,
-    axis_over,
     init_process_group,
     initialize_multihost,
+    make_hybrid_mesh,
     make_mesh,
     single_mesh,
 )

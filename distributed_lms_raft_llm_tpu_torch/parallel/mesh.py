@@ -57,10 +57,19 @@ where it ran in place. `torch.distributed.nn.functional.all_reduce` is not
 used: its backward all-reduces the gradient, which multiplies the gradient
 of a replicated loss by the axis size.
 
-`Mesh.tensor_parallel` refuses a mesh whose ranks spread over dp or pp:
-dp inside one engine is not ported and the pipeline is the trainer's, so
-an engine's world is tp x ep x sp ranks. The trainer takes its axes with
-`Mesh.axis`.
+An engine's world is dp x tp x ep x sp ranks: dp takes the ranks that
+tp x ep x sp leave over, as the JAX engines' ``"dp": -1`` takes the spare
+devices, and each dp line of tp x ep x sp ranks holds the whole model
+(its tp and ep slices) and computes the whole batch, as JAX replicates
+over dp. `Mesh.tensor_parallel` refuses pp alone: the pipeline is the
+trainer's, whose axes come from `Mesh.axis`.
+
+`make_hybrid_mesh` lays the ranks of several hosts out as JAX's
+`mesh_utils.create_hybrid_device_mesh` lays out its granules: a host is
+one of torchrun's nodes (`LOCAL_WORLD_SIZE` contiguous ranks), laid out
+row-major over the ici sizes, and the hosts tile the dcn grid. Such a
+layout is not row-major in rank, so a `Mesh` carries its ranks in mesh
+order (`layout`); every mesh `make_mesh` builds keeps rank order.
 
 The mesh is this module's own small class, not `torch.distributed.
 device_mesh`: a `DeviceMesh` pins each rank to the device of its index,
@@ -138,14 +147,31 @@ class Mesh:
     # Where this rank computes (the trainer's parameters and batches);
     # None is the card.
     device: Any = None
+    # The ranks in mesh order (row-major over `sizes`); None is rank
+    # order, rank r at mesh index r (`make_hybrid_mesh` tiles hosts).
+    layout: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.layout is not None and \
+                sorted(self.layout) != list(range(self.world_size)):
+            raise ValueError(f"layout {self.layout} is not the ranks "
+                             f"0..{self.world_size - 1}, each once")
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.sizes))
 
+    def _index(self) -> int:
+        """This rank's row-major index in the mesh."""
+        return self.rank if self.layout is None else \
+            self.layout.index(self.rank)
+
+    def _rank_at(self, index: int) -> int:
+        return index if self.layout is None else self.layout[index]
+
     def coords(self) -> Dict[str, int]:
         """This rank's index along each axis."""
-        out, rest = {}, self.rank
+        out, rest = {}, self._index()
         for name, n in reversed(list(zip(self.axis_names, self.sizes))):
             out[name] = rest % n
             rest //= n
@@ -161,8 +187,9 @@ class Mesh:
         shape = self.shape
         stride = math.prod(shape[a] for a in self.axis_names[
             self.axis_names.index(name) + 1:])
-        base = self.rank - self.coords()[name] * stride
-        return tuple(base + i * stride for i in range(shape[name]))
+        base = self._index() - self.coords()[name] * stride
+        return tuple(self._rank_at(base + i * stride)
+                     for i in range(shape[name]))
 
     def axis(self, name: str) -> "ParallelAxis":
         """This rank's `name` axis and its collectives: over a subgroup of
@@ -190,19 +217,15 @@ class Mesh:
                             ranks=tuple(range(n)))
 
     def tensor_parallel(self) -> "ParallelAxis":
-        """The tp axis' collectives, for an engine. Raises where the ranks
-        spread over dp or pp: dp inside one engine is not ported and pp is
-        the trainer's (`train.train.make_sharded_train_step`), so an
-        engine's ranks are its tp x ep x sp."""
-        spread = {a: n for a, n in self.shape.items()
-                  if a in ("dp", "pp") and n > 1}
-        if spread:
+        """The tp axis' collectives, for an engine, whose ranks are its
+        dp x tp x ep x sp. Raises where the ranks spread over pp: the
+        pipeline is the trainer's (`train.train.make_sharded_train_step`),
+        and the JAX engines put no pp in their mesh."""
+        if self.shape.get("pp", 1) > 1:
             raise NotImplementedError(
-                f"mesh axes {spread} do not shard an engine in the PyTorch "
-                f"port (dp inside one engine is not ported; pp is the "
-                f"trainer's): the engines shard over tp, ep and sp alone, "
-                f"so the process group must hold exactly tp x ep x sp = "
-                f"{self.world_size // math.prod(spread.values())} ranks")
+                f"mesh axis pp={self.shape['pp']} does not shard an engine "
+                f"(the pipeline is the trainer's): an engine's ranks are "
+                f"its dp x tp x ep x sp")
         return self.axis("tp")
 
     def torch_device(self) -> torch.device:
@@ -213,18 +236,22 @@ class Mesh:
         return resolve_device("cuda" if self.device is None else self.device)
 
 
-# Subgroups made so far, by (default group, axis sizes): every rank must
-# create every subgroup of a mesh in the same order (`dist.new_group` is a
-# collective over the default group), and engines built again over the
-# same mesh reuse them.
-_GROUPS: Dict[Tuple[Any, Tuple[int, ...]], Dict[Tuple[int, ...], Any]] = {}
+# Subgroups made so far, by (default group, axis sizes, layout): every
+# rank must create every subgroup of a mesh in the same order
+# (`dist.new_group` is a collective over the default group), and engines
+# built again over the same mesh reuse them.
+_GROUPS: Dict[Tuple[Any, Tuple[int, ...], Any],
+              Dict[Tuple[int, ...], Any]] = {}
 
 
 def _axis_groups(mesh: Mesh) -> Dict[Tuple[int, ...], Any]:
     """A subgroup for each line of ranks of each axis that splits the mesh
     but does not span it, made on every rank in one order (axes in
-    AXIS_ORDER, lines by their first rank): ranks -> group."""
-    key = (mesh.group, mesh.sizes)
+    AXIS_ORDER, lines by their first rank): ranks -> group. A line's
+    ranks must ascend along the axis: a subgroup numbers its ranks in
+    ascending order, and the gathers concatenate in that order (every
+    row-major and every hybrid layout ascends)."""
+    key = (mesh.group, mesh.sizes, mesh.layout)
     if key in _GROUPS:
         return _GROUPS[key]
     from torch import distributed as dist
@@ -236,6 +263,9 @@ def _axis_groups(mesh: Mesh) -> Dict[Tuple[int, ...], Any]:
         lines = sorted({dataclasses.replace(mesh, rank=r).axis_ranks(name)
                         for r in range(mesh.world_size)})
         for line in lines:
+            if list(line) != sorted(line):
+                raise ValueError(f"the {name} axis' ranks {line} do not "
+                                 f"ascend in the layout")
             groups[line] = dist.new_group(list(line))
     _GROUPS[key] = groups
     return groups
@@ -252,19 +282,95 @@ def make_mesh(axis_sizes: Optional[dict] = None, *,
 
     >>> make_mesh({"tp": 2})  # 2 ranks: 2-way tensor parallel
     """
+    n, r, group, backend = _ranks(world_size, rank)
+    sizes = mesh_sizes(axis_sizes, n, axis_order)
+    return Mesh(tuple(axis_order), tuple(sizes[a] for a in axis_order),
+                rank=r, group=group, backend=backend, device=device)
+
+
+def _ranks(world_size: Optional[int], rank: Optional[int]
+           ) -> Tuple[int, int, Any, Optional[str]]:
+    """(ranks, this rank, group, backend) of the default process group,
+    `world_size` and `rank` standing in for its where given (then no
+    group: the caller lays out ranks it has not started)."""
     from torch import distributed as dist
 
     joined = dist.is_available() and dist.is_initialized()
     n = world_size if world_size is not None else (
         dist.get_world_size() if joined else 1)
-    sizes = mesh_sizes(axis_sizes, n, axis_order)
     r = rank if rank is not None else (dist.get_rank() if joined else 0)
     group = backend = None
     if joined and world_size is None and n > 1:
         group = dist.group.WORLD
         backend = dist.get_backend()
-    return Mesh(tuple(axis_order), tuple(sizes[a] for a in axis_order),
-                rank=r, group=group, backend=backend, device=device)
+    return n, r, group, backend
+
+
+def make_hybrid_mesh(ici_axis_sizes: dict,
+                     dcn_axis_sizes: Optional[dict] = None, *,
+                     axis_order: Tuple[str, ...] = AXIS_ORDER,
+                     world_size: Optional[int] = None,
+                     rank: Optional[int] = None,
+                     local_world_size: Optional[int] = None,
+                     device: Any = None) -> Mesh:
+    """A mesh over several hosts: `dcn_axis_sizes` are the axes that span
+    hosts, `ici_axis_sizes` those within a host (the JAX package's
+    contract). With a dcn product of 1 it is `make_mesh` over the merged
+    sizes. Else a host is one of torchrun's nodes: the `local_world_size`
+    (`LOCAL_WORLD_SIZE`, read now) contiguous ranks torchrun numbers
+    `group_rank * local_world_size + local_rank`. Each host's ranks are
+    laid out row-major over the ici sizes and the hosts tile the dcn grid
+    row-major, as `mesh_utils.create_hybrid_device_mesh` tiles its
+    granules (`np.block`): along each axis a rank's coordinate is its
+    host's dcn coordinate times the ici size plus its ici coordinate.
+    Raises where the hosts are not the dcn product or a host's ranks not
+    the ici product. `world_size`, `rank` and `device` are `make_mesh`'s.
+
+    >>> make_hybrid_mesh({"tp": 4}, {"dp": 2})  # 2 hosts of 4 ranks
+    """
+    dcn_axis_sizes = dict(dcn_axis_sizes or {})
+    unknown = [a for a in (*ici_axis_sizes, *dcn_axis_sizes)
+               if a not in axis_order]
+    if unknown:
+        raise ValueError(f"unknown mesh axes {unknown}; expected {axis_order}")
+    ici = [ici_axis_sizes.get(a, 1) for a in axis_order]
+    dcn = [dcn_axis_sizes.get(a, 1) for a in axis_order]
+    merged = {a: i * d for a, i, d in zip(axis_order, ici, dcn)}
+    if math.prod(dcn) == 1:
+        return make_mesh(merged, axis_order=axis_order,
+                         world_size=world_size, rank=rank, device=device)
+    n, r, group, backend = _ranks(world_size, rank)
+    local = local_world_size if local_world_size is not None else int(
+        os.environ.get("LOCAL_WORLD_SIZE", n))
+    if local < 1 or n % local:
+        raise ValueError(f"{n} ranks do not split into hosts of "
+                         f"LOCAL_WORLD_SIZE={local}")
+    if n // local != math.prod(dcn):
+        raise ValueError(f"the number of hosts {n // local} must equal the "
+                         f"product of the dcn axis sizes {dcn}")
+    if local != math.prod(ici):
+        raise ValueError(f"a host's {local} ranks must equal the product "
+                         f"of the ici axis sizes {ici}")
+    layout = [0] * n
+    for g in range(n):
+        host, own = divmod(g, local)
+        index = 0
+        for d, i, h, o in zip(dcn, ici, _unravel(host, dcn),
+                              _unravel(own, ici)):
+            index = index * d * i + h * i + o
+        layout[index] = g
+    return Mesh(tuple(axis_order), tuple(merged[a] for a in axis_order),
+                rank=r, group=group, backend=backend, device=device,
+                layout=tuple(layout))
+
+
+def _unravel(index: int, sizes: List[int]) -> List[int]:
+    """Row-major coordinates of `index` in a grid of `sizes`."""
+    out = []
+    for n in reversed(sizes):
+        out.append(index % n)
+        index //= n
+    return out[::-1]
 
 
 def single_mesh(device: Any = None) -> Mesh:
@@ -564,22 +670,6 @@ class _Rotate(torch.autograd.Function):
 # The tp axis keeps its name: the models' and engines' callers.
 TensorParallel = ParallelAxis
 
-
-def axis_over(group: Any = None, name: str = "tp") -> ParallelAxis:
-    """An axis over every rank of `group` (the default group when None),
-    in its rank order: a caller's own process group as one axis (the
-    relevance gate's tp). SINGLE-sized without a group of several."""
-    from torch import distributed as dist
-
-    if not (dist.is_available() and dist.is_initialized()):
-        return ParallelAxis(name=name)
-    group = group or dist.group.WORLD
-    n = dist.get_world_size(group)
-    if n == 1:
-        return ParallelAxis(name=name)
-    return ParallelAxis(size=n, rank=dist.get_rank(group), group=group,
-                        backend=dist.get_backend(group), name=name,
-                        ranks=tuple(dist.get_process_group_ranks(group)))
 
 SINGLE = ParallelAxis()
 

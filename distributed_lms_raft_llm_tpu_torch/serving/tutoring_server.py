@@ -59,7 +59,12 @@ calls (`PagedEngine.follow`). ``--ep M`` (``[tutoring] ep``, an MoE
 model) shards its experts over M ranks the same way: the node runs
 N x M ranks, spawned and joined as above. ``/healthz`` adds ``tp`` and
 ``ep`` when above 1, and ``/metrics`` the ``serving_tp`` and
-``serving_kv_bytes_per_chip`` gauges.
+``serving_kv_bytes_per_chip`` gauges. Under torchrun the node's ranks are
+the whole ``WORLD_SIZE``, which must be a multiple of N x M: dp takes the
+rest, as the JAX node's dp takes the spare devices, so ``WORLD_SIZE`` 2
+at ``--tp 1`` serves at dp 2, rank 1 following rank 0 and serving no port
+of its own; ``/healthz`` adds ``dp`` when above 1. A node started alone
+starts N x M ranks (a process started alone has no spare devices to take).
 A call that fails on any rank fails them all (`parallel/spmd.py`): a
 follower exits non-zero, and rank 0 ends (exit code 1) once a follower it
 started has exited (`watch_followers`); under torchrun the launcher ends
@@ -398,14 +403,14 @@ def make_tutoring_admin(service: TutoringService, scorer=None):
 def make_tutoring_health(service: TutoringService, queue, engine_name: str,
                          max_queue: int, spec_tokens: int = 0,
                          draft_source: str = "prompt_lookup", scorer=None,
-                         tp: int = 1, ep: int = 1):
+                         tp: int = 1, ep: int = 1, dp: int = 1):
     """/healthz provider: admission pressure and the fleet lifecycle (the
     router's health poller reads `draining`, `queued` and `node_id`); a
     speculating node adds its `spec_tokens` and `draft_source`, a scoring
     node its tenant's stats (`scoring`), as a JAX node adds its scoring
-    block only when it scores, and a sharded node its `tp` and `ep` ways
-    (the JAX node reports tp as the `serving_tp` gauge alone), so a node
-    without any of them answers with the JAX node's fields alone."""
+    block only when it scores, and a sharded node its `tp`, `ep` and `dp`
+    ways (the JAX node reports tp as the `serving_tp` gauge alone), so a
+    node without any of them answers with the JAX node's fields alone."""
 
     def health() -> dict:
         doc = {
@@ -425,6 +430,8 @@ def make_tutoring_health(service: TutoringService, queue, engine_name: str,
             doc["tp"] = tp
         if ep > 1:
             doc["ep"] = ep
+        if dp > 1:
+            doc["dp"] = dp
         return doc
 
     return health
@@ -537,7 +544,8 @@ async def serve_async(port: int, engine, *,
                 service, queue, type(engine).__name__, max_queue,
                 spec_tokens=engine.config.spec_tokens,
                 draft_source=engine.config.draft_source, scorer=scorer,
-                tp=engine.config.tp, ep=engine.config.ep),
+                tp=engine.config.tp, ep=engine.config.ep,
+                dp=getattr(engine, "dp", 1)),
             admin=make_tutoring_admin(service, scorer=scorer),
             admin_get=admin_get, port=metrics_port)
         log.info("health/metrics endpoint on http://127.0.0.1:%d",
@@ -854,23 +862,19 @@ def _free_port() -> int:
 
 def join_tp_group(args: argparse.Namespace,
                   argv: List[str]) -> Tuple[int, List[subprocess.Popen]]:
-    """Join the process group of the tp x ep ranks `args.tp` and
-    `args.ep` ask for (more than one); returns (this process' rank, the
-    follower processes it started). Under torchrun (WORLD_SIZE set) the
-    rank comes from the environment; a follower this node started gets
-    `--tp-rank` and the rendezvous; a node started alone is rank 0 and
-    starts ranks 1..tp x ep - 1 as copies of itself (`argv` plus those two
-    flags), rendezvousing on the loopback. With nccl each rank takes the
-    GPU of its (local) rank."""
+    """Join the process group of the node's ranks (`node_world`, more
+    than one); returns (this process' rank, the follower processes it
+    started). Under torchrun (WORLD_SIZE set) the rank comes from the
+    environment; a follower this node started gets `--tp-rank` and the
+    rendezvous; a node started alone is rank 0 and starts ranks 1..tp x
+    ep - 1 as copies of itself (`argv` plus those two flags),
+    rendezvousing on the loopback. With nccl each rank takes the GPU of
+    its (local) rank."""
     world = node_world(args)
     if world <= 1:
         return 0, []
     followers: List[subprocess.Popen] = []
     if "WORLD_SIZE" in os.environ:
-        if int(os.environ["WORLD_SIZE"]) != world:
-            raise ValueError(f"--tp {args.tp} x --ep {args.ep} under "
-                             f"torchrun with "
-                             f"WORLD_SIZE={os.environ['WORLD_SIZE']}")
         rank = int(os.environ["RANK"])
         local = int(os.environ.get("LOCAL_RANK", rank))
         if args.tp_backend == "nccl":
@@ -893,8 +897,19 @@ def join_tp_group(args: argparse.Namespace,
 
 
 def node_world(args: argparse.Namespace) -> int:
-    """The ranks a node's engine runs over: tp x ep."""
-    return args.tp * args.ep
+    """The ranks a node's engine runs over: under torchrun WORLD_SIZE, a
+    multiple of tp x ep (dp takes the rest, as the JAX engines' dp takes
+    the spare devices); else tp x ep, the ranks a node started alone
+    starts."""
+    model = args.tp * args.ep
+    if "WORLD_SIZE" not in os.environ:
+        return model
+    world = int(os.environ["WORLD_SIZE"])
+    if world % model:
+        raise ValueError(
+            f"WORLD_SIZE={world} under torchrun is not a multiple of --tp "
+            f"{args.tp} x --ep {args.ep}: a node's ranks are dp x tp x ep")
+    return world
 
 
 def watch_followers(followers: List[subprocess.Popen],

@@ -96,6 +96,12 @@ class Deadline:
         rem = self.remaining()
         return rem if cap is None else min(rem, float(cap))
 
+    def raise_if_expired(self, what: str = "request") -> None:
+        """Raise DeadlineExpired, naming `what`, once the budget is
+        spent."""
+        if self.expired:
+            raise DeadlineExpired(f"{what}: deadline expired")
+
     def to_metadata(self) -> List[Tuple[str, str]]:
         return [(DEADLINE_METADATA_KEY, str(int(self.remaining() * 1000.0)))]
 

@@ -445,6 +445,25 @@ def test_paged_queue_sheds_overload_and_expired_requests():
     assert metrics.snapshot()["counters"]["shed_expired"] >= 1
 
 
+def test_deadline_raise_if_expired_matches_jax():
+    """`raise_if_expired` passes while budget is left and then raises
+    with the JAX package's message (tests/test_resilience.py's check)."""
+    from distributed_lms_raft_llm_tpu.utils import resilience as jax_res
+
+    now = [0.0]
+    messages = []
+    for deadline, expired in ((jax_res.Deadline, jax_res.DeadlineExpired),
+                              (Deadline, DeadlineExpired)):
+        now[0] = 0.0
+        d = deadline.after(5.0, clock=lambda: now[0])
+        d.raise_if_expired()
+        now[0] = 6.0
+        with pytest.raises(expired) as err:
+            d.raise_if_expired("prefill")
+        messages.append(str(err.value))
+    assert messages == ["prefill: deadline expired"] * 2
+
+
 def test_server_serves_a_paged_engine_through_paged_queue():
     engine = PagedEngine(make_config(), slots=2)
     query = "what is a linked list?"

@@ -3,8 +3,9 @@ replicated loop's plumbing) held against the JAX package's
 `parallel/mesh.py` and `parallel/partition.py` on the 8-virtual-device CPU
 mesh: the same mesh sizes and errors, the same specs on the same trees,
 the same head-split checks, and the divisibility refusals exactly where the
-JAX `shard_tree` raises. No process group is needed here (the ranks run in
-tests/test_torch_tp.py).
+JAX `shard_tree` raises; `make_hybrid_mesh`'s rank layout against JAX's
+`create_hybrid_device_mesh`. No process group is needed here (the ranks
+run in tests/test_torch_tp.py).
 """
 
 import dataclasses
@@ -19,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import torch
 import torch_threads  # noqa: F401 (caps torch's threads)
+from torch_tp_ranks import jax_hybrid_ranks
 
 from distributed_lms_raft_llm_tpu.models import bert as jax_bert
 from distributed_lms_raft_llm_tpu.models import gpt2 as jax_gpt2
@@ -83,12 +85,14 @@ def test_mesh_coordinates_put_tp_innermost():
 
 
 def test_only_tp_may_spread_the_ranks():
-    """dp (or pp) above 1 inside one engine is refused loudly; ep and sp
-    may spread the ranks beside tp (an engine's world is tp x ep x sp),
-    each axis' ranks those that share every other coordinate."""
-    with pytest.raises(NotImplementedError, match="dp"):
-        mesh.make_mesh({"tp": 2, "dp": -1}, world_size=8,
-                       rank=0).tensor_parallel()
+    """pp above 1 inside one engine is refused loudly (the pipeline is the
+    trainer's); dp, ep and sp may spread the ranks beside tp (an engine's
+    world is dp x tp x ep x sp), each axis' ranks those that share every
+    other coordinate."""
+    m = mesh.make_mesh({"tp": 2, "dp": -1}, world_size=8, rank=5)
+    tp = m.tensor_parallel()
+    assert (tp.size, tp.rank, m.coords()["dp"]) == (2, 1, 2)
+    assert (m.axis_ranks("tp"), m.axis_ranks("dp")) == ((4, 5), (1, 3, 5, 7))
     with pytest.raises(NotImplementedError, match="pp"):
         mesh.make_mesh({"tp": 2, "pp": 2}, world_size=4,
                        rank=0).tensor_parallel()
@@ -100,6 +104,66 @@ def test_only_tp_may_spread_the_ranks():
     assert (m.axis_ranks("tp"), m.axis_ranks("sp"), m.axis_ranks("ep")) \
         == ((4, 5), (5, 7), (1, 5))
     assert m.world().size == 8
+
+
+# ------------------------------------------------------------ hybrid mesh
+
+
+# (ici, dcn, ranks a host): the first is not row-major in rank.
+HYBRID = [({"dp": 2, "tp": 2}, {"sp": 2}, 4), ({"tp": 4}, {"dp": 2}, 4),
+          ({"tp": 2}, {"dp": 2, "sp": 2}, 2), ({"dp": 2}, {"tp": 2}, 2)]
+
+
+@pytest.mark.parametrize("ici,dcn,local", HYBRID,
+                         ids=[str(i) for i in range(len(HYBRID))])
+def test_hybrid_mesh_lays_out_ranks_as_jax(ici, dcn, local):
+    """The rank layout, every rank's coordinates and its axes' ranks equal
+    JAX's hybrid device mesh (device id = rank)."""
+    n = local * int(np.prod(list(dcn.values())))
+    ids = jax_hybrid_ranks(ici, dcn, local, n)
+    for rank in range(n):
+        m = mesh.make_hybrid_mesh(ici, dcn, world_size=n, rank=rank,
+                                  local_world_size=local)
+        assert m.layout == tuple(ids.ravel())
+        where = tuple(np.argwhere(ids == rank)[0])
+        assert tuple(m.coords().values()) == where
+        for axis, name in enumerate(m.axis_names):
+            line = list(where)
+            line[axis] = slice(None)
+            assert m.axis_ranks(name) == tuple(ids[tuple(line)])
+
+
+def test_hybrid_mesh_degrades_to_flat_local_mesh():
+    """tests/test_multihost.py's: no dcn axis is `make_mesh`'s mesh."""
+    hybrid = mesh.make_hybrid_mesh({"dp": 4, "tp": 2}, world_size=8)
+    flat = mesh.make_mesh({"dp": 4, "tp": 2}, world_size=8)
+    assert hybrid == flat and hybrid.layout is None
+    assert hybrid.shape == dict(jax_mesh.make_hybrid_mesh(
+        {"dp": 4, "tp": 2}).shape)
+
+
+def test_hybrid_mesh_dcn_axis_merges_in_single_process():
+    """tests/test_multihost.py's: dcn dp 1 and ici dp 2 give dp 2."""
+    m = mesh.make_hybrid_mesh({"dp": 2, "tp": 2, "sp": 2}, {"dp": 1},
+                              world_size=8)
+    assert m.shape["dp"] == 2 and m.world_size == 8
+    assert m.shape == dict(jax_mesh.make_hybrid_mesh(
+        {"dp": 2, "tp": 2, "sp": 2}, {"dp": 1}).shape)
+
+
+def test_hybrid_mesh_rejects_unknown_axis_and_hosts_that_do_not_fit():
+    errors = []
+    for make in (jax_mesh.make_hybrid_mesh, mesh.make_hybrid_mesh):
+        with pytest.raises(ValueError, match="unknown mesh axes") as err:
+            make({"zz": 2})
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    with pytest.raises(ValueError, match="number of hosts 4 must equal"):
+        mesh.make_hybrid_mesh({"tp": 2}, {"dp": 2}, world_size=8,
+                              local_world_size=2)
+    with pytest.raises(ValueError, match="a host's 4 ranks must equal"):
+        mesh.make_hybrid_mesh({"tp": 2}, {"dp": 2}, world_size=8,
+                              local_world_size=4)
 
 
 def test_collectives_are_the_identity_at_tp_1():

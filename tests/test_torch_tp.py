@@ -21,8 +21,25 @@ every case runs on both ranks at once. Held here:
   fails every rank instead of leaving one waiting in a collective;
 - the tutoring node started with ``--tp 2`` serves from two processes,
   and ends once its follower is gone.
+
+dp, in the same two ranks and a pool of four, against the JAX package on
+as many virtual devices (its ``"dp": -1`` takes the spare ones):
+
+- `make_hybrid_mesh` over four ranks in two hosts (`LOCAL_WORLD_SIZE=2`):
+  each axis' all-reduce sums exactly the ranks JAX's hybrid mesh puts on
+  that axis;
+- greedy answers byte-equal to JAX's: the bucketed engine at dp 2, tp 2 x
+  dp 2 and gpt2-moe at ep 2 x dp 2 (capacity 1.25 of 4 experts, so an
+  answer depends on its companions); the paged engine at dp 2 and tp 2 x
+  dp 2 in two configurations, every rank the same answers and decisions;
+- scoring at sp 2 x dp 2 of three texts (the batch rounded to dp with a
+  filler row) within tests/test_torch_ring.py's tolerance of JAX's, and
+  its shapes JAX's; the gate at dp 2 within 1e-5 of JAX's;
+- the node under torchrun's variables (``WORLD_SIZE`` 2, ``--tp 1``)
+  serving at dp 2, and a ``WORLD_SIZE`` that is not a multiple refused.
 """
 
+import argparse
 import asyncio
 import json
 import os
@@ -40,7 +57,7 @@ import jax
 import jax.numpy as jnp
 import torch
 import torch_threads  # noqa: F401 (caps torch's threads)
-from torch_tp_ranks import Ranks
+from torch_tp_ranks import Ranks, jax_hybrid_ranks
 
 from distributed_lms_raft_llm_tpu.engine import EngineConfig as JaxConfig
 from distributed_lms_raft_llm_tpu.engine import PagedEngine as JaxPaged
@@ -58,6 +75,7 @@ from distributed_lms_raft_llm_tpu_torch.engine import SamplingParams
 from distributed_lms_raft_llm_tpu_torch.models import registry
 from distributed_lms_raft_llm_tpu_torch.models.convert import params_from_jax
 from distributed_lms_raft_llm_tpu_torch.proto import lms_pb2, rpc
+from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TP = 2
@@ -71,6 +89,13 @@ PROMPTS = ["what is raft?", "hello world", "explain paging", "k"]
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     r = Ranks(TP, tmp_path_factory.mktemp("tp_rendezvous"))
+    yield r
+    r.close()
+
+
+@pytest.fixture(scope="module")
+def ranks4(tmp_path_factory):
+    r = Ranks(4, tmp_path_factory.mktemp("dp_rendezvous"))
     yield r
     r.close()
 
@@ -327,18 +352,36 @@ def _start_node(tmp_path):
          str(mport), "--no-telemetry"],
         env=env, cwd=str(tmp_path), stdout=subprocess.DEVNULL,
         stderr=open(tmp_path / "node.log", "wb"))
+    return proc, port, mport, _health(proc, mport)
+
+
+def _health(proc, mport):
+    """The node's /healthz once it answers (None if `proc` exits first or
+    90 s pass)."""
     deadline = time.monotonic() + 90
-    health = None
-    while time.monotonic() < deadline and health is None:
+    while time.monotonic() < deadline:
         try:
             with urllib.request.urlopen(
                     f"http://127.0.0.1:{mport}/healthz", timeout=2) as r:
-                health = json.loads(r.read())
+                return json.loads(r.read())
         except OSError:
             if proc.poll() is not None:
-                break
+                return None
             time.sleep(0.5)
-    return proc, port, mport, health
+    return None
+
+
+def _ask(port):
+    """One GetLLMAnswer to the node on `port`."""
+    async def ask():
+        import grpc
+
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            stub = rpc.TutoringStub(ch)
+            return await stub.GetLLMAnswer(
+                lms_pb2.QueryRequest(query="what is raft?"), timeout=60)
+
+    return asyncio.run(ask())
 
 
 def test_tutoring_node_serves_at_tp2(tmp_path):
@@ -347,17 +390,7 @@ def test_tutoring_node_serves_at_tp2(tmp_path):
     proc, port, mport, health = _start_node(tmp_path)
     try:
         assert health is not None and health["tp"] == 2
-
-        async def ask():
-            import grpc
-
-            async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
-                stub = rpc.TutoringStub(ch)
-                return await stub.GetLLMAnswer(
-                    lms_pb2.QueryRequest(query="what is raft?"), timeout=60)
-
-        resp = asyncio.run(ask())
-        assert resp.success
+        assert _ask(port).success
         with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
                                     timeout=5) as r:
             gauges = json.loads(r.read())["gauges"]
@@ -392,3 +425,193 @@ def test_tutoring_node_ends_when_its_follower_dies(tmp_path):
     assert "tp follower (pid %d) exited" % follower in (
         tmp_path / "node.log").read_text()
 
+
+
+# -------------------------------------------------------------------- dp
+
+
+def _pool(ranks, ranks4, world):
+    return ranks if world == TP else ranks4
+
+
+def test_hybrid_mesh_axes_all_reduce_over_jax_lines(ranks4):
+    """Two hosts of two ranks: each axis' subgroup sums 2 ** rank over
+    exactly the ranks of the line JAX's hybrid mesh puts this rank on."""
+    layouts = [({"dp": 2}, {"tp": 2}), ({"sp": 2}, {"dp": 2})]
+    got = ranks4.run("hybrid_axes", layouts=layouts, local_world_size=2)
+    for i, (ici, dcn) in enumerate(layouts):
+        ids = jax_hybrid_ranks(ici, dcn, 2, 4)
+        for rank, out in enumerate(got):
+            rec = out[i]
+            assert rec["layout"] == tuple(ids.ravel())
+            where = tuple(np.argwhere(ids == rank)[0])
+            assert tuple(rec["coords"].values()) == where
+            for axis, name in enumerate(rec["coords"]):
+                line = list(where)
+                line[axis] = slice(None)
+                want = tuple(int(r) for r in ids[tuple(line)])
+                assert rec["ranks"][name] == want
+                if len(want) > 1:
+                    assert rec["sums"].pop(name) == sum(2.0 ** r
+                                                        for r in want)
+            assert rec["sums"] == {}
+    # The first layout is not row-major: tp pairs ranks 0 and 2.
+    assert got[0][0]["ranks"]["tp"] == (0, 2)
+
+
+DP_BUCKETED = [("tiny", 2, {}), ("tiny", 4, {"tp": 2}),
+               ("moe-tiny", 4, {"ep": 2})]
+
+
+@pytest.mark.parametrize("model,world,axes", DP_BUCKETED,
+                         ids=["dp2", "tp2_dp2", "moe_ep2_dp2"])
+def test_bucketed_greedy_byte_equal_to_jax_at_dp(ranks, ranks4, model, world,
+                                                 axes):
+    jeng = JaxEngine(JaxConfig(
+        model=model, dtype=jnp.float32, param_dtype=jnp.float32,
+        sampling=JaxSampling.greedy(max_new_tokens=MAX_NEW),
+        length_buckets=(16,), batch_buckets=(1, 2, 4), **axes),
+        devices=jax.devices()[:world])
+    assert jeng.mesh.shape["dp"] == 2
+    want = jeng.answer_batch(PROMPTS)
+    tree = params_from_jax(jax.device_get(jeng.params), device="cpu")
+    got = _pool(ranks, ranks4, world).run(
+        "bucketed", model=model, tree=tree, prompts=PROMPTS,
+        config_kw=dict(axes, tp=axes.get("tp", 1), max_new=MAX_NEW,
+                       length_buckets=(16,), batch_buckets=(1, 2, 4)))
+    assert got == [want] * world  # every rank replays the whole batch
+
+
+@pytest.mark.parametrize("world,tp", [(2, 1), (4, 2)], ids=["dp2", "tp2_dp2"])
+@pytest.mark.parametrize("name,cfg_kw,eng_kw", [CONFIGS[0], CONFIGS[2]],
+                         ids=[CONFIGS[0][0], CONFIGS[2][0]])
+def test_paged_greedy_byte_equal_to_jax_at_dp(ranks, ranks4, world, tp, name,
+                                              cfg_kw, eng_kw):
+    jeng = JaxPaged(JaxConfig(
+        model="tiny", batch_buckets=(1, 2), dtype=jnp.float32, tp=tp,
+        sampling=JaxSampling.greedy(max_new_tokens=MAX_NEW),
+        length_buckets=(4, 16), **cfg_kw), devices=jax.devices()[:world],
+        slots=2, chunk=2, **eng_kw)
+    assert jeng.mesh.shape["dp"] == 2
+    rids = [jeng.submit(p) for p in PROMPTS]
+    out = jeng.drain()
+    tree = params_from_jax(jax.device_get(jeng.params), device="cpu")
+    got = _pool(ranks, ranks4, world).run(
+        "paged", model="tiny", tree=tree, prompts=PROMPTS,
+        config_kw=dict(cfg_kw, tp=tp, max_new=MAX_NEW),
+        engine_kw=dict(slots=2, chunk=2, **eng_kw))
+    leader = got[0]
+    assert [leader["answers"][r] for r in sorted(leader["answers"])] == \
+        [out[r] for r in rids]
+    for rank in got:
+        assert (rank["dp"], rank["tp"]) == (2, tp)
+        assert rank["answers"] == leader["answers"]
+        assert rank["decisions"] == leader["decisions"]
+
+
+def test_scoring_at_sp2_dp2_matches_jax(ranks4):
+    """Three texts in batch bucket 3: the rows round up to 4 for dp 2, the
+    filler row scored and dropped; each dp line scores two rows round its
+    sp ring."""
+    from test_torch_ring import SCORE_ATOL, SCORE_RTOL, TEXTS
+
+    from distributed_lms_raft_llm_tpu.engine import scoring as jax_scoring
+    from distributed_lms_raft_llm_tpu_torch.engine import program_inventory
+
+    texts = TEXTS + ["a third text on terms"]
+    buckets = dict(length_buckets=(16, 32), batch_buckets=(1, 3))
+    jeng = JaxEngine(JaxConfig(
+        model="tiny", sampling=JaxSampling(max_new_tokens=4), sp=2,
+        dtype=jnp.float32, param_dtype=jnp.float32, scoring=True, **buckets),
+        devices=jax.devices()[:4])
+    assert jeng.mesh.shape["dp"] == 2
+    want = jeng.score(texts)
+    tree = params_from_jax(jax.device_get(jeng.params), device="cpu")
+    got = ranks4.run("score", model="tiny", tree=tree, texts=texts,
+                     config_kw=dict(sp=2, tp=1, max_new=4, scoring=True,
+                                    **buckets))
+    shapes = jax_scoring.derive_score_shapes(
+        (16, 32), (1, 3), jeng.cfg.max_position_embeddings, sp=2, dp=2)
+    assert (2, 16) in shapes and (4, 32) in shapes  # batches round to dp
+    assert program_inventory.static_score_domain(
+        (16, 32), (1, 3), jeng.cfg.max_position_embeddings, sp=2,
+        dp=2)["pairs"] == shapes
+    for rank in got:
+        assert rank["dp"] == 2 and rank["shapes"] == shapes
+        assert [(s["tokens"], s["truncated"]) for s in rank["scores"]] == [
+            (w["tokens"], w["truncated"]) for w in want]
+        np.testing.assert_allclose(
+            [s["logprob"] for s in rank["scores"]],
+            [w["logprob"] for w in want], rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+
+def test_gate_at_dp2_matches_jax_gate(ranks):
+    from test_torch_gate import BUCKETS
+    from test_torch_gate_tp import F32_TOL, PAIRS
+
+    from distributed_lms_raft_llm_tpu.engine.gate import (
+        GateConfig as JaxGateConfig,
+        RelevanceGate as JaxGate,
+    )
+
+    jgate = JaxGate(JaxGateConfig(model="tiny", dtype=jnp.float32,
+                                  length_buckets=BUCKETS),
+                    devices=jax.devices()[:2])
+    assert jgate.mesh.shape["dp"] == 2
+    want = [jgate.check(q, c) for q, c in PAIRS]
+    tree = params_from_jax(jax.device_get(jgate.params), device="cpu")
+    leader, follower = ranks.run("gate", tree=tree, pairs=PAIRS,
+                                 gate_kw=dict(length_buckets=BUCKETS, tp=1))
+    assert [ok for ok, _ in leader["checks"]] == [ok for ok, _ in want]
+    np.testing.assert_allclose([s for _, s in leader["checks"]],
+                               [s for _, s in want], atol=F32_TOL, rtol=0)
+    assert leader["word_rows"] == follower["word_rows"] == 384
+    assert leader["forwards"] == follower["forwards"] > 0
+
+
+def test_node_world_under_torchrun(monkeypatch):
+    args = argparse.Namespace(tp=2, ep=1)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert tutoring_server.node_world(args) == 2
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    assert tutoring_server.node_world(args) == 4  # dp 2
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="not a multiple of --tp 2"):
+        tutoring_server.node_world(args)
+
+
+def test_tutoring_node_serves_at_dp2_under_torchrun(tmp_path):
+    """Two processes with torchrun's variables (WORLD_SIZE 2) at --tp 1:
+    one node at dp 2, rank 0 serving, rank 1 following without a port."""
+    port, mport, master = _free_port(), _free_port(), _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=REPO, WORLD_SIZE="2",
+                   RANK=str(rank), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(master))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m",
+             "distributed_lms_raft_llm_tpu_torch.serving.tutoring_server",
+             "--device", "cpu", "--model", "tiny", "--max-new-tokens", "8",
+             "--paged", "--slots", "2", "--chunk", "2", "--tp", "1",
+             "--tp-backend", "gloo", "--port", str(port), "--metrics-port",
+             str(mport), "--no-telemetry"],
+            env=env, cwd=str(tmp_path), stdout=subprocess.DEVNULL,
+            stderr=open(tmp_path / f"rank{rank}.log", "wb")))
+    try:
+        health = _health(procs[0], mport)
+        assert health is not None and health["dp"] == 2
+        assert "tp" not in health
+        assert _ask(port).success
+    finally:
+        procs[0].send_signal(signal.SIGINT)
+        codes = []
+        for proc in procs:
+            try:
+                codes.append(proc.wait(timeout=60))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes.append(proc.wait())
+    assert codes[1] == 0  # released by rank 0
+    assert "tp rank 1 of 2 following rank 0" in (
+        tmp_path / "rank1.log").read_text()

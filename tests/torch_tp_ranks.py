@@ -97,6 +97,32 @@ class Ranks:
                 p.wait()
 
 
+class _Device:
+    """A stand-in device of host `slice_index` (JAX's CPU devices carry
+    none, and `create_hybrid_device_mesh` groups by it)."""
+
+    platform = device_kind = "cpu"
+
+    def __init__(self, id_, host):
+        self.id, self.slice_index = id_, host
+
+
+def jax_hybrid_ranks(ici, dcn, local, n):
+    """The parent's reference for `make_hybrid_mesh`: JAX's
+    `create_hybrid_device_mesh` over `n` stand-in devices in hosts of
+    `local`, as the array of device ids (= torchrun's ranks)."""
+    import numpy as np
+    from jax.experimental import mesh_utils
+
+    from distributed_lms_raft_llm_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    devices = mesh_utils.create_hybrid_device_mesh(
+        [ici.get(a, 1) for a in AXIS_ORDER],
+        [dcn.get(a, 1) for a in AXIS_ORDER],
+        devices=[_Device(i, i // local) for i in range(n)])
+    return np.vectorize(lambda d: d.id)(devices)
+
+
 # ------------------------------------------------------------ rank side
 
 
@@ -152,8 +178,9 @@ def case_forward(model: str, tree, ids):
 
 
 def _engine_config(model, tp, config_kw):
-    """The case's EngineConfig: float32 on the CPU, greedy; tp is what the
-    group's ranks leave after `config_kw`'s ep and sp (`tp` = None)."""
+    """The case's EngineConfig: float32 on the CPU, greedy; tp (`tp` =
+    None) is `config_kw`'s, else what the group's ranks leave after its ep
+    and sp (dp takes what a given tp leaves)."""
     import torch
     from torch import distributed as dist
 
@@ -167,7 +194,8 @@ def _engine_config(model, tp, config_kw):
     kw.setdefault("batch_buckets", (1, 2))
     kw.setdefault("length_buckets", (4, 16))
     if tp is None:
-        tp = dist.get_world_size() // (kw.get("ep", 1) * kw.get("sp", 1))
+        tp = kw.pop("tp", None) or dist.get_world_size() // (
+            kw.get("ep", 1) * kw.get("sp", 1))
     return EngineConfig(model=model, dtype=torch.float32,
                         param_dtype=torch.float32, device="cpu", tp=tp,
                         sampling=SamplingParams.greedy(max_new_tokens=max_new),
@@ -220,7 +248,7 @@ def case_paged(model: str, tree, prompts, config_kw=None, engine_kw=None,
         kv = eng.kv_bytes_per_chip
     return {"answers": answers, "decisions": list(eng.decisions),
             "kv_bytes_per_chip": kv, "kv_bytes_total": eng.kv_bytes_total,
-            "tp": eng.tp, "ep": eng.ep,
+            "tp": eng.tp, "ep": eng.ep, "dp": eng.dp,
             "cache_heads": eng.state.cache.k.shape[2],
             "experts": _expert_rows(eng.params)}
 
@@ -480,8 +508,8 @@ def case_ring_forward(model, tree, ids, cfg_kw, sp):
 
 def case_score(model, tree, texts, config_kw):
     """Rank 0 scores `texts` with a TutoringEngine over every rank at
-    `config_kw`'s sp (tp the rest); the other ranks follow. Every rank
-    returns the results it computed."""
+    `config_kw`'s sp (tp the rest, or dp where it gives tp); the other
+    ranks follow. Every rank returns the results it computed."""
     from distributed_lms_raft_llm_tpu_torch.engine import TutoringEngine
 
     eng = TutoringEngine(_engine_config(model, None, config_kw))
@@ -489,16 +517,18 @@ def case_score(model, tree, texts, config_kw):
     if _leader():
         out = eng.score(texts)
         eng.stop_followers()
-        return {"scores": out, "shapes": eng.score_shapes}
-    results = []
-    eng.follow(lambda name, result: results.append(result))
-    return {"scores": results[-1], "shapes": eng.score_shapes}
+    else:
+        results = []
+        eng.follow(lambda name, result: results.append(result))
+        out = results[-1]
+    return {"scores": out, "shapes": eng.score_shapes, "dp": eng.dp}
 
 
 def case_gate(tree, pairs, gate_kw):
-    """Rank 0 checks `pairs` with a RelevanceGate at tp = every rank (the
-    default group), holding this rank's slice of the JAX gate's `tree`;
-    the other ranks follow. Each returns its forwards count, rank 0 the
+    """Rank 0 checks `pairs` with a RelevanceGate over every rank (the
+    default group) at `gate_kw`'s tp (every rank when it gives none; dp
+    the rest), holding this rank's slice of the JAX gate's `tree`; the
+    other ranks follow. Each returns its forwards count, rank 0 the
     (verdict, similarity) pairs too."""
     import torch
     from torch import distributed as dist
@@ -512,8 +542,8 @@ def case_gate(tree, pairs, gate_kw):
 
     kw = dict(gate_kw)
     kw["dtype"] = getattr(torch, kw.get("dtype", "float32"))
-    gate = RelevanceGate(GateConfig(model="tiny", device="cpu",
-                                    tp=dist.get_world_size(), **kw))
+    kw.setdefault("tp", dist.get_world_size())
+    gate = RelevanceGate(GateConfig(model="tiny", device="cpu", **kw))
     tp = gate.tensor_parallel
     gate.params = partition.shard_params(
         bert.cast_products(tree, gate.cfg.dtype),
@@ -521,12 +551,40 @@ def case_gate(tree, pairs, gate_kw):
     out = {"word_rows": gate.params["embeddings"]["word"].shape[0]
            if not isinstance(gate.params["embeddings"]["word"], dict)
            else gate.params["embeddings"]["word"]["q"].shape[0]}
-    if tp.leader:
+    if _leader():
         out["checks"] = [gate.check(q, c) for q, c in pairs]
         gate.stop_followers()
     else:
         gate.follow()
     out["forwards"] = gate.forwards
+    return out
+
+
+def case_hybrid_axes(layouts, local_world_size):
+    """For each (ici, dcn) of `layouts`, `make_hybrid_mesh` over every rank
+    with `LOCAL_WORLD_SIZE` set to `local_world_size` (torchrun's hosts):
+    this rank's layout, coordinates and axis ranks, and for each axis of
+    several ranks the all-reduce of 2 ** rank over its subgroup."""
+    import torch
+    from torch import distributed as dist
+
+    from distributed_lms_raft_llm_tpu_torch.parallel import mesh
+
+    out = []
+    os.environ["LOCAL_WORLD_SIZE"] = str(local_world_size)
+    try:
+        for ici, dcn in layouts:
+            m = mesh.make_hybrid_mesh(ici, dcn)
+            sums = {}
+            for name, n in m.shape.items():
+                if n > 1:
+                    x = torch.tensor([2.0 ** dist.get_rank()])
+                    sums[name] = float(m.axis(name).all_reduce(x))
+            out.append({"layout": m.layout, "coords": m.coords(),
+                        "ranks": {a: m.axis_ranks(a) for a in m.shape},
+                        "sums": sums})
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
     return out
 
 
@@ -716,6 +774,7 @@ CASES = {
     "ring_forward": case_ring_forward,
     "score": case_score,
     "gate": case_gate,
+    "hybrid_axes": case_hybrid_axes,
     "pipeline": case_pipeline,
     "forward_pipelined": case_forward_pipelined,
     "train": case_train,
