@@ -20,7 +20,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    beside the least time the card could take;
 3b. the paged path's kernels the same way: decode attention with per-row
    lengths over a float and an int8 cache (8 and 16 slots, widths 160 and
-   384, lengths spread over [1, width], splits left empty); the paged
+   384, lengths spread over [1, width], splits left empty) and, over an
+   int8 cache, the bucketed engine's decode step as phase 18 (d) runs it
+   (8 rows, the whole 192-slot cache, the model's bias); the paged
    step's append kernel (`decode_attention_append`: the new K/V row
    quantized and written, then attention) at 8 and 16 slots, widths 160,
    384 and 1,024 (two splits), int8 and bf16 caches, float32, GQA (G = 4)
@@ -247,8 +249,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    schedule (wave 1 drained, then wave 2, the engine reset and the prefix
    tree emptied before each: equal tokens; at capacity 1.25 an answer
    depends on the rows that share its forwards, so that is the schedule
-   that must repeat), then twice through PagedQueue with wave 2 landing
-   mid-decode (answers equal across the two reported): tokens/s, TTFT
+   that must repeat), then once through PagedQueue with wave 2 landing
+   mid-decode: tokens/s, TTFT
    p50/p90, device ms a decode call by idle graph replay beside its int8
    weights' bytes bound, where that time goes under `torch.profiler`
    (expert, dense and unembedding products, append, the eager rest),
@@ -494,6 +496,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    dp adds no throughput here, as in the JAX package: each rank computes
    what one rank computes.
 
+18. the deployment from artifacts built on the card: (a) the port's
+   `tools/make_local_checkpoint.py` (no `tokenizers`, no `transformers`)
+   writes GPT-2 small's byte-level BPE and checkpoint and bert-base's
+   WordPiece and checkpoint into a temporary directory (never data/),
+   trained on this checkout's text, the weights drawn on the card from
+   the seed: seconds for the corpus, each trainer and each checkpoint,
+   the corpus' bytes and sha256, both vocabularies' sizes, the prompts'
+   token counts under the BPE beside the byte tokenizer; (b) the tutoring
+   node's engine from configs/cluster.toml with only --checkpoint,
+   --vocab and --merges pointed at them (int8 weights and KV, graphs,
+   megastep, fused admission, the prefix cache), warmed, serving the 8
+   framed questions and the 8 course prompts through PagedQueue under
+   the compile guard: non-empty answers, 0 new keys, captures, builds and
+   layouts, launches by route through the replays as in 4c, every leaf
+   the node serves against the file read by its format (float leaves
+   equal, int8 leaves within one step of their scale) and the float32
+   tree mapping back to the file exactly; a float32 witness of
+   the file's first 4 layers whose kernel-path greedy tokens equal the
+   plain path's; (c) the gate from [gate] with only --gate-checkpoint and
+   --gate-vocab pointed at them, built as the LMS node builds it: its
+   WordPiece ids equal to the plain tokenizer's, check p50 per bucket
+   (64-512), a float32 gate's similarities within 1e-5 of its plain
+   float64 version on the CPU and the deployment's bf16 within 2e-2 of
+   float32's; (d) `tools/profile_decode.py` on those files: the device
+   mode (batch 8, int8 weights and KV) with its module scopes (the
+   port's kernels credited by the wrappers' counters) and the kernels it
+   saw against those launched, and the dispatch-gap mode at
+   K = 4 against the chunk loop. Nothing falls back: a failed build or
+   load fails the run.
+
 The last two lines of standard output are the `kernels` JSON record and
 the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -672,15 +704,22 @@ def attention_case(torch, attention, *, b, h, hkv, s, dh=64, n_layers=12,
 
 def paged_attention_case(torch, attention, *, s, width, int8, s_alloc=384,
                          dtype="bfloat16", h=12, dh=64, n_layers=12,
-                         lengths=None, seed=0):
+                         lengths=None, pads=None, seed=0):
     """The paged decode step's attention: `s` slots, a window of `width`
     slots of an `s_alloc`-slot cache, per-row lengths (spread over [1,
     width] unless given), no bias, q strided, a float or int8 cache.
-    Kernel vs plain; SDPA with a boolean mask over the cache (dequantized
-    beforehand, untimed, for int8) as the yardstick."""
+    With `pads` (each row's left padding) the bucketed engine's decode
+    step instead: no lengths, every row's query at the window's last step
+    (slot width - 2) and the bias the model builds (`causal_window_mask`
+    and the key-validity mask through `mask_to_bias`). Kernel vs plain;
+    SDPA with a boolean mask over the cache (dequantized beforehand,
+    untimed, for int8) as the yardstick."""
     import torch.nn.functional as F
 
-    from distributed_lms_raft_llm_tpu_torch.models.common import quantize_kv
+    from distributed_lms_raft_llm_tpu_torch.models.common import (
+        causal_window_mask,
+        quantize_kv,
+    )
     from distributed_lms_raft_llm_tpu_torch.ops.timing import (
         time_eager_us,
         time_graph_us,
@@ -705,15 +744,30 @@ def paged_attention_case(torch, attention, *, s, width, int8, s_alloc=384,
         kd, vd = k[:, :, :, :width], v[:, :, :, :width]
     del kf, vf
     k, v = k[:, :, :, :width], v[:, :, :, :width]
-    if lengths is None:
-        lengths = torch.randint(1, width + 1, (s,), generator=gen, device=dev)
-        lengths[0], lengths[-1] = 1, width
-    lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+    bias = None
+    if pads is not None:
+        slots = torch.full((s, 1), width - 2, dtype=torch.long, device=dev)
+        valid = (torch.arange(width, device=dev)[None, :]
+                 >= torch.as_tensor(pads, device=dev)[:, None])
+        bias = attention.mask_to_bias(causal_window_mask(slots, width)
+                                      & valid[:, None, None, :])
+        lengths = None
+        mask = bias[:, :, None, :] == 0
+        row_keys = mask.sum(dim=(1, 2, 3))
+    else:
+        if lengths is None:
+            lengths = torch.randint(1, width + 1, (s,), generator=gen,
+                                    device=dev)
+            lengths[0], lengths[-1] = 1, width
+        lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+        mask = (torch.arange(width, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        row_keys = lengths
 
-    got = attention.decode_attention(q, k, v, 5, None, lengths=lengths,
+    got = attention.decode_attention(q, k, v, 5, bias, lengths=lengths,
                                      **scales)
     want = attention.decode_attention_reference(
-        q, k, v, 5, None, lengths, scales.get("k_scale"),
+        q, k, v, 5, bias, lengths, scales.get("k_scale"),
         scales.get("v_scale"))
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -723,32 +777,32 @@ def paged_attention_case(torch, attention, *, s, width, int8, s_alloc=384,
           f"paged decode_attention (int8={int8}) disagrees with its plain "
           f"version: max abs err {err} > {tol} (s={s} width={width} "
           f"{dtype})")
-    keys = int(lengths.sum().item())  # the keys this data needs
+    keys = int(row_keys.sum().item())  # the keys this data needs
     es = torch.finfo(dt).bits // 8
     kv_bytes = (2 * h * keys * dh) * (1 if int8 else es)
     n_bytes = (kv_bytes + (2 * 4 * h * keys if int8 else 0)
-               + 2 * s * h * dh * es + 4 * s)
+               + 2 * s * h * dh * es
+               + (4 * s if bias is None else 4 * s * width))
     n_ops = 4 * h * keys * dh
     t_bytes, t_ops = (n_bytes / H100_HBM_BYTES_PER_S,
                       n_ops / PEAK_OPS_PER_S[dtype])
     plan = attention.launch_plan(s, h, width, dh, k.dtype)
     rec = dict(slots=s, width=width, s_alloc=s_alloc, int8=int8,
-               dtype=dtype, lengths_min=int(lengths.min().item()),
-               lengths_max=int(lengths.max().item()), keys=keys,
+               dtype=dtype, bias=bias is not None,
+               lengths_min=int(row_keys.min().item()),
+               lengths_max=int(row_keys.max().item()), keys=keys,
                n_split=plan.n_split, split_keys=plan.split_keys,
                tile_keys=plan.tile_keys, max_abs_err=err, tolerance=tol,
                bound_us=max(t_bytes, t_ops) * 1e6,
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    mask = (torch.arange(width, device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]
 
     def kernel(i):
-        attention.decode_attention(q, k, v, i % n_layers, None,
+        attention.decode_attention(q, k, v, i % n_layers, bias,
                                    lengths=lengths, **scales)
 
     def plain(i):
         attention.decode_attention_reference(
-            q, k, v, i % n_layers, None, lengths, scales.get("k_scale"),
+            q, k, v, i % n_layers, bias, lengths, scales.get("k_scale"),
             scales.get("v_scale"))
 
     def library(i):  # over the dequantized cache (int8): a yardstick
@@ -1070,12 +1124,10 @@ def run_paged_waves(engine, paged_queue_cls, metrics_cls, wave1, wave2,
 
 def device_events(torch, prof):
     """(name, µs) of every device event of a finished `torch.profiler`
-    window, read from the raw trace: building the profiler's Python event
-    tree costs minutes at a million kernels (a drain of phase 4c)."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return [(ev.name(), ev.duration_ns() / 1e3)
-            for ev in prof.profiler.kineto_results.events()
-            if ev.device_type() == cuda]
+    window (`tools/profile_decode.py`'s reader of the raw trace)."""
+    from distributed_lms_raft_llm_tpu_torch.tools import profile_decode
+
+    return profile_decode.device_events(torch, prof)
 
 
 def counted_launches() -> dict:
@@ -1341,52 +1393,6 @@ def run_queue(engine, prompts, batching_queue_cls):
     t0 = time.monotonic()
     answers = asyncio.run(go())
     return answers, time.monotonic() - t0
-
-
-def profile_generate(torch, engine, prompts) -> dict:
-    """Where one device batch's time goes: `torch.profiler` over one
-    `generate_ids` call. Device busy share = summed kernel time (one
-    stream, so kernels do not overlap) over the wall time of the same call
-    run without the profiler, whose host overhead would inflate the wall;
-    kernel time by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    ids, mask, _ = engine.encode_prompts(prompts)
-    engine.generate_ids(ids, mask)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    engine.generate_ids(ids, mask)
-    torch.cuda.synchronize()
-    wall_us = (time.monotonic() - t0) * 1e6
-    steps0 = engine.decode_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        engine.generate_ids(ids, mask)
-        torch.cuda.synchronize()
-        profiled_wall_us = (time.monotonic() - t0) * 1e6
-    by_name: dict = {}
-    for name, us in device_events(torch, prof):
-        total, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (total + us, n + 1)
-    busy_us = sum(us for us, _ in by_name.values())
-
-    def launches_of(part):
-        return sum(n for name, (_, n) in by_name.items() if part in name)
-
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return {
-        "wall_us": wall_us,
-        "profiled_wall_us": profiled_wall_us,
-        "decode_steps": engine.decode_steps - steps0,
-        "device_busy_us": busy_us,
-        "device_busy_share": busy_us / wall_us if busy_us else None,
-        "kernels_launched": sum(n for _, n in by_name.values()),
-        "direct_copy_launches": launches_of("direct_copy_kernel"),
-        "decode_attention_launches": launches_of("decode_attention"),
-        "top": [{"name": name[:90], "us": us, "count": n}
-                for name, (us, n) in top],
-    }
 
 
 def phase5_tokenizer(args, directory: Path) -> tuple:
@@ -4194,9 +4200,8 @@ def moe_deployment(torch, attention, quant_matmul, args) -> tuple:
     # package's capacity caveat), so two runs must give the forwards the
     # same rows to give the same answers: wave 1 drained, then wave 2, the
     # engine reset (its megastep K) and the prefix tree emptied before
-    # each run. The queue runs below let wave
-    # 2 land mid-decode wherever the host's timing puts it, and run 2
-    # hits the tree run 1 filled; their answers are reported, not held.
+    # each run. The queue run below lets wave 2 land mid-decode wherever
+    # the host's timing puts it: its answers are not held to these.
     same_schedule = []
     for _ in range(2):
         eng.reset()  # the slot planes and megastep K at their start
@@ -4209,51 +4214,48 @@ def moe_deployment(torch, attention, quant_matmul, args) -> tuple:
           f"schedule (first divergences {firsts})")
     eng.reset()
     eng.prefix_cache.clear()
-    runs, launches = {}, None
-    for name in ("greedy_1", "greedy_2"):
-        attention.reset_launch_counts()
-        quant_matmul.reset_launch_counts()
-        c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
-              eng.total_generated_tokens)
-        answers, wall, snap = run_paged_waves(eng, PagedQueue, Metrics,
-                                              wave1, wave2)
-        decode_calls = eng.decode_steps - c0[0]
-        model_calls = (decode_calls + eng.admission_chunks - c0[1]
-                       + eng.prefill_calls - c0[2])
-        tokens = eng.total_generated_tokens - c0[3]
-        launches = {**attention.launch_counts, **quant_matmul.launch_counts}
-        check(len(answers) == 16
-              and all(isinstance(a, str) for a in answers),
-              f"phase 10 {name}: expected 16 string answers")
-        check(decode_calls > 0
-              and launches[attention.APPEND_INT8KV] == 12 * decode_calls,
-              f"phase 10 {name}: launches {launches} for {decode_calls} "
-              f"decode and {model_calls} model calls (12 append a decode "
-              f"call)")
-        # 24 expert, 24 dense and 1 unembedding int8 products a model
-        # call: a decode call's (16 rows, 5 an expert) and an admission
-        # chunk's experts (10 an expert) on the mma.sync tiles, the
-        # chunk's dense products and unembedding (32 rows) on the wgmma
-        # ones
-        check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
-            quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
-            eng.prefill_calls - c0[2]), 24, experts=24, moe_cfg=eng.cfg),
-            f"phase 10 {name}")
-        check(all(launches[n] == 0 for n in (
-            attention.KERNEL, attention.RAGGED, attention.INT8KV,
-            attention.APPEND, attention.WINDOW, attention.WINDOW_INT8KV)),
-              f"phase 10 {name}: an attention variant other than the int8 "
-              f"append ran")
-        lat = snap["latency"]
-        runs[name] = dict(
-            answers=answers, wall_s=wall, tokens=tokens,
-            tokens_per_s=tokens / wall, ttft_p50_s=lat["ttft"]["p50_s"],
-            ttft_p90_s=lat["ttft"]["p90_s"],
-            decode_model_calls=decode_calls, model_calls=model_calls,
-            prefix_hit_tokens=snap["counters"].get(
-                "prefix_cache_hit_tokens", 0))
-    queue_equal = sum(a == b for a, b in zip(runs["greedy_1"]["answers"],
-                                             runs["greedy_2"]["answers"]))
+    runs, name = {}, "greedy"
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
+          eng.total_generated_tokens)
+    answers, wall, snap = run_paged_waves(eng, PagedQueue, Metrics,
+                                          wave1, wave2)
+    decode_calls = eng.decode_steps - c0[0]
+    model_calls = (decode_calls + eng.admission_chunks - c0[1]
+                   + eng.prefill_calls - c0[2])
+    tokens = eng.total_generated_tokens - c0[3]
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    check(len(answers) == 16
+          and all(isinstance(a, str) for a in answers),
+          f"phase 10 {name}: expected 16 string answers")
+    check(decode_calls > 0
+          and launches[attention.APPEND_INT8KV] == 12 * decode_calls,
+          f"phase 10 {name}: launches {launches} for {decode_calls} "
+          f"decode and {model_calls} model calls (12 append a decode "
+          f"call)")
+    # 24 expert, 24 dense and 1 unembedding int8 products a model
+    # call: a decode call's (16 rows, 5 an expert) and an admission
+    # chunk's experts (10 an expert) on the mma.sync tiles, the
+    # chunk's dense products and unembedding (32 rows) on the wgmma
+    # ones
+    check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+        quant_matmul, eng, decode_calls, eng.admission_chunks - c0[1],
+        eng.prefill_calls - c0[2]), 24, experts=24, moe_cfg=eng.cfg),
+        f"phase 10 {name}")
+    check(all(launches[n] == 0 for n in (
+        attention.KERNEL, attention.RAGGED, attention.INT8KV,
+        attention.APPEND, attention.WINDOW, attention.WINDOW_INT8KV)),
+          f"phase 10 {name}: an attention variant other than the int8 "
+          f"append ran")
+    lat = snap["latency"]
+    runs[name] = dict(
+        answers=answers, wall_s=wall, tokens=tokens,
+        tokens_per_s=tokens / wall, ttft_p50_s=lat["ttft"]["p50_s"],
+        ttft_p90_s=lat["ttft"]["p90_s"],
+        decode_model_calls=decode_calls, model_calls=model_calls,
+        prefix_hit_tokens=snap["counters"].get(
+            "prefix_cache_hit_tokens", 0))
     width = eng.widths[-1]
     call_ms = graph_call_ms(torch, eng, width)
     call_profile = profile_decode_call(torch, eng, width)
@@ -4297,7 +4299,6 @@ def moe_deployment(torch, attention, quant_matmul, args) -> tuple:
         **{f"{k}_{name}": v for name, r in runs.items()
            for k, v in r.items() if k != "answers"},
         greedy_same_schedule_equal=len(same_schedule[0]),
-        greedy_queue_runs_equal_answers=queue_equal,
         decode_call_ms_idle=call_ms, decode_call_profile=call_profile,
         weight_bytes=weight_bytes,
         weight_bound_ms=weight_bytes / H100_HBM_BYTES_PER_S * 1e3,
@@ -7871,6 +7872,520 @@ def dp_phase_checks(attention, ranks, refs, card) -> dict:
     return rec
 
 
+# ------------- phase 18: the deployment from artifacts built on the card
+
+ARTIFACT_CORPUS = "checkout"  # the builders' text: this checkout's files
+GPT2_PARAMS = 124_439_808     # GPT2LMHeadModel (gpt2) less lm_head.weight
+BERT_PARAMS = 108_891_648     # BertModel (bert-base-uncased) less pooler.*
+ARTIFACT_WITNESS = "gpt2-local-4-layers"  # its preset, registered by (b)
+ARTIFACT_WITNESS_LAYERS = 4
+GATE_PLAIN_TOL = 1e-5         # a float32 gate's similarity vs float64's
+PROFILE_BATCH = 8             # profile_decode's device-mode batch
+PROFILE_MEGASTEP = 4          # ... and its dispatch-gap K
+
+
+def artifact_prompts():
+    """The node's traffic in phase 18: the 8 QUESTIONS framed as the node
+    frames a query, then the 8 course prompts behind COURSE_CONTEXT."""
+    from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
+        PROMPT_TEMPLATE,
+    )
+
+    return ([PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS],
+            [COURSE_CONTEXT + PROMPT_TEMPLATE.format(query=q)
+             for q in COURSE_QUESTIONS])
+
+
+def build_artifacts(args, root: Path) -> dict:
+    """Phase 18 (a): GPT-2 small's and bert-base's artifacts written into
+    `root` by the port's tool (`tools/make_local_checkpoint.py`), the
+    weights drawn on the card; the files, each step's seconds, the
+    corpus, both vocabularies' sizes and the prompts' token counts under
+    the trained BPE beside the byte tokenizer."""
+    from distributed_lms_raft_llm_tpu_torch.tools import (
+        make_local_checkpoint as mk,
+    )
+    from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import (
+        BPETokenizer, ByteTokenizer, WordPieceTokenizer)
+
+    gpt2_dir, bert_dir = root / "gpt2-local", root / "bert-local"
+    t0 = time.monotonic()
+    gpt2 = mk.build_gpt2_local(str(gpt2_dir), seed=args.seed, device="cuda",
+                               corpus=ARTIFACT_CORPUS)
+    t1 = time.monotonic()
+    bert = mk.build_bert_local(str(bert_dir), seed=args.seed, device="cuda",
+                               corpus=ARTIFACT_CORPUS)
+    t2 = time.monotonic()
+    files = dict(checkpoint=str(gpt2_dir / "model.safetensors"),
+                 vocab=str(gpt2_dir / "vocab.json"),
+                 merges=str(gpt2_dir / "merges.txt"),
+                 gate_checkpoint=str(bert_dir / "model.safetensors"),
+                 gate_vocab=str(bert_dir / "vocab.txt"))
+    check(all(set(r) == {"corpus", "vocab", "checkpoint"}
+              for r in (gpt2, bert))
+          and gpt2["checkpoint"]["params"] == GPT2_PARAMS
+          and bert["checkpoint"]["params"] == BERT_PARAMS
+          and gpt2["corpus"]["sha256"] == bert["corpus"]["sha256"]
+          and all(Path(f).is_file() for f in files.values()),
+          f"phase 18 (a): the tool did not build every artifact: "
+          f"{gpt2}, {bert}")
+    bpe = BPETokenizer.from_files(files["vocab"], files["merges"])
+    wordpiece = WordPieceTokenizer.from_file(files["gate_vocab"])
+    check(bpe.vocab_size == gpt2["vocab"]["tokens"] > 10_000
+          and wordpiece.vocab_size == bert["vocab"]["tokens"] > 5_000,
+          f"phase 18 (a): vocabularies of {bpe.vocab_size} and "
+          f"{wordpiece.vocab_size} tokens")
+    questions, course = artifact_prompts()
+    byte = ByteTokenizer()
+    tokens = {name: dict(bpe=[len(bpe.encode(p)) for p in prompts],
+                         byte=[len(byte.encode(p)) for p in prompts])
+              for name, prompts in (("questions", questions),
+                                    ("course", course))}
+    corpus = {k: gpt2["corpus"][k] for k in ("bytes", "sha256", "files")}
+    rec = dict(
+        files=files, corpus=corpus, corpus_s=[gpt2["corpus"]["seconds"],
+                                              bert["corpus"]["seconds"]],
+        bpe=gpt2["vocab"], wordpiece=bert["vocab"], gpt2_s=t1 - t0,
+        bert_s=t2 - t1,
+        gpt2_checkpoint=gpt2["checkpoint"], bert_checkpoint=bert["checkpoint"],
+        seconds=t2 - t0, prompt_tokens=tokens,
+        bpe_over_byte=sum(tokens["questions"]["bpe"] + tokens["course"]["bpe"])
+        / sum(tokens["questions"]["byte"] + tokens["course"]["byte"]))
+    emit("artifacts", **{k: v for k, v in rec.items() if k != "files"})
+    return rec
+
+
+# The node's GPT-2 tree path -> the HF tensor it holds ("{}": the layer
+# of a stacked leaf), written out here rather than taken from the loader.
+HF_OF_LEAF = {
+    ("wte",): "wte.weight", ("wpe",): "wpe.weight",
+    ("lnf", "scale"): "ln_f.weight", ("lnf", "bias"): "ln_f.bias",
+    **{("blocks",) + tuple(path.split(".")): "h.{}." + name
+       for path, name in (
+           ("ln1.scale", "ln_1.weight"), ("ln1.bias", "ln_1.bias"),
+           ("attn.wqkv", "attn.c_attn.weight"),
+           ("attn.bqkv", "attn.c_attn.bias"),
+           ("attn.wo", "attn.c_proj.weight"), ("attn.bo", "attn.c_proj.bias"),
+           ("ln2.scale", "ln_2.weight"), ("ln2.bias", "ln_2.bias"),
+           ("mlp.wi", "mlp.c_fc.weight"), ("mlp.bi", "mlp.c_fc.bias"),
+           ("mlp.wo", "mlp.c_proj.weight"), ("mlp.bo", "mlp.c_proj.bias"))},
+}
+
+
+def read_safetensors(path) -> dict:
+    """name -> float32 numpy array of a .safetensors file, read by its
+    format (an 8-byte header length, a JSON header, the raw tensors), not
+    by the port's loader."""
+    import numpy as np
+
+    raw = Path(path).read_bytes()
+    n = int.from_bytes(raw[:8], "little")
+    out = {}
+    for name, meta in json.loads(raw[8:8 + n]).items():
+        if name == "__metadata__":
+            continue
+        check(meta["dtype"] == "F32", f"{path}: {name} is {meta['dtype']}")
+        lo, hi = meta["data_offsets"]
+        out[name.removeprefix("transformer.")] = np.frombuffer(
+            raw, np.float32, (hi - lo) // 4, 8 + n + lo).reshape(meta["shape"])
+    return out
+
+
+def loaded_leaves_check(torch, eng, files) -> dict:
+    """The node's weights are the file's: each leaf of the tree it serves
+    against the file's tensors (read by `read_safetensors`, named by
+    HF_OF_LEAF), a float leaf equal to the file's in the leaf's dtype, an
+    int8 leaf dequantized within one step (its scale) of the file's
+    float32 (half a step of rounding, up to half a step more from the
+    bf16 cast it was quantized from); and the float32 tree maps back to
+    the file's tensors exactly (`gpt2_params_from_hf`, then
+    `gpt2_params_to_hf`)."""
+    import dataclasses
+    import numpy as np
+
+    from distributed_lms_raft_llm_tpu_torch.models import convert, quant
+
+    def leaf_paths(tree, path=()):
+        for key, value in tree.items():
+            if isinstance(value, dict) and not quant.is_quantized(value):
+                yield from leaf_paths(value, path + (key,))
+            else:
+                yield path + (key,)
+
+    sd = read_safetensors(files["checkpoint"])
+    layers = eng.cfg.num_layers
+    check(set(leaf_paths(eng.params)) == set(HF_OF_LEAF)
+          and set(sd) == {n.format(i) for n in HF_OF_LEAF.values()
+                          for i in range(layers)},
+          f"phase 18 (b): the node's leaves {sorted(leaf_paths(eng.params))}"
+          f" or the file's tensors {sorted(sd)} are not GPT-2's")
+    exact = int8 = 0
+    worst = 0.0  # the largest int8 error, in steps
+    for path, name in HF_OF_LEAF.items():
+        leaf = eng.params
+        for key in path:
+            leaf = leaf[key]
+        want = torch.from_numpy(np.stack([sd[name.format(i)]
+                                          for i in range(layers)])
+                                if "{}" in name else np.array(sd[name])
+                                ).to(eng.device)
+        if quant.is_quantized(leaf):
+            q, step = leaf["q"], leaf["s"]
+            # a scale per row of the embedding, per output column of a
+            # product's [in, out]
+            step = step.unsqueeze(-1 if path == ("wte",) else -2)
+            err = ((q.float() * step - want).abs() / step).max().item()
+            check(q.shape == want.shape and err <= 1.0,
+                  f"phase 18 (b): the node's int8 {'.'.join(path)} is "
+                  f"{err} steps from the file's {name}")
+            worst, int8 = max(worst, err), int8 + 1
+        else:
+            check(torch.equal(leaf, want.to(leaf.dtype)),
+                  f"phase 18 (b): the node's {'.'.join(path)} is not the "
+                  f"file's {name}")
+            exact += 1
+    f32 = dataclasses.replace(eng.cfg, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    back = convert.gpt2_params_to_hf(
+        convert.gpt2_params_from_hf(sd, f32, device="cpu"))
+    same = sum(np.array_equal(back[k], sd[k]) for k in back)
+    check(len(back) == len(sd) and same == len(sd),
+          f"phase 18 (b): the float32 round trip kept {same} of {len(sd)} "
+          f"tensors")
+    return dict(leaves=len(HF_OF_LEAF), float_leaves_equal=exact,
+                int8_leaves_within_a_step=int8, int8_worst_steps=worst,
+                file_tensors=len(sd), round_trip_tensors=same)
+
+
+def artifact_witness(torch, attention, quant_matmul, files, prompts) -> dict:
+    """Phase 18 (b)'s float32 witness: the built checkpoint's first
+    ARTIFACT_WITNESS_LAYERS layers at full width, int8 weights and KV, the
+    paged engine eagerly: the kernel path's greedy tokens on the framed
+    questions equal the plain path's (plain attention, the int8 wrapper's
+    plain version)."""
+    import functools
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        EngineConfig, PagedEngine, SamplingParams)
+    from distributed_lms_raft_llm_tpu_torch.models import gpt2, registry
+
+    layers = ARTIFACT_WITNESS_LAYERS
+    registry.PRESETS[ARTIFACT_WITNESS] = (registry.GPT2_FAMILY,
+                                          functools.partial(
+                                              gpt2.GPT2Config.small,
+                                              num_layers=layers))
+    base = dict(model=ARTIFACT_WITNESS, checkpoint=files["checkpoint"],
+                vocab_path=files["vocab"], merges_path=files["merges"],
+                quant="int8", kv_quant=True, dtype=torch.float32,
+                param_dtype=torch.float32, device="cuda",
+                sampling=SamplingParams.greedy(max_new_tokens=32))
+    toks, runs = {}, {}
+    try:
+        for name, fused in (("plain", False), ("kernels", True)):
+            eng = PagedEngine(EngineConfig(fused_attention=fused, **base),
+                              slots=8, chunk=16, inflight=3,
+                              cuda_graphs=False)
+            check(eng.cfg.num_layers == layers and eng.cfg.hidden_size == 768
+                  and eng.cfg.dtype == torch.float32,
+                  f"phase 18 witness: not GPT-2 small's width at {layers} "
+                  f"layers in float32: {eng.cfg}")
+            attention.reset_launch_counts()
+            quant_matmul.reset_launch_counts()
+            calls0 = (eng.decode_steps, eng.prefill_calls)
+            if fused:
+                toks[name] = engine_tokens(eng, prompts)
+            else:
+                with plain_int8_products(quant_matmul):
+                    toks[name] = engine_tokens(eng, prompts)
+            decode = eng.decode_steps - calls0[0]
+            model = decode + eng.prefill_calls - calls0[1]
+            launches = {k: v for k, v in {**attention.launch_counts,
+                                          **quant_matmul.launch_counts}.items()
+                        if v}
+            want = ({} if not fused else {
+                attention.APPEND_INT8KV: layers * decode,
+                quant_matmul.FMA: (4 * layers + 1) * model,
+                quant_matmul.KERNEL: (4 * layers + 1) * model})
+            check(decode > 0 and launches == want,
+                  f"phase 18 witness {name}: launches {launches} != {want}")
+            runs[name] = dict(decode_model_calls=decode, model_calls=model,
+                              tokens=sum(len(t) for t in toks[name]),
+                              launches=launches)
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        registry.PRESETS.pop(ARTIFACT_WITNESS, None)
+    firsts = [first_divergence(a, b)
+              for a, b in zip(toks["kernels"], toks["plain"])]
+    rec = dict(layers=layers, requests=len(prompts),
+               equal=sum(f is None for f in firsts),
+               first_divergence=[f for f in firsts if f is not None],
+               runs=runs)
+    check(rec["equal"] == len(prompts),
+          f"phase 18 witness: float32 greedy tokens differ between the "
+          f"kernel and the plain path: {rec['first_divergence']}")
+    return rec
+
+
+def artifact_node(torch, attention, quant_matmul, args, files) -> dict:
+    """Phase 18 (b): the tutoring node's engine from configs/cluster.toml
+    with only --checkpoint/--vocab/--merges pointed at (a)'s files,
+    warmed, serving the framed questions and the course prompts through
+    PagedQueue under the compile guard (see the module docstring)."""
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        PagedEngine, PagedQueue)
+    from distributed_lms_raft_llm_tpu_torch.serving import tutoring_server
+    from distributed_lms_raft_llm_tpu_torch.utils.metrics import Metrics
+    from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import (
+        BPETokenizer)
+
+    node_args = tutoring_server.resolve_args([
+        "--config", str(REPO / "configs" / "cluster.toml"),
+        "--checkpoint", files["checkpoint"], "--vocab", files["vocab"],
+        "--merges", files["merges"]])
+    check(node_args.model == "gpt2" and node_args.paged
+          and node_args.quant == "int8" and node_args.kv_quant
+          and node_args.slots == 16 and node_args.megastep == 4
+          and node_args.megastep_max == 8 and node_args.prefix_cache
+          and node_args.prefill_chunk_tokens == 32
+          and node_args.checkpoint == files["checkpoint"],
+          f"phase 18 (b): configs/cluster.toml did not resolve to the "
+          f"deployment config on the built files: {vars(node_args)}")
+    t0 = time.monotonic()
+    eng = tutoring_server.engine_from_args(node_args)
+    init_s = time.monotonic() - t0
+    cfg = eng.cfg
+    check(isinstance(eng, PagedEngine) and eng.cuda_graphs and eng.fused
+          and isinstance(eng.tokenizer, BPETokenizer)
+          and eng.tokenizer.encoder == BPETokenizer.from_files(
+              files["vocab"], files["merges"]).encoder
+          and cfg.num_layers == 12 and cfg.hidden_size == 768
+          and cfg.vocab_size == 50257 and cfg.dtype == torch.bfloat16
+          and cfg.quant_kv and eng.widths == [160, 192, 256, 384],
+          f"phase 18 (b): not GPT-2 small's deployment on the trained BPE: "
+          f"{cfg}, widths {eng.widths}")
+    leaves = loaded_leaves_check(torch, eng, files)
+    warm_s = eng.warmup()
+    questions, course = artifact_prompts()
+    lens = [len(eng.tokenizer.encode(p)) for p in questions + course]
+    check(max(lens) <= eng.bucket,
+          f"phase 18 (b): a prompt exceeds the prompt bucket: {lens}")
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    c0 = (eng.decode_steps, eng.admission_chunks, eng.prefill_calls,
+          eng.total_generated_tokens)
+    with inventory_guard(eng, "phase 18 served waves") as inventory:
+        answers, wall, snap = run_paged_waves(eng, PagedQueue, Metrics,
+                                              questions, course)
+    launches = {**attention.launch_counts, **quant_matmul.launch_counts}
+    decode_calls = eng.decode_steps - c0[0]
+    adm_calls = eng.admission_chunks - c0[1]
+    tokens = eng.total_generated_tokens - c0[3]
+    emit("inventory_18", **inventory)
+    check(len(answers) == 16 and all(isinstance(a, str) and a.strip()
+                                     for a in answers),
+          f"phase 18 (b): empty answers: {answers}")
+    check(decode_calls > 0
+          and launches[attention.APPEND_INT8KV] == 12 * decode_calls,
+          f"phase 18 (b): append launches {launches[attention.APPEND_INT8KV]}"
+          f" != 12 x {decode_calls} decode model calls")
+    check_int8_routes(launches, int8_want(quant_matmul, paged_calls(
+        quant_matmul, eng, decode_calls, adm_calls,
+        eng.prefill_calls - c0[2]), 48), "phase 18 (b)")
+    lat, counters = snap["latency"], snap["counters"]
+    run = dict(
+        init_s=init_s, warmup_s=warm_s, requests=len(answers),
+        prompt_tokens=lens, wall_s=wall, tokens=tokens,
+        tokens_per_s=tokens / wall, ttft_p50_s=lat["ttft"]["p50_s"],
+        ttft_p90_s=lat["ttft"]["p90_s"], decode_model_calls=decode_calls,
+        admission_chunks=adm_calls,
+        prefix_hit_tokens=counters.get("prefix_cache_hit_tokens", 0),
+        launches={k: v for k, v in launches.items() if v},
+        inventory=inventory, leaves=leaves,
+        answer_sample=answers[0][:80])
+    del eng
+    torch.cuda.empty_cache()
+    run["witness"] = artifact_witness(torch, attention, quant_matmul, files,
+                                      questions)
+    emit("artifact_node", **{k: v for k, v in run.items()
+                             if k != "inventory"})
+    return run
+
+
+def artifact_gate(torch, args, files) -> dict:
+    """Phase 18 (c): the gate from configs/cluster.toml's [gate] with only
+    --gate-checkpoint/--gate-vocab pointed at (a)'s files, built as the LMS
+    node builds it; its WordPiece ids against the plain tokenizer's, check
+    latency per bucket, and a float32 gate on the same files against its
+    plain float64 version on the CPU."""
+    import dataclasses
+    import numpy as np
+
+    from distributed_lms_raft_llm_tpu_torch.engine import (
+        GateConfig, RelevanceGate)
+    from distributed_lms_raft_llm_tpu_torch.models import bert
+    from distributed_lms_raft_llm_tpu_torch.serving import lms_server
+    from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import (
+        WordPieceTokenizer)
+
+    gate_args = lms_server.resolve_args([
+        "--config", str(REPO / "configs" / "cluster.toml"), "--id", "1",
+        "--gate-checkpoint", files["gate_checkpoint"],
+        "--gate-vocab", files["gate_vocab"]])
+    check(gate_args.gate_model == "bert-base-uncased"
+          and gate_args.gate_threshold == GATE_THRESHOLD
+          and gate_args.gate_checkpoint == files["gate_checkpoint"]
+          and gate_args.gate_vocab == files["gate_vocab"],
+          f"phase 18 (c): [gate] did not resolve on the built files: "
+          f"{vars(gate_args)}")
+    t0 = time.monotonic()
+    gate = lms_server.gate_from_args(gate_args)
+    gate.warmup()
+    build_s = time.monotonic() - t0
+    plain = WordPieceTokenizer.from_file(files["gate_vocab"])
+    check(isinstance(gate.tokenizer, WordPieceTokenizer)
+          and gate.cfg.hidden_size == 768 and gate.cfg.num_layers == 12
+          and gate.cfg.vocab_size == 30522,
+          f"phase 18 (c): not bert-base on the WordPiece: {gate.cfg}")
+    contexts = gate_contexts(gate.tokenizer, (64, 128, 256, 512))
+    texts = QUESTIONS + list(contexts.values())
+    ids = [gate.tokenizer.encode(t, add_special_tokens=True) for t in texts]
+    check(ids == [plain.encode(t, add_special_tokens=True) for t in texts]
+          and all(plain.unk_id not in row for row in ids[:len(QUESTIONS)]),
+          "phase 18 (c): the gate's WordPiece ids differ from the plain "
+          "tokenizer's, or a question holds [UNK]")
+    pairs = [(q, c) for q in QUESTIONS for c in contexts.values()]
+    buckets = sorted({gate._encode([q, c])[0].shape[1] for q, c in pairs})
+    latency = gate_latency(torch, gate, QUESTIONS[1], contexts)
+    bf16 = [gate.check(q, c)[1] for q, c in pairs]
+    del gate
+    f32 = RelevanceGate(GateConfig(
+        model="bert-base-uncased", checkpoint=files["gate_checkpoint"],
+        vocab_path=files["gate_vocab"], threshold=GATE_THRESHOLD,
+        dtype=torch.float32, device="cuda"))
+    sims = [f32.check(q, c)[1] for q, c in pairs]
+    cfg64 = dataclasses.replace(f32.cfg, dtype=torch.float64)
+    params64 = to_cpu_f64(torch, f32.params)
+    emb = {}
+    with torch.inference_mode():
+        for text in dict.fromkeys(t for pair in pairs for t in pair):
+            tok_ids, mask = f32._encode([text])
+            emb[text] = bert.embed(params64, cfg64, torch.as_tensor(tok_ids),
+                                   attention_mask=torch.as_tensor(mask)
+                                   ).numpy()[0]
+
+    def cos(a, b):
+        return float(np.dot(a, b) / max(float(np.linalg.norm(a)
+                                              * np.linalg.norm(b)), 1e-12))
+
+    plain_sims = [cos(emb[q], emb[c]) for q, c in pairs]
+    f32_err = max(abs(a - b) for a, b in zip(sims, plain_sims))
+    bf16_err = max(abs(a - b) for a, b in zip(bf16, sims))
+    del f32
+    torch.cuda.empty_cache()
+    rec = dict(build_s=build_s, tokenizer_size=plain.vocab_size,
+               question_tokens=[len(r) for r in ids[:len(QUESTIONS)]],
+               context_tokens={k: len(r) for k, r in zip(
+                   contexts, ids[len(QUESTIONS):])},
+               buckets=buckets, pairs=len(pairs), latency=latency,
+               float32_vs_plain_max_abs=f32_err, tol=GATE_PLAIN_TOL,
+               bf16_vs_float32_max_abs=bf16_err, bf16_tol=GATE_BF16_TOL,
+               sim_range_float32=[min(sims), max(sims)])
+    emit("artifact_gate", **rec)
+    check(buckets == [64, 128, 256, 512],
+          f"phase 18 (c): the pairs land in buckets {buckets}")
+    check(f32_err <= GATE_PLAIN_TOL and bf16_err <= GATE_BF16_TOL,
+          f"phase 18 (c): the float32 gate's similarities err {f32_err} "
+          f"against float64 (tol {GATE_PLAIN_TOL}), the deployment's bf16 "
+          f"{bf16_err} against float32 (tol {GATE_BF16_TOL})")
+    return rec
+
+
+def artifact_profiles(torch, attention, quant_matmul, files) -> dict:
+    """Phase 18 (d): `tools/profile_decode.py` in both modes on (a)'s
+    files: the device mode (bucketed GPT-2 small, batch PROFILE_BATCH,
+    int8 weights and KV, 64-token prefill, 128 new tokens) with its module
+    scopes and the kernels it saw against those launched; the dispatch-gap
+    mode at K = PROFILE_MEGASTEP against the chunk loop."""
+    from distributed_lms_raft_llm_tpu_torch.tools import profile_decode
+
+    flags = ["--checkpoint", files["checkpoint"], "--vocab", files["vocab"],
+             "--merges", files["merges"], "--batch", str(PROFILE_BATCH),
+             "--greedy"]
+    parse = profile_decode.build_parser().parse_args
+    attention.reset_launch_counts()
+    quant_matmul.reset_launch_counts()
+    t0 = time.monotonic()
+    device = profile_decode.profile_device(parse(flags))
+    device_s = time.monotonic() - t0
+    launches = {k: v for k, v in {**attention.launch_counts,
+                                  **quant_matmul.launch_counts}.items() if v}
+    seen = device["traced_vs_launched"]
+    check(device["total_device_ms"] > 0 and device["decode_steps"] > 0
+          and seen and all(t <= n for t, n in seen.values())
+          and seen["decode_attention"][1] == 12 * device["decode_steps"],
+          f"phase 18 (d): the device mode's kernels seen against launched "
+          f"{seen} for {device['decode_steps']} decode steps")
+    # Each of the port's kernels credited by the wrappers' counters to the
+    # module that launched it (the int8 products to the model's products,
+    # the attention kernel to the attention); only a route whose records
+    # the trace lost may stand unmatched.
+    unmatched = profile_decode.UNMATCHED
+    products = {"qkv", "attn_out", "mlp_in", "mlp_out", "unembed", unmatched}
+    misplaced = {r["op"][:60]: r["scopes"] for r in device["ops_ms"]
+                 if ("int8_" in r["op"] and set(r["scopes"]) - products)
+                 or ("decode_attention" in r["op"]
+                     and set(r["scopes"]) - {"attention", unmatched})}
+    found = device["scope_found_by"]
+    traced = sum(t for t, _ in seen.values())
+    lossy = sum(t for t, n in seen.values() if t < n)
+    exact = found.get("launch_order", 0) + found.get("launch_scope", 0)
+    check(traced - lossy <= exact <= traced and not misplaced,
+          f"phase 18 (d): kernels outside their modules' scopes {misplaced} "
+          f"(scopes found by {found}, {traced} of the port's kernels "
+          f"traced, {lossy} of them of routes that lost records)")
+    t0 = time.monotonic()
+    mega = profile_decode.profile_megastep(
+        parse(flags + ["--megastep", str(PROFILE_MEGASTEP)]))
+    mega_s = time.monotonic() - t0
+    before, after = mega["before"], mega["after"]
+    check(before["emitted_tokens"] > 0 and after["emitted_tokens"] > 0
+          and after["host_dispatches_per_token"]
+          < before["host_dispatches_per_token"],
+          f"phase 18 (d): K={PROFILE_MEGASTEP} did not cut host dispatches "
+          f"a token: {before} against {after}")
+    rec = dict(device_s=device_s, megastep_s=mega_s, launches=launches,
+               device={k: device[k] for k in (
+                   "device", "batch", "bucket", "decode_steps",
+                   "total_device_ms", "cuda_event_span_ms", "wall_ms",
+                   "profiled_wall_ms", "device_busy_share", "kernels",
+                   "scopes_ms", "scope_found_by", "traced_vs_launched")},
+               top_kernels=[dict(r, op=r["op"][:90])
+                            for r in device["ops_ms"][:10]],
+               megastep=mega)
+    emit("artifact_profiles", **rec)
+    return rec
+
+
+def artifacts_phase(torch, attention, quant_matmul, args) -> dict:
+    """Phase 18: GPT-2 small's deployment and the bert-base gate served
+    from artifacts the port's tool builds on the card (see the module
+    docstring); the files live in a temporary directory, never data/."""
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="phase18_") as tmp:
+        rec = dict(artifacts=build_artifacts(args, Path(tmp)))
+        files = rec["artifacts"]["files"]
+        rec["node"] = artifact_node(torch, attention, quant_matmul, args,
+                                    files)
+        rec["gate"] = artifact_gate(torch, args, files)
+        rec["profiles"] = artifact_profiles(torch, attention, quant_matmul,
+                                            files)
+    rec["seconds"] = time.monotonic() - t0
+    emit("artifacts_phase", seconds=rec["seconds"])
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--checkpoint", default=None)
@@ -7981,6 +8496,12 @@ def main(argv=None) -> int:
         paged_cases.append(paged_attention_case(
             torch, attention, s=16, width=384, int8=int8, dtype="float32",
             seed=3))
+    # The bucketed engine's int8-cache decode step as phase 18 (d) runs it:
+    # 8 rows at its last window, the whole 64 + 128-slot cache, under the
+    # model's bias (left padding as a served batch has it).
+    paged_cases.append(paged_attention_case(
+        torch, attention, s=8, width=192, s_alloc=192, int8=True,
+        pads=[0, 0, 0, 5, 17, 30, 47, 63], seed=11))
     for case in paged_cases:
         emit("paged_attention_case", **case)
     records["paged_attention_cases"] = paged_cases
@@ -8071,6 +8592,7 @@ def main(argv=None) -> int:
     from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
         PROMPT_TEMPLATE,
     )
+    from distributed_lms_raft_llm_tpu_torch.tools import profile_decode
 
     prompts = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]
     common = dict(model="gpt2", checkpoint=args.checkpoint,
@@ -8126,7 +8648,8 @@ def main(argv=None) -> int:
     records["main_path_launches"] = launches
     records["main_path_decode_steps"] = steps
 
-    records["profile"] = profile_generate(torch, greedy_eng, prompts)
+    records["profile"] = profile_decode.profile_generate(torch, greedy_eng,
+                                                        prompts)
     emit("profile_greedy_batch", **records["profile"])
 
     # The kernel at the widest window this run's decode gave it, with q
@@ -8400,6 +8923,16 @@ def main(argv=None) -> int:
     phase_s["14_tp"] -= (phase_s["15_ep_sp_gate"]
                          + phase_s["16_train_sharded"] + phase_s["17_dp"])
 
+    # 18. GPT-2 small's deployment and the bert-base gate served from
+    # artifacts the port's tool builds on the card (configs/cluster.toml
+    # with only the file flags pointed at them), and profile_decode on
+    # them.
+    records["artifacts"] = artifacts_phase(torch, attention, quant_matmul,
+                                           args)
+    art_launches = records["artifacts"]["node"]["launches"]
+    prof_launches = records["artifacts"]["profiles"]["launches"]
+    lap("18_artifacts")
+
     records["seconds"] = time.monotonic() - t_start
     phase_s["total"] = records["seconds"]
     emit("phase_seconds", **phase_s)
@@ -8474,7 +9007,8 @@ def main(argv=None) -> int:
                   "15_ep_rank0": ep_launches_["ep"].get(
                       attention.APPEND_INT8KV, 0),
                   "15_ep_rank1": ep_launches_["ep_rank1"].get(
-                      attention.APPEND_INT8KV, 0)}),
+                      attention.APPEND_INT8KV, 0),
+                  "18b": art_launches.get(attention.APPEND_INT8KV, 0)}),
         entry("int8_matmul", "no Pallas kernel: distributed_lms_raft_llm_tpu/"
               "models/common.py:58 and models/quant.py:139 (XLA-fused int8 "
               "einsums)", deploy_launches[quant_matmul.KERNEL],
@@ -8494,7 +9028,9 @@ def main(argv=None) -> int:
                   "11": lms_launches[quant_matmul.KERNEL],
                   "11b": group_launches[quant_matmul.KERNEL],
                   "12": train_launches[quant_matmul.KERNEL],
-                  "13": sim_launches.get(quant_matmul.KERNEL, 0)}),
+                  "13": sim_launches.get(quant_matmul.KERNEL, 0),
+                  "18b": art_launches.get(quant_matmul.KERNEL, 0),
+                  "18d": prof_launches.get(quant_matmul.KERNEL, 0)}),
         entry(quant_matmul.MMA_UNEMBED, "no Pallas kernel: "
               "distributed_lms_raft_llm_tpu/models/quant.py:139 (the "
               "XLA-fused int8 unembedding einsum)",
@@ -8507,7 +9043,9 @@ def main(argv=None) -> int:
                   "11": lms_launches[quant_matmul.MMA_UNEMBED],
                   "11b": group_launches[quant_matmul.MMA_UNEMBED],
                   "12": train_launches[quant_matmul.MMA_UNEMBED],
-                  "13": sim_launches.get(quant_matmul.MMA_UNEMBED, 0)},
+                  "13": sim_launches.get(quant_matmul.MMA_UNEMBED, 0),
+                  "18b": art_launches.get(quant_matmul.MMA_UNEMBED, 0),
+                  "18d": prof_launches.get(quant_matmul.MMA_UNEMBED, 0)},
               shape="the tied unembedding 50257 x 768, M=16, bf16 x, "
               "float32 logits",
               walked_bytes=unembed_case["walked_bytes"],
@@ -8553,7 +9091,7 @@ def main(argv=None) -> int:
             "10_quantum": records["moe"]["deployment"]["score_quantum"][
                 "launches"],
             "11": lms_launches, "11b": group_launches, "12": train_launches,
-            "13": sim_launches}
+            "13": sim_launches, "18b": art_launches, "18d": prof_launches}
         return {k: v.get(route, 0) for k, v in paths.items()
                 if v.get(route, 0)}
 
@@ -8732,6 +9270,19 @@ def main(argv=None) -> int:
               "the gate's rows)", library_note=gate_wi["library_note"],
               launches_path="17c, rank 0 of 2 dp ranks: one check"),
     ]
+    # Phase 18 (d): the bucketed engine's int8-cache decode attention in
+    # profile_decode's device mode (8 rows, bf16), at its shape in phase
+    # 3b (the whole 192-slot cache, the model's bias).
+    bucketed_int8 = next(c for c in paged_cases if c["bias"])
+    kernels.append(entry(
+        f"{attention.INT8KV}[the bucketed engine, int8 cache, bf16]",
+        pallas + " (extended: the int8 cache)",
+        prof_launches.get(attention.INT8KV, 0), bucketed_int8,
+        library_note=bucketed_int8["library_note"],
+        shape="8 rows, width 192 of a 192-slot cache (64-token prompts + "
+        "128 new), int8 cache, bf16 q, the model's bias, the last step",
+        launches_path="18d, profile_decode's device mode on the built "
+        "checkpoint: four generates of 8 x 128 tokens"))
     records["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

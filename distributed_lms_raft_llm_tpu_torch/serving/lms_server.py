@@ -378,18 +378,8 @@ async def serve_async(args) -> None:
         storage_recovery=args.storage_recovery,
     )
 
-    gate = None
-    if args.gate_model:
-        # torch is imported here only: the rest of the node is host code.
-        # On --device cuda without a card the gate raises (device.py).
-        from ..engine import GateConfig, RelevanceGate
-
-        gate = RelevanceGate(
-            GateConfig(model=args.gate_model, checkpoint=args.gate_checkpoint,
-                       vocab_path=args.gate_vocab,
-                       threshold=args.gate_threshold,
-                       quant=args.gate_quant, device=args.device)
-        )
+    gate = gate_from_args(args)
+    if gate is not None:
         gate.warmup()
 
     tutoring_auth_key = None
@@ -637,7 +627,24 @@ async def serve_async(args) -> None:
         await asyncio.wait_for(_shutdown(), timeout=30.0)
 
 
-def main(argv=None) -> None:
+def gate_from_args(args: argparse.Namespace):
+    """The node's relevance gate from its resolved flags (`--gate-*`,
+    `--device`), not warmed; None without `--gate-model`."""
+    if not args.gate_model:
+        return None
+    # torch is imported here only: the rest of the node is host code.
+    # On --device cuda without a card the gate raises (device.py).
+    from ..engine import GateConfig, RelevanceGate
+
+    return RelevanceGate(
+        GateConfig(model=args.gate_model, checkpoint=args.gate_checkpoint,
+                   vocab_path=args.gate_vocab, threshold=args.gate_threshold,
+                   quant=args.gate_quant, device=args.device))
+
+
+def resolve_args(argv=None) -> argparse.Namespace:
+    """The node's flags as `main` serves them: the command line over
+    `--config`'s file (explicit flags win), checked."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("id", type=int, nargs="?", default=None,
                         help="node id (1-based)")
@@ -866,7 +873,11 @@ def main(argv=None) -> None:
                      "--config <file> --id <node id>")
     if args.data_dir is None:
         args.data_dir = f"lms_node_{args.id}"
+    return args
 
+
+def main(argv=None) -> None:
+    args = resolve_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",

@@ -5,9 +5,9 @@
 
 GPT-2 small at full width, bf16, seeded random weights, the 8 questions of
 `chip_smoke.py` (prompt bucket 256), 32 greedy tokens. Prints one JSON
-line: `chip_smoke.profile_generate`'s record (device busy share, kernel
-launches by kind, kernel time by name) and the wall times of N more
-unprofiled batches. To compare two commits on one card, place this file
+line: the record of `profile_generate` in `tools/profile_decode.py`
+(device busy share, kernel launches by kind, kernel time by name) and the
+wall times of N more unprofiled batches. To compare two commits on one card, place this file
 and `chip_smoke.py` beside the other checkout's package too, and run both
 in one call. Needs a CUDA device; imports nothing of JAX.
 """
@@ -36,7 +36,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    from chip_smoke import QUESTIONS, profile_generate
+    from chip_smoke import QUESTIONS
     from distributed_lms_raft_llm_tpu_torch.engine import (
         EngineConfig,
         SamplingParams,
@@ -44,6 +44,9 @@ def main(argv=None) -> int:
     )
     from distributed_lms_raft_llm_tpu_torch.serving.prompts import (
         PROMPT_TEMPLATE,
+    )
+    from distributed_lms_raft_llm_tpu_torch.tools.profile_decode import (
+        profile_generate,
     )
 
     prompts = [PROMPT_TEMPLATE.format(query=q) for q in QUESTIONS]

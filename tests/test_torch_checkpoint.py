@@ -24,13 +24,20 @@ WordPiece vocabulary in float32 embeds texts within 1e-5 of the JAX gate
 (twelve layers of float32 sums in another order) and decides every pair
 alike.
 
-Where data/ is absent (a fresh checkout: it is gitignored), the module
-builds the artifacts once in a temporary directory with
-scripts/make_local_checkpoint.py's own builders, at a reduced size that
-takes seconds: the same full-size models from seeded random weights, and
-vocabularies of REDUCED_VOCAB trained on this checkout's text (its
-Markdown, the JAX package and the tests: the builder's corpus without the
-system's files). Every case then runs either way.
+Every case runs on two sets of artifacts, one from each builder:
+
+- the JAX package's: data/ where present, else (a fresh checkout: data/
+  is gitignored) built once in a temporary directory with
+  scripts/make_local_checkpoint.py's own builders;
+- the port's: built once in a temporary directory with
+  `distributed_lms_raft_llm_tpu_torch.tools.make_local_checkpoint`
+  (its own trainers and weight draws, no `tokenizers` or
+  `transformers`), on the CPU.
+
+A built set is at a reduced size that takes seconds: the same full-size
+models from seeded random weights, and vocabularies of REDUCED_VOCAB
+trained on this checkout's text (its Markdown, the JAX package and the
+tests: the builder's corpus without the system's files).
 """
 
 import contextlib
@@ -65,6 +72,9 @@ from distributed_lms_raft_llm_tpu_torch.engine import (
 )
 from distributed_lms_raft_llm_tpu_torch.models import bert, convert, gpt2
 from distributed_lms_raft_llm_tpu_torch.serving.prompts import PROMPT_TEMPLATE
+from distributed_lms_raft_llm_tpu_torch.tools import (
+    make_local_checkpoint as port_builders,
+)
 from distributed_lms_raft_llm_tpu_torch.utils.tokenizer import BPETokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,39 +105,48 @@ def _checkout_corpus(out_path: str, max_files: int = 400) -> str:
     return out_path
 
 
+BUILDERS = ("jax_script", "port_tool")
+
+
 @contextlib.contextmanager
-def local_artifacts(tmp_path_factory, files, builder):
-    """`files` where all exist (data/), else built by the named builder of
-    scripts/make_local_checkpoint.py into a temporary directory, removed
-    after the module."""
-    if all(os.path.exists(p) for p in files.values()):
+def local_artifacts(tmp_path_factory, files, builder, source):
+    """`files` built by the named builder of `source`: the JAX script's
+    (data/ where all exist) or the port's tool, into a temporary
+    directory removed after the module."""
+    out = tmp_path_factory.mktemp(f"{source}_{builder}")
+    if source == "port_tool":
+        getattr(port_builders, builder)(str(out), vocab_size=REDUCED_VOCAB,
+                                        device="cpu", corpus="checkout")
+    elif all(os.path.exists(p) for p in files.values()):
+        out.rmdir()
         yield files
         return
-    spec = importlib.util.spec_from_file_location(
-        "make_local_checkpoint",
-        os.path.join(REPO, "scripts", "make_local_checkpoint.py"))
-    builders = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(builders)
-    out = tmp_path_factory.mktemp(builder)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(builders, "build_corpus", _checkout_corpus)
-        getattr(builders, builder)(str(out), vocab_size=REDUCED_VOCAB)
+    else:
+        spec = importlib.util.spec_from_file_location(
+            "make_local_checkpoint",
+            os.path.join(REPO, "scripts", "make_local_checkpoint.py"))
+        builders = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(builders)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(builders, "build_corpus", _checkout_corpus)
+            getattr(builders, builder)(str(out), vocab_size=REDUCED_VOCAB)
     try:
         yield {name: str(out / name) for name in files}
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
 
-@pytest.fixture(scope="module")
-def gpt2_files(tmp_path_factory):
-    with local_artifacts(tmp_path_factory, FILES, "build_gpt2_local") as f:
+@pytest.fixture(scope="module", params=BUILDERS)
+def gpt2_files(request, tmp_path_factory):
+    with local_artifacts(tmp_path_factory, FILES, "build_gpt2_local",
+                         request.param) as f:
         yield f
 
 
-@pytest.fixture(scope="module")
-def bert_files(tmp_path_factory):
-    with local_artifacts(tmp_path_factory, BERT_FILES,
-                         "build_bert_local") as f:
+@pytest.fixture(scope="module", params=BUILDERS)
+def bert_files(request, tmp_path_factory):
+    with local_artifacts(tmp_path_factory, BERT_FILES, "build_bert_local",
+                         request.param) as f:
         yield f
 
 

@@ -309,6 +309,10 @@ def test_port_imports_no_jax():
         "import distributed_lms_raft_llm_tpu_torch.tools.gen_metrics_table\n"
         "import distributed_lms_raft_llm_tpu_torch.tools.trace_report\n"
         "import distributed_lms_raft_llm_tpu_torch.tools.telemetry\n"
+        "import distributed_lms_raft_llm_tpu_torch.tools.train_vocab\n"
+        "import distributed_lms_raft_llm_tpu_torch.tools.make_local_checkpoint\n"
+        "import distributed_lms_raft_llm_tpu_torch.tools.profile_decode\n"
+        "import distributed_lms_raft_llm_tpu_torch.tools.regen_proto_stream\n"
         "from distributed_lms_raft_llm_tpu_torch.tools import "
         "gen_program_inventory as g\n"
         "g.shipped_domains()\n"
@@ -332,7 +336,9 @@ def test_port_imports_no_jax():
                    "client.cli", "client.gui", "serving.lms_cluster",
                    "train", "train.train", "train.data", "train.checkpoint",
                    "parallel", "parallel.mesh", "parallel.partition",
-                   "parallel.spmd"):
+                   "parallel.spmd", "tools.train_vocab",
+                   "tools.make_local_checkpoint", "tools.profile_decode",
+                   "tools.regen_proto_stream"):
         assert f"distributed_lms_raft_llm_tpu_torch.{module}" in mods
     jax_mods = [m for m in mods if m == "jax" or m.startswith("jax.")]
     ref_mods = [m for m in mods if m == "distributed_lms_raft_llm_tpu"
